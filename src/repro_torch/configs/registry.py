@@ -1,0 +1,23 @@
+"""Architecture registry, dense entries (counterpart of
+`repro.configs.registry`): ``--arch <id>`` resolution."""
+from __future__ import annotations
+
+from .base import ModelConfig
+from . import codeqwen15_7b, minitron_4b, phi4_mini_38b, qwen2_7b
+
+_MODULES = {
+    "qwen2-7b": qwen2_7b,
+    "codeqwen1.5-7b": codeqwen15_7b,
+    "phi4-mini-3.8b": phi4_mini_38b,
+    "minitron-4b": minitron_4b,
+}
+
+ARCH_IDS = tuple(_MODULES)
+
+
+def get_config(arch_id: str) -> ModelConfig:
+    return _MODULES[arch_id].CONFIG
+
+
+def get_smoke(arch_id: str) -> ModelConfig:
+    return _MODULES[arch_id].SMOKE

@@ -1,0 +1,36 @@
+"""Weight conversion: reference parameters → the port's `Params`.
+
+`repro.models.transformer.init` returns nested dicts of arrays; the port's
+`state_dict` keys are those paths joined with "." with the same layout
+(layers stacked on a leading L axis) and dtype, so conversion is a rename.
+The input is the nested dict with numpy leaves (``np.asarray`` of each JAX
+array); bfloat16 leaves (numpy's ml_dtypes bfloat16) keep their bits.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict
+
+import numpy as np
+import torch
+
+from .models.transformer import Params
+
+
+def _tensor(x: Any) -> torch.Tensor:
+    arr = np.asarray(x)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.uint16).copy()).view(
+            torch.bfloat16)
+    return torch.from_numpy(arr.copy())
+
+
+def _convert(tree: Dict[str, Any], device) -> Dict[str, Any]:
+    return {name: (_convert(v, device) if isinstance(v, dict)
+                   else _tensor(v).to(device))
+            for name, v in tree.items()}
+
+
+def params_from_numpy(tree: Dict[str, Any], device="cuda") -> Params:
+    """Nested dict of numpy arrays (reference parameter tree) → `Params`
+    on ``device``."""
+    return Params(_convert(tree, torch.device(device)))

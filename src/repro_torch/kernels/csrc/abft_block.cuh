@@ -1,0 +1,165 @@
+// Block-level ABFT helpers shared by ft_gemm.cu and flash_ft.cu: warp and
+// block reductions, first-argmax location, and the verification step that
+// turns checksum residuals into a verdict and a report update.
+//
+// All helpers are called by every thread of a 256-thread block (they use
+// __syncthreads()).
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+namespace abft {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr unsigned kFull = 0xffffffffu;
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+__device__ __forceinline__ void store(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16(v);
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
+  return v;
+}
+
+// Max over the whole block; every thread gets the result.
+__device__ inline float block_max(float v, float* red) {
+  for (int off = 16; off > 0; off >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(kFull, v, off));
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x / 32] = v;
+  __syncthreads();
+  float r = red[0];
+  for (int w = 1; w < kWarps; ++w) r = fmaxf(r, red[w]);
+  __syncthreads();
+  return r;
+}
+
+// out[r] = sum_c x[r * stride + c] for r < rows, one warp per row. No
+// barrier: the caller synchronises before reading out.
+__device__ inline void row_sums(const float* x, int rows, int cols,
+                                int stride, float* out) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
+  for (int r = warp; r < rows; r += kWarps) {
+    float s = 0.0f;
+    for (int c = lane; c < cols; c += 32) s += x[r * stride + c];
+    s = warp_sum(s);
+    if (lane == 0) out[r] = s;
+  }
+}
+
+// out[c] = sum_r x[r * stride + c] for c < COLS, with part[] holding
+// kThreads partial sums. Ends with a barrier.
+template <int COLS>
+__device__ void col_sums(const float* x, int rows, int stride, float* part,
+                         float* out) {
+  static_assert(kThreads % COLS == 0, "COLS must divide the block");
+  constexpr int P = kThreads / COLS;
+  const int c = threadIdx.x % COLS, p = threadIdx.x / COLS;
+  float s = 0.0f;
+  for (int r = p; r < rows; r += P) s += x[r * stride + c];
+  part[p * COLS + c] = s;
+  __syncthreads();
+  if (threadIdx.x < COLS) {
+    float t = 0.0f;
+    for (int q = 0; q < P; ++q) t += part[q * COLS + threadIdx.x];
+    out[threadIdx.x] = t;
+  }
+  __syncthreads();
+}
+
+// First argmax of |x[0..n)| by one warp (ties go to the lower index, like
+// jnp.argmax); lane 0 ends with (best, idx).
+__device__ inline void warp_argmax_abs(const float* x, int n, float& best,
+                                       int& idx) {
+  const int lane = threadIdx.x & 31;
+  best = -1.0f;
+  idx = 0;
+  for (int i = lane; i < n; i += 32) {
+    const float v = fabsf(x[i]);
+    if (v > best) { best = v; idx = i; }
+  }
+  for (int off = 16; off > 0; off >>= 1) {
+    const float ob = __shfl_down_sync(kFull, best, off);
+    const int oi = __shfl_down_sync(kFull, idx, off);
+    if (ob > best || (ob == best && oi < idx)) { best = ob; idx = oi; }
+  }
+}
+
+struct Verdict {
+  int det, row, col;   // row/col local to the verified block
+  float mag;
+};
+
+// Scratch of one verification; MAXR/MAXC bound the verified block.
+template <int MAXR, int MAXC>
+struct VerifySmem {
+  float dcol[MAXC];
+  float drow[MAXR];
+  float part[kThreads];
+  float best[2];
+  int idx[2];
+  Verdict v;
+};
+
+// Verify a ROWS x COLS block held in c (row stride `stride`) against its
+// checksums: residuals, first-argmax locate, detection (max residual > tau)
+// and the report update, which thread 0 keeps in rep[8]:
+// [det, corr, row, col, mag, max_residual, tau, k] with the located
+// position reported at (row + row_off, col + col_off). Every thread
+// returns the verdict; the caller applies the correction.
+template <int ROWS, int COLS, int MAXR, int MAXC>
+__device__ Verdict verify_block(const float* c, int stride,
+                                const float* colck, const float* rowck,
+                                float tau, float k_el, bool corrects,
+                                int row_off, int col_off,
+                                VerifySmem<MAXR, MAXC>& sm, float* rep) {
+  static_assert(ROWS <= MAXR && COLS <= MAXC, "");
+  col_sums<COLS>(c, ROWS, stride, sm.part, sm.dcol);
+  row_sums(c, ROWS, COLS, stride, sm.drow);
+  __syncthreads();
+  for (int i = threadIdx.x; i < COLS; i += kThreads) sm.dcol[i] -= colck[i];
+  for (int i = threadIdx.x; i < ROWS; i += kThreads) sm.drow[i] -= rowck[i];
+  __syncthreads();
+  const int warp = threadIdx.x / 32;
+  if (warp < 2) {
+    float best;
+    int idx;
+    warp_argmax_abs(warp == 0 ? sm.dcol : sm.drow, warp == 0 ? COLS : ROWS,
+                    best, idx);
+    if ((threadIdx.x & 31) == 0) {
+      sm.best[warp] = best;
+      sm.idx[warp] = idx;
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const float resid = fmaxf(sm.best[0], sm.best[1]);
+    Verdict v;
+    v.det = resid > tau;
+    v.col = sm.idx[0];
+    v.row = sm.idx[1];
+    v.mag = v.det ? sm.dcol[v.col] : 0.0f;
+    sm.v = v;
+    rep[0] += v.det ? 1.0f : 0.0f;
+    rep[1] += (v.det && corrects) ? 1.0f : 0.0f;
+    if (v.det) {
+      rep[2] = (float)(v.row + row_off);
+      rep[3] = (float)(v.col + col_off);
+      rep[4] = v.mag;
+    }
+    rep[5] = fmaxf(rep[5], resid);
+    rep[6] = tau;
+    rep[7] = k_el;
+  }
+  __syncthreads();
+  return sm.v;
+}
+
+}  // namespace abft

@@ -1,0 +1,360 @@
+// ABFT GEMM for Hopper (sm_90a): C = epilogue(A·B) with online
+// Huang–Abraham checksums, one located and corrected error per output block
+// per verification.
+//
+// Replaces the TPU kernels K1 and K5 of the JAX package:
+//   src/repro/kernels/templates/emit.py:render (2-D and uniform-batched
+//   bodies), launched by templates/registry.py:kernel_call and
+//   templates/registry.py:batched_kernel_call.
+// The 2-D kernel is the batched kernel with batch 1. blockIdx.z walks up
+// to two batch dims (b0, b1); every operand dim has its own element stride
+// (0 on the batch dims of a shared B), so a permuted view such as the
+// transposed KV cache of decode attention is read in place, not copied.
+//
+// Design (simple and right first):
+//   * one CTA of 256 threads per (BM x BN) output block; the k loop stages
+//     the A tile (transposed, f32) and the B tile (f32) in shared memory and
+//     each thread accumulates a TM x TN micro-tile in f32 registers;
+//   * the checksums ride the staged tiles: the running column checksum
+//     (e^T A_tile)·B_tile, the row checksum A_tile·(B_tile e), and the
+//     running max|A|, max|B| over the tiles loaded so far for the threshold
+//     tau = rel_tau·eps32·k_elapsed·max|A|·max|B|;
+//   * verify="step" verifies on every non-last step; at the end the linear
+//     epilogue prefix (bias, and the residual when no activation follows) is
+//     applied and folded into the checksums, then verify, locate (first
+//     argmax, ties to the lower index), branchless correction, the
+//     nonlinear suffix, and one write of C;
+//   * ragged edges are masked by bounds (loads past (M, N, K) read zero);
+//     the bias is added to every tile row, padding rows included, like the
+//     reference's fold, so the column residuals agree on the ragged edge.
+// What bounds it on the H100: decode-shaped calls (M <= 16) are bound by
+// the bytes of B (the weights), prefill-shaped calls by operations. This
+// first version runs the MACs on the CUDA cores in f32 (no tensor cores, no
+// TMA pipeline), so it is far from both bounds; PERF.md carries its times.
+//
+// Report per output block, f32[8]: [detected, corrected, row, col,
+// magnitude, max_residual, tau, k_elapsed], accumulated like the
+// reference's _record: det/corr add, row/col/mag overwrite on detection,
+// max_residual takes the max, tau and k are overwritten at every verify.
+#include "abft_block.cuh"
+
+namespace {
+
+using namespace abft;
+
+enum Epilogue {
+  kEpiNone = 0, kEpiBias = 1, kEpiSilu = 2, kEpiBiasSilu = 3,
+  kEpiGelu = 4, kEpiRelu = 5, kEpiResidual = 6
+};
+
+template <int EPI>
+struct Chain {
+  static constexpr bool bias = EPI == kEpiBias || EPI == kEpiBiasSilu;
+  // 0 none, 1 silu, 2 gelu (tanh approximation), 3 relu
+  static constexpr int act = (EPI == kEpiSilu || EPI == kEpiBiasSilu) ? 1
+                             : EPI == kEpiGelu ? 2 : EPI == kEpiRelu ? 3 : 0;
+  static constexpr bool residual = EPI == kEpiResidual;
+};
+
+template <int ACT>
+__device__ __forceinline__ float activate(float y) {
+  if (ACT == 1) return y * (1.0f / (1.0f + expf(-y)));
+  if (ACT == 2) {
+    const float c = 0.7978845608028654f;  // sqrt(2/pi)
+    return 0.5f * y * (1.0f + tanhf(c * (y + 0.044715f * y * y * y)));
+  }
+  if (ACT == 3) return fmaxf(y, 0.0f);
+  return y;
+}
+
+struct GemmArgs {
+  const void* a;
+  const void* b;
+  const void* bias;
+  const void* res;
+  void* out;
+  float* rep;
+  int M, N, K;
+  int nb1;                 // inner batch count: z = b0 * nb1 + b1
+  long long sa0, sa1;      // A batch strides in elements
+  long long sb0, sb1;      // B batch strides (0, 0: one shared B)
+  int sam, sak, sbk, sbn;  // A row / k, B k / column strides in elements
+  int gm, gn, ksteps;
+  int verify_step, corrects;
+  float tau_coef;    // rel_tau * eps32
+  int inj_enable, inj_batch, inj_row, inj_col, inj_k;
+  float inj_mag;
+};
+
+// Element (r, c) of a matrix with strides (sr, sc). A unit column stride
+// (the row-major case) takes one wide multiply, as a dense operand would.
+template <typename T>
+__device__ __forceinline__ float load_at(const T* p, int r, int c, int sr,
+                                         int sc) {
+  const long long rr = (long long)r * sr;
+  return to_f32(p[sc == 1 ? rr + c : rr + (long long)c * sc]);
+}
+
+template <typename T, bool FT, int EPI, int BM, int BN, int BK, int TM, int TN>
+__global__ void __launch_bounds__(kThreads)
+ft_gemm_kernel(const GemmArgs g) {
+  constexpr int TX = BN / TN, TY = BM / TM;
+  static_assert(TX * TY == kThreads, "thread tile must cover the block");
+  using Ch = Chain<EPI>;
+
+  __shared__ float As[BK][BM + 1];   // A tile, transposed
+  __shared__ float Bs[BK][BN];
+  __shared__ float Cs[BM][BN + 1];   // block values at verification
+  __shared__ float colck[BN], rowck[BM], asum[BK], bsum[BK], red[kWarps];
+  __shared__ VerifySmem<BM, BN> vs;
+
+  const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX;
+  const int bj = blockIdx.x, bi = blockIdx.y, bz = blockIdx.z;
+  const int row0 = bi * BM, col0 = bj * BN;
+  const int M = g.M, N = g.N, K = g.K;
+  const int z0 = bz / g.nb1, z1 = bz % g.nb1;
+  const T* A = static_cast<const T*>(g.a) + z0 * g.sa0 + z1 * g.sa1;
+  const T* B = static_cast<const T*>(g.b) + z0 * g.sb0 + z1 * g.sb1;
+
+  float acc[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
+  float amax = 0.0f, bmax = 0.0f;   // this thread's running max|A|, max|B|
+  float rep[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+  if (FT) {
+    for (int i = tid; i < BN; i += kThreads) colck[i] = 0.0f;
+    for (int i = tid; i < BM; i += kThreads) rowck[i] = 0.0f;
+  }
+  const bool inj_here = FT && g.inj_enable &&
+                        (g.inj_batch < 0 || g.inj_batch == bz);
+
+  for (int s = 0; s < g.ksteps; ++s) {
+    const int k0 = s * BK;
+    __syncthreads();
+    for (int idx = tid; idx < BM * BK; idx += kThreads) {
+      const int m = idx / BK, kk = idx % BK;
+      const int gr = row0 + m, gk = k0 + kk;
+      const float v = (gr < M && gk < K)
+                          ? load_at(A, gr, gk, g.sam, g.sak) : 0.0f;
+      As[kk][m] = v;
+      if (FT) amax = fmaxf(amax, fabsf(v));
+    }
+    for (int idx = tid; idx < BK * BN; idx += kThreads) {
+      const int kk = idx / BN, n = idx % BN;
+      const int gk = k0 + kk, gc = col0 + n;
+      const float v = (gk < K && gc < N)
+                          ? load_at(B, gk, gc, g.sbk, g.sbn) : 0.0f;
+      Bs[kk][n] = v;
+      if (FT) bmax = fmaxf(bmax, fabsf(v));
+    }
+    __syncthreads();
+    if (FT) {
+      row_sums(&As[0][0], BK, BM, BM + 1, asum);   // e^T A_tile
+      row_sums(&Bs[0][0], BK, BN, BN, bsum);       // B_tile e
+    }
+#pragma unroll 4
+    for (int kk = 0; kk < BK; ++kk) {
+      float av[TM], bv[TN];
+#pragma unroll
+      for (int i = 0; i < TM; ++i) av[i] = As[kk][ty * TM + i];
+#pragma unroll
+      for (int j = 0; j < TN; ++j) bv[j] = Bs[kk][tx * TN + j];
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+    if (!FT) continue;
+    __syncthreads();   // asum / bsum complete
+    for (int n = tid; n < BN; n += kThreads) {
+      float c = 0.0f;
+      for (int kk = 0; kk < BK; ++kk) c = fmaf(asum[kk], Bs[kk][n], c);
+      colck[n] += c;
+    }
+    for (int m = tid; m < BM; m += kThreads) {
+      float c = 0.0f;
+      for (int kk = 0; kk < BK; ++kk) c = fmaf(As[kk][m], bsum[kk], c);
+      rowck[m] += c;
+    }
+    // Emulated SEU on this step's accumulator (deterministic injection).
+    if (inj_here && s == g.inj_k) {
+      const int rl = g.inj_row - row0, cl = g.inj_col - col0;
+      if (rl >= 0 && rl < BM && cl >= 0 && cl < BN && rl / TM == ty &&
+          cl / TN == tx)
+        acc[rl % TM][cl % TN] += g.inj_mag;
+    }
+    if (g.verify_step && s != g.ksteps - 1) {
+      const float k_el = (float)min((s + 1) * BK, K);
+      const float am = block_max(amax, red), bm = block_max(bmax, red);
+      const float tau = fmaxf(g.tau_coef * k_el * am * bm, 1e-30f);
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) Cs[ty * TM + i][tx * TN + j] = acc[i][j];
+      __syncthreads();
+      const Verdict v = verify_block<BM, BN>(
+          &Cs[0][0], BN + 1, colck, rowck, tau, k_el, g.corrects, row0, col0,
+          vs, rep);
+      if (g.corrects && v.det && v.row / TM == ty && v.col / TN == tx)
+        acc[v.row % TM][v.col % TN] -= v.mag;
+    }
+  }
+
+  // ---- epilogue: fold, final verify, chain, cast, one write ------------
+  const T* bias = static_cast<const T*>(g.bias);
+  const T* res = static_cast<const T*>(g.res);
+  float am = 0.0f, bm = 0.0f;
+  if (FT) {
+    am = block_max(amax, red);
+    bm = block_max(bmax, red);
+  }
+  __syncthreads();
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) Cs[ty * TM + i][tx * TN + j] = acc[i][j];
+  __syncthreads();
+  // Linear prefix (folded into the checksums under FT): the bias, then the
+  // residual when no activation follows it.
+  constexpr bool fold_res = Ch::residual && Ch::act == 0;
+  if (Ch::bias || fold_res) {
+    for (int idx = tid; idx < BM * BN; idx += kThreads) {
+      const int m = idx / BN, n = idx % BN;
+      const int gr = row0 + m, gc = col0 + n;
+      float y = Cs[m][n];
+      if (Ch::bias) y += gc < N ? to_f32(bias[gc]) : 0.0f;
+      if (fold_res)
+        y += (gr < M && gc < N) ? to_f32(res[(long long)gr * N + gc]) : 0.0f;
+      Cs[m][n] = y;
+    }
+  }
+  if (FT) {
+    for (int n = tid; n < BN; n += kThreads) {
+      const int gc = col0 + n;
+      float add = 0.0f;
+      if (Ch::bias) add += (float)BM * (gc < N ? to_f32(bias[gc]) : 0.0f);
+      if (fold_res && gc < N)
+        for (int m = 0; m < BM && row0 + m < M; ++m)
+          add += to_f32(res[(long long)(row0 + m) * N + gc]);
+      colck[n] += add;
+    }
+    for (int m = tid; m < BM; m += kThreads) {
+      const int gr = row0 + m;
+      float add = 0.0f;
+      if (Ch::bias)
+        for (int n = 0; n < BN && col0 + n < N; ++n)
+          add += to_f32(bias[col0 + n]);
+      if (fold_res && gr < M)
+        for (int n = 0; n < BN && col0 + n < N; ++n)
+          add += to_f32(res[(long long)gr * N + col0 + n]);
+      rowck[m] += add;
+    }
+    __syncthreads();
+    const float k_el = (float)K;
+    const float tau = fmaxf(g.tau_coef * k_el * am * bm, 1e-30f);
+    const Verdict v = verify_block<BM, BN>(&Cs[0][0], BN + 1, colck, rowck,
+                                           tau, k_el, g.corrects, row0, col0,
+                                           vs, rep);
+    if (g.corrects && v.det && tid == 0) Cs[v.row][v.col] -= v.mag;
+    __syncthreads();
+  }
+  // Nonlinear suffix, cast and the single write of C.
+  T* out = static_cast<T*>(g.out) + (long long)bz * M * N;
+  for (int idx = tid; idx < BM * BN; idx += kThreads) {
+    const int m = idx / BN, n = idx % BN;
+    const int gr = row0 + m, gc = col0 + n;
+    if (gr >= M || gc >= N) continue;
+    float y = activate<Ch::act>(Cs[m][n]);
+    if (Ch::residual && !fold_res) y += to_f32(res[(long long)gr * N + gc]);
+    store(&out[(long long)gr * N + gc], y);
+  }
+  if (FT && tid == 0) {
+    float* r = g.rep + (((long long)bz * g.gm + bi) * g.gn + bj) * 8;
+    for (int q = 0; q < 8; ++q) r[q] = rep[q];
+  }
+}
+
+template <typename T, bool FT, int EPI, int BM, int BN, int BK, int TM, int TN>
+cudaError_t launch(GemmArgs g, int batch, cudaStream_t stream) {
+  g.gm = (g.M + BM - 1) / BM;
+  g.gn = (g.N + BN - 1) / BN;
+  g.ksteps = (g.K + BK - 1) / BK;
+  if (g.gm > 65535 || batch > 65535) return cudaErrorInvalidConfiguration;
+  dim3 grid(g.gn, g.gm, batch);
+  ft_gemm_kernel<T, FT, EPI, BM, BN, BK, TM, TN>
+      <<<grid, kThreads, 0, stream>>>(g);
+  return cudaGetLastError();
+}
+
+// Tile configurations (BM, BN, BK); kernels/ft_gemm.py:TILES lists the
+// same table in the same order.
+template <typename T, bool FT, int EPI>
+cudaError_t launch_tiles(int tiles, const GemmArgs& g, int batch,
+                         cudaStream_t st) {
+  if (tiles == 0) return launch<T, FT, EPI, 64, 64, 32, 4, 4>(g, batch, st);
+  if (tiles == 1) return launch<T, FT, EPI, 16, 128, 32, 2, 4>(g, batch, st);
+  return cudaErrorInvalidValue;
+}
+
+template <typename T, bool FT>
+cudaError_t launch_epi(int epi, int tiles, const GemmArgs& g, int batch,
+                       cudaStream_t st) {
+  switch (epi) {
+    case kEpiNone: return launch_tiles<T, FT, kEpiNone>(tiles, g, batch, st);
+    case kEpiBias: return launch_tiles<T, FT, kEpiBias>(tiles, g, batch, st);
+    case kEpiSilu: return launch_tiles<T, FT, kEpiSilu>(tiles, g, batch, st);
+    case kEpiBiasSilu:
+      return launch_tiles<T, FT, kEpiBiasSilu>(tiles, g, batch, st);
+    case kEpiGelu: return launch_tiles<T, FT, kEpiGelu>(tiles, g, batch, st);
+    case kEpiRelu: return launch_tiles<T, FT, kEpiRelu>(tiles, g, batch, st);
+    case kEpiResidual:
+      return launch_tiles<T, FT, kEpiResidual>(tiles, g, batch, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* ft_gemm_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// A (nb0, nb1, M, K) and B (nb0, nb1, K, N) with the element strides
+// sa0..sak and sb0..sbn (sb0 = sb1 = 0: one B shared by every slice); out
+// (nb0, nb1, M, N) and report (nb0, nb1, gm, gn, 8) contiguous row-major.
+// bias (N,) and residual (M, N), contiguous, only with one slice. dtype:
+// 0 f32, 1 bf16. epi: the Epilogue code. Returns the launch's cudaError_t.
+int ft_gemm_launch(const void* a, const void* b, const void* bias,
+                   const void* res, void* out, float* rep, int nb0, int nb1,
+                   int M, int N, int K, long long sa0, long long sa1, int sam,
+                   int sak, long long sb0, long long sb1, int sbk, int sbn,
+                   int dtype, int ft,
+                   int epi, int tiles, int verify_step, int corrects,
+                   float tau_coef, int inj_enable, int inj_batch, int inj_row,
+                   int inj_col, int inj_k, float inj_mag, void* stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || nb0 <= 0 || nb1 <= 0)
+    return cudaErrorInvalidValue;
+  const int batch = nb0 * nb1;
+  GemmArgs g{};
+  g.a = a; g.b = b; g.bias = bias; g.res = res; g.out = out; g.rep = rep;
+  g.M = M; g.N = N; g.K = K; g.nb1 = nb1;
+  g.sa0 = sa0; g.sa1 = sa1; g.sam = sam; g.sak = sak;
+  g.sb0 = sb0; g.sb1 = sb1; g.sbk = sbk; g.sbn = sbn;
+  g.verify_step = verify_step; g.corrects = corrects; g.tau_coef = tau_coef;
+  g.inj_enable = inj_enable; g.inj_batch = inj_batch; g.inj_row = inj_row;
+  g.inj_col = inj_col; g.inj_k = inj_k; g.inj_mag = inj_mag;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return ft ? launch_epi<float, true>(epi, tiles, g, batch, st)
+              : launch_epi<float, false>(epi, tiles, g, batch, st);
+  if (dtype == 1)
+    return ft ? launch_epi<__nv_bfloat16, true>(epi, tiles, g, batch, st)
+              : launch_epi<__nv_bfloat16, false>(epi, tiles, g, batch, st);
+  return cudaErrorInvalidValue;
+}
+
+}  // extern "C"

@@ -1,0 +1,331 @@
+"""ABFT GEMM — wrapper of the CUDA kernel `csrc/ft_gemm.cu` and its plain
+PyTorch version.
+
+Replaces the TPU kernels K1 (2-D) and K5 (uniform batched) of the JAX
+package: `repro/kernels/templates/emit.py:render`, launched by
+`templates/registry.py:kernel_call` and `:batched_kernel_call`. One source
+serves both: the 2-D kernel is the batched kernel with batch 1. Each has its
+own launch counter (`FT_GEMM_2D`, `FT_GEMM_BATCHED`).
+
+`ft_gemm` takes a CPU tensor to `ft_gemm_plain` and a CUDA tensor to the
+kernel; on a CUDA tensor it launches the kernel or raises. The plain
+version walks the same (bm, bn, bk) tile grid as the kernel — a Python loop
+over k-steps, vectorised over output blocks — and writes the same
+(…, gm, gn, 8) report, so the two can be held against each other on the
+card and the plain version against the reference on the CPU.
+
+What bounds the kernel on the H100 and what its design does about it is in
+the header of `csrc/ft_gemm.cu`.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Sequence, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from ..core.abft import F32EPS
+from ..core.policy import FTConfig
+from . import build
+from .templates import epilogues
+
+#: Compiled (bm, bn, bk) tile configurations, in the order of
+#: `launch_tiles` in csrc/ft_gemm.cu.
+TILES = ((64, 64, 32), (16, 128, 32))
+
+#: Epilogue chains the kernel is instantiated for → its `Epilogue` code.
+EPILOGUES = {(): 0, ("bias",): 1, ("silu",): 2, ("bias", "silu"): 3,
+             ("gelu",): 4, ("relu",): 5, ("residual",): 6}
+
+REPORT_WIDTH = 8
+
+_BATCH_STRIDES = [ctypes.c_longlong] * 2
+_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+             + _BATCH_STRIDES + [ctypes.c_int] * 2
+             + _BATCH_STRIDES + [ctypes.c_int] * 8 + [ctypes.c_float]
+             + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p])
+FT_GEMM_2D = build.Kernel("ft_gemm", "ft_gemm_launch", _ARGTYPES)
+FT_GEMM_BATCHED = build.Kernel("ft_gemm", "ft_gemm_launch", _ARGTYPES)
+
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def pick_tiles(m: int) -> Tuple[int, int, int]:
+    """The tile configuration for an M-row problem: decode-shaped problems
+    (M ≤ 16) take the short-wide tile, everything else the square one."""
+    return TILES[1] if m <= 16 else TILES[0]
+
+
+def cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _check_ft(ft: Optional[FTConfig]) -> bool:
+    """True when ``ft`` asks for checksums; raises for the levels the
+    kernel does not implement."""
+    if ft is None or not ft.enabled:
+        return False
+    if ft.level != "block":
+        raise NotImplementedError(
+            f"FT level {ft.level!r} is not implemented by the CUDA GEMM "
+            f"kernel (only 'block'); 'tile' and 'inner' are later work")
+    return True
+
+
+# ---------------------------------------------------------------------------
+# shared locate / record step of the plain versions
+# ---------------------------------------------------------------------------
+
+def locate_record(d_col: torch.Tensor, d_row: torch.Tensor,
+                  tau: torch.Tensor, k_el: torch.Tensor, corrects: bool,
+                  rep: torch.Tensor, row_off, col_off, live=None):
+    """Per-block verdicts from residuals d_col (…, C) and d_row (…, R):
+    first argmax of each, detection (max residual > tau), the signed column
+    residual at the located column as the magnitude, and the report update
+    of the reference's `_record` (in place on rep (…, 8)). ``live`` (bool
+    (…)) limits the update to blocks that ran this step. Returns
+    (det, row, col, mag)."""
+    acol, arow = torch.abs(d_col), torch.abs(d_row)
+    col = torch.argmax(acol, dim=-1)
+    row = torch.argmax(arow, dim=-1)
+    resid = torch.maximum(acol.amax(-1), arow.amax(-1))
+    det = resid > tau
+    if live is not None:
+        det = det & live
+    mag = torch.where(det, torch.gather(d_col, -1, col[..., None])[..., 0],
+                      torch.zeros_like(resid))
+    upd = torch.ones_like(det) if live is None else live
+    detf = det.float()
+    rep[..., 0] += detf
+    if corrects:
+        rep[..., 1] += detf
+    rep[..., 2] = torch.where(det, (row + row_off).float(), rep[..., 2])
+    rep[..., 3] = torch.where(det, (col + col_off).float(), rep[..., 3])
+    rep[..., 4] = torch.where(det, mag, rep[..., 4])
+    rep[..., 5] = torch.where(upd, torch.maximum(rep[..., 5], resid),
+                              rep[..., 5])
+    rep[..., 6] = torch.where(upd, tau.expand_as(resid), rep[..., 6])
+    rep[..., 7] = torch.where(upd, k_el.expand_as(resid), rep[..., 7])
+    return det, row, col, mag
+
+
+# ---------------------------------------------------------------------------
+# plain version
+# ---------------------------------------------------------------------------
+
+def ft_gemm_plain(a: torch.Tensor, b: torch.Tensor, *,
+                  tiles: Sequence[int], chain: Tuple[str, ...] = (),
+                  bias: Optional[torch.Tensor] = None,
+                  residual: Optional[torch.Tensor] = None,
+                  ft: Optional[FTConfig] = None,
+                  inj: Optional[Sequence[int]] = None,
+                  inj_mag: float = 0.0
+                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The kernel's function in plain PyTorch, on the kernel's tile grid.
+
+    a (M, K), or (*lead, M, K) with one or two leading batch dims; b (K, N),
+    or (*lead, K, N) with a batched a. Returns (C, report) with C in a's
+    dtype and report (gm, gn, 8) — (*lead, gm, gn, 8) when batched — or
+    None with FT off. ``inj`` is the batched kernels' injection vector
+    [enable, batch, row, col, k_step]: with enable = 1, ``inj_mag`` is added
+    to the accumulator at global (row, col) on k-step k_step, in batch slice
+    ``batch`` of the flattened leading dims (< 0: every slice)."""
+    ft_on = _check_ft(ft)
+    lead = tuple(a.shape[:-2])
+    a3 = a.reshape((-1,) + tuple(a.shape[-2:]))
+    b3 = b.reshape((-1,) + tuple(b.shape[-2:]))
+    nb, m, k = a3.shape
+    n = b3.shape[-1]
+    bm, bn, bk = tiles
+    gm, gn, gk = cdiv(m, bm), cdiv(n, bn), cdiv(k, bk)
+    mp, np_, kp = gm * bm, gn * bn, gk * bk
+    dev = a.device
+    af = F.pad(a3.float(), (0, kp - k, 0, mp - m))
+    bf = F.pad(b3.float(), (0, np_ - n, 0, kp - k))
+    nbb = bf.shape[0]
+    acc = torch.zeros(nb, mp, np_, dtype=torch.float32, device=dev)
+    rep = colck = rowck = amax = bmax = None
+    if ft_on:
+        colck = torch.zeros(nb, gm, gn, bn, device=dev)
+        rowck = torch.zeros(nb, gm, gn, bm, device=dev)
+        amax = torch.zeros(nb, gm, device=dev)
+        bmax = torch.zeros(nbb, gn, device=dev)
+        rep = torch.zeros(nb, gm, gn, REPORT_WIDTH, device=dev)
+        coef = torch.tensor(ft.rel_tau * F32EPS, dtype=torch.float32,
+                            device=dev)
+        bi = torch.arange(nb, device=dev)[:, None, None]
+        ii = torch.arange(gm, device=dev)[None, :, None]
+        jj = torch.arange(gn, device=dev)[None, None, :]
+
+    def tau_at(k_el):
+        return torch.clamp_min(coef * k_el * amax[:, :, None]
+                               * bmax[:, None, :], 1e-30)
+
+    def verify(k_el):
+        blocks = acc.view(nb, gm, bm, gn, bn)
+        d_col = blocks.sum(2) - colck
+        d_row = blocks.sum(4).permute(0, 1, 3, 2) - rowck
+        det, row, col, mag = locate_record(
+            d_col, d_row, tau_at(k_el), k_el, ft.corrects, rep,
+            ii * bm, jj * bn)
+        if ft.corrects:
+            blocks.index_put_((bi, ii, row, jj, col), -mag, accumulate=True)
+
+    for s in range(gk):
+        a_s = af[:, :, s * bk:(s + 1) * bk]          # (nb, mp, bk)
+        b_s = bf[:, s * bk:(s + 1) * bk, :]          # (nbb, bk, np)
+        delta = torch.matmul(a_s, b_s)
+        if not ft_on:
+            acc += delta
+            continue
+        if inj is not None and inj[0] == 1 and s == inj[4]:
+            _, ib, ir, ic, _ = inj
+            if 0 <= ir < mp and 0 <= ic < np_:
+                sl = slice(None) if ib < 0 else slice(ib, ib + 1)
+                delta[sl, ir, ic] += inj_mag
+        acc += delta
+        asum = a_s.reshape(nb, gm, bm, bk).sum(2)                # (nb, gm, bk)
+        colck += torch.matmul(asum, b_s).view(nb, gm, gn, bn)
+        bsum = b_s.reshape(nbb, bk, gn, bn).sum(3)               # (nbb, bk, gn)
+        rowck += (torch.matmul(a_s, bsum).view(nb, gm, bm, gn)
+                  .permute(0, 1, 3, 2))
+        amax = torch.maximum(amax, a_s.abs().reshape(nb, gm, bm * bk)
+                             .amax(-1))
+        bmax = torch.maximum(bmax, b_s.abs().reshape(nbb, bk, gn, bn)
+                             .amax((1, 3)))
+        if ft.verify == "step" and s != gk - 1:
+            verify(torch.tensor(float(min((s + 1) * bk, k)), device=dev))
+
+    # epilogue: linear prefix folded into the checksums (FT), final verify,
+    # then the nonlinear suffix.
+    bias_p = res_p = None
+    if bias is not None:
+        bias_p = F.pad(bias.float().reshape(1, n), (0, np_ - n))  # (1, np)
+    if residual is not None:
+        res_p = F.pad(residual.float().reshape(1, m, n),
+                      (0, np_ - n, 0, mp - m))                    # (1, mp, np)
+    split = epilogues.fold_split(chain) if ft_on else 0
+    for name in chain[:split]:
+        if name == "bias":
+            acc = acc + bias_p
+            colck = colck + float(bm) * bias_p.view(1, 1, gn, bn)
+            rowck = rowck + bias_p.view(gn, bn).sum(-1)[None, None, :, None]
+        else:  # residual
+            acc = acc + res_p
+            blocks = res_p.view(1, gm, bm, gn, bn)
+            colck = colck + blocks.sum(2)
+            rowck = rowck + blocks.sum(4).permute(0, 1, 3, 2)
+    if ft_on:
+        verify(torch.tensor(float(k), device=dev))
+    aux = {"vector": bias_p, "tile": res_p}
+    for name in chain[split:]:
+        op = epilogues.get(name)
+        acc = op.apply(acc, aux[op.aux] if op.aux else None)
+    out = acc[:, :m, :n].to(a.dtype).reshape(lead + (m, n))
+    if rep is not None:
+        rep = rep.reshape(lead + (gm, gn, REPORT_WIDTH))
+    return out, rep
+
+
+# ---------------------------------------------------------------------------
+# the wrapper
+# ---------------------------------------------------------------------------
+
+def ft_gemm(a: torch.Tensor, b: torch.Tensor, *,
+            chain: Tuple[str, ...] = (),
+            bias: Optional[torch.Tensor] = None,
+            residual: Optional[torch.Tensor] = None,
+            ft: Optional[FTConfig] = None,
+            inj: Optional[Sequence[int]] = None,
+            inj_mag: float = 0.0,
+            tiles: Optional[Sequence[int]] = None
+            ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """C = chain(A·B) with block-level online ABFT when ``ft`` is enabled.
+
+    a (M, K) runs K1 (2-D); a (*lead, M, K) with one or two leading batch
+    dims runs K5 (batched) with b (*lead, K, N) or a shared b (K, N). The
+    kernel reads A and B through their strides, so permuted views are not
+    copied. ``tiles`` defaults to `pick_tiles(M)`. A CPU tensor runs
+    `ft_gemm_plain`; a CUDA tensor launches the kernel or raises. Returns
+    (C, report|None) as `ft_gemm_plain` does."""
+    chain = tuple(chain)
+    m = a.shape[-2]
+    tiles = tuple(tiles) if tiles is not None else pick_tiles(m)
+    if a.device.type == "cpu":
+        return ft_gemm_plain(a, b, tiles=tiles, chain=chain, bias=bias,
+                             residual=residual, ft=ft, inj=inj,
+                             inj_mag=inj_mag)
+    if a.device.type != "cuda":
+        raise ValueError(f"ft_gemm: unsupported device {a.device}")
+    return _launch(a, b, chain=chain, bias=bias, residual=residual, ft=ft,
+                   inj=inj, inj_mag=inj_mag, tiles=tiles)
+
+
+def _launch(a, b, *, chain, bias, residual, ft, inj, inj_mag, tiles):
+    ft_on = _check_ft(ft)
+    build.check_device(a)
+    batched = a.dim() > 2
+    shared = b.dim() == 2
+    if a.dim() not in (2, 3, 4) or not (shared or b.dim() == a.dim()):
+        raise ValueError(f"ft_gemm: bad ranks {tuple(a.shape)} x "
+                         f"{tuple(b.shape)}")
+    lead = tuple(a.shape[:-2])
+    m, k = a.shape[-2:]
+    n = b.shape[-1]
+    if b.shape[-2] != k or (not shared and tuple(b.shape[:-2]) != lead):
+        raise ValueError(f"ft_gemm: shapes {tuple(a.shape)} x "
+                         f"{tuple(b.shape)} do not match")
+    if a.dtype not in DTYPE_CODES or b.dtype != a.dtype:
+        raise TypeError(f"ft_gemm: the kernel takes float32 or bfloat16 "
+                        f"operands of one dtype, got {a.dtype}, {b.dtype}")
+    if tiles not in TILES:
+        raise ValueError(f"ft_gemm: tiles {tiles} are not compiled; "
+                         f"choose one of {TILES}")
+    epi = EPILOGUES.get(chain)
+    if epi is None:
+        raise NotImplementedError(f"ft_gemm: the kernel has no instance for "
+                                  f"the epilogue chain {chain}")
+    aux = [x for x in (bias, residual) if x is not None]
+    if batched and aux:
+        raise ValueError("ft_gemm: bias/residual are 2-D features")
+    if ("bias" in chain) != (bias is not None) or (
+            ("residual" in chain) != (residual is not None)):
+        raise ValueError(f"ft_gemm: chain {chain} and aux operands disagree")
+    if bias is not None and bias.numel() != n:
+        raise ValueError(f"ft_gemm: bias has {bias.numel()} elements, "
+                         f"expected {n}")
+    if residual is not None and tuple(residual.shape) != (m, n):
+        raise ValueError(f"ft_gemm: residual {tuple(residual.shape)}, "
+                         f"expected {(m, n)}")
+    for x in (a, b, *aux):
+        if x.device != a.device or x.dtype != a.dtype:
+            raise ValueError("ft_gemm: operands must share device and dtype")
+    for x in aux:
+        if not x.is_contiguous():
+            raise ValueError("ft_gemm: bias and residual must be contiguous")
+    bm, bn, _ = tiles
+    gm, gn = cdiv(m, bm), cdiv(n, bn)
+    out = torch.empty(lead + (m, n), dtype=a.dtype, device=a.device)
+    rep = (torch.empty(lead + (gm, gn, REPORT_WIDTH), dtype=torch.float32,
+                       device=a.device) if ft_on else None)
+    inj = tuple(inj) if (ft_on and inj is not None) else (0, 0, 0, 0, 0)
+    # Two batch dims (b0, b1) with their strides; absent ones have extent 1.
+    nb0, nb1 = ((1, 1) + lead)[-2:]
+    sa = ((0, 0) + a.stride())[-4:]
+    sb = (0, 0) + b.stride() if shared else ((0, 0) + b.stride())[-4:]
+    # Offsets within one slice are 64-bit; the strides themselves are int32.
+    if max(sa[2:] + sb[2:]) >= 2 ** 31:
+        raise ValueError(f"ft_gemm: row / column strides {sa[2:]}, {sb[2:]} "
+                         f"exceed int32")
+    kernel = FT_GEMM_BATCHED if batched else FT_GEMM_2D
+    kernel(a.data_ptr(), b.data_ptr(),
+           None if bias is None else bias.data_ptr(),
+           None if residual is None else residual.data_ptr(),
+           out.data_ptr(), None if rep is None else rep.data_ptr(),
+           nb0, nb1, m, n, k, *sa, *sb,
+           DTYPE_CODES[a.dtype], int(ft_on), epi, TILES.index(tiles),
+           int(ft_on and ft.verify == "step"), int(ft_on and ft.corrects),
+           ft.rel_tau * F32EPS if ft_on else 0.0,
+           *inj, inj_mag, torch.cuda.current_stream(a.device).cuda_stream)
+    return out, rep

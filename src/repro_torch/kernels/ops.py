@@ -1,0 +1,234 @@
+"""Public fronts of the kernels (counterpart of `repro.kernels.ops`).
+
+`gemm_call` is the front door of the GEMM kernel: it resolves a
+`templates.KernelSpec` (FT level × epilogue chain) against the problem,
+encodes the deterministic injection and calls `kernels.ft_gemm.ft_gemm` —
+the CUDA kernel on a CUDA tensor, its plain version on a CPU tensor. The
+kernel reads A and B through their strides, so a transposed `lm_head` view
+or a permuted KV cache is not copied. `matmul`, `fused_matmul`, `ft_matmul`
+and `ft_matmul_report` specialise it; `grouped_gemm_call` is the uniform
+batched front and `flash_ft` the flash-attention front.
+
+Tiles: the reference autotunes its TPU tiles; here each kernel has its own
+compiled tile configurations (`ft_gemm.TILES`, `flashft.BLOCK`), chosen
+from the shape unless the caller pins them (the CPU tests pin the
+reference's tiles so per-block reports compare like with like).
+
+A stochastic injection campaign (``ft.inject_rate > 0`` with a key) raises
+`NotImplementedError`: the kernels carry no in-kernel SEU hook yet, and a
+campaign must never run clean in silence.
+"""
+from __future__ import annotations
+
+from typing import Optional, Sequence, Tuple
+
+import torch
+
+from ..core.fault_injection import check_campaign
+from ..core.policy import FTConfig, FT_OFF, InjectionSpec, ONLINE_BLOCK
+from . import flashft as kflash
+from . import ft_gemm as kgemm
+from .templates import BatchedKernelSpec, KernelSpec
+from .templates import spec as spec_mod
+
+Tiles = Optional[Sequence[int]]
+
+
+def encode_injection(spec: Optional[InjectionSpec]
+                     ) -> Tuple[Tuple[int, int, int, int], float]:
+    """InjectionSpec → the 2-D kernel's ([enable, row, col, k_step], mag)."""
+    if spec is None:
+        return (0, 0, 0, 0), 0.0
+    return (1, spec.row, spec.col, spec.k_step), float(spec.magnitude)
+
+
+def encode_batched_injection(spec: Optional[InjectionSpec], batch: int = 0
+                             ) -> Tuple[Tuple[int, ...], float]:
+    """InjectionSpec → the batched kernel's ([enable, batch, row, col,
+    k_step], mag); ``batch < 0`` lands the SEU in every slice."""
+    if spec is None:
+        return (0, 0, 0, 0, 0), 0.0
+    return ((1, batch, spec.row, spec.col, spec.k_step),
+            float(spec.magnitude))
+
+
+def encode_flash_injection(spec: Optional[InjectionSpec], bh: int = 0,
+                           q_block: int = 0
+                           ) -> Tuple[Tuple[int, ...], float]:
+    """InjectionSpec → the flash kernel's ([enable, bh, q_block, kv_step,
+    row, col], mag)."""
+    if spec is None:
+        return (0, 0, 0, 0, 0, 0), 0.0
+    return ((1, bh, q_block, spec.k_step, spec.row, spec.col),
+            float(spec.magnitude))
+
+
+def _resolve(spec: KernelSpec, ft: Optional[FTConfig]) -> FTConfig:
+    if ft is None:
+        ft = FTConfig(level=spec.ft_level) if spec.ft else FT_OFF
+    if spec.ft != ft.enabled or (spec.ft and ft.level != spec.ft_level):
+        raise ValueError(f"FTConfig(level={ft.level!r}, action={ft.action!r})"
+                         f" disagrees with spec.ft_level={spec.ft_level!r}")
+    return ft
+
+
+def _check_out_dtype(a: torch.Tensor, out_dtype) -> None:
+    if out_dtype is not None and out_dtype != a.dtype:
+        raise NotImplementedError("the GEMM kernel writes C in the operand "
+                                  "dtype")
+
+
+def gemm_call(spec: KernelSpec, a: torch.Tensor, b: torch.Tensor, *,
+              bias: Optional[torch.Tensor] = None,
+              residual: Optional[torch.Tensor] = None,
+              ft: Optional[FTConfig] = None,
+              inject: Optional[InjectionSpec] = None,
+              tiles: Tiles = None, out_dtype=None, key=None
+              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Run the GEMM kernel variant ``spec`` on (M, K) × (K, N). Returns
+    (C, report) — report (gm, gn, 8) = [detected, corrected, row, col,
+    magnitude, max_residual, tau, k_elapsed] per block, None with FT off."""
+    ft = _resolve(spec, ft)
+    check_campaign(ft, key)
+    _check_out_dtype(a, out_dtype)
+    if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
+        raise ValueError(f"gemm_call: bad shapes {tuple(a.shape)} x "
+                         f"{tuple(b.shape)}")
+    if bias is not None:
+        bias = bias.reshape(-1).contiguous()
+    if residual is not None:
+        residual = residual.contiguous()
+    (en, row, col, k_step), mag = encode_injection(inject)
+    # The 2-D kernel is the batched one with batch 1: batch -1 = every slice.
+    return kgemm.ft_gemm(a, b, chain=spec.epilogue,
+                         bias=bias, residual=residual,
+                         ft=ft if spec.ft else None,
+                         inj=(en, -1, row, col, k_step), inj_mag=mag,
+                         tiles=tiles)
+
+
+def matmul(a: torch.Tensor, b: torch.Tensor, *, tiles: Tiles = None,
+           out_dtype=None) -> torch.Tensor:
+    """Non-FT GEMM through the kernel: C = A @ B."""
+    out, _ = gemm_call(KernelSpec(), a, b, tiles=tiles, out_dtype=out_dtype)
+    return out
+
+
+def fused_matmul(a: torch.Tensor, b: torch.Tensor, *,
+                 bias: Optional[torch.Tensor] = None,
+                 act: Optional[str] = None,
+                 residual: Optional[torch.Tensor] = None,
+                 ft: FTConfig = FT_OFF,
+                 inject: Optional[InjectionSpec] = None,
+                 tiles: Tiles = None, out_dtype=None, key=None
+                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """C = act(A·B + bias) + residual in one kernel; with an enabled ``ft``
+    the linear prefix is folded into the checksum comparison, so ABFT
+    verifies and corrects post-epilogue. Returns (C, report|None)."""
+    spec = spec_mod.fused(bias=bias is not None, act=act,
+                          residual=residual is not None,
+                          ft_level=ft.level if ft.enabled else "off")
+    return gemm_call(spec, a, b, bias=bias, residual=residual, ft=ft,
+                     inject=inject, tiles=tiles, out_dtype=out_dtype,
+                     key=key)
+
+
+def grouped_gemm_call(spec: KernelSpec, a: torch.Tensor, b: torch.Tensor, *,
+                      ft: Optional[FTConfig] = None,
+                      inject: Optional[InjectionSpec] = None,
+                      inj_batch: int = 0, tiles: Tiles = None,
+                      out_dtype=None, key=None
+                      ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Uniform batched GEMM: a (B, M, K) × b (B, K, N) or shared (K, N) →
+    (B, M, N) in one launch, report (B, gm, gn, 8). A second leading batch
+    dim, a (B0, B1, M, K), is taken as it is, so strided views (the KV
+    cache of decode attention) reach the kernel without a copy. The
+    reference's grouped and tgmm branches (rank-2 a with ``group_ids``) are
+    MoE paths outside this package: a rank-2 a raises."""
+    if a.dim() not in (3, 4):
+        raise NotImplementedError("grouped_gemm_call: only the uniform "
+                                  "batched branch (rank-3 or 4 a) is ported")
+    bspec = BatchedKernelSpec(ft_level=spec.ft_level, epilogue=spec.epilogue)
+    ft = _resolve(bspec, ft)
+    check_campaign(ft, key)
+    _check_out_dtype(a, out_dtype)
+    if bspec.epilogue:
+        raise NotImplementedError("the batched kernel has no epilogue chain")
+    if b.dim() not in (2, a.dim()) or b.shape[-2] != a.shape[-1] or (
+            b.dim() > 2 and b.shape[:-2] != a.shape[:-2]):
+        raise ValueError(f"grouped_gemm_call: bad shapes {tuple(a.shape)} x "
+                         f"{tuple(b.shape)}")
+    inj, mag = encode_batched_injection(inject, inj_batch)
+    return kgemm.ft_gemm(a, b, ft=ft if bspec.ft else None, inj=inj,
+                         inj_mag=mag, tiles=tiles)
+
+
+def ft_matmul(a: torch.Tensor, b: torch.Tensor, *,
+              ft: FTConfig = ONLINE_BLOCK,
+              spec: Optional[InjectionSpec] = None,
+              tiles: Tiles = None, out_dtype=None) -> torch.Tensor:
+    """Fused fault-tolerant GEMM. Returns the corrected C."""
+    out, _ = ft_matmul_report(a, b, ft=ft, spec=spec, tiles=tiles,
+                              out_dtype=out_dtype)
+    return out
+
+
+def ft_matmul_report(a: torch.Tensor, b: torch.Tensor, *,
+                     ft: FTConfig = ONLINE_BLOCK,
+                     spec: Optional[InjectionSpec] = None,
+                     tiles: Tiles = None, out_dtype=None, key=None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """FT GEMM returning (C, report (gm, gn, 8))."""
+    return gemm_call(KernelSpec(ft_level=ft.level), a, b, ft=ft,
+                     inject=spec, tiles=tiles, out_dtype=out_dtype, key=key)
+
+
+def _check_flash_injection(spec: InjectionSpec, head: int, blk: int, *,
+                           bh: int, sq: int, skv: int, bq: int, bkv: int,
+                           causal: bool) -> None:
+    """A deterministic flash injection addresses one grid cell; a cell the
+    grid never executes (out of range, past the true lengths, or skipped
+    by the causal mask) would let the SEU silently never land, so raise."""
+    step = spec.k_step
+    q0, q1, kv0 = blk * bq, (blk + 1) * bq, step * bkv
+    ok = (0 <= head < bh and 0 <= blk < -(-sq // bq)
+          and 0 <= step < -(-skv // bkv) and q0 < sq and kv0 < skv
+          and (not causal or kv0 <= q1 - 1 + (skv - sq)))
+    if not ok:
+        raise ValueError(
+            f"flash_ft: deterministic injection targets head {head}, block "
+            f"{blk}, step {step} — a cell the ({bq}, {bkv}) grid over "
+            f"(Sq={sq}, Skv={skv}) never executes; the SEU would silently "
+            f"never land")
+
+
+def flash_ft(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+             ft: FTConfig = ONLINE_BLOCK, causal: bool = True,
+             spec: Optional[InjectionSpec] = None,
+             inj_bh: int = 0, inj_q_block: int = 0,
+             bq: Optional[int] = None, bkv: Optional[int] = None,
+             n_rep: int = 1, key=None):
+    """Flash attention with in-kernel ABFT. q: (BH, Sq, dh); k, v:
+    (BH / n_rep, Skv, dh) — query head h reads kv head h // n_rep, KV is
+    never repeated. Causal masking is bottom-right aligned on the true
+    lengths (needs Skv ≥ Sq). The score scale uses the true dh; the QK
+    threshold uses dh rounded up to 128, as the reference's lane-padded
+    kernel does. Returns (out, report (BH, ceil(Sq / bq), 8))."""
+    check_campaign(ft, key)
+    bh, sq, dh = q.shape
+    skv = k.shape[1]
+    if bh != k.shape[0] * n_rep:
+        raise ValueError(f"flash_ft: q {tuple(q.shape)} and k "
+                         f"{tuple(k.shape)} disagree with n_rep={n_rep}")
+    if causal and skv < sq:
+        raise ValueError(f"causal flash_ft is bottom-right aligned: needs "
+                         f"Skv >= Sq (got Sq={sq}, Skv={skv})")
+    if spec is not None:
+        _check_flash_injection(spec, inj_bh, inj_q_block, bh=bh, sq=sq,
+                               skv=skv, bq=bq or kflash.BLOCK,
+                               bkv=bkv or kflash.BLOCK, causal=causal)
+    inj, mag = encode_flash_injection(spec, inj_bh, inj_q_block)
+    return kflash.flash_ft_fwd(
+        q.contiguous(), k.contiguous(), v.contiguous(), ft=ft,
+        scale=dh ** -0.5, tau_dh=-(-dh // 128) * 128, n_rep=n_rep,
+        causal=causal, inj=inj, inj_mag=mag, bq=bq, bkv=bkv)

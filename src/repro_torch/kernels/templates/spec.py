@@ -1,0 +1,83 @@
+"""`KernelSpec` — one GEMM kernel variant (counterpart of
+`repro.kernels.templates.spec`): FT level × epilogue chain. The kernel
+accumulates in f32 and writes C in the operand dtype, and masks ragged
+edges by bounds, so the reference's acc/out dtype and masked fields have
+no counterpart here. `BatchedKernelSpec` adds the leading batch axis
+(uniform batched only: the grouped and tgmm variants of the reference are
+not part of this package)."""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+from . import epilogues
+
+FT_LEVELS = ("off", "inner", "tile", "block")
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelSpec:
+    ft_level: str = "off"
+    epilogue: Tuple[str, ...] = ()
+
+    batched = False
+
+    def __post_init__(self):
+        if self.ft_level not in FT_LEVELS:
+            raise ValueError(f"ft_level must be one of {FT_LEVELS}, "
+                             f"got {self.ft_level!r}")
+        object.__setattr__(self, "epilogue", tuple(self.epilogue))
+        seen_aux = set()
+        for name in self.epilogue:
+            op = epilogues.get(name)            # raises on unknown ops
+            if op.aux is not None:
+                if op.aux in seen_aux:
+                    raise ValueError(f"chain {self.epilogue} streams two "
+                                     f"'{op.aux}' aux operands")
+                seen_aux.add(op.aux)
+
+    @property
+    def ft(self) -> bool:
+        return self.ft_level != "off"
+
+    @property
+    def needs_bias(self) -> bool:
+        return any(epilogues.get(n).aux == "vector" for n in self.epilogue)
+
+    @property
+    def needs_residual(self) -> bool:
+        return any(epilogues.get(n).aux == "tile" for n in self.epilogue)
+
+    def fold_split(self) -> int:
+        """Index splitting the chain into the linear prefix (folded into the
+        final checksum comparison) and the suffix applied after
+        verification (everything from the first nonlinear op on)."""
+        return epilogues.fold_split(self.epilogue)
+
+
+@dataclasses.dataclass(frozen=True)
+class BatchedKernelSpec(KernelSpec):
+    """Uniform batched variant: A (B, M, K) × B (B, K, N), or a shared
+    (K, N) right operand. Every output block keeps its own checksums and
+    report row; aux-operand epilogues are not supported."""
+    batched = True
+
+    def __post_init__(self):
+        super().__post_init__()
+        if self.needs_bias or self.needs_residual:
+            raise ValueError("batched variants support aux-free epilogue "
+                             f"chains only, got {self.epilogue}")
+
+
+def fused(bias: bool = False, act: Optional[str] = None,
+          residual: bool = False, *, ft_level: str = "off") -> KernelSpec:
+    """Canonical-order spec: y = act(A·B + bias) + residual."""
+    chain = []
+    if bias:
+        chain.append("bias")
+    if act is not None:
+        epilogues.get(act)
+        chain.append(act)
+    if residual:
+        chain.append("residual")
+    return KernelSpec(ft_level=ft_level, epilogue=tuple(chain))

@@ -1,0 +1,266 @@
+"""Shared model building blocks (counterpart of `repro.models.blocks`). Every
+GEMM routes through `core.ft_dot` / `ft_dot_fused` / `ft_batched_dot`, so
+online ABFT protects the whole model.
+
+Conventions:
+  * parameters live in `nn.Module`s (see `models.transformer.Params`); the
+    model itself is plain functions over tensors;
+  * `Ctx` carries the FT policy, the compute dtype and the injection key;
+  * prefill attention: on the pallas FT backend the core runs the CUDA
+    flash-attention kernel (`kernels.flashft`, both in-kernel GEMMs ABFT
+    protected, GQA without repeating KV); elsewhere (and under
+    ``Ctx.attn_impl="chunked"``) the query-chunked core with protected
+    batched GEMMs runs;
+  * decode attention: two protected batched GEMMs (QKᵀ and PV) over the
+    grouped (B, KVH, rep, dh) layout.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+import torch
+
+from ..core import telemetry
+from ..core.ft_gemm import ft_batched_dot, ft_dot, ft_dot_fused
+from ..core.policy import FTConfig, FTLike, FT_OFF, resolve_ft
+
+NEG_INF = -1e30
+
+
+@dataclasses.dataclass(frozen=True)
+class Ctx:
+    """Per-call context: FT policy (an FTConfig or a per-site FTPolicy),
+    injection key (a `torch.Generator`; stochastic campaigns raise),
+    activation dtype, and the prefill attention core: "auto" (the flash
+    kernel on the pallas FT backend, the chunked core elsewhere), "flash"
+    or "chunked"."""
+    ft: FTLike = FT_OFF
+    key: Optional[torch.Generator] = None
+    dtype: Any = torch.bfloat16
+    attn_impl: str = "auto"
+
+    def ft_for(self, name: Optional[str]) -> FTConfig:
+        """The site's `FTConfig` under this context's policy."""
+        return resolve_ft(self.ft, name)
+
+    def subkey(self, name: str) -> Optional[torch.Generator]:
+        """The injection key of call site ``name`` (None: no campaign)."""
+        return self.key
+
+    def dot(self, name: str, x: torch.Tensor, w: torch.Tensor
+            ) -> torch.Tensor:
+        return ft_dot(x, w, ft=self.ft_for(name), key=self.subkey(name),
+                      site=name)
+
+    def dot_fused(self, name: str, x: torch.Tensor, w: torch.Tensor,
+                  bias: Optional[torch.Tensor] = None,
+                  act: Optional[str] = None) -> torch.Tensor:
+        """y = act(x @ w + bias) as one kernel-level op."""
+        return ft_dot_fused(x, w, bias=bias, act=act, ft=self.ft_for(name),
+                            key=self.subkey(name), site=name)
+
+    def bdot(self, name: str, a: torch.Tensor, b: torch.Tensor
+             ) -> torch.Tensor:
+        ft = self.ft_for(name)
+        ft = ft if ft.protect_attention else FT_OFF
+        return ft_batched_dot(a, b, ft=ft, key=self.subkey(name), site=name)
+
+
+# ---------------------------------------------------------------------------
+# initializers (seeded torch.Generator)
+# ---------------------------------------------------------------------------
+
+def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype,
+               scale: float = 0.02, device="cuda") -> torch.Tensor:
+    return (torch.randn(d_in, d_out, generator=gen, device=device)
+            * scale).to(dtype)
+
+
+def embed_init(gen: torch.Generator, vocab: int, d: int, dtype,
+               scale: float = 0.02, device="cuda") -> torch.Tensor:
+    return (torch.randn(vocab, d, generator=gen, device=device)
+            * scale).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# normalization / rope
+# ---------------------------------------------------------------------------
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6
+            ) -> torch.Tensor:
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return ((xf * torch.rsqrt(var + eps)) * w.float()).to(x.dtype)
+
+
+def rope_freqs(head_dim: int, theta: float, device) -> torch.Tensor:
+    return 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                         device=device) / head_dim))
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
+               ) -> torch.Tensor:
+    """x: (B, S, H, dh); positions: (S,) or (B, S)."""
+    dh = x.shape[-1]
+    freqs = rope_freqs(dh, theta, x.device)
+    angles = positions[..., None].float() * freqs       # (…, S, dh/2)
+    if angles.dim() == 2:
+        angles = angles[None, :, None, :]
+    else:
+        angles = angles[:, :, None, :]
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+def _chunked_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool, chunk: int, ft: FTConfig, key,
+                  q_offset: int = 0) -> torch.Tensor:
+    """Query-chunked attention core. q: (B, Sq, H, dh); k, v: (B, Sk, KVH,
+    dh) → (B, Sq, H, dh). Per chunk, GQA runs as a grouped batched matmul
+    over (B, KVH) with the rep·chunk rows folded together (KV never
+    repeated); both GEMMs ride `ft_batched_dot`."""
+    b, sq, h, dh = q.shape
+    _, sk, kvh, _ = k.shape
+    n_rep = h // kvh
+    scale = dh ** -0.5
+    kT = k.permute(0, 2, 3, 1)                           # (B, KVH, dh, Sk)
+    vT = v.permute(0, 2, 1, 3)                           # (B, KVH, Sk, dh)
+    kpos = torch.arange(sk, device=q.device)
+    chunk = min(chunk, sq)
+    if sq % chunk != 0:
+        chunk = sq
+    outs = []
+    for c0 in range(0, sq, chunk):
+        qc = q[:, c0:c0 + chunk]
+        c = qc.shape[1]
+        qpos = q_offset + c0 + torch.arange(c, device=q.device)
+        qg = qc.reshape(b, c, kvh, n_rep, dh).permute(0, 2, 3, 1, 4)
+        qg = qg.reshape(b, kvh, n_rep * c, dh)
+        scores = ft_batched_dot(qg, kT, ft=ft, key=key, site="attn_qk"
+                                ).float() * scale
+        if causal:
+            mask = (qpos[:, None] >= kpos[None, :]).repeat(n_rep, 1)
+            scores = torch.where(mask[None, None], scores,
+                                 torch.full_like(scores, NEG_INF))
+        p = torch.softmax(scores, dim=-1).to(qc.dtype)
+        out = ft_batched_dot(p, vT, ft=ft, key=key, site="attn_pv")
+        out = out.reshape(b, kvh, n_rep, c, dh).permute(0, 3, 1, 2, 4)
+        outs.append(out.reshape(b, c, h, dh))
+    return torch.cat(outs, dim=1)
+
+
+def _flash_attention(q, k, v, *, causal: bool, ft: FTConfig, key
+                     ) -> torch.Tensor:
+    """(B, Sq, H, dh) × (B, Sk, KVH, dh) → (B, Sq, H, dh) through the flash
+    kernel on head-major operands, recording one fused "attn_flash"
+    summary (both in-kernel GEMMs share one report)."""
+    from ..kernels import ops as kops
+    b, sq, h, dh = q.shape
+    _, sk, kvh, _ = k.shape
+    q3 = q.transpose(1, 2).reshape(b * h, sq, dh)
+    k3 = k.transpose(1, 2).reshape(b * kvh, sk, dh)
+    v3 = v.transpose(1, 2).reshape(b * kvh, sk, dh)
+    out3, rep = kops.flash_ft(q3, k3, v3, ft=ft, causal=causal,
+                              n_rep=h // kvh, key=key)
+    telemetry.record_summary(rep[..., 0].sum().to(torch.int32),
+                             rep[..., 5].max(), ft.corrects,
+                             site="attn_flash")
+    return out3.reshape(b, h, sq, dh).transpose(1, 2)
+
+
+def _use_flash(ctx: Ctx, ft: FTConfig, causal: bool, sq: int, sk: int,
+               q_offset: int) -> bool:
+    """The attention core of this call site (see `Ctx.attn_impl`): the
+    flash kernel's causal mask is bottom-right aligned, so causal dispatch
+    needs q_offset == Sk − Sq."""
+    if ctx.attn_impl == "chunked":
+        return False
+    geometry_ok = not causal or (sk >= sq and sk - sq == q_offset)
+    if ctx.attn_impl == "flash":
+        if not geometry_ok:
+            raise ValueError(
+                f"attn_impl='flash' needs bottom-right-aligned causal "
+                f"geometry (q_offset == Sk - Sq), got Sq={sq}, Sk={sk}, "
+                f"q_offset={q_offset}")
+        return True
+    return ft.enabled and ft.backend == "pallas" and geometry_ok
+
+
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool, chunk: int, ctx: Ctx,
+                      q_offset: int = 0) -> torch.Tensor:
+    """Prefill attention core. q: (B, Sq, H, dh); k, v: (B, Sk, KVH, dh)."""
+    fft = ctx.ft_for("attn_flash")
+    fft = fft if fft.protect_attention else FT_OFF
+    if _use_flash(ctx, fft, causal, q.shape[1], k.shape[1], q_offset):
+        return _flash_attention(q, k, v, causal=causal, ft=fft,
+                                key=ctx.subkey("attn_flash"))
+    cft = ctx.ft_for("attn_qk")
+    cft = cft if cft.protect_attention else FT_OFF
+    return _chunked_core(q, k, v, causal=causal, chunk=chunk, ft=cft,
+                         key=ctx.key, q_offset=q_offset)
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, length: torch.Tensor,
+                     ctx: Ctx) -> torch.Tensor:
+    """Single-position attention against a (B, Smax, KVH, dh) cache;
+    positions ≥ length are masked. q: (B, 1, H, dh). GQA is grouped: the
+    cache is never repeated."""
+    b, _, h, dh = q.shape
+    s, kvh = k_cache.shape[1], k_cache.shape[2]
+    n_rep = h // kvh
+    qg = q.reshape(b, kvh, n_rep, dh)                    # (B, KVH, rep, dh)
+    kT = k_cache.permute(0, 2, 3, 1)                     # (B, KVH, dh, S)
+    scores = ctx.bdot("dec_qk", qg, kT).float() * dh ** -0.5
+    mask = torch.arange(s, device=q.device)[None, :] < length[:, None]
+    scores = torch.where(mask[:, None, None, :], scores,
+                         torch.full_like(scores, NEG_INF))
+    p = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = ctx.bdot("dec_pv", p, v_cache.transpose(1, 2))
+    return out.reshape(b, 1, h, dh)
+
+
+def attention(p, x: torch.Tensor, cfg, ctx: Ctx, *, causal: bool = True,
+              positions: Optional[torch.Tensor] = None,
+              chunk: int = 512) -> torch.Tensor:
+    """Full self-attention block. x: (B, S, d); ``p`` holds wq/wk/wv/wo
+    (and bq/bk/bv with qkv bias)."""
+    b, s, _ = x.shape
+    q = ctx.dot_fused("wq", x, p["wq"], bias=p.get("bq"))
+    k = ctx.dot_fused("wk", x, p["wk"], bias=p.get("bk"))
+    v = ctx.dot_fused("wv", x, p["wv"], bias=p.get("bv"))
+    q = q.reshape(b, s, cfg.n_heads, cfg.head_dim)
+    k = k.reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    v = v.reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    if positions is None:
+        positions = torch.arange(s, device=x.device)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    out = chunked_attention(q, k, v, causal=causal, chunk=chunk, ctx=ctx)
+    return ctx.dot("wo", out.reshape(b, s, -1), p["wo"])
+
+
+# ---------------------------------------------------------------------------
+# MLP (SwiGLU), embedding, head
+# ---------------------------------------------------------------------------
+
+def mlp(p, x: torch.Tensor, ctx: Ctx) -> torch.Tensor:
+    g = ctx.dot_fused("w_gate", x, p["w_gate"], act="silu")  # fused epilogue
+    u = ctx.dot("w_up", x, p["w_up"])
+    return ctx.dot("w_down", g * u, p["w_down"])
+
+
+def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    return table[tokens]
+
+
+def lm_head(x: torch.Tensor, table: torch.Tensor, ctx: Ctx) -> torch.Tensor:
+    return ctx.dot("lm_head", x, table)

@@ -1,0 +1,218 @@
+"""Decoder-only transformer LM, dense family (counterpart of
+`repro.models.transformer`): qwen2-7b, codeqwen1.5-7b, phi4-mini,
+minitron-4b.
+
+Parameters live in a `Params` module tree whose `state_dict` keys are the
+reference's parameter paths joined with "." ("layers.attn.wq",
+"embed.table", …). Layers stay stacked on a leading L axis, as in the
+reference's `init`, so converting reference weights is a rename
+(`repro_torch.convert`). The model is plain functions over tensors.
+
+Serving differs from the reference in one deliberate way: the KV cache is
+updated in place (`prefill` writes the prompt's keys and values into the
+cache buffers, `decode_step` writes one position per row), where the JAX
+reference rebuilds the cache arrays functionally every step.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from ..configs.base import ModelConfig
+from . import blocks
+from .blocks import Ctx
+
+
+class Params(nn.Module):
+    """A tree of parameters: nested `Params` with tensor leaves (frozen
+    `nn.Parameter`s). Indexing by name (``p["wq"]``, ``p.get("bq")``)
+    mirrors the reference's nested dicts."""
+
+    def __init__(self, tree: Dict[str, Any]):
+        super().__init__()
+        for name, value in tree.items():
+            if isinstance(value, dict):
+                self.add_module(name, Params(value))
+            else:
+                self.register_parameter(
+                    name, nn.Parameter(value, requires_grad=False))
+
+    def __getitem__(self, name: str):
+        return getattr(self, name)
+
+    def get(self, name: str, default=None):
+        return getattr(self, name, default)
+
+    def layer(self, i: int) -> Dict[str, Any]:
+        """Layer ``i`` of a stacked tree, as nested dicts of views."""
+        out: Dict[str, Any] = {n: p[i] for n, p in
+                               self.named_parameters(recurse=False)}
+        for n, child in self.named_children():
+            out[n] = child.layer(i)
+        return out
+
+
+def _check_dense(cfg: ModelConfig) -> None:
+    if cfg.moe is not None or cfg.family not in ("dense",):
+        raise NotImplementedError(f"{cfg.arch_id}: only the dense family is "
+                                  f"ported (family={cfg.family!r})")
+
+
+def init(cfg: ModelConfig, seed: int = 0, dtype=torch.bfloat16,
+         device="cuda") -> Params:
+    """Random parameters from a seeded `torch.Generator`, in the
+    reference's layout and scales (the values differ from JAX's). Stacked
+    tensors are filled one layer at a time, so the f32 draw never exceeds
+    one layer's size."""
+    _check_dense(cfg)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    d, n_l, v = cfg.d_model, cfg.n_layers, cfg.padded_vocab()
+    qd, kvd = cfg.qkv_dims
+    out_scale = 0.02 / math.sqrt(2 * n_l)
+
+    def stacked(d_in, d_out, scale):
+        t = torch.empty(n_l, d_in, d_out, dtype=dtype, device=device)
+        for i in range(n_l):
+            t[i] = blocks.dense_init(gen, d_in, d_out, dtype, scale, device)
+        return t
+
+    attn = {"wq": stacked(d, qd, 0.02), "wk": stacked(d, kvd, 0.02),
+            "wv": stacked(d, kvd, 0.02), "wo": stacked(qd, d, out_scale)}
+    if cfg.qkv_bias:
+        attn["bq"] = torch.zeros(n_l, qd, dtype=dtype, device=device)
+        attn["bk"] = torch.zeros(n_l, kvd, dtype=dtype, device=device)
+        attn["bv"] = torch.zeros(n_l, kvd, dtype=dtype, device=device)
+    ones = lambda *s: torch.ones(*s, dtype=torch.float32, device=device)
+    tree = {
+        "embed": {"table": blocks.embed_init(gen, v, d, dtype,
+                                             device=device)},
+        "layers": {
+            "attn_norm": ones(n_l, d),
+            "attn": attn,
+            "ffn_norm": ones(n_l, d),
+            "mlp": {"w_gate": stacked(d, cfg.d_ff, 0.02),
+                    "w_up": stacked(d, cfg.d_ff, 0.02),
+                    "w_down": stacked(cfg.d_ff, d, out_scale)},
+        },
+        "final_norm": ones(d),
+    }
+    if not cfg.tie_embeddings:
+        tree["head"] = {"table": blocks.dense_init(gen, d, v, dtype,
+                                                   device=device)}
+    return Params(tree)
+
+
+def _head_table(params: Params, cfg: ModelConfig) -> torch.Tensor:
+    return (params.embed.table.T if cfg.tie_embeddings
+            else params.head.table)
+
+
+def apply_layer(lp: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig,
+                ctx: Ctx, *, positions: Optional[torch.Tensor] = None,
+                chunk: int = 512) -> torch.Tensor:
+    """Pre-norm block on one layer's parameters ``lp``."""
+    h = blocks.rmsnorm(x, lp["attn_norm"], cfg.norm_eps)
+    x = x + blocks.attention(lp["attn"], h, cfg, ctx, causal=True,
+                             positions=positions, chunk=chunk)
+    h = blocks.rmsnorm(x, lp["ffn_norm"], cfg.norm_eps)
+    return x + blocks.mlp(lp["mlp"], h, ctx)
+
+
+def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
+            ctx: Ctx, *, chunk: int = 512) -> torch.Tensor:
+    """tokens (B, S) int → logits (B, S, V). FT summaries go to the
+    ambient `telemetry.ft_scope`."""
+    _check_dense(cfg)
+    x = blocks.embed(tokens, params.embed.table).to(ctx.dtype)
+    positions = torch.arange(x.shape[1], device=x.device)
+    for i in range(cfg.n_layers):
+        x = apply_layer(params.layers.layer(i), x, cfg, ctx,
+                        positions=positions, chunk=chunk)
+    x = blocks.rmsnorm(x, params.final_norm, cfg.norm_eps)
+    return blocks.lm_head(x, _head_table(params, cfg), ctx)
+
+
+# ---------------------------------------------------------------------------
+# serving: KV cache, prefill, decode
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               dtype=torch.bfloat16, device="cuda") -> Dict[str, Any]:
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "length": torch.zeros(batch, dtype=torch.int32, device=device)}
+
+
+def _project_qkv(p, h: torch.Tensor, cfg: ModelConfig, ctx: Ctx,
+                 positions: torch.Tensor):
+    b, s, _ = h.shape
+    # qkv biases ride the projection GEMMs as fused epilogues.
+    q = ctx.dot_fused("wq", h, p["wq"], bias=p.get("bq"))
+    k = ctx.dot_fused("wk", h, p["wk"], bias=p.get("bk"))
+    v = ctx.dot_fused("wv", h, p["wv"], bias=p.get("bv"))
+    q = q.reshape(b, s, cfg.n_heads, cfg.head_dim)
+    k = k.reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    v = v.reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    q = blocks.apply_rope(q, positions, cfg.rope_theta)
+    k = blocks.apply_rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def decode_step(params: Params, token: torch.Tensor, cache: Dict[str, Any],
+                cfg: ModelConfig, ctx: Ctx
+                ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """One decode step. token (B, 1); the cache holds ``length`` tokens per
+    row. Writes the new keys/values into the cache in place and returns
+    (logits (B, 1, V), cache) with ``length`` advanced."""
+    _check_dense(cfg)
+    x = blocks.embed(token, params.embed.table).to(ctx.dtype)
+    pos = cache["length"].long()                         # (B,)
+    rows = torch.arange(x.shape[0], device=x.device)
+    for i in range(cfg.n_layers):
+        lp = params.layers.layer(i)
+        hn = blocks.rmsnorm(x, lp["attn_norm"], cfg.norm_eps)
+        q, k_new, v_new = _project_qkv(lp["attn"], hn, cfg, ctx,
+                                       pos[:, None])
+        k_c, v_c = cache["k"][i], cache["v"][i]
+        k_c.index_put_((rows, pos), k_new[:, 0].to(k_c.dtype))
+        v_c.index_put_((rows, pos), v_new[:, 0].to(v_c.dtype))
+        att = blocks.decode_attention(q, k_c, v_c, pos + 1, ctx)
+        x = x + ctx.dot("wo", att.reshape(x.shape[0], 1, -1),
+                        lp["attn"]["wo"])
+        hn = blocks.rmsnorm(x, lp["ffn_norm"], cfg.norm_eps)
+        x = x + blocks.mlp(lp["mlp"], hn, ctx)
+    x = blocks.rmsnorm(x, params.final_norm, cfg.norm_eps)
+    logits = blocks.lm_head(x, _head_table(params, cfg), ctx)
+    cache["length"] = cache["length"] + 1
+    return logits, cache
+
+
+def prefill(params: Params, tokens: torch.Tensor, cache: Dict[str, Any],
+            cfg: ModelConfig, ctx: Ctx, *, chunk: int = 512
+            ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """Run the prompt (B, S) through the model, writing its keys/values
+    into the cache in place. Returns (last-position logits (B, V), cache)."""
+    _check_dense(cfg)
+    b, s = tokens.shape
+    x = blocks.embed(tokens, params.embed.table).to(ctx.dtype)
+    positions = torch.arange(s, device=x.device)
+    for i in range(cfg.n_layers):
+        lp = params.layers.layer(i)
+        hn = blocks.rmsnorm(x, lp["attn_norm"], cfg.norm_eps)
+        q, k, v = _project_qkv(lp["attn"], hn, cfg, ctx, positions)
+        att = blocks.chunked_attention(q, k, v, causal=True, chunk=chunk,
+                                       ctx=ctx)
+        x = x + ctx.dot("wo", att.reshape(b, s, -1), lp["attn"]["wo"])
+        hn = blocks.rmsnorm(x, lp["ffn_norm"], cfg.norm_eps)
+        x = x + blocks.mlp(lp["mlp"], hn, ctx)
+        cache["k"][i, :, :s] = k.to(cache["k"].dtype)
+        cache["v"][i, :, :s] = v.to(cache["v"].dtype)
+    x = blocks.rmsnorm(x[:, -1:, :], params.final_norm, cfg.norm_eps)
+    logits = blocks.lm_head(x, _head_table(params, cfg), ctx)[:, 0]
+    cache["length"] = torch.full((b,), s, dtype=torch.int32,
+                                 device=x.device)
+    return logits, cache

@@ -19,3 +19,8 @@ def _isolated_tune_cache(tmp_path_factory):
     else:
         os.environ["REPRO_TUNE_CACHE"] = prev
     tune_cache.reset()
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA GPU; skips with 'no CUDA' without one")

@@ -1,0 +1,179 @@
+"""The CUDA kernels against their plain PyTorch versions, on the GPU.
+
+Marked ``gpu``: each test asks the `cuda` fixture for the card and skips
+with "no CUDA" without one. Run on the card with
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
+
+f32 cases: outputs to 1e-5 and reports equal in det/corr/row/col/k, tau and
+mag to 1e-5 relative (integer-valued operands keep both sides exact). bf16
+cases: one bf16 ulp at the top of the output's range (both sides sum in f32
+in different orders, then round).
+"""
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.core.policy import FTConfig, ONLINE_BLOCK  # noqa: E402
+from repro_torch.kernels import flashft, ft_gemm  # noqa: E402
+
+pytestmark = pytest.mark.gpu
+FT = ONLINE_BLOCK.replace(backend="pallas")
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _ints(gen, *shape, dtype=torch.float32):
+    return torch.randint(-3, 4, shape, generator=gen, device="cuda").to(dtype)
+
+
+def _check_reports(got, want):
+    assert got.shape == want.shape
+    idx = [0, 1, 2, 3, 7]
+    assert torch.equal(got[..., idx], want[..., idx])
+    rel = ((got[..., [4, 5, 6]] - want[..., [4, 5, 6]]).abs()
+           / want[..., [4, 5, 6]].abs().clamp_min(1e-30))
+    assert float(rel.max()) <= 1e-5
+
+
+@pytest.mark.parametrize("chain", list(ft_gemm.EPILOGUES))
+@pytest.mark.parametrize("shape", [(1, 77, 300), (7, 130, 200),
+                                   (100, 200, 97)])
+def test_gemm_2d_matches_plain_f32(cuda, shape, chain):
+    m, n, k = shape
+    gen = torch.Generator(device="cuda").manual_seed(m + n + len(chain))
+    a, b = _ints(gen, m, k), _ints(gen, k, n)
+    bias = _ints(gen, n) if "bias" in chain else None
+    res = _ints(gen, m, n) if "residual" in chain else None
+    for verify, inj in (("step", (1, -1, m - 1, n - 1, 2)),
+                        ("final", (1, -1, 0, 5, 0)), ("step", None)):
+        kw = dict(chain=chain, bias=bias, residual=res,
+                  ft=FT.replace(verify=verify), inj=inj, inj_mag=99.0)
+        before = ft_gemm.FT_GEMM_2D.launches
+        out, rep = ft_gemm.ft_gemm(a, b, **kw)
+        assert ft_gemm.FT_GEMM_2D.launches == before + 1
+        out_p, rep_p = ft_gemm.ft_gemm_plain(
+            a, b, tiles=ft_gemm.pick_tiles(m), **kw)
+        torch.testing.assert_close(out, out_p, rtol=1e-5, atol=1e-5)
+        _check_reports(rep, rep_p)
+        assert float(rep[..., 0].sum()) == (inj is not None)
+    off, none = ft_gemm.ft_gemm(a, b, chain=chain, bias=bias, residual=res)
+    assert none is None
+    torch.testing.assert_close(off, out_p, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("shared_b", [False, True])
+def test_gemm_batched_matches_plain_f32(cuda, shared_b):
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    nb, m, n, k = 5, 7, 256, 128
+    a = _ints(gen, nb, m, k)
+    b = _ints(gen, k, n) if shared_b else _ints(gen, nb, k, n)
+    for inj in ((1, -1, 6, 255, 3), (1, 2, 0, 0, 0)):
+        kw = dict(ft=FT, inj=inj, inj_mag=-40.0)
+        before = ft_gemm.FT_GEMM_BATCHED.launches
+        out, rep = ft_gemm.ft_gemm(a, b, **kw)
+        assert ft_gemm.FT_GEMM_BATCHED.launches == before + 1
+        out_p, rep_p = ft_gemm.ft_gemm_plain(a, b, tiles=ft_gemm.pick_tiles(m),
+                                             **kw)
+        torch.testing.assert_close(out, out_p, rtol=1e-5, atol=1e-5)
+        _check_reports(rep, rep_p)
+        assert float(rep[..., 0].sum()) == (nb if inj[1] < 0 else 1)
+        clean, _ = ft_gemm.ft_gemm(a, b, ft=FT)
+        assert torch.equal(out, clean)
+
+
+@pytest.mark.parametrize("product", ["qk", "pv", "tied_head"])
+def test_gemm_strided_views_match_plain_f32(cuda, product):
+    """Operands read through their strides: decode attention's permuted
+    views of the (B, S, KVH, dh) cache with two batch dims, and a transposed
+    2-D weight (a tied lm_head)."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    nb, kvh, rep_n, s, dh = 3, 4, 7, 200, 128
+    cache = _ints(gen, nb, s, kvh, dh)
+    if product == "qk":
+        a, b = _ints(gen, nb, kvh, rep_n, dh), cache.permute(0, 2, 3, 1)
+    elif product == "pv":
+        a, b = _ints(gen, nb, kvh, rep_n, s), cache.transpose(1, 2)
+    else:
+        a, b = _ints(gen, 5, dh), _ints(gen, 300, dh).t()
+    assert not b.is_contiguous()
+    n = b.shape[-1]
+    kw = dict(ft=FT, inj=(1, -1, a.shape[-2] - 1, n - 1, 1), inj_mag=60.0)
+    out, rep = ft_gemm.ft_gemm(a, b, **kw)
+    out_p, rep_p = ft_gemm.ft_gemm_plain(
+        a, b, tiles=ft_gemm.pick_tiles(a.shape[-2]), **kw)
+    torch.testing.assert_close(out, out_p, rtol=1e-5, atol=1e-5)
+    _check_reports(rep, rep_p)
+    assert float(rep[..., 0].sum()) == a[..., 0, 0].numel()
+    dense, _ = ft_gemm.ft_gemm(a, b.contiguous(), ft=FT)
+    assert torch.equal(out, dense)
+
+
+@pytest.mark.parametrize("geom", [(4, 1, 64, 64, 64, True),
+                                  (14, 7, 100, 100, 128, True),
+                                  (7, 7, 30, 150, 128, True),
+                                  (2, 1, 50, 130, 64, False)])
+def test_flash_matches_plain_f32(cuda, geom):
+    bh, n_rep, sq, skv, dh, causal = geom
+    gen = torch.Generator(device="cuda").manual_seed(bh + sq)
+    q = torch.randn(bh, sq, dh, generator=gen, device="cuda")
+    k = torch.randn(bh // n_rep, skv, dh, generator=gen, device="cuda")
+    v = torch.randn(bh // n_rep, skv, dh, generator=gen, device="cuda")
+    kw = dict(ft=FT, scale=dh ** -0.5, tau_dh=128, n_rep=n_rep,
+              causal=causal)
+    for inj in (None, (1, bh - 1, (sq - 1) // 64, 0, 0, dh - 1)):
+        out, rep = flashft.flash_ft_fwd(q, k, v, inj=inj, inj_mag=50.0, **kw)
+        out_p, rep_p = flashft.flash_ft_plain(q, k, v, inj=inj, inj_mag=50.0,
+                                              **kw)
+        torch.testing.assert_close(out, out_p, rtol=1e-5, atol=1e-5)
+        assert torch.equal(rep[..., [0, 1, 7]], rep_p[..., [0, 1, 7]])
+        det = rep_p[..., 0] > 0
+        assert torch.equal(rep[..., 2:4][det], rep_p[..., 2:4][det])
+        torch.testing.assert_close(rep[..., 6], rep_p[..., 6], rtol=1e-5,
+                                   atol=0)
+        assert float(rep[..., 0].sum()) == (inj is not None)
+
+
+def test_bf16_kernels_match_plain(cuda):
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    a = torch.randn(37, 300, generator=gen, device="cuda").bfloat16()
+    b = torch.randn(300, 260, generator=gen, device="cuda").bfloat16()
+    bias = torch.randn(260, generator=gen, device="cuda").bfloat16()
+    kw = dict(chain=("bias", "silu"), bias=bias, ft=FT)
+    out, _ = ft_gemm.ft_gemm(a, b, **kw)
+    out_p, _ = ft_gemm.ft_gemm_plain(a, b, tiles=ft_gemm.pick_tiles(37), **kw)
+    assert out.dtype == torch.bfloat16
+    tol = 2.0 ** -7 * float(out_p.float().abs().max())
+    assert float((out.float() - out_p.float()).abs().max()) <= tol
+    q = torch.randn(8, 70, 128, generator=gen, device="cuda").bfloat16()
+    kv = torch.randn(2, 70, 128, generator=gen, device="cuda").bfloat16()
+    fkw = dict(ft=FT, scale=128 ** -0.5, tau_dh=128, n_rep=4, causal=True)
+    out, _ = flashft.flash_ft_fwd(q, kv, kv, **fkw)
+    out_p, _ = flashft.flash_ft_plain(q, kv, kv, **fkw)
+    tol = 2.0 ** -7 * float(out_p.float().abs().max())
+    assert float((out.float() - out_p.float()).abs().max()) <= tol
+
+
+def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
+    a = torch.ones(8, 16, device="cuda")
+    b = torch.ones(16, 8, device="cuda")
+    with pytest.raises(ValueError):
+        ft_gemm.ft_gemm(a[None, None, None], b, ft=FT)        # 3 batch dims
+    with pytest.raises(ValueError):
+        ft_gemm.ft_gemm(a, b, ft=FT, tiles=(32, 32, 32))
+    with pytest.raises(NotImplementedError):
+        ft_gemm.ft_gemm(a, b, ft=FT, chain=("gelu", "residual"),
+                        residual=torch.ones(8, 8, device="cuda"))
+    with pytest.raises(NotImplementedError):
+        ft_gemm.ft_gemm(a, b, ft=FTConfig(level="tile"))
+    with pytest.raises(TypeError):
+        ft_gemm.ft_gemm(a.half(), b.half(), ft=FT)
+    q = torch.ones(2, 8, 96, device="cuda")
+    with pytest.raises(ValueError):
+        flashft.flash_ft_fwd(q, q, q, ft=FT, scale=1.0, tau_dh=128)
