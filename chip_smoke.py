@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py                    # every phase, as run on the card
     python3 chip_smoke.py --phases env,kernels
+    python3 chip_smoke.py --phases env,train_kernels,train_check,train
 
 Phases (each prints its own lines; any failed check exits non-zero):
 
@@ -23,7 +24,26 @@ Phases (each prints its own lines; any failed check exits non-zero):
                and depth (random bf16 weights from a seed): 4 requests x 128
                prompt tokens, 32 greedy tokens, once under a dispatch guard
                (every kernel's launch count from that run, no library matmul
-               / attention call on the FT path), once timed without it.
+               / attention call on the FT path), once timed without it;
+  train_kernels  the training kernels against their plain versions on the
+               card at phi4-mini-3.8b's training shapes in bf16 (2 x 512
+               tokens): K1 with the act_grad output and the dx = g·Wᵀ /
+               dw = Xᵀ·g GEMMs on transposed views, K2 with the saved
+               statistics, K3 (dQ) and K4 (dK/dV); max error, report
+               agreement, a deterministic SEU each, CUDA-event times beside
+               the bound, the plain version and one library call;
+  train_check  phi4-mini-3.8b at full width, depth cut to 2 layers, 1 x 256
+               tokens: `loss_fn` and its backward through the kernels and
+               through their plain versions (loss within 1e-3, every grad
+               leaf within 2e-2 relative, no detection); a `bwd_inject` SEU
+               in a w_down dw GEMM and one in the flash dK, corrected to the
+               clean grads (and left in them by a detect-only policy);
+  train        `repro_torch.train.train_loop.train` on phi4-mini-3.8b at
+               full width and depth (random bf16 weights from a seed),
+               2 x 512 tokens, 4 steps (step 0 has lr 0): step times,
+               tokens/s, peak memory, losses, FT counters, launches per
+               step; then one more step through `make_train_step` under
+               the dispatch guard, whose launch counts are checked.
 
 The last two lines are {"kernels": [...]} and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -34,11 +54,13 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import math
 import os
 import statistics
 import subprocess
 import sys
 import time
+import traceback
 from contextlib import contextmanager
 
 import torch
@@ -47,18 +69,26 @@ import torch.utils._python_dispatch
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
-from repro_torch.configs import qwen2_7b                        # noqa: E402
-from repro_torch.configs.base import RunConfig                  # noqa: E402
+from repro_torch.configs import phi4_mini_38b, qwen2_7b         # noqa: E402
+from repro_torch.configs.base import RunConfig, ShapeConfig     # noqa: E402
 from repro_torch.core import telemetry                          # noqa: E402
-from repro_torch.core.policy import ONLINE_BLOCK               # noqa: E402
+from repro_torch.core.policy import (InjectionSpec,             # noqa: E402
+                                     OFFLINE_DETECT, ONLINE_BLOCK)
+from repro_torch.data import pipeline as data_lib               # noqa: E402
 from repro_torch.kernels import build, flashft, ft_gemm         # noqa: E402
 from repro_torch.models import transformer                      # noqa: E402
-from repro_torch.train import serve                             # noqa: E402
+from repro_torch.models.blocks import Ctx                       # noqa: E402
+from repro_torch.optim import adamw                             # noqa: E402
+from repro_torch.train import serve, train_loop                 # noqa: E402
 
 PEAK_FLOPS = 989e12        # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
 FT = ONLINE_BLOCK.replace(backend="pallas")
+DETECT = OFFLINE_DETECT.replace(backend="pallas")
 BATCH, PROMPT, NEW_TOKENS, MAX_LEN = 4, 128, 32, 256
+#: training: phi4-mini-3.8b, 2 x 512 tokens, 4 steps; the check at 1 x 256
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 2, 512, 4
+CHECK_SEQ, CHECK_LAYERS = 256, 2
 #: kernel vs plain: one bf16 ulp at the top of the output's range (the two
 #: sum in different orders in f32, then round to bf16).
 BF16_TOL = 2.0 ** -7
@@ -77,6 +107,14 @@ KERNELS = {
                      source="src/repro_torch/kernels/csrc/flash_ft.cu",
                      replaces="src/repro/kernels/flashft.py:114",
                      counter=flashft.FLASH_FT),
+    "flash_dq": dict(route="cuda",
+                     source="src/repro_torch/kernels/csrc/flash_ft_bwd.cu",
+                     replaces="src/repro/kernels/flashft.py:488",
+                     counter=flashft.FLASH_DQ),
+    "flash_dkv": dict(route="cuda",
+                      source="src/repro_torch/kernels/csrc/flash_ft_bwd.cu",
+                      replaces="src/repro/kernels/flashft.py:569",
+                      counter=flashft.FLASH_DKV),
 }
 
 
@@ -331,22 +369,30 @@ def phase_kernels():
 @contextmanager
 def plain_kernels():
     """Swap each kernel wrapper for its plain version on the card (the
-    comparison side of serve_check)."""
-    saved = ft_gemm.ft_gemm, flashft.flash_ft_fwd
+    comparison side of serve_check and train_check)."""
+    names = ("flash_ft_fwd", "flash_ft_dq", "flash_ft_dkv")
+    saved = ft_gemm.ft_gemm, [getattr(flashft, n) for n in names]
 
     def gemm(a, b, *, tiles=None, **kw):
         return ft_gemm.ft_gemm_plain(
             a, b, tiles=tiles or ft_gemm.pick_tiles(a.shape[-2]), **kw)
 
-    def flash(q, k, v, *, bq=None, bkv=None, **kw):
-        return flashft.flash_ft_plain(q, k, v, bq=bq or flashft.BLOCK,
-                                      bkv=bkv or flashft.BLOCK, **kw)
+    def blocks_of(plain):
+        def run(*args, bq=None, bkv=None, **kw):
+            return plain(*args, bq=bq or flashft.BLOCK,
+                         bkv=bkv or flashft.BLOCK, **kw)
+        return run
 
-    ft_gemm.ft_gemm, flashft.flash_ft_fwd = gemm, flash
+    ft_gemm.ft_gemm = gemm
+    for n, plain in zip(names, (flashft.flash_ft_plain, flashft.flash_dq_plain,
+                                flashft.flash_dkv_plain)):
+        setattr(flashft, n, blocks_of(plain))
     try:
         yield
     finally:
-        ft_gemm.ft_gemm, flashft.flash_ft_fwd = saved
+        ft_gemm.ft_gemm = saved[0]
+        for n, fn in zip(names, saved[1]):
+            setattr(flashft, n, fn)
 
 
 def phase_serve_check():
@@ -410,9 +456,12 @@ class LibraryCallGuard(torch.utils._python_dispatch.TorchDispatchMode):
     def __init__(self):
         super().__init__()
         self.hits = []
+        self.seen = set()
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        if func.overloadpacket.__name__ in self.BANNED:
+        name = func.overloadpacket.__name__
+        self.seen.add(name)
+        if name in self.BANNED:
             self.hits.append(str(func))
         return func(*args, **(kwargs or {}))
 
@@ -464,7 +513,8 @@ def phase_serve(layers: int):
     per_step = cfg.n_layers * 7 + 1
     check(launches == {"ft_gemm_2d": per_step * (NEW_TOKENS + 1),
                        "ft_gemm_batched": 2 * cfg.n_layers * NEW_TOKENS,
-                       "flash_ft": cfg.n_layers},
+                       "flash_ft": cfg.n_layers, "flash_dq": 0,
+                       "flash_dkv": 0},
           f"launch counts: K1 {per_step} per prefill and per decode step, K5 "
           f"{2 * cfg.n_layers} per decode step, K2 {cfg.n_layers} per prefill")
     check(totals["detected"] == 0, "zero detections on the serving path")
@@ -501,9 +551,432 @@ def phase_serve(layers: int):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# train_kernels
+# ---------------------------------------------------------------------------
+
+def _bf16_close(got, want):
+    err = (got.float() - want.float()).abs().max().item()
+    return err, err <= BF16_TOL * want.float().abs().max().item()
+
+
+def _seu_at(name, fixed, left, clean, idx):
+    """The SEU's element: the corrected run within one bf16 ulp of the clean
+    one, and the detect-only run (same injection) well outside that."""
+    c = clean[idx].float().item()
+    tol = BF16_TOL * max(abs(c), 1.0)
+    fe = abs(fixed[idx].float().item() - c)
+    le = abs(left[idx].float().item() - c)
+    check(fe <= tol and le >= 4 * tol,
+          f"{name} SEU at {idx}: corrected off by {fe:.3g} <= {tol:.3g}, "
+          f"detect-only off by {le:.3g}")
+
+
+def _flash_bwd_bounds(bh, g, s, dh, causal):
+    """(bound_ms, bound_by) of K3 and K4: 3 and 4 GEMMs of 2·dh per live
+    (query, key) pair; bytes = q, k, v, g and the f32 statistics read once,
+    the gradients written once (bf16 operands)."""
+    pairs = s * (s + 1) // 2 if causal else s * s
+    io = 2 * dh * s * (2 * bh + 2 * g)          # q, g, k, v
+    stats = 4 * 3 * bh * s                      # m, l, di
+    dq = bound(3 * 2.0 * dh * pairs * bh, io + stats + 2 * dh * s * bh)
+    dkv = bound(4 * 2.0 * dh * pairs * bh, io + stats + 2 * 2 * dh * s * g)
+    return dq, dkv
+
+
+def phase_train_kernels():
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    cfg = phi4_mini_38b.CONFIG
+    d, dff, v = cfg.d_model, cfg.d_ff, cfg.padded_vocab()
+    qd, kvd = cfg.qkv_dims
+    t = TRAIN_BATCH * TRAIN_SEQ
+    rows = {}
+
+    # ---- K1: act_grad and the backward GEMMs on transposed views --------
+    x, h = _rand(gen, t, d), _rand(gen, t, dff)
+    w = {"wq": _rand(gen, d, qd, scale=0.02),
+         "w_gate": _rand(gen, d, dff, scale=0.02),
+         "w_down": _rand(gen, dff, d, scale=0.02),
+         "lm_head": _rand(gen, d, v, scale=0.02)}
+    g = {n: _rand(gen, t, w[n].shape[1], scale=1e-3) for n in w}
+    cases = [  # (label, a, b, chain, act_grad)
+        ("fwd w_gate+silu act_grad", x, w["w_gate"], ("silu",), True),
+        ("dx wq = g·wqT", g["wq"], w["wq"].t(), (), False),
+        ("dw wq = xT·g", x.t(), g["wq"], (), False),
+        ("dx w_gate = g·w_gateT", g["w_gate"], w["w_gate"].t(), (), False),
+        ("dw w_gate = xT·g", x.t(), g["w_gate"], (), False),
+        ("dx w_down = g·w_downT", g["w_down"], w["w_down"].t(), (), False),
+        ("dw w_down = hT·g", h.t(), g["w_down"], (), False),
+        ("dw lm_head = xT·g", x.t(), g["lm_head"], (), False),
+    ]
+    k1_err, k1_rows = 0.0, []
+    for label, a, b, chain, ag in cases:
+        m, k = a.shape
+        n = b.shape[1]
+        kw = dict(chain=chain, ft=FT, save_act_grad=ag)
+        out, rep = ft_gemm.ft_gemm(a, b, **kw)
+        out_p, rep_p = _plain_gemm(a, b, **kw)
+        if ag:
+            (out, agk), (out_p, agp) = out, out_p
+            err, ok = _bf16_close(agk, agp)
+            check(ok, f"K1 {label}: act_grad max|kernel - plain| {err:.3g}")
+        k1_err = max(k1_err, _cmp_outputs(f"K1 {label}", out, out_p, rep,
+                                          rep_p))
+        big = n == v
+        iters = 2 if big else 5
+        ms = time_ms(lambda: ft_gemm.ft_gemm(a, b, **kw), iters,
+                     warmup=1 if big else 3)
+        plain_ms = time_ms(lambda: _plain_gemm(a, b, **kw), 1, warmup=0)
+        lib_ms = time_ms(lambda: torch.matmul(a, b), iters)
+        b_ms, b_by = bound(2.0 * m * n * k,
+                           2 * (m * k + k * n + m * n * (2 if ag else 1)))
+        k1_rows.append(dict(shape=f"{label} {m}x{n}x{k}", M=m, N=n, K=k,
+                            a_strides=list(a.stride()),
+                            b_strides=list(b.stride()), ms=ms,
+                            plain_ms=plain_ms, library_ms=lib_ms,
+                            bound_ms=b_ms, bound_by=b_by))
+        print(f"  K1 {label} ({m}x{n}x{k}, A strides {tuple(a.stride())}, "
+              f"B strides {tuple(b.stride())}): kernel {ms:.3f} ms, plain "
+              f"{plain_ms:.3f} ms, library {lib_ms:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by})")
+    # SEUs on integer operands: the act_grad variant and a dw on views.
+    a, b = _ints(gen, t, d), _ints(gen, d, 512)
+    (clean, clean_g), _ = ft_gemm.ft_gemm(a, b, chain=("silu",), ft=FT,
+                                          save_act_grad=True)
+    (out, out_g), rep = ft_gemm.ft_gemm(a, b, chain=("silu",), ft=FT,
+                                        save_act_grad=True,
+                                        inj=(1, -1, 700, 300, 40),
+                                        inj_mag=512.0)
+    cell = rep[700 // 64, 300 // 64]
+    check(torch.equal(out, clean) and torch.equal(out_g, clean_g)
+          and float(rep[..., 0].sum()) == 1.0 and int(cell[2]) == 700
+          and int(cell[3]) == 300,
+          "K1 act_grad SEU corrected bit for bit (C and act_grad), located")
+    a, b = _ints(gen, t, dff).t(), _ints(gen, t, 256)
+    clean, _ = ft_gemm.ft_gemm(a.contiguous(), b, ft=FT)
+    out, rep = ft_gemm.ft_gemm(a, b, ft=FT, inj=(1, -1, 8000, 200, 31),
+                               inj_mag=-256.0)
+    cell = rep[8000 // 64, 200 // 64]
+    check(torch.equal(out, clean) and float(rep[..., 0].sum()) == 1.0
+          and int(cell[2]) == 8000 and int(cell[3]) == 200,
+          "K1 dw on a transposed view: SEU corrected bit for bit, located")
+    rows["ft_gemm_2d"] = dict(max_abs_err=k1_err, detail=k1_rows)
+
+    # ---- K2 with stats, K3, K4 at the training attention shape ----------
+    bh, gk, dh = TRAIN_BATCH * cfg.n_heads, TRAIN_BATCH * cfg.n_kv_heads, \
+        cfg.head_dim
+    n_rep, s = bh // gk, TRAIN_SEQ
+    q, k, vv, go = (_rand(gen, bh, s, dh), _rand(gen, gk, s, dh),
+                    _rand(gen, gk, s, dh), _rand(gen, bh, s, dh))
+    fkw = dict(ft=FT, scale=dh ** -0.5, tau_dh=dh, n_rep=n_rep, causal=True)
+    o, m, l, rep = flashft.flash_ft_fwd(q, k, vv, save_stats=True, **fkw)
+    o_p, m_p, l_p, rep_p = flashft.flash_ft_plain(q, k, vv, save_stats=True,
+                                                  **fkw)
+    k2_err = _cmp_outputs("K2 stats: out", o, o_p)
+    st_err = max((m - m_p).abs().max().item(), (l - l_p).abs().max().item()
+                 / l_p.abs().max().item())
+    check(st_err <= 1e-3, f"K2 stats: m and l (l relative) within 1e-3 of "
+          f"plain ({st_err:.3g})")
+    check(float(rep[..., 0].sum()) == 0.0 and torch.equal(rep[..., 7],
+                                                         rep_p[..., 7]),
+          "K2 stats report: no detection, k fields equal")
+    di = (go.float() * o.float()).sum(-1)
+    bkw = dict(fkw)
+    dq, rep_q = flashft.flash_ft_dq(q, k, vv, go, m, l, di, **bkw)
+    dk, dv, rep_kv = flashft.flash_ft_dkv(q, k, vv, go, m, l, di, **bkw)
+    dq_p, rep_qp = flashft.flash_dq_plain(q, k, vv, go, m, l, di, **bkw)
+    dk_p, dv_p, rep_kvp = flashft.flash_dkv_plain(q, k, vv, go, m, l, di,
+                                                  **bkw)
+    k3_err = _cmp_outputs("K3 dq", dq, dq_p)
+    k4_err = max(_cmp_outputs("K4 dk", dk, dk_p),
+                 _cmp_outputs("K4 dv", dv, dv_p))
+    # (The max-residual field spans all of a step's verifications while tau
+    # is the last one's, the dQ / dK delta's, so the two are not compared.)
+    for name, rk, rp in (("K3", rep_q, rep_qp), ("K4", rep_kv, rep_kvp)):
+        tau_rel = ((rk[..., 6] - rp[..., 6]).abs()
+                   / rp[..., 6].abs().clamp_min(1e-30)).max().item()
+        check(float(rk[..., 0].sum()) == 0.0 == float(rp[..., 0].sum())
+              and torch.equal(rk[..., 7], rp[..., 7]) and tau_rel <= 1e-3,
+              f"{name} report: no detection, k fields equal, tau within "
+              f"1e-3 of plain ({tau_rel:.2g})")
+    ms_f = time_ms(lambda: flashft.flash_ft_fwd(q, k, vv, save_stats=True,
+                                                **fkw), 10)
+    ms_q = time_ms(lambda: flashft.flash_ft_dq(q, k, vv, go, m, l, di,
+                                               **bkw), 10)
+    ms_kv = time_ms(lambda: flashft.flash_ft_dkv(q, k, vv, go, m, l, di,
+                                                 **bkw), 10)
+    pl_f = time_ms(lambda: flashft.flash_ft_plain(q, k, vv, save_stats=True,
+                                                  **fkw), 1, warmup=0)
+    pl_q = time_ms(lambda: flashft.flash_dq_plain(q, k, vv, go, m, l, di,
+                                                  **bkw), 1, warmup=0)
+    pl_kv = time_ms(lambda: flashft.flash_dkv_plain(q, k, vv, go, m, l, di,
+                                                    **bkw), 1, warmup=0)
+    q4 = q.view(TRAIN_BATCH, cfg.n_heads, s, dh).detach().requires_grad_()
+    k4, v4 = (x_.view(TRAIN_BATCH, cfg.n_kv_heads, s, dh).repeat_interleave(
+        n_rep, dim=1).detach().requires_grad_() for x_ in (k, vv))
+    sdpa_out = torch.nn.functional.scaled_dot_product_attention(
+        q4, k4, v4, is_causal=True)
+    g4 = go.view(TRAIN_BATCH, cfg.n_heads, s, dh)
+    lib_f = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q4.detach(), k4.detach(), v4.detach(), is_causal=True), 10)
+    lib_b = time_ms(lambda: torch.autograd.grad(
+        sdpa_out, (q4, k4, v4), g4, retain_graph=True), 10)
+    pairs = s * (s + 1) // 2
+    bf = bound(4.0 * dh * pairs * bh,
+               2 * dh * s * (2 * bh + 2 * gk) + 2 * 4 * bh * s)
+    (bq_ms, bq_by), (bkv_ms, bkv_by) = _flash_bwd_bounds(bh, gk, s, dh, True)
+    shape = f"{bh} heads / {gk} kv heads, S {s}, dh {dh}, causal"
+    print(f"  K2 with stats ({shape}): kernel {ms_f:.4f} ms, plain "
+          f"{pl_f:.2f} ms, SDPA forward {lib_f:.4f} ms, bound {bf[0]:.5f} ms "
+          f"({bf[1]})")
+    print(f"  K3 dQ: kernel {ms_q:.4f} ms, plain {pl_q:.2f} ms, bound "
+          f"{bq_ms:.5f} ms ({bq_by}); K4 dK/dV: kernel {ms_kv:.4f} ms, "
+          f"plain {pl_kv:.2f} ms, bound {bkv_ms:.5f} ms ({bkv_by}); SDPA "
+          f"backward (dq, dk, dv together, KV repeated) {lib_b:.4f} ms")
+    # One deterministic SEU per kernel on integer-valued q, k, v, g.
+    qi_, ki_, vi_, gi_ = (_ints(gen, bh, s, dh), _ints(gen, gk, s, dh),
+                          _ints(gen, gk, s, dh), _ints(gen, bh, s, dh))
+    co, cm, cl, _ = flashft.flash_ft_fwd(qi_, ki_, vi_, save_stats=True,
+                                         **fkw)
+    io, im, il, irep = flashft.flash_ft_fwd(
+        qi_, ki_, vi_, save_stats=True, inj=(1, bh - 1, 3, 2, 17, 99),
+        inj_mag=300.0, **fkw)
+    cell = irep[bh - 1, 3]
+    _cmp_outputs("K2 stats SEU: corrected out vs clean", io, co)
+    check(torch.allclose(im, cm, rtol=1e-5, atol=1e-5)
+          and torch.allclose(il, cl, rtol=1e-3, atol=1e-3)
+          and float(irep[..., 0].sum()) == 1.0
+          and (int(cell[2]), int(cell[3])) == (3 * 64 + 17, 99),
+          "K2 stats SEU: m, l as clean, located at (row 209, col 99)")
+    lo, _, _, _ = flashft.flash_ft_fwd(
+        qi_, ki_, vi_, save_stats=True, inj=(1, bh - 1, 3, 2, 17, 99),
+        inj_mag=300.0, **dict(fkw, ft=DETECT))
+    _seu_at("K2 out", io, lo, co, (bh - 1, 3 * 64 + 17, 99))
+    cdi = (gi_.float() * co.float()).sum(-1)
+    cq, _ = flashft.flash_ft_dq(qi_, ki_, vi_, gi_, cm, cl, cdi, **bkw)
+    ck, cv, _ = flashft.flash_ft_dkv(qi_, ki_, vi_, gi_, cm, cl, cdi, **bkw)
+    inj_q = (1, 1, 5, 4, 2, 10, 77)            # dq delta, head 5, q blk 4
+    iq, irq = flashft.flash_ft_dq(qi_, ki_, vi_, gi_, cm, cl, cdi,
+                                  inj=inj_q, inj_mag=300.0, **bkw)
+    cell = irq[5, 4]
+    _cmp_outputs("K3 SEU: corrected dq vs clean", iq, cq)
+    check(float(irq[..., 0].sum()) == 1.0
+          and (int(cell[2]), int(cell[3])) == (4 * 64 + 10, 77),
+          "K3 SEU in the dQ delta located at (row 266, col 77)")
+    lq, _ = flashft.flash_ft_dq(qi_, ki_, vi_, gi_, cm, cl, cdi, inj=inj_q,
+                                inj_mag=300.0, **dict(bkw, ft=DETECT))
+    _seu_at("K3 dq", iq, lq, cq, (5, 4 * 64 + 10, 77))
+    inj_kv = (1, 3, 7, 2, 5, 40, 12)         # dk delta, head 7, kv blk 2
+    ik, iv, irkv = flashft.flash_ft_dkv(qi_, ki_, vi_, gi_, cm, cl, cdi,
+                                        inj=inj_kv, inj_mag=300.0, **bkw)
+    cell = irkv[7 // n_rep, 2]
+    _cmp_outputs("K4 SEU: corrected dk vs clean", ik, ck)
+    _cmp_outputs("K4 SEU: dv vs clean", iv, cv)
+    check(float(irkv[..., 0].sum()) == 1.0
+          and (int(cell[2]), int(cell[3])) == (2 * 64 + 40, 12),
+          "K4 SEU in the dK delta located at (row 168, col 12)")
+    lk, _, _ = flashft.flash_ft_dkv(qi_, ki_, vi_, gi_, cm, cl, cdi,
+                                    inj=inj_kv, inj_mag=300.0,
+                                    **dict(bkw, ft=DETECT))
+    _seu_at("K4 dk", ik, lk, ck, (7 // n_rep, 2 * 64 + 40, 12))
+    inj_v = (1, 2, 7, 2, 5, 40, 12)          # dv delta, the same cell
+    _, jv, _ = flashft.flash_ft_dkv(qi_, ki_, vi_, gi_, cm, cl, cdi,
+                                    inj=inj_v, inj_mag=300.0, **bkw)
+    _, lv, _ = flashft.flash_ft_dkv(qi_, ki_, vi_, gi_, cm, cl, cdi,
+                                    inj=inj_v, inj_mag=300.0,
+                                    **dict(bkw, ft=DETECT))
+    _cmp_outputs("K4 SEU: corrected dv vs clean", jv, cv)
+    _seu_at("K4 dv", jv, lv, cv, (7 // n_rep, 2 * 64 + 40, 12))
+    rows["flash_ft"] = dict(max_abs_err=k2_err, detail=[dict(
+        shape=f"train forward with stats, {shape}", ms=ms_f, plain_ms=pl_f,
+        library_ms=lib_f, bound_ms=bf[0], bound_by=bf[1])])
+    rows["flash_dq"] = dict(max_abs_err=k3_err, detail=[dict(
+        shape=shape, ms=ms_q, plain_ms=pl_q, library_ms=lib_b,
+        library="SDPA backward, dq+dk+dv together", bound_ms=bq_ms,
+        bound_by=bq_by)], headline=shape)
+    rows["flash_dkv"] = dict(max_abs_err=k4_err, detail=[dict(
+        shape=shape, ms=ms_kv, plain_ms=pl_kv, library_ms=lib_b,
+        library="SDPA backward, dq+dk+dv together", bound_ms=bkv_ms,
+        bound_by=bkv_by)], headline=shape)
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# train_check / train
+# ---------------------------------------------------------------------------
+
+def _grads_of(params, cfg, batch, ctx):
+    """(loss, {name: grad}, FT totals) of one loss_fn + backward."""
+    for p in params.parameters():
+        p.grad = None
+    with telemetry.ft_scope() as scope:
+        loss, _ = transformer.loss_fn(params, batch, cfg, ctx, remat="full")
+        loss.backward()
+        totals = scope.totals()
+    grads = {n: p.grad.clone() for n, p in params.named_parameters()}
+    return float(loss.detach()), grads, totals
+
+
+def phase_train_check():
+    cfg = dataclasses.replace(phi4_mini_38b.CONFIG, n_layers=CHECK_LAYERS)
+    params = transformer.init(cfg, seed=5, dtype=torch.bfloat16)
+    params.requires_grad_(True)
+    tok = torch.randint(0, cfg.vocab_size, (1, CHECK_SEQ + 1),
+                        generator=torch.Generator().manual_seed(5)).cuda()
+    batch = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+    ctx = Ctx(ft=FT, dtype=torch.bfloat16)
+    loss_k, grads_k, tot_k = _grads_of(params, cfg, batch, ctx)
+    with plain_kernels():
+        loss_p, grads_p, tot_p = _grads_of(params, cfg, batch, ctx)
+    rel = abs(loss_k - loss_p) / abs(loss_p)
+    check(rel <= 1e-3, f"train_check: loss kernel {loss_k:.6f} vs plain "
+          f"{loss_p:.6f} (relative {rel:.2g} <= 1e-3)")
+    worst = max(((grads_k[n].float() - grads_p[n].float()).norm()
+                 / grads_p[n].float().norm().clamp_min(1e-30)).item()
+                for n in grads_p)
+    check(worst <= 2e-2, f"train_check: every grad leaf within 2e-2 "
+          f"relative Frobenius (worst {worst:.3g})")
+    check(tot_k["detected"] == 0 and tot_p["detected"] == 0,
+          f"train_check: zero detections (kernels {tot_k}, plain {tot_p})")
+    seus = {
+        "w_down dw": ("w_down", ("dw", InjectionSpec(row=700, col=1000,
+                                                     magnitude=64.0,
+                                                     k_step=3))),
+        # dK values are small (the loss is a mean over 256 tokens), so the
+        # SEU is 1.0: its correction leaves a rounding of ulp(1.0), not of
+        # ulp(64), in the corrected element.
+        "flash dK": ("attn_flash", dict(
+            inject=InjectionSpec(row=20, col=9, magnitude=1.0, k_step=2),
+            inj_target="dk", inj_bh=5, inj_blk=1)),
+    }
+    def rel_err(grads):
+        return max(((grads[n].float() - grads_k[n].float()).norm()
+                    / grads_k[n].float().norm().clamp_min(1e-30)).item()
+                   for n in grads_k)
+
+    # The corrected element keeps the rounding of the f32 correction (the
+    # located magnitude carries the column sum's rounding) and then of the
+    # bf16 output, so the grads equal the clean ones to that rounding: a
+    # relative error far below the SEU's, which a detect-only policy leaves.
+    for label, hook in seus.items():
+        _, hurt, _ = _grads_of(params, cfg, batch,
+                               dataclasses.replace(ctx, bwd_inject=hook))
+        exact = all(torch.equal(hurt[n], grads_k[n]) for n in grads_k)
+        fixed = rel_err(hurt)
+        _, left, _ = _grads_of(params, cfg, batch, dataclasses.replace(
+            ctx, ft=DETECT, bwd_inject=hook))
+        kept = rel_err(left)
+        check(fixed <= 1e-3 and kept >= 100 * max(fixed, 1e-6),
+              f"train_check: SEU in the {label} corrected: grads as the clean "
+              f"run's (bit for bit: {exact}; worst leaf relative error "
+              f"{fixed:.3g}), detect-only leaves it ({kept:.3g})")
+    for p in params.parameters():
+        p.grad = None
+
+
+def phase_train(smi: str):
+    cfg = phi4_mini_38b.CONFIG
+    run = RunConfig(model=cfg, ft=FT, dtype="bfloat16", remat="full")
+    # The first steps of a run under the default schedule (100 warmup
+    # steps of 1 000); step 0 has lr 0.
+    tc = train_loop.TrainConfig(log_every=1)
+    shape = ShapeConfig("chip_smoke", TRAIN_SEQ, TRAIN_BATCH, "train")
+    per_step = []
+
+    def log(msg):
+        per_step.append({n: k["counter"].launches
+                         for n, k in KERNELS.items()})
+        print(f"  {msg}", flush=True)
+
+    torch.cuda.reset_peak_memory_stats()
+    for k in KERNELS.values():
+        k["counter"].launches = 0
+    t0 = time.perf_counter()
+    with telemetry.ft_scope() as scope:
+        out = train_loop.train(cfg, run, shape, tc, log=log, device="cuda",
+                               stop_at=TRAIN_STEPS)
+    wall = time.perf_counter() - t0
+    sites = {s: t for s, t in scope.site_totals().items() if t["detected"]}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    prev = {n: 0 for n in KERNELS}
+    launches = []
+    for snap in per_step:
+        launches.append({n: snap[n] - prev[n] for n in KERNELS})
+        prev = snap
+    times = [x * 1e3 for x in out["step_times"]]
+    step_ms = statistics.median(times[1:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    n_params = sum(p.numel() for p in out["params"].parameters())
+    losses = [h["loss"] for h in out["history"]]
+    print(f"  {n_params / 1e9:.2f} B parameters; steps "
+          f"{[round(x, 1) for x in times]} ms, median of steps "
+          f"1-{TRAIN_STEPS - 1} {step_ms:.1f} ms ({tokens / step_ms * 1e3:.1f} "
+          f"tokens/s); train() wall {wall:.1f} s with init; peak memory "
+          f"{peak:.1f} GiB")
+    print(f"  losses {losses}; FT counters per step "
+          f"{[(h['detected'], h['corrected']) for h in out['history']]}; "
+          f"sites with detections {sites}")
+    print(f"  launches per step {launches}")
+    check(len(losses) == TRAIN_STEPS and all(math.isfinite(x) for x in losses),
+          "train: a finite loss at every step")
+    check(all(h["detected"] == 0 for h in out["history"]),
+          "train: zero detections")
+    expect = {"ft_gemm_2d": 28 * cfg.n_layers + 3, "ft_gemm_batched": 0,
+              "flash_ft": 2 * cfg.n_layers, "flash_dq": cfg.n_layers,
+              "flash_dkv": cfg.n_layers}
+    check(all(x == expect for x in launches),
+          f"train: launches per step {expect} at every step")
+    # One more step through make_train_step under the dispatch guard.
+    opt_cfg = adamw.AdamWConfig(lr=run.learning_rate,
+                                weight_decay=run.weight_decay,
+                                grad_clip=run.grad_clip)
+    step_fn = train_loop.make_train_step(cfg, run, opt_cfg, tc)
+    pipe = data_lib.for_model(cfg, shape, seed=run.seed)
+    batch = {k: torch.as_tensor(x, dtype=torch.long, device="cuda")
+             for k, x in pipe.batch_at(TRAIN_STEPS).items()}
+    for k in KERNELS.values():
+        k["counter"].launches = 0
+    guard = LibraryCallGuard()
+    with guard:
+        _, _, metrics = step_fn(out["params"], out["opt_state"], batch,
+                                TRAIN_STEPS)
+        torch.cuda.synchronize()
+    guarded = {n: k["counter"].launches for n, k in KERNELS.items()}
+    print(f"  guarded step: loss {float(metrics['loss']):.4f}, launches "
+          f"{guarded}, {len(guard.seen)} distinct ops dispatched")
+    check(not guard.hits, f"train: no library matmul / attention op "
+          f"dispatched in the forward or the backward "
+          f"({sorted(set(guard.hits))})")
+    check(any("index_put" in op for op in guard.seen),
+          "train: the guard saw the backward's ops (the embedding's "
+          "index_put)")
+    check(guarded == expect, f"train: guarded step launches {guarded}")
+    print(json.dumps({"train": dict(
+        arch=cfg.arch_id, layers=cfg.n_layers, batch=TRAIN_BATCH,
+        seq=TRAIN_SEQ, steps=TRAIN_STEPS, step_ms=times,
+        median_step_ms=step_ms, tokens_per_s=tokens / step_ms * 1e3,
+        peak_gib=peak, losses=losses, launches_per_step=launches[-1],
+        card=smi)}))
+    return guarded
+
+
+def _merge_rows(rows, more):
+    """Add a phase's kernel rows: shapes append, the max error is the
+    larger; the first phase's headline shape stays."""
+    for name, r in more.items():
+        old = rows.get(name)
+        if old is None:
+            rows[name] = dict(r, headline=r.get("headline",
+                                                r["detail"][0]["shape"]))
+        else:
+            old["detail"] += r["detail"]
+            old["max_abs_err"] = max(old["max_abs_err"], r["max_abs_err"])
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="env,kernels,serve_check,serve")
+    ap.add_argument("--phases", default="env,kernels,serve_check,serve,"
+                    "train_kernels,train_check,train")
     ap.add_argument("--layers", type=int, default=qwen2_7b.CONFIG.n_layers,
                     help="serve depth (the width is always full)")
     args = ap.parse_args()
@@ -515,25 +988,42 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = None
-    rows, launches = {}, {}
+    rows, by_path, failed = {}, {}, []
     t_start = time.perf_counter()
     for phase in phases:
         t0 = time.perf_counter()
         print(f"== {phase}", flush=True)
-        if phase == "env":
-            smi = phase_env()
-        elif phase == "kernels":
-            rows = phase_kernels()
-        elif phase == "serve_check":
-            phase_serve_check()
-        elif phase == "serve":
-            launches = phase_serve(args.layers)
-        else:
-            raise SystemExit(f"unknown phase {phase!r}")
+        try:
+            if phase == "env":
+                smi = phase_env()
+            elif phase == "kernels":
+                _merge_rows(rows, phase_kernels())
+            elif phase == "serve_check":
+                phase_serve_check()
+            elif phase == "serve":
+                by_path["serve"] = phase_serve(args.layers)
+            elif phase == "train_kernels":
+                _merge_rows(rows, phase_train_kernels())
+            elif phase == "train_check":
+                phase_train_check()
+            elif phase == "train":
+                by_path["train"] = phase_train(smi)
+            else:
+                raise SystemExit(f"unknown phase {phase!r}")
+        except Exception:
+            # Report and go on to the next phase (a failed build ends the
+            # run): the script still exits non-zero with no result line.
+            traceback.print_exc(file=sys.stdout)
+            failed.append(phase)
+            if phase == "env":
+                break
         torch.cuda.empty_cache()
         print(f"== {phase} done in {time.perf_counter() - t0:.1f} s",
               flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s")
+    if failed:
+        print(f"chip_smoke: FAILED phases {failed}", flush=True)
+        return 1
     if smi is not None:
         print(smi)
     entries = []
@@ -542,9 +1032,12 @@ def main() -> int:
         head = None
         if r is not None:
             head = next(d for d in r["detail"] if d["shape"] == r["headline"])
+        counts = {path: c[name] for path, c in by_path.items()}
         entries.append({
             "name": name, "route": meta["route"], "source": meta["source"],
-            "replaces": meta["replaces"], "launches": launches.get(name),
+            "replaces": meta["replaces"],
+            "launches": sum(counts.values()) if counts else None,
+            "launches_by_path": counts,
             "max_abs_err": r["max_abs_err"] if r else None,
             "ms": head["ms"] if head else None,
             "plain_ms": head["plain_ms"] if head else None,

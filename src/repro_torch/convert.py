@@ -1,4 +1,5 @@
-"""Weight conversion: reference parameters → the port's `Params`.
+"""Weight conversion: reference parameters → the port's `Params`, and
+reference AdamW states → the port's optimizer state.
 
 `repro.models.transformer.init` returns nested dicts of arrays; the port's
 `state_dict` keys are those paths joined with "." with the same layout
@@ -34,3 +35,28 @@ def params_from_numpy(tree: Dict[str, Any], device="cuda") -> Params:
     """Nested dict of numpy arrays (reference parameter tree) → `Params`
     on ``device``."""
     return Params(_convert(tree, torch.device(device)))
+
+
+def _flatten(tree: Dict[str, Any], prefix: str = "") -> Dict[str, Any]:
+    out: Dict[str, Any] = {}
+    for name, v in tree.items():
+        key = f"{prefix}{name}"
+        if isinstance(v, dict):
+            out.update(_flatten(v, key + "."))
+        else:
+            out[key] = v
+    return out
+
+
+def opt_state_from_numpy(state: Dict[str, Any], device="cuda"
+                         ) -> Dict[str, Any]:
+    """Reference train-step optimizer state {"adam": {"m", "v", "count"}}
+    (nested dicts of numpy arrays, f32 moments) → the port's state, whose
+    moments are keyed by the parameters' `state_dict` names."""
+    adam = state["adam"]
+    dev = torch.device(device)
+    return {"adam": {
+        "m": {k: _tensor(v).to(dev) for k, v in _flatten(adam["m"]).items()},
+        "v": {k: _tensor(v).to(dev) for k, v in _flatten(adam["v"]).items()},
+        "count": _tensor(adam["count"]).to(dev, torch.int32),
+    }}

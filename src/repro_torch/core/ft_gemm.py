@@ -1,6 +1,6 @@
 """`ft_dot` / `ft_dot_fused` / `ft_batched_dot` — the fault-tolerant GEMM
 fronts every projection of the model routes through (counterpart of
-`repro.core.ft_gemm`, forward only).
+`repro.core.ft_gemm`).
 
 Paths, selected by the resolved `FTConfig`:
 
@@ -14,7 +14,19 @@ Paths, selected by the resolved `FTConfig`:
     baseline with materialised augmented operands).
 
 Each protected call records its (detections, max residual) summary into the
-ambient `telemetry.ft_scope` under its ``site`` label.
+ambient `telemetry.ft_scope` under its ``site`` label, once per forward
+call, outside the autograd Function (as the reference records outside its
+custom_vjp): backward corrections are applied but not counted.
+
+Differentiation: each front is a `torch.autograd.Function` whose backward
+GEMMs are protected with the same policy — dx = g·Wᵀ and dw = Xᵀ·g, through
+the same backends, with the transposed operands passed as views (the CUDA
+kernel reads them through their strides). ``bwd_inject`` = ("dx" | "dw",
+InjectionSpec) lands a deterministic SEU in the named backward GEMM.
+`ft_dot_fused` saves act'(pre-activation) from its forward kernel (the
+act_grad output) instead of recomputing the pre-activation GEMM, and its
+bias gradient is the f32 column sum of dpre. When no gradient is needed
+(serving, `torch.inference_mode`) the forward runs without the Function.
 """
 from __future__ import annotations
 
@@ -62,6 +74,28 @@ def _nonfused_ft_matmul_2d(ft: FTConfig, spec, a, b):
     return out.to(a.dtype), v
 
 
+def _bwd_injection(bwd_inject, target: str) -> Optional[InjectionSpec]:
+    """The SEU of ``bwd_inject`` = ("dx" | "dw", InjectionSpec) if it
+    targets the backward GEMM ``target``."""
+    if bwd_inject is not None and bwd_inject[0] == target:
+        return bwd_inject[1]
+    return None
+
+
+def _check_bwd_inject(ft: FTConfig, bwd_inject) -> None:
+    """A backward injection lives inside the FT machinery; with FT off it
+    would silently never land, so raise."""
+    if bwd_inject is not None and not ft.enabled:
+        raise ValueError(
+            "bwd_inject requires an enabled FTConfig: the SEU is emulated "
+            "inside the protected backward GEMM, which FT_OFF never runs")
+
+
+def _wants_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
 def _summary(v: abft.Verdict) -> Tuple[torch.Tensor, torch.Tensor]:
     return (v.detected.sum().to(torch.int32),
             torch.abs(v.magnitude).max().float())
@@ -90,24 +124,66 @@ def _record(det, maxres, corrects: bool, site: Optional[str]) -> None:
     telemetry.record_summary(det, maxres, corrects, site=site)
 
 
+class _FTDot(torch.autograd.Function):
+    """(…, K) @ (K, N) with the forward and both backward GEMMs protected.
+    Returns (y, det, maxres); the summary outputs carry no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, w, ft, spec, bwd_inject, key):
+        y2, det, maxres = _ft_matmul_2d(ft, spec, x.reshape(-1, x.shape[-1]),
+                                        w, key)
+        ctx.save_for_backward(x, w)
+        ctx.ft, ctx.bwd_inject = ft, bwd_inject
+        ctx.mark_non_differentiable(det, maxres)
+        return y2.reshape(*x.shape[:-1], w.shape[-1]), det, maxres
+
+    @staticmethod
+    def backward(ctx, g, _det, _maxres):
+        x, w = ctx.saved_tensors
+        dx, dw = _linear_grads(ctx, x, w, g.reshape(-1, g.shape[-1])
+                               .to(x.dtype))
+        return dx, dw, None, None, None, None
+
+
+def _linear_grads(ctx, x, w, dpre):
+    """dx = dpre·Wᵀ and dw = Xᵀ·dpre, each a protected GEMM (only the
+    gradients autograd asks for)."""
+    x2 = x.reshape(-1, x.shape[-1])
+    dx = dw = None
+    if ctx.needs_input_grad[0]:
+        dx2, _, _ = _ft_matmul_2d(ctx.ft, _bwd_injection(ctx.bwd_inject, "dx"),
+                                  dpre, w.T, None)
+        dx = dx2.reshape(x.shape)
+    if ctx.needs_input_grad[1]:
+        dw, _, _ = _ft_matmul_2d(ctx.ft, _bwd_injection(ctx.bwd_inject, "dw"),
+                                 x2.T, dpre, None)
+        dw = dw.to(w.dtype)
+    return dx, dw
+
+
 def ft_dot(x: torch.Tensor, w: torch.Tensor, ft: FTLike = FT_OFF,
            key=None, spec: Optional[InjectionSpec] = None,
-           site: Optional[str] = None) -> torch.Tensor:
+           bwd_inject=None, site: Optional[str] = None) -> torch.Tensor:
     """Fault-tolerant dense projection: (…, K) @ (K, N) → (…, N).
 
     ft   — FTConfig, or FTPolicy resolved against ``site`` here;
     key  — stochastic-campaign key (a request for a campaign raises);
-    spec — optional deterministic single-SEU injection;
+    spec — optional deterministic single-SEU injection (forward GEMM);
+    bwd_inject — optional ("dx" | "dw", InjectionSpec): an SEU inside the
+           named backward GEMM;
     site — telemetry label of the call site (e.g. "w_gate")."""
     ft = resolve_ft(ft, site)
+    _check_bwd_inject(ft, bwd_inject)
     if not ft.enabled and key is None and spec is None:
         return torch.matmul(x, w)                     # fast path
-    lead = x.shape[:-1]
-    y2, det, maxres = _ft_matmul_2d(ft, spec, x.reshape(-1, x.shape[-1]), w,
-                                    key)
-    if ft.enabled:
-        _record(det, maxres, ft.corrects, site)
-    return y2.reshape(*lead, w.shape[-1])
+    if _wants_grad(x, w):
+        y, det, maxres = _FTDot.apply(x, w, ft, spec, bwd_inject, key)
+    else:
+        y2, det, maxres = _ft_matmul_2d(ft, spec, x.reshape(-1, x.shape[-1]),
+                                        w, key)
+        y = y2.reshape(*x.shape[:-1], w.shape[-1])
+    _record(det, maxres, ft.corrects, site)
+    return y
 
 
 def _epilogue_fn(act: Optional[str]):
@@ -115,47 +191,110 @@ def _epilogue_fn(act: Optional[str]):
     return epilogues.activation(act) if act is not None else (lambda y: y)
 
 
+def _fused_epilogue(ft: FTConfig, spec, act, x2, w, bias, key,
+                    want_grad: bool):
+    """y = act(x2 @ w + bias) with policy ``ft``: (out, det, maxres,
+    act_grad|None). With ``want_grad`` the kernel backend runs the
+    act_grad variant (act'(pre-activation) from the verified, corrected
+    accumulator) and the torch-op paths evaluate the same derivative on
+    the f32 accumulator."""
+    if ft.enabled and ft.backend == "pallas":
+        check_campaign(ft, key)
+        from ..kernels import ops as kops
+        res, rep = kops.fused_matmul(x2, w, bias=bias, act=act, ft=ft,
+                                     inject=spec, save_act_grad=want_grad)
+        out, actp = res if want_grad else (res, None)
+        return (out, *_report_summary(rep), actp)
+    if not ft.enabled:
+        # As `_ft_matmul_2d` with FT off: no injection, the zero summary.
+        acc = _matmul_f32acc(x2, w)
+        det = torch.zeros((), dtype=torch.int32, device=x2.device)
+        maxres = torch.zeros((), device=x2.device)
+    else:
+        check_campaign(ft, key)
+        fn = _fused_ft_matmul if ft.fused else _nonfused_ft_matmul_2d
+        out, v = fn(ft, spec, x2, w)
+        acc = out.float()
+        det, maxres = _summary(v)
+    if bias is not None:
+        acc = acc + bias.float()
+    actp = None
+    if want_grad:
+        from ..kernels.templates import epilogues
+        actp = epilogues.activation_grad(act)(acc).to(x2.dtype)
+    return _epilogue_fn(act)(acc).to(x2.dtype), det, maxres, actp
+
+
+class _FTDotFused(torch.autograd.Function):
+    """act((…, K) @ (K, N) + bias) with the act_grad residual saved from the
+    forward; backward: dpre = g ∘ act', dbias = Σ dpre, dx and dw as two
+    protected GEMMs."""
+
+    @staticmethod
+    def forward(ctx, x, w, bias, act, ft, spec, bwd_inject, key):
+        x2 = x.reshape(-1, x.shape[-1])
+        y2, det, maxres, actp = _fused_epilogue(ft, spec, act, x2, w, bias,
+                                                key, want_grad=act is not None)
+        ctx.save_for_backward(x, w, bias, actp)
+        ctx.ft, ctx.bwd_inject = ft, bwd_inject
+        ctx.mark_non_differentiable(det, maxres)
+        return y2.reshape(*x.shape[:-1], w.shape[-1]), det, maxres
+
+    @staticmethod
+    def backward(ctx, g, _det, _maxres):
+        x, w, bias, actp = ctx.saved_tensors
+        g2 = g.reshape(-1, g.shape[-1])
+        if actp is not None:
+            dpre = (g2.float() * actp.float()).to(x.dtype)
+        else:
+            dpre = g2.to(x.dtype)
+        dbias = None
+        if bias is not None and ctx.needs_input_grad[2]:
+            dbias = dpre.float().sum(0).to(bias.dtype).reshape(bias.shape)
+        dx, dw = _linear_grads(ctx, x, w, dpre)
+        return dx, dw, dbias, None, None, None, None, None
+
+
 def ft_dot_fused(x: torch.Tensor, w: torch.Tensor,
                  bias: Optional[torch.Tensor] = None,
                  act: Optional[str] = None, ft: FTLike = FT_OFF,
                  key=None, spec: Optional[InjectionSpec] = None,
-                 site: Optional[str] = None) -> torch.Tensor:
+                 bwd_inject=None, site: Optional[str] = None
+                 ) -> torch.Tensor:
     """Fault-tolerant fused-epilogue projection:
     (…, K) @ (K, N) → act((…, N) + bias), one kernel on the pallas backend
-    (the linear prefix folded into the checksums)."""
+    (the linear prefix folded into the checksums). Differentiated, the
+    forward also writes act'(pre-activation) and the backward is two
+    protected GEMMs and one elementwise product."""
     ft = resolve_ft(ft, site)
+    _check_bwd_inject(ft, bwd_inject)
     if bias is None and act is None:
-        return ft_dot(x, w, ft=ft, key=key, spec=spec, site=site)
-    lead = x.shape[:-1]
-    x2 = x.reshape(-1, x.shape[-1])
-    if ft.enabled and ft.backend == "pallas":
-        check_campaign(ft, key)
-        from ..kernels import ops as kops
-        out, rep = kops.fused_matmul(x2, w, bias=bias, act=act, ft=ft,
-                                     inject=spec)
-        det, maxres = _report_summary(rep)
-    else:
-        if not ft.enabled:
-            acc = _matmul_f32acc(x2, w)
-        else:
-            check_campaign(ft, key)
-            fn = _fused_ft_matmul if ft.fused else _nonfused_ft_matmul_2d
-            out, v = fn(ft, spec, x2, w)
-            acc = out.float()
-            det, maxres = _summary(v)
+        return ft_dot(x, w, ft=ft, key=key, spec=spec, bwd_inject=bwd_inject,
+                      site=site)
+    if not ft.enabled and key is None and spec is None:
+        y = _matmul_f32acc(x, w)                      # fast path
         if bias is not None:
-            acc = acc + bias.float()
-        out = _epilogue_fn(act)(acc).to(x.dtype)
-    if ft.enabled:
-        _record(det, maxres, ft.corrects, site)
-    return out.reshape(*lead, w.shape[-1])
+            y = y + bias.float()
+        return _epilogue_fn(act)(y).to(x.dtype)
+    if _wants_grad(x, w, bias):
+        y, det, maxres = _FTDotFused.apply(x, w, bias, act, ft, spec,
+                                           bwd_inject, key)
+    else:
+        y2, det, maxres, _ = _fused_epilogue(
+            ft, spec, act, x.reshape(-1, x.shape[-1]), w, bias, key,
+            want_grad=False)
+        y = y2.reshape(*x.shape[:-1], w.shape[-1])
+    _record(det, maxres, ft.corrects, site)
+    return y
 
 
 def _ft_bmm_backend(ft: FTConfig, spec, a, b, key):
     """(out, det, maxres) of one protected batched matmul: one batched
-    kernel launch on the pallas backend, the torch-op path otherwise."""
+    kernel launch on the pallas backend with FT on, the torch-op path
+    otherwise (FT off with an injection lands the SEU and leaves it, as the
+    reference's `_fused_ft_bmm` does)."""
     check_campaign(ft, key)
-    if ft.backend == "pallas":
+    if ft.enabled and ft.backend == "pallas":
         from ..kernels import ops as kops
         from ..kernels.templates import BatchedKernelSpec
         lead = a.shape[:-2]
@@ -174,16 +313,46 @@ def _ft_bmm_backend(ft: FTConfig, spec, a, b, key):
     return (out, *_summary(v))
 
 
+class _FTBmm(torch.autograd.Function):
+    """Batched (…, M, K) @ (…, K, N) with both backward products protected
+    (no injection there)."""
+
+    @staticmethod
+    def forward(ctx, a, b, ft, spec, key):
+        y, det, maxres = _ft_bmm_backend(ft, spec, a, b, key)
+        ctx.save_for_backward(a, b)
+        ctx.ft = ft
+        ctx.mark_non_differentiable(det, maxres)
+        return y, det, maxres
+
+    @staticmethod
+    def backward(ctx, g, _det, _maxres):
+        a, b = ctx.saved_tensors
+        g = g.to(a.dtype)
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            da, _, _ = _ft_bmm_backend(ctx.ft, None, g, b.transpose(-1, -2),
+                                       None)
+        if ctx.needs_input_grad[1]:
+            db, _, _ = _ft_bmm_backend(ctx.ft, None, a.transpose(-1, -2), g,
+                                       None)
+            db = db.to(b.dtype)
+        return da, db, None, None, None
+
+
 def ft_batched_dot(a: torch.Tensor, b: torch.Tensor, ft: FTLike = FT_OFF,
                    key=None, spec: Optional[InjectionSpec] = None,
                    site: Optional[str] = None) -> torch.Tensor:
     """Fault-tolerant batched matmul: (…, M, K) @ (…, K, N) → (…, M, N);
-    leading dims must match. One batched kernel on the pallas backend."""
+    leading dims must match. One batched kernel on the pallas backend. FT
+    off with a spec or key takes the torch-op ABFT path with the SEU
+    injected and not corrected, and records its summary."""
     ft = resolve_ft(ft, site)
     if not ft.enabled and key is None and spec is None:
         return torch.matmul(a, b)
-    if not ft.enabled:
-        return _matmul_f32acc(a, b).to(a.dtype)
-    y, det, maxres = _ft_bmm_backend(ft, spec, a, b, key)
+    if _wants_grad(a, b):
+        y, det, maxres = _FTBmm.apply(a, b, ft, spec, key)
+    else:
+        y, det, maxres = _ft_bmm_backend(ft, spec, a, b, key)
     _record(det, maxres, ft.corrects, site)
     return y

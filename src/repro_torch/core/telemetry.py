@@ -4,15 +4,26 @@ summaries from every protected call.
 
 Records are kept as device tensors and reduced only when `totals` or
 `site_totals` is read, so recording adds no host synchronisation to the
-serving loop. The reference's site matrices and storm detector are not part
-of this package.
+serving loop; `report` reduces them on the device into an `FTReport`, the
+per-step FT metrics of the train step. `muted` suppresses recording, for
+the recompute of an activation checkpoint (each protected call is counted
+once, in the forward). The reference's site matrices and storm detector are
+not part of this package.
 """
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, Iterator, List, Optional, Tuple
+from typing import Dict, Iterator, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
+
+
+class FTReport(NamedTuple):
+    """Step totals of the FT counters (device scalars, f32): detections,
+    corrections and the largest residual."""
+    detected: torch.Tensor
+    corrected: torch.Tensor
+    max_residual: torch.Tensor
 
 
 class FTScope:
@@ -49,15 +60,53 @@ class FTScope:
             tot["max_residual"] = max(tot["max_residual"], t["max_residual"])
         return tot
 
+    def extend(self, other: "FTScope") -> None:
+        """Append every record of ``other`` (a nested scope) to this one."""
+        self._items.extend(other._items)
+
+    def report(self, device=None) -> FTReport:
+        """The totals as an `FTReport` of device scalars, reduced on the
+        device (no host synchronisation)."""
+        dev = (self._items[0][1].device if self._items
+               else torch.device(device or "cpu"))
+        det = torch.zeros((), device=dev)
+        cor = torch.zeros((), device=dev)
+        mr = torch.zeros((), device=dev)
+        for _, d, corr, m in self._items:
+            det = det + d.float()
+            if corr:
+                cor = cor + d.float()
+            mr = torch.maximum(mr, m.float())
+        return FTReport(det, cor, mr)
+
     def __len__(self) -> int:
         return len(self._items)
 
 
-_SCOPES: List[FTScope] = []
+def reduce_microbatch(reports: Sequence[FTReport]) -> FTReport:
+    """Collapse the reports of a step's microbatches: the counters SUM
+    (they are event counts, not rates) and the residuals take the max."""
+    return FTReport(
+        detected=torch.stack([r.detected for r in reports]).sum(0),
+        corrected=torch.stack([r.corrected for r in reports]).sum(0),
+        max_residual=torch.stack([r.max_residual for r in reports]).amax(0))
+
+
+_SCOPES: List[Optional[FTScope]] = []
 
 
 def current_scope() -> Optional[FTScope]:
     return _SCOPES[-1] if _SCOPES else None
+
+
+@contextlib.contextmanager
+def muted() -> Iterator[None]:
+    """Record nothing inside: the ambient scope is hidden until exit."""
+    _SCOPES.append(None)
+    try:
+        yield
+    finally:
+        _SCOPES.pop()
 
 
 @contextlib.contextmanager

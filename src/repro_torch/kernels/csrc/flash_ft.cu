@@ -2,7 +2,8 @@
 //
 // Replaces the TPU kernel K2 of the JAX package:
 //   src/repro/kernels/flashft.py:_flash_ft_kernel, launched by
-//   templates/registry.py:flash_fwd_call (forward, save_stats=False).
+//   templates/registry.py:flash_fwd_call (forward, with and without
+//   save_stats).
 //
 // One CTA of 256 threads per (query head bh, q block of 64 rows); a loop
 // over kv blocks of 64 keeps Q, K (transposed), V, the scores S and the
@@ -17,7 +18,10 @@
 //   * delta = P·V, verified against (eᵀP)·V and P·(Ve) and corrected before
 //     the alpha-rescale (tau = rel_tau·eps32·eff_kv·max|V_blk|, k field =
 //     eff_kv = min(Skv - kv_start, 64));
-//   * flush: rows with m degenerate or l = 0 write exact zeros.
+//   * flush: rows with m degenerate or l = 0 write exact zeros; with
+//     save_stats each live row also writes its softmax statistics (m, l),
+//     f32, degenerate rows as (NEG_INF, 0), the residual the backward
+//     kernels (flash_ft_bwd.cu) consume.
 // Dead kv blocks (past the true Skv, or above the causal diagonal) are
 // skipped. GQA reads kv head bh / n_rep; K and V are never repeated.
 // What bounds it on the H100: at the prefill shapes it is bound by
@@ -39,6 +43,8 @@ struct FlashArgs {
   const void* v;
   void* out;
   float* rep;
+  float* m_out;        // nullptr, or (bh, sq) saved row max
+  float* l_out;        // nullptr, or (bh, sq) saved row sum
   int sq, skv, n_rep, nqb, causal, corrects;
   float scale;
   float tau_qk_coef;   // rel_tau * eps32 * round_up(dh, 128)
@@ -269,6 +275,13 @@ __global__ void __launch_bounds__(kThreads) flash_ft_kernel(const FlashArgs g) {
     for (int c = 0; c < CW; ++c)
       store(&out[(long long)gi * DH + tx + 16 * c], o[i][c] * linv);
   }
+  if (g.m_out != nullptr && tid < BQ && q_start + tid < sq) {
+    const float m = m_s[tid], l = l_s[tid];
+    const bool good = m > 0.5f * kNegInf && l > 0.0f;
+    const long long at = (long long)bh * sq + q_start + tid;
+    g.m_out[at] = good ? m : kNegInf;
+    g.l_out[at] = good ? l : 0.0f;
+  }
   if (tid == 0) {
     float* r = g.rep + ((long long)bh * g.nqb + qi) * 8;
     for (int q8 = 0; q8 < 8; ++q8) r[q8] = rep[q8];
@@ -301,10 +314,11 @@ const char* flash_ft_error_string(int code) {
 }
 
 // q (bh, sq, dh); k, v (bh / n_rep, skv, dh); out (bh, sq, dh); report
-// (bh, ceil(sq / 64), 8): contiguous. dtype: 0 f32, 1 bf16; dh 64 or 128.
-// Returns the launch's cudaError_t.
+// (bh, ceil(sq / 64), 8); m_out, l_out nullptr or (bh, sq) f32: contiguous.
+// dtype: 0 f32, 1 bf16; dh 64 or 128. Returns the launch's cudaError_t.
 int flash_ft_launch(const void* q, const void* k, const void* v, void* out,
-                    float* rep, int bh, int sq, int skv, int dh, int n_rep,
+                    float* rep, float* m_out, float* l_out, int bh, int sq,
+                    int skv, int dh, int n_rep,
                     int dtype, int causal, int corrects,
                     float scale, float tau_qk_coef, float tau_coef,
                     int inj_enable, int inj_bh, int inj_qb, int inj_s,
@@ -313,6 +327,7 @@ int flash_ft_launch(const void* q, const void* k, const void* v, void* out,
     return cudaErrorInvalidValue;
   FlashArgs g{};
   g.q = q; g.k = k; g.v = v; g.out = out; g.rep = rep;
+  g.m_out = m_out; g.l_out = l_out;
   g.sq = sq; g.skv = skv; g.n_rep = n_rep; g.nqb = (sq + BQ - 1) / BQ;
   g.causal = causal; g.corrects = corrects;
   g.scale = scale; g.tau_qk_coef = tau_qk_coef; g.tau_coef = tau_coef;

@@ -26,7 +26,15 @@
 //     nonlinear suffix, and one write of C;
 //   * ragged edges are masked by bounds (loads past (M, N, K) read zero);
 //     the bias is added to every tile row, padding rows included, like the
-//     reference's fold, so the column residuals agree on the ragged edge.
+//     reference's fold, so the column residuals agree on the ragged edge;
+//   * LAYOUT picks the walk of the tile loads: 0 row-major operands; 1 a
+//     B whose k dim has unit stride (w.T in dx = g·Wᵀ); 2 an A whose m dim
+//     has unit stride (x.T in dw = Xᵀ·g). Each walks along the unit-stride
+//     dim, so transposed views load coalesced and are never copied; the
+//     training layouts are compiled for the plain chain only;
+//   * AG (training): the act_grad output, act'(pre-activation) of the
+//     chain's activation, written from the verified, corrected block
+//     beside C; compiled for the chains with an activation only.
 // What bounds it on the H100: decode-shaped calls (M <= 16) are bound by
 // the bytes of B (the weights), prefill-shaped calls by operations. This
 // first version runs the MACs on the CUDA cores in f32 (no tensor cores, no
@@ -67,6 +75,23 @@ __device__ __forceinline__ float activate(float y) {
   return y;
 }
 
+// The activation's derivative, the formulas of templates/epilogues.py.
+template <int ACT>
+__device__ __forceinline__ float activate_grad(float y) {
+  if (ACT == 1) {
+    const float s = 1.0f / (1.0f + expf(-y));
+    return s * (1.0f + y * (1.0f - s));
+  }
+  if (ACT == 2) {
+    const float c = 0.7978845608028654f;
+    const float t = tanhf(c * (y + 0.044715f * y * y * y));
+    const float du = c * (1.0f + 3.0f * 0.044715f * y * y);
+    return 0.5f * (1.0f + t) + 0.5f * y * (1.0f - t * t) * du;
+  }
+  if (ACT == 3) return y > 0.0f ? 1.0f : 0.0f;
+  return 1.0f;
+}
+
 struct GemmArgs {
   const void* a;
   const void* b;
@@ -74,6 +99,7 @@ struct GemmArgs {
   const void* res;
   void* out;
   float* rep;
+  void* act_grad;          // nullptr, or act'(pre-activation) (M, N)
   int M, N, K;
   int nb1;                 // inner batch count: z = b0 * nb1 + b1
   long long sa0, sa1;      // A batch strides in elements
@@ -95,7 +121,8 @@ __device__ __forceinline__ float load_at(const T* p, int r, int c, int sr,
   return to_f32(p[sc == 1 ? rr + c : rr + (long long)c * sc]);
 }
 
-template <typename T, bool FT, int EPI, int BM, int BN, int BK, int TM, int TN>
+template <typename T, bool FT, int EPI, int LAYOUT, bool AG, int BM, int BN,
+          int BK, int TM, int TN>
 __global__ void __launch_bounds__(kThreads)
 ft_gemm_kernel(const GemmArgs g) {
   constexpr int TX = BN / TN, TY = BM / TM;
@@ -134,7 +161,8 @@ ft_gemm_kernel(const GemmArgs g) {
     const int k0 = s * BK;
     __syncthreads();
     for (int idx = tid; idx < BM * BK; idx += kThreads) {
-      const int m = idx / BK, kk = idx % BK;
+      const int m = LAYOUT == 2 ? idx % BM : idx / BK;
+      const int kk = LAYOUT == 2 ? idx / BM : idx % BK;
       const int gr = row0 + m, gk = k0 + kk;
       const float v = (gr < M && gk < K)
                           ? load_at(A, gr, gk, g.sam, g.sak) : 0.0f;
@@ -142,7 +170,8 @@ ft_gemm_kernel(const GemmArgs g) {
       if (FT) amax = fmaxf(amax, fabsf(v));
     }
     for (int idx = tid; idx < BK * BN; idx += kThreads) {
-      const int kk = idx / BN, n = idx % BN;
+      const int kk = LAYOUT == 1 ? idx % BK : idx / BN;
+      const int n = LAYOUT == 1 ? idx / BK : idx % BN;
       const int gk = k0 + kk, gc = col0 + n;
       const float v = (gk < K && gc < N)
                           ? load_at(B, gk, gc, g.sbk, g.sbn) : 0.0f;
@@ -260,12 +289,16 @@ ft_gemm_kernel(const GemmArgs g) {
     if (g.corrects && v.det && tid == 0) Cs[v.row][v.col] -= v.mag;
     __syncthreads();
   }
-  // Nonlinear suffix, cast and the single write of C.
+  // Nonlinear suffix, cast and the single write of C (and act_grad).
   T* out = static_cast<T*>(g.out) + (long long)bz * M * N;
+  T* ag = static_cast<T*>(g.act_grad);
   for (int idx = tid; idx < BM * BN; idx += kThreads) {
     const int m = idx / BN, n = idx % BN;
     const int gr = row0 + m, gc = col0 + n;
     if (gr >= M || gc >= N) continue;
+    if (AG)
+      store(&ag[(long long)bz * M * N + (long long)gr * N + gc],
+            activate_grad<Ch::act>(Cs[m][n]));
     float y = activate<Ch::act>(Cs[m][n]);
     if (Ch::residual && !fold_res) y += to_f32(res[(long long)gr * N + gc]);
     store(&out[(long long)gr * N + gc], y);
@@ -276,31 +309,56 @@ ft_gemm_kernel(const GemmArgs g) {
   }
 }
 
-template <typename T, bool FT, int EPI, int BM, int BN, int BK, int TM, int TN>
+template <typename T, bool FT, int EPI, int LAYOUT, bool AG, int BM, int BN,
+          int BK, int TM, int TN>
 cudaError_t launch(GemmArgs g, int batch, cudaStream_t stream) {
   g.gm = (g.M + BM - 1) / BM;
   g.gn = (g.N + BN - 1) / BN;
   g.ksteps = (g.K + BK - 1) / BK;
   if (g.gm > 65535 || batch > 65535) return cudaErrorInvalidConfiguration;
   dim3 grid(g.gn, g.gm, batch);
-  ft_gemm_kernel<T, FT, EPI, BM, BN, BK, TM, TN>
+  ft_gemm_kernel<T, FT, EPI, LAYOUT, AG, BM, BN, BK, TM, TN>
       <<<grid, kThreads, 0, stream>>>(g);
   return cudaGetLastError();
 }
 
 // Tile configurations (BM, BN, BK); kernels/ft_gemm.py:TILES lists the
 // same table in the same order.
-template <typename T, bool FT, int EPI>
+template <typename T, bool FT, int EPI, int LAYOUT = 0, bool AG = false>
 cudaError_t launch_tiles(int tiles, const GemmArgs& g, int batch,
                          cudaStream_t st) {
-  if (tiles == 0) return launch<T, FT, EPI, 64, 64, 32, 4, 4>(g, batch, st);
-  if (tiles == 1) return launch<T, FT, EPI, 16, 128, 32, 2, 4>(g, batch, st);
+  if (tiles == 0)
+    return launch<T, FT, EPI, LAYOUT, AG, 64, 64, 32, 4, 4>(g, batch, st);
+  if (tiles == 1)
+    return launch<T, FT, EPI, LAYOUT, AG, 16, 128, 32, 2, 4>(g, batch, st);
   return cudaErrorInvalidValue;
 }
 
+// The training variants: a transposed operand (plain chain) or the
+// act_grad output (chains with an activation).
 template <typename T, bool FT>
-cudaError_t launch_epi(int epi, int tiles, const GemmArgs& g, int batch,
-                       cudaStream_t st) {
+cudaError_t launch_train(int epi, int layout, bool ag, int tiles,
+                         const GemmArgs& g, int batch, cudaStream_t st) {
+  if (!ag && epi == kEpiNone && layout == 1)
+    return launch_tiles<T, FT, kEpiNone, 1>(tiles, g, batch, st);
+  if (!ag && epi == kEpiNone && layout == 2)
+    return launch_tiles<T, FT, kEpiNone, 2>(tiles, g, batch, st);
+  if (!ag || layout != 0) return cudaErrorInvalidValue;
+  switch (epi) {
+    case kEpiSilu: return launch_tiles<T, FT, kEpiSilu, 0, true>(tiles, g, batch, st);
+    case kEpiBiasSilu:
+      return launch_tiles<T, FT, kEpiBiasSilu, 0, true>(tiles, g, batch, st);
+    case kEpiGelu: return launch_tiles<T, FT, kEpiGelu, 0, true>(tiles, g, batch, st);
+    case kEpiRelu: return launch_tiles<T, FT, kEpiRelu, 0, true>(tiles, g, batch, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T, bool FT>
+cudaError_t launch_epi(int epi, int layout, bool ag, int tiles,
+                       const GemmArgs& g, int batch, cudaStream_t st) {
+  if (layout != 0 || ag)
+    return launch_train<T, FT>(epi, layout, ag, tiles, g, batch, st);
   switch (epi) {
     case kEpiNone: return launch_tiles<T, FT, kEpiNone>(tiles, g, batch, st);
     case kEpiBias: return launch_tiles<T, FT, kEpiBias>(tiles, g, batch, st);
@@ -326,14 +384,18 @@ const char* ft_gemm_error_string(int code) {
 // A (nb0, nb1, M, K) and B (nb0, nb1, K, N) with the element strides
 // sa0..sak and sb0..sbn (sb0 = sb1 = 0: one B shared by every slice); out
 // (nb0, nb1, M, N) and report (nb0, nb1, gm, gn, 8) contiguous row-major.
-// bias (N,) and residual (M, N), contiguous, only with one slice. dtype:
-// 0 f32, 1 bf16. epi: the Epilogue code. Returns the launch's cudaError_t.
+// bias (N,) and residual (M, N), contiguous, only with one slice. act_grad:
+// nullptr, or (nb0, nb1, M, N) contiguous for a chain with an activation.
+// dtype: 0 f32, 1 bf16. epi: the Epilogue code. layout: the LAYOUT of the
+// tile loads (1 and 2 with epi 0 only). Returns the launch's cudaError_t.
 int ft_gemm_launch(const void* a, const void* b, const void* bias,
-                   const void* res, void* out, float* rep, int nb0, int nb1,
+                   const void* res, void* out, float* rep, void* act_grad,
+                   int nb0, int nb1,
                    int M, int N, int K, long long sa0, long long sa1, int sam,
                    int sak, long long sb0, long long sb1, int sbk, int sbn,
                    int dtype, int ft,
-                   int epi, int tiles, int verify_step, int corrects,
+                   int epi, int tiles, int layout, int verify_step,
+                   int corrects,
                    float tau_coef, int inj_enable, int inj_batch, int inj_row,
                    int inj_col, int inj_k, float inj_mag, void* stream) {
   if (M <= 0 || N <= 0 || K <= 0 || nb0 <= 0 || nb1 <= 0)
@@ -341,6 +403,7 @@ int ft_gemm_launch(const void* a, const void* b, const void* bias,
   const int batch = nb0 * nb1;
   GemmArgs g{};
   g.a = a; g.b = b; g.bias = bias; g.res = res; g.out = out; g.rep = rep;
+  g.act_grad = act_grad;
   g.M = M; g.N = N; g.K = K; g.nb1 = nb1;
   g.sa0 = sa0; g.sa1 = sa1; g.sam = sam; g.sak = sak;
   g.sb0 = sb0; g.sb1 = sb1; g.sbk = sbk; g.sbn = sbn;
@@ -348,12 +411,15 @@ int ft_gemm_launch(const void* a, const void* b, const void* bias,
   g.inj_enable = inj_enable; g.inj_batch = inj_batch; g.inj_row = inj_row;
   g.inj_col = inj_col; g.inj_k = inj_k; g.inj_mag = inj_mag;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool ag = act_grad != nullptr;
   if (dtype == 0)
-    return ft ? launch_epi<float, true>(epi, tiles, g, batch, st)
-              : launch_epi<float, false>(epi, tiles, g, batch, st);
+    return ft ? launch_epi<float, true>(epi, layout, ag, tiles, g, batch, st)
+              : launch_epi<float, false>(epi, layout, ag, tiles, g, batch, st);
   if (dtype == 1)
-    return ft ? launch_epi<__nv_bfloat16, true>(epi, tiles, g, batch, st)
-              : launch_epi<__nv_bfloat16, false>(epi, tiles, g, batch, st);
+    return ft ? launch_epi<__nv_bfloat16, true>(epi, layout, ag, tiles, g,
+                                                batch, st)
+              : launch_epi<__nv_bfloat16, false>(epi, layout, ag, tiles, g,
+                                                 batch, st);
   return cudaErrorInvalidValue;
 }
 

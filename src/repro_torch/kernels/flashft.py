@@ -1,18 +1,25 @@
-"""ABFT flash-attention forward — wrapper of the CUDA kernel
-`csrc/flash_ft.cu` and its plain PyTorch version.
+"""ABFT flash attention, both directions — wrappers of the CUDA kernels
+`csrc/flash_ft.cu` (forward) and `csrc/flash_ft_bwd.cu` (dQ, dK/dV) and
+their plain PyTorch versions.
 
-Replaces the TPU kernel K2 of the JAX package:
-`repro/kernels/flashft.py:_flash_ft_kernel`, launched by
-`templates/registry.py:flash_fwd_call` (forward only, ``save_stats=False``).
+Replaces the TPU kernels of the JAX package
+`repro/kernels/flashft.py`:
+  * K2 `_flash_ft_kernel` (launch `templates/registry.py:flash_fwd_call`),
+    with ``save_stats``: the per-row softmax statistics (m, l);
+  * K3 `_flash_dq_kernel` (launch `registry.py:flash_dq_call`);
+  * K4 `_flash_dkv_kernel` (launch `registry.py:flash_dkv_call`).
 
-`flash_ft_fwd` takes a CPU tensor to `flash_ft_plain` and a CUDA tensor to
-the kernel (launch or raise). The plain version walks the same (bq, bkv)
-grid — a Python loop over kv steps, vectorised over (head, q block) — and
-writes the same (BH, nqb, 8) report: both in-kernel GEMMs are verified per
-kv step, S = QKᵀ before scale and mask, Δ = PV before the α-rescale.
+Each wrapper takes a CPU tensor to its plain version and a CUDA tensor to
+its kernel (launch or raise), and counts its launches (`FLASH_FT`,
+`FLASH_DQ`, `FLASH_DKV`). The plain versions walk the kernels' block grids
+— a Python loop over the reduction steps, vectorised over the stationary
+blocks — and write the same 8-field reports: the forward verifies
+S = QKᵀ and Δ = PV per kv step; the dQ walk verifies the recomputed S,
+dP = g·Vᵀ and the dQ delta dS·K per kv step; the dK/dV walk (n_rep query
+heads × q blocks per kv block) verifies S, dP, dV = Pᵀg and dK = dSᵀQ.
 
-What bounds the kernel on the H100 and what its design does about it is in
-the header of `csrc/flash_ft.cu`.
+What bounds the kernels on the H100 and what their design does about it is
+in the headers of the CUDA sources.
 """
 from __future__ import annotations
 
@@ -23,7 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from ..core.abft import F32EPS
-from ..core.policy import FTConfig
+from ..core.policy import FTConfig, InjectionSpec
 from . import build
 from .ft_gemm import DTYPE_CODES, REPORT_WIDTH, cdiv, locate_record
 
@@ -32,17 +39,52 @@ NEG_INF = -1e30
 BLOCK = 64
 HEAD_DIMS = (64, 128)
 
-_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
+#: Deterministic backward-injection targets (`encode_bwd_injection`):
+#: which backward GEMM the SEU lands in. "dp_q" / "dp_kv" hit dP = g·Vᵀ
+#: inside the dQ / dK-dV kernel.
+BWD_TARGETS = {"dp_q": 0, "dq": 1, "dp_kv": 0, "dv": 2, "dk": 3}
+DQ_TARGETS = ("dp_q", "dq")
+DKV_TARGETS = ("dp_kv", "dv", "dk")
+
+_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
              + [ctypes.c_float] * 3 + [ctypes.c_int] * 6
              + [ctypes.c_float, ctypes.c_void_p])
 FLASH_FT = build.Kernel("flash_ft", "flash_ft_launch", _ARGTYPES)
+_BWD_TAIL = ([ctypes.c_int] * 8 + [ctypes.c_float] * 4 + [ctypes.c_int] * 7
+             + [ctypes.c_float, ctypes.c_void_p])
+FLASH_DQ = build.Kernel("flash_ft_bwd", "flash_dq_launch",
+                        [ctypes.c_void_p] * 9 + _BWD_TAIL)
+FLASH_DKV = build.Kernel("flash_ft_bwd", "flash_dkv_launch",
+                         [ctypes.c_void_p] * 10 + _BWD_TAIL)
+
+
+def encode_bwd_injection(spec: Optional[InjectionSpec], target: str = "dq",
+                         bh: int = 0, blk: int = 0
+                         ) -> Tuple[Tuple[int, ...], Tuple[int, ...], float]:
+    """Deterministic SEU vectors of the backward kernels, int32[7] =
+    [enable, target, bh, blk, step, row, col]. ``target`` names the GEMM:
+    "dp_q" / "dq" (dQ kernel: ``blk`` the q block, ``spec.k_step`` the kv
+    step) or "dp_kv" / "dv" / "dk" (dK/dV kernel: ``blk`` the kv block,
+    ``spec.k_step`` the q block); ``bh`` is always the query head. Returns
+    (inj_dq, inj_dkv, mag) with only the targeted kernel's vector on."""
+    zero = (0,) * 7
+    if spec is None:
+        return zero, zero, 0.0
+    if target not in BWD_TARGETS:
+        raise ValueError(f"unknown backward injection target {target!r}; "
+                         f"one of {tuple(BWD_TARGETS)}")
+    vec = (1, BWD_TARGETS[target], bh, blk, spec.k_step, spec.row, spec.col)
+    if target in DQ_TARGETS:
+        return vec, zero, float(spec.magnitude)
+    return zero, vec, float(spec.magnitude)
+
 
 def flash_ft_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    ft: FTConfig, scale: float, tau_dh: int,
                    n_rep: int = 1, causal: bool = True,
                    bq: int = BLOCK, bkv: int = BLOCK,
-                   inj: Optional[Sequence[int]] = None, inj_mag: float = 0.0
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+                   inj: Optional[Sequence[int]] = None, inj_mag: float = 0.0,
+                   save_stats: bool = False):
     """The kernel's function in plain PyTorch, on the kernel's block grid.
 
     q (BH, Sq, dh); k, v (BH / n_rep, Skv, dh). ``tau_dh`` is the head dim
@@ -51,7 +93,9 @@ def flash_ft_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     vector [enable, bh, q_block, kv_step, row, col]: with enable = 1,
     ``inj_mag`` is added to the PV delta of that head and q block at that
     kv step, element (row, col) of the block. Returns
-    (out (BH, Sq, dh) in q's dtype, report (BH, nqb, 8))."""
+    (out (BH, Sq, dh) in q's dtype, report (BH, nqb, 8)), or with
+    ``save_stats`` (out, m, l, report): m, l (BH, Sq) f32, degenerate rows
+    (NEG_INF, 0)."""
     bh, sq, dh = q.shape
     g, skv, _ = k.shape
     r = n_rep
@@ -135,7 +179,13 @@ def flash_ft_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     linv = torch.where(good, 1.0 / torch.clamp_min(l, 1e-30),
                        torch.zeros_like(l))
     out = (acc * linv[..., None]).reshape(bh, nqb * bq, dh)[:, :sq]
-    return out.to(q.dtype), rep.reshape(bh, nqb, REPORT_WIDTH)
+    rep = rep.reshape(bh, nqb, REPORT_WIDTH)
+    if not save_stats:
+        return out.to(q.dtype), rep
+    m_out = torch.where(good, m, torch.full_like(m, NEG_INF))
+    l_out = torch.where(good, l, torch.zeros_like(l))
+    return (out.to(q.dtype), m_out.reshape(bh, -1)[:, :sq].contiguous(),
+            l_out.reshape(bh, -1)[:, :sq].contiguous(), rep)
 
 
 def flash_ft_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -143,49 +193,384 @@ def flash_ft_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                  causal: bool = True,
                  inj: Optional[Sequence[int]] = None, inj_mag: float = 0.0,
                  bq: Optional[int] = None,
-                 bkv: Optional[int] = None
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+                 bkv: Optional[int] = None, save_stats: bool = False):
     """ABFT flash attention forward: a CPU tensor runs `flash_ft_plain`
     (blocks default to the kernel's 64), a CUDA tensor launches the kernel
-    or raises. Returns (out, report) as `flash_ft_plain` does."""
+    or raises. Returns what `flash_ft_plain` returns."""
     bq = BLOCK if bq is None else bq
     bkv = BLOCK if bkv is None else bkv
     if q.device.type == "cpu":
         return flash_ft_plain(q, k, v, ft=ft, scale=scale, tau_dh=tau_dh,
                               n_rep=n_rep, causal=causal, bq=bq, bkv=bkv,
-                              inj=inj, inj_mag=inj_mag)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_ft_fwd: unsupported device {q.device}")
-    build.check_device(q)
+                              inj=inj, inj_mag=inj_mag, save_stats=save_stats)
+    _check_launch("flash_ft_fwd", q, k, v, n_rep=n_rep, bq=bq, bkv=bkv)
     bh, sq, dh = q.shape
-    g, skv, dh_k = k.shape
-    if (bq, bkv) != (BLOCK, BLOCK):
-        raise ValueError(f"flash_ft_fwd: the kernel is compiled for "
-                         f"bq = bkv = {BLOCK}, got ({bq}, {bkv})")
-    if dh not in HEAD_DIMS or dh_k != dh or tuple(v.shape) != tuple(k.shape):
-        raise ValueError(f"flash_ft_fwd: head dim must be one of "
-                         f"{HEAD_DIMS} and match: q {tuple(q.shape)}, "
-                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
-    if bh != g * n_rep:
-        raise ValueError(f"flash_ft_fwd: {bh} query heads are not "
-                         f"{g} kv heads x n_rep {n_rep}")
-    if q.dtype not in DTYPE_CODES:
-        raise TypeError(f"flash_ft_fwd: the kernel takes float32 or "
-                        f"bfloat16, got {q.dtype}")
-    for x in (q, k, v):
-        if x.device != q.device or x.dtype != q.dtype:
-            raise ValueError("flash_ft_fwd: q, k, v must share device and "
-                             "dtype")
-        if not x.is_contiguous():
-            raise ValueError("flash_ft_fwd: operands must be contiguous")
+    skv = k.shape[1]
     nqb = cdiv(sq, BLOCK)
     out = torch.empty_like(q)
     rep = torch.empty((bh, nqb, REPORT_WIDTH), dtype=torch.float32,
                       device=q.device)
+    m = l = None
+    if save_stats:
+        m, l = (torch.empty((bh, sq), dtype=torch.float32, device=q.device)
+                for _ in range(2))
     inj = tuple(inj) if inj is not None else (0, 0, 0, 0, 0, 0)
     FLASH_FT(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             rep.data_ptr(), bh, sq, skv, dh, n_rep, DTYPE_CODES[q.dtype],
-             int(causal), int(ft.corrects), scale,
+             rep.data_ptr(), None if m is None else m.data_ptr(),
+             None if l is None else l.data_ptr(), bh, sq, skv, dh, n_rep,
+             DTYPE_CODES[q.dtype], int(causal), int(ft.corrects), scale,
              ft.rel_tau * F32EPS * tau_dh, ft.rel_tau * F32EPS,
              *inj, inj_mag, torch.cuda.current_stream(q.device).cuda_stream)
-    return out, rep
+    return (out, m, l, rep) if save_stats else (out, rep)
+
+
+def _check_launch(name: str, q, k, v, *rest, n_rep: int, bq: int,
+                  bkv: int) -> None:
+    """What the flash kernels take: cuda:0, f32 or bf16 q/k/v (and the
+    backward's g) of one dtype, contiguous, head dim 64 or 128, the
+    compiled 64 x 64 blocks, BH = KVH x n_rep; f32 contiguous statistics
+    (the backward's m, l, di of shape (BH, Sq))."""
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {q.device}")
+    build.check_device(q)
+    bh, sq, dh = q.shape
+    g, skv, dh_k = k.shape
+    if (bq, bkv) != (BLOCK, BLOCK):
+        raise ValueError(f"{name}: the kernel is compiled for "
+                         f"bq = bkv = {BLOCK}, got ({bq}, {bkv})")
+    if dh not in HEAD_DIMS or dh_k != dh or tuple(v.shape) != tuple(k.shape):
+        raise ValueError(f"{name}: head dim must be one of "
+                         f"{HEAD_DIMS} and match: q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
+    if bh != g * n_rep:
+        raise ValueError(f"{name}: {bh} query heads are not "
+                         f"{g} kv heads x n_rep {n_rep}")
+    if q.dtype not in DTYPE_CODES:
+        raise TypeError(f"{name}: the kernel takes float32 or "
+                        f"bfloat16, got {q.dtype}")
+    grads, stats = rest[:1], rest[1:]
+    for x in (q, k, v, *grads):
+        if x.device != q.device or x.dtype != q.dtype:
+            raise ValueError(f"{name}: q, k, v, g must share device and "
+                             f"dtype")
+        if not x.is_contiguous():
+            raise ValueError(f"{name}: operands must be contiguous")
+    for x in grads:
+        if tuple(x.shape) != tuple(q.shape):
+            raise ValueError(f"{name}: g {tuple(x.shape)} is not q's shape")
+    for x in stats:
+        if (x.device != q.device or x.dtype != torch.float32
+                or tuple(x.shape) != (bh, sq) or not x.is_contiguous()):
+            raise ValueError(f"{name}: m, l, di must be contiguous f32 "
+                             f"({bh}, {sq}) tensors on {q.device}")
+
+
+
+# ---------------------------------------------------------------------------
+# backward: dQ (K3) and dK/dV (K4), plain versions
+# ---------------------------------------------------------------------------
+
+def _vm(x, mat):
+    """Row vector(s) x (…, R) times mat (…, R, C) → (…, C)."""
+    return torch.matmul(x[..., None, :], mat)[..., 0, :]
+
+
+def _mv(mat, x):
+    """mat (…, R, C) times column vector(s) x (…, C) → (…, R)."""
+    return torch.matmul(mat, x[..., None])[..., 0]
+
+
+def _check(c, d_col, d_row, tau, k_el, corrects, rep, row_off, col_off,
+           live):
+    """Locate, record and (with ``corrects``) correct one verified
+    (…, R, C) product from its column / row residuals."""
+    _, row, col, mag = locate_record(d_col, d_row, tau, k_el, corrects, rep,
+                                     row_off, col_off, live=live)
+    if not corrects:
+        return c
+    dev = c.device
+    hit = ((torch.arange(c.shape[-2], device=dev)[:, None]
+            == row[..., None, None])
+           & (torch.arange(c.shape[-1], device=dev)[None, :]
+              == col[..., None, None]))
+    return c - torch.where(hit, mag[..., None, None], torch.zeros_like(c))
+
+
+def _bwd_inputs(q, g, m, l, di, bq: int):
+    """f32 q and g padded to whole q blocks, and the saved statistics with
+    the padded rows marked degenerate (m = NEG_INF, l = 0, di = 0), so
+    p ≡ 0 there. Returns (q, g, m, 1/l (0 where l = 0), di)."""
+    pad = cdiv(q.shape[1], bq) * bq - q.shape[1]
+    lf = F.pad(l.float(), (0, pad))
+    linv = torch.where(lf > 0.0, 1.0 / torch.clamp_min(lf, 1e-30),
+                       torch.zeros_like(lf))
+    return (F.pad(q.float(), (0, 0, 0, pad)), F.pad(g.float(), (0, 0, 0, pad)),
+            F.pad(m.float(), (0, pad), value=NEG_INF), linv,
+            F.pad(di.float(), (0, pad)))
+
+
+def _probs(scores, m, linv, *, scale, qpos, kpos, sq, skv, causal):
+    """P of one step from the verified scores and the saved statistics,
+    zero on the kv edge, on dead rows and above the bottom-right-aligned
+    causal diagonal. qpos (…, bq) and kpos (…, bkv) broadcast."""
+    valid = (kpos[..., None, :] < skv) & (qpos[..., :, None] < sq)
+    if causal:
+        valid = valid & (qpos[..., :, None] + (skv - sq)
+                         >= kpos[..., None, :])
+    p = (torch.exp(torch.clamp_max(scores * scale - m[..., None], 0.0))
+         * linv[..., None])
+    return torch.where(valid, p, torch.zeros_like(p))
+
+
+def _inject(x, at, inj, mag, bounds):
+    """Add the SEU ``mag`` at (row, col) = inj[5:7] of the cell ``at`` of a
+    per-step product x (…cells, R, C), if inside (R, C) = ``bounds``."""
+    ir, ic = inj[5], inj[6]
+    if 0 <= ir < bounds[0] and 0 <= ic < bounds[1]:
+        x[at + (ir, ic)] += mag
+
+
+def flash_dq_plain(q, k, v, g, m, l, di, *, ft: FTConfig, scale: float,
+                   tau_dh: int, n_rep: int = 1, causal: bool = True,
+                   bq: int = BLOCK, bkv: int = BLOCK,
+                   inj: Optional[Sequence[int]] = None, inj_mag: float = 0.0
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3 in plain PyTorch on the kernel's grid: dQ = Σ_kv dS·K with
+    dS = P ∘ (g·Vᵀ − di) · scale and P recomputed from the saved (m, l).
+
+    q, g (BH, Sq, dh); k, v (BH / n_rep, Skv, dh); m, l, di (BH, Sq) f32.
+    Three verifications per live (q block, kv step) go into the report: S
+    (tau over ``tau_dh``, k = 1), dP (tau over ``tau_dh``, k = tau_dh) and
+    the dQ delta (tau over eff_kv, k = eff_kv). ``inj`` is
+    [enable, target, bh, q_block, kv_step, row, col] (`encode_bwd_injection`).
+    Returns (dq in q's dtype, report (BH, nqb, 8))."""
+    bh, sq, dh = q.shape
+    gk, skv, _ = k.shape
+    r = n_rep
+    nqb, nkv = cdiv(sq, bq), cdiv(skv, bkv)
+    dev = q.device
+    qf, gf, mf, linv, dif = _bwd_inputs(q, g, m, l, di, bq)
+    qf, gf = qf.view(gk, r, nqb, bq, dh), gf.view(gk, r, nqb, bq, dh)
+    mf, linv, dif = (x.view(gk, r, nqb, bq) for x in (mf, linv, dif))
+    kf = F.pad(k.float(), (0, 0, 0, nkv * bkv - skv))
+    vf = F.pad(v.float(), (0, 0, 0, nkv * bkv - skv))
+    acc = torch.zeros_like(qf)
+    rep = torch.zeros(gk, r, nqb, REPORT_WIDTH, device=dev)
+    qsum, gsum = qf.sum(-2), gf.sum(-2)
+    qmax, gmax = qf.abs().amax((-2, -1)), gf.abs().amax((-2, -1))
+    q_start = torch.arange(nqb, device=dev) * bq
+    qpos = q_start[:, None] + torch.arange(bq, device=dev)[None, :]
+    coef_qk = ft.rel_tau * F32EPS * tau_dh
+    coef = ft.rel_tau * F32EPS
+    k_s, k_dp = (torch.tensor(x, device=dev) for x in (1.0, float(tau_dh)))
+    zero = torch.zeros((), device=dev)
+    hit_cell = None
+    if inj is not None and inj[0] == 1:
+        hit_cell = (inj[2] // r, inj[2] % r, inj[3])
+    for s in range(nkv):
+        kv_start = s * bkv
+        run = q_start < sq
+        if causal:
+            run = run & (kv_start <= q_start + bq - 1 + (skv - sq))
+        if not bool(run.any()):
+            continue
+        live = run[None, None, :]
+        kt = kf[:, None, None, kv_start:kv_start + bkv]  # (gk, 1, 1, bkv, dh)
+        vt = vf[:, None, None, kv_start:kv_start + bkv]
+        kmax, vmax = kt.abs().amax((-2, -1)), vt.abs().amax((-2, -1))
+        target = inj[1] if hit_cell is not None and s == inj[4] else None
+        # S = Q·Kᵀ, recomputed and verified before scale and mask
+        sc = torch.matmul(qf, kt.transpose(-1, -2))
+        sc = _check(sc, sc.sum(-2) - _vm(qsum, kt.transpose(-1, -2)),
+                    sc.sum(-1) - _mv(qf, kt.sum(-2)),
+                    torch.clamp_min(coef_qk * qmax * kmax, 1e-30), k_s,
+                    ft.corrects, rep, q_start, kv_start, live)
+        p = _probs(sc, mf, linv, scale=scale, qpos=qpos,
+                   kpos=kv_start + torch.arange(bkv, device=dev), sq=sq,
+                   skv=skv, causal=causal)
+        # dP = g·Vᵀ
+        dp = torch.matmul(gf, vt.transpose(-1, -2))
+        if target == BWD_TARGETS["dp_q"]:
+            _inject(dp, hit_cell, inj, inj_mag, (bq, bkv))
+        dp = _check(dp, dp.sum(-2) - _vm(gsum, vt.transpose(-1, -2)),
+                    dp.sum(-1) - _mv(gf, vt.sum(-2)),
+                    torch.clamp_min(coef_qk * gmax * vmax, 1e-30), k_dp,
+                    ft.corrects, rep, q_start, kv_start, live)
+        ds = p * (dp - dif[..., None]) * scale
+        # the dQ delta dS·K
+        delta = torch.matmul(ds, kt)
+        if target == BWD_TARGETS["dq"]:
+            _inject(delta, hit_cell, inj, inj_mag, (bq, dh))
+        eff_kv = float(min(skv - kv_start, bkv))
+        delta = _check(delta, delta.sum(-2) - _vm(ds.sum(-2), kt),
+                       delta.sum(-1) - _mv(ds, kt.sum(-1)),
+                       torch.clamp_min(coef * eff_kv * ds.abs().amax((-2, -1))
+                                       * kmax, 1e-30),
+                       torch.tensor(eff_kv, device=dev), ft.corrects, rep,
+                       q_start, zero, live)
+        acc = torch.where(live[..., None, None], acc + delta, acc)
+    dq = acc.reshape(bh, nqb * bq, dh)[:, :sq]
+    return dq.to(q.dtype), rep.reshape(bh, nqb, REPORT_WIDTH)
+
+
+def flash_dkv_plain(q, k, v, g, m, l, di, *, ft: FTConfig, scale: float,
+                    tau_dh: int, n_rep: int = 1, causal: bool = True,
+                    bq: int = BLOCK, bkv: int = BLOCK,
+                    inj: Optional[Sequence[int]] = None, inj_mag: float = 0.0
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K4 in plain PyTorch on the kernel's grid: per (kv head, kv block) a
+    walk over the n_rep query heads × q blocks, dV = Σ Pᵀ·g and
+    dK = Σ dSᵀ·Q. Four verifications per live step: S and dP as in K3,
+    then the dV and dK deltas (tau over eff_q = max(min(Sq − q_start, bq),
+    1), k = eff_q). ``inj`` is [enable, target, query head, kv_block,
+    q_block, row, col]. Returns (dk, dv) per kv head in k's dtype and the
+    report (BH / n_rep, nkvb, 8)."""
+    bh, sq, dh = q.shape
+    gk, skv, _ = k.shape
+    r = n_rep
+    nqb, nkvb = cdiv(sq, bq), cdiv(skv, bkv)
+    dev = q.device
+    qf, gf, mf, linv, dif = _bwd_inputs(q, g, m, l, di, bq)
+    qf, gf = qf.view(gk, r, nqb * bq, dh), gf.view(gk, r, nqb * bq, dh)
+    mf, linv, dif = (x.view(gk, r, nqb * bq) for x in (mf, linv, dif))
+    pad = nkvb * bkv - skv
+    kb = F.pad(k.float(), (0, 0, 0, pad)).view(gk, nkvb, bkv, dh)
+    vb = F.pad(v.float(), (0, 0, 0, pad)).view(gk, nkvb, bkv, dh)
+    kmax, vmax = kb.abs().amax((-2, -1)), vb.abs().amax((-2, -1))
+    ksum, vsum = kb.sum(-2), vb.sum(-2)
+    dk = torch.zeros_like(kb)
+    dv = torch.zeros_like(kb)
+    rep = torch.zeros(gk, nkvb, REPORT_WIDTH, device=dev)
+    kv_start = torch.arange(nkvb, device=dev) * bkv
+    kpos = kv_start[:, None] + torch.arange(bkv, device=dev)[None, :]
+    coef_qk = ft.rel_tau * F32EPS * tau_dh
+    coef = ft.rel_tau * F32EPS
+    k_s, k_dp = (torch.tensor(x, device=dev) for x in (1.0, float(tau_dh)))
+    zero = torch.zeros((), device=dev)
+    on = inj is not None and inj[0] == 1
+    for rr in range(r):
+        for qi in range(nqb):
+            q_start = qi * bq
+            run = kv_start < skv
+            if causal:
+                run = run & (kv_start <= q_start + bq - 1 + (skv - sq))
+            if not bool(run.any()):
+                continue
+            live = run[None, :]
+            rows = slice(q_start, q_start + bq)
+            qb = qf[:, rr, rows][:, None]                # (gk, 1, bq, dh)
+            gb = gf[:, rr, rows][:, None]
+            mb, lb, db = (x[:, rr, rows][:, None] for x in (mf, linv, dif))
+            qmax, gmax = qb.abs().amax((-2, -1)), gb.abs().amax((-2, -1))
+            qpos = q_start + torch.arange(bq, device=dev)
+            target, cell = None, None
+            if on and inj[2] % r == rr and inj[4] == qi:
+                target, cell = inj[1], (inj[2] // r, inj[3])
+            # S = Q·Kᵀ and dP = g·Vᵀ, (gk, nkvb, bq, bkv)
+            sc = torch.matmul(qb, kb.transpose(-1, -2))
+            sc = _check(sc, sc.sum(-2) - _vm(qb.sum(-2), kb.transpose(-1, -2)),
+                        sc.sum(-1) - _mv(qb, ksum),
+                        torch.clamp_min(coef_qk * qmax * kmax, 1e-30), k_s,
+                        ft.corrects, rep, q_start, kv_start[None, :], live)
+            p = _probs(sc, mb, lb, scale=scale, qpos=qpos, kpos=kpos, sq=sq,
+                       skv=skv, causal=causal)
+            dp = torch.matmul(gb, vb.transpose(-1, -2))
+            if target == BWD_TARGETS["dp_kv"]:
+                _inject(dp, cell, inj, inj_mag, (bq, bkv))
+            dp = _check(dp, dp.sum(-2) - _vm(gb.sum(-2), vb.transpose(-1, -2)),
+                        dp.sum(-1) - _mv(gb, vsum),
+                        torch.clamp_min(coef_qk * gmax * vmax, 1e-30), k_dp,
+                        ft.corrects, rep, q_start, kv_start[None, :], live)
+            eff_q = float(max(min(sq - q_start, bq), 1))
+            k_q = torch.tensor(eff_q, device=dev)
+            # the dV delta Pᵀ·g, (gk, nkvb, bkv, dh)
+            pt = p.transpose(-1, -2)
+            dvd = torch.matmul(pt, gb)
+            if target == BWD_TARGETS["dv"]:
+                _inject(dvd, cell, inj, inj_mag, (bkv, dh))
+            dvd = _check(dvd, dvd.sum(-2) - _vm(p.sum(-1), gb),
+                         dvd.sum(-1) - _mv(pt, gb.sum(-1)),
+                         torch.clamp_min(coef * eff_q * p.abs().amax((-2, -1))
+                                         * gmax, 1e-30), k_q, ft.corrects,
+                         rep, kv_start[None, :], zero, live)
+            dv = torch.where(live[..., None, None], dv + dvd, dv)
+            # the dK delta dSᵀ·Q
+            ds = p * (dp - db[..., None]) * scale
+            dst = ds.transpose(-1, -2)
+            dkd = torch.matmul(dst, qb)
+            if target == BWD_TARGETS["dk"]:
+                _inject(dkd, cell, inj, inj_mag, (bkv, dh))
+            dkd = _check(dkd, dkd.sum(-2) - _vm(ds.sum(-1), qb),
+                         dkd.sum(-1) - _mv(dst, qb.sum(-1)),
+                         torch.clamp_min(coef * eff_q
+                                         * ds.abs().amax((-2, -1)) * qmax,
+                                         1e-30), k_q, ft.corrects, rep,
+                         kv_start[None, :], zero, live)
+            dk = torch.where(live[..., None, None], dk + dkd, dk)
+    dk = dk.reshape(gk, nkvb * bkv, dh)[:, :skv].to(k.dtype)
+    dv = dv.reshape(gk, nkvb * bkv, dh)[:, :skv].to(k.dtype)
+    return dk, dv, rep
+
+
+# ---------------------------------------------------------------------------
+# backward wrappers
+# ---------------------------------------------------------------------------
+
+def _bwd_launch_args(q, k, g, m, l, di, *, ft, scale, tau_dh, n_rep, causal,
+                     inj, inj_mag):
+    bh, sq, dh = q.shape
+    inj = tuple(inj) if inj is not None else (0,) * 7
+    return ((g.data_ptr(), m.data_ptr(), l.data_ptr(), di.data_ptr()),
+            (bh, sq, k.shape[1], dh, n_rep, DTYPE_CODES[q.dtype], int(causal),
+             int(ft.corrects), scale, ft.rel_tau * F32EPS * tau_dh,
+             ft.rel_tau * F32EPS, float(tau_dh), *inj, inj_mag,
+             torch.cuda.current_stream(q.device).cuda_stream))
+
+
+def flash_ft_dq(q, k, v, g, m, l, di, *, ft: FTConfig, scale: float,
+                tau_dh: int, n_rep: int = 1, causal: bool = True,
+                inj: Optional[Sequence[int]] = None, inj_mag: float = 0.0,
+                bq: Optional[int] = None, bkv: Optional[int] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3: a CPU tensor runs `flash_dq_plain`, a CUDA tensor launches the
+    dQ kernel or raises. Returns (dq, report) as the plain version does."""
+    bq = BLOCK if bq is None else bq
+    bkv = BLOCK if bkv is None else bkv
+    kw = dict(ft=ft, scale=scale, tau_dh=tau_dh, n_rep=n_rep, causal=causal,
+              inj=inj, inj_mag=inj_mag)
+    if q.device.type == "cpu":
+        return flash_dq_plain(q, k, v, g, m, l, di, bq=bq, bkv=bkv, **kw)
+    _check_launch("flash_ft_dq", q, k, v, g, m, l, di, n_rep=n_rep, bq=bq,
+                  bkv=bkv)
+    dq = torch.empty_like(q)
+    rep = torch.empty((q.shape[0], cdiv(q.shape[1], BLOCK), REPORT_WIDTH),
+                      dtype=torch.float32, device=q.device)
+    ptrs, rest = _bwd_launch_args(q, k, g, m, l, di, **kw)
+    FLASH_DQ(q.data_ptr(), k.data_ptr(), v.data_ptr(), *ptrs, dq.data_ptr(),
+             rep.data_ptr(), *rest)
+    return dq, rep
+
+
+def flash_ft_dkv(q, k, v, g, m, l, di, *, ft: FTConfig, scale: float,
+                 tau_dh: int, n_rep: int = 1, causal: bool = True,
+                 inj: Optional[Sequence[int]] = None, inj_mag: float = 0.0,
+                 bq: Optional[int] = None, bkv: Optional[int] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K4: a CPU tensor runs `flash_dkv_plain`, a CUDA tensor launches the
+    dK/dV kernel or raises. Returns (dk, dv, report) as the plain version
+    does."""
+    bq = BLOCK if bq is None else bq
+    bkv = BLOCK if bkv is None else bkv
+    kw = dict(ft=ft, scale=scale, tau_dh=tau_dh, n_rep=n_rep, causal=causal,
+              inj=inj, inj_mag=inj_mag)
+    if q.device.type == "cpu":
+        return flash_dkv_plain(q, k, v, g, m, l, di, bq=bq, bkv=bkv, **kw)
+    _check_launch("flash_ft_dkv", q, k, v, g, m, l, di, n_rep=n_rep, bq=bq,
+                  bkv=bkv)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    rep = torch.empty((k.shape[0], cdiv(k.shape[1], BLOCK), REPORT_WIDTH),
+                      dtype=torch.float32, device=q.device)
+    ptrs, rest = _bwd_launch_args(q, k, g, m, l, di, **kw)
+    FLASH_DKV(q.data_ptr(), k.data_ptr(), v.data_ptr(), *ptrs, dk.data_ptr(),
+              dv.data_ptr(), rep.data_ptr(), *rest)
+    return dk, dv, rep

@@ -8,7 +8,11 @@ serves both: the 2-D kernel is the batched kernel with batch 1. Each has its
 own launch counter (`FT_GEMM_2D`, `FT_GEMM_BATCHED`).
 
 `ft_gemm` takes a CPU tensor to `ft_gemm_plain` and a CUDA tensor to the
-kernel; on a CUDA tensor it launches the kernel or raises. The plain
+kernel; on a CUDA tensor it launches the kernel or raises. With
+``save_act_grad`` both also write the act_grad output, act'(pre-activation)
+of the chain's activation from the verified, corrected accumulator (the
+residual the training backward consumes), and return ((C, act_grad),
+report). The plain
 version walks the same (bm, bn, bk) tile grid as the kernel — a Python loop
 over k-steps, vectorised over output blocks — and writes the same
 (…, gm, gn, 8) report, so the two can be held against each other on the
@@ -41,9 +45,9 @@ EPILOGUES = {(): 0, ("bias",): 1, ("silu",): 2, ("bias", "silu"): 3,
 REPORT_WIDTH = 8
 
 _BATCH_STRIDES = [ctypes.c_longlong] * 2
-_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
+_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
              + _BATCH_STRIDES + [ctypes.c_int] * 2
-             + _BATCH_STRIDES + [ctypes.c_int] * 8 + [ctypes.c_float]
+             + _BATCH_STRIDES + [ctypes.c_int] * 9 + [ctypes.c_float]
              + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p])
 FT_GEMM_2D = build.Kernel("ft_gemm", "ft_gemm_launch", _ARGTYPES)
 FT_GEMM_BATCHED = build.Kernel("ft_gemm", "ft_gemm_launch", _ARGTYPES)
@@ -59,6 +63,13 @@ def pick_tiles(m: int) -> Tuple[int, int, int]:
 
 def cdiv(a: int, b: int) -> int:
     return -(-a // b)
+
+
+def _check_act_grad(chain: Tuple[str, ...], save_act_grad: bool) -> None:
+    if save_act_grad and sum(not epilogues.get(n).linear
+                             for n in chain) != 1:
+        raise ValueError(f"act_grad needs exactly one nonlinear op in the "
+                         f"chain, got {chain}")
 
 
 def _check_ft(ft: Optional[FTConfig]) -> bool:
@@ -120,7 +131,7 @@ def ft_gemm_plain(a: torch.Tensor, b: torch.Tensor, *,
                   residual: Optional[torch.Tensor] = None,
                   ft: Optional[FTConfig] = None,
                   inj: Optional[Sequence[int]] = None,
-                  inj_mag: float = 0.0
+                  inj_mag: float = 0.0, save_act_grad: bool = False
                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The kernel's function in plain PyTorch, on the kernel's tile grid.
 
@@ -130,8 +141,10 @@ def ft_gemm_plain(a: torch.Tensor, b: torch.Tensor, *,
     None with FT off. ``inj`` is the batched kernels' injection vector
     [enable, batch, row, col, k_step]: with enable = 1, ``inj_mag`` is added
     to the accumulator at global (row, col) on k-step k_step, in batch slice
-    ``batch`` of the flattened leading dims (< 0: every slice)."""
+    ``batch`` of the flattened leading dims (< 0: every slice). With
+    ``save_act_grad`` C is the pair (C, act_grad)."""
     ft_on = _check_ft(ft)
+    _check_act_grad(chain, save_act_grad)
     lead = tuple(a.shape[:-2])
     a3 = a.reshape((-1,) + tuple(a.shape[-2:]))
     b3 = b.reshape((-1,) + tuple(b.shape[-2:]))
@@ -219,13 +232,17 @@ def ft_gemm_plain(a: torch.Tensor, b: torch.Tensor, *,
     if ft_on:
         verify(torch.tensor(float(k), device=dev))
     aux = {"vector": bias_p, "tile": res_p}
+    act_grad = None
     for name in chain[split:]:
         op = epilogues.get(name)
+        if save_act_grad and not op.linear:
+            act_grad = op.grad(acc)[:, :m, :n].to(a.dtype).reshape(
+                lead + (m, n))
         acc = op.apply(acc, aux[op.aux] if op.aux else None)
     out = acc[:, :m, :n].to(a.dtype).reshape(lead + (m, n))
     if rep is not None:
         rep = rep.reshape(lead + (gm, gn, REPORT_WIDTH))
-    return out, rep
+    return ((out, act_grad) if save_act_grad else out), rep
 
 
 # ---------------------------------------------------------------------------
@@ -239,7 +256,8 @@ def ft_gemm(a: torch.Tensor, b: torch.Tensor, *,
             ft: Optional[FTConfig] = None,
             inj: Optional[Sequence[int]] = None,
             inj_mag: float = 0.0,
-            tiles: Optional[Sequence[int]] = None
+            tiles: Optional[Sequence[int]] = None,
+            save_act_grad: bool = False
             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """C = chain(A·B) with block-level online ABFT when ``ft`` is enabled.
 
@@ -255,15 +273,18 @@ def ft_gemm(a: torch.Tensor, b: torch.Tensor, *,
     if a.device.type == "cpu":
         return ft_gemm_plain(a, b, tiles=tiles, chain=chain, bias=bias,
                              residual=residual, ft=ft, inj=inj,
-                             inj_mag=inj_mag)
+                             inj_mag=inj_mag, save_act_grad=save_act_grad)
     if a.device.type != "cuda":
         raise ValueError(f"ft_gemm: unsupported device {a.device}")
     return _launch(a, b, chain=chain, bias=bias, residual=residual, ft=ft,
-                   inj=inj, inj_mag=inj_mag, tiles=tiles)
+                   inj=inj, inj_mag=inj_mag, tiles=tiles,
+                   save_act_grad=save_act_grad)
 
 
-def _launch(a, b, *, chain, bias, residual, ft, inj, inj_mag, tiles):
+def _launch(a, b, *, chain, bias, residual, ft, inj, inj_mag, tiles,
+            save_act_grad):
     ft_on = _check_ft(ft)
+    _check_act_grad(chain, save_act_grad)
     build.check_device(a)
     batched = a.dim() > 2
     shared = b.dim() == 2
@@ -307,6 +328,7 @@ def _launch(a, b, *, chain, bias, residual, ft, inj, inj_mag, tiles):
     bm, bn, _ = tiles
     gm, gn = cdiv(m, bm), cdiv(n, bn)
     out = torch.empty(lead + (m, n), dtype=a.dtype, device=a.device)
+    act_grad = torch.empty_like(out) if save_act_grad else None
     rep = (torch.empty(lead + (gm, gn, REPORT_WIDTH), dtype=torch.float32,
                        device=a.device) if ft_on else None)
     inj = tuple(inj) if (ft_on and inj is not None) else (0, 0, 0, 0, 0)
@@ -318,14 +340,24 @@ def _launch(a, b, *, chain, bias, residual, ft, inj, inj_mag, tiles):
     if max(sa[2:] + sb[2:]) >= 2 ** 31:
         raise ValueError(f"ft_gemm: row / column strides {sa[2:]}, {sb[2:]} "
                          f"exceed int32")
+    # The walk of the tile loads (LAYOUT in csrc/ft_gemm.cu): along the unit-
+    # stride k dim of a transposed B (w.T) or m dim of a transposed A (x.T),
+    # compiled for the plain chain; row-major otherwise.
+    layout = 0
+    if not chain:
+        if sb[2] == 1 and sb[3] != 1:
+            layout = 1
+        elif sa[2] == 1 and sa[3] != 1:
+            layout = 2
     kernel = FT_GEMM_BATCHED if batched else FT_GEMM_2D
     kernel(a.data_ptr(), b.data_ptr(),
            None if bias is None else bias.data_ptr(),
            None if residual is None else residual.data_ptr(),
            out.data_ptr(), None if rep is None else rep.data_ptr(),
+           None if act_grad is None else act_grad.data_ptr(),
            nb0, nb1, m, n, k, *sa, *sb,
-           DTYPE_CODES[a.dtype], int(ft_on), epi, TILES.index(tiles),
+           DTYPE_CODES[a.dtype], int(ft_on), epi, TILES.index(tiles), layout,
            int(ft_on and ft.verify == "step"), int(ft_on and ft.corrects),
            ft.rel_tau * F32EPS if ft_on else 0.0,
            *inj, inj_mag, torch.cuda.current_stream(a.device).cuda_stream)
-    return out, rep
+    return ((out, act_grad) if save_act_grad else out), rep

@@ -7,7 +7,8 @@ the CUDA kernel on a CUDA tensor, its plain version on a CPU tensor. The
 kernel reads A and B through their strides, so a transposed `lm_head` view
 or a permuted KV cache is not copied. `matmul`, `fused_matmul`, `ft_matmul`
 and `ft_matmul_report` specialise it; `grouped_gemm_call` is the uniform
-batched front and `flash_ft` the flash-attention front.
+batched front; `flash_ft` and `flash_ft_bwd` are the flash-attention
+fronts, forward (with the saved softmax statistics) and backward.
 
 Tiles: the reference autotunes its TPU tiles; here each kernel has its own
 compiled tile configurations (`ft_gemm.TILES`, `flashft.BLOCK`), chosen
@@ -20,6 +21,7 @@ campaign must never run clean in silence.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -104,7 +106,8 @@ def gemm_call(spec: KernelSpec, a: torch.Tensor, b: torch.Tensor, *,
                          bias=bias, residual=residual,
                          ft=ft if spec.ft else None,
                          inj=(en, -1, row, col, k_step), inj_mag=mag,
-                         tiles=tiles)
+                         tiles=tiles,
+                         save_act_grad="act_grad" in spec.extra_outputs)
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor, *, tiles: Tiles = None,
@@ -120,14 +123,22 @@ def fused_matmul(a: torch.Tensor, b: torch.Tensor, *,
                  residual: Optional[torch.Tensor] = None,
                  ft: FTConfig = FT_OFF,
                  inject: Optional[InjectionSpec] = None,
-                 tiles: Tiles = None, out_dtype=None, key=None
+                 tiles: Tiles = None, out_dtype=None, key=None,
+                 save_act_grad: bool = False
                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """C = act(A·B + bias) + residual in one kernel; with an enabled ``ft``
     the linear prefix is folded into the checksum comparison, so ABFT
-    verifies and corrects post-epilogue. Returns (C, report|None)."""
+    verifies and corrects post-epilogue. Returns (C, report|None).
+
+    ``save_act_grad`` (needs ``act``) also writes act'(A·B + bias), taken
+    from the verified, corrected accumulator, and returns
+    ((C, act_grad), report|None): the residual the backward of
+    `core.ft_dot_fused` consumes instead of recomputing the GEMM."""
     spec = spec_mod.fused(bias=bias is not None, act=act,
                           residual=residual is not None,
                           ft_level=ft.level if ft.enabled else "off")
+    if save_act_grad:
+        spec = dataclasses.replace(spec, extra_outputs=("act_grad",))
     return gemm_call(spec, a, b, bias=bias, residual=residual, ft=ft,
                      inject=inject, tiles=tiles, out_dtype=out_dtype,
                      key=key)
@@ -185,19 +196,22 @@ def ft_matmul_report(a: torch.Tensor, b: torch.Tensor, *,
 
 def _check_flash_injection(spec: InjectionSpec, head: int, blk: int, *,
                            bh: int, sq: int, skv: int, bq: int, bkv: int,
-                           causal: bool) -> None:
-    """A deterministic flash injection addresses one grid cell; a cell the
-    grid never executes (out of range, past the true lengths, or skipped
-    by the causal mask) would let the SEU silently never land, so raise."""
-    step = spec.k_step
-    q0, q1, kv0 = blk * bq, (blk + 1) * bq, step * bkv
-    ok = (0 <= head < bh and 0 <= blk < -(-sq // bq)
-          and 0 <= step < -(-skv // bkv) and q0 < sq and kv0 < skv
+                           causal: bool, kv_stationary: bool = False,
+                           kernel: str = "flash_ft") -> None:
+    """A deterministic flash injection addresses one grid cell: (q block
+    ``blk``, kv step ``spec.k_step``), or with ``kv_stationary`` (the dK/dV
+    kernel) (kv block ``blk``, q step ``spec.k_step``). A cell the grid
+    never executes (out of range, past the true lengths, or skipped by the
+    causal mask) would let the SEU silently never land, so raise."""
+    qb, kvb = (spec.k_step, blk) if kv_stationary else (blk, spec.k_step)
+    q0, q1, kv0 = qb * bq, (qb + 1) * bq, kvb * bkv
+    ok = (0 <= head < bh and 0 <= qb < -(-sq // bq)
+          and 0 <= kvb < -(-skv // bkv) and q0 < sq and kv0 < skv
           and (not causal or kv0 <= q1 - 1 + (skv - sq)))
     if not ok:
         raise ValueError(
-            f"flash_ft: deterministic injection targets head {head}, block "
-            f"{blk}, step {step} — a cell the ({bq}, {bkv}) grid over "
+            f"{kernel}: deterministic injection targets head {head}, block "
+            f"{blk}, step {spec.k_step} — a cell the ({bq}, {bkv}) grid over "
             f"(Sq={sq}, Skv={skv}) never executes; the SEU would silently "
             f"never land")
 
@@ -207,13 +221,15 @@ def flash_ft(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
              spec: Optional[InjectionSpec] = None,
              inj_bh: int = 0, inj_q_block: int = 0,
              bq: Optional[int] = None, bkv: Optional[int] = None,
-             n_rep: int = 1, key=None):
+             n_rep: int = 1, key=None, save_stats: bool = False):
     """Flash attention with in-kernel ABFT. q: (BH, Sq, dh); k, v:
     (BH / n_rep, Skv, dh) — query head h reads kv head h // n_rep, KV is
     never repeated. Causal masking is bottom-right aligned on the true
     lengths (needs Skv ≥ Sq). The score scale uses the true dh; the QK
     threshold uses dh rounded up to 128, as the reference's lane-padded
-    kernel does. Returns (out, report (BH, ceil(Sq / bq), 8))."""
+    kernel does. Returns (out, report (BH, ceil(Sq / bq), 8)), or with
+    ``save_stats`` (out, m, l, report): the per-row softmax statistics
+    (BH, Sq) f32 the backward consumes, degenerate rows (NEG_INF, 0)."""
     check_campaign(ft, key)
     bh, sq, dh = q.shape
     skv = k.shape[1]
@@ -231,4 +247,59 @@ def flash_ft(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return kflash.flash_ft_fwd(
         q.contiguous(), k.contiguous(), v.contiguous(), ft=ft,
         scale=dh ** -0.5, tau_dh=-(-dh // 128) * 128, n_rep=n_rep,
-        causal=causal, inj=inj, inj_mag=mag, bq=bq, bkv=bkv)
+        causal=causal, inj=inj, inj_mag=mag, bq=bq, bkv=bkv,
+        save_stats=save_stats)
+
+
+def flash_ft_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 o: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
+                 g: torch.Tensor, *, ft: FTConfig = ONLINE_BLOCK,
+                 causal: bool = True, n_rep: int = 1, key=None,
+                 inject: Optional[InjectionSpec] = None,
+                 inj_target: str = "dq", inj_bh: int = 0, inj_blk: int = 0,
+                 bq: Optional[int] = None, bkv: Optional[int] = None):
+    """The flash backward: dQ (K3) and dK/dV (K4), two launches over the
+    saved (m, l) of ``flash_ft(..., save_stats=True)``. q, o, g (BH, Sq,
+    dh); k, v (BH / n_rep, Skv, dh); m, l (BH, Sq) f32. di = rowsum(g ∘ o)
+    is the one elementwise preprocess. Every backward GEMM (dP, dV, dQ, dK)
+    and the S recompute are verified and corrected in-kernel; dk and dv
+    come back per kv head. ``inject`` / ``inj_target`` land a deterministic
+    SEU in one named backward GEMM ("dp_q" | "dq" | "dp_kv" | "dv" | "dk",
+    see `flashft.encode_bwd_injection`). Returns
+    (dq, dk, dv, report_dq (BH, nqb, 8), report_dkv (BH / n_rep, nkvb, 8))."""
+    check_campaign(ft, key)
+    bh, sq, dh = q.shape
+    skv = k.shape[1]
+    if bh != k.shape[0] * n_rep:
+        raise ValueError(f"flash_ft_bwd: q {tuple(q.shape)} and k "
+                         f"{tuple(k.shape)} disagree with n_rep={n_rep}")
+    if tuple(o.shape) != tuple(q.shape) or tuple(g.shape) != tuple(q.shape):
+        raise ValueError(f"flash_ft_bwd: o {tuple(o.shape)} and g "
+                         f"{tuple(g.shape)} must have q's shape")
+    if tuple(m.shape) != (bh, sq) or tuple(l.shape) != (bh, sq):
+        raise ValueError(f"flash_ft_bwd: m {tuple(m.shape)}, l "
+                         f"{tuple(l.shape)}, expected {(bh, sq)}")
+    if causal and skv < sq:
+        raise ValueError(f"causal flash_ft_bwd is bottom-right aligned: "
+                         f"needs Skv >= Sq (got Sq={sq}, Skv={skv})")
+    bq_, bkv_ = bq or kflash.BLOCK, bkv or kflash.BLOCK
+    if inject is not None:
+        if inj_target not in kflash.BWD_TARGETS:
+            raise ValueError(f"unknown backward injection target "
+                             f"{inj_target!r}; one of "
+                             f"{tuple(kflash.BWD_TARGETS)}")
+        _check_flash_injection(
+            inject, inj_bh, inj_blk, bh=bh, sq=sq, skv=skv, bq=bq_, bkv=bkv_,
+            causal=causal, kv_stationary=inj_target in kflash.DKV_TARGETS,
+            kernel=f"flash_ft_bwd[{inj_target}]")
+    inj_dq, inj_dkv, mag = kflash.encode_bwd_injection(inject, inj_target,
+                                                       inj_bh, inj_blk)
+    di = (g.float() * o.float()).sum(-1)
+    q, k, v, g = (x.contiguous() for x in (q, k, v, g))
+    m, l = m.float().contiguous(), l.float().contiguous()
+    kw = dict(ft=ft, scale=dh ** -0.5, tau_dh=-(-dh // 128) * 128,
+              n_rep=n_rep, causal=causal, inj_mag=mag, bq=bq, bkv=bkv)
+    dq, rep_dq = kflash.flash_ft_dq(q, k, v, g, m, l, di, inj=inj_dq, **kw)
+    dk, dv, rep_dkv = kflash.flash_ft_dkv(q, k, v, g, m, l, di, inj=inj_dkv,
+                                          **kw)
+    return dq, dk, dv, rep_dq, rep_dkv

@@ -6,6 +6,8 @@ residual-add). ``apply(y, aux)`` is the math on the f32 accumulator tile;
 ``linear`` ops in the leading prefix of a chain are folded into the final
 checksum comparison by ``fold(colck, rowck, aux, rows)``, so verification
 runs post-epilogue; the first nonlinear op ends the foldable prefix.
+``grad`` is an elementwise op's derivative, the act_grad output of the
+multi-output kernel variant (act'(pre-activation), saved for the backward).
 ``aux`` names the streamed operand: None, "vector" (a (1, bn) slice of an
 N-vector: bias) or "tile" (a (bm, bn) slice of an (M, N) array: residual).
 The CUDA kernel (`kernels/csrc/ft_gemm.cu`) inlines the same formulas.
@@ -28,6 +30,7 @@ class EpilogueOp:
     apply: Callable            # (y, aux) -> y'
     aux: Optional[str] = None  # None | "vector" | "tile"
     fold: Optional[Callable] = None  # (colck, rowck, aux, rows) -> (colck, rowck)
+    grad: Optional[Callable] = None  # y -> act'(y), elementwise ops only
 
     def __post_init__(self):
         if self.linear and self.fold is None:
@@ -57,8 +60,17 @@ def _relu(y, aux):
     return torch.clamp_min(y, 0.0)
 
 
+def _relu_grad(y):
+    return (y > 0.0).to(y.dtype)
+
+
 def _silu(y, aux):
     return y * (1.0 / (1.0 + torch.exp(-y)))
+
+
+def _silu_grad(y):
+    s = 1.0 / (1.0 + torch.exp(-y))
+    return s * (1.0 + y * (1.0 - s))
 
 
 def _gelu(y, aux):
@@ -67,12 +79,29 @@ def _gelu(y, aux):
                                        * (y + 0.044715 * y * y * y)))
 
 
+def _gelu_grad(y):
+    u = _SQRT_2_OVER_PI * (y + 0.044715 * y * y * y)
+    t = torch.tanh(u)
+    du = _SQRT_2_OVER_PI * (1.0 + 3.0 * 0.044715 * y * y)
+    return 0.5 * (1.0 + t) + 0.5 * y * (1.0 - t * t) * du
+
+
 def activation(name: str) -> Callable:
     """The unary activation of a registered elementwise op."""
     op = get(name)
     if op.aux is not None:
         raise ValueError(f"'{name}' is not an elementwise activation")
     return lambda y: op.apply(y, None)
+
+
+def activation_grad(name: str) -> Callable:
+    """The derivative of a registered elementwise activation: what the
+    act_grad output of the GEMM kernel stores and the backward consumes."""
+    op = get(name)
+    if op.aux is not None or op.grad is None:
+        raise ValueError(f"'{name}' has no registered derivative (needed "
+                         f"for the act_grad output)")
+    return op.grad
 
 
 def _bias_apply(y, aux):
@@ -99,9 +128,9 @@ register(EpilogueOp("bias", linear=True, apply=_bias_apply, aux="vector",
                     fold=_bias_fold))
 register(EpilogueOp("residual", linear=True, apply=_residual_apply,
                     aux="tile", fold=_residual_fold))
-register(EpilogueOp("relu", linear=False, apply=_relu))
-register(EpilogueOp("silu", linear=False, apply=_silu))
-register(EpilogueOp("gelu", linear=False, apply=_gelu))
+register(EpilogueOp("relu", linear=False, apply=_relu, grad=_relu_grad))
+register(EpilogueOp("silu", linear=False, apply=_silu, grad=_silu_grad))
+register(EpilogueOp("gelu", linear=False, apply=_gelu, grad=_gelu_grad))
 
 
 def fold_split(chain) -> int:

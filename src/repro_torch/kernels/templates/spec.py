@@ -14,11 +14,18 @@ from . import epilogues
 
 FT_LEVELS = ("off", "inner", "tile", "block")
 
+#: Derived kernel outputs. "act_grad": the derivative of the chain's single
+#: nonlinear op at the pre-activation, written from the verified, corrected
+#: accumulator, so the backward consumes a saved residual instead of
+#: recomputing the pre-activation GEMM.
+EXTRA_OUTPUTS = ("act_grad",)
+
 
 @dataclasses.dataclass(frozen=True)
 class KernelSpec:
     ft_level: str = "off"
     epilogue: Tuple[str, ...] = ()
+    extra_outputs: Tuple[str, ...] = ()
 
     batched = False
 
@@ -35,6 +42,21 @@ class KernelSpec:
                     raise ValueError(f"chain {self.epilogue} streams two "
                                      f"'{op.aux}' aux operands")
                 seen_aux.add(op.aux)
+        object.__setattr__(self, "extra_outputs", tuple(self.extra_outputs))
+        for name in self.extra_outputs:
+            if name not in EXTRA_OUTPUTS:
+                raise ValueError(f"unknown extra output {name!r}; "
+                                 f"registered: {EXTRA_OUTPUTS}")
+        if "act_grad" in self.extra_outputs:
+            nonlin = [n for n in self.epilogue
+                      if not epilogues.get(n).linear]
+            if len(nonlin) != 1:
+                raise ValueError(
+                    "act_grad needs exactly one nonlinear op in the chain "
+                    f"(the saved act'(preact) residual), got {self.epilogue}")
+            if epilogues.get(nonlin[0]).grad is None:
+                raise ValueError(f"epilogue '{nonlin[0]}' has no registered "
+                                 f"derivative, so act_grad cannot be written")
 
     @property
     def ft(self) -> bool:

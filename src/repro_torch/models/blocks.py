@@ -12,14 +12,22 @@ Conventions:
     ``Ctx.attn_impl="chunked"``) the query-chunked core with protected
     batched GEMMs runs;
   * decode attention: two protected batched GEMMs (QKᵀ and PV) over the
-    grouped (B, KVH, rep, dh) layout.
+    grouped (B, KVH, rep, dh) layout;
+  * training: every front is differentiable. The flash core is a
+    `torch.autograd.Function` whose forward is the flash kernel with the
+    saved softmax statistics and whose backward is the dQ and dK/dV
+    kernels; `make_remat` wraps a layer in a non-reentrant
+    `torch.utils.checkpoint` whose recompute records no FT summary, so each
+    protected call is counted once, as in the reference.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Any, Optional
+from typing import Any, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from ..core import telemetry
 from ..core.ft_gemm import ft_batched_dot, ft_dot, ft_dot_fused
@@ -34,11 +42,18 @@ class Ctx:
     injection key (a `torch.Generator`; stochastic campaigns raise),
     activation dtype, and the prefill attention core: "auto" (the flash
     kernel on the pallas FT backend, the chunked core elsewhere), "flash"
-    or "chunked"."""
+    or "chunked".
+
+    ``bwd_inject`` = (site, hook) lands a deterministic SEU in the backward
+    of every call at ``site`` (conformance checks): for a GEMM site the
+    hook is ("dx" | "dw", InjectionSpec) as `core.ft_dot` takes it; for
+    "attn_flash" it is the keyword dict of `kernels.ops.flash_ft_bwd`'s
+    injection (inject, inj_target, inj_bh, inj_blk)."""
     ft: FTLike = FT_OFF
     key: Optional[torch.Generator] = None
     dtype: Any = torch.bfloat16
     attn_impl: str = "auto"
+    bwd_inject: Optional[Tuple[str, Any]] = None
 
     def ft_for(self, name: Optional[str]) -> FTConfig:
         """The site's `FTConfig` under this context's policy."""
@@ -48,23 +63,60 @@ class Ctx:
         """The injection key of call site ``name`` (None: no campaign)."""
         return self.key
 
+    def bwd_hook(self, name: str):
+        """The backward injection of call site ``name``, if any."""
+        if self.bwd_inject is not None and self.bwd_inject[0] == name:
+            return self.bwd_inject[1]
+        return None
+
     def dot(self, name: str, x: torch.Tensor, w: torch.Tensor
             ) -> torch.Tensor:
         return ft_dot(x, w, ft=self.ft_for(name), key=self.subkey(name),
-                      site=name)
+                      bwd_inject=self.bwd_hook(name), site=name)
 
     def dot_fused(self, name: str, x: torch.Tensor, w: torch.Tensor,
                   bias: Optional[torch.Tensor] = None,
                   act: Optional[str] = None) -> torch.Tensor:
         """y = act(x @ w + bias) as one kernel-level op."""
         return ft_dot_fused(x, w, bias=bias, act=act, ft=self.ft_for(name),
-                            key=self.subkey(name), site=name)
+                            key=self.subkey(name),
+                            bwd_inject=self.bwd_hook(name), site=name)
 
     def bdot(self, name: str, a: torch.Tensor, b: torch.Tensor
              ) -> torch.Tensor:
         ft = self.ft_for(name)
         ft = ft if ft.protect_attention else FT_OFF
         return ft_batched_dot(a, b, ft=ft, key=self.subkey(name), site=name)
+
+
+# ---------------------------------------------------------------------------
+# activation checkpointing
+# ---------------------------------------------------------------------------
+
+def _remat_contexts():
+    # forward: as usual; recompute in the backward: record nothing (the
+    # forward already recorded every protected call's summary).
+    return contextlib.nullcontext(), telemetry.muted()
+
+
+def make_remat(fn, remat):
+    """Remat-policy dispatch: False / "none" — save everything; True /
+    "full" — a non-reentrant `torch.utils.checkpoint` that keeps only the
+    inputs and recomputes ``fn`` in the backward (the recompute records no
+    FT summary). The reference's "dots" policy is not ported."""
+    if not remat or remat == "none":
+        return fn
+    if remat not in (True, "full"):
+        raise NotImplementedError(f"remat policy {remat!r} is not ported "
+                                  f"(only 'none' and 'full')")
+
+    def wrapped(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return torch.utils.checkpoint.checkpoint(
+            fn, *args, use_reentrant=False, context_fn=_remat_contexts)
+
+    return wrapped
 
 
 # ---------------------------------------------------------------------------
@@ -156,22 +208,61 @@ def _chunked_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return torch.cat(outs, dim=1)
 
 
-def _flash_attention(q, k, v, *, causal: bool, ft: FTConfig, key
-                     ) -> torch.Tensor:
+def _flash_summary(rep: torch.Tensor):
+    return rep[..., 0].sum().to(torch.int32), rep[..., 5].max()
+
+
+class _FlashAttn(torch.autograd.Function):
+    """Flash attention over head-major operands q3 (B·H, Sq, dh), k3, v3
+    (B·KVH, Sk, dh). Forward: the flash kernel (K2) with the saved (m, l);
+    backward: the dQ (K3) and dK/dV (K4) kernels over them, every backward
+    GEMM verified in-kernel. Returns (out3, det, maxres)."""
+
+    @staticmethod
+    def forward(ctx, q3, k3, v3, ft, causal, key, bwd_inject):
+        from ..kernels import ops as kops
+        out, m, l, rep = kops.flash_ft(q3, k3, v3, ft=ft, causal=causal,
+                                       n_rep=q3.shape[0] // k3.shape[0],
+                                       key=key, save_stats=True)
+        ctx.save_for_backward(q3, k3, v3, out, m, l)
+        ctx.ft, ctx.causal, ctx.bwd_inject = ft, causal, bwd_inject
+        det, maxres = _flash_summary(rep)
+        ctx.mark_non_differentiable(det, maxres)
+        return out, det, maxres
+
+    @staticmethod
+    def backward(ctx, g, _det, _maxres):
+        from ..kernels import ops as kops
+        q3, k3, v3, o3, m, l = ctx.saved_tensors
+        dq, dk, dv, _, _ = kops.flash_ft_bwd(
+            q3, k3, v3, o3, m, l, g.to(q3.dtype), ft=ctx.ft,
+            causal=ctx.causal, n_rep=q3.shape[0] // k3.shape[0],
+            **(ctx.bwd_inject or {}))
+        return (dq, dk.to(k3.dtype), dv.to(v3.dtype), None, None, None,
+                None)
+
+
+def _flash_attention(q, k, v, *, causal: bool, ft: FTConfig, key,
+                     bwd_inject=None) -> torch.Tensor:
     """(B, Sq, H, dh) × (B, Sk, KVH, dh) → (B, Sq, H, dh) through the flash
-    kernel on head-major operands, recording one fused "attn_flash"
-    summary (both in-kernel GEMMs share one report)."""
+    kernels on head-major operands, recording one fused "attn_flash"
+    summary of the forward (both in-kernel GEMMs share one report) outside
+    the autograd Function: backward corrections are applied, not counted."""
     from ..kernels import ops as kops
     b, sq, h, dh = q.shape
     _, sk, kvh, _ = k.shape
     q3 = q.transpose(1, 2).reshape(b * h, sq, dh)
     k3 = k.transpose(1, 2).reshape(b * kvh, sk, dh)
     v3 = v.transpose(1, 2).reshape(b * kvh, sk, dh)
-    out3, rep = kops.flash_ft(q3, k3, v3, ft=ft, causal=causal,
-                              n_rep=h // kvh, key=key)
-    telemetry.record_summary(rep[..., 0].sum().to(torch.int32),
-                             rep[..., 5].max(), ft.corrects,
-                             site="attn_flash")
+    if torch.is_grad_enabled() and any(x.requires_grad
+                                       for x in (q3, k3, v3)):
+        out3, det, maxres = _FlashAttn.apply(q3, k3, v3, ft, causal, key,
+                                             bwd_inject)
+    else:
+        out3, rep = kops.flash_ft(q3, k3, v3, ft=ft, causal=causal,
+                                  n_rep=h // kvh, key=key)
+        det, maxres = _flash_summary(rep)
+    telemetry.record_summary(det, maxres, ft.corrects, site="attn_flash")
     return out3.reshape(b, h, sq, dh).transpose(1, 2)
 
 
@@ -201,7 +292,8 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     fft = fft if fft.protect_attention else FT_OFF
     if _use_flash(ctx, fft, causal, q.shape[1], k.shape[1], q_offset):
         return _flash_attention(q, k, v, causal=causal, ft=fft,
-                                key=ctx.subkey("attn_flash"))
+                                key=ctx.subkey("attn_flash"),
+                                bwd_inject=ctx.bwd_hook("attn_flash"))
     cft = ctx.ft_for("attn_qk")
     cft = cft if cft.protect_attention else FT_OFF
     return _chunked_core(q, k, v, causal=causal, chunk=chunk, ft=cft,
@@ -264,3 +356,16 @@ def embed(tokens: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
 
 def lm_head(x: torch.Tensor, table: torch.Tensor, ctx: Ctx) -> torch.Tensor:
     return ctx.dot("lm_head", x, table)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  ignore: int = -1) -> torch.Tensor:
+    """Mean CE over positions with label != ignore, in f32. logits
+    (…, V)."""
+    logits = logits.float()
+    mask = labels != ignore
+    safe = torch.where(mask, labels, torch.zeros_like(labels)).long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, safe[..., None])[..., 0]
+    nll = (logz - gold) * mask
+    return nll.sum() / mask.sum().clamp_min(1)

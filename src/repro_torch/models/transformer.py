@@ -12,24 +12,34 @@ Serving differs from the reference in one deliberate way: the KV cache is
 updated in place (`prefill` writes the prompt's keys and values into the
 cache buffers, `decode_step` writes one position per row), where the JAX
 reference rebuilds the cache arrays functionally every step.
+
+Training: `forward(..., remat=...)` walks the layers in a Python loop (the
+reference's `_scan_layers`), each layer under `blocks.make_remat`, over
+per-layer views that one `torch.unbind` per stacked leaf makes, so the
+backward stacks each leaf's gradient once. `loss_fn` is the reference's:
+mean cross-entropy plus the (zero, dense) auxiliary loss, with the FT
+report of the forward in its metrics.
 """
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional, Tuple
+import functools
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
 
 from ..configs.base import ModelConfig
+from ..core import telemetry
 from . import blocks
 from .blocks import Ctx
 
 
 class Params(nn.Module):
-    """A tree of parameters: nested `Params` with tensor leaves (frozen
-    `nn.Parameter`s). Indexing by name (``p["wq"]``, ``p.get("bq")``)
-    mirrors the reference's nested dicts."""
+    """A tree of parameters: nested `Params` with tensor leaves
+    (`nn.Parameter`s, frozen until a trainer calls ``requires_grad_()``).
+    Indexing by name (``p["wq"]``, ``p.get("bq")``) mirrors the reference's
+    nested dicts."""
 
     def __init__(self, tree: Dict[str, Any]):
         super().__init__()
@@ -46,13 +56,18 @@ class Params(nn.Module):
     def get(self, name: str, default=None):
         return getattr(self, name, default)
 
-    def layer(self, i: int) -> Dict[str, Any]:
-        """Layer ``i`` of a stacked tree, as nested dicts of views."""
-        out: Dict[str, Any] = {n: p[i] for n, p in
-                               self.named_parameters(recurse=False)}
-        for n, child in self.named_children():
-            out[n] = child.layer(i)
-        return out
+    def unbind_layers(self) -> List[Dict[str, Any]]:
+        """Every layer of a stacked tree as nested dicts of views, from one
+        `torch.unbind` per leaf: autograd then stacks each leaf's per-layer
+        gradients once, instead of a full-size gradient per layer."""
+        leaves = {n: torch.unbind(p, 0)
+                  for n, p in self.named_parameters(recurse=False)}
+        kids = {n: c.unbind_layers() for n, c in self.named_children()}
+        n_layers = len(next(iter(leaves.values()), None)
+                       or next(iter(kids.values())))
+        return [{**{n: v[i] for n, v in leaves.items()},
+                 **{n: v[i] for n, v in kids.items()}}
+                for i in range(n_layers)]
 
 
 def _check_dense(cfg: ModelConfig) -> None:
@@ -122,17 +137,39 @@ def apply_layer(lp: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig,
 
 
 def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
-            ctx: Ctx, *, chunk: int = 512) -> torch.Tensor:
+            ctx: Ctx, *, remat=True, chunk: int = 512) -> torch.Tensor:
     """tokens (B, S) int → logits (B, S, V). FT summaries go to the
-    ambient `telemetry.ft_scope`."""
+    ambient `telemetry.ft_scope`. ``remat`` ("full" / True, "none" /
+    False) checkpoints each layer when gradients are taken."""
     _check_dense(cfg)
     x = blocks.embed(tokens, params.embed.table).to(ctx.dtype)
     positions = torch.arange(x.shape[1], device=x.device)
-    for i in range(cfg.n_layers):
-        x = apply_layer(params.layers.layer(i), x, cfg, ctx,
-                        positions=positions, chunk=chunk)
+    layer = blocks.make_remat(
+        functools.partial(apply_layer, cfg=cfg, ctx=ctx, positions=positions,
+                          chunk=chunk), remat)
+    for lp in params.layers.unbind_layers():
+        x = layer(lp, x)
     x = blocks.rmsnorm(x, params.final_norm, cfg.norm_eps)
     return blocks.lm_head(x, _head_table(params, cfg), ctx)
+
+
+def loss_fn(params: Params, batch: Dict[str, torch.Tensor],
+            cfg: ModelConfig, ctx: Ctx, *, remat=True, chunk: int = 512
+            ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """(loss, metrics) of a batch {"tokens", "labels"} (B, S): mean
+    cross-entropy plus 0.01 × the auxiliary loss (zero for the dense
+    family); metrics {"ce", "aux", "ft"} with "ft" the `FTReport` of the
+    forward. The forward's records also reach the ambient scope."""
+    with telemetry.ft_scope() as scope:
+        logits = forward(params, batch["tokens"], cfg, ctx, remat=remat,
+                         chunk=chunk)
+    outer = telemetry.current_scope()
+    if outer is not None:
+        outer.extend(scope)
+    ce = blocks.cross_entropy(logits, batch["labels"])
+    aux = torch.zeros((), device=ce.device)
+    return ce + 0.01 * aux, {"ce": ce.detach(), "aux": aux,
+                             "ft": scope.report(device=ce.device)}
 
 
 # ---------------------------------------------------------------------------
@@ -172,8 +209,7 @@ def decode_step(params: Params, token: torch.Tensor, cache: Dict[str, Any],
     x = blocks.embed(token, params.embed.table).to(ctx.dtype)
     pos = cache["length"].long()                         # (B,)
     rows = torch.arange(x.shape[0], device=x.device)
-    for i in range(cfg.n_layers):
-        lp = params.layers.layer(i)
+    for i, lp in enumerate(params.layers.unbind_layers()):
         hn = blocks.rmsnorm(x, lp["attn_norm"], cfg.norm_eps)
         q, k_new, v_new = _project_qkv(lp["attn"], hn, cfg, ctx,
                                        pos[:, None])
@@ -200,8 +236,7 @@ def prefill(params: Params, tokens: torch.Tensor, cache: Dict[str, Any],
     b, s = tokens.shape
     x = blocks.embed(tokens, params.embed.table).to(ctx.dtype)
     positions = torch.arange(s, device=x.device)
-    for i in range(cfg.n_layers):
-        lp = params.layers.layer(i)
+    for i, lp in enumerate(params.layers.unbind_layers()):
         hn = blocks.rmsnorm(x, lp["attn_norm"], cfg.norm_eps)
         q, k, v = _project_qkv(lp["attn"], hn, cfg, ctx, positions)
         att = blocks.chunked_attention(q, k, v, causal=True, chunk=chunk,

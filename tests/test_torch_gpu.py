@@ -177,3 +177,127 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     q = torch.ones(2, 8, 96, device="cuda")
     with pytest.raises(ValueError):
         flashft.flash_ft_fwd(q, q, q, ft=FT, scale=1.0, tau_dh=128)
+
+
+# ---------------------------------------------------------------------------
+# training: K1 act_grad and transposed operands, K2 stats, K3, K4
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("chain", [("silu",), ("bias", "silu"), ("gelu",),
+                                   ("relu",)])
+def test_gemm_act_grad_matches_plain_f32(cuda, chain):
+    gen = torch.Generator(device="cuda").manual_seed(11 + len(chain))
+    m, n, k = 100, 200, 97
+    a = torch.randn(m, k, generator=gen, device="cuda")
+    b = torch.randn(k, n, generator=gen, device="cuda") * 0.1
+    bias = (torch.randn(n, generator=gen, device="cuda")
+            if "bias" in chain else None)
+    kw = dict(chain=chain, bias=bias, ft=FT, save_act_grad=True,
+              inj=(1, -1, 3, 7, 1), inj_mag=25.0)
+    (out, ag), rep = ft_gemm.ft_gemm(a, b, **kw)
+    (out_p, ag_p), rep_p = ft_gemm.ft_gemm_plain(
+        a, b, tiles=ft_gemm.pick_tiles(m), **kw)
+    torch.testing.assert_close(out, out_p, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(ag, ag_p, rtol=1e-5, atol=1e-5)
+    assert torch.equal(rep[..., [0, 1, 2, 3, 7]], rep_p[..., [0, 1, 2, 3, 7]])
+    assert float(rep[..., 0].sum()) == 1.0
+
+
+@pytest.mark.parametrize("which", ["dx", "dw"])
+def test_gemm_transposed_operands_match_plain_f32(cuda, which):
+    """The backward GEMMs' operands as views: dx = g·Wᵀ (B = w.T) and
+    dw = Xᵀ·g (A = x.T), with an SEU corrected bit for bit."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    t, d_in, d_out = 130, 96, 200
+    g = _ints(gen, t, d_out)
+    if which == "dx":
+        a, b = g, _ints(gen, d_in, d_out).t()
+    else:
+        a, b = _ints(gen, t, d_in).t(), g
+    assert not (a.is_contiguous() and b.is_contiguous())
+    kw = dict(ft=FT, inj=(1, -1, a.shape[0] - 1, b.shape[1] - 1, 2),
+              inj_mag=70.0)
+    out, rep = ft_gemm.ft_gemm(a, b, **kw)
+    out_p, rep_p = ft_gemm.ft_gemm_plain(
+        a, b, tiles=ft_gemm.pick_tiles(a.shape[0]), **kw)
+    torch.testing.assert_close(out, out_p, rtol=1e-5, atol=1e-5)
+    _check_reports(rep, rep_p)
+    clean, _ = ft_gemm.ft_gemm(a.contiguous(), b.contiguous(), ft=FT)
+    assert torch.equal(out, clean)
+
+
+FLASH_BWD_GEOMS = [(4, 1, 64, 64, 64, True), (6, 3, 100, 100, 128, True),
+                   (7, 7, 30, 150, 128, True), (2, 1, 50, 130, 64, False)]
+
+
+def _flash_bwd_inputs(geom, seed):
+    bh, n_rep, sq, skv, dh, causal = geom
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    q = torch.randn(bh, sq, dh, generator=gen, device="cuda")
+    k = torch.randn(bh // n_rep, skv, dh, generator=gen, device="cuda")
+    v = torch.randn(bh // n_rep, skv, dh, generator=gen, device="cuda")
+    g = torch.randn(bh, sq, dh, generator=gen, device="cuda")
+    kw = dict(ft=FT, scale=dh ** -0.5, tau_dh=128, n_rep=n_rep,
+              causal=causal)
+    o, m, l, _ = flashft.flash_ft_plain(q, k, v, save_stats=True, **kw)
+    di = (g * o).sum(-1)
+    return q, k, v, g, o, m, l, di, kw
+
+
+def _check_flash_reports(rep, rep_p):
+    assert torch.equal(rep[..., [0, 1, 7]], rep_p[..., [0, 1, 7]])
+    det = rep_p[..., 0] > 0
+    assert torch.equal(rep[..., 2:4][det], rep_p[..., 2:4][det])
+    torch.testing.assert_close(rep[..., 6], rep_p[..., 6], rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("geom", FLASH_BWD_GEOMS)
+def test_flash_stats_match_plain_f32(cuda, geom):
+    q, k, v, _, o_p, m_p, l_p, _, kw = _flash_bwd_inputs(geom, 21)
+    o, m, l, rep = flashft.flash_ft_fwd(q, k, v, save_stats=True, **kw)
+    torch.testing.assert_close(o, o_p, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(m, m_p, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(l, l_p, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("geom", FLASH_BWD_GEOMS)
+def test_flash_dq_dkv_match_plain_f32(cuda, geom):
+    bh, n_rep, sq, skv, dh, causal = geom
+    q, k, v, g, _, m, l, di, kw = _flash_bwd_inputs(geom, 22)
+    for inj_dq, inj_dkv in ((None, None),
+                            ((1, 1, bh - 1, (sq - 1) // 64, 0, 5, dh - 1),
+                             (1, 3, bh - 1, 0, (sq - 1) // 64, 63, 0)),
+                            ((1, 0, 0, 0, 0, 0, 3),
+                             (1, 2, n_rep - 1, 0, (sq - 1) // 64, 1, 2))):
+        before = flashft.FLASH_DQ.launches, flashft.FLASH_DKV.launches
+        dq, rep_q = flashft.flash_ft_dq(q, k, v, g, m, l, di, inj=inj_dq,
+                                        inj_mag=40.0, **kw)
+        dk, dv, rep_kv = flashft.flash_ft_dkv(q, k, v, g, m, l, di,
+                                              inj=inj_dkv, inj_mag=40.0, **kw)
+        assert (flashft.FLASH_DQ.launches, flashft.FLASH_DKV.launches) == (
+            before[0] + 1, before[1] + 1)
+        dq_p, rep_qp = flashft.flash_dq_plain(q, k, v, g, m, l, di,
+                                              inj=inj_dq, inj_mag=40.0, **kw)
+        dk_p, dv_p, rep_kvp = flashft.flash_dkv_plain(
+            q, k, v, g, m, l, di, inj=inj_dkv, inj_mag=40.0, **kw)
+        for got, want in ((dq, dq_p), (dk, dk_p), (dv, dv_p)):
+            torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+        _check_flash_reports(rep_q, rep_qp)
+        _check_flash_reports(rep_kv, rep_kvp)
+        n_inj = 0 if inj_dq is None else 1
+        assert float(rep_q[..., 0].sum()) == n_inj
+        assert float(rep_kv[..., 0].sum()) == n_inj
+
+
+def test_bf16_flash_backward_matches_plain(cuda):
+    q, k, v, g, _, m, l, di, kw = _flash_bwd_inputs(
+        (6, 3, 100, 100, 128, True), 23)
+    q, k, v, g = (x.bfloat16() for x in (q, k, v, g))
+    dq, _ = flashft.flash_ft_dq(q, k, v, g, m, l, di, **kw)
+    dk, dv, _ = flashft.flash_ft_dkv(q, k, v, g, m, l, di, **kw)
+    dq_p, _ = flashft.flash_dq_plain(q, k, v, g, m, l, di, **kw)
+    dk_p, dv_p, _ = flashft.flash_dkv_plain(q, k, v, g, m, l, di, **kw)
+    for got, want in ((dq, dq_p), (dk, dk_p), (dv, dv_p)):
+        assert got.dtype == torch.bfloat16
+        tol = 2.0 ** -7 * float(want.float().abs().max())
+        assert float((got.float() - want.float()).abs().max()) <= tol

@@ -95,6 +95,9 @@ def test_port_sources_import_neither_jax_nor_reference():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 10
+    for new in ("optim/adamw.py", "train/train_loop.py", "launch/train.py",
+                "data/pipeline.py"):
+        assert ROOT / "src" / "repro_torch" / new in files
     offenders = [str(f.relative_to(ROOT)) for f in files
                  if pat.search(f.read_text())]
     assert not offenders, offenders
@@ -115,6 +118,11 @@ def test_entry_points_without_device_need_a_gpu():
                         max_new_tokens=1)
     with pytest.raises((RuntimeError, AssertionError)):
         ttr.init(cfg, dtype=torch.float32)
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.train import train_loop
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_loop.train(cfg, run, ShapeConfig("t", 8, 2, "train"),
+                         train_loop.TrainConfig(total_steps=1))
 
 
 def test_kernel_wrappers_take_no_other_device():
