@@ -3,6 +3,7 @@
     python3 chip_smoke.py                    # every phase, as run on the card
     python3 chip_smoke.py --phases env,kernels
     python3 chip_smoke.py --phases env,train_kernels,train_check,train
+    python3 chip_smoke.py --phases env,decode_kernels,engine_check,engine
 
 Phases (each prints its own lines; any failed check exits non-zero):
 
@@ -25,6 +26,30 @@ Phases (each prints its own lines; any failed check exits non-zero):
                prompt tokens, 32 greedy tokens, once under a dispatch guard
                (every kernel's launch count from that run, no library matmul
                / attention call on the FT path), once timed without it;
+  decode_kernels  the paged decode kernel K6 against its plain version on
+               the card at qwen2-7b's decode shape in bf16 (28 / 4 heads, dh
+               128, pages of 64, 8 slots of lengths 0 to 1 024 whose pages
+               come out of order from a shuffled pool): max error, reports
+               equal, no detection on clean data, an SEU corrected and
+               located (and left in place by a detect-only policy), the
+               reference's exact-operand SEU (dh 256, f32) corrected bit for
+               bit; CUDA-event times of the kernel, its plain version and
+               one SDPA call over the gathered dense cache;
+  engine_check qwen2-7b at full width, depth cut to 2 layers: one
+               `paged_decode_step` against one dense `decode_step` on the
+               same tokens (slot lengths 37, 64, 0, 129; logits within 2e-2
+               of max|logit|, caches equal), then `ServeEngine` serving 6
+               requests on 3 slots against one single-slot engine per
+               request (tokens equal, budgets met, pages returned, "dec_flash"
+               in the telemetry scope with no detection, K6 launched twice
+               per decode step);
+  engine       `repro_torch.train.engine.ServeEngine` on qwen2-7b at full
+               width and depth: 16 requests (prompts of 16-512 tokens and
+               budgets of 8-32 greedy tokens drawn from --seed) on 8 slots,
+               max_len 1 024, pages of 64, once under the dispatch guard
+               (launch counts: K6 28 per decode step, K5 none), once timed
+               without it: decode ms per step, prefill ms per request, TTFT,
+               generated tokens/s, peak memory, pool bytes, free pages;
   train_kernels  the training kernels against their plain versions on the
                card at phi4-mini-3.8b's training shapes in bf16 (2 x 512
                tokens): K1 with the act_grad output and the dx = g·Wᵀ /
@@ -52,6 +77,7 @@ Without a CUDA device the script fails before printing any result.
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
 import json
 import math
@@ -63,6 +89,7 @@ import time
 import traceback
 from contextlib import contextmanager
 
+import numpy as np
 import torch
 import torch.utils._python_dispatch
 
@@ -76,10 +103,11 @@ from repro_torch.core.policy import (InjectionSpec,             # noqa: E402
                                      OFFLINE_DETECT, ONLINE_BLOCK)
 from repro_torch.data import pipeline as data_lib               # noqa: E402
 from repro_torch.kernels import build, flashft, ft_gemm         # noqa: E402
+from repro_torch.kernels import ops                             # noqa: E402
 from repro_torch.models import transformer                      # noqa: E402
 from repro_torch.models.blocks import Ctx                       # noqa: E402
 from repro_torch.optim import adamw                             # noqa: E402
-from repro_torch.train import serve, train_loop                 # noqa: E402
+from repro_torch.train import engine, kv_cache, serve, train_loop  # noqa: E402
 
 PEAK_FLOPS = 989e12        # H100 SXM dense bf16 (NVIDIA data sheet)
 PEAK_BYTES = 3.35e12       # H100 SXM HBM3
@@ -115,7 +143,15 @@ KERNELS = {
                       source="src/repro_torch/kernels/csrc/flash_ft_bwd.cu",
                       replaces="src/repro/kernels/flashft.py:569",
                       counter=flashft.FLASH_DKV),
+    "flash_decode": dict(route="cuda",
+                         source="src/repro_torch/kernels/csrc/"
+                                "flash_decode.cu",
+                         replaces="src/repro/kernels/flashft.py:270",
+                         counter=flashft.FLASH_DECODE),
 }
+#: paged serving: qwen2-7b, 16 requests on 8 slots, max_len 1 024
+ENGINE_SLOTS, ENGINE_REQUESTS, ENGINE_MAX_LEN = 8, 16, 1024
+DECODE_LENGTHS = (0, 1, 63, 64, 65, 300, 777, 1024)
 
 
 class CheckFailed(RuntimeError):
@@ -514,7 +550,7 @@ def phase_serve(layers: int):
     check(launches == {"ft_gemm_2d": per_step * (NEW_TOKENS + 1),
                        "ft_gemm_batched": 2 * cfg.n_layers * NEW_TOKENS,
                        "flash_ft": cfg.n_layers, "flash_dq": 0,
-                       "flash_dkv": 0},
+                       "flash_dkv": 0, "flash_decode": 0},
           f"launch counts: K1 {per_step} per prefill and per decode step, K5 "
           f"{2 * cfg.n_layers} per decode step, K2 {cfg.n_layers} per prefill")
     check(totals["detected"] == 0, "zero detections on the serving path")
@@ -548,6 +584,402 @@ def phase_serve(layers: int):
         new_tokens=NEW_TOKENS, generate_s=wall,
         new_tokens_per_s=tokens.size / wall, prefill_ms=prefill_ms,
         decode_ms_per_step=decode_ms, peak_gib=peak, launches=launches)}))
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# decode_kernels / engine_check / engine
+# ---------------------------------------------------------------------------
+
+def _decode_pool(gen, lengths, kvh, dh, page, dtype):
+    """Pools of random values (stale contents everywhere, the null page
+    included) and a page table whose rows take their pages in order from a
+    shuffled pool, so no slot's pages are contiguous."""
+    b = len(lengths)
+    mp = -(-max(lengths) // page)
+    n_pages = 1 + b * mp
+    k, v = (torch.randn(n_pages, kvh, page, dh, generator=gen, device="cuda"
+                        ).to(dtype) for _ in range(2))
+    perm = (torch.randperm(n_pages - 1, generator=gen, device="cuda") + 1
+            ).tolist()
+    table = torch.zeros(b, mp, dtype=torch.int32)
+    for slot, length in enumerate(lengths):
+        n = -(-length // page)
+        table[slot, :n] = torch.tensor(perm[:n], dtype=torch.int32)
+        perm = perm[n:]
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    return k, v, table.cuda(), lens
+
+
+def _exact_decode_seu():
+    """The reference's exact-operand SEU case (tests/test_serve_engine.py):
+    one-hot 64·e_t queries and keys, integer V, dh 256, pages of 16, f32:
+    the output is exact, so the corrected run equals the clean one bit for
+    bit; a detect-only policy leaves the SEU in the output."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    dh, page, kvh, lengths = 256, 16, 2, (272, 320)
+    b, mp = len(lengths), 512 // page
+    k = torch.zeros(1 + b * mp, kvh, page, dh, device="cuda")
+    v = torch.randint(-2, 3, k.shape, generator=gen, device="cuda").float()
+    table = (torch.arange(b * mp, device="cuda").view(b, mp) + 1).int()
+    for slot, length in enumerate(lengths):
+        t = torch.arange(length, device="cuda")
+        k[table[slot, t // page].long(), :, t % page, t % dh] = 64.0
+    tq = torch.randint(0, dh, (b, kvh * 2), generator=gen, device="cuda")
+    q = 64.0 * torch.nn.functional.one_hot(tq, dh).float()
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    spec = InjectionSpec(row=1, col=7, magnitude=777.0, k_step=320 // page - 1)
+    g = 1 * kvh + 0
+    clean, _ = ops.flash_ft_decode(q, k, v, lens, table, ft=FT)
+    fixed, rep = ops.flash_ft_decode(q, k, v, lens, table, ft=FT, spec=spec,
+                                     inj_g=g)
+    left, rep_d = ops.flash_ft_decode(q, k, v, lens, table, ft=DETECT,
+                                      spec=spec, inj_g=g)
+    cell = rep[g, 0]
+    check(torch.equal(fixed, clean) and float(rep[..., 0].sum()) == 1.0
+          and (int(cell[2]), int(cell[3])) == (1, 7)
+          and abs(float(cell[4]) - 777.0) < 1.0,
+          "K6 exact-operand SEU (dh 256, f32): corrected bit for bit, "
+          "located at (row 1, col 7)")
+    check(float(rep_d[..., 0].sum()) == 1.0
+          and float((left - clean).abs().max()) > 1.0,
+          f"K6 exact-operand SEU detect-only: detected, left in the output "
+          f"(off by {float((left - clean).abs().max()):.3g})")
+
+
+def phase_decode_kernels():
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    cfg = qwen2_7b.CONFIG
+    kvh, h, dh = cfg.n_kv_heads, cfg.n_heads, cfg.head_dim
+    n_rep, page = h // kvh, kv_cache.DEFAULT_PAGE
+    lengths = DECODE_LENGTHS
+    b = len(lengths)
+    k, v, table, lens = _decode_pool(gen, lengths, kvh, dh, page,
+                                     torch.bfloat16)
+    q = _rand(gen, b, h, dh)
+    sub = flashft.sublane(q.dtype)
+    bq = -(-n_rep // sub) * sub
+    qg = torch.nn.functional.pad(q.view(b * kvh, n_rep, dh),
+                                 (0, 0, 0, bq - n_rep))
+    kw = dict(ft=FT, scale=dh ** -0.5, tau_dh=dh)
+    out, rep = flashft.flash_ft_decode(qg, k, v, lens, table, **kw)
+    out_p, rep_p = flashft.flash_decode_plain(qg, k, v, lens, table, **kw)
+    err = _cmp_outputs("K6 paged decode", out[:, :n_rep], out_p[:, :n_rep])
+    check(all(torch.equal(rep[..., i], rep_p[..., i]) for i in (0, 1, 2, 3, 7)),
+          "K6 report: det, corr, row, col and k fields equal")
+    tau_rel = ((rep[..., 6] - rep_p[..., 6]).abs()
+               / rep_p[..., 6].abs().clamp_min(1e-30)).max().item()
+    check(tau_rel <= 1e-5 and float(rep[..., 0].sum()) == 0.0,
+          f"K6 report: tau within 1e-5 ({tau_rel:.2g}), no detection on "
+          f"clean data")
+    check(not out[:kvh].any() and not rep[:kvh].any(),
+          "K6: the length-0 slot writes exact zeros and a zero report")
+    # One SEU in Δ of slot 6 (777 tokens), kv head 2, page 5, at (row 3,
+    # col 100); the same SEU detect-only.
+    slot, head = 6, 2
+    g = slot * kvh + head
+    spec = InjectionSpec(row=3, col=100, magnitude=64.0, k_step=5)
+    clean, _ = ops.flash_ft_decode(q, k, v, lens, table, ft=FT)
+    fixed, rep_s = ops.flash_ft_decode(q, k, v, lens, table, ft=FT,
+                                       spec=spec, inj_g=g)
+    left, rep_d = ops.flash_ft_decode(q, k, v, lens, table, ft=DETECT,
+                                      spec=spec, inj_g=g)
+    cell = rep_s[g, 0]
+    check(float(rep_s[..., 0].sum()) == 1.0 and float(rep_s[..., 1].sum())
+          == 1.0 and (int(cell[2]), int(cell[3])) == (3, 100)
+          and abs(float(cell[4]) - 64.0) < 0.5,
+          "K6 SEU (slot 6, kv head 2, page 5): detected, corrected, located "
+          "at (row 3, col 100)")
+    check(float(rep_d[..., 0].sum()) == 1.0 and float(rep_d[..., 1].sum())
+          == 0.0, "K6 SEU detect-only: detected, not corrected")
+    at = (slot, head * n_rep + 3, 100)
+    print(f"  K6 SEU: corrected element {fixed[at].item()!r}, clean "
+          f"{clean[at].item()!r} (whole outputs equal: "
+          f"{torch.equal(fixed, clean)}), detect-only {left[at].item()!r}")
+    check(torch.equal(fixed[at], clean[at]),
+          "K6 SEU: the corrected element equals the clean one")
+    _seu_at("K6", fixed, left, clean, at)
+    _exact_decode_seu()
+    # Times at the main path's shape; SDPA over the dense (B, H, S, dh) cache
+    # gathered beforehand (the gather is not timed), with the length mask.
+    ms = time_ms(lambda: flashft.flash_ft_decode(qg, k, v, lens, table, **kw),
+                 50)
+    plain_ms = time_ms(lambda: flashft.flash_decode_plain(qg, k, v, lens,
+                                                          table, **kw), 3)
+    s_max = table.shape[1] * page
+    kd, vd = (kv_cache.gather_layer(x, table).permute(0, 2, 1, 3)
+              .repeat_interleave(n_rep, dim=1) for x in (k, v))
+    mask = (torch.arange(s_max, device="cuda")[None, :] < lens[:, None]
+            )[:, None, None, :]
+    q4 = q[:, :, None, :]
+    lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q4, kd, vd, attn_mask=mask), 50)
+    live_pages = sum(-(-n // page) for n in lengths)
+    nbytes = (2 * b * h * dh                        # q
+              + 2 * 2 * live_pages * kvh * page * dh  # live pages of K and V
+              + 2 * b * h * dh                      # out
+              + 4 * (b + table.numel()))            # lengths, table
+    b_ms, b_by = bound(4.0 * dh * h * sum(lengths), nbytes)
+    shape = (f"{b} slots x {h} / {kvh} heads, dh {dh}, pages of {page}, "
+             f"lengths {list(lengths)}")
+    print(f"  K6 paged decode ({shape}): kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.3f} ms, SDPA over the gathered cache {lib_ms:.4f} ms, "
+          f"bound {b_ms:.5f} ms ({b_by})")
+    return {"flash_decode": dict(max_abs_err=err, detail=[dict(
+        shape=shape, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+        library="SDPA over the gathered dense cache, length mask, gather "
+                "not timed", bound_ms=b_ms, bound_by=b_by)])}
+
+
+class ProbeEngine(engine.ServeEngine):
+    """The engine, recording per request the top-2 logit gap of every
+    sampled token and, per call, the host time of each prefill (admission,
+    scatter and first sample) and of each decode step (from the end of
+    admission to the end of the step's sample, which synchronises)."""
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        self.gaps = collections.defaultdict(list)
+        self.prefill_ms, self.decode_ms = [], []
+        self._next_rid, self._admitting = 0, False
+        self._t = time.perf_counter()
+
+    def _admit(self):
+        self._admitting = True
+        self._t = time.perf_counter()
+        try:
+            super()._admit()
+        finally:
+            self._admitting = False
+
+    def _sample(self, logits):
+        top2 = torch.topk(logits.float(), 2, dim=-1).values
+        tok = super()._sample(logits)
+        now = time.perf_counter()
+        gap = (top2[:, 0] - top2[:, 1]).tolist()
+        top = top2[:, 0].abs().tolist()
+        if self._admitting:        # FIFO admission: rids come in order
+            self.gaps[self._next_rid].append((gap[0], top[0]))
+            self._next_rid += 1
+            self.prefill_ms.append((now - self._t) * 1e3)
+        else:
+            for s, req in enumerate(self.slot_req):
+                if req is not None:
+                    self.gaps[req.rid].append((gap[s], top[s]))
+            self.decode_ms.append((now - self._t) * 1e3)
+        self._t = now
+        return tok
+
+
+def _prompts(rng, n, lo, hi, budget_lo, budget_hi, vocab):
+    lens = rng.integers(lo, hi + 1, n)
+    budgets = rng.integers(budget_lo, budget_hi + 1, n)
+    return [rng.integers(0, vocab, int(m)) for m in lens], \
+        [int(x) for x in budgets]
+
+
+def phase_engine_check():
+    cfg = dataclasses.replace(qwen2_7b.CONFIG, n_layers=2)
+    run = RunConfig(model=cfg, ft=FT, dtype="bfloat16")
+    params = transformer.init(cfg, seed=3, dtype=torch.bfloat16)
+    ctx = Ctx(ft=FT, dtype=torch.bfloat16)
+    rng = torch.Generator().manual_seed(3)
+    # ---- one paged step against one dense step ---------------------------
+    lengths = [37, 64, 0, 129]
+    b, page, max_len = len(lengths), kv_cache.DEFAULT_PAGE, 256
+    plan = kv_cache.plan_pages(n_slots=b, max_len=max_len)
+    alloc = kv_cache.PageAllocator(plan.n_pages, b, plan.max_pages, page)
+    paged = kv_cache.init_paged_cache(cfg.n_layers, plan.n_pages, b,
+                                      plan.max_pages, cfg.n_kv_heads, page,
+                                      cfg.head_dim)
+    dense = transformer.init_cache(cfg, b, max_len)
+    with torch.inference_mode():
+        for length in lengths:
+            slot, _ = alloc.alloc_slot(length)
+            if length == 0:
+                continue
+            toks = torch.randint(0, cfg.vocab_size, (1, length),
+                                 generator=rng).cuda()
+            c1 = transformer.init_cache(cfg, 1, length)
+            _, c1 = transformer.prefill(params, toks, c1, cfg, ctx)
+            kv_cache.write_prefill(paged, slot,
+                                   torch.as_tensor(alloc.page_table[slot]),
+                                   c1["k"][:, 0], c1["v"][:, 0], length)
+            dense["k"][:, slot, :length] = c1["k"][:, 0]
+            dense["v"][:, slot, :length] = c1["v"][:, 0]
+        for slot, length in enumerate(lengths):
+            alloc.ensure(slot, length + 1)
+        paged["page_table"], _ = alloc.snapshot("cuda")
+        paged["length"] = torch.tensor(lengths, dtype=torch.int32,
+                                       device="cuda")
+        dense["length"] = paged["length"].clone()
+        tok = torch.randint(0, cfg.vocab_size, (b, 1), generator=rng).cuda()
+        for k in KERNELS.values():
+            k["counter"].launches = 0
+        lp, paged = transformer.paged_decode_step(params, tok, paged, cfg, ctx)
+        k6 = flashft.FLASH_DECODE.launches
+        ld, dense = transformer.decode_step(params, tok, dense, cfg, ctx)
+    lp, ld = lp.float().reshape(b, -1), ld.float().reshape(b, -1)
+    err, scale = (lp - ld).abs().max().item(), ld.abs().max().item()
+    check(bool(torch.isfinite(lp).all()) and err <= 2e-2 * scale,
+          f"engine_check: paged vs dense decode step logits {err:.3g} <= "
+          f"2e-2 x {scale:.3g} (slot lengths {lengths})")
+    check(k6 == cfg.n_layers, f"engine_check: the paged step launched K6 "
+          f"once per layer ({k6})")
+    pk, pv = kv_cache.gather_dense(paged)
+    same, worst = True, 0.0
+    for slot, length in enumerate(lengths):
+        for got, want in ((pk, dense["k"]), (pv, dense["v"])):
+            same &= (torch.equal(got[:, slot, :length], want[:, slot, :length])
+                     and torch.equal(got[0, slot, length],
+                                     want[0, slot, length]))
+            new = got[1:, slot, length].float()
+            ref = want[1:, slot, length].float()
+            worst = max(worst, ((new - ref).abs().max()
+                                / ref.abs().max().clamp_min(1e-30)).item())
+    check(same, "engine_check: after the step every slot's prompt and layer "
+          "0's new token are cached bit for bit as in the dense cache")
+    check(worst <= 2e-2, f"engine_check: layer 1's new token within 2e-2 of "
+          f"max|kv| of the dense one ({worst:.3g}; its input carries the two "
+          f"attention paths' difference)")
+    # ---- the engine against one single-slot engine per request -----------
+    prng = np.random.default_rng(3)
+    prompts, budgets = _prompts(prng, 6, 5, 120, 3, 12, cfg.vocab_size)
+    ec = dict(max_len=256, n_slots=3)
+    eng = ProbeEngine(params, cfg, run, engine.EngineConfig(**ec))
+    for p_, m in zip(prompts, budgets):
+        eng.submit(p_, max_new_tokens=m)
+    for k in KERNELS.values():
+        k["counter"].launches = 0
+    with telemetry.ft_scope() as scope:
+        res = eng.run()
+        sites = scope.site_totals()
+    k6 = flashft.FLASH_DECODE.launches
+    steps = len(eng.decode_ms)
+    solo = []
+    for p_, m in zip(prompts, budgets):
+        one = ProbeEngine(params, cfg, run,
+                          engine.EngineConfig(max_len=256, n_slots=1))
+        one.submit(p_, max_new_tokens=m)
+        solo.append((one.run()[0], one.gaps[0]))
+    for r, (s_, s_gaps) in zip(res, solo):
+        if r.tokens == s_.tokens:
+            continue
+        t = next(i for i, (x, y) in enumerate(zip(r.tokens, s_.tokens))
+                 if x != y)
+        (ga, ta), (gb, tb) = eng.gaps[r.rid][t], s_gaps[t]
+        tie = min(ga, gb) <= BF16_TOL * max(ta, tb)
+        print(f"  request {r.rid}: engine and solo differ at token {t} "
+              f"({r.tokens[t]} vs {s_.tokens[t]}); top-2 logit gaps {ga:.4g} "
+              f"(engine) and {gb:.4g} (solo) at |top| {max(ta, tb):.4g}")
+        check(tie, f"engine_check: request {r.rid}'s first difference is a "
+              f"bf16 tie (gap <= {BF16_TOL:.4f} x |top|)")
+    same = sum(r.tokens == s_.tokens for r, (s_, _) in zip(res, solo))
+    print(f"  {same} of {len(res)} requests give their solo tokens exactly")
+    check([len(r.tokens) for r in res] == budgets,
+          f"engine_check: every request met its budget {budgets}")
+    eng.alloc.check_invariants()
+    check(eng.alloc.n_free == eng.plan.n_pages - 1,
+          f"engine_check: all {eng.plan.n_pages - 1} pages came back")
+    dec = sites.get("dec_flash")
+    check(dec is not None and all(t["detected"] == 0 for t in sites.values()),
+          f"engine_check: 'dec_flash' in the scope's site totals, no "
+          f"detection ({dec})")
+    check(k6 == cfg.n_layers * steps, f"engine_check: K6 launches {k6} = "
+          f"{cfg.n_layers} x {steps} decode steps")
+
+
+def phase_engine(seed: int, smi: str):
+    cfg = qwen2_7b.CONFIG
+    run = RunConfig(model=cfg, ft=FT, dtype="bfloat16")
+    t0 = time.perf_counter()
+    params = transformer.init(cfg, seed=0, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    print(f"  init: {sum(p.numel() for p in params.parameters()) / 1e9:.2f} B "
+          f"parameters in {time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(seed)
+    prompts, budgets = _prompts(rng, ENGINE_REQUESTS, 16, 512, 8, 32,
+                                cfg.vocab_size)
+    ec = engine.EngineConfig(max_len=ENGINE_MAX_LEN, n_slots=ENGINE_SLOTS)
+
+    def serve_all(guard=None):
+        eng = ProbeEngine(params, cfg, run, ec)
+        for p_, m in zip(prompts, budgets):
+            eng.submit(p_, max_new_tokens=m)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with telemetry.ft_scope() as scope:
+            if guard is None:
+                res = eng.run()
+            else:
+                with guard:
+                    res = eng.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            totals = scope.totals()
+        return eng, res, wall, totals
+
+    torch.cuda.reset_peak_memory_stats()
+    for k in KERNELS.values():
+        k["counter"].launches = 0
+    guard = LibraryCallGuard()
+    eng_g, res_g, wall_g, tot_g = serve_all(guard)
+    launches = {n: k["counter"].launches for n, k in KERNELS.items()}
+    steps = len(eng_g.decode_ms)
+    eng, res, wall, totals = serve_all()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    pool = sum(eng.cache[n].nbytes for n in ("k_pages", "v_pages"))
+    n_tok = sum(len(r.tokens) for r in res)
+    dec_ms, pre_ms = (statistics.median(eng.decode_ms),
+                      statistics.median(eng.prefill_ms))
+    ttft = [r.ttft_s * 1e3 for r in res]
+    print(f"  {ENGINE_REQUESTS} requests, prompts {[len(p_) for p_ in prompts]}"
+          f", budgets {budgets}")
+    print(f"  guarded run {wall_g:.2f} s; launches {launches}; {steps} decode "
+          f"steps; FT totals {tot_g}")
+    print(f"  timed run {wall:.2f} s: {n_tok} tokens, {n_tok / wall:.2f} "
+          f"generated tokens/s; decode {dec_ms:.1f} ms per step (median of "
+          f"{len(eng.decode_ms)}: min {min(eng.decode_ms):.1f}, max "
+          f"{max(eng.decode_ms):.1f}); prefill {pre_ms:.1f} ms per request "
+          f"(median; min {min(eng.prefill_ms):.1f}, max "
+          f"{max(eng.prefill_ms):.1f}); TTFT median "
+          f"{statistics.median(ttft):.0f} ms, max {max(ttft):.0f} ms")
+    print(f"  peak memory {peak:.2f} GiB; pool {pool / 1e9:.3f} GB "
+          f"({eng.plan.n_pages} pages of {eng.plan.page_size}); free pages at "
+          f"the end {eng.alloc.n_free}")
+    check([r.tokens for r in res] == [r.tokens for r in res_g],
+          "engine: the timed run repeats the guarded run's greedy tokens")
+    check([len(r.tokens) for r in res] == budgets
+          and all(0 <= t < cfg.vocab_size for r in res for t in r.tokens),
+          "engine: every request met its budget with in-vocabulary tokens")
+    eng.alloc.check_invariants()
+    check(eng.alloc.n_free == eng.plan.n_pages - 1 == eng_g.alloc.n_free,
+          f"engine: all {eng.plan.n_pages - 1} pages came back")
+    check(tot_g["detected"] == 0 and totals["detected"] == 0,
+          "engine: zero detections")
+    check(not guard.hits, f"engine: no library matmul / attention op "
+          f"dispatched ({sorted(set(guard.hits))})")
+    per = cfg.n_layers * 7 + 1
+    expect = {"ft_gemm_2d": per * (ENGINE_REQUESTS + steps),
+              "ft_gemm_batched": 0, "flash_ft": cfg.n_layers * ENGINE_REQUESTS,
+              "flash_dq": 0, "flash_dkv": 0,
+              "flash_decode": cfg.n_layers * steps}
+    check(launches == expect,
+          f"engine: launches K1 {per} per prefill and per decode step, K2 "
+          f"{cfg.n_layers} per prefill, K6 {cfg.n_layers} per decode step, "
+          f"K5 none")
+    print(json.dumps({"engine": dict(
+        arch=cfg.arch_id, layers=cfg.n_layers, slots=ENGINE_SLOTS,
+        requests=ENGINE_REQUESTS, max_len=ENGINE_MAX_LEN,
+        page=eng.plan.page_size, seed=seed,
+        prompt_lens=[len(p_) for p_ in prompts], budgets=budgets,
+        decode_steps=steps, run_s=wall, guarded_run_s=wall_g,
+        generated_tokens=n_tok, tokens_per_s=n_tok / wall,
+        decode_ms_median=dec_ms, decode_ms=eng.decode_ms,
+        prefill_ms_median=pre_ms, prefill_ms=eng.prefill_ms,
+        ttft_ms_median=statistics.median(ttft), ttft_ms_max=max(ttft),
+        peak_gib=peak, pool_bytes=pool, free_pages=eng.alloc.n_free,
+        launches=launches, card=smi)}))
     return launches
 
 
@@ -923,7 +1355,7 @@ def phase_train(smi: str):
           "train: zero detections")
     expect = {"ft_gemm_2d": 28 * cfg.n_layers + 3, "ft_gemm_batched": 0,
               "flash_ft": 2 * cfg.n_layers, "flash_dq": cfg.n_layers,
-              "flash_dkv": cfg.n_layers}
+              "flash_dkv": cfg.n_layers, "flash_decode": 0}
     check(all(x == expect for x in launches),
           f"train: launches per step {expect} at every step")
     # One more step through make_train_step under the dispatch guard.
@@ -976,9 +1408,12 @@ def _merge_rows(rows, more):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default="env,kernels,serve_check,serve,"
-                    "train_kernels,train_check,train")
+                    "decode_kernels,engine_check,engine,train_kernels,"
+                    "train_check,train")
     ap.add_argument("--layers", type=int, default=qwen2_7b.CONFIG.n_layers,
                     help="serve depth (the width is always full)")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="the engine phase's prompt lengths and budgets")
     args = ap.parse_args()
     phases = args.phases.split(",")
     if not torch.cuda.is_available():
@@ -1002,6 +1437,12 @@ def main() -> int:
                 phase_serve_check()
             elif phase == "serve":
                 by_path["serve"] = phase_serve(args.layers)
+            elif phase == "decode_kernels":
+                _merge_rows(rows, phase_decode_kernels())
+            elif phase == "engine_check":
+                phase_engine_check()
+            elif phase == "engine":
+                by_path["engine"] = phase_engine(args.seed, smi)
             elif phase == "train_kernels":
                 _merge_rows(rows, phase_train_kernels())
             elif phase == "train_check":

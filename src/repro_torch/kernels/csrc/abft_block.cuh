@@ -1,6 +1,6 @@
-// Block-level ABFT helpers shared by ft_gemm.cu and flash_ft.cu: warp and
-// block reductions, first-argmax location, and the verification step that
-// turns checksum residuals into a verdict and a report update.
+// Block-level ABFT helpers shared by the kernels of csrc/: warp and block
+// reductions, first-argmax location, and the verification step that turns
+// checksum residuals into a verdict and a report update.
 //
 // All helpers are called by every thread of a 256-thread block (they use
 // __syncthreads()).
@@ -108,30 +108,30 @@ struct VerifySmem {
   Verdict v;
 };
 
-// Verify a ROWS x COLS block held in c (row stride `stride`) against its
-// checksums: residuals, first-argmax locate, detection (max residual > tau)
-// and the report update, which thread 0 keeps in rep[8]:
-// [det, corr, row, col, mag, max_residual, tau, k] with the located
-// position reported at (row + row_off, col + col_off). Every thread
+// Verify a rows x COLS block held in c (row stride `stride`, rows <= MAXR
+// at run time) against its checksums: residuals, first-argmax locate,
+// detection (max residual > tau) and the report update, which thread 0
+// keeps in rep[8]: [det, corr, row, col, mag, max_residual, tau, k] with the
+// located position reported at (row + row_off, col + col_off). Every thread
 // returns the verdict; the caller applies the correction.
-template <int ROWS, int COLS, int MAXR, int MAXC>
-__device__ Verdict verify_block(const float* c, int stride,
-                                const float* colck, const float* rowck,
-                                float tau, float k_el, bool corrects,
-                                int row_off, int col_off,
-                                VerifySmem<MAXR, MAXC>& sm, float* rep) {
-  static_assert(ROWS <= MAXR && COLS <= MAXC, "");
-  col_sums<COLS>(c, ROWS, stride, sm.part, sm.dcol);
-  row_sums(c, ROWS, COLS, stride, sm.drow);
+template <int COLS, int MAXR, int MAXC>
+__device__ Verdict verify_rows(const float* c, int rows, int stride,
+                               const float* colck, const float* rowck,
+                               float tau, float k_el, bool corrects,
+                               int row_off, int col_off,
+                               VerifySmem<MAXR, MAXC>& sm, float* rep) {
+  static_assert(COLS <= MAXC, "");
+  col_sums<COLS>(c, rows, stride, sm.part, sm.dcol);
+  row_sums(c, rows, COLS, stride, sm.drow);
   __syncthreads();
   for (int i = threadIdx.x; i < COLS; i += kThreads) sm.dcol[i] -= colck[i];
-  for (int i = threadIdx.x; i < ROWS; i += kThreads) sm.drow[i] -= rowck[i];
+  for (int i = threadIdx.x; i < rows; i += kThreads) sm.drow[i] -= rowck[i];
   __syncthreads();
   const int warp = threadIdx.x / 32;
   if (warp < 2) {
     float best;
     int idx;
-    warp_argmax_abs(warp == 0 ? sm.dcol : sm.drow, warp == 0 ? COLS : ROWS,
+    warp_argmax_abs(warp == 0 ? sm.dcol : sm.drow, warp == 0 ? COLS : rows,
                     best, idx);
     if ((threadIdx.x & 31) == 0) {
       sm.best[warp] = best;
@@ -160,6 +160,18 @@ __device__ Verdict verify_block(const float* c, int stride,
   }
   __syncthreads();
   return sm.v;
+}
+
+// verify_rows for a block whose row count ROWS is known at compile time.
+template <int ROWS, int COLS, int MAXR, int MAXC>
+__device__ Verdict verify_block(const float* c, int stride,
+                                const float* colck, const float* rowck,
+                                float tau, float k_el, bool corrects,
+                                int row_off, int col_off,
+                                VerifySmem<MAXR, MAXC>& sm, float* rep) {
+  static_assert(ROWS <= MAXR, "");
+  return verify_rows<COLS>(c, ROWS, stride, colck, rowck, tau, k_el,
+                           corrects, row_off, col_off, sm, rep);
 }
 
 }  // namespace abft

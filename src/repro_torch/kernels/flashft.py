@@ -1,22 +1,26 @@
-"""ABFT flash attention, both directions — wrappers of the CUDA kernels
-`csrc/flash_ft.cu` (forward) and `csrc/flash_ft_bwd.cu` (dQ, dK/dV) and
-their plain PyTorch versions.
+"""ABFT flash attention, both directions, and the paged decode — wrappers
+of the CUDA kernels `csrc/flash_ft.cu` (forward), `csrc/flash_ft_bwd.cu`
+(dQ, dK/dV) and `csrc/flash_decode.cu` (paged decode), and their plain
+PyTorch versions.
 
 Replaces the TPU kernels of the JAX package
 `repro/kernels/flashft.py`:
   * K2 `_flash_ft_kernel` (launch `templates/registry.py:flash_fwd_call`),
     with ``save_stats``: the per-row softmax statistics (m, l);
   * K3 `_flash_dq_kernel` (launch `registry.py:flash_dq_call`);
-  * K4 `_flash_dkv_kernel` (launch `registry.py:flash_dkv_call`).
+  * K4 `_flash_dkv_kernel` (launch `registry.py:flash_dkv_call`);
+  * K6 `_flash_decode_kernel` (`flashft.py:270`; launch
+    `templates/registry.py:239 flash_decode_call`).
 
 Each wrapper takes a CPU tensor to its plain version and a CUDA tensor to
 its kernel (launch or raise), and counts its launches (`FLASH_FT`,
-`FLASH_DQ`, `FLASH_DKV`). The plain versions walk the kernels' block grids
-— a Python loop over the reduction steps, vectorised over the stationary
-blocks — and write the same 8-field reports: the forward verifies
-S = QKᵀ and Δ = PV per kv step; the dQ walk verifies the recomputed S,
-dP = g·Vᵀ and the dQ delta dS·K per kv step; the dK/dV walk (n_rep query
-heads × q blocks per kv block) verifies S, dP, dV = Pᵀg and dK = dSᵀQ.
+`FLASH_DQ`, `FLASH_DKV`, `FLASH_DECODE`). The plain versions walk the
+kernels' block grids — a Python loop over the reduction steps, vectorised
+over the stationary blocks — and write the same 8-field reports: the
+forward verifies S = QKᵀ and Δ = PV per kv step; the dQ walk verifies the
+recomputed S, dP = g·Vᵀ and the dQ delta dS·K per kv step; the dK/dV walk
+(n_rep query heads × q blocks per kv block) verifies S, dP, dV = Pᵀg and
+dK = dSᵀQ; the decode walk verifies S and Δ per page of the slot.
 
 What bounds the kernels on the H100 and what their design does about it is
 in the headers of the CUDA sources.
@@ -56,6 +60,23 @@ FLASH_DQ = build.Kernel("flash_ft_bwd", "flash_dq_launch",
                         [ctypes.c_void_p] * 9 + _BWD_TAIL)
 FLASH_DKV = build.Kernel("flash_ft_bwd", "flash_dkv_launch",
                          [ctypes.c_void_p] * 10 + _BWD_TAIL)
+
+#: K6's compiled page edges and head dims, and its most query rows per
+#: (slot, kv head) block.
+DECODE_PAGES = (16, 32, 64)
+DECODE_HEAD_DIMS = (128, 256)
+DECODE_MAX_BQ = 32
+FLASH_DECODE = build.Kernel(
+    "flash_decode", "flash_decode_launch",
+    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_float] * 3
+    + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p])
+
+
+def sublane(dtype: torch.dtype) -> int:
+    """Rows of the reference's (sublane, lane) tiling for ``dtype``
+    (`repro/kernels/search.py:sublane`): 16 for 2-byte types, 32 for
+    1-byte ones, 8 otherwise."""
+    return {1: 32, 2: 16}.get(dtype.itemsize, 8)
 
 
 def encode_bwd_injection(spec: Optional[InjectionSpec], target: str = "dq",
@@ -574,3 +595,171 @@ def flash_ft_dkv(q, k, v, g, m, l, di, *, ft: FTConfig, scale: float,
     FLASH_DKV(q.data_ptr(), k.data_ptr(), v.data_ptr(), *ptrs, dk.data_ptr(),
               dv.data_ptr(), rep.data_ptr(), *rest)
     return dk, dv, rep
+
+
+# ---------------------------------------------------------------------------
+# paged decode (K6)
+# ---------------------------------------------------------------------------
+
+def flash_decode_plain(q: torch.Tensor, k_pages: torch.Tensor,
+                       v_pages: torch.Tensor, lengths: torch.Tensor,
+                       page_table: torch.Tensor, *, ft: FTConfig,
+                       scale: float, tau_dh: int,
+                       inj: Optional[Sequence[int]] = None,
+                       inj_mag: float = 0.0
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K6 in plain PyTorch: a walk over the page-table columns, vectorised
+    over the (slot, kv head) rows.
+
+    q (G, bq, dh), G = B·KVH: row g holds the query rows of kv head
+    g % KVH of slot g // KVH at one decode position, zero-padded to bq (the
+    padded rows take part in the PV checksums, as in the reference);
+    k_pages, v_pages (P, KVH, page, dh): one layer's pool; lengths (B,)
+    and page_table (B, MP) ints. Step s of row g reads page
+    ``page_table[g // KVH, s]`` while s·page < length, whole: the dead
+    positions of a page (the trash page, a previous owner's tokens) take
+    part in S's verification, in max|k| and max|v|, and are masked after
+    it. S = QKᵀ is verified before scale and mask (tau over ``tau_dh``, k
+    field s + 1, column reported at col + s·page), Δ = PV before the
+    rescale (tau over eff_kv = min(length − s·page, page), k field eff_kv).
+    ``inj`` = [enable, g, 0, kv_step, row, col] adds ``inj_mag`` to Δ of
+    row g at that step, element (row, col), if the step runs. Returns
+    (out (G, bq, dh) in q's dtype, report (G, 1, 8)); a row of length 0
+    runs no step and writes zeros and a zero report."""
+    g, bq, dh = q.shape
+    kvh, page = k_pages.shape[1], k_pages.shape[2]
+    dev = q.device
+    qf = q.float()
+    lens = lengths.to(dev).long().repeat_interleave(kvh)           # (G,)
+    table = page_table.to(dev).long().repeat_interleave(kvh, dim=0)
+    heads = torch.arange(kvh, device=dev).repeat(page_table.shape[0])
+    rows = torch.arange(g, device=dev)
+    acc = torch.zeros(g, bq, dh, device=dev)
+    m = torch.full((g, bq), NEG_INF, device=dev)
+    l = torch.zeros(g, bq, device=dev)
+    rep = torch.zeros(g, REPORT_WIDTH, device=dev)
+    qsum, qmax = qf.sum(1), qf.abs().amax((1, 2))
+    coef_qk = ft.rel_tau * F32EPS * tau_dh
+    coef = ft.rel_tau * F32EPS
+    for s in range(table.shape[1]):
+        kv_start = s * page
+        run = kv_start < lens
+        if not bool(run.any()):
+            break
+        kt = k_pages[table[:, s], heads].float()                   # (G, page, dh)
+        vt = v_pages[table[:, s], heads].float()
+        scores = torch.matmul(qf, kt.transpose(1, 2))              # (G, bq, page)
+        d_col = scores.sum(1) - _vm(qsum, kt.transpose(1, 2))
+        d_row = scores.sum(2) - _mv(qf, kt.sum(1))
+        tau_qk = torch.clamp_min(coef_qk * qmax * kt.abs().amax((1, 2)),
+                                 1e-30)
+        _, row, col, mag = locate_record(
+            d_col, d_row, tau_qk, torch.tensor(s + 1.0, device=dev),
+            ft.corrects, rep, 0, kv_start, live=run)
+        if ft.corrects:
+            scores.index_put_((rows, row, col), -mag, accumulate=True)
+        scores = scores * scale
+        kpos = kv_start + torch.arange(page, device=dev)
+        scores = torch.where(kpos[None, None, :] < lens[:, None, None],
+                             scores, torch.full_like(scores, NEG_INF))
+        m_new = torch.maximum(m, scores.amax(-1))
+        good = m_new > 0.5 * NEG_INF
+        p = torch.exp(torch.clamp_max(scores - m_new[..., None], 0.0))
+        p = torch.where(good[..., None], p, torch.zeros_like(p))
+        alpha = torch.exp(torch.clamp_max(m - m_new, 0.0))
+        delta = torch.matmul(p, vt)                                # (G, bq, dh)
+        if inj is not None and inj[0] == 1 and inj[2] == 0 and s == inj[3]:
+            ig, ir, ic = inj[1], inj[4], inj[5]
+            if 0 <= ig < g and 0 <= ir < bq and 0 <= ic < dh:
+                delta[ig, ir, ic] += inj_mag
+        d_col = delta.sum(1) - _vm(p.sum(1), vt)
+        d_row = delta.sum(2) - _mv(p, vt.sum(2))
+        eff_kv = torch.clamp_max(lens - kv_start, page).float()
+        tau = torch.clamp_min(coef * eff_kv * vt.abs().amax((1, 2)), 1e-30)
+        _, row, col, mag = locate_record(d_col, d_row, tau, eff_kv,
+                                         ft.corrects, rep, 0, 0, live=run)
+        if ft.corrects:
+            delta.index_put_((rows, row, col), -mag, accumulate=True)
+        upd = run[:, None]
+        acc = torch.where(upd[..., None], acc * alpha[..., None] + delta, acc)
+        l = torch.where(upd, l * alpha + p.sum(-1), l)
+        m = torch.where(upd, m_new, m)
+    good = (m > 0.5 * NEG_INF) & (l > 0.0)
+    linv = torch.where(good, 1.0 / torch.clamp_min(l, 1e-30),
+                       torch.zeros_like(l))
+    return (acc * linv[..., None]).to(q.dtype), rep[:, None, :]
+
+
+def flash_ft_decode(q: torch.Tensor, k_pages: torch.Tensor,
+                    v_pages: torch.Tensor, lengths: torch.Tensor,
+                    page_table: torch.Tensor, *, ft: FTConfig, scale: float,
+                    tau_dh: int, inj: Optional[Sequence[int]] = None,
+                    inj_mag: float = 0.0
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K6: a CPU tensor runs `flash_decode_plain`, a CUDA tensor launches
+    the paged decode kernel or raises. Returns what the plain version
+    returns."""
+    kw = dict(ft=ft, scale=scale, tau_dh=tau_dh, inj=inj, inj_mag=inj_mag)
+    if q.device.type == "cpu":
+        return flash_decode_plain(q, k_pages, v_pages, lengths, page_table,
+                                  **kw)
+    _check_decode_launch(q, k_pages, v_pages, lengths, page_table)
+    g, bq, dh = q.shape
+    n_pages, kvh, page, _ = k_pages.shape
+    b, mp = page_table.shape
+    out = torch.empty_like(q)
+    rep = torch.empty((g, 1, REPORT_WIDTH), dtype=torch.float32,
+                      device=q.device)
+    inj = tuple(inj) if inj is not None else (0,) * 6
+    FLASH_DECODE(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                 lengths.data_ptr(), page_table.data_ptr(), out.data_ptr(),
+                 rep.data_ptr(), b, kvh, bq, dh, page, mp, n_pages,
+                 DTYPE_CODES[q.dtype], int(ft.corrects), scale,
+                 ft.rel_tau * F32EPS * tau_dh, ft.rel_tau * F32EPS, *inj,
+                 inj_mag, torch.cuda.current_stream(q.device).cuda_stream)
+    return out, rep
+
+
+def _check_decode_launch(q, k_pages, v_pages, lengths, page_table) -> None:
+    """What K6 takes: cuda:0; contiguous q (B·KVH, bq ≤ 32, dh) and pools
+    (P, KVH, page, dh) of one dtype, f32 or bf16, dh 128 or 256, a
+    compiled page edge; contiguous int32 lengths (B,) and page table
+    (B, MP). A page id outside the pool stops the kernel (a device trap)."""
+    name = "flash_ft_decode"
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {q.device}")
+    build.check_device(q)
+    g, bq, dh = q.shape
+    n_pages, kvh, page, dh_k = k_pages.shape
+    if q.dtype not in DTYPE_CODES:
+        raise TypeError(f"{name}: the kernel takes float32 or bfloat16, got "
+                        f"{q.dtype}")
+    if dh not in DECODE_HEAD_DIMS or dh_k != dh or \
+            tuple(v_pages.shape) != tuple(k_pages.shape):
+        raise ValueError(f"{name}: head dim must be one of "
+                         f"{DECODE_HEAD_DIMS} and match: q {tuple(q.shape)}, "
+                         f"pools {tuple(k_pages.shape)}, "
+                         f"{tuple(v_pages.shape)}")
+    if page not in DECODE_PAGES:
+        raise ValueError(f"{name}: the kernel is compiled for pages of "
+                         f"{DECODE_PAGES} tokens, got {page}")
+    if not 1 <= bq <= DECODE_MAX_BQ:
+        raise ValueError(f"{name}: {bq} query rows per kv head, the kernel "
+                         f"takes 1 to {DECODE_MAX_BQ}")
+    if page_table.dim() != 2 or g != page_table.shape[0] * kvh or \
+            tuple(lengths.shape) != (page_table.shape[0],):
+        raise ValueError(f"{name}: q {tuple(q.shape)}, page table "
+                         f"{tuple(page_table.shape)} and lengths "
+                         f"{tuple(lengths.shape)} disagree with {kvh} kv "
+                         f"heads")
+    for x in (k_pages, v_pages):
+        if x.device != q.device or x.dtype != q.dtype:
+            raise ValueError(f"{name}: q and the pools must share device and "
+                             f"dtype")
+    for x in (lengths, page_table):
+        if x.device != q.device or x.dtype != torch.int32:
+            raise ValueError(f"{name}: lengths and the page table must be "
+                             f"int32 tensors on {q.device}")
+    for x in (q, k_pages, v_pages, lengths, page_table):
+        if not x.is_contiguous():
+            raise ValueError(f"{name}: operands must be contiguous")

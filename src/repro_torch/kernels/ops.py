@@ -8,7 +8,8 @@ kernel reads A and B through their strides, so a transposed `lm_head` view
 or a permuted KV cache is not copied. `matmul`, `fused_matmul`, `ft_matmul`
 and `ft_matmul_report` specialise it; `grouped_gemm_call` is the uniform
 batched front; `flash_ft` and `flash_ft_bwd` are the flash-attention
-fronts, forward (with the saved softmax statistics) and backward.
+fronts, forward (with the saved softmax statistics) and backward;
+`flash_ft_decode` is the paged decode front of the serving engine.
 
 Tiles: the reference autotunes its TPU tiles; here each kernel has its own
 compiled tile configurations (`ft_gemm.TILES`, `flashft.BLOCK`), chosen
@@ -303,3 +304,60 @@ def flash_ft_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dk, dv, rep_dkv = kflash.flash_ft_dkv(q, k, v, g, m, l, di, inj=inj_dkv,
                                           **kw)
     return dq, dk, dv, rep_dq, rep_dkv
+
+
+def flash_ft_decode(q: torch.Tensor, k_pages: torch.Tensor,
+                    v_pages: torch.Tensor, lengths: torch.Tensor,
+                    page_table: torch.Tensor, *,
+                    ft: FTConfig = ONLINE_BLOCK,
+                    spec: Optional[InjectionSpec] = None, inj_g: int = 0,
+                    key=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Paged single-position flash decode with per-slot ragged lengths, the
+    serving engine's attention (kernel K6).
+
+    q (B, H, dh): one query position per serving slot; k_pages, v_pages
+    (n_pages, KVH, page, dh): ONE layer of the shared page pool
+    (`train.kv_cache`); lengths int (B,): each slot's true kv length (0 = a
+    dead slot, which returns exact zeros); page_table int (B, max_pages):
+    the slot's pool pages, NULL-padded. dh must be a multiple of 128. The
+    n_rep = H // KVH query rows of each kv head are zero-padded to the
+    dtype's sublane multiple (8 rows in f32, 16 in bf16), as in the
+    reference, and sliced off again. ``spec`` / ``inj_g`` land a
+    deterministic SEU in Δ = PV of grid row ``inj_g`` (= slot·KVH + head) at
+    kv step ``spec.k_step``; it lands only if that step runs. Returns
+    (out (B, H, dh), report (B·KVH, 1, 8))."""
+    check_campaign(ft, key)
+    b, h, dh = q.shape
+    n_pages, kvh, page, dh_k = k_pages.shape
+    if tuple(v_pages.shape) != tuple(k_pages.shape) or dh_k != dh or \
+            h % kvh != 0:
+        raise ValueError(f"flash_ft_decode: q {tuple(q.shape)} and pools "
+                         f"{tuple(k_pages.shape)}, {tuple(v_pages.shape)} "
+                         f"disagree")
+    if dh % 128 != 0:
+        raise ValueError(f"flash_ft_decode needs a head dim that is a "
+                         f"multiple of 128, got {dh}; the dense "
+                         f"decode_attention path takes the others")
+    if page_table.dim() != 2 or page_table.shape[0] != b or \
+            tuple(lengths.shape) != (b,):
+        raise ValueError(f"flash_ft_decode: page table "
+                         f"{tuple(page_table.shape)} and lengths "
+                         f"{tuple(lengths.shape)} for {b} slots")
+    max_pages = page_table.shape[1]
+    if spec is not None and not (0 <= inj_g < b * kvh
+                                 and 0 <= spec.k_step < max_pages):
+        raise ValueError(
+            f"flash_ft_decode: deterministic injection targets grid row "
+            f"{inj_g} of {b * kvh}, kv step {spec.k_step} of {max_pages} — "
+            f"outside the decode grid, the SEU would silently never land")
+    inj, mag = encode_flash_injection(spec, inj_g, 0)
+    n_rep = h // kvh
+    sub = kflash.sublane(q.dtype)
+    bq = -(-n_rep // sub) * sub
+    qg = torch.nn.functional.pad(q.reshape(b * kvh, n_rep, dh),
+                                 (0, 0, 0, bq - n_rep))
+    out, rep = kflash.flash_ft_decode(
+        qg, k_pages, v_pages, lengths.to(torch.int32).contiguous(),
+        page_table.to(torch.int32).contiguous(), ft=ft, scale=dh ** -0.5,
+        tau_dh=dh, inj=inj, inj_mag=mag)
+    return out[:, :n_rep].reshape(b, h, dh), rep

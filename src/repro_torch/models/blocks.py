@@ -12,7 +12,10 @@ Conventions:
     ``Ctx.attn_impl="chunked"``) the query-chunked core with protected
     batched GEMMs runs;
   * decode attention: two protected batched GEMMs (QKᵀ and PV) over the
-    grouped (B, KVH, rep, dh) layout;
+    grouped (B, KVH, rep, dh) layout; against the serving engine's paged
+    cache, the paged decode kernel K6 on the pallas FT backend (one launch
+    per layer, site "dec_flash"), else the gathered pages through the
+    dense path;
   * training: every front is differentiable. The flash core is a
     `torch.autograd.Function` whose forward is the flash kernel with the
     saved softmax statistics and whose backward is the dQ and dK/dV
@@ -302,22 +305,60 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      v_cache: torch.Tensor, length: torch.Tensor,
-                     ctx: Ctx) -> torch.Tensor:
+                     ctx: Ctx, *, site_prefix: str = "dec") -> torch.Tensor:
     """Single-position attention against a (B, Smax, KVH, dh) cache;
     positions ≥ length are masked. q: (B, 1, H, dh). GQA is grouped: the
-    cache is never repeated."""
+    cache is never repeated. ``site_prefix`` labels the two cache GEMMs in
+    telemetry (``{prefix}_qk`` / ``{prefix}_pv``): "dec" for the dense
+    cache, "dec_page" for the gathered paged cache."""
     b, _, h, dh = q.shape
     s, kvh = k_cache.shape[1], k_cache.shape[2]
     n_rep = h // kvh
     qg = q.reshape(b, kvh, n_rep, dh)                    # (B, KVH, rep, dh)
     kT = k_cache.permute(0, 2, 3, 1)                     # (B, KVH, dh, S)
-    scores = ctx.bdot("dec_qk", qg, kT).float() * dh ** -0.5
+    scores = ctx.bdot(f"{site_prefix}_qk", qg, kT).float() * dh ** -0.5
     mask = torch.arange(s, device=q.device)[None, :] < length[:, None]
     scores = torch.where(mask[:, None, None, :], scores,
                          torch.full_like(scores, NEG_INF))
     p = torch.softmax(scores, dim=-1).to(q.dtype)
-    out = ctx.bdot("dec_pv", p, v_cache.transpose(1, 2))
+    out = ctx.bdot(f"{site_prefix}_pv", p, v_cache.transpose(1, 2))
     return out.reshape(b, 1, h, dh)
+
+
+def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
+                           v_pages: torch.Tensor, lengths: torch.Tensor,
+                           page_table: torch.Tensor, ctx: Ctx
+                           ) -> torch.Tensor:
+    """Single-position attention against one layer of the paged KV cache
+    (`train.kv_cache`). q (B, 1, H, dh); k_pages, v_pages (P, KVH, page,
+    dh) page pools; lengths int32 (B,) true kv lengths; page_table int32
+    (B, max_pages) pool pages per slot (NULL-padded).
+
+    The paged decode kernel K6 runs when ``ctx.attn_impl`` is not
+    "chunked", dh is a multiple of 128, and either ``attn_impl`` is "flash"
+    or FT is on the pallas backend: one launch that reads each slot's pages
+    through the table, both in-kernel GEMMs verified, recorded as the one
+    telemetry site "dec_flash". Otherwise the pages are gathered to the
+    dense (B, S, KVH, dh) layout and `decode_attention` runs, recording
+    "dec_page_qk" / "dec_page_pv"."""
+    from ..kernels import ops as kops
+    from ..train import kv_cache
+    dh = q.shape[-1]
+    ft = ctx.ft_for("dec_flash")
+    ft = ft if ft.protect_attention else FT_OFF
+    use_kernel = (ctx.attn_impl != "chunked" and dh % 128 == 0
+                  and (ctx.attn_impl == "flash"
+                       or (ft.enabled and ft.backend == "pallas")))
+    if use_kernel:
+        out, rep = kops.flash_ft_decode(q[:, 0], k_pages, v_pages, lengths,
+                                        page_table, ft=ft,
+                                        key=ctx.subkey("dec_flash"))
+        det, maxres = _flash_summary(rep)
+        telemetry.record_summary(det, maxres, ft.corrects, site="dec_flash")
+        return out[:, None]
+    kd = kv_cache.gather_layer(k_pages, page_table)
+    vd = kv_cache.gather_layer(v_pages, page_table)
+    return decode_attention(q, kd, vd, lengths, ctx, site_prefix="dec_page")
 
 
 def attention(p, x: torch.Tensor, cfg, ctx: Ctx, *, causal: bool = True,

@@ -10,8 +10,9 @@ reference's `init`, so converting reference weights is a rename
 
 Serving differs from the reference in one deliberate way: the KV cache is
 updated in place (`prefill` writes the prompt's keys and values into the
-cache buffers, `decode_step` writes one position per row), where the JAX
-reference rebuilds the cache arrays functionally every step.
+cache buffers, `decode_step` writes one position per row, and
+`paged_decode_step` one position per slot into the page pools), where the
+JAX reference rebuilds the cache arrays functionally every step.
 
 Training: `forward(..., remat=...)` walks the layers in a Python loop (the
 reference's `_scan_layers`), each layer under `blocks.make_remat`, over
@@ -224,6 +225,41 @@ def decode_step(params: Params, token: torch.Tensor, cache: Dict[str, Any],
     x = blocks.rmsnorm(x, params.final_norm, cfg.norm_eps)
     logits = blocks.lm_head(x, _head_table(params, cfg), ctx)
     cache["length"] = cache["length"] + 1
+    return logits, cache
+
+
+def paged_decode_step(params: Params, token: torch.Tensor,
+                      cache: Dict[str, Any], cfg: ModelConfig, ctx: Ctx
+                      ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+    """One decode step against the paged KV cache of the serving engine
+    (`train.kv_cache`). token (B, 1) over the engine's slots; cache
+    {"k_pages", "v_pages": (L, P, KVH, page, dh) pools, "page_table" int32
+    (B, max_pages), "length" int32 (B,)}. Per layer the new key and value
+    land at position ``length`` through the page table
+    (`kv_cache.append_layer`, in place) and attention runs over
+    ``length + 1`` positions (`blocks.paged_decode_attention`). Dead slots
+    (all-NULL rows) scatter into the null page and give ignored logits.
+    Returns (logits (B, 1, V), cache) with ``length`` advanced."""
+    from ..train import kv_cache
+    _check_dense(cfg)
+    x = blocks.embed(token, params.embed.table).to(ctx.dtype)
+    pos = cache["length"]                                # (B,) int32
+    table = cache["page_table"]
+    for i, lp in enumerate(params.layers.unbind_layers()):
+        hn = blocks.rmsnorm(x, lp["attn_norm"], cfg.norm_eps)
+        q, k_new, v_new = _project_qkv(lp["attn"], hn, cfg, ctx,
+                                       pos.long()[:, None])
+        k_p, v_p = cache["k_pages"][i], cache["v_pages"][i]
+        kv_cache.append_layer(k_p, k_new[:, 0], table, pos)
+        kv_cache.append_layer(v_p, v_new[:, 0], table, pos)
+        att = blocks.paged_decode_attention(q, k_p, v_p, pos + 1, table, ctx)
+        x = x + ctx.dot("wo", att.reshape(x.shape[0], 1, -1),
+                        lp["attn"]["wo"])
+        hn = blocks.rmsnorm(x, lp["ffn_norm"], cfg.norm_eps)
+        x = x + blocks.mlp(lp["mlp"], hn, ctx)
+    x = blocks.rmsnorm(x, params.final_norm, cfg.norm_eps)
+    logits = blocks.lm_head(x, _head_table(params, cfg), ctx)
+    cache["length"] = pos + 1
     return logits, cache
 
 

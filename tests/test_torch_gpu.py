@@ -301,3 +301,127 @@ def test_bf16_flash_backward_matches_plain(cuda):
         assert got.dtype == torch.bfloat16
         tol = 2.0 ** -7 * float(want.float().abs().max())
         assert float((got.float() - want.float()).abs().max()) <= tol
+
+
+# ---------------------------------------------------------------------------
+# serving: the paged decode kernel K6
+# ---------------------------------------------------------------------------
+
+def _decode_inputs(dh, page, kvh, n_rep, lengths, dtype, seed):
+    """Pools full of stale values, every slot's pages drawn out of order
+    from a shuffled pool, q padded to the dtype's sublane multiple as
+    `ops.flash_ft_decode` pads it."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    b = len(lengths)
+    mp = max(-(-max(lengths) // page), 1) + 1
+    n_pages = 1 + b * mp
+    k, v = (torch.randn(n_pages, kvh, page, dh, generator=gen, device="cuda"
+                        ).to(dtype) for _ in range(2))
+    perm = torch.randperm(n_pages - 1, generator=gen, device="cuda") + 1
+    table = perm[:b * mp].view(b, mp).to(torch.int32)
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    sub = flashft.sublane(dtype)
+    bq = -(-n_rep // sub) * sub
+    q = torch.zeros(b * kvh, bq, dh, device="cuda", dtype=dtype)
+    q[:, :n_rep] = torch.randn(b * kvh, n_rep, dh, generator=gen,
+                               device="cuda").to(dtype)
+    return q, k, v, lens, table
+
+
+DECODE_GEOMS = [(128, 16, 2, 2), (128, 64, 4, 7), (256, 32, 1, 4),
+                (128, 32, 4, 1)]
+
+
+@pytest.mark.parametrize("geom", DECODE_GEOMS)
+def test_decode_matches_plain_f32(cuda, geom):
+    dh, page, kvh, n_rep = geom
+    lengths = [0, 1, page - 1, page, page + 1, 3 * page + 5]
+    q, k, v, lens, table = _decode_inputs(dh, page, kvh, n_rep, lengths,
+                                          torch.float32, 31)
+    kw = dict(ft=FT, scale=dh ** -0.5, tau_dh=dh)
+    g_last = 5 * kvh + kvh - 1                   # slot 5, last kv head
+    for inj in (None, (1, g_last, 0, 3, n_rep - 1, dh - 1),
+                (1, kvh, 0, 0, 0, 0)):
+        before = flashft.FLASH_DECODE.launches
+        out, rep = flashft.flash_ft_decode(q, k, v, lens, table, inj=inj,
+                                           inj_mag=40.0, **kw)
+        assert flashft.FLASH_DECODE.launches == before + 1
+        out_p, rep_p = flashft.flash_decode_plain(q, k, v, lens, table,
+                                                  inj=inj, inj_mag=40.0, **kw)
+        torch.testing.assert_close(out, out_p, rtol=1e-5, atol=1e-5)
+        _check_flash_reports(rep, rep_p)
+        assert float(rep[..., 0].sum()) == (inj is not None)
+        assert not out[:kvh].any() and not rep[:kvh].any()   # dead slot 0
+
+
+def test_decode_bf16_matches_plain(cuda):
+    lengths = [0, 1, 63, 64, 65, 300, 777, 1024]
+    q, k, v, lens, table = _decode_inputs(128, 64, 4, 7, lengths,
+                                          torch.bfloat16, 32)
+    kw = dict(ft=FT, scale=128 ** -0.5, tau_dh=128)
+    out, rep = flashft.flash_ft_decode(q, k, v, lens, table, **kw)
+    out_p, rep_p = flashft.flash_decode_plain(q, k, v, lens, table, **kw)
+    assert out.dtype == torch.bfloat16
+    tol = 2.0 ** -7 * float(out_p.float().abs().max())
+    assert float((out.float() - out_p.float()).abs().max()) <= tol
+    _check_flash_reports(rep, rep_p)
+    assert float(rep[..., 0].sum()) == 0.0
+
+
+def test_decode_seu_corrected_and_left_by_detect_only(cuda):
+    """Integer-valued V and one-hot 64·e_t q and k (the reference's exact
+    operands): an SEU in Δ at the slot's last live page is corrected bit
+    for bit and located; a detect-only policy leaves it in the output."""
+    dh, page, kvh = 256, 16, 2
+    lengths = [272, 320]
+    b, mp = len(lengths), 512 // page
+    n_pages = 1 + b * mp
+    gen = torch.Generator(device="cuda").manual_seed(33)
+    k = torch.zeros(n_pages, kvh, page, dh, device="cuda")
+    v = torch.randint(-2, 3, (n_pages, kvh, page, dh), generator=gen,
+                      device="cuda").float()
+    table = (torch.arange(b * mp, device="cuda").view(b, mp) + 1).int()
+    for s, length in enumerate(lengths):
+        for t in range(length):
+            k[table[s, t // page], :, t % page, t % dh] = 64.0
+    tq = torch.randint(0, dh, (b * kvh, 4), generator=gen, device="cuda")
+    q = torch.zeros(b * kvh, 8, dh, device="cuda")
+    q[:, :4] = 64.0 * torch.nn.functional.one_hot(tq, dh).float()
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    kw = dict(scale=dh ** -0.5, tau_dh=dh)
+    clean, rep0 = flashft.flash_ft_decode(q, k, v, lens, table, ft=FT, **kw)
+    assert float(rep0[..., 0].sum()) == 0.0
+    inj = (1, kvh, 0, 320 // page - 1, 1, 7)   # slot 1, head 0, last page
+    out, rep = flashft.flash_ft_decode(q, k, v, lens, table, ft=FT, inj=inj,
+                                       inj_mag=777.0, **kw)
+    assert torch.equal(out, clean)
+    cell = rep[kvh, 0]
+    assert (float(rep[..., 0].sum()), int(cell[2]), int(cell[3])) == (1.0, 1,
+                                                                      7)
+    assert abs(float(cell[4]) - 777.0) < 1.0
+    left, rep_d = flashft.flash_ft_decode(
+        q, k, v, lens, table, ft=FT.replace(action="detect"), inj=inj,
+        inj_mag=777.0, **kw)
+    assert float(rep_d[..., 0].sum()) == 1.0 and float(rep_d[..., 1].sum()) == 0
+    assert float((left - clean).abs().max()) > 1.0
+
+
+def test_decode_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
+    q, k, v, lens, table = _decode_inputs(128, 16, 2, 2, [5, 20],
+                                          torch.float32, 34)
+    kw = dict(ft=FT, scale=1.0, tau_dh=128)
+    with pytest.raises(ValueError, match="pages"):
+        flashft.flash_ft_decode(q, k[..., :8, :].contiguous(),
+                                v[..., :8, :].contiguous(), lens, table, **kw)
+    with pytest.raises(ValueError, match="head dim"):
+        flashft.flash_ft_decode(q[..., :64].contiguous(),
+                                k[..., :64].contiguous(),
+                                v[..., :64].contiguous(), lens, table, **kw)
+    with pytest.raises(ValueError, match="int32"):
+        flashft.flash_ft_decode(q, k, v, lens.long(), table, **kw)
+    with pytest.raises(ValueError, match="query rows"):
+        flashft.flash_ft_decode(torch.zeros(4, 40, 128, device="cuda"), k, v,
+                                lens, table, **kw)
+    with pytest.raises(TypeError):
+        flashft.flash_ft_decode(q.half(), k.half(), v.half(), lens, table,
+                                **kw)

@@ -12,6 +12,8 @@ torch = pytest.importorskip("torch")
 
 from repro.configs import base as rbase  # noqa: E402
 from repro.core import policy as rpolicy  # noqa: E402
+from repro.train import engine as rengine  # noqa: E402
+from repro.train import kv_cache as rkv  # noqa: E402
 from repro.train import serve as rserve  # noqa: E402
 
 from repro_torch.configs import base as tbase  # noqa: E402
@@ -21,6 +23,9 @@ from repro_torch.core import policy as tpolicy  # noqa: E402
 from repro_torch.kernels import ft_gemm as tkgemm, ops as tops  # noqa: E402
 from repro_torch.models import blocks as tblocks  # noqa: E402
 from repro_torch.models import transformer as ttr  # noqa: E402
+from repro_torch.kernels import flashft as tkflash  # noqa: E402
+from repro_torch.train import engine as tengine  # noqa: E402
+from repro_torch.train import kv_cache as tkv  # noqa: E402
 from repro_torch.train import serve as tserve  # noqa: E402
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -30,7 +35,9 @@ PAIRS = [(rpolicy.FTConfig, tpolicy.FTConfig),
          (rbase.MoEConfig, tbase.MoEConfig),
          (rbase.SSMConfig, tbase.SSMConfig),
          (rbase.RunConfig, tbase.RunConfig),
-         (rserve.ServeConfig, tserve.ServeConfig)]
+         (rserve.ServeConfig, tserve.ServeConfig),
+         (rengine.EngineConfig, tengine.EngineConfig),
+         (rkv.PagePlan, tkv.PagePlan)]
 
 
 def _fields(cls):
@@ -96,7 +103,7 @@ def test_port_sources_import_neither_jax_nor_reference():
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 10
     for new in ("optim/adamw.py", "train/train_loop.py", "launch/train.py",
-                "data/pipeline.py"):
+                "data/pipeline.py", "train/kv_cache.py", "train/engine.py"):
         assert ROOT / "src" / "repro_torch" / new in files
     offenders = [str(f.relative_to(ROOT)) for f in files
                  if pat.search(f.read_text())]
@@ -123,6 +130,8 @@ def test_entry_points_without_device_need_a_gpu():
     with pytest.raises(RuntimeError, match="CUDA"):
         train_loop.train(cfg, run, ShapeConfig("t", 8, 2, "train"),
                          train_loop.TrainConfig(total_steps=1))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tengine.ServeEngine(params, cfg, run, tengine.EngineConfig(max_len=8))
 
 
 def test_kernel_wrappers_take_no_other_device():
@@ -131,6 +140,14 @@ def test_kernel_wrappers_take_no_other_device():
     a, b = torch.ones(4, 8, device="meta"), torch.ones(8, 4, device="meta")
     with pytest.raises(ValueError, match="device"):
         tkgemm.ft_gemm(a, b, ft=tpolicy.ONLINE_BLOCK)
+    q, pool = torch.ones(2, 8, 128, device="meta"), \
+        torch.ones(3, 2, 16, 128, device="meta")
+    lengths = torch.ones(1, dtype=torch.int32, device="meta")
+    table = torch.ones(1, 2, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="device"):
+        tkflash.flash_ft_decode(q, pool, pool, lengths, table,
+                                ft=tpolicy.ONLINE_BLOCK, scale=1.0,
+                                tau_dh=128)
 
 
 def test_stochastic_campaign_on_kernel_backend_raises():
