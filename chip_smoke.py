@@ -4,6 +4,7 @@
     python3 chip_smoke.py --phases env,kernels
     python3 chip_smoke.py --phases env,train_kernels,train_check,train
     python3 chip_smoke.py --phases env,decode_kernels,engine_check,engine
+    python3 chip_smoke.py --phases env,moe_kernels,moe_check,moe_engine,moe_train
 
 Phases (each prints its own lines; any failed check exits non-zero):
 
@@ -68,7 +69,39 @@ Phases (each prints its own lines; any failed check exits non-zero):
                2 x 512 tokens, 4 steps (step 0 has lr 0): step times,
                tokens/s, peak memory, losses, FT counters, launches per
                step; then one more step through `make_train_step` under
-               the dispatch guard, whose launch counts are checked.
+               the dispatch guard, whose launch counts are checked;
+  moe_kernels  the grouped kernels K7 and K8 against their plain versions
+               on the card at qwen3-moe-235b-a22b's shapes in bf16 (128
+               experts, d 4 096, expert d_ff 1 536): K7 at the engine's
+               decode (8 slots x top-8 = 64 rows, 4 096->1 536 and
+               1 536->4 096), a 512-token prefill (4 096 rows) and the
+               training dbuf product (8 192 rows against the transposed
+               w); K8 at the training dw (8 192 rows); max error, reports
+               equal, no detection on clean data, an SEU corrected and
+               located and the same SEU left by a detect-only policy, empty
+               groups and a ragged last group; CUDA-event times beside the
+               bound, the plain version and one library call
+               (torch._grouped_mm, or a loop of torch.matmul over the live
+               experts where the card's torch lacks that form);
+  moe_check    qwen3-moe-235b-a22b at full width, depth cut to 2 layers: a
+               forward through the kernels and through their plain versions
+               (logits within 2e-2 of max|logit|, the routing mostly the
+               same, no detection); `ServeEngine` serving 6 requests on 3
+               slots against one single-slot engine per request; `loss_fn`
+               and its backward kernel vs plain, and a `bwd_inject` SEU in
+               moe_gate's dw (K8) corrected to the clean grads (and left by a
+               detect-only policy);
+  moe_engine   `ServeEngine` on qwen3-moe-235b-a22b at full width, 12 of its
+               94 layers (62 GB of weights): 16 requests as in `engine` on
+               8 slots, max_len 1 024; launch counts (K7 3 per layer per
+               prefill and per decode step, K6 1 per layer per decode
+               step), decode ms per step, prefill ms, TTFT, tokens/s, peak
+               memory, pages back, detections;
+  moe_train    `train_loop.train` on qwen3-moe-235b-a22b at full width, 1
+               layer (with f32 AdamW, 2 layers would not fit the card),
+               2 x 512 tokens, `remat="full"`, 4 steps: step times,
+               tokens/s, peak memory, loss and aux per step, launches of
+               K1-K8 per step (checked), detections; then one guarded step.
 
 The last two lines are {"kernels": [...]} and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -96,15 +129,18 @@ import torch.utils._python_dispatch
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
-from repro_torch.configs import phi4_mini_38b, qwen2_7b         # noqa: E402
+from repro_torch.configs import (phi4_mini_38b, qwen2_7b,       # noqa: E402
+                                 qwen3_moe_235b)
 from repro_torch.configs.base import RunConfig, ShapeConfig     # noqa: E402
 from repro_torch.core import telemetry                          # noqa: E402
 from repro_torch.core.policy import (InjectionSpec,             # noqa: E402
                                      OFFLINE_DETECT, ONLINE_BLOCK)
 from repro_torch.data import pipeline as data_lib               # noqa: E402
 from repro_torch.kernels import build, flashft, ft_gemm         # noqa: E402
-from repro_torch.kernels import ops                             # noqa: E402
-from repro_torch.models import transformer                      # noqa: E402
+from repro_torch.kernels import grouped_gemm, ops               # noqa: E402
+from repro_torch.kernels import grouped as kgrouped             # noqa: E402
+from repro_torch.kernels.templates import BatchedKernelSpec     # noqa: E402
+from repro_torch.models import moe, transformer                 # noqa: E402
 from repro_torch.models.blocks import Ctx                       # noqa: E402
 from repro_torch.optim import adamw                             # noqa: E402
 from repro_torch.train import engine, kv_cache, serve, train_loop  # noqa: E402
@@ -148,7 +184,19 @@ KERNELS = {
                                 "flash_decode.cu",
                          replaces="src/repro/kernels/flashft.py:270",
                          counter=flashft.FLASH_DECODE),
+    # K7: batched_kernel_call with grouped=True (the grouped body of
+    # emit.py:233 render).
+    "ft_gemm_grouped": dict(route="cuda",
+                            source="src/repro_torch/kernels/csrc/ft_gemm.cu",
+                            replaces="src/repro/kernels/templates/"
+                                     "registry.py:520",
+                            counter=grouped_gemm.FT_GEMM_GROUPED),
+    "tgmm": dict(route="cuda", source="src/repro_torch/kernels/csrc/tgmm.cu",
+                 replaces="src/repro/kernels/templates/registry.py:411",
+                 counter=grouped_gemm.TGMM),
 }
+#: zero launches of the MoE kernels, for the dense paths' expected counts
+NO_MOE = {"ft_gemm_grouped": 0, "tgmm": 0}
 #: paged serving: qwen2-7b, 16 requests on 8 slots, max_len 1 024
 ENGINE_SLOTS, ENGINE_REQUESTS, ENGINE_MAX_LEN = 8, 16, 1024
 DECODE_LENGTHS = (0, 1, 63, 64, 65, 300, 777, 1024)
@@ -419,7 +467,18 @@ def plain_kernels():
                          bkv=bkv or flashft.BLOCK, **kw)
         return run
 
+    def grouped(buf, w, gid, row_end, *, tiles=None, **kw):
+        bm = buf.shape[0] // gid.shape[0]
+        return grouped_gemm.ft_gemm_grouped_plain(
+            buf, w, gid, row_end, tiles=tiles or (bm, 128, 32), **kw)
+
+    def tgmm(x, g, row_end, *, bm, tiles=None, **kw):
+        return grouped_gemm.tgmm_plain(x, g, row_end,
+                                       tiles=tiles or (bm, 64, 64), **kw)
+
+    saved_grouped = grouped_gemm.ft_gemm_grouped, grouped_gemm.tgmm
     ft_gemm.ft_gemm = gemm
+    grouped_gemm.ft_gemm_grouped, grouped_gemm.tgmm = grouped, tgmm
     for n, plain in zip(names, (flashft.flash_ft_plain, flashft.flash_dq_plain,
                                 flashft.flash_dkv_plain)):
         setattr(flashft, n, blocks_of(plain))
@@ -427,6 +486,7 @@ def plain_kernels():
         yield
     finally:
         ft_gemm.ft_gemm = saved[0]
+        grouped_gemm.ft_gemm_grouped, grouped_gemm.tgmm = saved_grouped
         for n, fn in zip(names, saved[1]):
             setattr(flashft, n, fn)
 
@@ -482,24 +542,44 @@ def phase_serve_check():
 
 
 class LibraryCallGuard(torch.utils._python_dispatch.TorchDispatchMode):
-    """Records every dispatched library matmul / attention op."""
+    """Records every dispatched library matmul / attention op. ``allow``
+    (name, args) → bool admits the ones a path runs outside any kernel by
+    design (the MoE router's f32 product), counted in ``allowed``."""
     BANNED = ("mm", "bmm", "addmm", "baddbmm", "matmul", "dot", "mv",
               "linear", "scaled_dot_product_attention",
               "_scaled_dot_product_flash_attention",
               "_scaled_dot_product_efficient_attention",
               "_scaled_dot_product_cudnn_attention")
 
-    def __init__(self):
+    def __init__(self, allow=None):
         super().__init__()
         self.hits = []
         self.seen = set()
+        self.allow = allow
+        self.allowed = 0
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         name = func.overloadpacket.__name__
         self.seen.add(name)
         if name in self.BANNED:
-            self.hits.append(str(func))
+            if self.allow is not None and self.allow(name, args):
+                self.allowed += 1
+            else:
+                self.hits.append(str(func))
         return func(*args, **(kwargs or {}))
+
+
+def router_product(n_experts: int):
+    """The guard's allowance for the MoE router: an f32 `mm` (or `matmul`,
+    as inference mode dispatches it) with the expert count among its
+    operand dims (its forward and its two backward products), which the
+    reference leaves to a plain einsum too."""
+    def allow(name, args):
+        ts = [a for a in args if isinstance(a, torch.Tensor)]
+        return (name in ("mm", "matmul")
+                and all(t.dtype == torch.float32 for t in ts)
+                and any(n_experts in t.shape for t in ts))
+    return allow
 
 
 def phase_serve(layers: int):
@@ -550,7 +630,7 @@ def phase_serve(layers: int):
     check(launches == {"ft_gemm_2d": per_step * (NEW_TOKENS + 1),
                        "ft_gemm_batched": 2 * cfg.n_layers * NEW_TOKENS,
                        "flash_ft": cfg.n_layers, "flash_dq": 0,
-                       "flash_dkv": 0, "flash_decode": 0},
+                       "flash_dkv": 0, "flash_decode": 0, **NO_MOE},
           f"launch counts: K1 {per_step} per prefill and per decode step, K5 "
           f"{2 * cfg.n_layers} per decode step, K2 {cfg.n_layers} per prefill")
     check(totals["detected"] == 0, "zero detections on the serving path")
@@ -741,6 +821,7 @@ class ProbeEngine(engine.ServeEngine):
         super().__init__(*args, **kw)
         self.gaps = collections.defaultdict(list)
         self.prefill_ms, self.decode_ms = [], []
+        self.live_per_step = []
         self._next_rid, self._admitting = 0, False
         self._t = time.perf_counter()
 
@@ -767,6 +848,8 @@ class ProbeEngine(engine.ServeEngine):
                 if req is not None:
                     self.gaps[req.rid].append((gap[s], top[s]))
             self.decode_ms.append((now - self._t) * 1e3)
+            self.live_per_step.append(sum(r is not None
+                                          for r in self.slot_req))
         self._t = now
         return tok
 
@@ -963,7 +1046,7 @@ def phase_engine(seed: int, smi: str):
     expect = {"ft_gemm_2d": per * (ENGINE_REQUESTS + steps),
               "ft_gemm_batched": 0, "flash_ft": cfg.n_layers * ENGINE_REQUESTS,
               "flash_dq": 0, "flash_dkv": 0,
-              "flash_decode": cfg.n_layers * steps}
+              "flash_decode": cfg.n_layers * steps, **NO_MOE}
     check(launches == expect,
           f"engine: launches K1 {per} per prefill and per decode step, K2 "
           f"{cfg.n_layers} per prefill, K6 {cfg.n_layers} per decode step, "
@@ -1355,7 +1438,7 @@ def phase_train(smi: str):
           "train: zero detections")
     expect = {"ft_gemm_2d": 28 * cfg.n_layers + 3, "ft_gemm_batched": 0,
               "flash_ft": 2 * cfg.n_layers, "flash_dq": cfg.n_layers,
-              "flash_dkv": cfg.n_layers, "flash_decode": 0}
+              "flash_dkv": cfg.n_layers, "flash_decode": 0, **NO_MOE}
     check(all(x == expect for x in launches),
           f"train: launches per step {expect} at every step")
     # One more step through make_train_step under the dispatch guard.
@@ -1392,6 +1475,607 @@ def phase_train(smi: str):
     return guarded
 
 
+# ---------------------------------------------------------------------------
+# moe_kernels / moe_check / moe_engine / moe_train
+# ---------------------------------------------------------------------------
+
+MOE = qwen3_moe_235b.CONFIG
+#: the MoE paths: engine at 12 of 94 layers (62 GB of bf16 weights), the
+#: checks at 2, training at 1 (with f32 AdamW, 2 layers need 75 GB)
+MOE_ENGINE_LAYERS, MOE_CHECK_LAYERS, MOE_TRAIN_LAYERS = 12, 2, 1
+
+
+def _moe_layout(gen, n_rows, bm, ragged_last=3, empty=4):
+    """A layout over MOE's 128 experts from random expert ids, with
+    ``ragged_last`` rows routed to the last expert (a ragged last group) and
+    ``empty`` experts from the 40th on routed nothing (at 64 rows most
+    groups are empty anyway)."""
+    e = MOE.moe.n_experts
+    ids = torch.randint(0, e - 1 - empty, (n_rows,), generator=gen,
+                        device="cuda")
+    ids = torch.where(ids >= 40, ids + empty, ids)
+    ids[:ragged_last] = e - 1
+    return kgrouped.make_layout(ids, e, bm)
+
+
+def _live(lay):
+    """(live rows, live experts) of a layout (host values)."""
+    counts = lay.counts.tolist()
+    return sum(counts), sum(c > 0 for c in counts)
+
+
+def _library_grouped(buf, w, lay):
+    """One library call computing buf @ w[gid] per group: torch._grouped_mm
+    over the aligned group ends where this torch takes that form, else a
+    loop of torch.matmul over the live experts. Returns (fn, label)."""
+    bm = lay.bm
+    ends = ((lay.row_end + bm - 1) // bm * bm).to(torch.int32)
+    if hasattr(torch, "_grouped_mm"):
+        try:
+            torch._grouped_mm(buf, w, offs=ends)
+            torch.cuda.synchronize()
+            return (lambda: torch._grouped_mm(buf, w, offs=ends),
+                    "torch._grouped_mm")
+        except Exception as exc:                 # form not taken: say so
+            print(f"  torch._grouped_mm refused ({type(exc).__name__}: "
+                  f"{str(exc).splitlines()[0][:80]}); timing a matmul loop")
+    spans = [(g, int(b), int(r)) for g, (b, r) in
+             enumerate(zip(lay.base.tolist(), lay.row_end.tolist())) if r > b]
+    return (lambda: [torch.matmul(buf[b:r], w[g]) for g, b, r in spans],
+            "loop of torch.matmul over the live experts")
+
+
+def _library_tgmm(x, g, lay):
+    """One library call computing dw[e] = x_eᵀ g_e: torch._grouped_mm with
+    the group ends along the reduction, else a loop of torch.matmul."""
+    bm = lay.bm
+    ends = ((lay.row_end + bm - 1) // bm * bm).to(torch.int32)
+    xt = x.t()
+    if hasattr(torch, "_grouped_mm"):
+        try:
+            torch._grouped_mm(xt, g, offs=ends)
+            torch.cuda.synchronize()
+            return (lambda: torch._grouped_mm(xt, g, offs=ends),
+                    "torch._grouped_mm")
+        except Exception as exc:
+            print(f"  torch._grouped_mm refused ({type(exc).__name__}: "
+                  f"{str(exc).splitlines()[0][:80]}); timing a matmul loop")
+    spans = [(b, r) for b, r in zip(lay.base.tolist(), lay.row_end.tolist())
+             if r > b]
+    return (lambda: [torch.matmul(xt[:, b:r], g[b:r]) for b, r in spans],
+            "loop of torch.matmul over the live experts")
+
+
+def phase_moe_kernels():
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    d, f = MOE.d_model, MOE.moe.expert_d_ff
+    e, top_k = MOE.moe.n_experts, MOE.moe.top_k
+    dec_rows = ENGINE_SLOTS * top_k
+    pre_rows, train_rows = PROMPT * top_k * 4, TRAIN_BATCH * TRAIN_SEQ * top_k
+    bm = kgrouped.plan_grouped(dec_rows, f, d, torch.bfloat16,
+                               n_groups=e)[0]
+    tiles = (bm, 128, 32)
+    w_gate = _rand(gen, e, d, f, scale=0.02)
+    w_down = _rand(gen, e, f, d, scale=0.02)
+    rows = {}
+
+    # ---- K7 at the engine's and the trainer's shapes ---------------------
+    k7_cases = [  # (label, rows, w)
+        (f"decode gate {dec_rows} rows {d}->{f}", dec_rows, w_gate),
+        (f"decode down {dec_rows} rows {f}->{d}", dec_rows, w_down),
+        (f"prefill gate {pre_rows} rows {d}->{f}", pre_rows, w_gate),
+        (f"train dbuf gate {train_rows} rows {f}->{d} (w^T view)",
+         train_rows, w_gate.transpose(-1, -2)),
+    ]
+    k7_err, k7_rows = 0.0, []
+    for label, n_rows, w in k7_cases:
+        lay = _moe_layout(gen, n_rows, bm)
+        k, n = w.shape[1], w.shape[2]
+        buf = kgrouped.scatter_rows(_rand(gen, n_rows, k), lay)
+        kw = dict(ft=FT)
+        out, rep = grouped_gemm.ft_gemm_grouped(buf, w, lay.gid, lay.row_end,
+                                                **kw)
+        out_p, rep_p = grouped_gemm.ft_gemm_grouped_plain(
+            buf, w, lay.gid, lay.row_end, tiles=tiles, **kw)
+        k7_err = max(k7_err, _cmp_outputs(f"K7 {label}", out, out_p, rep,
+                                          rep_p))
+        live_rows, live_e = _live(lay)
+        iters = 20 if n_rows == dec_rows else 3
+        ms = time_ms(lambda: grouped_gemm.ft_gemm_grouped(
+            buf, w, lay.gid, lay.row_end, **kw), iters)
+        ms_off = time_ms(lambda: grouped_gemm.ft_gemm_grouped(
+            buf, w, lay.gid, lay.row_end), iters)
+        plain_ms = time_ms(lambda: grouped_gemm.ft_gemm_grouped_plain(
+            buf, w, lay.gid, lay.row_end, tiles=tiles, **kw), 1, warmup=0)
+        lib, lib_label = _library_grouped(buf, w, lay)
+        lib_ms = time_ms(lib, iters)
+        nbytes = 2 * (live_rows * k + live_e * k * n + live_rows * n)
+        b_ms, b_by = bound(2.0 * live_rows * n * k, nbytes)
+        k7_rows.append(dict(shape=label, rows=n_rows, t_buf=lay.t_buf,
+                            live_experts=live_e, K=k, N=n, ms=ms,
+                            ft_off_ms=ms_off, plain_ms=plain_ms,
+                            library_ms=lib_ms, library=lib_label,
+                            bound_ms=b_ms, bound_by=b_by))
+        print(f"  K7 {label} ({live_rows} live rows in {lay.t_buf}, "
+              f"{live_e} live experts): kernel {ms:.4f} ms, FT off "
+              f"{ms_off:.4f} ms, plain {plain_ms:.2f} ms, library "
+              f"{lib_ms:.4f} ms ({lib_label}), bound {b_ms:.5f} ms ({b_by})")
+    # An SEU at the decode shape on integer operands: corrected bit for bit
+    # and located; left in place by a detect-only policy.
+    lay = _moe_layout(gen, dec_rows, bm)
+    buf = kgrouped.scatter_rows(_ints(gen, dec_rows, d), lay)
+    wi = _ints(gen, e, d, f)
+    clean, rep0 = grouped_gemm.ft_gemm_grouped(buf, wi, lay.gid, lay.row_end,
+                                               ft=FT)
+    grp = e - 1                                   # the ragged last group
+    row = int(lay.row_end[grp]) - 1
+    col, step, mag = f - 5, d // 32 - 1, 1000.0
+    inj = (1, row, col, step)
+    fixed, rep = grouped_gemm.ft_gemm_grouped(buf, wi, lay.gid, lay.row_end,
+                                              ft=FT, inj=inj, inj_mag=mag)
+    cell = rep[row // bm, col // 128]
+    check(float(rep0[..., 0].sum()) == 0.0 and torch.equal(fixed, clean)
+          and float(rep[..., 0].sum()) == 1.0 and int(cell[2]) == row
+          and int(cell[3]) == col and abs(float(cell[4]) - mag) < 1e-3,
+          f"K7 SEU in the ragged last group (row {row}, col {col}, last "
+          f"k-step) corrected bit for bit and located")
+    left, rep_d = grouped_gemm.ft_gemm_grouped(
+        buf, wi, lay.gid, lay.row_end, ft=DETECT, inj=inj, inj_mag=mag)
+    moved = float(left[row, col].float() - clean[row, col].float())
+    check(float(rep_d[..., 0].sum()) == 1.0 and float(rep_d[..., 1].sum())
+          == 0.0 and abs(moved - mag) <= 16.0,
+          f"K7 the same SEU detect-only: detected, left in place (moved "
+          f"{moved:.1f})")
+    empty = lay.counts == 0
+    check(bool(empty.any()) and not bool(
+        fixed[lay.t_buf - lay.bm:].any()),
+          f"K7: {int(empty.sum())} empty groups, the dead tail of the buffer "
+          f"written as zeros")
+    rows["ft_gemm_grouped"] = dict(max_abs_err=k7_err, detail=k7_rows,
+                                   headline=k7_cases[0][0])
+
+    # ---- K8 at the training dw ---------------------------------------------
+    spec = BatchedKernelSpec(ft_level="block", tgmm=True)
+    lay = _moe_layout(gen, train_rows, bm)
+    x = kgrouped.scatter_rows(_rand(gen, train_rows, d), lay)
+    g = kgrouped.scatter_rows(_rand(gen, train_rows, f, scale=1e-3), lay)
+    dw, rep = kgrouped.tgmm_buffer_call(spec, x, g, lay, ft=FT)
+    dw_p, rep_p = grouped_gemm.tgmm_plain(x, g, lay.row_end,
+                                          tiles=(bm, 64, 64), ft=FT)
+    label = f"train dw gate {train_rows} rows -> ({e}, {d}, {f}) f32"
+    k8_err = _cmp_outputs(f"K8 {label}", dw, dw_p)
+    live = lay.counts > 0
+    tau_rel = ((rep[..., 6] - rep_p[..., 6]).abs()
+               / rep_p[..., 6].abs().clamp_min(1e-30))[live].max().item()
+    check(torch.equal(rep[..., 0], rep_p[..., 0])
+          and torch.equal(rep[..., 7], rep_p[..., 7]) and tau_rel <= 1e-5
+          and bool((rep[live][..., 5] < rep[live][..., 6]).all())
+          and float(rep[..., 0].sum()) == 0.0,
+          f"K8 report: det / k fields equal, tau within 1e-5 ({tau_rel:.2g}), "
+          f"every live group's max residual below tau, no detection")
+    live_rows, live_e = _live(lay)
+    ms = time_ms(lambda: kgrouped.tgmm_buffer_call(spec, x, g, lay, ft=FT), 3)
+    ms_off = time_ms(lambda: kgrouped.tgmm_buffer_call(
+        BatchedKernelSpec(tgmm=True), x, g, lay), 3)
+    plain_ms = time_ms(lambda: grouped_gemm.tgmm_plain(
+        x, g, lay.row_end, tiles=(bm, 64, 64), ft=FT), 1, warmup=0)
+    lib, lib_label = _library_tgmm(x, g, lay)
+    lib_ms = time_ms(lib, 3)
+    b_ms, b_by = bound(2.0 * live_rows * d * f,
+                       2 * live_rows * (d + f) + 4 * e * d * f)
+    print(f"  K8 {label} ({live_rows} live rows in {lay.t_buf}, {live_e} "
+          f"live experts): kernel {ms:.3f} ms, FT off {ms_off:.3f} ms, plain "
+          f"{plain_ms:.1f} ms, library {lib_ms:.3f} ms ({lib_label}), bound "
+          f"{b_ms:.4f} ms ({b_by})")
+    del dw_p, rep_p
+    # SEUs on integer operands: corrected bit for bit, located; detect-only
+    # leaves it; empty groups come back zero.
+    lay = _moe_layout(gen, train_rows, bm)
+    xi = kgrouped.scatter_rows(_ints(gen, train_rows, d), lay)
+    gi = kgrouped.scatter_rows(_ints(gen, train_rows, f), lay)
+    clean, rep0 = kgrouped.tgmm_buffer_call(spec, xi, gi, lay, ft=FT)
+    grp = e - 1
+    tile = (int(lay.row_end[grp]) - 1) // bm       # the ragged last group
+    col = min(700, f - 1)
+    inj = InjectionSpec(row=d - 1, col=col, magnitude=500.0, k_step=tile)
+    fixed, rep = kgrouped.tgmm_buffer_call(spec, xi, gi, lay, ft=FT,
+                                           inject=inj)
+    cell = rep[grp, (d - 1) // 64, col // 64]
+    check(float(rep0[..., 0].sum()) == 0.0 and torch.equal(fixed, clean)
+          and float(rep[..., 0].sum()) == 1.0 and int(cell[2]) == d - 1
+          and int(cell[3]) == col and abs(float(cell[4]) - 500.0) < 1e-3,
+          "K8 SEU in the ragged last group's dw corrected bit for bit and "
+          "located")
+    left, rep_d = kgrouped.tgmm_buffer_call(spec, xi, gi, lay, ft=DETECT,
+                                            inject=inj)
+    moved = float(left[grp, d - 1, col] - clean[grp, d - 1, col])
+    check(float(rep_d[..., 0].sum()) >= 1.0 and float(rep_d[..., 1].sum())
+          == 0.0 and moved == 500.0,
+          f"K8 the same SEU detect-only: detected "
+          f"{float(rep_d[..., 0].sum()):.0f} times (the last group re-verifies "
+          f"on the buffer's dead tiles), left in place")
+    empty = lay.counts == 0
+    check(bool(empty.any()) and not bool(fixed[empty].any())
+          and not bool(rep[empty].any()),
+          f"K8: the {int(empty.sum())} empty groups' dw and report are zero")
+    rows["tgmm"] = dict(max_abs_err=k8_err, detail=[dict(
+        shape=label, rows=train_rows, t_buf=lay.t_buf, live_experts=live_e,
+        K=d, N=f, ms=ms, ft_off_ms=ms_off, plain_ms=plain_ms,
+        library_ms=lib_ms, library=lib_label, bound_ms=b_ms,
+        bound_by=b_by)], headline=label)
+    return rows
+
+
+class _RoutingTap:
+    """Records the expert indices and router probabilities of every
+    `moe._routing` call; with ``replay`` (a tap of an earlier run) each
+    call routes to that run's experts instead of its own, gate values and
+    aux taken from its own probabilities as `moe._routing` takes them, so
+    two paths route alike and stay differentiable."""
+
+    def __init__(self, replay=None):
+        self.idx, self.probs = [], []
+        self.replay = replay
+
+    def __enter__(self):
+        self._orig = moe._routing
+
+        def routing(xt, router, mc):
+            out = self._orig(xt, router, mc)
+            probs = torch.softmax(torch.matmul(xt.float(), router.float()),
+                                  -1)
+            self.probs.append(probs.detach())
+            self.idx.append(out[1])
+            if self.replay is None:
+                return out
+            idx = self.replay.idx[len(self.idx) - 1]
+            gate = torch.gather(probs, -1, idx)
+            gate = gate / torch.clamp_min(gate.sum(-1, keepdim=True), 1e-9)
+            ce = torch.nn.functional.one_hot(idx[..., 0], mc.n_experts)
+            aux = mc.n_experts * torch.sum(probs.mean(0) * ce.float().mean(0))
+            return gate, idx, aux
+
+        moe._routing = routing
+        return self
+
+    def __exit__(self, *exc):
+        moe._routing = self._orig
+
+
+def phase_moe_check():
+    cfg = dataclasses.replace(MOE, n_layers=MOE_CHECK_LAYERS)
+    run = RunConfig(model=cfg, ft=FT, dtype="bfloat16")
+    params = transformer.init(cfg, seed=7, dtype=torch.bfloat16)
+    ctx = Ctx(ft=FT, dtype=torch.bfloat16)
+    rng = torch.Generator().manual_seed(7)
+    e, top_k = cfg.moe.n_experts, cfg.moe.top_k
+    # ---- the forward through the kernels and through the plain versions --
+    tok = torch.randint(0, cfg.vocab_size, (2, 128), generator=rng).cuda()
+
+    def fwd(replay=None):
+        with telemetry.ft_scope() as scope, _RoutingTap(replay) as tap, \
+                torch.inference_mode():
+            logits, aux = transformer.forward(params, tok, cfg, ctx)
+            return logits.float(), float(aux), tap, scope.totals()
+
+    # The plain path replays the kernel path's routing (its own is compared
+    # below): a token whose expert set flips at a rounding tie goes through
+    # other experts, which no tolerance on the logits would absorb.
+    lk, aux_k, tap_k, tot_k = fwd()
+    with plain_kernels():
+        lp, aux_p, tap_p, tot_p = fwd(replay=tap_k)
+    err, scale = (lk - lp).abs().max().item(), lp.abs().max().item()
+    check(bool(torch.isfinite(lk).all()) and err <= 2e-2 * scale,
+          f"moe_check: forward logits kernel vs plain (same routing) "
+          f"{err:.3g} <= 2e-2 x {scale:.3g}")
+    # Each path's own router sees its own layer input, which the two paths
+    # round differently in bf16: the probabilities must agree to that
+    # rounding; a token whose top-k margin is below the difference may
+    # pick another expert set (printed, not checked).
+    for layer, (ik, ip, pk, pp) in enumerate(zip(tap_k.idx, tap_p.idx,
+                                                 tap_k.probs, tap_p.probs)):
+        flip = ~(torch.sort(ik, -1).values
+                 == torch.sort(ip, -1).values).all(-1)
+        top = torch.topk(pk, top_k + 1, -1).values
+        margin = top[:, -2] - top[:, -1]
+        dp, scale = float((pk - pp).abs().max()), float(pk.max())
+        worst = float(margin[flip].max()) if bool(flip.any()) else 0.0
+        print(f"  layer {layer} routing: {int(flip.sum())} of {len(flip)} "
+              f"tokens pick another expert set on the plain path, their "
+              f"top-{top_k} margins <= {worst:.3g} (median margin "
+              f"{float(margin.median()):.3g}); max router probability "
+              f"difference {dp:.3g}")
+        check(dp <= 2e-2 * scale,
+              f"moe_check: layer {layer}'s router probabilities on the two "
+              f"paths within 2e-2 x {scale:.3g} ({dp:.3g})")
+    check(tot_k["detected"] == 0 and tot_p["detected"] == 0,
+          f"moe_check: zero detections (kernels {tot_k}, plain {tot_p})")
+    # ---- the engine against one single-slot engine per request -----------
+    prng = np.random.default_rng(7)
+    prompts, budgets = _prompts(prng, 6, 5, 120, 3, 12, cfg.vocab_size)
+    eng = ProbeEngine(params, cfg, run, engine.EngineConfig(max_len=256,
+                                                            n_slots=3))
+    for p_, m in zip(prompts, budgets):
+        eng.submit(p_, max_new_tokens=m)
+    for k in KERNELS.values():
+        k["counter"].launches = 0
+    with telemetry.ft_scope() as scope:
+        res = eng.run()
+        sites = scope.site_totals()
+    k7 = grouped_gemm.FT_GEMM_GROUPED.launches
+    steps = len(eng.decode_ms)
+    solo = []
+    for p_, m in zip(prompts, budgets):
+        one = ProbeEngine(params, cfg, run,
+                          engine.EngineConfig(max_len=256, n_slots=1))
+        one.submit(p_, max_new_tokens=m)
+        solo.append((one.run()[0], one.gaps[0]))
+    for r, (s_, s_gaps) in zip(res, solo):
+        if r.tokens == s_.tokens:
+            continue
+        t = next(i for i, (x, y) in enumerate(zip(r.tokens, s_.tokens))
+                 if x != y)
+        (ga, ta), (gb, tb) = eng.gaps[r.rid][t], s_gaps[t]
+        print(f"  request {r.rid}: engine and solo differ at token {t}; "
+              f"top-2 logit gaps {ga:.4g} / {gb:.4g} at |top| "
+              f"{max(ta, tb):.4g}")
+        check(min(ga, gb) <= BF16_TOL * max(ta, tb),
+              f"moe_check: request {r.rid}'s first difference is a bf16 tie")
+    n_same = sum(r.tokens == s_.tokens for r, (s_, _) in zip(res, solo))
+    print(f"  {n_same} of {len(res)} requests give their solo tokens exactly")
+    check([len(r.tokens) for r in res] == budgets
+          and eng.alloc.n_free == eng.plan.n_pages - 1,
+          "moe_check: every request met its budget, all pages came back")
+    check({"moe_gate", "moe_up", "moe_down", "dec_flash"} <= set(sites)
+          and all(t["detected"] == 0 for t in sites.values()),
+          "moe_check: the MoE sites and dec_flash in the scope, no detection")
+    check(k7 == 3 * cfg.n_layers * (len(prompts) + steps),
+          f"moe_check: K7 launches {k7} = 3 x {cfg.n_layers} layers x "
+          f"({len(prompts)} prefills + {steps} decode steps)")
+    # ---- loss and grads: kernels vs plain, and a dw SEU in moe_gate ------
+    params.requires_grad_(True)
+    tok = torch.randint(0, cfg.vocab_size, (1, CHECK_SEQ + 1),
+                        generator=rng).cuda()
+    batch = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+    with _RoutingTap() as tap_g:
+        loss_k, grads_k, tot_k = _grads_of(params, cfg, batch, ctx)
+    with plain_kernels(), _RoutingTap(replay=tap_g):
+        loss_p, grads_p, tot_p = _grads_of(params, cfg, batch, ctx)
+    rel = abs(loss_k - loss_p) / abs(loss_p)
+    rels = {n: ((grads_k[n].float() - grads_p[n].float()).norm()
+                / grads_p[n].float().norm().clamp_min(1e-30)).item()
+            for n in grads_p}
+    worst = max(rels, key=rels.get)
+    check(rel <= 1e-3 and rels[worst] <= 2e-2 and tot_k["detected"] == 0
+          and tot_p["detected"] == 0,
+          f"moe_check: loss kernel {loss_k:.6f} vs plain {loss_p:.6f} "
+          f"(relative {rel:.2g}, the plain path on the kernel path's "
+          f"routing), every grad leaf within 2e-2 relative (worst "
+          f"{rels[worst]:.3g}, {worst}), no detection")
+    del grads_p
+    # Buffer tile 0 is always the first tile of the first non-empty group.
+    hook = ("moe_gate", ("dw", InjectionSpec(
+        row=min(700, cfg.d_model - 1), col=min(1000, cfg.moe.expert_d_ff - 1),
+        magnitude=1.0, k_step=0)))
+
+    def rel_err(grads):
+        return max(((grads[n].float() - grads_k[n].float()).norm()
+                    / grads_k[n].float().norm().clamp_min(1e-30)).item()
+                   for n in grads_k)
+
+    before = grouped_gemm.TGMM.launches
+    _, hurt, _ = _grads_of(params, cfg, batch,
+                           dataclasses.replace(ctx, bwd_inject=hook))
+    k8 = grouped_gemm.TGMM.launches - before
+    fixed = rel_err(hurt)
+    del hurt
+    _, left, _ = _grads_of(params, cfg, batch, dataclasses.replace(
+        ctx, ft=DETECT, bwd_inject=hook))
+    kept = rel_err(left)
+    check(k8 == 3 * cfg.n_layers and fixed <= 1e-3
+          and kept >= 100 * max(fixed, 1e-6),
+          f"moe_check: SEU in moe_gate's dw (K8, {k8} launches) corrected: "
+          f"worst leaf relative error {fixed:.3g}; detect-only leaves it "
+          f"({kept:.3g})")
+    for p in params.parameters():
+        p.grad = None
+
+
+def phase_moe_engine(seed: int, smi: str):
+    cfg = dataclasses.replace(MOE, n_layers=MOE_ENGINE_LAYERS)
+    print(f"  depth cut: {cfg.n_layers} of {MOE.n_layers} layers (the "
+          f"full width; 94 layers need 468 GB)")
+    run = RunConfig(model=cfg, ft=FT, dtype="bfloat16")
+    t0 = time.perf_counter()
+    params = transformer.init(cfg, seed=0, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    print(f"  init: {sum(p.numel() for p in params.parameters()) / 1e9:.2f} B "
+          f"parameters in {time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(seed)
+    prompts, budgets = _prompts(rng, ENGINE_REQUESTS, 16, 512, 8, 32,
+                                cfg.vocab_size)
+    ec = engine.EngineConfig(max_len=ENGINE_MAX_LEN, n_slots=ENGINE_SLOTS)
+
+    def serve_all(guard=None):
+        eng = ProbeEngine(params, cfg, run, ec)
+        for p_, m in zip(prompts, budgets):
+            eng.submit(p_, max_new_tokens=m)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with telemetry.ft_scope() as scope:
+            if guard is None:
+                res = eng.run()
+            else:
+                with guard:
+                    res = eng.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            totals = scope.totals()
+        return eng, res, wall, totals
+
+    torch.cuda.reset_peak_memory_stats()
+    for k in KERNELS.values():
+        k["counter"].launches = 0
+    guard = LibraryCallGuard(allow=router_product(cfg.moe.n_experts))
+    eng_g, res_g, wall_g, tot_g = serve_all(guard)
+    launches = {n: k["counter"].launches for n, k in KERNELS.items()}
+    steps = len(eng_g.decode_ms)
+    eng, res, wall, totals = serve_all()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    pool = sum(eng.cache[n].nbytes for n in ("k_pages", "v_pages"))
+    n_tok = sum(len(r.tokens) for r in res)
+    dec_ms, pre_ms = (statistics.median(eng.decode_ms),
+                      statistics.median(eng.prefill_ms))
+    full = [x for x, n_live in zip(eng.decode_ms, eng.live_per_step)
+            if n_live == ENGINE_SLOTS]
+    ttft = [r.ttft_s * 1e3 for r in res]
+    print(f"  {ENGINE_REQUESTS} requests, prompts {[len(p_) for p_ in prompts]}"
+          f", budgets {budgets}")
+    print(f"  guarded run {wall_g:.2f} s; launches {launches}; {steps} decode "
+          f"steps; FT totals {tot_g}; router products allowed "
+          f"{guard.allowed}")
+    print(f"  timed run {wall:.2f} s: {n_tok} tokens, {n_tok / wall:.2f} "
+          f"generated tokens/s; decode {dec_ms:.1f} ms per step (median of "
+          f"{len(eng.decode_ms)}: min {min(eng.decode_ms):.1f}, max "
+          f"{max(eng.decode_ms):.1f}; {len(full)} steps with all "
+          f"{ENGINE_SLOTS} slots live, median "
+          f"{statistics.median(full) if full else float('nan'):.1f}); prefill "
+          f"{pre_ms:.1f} ms per request (median; min {min(eng.prefill_ms):.1f}"
+          f", max {max(eng.prefill_ms):.1f}); TTFT median "
+          f"{statistics.median(ttft):.0f} ms, max {max(ttft):.0f} ms")
+    print(f"  peak memory {peak:.2f} GiB; pool {pool / 1e9:.3f} GB "
+          f"({eng.plan.n_pages} pages of {eng.plan.page_size}); free pages at "
+          f"the end {eng.alloc.n_free}")
+    check([r.tokens for r in res] == [r.tokens for r in res_g],
+          "moe_engine: the timed run repeats the guarded run's greedy tokens")
+    check([len(r.tokens) for r in res] == budgets,
+          "moe_engine: every request met its budget")
+    check(all(0 <= t < cfg.padded_vocab() for r in res for t in r.tokens),
+          f"moe_engine: every token within the head's {cfg.padded_vocab()} "
+          f"rows (the vocabulary padded to 256, as the reference's head; "
+          f"random weights can pick a padding row)")
+    eng.alloc.check_invariants()
+    check(eng.alloc.n_free == eng.plan.n_pages - 1 == eng_g.alloc.n_free,
+          f"moe_engine: all {eng.plan.n_pages - 1} pages came back")
+    check(tot_g["detected"] == 0 and totals["detected"] == 0,
+          "moe_engine: zero detections")
+    check(not guard.hits and guard.allowed > 0,
+          f"moe_engine: no library matmul / attention op dispatched but the "
+          f"router's f32 product ({sorted(set(guard.hits))})")
+    per = 4 * cfg.n_layers + 1
+    calls = ENGINE_REQUESTS + steps
+    expect = {"ft_gemm_2d": per * calls, "ft_gemm_batched": 0,
+              "flash_ft": cfg.n_layers * ENGINE_REQUESTS, "flash_dq": 0,
+              "flash_dkv": 0, "flash_decode": cfg.n_layers * steps,
+              "ft_gemm_grouped": 3 * cfg.n_layers * calls, "tgmm": 0}
+    check(launches == expect,
+          f"moe_engine: launches K1 {per}, K7 {3 * cfg.n_layers} per prefill "
+          f"and per decode step, K2 {cfg.n_layers} per prefill, K6 "
+          f"{cfg.n_layers} per decode step, K5 and K8 none")
+    print(json.dumps({"moe_engine": dict(
+        arch=cfg.arch_id, layers=cfg.n_layers, slots=ENGINE_SLOTS,
+        requests=ENGINE_REQUESTS, max_len=ENGINE_MAX_LEN,
+        page=eng.plan.page_size, seed=seed,
+        prompt_lens=[len(p_) for p_ in prompts], budgets=budgets,
+        decode_steps=steps, run_s=wall, guarded_run_s=wall_g,
+        generated_tokens=n_tok, tokens_per_s=n_tok / wall,
+        decode_ms_median=dec_ms, decode_ms=eng.decode_ms,
+        decode_ms_all_slots_median=statistics.median(full) if full else None,
+        prefill_ms_median=pre_ms, prefill_ms=eng.prefill_ms,
+        ttft_ms_median=statistics.median(ttft), ttft_ms_max=max(ttft),
+        peak_gib=peak, pool_bytes=pool, free_pages=eng.alloc.n_free,
+        launches=launches, card=smi)}))
+    return launches
+
+
+def phase_moe_train(smi: str):
+    cfg = dataclasses.replace(MOE, n_layers=MOE_TRAIN_LAYERS)
+    print(f"  depth cut: {cfg.n_layers} of {MOE.n_layers} layers (bf16 "
+          f"params and grads with f32 AdamW moments: 12 bytes a parameter)")
+    run = RunConfig(model=cfg, ft=FT, dtype="bfloat16", remat="full")
+    tc = train_loop.TrainConfig(log_every=1)
+    shape = ShapeConfig("chip_smoke_moe", TRAIN_SEQ, TRAIN_BATCH, "train")
+    per_step = []
+
+    def log(msg):
+        per_step.append({n: k["counter"].launches
+                         for n, k in KERNELS.items()})
+        print(f"  {msg}", flush=True)
+
+    torch.cuda.reset_peak_memory_stats()
+    for k in KERNELS.values():
+        k["counter"].launches = 0
+    t0 = time.perf_counter()
+    with telemetry.ft_scope() as scope:
+        out = train_loop.train(cfg, run, shape, tc, log=log, device="cuda",
+                               stop_at=TRAIN_STEPS)
+    wall = time.perf_counter() - t0
+    sites = {s: t for s, t in scope.site_totals().items() if t["detected"]}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    prev = {n: 0 for n in KERNELS}
+    launches = []
+    for snap in per_step:
+        launches.append({n: snap[n] - prev[n] for n in KERNELS})
+        prev = snap
+    times = [x * 1e3 for x in out["step_times"]]
+    step_ms = statistics.median(times[1:])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    n_params = sum(p.numel() for p in out["params"].parameters())
+    losses = [h["loss"] for h in out["history"]]
+    auxes = [h["aux"] for h in out["history"]]
+    print(f"  {n_params / 1e9:.2f} B parameters; steps "
+          f"{[round(x, 1) for x in times]} ms, median of steps "
+          f"1-{TRAIN_STEPS - 1} {step_ms:.1f} ms ({tokens / step_ms * 1e3:.1f} "
+          f"tokens/s); train() wall {wall:.1f} s with init; peak memory "
+          f"{peak:.1f} GiB")
+    print(f"  losses {losses}; aux {auxes}; FT counters per step "
+          f"{[(h['detected'], h['corrected']) for h in out['history']]}; "
+          f"sites with detections {sites}")
+    print(f"  launches per step {launches}")
+    check(len(losses) == TRAIN_STEPS and all(math.isfinite(x) for x in losses)
+          and all(math.isfinite(x) and x > 0 for x in auxes),
+          "moe_train: a finite loss and aux at every step")
+    check(all(h["detected"] == 0 for h in out["history"]),
+          "moe_train: zero detections")
+    n_l = cfg.n_layers
+    # Per layer: K1 4 attention projections forward, again in the remat
+    # recompute, and dx + dw each in the backward (16), lm_head 3; K7 3
+    # expert GEMMs forward, in the recompute and as dbuf (9); K8 3 dw.
+    expect = {"ft_gemm_2d": 16 * n_l + 3, "ft_gemm_batched": 0,
+              "flash_ft": 2 * n_l, "flash_dq": n_l, "flash_dkv": n_l,
+              "flash_decode": 0, "ft_gemm_grouped": 9 * n_l, "tgmm": 3 * n_l}
+    check(all(x == expect for x in launches),
+          f"moe_train: launches per step {expect} at every step")
+    opt_cfg = adamw.AdamWConfig(lr=run.learning_rate,
+                                weight_decay=run.weight_decay,
+                                grad_clip=run.grad_clip)
+    step_fn = train_loop.make_train_step(cfg, run, opt_cfg, tc)
+    pipe = data_lib.for_model(cfg, shape, seed=run.seed)
+    batch = {k: torch.as_tensor(x, dtype=torch.long, device="cuda")
+             for k, x in pipe.batch_at(TRAIN_STEPS).items()}
+    for k in KERNELS.values():
+        k["counter"].launches = 0
+    guard = LibraryCallGuard(allow=router_product(cfg.moe.n_experts))
+    with guard:
+        _, _, metrics = step_fn(out["params"], out["opt_state"], batch,
+                                TRAIN_STEPS)
+        torch.cuda.synchronize()
+    guarded = {n: k["counter"].launches for n, k in KERNELS.items()}
+    print(f"  guarded step: loss {float(metrics['loss']):.4f}, launches "
+          f"{guarded}, router products allowed {guard.allowed}")
+    check(not guard.hits and guard.allowed == 4 * n_l,
+          f"moe_train: no library matmul / attention op dispatched but the "
+          f"router's product in the forward, in the remat recompute and "
+          f"its two backward products ({sorted(set(guard.hits))})")
+    check(guarded == expect, f"moe_train: guarded step launches {guarded}")
+    print(json.dumps({"moe_train": dict(
+        arch=cfg.arch_id, layers=n_l, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+        steps=TRAIN_STEPS, step_ms=times, median_step_ms=step_ms,
+        tokens_per_s=tokens / step_ms * 1e3, peak_gib=peak, losses=losses,
+        aux=auxes, launches_per_step=launches[-1], card=smi)}))
+    return guarded
+
+
 def _merge_rows(rows, more):
     """Add a phase's kernel rows: shapes append, the max error is the
     larger; the first phase's headline shape stays."""
@@ -1409,7 +2093,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default="env,kernels,serve_check,serve,"
                     "decode_kernels,engine_check,engine,train_kernels,"
-                    "train_check,train")
+                    "train_check,train,moe_kernels,moe_check,moe_engine,"
+                    "moe_train")
     ap.add_argument("--layers", type=int, default=qwen2_7b.CONFIG.n_layers,
                     help="serve depth (the width is always full)")
     ap.add_argument("--seed", type=int, default=0,
@@ -1449,6 +2134,14 @@ def main() -> int:
                 phase_train_check()
             elif phase == "train":
                 by_path["train"] = phase_train(smi)
+            elif phase == "moe_kernels":
+                _merge_rows(rows, phase_moe_kernels())
+            elif phase == "moe_check":
+                phase_moe_check()
+            elif phase == "moe_engine":
+                by_path["moe_engine"] = phase_moe_engine(args.seed, smi)
+            elif phase == "moe_train":
+                by_path["moe_train"] = phase_moe_train(smi)
             else:
                 raise SystemExit(f"unknown phase {phase!r}")
         except Exception:

@@ -1,11 +1,14 @@
-"""Architecture registry, dense entries (counterpart of
+"""Architecture registry, the dense and MoE entries (counterpart of
 `repro.configs.registry`): ``--arch <id>`` resolution."""
 from __future__ import annotations
 
 from .base import ModelConfig
-from . import codeqwen15_7b, minitron_4b, phi4_mini_38b, qwen2_7b
+from . import (arctic_480b, codeqwen15_7b, minitron_4b, phi4_mini_38b,
+               qwen2_7b, qwen3_moe_235b)
 
 _MODULES = {
+    "arctic-480b": arctic_480b,
+    "qwen3-moe-235b-a22b": qwen3_moe_235b,
     "qwen2-7b": qwen2_7b,
     "codeqwen1.5-7b": codeqwen15_7b,
     "phi4-mini-3.8b": phi4_mini_38b,

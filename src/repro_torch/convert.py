@@ -4,6 +4,10 @@ reference AdamW states → the port's optimizer state.
 `repro.models.transformer.init` returns nested dicts of arrays; the port's
 `state_dict` keys are those paths joined with "." with the same layout
 (layers stacked on a leading L axis) and dtype, so conversion is a rename.
+The MoE family's layer params convert the same way: "layers.moe.router"
+(L, d, E) stays f32, the experts stay stacked as "layers.moe.w_gate" /
+"w_up" (L, E, d, f) and "w_down" (L, E, f, d) in the weight dtype, and
+arctic's parallel dense MLP is "layers.mlp".
 The input is the nested dict with numpy leaves (``np.asarray`` of each JAX
 array); bfloat16 leaves (numpy's ml_dtypes bfloat16) keep their bits.
 """

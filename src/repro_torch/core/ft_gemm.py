@@ -1,6 +1,6 @@
-"""`ft_dot` / `ft_dot_fused` / `ft_batched_dot` — the fault-tolerant GEMM
-fronts every projection of the model routes through (counterpart of
-`repro.core.ft_gemm`).
+"""`ft_dot` / `ft_dot_fused` / `ft_batched_dot` / `ft_grouped_matmul` — the
+fault-tolerant GEMM fronts every projection of the model routes through
+(counterpart of `repro.core.ft_gemm`).
 
 Paths, selected by the resolved `FTConfig`:
 
@@ -23,6 +23,13 @@ GEMMs are protected with the same policy — dx = g·Wᵀ and dw = Xᵀ·g, thro
 the same backends, with the transposed operands passed as views (the CUDA
 kernel reads them through their strides). ``bwd_inject`` = ("dx" | "dw",
 InjectionSpec) lands a deterministic SEU in the named backward GEMM.
+
+The grouped front (`ft_grouped_matmul`, `ft_grouped_matmul_buffer`) runs
+the MoE expert GEMMs over a group-sorted buffer (`kernels.grouped`): the
+grouped kernel K7 on the pallas backend, per-group segment checksums on the
+torch-op path. Its backward runs dbuf through the same grouped product
+against wᵀ (a view) and dw through the grouped transpose kernel K8 (the
+segment path elsewhere); ``bwd_inject`` = ("dbuf" | "dw", InjectionSpec).
 `ft_dot_fused` saves act'(pre-activation) from its forward kernel (the
 act_grad output) instead of recomputing the pre-activation GEMM, and its
 bias gradient is the f32 column sum of dpre. When no gradient is needed
@@ -356,3 +363,237 @@ def ft_batched_dot(a: torch.Tensor, b: torch.Tensor, ft: FTLike = FT_OFF,
         y, det, maxres = _ft_bmm_backend(ft, spec, a, b, key)
     _record(det, maxres, ft.corrects, site)
     return y
+
+
+# ---------------------------------------------------------------------------
+# grouped variant — the MoE expert FFNs over ragged routing
+# ---------------------------------------------------------------------------
+#
+# y[t] = x[t] @ w[group_ids[t]] with dynamic group sizes. The rows are
+# scattered into a group-sorted buffer whose groups start on row-tile
+# boundaries (kernels.grouped.layout); the pallas backend runs the grouped
+# kernel K7 (per-group B, checksums, detection and correction per row-tile
+# block), and the torch-op path mirrors the same algebra with segment
+# reductions, so an SEU in one expert's rows never reaches a neighbour.
+
+#: Tiles of gathered expert weights per chunk of the torch-op products:
+#: at most this many f32 elements of w[gid] at once.
+_GATHER_ELEMS = 1 << 26
+
+
+def _row_gids(gid: torch.Tensor, t_buf: int) -> torch.Tensor:
+    return gid.long().repeat_interleave(t_buf // gid.shape[0])
+
+
+def _grouped_dot(buf: torch.Tensor, w: torch.Tensor, gid: torch.Tensor
+                 ) -> torch.Tensor:
+    """f32 grouped product over the aligned buffer: each row tile against
+    its group's w, a bounded number of tiles at a time."""
+    t_buf, k = buf.shape
+    nt, n = gid.shape[0], w.shape[-1]
+    b3 = buf.reshape(nt, t_buf // nt, k)
+    step = max(1, _GATHER_ELEMS // max(k * n, 1))
+    parts = [torch.bmm(b3[i:i + step].float(),
+                       w[gid[i:i + step].long()].float())
+             for i in range(0, nt, step)]
+    return torch.cat(parts).reshape(t_buf, n)
+
+
+def _fused_ft_grouped(ft: FTConfig, spec, buf, w, gid):
+    """Online ABFT for the grouped product on the torch-op path: per-group
+    checksums by segment reductions, per-group rounding-aware thresholds,
+    one located and corrected SEU per group."""
+    t_buf, k = buf.shape
+    g, _, n = w.shape
+    dev = buf.device
+    rg = _row_gids(gid, t_buf)
+    bf = buf.float()
+    wf = w.float()
+    acc = _grouped_dot(buf, w, gid)                          # (t_buf, n)
+    # Checksums from the operands: (e^T X_g) W_g per group, x_t·(W_g e).
+    xsum = torch.zeros(g, k, device=dev).index_add_(0, rg, bf)
+    colck = torch.einsum("gk,gkn->gn", xsum, wf)
+    rowck = (bf * wf.sum(-1)[rg]).sum(-1)
+    acc = inject_spec(acc, spec)
+    d_col = torch.zeros(g, n, device=dev).index_add_(0, rg, acc) - colck
+    d_row = acc.sum(-1) - rowck
+    if ft.static_tau is not None:
+        tau = torch.full((g,), ft.static_tau, device=dev)
+    else:
+        amax = torch.zeros(g, device=dev).scatter_reduce(
+            0, rg, bf.abs().amax(-1), "amax")
+        bmax = wf.abs().amax((-2, -1))
+        tau = torch.clamp_min(ft.rel_tau * abft.F32EPS * k * amax * bmax,
+                              1e-30)
+    colmax = d_col.abs().amax(-1)                            # (G,)
+    rowmax = torch.zeros(g, device=dev).scatter_reduce(
+        0, rg, d_row.abs(), "amax")
+    det_g = torch.maximum(colmax, rowmax) > tau
+    col_g = torch.argmax(d_col.abs(), -1)
+    mag_g = torch.gather(d_col, -1, col_g[:, None])[:, 0]
+    # Located row per group: the first peak of |d_row| inside the group.
+    is_peak = d_row.abs() >= rowmax[rg]
+    idx = torch.arange(t_buf, device=dev)
+    row_g = torch.full((g,), t_buf, device=dev, dtype=torch.long
+                       ).scatter_reduce(0, rg, torch.where(is_peak, idx,
+                                                           t_buf), "amin")
+    if ft.corrects:
+        delta = torch.where(det_g, mag_g, torch.zeros_like(mag_g))
+        acc = acc.index_put((row_g.clamp(0, t_buf - 1), col_g), -delta,
+                            accumulate=True)
+    det = det_g.sum().to(torch.int32)
+    maxres = torch.maximum(colmax.max(), rowmax.max())
+    return acc.to(buf.dtype), det, maxres
+
+
+def _ft_grouped_2d(ft: FTConfig, spec, buf, w, gid, row_end, key):
+    """(y_buf, det, maxres) of one grouped product."""
+    if not ft.enabled:
+        zero = torch.zeros((), device=buf.device)
+        return _grouped_dot(buf, w, gid).to(buf.dtype), zero.int(), zero
+    check_campaign(ft, key)
+    if ft.backend == "pallas":
+        from ..kernels import grouped as kgrouped
+        from ..kernels.templates import BatchedKernelSpec
+        out, rep = kgrouped.grouped_buffer_call(
+            BatchedKernelSpec(ft_level=ft.level, grouped=True), buf, w,
+            gid=gid, row_end=row_end, ft=ft, inject=spec)
+        return (out, *_report_summary(rep))
+    return _fused_ft_grouped(ft, spec, buf, w, gid)
+
+
+def _grouped_dw(ft: FTConfig, inject, buf, g_buf, gid, row_end):
+    """The grouped backward dw: dw[g] = X_gᵀ·G_g, (G, K, N) f32. The
+    pallas backend runs the grouped transpose kernel K8 (per-group checksums
+    flushed per group, detection and correction in the kernel); otherwise
+    the per-tile outer products are summed per group and verified with
+    per-group checksums, col (X_g e_K)ᵀG_g and row X_gᵀ(G_g e_N)."""
+    t_buf, k = buf.shape
+    ng = row_end.shape[0]
+    nt = gid.shape[0]
+    bm = t_buf // nt
+    n = g_buf.shape[-1]
+    if ft.enabled and ft.backend == "pallas":
+        from ..kernels import grouped as kgrouped
+        from ..kernels.templates import BatchedKernelSpec
+        dw, _ = kgrouped.tgmm_buffer_call(
+            BatchedKernelSpec(ft_level=ft.level, tgmm=True), buf, g_buf,
+            gid=gid, row_end=row_end, ft=ft, inject=inject)
+        return dw                  # backward corrections are not counted
+    dev = buf.device
+    b3 = buf.reshape(nt, bm, k).float()
+    g3 = g_buf.reshape(nt, bm, n).float()
+    gl = gid.long()
+    dw = torch.zeros(ng, k, n, device=dev)
+    step = max(1, _GATHER_ELEMS // max(k * n, 1))
+    for i in range(0, nt, step):
+        dw.index_add_(0, gl[i:i + step],
+                      torch.bmm(b3[i:i + step].transpose(1, 2),
+                                g3[i:i + step]))
+    if ft.enabled:
+        dw = inject_spec(dw, inject)
+        u, v = b3.sum(-1), g3.sum(-1)                        # (tiles, bm)
+        colck = torch.zeros(ng, n, device=dev).index_add_(
+            0, gl, torch.einsum("tb,tbn->tn", u, g3))
+        rowck = torch.zeros(ng, k, device=dev).index_add_(
+            0, gl, torch.einsum("tbk,tb->tk", b3, v))
+        ck = abft.Checksums(col=colck[:, None, :], row=rowck[:, :, None])
+        if ft.static_tau is not None:
+            tau = torch.full((ng,), ft.static_tau, device=dev)
+        else:
+            zeros = torch.zeros(ng, device=dev)
+            amax = zeros.scatter_reduce(0, gl, b3.abs().amax((1, 2)), "amax")
+            gmax = zeros.scatter_reduce(0, gl, g3.abs().amax((1, 2)), "amax")
+            rows = zeros.index_add(0, gl, torch.ones(nt, device=dev)) * bm
+            tau = torch.clamp_min(ft.rel_tau * abft.F32EPS * rows * amax
+                                  * gmax, 1e-30)
+        dw, _ = abft.detect_and_correct(dw, ck, tau, corrects=ft.corrects)
+    return dw
+
+
+class _FTGrouped(torch.autograd.Function):
+    """The grouped product over a buffer with the forward and both backward
+    products protected: dbuf = g_buf·w[g]ᵀ through the same grouped path
+    (wᵀ passed as a view), dw through `_grouped_dw`. The summaries carry no
+    gradient; backward corrections are applied but not counted."""
+
+    @staticmethod
+    def forward(ctx, buf, w, gid, row_end, ft, spec, bwd_inject, key):
+        y, det, maxres = _ft_grouped_2d(ft, spec, buf, w, gid, row_end, key)
+        ctx.save_for_backward(buf, w, gid, row_end)
+        ctx.ft, ctx.bwd_inject = ft, bwd_inject
+        ctx.mark_non_differentiable(det, maxres)
+        return y, det, maxres
+
+    @staticmethod
+    def backward(ctx, g_buf, _det, _maxres):
+        buf, w, gid, row_end = ctx.saved_tensors
+        g_buf = g_buf.to(buf.dtype)
+        dbuf = dw = None
+        if ctx.needs_input_grad[0]:
+            dbuf, _, _ = _ft_grouped_2d(
+                ctx.ft, _bwd_injection(ctx.bwd_inject, "dbuf"), g_buf,
+                w.transpose(-1, -2), gid, row_end, None)
+        if ctx.needs_input_grad[1]:
+            dw = _grouped_dw(ctx.ft, _bwd_injection(ctx.bwd_inject, "dw"),
+                             buf, g_buf, gid, row_end).to(w.dtype)
+        return dbuf, dw, None, None, None, None, None, None
+
+
+def grouped_row_tile(t: int, n: int, k: int, dtype, n_groups: int,
+                     ft: FTLike, site: Optional[str] = None) -> int:
+    """The row tile (group alignment) `ft_grouped_matmul` takes for this
+    problem, so that a chain of grouped GEMMs (the MoE FFN) can share one
+    layout. Under an `FTPolicy`, pass the site of the chain's first GEMM."""
+    ft = resolve_ft(ft, site)
+    if ft.enabled and ft.backend == "pallas":
+        from ..kernels import grouped as kgrouped
+        return kgrouped.plan_grouped(t, n, k, dtype, n_groups=n_groups)[0]
+    return {4: 8, 2: 16, 1: 32}.get(torch.empty((), dtype=dtype)
+                                    .element_size(), 8)
+
+
+def ft_grouped_matmul_buffer(buf: torch.Tensor, w: torch.Tensor,
+                             gid: torch.Tensor, row_end: torch.Tensor,
+                             ft: FTLike = FT_OFF, key=None,
+                             spec: Optional[InjectionSpec] = None,
+                             bwd_inject=None, site: Optional[str] = None
+                             ) -> torch.Tensor:
+    """Buffer-space `ft_grouped_matmul`: a group-sorted (t_buf, K) buffer
+    in, the (t_buf, N) result in buffer space out, so a chain of grouped
+    GEMMs over one routing decision (the expert FFN's gate, up and down)
+    scatters once and gathers once. ``bwd_inject`` = ("dbuf" | "dw",
+    InjectionSpec) lands an SEU in the named backward product."""
+    ft = resolve_ft(ft, site)
+    _check_bwd_inject(ft, bwd_inject)
+    if not ft.enabled and key is None and spec is None:
+        return _grouped_dot(buf, w, gid).to(buf.dtype)       # fast path
+    if _wants_grad(buf, w):
+        y, det, maxres = _FTGrouped.apply(buf, w, gid, row_end, ft, spec,
+                                          bwd_inject, key)
+    else:
+        y, det, maxres = _ft_grouped_2d(ft, spec, buf, w, gid, row_end, key)
+    _record(det, maxres, ft.corrects, site)
+    return y
+
+
+def ft_grouped_matmul(x: torch.Tensor, w: torch.Tensor,
+                      group_ids: torch.Tensor, ft: FTLike = FT_OFF, key=None,
+                      spec: Optional[InjectionSpec] = None, bwd_inject=None,
+                      site: Optional[str] = None) -> torch.Tensor:
+    """Fault-tolerant ragged grouped matmul: y[t] = x[t] @ w[group_ids[t]].
+
+    x (T, K) in caller order; w (G, K, N); group_ids int (T,). Any group
+    sizes: no capacity, no dropped rows, at most G·(bm-1) alignment rows.
+    Both directions are protected (see `ft_grouped_matmul_buffer`)."""
+    from ..kernels.grouped import layout as glayout
+    ft = resolve_ft(ft, site)
+    t, k = x.shape
+    ng = w.shape[0]
+    bm = grouped_row_tile(t, w.shape[-1], k, x.dtype, ng, ft)
+    lay = glayout.make_layout(group_ids, ng, bm)
+    y_buf = ft_grouped_matmul_buffer(glayout.scatter_rows(x, lay), w,
+                                     lay.gid, lay.row_end, ft=ft, key=key,
+                                     spec=spec, bwd_inject=bwd_inject,
+                                     site=site)
+    return glayout.gather_rows(y_buf, lay)

@@ -2,10 +2,10 @@
 // Huang–Abraham checksums, one located and corrected error per output block
 // per verification.
 //
-// Replaces the TPU kernels K1 and K5 of the JAX package:
-//   src/repro/kernels/templates/emit.py:render (2-D and uniform-batched
-//   bodies), launched by templates/registry.py:kernel_call and
-//   templates/registry.py:batched_kernel_call.
+// Replaces the TPU kernels K1, K5 and K7 of the JAX package:
+//   src/repro/kernels/templates/emit.py:render (2-D, uniform-batched and
+//   grouped bodies), launched by templates/registry.py:kernel_call and
+//   templates/registry.py:batched_kernel_call (grouped=True for K7).
 // The 2-D kernel is the batched kernel with batch 1. blockIdx.z walks up
 // to two batch dims (b0, b1); every operand dim has its own element stride
 // (0 on the batch dims of a shared B), so a permuted view such as the
@@ -34,7 +34,18 @@
 //     training layouts are compiled for the plain chain only;
 //   * AG (training): the act_grad output, act'(pre-activation) of the
 //     chain's activation, written from the verified, corrected block
-//     beside C; compiled for the chains with an activation only.
+//     beside C; compiled for the chains with an activation only;
+//   * GROUPED (K7, the MoE expert GEMMs): A is a group-sorted buffer whose
+//     row tiles never span two groups; the CTA of row tile i reads its
+//     group gid[i] and that group's row_end from device int32 arrays,
+//     takes B = w[gid[i]] (group stride, any k / n strides: LAYOUT 1 for
+//     the transposed w of the dbuf product) and masks A's rows at or past
+//     row_end, so the checksums and max|A| are the group's. A tile with no
+//     live row reads no B: without an SEU aimed at it, it writes zeros and
+//     the report of a clean all-zero block (tau 1e-30, k = K) at once.
+//     Compiled for the plain chain, BM 16 (bf16) and 8 or 16 (f32). The
+//     parameter is a compile-time one, so K1's and K5's instances carry no
+//     branch of it.
 // What bounds it on the H100: decode-shaped calls (M <= 16) are bound by
 // the bytes of B (the weights), prefill-shaped calls by operations. This
 // first version runs the MACs on the CUDA cores in f32 (no tensor cores, no
@@ -94,7 +105,9 @@ __device__ __forceinline__ float activate_grad(float y) {
 
 struct GemmArgs {
   const void* a;
-  const void* b;
+  const void* b;           // GROUPED: w (G, K, N), group stride sb0
+  const int* gid;          // GROUPED: owning group of each row tile
+  const int* row_end;      // GROUPED: first dead buffer row of each group
   const void* bias;
   const void* res;
   void* out;
@@ -122,7 +135,7 @@ __device__ __forceinline__ float load_at(const T* p, int r, int c, int sr,
 }
 
 template <typename T, bool FT, int EPI, int LAYOUT, bool AG, int BM, int BN,
-          int BK, int TM, int TN>
+          int BK, int TM, int TN, bool GROUPED>
 __global__ void __launch_bounds__(kThreads)
 ft_gemm_kernel(const GemmArgs g) {
   constexpr int TX = BN / TN, TY = BM / TM;
@@ -142,6 +155,34 @@ ft_gemm_kernel(const GemmArgs g) {
   const int z0 = bz / g.nb1, z1 = bz % g.nb1;
   const T* A = static_cast<const T*>(g.a) + z0 * g.sa0 + z1 * g.sa1;
   const T* B = static_cast<const T*>(g.b) + z0 * g.sb0 + z1 * g.sb1;
+  // Rows of A at or past m_hi are masked; GROUPED B streams only in a tile
+  // with a live row.
+  int m_hi = M;
+  bool b_live = true;
+  if constexpr (GROUPED) {
+    const int grp = g.gid[bi];
+    m_hi = min(g.row_end[grp], M);
+    b_live = row0 < m_hi;
+    B = static_cast<const T*>(g.b) + (long long)grp * g.sb0;
+    const bool seu_here = FT && g.inj_enable && g.inj_k >= 0 &&
+                          g.inj_k < g.ksteps &&
+                          g.inj_row >= row0 && g.inj_row < row0 + BM &&
+                          g.inj_col >= col0 && g.inj_col < col0 + BN;
+    if (!b_live && !seu_here) {
+      T* out = static_cast<T*>(g.out);
+      for (int idx = tid; idx < BM * BN; idx += kThreads) {
+        const int gr = row0 + idx / BN, gc = col0 + idx % BN;
+        if (gr < M && gc < N) store(&out[(long long)gr * N + gc], 0.0f);
+      }
+      if (FT && tid == 0) {
+        float* r = g.rep + ((long long)bi * g.gn + bj) * 8;
+        for (int q = 0; q < 6; ++q) r[q] = 0.0f;
+        r[6] = 1e-30f;
+        r[7] = (float)K;
+      }
+      return;
+    }
+  }
 
   float acc[TM][TN];
 #pragma unroll
@@ -164,7 +205,7 @@ ft_gemm_kernel(const GemmArgs g) {
       const int m = LAYOUT == 2 ? idx % BM : idx / BK;
       const int kk = LAYOUT == 2 ? idx / BM : idx % BK;
       const int gr = row0 + m, gk = k0 + kk;
-      const float v = (gr < M && gk < K)
+      const float v = (gr < m_hi && gk < K)
                           ? load_at(A, gr, gk, g.sam, g.sak) : 0.0f;
       As[kk][m] = v;
       if (FT) amax = fmaxf(amax, fabsf(v));
@@ -173,7 +214,7 @@ ft_gemm_kernel(const GemmArgs g) {
       const int kk = LAYOUT == 1 ? idx % BK : idx / BN;
       const int n = LAYOUT == 1 ? idx / BK : idx % BN;
       const int gk = k0 + kk, gc = col0 + n;
-      const float v = (gk < K && gc < N)
+      const float v = (b_live && gk < K && gc < N)
                           ? load_at(B, gk, gc, g.sbk, g.sbn) : 0.0f;
       Bs[kk][n] = v;
       if (FT) bmax = fmaxf(bmax, fabsf(v));
@@ -310,14 +351,14 @@ ft_gemm_kernel(const GemmArgs g) {
 }
 
 template <typename T, bool FT, int EPI, int LAYOUT, bool AG, int BM, int BN,
-          int BK, int TM, int TN>
+          int BK, int TM, int TN, bool GROUPED = false>
 cudaError_t launch(GemmArgs g, int batch, cudaStream_t stream) {
   g.gm = (g.M + BM - 1) / BM;
   g.gn = (g.N + BN - 1) / BN;
   g.ksteps = (g.K + BK - 1) / BK;
   if (g.gm > 65535 || batch > 65535) return cudaErrorInvalidConfiguration;
   dim3 grid(g.gn, g.gm, batch);
-  ft_gemm_kernel<T, FT, EPI, LAYOUT, AG, BM, BN, BK, TM, TN>
+  ft_gemm_kernel<T, FT, EPI, LAYOUT, AG, BM, BN, BK, TM, TN, GROUPED>
       <<<grid, kThreads, 0, stream>>>(g);
   return cudaGetLastError();
 }
@@ -373,6 +414,24 @@ cudaError_t launch_epi(int epi, int layout, bool ag, int tiles,
   }
 }
 
+// K7: the grouped instances, by row tile (BM) and the walk of B's loads.
+// kernels/grouped_gemm.py:GROUPED_TILES lists the same tiles.
+template <typename T, bool FT>
+cudaError_t launch_grouped(int bm, int layout, const GemmArgs& g,
+                           cudaStream_t st) {
+  if (bm == 16 && layout == 0)
+    return launch<T, FT, kEpiNone, 0, false, 16, 128, 32, 2, 4, true>(g, 1, st);
+  if (bm == 16 && layout == 1)
+    return launch<T, FT, kEpiNone, 1, false, 16, 128, 32, 2, 4, true>(g, 1, st);
+  if constexpr (sizeof(T) == 4) {
+    if (bm == 8 && layout == 0)
+      return launch<T, FT, kEpiNone, 0, false, 8, 128, 32, 1, 4, true>(g, 1, st);
+    if (bm == 8 && layout == 1)
+      return launch<T, FT, kEpiNone, 1, false, 8, 128, 32, 1, 4, true>(g, 1, st);
+  }
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
@@ -420,6 +479,40 @@ int ft_gemm_launch(const void* a, const void* b, const void* bias,
                                                 batch, st)
               : launch_epi<__nv_bfloat16, false>(epi, layout, ag, tiles, g,
                                                  batch, st);
+  return cudaErrorInvalidValue;
+}
+
+// K7. a: the (T, K) group-sorted buffer with element strides (sam, sak);
+// w: (G, K, N) with strides (swg, swk, swn); gid: int32 (T / bm,) the group
+// of each row tile; row_end: int32 (G,). out (T, N) and report
+// (T / bm, gn, 8) contiguous row-major. The injection row is a buffer row.
+// dtype: 0 f32, 1 bf16. layout: 1 when w's k stride is 1. Returns the
+// launch's cudaError_t.
+int ft_gemm_grouped_launch(const void* a, const void* w, const int* gid,
+                           const int* row_end, void* out, float* rep, int T,
+                           int N, int K, int G, int sam, int sak,
+                           long long swg, int swk, int swn, int dtype,
+                           int ft, int bm, int layout, int verify_step,
+                           int corrects, float tau_coef, int inj_enable,
+                           int inj_row, int inj_col, int inj_k,
+                           float inj_mag, void* stream) {
+  if (T <= 0 || N <= 0 || K <= 0 || G <= 0 || bm <= 0 || T % bm != 0)
+    return cudaErrorInvalidValue;
+  GemmArgs g{};
+  g.a = a; g.b = w; g.gid = gid; g.row_end = row_end; g.out = out;
+  g.rep = rep;
+  g.M = T; g.N = N; g.K = K; g.nb1 = 1;
+  g.sam = sam; g.sak = sak; g.sb0 = swg; g.sbk = swk; g.sbn = swn;
+  g.verify_step = verify_step; g.corrects = corrects; g.tau_coef = tau_coef;
+  g.inj_enable = inj_enable; g.inj_batch = 0; g.inj_row = inj_row;
+  g.inj_col = inj_col; g.inj_k = inj_k; g.inj_mag = inj_mag;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return ft ? launch_grouped<float, true>(bm, layout, g, st)
+              : launch_grouped<float, false>(bm, layout, g, st);
+  if (dtype == 1)
+    return ft ? launch_grouped<__nv_bfloat16, true>(bm, layout, g, st)
+              : launch_grouped<__nv_bfloat16, false>(bm, layout, g, st);
   return cudaErrorInvalidValue;
 }
 

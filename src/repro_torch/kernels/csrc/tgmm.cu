@@ -1,0 +1,270 @@
+// Grouped transpose ABFT GEMM for Hopper (sm_90a), the MoE backward dw:
+// dw[g] = X_g^T · G_g over two group-sorted buffers of one layout, output
+// (G, K, N) in f32, with online Huang–Abraham checksums per group.
+//
+// Replaces the TPU kernel K8 of the JAX package:
+//   src/repro/kernels/templates/emit.py:527 render_tgmm, launched by
+//   templates/registry.py:411 tgmm_kernel_call.
+// The TPU grid walks the buffer's row tiles in order and flushes its
+// resident dw block when the tile's group changes. Here CTAs run in no
+// order, so one CTA owns one (group, k-block, n-block) output block and
+// loops over its group's row tiles itself:
+//   * the group's tiles run from its aligned base (row_end[g-1] rounded up
+//     to BM) to its aligned end, and for the last group on to the end of the
+//     buffer (the layout clamps dead tiles to the last group, and the
+//     reference verifies them too); an empty group's CTA exits without
+//     writing (the front door zeroes its dw and report);
+//   * rows at or past row_end[g] are masked in X and G, so the checksums,
+//     max|X| and max|G| are the group's; each tile stages X (BM x 64) and
+//     G (BM x 64) in shared memory, each thread accumulates a 4 x 4
+//     micro-tile of the 64 x 64 block in f32 registers;
+//   * the running checksums ride the staged tiles: the column checksum
+//     (X e_K)^T G and the row checksum X^T (G e_N), both from the operands;
+//   * tau = rel_tau·eps32·rows·max|X|·max|G| with rows the live rows reduced
+//     so far; verify="step" verifies after every tile, "final" after the
+//     group's last; first-argmax location and branchless correction are
+//     the shared ones of abft_block.cuh;
+//   * once only dead tiles remain and no SEU is aimed at them, the block no
+//     longer changes unless a verification corrects it: the remaining
+//     verifications are run until one leaves the block as it is, and the
+//     rest repeat its verdict, which is added to the report at once.
+// What bounds it on the H100: operations (2·T·K·N), with dw's f32 write
+// second. This first version runs on the CUDA cores in f32 with a small
+// block per CTA; PERF.md carries its times.
+//
+// Report per (group, k-block, n-block), f32[8]: [detected, corrected, row,
+// col, magnitude, max_residual, tau, rows_reduced], rows and cols in dw's
+// (K, N) coordinates.
+#include "abft_block.cuh"
+
+namespace {
+
+using namespace abft;
+
+constexpr int kBK = 64, kBN = 64, kTM = 4, kTN = 4;
+
+struct TgmmArgs {
+  const void* x;           // (T, K), strides (sxr, sxk)
+  const void* g;           // (T, N), strides (sgr, sgn)
+  const int* row_end;      // (G,) first dead buffer row of each group
+  float* out;              // (G, K, N) contiguous
+  float* rep;              // (G, gk, gn, 8) contiguous
+  int T, K, N, G, t_tiles;
+  int sxr, sxk, sgr, sgn;
+  int gk, gn;
+  int verify_step, corrects;
+  float tau_coef;          // rel_tau * eps32
+  int inj_enable, inj_row, inj_col, inj_k;
+  float inj_mag;
+};
+
+template <typename T, bool FT, int BM>
+__global__ void __launch_bounds__(kThreads) tgmm_kernel(const TgmmArgs a) {
+  constexpr int TX = kBN / kTN, TY = kBK / kTM;
+  static_assert(TX * TY == kThreads, "thread tile must cover the block");
+
+  __shared__ float Xs[BM][kBK + 1];
+  __shared__ float Gs[BM][kBN];
+  __shared__ float Cs[kBK][kBN + 1];
+  __shared__ float colck[kBN], rowck[kBK], xsum[BM], gsum[BM], red[kWarps];
+  __shared__ VerifySmem<kBK, kBN> vs;
+
+  const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX;
+  const int ni = blockIdx.x, ki = blockIdx.y, grp = blockIdx.z;
+  const int k0 = ki * kBK, n0 = ni * kBN;
+  const int prev = grp > 0 ? a.row_end[grp - 1] : 0;
+  const int base = (prev + BM - 1) / BM * BM;
+  const int row_hi = a.row_end[grp];
+  if (row_hi <= base) return;                 // empty group
+  const int t_first = base / BM;
+  const int t_live = (row_hi + BM - 1) / BM;  // tiles holding a live row
+  const int t_end = grp == a.G - 1 ? a.t_tiles : t_live;
+  const T* X = static_cast<const T*>(a.x);
+  const T* Gm = static_cast<const T*>(a.g);
+  const bool inj_block = FT && a.inj_enable && a.inj_row >= k0 &&
+                         a.inj_row < k0 + kBK && a.inj_col >= n0 &&
+                         a.inj_col < n0 + kBN;
+
+  float acc[kTM][kTN];
+#pragma unroll
+  for (int i = 0; i < kTM; ++i)
+#pragma unroll
+    for (int j = 0; j < kTN; ++j) acc[i][j] = 0.0f;
+  float amax = 0.0f, gmax = 0.0f;
+  float rep[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+  if (FT) {
+    for (int i = tid; i < kBN; i += kThreads) colck[i] = 0.0f;
+    for (int i = tid; i < kBK; i += kThreads) rowck[i] = 0.0f;
+  }
+
+  // One verification of the block (all threads); returns the verdict and
+  // applies the correction.
+  auto verify = [&](int t) -> Verdict {
+    const float rows = (float)max(min((t + 1) * BM, row_hi) - base, 1);
+    const float am = block_max(amax, red), gm = block_max(gmax, red);
+    const float tau = fmaxf(a.tau_coef * rows * am * gm, 1e-30f);
+#pragma unroll
+    for (int i = 0; i < kTM; ++i)
+#pragma unroll
+      for (int j = 0; j < kTN; ++j) Cs[ty * kTM + i][tx * kTN + j] = acc[i][j];
+    __syncthreads();
+    const Verdict v = verify_block<kBK, kBN>(&Cs[0][0], kBN + 1, colck, rowck,
+                                             tau, rows, a.corrects, k0, n0,
+                                             vs, rep);
+    if (a.corrects && v.det && v.row / kTM == ty && v.col / kTN == tx)
+      acc[v.row % kTM][v.col % kTN] -= v.mag;
+    return v;
+  };
+
+  for (int t = t_first; t < t_end; ++t) {
+    const bool live = t < t_live;
+    if (!live) {
+      if (!FT) break;
+      if (!(inj_block && a.inj_k >= t && a.inj_k < t_end)) {
+        // Only dead tiles remain and no SEU comes: verifications change the
+        // block only by correcting it; once one leaves it as it is, the
+        // remaining ones repeat its verdict.
+        const int nv = a.verify_step ? t_end - t : 1;
+        for (int q = 0; q < nv; ++q) {
+          const Verdict v = verify(t_end - 1);
+          if (!(v.det && a.corrects)) {
+            if (tid == 0) rep[0] += (float)(v.det * (nv - 1 - q));
+            break;
+          }
+        }
+        break;
+      }
+    }
+    const int r0 = t * BM;
+    if (live) {
+      __syncthreads();
+      for (int idx = tid; idx < BM * kBK; idx += kThreads) {
+        const int r = idx / kBK, kk = idx % kBK;
+        const int gr = r0 + r, gk = k0 + kk;
+        const float v = (gr < row_hi && gk < a.K)
+            ? to_f32(X[(long long)gr * a.sxr + (long long)gk * a.sxk]) : 0.0f;
+        Xs[r][kk] = v;
+        if (FT) amax = fmaxf(amax, fabsf(v));
+      }
+      for (int idx = tid; idx < BM * kBN; idx += kThreads) {
+        const int r = idx / kBN, nn = idx % kBN;
+        const int gr = r0 + r, gc = n0 + nn;
+        const float v = (gr < row_hi && gc < a.N)
+            ? to_f32(Gm[(long long)gr * a.sgr + (long long)gc * a.sgn]) : 0.0f;
+        Gs[r][nn] = v;
+        if (FT) gmax = fmaxf(gmax, fabsf(v));
+      }
+      __syncthreads();
+      if (FT) {
+        row_sums(&Xs[0][0], BM, kBK, kBK + 1, xsum);   // X e_K
+        row_sums(&Gs[0][0], BM, kBN, kBN, gsum);       // G e_N
+      }
+#pragma unroll 4
+      for (int r = 0; r < BM; ++r) {
+        float xv[kTM], gv[kTN];
+#pragma unroll
+        for (int i = 0; i < kTM; ++i) xv[i] = Xs[r][ty * kTM + i];
+#pragma unroll
+        for (int j = 0; j < kTN; ++j) gv[j] = Gs[r][tx * kTN + j];
+#pragma unroll
+        for (int i = 0; i < kTM; ++i)
+#pragma unroll
+          for (int j = 0; j < kTN; ++j) acc[i][j] = fmaf(xv[i], gv[j], acc[i][j]);
+      }
+      if (FT) {
+        __syncthreads();   // xsum / gsum complete
+        for (int n = tid; n < kBN; n += kThreads) {
+          float c = 0.0f;
+          for (int r = 0; r < BM; ++r) c = fmaf(xsum[r], Gs[r][n], c);
+          colck[n] += c;
+        }
+        for (int k = tid; k < kBK; k += kThreads) {
+          float c = 0.0f;
+          for (int r = 0; r < BM; ++r) c = fmaf(Xs[r][k], gsum[r], c);
+          rowck[k] += c;
+        }
+      }
+    }
+    if (!FT) continue;
+    // Emulated SEU on this tile's contribution (deterministic injection).
+    if (inj_block && t == a.inj_k) {
+      const int rl = a.inj_row - k0, cl = a.inj_col - n0;
+      if (rl / kTM == ty && cl / kTN == tx) acc[rl % kTM][cl % kTN] += a.inj_mag;
+    }
+    if (a.verify_step || t == t_end - 1) verify(t);
+  }
+
+  // ---- one write of the block and its report ---------------------------
+  float* out = a.out + (long long)grp * a.K * a.N;
+#pragma unroll
+  for (int i = 0; i < kTM; ++i)
+#pragma unroll
+    for (int j = 0; j < kTN; ++j) {
+      const int gk = k0 + ty * kTM + i, gc = n0 + tx * kTN + j;
+      if (gk < a.K && gc < a.N) out[(long long)gk * a.N + gc] = acc[i][j];
+    }
+  if (FT && tid == 0) {
+    float* r = a.rep + (((long long)grp * a.gk + ki) * a.gn + ni) * 8;
+    for (int q = 0; q < 8; ++q) r[q] = rep[q];
+  }
+}
+
+template <typename T, bool FT, int BM>
+cudaError_t launch(TgmmArgs a, cudaStream_t stream) {
+  a.gk = (a.K + kBK - 1) / kBK;
+  a.gn = (a.N + kBN - 1) / kBN;
+  if (a.gk > 65535 || a.G > 65535) return cudaErrorInvalidConfiguration;
+  dim3 grid(a.gn, a.gk, a.G);
+  tgmm_kernel<T, FT, BM><<<grid, kThreads, 0, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// Row tiles (BM) per dtype; kernels/grouped_gemm.py:TGMM_TILES lists the
+// same table.
+template <typename T, bool FT>
+cudaError_t launch_bm(int bm, const TgmmArgs& a, cudaStream_t st) {
+  if (bm == 16) return launch<T, FT, 16>(a, st);
+  if constexpr (sizeof(T) == 4) {
+    if (bm == 8) return launch<T, FT, 8>(a, st);
+  }
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* tgmm_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// x (T, K) and g (T, N) with element strides; row_end int32 (G,); out
+// (G, K, N) f32 and report (G, ceil(K/64), ceil(N/64), 8) contiguous.
+// dtype: 0 f32, 1 bf16. bm: the layout's row tile (T a multiple of it).
+// The injection's row and col index dw, inj_k is a buffer row tile.
+// Returns the launch's cudaError_t.
+int tgmm_launch(const void* x, const void* g, const int* row_end, float* out,
+                float* rep, int T, int K, int N, int G, int sxr, int sxk,
+                int sgr, int sgn, int dtype, int ft, int bm, int verify_step,
+                int corrects, float tau_coef, int inj_enable, int inj_row,
+                int inj_col, int inj_k, float inj_mag, void* stream) {
+  if (T <= 0 || K <= 0 || N <= 0 || G <= 0 || bm <= 0 || T % bm != 0)
+    return cudaErrorInvalidValue;
+  TgmmArgs a{};
+  a.x = x; a.g = g; a.row_end = row_end; a.out = out; a.rep = rep;
+  a.T = T; a.K = K; a.N = N; a.G = G; a.t_tiles = T / bm;
+  a.sxr = sxr; a.sxk = sxk; a.sgr = sgr; a.sgn = sgn;
+  a.verify_step = verify_step; a.corrects = corrects; a.tau_coef = tau_coef;
+  a.inj_enable = inj_enable; a.inj_row = inj_row; a.inj_col = inj_col;
+  a.inj_k = inj_k; a.inj_mag = inj_mag;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return ft ? launch_bm<float, true>(bm, a, st)
+              : launch_bm<float, false>(bm, a, st);
+  if (dtype == 1)
+    return ft ? launch_bm<__nv_bfloat16, true>(bm, a, st)
+              : launch_bm<__nv_bfloat16, false>(bm, a, st);
+  return cudaErrorInvalidValue;
+}
+
+}  // extern "C"

@@ -6,9 +6,10 @@ encodes the deterministic injection and calls `kernels.ft_gemm.ft_gemm` —
 the CUDA kernel on a CUDA tensor, its plain version on a CPU tensor. The
 kernel reads A and B through their strides, so a transposed `lm_head` view
 or a permuted KV cache is not copied. `matmul`, `fused_matmul`, `ft_matmul`
-and `ft_matmul_report` specialise it; `grouped_gemm_call` is the uniform
-batched front; `flash_ft` and `flash_ft_bwd` are the flash-attention
-fronts, forward (with the saved softmax statistics) and backward;
+and `ft_matmul_report` specialise it; `grouped_gemm_call` is the batched
+and grouped front (uniform batched, grouped and grouped transpose);
+`flash_ft` and `flash_ft_bwd` are the flash-attention fronts, forward
+(with the saved softmax statistics) and backward;
 `flash_ft_decode` is the paged decode front of the serving engine.
 
 Tiles: the reference autotunes its TPU tiles; here each kernel has its own
@@ -146,20 +147,48 @@ def fused_matmul(a: torch.Tensor, b: torch.Tensor, *,
 
 
 def grouped_gemm_call(spec: KernelSpec, a: torch.Tensor, b: torch.Tensor, *,
+                      group_ids: Optional[torch.Tensor] = None,
+                      n_groups: Optional[int] = None,
                       ft: Optional[FTConfig] = None,
                       inject: Optional[InjectionSpec] = None,
                       inj_batch: int = 0, tiles: Tiles = None,
                       out_dtype=None, key=None
                       ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Uniform batched GEMM: a (B, M, K) × b (B, K, N) or shared (K, N) →
-    (B, M, N) in one launch, report (B, gm, gn, 8). A second leading batch
-    dim, a (B0, B1, M, K), is taken as it is, so strided views (the KV
-    cache of decode attention) reach the kernel without a copy. The
-    reference's grouped and tgmm branches (rank-2 a with ``group_ids``) are
-    MoE paths outside this package: a rank-2 a raises."""
-    if a.dim() not in (3, 4):
-        raise NotImplementedError("grouped_gemm_call: only the uniform "
-                                  "batched branch (rank-3 or 4 a) is ported")
+    """The batched and grouped front door, dispatching on operand ranks:
+
+      * a (B, M, K) × b (B, K, N) or shared (K, N) → (B, M, N): the uniform
+        batched GEMM (K5) in one launch, report (B, gm, gn, 8). A second
+        leading batch dim, a (B0, B1, M, K), is taken as it is, so strided
+        views (the KV cache of decode attention) reach the kernel without a
+        copy;
+      * a (T, K), b (G, K, N) with ``group_ids`` (T,): the ragged grouped
+        GEMM (K7), y[t] = a[t] @ b[group_ids[t]] over a group-sorted
+        buffer, detection and correction per group;
+      * a (T, K), b (T, N) with ``group_ids`` and ``n_groups``: the grouped
+        transpose GEMM (K8), dw[g] = Σ_{t: group_ids[t]=g} a[t] ⊗ b[t],
+        (G, K, N) f32 — the MoE backward dw.
+
+    Returns (C, report|None)."""
+    if a.dim() == 2:
+        from . import grouped as kgrouped
+        if group_ids is None:
+            raise ValueError("grouped_gemm_call: a rank-2 a needs group_ids")
+        gspec = BatchedKernelSpec(ft_level=spec.ft_level,
+                                  epilogue=spec.epilogue)
+        if b.dim() == 2:
+            if n_groups is None:
+                raise ValueError("grouped_gemm_call: the tgmm branch needs "
+                                 "n_groups")
+            return kgrouped.tgmm_matmul_rows(
+                dataclasses.replace(gspec, tgmm=True), a, b, group_ids,
+                n_groups=n_groups, ft=ft, inject=inject, tiles=tiles,
+                out_dtype=out_dtype, key=key)
+        return kgrouped.grouped_matmul_rows(
+            dataclasses.replace(gspec, grouped=True), a, b, group_ids, ft=ft,
+            inject=inject, tiles=tiles, out_dtype=out_dtype, key=key)
+    if a.dim() not in (3, 4) or group_ids is not None:
+        raise ValueError(f"grouped_gemm_call: a {tuple(a.shape)} with "
+                         f"group_ids={group_ids is not None}")
     bspec = BatchedKernelSpec(ft_level=spec.ft_level, epilogue=spec.epilogue)
     ft = _resolve(bspec, ft)
     check_campaign(ft, key)

@@ -2,9 +2,9 @@
 `repro.kernels.templates.spec`): FT level × epilogue chain. The kernel
 accumulates in f32 and writes C in the operand dtype, and masks ragged
 edges by bounds, so the reference's acc/out dtype and masked fields have
-no counterpart here. `BatchedKernelSpec` adds the leading batch axis
-(uniform batched only: the grouped and tgmm variants of the reference are
-not part of this package)."""
+no counterpart here. `BatchedKernelSpec` adds the leading batch axis, or
+with ``grouped`` the ragged grouped GEMM over a group-sorted buffer (K7),
+or with ``tgmm`` the grouped transpose GEMM of the MoE backward dw (K8)."""
 from __future__ import annotations
 
 import dataclasses
@@ -81,7 +81,15 @@ class KernelSpec:
 class BatchedKernelSpec(KernelSpec):
     """Uniform batched variant: A (B, M, K) × B (B, K, N), or a shared
     (K, N) right operand. Every output block keeps its own checksums and
-    report row; aux-operand epilogues are not supported."""
+    report row; aux-operand epilogues are not supported.
+
+    ``grouped``: A is a (t_buf, K) group-sorted buffer and B (G, K, N) one
+    matrix per group, each row tile multiplied by its group's B (K7).
+    ``tgmm``: dw[g] = X_gᵀ·G_g over two buffers of one layout (K8). Both
+    are epilogue-free."""
+    grouped: bool = False
+    tgmm: bool = False
+
     batched = True
 
     def __post_init__(self):
@@ -89,6 +97,11 @@ class BatchedKernelSpec(KernelSpec):
         if self.needs_bias or self.needs_residual:
             raise ValueError("batched variants support aux-free epilogue "
                              f"chains only, got {self.epilogue}")
+        if self.grouped and self.tgmm:
+            raise ValueError("tgmm is its own body, not grouped=True")
+        if (self.grouped or self.tgmm) and self.epilogue:
+            raise ValueError(f"the grouped and tgmm variants are "
+                             f"epilogue-free, got {self.epilogue}")
 
 
 def fused(bias: bool = False, act: Optional[str] = None,

@@ -5,6 +5,11 @@
         --batch 4 --prompt-len 128 --new-tokens 32
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-7b-smoke \
         --device cpu --dtype float32
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch arctic-480b-smoke --device cpu --dtype float32
+
+The arch ids are those of `configs.registry`: the dense family and the MoE
+family (qwen3-moe-235b-a22b, arctic-480b).
 """
 from __future__ import annotations
 

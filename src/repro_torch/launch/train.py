@@ -4,10 +4,13 @@
         --steps 4 --batch 2 --seq 512
     PYTHONPATH=src python -m repro_torch.launch.train \
         --arch phi4-mini-3.8b-smoke --device cpu --dtype float32 --steps 3
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch qwen3-moe-235b-a22b-smoke --device cpu --dtype float32
 
 Every GEMM of the step and the attention in both directions run through
 the CUDA kernels ("--backend pallas", the default) or, on a CPU device,
-their plain versions.
+their plain versions. The arch ids are those of `configs.registry`: the
+dense family and the MoE family (qwen3-moe-235b-a22b, arctic-480b).
 """
 from __future__ import annotations
 

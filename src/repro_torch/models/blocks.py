@@ -325,6 +325,20 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     return out.reshape(b, 1, h, dh)
 
 
+def _decode_ft(ctx: Ctx) -> FTConfig:
+    ft = ctx.ft_for("dec_flash")
+    return ft if ft.protect_attention else FT_OFF
+
+
+def uses_decode_kernel(ctx: Ctx, head_dim: int) -> bool:
+    """Whether `paged_decode_attention` takes the paged decode kernel K6
+    under ``ctx`` for heads of ``head_dim`` (the rule in its docstring)."""
+    ft = _decode_ft(ctx)
+    return (ctx.attn_impl != "chunked" and head_dim % 128 == 0
+            and (ctx.attn_impl == "flash"
+                 or (ft.enabled and ft.backend == "pallas")))
+
+
 def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
                            v_pages: torch.Tensor, lengths: torch.Tensor,
                            page_table: torch.Tensor, ctx: Ctx
@@ -343,13 +357,8 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
     "dec_page_qk" / "dec_page_pv"."""
     from ..kernels import ops as kops
     from ..train import kv_cache
-    dh = q.shape[-1]
-    ft = ctx.ft_for("dec_flash")
-    ft = ft if ft.protect_attention else FT_OFF
-    use_kernel = (ctx.attn_impl != "chunked" and dh % 128 == 0
-                  and (ctx.attn_impl == "flash"
-                       or (ft.enabled and ft.backend == "pallas")))
-    if use_kernel:
+    ft = _decode_ft(ctx)
+    if uses_decode_kernel(ctx, q.shape[-1]):
         out, rep = kops.flash_ft_decode(q[:, 0], k_pages, v_pages, lengths,
                                         page_table, ft=ft,
                                         key=ctx.subkey("dec_flash"))

@@ -1,8 +1,8 @@
 """Architecture dispatch (counterpart of `repro.models.model_zoo`, dense
-branch): `module_for(cfg)` returns the family module exposing
+and MoE branches): `module_for(cfg)` returns the family module exposing
 
     init(cfg, seed, dtype, device)                 → params
-    forward(params, tokens, cfg, ctx)              → logits
+    forward(params, tokens, cfg, ctx)              → (logits, aux)
     init_cache(cfg, batch, max_len, dtype, device) → cache
     prefill(params, tokens, cache, cfg, ctx)       → (logits, cache)
     decode_step(params, token, cache, cfg, ctx)    → (logits, cache)
@@ -15,8 +15,12 @@ from ..configs.base import ModelConfig
 from . import transformer
 
 
+_FAMILIES = {"dense": transformer, "moe": transformer}
+
+
 def module_for(cfg: ModelConfig) -> ModuleType:
-    if cfg.family != "dense" or cfg.moe is not None:
+    mod = _FAMILIES.get(cfg.family)
+    if mod is None:
         raise NotImplementedError(f"{cfg.arch_id}: family {cfg.family!r} is "
-                                  f"not ported (dense only)")
-    return transformer
+                                  f"not ported (dense and moe only)")
+    return mod

@@ -1,6 +1,7 @@
-"""Decoder-only transformer LM, dense family (counterpart of
+"""Decoder-only transformer LM, dense and MoE families (counterpart of
 `repro.models.transformer`): qwen2-7b, codeqwen1.5-7b, phi4-mini,
-minitron-4b.
+minitron-4b (dense); qwen3-moe-235b and arctic-480b (MoE: every layer's FFN
+is `models.moe`, arctic's with a parallel dense residual MLP beside it).
 
 Parameters live in a `Params` module tree whose `state_dict` keys are the
 reference's parameter paths joined with "." ("layers.attn.wq",
@@ -17,9 +18,10 @@ JAX reference rebuilds the cache arrays functionally every step.
 Training: `forward(..., remat=...)` walks the layers in a Python loop (the
 reference's `_scan_layers`), each layer under `blocks.make_remat`, over
 per-layer views that one `torch.unbind` per stacked leaf makes, so the
-backward stacks each leaf's gradient once. `loss_fn` is the reference's:
-mean cross-entropy plus the (zero, dense) auxiliary loss, with the FT
-report of the forward in its metrics.
+backward stacks each leaf's gradient once. `forward` returns the logits
+and the MoE load-balance loss summed over the layers (zero for the dense
+family); `loss_fn` is the reference's: mean cross-entropy plus 0.01 × that
+loss, with the FT report of the forward in its metrics.
 """
 from __future__ import annotations
 
@@ -32,7 +34,7 @@ from torch import nn
 
 from ..configs.base import ModelConfig
 from ..core import telemetry
-from . import blocks
+from . import blocks, moe as moe_lib
 from .blocks import Ctx
 
 
@@ -71,10 +73,12 @@ class Params(nn.Module):
                 for i in range(n_layers)]
 
 
-def _check_dense(cfg: ModelConfig) -> None:
-    if cfg.moe is not None or cfg.family not in ("dense",):
-        raise NotImplementedError(f"{cfg.arch_id}: only the dense family is "
-                                  f"ported (family={cfg.family!r})")
+def _check_family(cfg: ModelConfig) -> None:
+    if cfg.family not in ("dense", "moe") or \
+            (cfg.family == "moe") != (cfg.moe is not None):
+        raise NotImplementedError(f"{cfg.arch_id}: the port's transformer "
+                                  f"runs the dense and MoE families only "
+                                  f"(family={cfg.family!r})")
 
 
 def init(cfg: ModelConfig, seed: int = 0, dtype=torch.bfloat16,
@@ -83,7 +87,7 @@ def init(cfg: ModelConfig, seed: int = 0, dtype=torch.bfloat16,
     reference's layout and scales (the values differ from JAX's). Stacked
     tensors are filled one layer at a time, so the f32 draw never exceeds
     one layer's size."""
-    _check_dense(cfg)
+    _check_family(cfg)
     gen = torch.Generator(device=device).manual_seed(seed)
     d, n_l, v = cfg.d_model, cfg.n_layers, cfg.padded_vocab()
     qd, kvd = cfg.qkv_dims
@@ -102,17 +106,21 @@ def init(cfg: ModelConfig, seed: int = 0, dtype=torch.bfloat16,
         attn["bk"] = torch.zeros(n_l, kvd, dtype=dtype, device=device)
         attn["bv"] = torch.zeros(n_l, kvd, dtype=dtype, device=device)
     ones = lambda *s: torch.ones(*s, dtype=torch.float32, device=device)
+    # Draw order: attention, embedding, FFN, head (the dense family's
+    # weights from a seed are those of the parent commits).
+    embed = {"table": blocks.embed_init(gen, v, d, dtype, device=device)}
+    layers = {"attn_norm": ones(n_l, d), "attn": attn,
+              "ffn_norm": ones(n_l, d)}
+    if cfg.moe is not None:
+        layers["moe"] = moe_lib.init_moe(gen, d, cfg.moe, n_l, dtype, device)
+    d_ff = cfg.moe.dense_d_ff if cfg.moe is not None else cfg.d_ff
+    if d_ff:
+        layers["mlp"] = {"w_gate": stacked(d, d_ff, 0.02),
+                         "w_up": stacked(d, d_ff, 0.02),
+                         "w_down": stacked(d_ff, d, out_scale)}
     tree = {
-        "embed": {"table": blocks.embed_init(gen, v, d, dtype,
-                                             device=device)},
-        "layers": {
-            "attn_norm": ones(n_l, d),
-            "attn": attn,
-            "ffn_norm": ones(n_l, d),
-            "mlp": {"w_gate": stacked(d, cfg.d_ff, 0.02),
-                    "w_up": stacked(d, cfg.d_ff, 0.02),
-                    "w_down": stacked(cfg.d_ff, d, out_scale)},
-        },
+        "embed": embed,
+        "layers": layers,
         "final_norm": ones(d),
     }
     if not cfg.tie_embeddings:
@@ -126,50 +134,68 @@ def _head_table(params: Params, cfg: ModelConfig) -> torch.Tensor:
             else params.head.table)
 
 
+def ffn(lp: Dict[str, Any], h: torch.Tensor, cfg: ModelConfig, ctx: Ctx
+        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The layer's FFN on the normed input: the MoE layer (plus arctic's
+    parallel dense residual MLP) or the dense MLP. Returns (y, aux loss)."""
+    if cfg.moe is None:
+        return blocks.mlp(lp["mlp"], h, ctx), torch.zeros((), device=h.device)
+    y, aux = moe_lib.apply_moe(lp["moe"], h, cfg.moe, ctx)
+    if cfg.moe.dense_d_ff:
+        y = y + blocks.mlp(lp["mlp"], h, ctx)
+    return y, aux
+
+
 def apply_layer(lp: Dict[str, Any], x: torch.Tensor, cfg: ModelConfig,
                 ctx: Ctx, *, positions: Optional[torch.Tensor] = None,
-                chunk: int = 512) -> torch.Tensor:
-    """Pre-norm block on one layer's parameters ``lp``."""
+                chunk: int = 512) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pre-norm block on one layer's parameters ``lp``. Returns (x, aux
+    loss)."""
     h = blocks.rmsnorm(x, lp["attn_norm"], cfg.norm_eps)
     x = x + blocks.attention(lp["attn"], h, cfg, ctx, causal=True,
                              positions=positions, chunk=chunk)
     h = blocks.rmsnorm(x, lp["ffn_norm"], cfg.norm_eps)
-    return x + blocks.mlp(lp["mlp"], h, ctx)
+    y, aux = ffn(lp, h, cfg, ctx)
+    return x + y, aux
 
 
 def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
-            ctx: Ctx, *, remat=True, chunk: int = 512) -> torch.Tensor:
-    """tokens (B, S) int → logits (B, S, V). FT summaries go to the
-    ambient `telemetry.ft_scope`. ``remat`` ("full" / True, "none" /
-    False) checkpoints each layer when gradients are taken."""
-    _check_dense(cfg)
+            ctx: Ctx, *, remat=True, chunk: int = 512
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens (B, S) int → (logits (B, S, V), aux), aux the MoE load-balance
+    loss summed over the layers (f32; zero for the dense family). FT
+    summaries go to the ambient `telemetry.ft_scope`. ``remat`` ("full" /
+    True, "none" / False) checkpoints each layer when gradients are
+    taken."""
+    _check_family(cfg)
     x = blocks.embed(tokens, params.embed.table).to(ctx.dtype)
     positions = torch.arange(x.shape[1], device=x.device)
     layer = blocks.make_remat(
         functools.partial(apply_layer, cfg=cfg, ctx=ctx, positions=positions,
                           chunk=chunk), remat)
+    aux = torch.zeros((), device=x.device)
     for lp in params.layers.unbind_layers():
-        x = layer(lp, x)
+        x, aux_l = layer(lp, x)
+        aux = aux + aux_l
     x = blocks.rmsnorm(x, params.final_norm, cfg.norm_eps)
-    return blocks.lm_head(x, _head_table(params, cfg), ctx)
+    return blocks.lm_head(x, _head_table(params, cfg), ctx), aux
 
 
 def loss_fn(params: Params, batch: Dict[str, torch.Tensor],
             cfg: ModelConfig, ctx: Ctx, *, remat=True, chunk: int = 512
             ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """(loss, metrics) of a batch {"tokens", "labels"} (B, S): mean
-    cross-entropy plus 0.01 × the auxiliary loss (zero for the dense
-    family); metrics {"ce", "aux", "ft"} with "ft" the `FTReport` of the
-    forward. The forward's records also reach the ambient scope."""
+    cross-entropy plus 0.01 × the MoE load-balance loss (zero for the
+    dense family); metrics {"ce", "aux", "ft"} with "ft" the `FTReport` of
+    the forward. The forward's records also reach the ambient scope."""
     with telemetry.ft_scope() as scope:
-        logits = forward(params, batch["tokens"], cfg, ctx, remat=remat,
-                         chunk=chunk)
+        logits, aux = forward(params, batch["tokens"], cfg, ctx, remat=remat,
+                              chunk=chunk)
     outer = telemetry.current_scope()
     if outer is not None:
         outer.extend(scope)
     ce = blocks.cross_entropy(logits, batch["labels"])
-    aux = torch.zeros((), device=ce.device)
-    return ce + 0.01 * aux, {"ce": ce.detach(), "aux": aux,
+    return ce + 0.01 * aux, {"ce": ce.detach(), "aux": aux.detach(),
                              "ft": scope.report(device=ce.device)}
 
 
@@ -206,7 +232,7 @@ def decode_step(params: Params, token: torch.Tensor, cache: Dict[str, Any],
     """One decode step. token (B, 1); the cache holds ``length`` tokens per
     row. Writes the new keys/values into the cache in place and returns
     (logits (B, 1, V), cache) with ``length`` advanced."""
-    _check_dense(cfg)
+    _check_family(cfg)
     x = blocks.embed(token, params.embed.table).to(ctx.dtype)
     pos = cache["length"].long()                         # (B,)
     rows = torch.arange(x.shape[0], device=x.device)
@@ -221,7 +247,7 @@ def decode_step(params: Params, token: torch.Tensor, cache: Dict[str, Any],
         x = x + ctx.dot("wo", att.reshape(x.shape[0], 1, -1),
                         lp["attn"]["wo"])
         hn = blocks.rmsnorm(x, lp["ffn_norm"], cfg.norm_eps)
-        x = x + blocks.mlp(lp["mlp"], hn, ctx)
+        x = x + ffn(lp, hn, cfg, ctx)[0]
     x = blocks.rmsnorm(x, params.final_norm, cfg.norm_eps)
     logits = blocks.lm_head(x, _head_table(params, cfg), ctx)
     cache["length"] = cache["length"] + 1
@@ -241,7 +267,7 @@ def paged_decode_step(params: Params, token: torch.Tensor,
     (all-NULL rows) scatter into the null page and give ignored logits.
     Returns (logits (B, 1, V), cache) with ``length`` advanced."""
     from ..train import kv_cache
-    _check_dense(cfg)
+    _check_family(cfg)
     x = blocks.embed(token, params.embed.table).to(ctx.dtype)
     pos = cache["length"]                                # (B,) int32
     table = cache["page_table"]
@@ -256,7 +282,7 @@ def paged_decode_step(params: Params, token: torch.Tensor,
         x = x + ctx.dot("wo", att.reshape(x.shape[0], 1, -1),
                         lp["attn"]["wo"])
         hn = blocks.rmsnorm(x, lp["ffn_norm"], cfg.norm_eps)
-        x = x + blocks.mlp(lp["mlp"], hn, ctx)
+        x = x + ffn(lp, hn, cfg, ctx)[0]
     x = blocks.rmsnorm(x, params.final_norm, cfg.norm_eps)
     logits = blocks.lm_head(x, _head_table(params, cfg), ctx)
     cache["length"] = pos + 1
@@ -268,7 +294,7 @@ def prefill(params: Params, tokens: torch.Tensor, cache: Dict[str, Any],
             ) -> Tuple[torch.Tensor, Dict[str, Any]]:
     """Run the prompt (B, S) through the model, writing its keys/values
     into the cache in place. Returns (last-position logits (B, V), cache)."""
-    _check_dense(cfg)
+    _check_family(cfg)
     b, s = tokens.shape
     x = blocks.embed(tokens, params.embed.table).to(ctx.dtype)
     positions = torch.arange(s, device=x.device)
@@ -279,7 +305,7 @@ def prefill(params: Params, tokens: torch.Tensor, cache: Dict[str, Any],
                                        ctx=ctx)
         x = x + ctx.dot("wo", att.reshape(b, s, -1), lp["attn"]["wo"])
         hn = blocks.rmsnorm(x, lp["ffn_norm"], cfg.norm_eps)
-        x = x + blocks.mlp(lp["mlp"], hn, ctx)
+        x = x + ffn(lp, hn, cfg, ctx)[0]
         cache["k"][i, :, :s] = k.to(cache["k"].dtype)
         cache["v"][i, :, :s] = v.to(cache["v"].dtype)
     x = blocks.rmsnorm(x[:, -1:, :], params.final_norm, cfg.norm_eps)

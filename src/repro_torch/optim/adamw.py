@@ -4,8 +4,8 @@ The update is the reference's, leaf by leaf: global-norm clipping, bias-
 corrected moments, decoupled weight decay on every leaf with ndim ≥ 2 —
 the stacked (L, d) layer norms included, as in the reference. Unlike the
 reference, `apply` updates the parameters and the moments in place, one
-slice of the leading axis at a time, so the optimizer adds no full-size
-temporaries: the f32 m and v of a 4.45 B-parameter model (35.6 GB) and its
+slice of the leading axis (one expert of a stacked expert leaf) at a time,
+so the optimizer adds no full-size temporaries: the f32 m and v of a 4.45 B-parameter model (35.6 GB) and its
 bf16 weights and gradients then fit one 80 GB card. The int8 moments of
 the reference ("q8") are not ported and raise.
 """
@@ -52,14 +52,20 @@ def init(params: nn.Module, cfg: AdamWConfig) -> Dict[str, Any]:
 def global_norm(grads: Mapping[str, torch.Tensor]) -> torch.Tensor:
     total = None
     for g in grads.values():
-        sq = torch.sum(torch.square(g.float()))
-        total = sq if total is None else total + sq
+        # A stacked expert leaf (L, E, …) is summed one expert at a time.
+        parts = _slices(g) if g.dim() >= 4 else [slice(None)]
+        for sl in parts:
+            sq = torch.sum(torch.square(g[sl].float()))
+            total = sq if total is None else total + sq
     return torch.sqrt(total)
 
 
 def _slices(p: torch.Tensor, rows: int = 4096):
-    """Slices of the leading axis that bound the update's temporaries: one
-    layer of a stacked leaf, ``rows`` rows of a matrix, a vector whole."""
+    """Slices of the leading axes that bound the update's temporaries: one
+    expert of a stacked expert leaf (L, E, …), one layer of a stacked
+    leaf, ``rows`` rows of a matrix, a vector whole."""
+    if p.dim() >= 4:
+        return [(i, j) for i in range(p.shape[0]) for j in range(p.shape[1])]
     if p.dim() >= 3:
         return list(range(p.shape[0]))
     if p.dim() == 2:

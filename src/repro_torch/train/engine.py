@@ -38,7 +38,7 @@ import torch
 
 from ..configs.base import ModelConfig, RunConfig
 from ..models import transformer as tfm
-from ..models.blocks import Ctx
+from ..models.blocks import Ctx, uses_decode_kernel
 from . import kv_cache
 from .serve import check_device, compute_dtype
 
@@ -80,27 +80,35 @@ class ServeEngine:
         eng.submit(prompt_a); eng.submit(prompt_b)
         results = eng.run()           # or: while eng.step(): ...
 
-    ``params`` must already live on ``device``."""
+    ``params`` must already live on ``device``. ``clock`` (seconds, as
+    `time.perf_counter`) stamps submissions and first tokens, so TTFT is
+    read on the caller's clock. On a CUDA device, a page size that the
+    paged decode kernel K6 does not compile raises here when the decode
+    steps will launch K6."""
 
     def __init__(self, params, cfg: ModelConfig, run: RunConfig,
-                 ec: EngineConfig, *, device="cuda"):
+                 ec: EngineConfig, *, device="cuda",
+                 clock=time.perf_counter):
         if cfg.family not in ("dense", "moe"):
             raise NotImplementedError(
                 f"paged serving needs the transformer KV layout; family "
                 f"{cfg.family!r} is a ROADMAP follow-up")
-        if cfg.family != "dense" or cfg.moe is not None:
-            raise NotImplementedError(f"{cfg.arch_id}: the port's model runs "
-                                      f"the dense family only")
-        self.dev = check_device(device)
         self.params = params
         self.cfg = cfg
         self.ec = ec
+        self._clock = clock
         self.dtype = compute_dtype(run)
         self.ctx = Ctx(ft=run.ft, key=None, dtype=self.dtype,
                        attn_impl=run.attn_impl)
         self.plan = kv_cache.plan_pages(
             n_slots=ec.n_slots, max_len=ec.max_len, dtype=self.dtype,
             page_size=ec.page_size, slack=ec.slack)
+        # A page K6 does not compile would only raise at the first decode
+        # step, after the prefills: refuse it here.
+        if torch.device(device).type == "cuda" and \
+                uses_decode_kernel(self.ctx, cfg.head_dim):
+            kv_cache.check_decode_page(self.plan.page_size)
+        self.dev = check_device(device)
         p = self.plan
         self.alloc = kv_cache.PageAllocator(p.n_pages, p.n_slots,
                                             p.max_pages, p.page_size)
@@ -135,7 +143,7 @@ class ServeEngine:
                 f"max_len {self.plan.max_len}")
         rid = self._rid
         self._rid += 1
-        self.queue.append(Request(rid, prompt, mnt, time.perf_counter()))
+        self.queue.append(Request(rid, prompt, mnt, self._clock()))
         return rid
 
     # -- internals ---------------------------------------------------------
@@ -184,7 +192,7 @@ class ServeEngine:
             self.next_tok[slot] = tok
             self.n_new[slot] = 1
             self.gen[slot] = [tok]
-            self.ttft[slot] = time.perf_counter() - req.t_submit
+            self.ttft[slot] = self._clock() - req.t_submit
             if self._done(slot, tok):
                 self._finish(slot)
 

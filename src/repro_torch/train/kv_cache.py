@@ -17,7 +17,11 @@ Differences from the reference, each deliberate:
     returns new arrays;
   * the default page edge is K6's compiled page of 64 tokens
     (`DEFAULT_PAGE`), where the reference asks its TPU autotuner; the
-    reference's clamp to the dtype's sublane and to ``max_len`` stays.
+    reference's clamp to the dtype's sublane and to ``max_len`` stays, and
+    a clamped default that K6 does not compile is rounded up to the next
+    page it does (`DECODE_PAGES`). An explicit page is kept as the
+    reference keeps it; `check_decode_page` rejects one that K6 cannot
+    run before the engine serves anything.
 """
 from __future__ import annotations
 
@@ -65,13 +69,17 @@ def plan_pages(*, n_slots: int, max_len: int, dtype=torch.bfloat16,
                slack: float = 1.0) -> PagePlan:
     """The paged-cache geometry. The page edge defaults to
     `DEFAULT_PAGE` and is clamped, as in the reference, to a multiple of
-    the dtype's sublane no larger than ``max_len`` rounded up to it.
-    ``slack`` scales the pool (1.0 = every slot can reach max_len). The
-    reference also takes the model config and FT policy, for its
-    autotuner's page choice; the port has no autotuner yet."""
+    the dtype's sublane no larger than ``max_len`` rounded up to it; a
+    clamped default outside K6's `DECODE_PAGES` is rounded up to the next
+    compiled page. ``slack`` scales the pool (1.0 = every slot can reach
+    max_len). The reference also takes the model config and FT policy, for
+    its autotuner's page choice; the port has no autotuner yet."""
     sub = sublane(dtype)
-    page_size = DEFAULT_PAGE if page_size is None else page_size
+    default = page_size is None
+    page_size = DEFAULT_PAGE if default else page_size
     page_size = max(sub, min(page_size, -(-max_len // sub) * sub))
+    if default and page_size not in DECODE_PAGES:
+        page_size = min(p for p in DECODE_PAGES if p >= page_size)
     if page_size % sub != 0:
         raise ValueError(f"page size {page_size} is not a multiple of the "
                          f"sublane {sub}")
@@ -79,6 +87,14 @@ def plan_pages(*, n_slots: int, max_len: int, dtype=torch.bfloat16,
     n_pages = 1 + max(max_pages, int(round(n_slots * max_pages * slack)))
     return PagePlan(page_size=page_size, max_pages=max_pages,
                     n_pages=n_pages, n_slots=n_slots, max_len=max_len)
+
+
+def check_decode_page(page_size: int) -> None:
+    """Raise unless K6 compiles pages of ``page_size`` tokens: the engine
+    calls this before any prefill when its decode steps will launch K6."""
+    if page_size not in DECODE_PAGES:
+        raise ValueError(f"page size {page_size}: the paged decode kernel K6 "
+                         f"runs pages of {DECODE_PAGES} tokens only")
 
 
 # ---------------------------------------------------------------------------

@@ -158,8 +158,8 @@ def train(cfg: ModelConfig, run: RunConfig, shape: ShapeConfig,
     """End-to-end training on one device (`launch/train.py` calls this):
     random parameters from ``run.seed``, AdamW, the synthetic pipeline.
     Returns {"params", "opt_state", "history", "stragglers", "step_times",
-    "final_step"}; ``history`` has one entry per logged step (loss,
-    grad_norm, lr and the step's FT counters)."""
+    "final_step"}; ``history`` has one entry per logged step (loss, the MoE
+    load-balance loss "aux", grad_norm, lr and the step's FT counters)."""
     if ckpt_dir is not None or resume:
         raise NotImplementedError("checkpoints and resume are not ported")
     if sink is not None:
@@ -207,6 +207,7 @@ def train(cfg: ModelConfig, run: RunConfig, shape: ShapeConfig,
                     msg += " [STRAGGLER]"
                 log(msg)
                 history.append({"step": step, "loss": loss,
+                                "aux": float(metrics["aux"]),
                                 "grad_norm": float(metrics["grad_norm"]),
                                 "lr": float(metrics["lr"]),
                                 "detected": float(ft.detected),

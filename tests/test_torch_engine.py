@@ -246,6 +246,46 @@ def test_engine_rejects_bad_requests(tiny):
         eng.submit(np.asarray([1, 2]), max_new_tokens=0)
 
 
+@pytest.mark.parametrize("page", [48, 128])
+def test_engine_rejects_a_page_k6_cannot_run(tiny, page):
+    """On a CUDA device with the decode steps on K6 (FT on the kernel
+    backend, dh 128), a page K6 does not compile raises in the
+    constructor, before any prefill; the device is only checked after
+    that, so the check runs here without a card. With the xla backend
+    (no K6) the same page is not refused for K6's sake."""
+    _, tparams = tiny
+    ec = teng.EngineConfig(max_len=1024, n_slots=2, page_size=page)
+    run = TRun(model=T_TINY, ft=TFT(**PALLAS), dtype="bfloat16")
+    with pytest.raises(ValueError, match="K6"):
+        teng.ServeEngine(tparams, T_TINY, run, ec, device="cuda")
+    xla = TRun(model=T_TINY, ft=TFT(action="correct", level="block",
+                                    backend="xla"), dtype="bfloat16")
+    if torch.cuda.is_available():
+        teng.ServeEngine(tparams, T_TINY, xla, ec, device="cuda")
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            teng.ServeEngine(tparams, T_TINY, xla, ec, device="cuda")
+
+
+def test_engine_clock_drives_ttft(tiny):
+    """A caller's clock stamps each submission and first token: with a
+    fake clock that advances 1.0 per reading, a request submitted at t = 0
+    and admitted at once reads t = 1 at its first token."""
+    _, tparams = tiny
+    ticks = iter(range(1000))
+    clock = lambda: float(next(ticks))     # noqa: E731
+    run = TRun(model=T_TINY, ft=TFT(**PALLAS), dtype="float32")
+    eng = teng.ServeEngine(tparams, T_TINY, run,
+                           teng.EngineConfig(max_len=32, n_slots=1,
+                                             page_size=8),
+                           device="cpu", clock=clock)
+    eng.submit(np.arange(1, 6), max_new_tokens=2)
+    eng.submit(np.arange(1, 4), max_new_tokens=1)
+    assert [r.t_submit for r in eng.queue] == [0.0, 1.0]
+    res = eng.run()
+    assert [r.ttft_s for r in res] == [2.0 - 0.0, 3.0 - 1.0]
+
+
 def test_idle_engine_that_cannot_admit_raises(tiny):
     """A pool smaller than one request (slack 0.25): the idle engine raises
     instead of spinning, in both packages."""
@@ -269,12 +309,17 @@ def test_idle_engine_that_cannot_admit_raises(tiny):
 @pytest.mark.parametrize("family", ["ssm", "moe"])
 def test_engine_unsupported_family_raises(tiny, family):
     """Families without the transformer KV layout raise, as in the
-    reference; MoE, which the port's model does not run yet, too."""
+    reference; the MoE family has that layout and is admitted."""
     _, tparams = tiny
     moe = TMoE(n_experts=4, top_k=2, expert_d_ff=32) if family == "moe" \
         else None
     cfg = dataclasses.replace(T_TINY, family=family, moe=moe)
     run = TRun(model=cfg, ft=TFT(**PALLAS), dtype="float32")
+    if family == "moe":
+        eng = teng.ServeEngine(tparams, cfg, run, teng.EngineConfig(),
+                               device="cpu")
+        assert eng.plan.page_size in tkv.DECODE_PAGES
+        return
     with pytest.raises(NotImplementedError):
         teng.ServeEngine(tparams, cfg, run, teng.EngineConfig(),
                          device="cpu")

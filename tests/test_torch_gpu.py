@@ -14,7 +14,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.core.policy import FTConfig, ONLINE_BLOCK  # noqa: E402
+from repro_torch.core.policy import (FTConfig, InjectionSpec,  # noqa: E402
+                                     ONLINE_BLOCK)
 from repro_torch.kernels import flashft, ft_gemm  # noqa: E402
 
 pytestmark = pytest.mark.gpu
@@ -425,3 +426,163 @@ def test_decode_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
     with pytest.raises(TypeError):
         flashft.flash_ft_decode(q.half(), k.half(), v.half(), lens, table,
                                 **kw)
+
+
+# ---------------------------------------------------------------------------
+# K7 / K8: the grouped GEMMs of the MoE layer
+# ---------------------------------------------------------------------------
+
+def _grouped_layout(sizes, bm, seed):
+    from repro_torch.kernels.grouped import layout as glay
+    gids = torch.cat([torch.full((n,), g, dtype=torch.long)
+                      for g, n in enumerate(sizes)])
+    gen = torch.Generator().manual_seed(seed)
+    gids = gids[torch.randperm(len(gids), generator=gen)].cuda()
+    return glay.make_layout(gids, len(sizes), bm), glay
+
+
+#: Ragged groups, empty ones, and a fully dead tail of tiles (the buffer's
+#: worst-case capacity is far above the live rows).
+GROUP_SIZES = [13, 0, 29, 7, 0, 16]
+
+
+@pytest.mark.parametrize("dtype,bm", [(torch.float32, 8),
+                                      (torch.float32, 16),
+                                      (torch.bfloat16, 16)])
+def test_grouped_gemm_matches_plain(cuda, dtype, bm):
+    from repro_torch.kernels import grouped_gemm as kgg
+    lay, glay = _grouped_layout(GROUP_SIZES, bm, 1)
+    gen = torch.Generator(device="cuda").manual_seed(bm)
+    k, n, ng = 200, 300, len(GROUP_SIZES)
+    buf = glay.scatter_rows(_ints(gen, lay.n_rows, k, dtype=dtype), lay)
+    w = _ints(gen, ng, k, n, dtype=dtype)
+    wt = _ints(gen, ng, n, k, dtype=dtype).transpose(-1, -2)
+    base = lay.base.tolist()
+    dead_row = lay.t_buf - 1
+    assert lay.t_buf - int(lay.row_end[-1]) > bm      # a dead tail of tiles
+    for ww in (w, wt):
+        for ft, inj in ((FT, None), (FT, (1, base[2] + 28, n - 1, 3)),
+                        (FT.replace(action="detect"), (1, base[2] + 28,
+                                                       n - 1, 3)),
+                        (FT.replace(verify="final"), (1, base[0], 5, 0)),
+                        (FT, (1, dead_row, 7, 1)), (None, None)):
+            kw = dict(ft=ft, inj=inj, inj_mag=99.0)
+            before = kgg.FT_GEMM_GROUPED.launches
+            out, rep = kgg.ft_gemm_grouped(buf, ww, lay.gid, lay.row_end, **kw)
+            assert kgg.FT_GEMM_GROUPED.launches == before + 1
+            out_p, rep_p = kgg.ft_gemm_grouped_plain(
+                buf, ww, lay.gid, lay.row_end, tiles=(bm, 128, 32), **kw)
+            assert torch.equal(out, out_p)
+            if ft is None:
+                assert rep is None
+                continue
+            _check_reports(rep, rep_p)
+            n_det, n_corr = float(rep[..., 0].sum()), float(rep[..., 1].sum())
+            if inj is None:
+                assert n_det == n_corr == 0.0
+            elif ft.corrects:
+                assert n_det == n_corr == 1.0
+            else:      # detect-only: counted again at every later verify
+                assert n_det >= 1.0 and n_corr == 0.0
+            if inj is not None and ft.corrects:
+                clean, _ = kgg.ft_gemm_grouped(buf, ww, lay.gid, lay.row_end,
+                                               ft=FT)
+                assert torch.equal(out, clean)
+
+
+@pytest.mark.parametrize("dtype,bm", [(torch.float32, 8),
+                                      (torch.float32, 16),
+                                      (torch.bfloat16, 16)])
+def test_tgmm_matches_plain(cuda, dtype, bm):
+    from repro_torch.kernels import grouped as kgrouped
+    from repro_torch.kernels import grouped_gemm as kgg
+    from repro_torch.kernels.templates import BatchedKernelSpec
+    lay, glay = _grouped_layout(GROUP_SIZES, bm, 2)
+    gen = torch.Generator(device="cuda").manual_seed(10 + bm)
+    k, n = 150, 200
+    x = glay.scatter_rows(_ints(gen, lay.n_rows, k, dtype=dtype), lay)
+    g = glay.scatter_rows(_ints(gen, lay.n_rows, n, dtype=dtype), lay)
+    spec = BatchedKernelSpec(ft_level="block", tgmm=True)
+    base, counts = lay.base.tolist(), lay.counts.tolist()
+    last_tile = (base[-1] + counts[-1] - 1) // bm    # the last group's
+    for ft, inj in ((FT, None), (FT, (1, k - 1, 70, base[2] // bm + 1)),
+                    (FT.replace(action="detect"), (1, 3, n - 1, last_tile)),
+                    (FT.replace(verify="final"), (1, 64, 64, base[0] // bm)),
+                    (FT.replace(action="detect"), (1, 5, 5,
+                                                   lay.num_tiles - 1))):
+        tinj = None if inj is None else InjectionSpec(
+            row=inj[1], col=inj[2], magnitude=50.0, k_step=inj[3])
+        before = kgg.TGMM.launches
+        dw, rep = kgrouped.tgmm_buffer_call(spec, x, g, lay, ft=ft,
+                                            inject=tinj)
+        assert kgg.TGMM.launches == before + 1
+        dw_p, rep_p = kgg.tgmm_plain(x, g, lay.row_end, tiles=(bm, 64, 64),
+                                     ft=ft, inj=inj, inj_mag=50.0)
+        assert dw.dtype == torch.float32
+        assert torch.equal(dw, dw_p)
+        _check_reports(rep, rep_p)
+        for e in range(len(GROUP_SIZES)):
+            if counts[e] == 0:
+                assert not dw[e].any() and not rep[e].any()
+        n_det = float(rep[..., 0].sum())
+        assert (n_det == 0) == (inj is None)
+        if inj is not None and inj[3] == last_tile and not ft.corrects:
+            # the last group re-verifies a detect-only SEU once per dead
+            # tile of the buffer, as the reference's walk does
+            assert n_det > 1
+
+
+def test_grouped_autograd_on_card_matches_plain_path(cuda):
+    """`ft_grouped_matmul` forward and grads through K7 (forward, dbuf) and
+    K8 (dw) on the card against the same call on the CPU (the plain
+    versions), integer operands: equal bit for bit, clean and with a
+    corrected dw SEU."""
+    from repro_torch.core import ft_gemm as core
+    gen = torch.Generator().manual_seed(7)
+    t, ng, k, n = 90, 6, 96, 160
+    gids = torch.randint(0, ng, (t,), generator=gen)
+    gids[gids == 4] = 3                                # an empty group
+    x = torch.randint(-2, 3, (t, k), generator=gen).float()
+    w = torch.randint(-2, 3, (ng, k, n), generator=gen).float()
+    r = torch.randint(-2, 3, (t, n), generator=gen).float()
+
+    def run(dev, bwd_inject=None):
+        xx = x.to(dev).detach().requires_grad_(True)
+        ww = w.to(dev).detach().requires_grad_(True)
+        y = core.ft_grouped_matmul(xx, ww, gids.to(dev), ft=FT,
+                                   bwd_inject=bwd_inject)
+        (y * r.to(dev)).sum().backward()
+        return y.detach().cpu(), xx.grad.cpu(), ww.grad.cpu()
+
+    want = run("cpu")
+    got = run("cuda")
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    hurt = run("cuda", ("dw", InjectionSpec(row=3, col=5, magnitude=40.0,
+                                            k_step=1)))
+    for a, b in zip(hurt, want):
+        assert torch.equal(a, b)
+
+
+def test_engine_at_max_len_40_runs_k6(cuda):
+    """The default page at max_len 40 is 64 (the clamp alone gave 48, which
+    K6 does not compile): a dense engine with dh 128 on the kernel backend
+    serves two requests through K6."""
+    from repro_torch.configs.base import ModelConfig, RunConfig
+    from repro_torch.models import transformer
+    from repro_torch.train import engine
+    cfg = ModelConfig(arch_id="tiny", family="dense", n_layers=2, d_model=64,
+                      n_heads=4, n_kv_heads=2, d_ff=128, vocab_size=256,
+                      head_dim=128)
+    run = RunConfig(model=cfg, ft=FT, dtype="bfloat16")
+    params = transformer.init(cfg, seed=0, dtype=torch.bfloat16)
+    eng = engine.ServeEngine(params, cfg, run,
+                             engine.EngineConfig(max_len=40, n_slots=2))
+    assert eng.plan.page_size == 64
+    before = flashft.FLASH_DECODE.launches
+    eng.submit(list(range(1, 30)), max_new_tokens=8)
+    eng.submit(list(range(3, 9)), max_new_tokens=5)
+    res = eng.run()
+    assert [len(r.tokens) for r in res] == [8, 5]
+    assert flashft.FLASH_DECODE.launches > before
+    assert eng.alloc.n_free == eng.plan.n_pages - 1

@@ -138,12 +138,46 @@ def test_plan_pages_matches_reference(case):
 
 def test_default_page_is_the_decode_kernels_page():
     """Without a page size the port takes K6's compiled page of 64 (the
-    reference asks its TPU autotuner), clamped as the reference clamps."""
+    reference asks its TPU autotuner), clamped as the reference clamps and
+    rounded up to the next page K6 compiles where the clamp gives another
+    (the clamp alone gave 40 and 48 here, which K6 cannot run)."""
     plan = tkv.plan_pages(n_slots=8, max_len=1024)
     assert (plan.page_size, plan.max_pages, plan.n_pages) == (64, 16, 129)
     assert tkv.plan_pages(n_slots=2, max_len=40,
-                          dtype=torch.float32).page_size == 40
-    assert tkv.plan_pages(n_slots=2, max_len=40).page_size == 48
+                          dtype=torch.float32).page_size == 64
+    assert tkv.plan_pages(n_slots=2, max_len=40).page_size == 64
+    assert tkv.plan_pages(n_slots=2, max_len=20).page_size == 32
+
+
+@pytest.mark.parametrize("dt", ["float32", "bfloat16"])
+def test_default_page_is_always_compiled(dt):
+    """Over max_len 1-1 024 the default page is one K6 compiles, and the
+    plan equals the reference's (with the port's default page passed to
+    it) wherever the reference's clamp already gives a compiled page."""
+    rcfg = rreg.get_config("qwen2-7b")
+    same = 0
+    for max_len in range(1, 1025):
+        got = tkv.plan_pages(n_slots=2, max_len=max_len,
+                             dtype=getattr(torch, dt))
+        assert got.page_size in tkv.DECODE_PAGES, (max_len, got)
+        assert got.max_pages * got.page_size >= max_len
+        want = rkv.plan_pages(rcfg, R_ONLINE, n_slots=2, max_len=max_len,
+                              dtype=getattr(jnp, dt),
+                              page_size=tkv.DEFAULT_PAGE)
+        if want.page_size in tkv.DECODE_PAGES:
+            assert dataclasses.asdict(got) == dataclasses.asdict(want)
+            same += 1
+    # The clamp alone gave an uncompiled page for max_len 1-8, 17-24 and
+    # 33-56 in f32 (40 values) and 33-48 in bf16 (16 values).
+    assert same == 1024 - {"float32": 40, "bfloat16": 16}[dt]
+
+
+def test_check_decode_page():
+    for page in tkv.DECODE_PAGES:
+        tkv.check_decode_page(page)
+    for page in (8, 48, 128):
+        with pytest.raises(ValueError, match="K6"):
+            tkv.check_decode_page(page)
 
 
 def _pools(rng, n_l, n_pages, kvh, page, dh):

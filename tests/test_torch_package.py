@@ -103,7 +103,10 @@ def test_port_sources_import_neither_jax_nor_reference():
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 10
     for new in ("optim/adamw.py", "train/train_loop.py", "launch/train.py",
-                "data/pipeline.py", "train/kv_cache.py", "train/engine.py"):
+                "data/pipeline.py", "train/kv_cache.py", "train/engine.py",
+                "models/moe.py", "kernels/grouped_gemm.py",
+                "kernels/grouped/layout.py", "kernels/grouped/dispatch.py",
+                "configs/qwen3_moe_235b.py", "configs/arctic_480b.py"):
         assert ROOT / "src" / "repro_torch" / new in files
     offenders = [str(f.relative_to(ROOT)) for f in files
                  if pat.search(f.read_text())]
@@ -148,6 +151,16 @@ def test_kernel_wrappers_take_no_other_device():
         tkflash.flash_ft_decode(q, pool, pool, lengths, table,
                                 ft=tpolicy.ONLINE_BLOCK, scale=1.0,
                                 tau_dh=128)
+    from repro_torch.kernels import grouped_gemm as tkgg
+    buf, w = torch.ones(16, 8, device="meta"), torch.ones(2, 8, 4,
+                                                          device="meta")
+    gid = torch.zeros(1, dtype=torch.int32, device="meta")
+    row_end = torch.ones(2, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="device"):
+        tkgg.ft_gemm_grouped(buf, w, gid, row_end, ft=tpolicy.ONLINE_BLOCK)
+    with pytest.raises(ValueError, match="device"):
+        tkgg.tgmm(buf, torch.ones(16, 4, device="meta"), row_end, bm=16,
+                  ft=tpolicy.ONLINE_BLOCK)
 
 
 def test_stochastic_campaign_on_kernel_backend_raises():
