@@ -5,6 +5,7 @@
     python3 chip_smoke.py --phases env,train_kernels,train_check,train
     python3 chip_smoke.py --phases env,decode_kernels,engine_check,engine
     python3 chip_smoke.py --phases env,moe_kernels,moe_check,moe_engine,moe_train
+    python3 chip_smoke.py --phases env,level_kernels,level_check,level_serve,ladder
 
 Phases (each prints its own lines; any failed check exits non-zero):
 
@@ -27,6 +28,35 @@ Phases (each prints its own lines; any failed check exits non-zero):
                prompt tokens, 32 greedy tokens, once under a dispatch guard
                (every kernel's launch count from that run, no library matmul
                / attention call on the FT path), once timed without it;
+  level_kernels  K1 and K5 at the tile (warp) and inner (thread) FT levels
+               against their plain versions on the card in bf16 at
+               qwen2-7b's prefill and decode w_gate+silu, decode wk+bias,
+               decode lm_head and decode QKᵀ shapes: max error, reports equal, no detection on clean
+               data, an SEU on integer-valued operands corrected bit for
+               bit and located and left in place by a detect-only policy;
+               CUDA-event times beside FT off, block, the bound, the plain
+               version and the library call;
+  level_check  qwen2-7b at full width, 2 layers: prefill and 2 decode steps
+               at each level through the kernels against their plain
+               versions and against block (logits within 2e-2 of
+               max|logit|, no detection);
+  level_serve  `generate` on qwen2-7b at full width and depth, 4 requests x
+               128 prompt tokens, 16 greedy tokens, at block, tile and
+               inner (block at the same token count as the other two, so
+               tokens/s compares like for like), as `serve` runs it (launch counts, dispatch guard,
+               prefill and decode times, tokens/s, peak memory, zero
+               detections);
+  ladder       the paper's step-wise GEMM ladder and FT-level ablation on
+               f32 squares of 1 024, 4 096 and 8 192 (TF32 off):
+               torch.matmul (cuBLAS), K9 naive_gemm, K1 FT off at each
+               compiled tile, K1 at block / tile x verify step / final and
+               at inner (which verifies every k-step's Δ whatever
+               ``verify`` says), block detect-only, the torch-op non-fused baseline;
+               CUDA-event time, TFLOP/s, the f32 bound and each rung's
+               overhead over K1 FT off and over torch.matmul; K9 and K1
+               against their plain versions at 1 024 and 4 096; one SEU per
+               launch at k-step 0, mid and last at 4 096, corrected at each
+               level, timed against the clean run;
   decode_kernels  the paged decode kernel K6 against its plain version on
                the card at qwen2-7b's decode shape in bf16 (28 / 4 heads, dh
                128, pages of 64, 8 slots of lengths 0 to 1 024 whose pages
@@ -132,11 +162,13 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 from repro_torch.configs import (phi4_mini_38b, qwen2_7b,       # noqa: E402
                                  qwen3_moe_235b)
 from repro_torch.configs.base import RunConfig, ShapeConfig     # noqa: E402
-from repro_torch.core import telemetry                          # noqa: E402
+from repro_torch.core import ft_verdict_dot, telemetry          # noqa: E402
 from repro_torch.core.policy import (InjectionSpec,             # noqa: E402
-                                     OFFLINE_DETECT, ONLINE_BLOCK)
+                                     NONFUSED_BASELINE, OFFLINE_DETECT,
+                                     ONLINE_BLOCK)
 from repro_torch.data import pipeline as data_lib               # noqa: E402
 from repro_torch.kernels import build, flashft, ft_gemm         # noqa: E402
+from repro_torch.kernels import gemm as base_gemm               # noqa: E402
 from repro_torch.kernels import grouped_gemm, ops               # noqa: E402
 from repro_torch.kernels import grouped as kgrouped             # noqa: E402
 from repro_torch.kernels.templates import BatchedKernelSpec     # noqa: E402
@@ -156,6 +188,17 @@ CHECK_SEQ, CHECK_LAYERS = 256, 2
 #: kernel vs plain: one bf16 ulp at the top of the output's range (the two
 #: sum in different orders in f32, then round to bf16).
 BF16_TOL = 2.0 ** -7
+#: f32 kernel vs plain or library at K <= 8 192: the two sum in different
+#: orders in f32; 1e-4 of the top of the output's range.
+F32_TOL = 1e-4
+#: The paper's GEMM anatomy: the tile (warp) and inner (thread) FT levels
+#: beside block; level_serve's greedy tokens.
+LEVELS = ("tile", "inner")
+LEVEL_NEW_TOKENS = 16
+#: The ladder: f32 squares, bound by the f32 rate of the CUDA cores (H100
+#: SXM, NVIDIA data sheet: 67 TFLOP/s without the tensor cores).
+LADDER_SIZES = (1024, 4096, 8192)
+PEAK_F32 = 67e12
 
 KERNELS = {
     "ft_gemm_2d": dict(route="cuda",
@@ -194,9 +237,14 @@ KERNELS = {
     "tgmm": dict(route="cuda", source="src/repro_torch/kernels/csrc/tgmm.cu",
                  replaces="src/repro/kernels/templates/registry.py:411",
                  counter=grouped_gemm.TGMM),
+    "naive_gemm": dict(route="cuda",
+                       source="src/repro_torch/kernels/csrc/gemm_naive.cu",
+                       replaces="src/repro/kernels/gemm.py:61",
+                       counter=base_gemm.NAIVE_GEMM),
 }
-#: zero launches of the MoE kernels, for the dense paths' expected counts
-NO_MOE = {"ft_gemm_grouped": 0, "tgmm": 0}
+#: zero launches of the MoE kernels and of K9, for the model paths'
+#: expected counts
+OFF_PATH = {"ft_gemm_grouped": 0, "tgmm": 0, "naive_gemm": 0}
 #: paged serving: qwen2-7b, 16 requests on 8 slots, max_len 1 024
 ENGINE_SLOTS, ENGINE_REQUESTS, ENGINE_MAX_LEN = 8, 16, 1024
 DECODE_LENGTHS = (0, 1, 63, 64, 65, 300, 777, 1024)
@@ -248,12 +296,15 @@ def phase_env() -> str:
           f"{time.perf_counter() - t0:.1f} s wall")
     for rec in builds.values():
         print(f"  {rec.name}.cu: {rec.seconds:.1f} s -> {rec.path.name}")
-        fn = None
+        fn = ""
         for line in rec.log.splitlines():
             if "Compiling entry function" in line:
                 fn = line.split("'")[1] if "'" in line else line
+                # the instance: the mangled name from the kernel's own name
+                # on, its template arguments included (FT, LEVEL, tiles, ...)
+                fn = fn[fn.find("kernel"):] if "kernel" in fn else fn
             elif "Used" in line or "spill" in line:
-                print(f"    {fn[:60] if fn else ''}: {line.strip()}")
+                print(f"    {fn[:100]}: {line.strip()}")
     return smi
 
 
@@ -276,11 +327,11 @@ def _plain_gemm(a, b, **kw):
                                  **kw)
 
 
-def _cmp_outputs(name, got, want, rep_k=None, rep_p=None):
+def _cmp_outputs(name, got, want, rep_k=None, rep_p=None, tol=BF16_TOL):
     err = (got.float() - want.float()).abs().max().item()
     scale = want.float().abs().max().item()
-    check(err <= BF16_TOL * scale,
-          f"{name}: max|kernel - plain| {err:.3g} <= {BF16_TOL:.4f} x "
+    check(err <= tol * scale,
+          f"{name}: max|kernel - plain| {err:.3g} <= {tol:.4g} x "
           f"{scale:.3g}")
     if rep_k is not None:
         check(torch.equal(rep_k[..., 0], rep_p[..., 0])
@@ -491,47 +542,57 @@ def plain_kernels():
             setattr(flashft, n, fn)
 
 
-def phase_serve_check():
-    cfg = dataclasses.replace(qwen2_7b.CONFIG, n_layers=2)
-    run = RunConfig(model=cfg, ft=FT, dtype="bfloat16")
-    params = transformer.init(cfg, seed=1, dtype=torch.bfloat16)
-    gen = torch.Generator().manual_seed(1)
-    prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=gen)
-    # The same decode tokens for both paths: on random weights the logits
-    # are near-flat, so each path's own argmax could pick another token.
-    steps = torch.randint(0, cfg.vocab_size, (2, BATCH, 1), generator=gen)
+def _serve_logits(params, cfg, run, prompts, feed):
+    """Logits of a prefill and 2 decode steps of ``run`` (and its FT
+    totals); ``feed`` None feeds each step the path's own greedy tokens."""
     prefill_fn, decode_fn = serve.make_serve_fns(cfg, run)
+    with telemetry.ft_scope() as scope:
+        cache = transformer.init_cache(cfg, BATCH, MAX_LEN)
+        logits, cache = prefill_fn(params, prompts.cuda(), cache)
+        out = [logits.float().reshape(BATCH, -1)]
+        for i in range(2):
+            tok = (torch.argmax(out[-1], -1)[:, None] if feed is None
+                   else feed[i].cuda())
+            logits, cache = decode_fn(params, tok, cache)
+            out.append(logits.float().reshape(BATCH, -1))
+        return out, scope.totals()
 
-    def run_path(feed):
-        """Prefill and 2 decode steps; ``feed`` None feeds each step the
-        path's own greedy tokens."""
-        with telemetry.ft_scope() as scope:
-            cache = transformer.init_cache(cfg, BATCH, MAX_LEN)
-            logits, cache = prefill_fn(params, prompts.cuda(), cache)
-            out = [logits.float().reshape(BATCH, -1)]
-            for i in range(2):
-                tok = (torch.argmax(out[-1], -1)[:, None] if feed is None
-                       else feed[i].cuda())
-                logits, cache = decode_fn(params, tok, cache)
-                out.append(logits.float().reshape(BATCH, -1))
-            return out, scope.totals()
 
-    got, tot_k = run_path(steps)
-    with plain_kernels():
-        want, tot_p = run_path(steps)
+def _check_logits(name, got, want):
     for i, (g_, w_) in enumerate(zip(got, want)):
         err = (g_ - w_).abs().max().item()
         scale = w_.abs().max().item()
         check(bool(torch.isfinite(g_).all()) and err <= 2e-2 * scale,
-              f"serve_check step {i}: max|kernel - plain| logits {err:.3g} "
+              f"{name} step {i}: max|difference| of the logits {err:.3g} "
               f"<= 2e-2 x {scale:.3g}")
+
+
+def _check_inputs(cfg):
+    """serve_check's and level_check's prompts and decode tokens. The same
+    decode tokens go to every path: on random weights the logits are
+    near-flat, so each path's own argmax could pick another token."""
+    gen = torch.Generator().manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT), generator=gen)
+    steps = torch.randint(0, cfg.vocab_size, (2, BATCH, 1), generator=gen)
+    return prompts, steps
+
+
+def phase_serve_check():
+    cfg = dataclasses.replace(qwen2_7b.CONFIG, n_layers=2)
+    run = RunConfig(model=cfg, ft=FT, dtype="bfloat16")
+    params = transformer.init(cfg, seed=1, dtype=torch.bfloat16)
+    prompts, steps = _check_inputs(cfg)
+    got, tot_k = _serve_logits(params, cfg, run, prompts, steps)
+    with plain_kernels():
+        want, tot_p = _serve_logits(params, cfg, run, prompts, steps)
+    _check_logits("serve_check kernel vs plain", got, want)
     check(tot_k["detected"] == 0 and tot_p["detected"] == 0,
           f"serve_check: zero detections (kernels {tot_k}, plain {tot_p})")
     # Each path fed its own greedy tokens (not checked: a flip is allowed
     # where the top-2 margin is below the kernel-vs-plain error).
-    greedy_k, _ = run_path(None)
+    greedy_k, _ = _serve_logits(params, cfg, run, prompts, None)
     with plain_kernels():
-        greedy_p, _ = run_path(None)
+        greedy_p, _ = _serve_logits(params, cfg, run, prompts, None)
     for i, (g_, w_) in enumerate(zip(greedy_k, greedy_p)):
         top2 = torch.topk(g_, 2, dim=-1).values
         print(f"  greedy step {i}: kernel argmax "
@@ -582,12 +643,13 @@ def router_product(n_experts: int):
     return allow
 
 
-def phase_serve(layers: int):
+def _qwen_serving(layers: int):
+    """qwen2-7b at full width and ``layers`` deep, random bf16 weights
+    from seed 0, and the batch serving phases' prompts."""
     cfg = qwen2_7b.CONFIG
     if layers != cfg.n_layers:
         print(f"  depth cut: {layers} of {cfg.n_layers} layers")
         cfg = dataclasses.replace(cfg, n_layers=layers)
-    run = RunConfig(model=cfg, ft=FT, dtype="bfloat16")
     t0 = time.perf_counter()
     params = transformer.init(cfg, seed=0, dtype=torch.bfloat16)
     torch.cuda.synchronize()
@@ -596,6 +658,17 @@ def phase_serve(layers: int):
           f"{time.perf_counter() - t0:.1f} s")
     prompts = torch.randint(0, cfg.vocab_size, (BATCH, PROMPT),
                             generator=torch.Generator().manual_seed(0)).numpy()
+    return cfg, params, prompts
+
+
+def _serve_run(name, params, cfg, run, prompts, new_tokens):
+    """`generate` once under the dispatch guard (launch counts, dispatched
+    ops, FT totals) and once timed without it, then the phase times through
+    the same entry points: medians of 3 prefills and of 8 decode steps,
+    each timed alone. Checks the launch counts (K1 7 per layer + the head
+    per prefill and per decode step, K5 2 per layer per decode step, K2 1
+    per layer per prefill) and zero detections. Returns (launches, the
+    phase's summary)."""
     sc = serve.ServeConfig(max_len=MAX_LEN)
     torch.cuda.reset_peak_memory_stats()
     # The main path's run, under the guard: launch counts and dispatched ops.
@@ -604,7 +677,7 @@ def phase_serve(layers: int):
     guard = LibraryCallGuard()
     with telemetry.ft_scope() as scope, guard:
         tokens = serve.generate(params, prompts, cfg, run, sc,
-                                max_new_tokens=NEW_TOKENS, device="cuda")
+                                max_new_tokens=new_tokens, device="cuda")
         torch.cuda.synchronize()
     launches = {n: k["counter"].launches for n, k in KERNELS.items()}
     totals = scope.totals()
@@ -612,31 +685,31 @@ def phase_serve(layers: int):
     # as warm-up); it must give the same greedy tokens.
     t0 = time.perf_counter()
     again = serve.generate(params, prompts, cfg, run, sc,
-                           max_new_tokens=NEW_TOKENS, device="cuda")
+                           max_new_tokens=new_tokens, device="cuda")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    print(f"  generate: {tokens.shape} tokens in {wall:.2f} s "
+    print(f"  {name} generate: {tokens.shape} tokens in {wall:.2f} s "
           f"({tokens.size / wall:.2f} new tokens/s), peak memory "
           f"{peak:.1f} GiB")
     print(f"  launches (guarded run): {launches}; FT totals {totals}")
-    check((again == tokens).all(), "the timed run repeats the greedy tokens")
-    check(tokens.shape == (BATCH, NEW_TOKENS) and int(tokens.min()) >= 0
+    check((again == tokens).all(), f"{name}: the timed run repeats the "
+          f"greedy tokens")
+    check(tokens.shape == (BATCH, new_tokens) and int(tokens.min()) >= 0
           and int(tokens.max()) < cfg.vocab_size,
-          "generate returned in-vocabulary tokens of the expected shape")
-    check(not guard.hits, f"no library matmul / attention op dispatched "
-          f"({sorted(set(guard.hits))})")
+          f"{name}: generate returned in-vocabulary tokens of the expected "
+          f"shape")
+    check(not guard.hits, f"{name}: no library matmul / attention op "
+          f"dispatched ({sorted(set(guard.hits))})")
     per_step = cfg.n_layers * 7 + 1
-    check(launches == {"ft_gemm_2d": per_step * (NEW_TOKENS + 1),
-                       "ft_gemm_batched": 2 * cfg.n_layers * NEW_TOKENS,
+    check(launches == {"ft_gemm_2d": per_step * (new_tokens + 1),
+                       "ft_gemm_batched": 2 * cfg.n_layers * new_tokens,
                        "flash_ft": cfg.n_layers, "flash_dq": 0,
-                       "flash_dkv": 0, "flash_decode": 0, **NO_MOE},
-          f"launch counts: K1 {per_step} per prefill and per decode step, K5 "
-          f"{2 * cfg.n_layers} per decode step, K2 {cfg.n_layers} per prefill")
-    check(totals["detected"] == 0, "zero detections on the serving path")
-
-    # Phase times through the same entry points: medians of 3 prefills and
-    # of 8 decode steps, each timed alone.
+                       "flash_dkv": 0, "flash_decode": 0, **OFF_PATH},
+          f"{name}: launch counts K1 {per_step} per prefill and per decode "
+          f"step, K5 {2 * cfg.n_layers} per decode step, K2 "
+          f"{cfg.n_layers} per prefill")
+    check(totals["detected"] == 0, f"{name}: zero detections")
     prefill_fn, decode_fn = serve.make_serve_fns(cfg, run)
     prompts_d = torch.as_tensor(prompts).cuda()
     pre = []
@@ -656,15 +729,294 @@ def phase_serve(layers: int):
         torch.cuda.synchronize()
         dec.append((time.perf_counter() - t0) * 1e3)
     prefill_ms, decode_ms = statistics.median(pre), statistics.median(dec)
-    print(f"  prefill {prefill_ms:.1f} ms median of {[round(x, 1) for x in pre]}"
-          f" ({BATCH}x{PROMPT} tokens), decode {decode_ms:.1f} ms per step "
-          f"median of {[round(x, 1) for x in dec]} ({BATCH} tokens)")
-    print(json.dumps({"serve": dict(
-        arch=cfg.arch_id, layers=cfg.n_layers, batch=BATCH, prompt=PROMPT,
-        new_tokens=NEW_TOKENS, generate_s=wall,
+    print(f"  {name}: prefill {prefill_ms:.1f} ms median of "
+          f"{[round(x, 1) for x in pre]} ({BATCH}x{PROMPT} tokens), decode "
+          f"{decode_ms:.1f} ms per step median of "
+          f"{[round(x, 1) for x in dec]} ({BATCH} tokens)")
+    return launches, dict(
+        arch=cfg.arch_id, layers=cfg.n_layers, level=run.ft.level,
+        batch=BATCH, prompt=PROMPT, new_tokens=new_tokens, generate_s=wall,
         new_tokens_per_s=tokens.size / wall, prefill_ms=prefill_ms,
-        decode_ms_per_step=decode_ms, peak_gib=peak, launches=launches)}))
+        decode_ms_per_step=decode_ms, peak_gib=peak,
+        detected=totals["detected"], launches=launches)
+
+
+def phase_serve(layers: int):
+    cfg, params, prompts = _qwen_serving(layers)
+    run = RunConfig(model=cfg, ft=FT, dtype="bfloat16")
+    launches, summary = _serve_run("serve", params, cfg, run, prompts,
+                                   NEW_TOKENS)
+    print(json.dumps({"serve": summary}))
     return launches
+
+
+# ---------------------------------------------------------------------------
+# level_kernels / level_check / level_serve / ladder: the paper's GEMM anatomy
+# ---------------------------------------------------------------------------
+
+def phase_level_kernels():
+    """K1 and K5 at the tile and inner levels against their plain versions
+    at serving shapes of qwen2-7b (bf16), beside FT off and block."""
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    cfg = qwen2_7b.CONFIG
+    d, dff = cfg.d_model, cfg.d_ff
+    kvh, rep_n, dh = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, \
+        cfg.head_dim
+
+    def operands(make, label):
+        """(a, b, chain, kw, slices) of a case; make(shape, scale) draws."""
+        if label == "dec_qk":
+            k_cache = make((BATCH, MAX_LEN, kvh, dh), 1.0)
+            return (make((BATCH, kvh, rep_n, dh), 1.0),
+                    k_cache.permute(0, 2, 3, 1), (), {}, BATCH * kvh)
+        m = BATCH * PROMPT if label.startswith("prefill") else BATCH
+        a = make((m, d), 1.0)
+        if label == "decode wk+bias":
+            return (a, make((d, kvh * dh), 0.02), ("bias",),
+                    dict(bias=make((kvh * dh,), 0.02)), 1)
+        if label == "decode lm_head":
+            return a, make((d, cfg.vocab_size), 0.02), (), {}, 1
+        return a, make((d, dff), 0.02), ("silu",), {}, 1
+
+    def rnd(shape, scale):
+        return _rand(gen, *shape, scale=scale)
+
+    def ints(shape, scale):
+        return _ints(gen, *shape)
+
+    rows = {"ft_gemm_2d": dict(max_abs_err=0.0, detail=[]),
+            "ft_gemm_batched": dict(max_abs_err=0.0, detail=[])}
+    for label, name in (("prefill w_gate+silu", "ft_gemm_2d"),
+                        ("decode w_gate+silu", "ft_gemm_2d"),
+                        ("decode wk+bias", "ft_gemm_2d"),
+                        ("decode lm_head", "ft_gemm_2d"),
+                        ("dec_qk", "ft_gemm_batched")):
+        a, b, chain, kw, nb = operands(rnd, label)
+        m, k, n = a.shape[-2], a.shape[-1], b.shape[-1]
+        iters = 3 if m == BATCH * PROMPT else 10
+        off_ms = time_ms(lambda: ft_gemm.ft_gemm(a, b, chain=chain, **kw),
+                         iters)
+        block_ms = time_ms(lambda: ft_gemm.ft_gemm(a, b, chain=chain, ft=FT,
+                                                   **kw), iters)
+        lib_ms = time_ms((lambda: torch.addmm(kw["bias"], a, b)) if kw
+                         else (lambda: torch.matmul(a, b)), iters)
+        b_ms, b_by = bound(2.0 * nb * m * n * k,
+                           2 * nb * (m * k + k * n + m * n)
+                           + sum(2 * x.numel() for x in kw.values()))
+        for level in LEVELS:
+            ft = FT.replace(level=level)
+            out, rep = ft_gemm.ft_gemm(a, b, chain=chain, ft=ft, **kw)
+            out_p, rep_p = _plain_gemm(a, b, chain=chain, ft=ft, **kw)
+            err = _cmp_outputs(f"{level} {label}", out, out_p, rep, rep_p)
+            check(torch.equal(rep[..., :4], rep_p[..., :4]),
+                  f"{level} {label}: report det / corr / row / col equal")
+            ms = time_ms(lambda: ft_gemm.ft_gemm(a, b, chain=chain, ft=ft,
+                                                 **kw), iters)
+            plain_ms = time_ms(lambda: _plain_gemm(a, b, chain=chain, ft=ft,
+                                                   **kw), 1, warmup=0)
+            rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
+            rows[name]["detail"].append(dict(
+                shape=f"{label} ({level})", level=level, batch=nb, M=m, N=n,
+                K=k, ms=ms, ft_off_ms=off_ms, block_ms=block_ms,
+                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                bound_by=b_by))
+            print(f"  {level} {label} ({nb}x{m}x{n}x{k}): kernel {ms:.4f} ms, "
+                  f"FT off {off_ms:.4f} ms, block {block_ms:.4f} ms "
+                  f"({ms / off_ms:.3f}x FT off, {ms / block_ms:.3f}x block), "
+                  f"plain {plain_ms:.3f} ms, library {lib_ms:.4f} ms, bound "
+                  f"{b_ms:.5f} ms ({b_by})")
+        # A deterministic SEU on integer-valued operands, in every slice.
+        a, b, chain, kw, nb = operands(ints, label)
+        row, col, step = m - 1, n - 3, ft_gemm.cdiv(k, 32) // 2
+        inj = (1, -1, row, col, step)
+        for level in LEVELS:
+            ft = FT.replace(level=level)
+            clean, _ = ft_gemm.ft_gemm(a, b, chain=chain, ft=ft, **kw)
+            out, rep = ft_gemm.ft_gemm(a, b, chain=chain, ft=ft, inj=inj,
+                                       inj_mag=1000.0, **kw)
+            cells = rep[rep[..., 0] > 0]
+            check(torch.equal(out, clean)
+                  and float(rep[..., 0].sum()) == nb
+                  and float(rep[..., 1].sum()) == nb
+                  and bool((cells[:, 2] == row).all())
+                  and bool((cells[:, 3] == col).all())
+                  and bool(((cells[:, 4] - 1000.0).abs() < 1e-2).all()),
+                  f"{level} {label}: SEU at (row {row}, col {col}, step "
+                  f"{step}) in each of {nb} slice(s) corrected bit for bit "
+                  f"and located")
+            out_d, rep_d = ft_gemm.ft_gemm(a, b, chain=chain,
+                                           ft=ft.replace(action="detect"),
+                                           inj=inj, inj_mag=1000.0, **kw)
+            diff = (out_d != clean).reshape(-1, m, n).nonzero()
+            n_det = float(rep_d[..., 0].sum())
+            check(diff.shape[0] == nb and bool((diff[:, 1] == row).all())
+                  and bool((diff[:, 2] == col).all())
+                  and float(rep_d[..., 1].sum()) == 0.0 and n_det >= nb,
+                  f"{level} {label}: the same SEU left in place by a "
+                  f"detect-only policy ({n_det:.0f} detections)")
+    return rows
+
+
+def phase_level_check():
+    cfg = dataclasses.replace(qwen2_7b.CONFIG, n_layers=2)
+    params = transformer.init(cfg, seed=1, dtype=torch.bfloat16)
+    prompts, steps = _check_inputs(cfg)
+    block, _ = _serve_logits(params, cfg,
+                             RunConfig(model=cfg, ft=FT, dtype="bfloat16"),
+                             prompts, steps)
+    for level in LEVELS:
+        run = RunConfig(model=cfg, ft=FT.replace(level=level),
+                        dtype="bfloat16")
+        got, tot_k = _serve_logits(params, cfg, run, prompts, steps)
+        with plain_kernels():
+            want, tot_p = _serve_logits(params, cfg, run, prompts, steps)
+        _check_logits(f"level_check {level} kernel vs plain", got, want)
+        _check_logits(f"level_check {level} vs block", got, block)
+        check(tot_k["detected"] == 0 and tot_p["detected"] == 0,
+              f"level_check {level}: zero detections (kernels {tot_k}, "
+              f"plain {tot_p})")
+
+
+def phase_level_serve(layers: int):
+    cfg, params, prompts = _qwen_serving(layers)
+    launches = {n: 0 for n in KERNELS}
+    for level in ("block",) + LEVELS:
+        run = RunConfig(model=cfg, ft=FT.replace(level=level),
+                        dtype="bfloat16")
+        got, summary = _serve_run(f"level_serve {level}", params, cfg, run,
+                                  prompts, LEVEL_NEW_TOKENS)
+        for n in launches:
+            launches[n] += got[n]
+        print(json.dumps({"level_serve": summary}))
+    return launches
+
+
+def _ladder_bound(n: int):
+    """(bound ms, by) of an f32 n x n x n product on the CUDA cores."""
+    t_op = 2.0 * n ** 3 / PEAK_F32 * 1e3
+    t_by = 3 * 4 * n * n / PEAK_BYTES * 1e3
+    return (t_op, "operations") if t_op >= t_by else (t_by, "bytes")
+
+
+def phase_ladder():
+    """The paper's step-wise GEMM ladder and FT-level ablation on the card:
+    f32 squares, every rung through its library entry point."""
+    print(f"  peaks: f32 on the CUDA cores {PEAK_F32 / 1e12:.0f} TFLOP/s "
+          f"(H100 SXM, NVIDIA data sheet; TF32 off), HBM "
+          f"{PEAK_BYTES / 1e12:.2f} TB/s; the bf16 bounds of the other "
+          f"phases divide by {PEAK_FLOPS / 1e12:.0f} TFLOP/s")
+
+    def ft_rung(pol):
+        return lambda a, b: ops.ft_matmul_report(a, b, ft=pol)[0]
+
+    def gemm_rung(tiles):
+        return lambda a, b: base_gemm.gemm(a, b, tiles=tiles)
+
+    rungs = [("torch.matmul", torch.matmul), ("K9 naive", base_gemm.naive_gemm)]
+    rungs += [(f"K1 FT off {t[0]}x{t[1]}x{t[2]}", gemm_rung(t))
+              for t in ft_gemm.TILES]
+    rungs += [(f"K1 {lvl} {v}", ft_rung(FT.replace(level=lvl, verify=v)))
+              for lvl in ("block", "tile") for v in ("step", "final")]
+    rungs += [("K1 inner (verify n/a)", ft_rung(FT.replace(level="inner")))]
+    rungs += [("K1 block detect-only", ft_rung(DETECT)),
+              ("torch-op non-fused", lambda a, b: ft_verdict_dot(
+                  a, b, NONFUSED_BASELINE)[0])]
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    data = {n: (torch.randn(n, n, generator=gen, device="cuda"),
+                torch.randn(n, n, generator=gen, device="cuda"))
+            for n in LADDER_SIZES}
+    # The main path's run: every rung once at every size, each output held
+    # against the library product.
+    for kern in KERNELS.values():
+        kern["counter"].launches = 0
+    for n, (a, b) in data.items():
+        ref = torch.matmul(a, b)
+        scale = ref.abs().max().item()
+        for name, fn in rungs[1:]:
+            err = (fn(a, b) - ref).abs().max().item()
+            check(err <= F32_TOL * scale, f"ladder {n}: {name} within "
+                  f"{err:.3g} <= {F32_TOL:g} x {scale:.3g} of torch.matmul")
+    torch.cuda.synchronize()
+    launches = {n: k["counter"].launches for n, k in KERNELS.items()}
+    n_k1 = sum(name.startswith("K1") for name, _ in rungs)
+    expect = {n: 0 for n in KERNELS}
+    expect.update(ft_gemm_2d=n_k1 * len(LADDER_SIZES),
+                  naive_gemm=len(LADDER_SIZES))
+    check(launches == expect, f"ladder launches: K1 {n_k1} and K9 1 per "
+          f"size ({launches})")
+    # K9 and K1 against their plain versions.
+    k9_err = 0.0
+    for n in LADDER_SIZES[:2]:
+        a, b = data[n]
+        k9_err = max(k9_err, _cmp_outputs(
+            f"K9 {n}", base_gemm.naive_gemm(a, b),
+            base_gemm.naive_gemm_plain(a, b), tol=F32_TOL))
+        tiles = ft_gemm.pick_tiles(n)
+        for pol in (None, FT, FT.replace(level="tile"),
+                    FT.replace(level="inner")):
+            out, rep = ft_gemm.ft_gemm(a, b, ft=pol)
+            out_p, rep_p = ft_gemm.ft_gemm_plain(a, b, tiles=tiles, ft=pol)
+            level = pol.level if pol else "FT off"
+            _cmp_outputs(f"K1 {level} {n}", out, out_p, rep, rep_p,
+                         tol=F32_TOL)
+    # Times: CUDA events around each rung.
+    table, k9_rows = [], []
+    for n, (a, b) in data.items():
+        b_ms, b_by = _ladder_bound(n)
+        iters = {1024: 10, 4096: 3}.get(n, 1)
+        ms = {}
+        for name, fn in rungs:
+            ms[name] = time_ms(lambda: fn(a, b), iters, warmup=1)
+        plain_ms = time_ms(lambda: base_gemm.naive_gemm_plain(a, b), iters,
+                           warmup=1)
+        off = ms[rungs[2][0]]
+        lib = ms["torch.matmul"]
+        for name, _ in rungs:
+            t = ms[name]
+            row = dict(size=n, rung=name, ms=t,
+                       tflops=2.0 * n ** 3 / (t * 1e-3) / 1e12,
+                       bound_ms=b_ms, bound_by=b_by,
+                       over_ft_off=t / off - 1.0, over_library=t / lib - 1.0)
+            table.append(row)
+            print(f"  {n:5d} {name:24s} {t:10.3f} ms {row['tflops']:7.2f} "
+                  f"TFLOP/s  bound {b_ms:.3f} ms ({b_by})  "
+                  f"{100 * row['over_ft_off']:+8.1f} % over K1 FT off  "
+                  f"{100 * row['over_library']:+9.1f} % over torch.matmul")
+        k9_rows.append(dict(shape=f"{n}x{n}x{n} f32", ms=ms["K9 naive"],
+                            plain_ms=plain_ms, library_ms=lib, bound_ms=b_ms,
+                            bound_by=b_by))
+    # One SEU per launch at k-step 0, mid and last, at 4 096, corrected at
+    # each level (integer-valued operands: bit for bit).
+    n = 4096
+    a = torch.randint(-2, 3, (n, n), generator=gen, device="cuda").float()
+    b = torch.randint(-2, 3, (n, n), generator=gen, device="cuda").float()
+    ks = n // ft_gemm.pick_tiles(n)[2]
+    for level in ("block",) + LEVELS:
+        pol = FT.replace(level=level)
+        clean, _ = ops.ft_matmul_report(a, b, ft=pol)
+        clean_ms = time_ms(lambda: ops.ft_matmul_report(a, b, ft=pol), 3,
+                           warmup=1)
+        for step in (0, ks // 2, ks - 1):
+            spec = InjectionSpec(row=n // 3, col=4 * n // 5, magnitude=1000.0,
+                                 k_step=step)
+            out, rep = ops.ft_matmul_report(a, b, ft=pol, spec=spec)
+            cell = rep[rep[..., 0] > 0]
+            check(torch.equal(out, clean) and float(rep[..., 0].sum()) == 1
+                  and float(rep[..., 1].sum()) == 1
+                  and int(cell[0, 2]) == n // 3
+                  and int(cell[0, 3]) == 4 * n // 5,
+                  f"ladder {level}: SEU at k-step {step} corrected bit for "
+                  f"bit and located")
+            seu_ms = time_ms(lambda: ops.ft_matmul_report(a, b, ft=pol,
+                                                          spec=spec),
+                             3, warmup=1)
+            print(f"  {level} SEU at k-step {step}: {seu_ms:.3f} ms against "
+                  f"{clean_ms:.3f} ms clean ({seu_ms / clean_ms:.3f}x)")
+            table.append(dict(size=n, rung=f"K1 {level} step, SEU at k-step "
+                              f"{step}", ms=seu_ms, clean_ms=clean_ms))
+    print(json.dumps({"ladder": table}))
+    return launches, {"naive_gemm": dict(max_abs_err=k9_err, detail=k9_rows,
+                                         headline="4096x4096x4096 f32")}
 
 
 # ---------------------------------------------------------------------------
@@ -1046,7 +1398,7 @@ def phase_engine(seed: int, smi: str):
     expect = {"ft_gemm_2d": per * (ENGINE_REQUESTS + steps),
               "ft_gemm_batched": 0, "flash_ft": cfg.n_layers * ENGINE_REQUESTS,
               "flash_dq": 0, "flash_dkv": 0,
-              "flash_decode": cfg.n_layers * steps, **NO_MOE}
+              "flash_decode": cfg.n_layers * steps, **OFF_PATH}
     check(launches == expect,
           f"engine: launches K1 {per} per prefill and per decode step, K2 "
           f"{cfg.n_layers} per prefill, K6 {cfg.n_layers} per decode step, "
@@ -1438,7 +1790,7 @@ def phase_train(smi: str):
           "train: zero detections")
     expect = {"ft_gemm_2d": 28 * cfg.n_layers + 3, "ft_gemm_batched": 0,
               "flash_ft": 2 * cfg.n_layers, "flash_dq": cfg.n_layers,
-              "flash_dkv": cfg.n_layers, "flash_decode": 0, **NO_MOE}
+              "flash_dkv": cfg.n_layers, "flash_decode": 0, **OFF_PATH}
     check(all(x == expect for x in launches),
           f"train: launches per step {expect} at every step")
     # One more step through make_train_step under the dispatch guard.
@@ -1967,7 +2319,8 @@ def phase_moe_engine(seed: int, smi: str):
     expect = {"ft_gemm_2d": per * calls, "ft_gemm_batched": 0,
               "flash_ft": cfg.n_layers * ENGINE_REQUESTS, "flash_dq": 0,
               "flash_dkv": 0, "flash_decode": cfg.n_layers * steps,
-              "ft_gemm_grouped": 3 * cfg.n_layers * calls, "tgmm": 0}
+              "ft_gemm_grouped": 3 * cfg.n_layers * calls, "tgmm": 0,
+              "naive_gemm": 0}
     check(launches == expect,
           f"moe_engine: launches K1 {per}, K7 {3 * cfg.n_layers} per prefill "
           f"and per decode step, K2 {cfg.n_layers} per prefill, K6 "
@@ -2043,7 +2396,8 @@ def phase_moe_train(smi: str):
     # expert GEMMs forward, in the recompute and as dbuf (9); K8 3 dw.
     expect = {"ft_gemm_2d": 16 * n_l + 3, "ft_gemm_batched": 0,
               "flash_ft": 2 * n_l, "flash_dq": n_l, "flash_dkv": n_l,
-              "flash_decode": 0, "ft_gemm_grouped": 9 * n_l, "tgmm": 3 * n_l}
+              "flash_decode": 0, "ft_gemm_grouped": 9 * n_l, "tgmm": 3 * n_l,
+              "naive_gemm": 0}
     check(all(x == expect for x in launches),
           f"moe_train: launches per step {expect} at every step")
     opt_cfg = adamw.AdamWConfig(lr=run.learning_rate,
@@ -2092,11 +2446,13 @@ def _merge_rows(rows, more):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default="env,kernels,serve_check,serve,"
+                    "level_kernels,level_check,level_serve,ladder,"
                     "decode_kernels,engine_check,engine,train_kernels,"
                     "train_check,train,moe_kernels,moe_check,moe_engine,"
                     "moe_train")
     ap.add_argument("--layers", type=int, default=qwen2_7b.CONFIG.n_layers,
-                    help="serve depth (the width is always full)")
+                    help="serve and level_serve depth (the width is always "
+                         "full)")
     ap.add_argument("--seed", type=int, default=0,
                     help="the engine phase's prompt lengths and budgets")
     args = ap.parse_args()
@@ -2122,6 +2478,15 @@ def main() -> int:
                 phase_serve_check()
             elif phase == "serve":
                 by_path["serve"] = phase_serve(args.layers)
+            elif phase == "level_kernels":
+                _merge_rows(rows, phase_level_kernels())
+            elif phase == "level_check":
+                phase_level_check()
+            elif phase == "level_serve":
+                by_path["level_serve"] = phase_level_serve(args.layers)
+            elif phase == "ladder":
+                by_path["ladder"], more = phase_ladder()
+                _merge_rows(rows, more)
             elif phase == "decode_kernels":
                 _merge_rows(rows, phase_decode_kernels())
             elif phase == "engine_check":

@@ -81,6 +81,21 @@ def _nonfused_ft_matmul_2d(ft: FTConfig, spec, a, b):
     return out.to(a.dtype), v
 
 
+def ft_verdict_dot(a: torch.Tensor, b: torch.Tensor, ft: FTLike,
+                   spec: Optional[InjectionSpec] = None, key=None,
+                   site: Optional[str] = None
+                   ) -> Tuple[torch.Tensor, abft.Verdict]:
+    """2-D FT matmul that also returns the `abft.Verdict`, on the torch-op
+    path (fused, or the non-fused baseline with ``ft.fused`` False): the
+    reference's `ft_verdict_dot`, used by the offline-ABFT recompute loop
+    and by tests of detection. A leading batch of a is flattened."""
+    ft = resolve_ft(ft, site)
+    check_campaign(ft, key)
+    a2 = a.reshape(-1, a.shape[-1]) if a.dim() != 2 else a
+    fn = _fused_ft_matmul if ft.fused else _nonfused_ft_matmul_2d
+    return fn(ft, spec, a2, b)
+
+
 def _bwd_injection(bwd_inject, target: str) -> Optional[InjectionSpec]:
     """The SEU of ``bwd_inject`` = ("dx" | "dw", InjectionSpec) if it
     targets the backward GEMM ``target``."""

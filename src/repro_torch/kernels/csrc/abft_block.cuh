@@ -97,6 +97,37 @@ struct Verdict {
   float mag;
 };
 
+// The verdict of one verified block from its located residuals (the first
+// argmax `col` of the column residual dcol, of value best_c, and `row` of
+// the row residual, best_r) and the report update of the reference's
+// _record, by one thread. rep[8] = [det, corr, row, col, mag,
+// max_residual, tau, k]: det and corr add, row / col / mag are overwritten
+// on a detection (the position reported at (row + row_off, col +
+// col_off)), max_residual takes the max, tau and k are overwritten. The
+// one report rule of every kernel.
+__device__ inline Verdict record(const float* dcol, float best_c, int col,
+                                 float best_r, int row, float tau,
+                                 float k_el, bool corrects, int row_off,
+                                 int col_off, float* rep) {
+  const float resid = fmaxf(best_c, best_r);
+  Verdict v;
+  v.det = resid > tau;
+  v.col = col;
+  v.row = row;
+  v.mag = v.det ? dcol[col] : 0.0f;
+  rep[0] += v.det ? 1.0f : 0.0f;
+  rep[1] += (v.det && corrects) ? 1.0f : 0.0f;
+  if (v.det) {
+    rep[2] = (float)(v.row + row_off);
+    rep[3] = (float)(v.col + col_off);
+    rep[4] = v.mag;
+  }
+  rep[5] = fmaxf(rep[5], resid);
+  rep[6] = tau;
+  rep[7] = k_el;
+  return v;
+}
+
 // Scratch of one verification; MAXR/MAXC bound the verified block.
 template <int MAXR, int MAXC>
 struct VerifySmem {
@@ -110,10 +141,9 @@ struct VerifySmem {
 
 // Verify a rows x COLS block held in c (row stride `stride`, rows <= MAXR
 // at run time) against its checksums: residuals, first-argmax locate,
-// detection (max residual > tau) and the report update, which thread 0
-// keeps in rep[8]: [det, corr, row, col, mag, max_residual, tau, k] with the
-// located position reported at (row + row_off, col + col_off). Every thread
-// returns the verdict; the caller applies the correction.
+// detection (max residual > tau) and the report update (`record`), which
+// thread 0 keeps in rep[8]. Every thread returns the verdict; the caller
+// applies the correction.
 template <int COLS, int MAXR, int MAXC>
 __device__ Verdict verify_rows(const float* c, int rows, int stride,
                                const float* colck, const float* rowck,
@@ -139,25 +169,9 @@ __device__ Verdict verify_rows(const float* c, int rows, int stride,
     }
   }
   __syncthreads();
-  if (threadIdx.x == 0) {
-    const float resid = fmaxf(sm.best[0], sm.best[1]);
-    Verdict v;
-    v.det = resid > tau;
-    v.col = sm.idx[0];
-    v.row = sm.idx[1];
-    v.mag = v.det ? sm.dcol[v.col] : 0.0f;
-    sm.v = v;
-    rep[0] += v.det ? 1.0f : 0.0f;
-    rep[1] += (v.det && corrects) ? 1.0f : 0.0f;
-    if (v.det) {
-      rep[2] = (float)(v.row + row_off);
-      rep[3] = (float)(v.col + col_off);
-      rep[4] = v.mag;
-    }
-    rep[5] = fmaxf(rep[5], resid);
-    rep[6] = tau;
-    rep[7] = k_el;
-  }
+  if (threadIdx.x == 0)
+    sm.v = record(sm.dcol, sm.best[0], sm.idx[0], sm.best[1], sm.idx[1], tau,
+                  k_el, corrects, row_off, col_off, rep);
   __syncthreads();
   return sm.v;
 }
@@ -172,6 +186,61 @@ __device__ Verdict verify_block(const float* c, int stride,
   static_assert(ROWS <= MAXR, "");
   return verify_rows<COLS>(c, ROWS, stride, colck, rowck, tau, k_el,
                            corrects, row_off, col_off, sm, rep);
+}
+
+// Scratch of one band-wise verification: NB bands of BAND rows x COLS.
+template <int NB, int BAND, int COLS>
+struct BandSmem {
+  float dcol[NB][COLS];
+  float drow[NB * BAND];
+  float best[NB][2];
+  int idx[NB][2];
+  Verdict v[NB];
+};
+
+// Verify an (NB·BAND) x COLS block held in c (row stride `stride`) band by
+// band: band t, rows [t·BAND, (t+1)·BAND), against its own column checksum
+// colck[t·COLS ..] and the row checksums rowck of its rows. One warp
+// locates each band (first argmax of its column and of its row residuals);
+// thread 0 then records the bands in order with `record`, so det and corr
+// add over the bands and row / col / mag are the last detecting band's.
+// Every thread finds the NB verdicts (rows local to the block) in sm.v;
+// the caller applies the corrections, one per band.
+template <int NB, int BAND, int COLS>
+__device__ void verify_bands(const float* c, int stride, const float* colck,
+                             const float* rowck, float tau, float k_el,
+                             bool corrects, int row_off, int col_off,
+                             BandSmem<NB, BAND, COLS>& sm, float* rep) {
+  for (int i = threadIdx.x; i < NB * COLS; i += kThreads) {
+    const int t = i / COLS, col = i % COLS;
+    float s = 0.0f;
+    for (int r = 0; r < BAND; ++r) s += c[(t * BAND + r) * stride + col];
+    sm.dcol[t][col] = s - colck[i];
+  }
+  row_sums(c, NB * BAND, COLS, stride, sm.drow);
+  __syncthreads();
+  for (int i = threadIdx.x; i < NB * BAND; i += kThreads) sm.drow[i] -= rowck[i];
+  __syncthreads();
+  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
+  for (int t = warp; t < NB; t += kWarps) {
+    float bc, br;
+    int ic, ir;
+    warp_argmax_abs(sm.dcol[t], COLS, bc, ic);
+    warp_argmax_abs(sm.drow + t * BAND, BAND, br, ir);
+    if (lane == 0) {
+      sm.best[t][0] = bc;
+      sm.idx[t][0] = ic;
+      sm.best[t][1] = br;
+      sm.idx[t][1] = t * BAND + ir;
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x == 0)
+    for (int t = 0; t < NB; ++t)
+      sm.v[t] = record(sm.dcol[t], sm.best[t][0], sm.idx[t][0],
+                       sm.best[t][1], sm.idx[t][1], tau, k_el, corrects,
+                       row_off, col_off, rep);
+  __syncthreads();
 }
 
 }  // namespace abft

@@ -45,7 +45,28 @@
 //     the report of a clean all-zero block (tau 1e-30, k = K) at once.
 //     Compiled for the plain chain, BM 16 (bf16) and 8 or 16 (f32). The
 //     parameter is a compile-time one, so K1's and K5's instances carry no
-//     branch of it.
+//     branch of it;
+//   * LEVEL, the paper's threadblock / warp / thread granularities
+//     (reference emit.py:432-512), a compile-time parameter as well:
+//     0 block: the scheme above;
+//     1 tile (warp level): the column checksum is kept per band of the rows
+//       one warp owns in the thread layout (BM / 8 rows: 8 of the 64-row
+//       tile, 2 of the 16-row one), in shared memory, beside one row
+//       checksum per row. Each band is verified, located and corrected on
+//       its own (verify_bands: one warp locates each band, thread 0 records
+//       them in order), so one SEU per band per interval is corrected. The
+//       final verification runs on the raw accumulator, and the whole
+//       chain is applied after it (no fold);
+//     2 inner (thread level): each k-step's Δ = A_s·B_s is accumulated in a
+//       second register tile beside acc, verified alone against the step's
+//       own checksums (verify_block), corrected in Δ and then added to acc;
+//       no running checksums and no final verification, so verify_step
+//       changes nothing. Tau takes the elapsed k and the running max|A|,
+//       max|B| as at the other levels (emit.py:369-378).
+//     The tile and inner levels are compiled for the serving chains (none,
+//     bias, silu, bias+silu) on the row-major walk, and for the plain chain
+//     on LAYOUT 1 (the transposed K cache of decode attention); not for
+//     LAYOUT 2, AG or GROUPED.
 // What bounds it on the H100: decode-shaped calls (M <= 16) are bound by
 // the bytes of B (the weights), prefill-shaped calls by operations. This
 // first version runs the MACs on the CUDA cores in f32 (no tensor cores, no
@@ -60,6 +81,8 @@
 namespace {
 
 using namespace abft;
+
+enum Level { kLevelBlock = 0, kLevelTile = 1, kLevelInner = 2 };
 
 enum Epilogue {
   kEpiNone = 0, kEpiBias = 1, kEpiSilu = 2, kEpiBiasSilu = 3,
@@ -135,18 +158,32 @@ __device__ __forceinline__ float load_at(const T* p, int r, int c, int sr,
 }
 
 template <typename T, bool FT, int EPI, int LAYOUT, bool AG, int BM, int BN,
-          int BK, int TM, int TN, bool GROUPED>
+          int BK, int TM, int TN, bool GROUPED, int LEVEL>
 __global__ void __launch_bounds__(kThreads)
 ft_gemm_kernel(const GemmArgs g) {
   constexpr int TX = BN / TN, TY = BM / TM;
   static_assert(TX * TY == kThreads, "thread tile must cover the block");
   using Ch = Chain<EPI>;
+  constexpr bool BLOCK = FT && LEVEL == kLevelBlock;
+  constexpr bool TILE = FT && LEVEL == kLevelTile;
+  constexpr bool INNER = FT && LEVEL == kLevelInner;
+  static_assert(LEVEL == kLevelBlock || (!AG && !GROUPED && LAYOUT != 2),
+                "tile / inner are compiled for the serving instances only");
+  // tile: NB bands of BAND rows, band t owned by warp t.
+  constexpr int NB = TILE ? kWarps : 1;
+  constexpr int BAND = TILE ? BM / kWarps : 1;
+  static_assert(!TILE || (32 % TX == 0 && BAND * kWarps == BM &&
+                          BAND == (32 / TX) * TM),
+                "a tile-level band is the rows one warp owns");
 
   __shared__ float As[BK][BM + 1];   // A tile, transposed
   __shared__ float Bs[BK][BN];
   __shared__ float Cs[BM][BN + 1];   // block values at verification
   __shared__ float colck[BN], rowck[BM], asum[BK], bsum[BK], red[kWarps];
   __shared__ VerifySmem<BM, BN> vs;
+  // tile: the running column checksum and e^T A of each band.
+  __shared__ float colck_t[NB][TILE ? BN : 1], asum_t[NB][TILE ? BK : 1];
+  __shared__ BandSmem<NB, BAND, TILE ? BN : 1> bs;
 
   const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX;
   const int bj = blockIdx.x, bi = blockIdx.y, bz = blockIdx.z;
@@ -185,6 +222,7 @@ ft_gemm_kernel(const GemmArgs g) {
   }
 
   float acc[TM][TN];
+  float dlt[TM][TN];   // inner: this k-step's Δ
 #pragma unroll
   for (int i = 0; i < TM; ++i)
 #pragma unroll
@@ -195,6 +233,8 @@ ft_gemm_kernel(const GemmArgs g) {
     for (int i = tid; i < BN; i += kThreads) colck[i] = 0.0f;
     for (int i = tid; i < BM; i += kThreads) rowck[i] = 0.0f;
   }
+  if constexpr (TILE)
+    for (int i = tid; i < NB * BN; i += kThreads) colck_t[i / BN][i % BN] = 0.0f;
   const bool inj_here = FT && g.inj_enable &&
                         (g.inj_batch < 0 || g.inj_batch == bz);
 
@@ -220,9 +260,24 @@ ft_gemm_kernel(const GemmArgs g) {
       if (FT) bmax = fmaxf(bmax, fabsf(v));
     }
     __syncthreads();
-    if (FT) {
+    if constexpr (TILE) {
+      // e^T A of each band's rows
+      for (int i = tid; i < NB * BK; i += kThreads) {
+        const int t = i / BK, kk = i % BK;
+        float c = 0.0f;
+        for (int r = 0; r < BAND; ++r) c += As[kk][t * BAND + r];
+        asum_t[t][kk] = c;
+      }
+      row_sums(&Bs[0][0], BK, BN, BN, bsum);       // B_tile e
+    } else if (FT) {
       row_sums(&As[0][0], BK, BM, BM + 1, asum);   // e^T A_tile
       row_sums(&Bs[0][0], BK, BN, BN, bsum);       // B_tile e
+    }
+    if constexpr (INNER) {
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) dlt[i][j] = 0.0f;
     }
 #pragma unroll 4
     for (int kk = 0; kk < BK; ++kk) {
@@ -234,28 +289,66 @@ ft_gemm_kernel(const GemmArgs g) {
 #pragma unroll
       for (int i = 0; i < TM; ++i)
 #pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+        for (int j = 0; j < TN; ++j) {
+          if constexpr (INNER) dlt[i][j] = fmaf(av[i], bv[j], dlt[i][j]);
+          else acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+        }
     }
     if (!FT) continue;
     __syncthreads();   // asum / bsum complete
-    for (int n = tid; n < BN; n += kThreads) {
-      float c = 0.0f;
-      for (int kk = 0; kk < BK; ++kk) c = fmaf(asum[kk], Bs[kk][n], c);
-      colck[n] += c;
+    // Column checksums: the block's (running), each band's (tile, running)
+    // or this step's alone (inner); row checksums likewise.
+    if constexpr (TILE) {
+      for (int i = tid; i < NB * BN; i += kThreads) {
+        const int t = i / BN, n = i % BN;
+        float c = 0.0f;
+        for (int kk = 0; kk < BK; ++kk) c = fmaf(asum_t[t][kk], Bs[kk][n], c);
+        colck_t[t][n] += c;
+      }
+    } else {
+      for (int n = tid; n < BN; n += kThreads) {
+        float c = 0.0f;
+        for (int kk = 0; kk < BK; ++kk) c = fmaf(asum[kk], Bs[kk][n], c);
+        if constexpr (INNER) colck[n] = c;
+        else colck[n] += c;
+      }
     }
     for (int m = tid; m < BM; m += kThreads) {
       float c = 0.0f;
       for (int kk = 0; kk < BK; ++kk) c = fmaf(As[kk][m], bsum[kk], c);
-      rowck[m] += c;
+      if constexpr (INNER) rowck[m] = c;
+      else rowck[m] += c;
     }
-    // Emulated SEU on this step's accumulator (deterministic injection).
+    // Emulated SEU on this step's accumulator (deterministic injection):
+    // in Δ at the inner level.
     if (inj_here && s == g.inj_k) {
       const int rl = g.inj_row - row0, cl = g.inj_col - col0;
       if (rl >= 0 && rl < BM && cl >= 0 && cl < BN && rl / TM == ty &&
-          cl / TN == tx)
-        acc[rl % TM][cl % TN] += g.inj_mag;
+          cl / TN == tx) {
+        if constexpr (INNER) dlt[rl % TM][cl % TN] += g.inj_mag;
+        else acc[rl % TM][cl % TN] += g.inj_mag;
+      }
     }
-    if (g.verify_step && s != g.ksteps - 1) {
+    if constexpr (INNER) {
+      // Verify Δ alone, correct it, then accumulate it.
+      const float k_el = (float)min((s + 1) * BK, K);
+      const float am = block_max(amax, red), bm = block_max(bmax, red);
+      const float tau = fmaxf(g.tau_coef * k_el * am * bm, 1e-30f);
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) Cs[ty * TM + i][tx * TN + j] = dlt[i][j];
+      __syncthreads();
+      const Verdict v = verify_block<BM, BN>(
+          &Cs[0][0], BN + 1, colck, rowck, tau, k_el, g.corrects, row0, col0,
+          vs, rep);
+      if (g.corrects && v.det && v.row / TM == ty && v.col / TN == tx)
+        dlt[v.row % TM][v.col % TN] -= v.mag;
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) acc[i][j] += dlt[i][j];
+    } else if (g.verify_step && s != g.ksteps - 1) {
       const float k_el = (float)min((s + 1) * BK, K);
       const float am = block_max(amax, red), bm = block_max(bmax, red);
       const float tau = fmaxf(g.tau_coef * k_el * am * bm, 1e-30f);
@@ -264,11 +357,23 @@ ft_gemm_kernel(const GemmArgs g) {
 #pragma unroll
         for (int j = 0; j < TN; ++j) Cs[ty * TM + i][tx * TN + j] = acc[i][j];
       __syncthreads();
-      const Verdict v = verify_block<BM, BN>(
-          &Cs[0][0], BN + 1, colck, rowck, tau, k_el, g.corrects, row0, col0,
-          vs, rep);
-      if (g.corrects && v.det && v.row / TM == ty && v.col / TN == tx)
-        acc[v.row % TM][v.col % TN] -= v.mag;
+      if constexpr (TILE) {
+        verify_bands<NB, BAND, BN>(&Cs[0][0], BN + 1, &colck_t[0][0], rowck,
+                                   tau, k_el, g.corrects, row0, col0, bs,
+                                   rep);
+        if (g.corrects)
+          for (int t = 0; t < NB; ++t) {
+            const Verdict v = bs.v[t];
+            if (v.det && v.row / TM == ty && v.col / TN == tx)
+              acc[v.row % TM][v.col % TN] -= v.mag;
+          }
+      } else {
+        const Verdict v = verify_block<BM, BN>(
+            &Cs[0][0], BN + 1, colck, rowck, tau, k_el, g.corrects, row0,
+            col0, vs, rep);
+        if (g.corrects && v.det && v.row / TM == ty && v.col / TN == tx)
+          acc[v.row % TM][v.col % TN] -= v.mag;
+      }
     }
   }
 
@@ -286,8 +391,20 @@ ft_gemm_kernel(const GemmArgs g) {
 #pragma unroll
     for (int j = 0; j < TN; ++j) Cs[ty * TM + i][tx * TN + j] = acc[i][j];
   __syncthreads();
-  // Linear prefix (folded into the checksums under FT): the bias, then the
-  // residual when no activation follows it.
+  if constexpr (TILE) {
+    // The final verification on the raw accumulator, band by band; the
+    // whole chain follows.
+    const float k_el = (float)K;
+    const float tau = fmaxf(g.tau_coef * k_el * am * bm, 1e-30f);
+    verify_bands<NB, BAND, BN>(&Cs[0][0], BN + 1, &colck_t[0][0], rowck, tau,
+                               k_el, g.corrects, row0, col0, bs, rep);
+    if (g.corrects && tid == 0)
+      for (int t = 0; t < NB; ++t)
+        if (bs.v[t].det) Cs[bs.v[t].row][bs.v[t].col] -= bs.v[t].mag;
+    __syncthreads();
+  }
+  // Linear prefix (folded into the checksums at the block level): the
+  // bias, then the residual when no activation follows it.
   constexpr bool fold_res = Ch::residual && Ch::act == 0;
   if (Ch::bias || fold_res) {
     for (int idx = tid; idx < BM * BN; idx += kThreads) {
@@ -300,7 +417,7 @@ ft_gemm_kernel(const GemmArgs g) {
       Cs[m][n] = y;
     }
   }
-  if (FT) {
+  if constexpr (BLOCK) {
     for (int n = tid; n < BN; n += kThreads) {
       const int gc = col0 + n;
       float add = 0.0f;
@@ -351,28 +468,59 @@ ft_gemm_kernel(const GemmArgs g) {
 }
 
 template <typename T, bool FT, int EPI, int LAYOUT, bool AG, int BM, int BN,
-          int BK, int TM, int TN, bool GROUPED = false>
+          int BK, int TM, int TN, bool GROUPED = false,
+          int LEVEL = kLevelBlock>
 cudaError_t launch(GemmArgs g, int batch, cudaStream_t stream) {
   g.gm = (g.M + BM - 1) / BM;
   g.gn = (g.N + BN - 1) / BN;
   g.ksteps = (g.K + BK - 1) / BK;
   if (g.gm > 65535 || batch > 65535) return cudaErrorInvalidConfiguration;
   dim3 grid(g.gn, g.gm, batch);
-  ft_gemm_kernel<T, FT, EPI, LAYOUT, AG, BM, BN, BK, TM, TN, GROUPED>
+  ft_gemm_kernel<T, FT, EPI, LAYOUT, AG, BM, BN, BK, TM, TN, GROUPED, LEVEL>
       <<<grid, kThreads, 0, stream>>>(g);
   return cudaGetLastError();
 }
 
 // Tile configurations (BM, BN, BK); kernels/ft_gemm.py:TILES lists the
-// same table in the same order.
-template <typename T, bool FT, int EPI, int LAYOUT = 0, bool AG = false>
+// same table in the same order (and BANDS the tile level's BM / 8).
+template <typename T, bool FT, int EPI, int LAYOUT = 0, bool AG = false,
+          int LEVEL = kLevelBlock>
 cudaError_t launch_tiles(int tiles, const GemmArgs& g, int batch,
                          cudaStream_t st) {
   if (tiles == 0)
-    return launch<T, FT, EPI, LAYOUT, AG, 64, 64, 32, 4, 4>(g, batch, st);
+    return launch<T, FT, EPI, LAYOUT, AG, 64, 64, 32, 4, 4, false, LEVEL>(
+        g, batch, st);
   if (tiles == 1)
-    return launch<T, FT, EPI, LAYOUT, AG, 16, 128, 32, 2, 4>(g, batch, st);
+    return launch<T, FT, EPI, LAYOUT, AG, 16, 128, 32, 2, 4, false, LEVEL>(
+        g, batch, st);
   return cudaErrorInvalidValue;
+}
+
+// The tile (1) and inner (2) levels: the serving chains on the row-major
+// walk, the plain chain on LAYOUT 1.
+template <typename T, int LEVEL>
+cudaError_t launch_level(int epi, int layout, bool ag, int tiles,
+                         const GemmArgs& g, int batch, cudaStream_t st) {
+  if (ag) return cudaErrorInvalidValue;
+  if (layout == 1 && epi == kEpiNone)
+    return launch_tiles<T, true, kEpiNone, 1, false, LEVEL>(tiles, g, batch,
+                                                             st);
+  if (layout != 0) return cudaErrorInvalidValue;
+  switch (epi) {
+    case kEpiNone:
+      return launch_tiles<T, true, kEpiNone, 0, false, LEVEL>(tiles, g, batch,
+                                                              st);
+    case kEpiBias:
+      return launch_tiles<T, true, kEpiBias, 0, false, LEVEL>(tiles, g, batch,
+                                                              st);
+    case kEpiSilu:
+      return launch_tiles<T, true, kEpiSilu, 0, false, LEVEL>(tiles, g, batch,
+                                                              st);
+    case kEpiBiasSilu:
+      return launch_tiles<T, true, kEpiBiasSilu, 0, false, LEVEL>(tiles, g,
+                                                                  batch, st);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 // The training variants: a transposed operand (plain chain) or the
@@ -414,6 +562,24 @@ cudaError_t launch_epi(int epi, int layout, bool ag, int tiles,
   }
 }
 
+// Every instance of one operand type: FT off, or FT at `level`.
+template <typename T>
+cudaError_t launch_ft(int ft, int level, int epi, int layout, bool ag,
+                      int tiles, const GemmArgs& g, int batch,
+                      cudaStream_t st) {
+  if (!ft) return launch_epi<T, false>(epi, layout, ag, tiles, g, batch, st);
+  switch (level) {
+    case kLevelBlock:
+      return launch_epi<T, true>(epi, layout, ag, tiles, g, batch, st);
+    case kLevelTile:
+      return launch_level<T, kLevelTile>(epi, layout, ag, tiles, g, batch, st);
+    case kLevelInner:
+      return launch_level<T, kLevelInner>(epi, layout, ag, tiles, g, batch,
+                                          st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 // K7: the grouped instances, by row tile (BM) and the walk of B's loads.
 // kernels/grouped_gemm.py:GROUPED_TILES lists the same tiles.
 template <typename T, bool FT>
@@ -445,14 +611,15 @@ const char* ft_gemm_error_string(int code) {
 // (nb0, nb1, M, N) and report (nb0, nb1, gm, gn, 8) contiguous row-major.
 // bias (N,) and residual (M, N), contiguous, only with one slice. act_grad:
 // nullptr, or (nb0, nb1, M, N) contiguous for a chain with an activation.
-// dtype: 0 f32, 1 bf16. epi: the Epilogue code. layout: the LAYOUT of the
-// tile loads (1 and 2 with epi 0 only). Returns the launch's cudaError_t.
+// dtype: 0 f32, 1 bf16. level: the FT Level (with ft = 1). epi: the
+// Epilogue code. layout: the LAYOUT of the tile loads (1 and 2 with epi 0
+// only). Returns the launch's cudaError_t.
 int ft_gemm_launch(const void* a, const void* b, const void* bias,
                    const void* res, void* out, float* rep, void* act_grad,
                    int nb0, int nb1,
                    int M, int N, int K, long long sa0, long long sa1, int sam,
                    int sak, long long sb0, long long sb1, int sbk, int sbn,
-                   int dtype, int ft,
+                   int dtype, int ft, int level,
                    int epi, int tiles, int layout, int verify_step,
                    int corrects,
                    float tau_coef, int inj_enable, int inj_batch, int inj_row,
@@ -472,13 +639,10 @@ int ft_gemm_launch(const void* a, const void* b, const void* bias,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool ag = act_grad != nullptr;
   if (dtype == 0)
-    return ft ? launch_epi<float, true>(epi, layout, ag, tiles, g, batch, st)
-              : launch_epi<float, false>(epi, layout, ag, tiles, g, batch, st);
+    return launch_ft<float>(ft, level, epi, layout, ag, tiles, g, batch, st);
   if (dtype == 1)
-    return ft ? launch_epi<__nv_bfloat16, true>(epi, layout, ag, tiles, g,
-                                                batch, st)
-              : launch_epi<__nv_bfloat16, false>(epi, layout, ag, tiles, g,
-                                                 batch, st);
+    return launch_ft<__nv_bfloat16>(ft, level, epi, layout, ag, tiles, g,
+                                    batch, st);
   return cudaErrorInvalidValue;
 }
 

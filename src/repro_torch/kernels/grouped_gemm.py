@@ -42,7 +42,7 @@ import torch.nn.functional as F
 from ..core.abft import F32EPS
 from ..core.policy import FTConfig
 from . import build
-from .ft_gemm import DTYPE_CODES, REPORT_WIDTH, _check_ft, cdiv, locate_record
+from .ft_gemm import DTYPE_CODES, REPORT_WIDTH, cdiv, locate_record
 
 #: K7's compiled (bm, bn, bk) per operand dtype (`launch_grouped` in
 #: csrc/ft_gemm.cu). bm is the layout's row tile.
@@ -65,6 +65,18 @@ _TGMM_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 13
 TGMM = build.Kernel("tgmm", "tgmm_launch", _TGMM_ARGTYPES)
 
 _NO_INJ = (0, 0, 0, 0)
+
+
+def _check_ft(ft: Optional[FTConfig]) -> bool:
+    """True when ``ft`` asks for checksums. K7 and K8 implement the block
+    level only: "tile" and "inner" raise."""
+    if ft is None or not ft.enabled:
+        return False
+    if ft.level != "block":
+        raise NotImplementedError(
+            f"FT level {ft.level!r} is not implemented by the grouped "
+            f"kernels K7 and K8 (only 'block')")
+    return True
 
 
 def row_tiles(dtype) -> Tuple[int, ...]:

@@ -15,7 +15,9 @@ and grouped front (uniform batched, grouped and grouped transpose);
 Tiles: the reference autotunes its TPU tiles; here each kernel has its own
 compiled tile configurations (`ft_gemm.TILES`, `flashft.BLOCK`), chosen
 from the shape unless the caller pins them (the CPU tests pin the
-reference's tiles so per-block reports compare like with like).
+reference's tiles so per-block reports compare like with like). The FT
+level of the GEMM fronts is ``ft.level`` ("block", "tile" or "inner"), with
+the "tile" level's band of rows taken from the tiles (`ft_gemm.band_of`).
 
 A stochastic injection campaign (``ft.inject_rate > 0`` with a key) raises
 `NotImplementedError`: the kernels carry no in-kernel SEU hook yet, and a
@@ -129,8 +131,10 @@ def fused_matmul(a: torch.Tensor, b: torch.Tensor, *,
                  save_act_grad: bool = False
                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """C = act(A·B + bias) + residual in one kernel; with an enabled ``ft``
-    the linear prefix is folded into the checksum comparison, so ABFT
-    verifies and corrects post-epilogue. Returns (C, report|None).
+    at the block level the linear prefix is folded into the checksum
+    comparison, so ABFT verifies and corrects post-epilogue ("tile" and
+    "inner" verify the raw accumulator and apply the whole chain after).
+    Returns (C, report|None).
 
     ``save_act_grad`` (needs ``act``) also writes act'(A·B + bias), taken
     from the verified, corrected accumulator, and returns
@@ -160,13 +164,15 @@ def grouped_gemm_call(spec: KernelSpec, a: torch.Tensor, b: torch.Tensor, *,
         batched GEMM (K5) in one launch, report (B, gm, gn, 8). A second
         leading batch dim, a (B0, B1, M, K), is taken as it is, so strided
         views (the KV cache of decode attention) reach the kernel without a
-        copy;
+        copy; every FT level;
       * a (T, K), b (G, K, N) with ``group_ids`` (T,): the ragged grouped
         GEMM (K7), y[t] = a[t] @ b[group_ids[t]] over a group-sorted
         buffer, detection and correction per group;
       * a (T, K), b (T, N) with ``group_ids`` and ``n_groups``: the grouped
         transpose GEMM (K8), dw[g] = Σ_{t: group_ids[t]=g} a[t] ⊗ b[t],
         (G, K, N) f32 — the MoE backward dw.
+
+    K7 and K8 implement the block level only.
 
     Returns (C, report|None)."""
     if a.dim() == 2:
@@ -208,7 +214,7 @@ def ft_matmul(a: torch.Tensor, b: torch.Tensor, *,
               ft: FTConfig = ONLINE_BLOCK,
               spec: Optional[InjectionSpec] = None,
               tiles: Tiles = None, out_dtype=None) -> torch.Tensor:
-    """Fused fault-tolerant GEMM. Returns the corrected C."""
+    """Fused fault-tolerant GEMM at ``ft.level``. Returns the corrected C."""
     out, _ = ft_matmul_report(a, b, ft=ft, spec=spec, tiles=tiles,
                               out_dtype=out_dtype)
     return out
@@ -219,7 +225,10 @@ def ft_matmul_report(a: torch.Tensor, b: torch.Tensor, *,
                      spec: Optional[InjectionSpec] = None,
                      tiles: Tiles = None, out_dtype=None, key=None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """FT GEMM returning (C, report (gm, gn, 8))."""
+    """FT GEMM at ``ft.level`` returning (C, report (gm, gn, 8)): per block
+    [detected, corrected, row, col, magnitude, max_residual, tau,
+    k_elapsed], summed over the bands and steps of "tile" and "inner"
+    (`ft_gemm.locate_bands`)."""
     return gemm_call(KernelSpec(ft_level=ft.level), a, b, ft=ft,
                      inject=spec, tiles=tiles, out_dtype=out_dtype, key=key)
 

@@ -8,7 +8,7 @@ or with ``tgmm`` the grouped transpose GEMM of the MoE backward dw (K8)."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 from . import epilogues
 
@@ -102,6 +102,35 @@ class BatchedKernelSpec(KernelSpec):
         if (self.grouped or self.tgmm) and self.epilogue:
             raise ValueError(f"the grouped and tgmm variants are "
                              f"epilogue-free, got {self.epilogue}")
+
+
+#: Compiled K1/K5 (bm, bn, bk) tile configurations, in the order of
+#: `launch_tiles` in csrc/ft_gemm.cu (re-exported by `kernels.ft_gemm`).
+TILES = ((64, 64, 32), (16, 128, 32))
+#: Rows of one "tile"-level checksum band of each compiled tile, in the
+#: order of TILES: the rows one of the CTA's 8 warps owns (bm / 8).
+BANDS = (8, 2)
+#: The reference's band (its 128-row MXU edge), taken at any other tiles:
+#: the CPU tests run the plain version at the reference's tiles.
+REFERENCE_BAND = 128
+
+
+def band_of(tiles: Sequence[int]) -> int:
+    """The "tile"-level band at ``tiles``: the kernel's for compiled
+    tiles, the reference's otherwise."""
+    tiles = tuple(tiles)
+    return BANDS[TILES.index(tiles)] if tiles in TILES else REFERENCE_BAND
+
+
+def validate(spec: KernelSpec, tiles: Sequence[int]) -> None:
+    """Static legality of a launch (the reference's `registry.validate`).
+    Ragged edges are masked by bounds, so the operands need not divide the
+    tiles; the "tile" level's per-band checksums slice the block in bands
+    of `band_of(tiles)` rows, so bm must be a multiple of it."""
+    bm, band = tiles[0], band_of(tiles)
+    if spec.ft_level == "tile" and bm % band != 0:
+        raise ValueError(f"FT level 'tile' needs bm % band == 0, got "
+                         f"bm={bm}, band={band}")
 
 
 def fused(bias: bool = False, act: Optional[str] = None,

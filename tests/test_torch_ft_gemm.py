@@ -224,9 +224,19 @@ def test_ft_matmul_ref_matches_reference():
 
 @pytest.mark.parametrize("level", ["tile", "inner"])
 def test_unported_levels_raise(level):
-    a, b = torch.ones(8, 16), torch.ones(16, 8)
+    """K1 and K5 run every FT level; the grouped kernels K7 and K8 implement
+    the block level only and raise at the other two."""
+    from repro_torch.kernels import grouped_gemm
+    ft = tpol.FTConfig(level=level)
+    buf, w = torch.ones(16, 16), torch.ones(2, 16, 8)
+    gid, row_end = torch.tensor([0, 1]), torch.tensor([8, 16])
     with pytest.raises(NotImplementedError):
-        tops.ft_matmul_report(a, b, ft=tpol.FTConfig(level=level))
+        grouped_gemm.ft_gemm_grouped(buf, w, gid, row_end, ft=ft)
+    with pytest.raises(NotImplementedError):
+        grouped_gemm.tgmm(buf, torch.ones(16, 8), row_end, bm=8, ft=ft)
+    out, rep = tops.ft_matmul_report(torch.ones(8, 16), torch.ones(16, 8),
+                                     ft=ft)
+    assert float(rep[..., 0].sum()) == 0.0
 
 
 @pytest.mark.parametrize("fused", [True, False])

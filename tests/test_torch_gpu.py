@@ -171,13 +171,126 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     with pytest.raises(NotImplementedError):
         ft_gemm.ft_gemm(a, b, ft=FT, chain=("gelu", "residual"),
                         residual=torch.ones(8, 8, device="cuda"))
-    with pytest.raises(NotImplementedError):
-        ft_gemm.ft_gemm(a, b, ft=FTConfig(level="tile"))
+    with pytest.raises(NotImplementedError):       # K7 is block-level only
+        from repro_torch.kernels import grouped_gemm
+        grouped_gemm.ft_gemm_grouped(
+            torch.ones(16, 16, device="cuda"),
+            torch.ones(2, 16, 8, device="cuda"),
+            torch.tensor([0, 1], device="cuda", dtype=torch.int32),
+            torch.tensor([8, 16], device="cuda", dtype=torch.int32),
+            ft=FTConfig(level="tile"))
+    with pytest.raises(NotImplementedError):       # no gelu at the tile level
+        ft_gemm.ft_gemm(a, b, ft=FT.replace(level="tile"), chain=("gelu",))
     with pytest.raises(TypeError):
         ft_gemm.ft_gemm(a.half(), b.half(), ft=FT)
     q = torch.ones(2, 8, 96, device="cuda")
     with pytest.raises(ValueError):
         flashft.flash_ft_fwd(q, q, q, ft=FT, scale=1.0, tau_dh=128)
+
+
+# ---------------------------------------------------------------------------
+# K1 / K5 at the tile and inner FT levels, and K9
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("level", ["tile", "inner"])
+@pytest.mark.parametrize("chain", list(ft_gemm.LEVEL_EPILOGUES))
+@pytest.mark.parametrize("shape", [(1, 77, 300), (7, 130, 200),
+                                   (100, 200, 97)])
+def test_gemm_levels_match_plain_f32(cuda, shape, chain, level):
+    """Every compiled tile/inner instance against the plain version at the
+    kernel's tiles and band: reports equal, an SEU corrected bit for bit
+    (located in its band), the same SEU left by a detect-only policy."""
+    m, n, k = shape
+    gen = torch.Generator(device="cuda").manual_seed(m + n + len(chain))
+    a, b = _ints(gen, m, k), _ints(gen, k, n)
+    bias = _ints(gen, n) if "bias" in chain else None
+    ft = FT.replace(level=level)
+    clean, rep = ft_gemm.ft_gemm(a, b, chain=chain, bias=bias, ft=ft)
+    assert float(rep[..., 0].sum()) == 0.0
+    for pol, inj in ((ft, (1, -1, m - 1, n - 1, 2)),
+                     (ft.replace(verify="final"), (1, -1, 0, 5, 0)),
+                     (ft.replace(action="detect"), (1, -1, m // 2, n // 3,
+                                                    1)),
+                     (ft, None)):
+        kw = dict(chain=chain, bias=bias, ft=pol, inj=inj, inj_mag=99.0)
+        before = ft_gemm.FT_GEMM_2D.launches
+        out, rep = ft_gemm.ft_gemm(a, b, **kw)
+        assert ft_gemm.FT_GEMM_2D.launches == before + 1
+        out_p, rep_p = ft_gemm.ft_gemm_plain(
+            a, b, tiles=ft_gemm.pick_tiles(m), **kw)
+        torch.testing.assert_close(out, out_p, rtol=1e-5, atol=1e-5)
+        _check_reports(rep, rep_p)
+        if inj is not None and pol.corrects:
+            assert torch.equal(out, clean)
+            hit = rep[..., 0] > 0
+            assert float(rep[..., 0].sum()) == float(rep[..., 1].sum()) == 1
+            assert (int(rep[hit][0, 2]), int(rep[hit][0, 3])) == inj[2:4]
+        elif inj is not None:
+            assert not torch.equal(out, clean)
+            assert float(rep[..., 1].sum()) == 0.0
+    off, _ = ft_gemm.ft_gemm(a, b, chain=chain, bias=bias)
+    torch.testing.assert_close(off, clean, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("level", ["tile", "inner"])
+@pytest.mark.parametrize("product", ["qk", "pv"])
+def test_gemm_batched_levels_match_plain_f32(cuda, level, product):
+    """K5 at tile / inner on decode attention's views of the cache (the
+    transposed K cache takes LAYOUT 1), with a 5-wide injection broadcast
+    into every slice and one into a single slice."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    nb, kvh, rep_n, s, dh = 3, 4, 7, 200, 128
+    cache = _ints(gen, nb, s, kvh, dh)
+    if product == "qk":
+        a, b = _ints(gen, nb, kvh, rep_n, dh), cache.permute(0, 2, 3, 1)
+    else:
+        a, b = _ints(gen, nb, kvh, rep_n, s), cache.transpose(1, 2)
+    n = b.shape[-1]
+    ft = FT.replace(level=level)
+    clean, _ = ft_gemm.ft_gemm(a, b, ft=ft)
+    for inj in ((1, -1, rep_n - 1, n - 1, 1), (1, 5, 0, 3, 0)):
+        kw = dict(ft=ft, inj=inj, inj_mag=60.0)
+        before = ft_gemm.FT_GEMM_BATCHED.launches
+        out, rep = ft_gemm.ft_gemm(a, b, **kw)
+        assert ft_gemm.FT_GEMM_BATCHED.launches == before + 1
+        out_p, rep_p = ft_gemm.ft_gemm_plain(
+            a, b, tiles=ft_gemm.pick_tiles(rep_n), **kw)
+        torch.testing.assert_close(out, out_p, rtol=1e-5, atol=1e-5)
+        _check_reports(rep, rep_p)
+        assert float(rep[..., 0].sum()) == (nb * kvh if inj[1] < 0 else 1)
+        assert torch.equal(out, clean)
+
+
+def test_gemm_levels_bf16_match_plain(cuda):
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    a = torch.randn(37, 300, generator=gen, device="cuda").bfloat16()
+    b = (torch.randn(300, 200, generator=gen, device="cuda") * 0.1).bfloat16()
+    bias = torch.randn(200, generator=gen, device="cuda").bfloat16()
+    for level in ("tile", "inner"):
+        kw = dict(chain=("bias", "silu"), bias=bias, ft=FT.replace(level=level))
+        out, rep = ft_gemm.ft_gemm(a, b, **kw)
+        out_p, rep_p = ft_gemm.ft_gemm_plain(a, b, tiles=ft_gemm.pick_tiles(37),
+                                             **kw)
+        tol = 2.0 ** -7 * float(out_p.float().abs().max())
+        assert float((out.float() - out_p.float()).abs().max()) <= tol
+        assert float(rep[..., 0].sum()) == float(rep_p[..., 0].sum()) == 0.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(256, 384, 512), (64, 128, 256),
+                                   (128, 1024, 100)])
+def test_naive_gemm_matches_plain(cuda, dtype, shape):
+    from repro_torch.kernels import gemm
+    m, n, k = shape
+    gen = torch.Generator(device="cuda").manual_seed(m + k)
+    a, b = _ints(gen, m, k, dtype=dtype), _ints(gen, k, n, dtype=dtype)
+    before = gemm.NAIVE_GEMM.launches
+    out = gemm.naive_gemm(a, b)
+    assert gemm.NAIVE_GEMM.launches == before + 1
+    assert out.dtype == dtype
+    assert torch.equal(out, gemm.naive_gemm_plain(a, b))
+    with pytest.raises(ValueError):
+        gemm.naive_gemm(_ints(gen, 200, k, dtype=dtype), b)
 
 
 # ---------------------------------------------------------------------------
