@@ -17,7 +17,12 @@ Phases (each prints its own lines; any failed check exits non-zero):
                128 tokens): max error, report agreement, a deterministic SEU
                on integer-valued operands (corrected, located), and CUDA-event
                times of the kernel, its plain version and one PyTorch library
-               call computing the same product without ABFT;
+               call computing the same product without ABFT; K1 runs on the
+               tensor-core instance (csrc/ft_gemm_sm90.cu) under the plan of
+               `ft_gemm.plan`, timed beside FT off and the SIMT instance at
+               its own tiles, with SEUs at k-step 0, mid-way in a later
+               split-K range and at the last step, each with a detect-only
+               control counted by the split-K rule;
   serve_check  qwen2-7b at full width, depth cut to 2 layers: prefill and 2
                decode steps (the same tokens fed to both) through the kernels
                and through their plain versions; logits agree within 2e-2 of
@@ -27,15 +32,20 @@ Phases (each prints its own lines; any failed check exits non-zero):
                and depth (random bf16 weights from a seed): 4 requests x 128
                prompt tokens, 32 greedy tokens, once under a dispatch guard
                (every kernel's launch count from that run, no library matmul
-               / attention call on the FT path), once timed without it;
+               / attention call on the FT path), once timed without it; then
+               one decode step and one prefill under torch.profiler (the
+               device's busy time and idle share, kernels by time) and the
+               host time of one K1 call;
   level_kernels  K1 and K5 at the tile (warp) and inner (thread) FT levels
                against their plain versions on the card in bf16 at
                qwen2-7b's prefill and decode w_gate+silu, decode wk+bias,
                decode lm_head and decode QKᵀ shapes: max error, reports equal, no detection on clean
                data, an SEU on integer-valued operands corrected bit for
                bit and located and left in place by a detect-only policy;
-               CUDA-event times beside FT off, block, the bound, the plain
-               version and the library call;
+               CUDA-event times beside FT off and block at the SIMT tiles
+               (the like-for-like ablation), block at the default plan (the
+               tensor cores), the bound, the plain version and the library
+               call;
   level_check  qwen2-7b at full width, 2 layers: prefill and 2 decode steps
                at each level through the kernels against their plain
                versions and against block (logits within 2e-2 of
@@ -99,7 +109,8 @@ Phases (each prints its own lines; any failed check exits non-zero):
                2 x 512 tokens, 4 steps (step 0 has lr 0): step times,
                tokens/s, peak memory, losses, FT counters, launches per
                step; then one more step through `make_train_step` under
-               the dispatch guard, whose launch counts are checked;
+               the dispatch guard, whose launch counts are checked, and one
+               under torch.profiler (busy time and idle share);
   moe_kernels  the grouped kernels K7 and K8 against their plain versions
                on the card at qwen3-moe-235b-a22b's shapes in bf16 (128
                experts, d 4 096, expert d_ff 1 536): K7 at the engine's
@@ -201,10 +212,17 @@ LADDER_SIZES = (1024, 4096, 8192)
 PEAK_F32 = 67e12
 
 KERNELS = {
+    # K1 on the tensor cores: every bf16 2-D call at FT off and block
+    "ft_gemm_sm90": dict(route="cuda",
+                         source="src/repro_torch/kernels/csrc/"
+                                "ft_gemm_sm90.cu",
+                         replaces="src/repro/kernels/templates/registry.py:48",
+                         counter=ft_gemm.FT_GEMM_SM90),
+    # K1's SIMT instance: f32, the tile and inner levels, other walks
     "ft_gemm_2d": dict(route="cuda",
                        source="src/repro_torch/kernels/csrc/ft_gemm.cu",
                        replaces="src/repro/kernels/templates/registry.py:48",
-                       counter=ft_gemm.FT_GEMM_2D),
+                       counter=ft_gemm.FT_GEMM_2D_SIMT),
     "ft_gemm_batched": dict(route="cuda",
                             source="src/repro_torch/kernels/csrc/ft_gemm.cu",
                             replaces="src/repro/kernels/templates/"
@@ -250,6 +268,15 @@ ENGINE_SLOTS, ENGINE_REQUESTS, ENGINE_MAX_LEN = 8, 16, 1024
 DECODE_LENGTHS = (0, 1, 63, 64, 65, 300, 777, 1024)
 
 
+def k1_launches(count: int, level: str = "block"):
+    """The expected K1 2-D counts of a bf16 path at FT ``level``: every
+    launch on the tensor-core instance at off and block, on the SIMT one at
+    tile and inner."""
+    sm90 = level in ("off", "block")
+    return {"ft_gemm_sm90": count if sm90 else 0,
+            "ft_gemm_2d": 0 if sm90 else count}
+
+
 class CheckFailed(RuntimeError):
     pass
 
@@ -277,6 +304,51 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
 def bound(flops: float, nbytes: float):
     t_op, t_by = flops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_op, "operations") if t_op >= t_by else (t_by, "bytes")
+
+
+def device_profile(fn):
+    """One call of ``fn`` under `torch.profiler` (CUDA activity only): the
+    host wall time to the end of the device work, the device's busy time
+    (the union of its kernel intervals), the idle share 1 - busy / wall, and
+    the kernels by total time. idle_share is None ("not measured") when the
+    trace holds no device event."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    spans, by_name = [], collections.Counter()
+    for e in prof.events():
+        if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
+            continue
+        spans.append((e.time_range.start, e.time_range.end))
+        by_name[e.name[:60]] += e.time_range.end - e.time_range.start
+    busy, end = 0.0, -math.inf
+    for lo, hi in sorted(spans):
+        lo = max(lo, end)
+        if hi > lo:
+            busy += hi - lo
+        end = max(end, hi)
+    return dict(wall_ms=wall_us / 1e3, busy_ms=busy / 1e3,
+                idle_share=(1.0 - busy / wall_us) if spans else None,
+                kernels=len(spans),
+                top=[(n, round(t / 1e3, 3)) for n, t in by_name.most_common(6)])
+
+
+def k1_host_us(a, b, calls: int = 200, **kw) -> float:
+    """Host time of one `ft_gemm` call (plan, allocation, the ctypes launch),
+    from ``calls`` calls enqueued back to back without a synchronisation."""
+    for _ in range(3):
+        ft_gemm.ft_gemm(a, b, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        ft_gemm.ft_gemm(a, b, **kw)
+    host = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return host
 
 
 # ---------------------------------------------------------------------------
@@ -323,8 +395,49 @@ def _ints(gen, *shape):
 
 
 def _plain_gemm(a, b, **kw):
-    return ft_gemm.ft_gemm_plain(a, b, tiles=ft_gemm.pick_tiles(a.shape[-2]),
-                                 **kw)
+    """K1's plain version under the plan the kernel follows (tiles and
+    split-K ranges)."""
+    return ft_gemm.planned_plain(a, b, **kw)
+
+
+def _simt_ms(a, b, iters, warmup=3, **kw):
+    """The time of the same call on K1's SIMT instance at its own tiles."""
+    return time_ms(lambda: ft_gemm.ft_gemm(
+        a, b, tiles=ft_gemm.pick_tiles(a.shape[-2]), **kw), iters,
+        warmup=warmup)
+
+
+def _k1_seus(label, a, b, kw, row, col, steps):
+    """Deterministic SEUs of K1 at each of ``steps`` (256-deep k-steps) on
+    integer-valued operands: corrected bit for bit and located; then the
+    same SEU under a detect-only policy left in place and counted by the
+    split-K rule (once at each later verification of its split and at the
+    final one)."""
+    p = ft_gemm.plan_call(a, b, ft=FT, chain=kw.get("chain", ()))
+    ranges = ft_gemm.split_ranges(a.shape[1], p.tiles[2], p.splits)
+    clean, _ = ft_gemm.ft_gemm(a, b, ft=FT, **kw)
+    for step in steps:
+        inj = (1, -1, row, col, step)
+        z = next(i for i, (lo, hi) in enumerate(ranges) if lo <= step < hi)
+        out, rep = ft_gemm.ft_gemm(a, b, ft=FT, inj=inj, inj_mag=1000.0,
+                                   **kw)
+        cell = rep[rep[..., 0] > 0]
+        check(torch.equal(out, clean) and float(rep[..., 0].sum()) == 1.0
+              and float(rep[..., 1].sum()) == 1.0 and int(cell[0, 2]) == row
+              and int(cell[0, 3]) == col
+              and abs(float(cell[0, 4]) - 1000.0) < 1e-3,
+              f"K1 {label}: SEU at (row {row}, col {col}, k-step {step}, "
+              f"split {z} of {p.splits}) corrected bit for bit and located")
+        out_d, rep_d = ft_gemm.ft_gemm(a, b, ft=DETECT, inj=inj,
+                                       inj_mag=1000.0, **kw)
+        want = max(0, ranges[z][1] - 1 - step) + 1
+        diff = (out_d != clean).nonzero()
+        check(diff.shape[0] == 1 and int(diff[0, 0]) == row
+              and int(diff[0, 1]) == col
+              and float(rep_d[..., 0].sum()) == want
+              and float(rep_d[..., 1].sum()) == 0.0,
+              f"K1 {label}: the same SEU left by detect-only and counted "
+              f"{want} time(s)")
 
 
 def _cmp_outputs(name, got, want, rep_k=None, rep_p=None, tol=BF16_TOL):
@@ -370,43 +483,52 @@ def phase_kernels():
         b = _rand(gen, k, n, scale=0.02)
         bias = _rand(gen, n, scale=0.02) if "bias" in chain else None
         kw = dict(chain=chain, bias=bias, ft=FT)
+        p = ft_gemm.plan_call(a, b, chain=chain, ft=FT)
+        check(p.instance == "sm90", f"K1 {label}: planned on the tensor-core "
+              f"instance ({p})")
+        before = ft_gemm.FT_GEMM_SM90.launches
         out, rep = ft_gemm.ft_gemm(a, b, **kw)
+        check(ft_gemm.FT_GEMM_SM90.launches == before + 1,
+              f"K1 {label}: one launch of the tensor-core instance")
         out_p, rep_p = _plain_gemm(a, b, **kw)
         k1_err = max(k1_err, _cmp_outputs(f"K1 {label}", out, out_p, rep,
                                           rep_p))
+        check(torch.equal(rep[..., :4], rep_p[..., :4]),
+              f"K1 {label}: report det / corr / row / col equal")
         iters = 3 if m == m_pre or n == v else 10
         ms = time_ms(lambda: ft_gemm.ft_gemm(a, b, **kw), iters)
         ms_off = time_ms(lambda: ft_gemm.ft_gemm(a, b, chain=chain, bias=bias,
                                                  ft=None), iters)
+        final = dict(kw, ft=FT.replace(verify="final"))
+        ms_final = time_ms(lambda: ft_gemm.ft_gemm(a, b, **final), iters)
+        simt_ms = _simt_ms(a, b, iters, **kw)
         plain_ms = time_ms(lambda: _plain_gemm(a, b, **kw), 1, warmup=0)
         lib = ((lambda: torch.addmm(bias, a, b)) if bias is not None
                else (lambda: torch.matmul(a, b)))
         lib_ms = time_ms(lib, iters)
         nbytes = 2 * (m * k + k * n + m * n + (n if bias is not None else 0))
         b_ms, b_by = bound(2.0 * m * n * k, nbytes)
-        k1_rows.append(dict(shape=label, M=m, N=n, K=k, ms=ms, ft_off_ms=ms_off,
+        k1_rows.append(dict(shape=label, M=m, N=n, K=k, tiles=p.tiles,
+                            splits=p.splits, ms=ms, ft_off_ms=ms_off,
+                            verify_final_ms=ms_final, simt_ms=simt_ms,
                             plain_ms=plain_ms, library_ms=lib_ms,
                             bound_ms=b_ms, bound_by=b_by))
-        print(f"  K1 {label} ({m}x{n}x{k}): kernel {ms:.3f} ms, FT off "
-              f"{ms_off:.3f} ms (FT overhead {ms / ms_off:.3f}x), plain "
-              f"{plain_ms:.3f} ms, library {lib_ms:.3f} ms, bound "
-              f"{b_ms:.4f} ms ({b_by})")
-    # Deterministic SEUs on integer-valued operands at the decode wq shape:
-    # one at the last k step (verified after the bias fold), one mid-way.
+        print(f"  K1 {label} ({m}x{n}x{k}, tiles {p.tiles}, {p.splits} "
+              f"split(s)): kernel {ms:.4f} ms, FT off {ms_off:.4f} ms (FT "
+              f"overhead {ms / ms_off:.3f}x), verify final {ms_final:.4f} "
+              f"ms, SIMT {simt_ms:.3f} ms "
+              f"({simt_ms / ms:.1f}x the kernel), plain {plain_ms:.3f} ms, "
+              f"library {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    # Deterministic SEUs on integer-valued operands at the decode wq shape
+    # (split-K ranges of its 14 k-steps): at k-step 0, mid-way in a later
+    # range, and at the last step (verified after the bias fold).
     a, b, bias = _ints(gen, m_dec, d), _ints(gen, d, qd), _ints(gen, qd)
-    clean, _ = ft_gemm.ft_gemm(a, b, chain=("bias",), bias=bias, ft=FT)
-    for row, col, step in ((m_dec - 1, qd - 1, d // 32 - 1), (1, 700, 5)):
-        out, rep = ft_gemm.ft_gemm(a, b, chain=("bias",), bias=bias, ft=FT,
-                                   inj=(1, -1, row, col, step), inj_mag=1000.0)
-        bn = ft_gemm.pick_tiles(m_dec)[1]
-        cell = rep[0, col // bn]
-        check(torch.equal(out, clean) and float(rep[..., 0].sum()) == 1.0
-              and int(cell[2]) == row and int(cell[3]) == col
-              and abs(float(cell[4]) - 1000.0) < 1e-3,
-              f"K1 SEU at (row {row}, col {col}, step {step}) corrected bit "
-              f"for bit and located")
-    rows["ft_gemm_2d"] = dict(max_abs_err=k1_err, detail=k1_rows,
-                              headline="decode w_gate+silu")
+    _k1_seus("decode wq+bias", a, b, dict(chain=("bias",), bias=bias),
+             m_dec - 1, qd - 1, (0, 6, d // 256 - 1))
+    _k1_seus("decode wq+bias", a, b, dict(chain=("bias",), bias=bias), 1,
+             700, (5,))
+    rows["ft_gemm_sm90"] = dict(max_abs_err=k1_err, detail=k1_rows,
+                                headline="decode w_gate+silu")
 
     # ---- K5: the batched ABFT GEMM at the decode attention operands ------
     # As `blocks.decode_attention` passes them: the grouped queries / probs
@@ -509,8 +631,7 @@ def plain_kernels():
     saved = ft_gemm.ft_gemm, [getattr(flashft, n) for n in names]
 
     def gemm(a, b, *, tiles=None, **kw):
-        return ft_gemm.ft_gemm_plain(
-            a, b, tiles=tiles or ft_gemm.pick_tiles(a.shape[-2]), **kw)
+        return ft_gemm.planned_plain(a, b, tiles=tiles, **kw)
 
     def blocks_of(plain):
         def run(*args, bq=None, bkv=None, **kw):
@@ -702,12 +823,14 @@ def _serve_run(name, params, cfg, run, prompts, new_tokens):
     check(not guard.hits, f"{name}: no library matmul / attention op "
           f"dispatched ({sorted(set(guard.hits))})")
     per_step = cfg.n_layers * 7 + 1
-    check(launches == {"ft_gemm_2d": per_step * (new_tokens + 1),
+    check(launches == {**k1_launches(per_step * (new_tokens + 1),
+                                     run.ft.level),
                        "ft_gemm_batched": 2 * cfg.n_layers * new_tokens,
                        "flash_ft": cfg.n_layers, "flash_dq": 0,
                        "flash_dkv": 0, "flash_decode": 0, **OFF_PATH},
           f"{name}: launch counts K1 {per_step} per prefill and per decode "
-          f"step, K5 {2 * cfg.n_layers} per decode step, K2 "
+          f"step (every one on the {'tensor-core' if run.ft.level == 'block' else 'SIMT'} "
+          f"instance), K5 {2 * cfg.n_layers} per decode step, K2 "
           f"{cfg.n_layers} per prefill")
     check(totals["detected"] == 0, f"{name}: zero detections")
     prefill_fn, decode_fn = serve.make_serve_fns(cfg, run)
@@ -733,12 +856,35 @@ def _serve_run(name, params, cfg, run, prompts, new_tokens):
           f"{[round(x, 1) for x in pre]} ({BATCH}x{PROMPT} tokens), decode "
           f"{decode_ms:.1f} ms per step median of "
           f"{[round(x, 1) for x in dec]} ({BATCH} tokens)")
+    # Where a step's time goes: the device's busy and idle share over one
+    # decode step and one prefill (torch.profiler), and the host time of
+    # one K1 call at the decode wq+bias shape.
+    prof = {}
+    if name == "serve":
+        state = {"tok": tok, "cache": cache}
+
+        def one_decode():
+            state["logits"], state["cache"] = decode_fn(
+                params, state["tok"], state["cache"])
+
+        prof["decode"] = device_profile(one_decode)
+        fresh = transformer.init_cache(cfg, BATCH, MAX_LEN)
+        prof["prefill"] = device_profile(
+            lambda: prefill_fn(params, prompts_d, fresh))
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        a = _rand(gen, BATCH, cfg.d_model)
+        w = _rand(gen, cfg.d_model, cfg.qkv_dims[0], scale=0.02)
+        bq = _rand(gen, cfg.qkv_dims[0], scale=0.02)
+        prof["k1_host_us"] = k1_host_us(a, w, chain=("bias",), bias=bq,
+                                        ft=run.ft)
+        for k_, v_ in prof.items():
+            print(f"  {name} {k_}: {v_}")
     return launches, dict(
         arch=cfg.arch_id, layers=cfg.n_layers, level=run.ft.level,
         batch=BATCH, prompt=PROMPT, new_tokens=new_tokens, generate_s=wall,
         new_tokens_per_s=tokens.size / wall, prefill_ms=prefill_ms,
         decode_ms_per_step=decode_ms, peak_gib=peak,
-        detected=totals["detected"], launches=launches)
+        detected=totals["detected"], launches=launches, profile=prof)
 
 
 def phase_serve(layers: int):
@@ -794,10 +940,15 @@ def phase_level_kernels():
         a, b, chain, kw, nb = operands(rnd, label)
         m, k, n = a.shape[-2], a.shape[-1], b.shape[-1]
         iters = 3 if m == BATCH * PROMPT else 10
-        off_ms = time_ms(lambda: ft_gemm.ft_gemm(a, b, chain=chain, **kw),
-                         iters)
+        # FT off and block at the SIMT tiles (the like-for-like ablation of
+        # the levels) and block at the default plan (the tensor cores).
+        simt = ft_gemm.pick_tiles(m)
+        off_ms = time_ms(lambda: ft_gemm.ft_gemm(a, b, chain=chain,
+                                                 tiles=simt, **kw), iters)
         block_ms = time_ms(lambda: ft_gemm.ft_gemm(a, b, chain=chain, ft=FT,
-                                                   **kw), iters)
+                                                   tiles=simt, **kw), iters)
+        block_default_ms = time_ms(lambda: ft_gemm.ft_gemm(
+            a, b, chain=chain, ft=FT, **kw), iters)
         lib_ms = time_ms((lambda: torch.addmm(kw["bias"], a, b)) if kw
                          else (lambda: torch.matmul(a, b)), iters)
         b_ms, b_by = bound(2.0 * nb * m * n * k,
@@ -818,13 +969,14 @@ def phase_level_kernels():
             rows[name]["detail"].append(dict(
                 shape=f"{label} ({level})", level=level, batch=nb, M=m, N=n,
                 K=k, ms=ms, ft_off_ms=off_ms, block_ms=block_ms,
-                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-                bound_by=b_by))
+                block_default_ms=block_default_ms, plain_ms=plain_ms,
+                library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by))
             print(f"  {level} {label} ({nb}x{m}x{n}x{k}): kernel {ms:.4f} ms, "
-                  f"FT off {off_ms:.4f} ms, block {block_ms:.4f} ms "
-                  f"({ms / off_ms:.3f}x FT off, {ms / block_ms:.3f}x block), "
-                  f"plain {plain_ms:.3f} ms, library {lib_ms:.4f} ms, bound "
-                  f"{b_ms:.5f} ms ({b_by})")
+                  f"at the SIMT tiles {simt} FT off {off_ms:.4f} ms and "
+                  f"block {block_ms:.4f} ms ({ms / off_ms:.3f}x FT off, "
+                  f"{ms / block_ms:.3f}x block); block at the default plan "
+                  f"{block_default_ms:.4f} ms; plain {plain_ms:.3f} ms, "
+                  f"library {lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
         # A deterministic SEU on integer-valued operands, in every slice.
         a, b, chain, kw, nb = operands(ints, label)
         row, col, step = m - 1, n - 3, ft_gemm.cdiv(k, 32) // 2
@@ -1395,7 +1547,7 @@ def phase_engine(seed: int, smi: str):
     check(not guard.hits, f"engine: no library matmul / attention op "
           f"dispatched ({sorted(set(guard.hits))})")
     per = cfg.n_layers * 7 + 1
-    expect = {"ft_gemm_2d": per * (ENGINE_REQUESTS + steps),
+    expect = {**k1_launches(per * (ENGINE_REQUESTS + steps)),
               "ft_gemm_batched": 0, "flash_ft": cfg.n_layers * ENGINE_REQUESTS,
               "flash_dq": 0, "flash_dkv": 0,
               "flash_decode": cfg.n_layers * steps, **OFF_PATH}
@@ -1481,6 +1633,9 @@ def phase_train_kernels():
         m, k = a.shape
         n = b.shape[1]
         kw = dict(chain=chain, ft=FT, save_act_grad=ag)
+        p = ft_gemm.plan_call(a, b, **kw)
+        check(p.instance == "sm90", f"K1 {label}: planned on the tensor-core "
+              f"instance ({p})")
         out, rep = ft_gemm.ft_gemm(a, b, **kw)
         out_p, rep_p = _plain_gemm(a, b, **kw)
         if ag:
@@ -1489,21 +1644,35 @@ def phase_train_kernels():
             check(ok, f"K1 {label}: act_grad max|kernel - plain| {err:.3g}")
         k1_err = max(k1_err, _cmp_outputs(f"K1 {label}", out, out_p, rep,
                                           rep_p))
+        check(torch.equal(rep[..., :4], rep_p[..., :4]),
+              f"K1 {label}: report det / corr / row / col equal")
         big = n == v
         iters = 2 if big else 5
         ms = time_ms(lambda: ft_gemm.ft_gemm(a, b, **kw), iters,
                      warmup=1 if big else 3)
+        ms_off = time_ms(lambda: ft_gemm.ft_gemm(
+            a, b, chain=chain, save_act_grad=ag), iters,
+            warmup=1 if big else 3)
+        final = dict(kw, ft=FT.replace(verify="final"))
+        ms_final = time_ms(lambda: ft_gemm.ft_gemm(a, b, **final), iters,
+                           warmup=1 if big else 3)
+        simt_ms = _simt_ms(a, b, iters, warmup=1, **kw)
         plain_ms = time_ms(lambda: _plain_gemm(a, b, **kw), 1, warmup=0)
         lib_ms = time_ms(lambda: torch.matmul(a, b), iters)
         b_ms, b_by = bound(2.0 * m * n * k,
                            2 * (m * k + k * n + m * n * (2 if ag else 1)))
         k1_rows.append(dict(shape=f"{label} {m}x{n}x{k}", M=m, N=n, K=k,
                             a_strides=list(a.stride()),
-                            b_strides=list(b.stride()), ms=ms,
+                            b_strides=list(b.stride()), tiles=p.tiles,
+                            splits=p.splits, ms=ms, ft_off_ms=ms_off,
+                            verify_final_ms=ms_final, simt_ms=simt_ms,
                             plain_ms=plain_ms, library_ms=lib_ms,
                             bound_ms=b_ms, bound_by=b_by))
         print(f"  K1 {label} ({m}x{n}x{k}, A strides {tuple(a.stride())}, "
-              f"B strides {tuple(b.stride())}): kernel {ms:.3f} ms, plain "
+              f"B strides {tuple(b.stride())}, tiles {p.tiles}, {p.splits} "
+              f"split(s)): kernel {ms:.4f} ms, FT off {ms_off:.4f} ms, "
+              f"verify final {ms_final:.4f} ms, SIMT "
+              f"{simt_ms:.3f} ms ({simt_ms / ms:.1f}x the kernel), plain "
               f"{plain_ms:.3f} ms, library {lib_ms:.4f} ms, bound "
               f"{b_ms:.4f} ms ({b_by})")
     # SEUs on integer operands: the act_grad variant and a dw on views.
@@ -1512,22 +1681,16 @@ def phase_train_kernels():
                                           save_act_grad=True)
     (out, out_g), rep = ft_gemm.ft_gemm(a, b, chain=("silu",), ft=FT,
                                         save_act_grad=True,
-                                        inj=(1, -1, 700, 300, 40),
+                                        inj=(1, -1, 700, 300, 5),
                                         inj_mag=512.0)
-    cell = rep[700 // 64, 300 // 64]
+    cell = rep[rep[..., 0] > 0]
     check(torch.equal(out, clean) and torch.equal(out_g, clean_g)
-          and float(rep[..., 0].sum()) == 1.0 and int(cell[2]) == 700
-          and int(cell[3]) == 300,
+          and float(rep[..., 0].sum()) == 1.0 and int(cell[0, 2]) == 700
+          and int(cell[0, 3]) == 300,
           "K1 act_grad SEU corrected bit for bit (C and act_grad), located")
     a, b = _ints(gen, t, dff).t(), _ints(gen, t, 256)
-    clean, _ = ft_gemm.ft_gemm(a.contiguous(), b, ft=FT)
-    out, rep = ft_gemm.ft_gemm(a, b, ft=FT, inj=(1, -1, 8000, 200, 31),
-                               inj_mag=-256.0)
-    cell = rep[8000 // 64, 200 // 64]
-    check(torch.equal(out, clean) and float(rep[..., 0].sum()) == 1.0
-          and int(cell[2]) == 8000 and int(cell[3]) == 200,
-          "K1 dw on a transposed view: SEU corrected bit for bit, located")
-    rows["ft_gemm_2d"] = dict(max_abs_err=k1_err, detail=k1_rows)
+    _k1_seus("dw on a transposed view", a, b, {}, 8000, 200, (0, 2, 3))
+    rows["ft_gemm_sm90"] = dict(max_abs_err=k1_err, detail=k1_rows)
 
     # ---- K2 with stats, K3, K4 at the training attention shape ----------
     bh, gk, dh = TRAIN_BATCH * cfg.n_heads, TRAIN_BATCH * cfg.n_kv_heads, \
@@ -1706,14 +1869,19 @@ def phase_train_check():
     check(tot_k["detected"] == 0 and tot_p["detected"] == 0,
           f"train_check: zero detections (kernels {tot_k}, plain {tot_p})")
     seus = {
+        # k_step counts the 256-deep k-steps of the dw's K = 256 tokens
         "w_down dw": ("w_down", ("dw", InjectionSpec(row=700, col=1000,
                                                      magnitude=64.0,
-                                                     k_step=3))),
-        # dK values are small (the loss is a mean over 256 tokens), so the
-        # SEU is 1.0: its correction leaves a rounding of ulp(1.0), not of
-        # ulp(64), in the corrected element.
+                                                     k_step=0))),
+        # dK values are small (the loss is a mean over 256 tokens), and the
+        # correction leaves the f32 rounding of the SEU's magnitude in the
+        # corrected element: ulp(1.0) is not small against such an element,
+        # and the backward spread a magnitude of 1.0 to 1.7e-3 of the grads
+        # (this check with the tensor-core K1 upstream). 2^-10 stays far
+        # above the block's tau and leaves a rounding of ulp(2^-10).
         "flash dK": ("attn_flash", dict(
-            inject=InjectionSpec(row=20, col=9, magnitude=1.0, k_step=2),
+            inject=InjectionSpec(row=20, col=9, magnitude=2.0 ** -10,
+                                 k_step=2),
             inj_target="dk", inj_bh=5, inj_blk=1)),
     }
     def rel_err(grads):
@@ -1788,7 +1956,7 @@ def phase_train(smi: str):
           "train: a finite loss at every step")
     check(all(h["detected"] == 0 for h in out["history"]),
           "train: zero detections")
-    expect = {"ft_gemm_2d": 28 * cfg.n_layers + 3, "ft_gemm_batched": 0,
+    expect = {**k1_launches(28 * cfg.n_layers + 3), "ft_gemm_batched": 0,
               "flash_ft": 2 * cfg.n_layers, "flash_dq": cfg.n_layers,
               "flash_dkv": cfg.n_layers, "flash_decode": 0, **OFF_PATH}
     check(all(x == expect for x in launches),
@@ -1818,12 +1986,17 @@ def phase_train(smi: str):
           "train: the guard saw the backward's ops (the embedding's "
           "index_put)")
     check(guarded == expect, f"train: guarded step launches {guarded}")
+    # Where the step's time goes: the device's busy and idle share over one
+    # more step (torch.profiler).
+    prof = device_profile(lambda: step_fn(out["params"], out["opt_state"],
+                                          batch, TRAIN_STEPS + 1))
+    print(f"  profiled step: {prof}")
     print(json.dumps({"train": dict(
         arch=cfg.arch_id, layers=cfg.n_layers, batch=TRAIN_BATCH,
         seq=TRAIN_SEQ, steps=TRAIN_STEPS, step_ms=times,
         median_step_ms=step_ms, tokens_per_s=tokens / step_ms * 1e3,
         peak_gib=peak, losses=losses, launches_per_step=launches[-1],
-        card=smi)}))
+        profile=prof, card=smi)}))
     return guarded
 
 
@@ -2316,7 +2489,7 @@ def phase_moe_engine(seed: int, smi: str):
           f"router's f32 product ({sorted(set(guard.hits))})")
     per = 4 * cfg.n_layers + 1
     calls = ENGINE_REQUESTS + steps
-    expect = {"ft_gemm_2d": per * calls, "ft_gemm_batched": 0,
+    expect = {**k1_launches(per * calls), "ft_gemm_batched": 0,
               "flash_ft": cfg.n_layers * ENGINE_REQUESTS, "flash_dq": 0,
               "flash_dkv": 0, "flash_decode": cfg.n_layers * steps,
               "ft_gemm_grouped": 3 * cfg.n_layers * calls, "tgmm": 0,
@@ -2394,7 +2567,7 @@ def phase_moe_train(smi: str):
     # Per layer: K1 4 attention projections forward, again in the remat
     # recompute, and dx + dw each in the backward (16), lm_head 3; K7 3
     # expert GEMMs forward, in the recompute and as dbuf (9); K8 3 dw.
-    expect = {"ft_gemm_2d": 16 * n_l + 3, "ft_gemm_batched": 0,
+    expect = {**k1_launches(16 * n_l + 3), "ft_gemm_batched": 0,
               "flash_ft": 2 * n_l, "flash_dq": n_l, "flash_dkv": n_l,
               "flash_decode": 0, "ft_gemm_grouped": 9 * n_l, "tgmm": 3 * n_l,
               "naive_gemm": 0}

@@ -23,8 +23,8 @@ from typing import Dict, Optional, Sequence
 CSRC = Path(__file__).resolve().parent / "csrc"
 REPO_ROOT = Path(__file__).resolve().parents[3]
 BUILD_DIR = REPO_ROOT / "build" / "repro_torch"
-SOURCES = ("ft_gemm", "flash_ft", "flash_ft_bwd", "flash_decode", "tgmm",
-           "gemm_naive")
+SOURCES = ("ft_gemm", "ft_gemm_sm90", "flash_ft", "flash_ft_bwd",
+           "flash_decode", "tgmm", "gemm_naive")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -143,3 +143,16 @@ class Kernel:
             raise RuntimeError(f"{self.symbol}: CUDA error {rc} "
                                f"({self._err(rc).decode()})")
         self.launches += 1
+
+
+class LaunchTotal:
+    """The sum of several kernels' launch counters: one function served by
+    more than one instance (K1's 2-D total over its SIMT and tensor-core
+    instances)."""
+
+    def __init__(self, *kernels: Kernel):
+        self.kernels = kernels
+
+    @property
+    def launches(self) -> int:
+        return sum(k.launches for k in self.kernels)

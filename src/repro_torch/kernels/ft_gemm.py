@@ -1,11 +1,18 @@
-"""ABFT GEMM — wrapper of the CUDA kernel `csrc/ft_gemm.cu` and its plain
-PyTorch version.
+"""ABFT GEMM — wrapper of the CUDA kernels `csrc/ft_gemm.cu` (SIMT) and
+`csrc/ft_gemm_sm90.cu` (tensor cores), and their plain PyTorch version.
 
 Replaces the TPU kernels K1 (2-D) and K5 (uniform batched) of the JAX
 package: `repro/kernels/templates/emit.py:render`, launched by
-`templates/registry.py:kernel_call` and `:batched_kernel_call`. One source
-serves both: the 2-D kernel is the batched kernel with batch 1. Each has its
-own launch counter (`FT_GEMM_2D`, `FT_GEMM_BATCHED`).
+`templates/registry.py:kernel_call` and `:batched_kernel_call`. `plan`
+decides which instance runs a call, at which tiles and with how many
+split-K ranges: a bf16 2-D call at FT off or at the "block" level, whose
+chain is an optional bias then an optional silu and whose operands
+TMA can read (a unit-stride dim, the other stride a multiple of 8
+elements, 16-byte aligned bases), runs on the tensor cores at
+`SM90_TILES`; every other call on the SIMT kernel at `TILES`, whose 2-D
+kernel is its batched kernel with batch 1. Each instance has its own launch
+counter (`FT_GEMM_SM90`, `FT_GEMM_2D_SIMT`, `FT_GEMM_BATCHED`);
+`FT_GEMM_2D` is K1's 2-D total.
 
 Three FT levels, the paper's threadblock / warp / thread granularities
 (`repro/kernels/ftgemm.py:9-21`):
@@ -24,8 +31,9 @@ Three FT levels, the paper's threadblock / warp / thread granularities
     checksums, located and corrected in Δ, then accumulated: no running
     checksums and no final verification, so ``verify`` changes nothing.
 
-`ft_gemm` takes a CPU tensor to `ft_gemm_plain` and a CUDA tensor to the
-kernel; on a CUDA tensor it launches the kernel or raises. With
+`ft_gemm` takes a CPU tensor to `ft_gemm_plain` under the same plan and a
+CUDA tensor to the kernel; on a CUDA tensor it launches the kernel or
+raises. With
 ``save_act_grad`` (block level) both also write the act_grad output,
 act'(pre-activation) of the chain's activation from the verified, corrected
 accumulator (the residual the training backward consumes), and return
@@ -33,14 +41,19 @@ accumulator (the residual the training backward consumes), and return
 grid as the kernel — a Python loop over k-steps, vectorised over output
 blocks — and writes the same (…, gm, gn, 8) report, so the two can be held
 against each other on the card and the plain version against the reference
-on the CPU.
+on the CPU. With ``splits`` > 1 the plain version walks the tensor-core
+instance's split-K grid: each block's k-steps in that many contiguous,
+balanced ranges, each verified as its own accumulator, then summed and
+verified at k = K, the reports merged by the rule of `merge_reports`.
 
-What bounds the kernel on the H100 and what its design does about it is in
-the header of `csrc/ft_gemm.cu`.
+What bounds the kernels on the H100 and what their designs do about it is
+in the headers of `csrc/ft_gemm.cu` and `csrc/ft_gemm_sm90.cu`.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -69,10 +82,164 @@ _ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
              + _BATCH_STRIDES + [ctypes.c_int] * 2
              + _BATCH_STRIDES + [ctypes.c_int] * 10 + [ctypes.c_float]
              + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p])
-FT_GEMM_2D = build.Kernel("ft_gemm", "ft_gemm_launch", _ARGTYPES)
+FT_GEMM_2D_SIMT = build.Kernel("ft_gemm", "ft_gemm_launch", _ARGTYPES)
 FT_GEMM_BATCHED = build.Kernel("ft_gemm", "ft_gemm_launch", _ARGTYPES)
+_SM90_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
+                  + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 8
+                  + [ctypes.c_float] + [ctypes.c_int] * 4
+                  + [ctypes.c_float, ctypes.c_void_p])
+FT_GEMM_SM90 = build.Kernel("ft_gemm_sm90", "ft_gemm_sm90_launch",
+                            _SM90_ARGTYPES)
+#: Every 2-D K1 launch, on either instance.
+FT_GEMM_2D = build.LaunchTotal(FT_GEMM_2D_SIMT, FT_GEMM_SM90)
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+#: The tensor-core instance's (bm, bn, bk) tiles: 128 rows (two consumer
+#: warpgroups) for M > 64, else 64; bk is the 256-deep k-step, the
+#: verification interval, the reference's small-class bk
+#: (`repro/kernels/autotune.py:66`).
+SM90_TILES = ((128, 128, 256), (64, 128, 256))
+#: The activations the tensor-core instance applies after an optional bias
+#: (the main paths' chains) → its `act` code.
+SM90_ACTS = {None: 0, "silu": 1}
+#: The H100's SMs; split-K cuts a call whose output blocks number fewer
+#: than about two waves of CTAs.
+SMS = 132
+SPLIT_TARGET = 2 * SMS
+#: f32 words of one split's record in the split-K workspace: column and row
+#: checksums (128 each), max|A|, max|B|, the split's report (8), padding.
+SPLIT_RECORD = 272
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """How one call runs. ``instance``: "sm90" (csrc/ft_gemm_sm90.cu),
+    "simt" (csrc/ft_gemm.cu) or "plain" (tiles no kernel compiles: the
+    plain version only, on the CPU). ``a_kmajor`` / ``b_kmajor``: the unit-
+    stride dim of each operand on the tensor-core walk; ``reason``: why the
+    tensor-core instance does not take the call ("" when it does)."""
+    instance: str
+    tiles: Tuple[int, int, int]
+    splits: int = 1
+    a_kmajor: bool = True
+    b_kmajor: bool = False
+    reason: str = ""
+
+
+def sm90_chain(chain: Tuple[str, ...]) -> Optional[Tuple[bool, int]]:
+    """(bias, act code) of a chain the tensor-core instance applies — an
+    optional bias, then at most one activation of `SM90_ACTS` — or None."""
+    rest = tuple(chain)
+    bias = rest[:1] == ("bias",)
+    rest = rest[1:] if bias else rest
+    if len(rest) > 1 or (rest and rest[0] not in SM90_ACTS):
+        return None
+    return bias, SM90_ACTS[rest[0] if rest else None]
+
+
+def split_ranges(k: int, bk: int, splits: int):
+    """The [s_lo, s_hi) k-step range of each split, in split order:
+    contiguous and balanced."""
+    gk = cdiv(k, bk)
+    return [(z * gk // splits, (z + 1) * gk // splits)
+            for z in range(splits)]
+
+
+def split_count(m: int, n: int, k: int, tiles: Sequence[int]) -> int:
+    """Split-K ranges per output block: 1 when the gm x gn blocks reach
+    `SPLIT_TARGET` CTAs; else the count that minimises the time in CTA
+    k-steps, one CTA an SM: each wave of CTAs costs its longest range plus
+    one k-step (the ring's fill and the epilogue), and the f32 partials of
+    the live rows, written and read again, cost their bytes over the SMs in
+    units of one k-step's B tile. Ties go to fewer ranges."""
+    bm, bn, bk = tiles
+    blocks = cdiv(m, bm) * cdiv(n, bn)
+    ks = cdiv(k, bk)
+    if blocks >= SPLIT_TARGET:
+        return 1
+    part = min(m, bm) * bn * 8 / (SMS * bk * bn * 2)
+
+    def cost(s):
+        return (cdiv(blocks * s, SMS) * (cdiv(ks, s) + 1)
+                + (blocks * s * part if s > 1 else 0.0))
+
+    return min(range(1, ks + 1), key=lambda s: (cost(s), s))
+
+
+def _tma_walk(rows: int, cols: int, s_rows: int, s_cols: int
+              ) -> Optional[bool]:
+    """True if the (rows, cols) operand has unit-stride cols (rows s_rows
+    elements apart), False for unit-stride rows (cols s_cols apart), None if
+    TMA cannot read it: the other stride must be a multiple of 8 elements
+    (16 bytes) and span the unit-stride dim."""
+    if s_cols == 1 and s_rows % 8 == 0 and s_rows >= cols:
+        return True
+    if s_rows == 1 and s_cols % 8 == 0 and s_cols >= rows:
+        return False
+    return None
+
+
+@functools.lru_cache(maxsize=4096)
+def plan(m: int, n: int, k: int, *, dtype, level: str,
+         chain: Tuple[str, ...] = (), act_grad: bool = False,
+         a_strides: Sequence[int], b_strides: Sequence[int],
+         aligned: bool = True, batched: bool = False,
+         tiles: Optional[Sequence[int]] = None) -> Plan:
+    """The instance, tiles and split count of an (M, K) x (K, N) call.
+
+    ``level`` is the FT level, "off" with FT disabled; ``a_strides`` /
+    ``b_strides`` the (row, column) element strides of A and B; ``aligned``
+    whether both base pointers are 16-byte aligned. The tensor-core
+    instance takes a bf16 2-D call at "off" or "block" whose chain
+    `sm90_chain` accepts, with A read along k or m and B along n or k (not
+    both transposed) as `_tma_walk` allows; it runs at `SM90_TILES` (128
+    rows for M > 64) with `split_count` ranges. Every other call runs on
+    the SIMT kernel at `pick_tiles(M)`. Explicit ``tiles`` pin the
+    instance: tensor-core tiles raise ValueError for a call that instance
+    cannot take. A pure function of its arguments, cached (a decode step
+    plans the same few shapes hundreds of times)."""
+    why = ""
+    a_k = _tma_walk(m, k, *a_strides)
+    b_n = _tma_walk(k, n, *b_strides)
+    b_k = None if b_n is None else not b_n
+    if batched:
+        why = "a batched call (K5)"
+    elif dtype != torch.bfloat16:
+        why = f"dtype {dtype}"
+    elif level not in ("off", "block"):
+        why = f"FT level {level!r}"
+    elif sm90_chain(chain) is None:
+        why = f"the epilogue chain {chain}"
+    elif a_k is None or b_k is None or (a_k is False and b_k is True):
+        why = (f"strides A {tuple(a_strides)}, B {tuple(b_strides)} (TMA "
+               f"needs a unit-stride dim, the other stride a multiple of 8, "
+               f"and not both operands transposed)")
+    elif not aligned:
+        why = "a base pointer not 16-byte aligned"
+    if tiles is None:
+        tiles = (SM90_TILES[0] if m > 64 else SM90_TILES[1]) if not why \
+            else pick_tiles(m)
+    tiles = tuple(tiles)
+    if tiles in SM90_TILES:
+        if why:
+            raise ValueError(f"ft_gemm: the tensor-core tiles {tiles} do not "
+                             f"take {why}")
+        return Plan("sm90", tiles, split_count(m, n, k, tiles), a_k, b_k)
+    return Plan("simt" if tiles in TILES else "plain", tiles, reason=why)
+
+
+def plan_call(a: torch.Tensor, b: torch.Tensor, *, chain=(), ft=None,
+              save_act_grad: bool = False, tiles=None) -> Plan:
+    """`plan` of a call of `ft_gemm` on these operands."""
+    level = ft.level if (ft is not None and ft.enabled) else "off"
+    return plan(a.shape[-2], b.shape[-1], a.shape[-1], dtype=a.dtype,
+                level=level, chain=tuple(chain), act_grad=save_act_grad,
+                a_strides=tuple(a.stride()[-2:]),
+                b_strides=tuple(b.stride()[-2:]),
+                aligned=a.data_ptr() % 16 == 0 and b.data_ptr() % 16 == 0,
+                batched=a.dim() > 2,
+                tiles=None if tiles is None else tuple(tiles))
 
 
 def pick_tiles(m: int) -> Tuple[int, int, int]:
@@ -184,6 +351,20 @@ def locate_bands(d_col: torch.Tensor, d_row: torch.Tensor,
     return det, row, col, mag
 
 
+def merge_reports(reps: Sequence[torch.Tensor]) -> torch.Tensor:
+    """The split-K report rule: the splits' reports (…, 8) merged in split
+    order — det and corr add, row / col / mag from the last detection,
+    max_residual the max. tau and k come from the final verification that
+    follows."""
+    out = torch.zeros_like(reps[0])
+    for r in reps:
+        hit = r[..., :1] > 0
+        out[..., :2] += r[..., :2]
+        out[..., 2:5] = torch.where(hit, r[..., 2:5], out[..., 2:5])
+        out[..., 5] = torch.maximum(out[..., 5], r[..., 5])
+    return out
+
+
 # ---------------------------------------------------------------------------
 # plain version
 # ---------------------------------------------------------------------------
@@ -194,7 +375,8 @@ def ft_gemm_plain(a: torch.Tensor, b: torch.Tensor, *,
                   residual: Optional[torch.Tensor] = None,
                   ft: Optional[FTConfig] = None,
                   inj: Optional[Sequence[int]] = None,
-                  inj_mag: float = 0.0, save_act_grad: bool = False
+                  inj_mag: float = 0.0, save_act_grad: bool = False,
+                  splits: int = 1
                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The kernel's function in plain PyTorch, on the kernel's tile grid.
 
@@ -206,9 +388,15 @@ def ft_gemm_plain(a: torch.Tensor, b: torch.Tensor, *,
     to the accumulator at global (row, col) on k-step k_step, in batch slice
     ``batch`` of the flattened leading dims (< 0: every slice). ``ft.level``
     picks the FT level, the "tile" level's band height is `band_of(tiles)`.
-    With ``save_act_grad`` C is the pair (C, act_grad)."""
+    With ``save_act_grad`` C is the pair (C, act_grad). ``splits`` (block
+    level or FT off): the split-K ranges of each block's k-steps, verified
+    alone (with the split's own elapsed k and maxima in tau) after each of
+    their steps but the last, then summed in split order, their reports
+    merged (`merge_reports`) and the sum verified at k = K."""
     ft_on, level, bh = _check_ft(ft, tiles, save_act_grad)
     _check_act_grad(chain, save_act_grad)
+    if splits > 1 and level not in ("off", "block"):
+        raise ValueError(f"split-K is a block-level walk, not {level!r}")
     lead = tuple(a.shape[:-2])
     a3 = a.reshape((-1,) + tuple(a.shape[-2:]))
     b3 = b.reshape((-1,) + tuple(b.shape[-2:]))
@@ -221,16 +409,10 @@ def ft_gemm_plain(a: torch.Tensor, b: torch.Tensor, *,
     af = F.pad(a3.float(), (0, kp - k, 0, mp - m))
     bf = F.pad(b3.float(), (0, np_ - n, 0, kp - k))
     nbb = bf.shape[0]
-    acc = torch.zeros(nb, mp, np_, dtype=torch.float32, device=dev)
     rep = colck = rowck = amax = bmax = None
     if ft_on:
         # Block and inner keep one band of bm rows; tile bm / band bands.
         nbands = bm // bh
-        colck = torch.zeros(nb, gm, gn, nbands, bn, device=dev)
-        rowck = torch.zeros(nb, gm, gn, bm, device=dev)
-        amax = torch.zeros(nb, gm, device=dev)
-        bmax = torch.zeros(nbb, gn, device=dev)
-        rep = torch.zeros(nb, gm, gn, REPORT_WIDTH, device=dev)
         coef = torch.tensor(ft.rel_tau * F32EPS, dtype=torch.float32,
                             device=dev)
         bi = torch.arange(nb, device=dev)[:, None, None, None]
@@ -256,40 +438,64 @@ def ft_gemm_plain(a: torch.Tensor, b: torch.Tensor, *,
             blocks.index_put_((bi, ii, tt, row, jj, col), -mag,
                               accumulate=True)
 
-    for s in range(gk):
-        a_s = af[:, :, s * bk:(s + 1) * bk]          # (nb, mp, bk)
-        b_s = bf[:, s * bk:(s + 1) * bk, :]          # (nbb, bk, np)
-        delta = torch.matmul(a_s, b_s)
-        if not ft_on:
+    parts = []
+    for s_lo, s_hi in split_ranges(k, bk, splits):
+        # one split: k-steps [s_lo, s_hi) into its own accumulator,
+        # checksums, maxima and report (one split: the whole k loop).
+        acc = torch.zeros(nb, mp, np_, dtype=torch.float32, device=dev)
+        if ft_on:
+            colck = torch.zeros(nb, gm, gn, nbands, bn, device=dev)
+            rowck = torch.zeros(nb, gm, gn, bm, device=dev)
+            amax = torch.zeros(nb, gm, device=dev)
+            bmax = torch.zeros(nbb, gn, device=dev)
+            rep = torch.zeros(nb, gm, gn, REPORT_WIDTH, device=dev)
+        for s in range(s_lo, s_hi):
+            a_s = af[:, :, s * bk:(s + 1) * bk]          # (nb, mp, bk)
+            b_s = bf[:, s * bk:(s + 1) * bk, :]          # (nbb, bk, np)
+            delta = torch.matmul(a_s, b_s)
+            if not ft_on:
+                acc += delta
+                continue
+            if inj is not None and inj[0] == 1 and s == inj[4]:
+                _, ib, ir, ic, _ = inj
+                if 0 <= ir < mp and 0 <= ic < np_:
+                    sl = slice(None) if ib < 0 else slice(ib, ib + 1)
+                    delta[sl, ir, ic] += inj_mag
+            asum = a_s.reshape(nb, gm * nbands, bh, bk).sum(2)  # e^T A / band
+            ck_col = (torch.matmul(asum, b_s).view(nb, gm, nbands, gn, bn)
+                      .permute(0, 1, 3, 2, 4))
+            bsum = b_s.reshape(nbb, bk, gn, bn).sum(3)          # (nbb, bk, gn)
+            ck_row = (torch.matmul(a_s, bsum).view(nb, gm, bm, gn)
+                      .permute(0, 1, 3, 2))
+            amax = torch.maximum(amax, a_s.abs().reshape(nb, gm, bm * bk)
+                                 .amax(-1))
+            bmax = torch.maximum(bmax, b_s.abs().reshape(nbb, bk, gn, bn)
+                                 .amax((1, 3)))
+            # k elapsed in this split
+            k_el = torch.tensor(float(min((s + 1) * bk, k) - s_lo * bk),
+                                device=dev)
+            if level == "inner":
+                # Δ alone against its own checksums; τ still takes the
+                # elapsed k and the running max|A|, max|B| (emit.py:369-378).
+                verify(delta, ck_col, ck_row, k_el)
+                acc += delta
+                continue
             acc += delta
-            continue
-        if inj is not None and inj[0] == 1 and s == inj[4]:
-            _, ib, ir, ic, _ = inj
-            if 0 <= ir < mp and 0 <= ic < np_:
-                sl = slice(None) if ib < 0 else slice(ib, ib + 1)
-                delta[sl, ir, ic] += inj_mag
-        asum = a_s.reshape(nb, gm * nbands, bh, bk).sum(2)     # e^T A per band
-        ck_col = (torch.matmul(asum, b_s).view(nb, gm, nbands, gn, bn)
-                  .permute(0, 1, 3, 2, 4))
-        bsum = b_s.reshape(nbb, bk, gn, bn).sum(3)             # (nbb, bk, gn)
-        ck_row = (torch.matmul(a_s, bsum).view(nb, gm, bm, gn)
-                  .permute(0, 1, 3, 2))
-        amax = torch.maximum(amax, a_s.abs().reshape(nb, gm, bm * bk)
-                             .amax(-1))
-        bmax = torch.maximum(bmax, b_s.abs().reshape(nbb, bk, gn, bn)
-                             .amax((1, 3)))
-        k_el = torch.tensor(float(min((s + 1) * bk, k)), device=dev)
-        if level == "inner":
-            # Δ alone against its own checksums; τ still takes the elapsed
-            # k and the running max|A|, max|B| (emit.py:369-378).
-            verify(delta, ck_col, ck_row, k_el)
-            acc += delta
-            continue
-        acc += delta
-        colck += ck_col
-        rowck += ck_row
-        if ft.verify == "step" and s != gk - 1:
-            verify(acc, colck, rowck, k_el)
+            colck += ck_col
+            rowck += ck_row
+            if ft.verify == "step" and s != s_hi - 1:
+                verify(acc, colck, rowck, k_el)
+        parts.append((acc, colck, rowck, amax, bmax, rep))
+    acc = parts[0][0]
+    for p in parts[1:]:
+        acc = acc + p[0]
+    if ft_on and splits > 1:
+        colck, rowck = parts[0][1], parts[0][2]
+        for p in parts[1:]:
+            colck, rowck = colck + p[1], rowck + p[2]
+        amax = torch.stack([p[3] for p in parts]).amax(0)
+        bmax = torch.stack([p[4] for p in parts]).amax(0)
+        rep = merge_reports([p[5] for p in parts])
 
     # epilogue. block: the linear prefix folded into the checksums, final
     # verify, then the nonlinear suffix; tile: the final verify on the raw
@@ -347,21 +553,83 @@ def ft_gemm(a: torch.Tensor, b: torch.Tensor, *,
     a (M, K) runs K1 (2-D); a (*lead, M, K) with one or two leading batch
     dims runs K5 (batched) with b (*lead, K, N) or a shared b (K, N). The
     kernel reads A and B through their strides, so permuted views are not
-    copied. ``tiles`` defaults to `pick_tiles(M)`. A CPU tensor runs
-    `ft_gemm_plain`; a CUDA tensor launches the kernel or raises. Returns
-    (C, report|None) as `ft_gemm_plain` does."""
+    copied. `plan_call` picks the instance, the tiles (``tiles`` pins them)
+    and the split count. A CPU tensor runs `ft_gemm_plain` under that plan;
+    a CUDA tensor launches the kernel or raises. Returns (C, report|None)
+    as `ft_gemm_plain` does."""
     chain = tuple(chain)
-    m = a.shape[-2]
-    tiles = tuple(tiles) if tiles is not None else pick_tiles(m)
+    p = plan_call(a, b, chain=chain, ft=ft, save_act_grad=save_act_grad,
+                  tiles=tiles)
+    kw = dict(chain=chain, bias=bias, residual=residual, ft=ft, inj=inj,
+              inj_mag=inj_mag, save_act_grad=save_act_grad)
     if a.device.type == "cpu":
-        return ft_gemm_plain(a, b, tiles=tiles, chain=chain, bias=bias,
-                             residual=residual, ft=ft, inj=inj,
-                             inj_mag=inj_mag, save_act_grad=save_act_grad)
+        return ft_gemm_plain(a, b, tiles=p.tiles, splits=p.splits, **kw)
     if a.device.type != "cuda":
         raise ValueError(f"ft_gemm: unsupported device {a.device}")
-    return _launch(a, b, chain=chain, bias=bias, residual=residual, ft=ft,
-                   inj=inj, inj_mag=inj_mag, tiles=tiles,
-                   save_act_grad=save_act_grad)
+    if p.instance == "sm90":
+        return _launch_sm90(a, b, p, **kw)
+    return _launch(a, b, tiles=p.tiles, **kw)
+
+
+def planned_plain(a: torch.Tensor, b: torch.Tensor, *,
+                  tiles: Optional[Sequence[int]] = None, **kw
+                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """`ft_gemm_plain` under the plan `ft_gemm` follows for these operands
+    (its tiles and split count), on any device: the comparison side of the
+    kernel on the card."""
+    p = plan_call(a, b, chain=kw.get("chain", ()), ft=kw.get("ft"),
+                  save_act_grad=kw.get("save_act_grad", False), tiles=tiles)
+    return ft_gemm_plain(a, b, tiles=p.tiles, splits=p.splits, **kw)
+
+
+def _launch_sm90(a, b, p: Plan, *, chain, bias, residual, ft, inj, inj_mag,
+                 save_act_grad):
+    ft_on, _, _ = _check_ft(ft, p.tiles, save_act_grad)
+    _check_act_grad(chain, save_act_grad)
+    build.check_device(a)
+    if a.dim() != 2 or b.dim() != 2:
+        raise ValueError(f"ft_gemm: bad ranks {tuple(a.shape)} x "
+                         f"{tuple(b.shape)}")
+    m, k = a.shape
+    n = b.shape[1]
+    if b.shape[0] != k or b.device != a.device or b.dtype != a.dtype:
+        raise ValueError(f"ft_gemm: operands {tuple(a.shape)} "
+                         f"{a.dtype} x {tuple(b.shape)} {b.dtype} do not "
+                         f"match")
+    has_bias, act = sm90_chain(chain)
+    if has_bias != (bias is not None) or residual is not None:
+        raise ValueError(f"ft_gemm: chain {chain} and aux operands disagree")
+    if bias is not None and (bias.numel() != n or not bias.is_contiguous()
+                             or bias.dtype != a.dtype
+                             or bias.device != a.device):
+        raise ValueError(f"ft_gemm: bias must be a contiguous ({n},) "
+                         f"{a.dtype} tensor beside the operands")
+    bm, bn, _ = p.tiles
+    gm, gn = cdiv(m, bm), cdiv(n, bn)
+    out = torch.empty((m, n), dtype=a.dtype, device=a.device)
+    act_grad = torch.empty_like(out) if save_act_grad else None
+    rep = (torch.empty((gm, gn, REPORT_WIDTH), dtype=torch.float32,
+                       device=a.device) if ft_on else None)
+    ws = (torch.empty(p.splits * (gm * bm * gn * bn + gm * gn * SPLIT_RECORD),
+                      dtype=torch.float32, device=a.device)
+          if p.splits > 1 else None)
+    # A 2-D call is batch slice 0: batch -1 (every slice) or 0 lands.
+    on = ft_on and inj is not None and inj[0] == 1 and inj[1] in (-1, 0)
+    _, _, row, col, k_step = inj if on else (0, 0, 0, 0, 0)
+    FT_GEMM_SM90(a.data_ptr(), b.data_ptr(),
+                 None if bias is None else bias.data_ptr(), out.data_ptr(),
+                 None if act_grad is None else act_grad.data_ptr(),
+                 None if rep is None else rep.data_ptr(),
+                 None if ws is None else ws.data_ptr(),
+                 m, n, k, a.stride(0) if p.a_kmajor else a.stride(1),
+                 b.stride(1) if p.b_kmajor else b.stride(0),
+                 int(p.a_kmajor), int(p.b_kmajor), bm, p.splits, int(ft_on),
+                 act, int(ft_on and ft.verify == "step"),
+                 int(ft_on and ft.corrects),
+                 ft.rel_tau * F32EPS if ft_on else 0.0,
+                 int(on), row, col, k_step, float(inj_mag) if on else 0.0,
+                 torch.cuda.current_stream(a.device).cuda_stream)
+    return ((out, act_grad) if save_act_grad else out), rep
 
 
 def _launch(a, b, *, chain, bias, residual, ft, inj, inj_mag, tiles,
@@ -439,7 +707,7 @@ def _launch(a, b, *, chain, bias, residual, ft, inj, inj_mag, tiles,
     rep = (torch.empty(lead + (gm, gn, REPORT_WIDTH), dtype=torch.float32,
                        device=a.device) if ft_on else None)
     inj = tuple(inj) if (ft_on and inj is not None) else (0, 0, 0, 0, 0)
-    kernel = FT_GEMM_BATCHED if batched else FT_GEMM_2D
+    kernel = FT_GEMM_BATCHED if batched else FT_GEMM_2D_SIMT
     kernel(a.data_ptr(), b.data_ptr(),
            None if bias is None else bias.data_ptr(),
            None if residual is None else residual.data_ptr(),

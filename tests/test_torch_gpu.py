@@ -699,3 +699,109 @@ def test_engine_at_max_len_40_runs_k6(cuda):
     assert [len(r.tokens) for r in res] == [8, 5]
     assert flashft.FLASH_DECODE.launches > before
     assert eng.alloc.n_free == eng.plan.n_pages - 1
+
+
+# ---------------------------------------------------------------------------
+# K1 on the tensor cores (csrc/ft_gemm_sm90.cu)
+# ---------------------------------------------------------------------------
+
+def _walk_operands(gen, m, n, k, walk, make):
+    """A (M, K) and B (K, N) of a walk: 0 row-major, 1 B = w.T, 2 A = x.T."""
+    a = make(gen, k, m).t() if walk == 2 else make(gen, m, k)
+    b = make(gen, n, k).t() if walk == 1 else make(gen, k, n)
+    return a, b
+
+
+def _bf16(gen, *shape):
+    return (torch.randn(*shape, generator=gen, device="cuda") * 0.5).bfloat16()
+
+
+@pytest.mark.parametrize("walk", [0, 1, 2])
+@pytest.mark.parametrize("shape", [(8, 512, 3584), (56, 200, 320),
+                                   (200, 384, 1024), (256, 256, 512)])
+@pytest.mark.parametrize("chain", [(), ("bias",), ("silu",),
+                                   ("bias", "silu")])
+def test_sm90_matches_plain(cuda, shape, chain, walk):
+    """Every operand walk, both row tiles and split-K against the plain
+    version under the same plan, FT off, block at either verify, act_grad."""
+    m, n, k = shape
+    gen = torch.Generator(device="cuda").manual_seed(m + n + walk)
+    a, b = _walk_operands(gen, m, n, k, walk, _bf16)
+    bias = _bf16(gen, n) if "bias" in chain else None
+    for ft in (None, FT, FT.replace(verify="final")):
+        for ag in ((False, True) if chain[-1:] == ("silu",) else (False,)):
+            kw = dict(chain=chain, bias=bias, ft=ft, save_act_grad=ag)
+            p = ft_gemm.plan_call(a, b, chain=chain, ft=ft,
+                                  save_act_grad=ag)
+            assert p.instance == "sm90"
+            before = ft_gemm.FT_GEMM_SM90.launches, ft_gemm.FT_GEMM_2D.launches
+            out, rep = ft_gemm.ft_gemm(a, b, **kw)
+            assert (ft_gemm.FT_GEMM_SM90.launches,
+                    ft_gemm.FT_GEMM_2D.launches) == (before[0] + 1,
+                                                     before[1] + 1)
+            out_p, rep_p = ft_gemm.planned_plain(a, b, **kw)
+            for got, want in zip(out if ag else (out,),
+                                 out_p if ag else (out_p,)):
+                tol = 2.0 ** -7 * float(want.float().abs().max())
+                assert float((got.float() - want.float()).abs().max()) <= tol
+            if ft is not None:
+                assert torch.equal(rep[..., [0, 1, 2, 3, 7]],
+                                   rep_p[..., [0, 1, 2, 3, 7]])
+                assert float(rep[..., 0].sum()) == 0.0
+                torch.testing.assert_close(rep[..., 6], rep_p[..., 6],
+                                           rtol=1e-5, atol=0)
+
+
+@pytest.mark.parametrize("walk", [0, 1, 2])
+def test_sm90_seu_in_every_split(cuda, walk):
+    """An SEU at the first, a middle and the last k-step, each in its own
+    split: corrected bit for bit and located; detect-only leaves it and
+    counts it at each later verification of its split and at the final
+    one."""
+    gen = torch.Generator(device="cuda").manual_seed(40 + walk)
+    m, n, k = 8, 384, 2560
+    a, b = _walk_operands(gen, m, n, k, walk, lambda g, *s: _ints(
+        g, *s, dtype=torch.bfloat16))
+    p = ft_gemm.plan_call(a, b, ft=FT)
+    ranges = ft_gemm.split_ranges(k, p.tiles[2], p.splits)
+    assert p.splits > 2
+    clean, _ = ft_gemm.ft_gemm(a, b, ft=FT)
+    for step in (0, ranges[p.splits // 2][0] + 1, ranges[-1][1] - 1):
+        z = next(i for i, (lo, hi) in enumerate(ranges) if lo <= step < hi)
+        inj = (1, -1, m - 1, n - 5, step)
+        out, rep = ft_gemm.ft_gemm(a, b, ft=FT, inj=inj, inj_mag=300.0)
+        assert torch.equal(out, clean)
+        cell = rep[rep[..., 0] > 0]
+        assert float(rep[..., 0].sum()) == 1.0 and cell.shape[0] == 1
+        assert (int(cell[0, 2]), int(cell[0, 3])) == (m - 1, n - 5)
+        det = FT.replace(action="detect")
+        out_d, rep_d = ft_gemm.ft_gemm(a, b, ft=det, inj=inj, inj_mag=300.0)
+        _, rep_p = ft_gemm.planned_plain(a, b, ft=det, inj=inj,
+                                         inj_mag=300.0)
+        diff = (out_d.float() - clean.float()).abs()
+        assert (diff > 0).nonzero().tolist() == [[m - 1, n - 5]]
+        assert abs(float(diff.max()) - 300.0) <= 2.0   # bf16 rounding
+        want = max(0, ranges[z][1] - 1 - step) + 1
+        assert float(rep_d[..., 0].sum()) == float(rep_p[..., 0].sum()) == want
+        assert torch.equal(rep_d[..., :4], rep_p[..., :4])
+
+
+def test_sm90_plan_routes_the_rest_to_simt(cuda):
+    """A stride TMA cannot take, an unaligned base, f32 and the tile level
+    run on the SIMT instance; pinned tensor-core tiles raise for them."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    a, b = _bf16(gen, 16, 300), _bf16(gen, 300, 256)
+    base = _bf16(gen, 16 * 264 + 1)
+    cases = [(a, b, FT),                                  # lda 300
+             (base[1:].view(16, 264), _bf16(gen, 264, 256), FT),  # unaligned
+             (a.float(), b.float(), FT),
+             (_bf16(gen, 16, 256), _bf16(gen, 256, 256),
+              FT.replace(level="tile"))]
+    for x, y, ft in cases:
+        p = ft_gemm.plan_call(x, y, ft=ft)
+        assert p.instance == "simt" and p.reason
+        before = ft_gemm.FT_GEMM_2D_SIMT.launches
+        ft_gemm.ft_gemm(x, y, ft=ft)
+        assert ft_gemm.FT_GEMM_2D_SIMT.launches == before + 1
+        with pytest.raises(ValueError):
+            ft_gemm.ft_gemm(x, y, ft=ft, tiles=ft_gemm.SM90_TILES[1])
