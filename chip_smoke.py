@@ -111,38 +111,54 @@ Phases (each prints its own lines; any failed check exits non-zero):
                step; then one more step through `make_train_step` under
                the dispatch guard, whose launch counts are checked, and one
                under torch.profiler (busy time and idle share);
-  moe_kernels  the grouped kernels K7 and K8 against their plain versions
-               on the card at qwen3-moe-235b-a22b's shapes in bf16 (128
-               experts, d 4 096, expert d_ff 1 536): K7 at the engine's
-               decode (8 slots x top-8 = 64 rows, 4 096->1 536 and
-               1 536->4 096), a 512-token prefill (4 096 rows) and the
-               training dbuf product (8 192 rows against the transposed
-               w); K8 at the training dw (8 192 rows); max error, reports
-               equal, no detection on clean data, an SEU corrected and
-               located and the same SEU left by a detect-only policy, empty
-               groups and a ragged last group; CUDA-event times beside the
-               bound, the plain version and one library call
-               (torch._grouped_mm, or a loop of torch.matmul over the live
-               experts where the card's torch lacks that form);
+  moe_kernels  the grouped kernels K7 and K8 on their tensor-core instances
+               (csrc/grouped_sm90.cu, the plan's default for bf16) against
+               their plain versions under the same plan on the card at
+               qwen3-moe-235b-a22b's shapes in bf16 (128 experts, d 4 096,
+               expert d_ff 1 536): K7 at the engine's decode (8 slots x
+               top-8 = 64 rows, 4 096->1 536 and 1 536->4 096), a 512-token
+               prefill (4 096 rows) and the training dbuf product (8 192
+               rows against the transposed w); K8 at the training dw (8 192
+               rows); max error, report fields equal, no detection on clean
+               data; SEUs in K7's ragged last group (a chunk running past
+               row_end) at the first and the last k-step and in K8's last
+               ragged tile, corrected bit for bit and located, and left by a
+               detect-only policy; garbage in the buffer's dead rows changes
+               nothing; empty groups come back zero from the kernel; the
+               SIMT instances (csrc/ft_gemm.cu GROUPED, csrc/tgmm.cu) at
+               their pinned tiles against their own plain versions; CUDA-
+               event times of the new instance (verify step and final, FT
+               off) beside the SIMT one, the bound, the plain version and one
+               library call (torch._grouped_mm; for K8 with an f32 output
+               where this torch takes it, else its bf16 output, labelled
+               with the bytes it moves);
   moe_check    qwen3-moe-235b-a22b at full width, depth cut to 2 layers: a
                forward through the kernels and through their plain versions
-               (logits within 2e-2 of max|logit|, the routing mostly the
-               same, no detection); `ServeEngine` serving 6 requests on 3
-               slots against one single-slot engine per request; `loss_fn`
-               and its backward kernel vs plain, and a `bwd_inject` SEU in
-               moe_gate's dw (K8) corrected to the clean grads (and left by a
+               under the same plans (logits within 2e-2 of max|logit|, the
+               routing mostly the same, no detection); `ServeEngine`
+               serving 6 requests on 3 slots against one single-slot engine
+               per request (every K7 launch on the tensor-core instance);
+               `loss_fn` and its backward kernel vs plain, and a
+               `bwd_inject` SEU in moe_gate's dw (K8, on the tensor-core
+               instance) corrected to the clean grads (and left by a
                detect-only policy);
   moe_engine   `ServeEngine` on qwen3-moe-235b-a22b at full width, 12 of its
                94 layers (62 GB of weights): 16 requests as in `engine` on
                8 slots, max_len 1 024; launch counts (K7 3 per layer per
-               prefill and per decode step, K6 1 per layer per decode
-               step), decode ms per step, prefill ms, TTFT, tokens/s, peak
-               memory, pages back, detections;
+               prefill and per decode step, all on the tensor-core
+               instance, K6 1 per layer per decode step), decode ms per
+               step, prefill ms, TTFT, tokens/s, peak memory, pages back,
+               detections; one decode step with every slot live under
+               torch.profiler on the tensor-core K7 and again with the SIMT
+               tiles pinned (the kernels before the redesign);
   moe_train    `train_loop.train` on qwen3-moe-235b-a22b at full width, 1
                layer (with f32 AdamW, 2 layers would not fit the card),
                2 x 512 tokens, `remat="full"`, 4 steps: step times,
                tokens/s, peak memory, loss and aux per step, launches of
-               K1-K8 per step (checked), detections; then one guarded step.
+               K1-K8 per step (checked: every K7 and K8 launch on the
+               tensor-core instances), detections; then one guarded step,
+               and one step each under torch.profiler on the tensor-core and
+               on the SIMT K7 / K8.
 
 The last two lines are {"kernels": [...]} and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -152,10 +168,12 @@ from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import dataclasses
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -246,15 +264,28 @@ KERNELS = {
                          replaces="src/repro/kernels/flashft.py:270",
                          counter=flashft.FLASH_DECODE),
     # K7: batched_kernel_call with grouped=True (the grouped body of
-    # emit.py:233 render).
+    # emit.py:233 render), on the tensor cores: every bf16 call at FT off
+    # and block
+    "ft_gemm_grouped_sm90": dict(route="cuda",
+                                 source="src/repro_torch/kernels/csrc/"
+                                        "grouped_sm90.cu",
+                                 replaces="src/repro/kernels/templates/"
+                                          "registry.py:520",
+                                 counter=grouped_gemm.FT_GEMM_GROUPED_SM90),
+    # K7's SIMT instance: f32 and the pinned SIMT tiles
     "ft_gemm_grouped": dict(route="cuda",
                             source="src/repro_torch/kernels/csrc/ft_gemm.cu",
                             replaces="src/repro/kernels/templates/"
                                      "registry.py:520",
-                            counter=grouped_gemm.FT_GEMM_GROUPED),
+                            counter=grouped_gemm.FT_GEMM_GROUPED_SIMT),
+    # K8 on the tensor cores, and its SIMT instance
+    "tgmm_sm90": dict(route="cuda",
+                      source="src/repro_torch/kernels/csrc/grouped_sm90.cu",
+                      replaces="src/repro/kernels/templates/registry.py:411",
+                      counter=grouped_gemm.TGMM_SM90),
     "tgmm": dict(route="cuda", source="src/repro_torch/kernels/csrc/tgmm.cu",
                  replaces="src/repro/kernels/templates/registry.py:411",
-                 counter=grouped_gemm.TGMM),
+                 counter=grouped_gemm.TGMM_SIMT),
     "naive_gemm": dict(route="cuda",
                        source="src/repro_torch/kernels/csrc/gemm_naive.cu",
                        replaces="src/repro/kernels/gemm.py:61",
@@ -262,7 +293,8 @@ KERNELS = {
 }
 #: zero launches of the MoE kernels and of K9, for the model paths'
 #: expected counts
-OFF_PATH = {"ft_gemm_grouped": 0, "tgmm": 0, "naive_gemm": 0}
+OFF_PATH = {"ft_gemm_grouped_sm90": 0, "ft_gemm_grouped": 0,
+            "tgmm_sm90": 0, "tgmm": 0, "naive_gemm": 0}
 #: paged serving: qwen2-7b, 16 requests on 8 slots, max_len 1 024
 ENGINE_SLOTS, ENGINE_REQUESTS, ENGINE_MAX_LEN = 8, 16, 1024
 DECODE_LENGTHS = (0, 1, 63, 64, 65, 300, 777, 1024)
@@ -374,7 +406,12 @@ def phase_env() -> str:
                 fn = line.split("'")[1] if "'" in line else line
                 # the instance: the mangled name from the kernel's own name
                 # on, its template arguments included (FT, LEVEL, tiles, ...)
-                fn = fn[fn.find("kernel"):] if "kernel" in fn else fn
+                # (a mangled name is <length><identifier>; the length's
+                # digits may follow a hash's digits, so try each suffix)
+                fn = next((fn[m.end():] for m in re.finditer(r"\d+", fn)
+                           for i in range(m.start(), m.end())
+                           if fn[m.end():m.end() + int(fn[i:m.end()])]
+                           .endswith("kernel")), fn)
             elif "Used" in line or "spill" in line:
                 print(f"    {fn[:100]}: {line.strip()}")
     return smi
@@ -447,9 +484,9 @@ def _cmp_outputs(name, got, want, rep_k=None, rep_p=None, tol=BF16_TOL):
           f"{name}: max|kernel - plain| {err:.3g} <= {tol:.4g} x "
           f"{scale:.3g}")
     if rep_k is not None:
-        check(torch.equal(rep_k[..., 0], rep_p[..., 0])
-              and torch.equal(rep_k[..., 7], rep_p[..., 7]),
-              f"{name}: report det / k fields equal")
+        fields = [0, 1, 2, 3, 7]
+        check(torch.equal(rep_k[..., fields], rep_p[..., fields]),
+              f"{name}: report det / corr / row / col / k fields equal")
         tau_rel = ((rep_k[..., 6] - rep_p[..., 6]).abs()
                    / rep_p[..., 6].abs().clamp_min(1e-30)).max().item()
         check(tau_rel <= 1e-5, f"{name}: report tau within 1e-5 ({tau_rel:.2g})")
@@ -640,13 +677,12 @@ def plain_kernels():
         return run
 
     def grouped(buf, w, gid, row_end, *, tiles=None, **kw):
-        bm = buf.shape[0] // gid.shape[0]
-        return grouped_gemm.ft_gemm_grouped_plain(
-            buf, w, gid, row_end, tiles=tiles or (bm, 128, 32), **kw)
+        return grouped_gemm.planned_grouped_plain(buf, w, gid, row_end,
+                                                  tiles=tiles, **kw)
 
     def tgmm(x, g, row_end, *, bm, tiles=None, **kw):
-        return grouped_gemm.tgmm_plain(x, g, row_end,
-                                       tiles=tiles or (bm, 64, 64), **kw)
+        return grouped_gemm.planned_tgmm_plain(x, g, row_end, bm=bm,
+                                               tiles=tiles, **kw)
 
     saved_grouped = grouped_gemm.ft_gemm_grouped, grouped_gemm.tgmm
     ft_gemm.ft_gemm = gemm
@@ -661,6 +697,29 @@ def plain_kernels():
         grouped_gemm.ft_gemm_grouped, grouped_gemm.tgmm = saved_grouped
         for n, fn in zip(names, saved[1]):
             setattr(flashft, n, fn)
+
+
+@contextmanager
+def simt_grouped():
+    """Pin K7's and K8's SIMT tiles on every call: the grouped kernels as
+    they ran before their tensor-core instances, for the profiles' "before"
+    in the same run."""
+    saved = grouped_gemm.ft_gemm_grouped, grouped_gemm.tgmm
+
+    def grouped(buf, w, gid, row_end, **kw):
+        bm = buf.shape[0] // gid.shape[0]
+        return saved[0](buf, w, gid, row_end,
+                        **dict(kw, tiles=kw.get("tiles") or (bm, 128, 32)))
+
+    def tgmm(x, g, row_end, *, bm, **kw):
+        return saved[1](x, g, row_end, bm=bm,
+                        **dict(kw, tiles=kw.get("tiles") or (bm, 64, 64)))
+
+    grouped_gemm.ft_gemm_grouped, grouped_gemm.tgmm = grouped, tgmm
+    try:
+        yield
+    finally:
+        grouped_gemm.ft_gemm_grouped, grouped_gemm.tgmm = saved
 
 
 def _serve_logits(params, cfg, run, prompts, feed):
@@ -2052,23 +2111,34 @@ def _library_grouped(buf, w, lay):
 
 def _library_tgmm(x, g, lay):
     """One library call computing dw[e] = x_eᵀ g_e: torch._grouped_mm with
-    the group ends along the reduction, else a loop of torch.matmul."""
+    the group ends along the reduction and an f32 output (like for like with
+    K8) where this torch takes that form, else the same call with its bf16
+    output, else a loop of torch.matmul. Returns (fn, label, out dtype)."""
     bm = lay.bm
     ends = ((lay.row_end + bm - 1) // bm * bm).to(torch.int32)
     xt = x.t()
     if hasattr(torch, "_grouped_mm"):
-        try:
-            torch._grouped_mm(xt, g, offs=ends)
-            torch.cuda.synchronize()
-            return (lambda: torch._grouped_mm(xt, g, offs=ends),
-                    "torch._grouped_mm")
-        except Exception as exc:
-            print(f"  torch._grouped_mm refused ({type(exc).__name__}: "
-                  f"{str(exc).splitlines()[0][:80]}); timing a matmul loop")
+        for kw in (dict(out_dtype=torch.float32), {}):
+            try:
+                out = torch._grouped_mm(xt, g, offs=ends, **kw)
+                torch.cuda.synchronize()
+                return (lambda: torch._grouped_mm(xt, g, offs=ends, **kw),
+                        f"torch._grouped_mm ({out.dtype} out)", out.dtype)
+            except Exception as exc:
+                print(f"  torch._grouped_mm {kw} refused "
+                      f"({type(exc).__name__}: "
+                      f"{str(exc).splitlines()[0][:80]})")
     spans = [(b, r) for b, r in zip(lay.base.tolist(), lay.row_end.tolist())
              if r > b]
     return (lambda: [torch.matmul(xt[:, b:r], g[b:r]) for b, r in spans],
-            "loop of torch.matmul over the live experts")
+            "loop of torch.matmul over the live experts", x.dtype)
+
+
+def _launched(counter, fn):
+    """fn() and the launches it added to ``counter``."""
+    before = counter.launches
+    out = fn()
+    return out, counter.launches - before
 
 
 def phase_moe_kernels():
@@ -2079,12 +2149,15 @@ def phase_moe_kernels():
     pre_rows, train_rows = PROMPT * top_k * 4, TRAIN_BATCH * TRAIN_SEQ * top_k
     bm = kgrouped.plan_grouped(dec_rows, f, d, torch.bfloat16,
                                n_groups=e)[0]
-    tiles = (bm, 128, 32)
+    simt7, simt8 = (bm, 128, 32), (bm, 64, 64)
     w_gate = _rand(gen, e, d, f, scale=0.02)
     w_down = _rand(gen, e, f, d, scale=0.02)
     rows = {}
 
     # ---- K7 at the engine's and the trainer's shapes ---------------------
+    # Each on the tensor-core instance (the plan's default) against its
+    # plain version under the same plan, and the SIMT instance at its tiles
+    # in the same run.
     k7_cases = [  # (label, rows, w)
         (f"decode gate {dec_rows} rows {d}->{f}", dec_rows, w_gate),
         (f"decode down {dec_rows} rows {f}->{d}", dec_rows, w_down),
@@ -2092,71 +2165,122 @@ def phase_moe_kernels():
         (f"train dbuf gate {train_rows} rows {f}->{d} (w^T view)",
          train_rows, w_gate.transpose(-1, -2)),
     ]
-    k7_err, k7_rows = 0.0, []
+    k7_err, k7_rows, simt_rows, simt_err = 0.0, [], [], 0.0
     for label, n_rows, w in k7_cases:
         lay = _moe_layout(gen, n_rows, bm)
         k, n = w.shape[1], w.shape[2]
         buf = kgrouped.scatter_rows(_rand(gen, n_rows, k), lay)
-        kw = dict(ft=FT)
-        out, rep = grouped_gemm.ft_gemm_grouped(buf, w, lay.gid, lay.row_end,
-                                                **kw)
-        out_p, rep_p = grouped_gemm.ft_gemm_grouped_plain(
-            buf, w, lay.gid, lay.row_end, tiles=tiles, **kw)
+        args = (buf, w, lay.gid, lay.row_end)
+        p = grouped_gemm.plan_k7_call(buf, w, lay.gid)
+        (out, rep), nl = _launched(grouped_gemm.FT_GEMM_GROUPED_SM90,
+                                   lambda: grouped_gemm.ft_gemm_grouped(
+                                       *args, ft=FT))
+        check(p.instance == "sm90" and nl == 1,
+              f"K7 {label}: planned and launched on the tensor cores "
+              f"(tiles {p.tiles}, chunk {p.chunk}, w k-major {p.w_kmajor})")
+        out_p, rep_p = grouped_gemm.planned_grouped_plain(*args, ft=FT)
         k7_err = max(k7_err, _cmp_outputs(f"K7 {label}", out, out_p, rep,
                                           rep_p))
         live_rows, live_e = _live(lay)
-        iters = 20 if n_rows == dec_rows else 3
-        ms = time_ms(lambda: grouped_gemm.ft_gemm_grouped(
-            buf, w, lay.gid, lay.row_end, **kw), iters)
-        ms_off = time_ms(lambda: grouped_gemm.ft_gemm_grouped(
-            buf, w, lay.gid, lay.row_end), iters)
-        plain_ms = time_ms(lambda: grouped_gemm.ft_gemm_grouped_plain(
-            buf, w, lay.gid, lay.row_end, tiles=tiles, **kw), 1, warmup=0)
+        iters = 20 if n_rows == dec_rows else 5
+        ms = time_ms(lambda: grouped_gemm.ft_gemm_grouped(*args, ft=FT),
+                     iters)
+        ms_final = time_ms(lambda: grouped_gemm.ft_gemm_grouped(
+            *args, ft=FT.replace(verify="final")), iters)
+        ms_off = time_ms(lambda: grouped_gemm.ft_gemm_grouped(*args), iters)
+        simt_ms = time_ms(lambda: grouped_gemm.ft_gemm_grouped(
+            *args, ft=FT, tiles=simt7), min(iters, 3))
+        plain_ms = time_ms(lambda: grouped_gemm.planned_grouped_plain(
+            *args, ft=FT), 1, warmup=0)
         lib, lib_label = _library_grouped(buf, w, lay)
         lib_ms = time_ms(lib, iters)
         nbytes = 2 * (live_rows * k + live_e * k * n + live_rows * n)
         b_ms, b_by = bound(2.0 * live_rows * n * k, nbytes)
         k7_rows.append(dict(shape=label, rows=n_rows, t_buf=lay.t_buf,
                             live_experts=live_e, K=k, N=n, ms=ms,
-                            ft_off_ms=ms_off, plain_ms=plain_ms,
+                            final_ms=ms_final, ft_off_ms=ms_off,
+                            simt_ms=simt_ms, plain_ms=plain_ms,
                             library_ms=lib_ms, library=lib_label,
                             bound_ms=b_ms, bound_by=b_by))
         print(f"  K7 {label} ({live_rows} live rows in {lay.t_buf}, "
-              f"{live_e} live experts): kernel {ms:.4f} ms, FT off "
-              f"{ms_off:.4f} ms, plain {plain_ms:.2f} ms, library "
-              f"{lib_ms:.4f} ms ({lib_label}), bound {b_ms:.5f} ms ({b_by})")
-    # An SEU at the decode shape on integer operands: corrected bit for bit
-    # and located; left in place by a detect-only policy.
+              f"{live_e} live experts): tensor cores {ms:.4f} ms (final "
+              f"{ms_final:.4f}, FT off {ms_off:.4f}), SIMT {simt_ms:.4f} ms, "
+              f"plain {plain_ms:.2f} ms, library {lib_ms:.4f} ms "
+              f"({lib_label}), bound {b_ms:.5f} ms ({b_by})")
+        if n_rows == dec_rows and w is w_gate:
+            # The SIMT instance against its own plain version here.
+            (out_s, rep_s), nl = _launched(
+                grouped_gemm.FT_GEMM_GROUPED_SIMT,
+                lambda: grouped_gemm.ft_gemm_grouped(*args, ft=FT,
+                                                     tiles=simt7))
+            out_sp, rep_sp = grouped_gemm.ft_gemm_grouped_plain(
+                *args, tiles=simt7, ft=FT)
+            check(nl == 1, "K7 SIMT: pinned tiles launch the SIMT instance")
+            simt_err = _cmp_outputs(f"K7 SIMT {label}", out_s, out_sp, rep_s,
+                                    rep_sp)
+            simt_plain_ms = time_ms(lambda: grouped_gemm.ft_gemm_grouped_plain(
+                *args, tiles=simt7, ft=FT), 1, warmup=0)
+            simt_rows.append(dict(shape=label, ms=simt_ms,
+                                  plain_ms=simt_plain_ms, library_ms=lib_ms,
+                                  bound_ms=b_ms, bound_by=b_by))
+        else:
+            simt_rows.append(dict(shape=label, ms=simt_ms, plain_ms=None,
+                                  library_ms=lib_ms, bound_ms=b_ms,
+                                  bound_by=b_by))
+        del out_p, rep_p
+    # SEUs at the decode shape on integer operands, in the ragged last
+    # group (its chunk runs past row_end into the buffer's dead tail), at
+    # the first and the last 256-deep k-step: corrected bit for bit and
+    # located; left in place by a detect-only policy.
     lay = _moe_layout(gen, dec_rows, bm)
     buf = kgrouped.scatter_rows(_ints(gen, dec_rows, d), lay)
     wi = _ints(gen, e, d, f)
-    clean, rep0 = grouped_gemm.ft_gemm_grouped(buf, wi, lay.gid, lay.row_end,
-                                               ft=FT)
+    args = (buf, wi, lay.gid, lay.row_end)
+    clean, rep0 = grouped_gemm.ft_gemm_grouped(*args, ft=FT)
+    check(float(rep0[..., 0].sum()) == 0.0, "K7 integer operands: clean run "
+          "undetected")
     grp = e - 1                                   # the ragged last group
     row = int(lay.row_end[grp]) - 1
-    col, step, mag = f - 5, d // 32 - 1, 1000.0
-    inj = (1, row, col, step)
-    fixed, rep = grouped_gemm.ft_gemm_grouped(buf, wi, lay.gid, lay.row_end,
-                                              ft=FT, inj=inj, inj_mag=mag)
-    cell = rep[row // bm, col // 128]
-    check(float(rep0[..., 0].sum()) == 0.0 and torch.equal(fixed, clean)
-          and float(rep[..., 0].sum()) == 1.0 and int(cell[2]) == row
-          and int(cell[3]) == col and abs(float(cell[4]) - mag) < 1e-3,
-          f"K7 SEU in the ragged last group (row {row}, col {col}, last "
-          f"k-step) corrected bit for bit and located")
-    left, rep_d = grouped_gemm.ft_gemm_grouped(
-        buf, wi, lay.gid, lay.row_end, ft=DETECT, inj=inj, inj_mag=mag)
-    moved = float(left[row, col].float() - clean[row, col].float())
-    check(float(rep_d[..., 0].sum()) == 1.0 and float(rep_d[..., 1].sum())
-          == 0.0 and abs(moved - mag) <= 16.0,
-          f"K7 the same SEU detect-only: detected, left in place (moved "
-          f"{moved:.1f})")
+    col, mag = f - 5, 1000.0
+    for step in (0, ft_gemm.cdiv(d, 256) - 1):
+        inj = (1, row, col, step)
+        fixed, rep = grouped_gemm.ft_gemm_grouped(*args, ft=FT, inj=inj,
+                                                  inj_mag=mag)
+        _, rep_p = grouped_gemm.planned_grouped_plain(*args, ft=FT, inj=inj,
+                                                      inj_mag=mag)
+        cell = rep[rep[..., 0] > 0]
+        check(torch.equal(fixed, clean) and float(rep[..., 0].sum()) == 1.0
+              and float(rep[..., 1].sum()) == 1.0 and int(cell[0, 2]) == row
+              and int(cell[0, 3]) == col
+              and abs(float(cell[0, 4]) - mag) < 1e-3
+              and torch.equal(rep[..., :4], rep_p[..., :4]),
+              f"K7 SEU in the ragged last group (row {row}, col {col}, "
+              f"k-step {step}) corrected bit for bit and located, report as "
+              f"the plain version's")
+        left, rep_d = grouped_gemm.ft_gemm_grouped(*args, ft=DETECT, inj=inj,
+                                                   inj_mag=mag)
+        moved = float(left[row, col].float() - clean[row, col].float())
+        check(float(rep_d[..., 0].sum()) >= 1.0
+              and float(rep_d[..., 1].sum()) == 0.0
+              and abs(moved - mag) <= 16.0
+              and int((left != clean).sum()) == 1,
+              f"K7 the same SEU detect-only: detected "
+              f"{float(rep_d[..., 0].sum()):.0f} time(s), left in place "
+              f"(moved {moved:.1f})")
     empty = lay.counts == 0
-    check(bool(empty.any()) and not bool(
-        fixed[lay.t_buf - lay.bm:].any()),
-          f"K7: {int(empty.sum())} empty groups, the dead tail of the buffer "
-          f"written as zeros")
-    rows["ft_gemm_grouped"] = dict(max_abs_err=k7_err, detail=k7_rows,
+    dead = torch.ones(lay.t_buf, dtype=torch.bool, device="cuda")
+    dead[lay.positions.long()] = False
+    dirty = buf.clone()
+    dirty[dead] = 3.0
+    got, rep_g = grouped_gemm.ft_gemm_grouped(dirty, wi, lay.gid,
+                                              lay.row_end, ft=FT)
+    check(bool(empty.any()) and not bool(fixed[dead].any())
+          and torch.equal(got, clean) and torch.equal(rep_g, rep0),
+          f"K7: {int(empty.sum())} empty groups, the dead rows written as "
+          f"zeros; garbage in the dead rows changes nothing (masking)")
+    rows["ft_gemm_grouped_sm90"] = dict(max_abs_err=k7_err, detail=k7_rows,
+                                        headline=k7_cases[0][0])
+    rows["ft_gemm_grouped"] = dict(max_abs_err=simt_err, detail=simt_rows,
                                    headline=k7_cases[0][0])
 
     # ---- K8 at the training dw ---------------------------------------------
@@ -2164,70 +2288,97 @@ def phase_moe_kernels():
     lay = _moe_layout(gen, train_rows, bm)
     x = kgrouped.scatter_rows(_rand(gen, train_rows, d), lay)
     g = kgrouped.scatter_rows(_rand(gen, train_rows, f, scale=1e-3), lay)
-    dw, rep = kgrouped.tgmm_buffer_call(spec, x, g, lay, ft=FT)
-    dw_p, rep_p = grouped_gemm.tgmm_plain(x, g, lay.row_end,
-                                          tiles=(bm, 64, 64), ft=FT)
+    p = grouped_gemm.plan_k8_call(x, g, bm)
+    (dw, rep), nl = _launched(grouped_gemm.TGMM_SM90,
+                              lambda: kgrouped.tgmm_buffer_call(spec, x, g,
+                                                                lay, ft=FT))
     label = f"train dw gate {train_rows} rows -> ({e}, {d}, {f}) f32"
-    k8_err = _cmp_outputs(f"K8 {label}", dw, dw_p)
-    live = lay.counts > 0
-    tau_rel = ((rep[..., 6] - rep_p[..., 6]).abs()
-               / rep_p[..., 6].abs().clamp_min(1e-30))[live].max().item()
-    check(torch.equal(rep[..., 0], rep_p[..., 0])
-          and torch.equal(rep[..., 7], rep_p[..., 7]) and tau_rel <= 1e-5
-          and bool((rep[live][..., 5] < rep[live][..., 6]).all())
-          and float(rep[..., 0].sum()) == 0.0,
-          f"K8 report: det / k fields equal, tau within 1e-5 ({tau_rel:.2g}), "
-          f"every live group's max residual below tau, no detection")
-    live_rows, live_e = _live(lay)
-    ms = time_ms(lambda: kgrouped.tgmm_buffer_call(spec, x, g, lay, ft=FT), 3)
-    ms_off = time_ms(lambda: kgrouped.tgmm_buffer_call(
-        BatchedKernelSpec(tgmm=True), x, g, lay), 3)
-    plain_ms = time_ms(lambda: grouped_gemm.tgmm_plain(
-        x, g, lay.row_end, tiles=(bm, 64, 64), ft=FT), 1, warmup=0)
-    lib, lib_label = _library_tgmm(x, g, lay)
-    lib_ms = time_ms(lib, 3)
-    b_ms, b_by = bound(2.0 * live_rows * d * f,
-                       2 * live_rows * (d + f) + 4 * e * d * f)
-    print(f"  K8 {label} ({live_rows} live rows in {lay.t_buf}, {live_e} "
-          f"live experts): kernel {ms:.3f} ms, FT off {ms_off:.3f} ms, plain "
-          f"{plain_ms:.1f} ms, library {lib_ms:.3f} ms ({lib_label}), bound "
-          f"{b_ms:.4f} ms ({b_by})")
+    check(p.instance == "sm90" and nl == 1,
+          f"K8 {label}: planned and launched on the tensor cores (tiles "
+          f"{p.tiles}, interval {p.chunk} rows)")
+    dw_p, rep_p = grouped_gemm.planned_tgmm_plain(x, g, lay.row_end, bm=bm,
+                                                  ft=FT)
+    live = lay.counts > 0            # an empty group's report is all zero
+    k8_err = _cmp_outputs(f"K8 {label}", dw, dw_p, rep[live], rep_p[live])
+    check(not bool(dw[~live].any()) and not bool(rep[~live].any()),
+          f"K8: the {int((~live).sum())} empty groups' dw and report zero")
     del dw_p, rep_p
-    # SEUs on integer operands: corrected bit for bit, located; detect-only
-    # leaves it; empty groups come back zero.
+    live_rows, live_e = _live(lay)
+    call = lambda **kw: kgrouped.tgmm_buffer_call(spec, x, g, lay, **kw)  # noqa: E731
+    ms = time_ms(lambda: call(ft=FT), 5)
+    ms_final = time_ms(lambda: call(ft=FT.replace(verify="final")), 5)
+    ms_off = time_ms(lambda: kgrouped.tgmm_buffer_call(
+        BatchedKernelSpec(tgmm=True), x, g, lay), 5)
+    simt_ms = time_ms(lambda: call(ft=FT, tiles=simt8), 3)
+    plain_ms = time_ms(lambda: grouped_gemm.planned_tgmm_plain(
+        x, g, lay.row_end, bm=bm, ft=FT), 1, warmup=0)
+    (dw_s, rep_s), nl = _launched(grouped_gemm.TGMM_SIMT,
+                                  lambda: call(ft=FT, tiles=simt8))
+    dw_sp, rep_sp = grouped_gemm.tgmm_plain(x, g, lay.row_end, tiles=simt8,
+                                            ft=FT)
+    check(nl == 1, "K8 SIMT: pinned tiles launch csrc/tgmm.cu")
+    simt8_err = _cmp_outputs(f"K8 SIMT {label}", dw_s, dw_sp, rep_s[live],
+                             rep_sp[live])
+    del dw_s, dw_sp
+    simt_plain_ms = time_ms(lambda: grouped_gemm.tgmm_plain(
+        x, g, lay.row_end, tiles=simt8, ft=FT), 1, warmup=0)
+    lib, lib_label, lib_dtype = _library_tgmm(x, g, lay)
+    lib_ms = time_ms(lib, 5)
+    flops = 2.0 * live_rows * d * f
+    in_bytes = 2 * live_rows * (d + f)
+    b_ms, b_by = bound(flops, in_bytes + 4 * e * d * f)
+    b16_ms, _ = bound(flops, in_bytes + 2 * e * d * f)
+    lib_bytes = in_bytes + (4 if lib_dtype == torch.float32 else 2) * e * d * f
+    print(f"  K8 {label} ({live_rows} live rows in {lay.t_buf}, {live_e} "
+          f"live experts): tensor cores {ms:.3f} ms (final {ms_final:.3f}, "
+          f"FT off {ms_off:.3f}), SIMT {simt_ms:.3f} ms, plain {plain_ms:.1f} "
+          f"ms (SIMT plan {simt_plain_ms:.1f}), library {lib_ms:.3f} ms "
+          f"({lib_label}, moves {lib_bytes / 1e9:.3f} GB), bound {b_ms:.4f} "
+          f"ms ({b_by}, f32 dw; {b16_ms:.4f} ms with a bf16 dw)")
+    # SEUs on integer operands in the ragged last tile of the last group:
+    # corrected bit for bit, located; detect-only leaves it (and the dead
+    # tail's verifications count it again); empty groups come back zero.
     lay = _moe_layout(gen, train_rows, bm)
     xi = kgrouped.scatter_rows(_ints(gen, train_rows, d), lay)
     gi = kgrouped.scatter_rows(_ints(gen, train_rows, f), lay)
     clean, rep0 = kgrouped.tgmm_buffer_call(spec, xi, gi, lay, ft=FT)
     grp = e - 1
-    tile = (int(lay.row_end[grp]) - 1) // bm       # the ragged last group
+    tile = (int(lay.row_end[grp]) - 1) // bm       # the ragged last tile
     col = min(700, f - 1)
     inj = InjectionSpec(row=d - 1, col=col, magnitude=500.0, k_step=tile)
     fixed, rep = kgrouped.tgmm_buffer_call(spec, xi, gi, lay, ft=FT,
                                            inject=inj)
-    cell = rep[grp, (d - 1) // 64, col // 64]
+    cell = rep[grp, (d - 1) // 128, col // 128]
     check(float(rep0[..., 0].sum()) == 0.0 and torch.equal(fixed, clean)
           and float(rep[..., 0].sum()) == 1.0 and int(cell[2]) == d - 1
           and int(cell[3]) == col and abs(float(cell[4]) - 500.0) < 1e-3,
-          "K8 SEU in the ragged last group's dw corrected bit for bit and "
-          "located")
+          "K8 SEU in the ragged last tile of the last group's dw corrected "
+          "bit for bit and located")
     left, rep_d = kgrouped.tgmm_buffer_call(spec, xi, gi, lay, ft=DETECT,
                                             inject=inj)
+    _, rep_dp = grouped_gemm.planned_tgmm_plain(
+        xi, gi, lay.row_end, bm=bm, ft=DETECT,
+        inj=(1, d - 1, col, tile), inj_mag=500.0)
     moved = float(left[grp, d - 1, col] - clean[grp, d - 1, col])
-    check(float(rep_d[..., 0].sum()) >= 1.0 and float(rep_d[..., 1].sum())
-          == 0.0 and moved == 500.0,
+    check(float(rep_d[..., 0].sum()) == float(rep_dp[..., 0].sum()) >= 1.0
+          and float(rep_d[..., 1].sum()) == 0.0 and moved == 500.0,
           f"K8 the same SEU detect-only: detected "
-          f"{float(rep_d[..., 0].sum()):.0f} times (the last group re-verifies "
-          f"on the buffer's dead tiles), left in place")
+          f"{float(rep_d[..., 0].sum()):.0f} times as the plain version (the "
+          f"last group re-verifies on the buffer's dead tail), left in place")
     empty = lay.counts == 0
     check(bool(empty.any()) and not bool(fixed[empty].any())
           and not bool(rep[empty].any()),
-          f"K8: the {int(empty.sum())} empty groups' dw and report are zero")
-    rows["tgmm"] = dict(max_abs_err=k8_err, detail=[dict(
+          f"K8: the {int(empty.sum())} empty groups' dw and report are zero, "
+          f"written by the kernel (no pass after it)")
+    rows["tgmm_sm90"] = dict(max_abs_err=k8_err, detail=[dict(
         shape=label, rows=train_rows, t_buf=lay.t_buf, live_experts=live_e,
-        K=d, N=f, ms=ms, ft_off_ms=ms_off, plain_ms=plain_ms,
-        library_ms=lib_ms, library=lib_label, bound_ms=b_ms,
-        bound_by=b_by)], headline=label)
+        K=d, N=f, ms=ms, final_ms=ms_final, ft_off_ms=ms_off, simt_ms=simt_ms,
+        plain_ms=plain_ms, library_ms=lib_ms, library=lib_label,
+        library_bytes=lib_bytes, bound_ms=b_ms, bound_by=b_by,
+        bound_bf16_out_ms=b16_ms)], headline=label)
+    rows["tgmm"] = dict(max_abs_err=simt8_err, detail=[dict(
+        shape=label, ms=simt_ms, plain_ms=simt_plain_ms, library_ms=lib_ms,
+        bound_ms=b_ms, bound_by=b_by)], headline=label)
     return rows
 
 
@@ -2328,6 +2479,7 @@ def phase_moe_check():
         res = eng.run()
         sites = scope.site_totals()
     k7 = grouped_gemm.FT_GEMM_GROUPED.launches
+    k7_sm90 = grouped_gemm.FT_GEMM_GROUPED_SM90.launches
     steps = len(eng.decode_ms)
     solo = []
     for p_, m in zip(prompts, budgets):
@@ -2354,9 +2506,10 @@ def phase_moe_check():
     check({"moe_gate", "moe_up", "moe_down", "dec_flash"} <= set(sites)
           and all(t["detected"] == 0 for t in sites.values()),
           "moe_check: the MoE sites and dec_flash in the scope, no detection")
-    check(k7 == 3 * cfg.n_layers * (len(prompts) + steps),
+    check(k7 == k7_sm90 == 3 * cfg.n_layers * (len(prompts) + steps),
           f"moe_check: K7 launches {k7} = 3 x {cfg.n_layers} layers x "
-          f"({len(prompts)} prefills + {steps} decode steps)")
+          f"({len(prompts)} prefills + {steps} decode steps), every one on "
+          f"the tensor-core instance")
     # ---- loss and grads: kernels vs plain, and a dw SEU in moe_gate ------
     params.requires_grad_(True)
     tok = torch.randint(0, cfg.vocab_size, (1, CHECK_SEQ + 1),
@@ -2388,18 +2541,20 @@ def phase_moe_check():
                     / grads_k[n].float().norm().clamp_min(1e-30)).item()
                    for n in grads_k)
 
-    before = grouped_gemm.TGMM.launches
+    before = grouped_gemm.TGMM.launches, grouped_gemm.TGMM_SM90.launches
     _, hurt, _ = _grads_of(params, cfg, batch,
                            dataclasses.replace(ctx, bwd_inject=hook))
-    k8 = grouped_gemm.TGMM.launches - before
+    k8 = grouped_gemm.TGMM.launches - before[0]
+    k8_sm90 = grouped_gemm.TGMM_SM90.launches - before[1]
     fixed = rel_err(hurt)
     del hurt
     _, left, _ = _grads_of(params, cfg, batch, dataclasses.replace(
         ctx, ft=DETECT, bwd_inject=hook))
     kept = rel_err(left)
-    check(k8 == 3 * cfg.n_layers and fixed <= 1e-3
+    check(k8 == k8_sm90 == 3 * cfg.n_layers and fixed <= 1e-3
           and kept >= 100 * max(fixed, 1e-6),
-          f"moe_check: SEU in moe_gate's dw (K8, {k8} launches) corrected: "
+          f"moe_check: SEU in moe_gate's dw (K8, {k8} launches, all on the "
+          f"tensor-core instance) corrected: "
           f"worst leaf relative error {fixed:.3g}; detect-only leaves it "
           f"({kept:.3g})")
     for p in params.parameters():
@@ -2492,12 +2647,27 @@ def phase_moe_engine(seed: int, smi: str):
     expect = {**k1_launches(per * calls), "ft_gemm_batched": 0,
               "flash_ft": cfg.n_layers * ENGINE_REQUESTS, "flash_dq": 0,
               "flash_dkv": 0, "flash_decode": cfg.n_layers * steps,
-              "ft_gemm_grouped": 3 * cfg.n_layers * calls, "tgmm": 0,
+              "ft_gemm_grouped_sm90": 3 * cfg.n_layers * calls,
+              "ft_gemm_grouped": 0, "tgmm_sm90": 0, "tgmm": 0,
               "naive_gemm": 0}
     check(launches == expect,
           f"moe_engine: launches K1 {per}, K7 {3 * cfg.n_layers} per prefill "
           f"and per decode step, K2 {cfg.n_layers} per prefill, K6 "
           f"{cfg.n_layers} per decode step, K5 and K8 none")
+    # Where a decode step's time goes: one decode step with every slot live
+    # under torch.profiler, on the grouped kernels' tensor-core instances
+    # and on their SIMT instances (the kernels before the redesign).
+    prof = {}
+    for name, pin in (("tensor cores", contextlib.nullcontext()),
+                      ("SIMT", simt_grouped())):
+        with pin:
+            eng_p = ProbeEngine(params, cfg, run, ec)
+            for p_, m in zip(prompts[:ENGINE_SLOTS], budgets[:ENGINE_SLOTS]):
+                eng_p.submit(p_, max_new_tokens=m)
+            eng_p.step()                 # the admissions and a decode step
+            prof[name] = device_profile(eng_p.step)
+            del eng_p
+        print(f"  profiled decode step ({name} K7): {prof[name]}")
     print(json.dumps({"moe_engine": dict(
         arch=cfg.arch_id, layers=cfg.n_layers, slots=ENGINE_SLOTS,
         requests=ENGINE_REQUESTS, max_len=ENGINE_MAX_LEN,
@@ -2510,7 +2680,7 @@ def phase_moe_engine(seed: int, smi: str):
         prefill_ms_median=pre_ms, prefill_ms=eng.prefill_ms,
         ttft_ms_median=statistics.median(ttft), ttft_ms_max=max(ttft),
         peak_gib=peak, pool_bytes=pool, free_pages=eng.alloc.n_free,
-        launches=launches, card=smi)}))
+        launches=launches, profile=prof, card=smi)}))
     return launches
 
 
@@ -2569,7 +2739,8 @@ def phase_moe_train(smi: str):
     # expert GEMMs forward, in the recompute and as dbuf (9); K8 3 dw.
     expect = {**k1_launches(16 * n_l + 3), "ft_gemm_batched": 0,
               "flash_ft": 2 * n_l, "flash_dq": n_l, "flash_dkv": n_l,
-              "flash_decode": 0, "ft_gemm_grouped": 9 * n_l, "tgmm": 3 * n_l,
+              "flash_decode": 0, "ft_gemm_grouped_sm90": 9 * n_l,
+              "ft_gemm_grouped": 0, "tgmm_sm90": 3 * n_l, "tgmm": 0,
               "naive_gemm": 0}
     check(all(x == expect for x in launches),
           f"moe_train: launches per step {expect} at every step")
@@ -2595,11 +2766,21 @@ def phase_moe_train(smi: str):
           f"router's product in the forward, in the remat recompute and "
           f"its two backward products ({sorted(set(guard.hits))})")
     check(guarded == expect, f"moe_train: guarded step launches {guarded}")
+    # Where the step's time goes: one more step under torch.profiler on the
+    # grouped kernels' tensor-core instances, then one on their SIMT ones.
+    prof = {}
+    for i, (name, pin) in enumerate((("tensor cores", contextlib.nullcontext()),
+                                     ("SIMT", simt_grouped()))):
+        with pin:
+            prof[name] = device_profile(lambda: step_fn(
+                out["params"], out["opt_state"], batch, TRAIN_STEPS + 1 + i))
+        print(f"  profiled step ({name} K7 / K8): {prof[name]}")
     print(json.dumps({"moe_train": dict(
         arch=cfg.arch_id, layers=n_l, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
         steps=TRAIN_STEPS, step_ms=times, median_step_ms=step_ms,
         tokens_per_s=tokens / step_ms * 1e3, peak_gib=peak, losses=losses,
-        aux=auxes, launches_per_step=launches[-1], card=smi)}))
+        aux=auxes, launches_per_step=launches[-1], profile=prof,
+        card=smi)}))
     return guarded
 
 

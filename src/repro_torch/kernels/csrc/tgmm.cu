@@ -12,8 +12,8 @@
 //   * the group's tiles run from its aligned base (row_end[g-1] rounded up
 //     to BM) to its aligned end, and for the last group on to the end of the
 //     buffer (the layout clamps dead tiles to the last group, and the
-//     reference verifies them too); an empty group's CTA exits without
-//     writing (the front door zeroes its dw and report);
+//     reference verifies them too); an empty group's CTA writes its dw
+//     block and its report as zeros (no row was routed to it);
 //   * rows at or past row_end[g] are masked in X and G, so the checksums,
 //     max|X| and max|G| are the group's; each tile stages X (BM x 64) and
 //     G (BM x 64) in shared memory, each thread accumulates a 4 x 4
@@ -75,7 +75,16 @@ __global__ void __launch_bounds__(kThreads) tgmm_kernel(const TgmmArgs a) {
   const int prev = grp > 0 ? a.row_end[grp - 1] : 0;
   const int base = (prev + BM - 1) / BM * BM;
   const int row_hi = a.row_end[grp];
-  if (row_hi <= base) return;                 // empty group
+  if (row_hi <= base) {                       // empty group: zeros
+    float* out = a.out + (long long)grp * a.K * a.N;
+    for (int idx = tid; idx < kBK * kBN; idx += kThreads) {
+      const int gk = k0 + idx / kBN, gc = n0 + idx % kBN;
+      if (gk < a.K && gc < a.N) out[(long long)gk * a.N + gc] = 0.0f;
+    }
+    if (FT && tid < 8)
+      a.rep[(((long long)grp * a.gk + ki) * a.gn + ni) * 8 + tid] = 0.0f;
+    return;
+  }
   const int t_first = base / BM;
   const int t_live = (row_hi + BM - 1) / BM;  // tiles holding a live row
   const int t_end = grp == a.G - 1 ? a.t_tiles : t_live;

@@ -6,8 +6,8 @@
     padding (executed rows exceed the true rows by at most G·(bm-1));
   * `grouped_matmul_rows` — layout, scatter, call and gather in one step;
   * `tgmm_buffer_call` / `tgmm_matmul_rows` — the grouped transpose GEMM K8,
-    dw[g] = X_gᵀ·G_g, the MoE backward dw; the front door zeroes the dw
-    and report blocks of empty groups, which the kernel never writes.
+    dw[g] = X_gᵀ·G_g, the MoE backward dw (both K8 instances write the dw
+    and report blocks of empty groups as zeros: no pass over dw here).
 
 The reference's uniform batched branch is `kernels.ops.grouped_gemm_call`'s
 rank-3 path here. Tiles: the reference autotunes them; the port has no
@@ -17,7 +17,9 @@ alignment rows stay within a quarter of the true rows), with the
 autotuner's tile replaced by the largest compiled row tile, and then take
 the smallest compiled row tile at or above it (`grouped_gemm.row_tiles`:
 16 in bf16, 8 or 16 in f32). A row tile that the kernels do not compile
-raises on the card.
+raises on the card. Which instance of K7 and K8 runs a call (tensor cores
+or SIMT), at which tiles and chunk, is `grouped_gemm.plan_k7` / `plan_k8`'s
+rule; the layout is the same for both.
 """
 from __future__ import annotations
 
@@ -166,10 +168,10 @@ def tgmm_buffer_call(spec: BatchedKernelSpec, buf: torch.Tensor,
     """Grouped transpose GEMM over prepared buffers: dw[g] = buf_gᵀ·gbuf_g
     with buf (t_buf, K) and gbuf (t_buf, N) group-sorted under one layout.
     Returns (dw (G, K, N) f32 unless ``out_dtype``, report|None), the
-    report (G, gk, gn, 8). The dw and report blocks of empty groups are
-    zeroed here (no row was routed there); rows between row_end[g] and the
-    next bm boundary are masked in the kernel. The injection's row and col
-    index dw and its k_step is the buffer's row tile."""
+    report (G, gk, gn, 8). The kernel writes the dw and report blocks of
+    empty groups as zeros (no row was routed there) and masks the rows
+    between row_end[g] and the next group's base. The injection's row and
+    col index dw and its k_step is the buffer's row tile."""
     ft = _resolve(spec, ft)
     check_campaign(ft, key)
     gid, row_end, bm = _metadata(lay, gid, row_end, buf.shape[0])
@@ -181,11 +183,6 @@ def tgmm_buffer_call(spec: BatchedKernelSpec, buf: torch.Tensor,
     dw, rep = kgg.tgmm(buf, gbuf, row_end, bm=bm,
                        ft=ft if spec.ft else None, inj=inj, inj_mag=mag,
                        tiles=tiles)
-    live = group_counts_from_metadata(row_end, bm) > 0
-    zero = torch.zeros((), dtype=dw.dtype, device=dw.device)
-    dw = torch.where(live[:, None, None], dw, zero)
-    if rep is not None:
-        rep = torch.where(live[:, None, None, None], rep, zero)
     if out_dtype is not None:
         dw = dw.to(out_dtype)
     return dw, rep

@@ -1,6 +1,5 @@
 """Grouped ABFT GEMMs of the MoE layer — wrappers of the CUDA kernels K7
-(`csrc/ft_gemm.cu`, its GROUPED instances) and K8 (`csrc/tgmm.cu`), and
-their plain PyTorch versions.
+and K8 and their plain PyTorch versions.
 
 K7 replaces the TPU kernel `repro/kernels/templates/emit.py:233 render`
 (grouped body), launched by `templates/registry.py:520
@@ -8,32 +7,51 @@ batched_kernel_call` with ``grouped=True``: ``y_buf[r] = buf[r] @
 w[gid[r // bm]]`` over a group-sorted buffer (`kernels.grouped.layout`)
 whose row tiles never span two groups. Rows at or past their group's
 ``row_end`` are masked in A, in the checksums and in max|A|, so every
-row-tile block keeps per-group checksums; a tile with no live row reads no
-B. The report is one (det, corr, row, col, mag, max_res, tau, k) row per
-(row tile, n-block), rows in global buffer coordinates.
+block keeps per-group checksums. The report is one (det, corr, row, col,
+mag, max_res, tau, k) row per (row tile, n-block), rows in global buffer
+coordinates.
 
 K8 replaces `emit.py:527 render_tgmm`, launched by `registry.py:411
 tgmm_kernel_call`: ``dw[g] = X_gᵀ·G_g`` over two buffers of one layout,
 output (G, K, N) in f32. Each (group, k-block, n-block) output block walks
-its group's row tiles as the reduction, with the running checksums
+its group's rows as the reduction, with the running checksums
 (X_g e)ᵀG_g and X_gᵀ(G_g e) and the threshold tau =
-rel_tau·eps32·rows_reduced·max|X|·max|G|, verified on every tile (step) or
-on the group's last (final). The group's tiles are those of the layout:
-from its aligned base to its aligned end, and for the last group on to the
-end of the buffer (dead tiles, verified again as the reference's grid
-walks them). Empty groups are not computed: the front door
-(`grouped.dispatch.tgmm_buffer_call`) zeroes their dw and report.
+rel_tau·eps32·rows_reduced·max|X|·max|G|, verified after every interval
+(step) or after the group's last (final). The group's rows are those of the
+layout: from its aligned base to its aligned end, and for the last group
+on to the end of the buffer (dead rows, verified again as the reference's
+grid walks them). Empty groups come back as a zero dw and a zero report.
 
-Both keep the reference's deterministic 4-wide injection [enable, row, col,
-k_step]: K7's row is a global buffer row and k_step its k-step; K8's row and
-col index dw's (K, N) and k_step is the global row-tile index (which picks
-the group). A CPU tensor runs the plain version, on the kernel's tile grid;
-a CUDA tensor launches the kernel or raises. What bounds the kernels on the
-H100 is in the headers of their sources.
+Two instances of each: the tensor-core ones of `csrc/grouped_sm90.cu`
+(bf16, FT off and "block"; `wgmma` fed by a TMA ring) and the SIMT ones of
+`csrc/ft_gemm.cu` (GROUPED) and `csrc/tgmm.cu` (f32, and the tiles of
+`GROUPED_TILES` / `TGMM_TILES` when pinned). `plan_k7` / `plan_k8` pick
+the instance, the tiles and the chunk by a written rule:
+
+  * K7 on the tensor cores: a CTA owns a ``chunk`` of 64 rows of one group,
+    from the group's aligned base in steps of 64 and never past the group's
+    region; its record goes in the report row of the chunk's first layout
+    tile, the clean record (tau 1e-30, k = K) in the others; 256-deep
+    k-steps (the verification interval and the injection's k_step);
+  * K8 on the tensor cores: (bk, bn) = (128, 128) dw blocks; the reduction
+    in 64-row intervals (``chunk``) from the group's base;
+  * on the SIMT instances, chunk = bm: every row tile its own block (K7)
+    and interval (K8).
+
+Each instance has its own launch counter; `FT_GEMM_GROUPED` and `TGMM`
+are K7's and K8's totals. Both keep the reference's deterministic 4-wide
+injection [enable, row, col, k_step]: K7's row is a global buffer row and
+k_step its k-step; K8's row and col index dw's (K, N) and k_step is the
+global row-tile index (which picks the group; it lands at the end of the
+interval that holds it). A CPU tensor runs the plain version under the
+plan, on the kernel's grid; a CUDA tensor launches the kernel or raises.
+What bounds the kernels on the H100 is in the headers of their sources.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -53,16 +71,41 @@ GROUPED_TILES = {torch.float32: ((8, 128, 32), (16, 128, 32)),
 TGMM_TILES = {torch.float32: ((8, 64, 64), (16, 64, 64)),
               torch.bfloat16: ((16, 64, 64),)}
 
+#: The tensor-core instances (csrc/grouped_sm90.cu): K7's (bm, bn, bk) with
+#: bk the 256-deep k-step, K8's with (bk, bn) the dw block; bm the layout's
+#: row tile. `SM90_CHUNK`: the rows one K7 CTA owns and one K8
+#: verification interval reduces.
+SM90_GROUPED_TILES = (16, 128, 256)
+SM90_TGMM_TILES = (16, 128, 128)
+SM90_CHUNK = 64
+
 _GROUPED_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
                      + [ctypes.c_longlong] + [ctypes.c_int] * 8
                      + [ctypes.c_float] + [ctypes.c_int] * 4
                      + [ctypes.c_float, ctypes.c_void_p])
-FT_GEMM_GROUPED = build.Kernel("ft_gemm", "ft_gemm_grouped_launch",
-                               _GROUPED_ARGTYPES)
+FT_GEMM_GROUPED_SIMT = build.Kernel("ft_gemm", "ft_gemm_grouped_launch",
+                                    _GROUPED_ARGTYPES)
+_GROUPED_SM90_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
+                          + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 4
+                          + [ctypes.c_float] + [ctypes.c_int] * 4
+                          + [ctypes.c_float, ctypes.c_void_p])
+FT_GEMM_GROUPED_SM90 = build.Kernel("grouped_sm90", "grouped_sm90_launch",
+                                    _GROUPED_SM90_ARGTYPES)
+#: Every K7 launch, on either instance.
+FT_GEMM_GROUPED = build.LaunchTotal(FT_GEMM_GROUPED_SIMT,
+                                    FT_GEMM_GROUPED_SM90)
 _TGMM_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 13
                   + [ctypes.c_float] + [ctypes.c_int] * 4
                   + [ctypes.c_float, ctypes.c_void_p])
-TGMM = build.Kernel("tgmm", "tgmm_launch", _TGMM_ARGTYPES)
+TGMM_SIMT = build.Kernel("tgmm", "tgmm_launch", _TGMM_ARGTYPES)
+_TGMM_SM90_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+                       + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 3
+                       + [ctypes.c_float] + [ctypes.c_int] * 4
+                       + [ctypes.c_float, ctypes.c_void_p])
+TGMM_SM90 = build.Kernel("grouped_sm90", "tgmm_sm90_launch",
+                         _TGMM_SM90_ARGTYPES)
+#: Every K8 launch, on either instance.
+TGMM = build.LaunchTotal(TGMM_SIMT, TGMM_SM90)
 
 _NO_INJ = (0, 0, 0, 0)
 
@@ -109,6 +152,124 @@ def _group_span(row_end: torch.Tensor, bm: int, t_tiles: int):
 
 
 # ---------------------------------------------------------------------------
+# the plans
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class GroupedPlan:
+    """How one K7 or K8 call runs. ``instance``: "sm90"
+    (csrc/grouped_sm90.cu), "simt" (csrc/ft_gemm.cu GROUPED for K7,
+    csrc/tgmm.cu for K8) or "plain" (tiles no kernel compiles: the plain
+    version only, on the CPU); ``tiles`` (bm, bn, bk); ``chunk``: the rows
+    of one K7 block or one K8 verification interval (bm on the SIMT
+    instances); ``w_kmajor``: K7's w read along a unit-stride k (the wᵀ
+    view of the dbuf product); ``reason``: why the tensor-core instance
+    does not take the call ("" when it does)."""
+    instance: str
+    tiles: Tuple[int, int, int]
+    chunk: int
+    w_kmajor: bool = False
+    reason: str = ""
+
+
+def _rows_tma(strides: Sequence[int], width: int) -> bool:
+    """A (rows, width) operand TMA reads row by row: unit-stride rows whose
+    stride is a multiple of 8 elements (16 bytes) and spans the row."""
+    s_row, s_col = strides
+    return s_col == 1 and s_row % 8 == 0 and s_row >= width
+
+
+def _pick(why: str, tiles, sm90_tiles, table, dtype, bm: int, name: str,
+          **extra) -> GroupedPlan:
+    """The tensor-core instance unless ``why`` says otherwise or ``tiles``
+    are pinned: pinned tiles run the SIMT instance where it compiles them,
+    else the plain version alone (CPU), each row tile its own block or
+    interval, as the reference's grid walks them."""
+    if tiles is None and not why:
+        return GroupedPlan("sm90", sm90_tiles, SM90_CHUNK, **extra)
+    if tiles is None:
+        tiles = _tiles_for(table, dtype, bm, name)
+    tiles = tuple(tiles)
+    inst = "simt" if tiles in table.get(dtype, ()) else "plain"
+    return GroupedPlan(inst, tiles, tiles[0], reason=why or "pinned tiles")
+
+
+@functools.lru_cache(maxsize=1024)
+def plan_k7(n: int, k: int, dtype, bm: int, *, buf_strides: Sequence[int],
+            w_strides: Sequence[int], aligned: bool = True,
+            tiles: Optional[Sequence[int]] = None) -> GroupedPlan:
+    """K7's instance, tiles and chunk for a (t_buf, K) buffer of row tile
+    ``bm`` against w (G, K, N) with strides ``w_strides``. The tensor-core
+    instance takes a bf16 call (FT off or "block") on the 16-row layout
+    whose buffer TMA reads by rows and whose w is row-major or the wᵀ view
+    (unit stride along n or along k, the other strides multiples of 8
+    elements), with 16-byte aligned bases; every other call runs on the
+    SIMT instance at ``GROUPED_TILES``. Explicit ``tiles`` pin the SIMT
+    instance (or, at tiles it does not compile, the plain version alone).
+    A pure function of its arguments, cached."""
+    swg, swk, swn = w_strides
+    w_n = swn == 1 and swk % 8 == 0 and swk >= n
+    w_k = swk == 1 and swn % 8 == 0 and swn >= k
+    why = ""
+    if dtype != torch.bfloat16:
+        why = f"dtype {dtype}"
+    elif bm != SM90_GROUPED_TILES[0]:
+        why = f"row tile {bm}"
+    elif not _rows_tma(buf_strides, k):
+        why = f"buffer strides {tuple(buf_strides)}"
+    elif not (w_n or w_k) or swg % 8 != 0:
+        why = f"w strides {tuple(w_strides)}"
+    elif not aligned:
+        why = "a base pointer not 16-byte aligned"
+    return _pick(why, tiles, SM90_GROUPED_TILES, GROUPED_TILES, dtype, bm,
+                 "ft_gemm_grouped", w_kmajor=w_k and not w_n)
+
+
+@functools.lru_cache(maxsize=1024)
+def plan_k8(k: int, n: int, dtype, bm: int, *, x_strides: Sequence[int],
+            g_strides: Sequence[int], aligned: bool = True,
+            tiles: Optional[Sequence[int]] = None) -> GroupedPlan:
+    """K8's instance, tiles and interval for buffers x (t_buf, K) and g
+    (t_buf, N) of row tile ``bm``: the tensor-core instance for bf16 on the
+    16-row layout with both buffers TMA-readable by rows and 16-byte
+    aligned, else the SIMT one at ``TGMM_TILES``; ``tiles`` pin it as in
+    `plan_k7`."""
+    why = ""
+    if dtype != torch.bfloat16:
+        why = f"dtype {dtype}"
+    elif bm != SM90_TGMM_TILES[0]:
+        why = f"row tile {bm}"
+    elif not (_rows_tma(x_strides, k) and _rows_tma(g_strides, n)):
+        why = f"buffer strides {tuple(x_strides)}, {tuple(g_strides)}"
+    elif not aligned:
+        why = "a base pointer not 16-byte aligned"
+    return _pick(why, tiles, SM90_TGMM_TILES, TGMM_TILES, dtype, bm, "tgmm")
+
+
+def _aligned(*xs: torch.Tensor) -> bool:
+    return all(x.data_ptr() % 16 == 0 for x in xs)
+
+
+def plan_k7_call(buf: torch.Tensor, w: torch.Tensor, gid: torch.Tensor,
+                 tiles=None) -> GroupedPlan:
+    """`plan_k7` of a call of `ft_gemm_grouped` on these operands."""
+    bm = buf.shape[0] // max(gid.shape[0], 1)
+    return plan_k7(w.shape[2], buf.shape[1], buf.dtype, bm,
+                   buf_strides=tuple(buf.stride()),
+                   w_strides=tuple(w.stride()), aligned=_aligned(buf, w),
+                   tiles=None if tiles is None else tuple(tiles))
+
+
+def plan_k8_call(x: torch.Tensor, g: torch.Tensor, bm: int,
+                 tiles=None) -> GroupedPlan:
+    """`plan_k8` of a call of `tgmm` on these operands."""
+    return plan_k8(x.shape[1], g.shape[1], x.dtype, bm,
+                   x_strides=tuple(x.stride()), g_strides=tuple(g.stride()),
+                   aligned=_aligned(x, g),
+                   tiles=None if tiles is None else tuple(tiles))
+
+
+# ---------------------------------------------------------------------------
 # K7: plain version
 # ---------------------------------------------------------------------------
 
@@ -124,85 +285,133 @@ def _k_slice(x: torch.Tensor, dim: int, s: int, bk: int) -> torch.Tensor:
     return piece
 
 
+def _chunks(gid: torch.Tensor, row_end: torch.Tensor, bm: int, chunk: int,
+            t_buf: int):
+    """K7's blocks: each group's region (its aligned base to its aligned
+    end, the last group's on to the end of the buffer, as the layout's gid
+    clamps the dead tiles to it) cut into ``chunk``-row pieces from the
+    base. Returns (first row, rows, group) int64 per block; with chunk =
+    bm every row tile is one."""
+    dev = gid.device
+    re = row_end.long()
+    base = (F.pad(re[:-1], (1, 0)) + bm - 1) // bm * bm
+    rend = (re + bm - 1) // bm * bm
+    rend[-1] = t_buf
+    gidl = gid.long()
+    tile_row = torch.arange(gid.shape[0], device=dev) * bm
+    idx = torch.nonzero((tile_row - base[gidl]) % chunk == 0).flatten()
+    r0, grp = tile_row[idx], gidl[idx]
+    return r0, torch.minimum(r0 + chunk, rend[grp]) - r0, grp
+
+
 def ft_gemm_grouped_plain(buf: torch.Tensor, w: torch.Tensor,
                           gid: torch.Tensor, row_end: torch.Tensor, *,
-                          tiles: Sequence[int],
+                          tiles: Sequence[int], chunk: Optional[int] = None,
                           ft: Optional[FTConfig] = None,
                           inj: Optional[Sequence[int]] = None,
                           inj_mag: float = 0.0
                           ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """K7's function in plain PyTorch, on the kernel's tile grid.
+    """K7's function in plain PyTorch, on the kernel's grid.
 
     buf (t_buf, K) group-sorted; w (G, K, N), any strides (a transposed
     view included); gid int (t_buf/bm,) the group of each row tile;
-    row_end int (G,). Returns (y_buf (t_buf, N) in buf's dtype, report
-    (t_buf/bm, gn, 8) or None with FT off). ``inj`` = [enable, row, col,
-    k_step]: ``inj_mag`` is added to the accumulator at global buffer row
-    ``row`` and column ``col`` on k-step ``k_step``."""
+    row_end int (G,). tiles = (bm, bn, bk); ``chunk`` (default bm) the rows
+    of one block (`_chunks`). Returns (y_buf (t_buf, N) in buf's dtype,
+    report (t_buf/bm, gn, 8) or None with FT off): each block's record in
+    the row of its first row tile, the clean record (tau 1e-30, k = K) in
+    the others. ``inj`` = [enable, row, col, k_step]: ``inj_mag`` is added
+    to the accumulator at global buffer row ``row`` and column ``col`` on
+    k-step ``k_step``."""
     ft_on = _check_ft(ft)
     t_buf, k = buf.shape
     _, k2, n = w.shape
     bm, bn, bk = tiles
+    chunk = bm if chunk is None else chunk
     nt = gid.shape[0]
-    if k2 != k or nt * bm != t_buf:
+    if k2 != k or nt * bm != t_buf or chunk % bm != 0:
         raise ValueError(f"ft_gemm_grouped_plain: buf {tuple(buf.shape)}, w "
-                         f"{tuple(w.shape)}, {nt} tiles of {bm}")
+                         f"{tuple(w.shape)}, {nt} tiles of {bm}, chunk "
+                         f"{chunk}")
     gn, gk = cdiv(n, bn), cdiv(k, bk)
     np_ = gn * bn
     dev = buf.device
-    gidl = gid.long()
-    row_hi = row_end.long()[gidl]                               # (nt,)
-    live = ((torch.arange(nt, device=dev)[:, None] * bm
-             + torch.arange(bm, device=dev)[None, :]) < row_hi[:, None])
-    a3 = torch.where(live[..., None], buf.reshape(nt, bm, k).float(),
+    r0, length, grp = _chunks(gid, row_end.to(dev), bm, chunk, t_buf)
+    nc = r0.shape[0]
+    rows = r0[:, None] + torch.arange(chunk, device=dev)[None, :]
+    inside = rows < (r0 + length)[:, None]
+    live = inside & (rows < row_end.to(dev).long()[grp][:, None])
+    a3 = torch.where(live[..., None],
+                     buf[rows.clamp(max=t_buf - 1)].float(),
                      torch.zeros((), device=dev))
-    acc = torch.zeros(nt, bm, np_, device=dev)
+    acc = torch.zeros(nc, chunk, np_, device=dev)
     rep = None
     if ft_on:
-        colck = torch.zeros(nt, gn, bn, device=dev)
-        rowck = torch.zeros(nt, gn, bm, device=dev)
-        amax = torch.zeros(nt, device=dev)
-        bmax = torch.zeros(nt, gn, device=dev)
-        rep = torch.zeros(nt, gn, REPORT_WIDTH, device=dev)
+        colck = torch.zeros(nc, gn, bn, device=dev)
+        rowck = torch.zeros(nc, gn, chunk, device=dev)
+        amax = torch.zeros(nc, device=dev)
+        bmax = torch.zeros(nc, gn, device=dev)
+        rep = torch.zeros(nc, gn, REPORT_WIDTH, device=dev)
         coef = torch.tensor(ft.rel_tau * F32EPS, device=dev)
-        ii = torch.arange(nt, device=dev)[:, None]
+        ii = torch.arange(nc, device=dev)[:, None]
         jj = torch.arange(gn, device=dev)[None, :]
 
     def verify(k_el):
-        blocks = acc.view(nt, bm, gn, bn)
+        blocks = acc.view(nc, chunk, gn, bn)
         d_col = blocks.sum(1) - colck
         d_row = blocks.sum(3).permute(0, 2, 1) - rowck
         tau = torch.clamp_min(coef * k_el * amax[:, None] * bmax, 1e-30)
         det, row, col, mag = locate_record(d_col, d_row, tau, k_el,
-                                           ft.corrects, rep, ii * bm,
+                                           ft.corrects, rep, r0[:, None],
                                            jj * bn)
         if ft.corrects:
             blocks.index_put_((ii, row, jj, col), -mag, accumulate=True)
 
     for s in range(gk):
-        a_s = _k_slice(a3, 2, s, bk)                            # (nt, bm, bk)
-        w_s = F.pad(_k_slice(w, 1, s, bk), (0, np_ - n))        # (G, bk, np)
-        b_s = w_s[gidl]                                         # (nt, bk, np)
+        a_s = _k_slice(a3, 2, s, bk)                        # (nc, chunk, bk)
+        w_s = F.pad(_k_slice(w, 1, s, bk), (0, np_ - n))    # (G, bk, np)
+        b_s = w_s[grp]                                      # (nc, bk, np)
         delta = torch.bmm(a_s, b_s)
         if ft_on and inj is not None and inj[0] == 1 and s == inj[3]:
             _, ir, ic, _ = inj
-            if 0 <= ir < t_buf and 0 <= ic < np_:
-                delta[ir // bm, ir % bm, ic] += inj_mag
+            hit = torch.nonzero((r0 <= ir) & (ir < r0 + length)).flatten()
+            if len(hit) and 0 <= ic < np_:
+                c = int(hit[0])
+                delta[c, ir - int(r0[c]), ic] += inj_mag
         acc += delta
         if not ft_on:
             continue
-        colck += torch.bmm(a_s.sum(1, keepdim=True), b_s).view(nt, gn, bn)
-        bsum = b_s.view(nt, bk, gn, bn).sum(3)                  # (nt, bk, gn)
+        colck += torch.bmm(a_s.sum(1, keepdim=True), b_s).view(nc, gn, bn)
+        bsum = b_s.view(nc, bk, gn, bn).sum(3)              # (nc, bk, gn)
         rowck += torch.bmm(a_s, bsum).permute(0, 2, 1)
         amax = torch.maximum(amax, a_s.abs().amax((1, 2)))
-        bmax = torch.maximum(bmax, b_s.abs().view(nt, bk, gn, bn)
+        bmax = torch.maximum(bmax, b_s.abs().view(nc, bk, gn, bn)
                              .amax((1, 3)))
         if ft.verify == "step" and s != gk - 1:
             verify(torch.tensor(float(min((s + 1) * bk, k)), device=dev))
     if ft_on:
         verify(torch.tensor(float(k), device=dev))
-    out = acc[:, :, :n].reshape(t_buf, n).to(buf.dtype)
+    out = torch.zeros(t_buf, np_, device=dev)
+    out[rows[inside]] = acc[inside]
+    out = out[:, :n].to(buf.dtype)
+    if ft_on:
+        full = torch.zeros(nt, gn, REPORT_WIDTH, device=dev)
+        full[..., 6] = 1e-30
+        full[..., 7] = float(k)
+        full[r0 // bm] = rep
+        rep = full
     return out, rep
+
+
+def planned_grouped_plain(buf: torch.Tensor, w: torch.Tensor,
+                          gid: torch.Tensor, row_end: torch.Tensor, *,
+                          tiles: Optional[Sequence[int]] = None, **kw
+                          ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """`ft_gemm_grouped_plain` under the plan `ft_gemm_grouped` follows for
+    these operands (its tiles and chunk), on any device: the comparison
+    side of the kernel on the card."""
+    p = plan_k7_call(buf, w, gid, tiles)
+    return ft_gemm_grouped_plain(buf, w, gid, row_end, tiles=p.tiles,
+                                 chunk=p.chunk, **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -216,21 +425,22 @@ def ft_gemm_grouped(buf: torch.Tensor, w: torch.Tensor, gid: torch.Tensor,
                     tiles: Optional[Sequence[int]] = None
                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """y_buf = buf @ w[gid] per row tile, with block-level online ABFT when
-    ``ft`` is enabled (K7). The row tile is t_buf / len(gid); ``tiles``
-    defaults to K7's compiled tile for it. A CPU tensor runs
-    `ft_gemm_grouped_plain`; a CUDA tensor launches the kernel or raises.
-    Returns (y_buf, report|None) as the plain version does."""
-    bm = buf.shape[0] // max(gid.shape[0], 1)
-    tiles = (tuple(tiles) if tiles is not None
-             else _tiles_for(GROUPED_TILES, buf.dtype, bm, "ft_gemm_grouped"))
+    ``ft`` is enabled (K7). The row tile is t_buf / len(gid); `plan_k7`
+    picks the instance, tiles and chunk (``tiles`` pins them). A CPU
+    tensor runs `ft_gemm_grouped_plain` under that plan; a CUDA tensor
+    launches the kernel or raises. Returns (y_buf, report|None) as the
+    plain version does."""
+    ft_on = _check_ft(ft)
+    p = plan_k7_call(buf, w, gid, tiles)
     if buf.device.type == "cpu":
-        return ft_gemm_grouped_plain(buf, w, gid, row_end, tiles=tiles,
-                                     ft=ft, inj=inj, inj_mag=inj_mag)
+        return ft_gemm_grouped_plain(buf, w, gid, row_end, tiles=p.tiles,
+                                     chunk=p.chunk, ft=ft, inj=inj,
+                                     inj_mag=inj_mag)
     if buf.device.type != "cuda":
         raise ValueError(f"ft_gemm_grouped: unsupported device {buf.device}")
-    ft_on = _check_ft(ft)
     build.check_device(buf)
     t_buf, k = buf.shape
+    bm = p.tiles[0]
     if w.dim() != 3 or w.shape[1] != k or gid.dim() != 1 or \
             row_end.shape != (w.shape[0],) or gid.shape[0] * bm != t_buf:
         raise ValueError(f"ft_gemm_grouped: buf {tuple(buf.shape)}, w "
@@ -239,8 +449,8 @@ def ft_gemm_grouped(buf: torch.Tensor, w: torch.Tensor, gid: torch.Tensor,
     if buf.dtype not in DTYPE_CODES or w.dtype != buf.dtype:
         raise TypeError(f"ft_gemm_grouped: float32 or bfloat16 operands of "
                         f"one dtype, got {buf.dtype}, {w.dtype}")
-    if tiles not in GROUPED_TILES[buf.dtype]:
-        raise ValueError(f"ft_gemm_grouped: tiles {tiles} are not compiled "
+    if p.instance == "plain":
+        raise ValueError(f"ft_gemm_grouped: tiles {p.tiles} are not compiled "
                          f"for {buf.dtype}")
     for x in (w, gid, row_end):
         if x.device != buf.device:
@@ -250,7 +460,7 @@ def ft_gemm_grouped(buf: torch.Tensor, w: torch.Tensor, gid: torch.Tensor,
             raise ValueError("ft_gemm_grouped: gid and row_end must be "
                              "contiguous int32")
     n = w.shape[2]
-    gn = cdiv(n, tiles[1])
+    gn = cdiv(n, p.tiles[1])
     if max(buf.stride() + w.stride()[1:]) >= 2 ** 31:
         raise ValueError("ft_gemm_grouped: strides exceed int32")
     out = torch.empty(t_buf, n, dtype=buf.dtype, device=buf.device)
@@ -258,10 +468,21 @@ def ft_gemm_grouped(buf: torch.Tensor, w: torch.Tensor, gid: torch.Tensor,
                        device=buf.device) if ft_on else None)
     inj = tuple(inj) if (ft_on and inj is not None) else _NO_INJ
     swg, swk, swn = w.stride()
+    common = (int(ft_on), int(ft_on and ft.verify == "step"),
+              int(ft_on and ft.corrects),
+              ft.rel_tau * F32EPS if ft_on else 0.0, *inj, float(inj_mag),
+              torch.cuda.current_stream(buf.device).cuda_stream)
+    if p.instance == "sm90":
+        FT_GEMM_GROUPED_SM90(
+            buf.data_ptr(), w.data_ptr(), gid.data_ptr(), row_end.data_ptr(),
+            out.data_ptr(), None if rep is None else rep.data_ptr(),
+            t_buf, n, k, w.shape[0], buf.stride(0),
+            swn if p.w_kmajor else swk, swg, int(p.w_kmajor), *common)
+        return out, rep
     # LAYOUT 1 walks B's tile loads along a unit-stride k (w.transpose in
     # the dbuf product); row-major otherwise.
     layout = 1 if (swk == 1 and swn != 1) else 0
-    FT_GEMM_GROUPED(
+    FT_GEMM_GROUPED_SIMT(
         buf.data_ptr(), w.data_ptr(), gid.data_ptr(), row_end.data_ptr(),
         out.data_ptr(), None if rep is None else rep.data_ptr(),
         t_buf, n, k, w.shape[0], buf.stride(0), buf.stride(1), swg, swk, swn,
@@ -277,29 +498,33 @@ def ft_gemm_grouped(buf: torch.Tensor, w: torch.Tensor, gid: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def tgmm_plain(x: torch.Tensor, g: torch.Tensor, row_end: torch.Tensor, *,
-               tiles: Sequence[int], ft: Optional[FTConfig] = None,
+               tiles: Sequence[int], chunk: Optional[int] = None,
+               ft: Optional[FTConfig] = None,
                inj: Optional[Sequence[int]] = None, inj_mag: float = 0.0
                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """K8's function in plain PyTorch: dw[g] = X_gᵀ·G_g on the kernel's tile
+    """K8's function in plain PyTorch: dw[g] = X_gᵀ·G_g on the kernel's
     walk. x (t_buf, K), g (t_buf, N) group-sorted under one layout of row
     tile bm; row_end int (G,). tiles = (bm, bn, bk) with (bk, bn) the dw
-    block. Returns (dw (G, K, N) f32, report (G, gk, gn, 8) or None); empty
-    groups come back zero. All groups step through their tiles together,
-    one tile each per step."""
+    block; ``chunk`` (default bm) the rows of one verification interval,
+    counted from the group's aligned base. Returns (dw (G, K, N) f32,
+    report (G, gk, gn, 8) or None); empty groups come back zero. All groups
+    step through their intervals together, one each per step."""
     ft_on = _check_ft(ft)
     t_buf, k = x.shape
     n = g.shape[1]
     bm, bn, bk = tiles
+    chunk = bm if chunk is None else chunk
     ng = row_end.shape[0]
     t_tiles = t_buf // bm
-    if g.shape[0] != t_buf or t_tiles * bm != t_buf:
+    if g.shape[0] != t_buf or t_tiles * bm != t_buf or chunk % bm != 0:
         raise ValueError(f"tgmm_plain: x {tuple(x.shape)}, g "
-                         f"{tuple(g.shape)}, row tile {bm}")
+                         f"{tuple(g.shape)}, row tile {bm}, chunk {chunk}")
     gk, gn = cdiv(k, bk), cdiv(n, bn)
     kp, np_ = gk * bk, gn * bn
     dev = x.device
     first, end, re = _group_span(row_end.to(dev), bm, t_tiles)
-    n_tiles = end - first                                       # (G,)
+    base, end_row = first * bm, end * bm
+    n_steps = (end_row - base + chunk - 1) // chunk              # (G,)
     acc = torch.zeros(ng, kp, np_, device=dev)
     xf = F.pad(x.float(), (0, kp - k))
     gf = F.pad(g.float(), (0, np_ - n))
@@ -314,12 +539,12 @@ def tgmm_plain(x: torch.Tensor, g: torch.Tensor, row_end: torch.Tensor, *,
         gg = torch.arange(ng, device=dev)[:, None, None]
         ki = torch.arange(gk, device=dev)[None, :, None]
         nj = torch.arange(gn, device=dev)[None, None, :]
-    steps = int(n_tiles.max()) if ng else 0
-    rows = torch.arange(bm, device=dev)
+    steps = int(n_steps.max()) if ng else 0
+    rows = torch.arange(chunk, device=dev)
     for j in range(steps):
-        active = j < n_tiles                                    # (G,)
-        t = first + j
-        r = t[:, None] * bm + rows[None, :]                     # (G, bm)
+        active = j < n_steps                                    # (G,)
+        lo = base + j * chunk
+        r = lo[:, None] + rows[None, :]                         # (G, chunk)
         ok = active[:, None] & (r < re[:, None])
         rc = r.clamp(max=t_buf - 1)
         xs = torch.where(ok[..., None], xf[rc], torch.zeros((), device=dev))
@@ -327,27 +552,29 @@ def tgmm_plain(x: torch.Tensor, g: torch.Tensor, row_end: torch.Tensor, *,
         delta = torch.bmm(xs.transpose(1, 2), gs)               # (G, kp, np)
         if ft_on and inj is not None and inj[0] == 1:
             _, ir, ic, ik = inj
-            hit = torch.nonzero(active & (t == ik)).flatten().tolist()
+            hi = torch.minimum(lo + chunk, end_row)
+            hit = torch.nonzero(active & (lo <= ik * bm) & (ik * bm < hi)
+                                ).flatten().tolist()
             if hit and 0 <= ir < kp and 0 <= ic < np_:
                 delta[hit[0], ir, ic] += inj_mag
         acc += delta
         if not ft_on:
             continue
-        xsum = xs.view(ng, bm, gk, bk).sum(3)                   # (G, bm, gk)
+        xsum = xs.view(ng, chunk, gk, bk).sum(3)                # (G, chunk, gk)
         colck += torch.bmm(xsum.transpose(1, 2), gs).view(ng, gk, gn, bn)
-        gsum = gs.view(ng, bm, gn, bn).sum(3)                   # (G, bm, gn)
+        gsum = gs.view(ng, chunk, gn, bn).sum(3)                # (G, chunk, gn)
         rowck += (torch.bmm(xs.transpose(1, 2), gsum).view(ng, gk, bk, gn)
                   .permute(0, 1, 3, 2))
-        amax = torch.maximum(amax, xs.abs().view(ng, bm, gk, bk)
+        amax = torch.maximum(amax, xs.abs().view(ng, chunk, gk, bk)
                              .amax((1, 3)))
-        bmax = torch.maximum(bmax, gs.abs().view(ng, bm, gn, bn)
+        bmax = torch.maximum(bmax, gs.abs().view(ng, chunk, gn, bn)
                              .amax((1, 3)))
-        last = j == n_tiles - 1
+        last = j == n_steps - 1
         now = active & (last | (ft.verify == "step"))
         if not bool(now.any()):
             continue
         rows_el = torch.clamp_min(
-            torch.minimum((t + 1) * bm, re) - first * bm, 1).float()
+            torch.minimum(lo + chunk, re) - base, 1).float()
         tau = torch.clamp_min(coef * rows_el[:, None, None]
                               * amax[:, :, None] * bmax[:, None, :], 1e-30)
         blocks = acc.view(ng, gk, bk, gn, bn)
@@ -362,6 +589,16 @@ def tgmm_plain(x: torch.Tensor, g: torch.Tensor, row_end: torch.Tensor, *,
     return acc[:, :k, :n].contiguous(), rep
 
 
+def planned_tgmm_plain(x: torch.Tensor, g: torch.Tensor,
+                       row_end: torch.Tensor, *, bm: int,
+                       tiles: Optional[Sequence[int]] = None, **kw
+                       ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """`tgmm_plain` under the plan `tgmm` follows for these operands, on any
+    device."""
+    p = plan_k8_call(x, g, bm, tiles)
+    return tgmm_plain(x, g, row_end, tiles=p.tiles, chunk=p.chunk, **kw)
+
+
 # ---------------------------------------------------------------------------
 # K8: wrapper
 # ---------------------------------------------------------------------------
@@ -372,18 +609,18 @@ def tgmm(x: torch.Tensor, g: torch.Tensor, row_end: torch.Tensor, *,
          tiles: Optional[Sequence[int]] = None
          ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """dw[g] = X_gᵀ·G_g (G, K, N) f32 with block-level online ABFT when ``ft``
-    is enabled (K8), over buffers of row tile ``bm``. A CPU tensor runs
-    `tgmm_plain`; a CUDA tensor launches the kernel or raises. The kernel
-    leaves the dw and report blocks of empty groups unwritten: call through
-    `grouped.dispatch.tgmm_buffer_call`, which zeroes them."""
-    tiles = (tuple(tiles) if tiles is not None
-             else _tiles_for(TGMM_TILES, x.dtype, bm, "tgmm"))
+    is enabled (K8), over buffers of row tile ``bm``. `plan_k8` picks the
+    instance, tiles and interval (``tiles`` pins them). A CPU tensor runs
+    `tgmm_plain` under that plan; a CUDA tensor launches the kernel or
+    raises. Both instances write an empty group's dw and report as
+    zeros."""
+    ft_on = _check_ft(ft)
+    p = plan_k8_call(x, g, bm, tiles)
     if x.device.type == "cpu":
-        return tgmm_plain(x, g, row_end, tiles=tiles, ft=ft, inj=inj,
-                          inj_mag=inj_mag)
+        return tgmm_plain(x, g, row_end, tiles=p.tiles, chunk=p.chunk, ft=ft,
+                          inj=inj, inj_mag=inj_mag)
     if x.device.type != "cuda":
         raise ValueError(f"tgmm: unsupported device {x.device}")
-    ft_on = _check_ft(ft)
     build.check_device(x)
     t_buf, k = x.shape
     n = g.shape[-1]
@@ -394,8 +631,8 @@ def tgmm(x: torch.Tensor, g: torch.Tensor, row_end: torch.Tensor, *,
     if x.dtype not in DTYPE_CODES or g.dtype != x.dtype:
         raise TypeError(f"tgmm: float32 or bfloat16 operands of one dtype, "
                         f"got {x.dtype}, {g.dtype}")
-    if tiles not in TGMM_TILES[x.dtype]:
-        raise ValueError(f"tgmm: tiles {tiles} are not compiled for "
+    if p.instance == "plain":
+        raise ValueError(f"tgmm: tiles {p.tiles} are not compiled for "
                          f"{x.dtype}")
     if g.device != x.device or row_end.device != x.device or \
             row_end.dtype != torch.int32 or not row_end.is_contiguous():
@@ -404,17 +641,23 @@ def tgmm(x: torch.Tensor, g: torch.Tensor, row_end: torch.Tensor, *,
     if max(x.stride() + g.stride()) >= 2 ** 31:
         raise ValueError("tgmm: strides exceed int32")
     ng = row_end.shape[0]
-    _, bn, bk = tiles
+    _, bn, bk = p.tiles
     gk, gn = cdiv(k, bk), cdiv(n, bn)
     out = torch.empty(ng, k, n, dtype=torch.float32, device=x.device)
     rep = (torch.empty(ng, gk, gn, REPORT_WIDTH, dtype=torch.float32,
                        device=x.device) if ft_on else None)
     inj = tuple(inj) if (ft_on and inj is not None) else _NO_INJ
-    TGMM(x.data_ptr(), g.data_ptr(), row_end.data_ptr(), out.data_ptr(),
-         None if rep is None else rep.data_ptr(),
-         t_buf, k, n, ng, x.stride(0), x.stride(1), g.stride(0), g.stride(1),
-         DTYPE_CODES[x.dtype], int(ft_on), bm,
-         int(ft_on and ft.verify == "step"), int(ft_on and ft.corrects),
-         ft.rel_tau * F32EPS if ft_on else 0.0, *inj, inj_mag,
-         torch.cuda.current_stream(x.device).cuda_stream)
+    tail = (int(ft_on and ft.verify == "step"), int(ft_on and ft.corrects),
+            ft.rel_tau * F32EPS if ft_on else 0.0, *inj, float(inj_mag),
+            torch.cuda.current_stream(x.device).cuda_stream)
+    if p.instance == "sm90":
+        TGMM_SM90(x.data_ptr(), g.data_ptr(), row_end.data_ptr(),
+                  out.data_ptr(), None if rep is None else rep.data_ptr(),
+                  t_buf, k, n, ng, x.stride(0), g.stride(0), int(ft_on),
+                  *tail)
+        return out, rep
+    TGMM_SIMT(x.data_ptr(), g.data_ptr(), row_end.data_ptr(), out.data_ptr(),
+              None if rep is None else rep.data_ptr(),
+              t_buf, k, n, ng, x.stride(0), x.stride(1), g.stride(0),
+              g.stride(1), DTYPE_CODES[x.dtype], int(ft_on), bm, *tail)
     return out, rep

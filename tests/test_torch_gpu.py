@@ -581,7 +581,8 @@ def test_grouped_gemm_matches_plain(cuda, dtype, bm):
                         (FT, (1, dead_row, 7, 1)), (None, None)):
             kw = dict(ft=ft, inj=inj, inj_mag=99.0)
             before = kgg.FT_GEMM_GROUPED.launches
-            out, rep = kgg.ft_gemm_grouped(buf, ww, lay.gid, lay.row_end, **kw)
+            out, rep = kgg.ft_gemm_grouped(buf, ww, lay.gid, lay.row_end,
+                                           tiles=(bm, 128, 32), **kw)
             assert kgg.FT_GEMM_GROUPED.launches == before + 1
             out_p, rep_p = kgg.ft_gemm_grouped_plain(
                 buf, ww, lay.gid, lay.row_end, tiles=(bm, 128, 32), **kw)
@@ -599,7 +600,7 @@ def test_grouped_gemm_matches_plain(cuda, dtype, bm):
                 assert n_det >= 1.0 and n_corr == 0.0
             if inj is not None and ft.corrects:
                 clean, _ = kgg.ft_gemm_grouped(buf, ww, lay.gid, lay.row_end,
-                                               ft=FT)
+                                               ft=FT, tiles=(bm, 128, 32))
                 assert torch.equal(out, clean)
 
 
@@ -627,7 +628,7 @@ def test_tgmm_matches_plain(cuda, dtype, bm):
             row=inj[1], col=inj[2], magnitude=50.0, k_step=inj[3])
         before = kgg.TGMM.launches
         dw, rep = kgrouped.tgmm_buffer_call(spec, x, g, lay, ft=ft,
-                                            inject=tinj)
+                                            inject=tinj, tiles=(bm, 64, 64))
         assert kgg.TGMM.launches == before + 1
         dw_p, rep_p = kgg.tgmm_plain(x, g, lay.row_end, tiles=(bm, 64, 64),
                                      ft=ft, inj=inj, inj_mag=50.0)
@@ -805,3 +806,201 @@ def test_sm90_plan_routes_the_rest_to_simt(cuda):
         assert ft_gemm.FT_GEMM_2D_SIMT.launches == before + 1
         with pytest.raises(ValueError):
             ft_gemm.ft_gemm(x, y, ft=ft, tiles=ft_gemm.SM90_TILES[1])
+
+
+# ---------------------------------------------------------------------------
+# K7 / K8 on the tensor cores (csrc/grouped_sm90.cu)
+# ---------------------------------------------------------------------------
+
+#: A group of 100 rows (two 64-row chunks, the second past row_end), empty
+#: groups, and a last group of 5 rows whose region runs on through a fully
+#: dead 64-row chunk of the buffer's tail.
+SM90_SIZES = [13, 0, 100, 7, 70, 0, 0, 5]
+
+
+def _sm90_layout(seed):
+    lay, glay = _grouped_layout(SM90_SIZES, 16, seed)
+    assert lay.t_buf - int(lay.row_end[-1]) > 64
+    return lay, glay
+
+
+def _dead_rows(lay):
+    """Buffer rows no caller row is scattered to."""
+    dead = torch.ones(lay.t_buf, dtype=torch.bool, device="cuda")
+    dead[lay.positions.long()] = False
+    return dead
+
+
+def _k7_sm90_case(lay, buf, w, ft, inj):
+    from repro_torch.kernels import grouped_gemm as kgg
+    kw = dict(ft=ft, inj=inj, inj_mag=99.0)
+    assert kgg.plan_k7_call(buf, w, lay.gid).instance == "sm90"
+    before = (kgg.FT_GEMM_GROUPED_SM90.launches,
+              kgg.FT_GEMM_GROUPED_SIMT.launches)
+    out, rep = kgg.ft_gemm_grouped(buf, w, lay.gid, lay.row_end, **kw)
+    assert (kgg.FT_GEMM_GROUPED_SM90.launches,
+            kgg.FT_GEMM_GROUPED_SIMT.launches) == (before[0] + 1, before[1])
+    out_p, rep_p = kgg.planned_grouped_plain(buf, w, lay.gid, lay.row_end,
+                                             **kw)
+    return out, rep, out_p, rep_p
+
+
+@pytest.mark.parametrize("walk", ["w", "wT"])
+def test_grouped_sm90_matches_plain(cuda, walk):
+    """K7 on the tensor cores against its plain version under the same
+    plan, integer bf16 operands (exact): FT off, clean, an SEU in a chunk
+    that spans past its group's row_end (corrected bit for bit and
+    located; left by detect-only), verify="final", an SEU in the fully dead
+    chunk; K = 320 (a ragged last k-step), N = 200 (a ragged n-block)."""
+    from repro_torch.kernels import grouped_gemm as kgg
+    lay, glay = _sm90_layout(5)
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    k, n, ng = 320, 200, len(SM90_SIZES)
+    buf = glay.scatter_rows(_ints(gen, lay.n_rows, k, dtype=torch.bfloat16),
+                            lay)
+    w = (_ints(gen, ng, k, n, dtype=torch.bfloat16) if walk == "w" else
+         _ints(gen, ng, n, k, dtype=torch.bfloat16).transpose(-1, -2))
+    assert kgg.plan_k7_call(buf, w, lay.gid).w_kmajor == (walk == "wT")
+    base, re = lay.base.tolist(), lay.row_end.tolist()
+    past = (1, re[2] - 1, n - 1, 1)      # second chunk of group 2
+    clean, _, _, _ = _k7_sm90_case(lay, buf, w, FT, None)
+    for ft, inj in ((None, None), (FT, None), (FT, past),
+                    (FT.replace(action="detect"), past),
+                    (FT.replace(verify="final"), (1, base[0], 5, 0)),
+                    (FT, (1, lay.t_buf - 1, 7, 1))):
+        out, rep, out_p, rep_p = _k7_sm90_case(lay, buf, w, ft, inj)
+        assert torch.equal(out, out_p)
+        if ft is None:
+            assert rep is None and torch.equal(out, clean)
+            continue
+        _check_reports(rep, rep_p)
+        n_det, n_corr = float(rep[..., 0].sum()), float(rep[..., 1].sum())
+        if inj is None:
+            assert n_det == n_corr == 0.0
+        elif ft.corrects:
+            assert n_det == n_corr == 1.0 and torch.equal(out, clean)
+            cell = rep[rep[..., 0] > 0][0]
+            assert (int(cell[2]), int(cell[3])) == (inj[1], inj[2])
+        else:
+            assert n_det >= 1.0 and n_corr == 0.0
+            moved = (out.float() - clean.float()).abs()
+            assert moved.nonzero().tolist() == [[inj[1], inj[2]]]
+    # The rows between a group's row_end and the next group's base hold
+    # garbage: the masking keeps them out of every result.
+    dirty = buf.clone()
+    dirty[_dead_rows(lay)] = 7.0
+    for ft in (None, FT):
+        got, rep_g = kgg.ft_gemm_grouped(dirty, w, lay.gid, lay.row_end, ft=ft)
+        want, rep_w = kgg.ft_gemm_grouped(buf, w, lay.gid, lay.row_end, ft=ft)
+        assert torch.equal(got, want)
+        if ft is not None:
+            assert torch.equal(rep_g, rep_w)
+
+
+def test_grouped_sm90_random_bf16_within_one_ulp(cuda):
+    """Random bf16 operands at the MoE decode geometry in miniature: the
+    kernel and its plain version round the same f32 sums, taken in other
+    orders, to bf16."""
+    from repro_torch.kernels import grouped_gemm as kgg
+    lay, glay = _sm90_layout(6)
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    buf = glay.scatter_rows(_bf16(gen, lay.n_rows, 512), lay)
+    w = _bf16(gen, len(SM90_SIZES), 512, 384)
+    out, rep, out_p, rep_p = _k7_sm90_case(lay, buf, w, FT, None)
+    tol = 2.0 ** -7 * float(out_p.float().abs().max())
+    assert float((out.float() - out_p.float()).abs().max()) <= tol
+    assert torch.equal(rep[..., [0, 1, 2, 3, 7]], rep_p[..., [0, 1, 2, 3, 7]])
+    assert float(rep[..., 0].sum()) == 0.0
+
+
+def test_tgmm_sm90_matches_plain(cuda):
+    """K8 on the tensor cores against its plain version under the same plan
+    (64-row intervals), integer bf16 operands (exact): FT off, clean, an
+    SEU in the second interval of the 100-row group (corrected bit for bit,
+    located), one in the last group's ragged tile left by detect-only
+    (counted again at each verification of the dead tail), verify="final",
+    an SEU aimed at a dead tile; empty groups zero in dw and report with no
+    pass after the kernel; K = 200, N = 136 (ragged blocks)."""
+    from repro_torch.kernels import grouped as kgrouped
+    from repro_torch.kernels import grouped_gemm as kgg
+    from repro_torch.kernels.templates import BatchedKernelSpec
+    lay, glay = _sm90_layout(7)
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    k, n = 200, 136
+    x = glay.scatter_rows(_ints(gen, lay.n_rows, k, dtype=torch.bfloat16),
+                          lay)
+    g = glay.scatter_rows(_ints(gen, lay.n_rows, n, dtype=torch.bfloat16),
+                          lay)
+    spec = BatchedKernelSpec(ft_level="block", tgmm=True)
+    base, re = lay.base.tolist(), lay.row_end.tolist()
+    assert kgg.plan_k8_call(x, g, 16).instance == "sm90"
+    last_tile = (re[-1] - 1) // 16
+    clean, _ = kgrouped.tgmm_buffer_call(spec, x, g, lay, ft=FT)
+    for ft, inj in ((None, None), (FT, None),
+                    (FT, (1, k - 1, 70, (base[2] + 70) // 16)),
+                    (FT.replace(action="detect"), (1, 3, n - 1, last_tile)),
+                    (FT.replace(verify="final"), (1, 64, 64, base[0] // 16)),
+                    (FT.replace(action="detect"), (1, 5, 5,
+                                                   lay.num_tiles - 1))):
+        tinj = None if inj is None else InjectionSpec(
+            row=inj[1], col=inj[2], magnitude=50.0, k_step=inj[3])
+        before = (kgg.TGMM_SM90.launches, kgg.TGMM_SIMT.launches)
+        dw, rep = kgrouped.tgmm_buffer_call(
+            spec if ft is not None else BatchedKernelSpec(tgmm=True), x, g,
+            lay, ft=ft, inject=tinj)
+        assert (kgg.TGMM_SM90.launches, kgg.TGMM_SIMT.launches) == \
+            (before[0] + 1, before[1])
+        dw_p, rep_p = kgg.planned_tgmm_plain(x, g, lay.row_end, bm=16, ft=ft,
+                                             inj=inj, inj_mag=50.0)
+        assert dw.dtype == torch.float32 and torch.equal(dw, dw_p)
+        for e in range(len(SM90_SIZES)):
+            if SM90_SIZES[e] == 0:
+                assert not dw[e].any()
+                assert rep is None or not rep[e].any()
+        if ft is None:
+            assert rep is None
+            continue
+        _check_reports(rep, rep_p)
+        n_det = float(rep[..., 0].sum())
+        if inj is None:
+            assert n_det == 0.0
+        elif ft.corrects:
+            assert n_det == 1.0 and torch.equal(dw, clean)
+            cell = rep[rep[..., 0] > 0][0]
+            assert (int(cell[2]), int(cell[3])) == (inj[1], inj[2])
+        else:
+            assert float(rep[..., 1].sum()) == 0.0
+            assert float(dw[-1, inj[1], inj[2]] - clean[-1, inj[1], inj[2]]) \
+                == 50.0
+            if inj[3] == last_tile:
+                assert n_det > 1
+    dirty_x, dirty_g = x.clone(), g.clone()
+    dead = _dead_rows(lay)
+    dirty_x[dead], dirty_g[dead] = 5.0, -6.0
+    got, rep_g = kgrouped.tgmm_buffer_call(spec, dirty_x, dirty_g, lay, ft=FT)
+    want, rep_w = kgrouped.tgmm_buffer_call(spec, x, g, lay, ft=FT)
+    assert torch.equal(got, want) and torch.equal(rep_g, rep_w)
+
+
+def test_grouped_sm90_plan_routes_the_rest_to_simt(cuda):
+    """f32 and the pinned SIMT tiles stay on the SIMT instances (K7's
+    csrc/ft_gemm.cu GROUPED, K8's csrc/tgmm.cu)."""
+    from repro_torch.kernels import grouped as kgrouped
+    from repro_torch.kernels import grouped_gemm as kgg
+    from repro_torch.kernels.templates import BatchedKernelSpec
+    lay, glay = _sm90_layout(8)
+    gen = torch.Generator(device="cuda").manual_seed(24)
+    for dtype, tiles in ((torch.float32, None),
+                         (torch.bfloat16, (16, 128, 32))):
+        buf = glay.scatter_rows(_ints(gen, lay.n_rows, 64, dtype=dtype), lay)
+        w = _ints(gen, len(SM90_SIZES), 64, 128, dtype=dtype)
+        p = kgg.plan_k7_call(buf, w, lay.gid, tiles)
+        assert p.instance == "simt" and p.reason
+        before = kgg.FT_GEMM_GROUPED_SIMT.launches
+        kgg.ft_gemm_grouped(buf, w, lay.gid, lay.row_end, ft=FT, tiles=tiles)
+        assert kgg.FT_GEMM_GROUPED_SIMT.launches == before + 1
+        before = kgg.TGMM_SIMT.launches
+        kgrouped.tgmm_buffer_call(
+            BatchedKernelSpec(ft_level="block", tgmm=True), buf, buf, lay,
+            ft=FT, tiles=None if tiles is None else (16, 64, 64))
+        assert kgg.TGMM_SIMT.launches == before + 1
