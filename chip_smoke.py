@@ -95,9 +95,21 @@ Phases (each prints its own lines; any failed check exits non-zero):
                card at phi4-mini-3.8b's training shapes in bf16 (2 x 512
                tokens): K1 with the act_grad output and the dx = g·Wᵀ /
                dw = Xᵀ·g GEMMs on transposed views, K2 with the saved
-               statistics, K3 (dQ) and K4 (dK/dV); max error, report
-               agreement, a deterministic SEU each, CUDA-event times beside
-               the bound, the plain version and one library call;
+               statistics; max error, report agreement, a deterministic SEU
+               each, CUDA-event times beside the bound, the plain version
+               and one library call. Then K3 (dQ) and K4 (dK/dV) at
+               phi4-mini's (48 / 16 heads) and qwen3-moe-235b-a22b's (128 /
+               8 heads) attention shapes (S 512, dh 128, causal): the plan
+               (the tensor-core instance, csrc/flash_bwd_sm90.cu, and K4's
+               range count), outputs within one bf16 ulp of the plain
+               version under the same plan, reports det / corr / row / col
+               / k equal and tau within 1e-3; on integer operands one SEU
+               per backward GEMM (dP in each kernel, the dQ, dV and dK
+               deltas, and a dV SEU in a K4 range before the last),
+               corrected, located and left by a detect-only policy; the
+               range reduce against its plain version; times of the new
+               instance, the SIMT one (pinned blocks), the plain version,
+               SDPA backward and the bound;
   train_check  phi4-mini-3.8b at full width, depth cut to 2 layers, 1 x 256
                tokens: `loss_fn` and its backward through the kernels and
                through their plain versions (loss within 1e-3, every grad
@@ -108,9 +120,11 @@ Phases (each prints its own lines; any failed check exits non-zero):
                full width and depth (random bf16 weights from a seed),
                2 x 512 tokens, 4 steps (step 0 has lr 0): step times,
                tokens/s, peak memory, losses, FT counters, launches per
-               step; then one more step through `make_train_step` under
-               the dispatch guard, whose launch counts are checked, and one
-               under torch.profiler (busy time and idle share);
+               step (every K3 / K4 launch on the tensor-core instance);
+               then one more step through `make_train_step` under the
+               dispatch guard, whose launch counts are checked, and one
+               under torch.profiler (busy time and idle share), again with
+               K3 and K4 pinned to their SIMT instances;
   moe_kernels  the grouped kernels K7 and K8 on their tensor-core instances
                (csrc/grouped_sm90.cu, the plan's default for bf16) against
                their plain versions under the same plan on the card at
@@ -155,10 +169,11 @@ Phases (each prints its own lines; any failed check exits non-zero):
                layer (with f32 AdamW, 2 layers would not fit the card),
                2 x 512 tokens, `remat="full"`, 4 steps: step times,
                tokens/s, peak memory, loss and aux per step, launches of
-               K1-K8 per step (checked: every K7 and K8 launch on the
-               tensor-core instances), detections; then one guarded step,
-               and one step each under torch.profiler on the tensor-core and
-               on the SIMT K7 / K8.
+               K1-K8 per step (checked: every K3, K4, K7 and K8 launch on
+               the tensor-core instances), detections; then one guarded
+               step, and one step each under torch.profiler on the
+               tensor-core instances, on the SIMT K7 / K8 and on the SIMT
+               K3 / K4.
 
 The last two lines are {"kernels": [...]} and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -250,6 +265,24 @@ KERNELS = {
                      source="src/repro_torch/kernels/csrc/flash_ft.cu",
                      replaces="src/repro/kernels/flashft.py:114",
                      counter=flashft.FLASH_FT),
+    # K3 and K4 on the tensor cores: every bf16 call at head dim 128, and
+    # K4's range reduce
+    "flash_dq_sm90": dict(route="cuda",
+                          source="src/repro_torch/kernels/csrc/"
+                                 "flash_bwd_sm90.cu",
+                          replaces="src/repro/kernels/flashft.py:488",
+                          counter=flashft.FLASH_DQ_SM90),
+    "flash_dkv_sm90": dict(route="cuda",
+                           source="src/repro_torch/kernels/csrc/"
+                                  "flash_bwd_sm90.cu",
+                           replaces="src/repro/kernels/flashft.py:569",
+                           counter=flashft.FLASH_DKV_SM90),
+    "flash_dkv_reduce": dict(route="cuda",
+                             source="src/repro_torch/kernels/csrc/"
+                                    "flash_bwd_sm90.cu",
+                             replaces="src/repro/kernels/flashft.py:569",
+                             counter=flashft.FLASH_DKV_REDUCE),
+    # their SIMT instances: f32, head dim 64, pinned blocks
     "flash_dq": dict(route="cuda",
                      source="src/repro_torch/kernels/csrc/flash_ft_bwd.cu",
                      replaces="src/repro/kernels/flashft.py:488",
@@ -295,6 +328,9 @@ KERNELS = {
 #: expected counts
 OFF_PATH = {"ft_gemm_grouped_sm90": 0, "ft_gemm_grouped": 0,
             "tgmm_sm90": 0, "tgmm": 0, "naive_gemm": 0}
+#: zero launches of the flash backward, for the serving paths
+NO_FLASH_BWD = {"flash_dq_sm90": 0, "flash_dkv_sm90": 0,
+                "flash_dkv_reduce": 0, "flash_dq": 0, "flash_dkv": 0}
 #: paged serving: qwen2-7b, 16 requests on 8 slots, max_len 1 024
 ENGINE_SLOTS, ENGINE_REQUESTS, ENGINE_MAX_LEN = 8, 16, 1024
 DECODE_LENGTHS = (0, 1, 63, 64, 65, 300, 777, 1024)
@@ -307,6 +343,19 @@ def k1_launches(count: int, level: str = "block"):
     sm90 = level in ("off", "block")
     return {"ft_gemm_sm90": count if sm90 else 0,
             "ft_gemm_2d": 0 if sm90 else count}
+
+
+def flash_bwd_launches(cfg, layers: int):
+    """The flash backward's expected launches in a bf16 train step of
+    TRAIN_BATCH x TRAIN_SEQ tokens: K3 and K4 on the tensor cores once per
+    layer, K4's range reduce too when `plan_bwd` cuts its walk, the SIMT
+    kernels never."""
+    nb = -(-TRAIN_SEQ // flashft.BLOCK)
+    ranges = flashft.dkv_ranges(TRAIN_BATCH * cfg.n_kv_heads * nb,
+                                cfg.n_heads // cfg.n_kv_heads * nb)
+    return {"flash_dq_sm90": layers, "flash_dkv_sm90": layers,
+            "flash_dkv_reduce": layers if ranges > 1 else 0, "flash_dq": 0,
+            "flash_dkv": 0}
 
 
 class CheckFailed(RuntimeError):
@@ -687,9 +736,10 @@ def plain_kernels():
     saved_grouped = grouped_gemm.ft_gemm_grouped, grouped_gemm.tgmm
     ft_gemm.ft_gemm = gemm
     grouped_gemm.ft_gemm_grouped, grouped_gemm.tgmm = grouped, tgmm
-    for n, plain in zip(names, (flashft.flash_ft_plain, flashft.flash_dq_plain,
-                                flashft.flash_dkv_plain)):
+    for n, plain in zip(names[:2], (flashft.flash_ft_plain,
+                                    flashft.flash_dq_plain)):
         setattr(flashft, n, blocks_of(plain))
+    flashft.flash_ft_dkv = flashft.planned_dkv_plain
     try:
         yield
     finally:
@@ -720,6 +770,29 @@ def simt_grouped():
         yield
     finally:
         grouped_gemm.ft_gemm_grouped, grouped_gemm.tgmm = saved
+
+
+@contextmanager
+def simt_flash_bwd():
+    """Pin the SIMT blocks on every K3 and K4 call: the flash backward as
+    it ran before its tensor-core instance, for the profiles' "before" in
+    the same run."""
+    names = ("flash_ft_dq", "flash_ft_dkv")
+    saved = [getattr(flashft, n) for n in names]
+
+    def pinned(fn):
+        def run(*args, bq=None, bkv=None, **kw):
+            return fn(*args, bq=bq or flashft.BLOCK, bkv=bkv or flashft.BLOCK,
+                      **kw)
+        return run
+
+    for n, fn in zip(names, saved):
+        setattr(flashft, n, pinned(fn))
+    try:
+        yield
+    finally:
+        for n, fn in zip(names, saved):
+            setattr(flashft, n, fn)
 
 
 def _serve_logits(params, cfg, run, prompts, feed):
@@ -885,8 +958,8 @@ def _serve_run(name, params, cfg, run, prompts, new_tokens):
     check(launches == {**k1_launches(per_step * (new_tokens + 1),
                                      run.ft.level),
                        "ft_gemm_batched": 2 * cfg.n_layers * new_tokens,
-                       "flash_ft": cfg.n_layers, "flash_dq": 0,
-                       "flash_dkv": 0, "flash_decode": 0, **OFF_PATH},
+                       "flash_ft": cfg.n_layers, **NO_FLASH_BWD,
+                       "flash_decode": 0, **OFF_PATH},
           f"{name}: launch counts K1 {per_step} per prefill and per decode "
           f"step (every one on the {'tensor-core' if run.ft.level == 'block' else 'SIMT'} "
           f"instance), K5 {2 * cfg.n_layers} per decode step, K2 "
@@ -1608,8 +1681,8 @@ def phase_engine(seed: int, smi: str):
     per = cfg.n_layers * 7 + 1
     expect = {**k1_launches(per * (ENGINE_REQUESTS + steps)),
               "ft_gemm_batched": 0, "flash_ft": cfg.n_layers * ENGINE_REQUESTS,
-              "flash_dq": 0, "flash_dkv": 0,
-              "flash_decode": cfg.n_layers * steps, **OFF_PATH}
+              **NO_FLASH_BWD, "flash_decode": cfg.n_layers * steps,
+              **OFF_PATH}
     check(launches == expect,
           f"engine: launches K1 {per} per prefill and per decode step, K2 "
           f"{cfg.n_layers} per prefill, K6 {cfg.n_layers} per decode step, "
@@ -1751,7 +1824,7 @@ def phase_train_kernels():
     _k1_seus("dw on a transposed view", a, b, {}, 8000, 200, (0, 2, 3))
     rows["ft_gemm_sm90"] = dict(max_abs_err=k1_err, detail=k1_rows)
 
-    # ---- K2 with stats, K3, K4 at the training attention shape ----------
+    # ---- K2 with stats at the training attention shape ----------------
     bh, gk, dh = TRAIN_BATCH * cfg.n_heads, TRAIN_BATCH * cfg.n_kv_heads, \
         cfg.head_dim
     n_rep, s = bh // gk, TRAIN_SEQ
@@ -1769,62 +1842,25 @@ def phase_train_kernels():
     check(float(rep[..., 0].sum()) == 0.0 and torch.equal(rep[..., 7],
                                                          rep_p[..., 7]),
           "K2 stats report: no detection, k fields equal")
-    di = (go.float() * o.float()).sum(-1)
-    bkw = dict(fkw)
-    dq, rep_q = flashft.flash_ft_dq(q, k, vv, go, m, l, di, **bkw)
-    dk, dv, rep_kv = flashft.flash_ft_dkv(q, k, vv, go, m, l, di, **bkw)
-    dq_p, rep_qp = flashft.flash_dq_plain(q, k, vv, go, m, l, di, **bkw)
-    dk_p, dv_p, rep_kvp = flashft.flash_dkv_plain(q, k, vv, go, m, l, di,
-                                                  **bkw)
-    k3_err = _cmp_outputs("K3 dq", dq, dq_p)
-    k4_err = max(_cmp_outputs("K4 dk", dk, dk_p),
-                 _cmp_outputs("K4 dv", dv, dv_p))
-    # (The max-residual field spans all of a step's verifications while tau
-    # is the last one's, the dQ / dK delta's, so the two are not compared.)
-    for name, rk, rp in (("K3", rep_q, rep_qp), ("K4", rep_kv, rep_kvp)):
-        tau_rel = ((rk[..., 6] - rp[..., 6]).abs()
-                   / rp[..., 6].abs().clamp_min(1e-30)).max().item()
-        check(float(rk[..., 0].sum()) == 0.0 == float(rp[..., 0].sum())
-              and torch.equal(rk[..., 7], rp[..., 7]) and tau_rel <= 1e-3,
-              f"{name} report: no detection, k fields equal, tau within "
-              f"1e-3 of plain ({tau_rel:.2g})")
     ms_f = time_ms(lambda: flashft.flash_ft_fwd(q, k, vv, save_stats=True,
                                                 **fkw), 10)
-    ms_q = time_ms(lambda: flashft.flash_ft_dq(q, k, vv, go, m, l, di,
-                                               **bkw), 10)
-    ms_kv = time_ms(lambda: flashft.flash_ft_dkv(q, k, vv, go, m, l, di,
-                                                 **bkw), 10)
     pl_f = time_ms(lambda: flashft.flash_ft_plain(q, k, vv, save_stats=True,
                                                   **fkw), 1, warmup=0)
-    pl_q = time_ms(lambda: flashft.flash_dq_plain(q, k, vv, go, m, l, di,
-                                                  **bkw), 1, warmup=0)
-    pl_kv = time_ms(lambda: flashft.flash_dkv_plain(q, k, vv, go, m, l, di,
-                                                    **bkw), 1, warmup=0)
-    q4 = q.view(TRAIN_BATCH, cfg.n_heads, s, dh).detach().requires_grad_()
+    q4 = q.view(TRAIN_BATCH, cfg.n_heads, s, dh)
     k4, v4 = (x_.view(TRAIN_BATCH, cfg.n_kv_heads, s, dh).repeat_interleave(
-        n_rep, dim=1).detach().requires_grad_() for x_ in (k, vv))
-    sdpa_out = torch.nn.functional.scaled_dot_product_attention(
-        q4, k4, v4, is_causal=True)
-    g4 = go.view(TRAIN_BATCH, cfg.n_heads, s, dh)
+        n_rep, dim=1) for x_ in (k, vv))
     lib_f = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        q4.detach(), k4.detach(), v4.detach(), is_causal=True), 10)
-    lib_b = time_ms(lambda: torch.autograd.grad(
-        sdpa_out, (q4, k4, v4), g4, retain_graph=True), 10)
+        q4, k4, v4, is_causal=True), 10)
     pairs = s * (s + 1) // 2
     bf = bound(4.0 * dh * pairs * bh,
                2 * dh * s * (2 * bh + 2 * gk) + 2 * 4 * bh * s)
-    (bq_ms, bq_by), (bkv_ms, bkv_by) = _flash_bwd_bounds(bh, gk, s, dh, True)
     shape = f"{bh} heads / {gk} kv heads, S {s}, dh {dh}, causal"
     print(f"  K2 with stats ({shape}): kernel {ms_f:.4f} ms, plain "
           f"{pl_f:.2f} ms, SDPA forward {lib_f:.4f} ms, bound {bf[0]:.5f} ms "
           f"({bf[1]})")
-    print(f"  K3 dQ: kernel {ms_q:.4f} ms, plain {pl_q:.2f} ms, bound "
-          f"{bq_ms:.5f} ms ({bq_by}); K4 dK/dV: kernel {ms_kv:.4f} ms, "
-          f"plain {pl_kv:.2f} ms, bound {bkv_ms:.5f} ms ({bkv_by}); SDPA "
-          f"backward (dq, dk, dv together, KV repeated) {lib_b:.4f} ms")
-    # One deterministic SEU per kernel on integer-valued q, k, v, g.
-    qi_, ki_, vi_, gi_ = (_ints(gen, bh, s, dh), _ints(gen, gk, s, dh),
-                          _ints(gen, gk, s, dh), _ints(gen, bh, s, dh))
+    # A deterministic SEU on integer-valued q, k, v.
+    qi_, ki_, vi_ = (_ints(gen, bh, s, dh), _ints(gen, gk, s, dh),
+                     _ints(gen, gk, s, dh))
     co, cm, cl, _ = flashft.flash_ft_fwd(qi_, ki_, vi_, save_stats=True,
                                          **fkw)
     io, im, il, irep = flashft.flash_ft_fwd(
@@ -1841,52 +1877,223 @@ def phase_train_kernels():
         qi_, ki_, vi_, save_stats=True, inj=(1, bh - 1, 3, 2, 17, 99),
         inj_mag=300.0, **dict(fkw, ft=DETECT))
     _seu_at("K2 out", io, lo, co, (bh - 1, 3 * 64 + 17, 99))
-    cdi = (gi_.float() * co.float()).sum(-1)
-    cq, _ = flashft.flash_ft_dq(qi_, ki_, vi_, gi_, cm, cl, cdi, **bkw)
-    ck, cv, _ = flashft.flash_ft_dkv(qi_, ki_, vi_, gi_, cm, cl, cdi, **bkw)
-    inj_q = (1, 1, 5, 4, 2, 10, 77)            # dq delta, head 5, q blk 4
-    iq, irq = flashft.flash_ft_dq(qi_, ki_, vi_, gi_, cm, cl, cdi,
-                                  inj=inj_q, inj_mag=300.0, **bkw)
-    cell = irq[5, 4]
-    _cmp_outputs("K3 SEU: corrected dq vs clean", iq, cq)
-    check(float(irq[..., 0].sum()) == 1.0
-          and (int(cell[2]), int(cell[3])) == (4 * 64 + 10, 77),
-          "K3 SEU in the dQ delta located at (row 266, col 77)")
-    lq, _ = flashft.flash_ft_dq(qi_, ki_, vi_, gi_, cm, cl, cdi, inj=inj_q,
-                                inj_mag=300.0, **dict(bkw, ft=DETECT))
-    _seu_at("K3 dq", iq, lq, cq, (5, 4 * 64 + 10, 77))
-    inj_kv = (1, 3, 7, 2, 5, 40, 12)         # dk delta, head 7, kv blk 2
-    ik, iv, irkv = flashft.flash_ft_dkv(qi_, ki_, vi_, gi_, cm, cl, cdi,
-                                        inj=inj_kv, inj_mag=300.0, **bkw)
-    cell = irkv[7 // n_rep, 2]
-    _cmp_outputs("K4 SEU: corrected dk vs clean", ik, ck)
-    _cmp_outputs("K4 SEU: dv vs clean", iv, cv)
-    check(float(irkv[..., 0].sum()) == 1.0
-          and (int(cell[2]), int(cell[3])) == (2 * 64 + 40, 12),
-          "K4 SEU in the dK delta located at (row 168, col 12)")
-    lk, _, _ = flashft.flash_ft_dkv(qi_, ki_, vi_, gi_, cm, cl, cdi,
-                                    inj=inj_kv, inj_mag=300.0,
-                                    **dict(bkw, ft=DETECT))
-    _seu_at("K4 dk", ik, lk, ck, (7 // n_rep, 2 * 64 + 40, 12))
-    inj_v = (1, 2, 7, 2, 5, 40, 12)          # dv delta, the same cell
-    _, jv, _ = flashft.flash_ft_dkv(qi_, ki_, vi_, gi_, cm, cl, cdi,
-                                    inj=inj_v, inj_mag=300.0, **bkw)
-    _, lv, _ = flashft.flash_ft_dkv(qi_, ki_, vi_, gi_, cm, cl, cdi,
-                                    inj=inj_v, inj_mag=300.0,
-                                    **dict(bkw, ft=DETECT))
-    _cmp_outputs("K4 SEU: corrected dv vs clean", jv, cv)
-    _seu_at("K4 dv", jv, lv, cv, (7 // n_rep, 2 * 64 + 40, 12))
     rows["flash_ft"] = dict(max_abs_err=k2_err, detail=[dict(
         shape=f"train forward with stats, {shape}", ms=ms_f, plain_ms=pl_f,
         library_ms=lib_f, bound_ms=bf[0], bound_by=bf[1])])
-    rows["flash_dq"] = dict(max_abs_err=k3_err, detail=[dict(
-        shape=shape, ms=ms_q, plain_ms=pl_q, library_ms=lib_b,
-        library="SDPA backward, dq+dk+dv together", bound_ms=bq_ms,
-        bound_by=bq_by)], headline=shape)
-    rows["flash_dkv"] = dict(max_abs_err=k4_err, detail=[dict(
-        shape=shape, ms=ms_kv, plain_ms=pl_kv, library_ms=lib_b,
-        library="SDPA backward, dq+dk+dv together", bound_ms=bkv_ms,
-        bound_by=bkv_by)], headline=shape)
+
+    # ---- K3 and K4 at phi4-mini's and qwen3-moe-235b-a22b's shapes -------
+    for label, c in (("phi4-mini", cfg), ("qwen3-moe", qwen3_moe_235b.CONFIG)):
+        _merge_rows(rows, _flash_bwd_kernels(gen, label, c))
+    return rows
+
+
+FLASH_BWD = ("flash_dq_sm90", "flash_dkv_sm90", "flash_dkv_reduce",
+             "flash_dq", "flash_dkv")
+
+
+def _flash_bwd_kernels(gen, label, cfg):
+    """K3 and K4 at one model's training attention shape (TRAIN_BATCH x
+    TRAIN_SEQ tokens, causal, bf16): the plan; the tensor-core instance
+    against its plain version under the same plan (outputs within
+    BF16_TOL, reports det / corr / row / col / k equal, tau within 1e-3);
+    one SEU per backward GEMM on integer operands, corrected, located and
+    left by a detect-only policy, one of them in a K4 range before the
+    last; the range reduce against its plain version; the times of both
+    instances, the plain versions, SDPA backward and the bound."""
+    bh, gk, dh = (TRAIN_BATCH * cfg.n_heads, TRAIN_BATCH * cfg.n_kv_heads,
+                  cfg.head_dim)
+    n_rep, s, blk = bh // gk, TRAIN_SEQ, flashft.BLOCK
+    nb = -(-s // blk)
+    shape = f"{label}, {bh} heads / {gk} kv heads, S {s}, dh {dh}, causal"
+    fkw = dict(ft=FT, scale=dh ** -0.5, tau_dh=dh, n_rep=n_rep, causal=True)
+    q, k, v, go = (_rand(gen, bh, s, dh), _rand(gen, gk, s, dh),
+                   _rand(gen, gk, s, dh), _rand(gen, bh, s, dh))
+    o, m, l, _ = flashft.flash_ft_fwd(q, k, v, save_stats=True, **fkw)
+    di = (go.float() * o.float()).sum(-1)
+    args = (q, k, v, go, m, l, di)
+    p = flashft.plan_bwd(q, k, v, go, n_rep=n_rep, causal=True)
+    check(p.instance == "sm90"
+          and p.ranges == flashft.dkv_ranges(gk * nb, n_rep * nb),
+          f"K3/K4 {shape}: the tensor-core instance, K4's walk in "
+          f"{p.ranges} ranges ({p})")
+    before = {n: KERNELS[n]["counter"].launches for n in FLASH_BWD}
+    dq, rep_q = flashft.flash_ft_dq(*args, **fkw)
+    dk, dv, rep_kv = flashft.flash_ft_dkv(*args, **fkw)
+    torch.cuda.synchronize()
+    got = {n: KERNELS[n]["counter"].launches - before[n] for n in FLASH_BWD}
+    check(got == {"flash_dq_sm90": 1, "flash_dkv_sm90": 1,
+                  "flash_dkv_reduce": int(p.ranges > 1), "flash_dq": 0,
+                  "flash_dkv": 0}, f"K3/K4 {label}: launches {got}")
+    dq_p, rep_qp = flashft.flash_dq_plain(*args, **fkw)
+    dk_p, dv_p, rep_kvp = flashft.planned_dkv_plain(*args, **fkw)
+    err_q = _cmp_outputs(f"K3 {label} dq", dq, dq_p)
+    err_kv = max(_cmp_outputs(f"K4 {label} dk", dk, dk_p),
+                 _cmp_outputs(f"K4 {label} dv", dv, dv_p))
+    # (The max-residual field spans all of a step's verifications while tau
+    # is the last one's, the dQ / dK delta's, so the two are not compared.)
+    fields = [0, 1, 2, 3, 7]
+    for name, rk, rp in (("K3", rep_q, rep_qp), ("K4", rep_kv, rep_kvp)):
+        tau_rel = ((rk[..., 6] - rp[..., 6]).abs()
+                   / rp[..., 6].abs().clamp_min(1e-30)).max().item()
+        check(float(rk[..., 0].sum()) == 0.0 == float(rp[..., 0].sum())
+              and torch.equal(rk[..., fields], rp[..., fields])
+              and tau_rel <= 1e-3,
+              f"{name} {label} report: no detection, det / corr / row / col "
+              f"/ k equal, tau within 1e-3 of plain ({tau_rel:.2g})")
+    # The SIMT instance (pinned blocks) against its own plain version.
+    pin = dict(fkw, bq=blk, bkv=blk)
+    sq_, _ = flashft.flash_ft_dq(*args, **pin)
+    sk_, sv_, _ = flashft.flash_ft_dkv(*args, **pin)
+    dk_1, dv_1, _ = flashft.flash_dkv_plain(*args, **fkw)
+    simt_err_q = _cmp_outputs(f"K3 SIMT {label} dq", sq_, dq_p)
+    simt_err_kv = max(_cmp_outputs(f"K4 SIMT {label} dk", sk_, dk_1),
+                      _cmp_outputs(f"K4 SIMT {label} dv", sv_, dv_1))
+
+    # SEUs on integer-valued q, k, v, g: one per backward GEMM.
+    ints = (_ints(gen, bh, s, dh), _ints(gen, gk, s, dh),
+            _ints(gen, gk, s, dh), _ints(gen, bh, s, dh))
+    co, cm, cl, _ = flashft.flash_ft_fwd(*ints[:3], save_stats=True, **fkw)
+    iargs = (*ints, cm, cl, (ints[3].float() * co.float()).sum(-1))
+    clean_q = flashft.flash_ft_dq(*iargs, **fkw)[:1]
+    clean_kv = flashft.flash_ft_dkv(*iargs, **fkw)[:2]
+    hk = n_rep + 1                     # a query head of kv head 1
+    cases = [  # target, query head, block, step, row, col, magnitude
+        ("dp_q", 5, 4, 2, 10, 33, 3e4), ("dq", 5, 4, 2, 10, 77, 300.0),
+        ("dp_kv", hk, 2, 5, 40, 12, 3e4), ("dv", hk, 2, 5, 40, 12, 300.0),
+        ("dk", hk, 2, 5, 40, 12, 300.0), ("dv", 0, 0, 1, 7, 100, 300.0)]
+    first_range = None
+    for target, head, bl, step, row, col, mag in cases:
+        vec = (1, flashft.BWD_TARGETS[target], head, bl, step, row, col)
+        in_q = target in flashft.DQ_TARGETS
+        where = f"{target} at head {head}, block {bl}, step {step}"
+        if not in_q:
+            lo, live = flashft.dkv_walk(s, s, bl * blk, causal=True)
+            z = flashft.dkv_range_of((head % n_rep) * live + step - lo,
+                                     n_rep * live, p.ranges)
+            where += f" (range {z} of {p.ranges})"
+            if head == 0:
+                first_range = z
+
+        def run(ft):
+            kw = dict(fkw, ft=ft, inj=vec, inj_mag=mag)
+            if in_q:
+                dq_, rq = flashft.flash_ft_dq(*iargs, **kw)
+                return (dq_,), rq
+            dk_, dv_, rkv = flashft.flash_ft_dkv(*iargs, **kw)
+            return (dk_, dv_), rkv
+
+        (outs, rep), (left, lrep) = run(FT), run(DETECT)
+        clean = clean_q if in_q else clean_kv
+        kname = "K3" if in_q else "K4"
+        for x, c in zip(outs, clean):
+            _cmp_outputs(f"{kname} {label} SEU {where}: corrected vs clean",
+                         x, c)
+        cell = rep[head, bl] if in_q else rep[head // n_rep, bl]
+        at = {"dp_q": (bl * blk + row, step * blk + col),
+              "dq": (bl * blk + row, col),
+              "dp_kv": (step * blk + row, bl * blk + col)}.get(
+                  target, (bl * blk + row, col))
+        check(float(rep[..., 0].sum()) == 1.0 and float(cell[1]) == 1.0
+              and (int(cell[2]), int(cell[3])) == at,
+              f"{kname} {label} SEU {where}: corrected, located at {at}")
+        check(float(lrep[..., 0].sum()) == 1.0
+              and float(lrep[..., 1].sum()) == 0.0,
+              f"{kname} {label} SEU {where}: detect-only counts it once")
+        moved = [(x.float() - c.float()).abs() for x, c in zip(left, clean)]
+        i = max(range(len(moved)), key=lambda j: moved[j].max().item())
+        idx = tuple(int(t) for t in torch.unravel_index(moved[i].argmax(),
+                                                        moved[i].shape))
+        _seu_at(f"{kname} {label} {where}", outs[i], left[i], clean[i], idx)
+    check(first_range is not None and first_range < p.ranges - 1,
+          f"K4 {label}: an SEU in range {first_range} of {p.ranges}, not "
+          f"the last, corrected")
+
+    # The range reduce alone, from one ranged launch's workspace.
+    red_row = None
+    if p.ranges > 1:
+        ws = torch.empty(p.ranges * gk * nb * (2 * blk * dh + 8),
+                         device="cuda")
+        rk_, rv_ = torch.empty_like(k), torch.empty_like(v)
+        rr_ = torch.empty(gk, nb, 8, device="cuda")
+        ptrs, rest = flashft._bwd_launch_args(q, k, go, m, l, di, ft=FT,
+                                              scale=dh ** -0.5, tau_dh=dh,
+                                              n_rep=n_rep, causal=True,
+                                              inj=None, inj_mag=0.0)
+        flashft.FLASH_DKV_SM90(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                               *ptrs, rk_.data_ptr(), rv_.data_ptr(),
+                               rr_.data_ptr(), ws.data_ptr(), p.ranges,
+                               *rest)
+
+        def reduce():
+            flashft.FLASH_DKV_REDUCE(ws.data_ptr(), rk_.data_ptr(),
+                                     rv_.data_ptr(), rr_.data_ptr(), gk, s,
+                                     p.ranges, rest[-1])
+
+        reduce()
+        pk, pv, pr = flashft.dkv_reduce_plain(ws, gk, s, p.ranges)
+        red_err = max((rk_.float() - pk.float()).abs().max().item(),
+                      (rv_.float() - pv.float()).abs().max().item())
+        check(red_err == 0.0 and torch.equal(rr_, pr)
+              and torch.equal(rk_, dk) and torch.equal(rr_, rep_kv),
+              f"K4 {label} range reduce: equal to its plain version and to "
+              f"the whole call")
+        ms_red = time_ms(reduce, 20)
+        pl_red = time_ms(lambda: flashft.dkv_reduce_plain(ws, gk, s,
+                                                          p.ranges), 3)
+        r_ms, r_by = bound(2.0 * p.ranges * gk * s * dh,
+                           4 * ws.numel() + 2 * 2 * gk * s * dh + 32 * gk * nb)
+        print(f"  K4 {label} range reduce ({p.ranges} ranges): kernel "
+              f"{ms_red:.4f} ms, plain {pl_red:.3f} ms, bound {r_ms:.5f} ms "
+              f"({r_by})")
+        red_row = dict(max_abs_err=red_err, detail=[dict(
+            shape=f"{shape}, {p.ranges} ranges", ms=ms_red, plain_ms=pl_red,
+            library_ms=None, bound_ms=r_ms, bound_by=r_by)])
+
+    # Times: both instances, the plain versions, SDPA backward, the bound.
+    ms_q = time_ms(lambda: flashft.flash_ft_dq(*args, **fkw), 20)
+    ms_kv = time_ms(lambda: flashft.flash_ft_dkv(*args, **fkw), 20)
+    simt_q = time_ms(lambda: flashft.flash_ft_dq(*args, **pin), 3, warmup=1)
+    simt_kv = time_ms(lambda: flashft.flash_ft_dkv(*args, **pin), 3,
+                      warmup=1)
+    pl_q = time_ms(lambda: flashft.flash_dq_plain(*args, **fkw), 1, warmup=0)
+    pl_kv = time_ms(lambda: flashft.planned_dkv_plain(*args, **fkw), 1,
+                    warmup=0)
+    pl_kv1 = time_ms(lambda: flashft.flash_dkv_plain(*args, **fkw), 1,
+                     warmup=0)
+    q4 = q.view(TRAIN_BATCH, cfg.n_heads, s, dh).detach().requires_grad_()
+    k4, v4 = (x_.view(TRAIN_BATCH, cfg.n_kv_heads, s, dh).repeat_interleave(
+        n_rep, dim=1).detach().requires_grad_() for x_ in (k, v))
+    sdpa_out = torch.nn.functional.scaled_dot_product_attention(
+        q4, k4, v4, is_causal=True)
+    g4 = go.view(TRAIN_BATCH, cfg.n_heads, s, dh)
+    lib_b = time_ms(lambda: torch.autograd.grad(
+        sdpa_out, (q4, k4, v4), g4, retain_graph=True), 10)
+    (bq_ms, bq_by), (bkv_ms, bkv_by) = _flash_bwd_bounds(bh, gk, s, dh, True)
+    print(f"  K3 dQ ({shape}): kernel {ms_q:.4f} ms, SIMT {simt_q:.4f} ms "
+          f"({simt_q / ms_q:.1f}x), plain {pl_q:.2f} ms, bound {bq_ms:.5f} "
+          f"ms ({bq_by}); K4 dK/dV ({p.ranges} ranges, the reduce "
+          f"included): kernel {ms_kv:.4f} ms, SIMT {simt_kv:.4f} ms "
+          f"({simt_kv / ms_kv:.1f}x), plain {pl_kv:.2f} ms (one range "
+          f"{pl_kv1:.2f}), bound {bkv_ms:.5f} ms ({bkv_by}); SDPA backward "
+          f"(dq, dk, dv together, KV repeated) {lib_b:.4f} ms")
+    lib = "SDPA backward, dq+dk+dv together, KV repeated"
+    rows = {
+        "flash_dq_sm90": dict(max_abs_err=err_q, detail=[dict(
+            shape=shape, ms=ms_q, simt_ms=simt_q, plain_ms=pl_q,
+            library_ms=lib_b, library=lib, bound_ms=bq_ms, bound_by=bq_by)]),
+        "flash_dkv_sm90": dict(max_abs_err=err_kv, detail=[dict(
+            shape=shape, ranges=p.ranges, ms=ms_kv, simt_ms=simt_kv,
+            plain_ms=pl_kv, library_ms=lib_b, library=lib, bound_ms=bkv_ms,
+            bound_by=bkv_by)]),
+        "flash_dq": dict(max_abs_err=simt_err_q, detail=[dict(
+            shape=shape, ms=simt_q, plain_ms=pl_q, library_ms=lib_b,
+            library=lib, bound_ms=bq_ms, bound_by=bq_by)]),
+        "flash_dkv": dict(max_abs_err=simt_err_kv, detail=[dict(
+            shape=shape, ms=simt_kv, plain_ms=pl_kv1, library_ms=lib_b,
+            library=lib, bound_ms=bkv_ms, bound_by=bkv_by)]),
+    }
+    if red_row is not None:
+        rows["flash_dkv_reduce"] = red_row
     return rows
 
 
@@ -2016,8 +2223,9 @@ def phase_train(smi: str):
     check(all(h["detected"] == 0 for h in out["history"]),
           "train: zero detections")
     expect = {**k1_launches(28 * cfg.n_layers + 3), "ft_gemm_batched": 0,
-              "flash_ft": 2 * cfg.n_layers, "flash_dq": cfg.n_layers,
-              "flash_dkv": cfg.n_layers, "flash_decode": 0, **OFF_PATH}
+              "flash_ft": 2 * cfg.n_layers,
+              **flash_bwd_launches(cfg, cfg.n_layers), "flash_decode": 0,
+              **OFF_PATH}
     check(all(x == expect for x in launches),
           f"train: launches per step {expect} at every step")
     # One more step through make_train_step under the dispatch guard.
@@ -2046,10 +2254,15 @@ def phase_train(smi: str):
           "index_put)")
     check(guarded == expect, f"train: guarded step launches {guarded}")
     # Where the step's time goes: the device's busy and idle share over one
-    # more step (torch.profiler).
-    prof = device_profile(lambda: step_fn(out["params"], out["opt_state"],
-                                          batch, TRAIN_STEPS + 1))
-    print(f"  profiled step: {prof}")
+    # more step (torch.profiler), then over one with K3 and K4 pinned to
+    # their SIMT instances (the kernels before the tensor-core redesign).
+    prof = {}
+    for i, (name, pin) in enumerate((("tensor cores", contextlib.nullcontext()),
+                                     ("SIMT", simt_flash_bwd()))):
+        with pin:
+            prof[name] = device_profile(lambda: step_fn(
+                out["params"], out["opt_state"], batch, TRAIN_STEPS + 1 + i))
+        print(f"  profiled step ({name} K3 / K4): {prof[name]}")
     print(json.dumps({"train": dict(
         arch=cfg.arch_id, layers=cfg.n_layers, batch=TRAIN_BATCH,
         seq=TRAIN_SEQ, steps=TRAIN_STEPS, step_ms=times,
@@ -2645,8 +2858,8 @@ def phase_moe_engine(seed: int, smi: str):
     per = 4 * cfg.n_layers + 1
     calls = ENGINE_REQUESTS + steps
     expect = {**k1_launches(per * calls), "ft_gemm_batched": 0,
-              "flash_ft": cfg.n_layers * ENGINE_REQUESTS, "flash_dq": 0,
-              "flash_dkv": 0, "flash_decode": cfg.n_layers * steps,
+              "flash_ft": cfg.n_layers * ENGINE_REQUESTS, **NO_FLASH_BWD,
+              "flash_decode": cfg.n_layers * steps,
               "ft_gemm_grouped_sm90": 3 * cfg.n_layers * calls,
               "ft_gemm_grouped": 0, "tgmm_sm90": 0, "tgmm": 0,
               "naive_gemm": 0}
@@ -2738,7 +2951,7 @@ def phase_moe_train(smi: str):
     # recompute, and dx + dw each in the backward (16), lm_head 3; K7 3
     # expert GEMMs forward, in the recompute and as dbuf (9); K8 3 dw.
     expect = {**k1_launches(16 * n_l + 3), "ft_gemm_batched": 0,
-              "flash_ft": 2 * n_l, "flash_dq": n_l, "flash_dkv": n_l,
+              "flash_ft": 2 * n_l, **flash_bwd_launches(cfg, n_l),
               "flash_decode": 0, "ft_gemm_grouped_sm90": 9 * n_l,
               "ft_gemm_grouped": 0, "tgmm_sm90": 3 * n_l, "tgmm": 0,
               "naive_gemm": 0}
@@ -2767,14 +2980,17 @@ def phase_moe_train(smi: str):
           f"its two backward products ({sorted(set(guard.hits))})")
     check(guarded == expect, f"moe_train: guarded step launches {guarded}")
     # Where the step's time goes: one more step under torch.profiler on the
-    # grouped kernels' tensor-core instances, then one on their SIMT ones.
+    # tensor-core instances, then one with K7 and K8 on their SIMT ones, then
+    # one with K3 and K4 on theirs.
     prof = {}
-    for i, (name, pin) in enumerate((("tensor cores", contextlib.nullcontext()),
-                                     ("SIMT", simt_grouped()))):
+    for i, (name, pin) in enumerate((
+            ("tensor cores", contextlib.nullcontext()),
+            ("SIMT K7 / K8", simt_grouped()),
+            ("SIMT K3 / K4", simt_flash_bwd()))):
         with pin:
             prof[name] = device_profile(lambda: step_fn(
                 out["params"], out["opt_state"], batch, TRAIN_STEPS + 1 + i))
-        print(f"  profiled step ({name} K7 / K8): {prof[name]}")
+        print(f"  profiled step ({name}): {prof[name]}")
     print(json.dumps({"moe_train": dict(
         arch=cfg.arch_id, layers=n_l, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
         steps=TRAIN_STEPS, step_ms=times, median_step_ms=step_ms,

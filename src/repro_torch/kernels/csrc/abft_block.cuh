@@ -128,6 +128,28 @@ __device__ inline Verdict record(const float* dcol, float best_c, int col,
   return v;
 }
 
+// Merge the report r of a later piece of one block's walk (a range of the
+// flash dK/dV walk, or one verification's own record) into rep: det and
+// corr add, row / col / mag come from r when it detected (its last
+// detection), max_residual takes the max, and tau and k come from r when
+// it ran a verification (k >= 1 in every record that did). Merging the
+// records of a walk's pieces in walk order gives the report of the whole
+// walk.
+__device__ inline void merge(float* rep, const float* r) {
+  rep[0] += r[0];
+  rep[1] += r[1];
+  if (r[0] > 0.0f) {
+    rep[2] = r[2];
+    rep[3] = r[3];
+    rep[4] = r[4];
+  }
+  rep[5] = fmaxf(rep[5], r[5]);
+  if (r[7] > 0.0f) {
+    rep[6] = r[6];
+    rep[7] = r[7];
+  }
+}
+
 // Scratch of one verification; MAXR/MAXC bound the verified block.
 template <int MAXR, int MAXC>
 struct VerifySmem {

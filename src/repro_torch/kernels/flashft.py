@@ -1,6 +1,7 @@
 """ABFT flash attention, both directions, and the paged decode — wrappers
-of the CUDA kernels `csrc/flash_ft.cu` (forward), `csrc/flash_ft_bwd.cu`
-(dQ, dK/dV) and `csrc/flash_decode.cu` (paged decode), and their plain
+of the CUDA kernels `csrc/flash_ft.cu` (forward), `csrc/flash_bwd_sm90.cu`
+(dQ, dK/dV on the tensor cores), `csrc/flash_ft_bwd.cu` (dQ, dK/dV on the
+CUDA cores) and `csrc/flash_decode.cu` (paged decode), and their plain
 PyTorch versions.
 
 Replaces the TPU kernels of the JAX package
@@ -12,15 +13,23 @@ Replaces the TPU kernels of the JAX package
   * K6 `_flash_decode_kernel` (`flashft.py:270`; launch
     `templates/registry.py:239 flash_decode_call`).
 
+`plan_bwd` decides which instance runs a backward call: bf16 operands at
+head dim 128 that TMA can read (contiguous, 16-byte aligned) with the
+default blocks run on the tensor cores, K4's walk cut into `dkv_ranges`
+ranges; every other call (f32, head dim 64, pinned blocks) on the SIMT
+kernels.
+
 Each wrapper takes a CPU tensor to its plain version and a CUDA tensor to
 its kernel (launch or raise), and counts its launches (`FLASH_FT`,
-`FLASH_DQ`, `FLASH_DKV`, `FLASH_DECODE`). The plain versions walk the
+`FLASH_DQ_SM90`, `FLASH_DKV_SM90`, `FLASH_DKV_REDUCE`, the SIMT
+`FLASH_DQ` and `FLASH_DKV`, `FLASH_DECODE`). The plain versions walk the
 kernels' block grids — a Python loop over the reduction steps, vectorised
 over the stationary blocks — and write the same 8-field reports: the
 forward verifies S = QKᵀ and Δ = PV per kv step; the dQ walk verifies the
 recomputed S, dP = g·Vᵀ and the dQ delta dS·K per kv step; the dK/dV walk
-(n_rep query heads × q blocks per kv block) verifies S, dP, dV = Pᵀg and
-dK = dSᵀQ; the decode walk verifies S and Δ per page of the slot.
+(n_rep query heads × q blocks per kv block, in ``ranges`` ranges)
+verifies S, dP, dV = Pᵀg and dK = dSᵀQ; the decode walk verifies S and Δ
+per page of the slot.
 
 What bounds the kernels on the H100 and what their design does about it is
 in the headers of the CUDA sources.
@@ -28,6 +37,7 @@ in the headers of the CUDA sources.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -36,7 +46,8 @@ import torch.nn.functional as F
 from ..core.abft import F32EPS
 from ..core.policy import FTConfig, InjectionSpec
 from . import build
-from .ft_gemm import DTYPE_CODES, REPORT_WIDTH, cdiv, locate_record
+from .ft_gemm import (DTYPE_CODES, REPORT_WIDTH, SPLIT_TARGET, cdiv,
+                      locate_record, merge_reports)
 
 NEG_INF = -1e30
 #: The kernel's compiled (bq, bkv) blocks and head dims.
@@ -60,6 +71,18 @@ FLASH_DQ = build.Kernel("flash_ft_bwd", "flash_dq_launch",
                         [ctypes.c_void_p] * 9 + _BWD_TAIL)
 FLASH_DKV = build.Kernel("flash_ft_bwd", "flash_dkv_launch",
                          [ctypes.c_void_p] * 10 + _BWD_TAIL)
+#: K3 and K4 on the tensor cores (same arguments as the SIMT entries; K4
+#: with its range workspace and count), and K4's range reduce.
+FLASH_DQ_SM90 = build.Kernel("flash_bwd_sm90", "flash_dq_sm90_launch",
+                             [ctypes.c_void_p] * 9 + _BWD_TAIL)
+FLASH_DKV_SM90 = build.Kernel("flash_bwd_sm90", "flash_dkv_sm90_launch",
+                              [ctypes.c_void_p] * 11 + [ctypes.c_int]
+                              + _BWD_TAIL)
+FLASH_DKV_REDUCE = build.Kernel(
+    "flash_bwd_sm90", "flash_dkv_sm90_reduce_launch",
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+#: The tensor-core instance's head dim.
+SM90_HEAD_DIM = 128
 
 #: K6's compiled page edges and head dims, and its most query rows per
 #: (slot, kv head) block.
@@ -288,6 +311,102 @@ def _check_launch(name: str, q, k, v, *rest, n_rep: int, bq: int,
 
 
 # ---------------------------------------------------------------------------
+# backward: the plan
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class BwdPlan:
+    """How one flash-backward call runs. ``instance``: "sm90"
+    (csrc/flash_bwd_sm90.cu, the tensor cores) or "simt"
+    (csrc/flash_ft_bwd.cu); ``ranges``: the ranges K4 cuts each (kv head,
+    kv block) walk into (1 on the SIMT kernel); ``reason``: why the
+    tensor-core instance does not take the call ("" when it does)."""
+    instance: str
+    ranges: int = 1
+    reason: str = ""
+
+
+def dkv_ranges(kv_blocks: int, walk: int) -> int:
+    """K4's range count for ``kv_blocks`` (kv head, kv block) pairs whose
+    longest walk has ``walk`` steps: 1 when they reach `SPLIT_TARGET` CTAs
+    (about two waves of the H100's 132 SMs, as `ft_gemm.split_count`
+    aims for), else the count that brings the grid there, at most the
+    longest walk."""
+    if kv_blocks >= SPLIT_TARGET:
+        return 1
+    return max(1, min(cdiv(SPLIT_TARGET, kv_blocks), walk))
+
+
+def plan_bwd(q: torch.Tensor, k: torch.Tensor, *operands: torch.Tensor,
+             n_rep: int = 1, causal: bool = True, bq: Optional[int] = None,
+             bkv: Optional[int] = None) -> BwdPlan:
+    """The instance of a backward call on q (BH, Sq, dh), k (BH / n_rep,
+    Skv, dh) and the other ``operands`` (v, g). The tensor-core instance
+    takes bf16 at head dim `SM90_HEAD_DIM` with the default blocks (None)
+    and operands TMA can read (contiguous, 16-byte aligned bases), with
+    `dkv_ranges` ranges for K4; every other call goes to the SIMT kernels
+    (pinned ``bq`` / ``bkv`` pin them), which raise on what they do not
+    take either. The rule does not depend on the device; it never falls
+    back after a failure."""
+    xs = (q, k, *operands)
+    why = ""
+    if bq is not None or bkv is not None:
+        why = f"pinned blocks ({bq}, {bkv})"
+    elif q.dtype != torch.bfloat16:
+        why = f"dtype {q.dtype}"
+    elif q.shape[-1] != SM90_HEAD_DIM:
+        why = f"head dim {q.shape[-1]}"
+    elif not all(x.is_contiguous() for x in xs):
+        why = "a non-contiguous operand"
+    elif not all(x.data_ptr() % 16 == 0 for x in xs):
+        why = "a base pointer not 16-byte aligned"
+    if why:
+        return BwdPlan("simt", 1, why)
+    nqb, nkvb = cdiv(q.shape[1], BLOCK), cdiv(k.shape[1], BLOCK)
+    return BwdPlan("sm90", dkv_ranges(k.shape[0] * nkvb, n_rep * nqb))
+
+
+def dkv_walk(sq: int, skv: int, kv_start, *, causal: bool,
+             bq: int = BLOCK):
+    """K4's live q blocks at a kv block starting at ``kv_start`` (an int or
+    a tensor): [qi_lo, nqb), all of them unless causal (the bottom-right-
+    aligned bound). Returns (qi_lo, the count of live q blocks); the walk
+    runs them for each of the n_rep query heads, query head first."""
+    nqb = cdiv(sq, bq)
+    if not causal:
+        return kv_start * 0, kv_start * 0 + nqb
+    x = kv_start - (bq - 1) - (skv - sq)
+    lo = (x + bq - 1) // bq
+    if isinstance(lo, torch.Tensor):
+        lo = lo.clamp(0, nqb)
+    else:
+        lo = min(max(lo, 0), nqb)
+    return lo, nqb - lo
+
+
+def dkv_range_of(step, walk, ranges: int):
+    """The range holding walk step ``step`` of a walk of ``walk`` steps cut
+    into ``ranges`` contiguous, balanced ranges (range z runs steps
+    [z·walk // ranges, (z + 1)·walk // ranges))."""
+    return ((step + 1) * ranges + walk - 1) // walk - 1
+
+
+def merge_ranges(reps: Sequence[torch.Tensor]) -> torch.Tensor:
+    """K4's range rule, the reports (…, 8) of the ranges of one walk merged
+    in walk order: det and corr add, row / col / mag from the last
+    detection, max_residual the max (`ft_gemm.merge_reports`), and tau and
+    k from the last range that ran a verification (k ≥ 1 in every record
+    that did): a walk has no final verification to take them from. At one
+    range, or over ranges of the unsplit walk, the merged report is the
+    walk's."""
+    out = merge_reports(reps)
+    for r in reps:
+        out[..., 6:8] = torch.where(r[..., 7:8] > 0, r[..., 6:8],
+                                    out[..., 6:8])
+    return out
+
+
+# ---------------------------------------------------------------------------
 # backward: dQ (K3) and dK/dV (K4), plain versions
 # ---------------------------------------------------------------------------
 
@@ -302,11 +421,21 @@ def _mv(mat, x):
 
 
 def _check(c, d_col, d_row, tau, k_el, corrects, rep, row_off, col_off,
-           live):
+           live, zsel=None):
     """Locate, record and (with ``corrects``) correct one verified
-    (…, R, C) product from its column / row residuals."""
-    _, row, col, mag = locate_record(d_col, d_row, tau, k_el, corrects, rep,
-                                     row_off, col_off, live=live)
+    (…, R, C) product from its column / row residuals. With ``zsel`` (the
+    range of each stationary block's step, K4's ranged walk) ``rep`` holds
+    one report per range, (Z, …, 8), and each block records into its
+    range's."""
+    if zsel is None:
+        rep, zsel = rep[None], torch.zeros((), dtype=torch.long,
+                                           device=c.device)
+    mag = torch.zeros_like(d_col[..., 0])
+    for z in range(rep.shape[0]):
+        _, row, col, m = locate_record(d_col, d_row, tau, k_el, corrects,
+                                       rep[z], row_off, col_off,
+                                       live=live & (zsel == z))
+        mag = mag + m
     if not corrects:
         return c
     dev = c.device
@@ -437,15 +566,20 @@ def flash_dq_plain(q, k, v, g, m, l, di, *, ft: FTConfig, scale: float,
 def flash_dkv_plain(q, k, v, g, m, l, di, *, ft: FTConfig, scale: float,
                     tau_dh: int, n_rep: int = 1, causal: bool = True,
                     bq: int = BLOCK, bkv: int = BLOCK,
-                    inj: Optional[Sequence[int]] = None, inj_mag: float = 0.0
+                    inj: Optional[Sequence[int]] = None, inj_mag: float = 0.0,
+                    ranges: int = 1
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K4 in plain PyTorch on the kernel's grid: per (kv head, kv block) a
-    walk over the n_rep query heads × q blocks, dV = Σ Pᵀ·g and
-    dK = Σ dSᵀ·Q. Four verifications per live step: S and dP as in K3,
-    then the dV and dK deltas (tau over eff_q = max(min(Sq − q_start, bq),
-    1), k = eff_q). ``inj`` is [enable, target, query head, kv_block,
-    q_block, row, col]. Returns (dk, dv) per kv head in k's dtype and the
-    report (BH / n_rep, nkvb, 8)."""
+    walk over the n_rep query heads × live q blocks (query head first),
+    dV = Σ Pᵀ·g and dK = Σ dSᵀ·Q. Four verifications per live step: S and
+    dP as in K3, then the dV and dK deltas (tau over eff_q = max(min(Sq −
+    q_start, bq), 1), k = eff_q). ``ranges`` cuts each walk as the
+    tensor-core instance does (`dkv_range_of`): each range accumulates its
+    own f32 partials and report, the partials are summed in range order
+    and the reports merged by `merge_ranges`; one range is the unsplit
+    walk. ``inj`` is [enable, target, query head, kv_block, q_block, row,
+    col]. Returns (dk, dv) per kv head in k's dtype and the report
+    (BH / n_rep, nkvb, 8)."""
     bh, sq, dh = q.shape
     gk, skv, _ = k.shape
     r = n_rep
@@ -459,11 +593,12 @@ def flash_dkv_plain(q, k, v, g, m, l, di, *, ft: FTConfig, scale: float,
     vb = F.pad(v.float(), (0, 0, 0, pad)).view(gk, nkvb, bkv, dh)
     kmax, vmax = kb.abs().amax((-2, -1)), vb.abs().amax((-2, -1))
     ksum, vsum = kb.sum(-2), vb.sum(-2)
-    dk = torch.zeros_like(kb)
-    dv = torch.zeros_like(kb)
-    rep = torch.zeros(gk, nkvb, REPORT_WIDTH, device=dev)
+    dk = torch.zeros((ranges,) + kb.shape, device=dev)
+    dv = torch.zeros_like(dk)
+    rep = torch.zeros(ranges, gk, nkvb, REPORT_WIDTH, device=dev)
     kv_start = torch.arange(nkvb, device=dev) * bkv
     kpos = kv_start[:, None] + torch.arange(bkv, device=dev)[None, :]
+    qi_lo, n_live = dkv_walk(sq, skv, kv_start, causal=causal, bq=bq)
     coef_qk = ft.rel_tau * F32EPS * tau_dh
     coef = ft.rel_tau * F32EPS
     k_s, k_dp = (torch.tensor(x, device=dev) for x in (1.0, float(tau_dh)))
@@ -472,12 +607,15 @@ def flash_dkv_plain(q, k, v, g, m, l, di, *, ft: FTConfig, scale: float,
     for rr in range(r):
         for qi in range(nqb):
             q_start = qi * bq
-            run = kv_start < skv
-            if causal:
-                run = run & (kv_start <= q_start + bq - 1 + (skv - sq))
+            run = (kv_start < skv) & (qi >= qi_lo)
             if not bool(run.any()):
                 continue
             live = run[None, :]
+            zsel = dkv_range_of(rr * n_live + qi - qi_lo,
+                                (r * n_live).clamp_min(1), ranges)
+            upd = (torch.arange(ranges, device=dev)[:, None] == zsel[None, :]
+                   ) & run[None, :]
+            upd = upd[:, None, :, None, None]
             rows = slice(q_start, q_start + bq)
             qb = qf[:, rr, rows][:, None]                # (gk, 1, bq, dh)
             gb = gf[:, rr, rows][:, None]
@@ -487,12 +625,13 @@ def flash_dkv_plain(q, k, v, g, m, l, di, *, ft: FTConfig, scale: float,
             target, cell = None, None
             if on and inj[2] % r == rr and inj[4] == qi:
                 target, cell = inj[1], (inj[2] // r, inj[3])
+            chk = dict(corrects=ft.corrects, rep=rep, live=live, zsel=zsel)
             # S = Q·Kᵀ and dP = g·Vᵀ, (gk, nkvb, bq, bkv)
             sc = torch.matmul(qb, kb.transpose(-1, -2))
             sc = _check(sc, sc.sum(-2) - _vm(qb.sum(-2), kb.transpose(-1, -2)),
                         sc.sum(-1) - _mv(qb, ksum),
                         torch.clamp_min(coef_qk * qmax * kmax, 1e-30), k_s,
-                        ft.corrects, rep, q_start, kv_start[None, :], live)
+                        row_off=q_start, col_off=kv_start[None, :], **chk)
             p = _probs(sc, mb, lb, scale=scale, qpos=qpos, kpos=kpos, sq=sq,
                        skv=skv, causal=causal)
             dp = torch.matmul(gb, vb.transpose(-1, -2))
@@ -501,7 +640,7 @@ def flash_dkv_plain(q, k, v, g, m, l, di, *, ft: FTConfig, scale: float,
             dp = _check(dp, dp.sum(-2) - _vm(gb.sum(-2), vb.transpose(-1, -2)),
                         dp.sum(-1) - _mv(gb, vsum),
                         torch.clamp_min(coef_qk * gmax * vmax, 1e-30), k_dp,
-                        ft.corrects, rep, q_start, kv_start[None, :], live)
+                        row_off=q_start, col_off=kv_start[None, :], **chk)
             eff_q = float(max(min(sq - q_start, bq), 1))
             k_q = torch.tensor(eff_q, device=dev)
             # the dV delta Pᵀ·g, (gk, nkvb, bkv, dh)
@@ -512,9 +651,9 @@ def flash_dkv_plain(q, k, v, g, m, l, di, *, ft: FTConfig, scale: float,
             dvd = _check(dvd, dvd.sum(-2) - _vm(p.sum(-1), gb),
                          dvd.sum(-1) - _mv(pt, gb.sum(-1)),
                          torch.clamp_min(coef * eff_q * p.abs().amax((-2, -1))
-                                         * gmax, 1e-30), k_q, ft.corrects,
-                         rep, kv_start[None, :], zero, live)
-            dv = torch.where(live[..., None, None], dv + dvd, dv)
+                                         * gmax, 1e-30), k_q,
+                         row_off=kv_start[None, :], col_off=zero, **chk)
+            dv = torch.where(upd, dv + dvd, dv)
             # the dK delta dSᵀ·Q
             ds = p * (dp - db[..., None]) * scale
             dst = ds.transpose(-1, -2)
@@ -525,12 +664,46 @@ def flash_dkv_plain(q, k, v, g, m, l, di, *, ft: FTConfig, scale: float,
                          dkd.sum(-1) - _mv(dst, qb.sum(-1)),
                          torch.clamp_min(coef * eff_q
                                          * ds.abs().amax((-2, -1)) * qmax,
-                                         1e-30), k_q, ft.corrects, rep,
-                         kv_start[None, :], zero, live)
-            dk = torch.where(live[..., None, None], dk + dkd, dk)
-    dk = dk.reshape(gk, nkvb * bkv, dh)[:, :skv].to(k.dtype)
-    dv = dv.reshape(gk, nkvb * bkv, dh)[:, :skv].to(k.dtype)
-    return dk, dv, rep
+                                         1e-30), k_q,
+                         row_off=kv_start[None, :], col_off=zero, **chk)
+            dk = torch.where(upd, dk + dkd, dk)
+    dk_sum, dv_sum = dk[0], dv[0]
+    for z in range(1, ranges):
+        dk_sum, dv_sum = dk_sum + dk[z], dv_sum + dv[z]
+    dk = dk_sum.reshape(gk, nkvb * bkv, dh)[:, :skv].to(k.dtype)
+    dv = dv_sum.reshape(gk, nkvb * bkv, dh)[:, :skv].to(k.dtype)
+    return dk, dv, merge_ranges(list(rep))
+
+
+def dkv_reduce_plain(ws: torch.Tensor, gk: int, skv: int, ranges: int):
+    """K4's range reduce in plain PyTorch, from the workspace a ranged
+    tensor-core launch leaves: f32 partials of dK, then of dV, each
+    (ranges, gk, nkvb · 64, 128), then the ranges' reports (ranges, gk,
+    nkvb, 8). The partials are summed in range order and cast to bf16, the
+    reports merged by `merge_ranges`. Returns (dk, dv (gk, skv, 128),
+    report (gk, nkvb, 8))."""
+    nkvb = cdiv(skv, BLOCK)
+    n = ranges * gk * nkvb * BLOCK * SM90_HEAD_DIM
+    parts = ws[:2 * n].view(2, ranges, gk, nkvb * BLOCK, SM90_HEAD_DIM)
+    out = []
+    for part in parts:
+        acc = part[0]
+        for z in range(1, ranges):
+            acc = acc + part[z]
+        out.append(acc[:, :skv].to(torch.bfloat16))
+    reps = ws[2 * n:].view(ranges, gk, nkvb, REPORT_WIDTH)
+    return out[0], out[1], merge_ranges(list(reps))
+
+
+def planned_dkv_plain(q, k, v, g, m, l, di, *, n_rep: int = 1,
+                      causal: bool = True, bq: Optional[int] = None,
+                      bkv: Optional[int] = None, **kw):
+    """K4's plain version under the plan a call on these operands follows
+    (`plan_bwd`: its ranges), at the kernel's blocks unless pinned."""
+    p = plan_bwd(q, k, v, g, n_rep=n_rep, causal=causal, bq=bq, bkv=bkv)
+    return flash_dkv_plain(q, k, v, g, m, l, di, n_rep=n_rep, causal=causal,
+                           bq=bq or BLOCK, bkv=bkv or BLOCK,
+                           ranges=p.ranges, **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -554,21 +727,23 @@ def flash_ft_dq(q, k, v, g, m, l, di, *, ft: FTConfig, scale: float,
                 bq: Optional[int] = None, bkv: Optional[int] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K3: a CPU tensor runs `flash_dq_plain`, a CUDA tensor launches the
-    dQ kernel or raises. Returns (dq, report) as the plain version does."""
-    bq = BLOCK if bq is None else bq
-    bkv = BLOCK if bkv is None else bkv
+    dQ kernel `plan_bwd` picks (tensor cores or SIMT) or raises. Returns
+    (dq, report) as the plain version does."""
     kw = dict(ft=ft, scale=scale, tau_dh=tau_dh, n_rep=n_rep, causal=causal,
               inj=inj, inj_mag=inj_mag)
     if q.device.type == "cpu":
-        return flash_dq_plain(q, k, v, g, m, l, di, bq=bq, bkv=bkv, **kw)
-    _check_launch("flash_ft_dq", q, k, v, g, m, l, di, n_rep=n_rep, bq=bq,
-                  bkv=bkv)
+        return flash_dq_plain(q, k, v, g, m, l, di, bq=bq or BLOCK,
+                              bkv=bkv or BLOCK, **kw)
+    _check_launch("flash_ft_dq", q, k, v, g, m, l, di, n_rep=n_rep,
+                  bq=bq or BLOCK, bkv=bkv or BLOCK)
+    p = plan_bwd(q, k, v, g, n_rep=n_rep, causal=causal, bq=bq, bkv=bkv)
     dq = torch.empty_like(q)
     rep = torch.empty((q.shape[0], cdiv(q.shape[1], BLOCK), REPORT_WIDTH),
                       dtype=torch.float32, device=q.device)
     ptrs, rest = _bwd_launch_args(q, k, g, m, l, di, **kw)
-    FLASH_DQ(q.data_ptr(), k.data_ptr(), v.data_ptr(), *ptrs, dq.data_ptr(),
-             rep.data_ptr(), *rest)
+    kernel = FLASH_DQ_SM90 if p.instance == "sm90" else FLASH_DQ
+    kernel(q.data_ptr(), k.data_ptr(), v.data_ptr(), *ptrs, dq.data_ptr(),
+           rep.data_ptr(), *rest)
     return dq, rep
 
 
@@ -577,23 +752,37 @@ def flash_ft_dkv(q, k, v, g, m, l, di, *, ft: FTConfig, scale: float,
                  inj: Optional[Sequence[int]] = None, inj_mag: float = 0.0,
                  bq: Optional[int] = None, bkv: Optional[int] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """K4: a CPU tensor runs `flash_dkv_plain`, a CUDA tensor launches the
-    dK/dV kernel or raises. Returns (dk, dv, report) as the plain version
-    does."""
-    bq = BLOCK if bq is None else bq
-    bkv = BLOCK if bkv is None else bkv
+    """K4: a CPU tensor runs `planned_dkv_plain` (the plain version under
+    the plan's ranges), a CUDA tensor launches the dK/dV kernel `plan_bwd`
+    picks (on the tensor cores, then the range reduce when the walk is
+    cut) or raises. Returns (dk, dv, report) as the plain version does."""
     kw = dict(ft=ft, scale=scale, tau_dh=tau_dh, n_rep=n_rep, causal=causal,
               inj=inj, inj_mag=inj_mag)
     if q.device.type == "cpu":
-        return flash_dkv_plain(q, k, v, g, m, l, di, bq=bq, bkv=bkv, **kw)
-    _check_launch("flash_ft_dkv", q, k, v, g, m, l, di, n_rep=n_rep, bq=bq,
-                  bkv=bkv)
+        return planned_dkv_plain(q, k, v, g, m, l, di, bq=bq, bkv=bkv, **kw)
+    _check_launch("flash_ft_dkv", q, k, v, g, m, l, di, n_rep=n_rep,
+                  bq=bq or BLOCK, bkv=bkv or BLOCK)
+    p = plan_bwd(q, k, v, g, n_rep=n_rep, causal=causal, bq=bq, bkv=bkv)
+    gk, skv = k.shape[:2]
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    rep = torch.empty((k.shape[0], cdiv(k.shape[1], BLOCK), REPORT_WIDTH),
+    rep = torch.empty((gk, cdiv(skv, BLOCK), REPORT_WIDTH),
                       dtype=torch.float32, device=q.device)
     ptrs, rest = _bwd_launch_args(q, k, g, m, l, di, **kw)
-    FLASH_DKV(q.data_ptr(), k.data_ptr(), v.data_ptr(), *ptrs, dk.data_ptr(),
-              dv.data_ptr(), rep.data_ptr(), *rest)
+    if p.instance == "simt":
+        FLASH_DKV(q.data_ptr(), k.data_ptr(), v.data_ptr(), *ptrs,
+                  dk.data_ptr(), dv.data_ptr(), rep.data_ptr(), *rest)
+        return dk, dv, rep
+    ws = None
+    if p.ranges > 1:
+        ws = torch.empty(p.ranges * gk * cdiv(skv, BLOCK)
+                         * (2 * BLOCK * SM90_HEAD_DIM + REPORT_WIDTH),
+                         dtype=torch.float32, device=q.device)
+    FLASH_DKV_SM90(q.data_ptr(), k.data_ptr(), v.data_ptr(), *ptrs,
+                   dk.data_ptr(), dv.data_ptr(), rep.data_ptr(),
+                   None if ws is None else ws.data_ptr(), p.ranges, *rest)
+    if ws is not None:
+        FLASH_DKV_REDUCE(ws.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                         rep.data_ptr(), gk, skv, p.ranges, rest[-1])
     return dk, dv, rep
 
 

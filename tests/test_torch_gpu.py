@@ -418,6 +418,128 @@ def test_bf16_flash_backward_matches_plain(cuda):
 
 
 # ---------------------------------------------------------------------------
+# training: K3 and K4 on the tensor cores (csrc/flash_bwd_sm90.cu)
+# ---------------------------------------------------------------------------
+
+SM90_BWD_GEOMS = [  # (bh, n_rep, sq, skv, causal)
+    (6, 3, 100, 100, True),      # ragged Sq, n_rep 3 (phi4-mini's)
+    (14, 7, 200, 200, True),     # n_rep 7 (qwen2-7b's)
+    (32, 16, 256, 256, True),    # n_rep 16 (qwen3-moe-235b-a22b's)
+    (6, 3, 70, 300, True),       # Sq != Skv, bottom-right-aligned causal
+    (6, 3, 130, 90, False),      # non-causal, Sq > Skv
+    (33, 1, 512, 512, True),     # 264 kv blocks: one range, no reduce
+]
+SM90_COUNTERS = (flashft.FLASH_DQ_SM90, flashft.FLASH_DKV_SM90,
+                 flashft.FLASH_DKV_REDUCE, flashft.FLASH_DQ, flashft.FLASH_DKV)
+
+
+def _sm90_bwd_inputs(geom, seed, ints=False):
+    bh, n_rep, sq, skv, causal = geom
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def draw(*shape):
+        if ints:
+            return _ints(gen, *shape, dtype=torch.bfloat16)
+        return torch.randn(*shape, generator=gen, device="cuda").bfloat16()
+
+    q, g = draw(bh, sq, 128), draw(bh, sq, 128)
+    k, v = draw(bh // n_rep, skv, 128), draw(bh // n_rep, skv, 128)
+    kw = dict(ft=FT, scale=128 ** -0.5, tau_dh=128, n_rep=n_rep,
+              causal=causal)
+    o, m, l, _ = flashft.flash_ft_plain(q, k, v, save_stats=True, **kw)
+    return q, k, v, g, m, l, (g.float() * o.float()).sum(-1), kw
+
+
+def _sm90_bwd(q, k, v, g, m, l, di, kw, inj_q=None, inj_kv=None, mag=0.0):
+    """Both kernels, then both plain versions under the same plan."""
+    dq, rq = flashft.flash_ft_dq(q, k, v, g, m, l, di, inj=inj_q,
+                                 inj_mag=mag, **kw)
+    dk, dv, rkv = flashft.flash_ft_dkv(q, k, v, g, m, l, di, inj=inj_kv,
+                                       inj_mag=mag, **kw)
+    dq_p, rq_p = flashft.flash_dq_plain(q, k, v, g, m, l, di, inj=inj_q,
+                                        inj_mag=mag, **kw)
+    dk_p, dv_p, rkv_p = flashft.planned_dkv_plain(q, k, v, g, m, l, di,
+                                                  inj=inj_kv, inj_mag=mag,
+                                                  **kw)
+    return (dq, dk, dv, rq, rkv), (dq_p, dk_p, dv_p, rq_p, rkv_p)
+
+
+def _check_sm90_bwd(got, want):
+    for x, y in zip(got[:3], want[:3]):
+        assert x.dtype == torch.bfloat16
+        tol = 2.0 ** -7 * float(y.float().abs().max())
+        assert float((x.float() - y.float()).abs().max()) <= tol
+    for rep, rep_p in zip(got[3:], want[3:]):
+        assert torch.equal(rep[..., [0, 1, 2, 3, 7]], rep_p[..., [0, 1, 2, 3, 7]])
+        torch.testing.assert_close(rep[..., 6], rep_p[..., 6], rtol=1e-3,
+                                   atol=0)
+
+
+@pytest.mark.parametrize("geom", SM90_BWD_GEOMS)
+def test_flash_bwd_sm90_matches_plain(cuda, geom):
+    q, k, v, g, m, l, di, kw = _sm90_bwd_inputs(geom, 31)
+    p = flashft.plan_bwd(q, k, v, g, n_rep=kw["n_rep"], causal=kw["causal"])
+    assert p.instance == "sm90"
+    before = [c.launches for c in SM90_COUNTERS]
+    got, want = _sm90_bwd(q, k, v, g, m, l, di, kw)
+    assert [c.launches - b for c, b in zip(SM90_COUNTERS, before)] == [
+        1, 1, int(p.ranges > 1), 0, 0]
+    _check_sm90_bwd(got, want)
+    assert float(got[3][..., 0].sum() + got[4][..., 0].sum()) == 0.0
+
+
+@pytest.mark.parametrize("target,blk,step,row,col", [
+    ("dp_q", 1, 0, 10, 33),      # dP in K3: head 5, q block 1, kv step 0
+    ("dq", 1, 0, 63, 127),       # the dQ delta
+    ("dp_kv", 0, 1, 2, 60),      # dP in K4: kv block 0, q block 1
+    ("dv", 0, 1, 33, 4),         # the dV delta, in range 7 of 9
+    ("dk", 1, 2, 40, 120),       # the dK delta, in the last range
+])
+def test_flash_bwd_sm90_seu_per_target(cuda, target, blk, step, row, col):
+    """One SEU per backward GEMM on integer operands: kernel and plain
+    correct it alike and report it at the same place; under a detect-only
+    policy both count it once and leave the same gradients (an SEU in a
+    delta moves its output element by the magnitude)."""
+    geom = (6, 3, 130, 130, True)
+    q, k, v, g, m, l, di, kw = _sm90_bwd_inputs(geom, 32, ints=True)
+    head = 5
+    vec = (1, flashft.BWD_TARGETS[target], head, blk, step, row, col)
+    in_q = target in flashft.DQ_TARGETS
+    inj = dict(inj_q=vec) if in_q else dict(inj_kv=vec)
+    got, want = _sm90_bwd(q, k, v, g, m, l, di, kw, mag=300.0, **inj)
+    _check_sm90_bwd(got, want)
+    rep = got[3] if in_q else got[4]
+    cell = rep[head, blk] if in_q else rep[head // 3, blk]
+    assert float(got[3][..., 0].sum() + got[4][..., 0].sum()) == 1.0
+    assert float(cell[0]) == 1.0 and float(cell[1]) == 1.0
+    want_at = {"dp_q": (blk * 64 + row, step * 64 + col),
+               "dq": (blk * 64 + row, col),
+               "dp_kv": (step * 64 + row, blk * 64 + col),
+               "dv": (blk * 64 + row, col), "dk": (blk * 64 + row, col)}
+    assert (int(cell[2]), int(cell[3])) == want_at[target]
+    left, left_p = _sm90_bwd(q, k, v, g, m, l, di,
+                             dict(kw, ft=FT.replace(action="detect")),
+                             mag=300.0, **inj)
+    _check_sm90_bwd(left, left_p)
+    assert float(left[3][..., 1].sum() + left[4][..., 1].sum()) == 0.0
+    assert float(left[3][..., 0].sum() + left[4][..., 0].sum()) == 1.0
+    if target in ("dq", "dv", "dk"):
+        out = {"dq": 0, "dk": 1, "dv": 2}[target]
+        assert float((left[out].float() - got[out].float()).abs().max()) \
+            >= 200.0
+
+
+def test_flash_bwd_simt_pinned(cuda):
+    """Pinned blocks keep a bf16 call on the SIMT kernels."""
+    q, k, v, g, m, l, di, kw = _sm90_bwd_inputs((6, 3, 100, 100, True), 33)
+    before = [c.launches for c in SM90_COUNTERS]
+    flashft.flash_ft_dq(q, k, v, g, m, l, di, bq=64, bkv=64, **kw)
+    flashft.flash_ft_dkv(q, k, v, g, m, l, di, bq=64, bkv=64, **kw)
+    assert [c.launches - b for c, b in zip(SM90_COUNTERS, before)] == [
+        0, 0, 0, 1, 1]
+
+
+# ---------------------------------------------------------------------------
 # serving: the paged decode kernel K6
 # ---------------------------------------------------------------------------
 
