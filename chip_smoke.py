@@ -4,6 +4,7 @@
     python3 chip_smoke.py --phases env,kernels
     python3 chip_smoke.py --phases env,train_kernels,train_check,train
     python3 chip_smoke.py --phases env,decode_kernels,engine_check,engine
+    python3 chip_smoke.py --phases env,kernels,decode_kernels,engine,train_kernels
     python3 chip_smoke.py --phases env,moe_kernels,moe_check,moe_engine,moe_train
     python3 chip_smoke.py --phases env,level_kernels,level_check,level_serve,ladder
 
@@ -22,7 +23,11 @@ Phases (each prints its own lines; any failed check exits non-zero):
                `ft_gemm.plan`, timed beside FT off and the SIMT instance at
                its own tiles, with SEUs at k-step 0, mid-way in a later
                split-K range and at the last step, each with a detect-only
-               control counted by the split-K rule;
+               control counted by the split-K rule; K2 at the prefill shape
+               (112 / 16 heads, S 128) on its tensor-core instance
+               (csrc/flash_fwd_sm90.cu) against its plain version, with an
+               SEU in S and one in Δ, beside the SIMT instance (pinned
+               blocks), SDPA and the bound;
   serve_check  qwen2-7b at full width, depth cut to 2 layers: prefill and 2
                decode steps (the same tokens fed to both) through the kernels
                and through their plain versions; logits agree within 2e-2 of
@@ -35,7 +40,8 @@ Phases (each prints its own lines; any failed check exits non-zero):
                / attention call on the FT path), once timed without it; then
                one decode step and one prefill under torch.profiler (the
                device's busy time and idle share, kernels by time) and the
-               host time of one K1 call;
+               host time of one K1 call; the prefill profile again with
+               K2's SIMT instance pinned (`simt_flash_fwd`);
   level_kernels  K1 and K5 at the tile (warp) and inner (thread) FT levels
                against their plain versions on the card in bf16 at
                qwen2-7b's prefill and decode w_gate+silu, decode wk+bias,
@@ -67,15 +73,22 @@ Phases (each prints its own lines; any failed check exits non-zero):
                against their plain versions at 1 024 and 4 096; one SEU per
                launch at k-step 0, mid and last at 4 096, corrected at each
                level, timed against the clean run;
-  decode_kernels  the paged decode kernel K6 against its plain version on
+  decode_kernels  the paged decode K6 on its tensor-core instance
+               (csrc/flash_decode_sm90.cu: `plan_decode`'s ranges, then the
+               combine) against its plain version under the same plan on
                the card at qwen2-7b's decode shape in bf16 (28 / 4 heads, dh
                128, pages of 64, 8 slots of lengths 0 to 1 024 whose pages
                come out of order from a shuffled pool): max error, reports
-               equal, no detection on clean data, an SEU corrected and
-               located (and left in place by a detect-only policy), the
-               reference's exact-operand SEU (dh 256, f32) corrected bit for
-               bit; CUDA-event times of the kernel, its plain version and
-               one SDPA call over the gathered dense cache;
+               equal, no detection on clean data, the split report equal to
+               the unsplit walk's in det / corr / row / col / k; the SIMT
+               kernel (pinned) against the unsplit walk; an SEU in Δ and
+               one in S corrected and located (and left in place by a
+               detect-only policy), the reference's exact-operand SEU (dh
+               256, f32, the SIMT kernel) corrected bit for bit; the
+               combine alone against its plain version; CUDA-event times of
+               the whole call, the kernel, the combine, the SIMT kernel,
+               the plain versions and one SDPA call over the gathered dense
+               cache, and the bounds;
   engine_check qwen2-7b at full width, depth cut to 2 layers: one
                `paged_decode_step` against one dense `decode_step` on the
                same tokens (slot lengths 37, 64, 0, 129; logits within 2e-2
@@ -88,16 +101,24 @@ Phases (each prints its own lines; any failed check exits non-zero):
                width and depth: 16 requests (prompts of 16-512 tokens and
                budgets of 8-32 greedy tokens drawn from --seed) on 8 slots,
                max_len 1 024, pages of 64, once under the dispatch guard
-               (launch counts: K6 28 per decode step, K5 none), once timed
+               (launch counts: K6 and its combine 28 per decode step on the
+               tensor cores, K5 none), once timed
                without it: decode ms per step, prefill ms per request, TTFT,
                generated tokens/s, peak memory, pool bytes, free pages;
+               then one decode step with every slot live under
+               torch.profiler (busy time, idle share) on K6's tensor-core
+               instance and again with its SIMT kernel pinned
+               (`simt_decode`);
   train_kernels  the training kernels against their plain versions on the
                card at phi4-mini-3.8b's training shapes in bf16 (2 x 512
                tokens): K1 with the act_grad output and the dx = g·Wᵀ /
-               dw = Xᵀ·g GEMMs on transposed views, K2 with the saved
-               statistics; max error, report agreement, a deterministic SEU
-               each, CUDA-event times beside the bound, the plain version
-               and one library call. Then K3 (dQ) and K4 (dK/dV) at
+               dw = Xᵀ·g GEMMs on transposed views; max error, report
+               agreement, a deterministic SEU each, CUDA-event times beside
+               the bound, the plain version and one library call. K2 with
+               the saved statistics on its tensor-core instance at
+               phi4-mini's and qwen3-moe-235b-a22b's attention shapes (as
+               the prefill's, and m, l within 1e-3). Then K3 (dQ) and K4
+               (dK/dV) at
                phi4-mini's (48 / 16 heads) and qwen3-moe-235b-a22b's (128 /
                8 heads) attention shapes (S 512, dh 128, causal): the plan
                (the tensor-core instance, csrc/flash_bwd_sm90.cu, and K4's
@@ -124,7 +145,8 @@ Phases (each prints its own lines; any failed check exits non-zero):
                then one more step through `make_train_step` under the
                dispatch guard, whose launch counts are checked, and one
                under torch.profiler (busy time and idle share), again with
-               K3 and K4 pinned to their SIMT instances;
+               K3 and K4 pinned to their SIMT instances, and with K2 pinned
+               to its SIMT instance;
   moe_kernels  the grouped kernels K7 and K8 on their tensor-core instances
                (csrc/grouped_sm90.cu, the plan's default for bf16) against
                their plain versions under the same plan on the card at
@@ -160,11 +182,13 @@ Phases (each prints its own lines; any failed check exits non-zero):
                94 layers (62 GB of weights): 16 requests as in `engine` on
                8 slots, max_len 1 024; launch counts (K7 3 per layer per
                prefill and per decode step, all on the tensor-core
-               instance, K6 1 per layer per decode step), decode ms per
-               step, prefill ms, TTFT, tokens/s, peak memory, pages back,
+               instance, K6 and its combine 1 per layer per decode step),
+               decode ms per step, prefill ms, TTFT, tokens/s, peak memory,
+               pages back,
                detections; one decode step with every slot live under
                torch.profiler on the tensor-core K7 and again with the SIMT
-               tiles pinned (the kernels before the redesign);
+               tiles pinned (the kernels before the redesign), and with K6's
+               SIMT kernel pinned;
   moe_train    `train_loop.train` on qwen3-moe-235b-a22b at full width, 1
                layer (with f32 AdamW, 2 layers would not fit the card),
                2 x 512 tokens, `remat="full"`, 4 steps: step times,
@@ -261,6 +285,13 @@ KERNELS = {
                             replaces="src/repro/kernels/templates/"
                                      "registry.py:520",
                             counter=ft_gemm.FT_GEMM_BATCHED),
+    # K2 on the tensor cores: every bf16 call at head dim 128
+    "flash_ft_sm90": dict(route="cuda",
+                          source="src/repro_torch/kernels/csrc/"
+                                 "flash_fwd_sm90.cu",
+                          replaces="src/repro/kernels/flashft.py:114",
+                          counter=flashft.FLASH_FT_SM90),
+    # its SIMT instance: f32, head dim 64, pinned blocks
     "flash_ft": dict(route="cuda",
                      source="src/repro_torch/kernels/csrc/flash_ft.cu",
                      replaces="src/repro/kernels/flashft.py:114",
@@ -291,6 +322,20 @@ KERNELS = {
                       source="src/repro_torch/kernels/csrc/flash_ft_bwd.cu",
                       replaces="src/repro/kernels/flashft.py:569",
                       counter=flashft.FLASH_DKV),
+    # K6 on the tensor cores: every bf16 call of 16 query rows per kv head
+    # at head dim 128 in pages of 32 or 64, split over the pages, and the
+    # combine of its ranges
+    "flash_decode_sm90": dict(route="cuda",
+                              source="src/repro_torch/kernels/csrc/"
+                                     "flash_decode_sm90.cu",
+                              replaces="src/repro/kernels/flashft.py:270",
+                              counter=flashft.FLASH_DECODE_SM90),
+    "flash_decode_combine": dict(route="cuda",
+                                 source="src/repro_torch/kernels/csrc/"
+                                        "flash_decode_sm90.cu",
+                                 replaces="src/repro/kernels/flashft.py:270",
+                                 counter=flashft.FLASH_DECODE_COMBINE),
+    # its SIMT instance: f32, dh 256, pages of 16, 32 query rows
     "flash_decode": dict(route="cuda",
                          source="src/repro_torch/kernels/csrc/"
                                 "flash_decode.cu",
@@ -343,6 +388,20 @@ def k1_launches(count: int, level: str = "block"):
     sm90 = level in ("off", "block")
     return {"ft_gemm_sm90": count if sm90 else 0,
             "ft_gemm_2d": 0 if sm90 else count}
+
+
+def k2_launches(count: int):
+    """K2's expected counts on a bf16 path at head dim 128: every launch on
+    the tensor-core instance."""
+    return {"flash_ft_sm90": count, "flash_ft": 0}
+
+
+def k6_launches(count: int):
+    """K6's expected counts on a bf16 path (16 query rows per kv head, dh
+    128, pages of 64): every launch on the tensor-core instance followed
+    by its combine, the SIMT kernel never."""
+    return {"flash_decode_sm90": count, "flash_decode_combine": count,
+            "flash_decode": 0}
 
 
 def flash_bwd_launches(cfg, layers: int):
@@ -664,44 +723,8 @@ def phase_kernels():
                                    headline="dec_qk")
 
     # ---- K2: flash attention at the prefill shape -------------------------
-    bh, g = BATCH * cfg.n_heads, BATCH * cfg.n_kv_heads
-    q, k, vv = (_rand(gen, bh, PROMPT, dh), _rand(gen, g, PROMPT, dh),
-                _rand(gen, g, PROMPT, dh))
-    fkw = dict(ft=FT, scale=dh ** -0.5, tau_dh=dh, n_rep=bh // g, causal=True)
-    out, rep = flashft.flash_ft_fwd(q, k, vv, **fkw)
-    out_p, rep_p = flashft.flash_ft_plain(q, k, vv, **fkw)
-    k2_err = _cmp_outputs("K2 prefill flash", out, out_p)
-    check(float(rep[..., 0].sum()) == 0.0 and torch.equal(rep[..., 7],
-                                                           rep_p[..., 7]),
-          "K2 report: no detection, k fields equal")
-    ms = time_ms(lambda: flashft.flash_ft_fwd(q, k, vv, **fkw), 20)
-    plain_ms = time_ms(lambda: flashft.flash_ft_plain(q, k, vv, **fkw), 2)
-    # SDPA yardstick on the same heads, KV repeated before timing.
-    q4 = q.view(BATCH, cfg.n_heads, PROMPT, dh)
-    k4, v4 = (x.view(BATCH, cfg.n_kv_heads, PROMPT, dh).repeat_interleave(
-        bh // g, dim=1) for x in (k, vv))
-    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
-        q4, k4, v4, is_causal=True)
-    lib_ms = time_ms(sdpa, 20)
-    pairs = PROMPT * (PROMPT + 1) // 2
-    b_ms, b_by = bound(4.0 * dh * pairs * bh,
-                       2 * dh * PROMPT * (2 * bh + 2 * g))
-    print(f"  K2 prefill flash ({bh} heads / {g} kv heads, S {PROMPT}, dh "
-          f"{dh}, causal): kernel {ms:.4f} ms, plain {plain_ms:.3f} ms, "
-          f"SDPA {lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
-    qi, ki, vi = _ints(gen, bh, PROMPT, dh), _ints(gen, g, PROMPT, dh), \
-        _ints(gen, g, PROMPT, dh)
-    clean, _ = flashft.flash_ft_fwd(qi, ki, vi, **fkw)
-    out, rep = flashft.flash_ft_fwd(qi, ki, vi, inj=(1, bh - 1, 1, 1, 63, 127),
-                                    inj_mag=300.0, **fkw)
-    cell = rep[bh - 1, 1]
-    _cmp_outputs("K2 SEU corrected output vs clean", out, clean)
-    check(float(rep[..., 0].sum()) == 1.0 and int(cell[2]) == 127
-          and int(cell[3]) == 127,
-          "K2 SEU in the PV delta located at (row 127, col 127)")
-    rows["flash_ft"] = dict(max_abs_err=k2_err, detail=[dict(
-        shape="prefill flash", ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-        bound_ms=b_ms, bound_by=b_by)], headline="prefill flash")
+    rows.update(_flash_fwd_kernels(gen, "qwen2-7b prefill", cfg.n_heads,
+                                   cfg.n_kv_heads, BATCH, PROMPT, False))
     return rows
 
 
@@ -770,6 +793,40 @@ def simt_grouped():
         yield
     finally:
         grouped_gemm.ft_gemm_grouped, grouped_gemm.tgmm = saved
+
+
+@contextmanager
+def simt_flash_fwd():
+    """Pin the SIMT blocks on every K2 call: the flash forward as it ran
+    before its tensor-core instance, for the profiles' "before" in the same
+    run."""
+    saved = flashft.flash_ft_fwd
+
+    def pinned(*args, bq=None, bkv=None, **kw):
+        return saved(*args, bq=bq or flashft.BLOCK, bkv=bkv or flashft.BLOCK,
+                     **kw)
+
+    flashft.flash_ft_fwd = pinned
+    try:
+        yield
+    finally:
+        flashft.flash_ft_fwd = saved
+
+
+@contextmanager
+def simt_decode():
+    """Pin the SIMT kernel on every K6 call: the paged decode as it ran
+    before its tensor-core instance, for the profiles' "before"."""
+    saved = flashft.flash_ft_decode
+
+    def pinned(*args, **kw):
+        return saved(*args, **dict(kw, simt=True))
+
+    flashft.flash_ft_decode = pinned
+    try:
+        yield
+    finally:
+        flashft.flash_ft_decode = saved
 
 
 @contextmanager
@@ -958,12 +1015,12 @@ def _serve_run(name, params, cfg, run, prompts, new_tokens):
     check(launches == {**k1_launches(per_step * (new_tokens + 1),
                                      run.ft.level),
                        "ft_gemm_batched": 2 * cfg.n_layers * new_tokens,
-                       "flash_ft": cfg.n_layers, **NO_FLASH_BWD,
-                       "flash_decode": 0, **OFF_PATH},
+                       **k2_launches(cfg.n_layers), **NO_FLASH_BWD,
+                       **k6_launches(0), **OFF_PATH},
           f"{name}: launch counts K1 {per_step} per prefill and per decode "
           f"step (every one on the {'tensor-core' if run.ft.level == 'block' else 'SIMT'} "
           f"instance), K5 {2 * cfg.n_layers} per decode step, K2 "
-          f"{cfg.n_layers} per prefill")
+          f"{cfg.n_layers} per prefill (on the tensor-core instance)")
     check(totals["detected"] == 0, f"{name}: zero detections")
     prefill_fn, decode_fn = serve.make_serve_fns(cfg, run)
     prompts_d = torch.as_tensor(prompts).cuda()
@@ -1003,6 +1060,10 @@ def _serve_run(name, params, cfg, run, prompts, new_tokens):
         fresh = transformer.init_cache(cfg, BATCH, MAX_LEN)
         prof["prefill"] = device_profile(
             lambda: prefill_fn(params, prompts_d, fresh))
+        with simt_flash_fwd():
+            fresh = transformer.init_cache(cfg, BATCH, MAX_LEN)
+            prof["prefill SIMT K2"] = device_profile(
+                lambda: prefill_fn(params, prompts_d, fresh))
         gen = torch.Generator(device="cuda").manual_seed(3)
         a = _rand(gen, BATCH, cfg.d_model)
         w = _rand(gen, cfg.d_model, cfg.qkv_dims[0], scale=0.02)
@@ -1363,6 +1424,21 @@ def _exact_decode_seu():
           f"(off by {float((left - clean).abs().max()):.3g})")
 
 
+def _decode_reports(name, rep_k, rep_p):
+    """K6's reports against the plain version's: det / corr / row / col / k
+    equal, tau within 1e-5, no detection. (The max residual spans S's
+    verifications too, whose tau is far above the last Δ's in field 6, so
+    the two are not compared; a length-0 slot's rows stay zero.)"""
+    fields = [0, 1, 2, 3, 7]
+    check(torch.equal(rep_k[..., fields], rep_p[..., fields]),
+          f"{name}: report det / corr / row / col / k fields equal")
+    tau_rel = ((rep_k[..., 6] - rep_p[..., 6]).abs()
+               / rep_p[..., 6].abs().clamp_min(1e-30)).max().item()
+    check(tau_rel <= 1e-5, f"{name}: report tau within 1e-5 ({tau_rel:.2g})")
+    check(float(rep_k[..., 0].sum()) == 0.0, f"{name}: clean run, no "
+          f"detection")
+
+
 def phase_decode_kernels():
     gen = torch.Generator(device="cuda").manual_seed(4)
     cfg = qwen2_7b.CONFIG
@@ -1378,50 +1454,118 @@ def phase_decode_kernels():
     qg = torch.nn.functional.pad(q.view(b * kvh, n_rep, dh),
                                  (0, 0, 0, bq - n_rep))
     kw = dict(ft=FT, scale=dh ** -0.5, tau_dh=dh)
+    p = flashft.plan_decode(qg, k, v, table)
+    check(p.instance == "sm90"
+          and p.ranges == flashft.decode_ranges(b * kvh, table.shape[1]),
+          f"K6: the tensor-core instance, each row's pages in {p.ranges} "
+          f"ranges ({p})")
+    names = ("flash_decode_sm90", "flash_decode_combine", "flash_decode")
+    before = {n: KERNELS[n]["counter"].launches for n in names}
     out, rep = flashft.flash_ft_decode(qg, k, v, lens, table, **kw)
-    out_p, rep_p = flashft.flash_decode_plain(qg, k, v, lens, table, **kw)
-    err = _cmp_outputs("K6 paged decode", out[:, :n_rep], out_p[:, :n_rep])
-    check(all(torch.equal(rep[..., i], rep_p[..., i]) for i in (0, 1, 2, 3, 7)),
-          "K6 report: det, corr, row, col and k fields equal")
-    tau_rel = ((rep[..., 6] - rep_p[..., 6]).abs()
-               / rep_p[..., 6].abs().clamp_min(1e-30)).max().item()
-    check(tau_rel <= 1e-5 and float(rep[..., 0].sum()) == 0.0,
-          f"K6 report: tau within 1e-5 ({tau_rel:.2g}), no detection on "
-          f"clean data")
+    torch.cuda.synchronize()
+    got = {n: KERNELS[n]["counter"].launches - before[n] for n in names}
+    check(got == {"flash_decode_sm90": 1, "flash_decode_combine": 1,
+                  "flash_decode": 0}, f"K6: launches {got}")
+    out_p, rep_p = flashft.planned_decode_plain(qg, k, v, lens, table, **kw)
+    err = _cmp_outputs("K6 paged decode (split)", out[:, :n_rep],
+                       out_p[:, :n_rep])
+    _decode_reports("K6 paged decode (split)", rep, rep_p)
+    out_u, rep_u = flashft.flash_decode_plain(qg, k, v, lens, table, **kw)
+    fields = [0, 1, 2, 3, 7]
+    check(torch.equal(rep[..., fields], rep_u[..., fields]),
+          "K6: the split report equals the unsplit walk's in det, corr, row, "
+          "col and k")
+    _cmp_outputs("K6 split vs the unsplit walk", out[:, :n_rep],
+                 out_u[:, :n_rep])
     check(not out[:kvh].any() and not rep[:kvh].any(),
           "K6: the length-0 slot writes exact zeros and a zero report")
-    # One SEU in Δ of slot 6 (777 tokens), kv head 2, page 5, at (row 3,
-    # col 100); the same SEU detect-only.
+    out_s, rep_s = flashft.flash_ft_decode(qg, k, v, lens, table, simt=True,
+                                           **kw)
+    simt_err = _cmp_outputs("K6 SIMT (pinned) vs the unsplit walk",
+                            out_s[:, :n_rep], out_u[:, :n_rep])
+    _decode_reports("K6 SIMT (pinned) vs the unsplit walk", rep_s, rep_u)
+    # SEUs in slot 6 (777 tokens), kv head 2, page 5, at row 3: one in Δ
+    # through the ops front, one in S through the wrapper; each with a
+    # detect-only control.
     slot, head = 6, 2
     g = slot * kvh + head
     spec = InjectionSpec(row=3, col=100, magnitude=64.0, k_step=5)
     clean, _ = ops.flash_ft_decode(q, k, v, lens, table, ft=FT)
-    fixed, rep_s = ops.flash_ft_decode(q, k, v, lens, table, ft=FT,
+    fixed, rep_f = ops.flash_ft_decode(q, k, v, lens, table, ft=FT,
                                        spec=spec, inj_g=g)
     left, rep_d = ops.flash_ft_decode(q, k, v, lens, table, ft=DETECT,
                                       spec=spec, inj_g=g)
-    cell = rep_s[g, 0]
-    check(float(rep_s[..., 0].sum()) == 1.0 and float(rep_s[..., 1].sum())
+    cell = rep_f[g, 0]
+    check(float(rep_f[..., 0].sum()) == 1.0 and float(rep_f[..., 1].sum())
           == 1.0 and (int(cell[2]), int(cell[3])) == (3, 100)
           and abs(float(cell[4]) - 64.0) < 0.5,
-          "K6 SEU (slot 6, kv head 2, page 5): detected, corrected, located "
-          "at (row 3, col 100)")
+          "K6 SEU in Δ (slot 6, kv head 2, page 5): detected, corrected, "
+          "located at (row 3, col 100)")
     check(float(rep_d[..., 0].sum()) == 1.0 and float(rep_d[..., 1].sum())
-          == 0.0, "K6 SEU detect-only: detected, not corrected")
+          == 0.0, "K6 SEU in Δ detect-only: detected, not corrected")
     at = (slot, head * n_rep + 3, 100)
     print(f"  K6 SEU: corrected element {fixed[at].item()!r}, clean "
           f"{clean[at].item()!r} (whole outputs equal: "
           f"{torch.equal(fixed, clean)}), detect-only {left[at].item()!r}")
     check(torch.equal(fixed[at], clean[at]),
-          "K6 SEU: the corrected element equals the clean one")
-    _seu_at("K6", fixed, left, clean, at)
+          "K6 SEU in Δ: the corrected element equals the clean one")
+    _seu_at("K6 Δ", fixed, left, clean, at)
+    inj = (flashft.INJ_S, g, 0, 5, 3, 20)
+    clean_g, _ = flashft.flash_ft_decode(qg, k, v, lens, table, **kw)
+    fixed, rep_f = flashft.flash_ft_decode(qg, k, v, lens, table, inj=inj,
+                                           inj_mag=64.0, **kw)
+    left, rep_d = flashft.flash_ft_decode(qg, k, v, lens, table, inj=inj,
+                                          inj_mag=64.0, **dict(kw, ft=DETECT))
+    cell = rep_f[g, 0]
+    check(float(rep_f[..., 0].sum()) == 1.0 and float(rep_f[..., 1].sum())
+          == 1.0 and (int(cell[2]), int(cell[3])) == (3, 5 * page + 20)
+          and abs(float(cell[4]) - 64.0) < 0.5,
+          f"K6 SEU in S (slot 6, kv head 2, page 5): detected, corrected, "
+          f"located at (row 3, col {5 * page + 20})")
+    check(float(rep_d[..., 0].sum()) == 1.0 and float(rep_d[..., 1].sum())
+          == 0.0, "K6 SEU in S detect-only: detected, not corrected")
+    moved = (left.float() - clean_g.float()).abs()
+    idx = tuple(int(t) for t in torch.unravel_index(moved.argmax(),
+                                                    moved.shape))
+    _seu_at("K6 S", fixed, left, clean_g, idx)
     _exact_decode_seu()
+    # The combine alone, from one launch's workspace.
+    stream = torch.cuda.current_stream().cuda_stream
+    n_g = b * kvh
+    ws = torch.empty(p.ranges * n_g * flashft.DECODE_PARTIAL, device="cuda")
+    args = (qg.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
+            table.data_ptr(), ws.data_ptr(), p.ranges, b, kvh, bq, dh, page,
+            table.shape[1], k.shape[0], 1, int(FT.corrects), dh ** -0.5,
+            FT.rel_tau * flashft.F32EPS * dh, FT.rel_tau * flashft.F32EPS,
+            0, 0, 0, 0, 0, 0, 0.0, stream)
+    flashft.FLASH_DECODE_SM90(*args)
+    out_c, rep_c = torch.empty_like(qg), torch.empty_like(rep)
+
+    def combine():
+        flashft.FLASH_DECODE_COMBINE(ws.data_ptr(), out_c.data_ptr(),
+                                     rep_c.data_ptr(), n_g, p.ranges, stream)
+
+    combine()
+    out_cp, rep_cp = flashft.combine_ws_plain(ws, n_g, p.ranges)
+    c_err = _cmp_outputs("K6 combine vs its plain version", out_c, out_cp)
+    check(torch.equal(rep_c, rep_cp) and torch.equal(out_c, out)
+          and torch.equal(rep_c, rep),
+          "K6 combine: reports equal to its plain version's, output and "
+          "report equal to the whole call's")
     # Times at the main path's shape; SDPA over the dense (B, H, S, dh) cache
     # gathered beforehand (the gather is not timed), with the length mask.
-    ms = time_ms(lambda: flashft.flash_ft_decode(qg, k, v, lens, table, **kw),
-                 50)
-    plain_ms = time_ms(lambda: flashft.flash_decode_plain(qg, k, v, lens,
-                                                          table, **kw), 3)
+    call_ms = time_ms(lambda: flashft.flash_ft_decode(qg, k, v, lens, table,
+                                                      **kw), 50)
+    ms = time_ms(lambda: flashft.FLASH_DECODE_SM90(*args), 50)
+    comb_ms = time_ms(combine, 50)
+    simt_ms = time_ms(lambda: flashft.flash_ft_decode(
+        qg, k, v, lens, table, simt=True, **kw), 20)
+    plain_ms = time_ms(lambda: flashft.planned_decode_plain(
+        qg, k, v, lens, table, **kw), 3)
+    plain_u = time_ms(lambda: flashft.flash_decode_plain(
+        qg, k, v, lens, table, **kw), 3)
+    comb_plain = time_ms(lambda: flashft.combine_ws_plain(ws, n_g, p.ranges),
+                         3)
     s_max = table.shape[1] * page
     kd, vd = (kv_cache.gather_layer(x, table).permute(0, 2, 1, 3)
               .repeat_interleave(n_rep, dim=1) for x in (k, v))
@@ -1436,15 +1580,37 @@ def phase_decode_kernels():
               + 2 * b * h * dh                      # out
               + 4 * (b + table.numel()))            # lengths, table
     b_ms, b_by = bound(4.0 * dh * h * sum(lengths), nbytes)
+    # The combine reads the partials of the ranges that hold pages (acc,
+    # m, l, report) and the (m, l, report) of the empty ones, and writes
+    # out (16 rows a kv head) and the report.
+    full = sum(min(p.ranges, -(-n // page)) for n in lengths) * kvh
+    c_bytes = (full * 4 * flashft.DECODE_PARTIAL
+               + (p.ranges * n_g - full) * 4 * (2 * bq + 8)
+               + n_g * (2 * bq * dh + 32))
+    cb_ms, cb_by = bound(3.0 * full * bq * dh, c_bytes)
     shape = (f"{b} slots x {h} / {kvh} heads, dh {dh}, pages of {page}, "
              f"lengths {list(lengths)}")
-    print(f"  K6 paged decode ({shape}): kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.3f} ms, SDPA over the gathered cache {lib_ms:.4f} ms, "
-          f"bound {b_ms:.5f} ms ({b_by})")
-    return {"flash_decode": dict(max_abs_err=err, detail=[dict(
-        shape=shape, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-        library="SDPA over the gathered dense cache, length mask, gather "
-                "not timed", bound_ms=b_ms, bound_by=b_by)])}
+    print(f"  K6 paged decode ({shape}, {p.ranges} ranges): the call "
+          f"{call_ms:.4f} ms (kernel {ms:.4f}, combine {comb_ms:.4f}), SIMT "
+          f"{simt_ms:.4f} ms ({simt_ms / call_ms:.1f}x), plain "
+          f"{plain_ms:.2f} ms (unsplit {plain_u:.2f}), SDPA over the "
+          f"gathered cache {lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}); "
+          f"combine bound {cb_ms:.5f} ms ({cb_by}), plain "
+          f"{comb_plain:.3f} ms")
+    lib = "SDPA over the gathered dense cache, length mask, gather not timed"
+    return {
+        "flash_decode_sm90": dict(max_abs_err=err, detail=[dict(
+            shape=shape, ranges=p.ranges, ms=ms, call_ms=call_ms,
+            simt_ms=simt_ms, plain_ms=plain_ms, library_ms=lib_ms,
+            library=lib, bound_ms=b_ms, bound_by=b_by)]),
+        "flash_decode_combine": dict(max_abs_err=c_err, detail=[dict(
+            shape=f"{shape}, {p.ranges} ranges", ms=comb_ms,
+            plain_ms=comb_plain, library_ms=None, bound_ms=cb_ms,
+            bound_by=cb_by)]),
+        "flash_decode": dict(max_abs_err=simt_err, detail=[dict(
+            shape=shape, ms=simt_ms, plain_ms=plain_u, library_ms=lib_ms,
+            library=lib, bound_ms=b_ms, bound_by=b_by)]),
+    }
 
 
 class ProbeEngine(engine.ServeEngine):
@@ -1536,15 +1702,16 @@ def phase_engine_check():
         for k in KERNELS.values():
             k["counter"].launches = 0
         lp, paged = transformer.paged_decode_step(params, tok, paged, cfg, ctx)
-        k6 = flashft.FLASH_DECODE.launches
+        k6 = (flashft.FLASH_DECODE_SM90.launches,
+              flashft.FLASH_DECODE.launches)
         ld, dense = transformer.decode_step(params, tok, dense, cfg, ctx)
     lp, ld = lp.float().reshape(b, -1), ld.float().reshape(b, -1)
     err, scale = (lp - ld).abs().max().item(), ld.abs().max().item()
     check(bool(torch.isfinite(lp).all()) and err <= 2e-2 * scale,
           f"engine_check: paged vs dense decode step logits {err:.3g} <= "
           f"2e-2 x {scale:.3g} (slot lengths {lengths})")
-    check(k6 == cfg.n_layers, f"engine_check: the paged step launched K6 "
-          f"once per layer ({k6})")
+    check(k6 == (cfg.n_layers, 0), f"engine_check: the paged step launched "
+          f"K6 once per layer, on the tensor cores ({k6})")
     pk, pv = kv_cache.gather_dense(paged)
     same, worst = True, 0.0
     for slot, length in enumerate(lengths):
@@ -1573,7 +1740,7 @@ def phase_engine_check():
     with telemetry.ft_scope() as scope:
         res = eng.run()
         sites = scope.site_totals()
-    k6 = flashft.FLASH_DECODE.launches
+    k6 = (flashft.FLASH_DECODE_SM90.launches, flashft.FLASH_DECODE.launches)
     steps = len(eng.decode_ms)
     solo = []
     for p_, m in zip(prompts, budgets):
@@ -1604,8 +1771,9 @@ def phase_engine_check():
     check(dec is not None and all(t["detected"] == 0 for t in sites.values()),
           f"engine_check: 'dec_flash' in the scope's site totals, no "
           f"detection ({dec})")
-    check(k6 == cfg.n_layers * steps, f"engine_check: K6 launches {k6} = "
-          f"{cfg.n_layers} x {steps} decode steps")
+    check(k6 == (cfg.n_layers * steps, 0), f"engine_check: K6 launches "
+          f"{k6} = {cfg.n_layers} x {steps} decode steps, all on the tensor "
+          f"cores")
 
 
 def phase_engine(seed: int, smi: str):
@@ -1680,13 +1848,30 @@ def phase_engine(seed: int, smi: str):
           f"dispatched ({sorted(set(guard.hits))})")
     per = cfg.n_layers * 7 + 1
     expect = {**k1_launches(per * (ENGINE_REQUESTS + steps)),
-              "ft_gemm_batched": 0, "flash_ft": cfg.n_layers * ENGINE_REQUESTS,
-              **NO_FLASH_BWD, "flash_decode": cfg.n_layers * steps,
+              "ft_gemm_batched": 0,
+              **k2_launches(cfg.n_layers * ENGINE_REQUESTS), **NO_FLASH_BWD,
+              **k6_launches(cfg.n_layers * steps),
               **OFF_PATH}
     check(launches == expect,
           f"engine: launches K1 {per} per prefill and per decode step, K2 "
-          f"{cfg.n_layers} per prefill, K6 {cfg.n_layers} per decode step, "
-          f"K5 none")
+          f"{cfg.n_layers} per prefill, K6 and its combine {cfg.n_layers} "
+          f"per decode step (K2 and K6 on the tensor cores), K5 none")
+    # Where a decode step's time goes: one decode step with every slot live
+    # under torch.profiler, on K6's tensor-core instance and again with its
+    # SIMT kernel pinned (K6 before the redesign).
+    prof = {}
+    for name, pin in (("tensor cores", contextlib.nullcontext()),
+                      ("SIMT K6", simt_decode())):
+        with pin:
+            eng_p = ProbeEngine(params, cfg, run, ec)
+            for p_, m in zip(prompts[:ENGINE_SLOTS], budgets[:ENGINE_SLOTS]):
+                eng_p.submit(p_, max_new_tokens=m)
+            eng_p.step()                 # the admissions and a decode step
+            check(sum(r is not None for r in eng_p.slot_req) == ENGINE_SLOTS,
+                  f"engine profile ({name}): every slot live")
+            prof[name] = device_profile(eng_p.step)
+            del eng_p
+        print(f"  profiled decode step ({name}): {prof[name]}")
     print(json.dumps({"engine": dict(
         arch=cfg.arch_id, layers=cfg.n_layers, slots=ENGINE_SLOTS,
         requests=ENGINE_REQUESTS, max_len=ENGINE_MAX_LEN,
@@ -1698,7 +1883,7 @@ def phase_engine(seed: int, smi: str):
         prefill_ms_median=pre_ms, prefill_ms=eng.prefill_ms,
         ttft_ms_median=statistics.median(ttft), ttft_ms_max=max(ttft),
         peak_gib=peak, pool_bytes=pool, free_pages=eng.alloc.n_free,
-        launches=launches, card=smi)}))
+        launches=launches, profile=prof, card=smi)}))
     return launches
 
 
@@ -1733,6 +1918,108 @@ def _flash_bwd_bounds(bh, g, s, dh, causal):
     dq = bound(3 * 2.0 * dh * pairs * bh, io + stats + 2 * dh * s * bh)
     dkv = bound(4 * 2.0 * dh * pairs * bh, io + stats + 2 * 2 * dh * s * g)
     return dq, dkv
+
+
+def _flash_fwd_kernels(gen, label, n_heads, n_kv, batch, s, save_stats):
+    """K2 at one attention shape (batch x s tokens, n_heads / n_kv heads,
+    dh 128, causal, bf16): the plan (the tensor-core instance, one launch
+    and none of the SIMT one); the kernel against its plain version
+    (outputs within BF16_TOL; with ``save_stats`` m and l within 1e-3;
+    reports det / corr / row / col / k equal, tau within 1e-5, no
+    detection); the SIMT instance (pinned blocks) against the same plain
+    version; on integer operands an SEU in S and one in Δ, each corrected,
+    located and left by a detect-only policy; CUDA-event times of both
+    instances, the plain version and one SDPA forward, and the bound.
+    Returns the rows of flash_ft_sm90 and flash_ft."""
+    dh, blk = 128, flashft.BLOCK
+    bh, gk = batch * n_heads, batch * n_kv
+    n_rep, nqb = bh // gk, -(-s // blk)
+    shape = f"{label}, {bh} heads / {gk} kv heads, S {s}, dh {dh}, causal"
+    fkw = dict(ft=FT, scale=dh ** -0.5, tau_dh=dh, n_rep=n_rep, causal=True,
+               save_stats=save_stats)
+    q, k, v = _rand(gen, bh, s, dh), _rand(gen, gk, s, dh), \
+        _rand(gen, gk, s, dh)
+    p = flashft.plan_fwd(q, k, v)
+    check(p.instance == "sm90", f"K2 {label}: the tensor-core instance ({p})")
+    names = ("flash_ft_sm90", "flash_ft")
+    before = {n: KERNELS[n]["counter"].launches for n in names}
+    res = flashft.flash_ft_fwd(q, k, v, **fkw)
+    torch.cuda.synchronize()
+    got = {n: KERNELS[n]["counter"].launches - before[n] for n in names}
+    check(got == {"flash_ft_sm90": 1, "flash_ft": 0},
+          f"K2 {label}: launches {got}")
+    res_p = flashft.flash_ft_plain(q, k, v, **fkw)
+    err = _cmp_outputs(f"K2 {label} out", res[0], res_p[0], res[-1],
+                       res_p[-1])
+    if save_stats:
+        st = max((res[1] - res_p[1]).abs().max().item(),
+                 (res[2] - res_p[2]).abs().max().item()
+                 / res_p[2].abs().max().item())
+        check(st <= 1e-3, f"K2 {label} stats: m and l (l relative) within "
+              f"1e-3 of plain ({st:.3g})")
+    pin = dict(fkw, bq=blk, bkv=blk)
+    res_s = flashft.flash_ft_fwd(q, k, v, **pin)
+    simt_err = _cmp_outputs(f"K2 SIMT {label} out", res_s[0], res_p[0],
+                            res_s[-1], res_p[-1])
+    # SEUs on integer-valued q, k, v: in S and in Δ of the last query
+    # head's last q block at kv step 1, at a live (row, col).
+    ints = (_ints(gen, bh, s, dh), _ints(gen, gk, s, dh),
+            _ints(gen, gk, s, dh))
+    clean = flashft.flash_ft_fwd(*ints, **fkw)
+    qb, row = nqb - 1, min(63, s - 1 - (nqb - 1) * blk)
+    for target, col in ((flashft.INJ_S, 40), (flashft.INJ_DELTA, 99)):
+        inj = (target, bh - 1, qb, 1, row, col)
+        what = "S" if target == flashft.INJ_S else "Δ"
+        fixed = flashft.flash_ft_fwd(*ints, inj=inj, inj_mag=300.0, **fkw)
+        left = flashft.flash_ft_fwd(*ints, inj=inj, inj_mag=300.0,
+                                    **dict(fkw, ft=DETECT))
+        rep, rep_d, cell = fixed[-1], left[-1], fixed[-1][bh - 1, qb]
+        at = (qb * blk + row, blk + col if what == "S" else col)
+        check(float(rep[..., 0].sum()) == 1.0 and float(rep[..., 1].sum())
+              == 1.0 and (int(cell[2]), int(cell[3])) == at
+              and abs(float(cell[4]) - 300.0) < 1.0,
+              f"K2 {label}: SEU in {what} corrected, located at {at}")
+        _cmp_outputs(f"K2 {label} SEU in {what}: corrected out vs clean",
+                     fixed[0], clean[0])
+        if save_stats:
+            check(torch.allclose(fixed[1], clean[1], rtol=1e-5, atol=1e-5)
+                  and torch.allclose(fixed[2], clean[2], rtol=1e-3,
+                                     atol=1e-3),
+                  f"K2 {label} SEU in {what}: m, l as clean")
+        check(float(rep_d[..., 0].sum()) == 1.0
+              and float(rep_d[..., 1].sum()) == 0.0,
+              f"K2 {label}: SEU in {what} detect-only counted once")
+        moved = (left[0].float() - clean[0].float()).abs()
+        idx = tuple(int(t) for t in torch.unravel_index(moved.argmax(),
+                                                        moved.shape))
+        _seu_at(f"K2 {label} {what}", fixed[0], left[0], clean[0], idx)
+    ms = time_ms(lambda: flashft.flash_ft_fwd(q, k, v, **fkw), 20)
+    simt_ms = time_ms(lambda: flashft.flash_ft_fwd(q, k, v, **pin), 5,
+                      warmup=1)
+    plain_ms = time_ms(lambda: flashft.flash_ft_plain(q, k, v, **fkw), 1,
+                       warmup=0)
+    q4 = q.view(batch, n_heads, s, dh)
+    k4, v4 = (x.view(batch, n_kv, s, dh).repeat_interleave(n_rep, dim=1)
+              for x in (k, v))
+    lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        q4, k4, v4, is_causal=True), 20)
+    pairs = s * (s + 1) // 2
+    b_ms, b_by = bound(4.0 * dh * pairs * bh,
+                       2 * dh * s * (2 * bh + 2 * gk)
+                       + (2 * 4 * bh * s if save_stats else 0))
+    print(f"  K2 {shape}{' with stats' if save_stats else ''}: kernel "
+          f"{ms:.4f} ms, SIMT {simt_ms:.4f} ms ({simt_ms / ms:.1f}x), plain "
+          f"{plain_ms:.2f} ms, SDPA forward {lib_ms:.4f} ms, bound "
+          f"{b_ms:.5f} ms ({b_by})")
+    lib = "SDPA forward, KV repeated"
+    return {
+        "flash_ft_sm90": dict(max_abs_err=err, detail=[dict(
+            shape=shape, ms=ms, simt_ms=simt_ms, plain_ms=plain_ms,
+            library_ms=lib_ms, library=lib, bound_ms=b_ms, bound_by=b_by)]),
+        "flash_ft": dict(max_abs_err=simt_err, detail=[dict(
+            shape=shape, ms=simt_ms, plain_ms=plain_ms, library_ms=lib_ms,
+            library=lib, bound_ms=b_ms, bound_by=b_by)]),
+    }
 
 
 def phase_train_kernels():
@@ -1824,62 +2111,11 @@ def phase_train_kernels():
     _k1_seus("dw on a transposed view", a, b, {}, 8000, 200, (0, 2, 3))
     rows["ft_gemm_sm90"] = dict(max_abs_err=k1_err, detail=k1_rows)
 
-    # ---- K2 with stats at the training attention shape ----------------
-    bh, gk, dh = TRAIN_BATCH * cfg.n_heads, TRAIN_BATCH * cfg.n_kv_heads, \
-        cfg.head_dim
-    n_rep, s = bh // gk, TRAIN_SEQ
-    q, k, vv, go = (_rand(gen, bh, s, dh), _rand(gen, gk, s, dh),
-                    _rand(gen, gk, s, dh), _rand(gen, bh, s, dh))
-    fkw = dict(ft=FT, scale=dh ** -0.5, tau_dh=dh, n_rep=n_rep, causal=True)
-    o, m, l, rep = flashft.flash_ft_fwd(q, k, vv, save_stats=True, **fkw)
-    o_p, m_p, l_p, rep_p = flashft.flash_ft_plain(q, k, vv, save_stats=True,
-                                                  **fkw)
-    k2_err = _cmp_outputs("K2 stats: out", o, o_p)
-    st_err = max((m - m_p).abs().max().item(), (l - l_p).abs().max().item()
-                 / l_p.abs().max().item())
-    check(st_err <= 1e-3, f"K2 stats: m and l (l relative) within 1e-3 of "
-          f"plain ({st_err:.3g})")
-    check(float(rep[..., 0].sum()) == 0.0 and torch.equal(rep[..., 7],
-                                                         rep_p[..., 7]),
-          "K2 stats report: no detection, k fields equal")
-    ms_f = time_ms(lambda: flashft.flash_ft_fwd(q, k, vv, save_stats=True,
-                                                **fkw), 10)
-    pl_f = time_ms(lambda: flashft.flash_ft_plain(q, k, vv, save_stats=True,
-                                                  **fkw), 1, warmup=0)
-    q4 = q.view(TRAIN_BATCH, cfg.n_heads, s, dh)
-    k4, v4 = (x_.view(TRAIN_BATCH, cfg.n_kv_heads, s, dh).repeat_interleave(
-        n_rep, dim=1) for x_ in (k, vv))
-    lib_f = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        q4, k4, v4, is_causal=True), 10)
-    pairs = s * (s + 1) // 2
-    bf = bound(4.0 * dh * pairs * bh,
-               2 * dh * s * (2 * bh + 2 * gk) + 2 * 4 * bh * s)
-    shape = f"{bh} heads / {gk} kv heads, S {s}, dh {dh}, causal"
-    print(f"  K2 with stats ({shape}): kernel {ms_f:.4f} ms, plain "
-          f"{pl_f:.2f} ms, SDPA forward {lib_f:.4f} ms, bound {bf[0]:.5f} ms "
-          f"({bf[1]})")
-    # A deterministic SEU on integer-valued q, k, v.
-    qi_, ki_, vi_ = (_ints(gen, bh, s, dh), _ints(gen, gk, s, dh),
-                     _ints(gen, gk, s, dh))
-    co, cm, cl, _ = flashft.flash_ft_fwd(qi_, ki_, vi_, save_stats=True,
-                                         **fkw)
-    io, im, il, irep = flashft.flash_ft_fwd(
-        qi_, ki_, vi_, save_stats=True, inj=(1, bh - 1, 3, 2, 17, 99),
-        inj_mag=300.0, **fkw)
-    cell = irep[bh - 1, 3]
-    _cmp_outputs("K2 stats SEU: corrected out vs clean", io, co)
-    check(torch.allclose(im, cm, rtol=1e-5, atol=1e-5)
-          and torch.allclose(il, cl, rtol=1e-3, atol=1e-3)
-          and float(irep[..., 0].sum()) == 1.0
-          and (int(cell[2]), int(cell[3])) == (3 * 64 + 17, 99),
-          "K2 stats SEU: m, l as clean, located at (row 209, col 99)")
-    lo, _, _, _ = flashft.flash_ft_fwd(
-        qi_, ki_, vi_, save_stats=True, inj=(1, bh - 1, 3, 2, 17, 99),
-        inj_mag=300.0, **dict(fkw, ft=DETECT))
-    _seu_at("K2 out", io, lo, co, (bh - 1, 3 * 64 + 17, 99))
-    rows["flash_ft"] = dict(max_abs_err=k2_err, detail=[dict(
-        shape=f"train forward with stats, {shape}", ms=ms_f, plain_ms=pl_f,
-        library_ms=lib_f, bound_ms=bf[0], bound_by=bf[1])])
+    # ---- K2 with stats at the training attention shapes ---------------
+    for label, c in (("phi4-mini", cfg), ("qwen3-moe", qwen3_moe_235b.CONFIG)):
+        _merge_rows(rows, _flash_fwd_kernels(gen, label, c.n_heads,
+                                             c.n_kv_heads, TRAIN_BATCH,
+                                             TRAIN_SEQ, True))
 
     # ---- K3 and K4 at phi4-mini's and qwen3-moe-235b-a22b's shapes -------
     for label, c in (("phi4-mini", cfg), ("qwen3-moe", qwen3_moe_235b.CONFIG)):
@@ -2223,8 +2459,8 @@ def phase_train(smi: str):
     check(all(h["detected"] == 0 for h in out["history"]),
           "train: zero detections")
     expect = {**k1_launches(28 * cfg.n_layers + 3), "ft_gemm_batched": 0,
-              "flash_ft": 2 * cfg.n_layers,
-              **flash_bwd_launches(cfg, cfg.n_layers), "flash_decode": 0,
+              **k2_launches(2 * cfg.n_layers),
+              **flash_bwd_launches(cfg, cfg.n_layers), **k6_launches(0),
               **OFF_PATH}
     check(all(x == expect for x in launches),
           f"train: launches per step {expect} at every step")
@@ -2258,11 +2494,12 @@ def phase_train(smi: str):
     # their SIMT instances (the kernels before the tensor-core redesign).
     prof = {}
     for i, (name, pin) in enumerate((("tensor cores", contextlib.nullcontext()),
-                                     ("SIMT", simt_flash_bwd()))):
+                                     ("SIMT K3 / K4", simt_flash_bwd()),
+                                     ("SIMT K2", simt_flash_fwd()))):
         with pin:
             prof[name] = device_profile(lambda: step_fn(
                 out["params"], out["opt_state"], batch, TRAIN_STEPS + 1 + i))
-        print(f"  profiled step ({name} K3 / K4): {prof[name]}")
+        print(f"  profiled step ({name}): {prof[name]}")
     print(json.dumps({"train": dict(
         arch=cfg.arch_id, layers=cfg.n_layers, batch=TRAIN_BATCH,
         seq=TRAIN_SEQ, steps=TRAIN_STEPS, step_ms=times,
@@ -2858,21 +3095,22 @@ def phase_moe_engine(seed: int, smi: str):
     per = 4 * cfg.n_layers + 1
     calls = ENGINE_REQUESTS + steps
     expect = {**k1_launches(per * calls), "ft_gemm_batched": 0,
-              "flash_ft": cfg.n_layers * ENGINE_REQUESTS, **NO_FLASH_BWD,
-              "flash_decode": cfg.n_layers * steps,
+              **k2_launches(cfg.n_layers * ENGINE_REQUESTS), **NO_FLASH_BWD,
+              **k6_launches(cfg.n_layers * steps),
               "ft_gemm_grouped_sm90": 3 * cfg.n_layers * calls,
               "ft_gemm_grouped": 0, "tgmm_sm90": 0, "tgmm": 0,
               "naive_gemm": 0}
     check(launches == expect,
           f"moe_engine: launches K1 {per}, K7 {3 * cfg.n_layers} per prefill "
-          f"and per decode step, K2 {cfg.n_layers} per prefill, K6 "
-          f"{cfg.n_layers} per decode step, K5 and K8 none")
+          f"and per decode step, K2 {cfg.n_layers} per prefill, K6 and its "
+          f"combine {cfg.n_layers} per decode step (K2 and K6 on the tensor "
+          f"cores), K5 and K8 none")
     # Where a decode step's time goes: one decode step with every slot live
     # under torch.profiler, on the grouped kernels' tensor-core instances
     # and on their SIMT instances (the kernels before the redesign).
     prof = {}
     for name, pin in (("tensor cores", contextlib.nullcontext()),
-                      ("SIMT", simt_grouped())):
+                      ("SIMT", simt_grouped()), ("SIMT K6", simt_decode())):
         with pin:
             eng_p = ProbeEngine(params, cfg, run, ec)
             for p_, m in zip(prompts[:ENGINE_SLOTS], budgets[:ENGINE_SLOTS]):
@@ -2880,7 +3118,7 @@ def phase_moe_engine(seed: int, smi: str):
             eng_p.step()                 # the admissions and a decode step
             prof[name] = device_profile(eng_p.step)
             del eng_p
-        print(f"  profiled decode step ({name} K7): {prof[name]}")
+        print(f"  profiled decode step ({name}): {prof[name]}")
     print(json.dumps({"moe_engine": dict(
         arch=cfg.arch_id, layers=cfg.n_layers, slots=ENGINE_SLOTS,
         requests=ENGINE_REQUESTS, max_len=ENGINE_MAX_LEN,
@@ -2951,8 +3189,8 @@ def phase_moe_train(smi: str):
     # recompute, and dx + dw each in the backward (16), lm_head 3; K7 3
     # expert GEMMs forward, in the recompute and as dbuf (9); K8 3 dw.
     expect = {**k1_launches(16 * n_l + 3), "ft_gemm_batched": 0,
-              "flash_ft": 2 * n_l, **flash_bwd_launches(cfg, n_l),
-              "flash_decode": 0, "ft_gemm_grouped_sm90": 9 * n_l,
+              **k2_launches(2 * n_l), **flash_bwd_launches(cfg, n_l),
+              **k6_launches(0), "ft_gemm_grouped_sm90": 9 * n_l,
               "ft_gemm_grouped": 0, "tgmm_sm90": 3 * n_l, "tgmm": 0,
               "naive_gemm": 0}
     check(all(x == expect for x in launches),

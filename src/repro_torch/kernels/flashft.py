@@ -1,8 +1,10 @@
 """ABFT flash attention, both directions, and the paged decode — wrappers
-of the CUDA kernels `csrc/flash_ft.cu` (forward), `csrc/flash_bwd_sm90.cu`
+of the CUDA kernels `csrc/flash_fwd_sm90.cu` and `csrc/flash_ft.cu`
+(forward on the tensor cores and on the CUDA cores), `csrc/flash_bwd_sm90.cu`
 (dQ, dK/dV on the tensor cores), `csrc/flash_ft_bwd.cu` (dQ, dK/dV on the
-CUDA cores) and `csrc/flash_decode.cu` (paged decode), and their plain
-PyTorch versions.
+CUDA cores), `csrc/flash_decode_sm90.cu` and `csrc/flash_decode.cu` (paged
+decode on the tensor cores, split over the pages, and on the CUDA cores),
+and their plain PyTorch versions.
 
 Replaces the TPU kernels of the JAX package
 `repro/kernels/flashft.py`:
@@ -13,23 +15,32 @@ Replaces the TPU kernels of the JAX package
   * K6 `_flash_decode_kernel` (`flashft.py:270`; launch
     `templates/registry.py:239 flash_decode_call`).
 
-`plan_bwd` decides which instance runs a backward call: bf16 operands at
-head dim 128 that TMA can read (contiguous, 16-byte aligned) with the
-default blocks run on the tensor cores, K4's walk cut into `dkv_ranges`
-ranges; every other call (f32, head dim 64, pinned blocks) on the SIMT
-kernels.
+Written plans decide which instance runs a call. `plan_fwd` and
+`plan_bwd`: bf16 operands at head dim 128 that TMA can read (contiguous,
+16-byte aligned) with the default blocks run on the tensor cores, K4's walk
+cut into `dkv_ranges` ranges; every other call (f32, head dim 64, pinned
+blocks) on the SIMT kernels. `plan_decode`: bf16 q of 16 rows per kv head
+and pools at head dim 128 in pages of 32 or 64 run on the tensor cores,
+each (slot, kv head) row's live pages cut into `decode_ranges` ranges that
+a combine kernel merges; every other call on the SIMT decode kernel.
 
 Each wrapper takes a CPU tensor to its plain version and a CUDA tensor to
-its kernel (launch or raise), and counts its launches (`FLASH_FT`,
-`FLASH_DQ_SM90`, `FLASH_DKV_SM90`, `FLASH_DKV_REDUCE`, the SIMT
-`FLASH_DQ` and `FLASH_DKV`, `FLASH_DECODE`). The plain versions walk the
-kernels' block grids — a Python loop over the reduction steps, vectorised
-over the stationary blocks — and write the same 8-field reports: the
-forward verifies S = QKᵀ and Δ = PV per kv step; the dQ walk verifies the
-recomputed S, dP = g·Vᵀ and the dQ delta dS·K per kv step; the dK/dV walk
-(n_rep query heads × q blocks per kv block, in ``ranges`` ranges)
-verifies S, dP, dV = Pᵀg and dK = dSᵀQ; the decode walk verifies S and Δ
-per page of the slot.
+its kernel (launch or raise), and counts its launches (`FLASH_FT_SM90`,
+`FLASH_DQ_SM90`, `FLASH_DKV_SM90`, `FLASH_DKV_REDUCE`, `FLASH_DECODE_SM90`,
+`FLASH_DECODE_COMBINE`, the SIMT `FLASH_FT`, `FLASH_DQ`, `FLASH_DKV` and
+`FLASH_DECODE`). The plain versions walk the kernels' block grids — a
+Python loop over the reduction steps, vectorised over the stationary
+blocks — and write the same 8-field reports: the forward verifies S = QKᵀ
+and Δ = PV per kv step; the dQ walk verifies the recomputed S, dP = g·Vᵀ
+and the dQ delta dS·K per kv step; the dK/dV walk (n_rep query heads × q
+blocks per kv block, in ``ranges`` ranges) verifies S, dP, dV = Pᵀg and
+dK = dSᵀQ; the decode walk (each row's pages in ``ranges`` ranges)
+verifies S and Δ per page of the slot.
+
+The forward's and the decode's injection vectors keep the reference's
+layout; their first field selects the product: 1 lands the SEU in Δ = PV
+(the reference's), 2 in S = QKᵀ before its verification (the tensor-core
+instances and the plain versions; the SIMT kernels raise on it).
 
 What bounds the kernels on the H100 and what their design does about it is
 in the headers of the CUDA sources.
@@ -65,6 +76,9 @@ _ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
              + [ctypes.c_float] * 3 + [ctypes.c_int] * 6
              + [ctypes.c_float, ctypes.c_void_p])
 FLASH_FT = build.Kernel("flash_ft", "flash_ft_launch", _ARGTYPES)
+#: K2 on the tensor cores (the SIMT entry's arguments).
+FLASH_FT_SM90 = build.Kernel("flash_fwd_sm90", "flash_ft_sm90_launch",
+                             _ARGTYPES)
 _BWD_TAIL = ([ctypes.c_int] * 8 + [ctypes.c_float] * 4 + [ctypes.c_int] * 7
              + [ctypes.c_float, ctypes.c_void_p])
 FLASH_DQ = build.Kernel("flash_ft_bwd", "flash_dq_launch",
@@ -89,10 +103,27 @@ SM90_HEAD_DIM = 128
 DECODE_PAGES = (16, 32, 64)
 DECODE_HEAD_DIMS = (128, 256)
 DECODE_MAX_BQ = 32
-FLASH_DECODE = build.Kernel(
-    "flash_decode", "flash_decode_launch",
-    [ctypes.c_void_p] * 7 + [ctypes.c_int] * 9 + [ctypes.c_float] * 3
-    + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p])
+_DECODE_TAIL = ([ctypes.c_int] * 9 + [ctypes.c_float] * 3
+                + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p])
+FLASH_DECODE = build.Kernel("flash_decode", "flash_decode_launch",
+                            [ctypes.c_void_p] * 7 + _DECODE_TAIL)
+#: K6 on the tensor cores: the SIMT entry's arguments with the range
+#: workspace in place of out and report, and the range count; then the
+#: combine of the ranges into out and report.
+FLASH_DECODE_SM90 = build.Kernel(
+    "flash_decode_sm90", "flash_decode_sm90_launch",
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] + _DECODE_TAIL)
+FLASH_DECODE_COMBINE = build.Kernel(
+    "flash_decode_sm90", "flash_decode_combine_launch",
+    [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+#: The tensor-core decode's query rows per kv head and pages.
+SM90_DECODE_BQ = 16
+SM90_DECODE_PAGES = (32, 64)
+#: f32 of one range's partial in the decode workspace: acc (16 x 128), m,
+#: l (16 each) and the report.
+DECODE_PARTIAL = SM90_DECODE_BQ * SM90_HEAD_DIM + 2 * SM90_DECODE_BQ + REPORT_WIDTH
+#: The injection vector's first field: the product the SEU lands in.
+INJ_DELTA, INJ_S = 1, 2
 
 
 def sublane(dtype: torch.dtype) -> int:
@@ -136,7 +167,8 @@ def flash_ft_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     multiplies the verified scores. ``inj`` is the kernel's injection
     vector [enable, bh, q_block, kv_step, row, col]: with enable = 1,
     ``inj_mag`` is added to the PV delta of that head and q block at that
-    kv step, element (row, col) of the block. Returns
+    kv step, element (row, col) of the block; with enable = 2 to S = QKᵀ
+    before its verification (col < bkv). Returns
     (out (BH, Sq, dh) in q's dtype, report (BH, nqb, 8)), or with
     ``save_stats`` (out, m, l, report): m, l (BH, Sq) f32, degenerate rows
     (NEG_INF, 0)."""
@@ -175,6 +207,10 @@ def flash_ft_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         kt = kf[:, None, None, kv_start:kv_start + bkv]  # (g, 1, 1, bkv, dh)
         vt = vf[:, None, None, kv_start:kv_start + bkv]
         scores = torch.matmul(qf, kt.transpose(-1, -2))  # (g, r, nqb, bq, bkv)
+        if inj is not None and inj[0] == INJ_S and s == inj[3]:
+            _, ih, iq, _, ir, ic = inj
+            if 0 <= ir < bq and 0 <= ic < bkv:
+                scores[ih // r, ih % r, iq, ir, ic] += inj_mag
         ck_col = torch.matmul(qsum[..., None, :], kt.transpose(-1, -2))
         ck_row = torch.matmul(qf, kt.sum(-2)[..., None])
         d_col = scores.sum(-2) - ck_col[..., 0, :]
@@ -198,7 +234,7 @@ def flash_ft_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         p = torch.where(good[..., None], p, torch.zeros_like(p))
         alpha = torch.exp(torch.clamp_max(m - m_new, 0.0))
         delta = torch.matmul(p, vt)                      # (g, r, nqb, bq, dh)
-        if inj is not None and inj[0] == 1 and s == inj[3]:
+        if inj is not None and inj[0] == INJ_DELTA and s == inj[3]:
             _, ih, iq, _, ir, ic = inj
             if 0 <= ir < bq and 0 <= ic < dh:
                 delta[ih // r, ih % r, iq, ir, ic] += inj_mag
@@ -232,6 +268,48 @@ def flash_ft_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             l_out.reshape(bh, -1)[:, :sq].contiguous(), rep)
 
 
+@dataclasses.dataclass(frozen=True)
+class FwdPlan:
+    """How one flash-forward call runs. ``instance``: "sm90"
+    (csrc/flash_fwd_sm90.cu, the tensor cores) or "simt"
+    (csrc/flash_ft.cu); ``reason``: why the tensor-core instance does not
+    take the call ("" when it does)."""
+    instance: str
+    reason: str = ""
+
+
+def _sm90_reason(xs: Sequence[torch.Tensor], bq, bkv) -> str:
+    """Why the flash tensor-core instances do not take operands ``xs``
+    (q first) at blocks (bq, bkv), "" when they do: bf16 at head dim
+    `SM90_HEAD_DIM`, the default blocks (None), contiguous operands with
+    16-byte aligned bases (what TMA reads)."""
+    q = xs[0]
+    if bq is not None or bkv is not None:
+        return f"pinned blocks ({bq}, {bkv})"
+    if q.dtype != torch.bfloat16:
+        return f"dtype {q.dtype}"
+    if q.shape[-1] != SM90_HEAD_DIM:
+        return f"head dim {q.shape[-1]}"
+    if not all(x.is_contiguous() for x in xs):
+        return "a non-contiguous operand"
+    if not all(x.data_ptr() % 16 == 0 for x in xs):
+        return "a base pointer not 16-byte aligned"
+    return ""
+
+
+def plan_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+             bq: Optional[int] = None, bkv: Optional[int] = None) -> FwdPlan:
+    """The instance of a forward call on q (BH, Sq, dh), k, v (BH / n_rep,
+    Skv, dh): the tensor-core instance for bf16 at head dim
+    `SM90_HEAD_DIM` with the default blocks and operands TMA can read;
+    every other call (f32, head dim 64, pinned ``bq`` / ``bkv``) goes to
+    the SIMT kernel, which raises on what it does not take either. The
+    rule does not depend on the device; it never falls back after a
+    failure."""
+    why = _sm90_reason((q, k, v), bq, bkv)
+    return FwdPlan("simt", why) if why else FwdPlan("sm90")
+
+
 def flash_ft_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                  ft: FTConfig, scale: float, tau_dh: int, n_rep: int = 1,
                  causal: bool = True,
@@ -240,14 +318,20 @@ def flash_ft_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                  bkv: Optional[int] = None, save_stats: bool = False):
     """ABFT flash attention forward: a CPU tensor runs `flash_ft_plain`
     (blocks default to the kernel's 64), a CUDA tensor launches the kernel
-    or raises. Returns what `flash_ft_plain` returns."""
-    bq = BLOCK if bq is None else bq
-    bkv = BLOCK if bkv is None else bkv
+    `plan_fwd` picks (tensor cores or SIMT) or raises. Returns what
+    `flash_ft_plain` returns."""
     if q.device.type == "cpu":
         return flash_ft_plain(q, k, v, ft=ft, scale=scale, tau_dh=tau_dh,
-                              n_rep=n_rep, causal=causal, bq=bq, bkv=bkv,
-                              inj=inj, inj_mag=inj_mag, save_stats=save_stats)
-    _check_launch("flash_ft_fwd", q, k, v, n_rep=n_rep, bq=bq, bkv=bkv)
+                              n_rep=n_rep, causal=causal, bq=bq or BLOCK,
+                              bkv=bkv or BLOCK, inj=inj, inj_mag=inj_mag,
+                              save_stats=save_stats)
+    _check_launch("flash_ft_fwd", q, k, v, n_rep=n_rep, bq=bq or BLOCK,
+                  bkv=bkv or BLOCK)
+    p = plan_fwd(q, k, v, bq=bq, bkv=bkv)
+    inj = tuple(inj) if inj is not None else (0, 0, 0, 0, 0, 0)
+    if p.instance == "simt" and inj[0] == INJ_S:
+        raise ValueError("flash_ft_fwd: the SIMT kernel lands an SEU in the "
+                         "PV delta only (enable 1)")
     bh, sq, dh = q.shape
     skv = k.shape[1]
     nqb = cdiv(sq, BLOCK)
@@ -258,13 +342,13 @@ def flash_ft_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if save_stats:
         m, l = (torch.empty((bh, sq), dtype=torch.float32, device=q.device)
                 for _ in range(2))
-    inj = tuple(inj) if inj is not None else (0, 0, 0, 0, 0, 0)
-    FLASH_FT(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             rep.data_ptr(), None if m is None else m.data_ptr(),
-             None if l is None else l.data_ptr(), bh, sq, skv, dh, n_rep,
-             DTYPE_CODES[q.dtype], int(causal), int(ft.corrects), scale,
-             ft.rel_tau * F32EPS * tau_dh, ft.rel_tau * F32EPS,
-             *inj, inj_mag, torch.cuda.current_stream(q.device).cuda_stream)
+    kernel = FLASH_FT_SM90 if p.instance == "sm90" else FLASH_FT
+    kernel(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+           rep.data_ptr(), None if m is None else m.data_ptr(),
+           None if l is None else l.data_ptr(), bh, sq, skv, dh, n_rep,
+           DTYPE_CODES[q.dtype], int(causal), int(ft.corrects), scale,
+           ft.rel_tau * F32EPS * tau_dh, ft.rel_tau * F32EPS,
+           *inj, inj_mag, torch.cuda.current_stream(q.device).cuda_stream)
     return (out, m, l, rep) if save_stats else (out, rep)
 
 
@@ -348,18 +432,7 @@ def plan_bwd(q: torch.Tensor, k: torch.Tensor, *operands: torch.Tensor,
     (pinned ``bq`` / ``bkv`` pin them), which raise on what they do not
     take either. The rule does not depend on the device; it never falls
     back after a failure."""
-    xs = (q, k, *operands)
-    why = ""
-    if bq is not None or bkv is not None:
-        why = f"pinned blocks ({bq}, {bkv})"
-    elif q.dtype != torch.bfloat16:
-        why = f"dtype {q.dtype}"
-    elif q.shape[-1] != SM90_HEAD_DIM:
-        why = f"head dim {q.shape[-1]}"
-    elif not all(x.is_contiguous() for x in xs):
-        why = "a non-contiguous operand"
-    elif not all(x.data_ptr() % 16 == 0 for x in xs):
-        why = "a base pointer not 16-byte aligned"
+    why = _sm90_reason((q, k, *operands), bq, bkv)
     if why:
         return BwdPlan("simt", 1, why)
     nqb, nkvb = cdiv(q.shape[1], BLOCK), cdiv(k.shape[1], BLOCK)
@@ -387,7 +460,8 @@ def dkv_walk(sq: int, skv: int, kv_start, *, causal: bool,
 def dkv_range_of(step, walk, ranges: int):
     """The range holding walk step ``step`` of a walk of ``walk`` steps cut
     into ``ranges`` contiguous, balanced ranges (range z runs steps
-    [z·walk // ranges, (z + 1)·walk // ranges))."""
+    [z·walk // ranges, (z + 1)·walk // ranges)): K4's walk, and K6's live
+    pages of a row."""
     return ((step + 1) * ranges + walk - 1) // walk - 1
 
 
@@ -795,7 +869,7 @@ def flash_decode_plain(q: torch.Tensor, k_pages: torch.Tensor,
                        page_table: torch.Tensor, *, ft: FTConfig,
                        scale: float, tau_dh: int,
                        inj: Optional[Sequence[int]] = None,
-                       inj_mag: float = 0.0
+                       inj_mag: float = 0.0, ranges: int = 1
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K6 in plain PyTorch: a walk over the page-table columns, vectorised
     over the (slot, kv head) rows.
@@ -811,10 +885,29 @@ def flash_decode_plain(q: torch.Tensor, k_pages: torch.Tensor,
     it. S = QKᵀ is verified before scale and mask (tau over ``tau_dh``, k
     field s + 1, column reported at col + s·page), Δ = PV before the
     rescale (tau over eff_kv = min(length − s·page, page), k field eff_kv).
-    ``inj`` = [enable, g, 0, kv_step, row, col] adds ``inj_mag`` to Δ of
-    row g at that step, element (row, col), if the step runs. Returns
-    (out (G, bq, dh) in q's dtype, report (G, 1, 8)); a row of length 0
-    runs no step and writes zeros and a zero report."""
+    ``inj`` = [enable, g, 0, kv_step, row, col] adds ``inj_mag`` to Δ
+    (enable 1) or to S (enable 2) of row g at that step, element (row,
+    col), if the step runs.
+
+    ``ranges`` cuts each row's live pages as the tensor-core instance does
+    (`dkv_range_of`'s rule): each range runs its own online softmax (acc, m,
+    l) and report from an empty state; the partials are merged by
+    `combine_plain`, the reports in range order by `merge_ranges`. One
+    range is the unsplit walk. Returns (out (G, bq, dh) in q's dtype, report (G, 1,
+    8)); a row of length 0 runs no step and writes zeros and a zero
+    report."""
+    acc, m, l, rep = _decode_ranges_plain(
+        q, k_pages, v_pages, lengths, page_table, ft=ft, scale=scale,
+        tau_dh=tau_dh, inj=inj, inj_mag=inj_mag, ranges=ranges)
+    out, rep = combine_plain(acc, m, l, rep)
+    return out.to(q.dtype), rep
+
+
+def _decode_ranges_plain(q, k_pages, v_pages, lengths, page_table, *, ft,
+                         scale, tau_dh, inj, inj_mag, ranges):
+    """The ranges of `flash_decode_plain`'s walk, unmerged: f32 acc (Z, G,
+    bq, dh), m, l (Z, G, bq) and the reports (Z, G, 8); an empty range
+    keeps (0, NEG_INF, 0) and a zero report."""
     g, bq, dh = q.shape
     kvh, page = k_pages.shape[1], k_pages.shape[2]
     dev = q.device
@@ -823,90 +916,215 @@ def flash_decode_plain(q: torch.Tensor, k_pages: torch.Tensor,
     table = page_table.to(dev).long().repeat_interleave(kvh, dim=0)
     heads = torch.arange(kvh, device=dev).repeat(page_table.shape[0])
     rows = torch.arange(g, device=dev)
-    acc = torch.zeros(g, bq, dh, device=dev)
-    m = torch.full((g, bq), NEG_INF, device=dev)
-    l = torch.zeros(g, bq, device=dev)
-    rep = torch.zeros(g, REPORT_WIDTH, device=dev)
+    n_live = torch.clamp((lens + page - 1) // page, 0, table.shape[1])
+    acc = torch.zeros(ranges, g, bq, dh, device=dev)
+    m = torch.full((ranges, g, bq), NEG_INF, device=dev)
+    l = torch.zeros(ranges, g, bq, device=dev)
+    rep = torch.zeros(ranges, g, REPORT_WIDTH, device=dev)
     qsum, qmax = qf.sum(1), qf.abs().amax((1, 2))
     coef_qk = ft.rel_tau * F32EPS * tau_dh
     coef = ft.rel_tau * F32EPS
+    hit = inj is not None and inj[0] in (INJ_DELTA, INJ_S) and inj[2] == 0
     for s in range(table.shape[1]):
         kv_start = s * page
         run = kv_start < lens
         if not bool(run.any()):
             break
+        # (rows past their live pages do not run; their range is unused)
+        zsel = dkv_range_of(s, n_live.clamp_min(1), ranges).clamp(
+            0, ranges - 1)
         kt = k_pages[table[:, s], heads].float()                   # (G, page, dh)
         vt = v_pages[table[:, s], heads].float()
         scores = torch.matmul(qf, kt.transpose(1, 2))              # (G, bq, page)
-        d_col = scores.sum(1) - _vm(qsum, kt.transpose(1, 2))
-        d_row = scores.sum(2) - _mv(qf, kt.sum(1))
-        tau_qk = torch.clamp_min(coef_qk * qmax * kt.abs().amax((1, 2)),
-                                 1e-30)
-        _, row, col, mag = locate_record(
-            d_col, d_row, tau_qk, torch.tensor(s + 1.0, device=dev),
-            ft.corrects, rep, 0, kv_start, live=run)
-        if ft.corrects:
-            scores.index_put_((rows, row, col), -mag, accumulate=True)
+        if hit and inj[0] == INJ_S and s == inj[3]:
+            _inject_decode(scores, inj, inj_mag, page)
+        scores = _check(
+            scores, scores.sum(1) - _vm(qsum, kt.transpose(1, 2)),
+            scores.sum(2) - _mv(qf, kt.sum(1)),
+            torch.clamp_min(coef_qk * qmax * kt.abs().amax((1, 2)), 1e-30),
+            torch.tensor(s + 1.0, device=dev), ft.corrects, rep, 0,
+            kv_start, run, zsel)
         scores = scores * scale
         kpos = kv_start + torch.arange(page, device=dev)
         scores = torch.where(kpos[None, None, :] < lens[:, None, None],
                              scores, torch.full_like(scores, NEG_INF))
-        m_new = torch.maximum(m, scores.amax(-1))
+        mz, lz, az = m[zsel, rows], l[zsel, rows], acc[zsel, rows]
+        m_new = torch.maximum(mz, scores.amax(-1))
         good = m_new > 0.5 * NEG_INF
         p = torch.exp(torch.clamp_max(scores - m_new[..., None], 0.0))
         p = torch.where(good[..., None], p, torch.zeros_like(p))
-        alpha = torch.exp(torch.clamp_max(m - m_new, 0.0))
+        alpha = torch.exp(torch.clamp_max(mz - m_new, 0.0))
         delta = torch.matmul(p, vt)                                # (G, bq, dh)
-        if inj is not None and inj[0] == 1 and inj[2] == 0 and s == inj[3]:
-            ig, ir, ic = inj[1], inj[4], inj[5]
-            if 0 <= ig < g and 0 <= ir < bq and 0 <= ic < dh:
-                delta[ig, ir, ic] += inj_mag
-        d_col = delta.sum(1) - _vm(p.sum(1), vt)
-        d_row = delta.sum(2) - _mv(p, vt.sum(2))
+        if hit and inj[0] == INJ_DELTA and s == inj[3]:
+            _inject_decode(delta, inj, inj_mag, dh)
         eff_kv = torch.clamp_max(lens - kv_start, page).float()
-        tau = torch.clamp_min(coef * eff_kv * vt.abs().amax((1, 2)), 1e-30)
-        _, row, col, mag = locate_record(d_col, d_row, tau, eff_kv,
-                                         ft.corrects, rep, 0, 0, live=run)
-        if ft.corrects:
-            delta.index_put_((rows, row, col), -mag, accumulate=True)
+        delta = _check(
+            delta, delta.sum(1) - _vm(p.sum(1), vt),
+            delta.sum(2) - _mv(p, vt.sum(2)),
+            torch.clamp_min(coef * eff_kv * vt.abs().amax((1, 2)), 1e-30),
+            eff_kv, ft.corrects, rep, 0, 0, run, zsel)
         upd = run[:, None]
-        acc = torch.where(upd[..., None], acc * alpha[..., None] + delta, acc)
-        l = torch.where(upd, l * alpha + p.sum(-1), l)
-        m = torch.where(upd, m_new, m)
-    good = (m > 0.5 * NEG_INF) & (l > 0.0)
-    linv = torch.where(good, 1.0 / torch.clamp_min(l, 1e-30),
-                       torch.zeros_like(l))
-    return (acc * linv[..., None]).to(q.dtype), rep[:, None, :]
+        acc[zsel, rows] = torch.where(upd[..., None],
+                                      az * alpha[..., None] + delta, az)
+        l[zsel, rows] = torch.where(upd, lz * alpha + p.sum(-1), lz)
+        m[zsel, rows] = torch.where(upd, m_new, mz)
+    return acc, m, l, rep
+
+
+def _inject_decode(x, inj, mag, width):
+    """Add the SEU ``mag`` at (row, col) = inj[4:6] of row inj[1] of a
+    per-step product x (G, bq, width), if inside it."""
+    ig, ir, ic = inj[1], inj[4], inj[5]
+    if 0 <= ig < x.shape[0] and 0 <= ir < x.shape[1] and 0 <= ic < width:
+        x[ig, ir, ic] += mag
+
+
+def combine_plain(acc: torch.Tensor, m: torch.Tensor, l: torch.Tensor,
+                  rep: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The decode ranges' merge in plain PyTorch, what the combine kernel
+    computes: of the f32 partials acc (Z, G, bq, dh), m, l (Z, G, bq), the
+    non-empty ranges (m > NEG_INF / 2) weighted by w = exp(m - max m),
+    out = Σ w·acc / Σ w·l, exact zeros on degenerate rows; the reports (Z,
+    G, 8) merged in range order by `merge_ranges`. At one range this is the
+    unsplit walk's flush. Returns (out (G, bq, dh) f32, report (G, 1,
+    8))."""
+    live = m > 0.5 * NEG_INF
+    mm = torch.where(live, m, torch.full_like(m, NEG_INF)).amax(0)
+    w = torch.where(live, torch.exp(torch.clamp_max(m - mm, 0.0)),
+                    torch.zeros_like(m))
+    ll = (w * l).sum(0)
+    aa = (w[..., None] * acc).sum(0)
+    good = (mm > 0.5 * NEG_INF) & (ll > 0.0)
+    linv = torch.where(good, 1.0 / torch.clamp_min(ll, 1e-30),
+                       torch.zeros_like(ll))
+    return aa * linv[..., None], merge_ranges(list(rep))[:, None, :]
+
+
+def decode_ranges(rows: int, max_pages: int) -> int:
+    """K6's range count for ``rows`` (slot, kv head) rows over a page table
+    ``max_pages`` wide: 1 when the rows reach `SPLIT_TARGET` CTAs (about
+    two waves of the H100's 132 SMs, as `dkv_ranges`), else the count that
+    brings the grid there, at most the table's width. Each CTA takes its
+    contiguous, balanced share of its row's live pages (`dkv_range_of`'s
+    rule), read from the lengths on the device."""
+    if rows >= SPLIT_TARGET:
+        return 1
+    return max(1, min(cdiv(SPLIT_TARGET, rows), max_pages))
+
+
+@dataclasses.dataclass(frozen=True)
+class DecodePlan:
+    """How one paged-decode call runs. ``instance``: "sm90"
+    (csrc/flash_decode_sm90.cu: the tensor cores, the pages of each row in
+    ``ranges`` ranges, then the combine) or "simt" (csrc/flash_decode.cu,
+    one range); ``reason``: why the tensor-core instance does not take the
+    call ("" when it does)."""
+    instance: str
+    ranges: int = 1
+    reason: str = ""
+
+
+def plan_decode(q: torch.Tensor, k_pages: torch.Tensor,
+                v_pages: torch.Tensor, page_table: torch.Tensor, *,
+                simt: bool = False) -> DecodePlan:
+    """The instance of a decode call on q (G, bq, dh) and pools (P, KVH,
+    page, dh): the tensor-core instance for bf16 at head dim
+    `SM90_HEAD_DIM`, bq = `SM90_DECODE_BQ` (n_rep up to 16 in bf16) and a
+    page of `SM90_DECODE_PAGES`, on contiguous operands with 16-byte
+    aligned bases, with `decode_ranges` ranges; every other call (f32, dh
+    256, pages of 16, 32 query rows, ``simt=True``) goes to the SIMT
+    kernel, which raises on what it does not take either. The rule does not
+    depend on the device; it never falls back after a failure."""
+    xs = (q, k_pages, v_pages)
+    why = ""
+    if simt:
+        why = "the SIMT kernel pinned"
+    elif q.dtype != torch.bfloat16:
+        why = f"dtype {q.dtype}"
+    elif q.shape[-1] != SM90_HEAD_DIM:
+        why = f"head dim {q.shape[-1]}"
+    elif q.shape[1] != SM90_DECODE_BQ:
+        why = f"{q.shape[1]} query rows per kv head"
+    elif k_pages.shape[2] not in SM90_DECODE_PAGES:
+        why = f"pages of {k_pages.shape[2]}"
+    elif not all(x.is_contiguous() for x in xs):
+        why = "a non-contiguous operand"
+    elif not all(x.data_ptr() % 16 == 0 for x in xs):
+        why = "a base pointer not 16-byte aligned"
+    if why:
+        return DecodePlan("simt", 1, why)
+    return DecodePlan("sm90", decode_ranges(q.shape[0], page_table.shape[1]))
+
+
+def planned_decode_plain(q, k_pages, v_pages, lengths, page_table, *,
+                         simt: bool = False, **kw):
+    """K6's plain version under the plan a call on these operands follows
+    (`plan_decode`: its ranges)."""
+    p = plan_decode(q, k_pages, v_pages, page_table, simt=simt)
+    return flash_decode_plain(q, k_pages, v_pages, lengths, page_table,
+                              ranges=p.ranges, **kw)
 
 
 def flash_ft_decode(q: torch.Tensor, k_pages: torch.Tensor,
                     v_pages: torch.Tensor, lengths: torch.Tensor,
                     page_table: torch.Tensor, *, ft: FTConfig, scale: float,
                     tau_dh: int, inj: Optional[Sequence[int]] = None,
-                    inj_mag: float = 0.0
+                    inj_mag: float = 0.0, simt: bool = False
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K6: a CPU tensor runs `flash_decode_plain`, a CUDA tensor launches
-    the paged decode kernel or raises. Returns what the plain version
-    returns."""
+    """K6: a CPU tensor runs `planned_decode_plain`, a CUDA tensor launches
+    the decode kernel `plan_decode` picks (on the tensor cores, then the
+    combine of its ranges) or raises. ``simt`` pins the SIMT kernel.
+    Returns what the plain version returns."""
     kw = dict(ft=ft, scale=scale, tau_dh=tau_dh, inj=inj, inj_mag=inj_mag)
     if q.device.type == "cpu":
-        return flash_decode_plain(q, k_pages, v_pages, lengths, page_table,
-                                  **kw)
+        return planned_decode_plain(q, k_pages, v_pages, lengths, page_table,
+                                    simt=simt, **kw)
     _check_decode_launch(q, k_pages, v_pages, lengths, page_table)
+    p = plan_decode(q, k_pages, v_pages, page_table, simt=simt)
+    inj = tuple(inj) if inj is not None else (0,) * 6
+    if p.instance == "simt" and inj[0] == INJ_S:
+        raise ValueError("flash_ft_decode: the SIMT kernel lands an SEU in "
+                         "the PV delta only (enable 1)")
     g, bq, dh = q.shape
     n_pages, kvh, page, _ = k_pages.shape
     b, mp = page_table.shape
     out = torch.empty_like(q)
     rep = torch.empty((g, 1, REPORT_WIDTH), dtype=torch.float32,
                       device=q.device)
-    inj = tuple(inj) if inj is not None else (0,) * 6
-    FLASH_DECODE(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-                 lengths.data_ptr(), page_table.data_ptr(), out.data_ptr(),
-                 rep.data_ptr(), b, kvh, bq, dh, page, mp, n_pages,
-                 DTYPE_CODES[q.dtype], int(ft.corrects), scale,
-                 ft.rel_tau * F32EPS * tau_dh, ft.rel_tau * F32EPS, *inj,
-                 inj_mag, torch.cuda.current_stream(q.device).cuda_stream)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    tail = (b, kvh, bq, dh, page, mp, n_pages, DTYPE_CODES[q.dtype],
+            int(ft.corrects), scale, ft.rel_tau * F32EPS * tau_dh,
+            ft.rel_tau * F32EPS, *inj, inj_mag, stream)
+    ptrs = (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+            lengths.data_ptr(), page_table.data_ptr())
+    if p.instance == "simt":
+        FLASH_DECODE(*ptrs, out.data_ptr(), rep.data_ptr(), *tail)
+        return out, rep
+    # The combine follows every launch (at one range it is the flush).
+    ws = torch.empty(p.ranges * g * DECODE_PARTIAL, dtype=torch.float32,
+                     device=q.device)
+    FLASH_DECODE_SM90(*ptrs, ws.data_ptr(), p.ranges, *tail)
+    FLASH_DECODE_COMBINE(ws.data_ptr(), out.data_ptr(), rep.data_ptr(), g,
+                         p.ranges, stream)
     return out, rep
+
+
+def combine_ws_plain(ws: torch.Tensor, g: int, ranges: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The combine kernel's function on the workspace a tensor-core decode
+    launch leaves: per (row, range), f32 acc (16 x 128), m (16), l (16)
+    and the report (8), rows outer. An empty range's acc is never written
+    and never read. Returns (out (G, 16, 128) bf16, report (G, 1, 8))."""
+    bq, dh = SM90_DECODE_BQ, SM90_HEAD_DIM
+    part = ws[:ranges * g * DECODE_PARTIAL].view(g, ranges, DECODE_PARTIAL)
+    m = part[..., bq * dh:bq * dh + bq].transpose(0, 1)
+    l = part[..., bq * dh + bq:bq * dh + 2 * bq].transpose(0, 1)
+    rep = part[..., bq * dh + 2 * bq:].transpose(0, 1)
+    live = (m > 0.5 * NEG_INF)[..., None]
+    acc = torch.where(live, part[..., :bq * dh].view(g, ranges, bq, dh)
+                      .transpose(0, 1), torch.zeros((), device=ws.device))
+    out, rep = combine_plain(acc, m, l, rep)
+    return out.to(torch.bfloat16), rep
 
 
 def _check_decode_launch(q, k_pages, v_pages, lengths, page_table) -> None:

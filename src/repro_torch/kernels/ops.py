@@ -255,6 +255,20 @@ def _check_flash_injection(spec: InjectionSpec, head: int, blk: int, *,
             f"never land")
 
 
+def _pad_dh(dh: int) -> int:
+    """The head dim the flash kernels are handed for a true ``dh``: the
+    smallest compiled one at or above it (`flashft.HEAD_DIMS`), or ``dh``
+    itself above them (the kernel wrappers raise there)."""
+    return next((d for d in kflash.HEAD_DIMS if d >= dh), dh)
+
+
+def _zero_pad(x: torch.Tensor, to: int) -> torch.Tensor:
+    """x (…, dh) zero-padded along dh to ``to``, contiguous."""
+    if x.shape[-1] == to:
+        return x.contiguous()
+    return torch.nn.functional.pad(x, (0, to - x.shape[-1])).contiguous()
+
+
 def flash_ft(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
              ft: FTConfig = ONLINE_BLOCK, causal: bool = True,
              spec: Optional[InjectionSpec] = None,
@@ -266,9 +280,13 @@ def flash_ft(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     never repeated. Causal masking is bottom-right aligned on the true
     lengths (needs Skv ≥ Sq). The score scale uses the true dh; the QK
     threshold uses dh rounded up to 128, as the reference's lane-padded
-    kernel does. Returns (out, report (BH, ceil(Sq / bq), 8)), or with
-    ``save_stats`` (out, m, l, report): the per-row softmax statistics
-    (BH, Sq) f32 the backward consumes, degenerate rows (NEG_INF, 0)."""
+    kernel does. As the reference's front, q, k and v are zero-padded along
+    dh, here to the smallest compiled head dim at or above it (64 or 128),
+    and the output sliced back: zero columns add nothing to any product or
+    checksum, so a located column is always below dh. Returns (out,
+    report (BH, ceil(Sq / bq), 8)), or with ``save_stats`` (out, m, l,
+    report): the per-row softmax statistics (BH, Sq) f32 the backward
+    consumes, degenerate rows (NEG_INF, 0)."""
     check_campaign(ft, key)
     bh, sq, dh = q.shape
     skv = k.shape[1]
@@ -283,11 +301,15 @@ def flash_ft(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                skv=skv, bq=bq or kflash.BLOCK,
                                bkv=bkv or kflash.BLOCK, causal=causal)
     inj, mag = encode_flash_injection(spec, inj_bh, inj_q_block)
-    return kflash.flash_ft_fwd(
-        q.contiguous(), k.contiguous(), v.contiguous(), ft=ft,
+    dp = _pad_dh(dh)
+    res = kflash.flash_ft_fwd(
+        _zero_pad(q, dp), _zero_pad(k, dp), _zero_pad(v, dp), ft=ft,
         scale=dh ** -0.5, tau_dh=-(-dh // 128) * 128, n_rep=n_rep,
         causal=causal, inj=inj, inj_mag=mag, bq=bq, bkv=bkv,
         save_stats=save_stats)
+    if dp == dh:
+        return res
+    return (res[0][..., :dh].contiguous(),) + tuple(res[1:])
 
 
 def flash_ft_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -302,7 +324,9 @@ def flash_ft_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dh); k, v (BH / n_rep, Skv, dh); m, l (BH, Sq) f32. di = rowsum(g ∘ o)
     is the one elementwise preprocess. Every backward GEMM (dP, dV, dQ, dK)
     and the S recompute are verified and corrected in-kernel; dk and dv
-    come back per kv head. ``inject`` / ``inj_target`` land a deterministic
+    come back per kv head. q, k, v and g are zero-padded along dh as
+    `flash_ft` pads them (di comes from the unpadded g and o), and dq, dk,
+    dv sliced back. ``inject`` / ``inj_target`` land a deterministic
     SEU in one named backward GEMM ("dp_q" | "dq" | "dp_kv" | "dv" | "dk",
     see `flashft.encode_bwd_injection`). Returns
     (dq, dk, dv, report_dq (BH, nqb, 8), report_dkv (BH / n_rep, nkvb, 8))."""
@@ -334,13 +358,16 @@ def flash_ft_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     inj_dq, inj_dkv, mag = kflash.encode_bwd_injection(inject, inj_target,
                                                        inj_bh, inj_blk)
     di = (g.float() * o.float()).sum(-1)
-    q, k, v, g = (x.contiguous() for x in (q, k, v, g))
+    dp = _pad_dh(dh)
+    q, k, v, g = (_zero_pad(x, dp) for x in (q, k, v, g))
     m, l = m.float().contiguous(), l.float().contiguous()
     kw = dict(ft=ft, scale=dh ** -0.5, tau_dh=-(-dh // 128) * 128,
               n_rep=n_rep, causal=causal, inj_mag=mag, bq=bq, bkv=bkv)
     dq, rep_dq = kflash.flash_ft_dq(q, k, v, g, m, l, di, inj=inj_dq, **kw)
     dk, dv, rep_dkv = kflash.flash_ft_dkv(q, k, v, g, m, l, di, inj=inj_dkv,
                                           **kw)
+    if dp != dh:
+        dq, dk, dv = (x[..., :dh].contiguous() for x in (dq, dk, dv))
     return dq, dk, dv, rep_dq, rep_dkv
 
 

@@ -596,7 +596,7 @@ def test_decode_bf16_matches_plain(cuda):
                                           torch.bfloat16, 32)
     kw = dict(ft=FT, scale=128 ** -0.5, tau_dh=128)
     out, rep = flashft.flash_ft_decode(q, k, v, lens, table, **kw)
-    out_p, rep_p = flashft.flash_decode_plain(q, k, v, lens, table, **kw)
+    out_p, rep_p = flashft.planned_decode_plain(q, k, v, lens, table, **kw)
     assert out.dtype == torch.bfloat16
     tol = 2.0 ** -7 * float(out_p.float().abs().max())
     assert float((out.float() - out_p.float()).abs().max()) <= tol
@@ -661,6 +661,261 @@ def test_decode_wrapper_raises_on_what_the_kernel_does_not_take(cuda):
     with pytest.raises(TypeError):
         flashft.flash_ft_decode(q.half(), k.half(), v.half(), lens, table,
                                 **kw)
+
+
+# ---------------------------------------------------------------------------
+# K2 and K6 on the tensor cores (csrc/flash_fwd_sm90.cu,
+# csrc/flash_decode_sm90.cu) and the flash fronts' head-dim padding
+# ---------------------------------------------------------------------------
+
+BF16_TOL = 2.0 ** -7
+DECODE_LENGTHS = [0, 1, 63, 64, 65, 300, 777, 1024]
+
+
+def _bf16_close(got, want):
+    tol = BF16_TOL * float(want.float().abs().max())
+    assert float((got.float() - want.float()).abs().max()) <= tol
+
+
+def _check_fields(rep, rep_p):
+    """det, corr, row, col and k equal; tau within 1e-5."""
+    assert torch.equal(rep[..., [0, 1, 2, 3, 7]], rep_p[..., [0, 1, 2, 3, 7]])
+    torch.testing.assert_close(rep[..., 6], rep_p[..., 6], rtol=1e-5, atol=0)
+
+
+def _left_in_place(left, clean):
+    """A detect-only run left its SEU in the output: off the clean one by
+    more than four bf16 ulps at the top of the output's range."""
+    moved = float((left.float() - clean.float()).abs().max())
+    assert moved > 4 * BF16_TOL * float(clean.float().abs().max())
+
+
+def _launched(kernels, fn):
+    before = [k.launches for k in kernels]
+    out = fn()
+    return out, [k.launches - b for k, b in zip(kernels, before)]
+
+
+FWD_SM90_GEOMS = [(6, 3, 1, 1, True), (14, 7, 63, 63, True),
+                  (14, 7, 65, 65, False), (4, 1, 300, 300, True),
+                  (6, 3, 300, 317, True), (2, 1, 65, 130, False)]
+
+
+@pytest.mark.parametrize("save_stats", [False, True])
+@pytest.mark.parametrize("geom", FWD_SM90_GEOMS)
+def test_flash_fwd_sm90_matches_plain(cuda, geom, save_stats):
+    bh, n_rep, sq, skv, causal = geom
+    gen = torch.Generator(device="cuda").manual_seed(bh + sq + skv)
+    q = torch.randn(bh, sq, 128, generator=gen, device="cuda").bfloat16()
+    k, v = (torch.randn(bh // n_rep, skv, 128, generator=gen,
+                        device="cuda").bfloat16() for _ in range(2))
+    kw = dict(ft=FT, scale=128 ** -0.5, tau_dh=128, n_rep=n_rep,
+              causal=causal, save_stats=save_stats)
+    assert flashft.plan_fwd(q, k, v).instance == "sm90"
+    res, n = _launched((flashft.FLASH_FT_SM90, flashft.FLASH_FT),
+                       lambda: flashft.flash_ft_fwd(q, k, v, **kw))
+    assert n == [1, 0]
+    res_p = flashft.flash_ft_plain(q, k, v, **kw)
+    _bf16_close(res[0], res_p[0])
+    _check_fields(res[-1], res_p[-1])
+    assert float(res[-1][..., 0].sum()) == 0.0
+    if save_stats:
+        torch.testing.assert_close(res[1], res_p[1], rtol=1e-4, atol=1e-4)
+        torch.testing.assert_close(res[2], res_p[2], rtol=1e-3, atol=1e-5)
+
+
+@pytest.mark.parametrize("target", [flashft.INJ_DELTA, flashft.INJ_S])
+def test_flash_fwd_sm90_seu(cuda, target):
+    """An SEU in Δ or in S of (query head 4, q block 2, kv step 1) on
+    integer-valued operands: corrected and located as the plain version
+    locates it; a detect-only policy counts it and leaves it."""
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    bh, n_rep, s = 6, 3, 200
+    q = _ints(gen, bh, s, 128, dtype=torch.bfloat16)
+    k, v = (_ints(gen, bh // n_rep, s, 128, dtype=torch.bfloat16)
+            for _ in range(2))
+    col = 99 if target == flashft.INJ_DELTA else 40
+    inj = (target, 4, 2, 1, 17, col)
+    kw = dict(scale=128 ** -0.5, tau_dh=128, n_rep=n_rep, causal=True)
+    clean, rep0 = flashft.flash_ft_fwd(q, k, v, ft=FT, **kw)
+    assert float(rep0[..., 0].sum()) == 0.0
+    out, rep = flashft.flash_ft_fwd(q, k, v, ft=FT, inj=inj, inj_mag=300.0,
+                                    **kw)
+    out_p, rep_p = flashft.flash_ft_plain(q, k, v, ft=FT, inj=inj,
+                                          inj_mag=300.0, **kw)
+    _check_fields(rep, rep_p)
+    cell = rep[4, 2]
+    want_col = col if target == flashft.INJ_DELTA else 64 + col
+    assert (float(rep[..., 0].sum()), float(rep[..., 1].sum())) == (1.0, 1.0)
+    assert (int(cell[2]), int(cell[3])) == (2 * 64 + 17, want_col)
+    assert abs(float(cell[4]) - 300.0) < 1.0
+    _bf16_close(out, clean)
+    left, rep_d = flashft.flash_ft_fwd(q, k, v, ft=FT.replace(action="detect"),
+                                       inj=inj, inj_mag=300.0, **kw)
+    assert (float(rep_d[..., 0].sum()), float(rep_d[..., 1].sum())) == (1.0,
+                                                                        0.0)
+    _left_in_place(left, clean)
+
+
+@pytest.mark.parametrize("page", [32, 64])
+@pytest.mark.parametrize("kvh,n_rep", [(4, 7), (2, 3), (4, 16)])
+def test_decode_sm90_matches_plain(cuda, page, kvh, n_rep):
+    q, k, v, lens, table = _decode_inputs(128, page, kvh, n_rep,
+                                          DECODE_LENGTHS, torch.bfloat16,
+                                          page + kvh + n_rep)
+    kw = dict(ft=FT, scale=128 ** -0.5, tau_dh=128)
+    p = flashft.plan_decode(q, k, v, table)
+    assert p.instance == "sm90" and p.ranges == flashft.decode_ranges(
+        q.shape[0], table.shape[1]) > 1
+    (out, rep), n = _launched(
+        (flashft.FLASH_DECODE_SM90, flashft.FLASH_DECODE_COMBINE,
+         flashft.FLASH_DECODE),
+        lambda: flashft.flash_ft_decode(q, k, v, lens, table, **kw))
+    assert n == [1, 1, 0]
+    out_p, rep_p = flashft.planned_decode_plain(q, k, v, lens, table, **kw)
+    _bf16_close(out[:, :n_rep], out_p[:, :n_rep])
+    _check_fields(rep, rep_p)
+    _, rep_u = flashft.flash_decode_plain(q, k, v, lens, table, **kw)
+    assert torch.equal(rep[..., [0, 1, 2, 3, 7]], rep_u[..., [0, 1, 2, 3, 7]])
+    assert float(rep[..., 0].sum()) == 0.0
+    assert not out[:kvh].any() and not rep[:kvh].any()      # dead slot 0
+
+
+@pytest.mark.parametrize("target", [flashft.INJ_DELTA, flashft.INJ_S])
+def test_decode_sm90_seu(cuda, target):
+    """An SEU in Δ or S of slot 6 (777 tokens), kv head 2, page 5 on
+    integer-valued operands: corrected and located as the plain version
+    under the same plan; a detect-only policy counts it and leaves it."""
+    gen = torch.Generator(device="cuda").manual_seed(43)
+    kvh, n_rep, page = 4, 7, 64
+    q, k, v, lens, table = _decode_inputs(128, page, kvh, n_rep,
+                                          DECODE_LENGTHS, torch.bfloat16, 44)
+    q = torch.where(q != 0, _ints(gen, *q.shape, dtype=torch.bfloat16), q)
+    k, v = (_ints(gen, *k.shape, dtype=torch.bfloat16) for _ in range(2))
+    g = 6 * kvh + 2
+    col = 100 if target == flashft.INJ_DELTA else 20
+    inj = (target, g, 0, 5, 3, col)
+    kw = dict(scale=128 ** -0.5, tau_dh=128)
+    clean, _ = flashft.flash_ft_decode(q, k, v, lens, table, ft=FT, **kw)
+    out, rep = flashft.flash_ft_decode(q, k, v, lens, table, ft=FT, inj=inj,
+                                       inj_mag=300.0, **kw)
+    _, rep_p = flashft.planned_decode_plain(q, k, v, lens, table, ft=FT,
+                                            inj=inj, inj_mag=300.0, **kw)
+    _check_fields(rep, rep_p)
+    cell = rep[g, 0]
+    want_col = col if target == flashft.INJ_DELTA else 5 * page + col
+    assert (float(rep[..., 0].sum()), float(rep[..., 1].sum())) == (1.0, 1.0)
+    assert (int(cell[2]), int(cell[3])) == (3, want_col)
+    assert abs(float(cell[4]) - 300.0) < 1.0
+    _bf16_close(out[:, :n_rep], clean[:, :n_rep])
+    left, rep_d = flashft.flash_ft_decode(
+        q, k, v, lens, table, ft=FT.replace(action="detect"), inj=inj,
+        inj_mag=300.0, **kw)
+    assert (float(rep_d[..., 0].sum()), float(rep_d[..., 1].sum())) == (1.0,
+                                                                        0.0)
+    _left_in_place(left, clean)
+
+
+def test_decode_combine_matches_its_plain_version(cuda):
+    q, k, v, lens, table = _decode_inputs(128, 64, 4, 7, DECODE_LENGTHS,
+                                          torch.bfloat16, 45)
+    kw = dict(ft=FT, scale=128 ** -0.5, tau_dh=128)
+    p = flashft.plan_decode(q, k, v, table)
+    g = q.shape[0]
+    ws = torch.full((p.ranges * g * flashft.DECODE_PARTIAL,), float("nan"),
+                    device="cuda")
+    inj = (0,) * 6
+    flashft.FLASH_DECODE_SM90(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(),
+        table.data_ptr(), ws.data_ptr(), p.ranges, lens.shape[0], 4, 16, 128,
+        64, table.shape[1], k.shape[0], 1, 1, 128 ** -0.5,
+        FT.rel_tau * flashft.F32EPS * 128, FT.rel_tau * flashft.F32EPS, *inj, 0.0,
+        torch.cuda.current_stream().cuda_stream)
+    out = torch.empty_like(q)
+    rep = torch.empty(g, 1, 8, device="cuda")
+    flashft.FLASH_DECODE_COMBINE(ws.data_ptr(), out.data_ptr(),
+                                 rep.data_ptr(), g, p.ranges,
+                                 torch.cuda.current_stream().cuda_stream)
+    out_p, rep_p = flashft.combine_ws_plain(ws, g, p.ranges)
+    _bf16_close(out, out_p)
+    assert torch.equal(rep, rep_p)
+    whole, rep_w = flashft.flash_ft_decode(q, k, v, lens, table, **kw)
+    assert torch.equal(out, whole) and torch.equal(rep, rep_w)
+
+
+def test_flash_sm90_plans_route_the_rest_to_simt(cuda):
+    gen = torch.Generator(device="cuda").manual_seed(46)
+    fkw = dict(ft=FT, scale=0.1, tau_dh=128, n_rep=2, causal=True)
+    for dtype, dh, pin in ((torch.float32, 128, None),
+                           (torch.bfloat16, 64, None),
+                           (torch.bfloat16, 128, 64)):
+        q = torch.randn(4, 70, dh, generator=gen, device="cuda").to(dtype)
+        kv = torch.randn(2, 70, dh, generator=gen, device="cuda").to(dtype)
+        assert flashft.plan_fwd(q, kv, kv, bq=pin, bkv=pin).instance == "simt"
+        (out, rep), n = _launched(
+            (flashft.FLASH_FT_SM90, flashft.FLASH_FT),
+            lambda: flashft.flash_ft_fwd(q, kv, kv, bq=pin, bkv=pin, **fkw))
+        assert n == [0, 1]
+        out_p, rep_p = flashft.flash_ft_plain(q, kv, kv, **fkw)
+        _bf16_close(out, out_p)
+        _check_fields(rep, rep_p)
+        with pytest.raises(ValueError, match="SIMT"):
+            flashft.flash_ft_fwd(q, kv, kv, bq=pin, bkv=pin,
+                                 inj=(flashft.INJ_S, 0, 0, 0, 0, 0), **fkw)
+    dkw = dict(ft=FT, scale=0.1, tau_dh=128)
+    for dh, page, n_rep, dtype, simt in ((128, 64, 7, torch.float32, False),
+                                         (256, 64, 7, torch.bfloat16, False),
+                                         (128, 16, 7, torch.bfloat16, False),
+                                         (128, 64, 20, torch.bfloat16, False),
+                                         (128, 64, 7, torch.bfloat16, True)):
+        q, k, v, lens, table = _decode_inputs(dh, page, 2, n_rep,
+                                              [0, 5, 3 * page + 1], dtype, 47)
+        assert flashft.plan_decode(q, k, v, table, simt=simt).instance == \
+            "simt"
+        (out, rep), n = _launched(
+            (flashft.FLASH_DECODE_SM90, flashft.FLASH_DECODE),
+            lambda: flashft.flash_ft_decode(q, k, v, lens, table, simt=simt,
+                                            **dkw))
+        assert n == [0, 1]
+        out_p, rep_p = flashft.flash_decode_plain(q, k, v, lens, table, **dkw)
+        _bf16_close(out, out_p)
+        _check_fields(rep, rep_p)
+
+
+@pytest.mark.parametrize("dh", [16, 80])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_fronts_pad_the_head_dim(cuda, dh, dtype):
+    """ops.flash_ft / flash_ft_bwd at head dims the kernels do not compile:
+    padded to 64 or 128, run on the kernels (the tensor cores for bf16 at
+    dh 80), sliced back, and equal to the same fronts on the CPU (the
+    plain versions) within one bf16 ulp or 1e-5 (f32)."""
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device="cuda").manual_seed(dh)
+    bh, n_rep, sq = 6, 3, 100
+    q, g = (torch.randn(bh, sq, dh, generator=gen, device="cuda").to(dtype)
+            for _ in range(2))
+    k, v = (torch.randn(bh // n_rep, sq, dh, generator=gen,
+                        device="cuda").to(dtype) for _ in range(2))
+    kw = dict(ft=FT, causal=True, n_rep=n_rep)
+    fwd = (flashft.FLASH_FT_SM90, flashft.FLASH_FT)
+    (o, m, l, rep), n = _launched(fwd, lambda: ops.flash_ft(
+        q, k, v, save_stats=True, **kw))
+    sm90 = dtype == torch.bfloat16 and dh == 80
+    assert n == ([1, 0] if sm90 else [0, 1])
+    cpu = [x.cpu() for x in (q, k, v, g)]
+    o_p, m_p, l_p, rep_p = ops.flash_ft(*cpu[:3], save_stats=True, **kw)
+    grads = ops.flash_ft_bwd(q, k, v, o, m, l, g, **kw)
+    grads_p = ops.flash_ft_bwd(*cpu[:3], o.cpu(), m.cpu(), l.cpu(), cpu[3],
+                               **kw)
+    for got, want in zip((o,) + grads[:3], (o_p,) + grads_p[:3]):
+        assert got.shape == want.shape and got.shape[-1] == dh
+        if dtype == torch.float32:
+            torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+        else:
+            _bf16_close(got.cpu(), want)
+    for got, want in ((rep, rep_p), (grads[3], grads_p[3]),
+                      (grads[4], grads_p[4])):
+        _check_fields(got.cpu(), want)
 
 
 # ---------------------------------------------------------------------------
@@ -815,12 +1070,13 @@ def test_engine_at_max_len_40_runs_k6(cuda):
     eng = engine.ServeEngine(params, cfg, run,
                              engine.EngineConfig(max_len=40, n_slots=2))
     assert eng.plan.page_size == 64
-    before = flashft.FLASH_DECODE.launches
+    k6 = (flashft.FLASH_DECODE, flashft.FLASH_DECODE_SM90)
+    before = sum(x.launches for x in k6)
     eng.submit(list(range(1, 30)), max_new_tokens=8)
     eng.submit(list(range(3, 9)), max_new_tokens=5)
     res = eng.run()
     assert [len(r.tokens) for r in res] == [8, 5]
-    assert flashft.FLASH_DECODE.launches > before
+    assert sum(x.launches for x in k6) > before
     assert eng.alloc.n_free == eng.plan.n_pages - 1
 
 
