@@ -23,7 +23,16 @@ Phases (each prints its own lines; any failed check exits non-zero):
                `ft_gemm.plan`, timed beside FT off and the SIMT instance at
                its own tiles, with SEUs at k-step 0, mid-way in a later
                split-K range and at the last step, each with a detect-only
-               control counted by the split-K rule; K2 at the prefill shape
+               control counted by the split-K rule; K5 at decode
+               attention's QKᵀ and PV on views of the cache on its tensor-
+               core instance (csrc/batched_sm90.cu, `ft_gemm.plan_k5`) at
+               FT off, block, tile and inner against its plain version,
+               the SIMT instance pinned by its tiles at block, tile and
+               inner against its own, SEUs on both at each level (the new
+               one at k-step 0 of its 256-deep walk, the SIMT one at k-step
+               3 of its 32-deep one) with detect-only controls, and the kernels' device times (torch.profiler)
+               beside whole calls, FT off, the SIMT instance, the plain
+               versions, torch.matmul and the bound; K2 at the prefill shape
                (112 / 16 heads, S 128) on its tensor-core instance
                (csrc/flash_fwd_sm90.cu) against its plain version, with an
                SEU in S and one in Δ, beside the SIMT instance (pinned
@@ -40,18 +49,25 @@ Phases (each prints its own lines; any failed check exits non-zero):
                / attention call on the FT path), once timed without it; then
                one decode step and one prefill under torch.profiler (the
                device's busy time and idle share, kernels by time) and the
-               host time of one K1 call; the prefill profile again with
-               K2's SIMT instance pinned (`simt_flash_fwd`);
+               host time of one K1 call; the decode profile again with
+               K5's SIMT instance pinned (`simt_batched`), the prefill
+               profile again with K2's SIMT instance pinned
+               (`simt_flash_fwd`);
   level_kernels  K1 and K5 at the tile (warp) and inner (thread) FT levels
                against their plain versions on the card in bf16 at
                qwen2-7b's prefill and decode w_gate+silu, decode wk+bias,
-               decode lm_head and decode QKᵀ shapes: max error, reports equal, no detection on clean
-               data, an SEU on integer-valued operands corrected bit for
-               bit and located and left in place by a detect-only policy;
-               CUDA-event times beside FT off and block at the SIMT tiles
-               (the like-for-like ablation), block at the default plan (the
-               tensor cores), the bound, the plain version and the library
-               call;
+               decode lm_head, decode QKᵀ and PV shapes (K1 on its SIMT
+               instance, K5 on its tensor-core one): max error, reports
+               equal, no detection on clean data, an SEU on integer-valued
+               operands corrected bit for bit and located and left in
+               place by a detect-only policy; K1's CUDA-event times beside
+               FT off and block at the SIMT tiles (the like-for-like
+               ablation) and block at the default plan (the tensor cores);
+               K5's device times (torch.profiler) beside FT off, block and
+               torch.matmul on the same clock and instance, its whole
+               calls' CUDA-event times (the SIMT instance's too) under
+               their own keys; the bound, the plain version and the
+               library call;
   level_check  qwen2-7b at full width, 2 layers: prefill and 2 decode steps
                at each level through the kernels against their plain
                versions and against block (logits within 2e-2 of
@@ -262,6 +278,9 @@ F32_TOL = 1e-4
 #: The paper's GEMM anatomy: the tile (warp) and inner (thread) FT levels
 #: beside block; level_serve's greedy tokens.
 LEVELS = ("tile", "inner")
+K5_LEVELS = ("block",) + LEVELS
+#: K5's long-cache timing row (positions)
+LONG_CACHE = 4096
 LEVEL_NEW_TOKENS = 16
 #: The ladder: f32 squares, bound by the f32 rate of the CUDA cores (H100
 #: SXM, NVIDIA data sheet: 67 TFLOP/s without the tensor cores).
@@ -280,6 +299,14 @@ KERNELS = {
                        source="src/repro_torch/kernels/csrc/ft_gemm.cu",
                        replaces="src/repro/kernels/templates/registry.py:48",
                        counter=ft_gemm.FT_GEMM_2D_SIMT),
+    # K5 on the tensor cores: every bf16 call of at most 16 rows a slice
+    "ft_gemm_batched_sm90": dict(route="cuda",
+                                 source="src/repro_torch/kernels/csrc/"
+                                        "batched_sm90.cu",
+                                 replaces="src/repro/kernels/templates/"
+                                          "registry.py:518",
+                                 counter=ft_gemm.FT_GEMM_BATCHED_SM90),
+    # K5's SIMT instance: f32, more than 16 rows, pinned tiles
     "ft_gemm_batched": dict(route="cuda",
                             source="src/repro_torch/kernels/csrc/ft_gemm.cu",
                             replaces="src/repro/kernels/templates/"
@@ -390,6 +417,12 @@ def k1_launches(count: int, level: str = "block"):
             "ft_gemm_2d": 0 if sm90 else count}
 
 
+def k5_launches(count: int):
+    """K5's expected counts on a bf16 path (decode attention's cache
+    products, n_rep <= 16): every launch on the tensor-core instance."""
+    return {"ft_gemm_batched_sm90": count, "ft_gemm_batched": 0}
+
+
 def k2_launches(count: int):
     """K2's expected counts on a bf16 path at head dim 128: every launch on
     the tensor-core instance."""
@@ -446,27 +479,40 @@ def bound(flops: float, nbytes: float):
     return (t_op, "operations") if t_op >= t_by else (t_by, "bytes")
 
 
-def device_profile(fn):
-    """One call of ``fn`` under `torch.profiler` (CUDA activity only): the
-    host wall time to the end of the device work, the device's busy time
-    (the union of its kernel intervals), the idle share 1 - busy / wall, and
-    the kernels by total time. idle_share is None ("not measured") when the
-    trace holds no device event."""
+def device_events(fn, iters: int = 1, warmup: int = 0):
+    """``iters`` calls of ``fn``, after ``warmup`` more, under
+    `torch.profiler` (CUDA activity only): the device's kernel intervals as
+    (name, start, end) in µs, and the host wall time in µs from the first
+    call to the end of the device work."""
     from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        fn()
+        for _ in range(iters):
+            fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    spans, by_name = [], collections.Counter()
-    for e in prof.events():
-        if getattr(e, "device_type", None) != torch.autograd.DeviceType.CUDA:
-            continue
-        spans.append((e.time_range.start, e.time_range.end))
-        by_name[e.name[:60]] += e.time_range.end - e.time_range.start
+    spans = [(e.name, e.time_range.start, e.time_range.end)
+             for e in prof.events()
+             if getattr(e, "device_type", None)
+             == torch.autograd.DeviceType.CUDA]
+    return spans, wall_us
+
+
+def device_profile(fn):
+    """One call of ``fn`` (`device_events`): the host wall time to the end
+    of the device work, the device's busy time (the union of its kernel
+    intervals), the idle share 1 - busy / wall, and the kernels by total
+    time. idle_share is None ("not measured") when the trace holds no
+    device event."""
+    spans, wall_us = device_events(fn)
+    by_name = collections.Counter()
+    for name, lo, hi in spans:
+        by_name[name[:60]] += hi - lo
     busy, end = 0.0, -math.inf
-    for lo, hi in sorted(spans):
+    for _, lo, hi in sorted(spans, key=lambda x: x[1:]):
         lo = max(lo, end)
         if hi > lo:
             busy += hi - lo
@@ -475,6 +521,18 @@ def device_profile(fn):
                 idle_share=(1.0 - busy / wall_us) if spans else None,
                 kernels=len(spans),
                 top=[(n, round(t / 1e3, 3)) for n, t in by_name.most_common(6)])
+
+
+def kernel_device_ms(fn, iters: int = 50) -> float:
+    """The device time of one call of ``fn``: the summed durations of the
+    kernels it launches (`device_events` over ``iters`` calls after a
+    warm-up), per call. The host's time to launch each call does not
+    count, as it does in `time_ms` over back-to-back calls of a few
+    microseconds each."""
+    spans, _ = device_events(fn, iters, warmup=3)
+    total = sum(hi - lo for _, lo, hi in spans)
+    check(total > 0, "the profiler saw the call's kernels on the device")
+    return total / iters / 1e3
 
 
 def k1_host_us(a, b, calls: int = 200, **kw) -> float:
@@ -604,6 +662,144 @@ def _cmp_outputs(name, got, want, rep_k=None, rep_p=None, tol=BF16_TOL):
     return err
 
 
+def _k5_seus(label, a, b, simt):
+    """Deterministic SEUs of K5 on integer-valued operands, broadcast into
+    every slice, at each level: on the tensor-core instance at k-step 0 of
+    its 256-deep walk, and on the SIMT instance (pinned tiles) at k-step 3
+    of its 32-deep one; each corrected bit for bit and located, reports
+    equal to the plain version's under the same plan, and left in place
+    by a detect-only policy."""
+    m, n = a.shape[-2], b.shape[-1]
+    slices = a.shape[:-2].numel()
+    cases = [(lv, None, (1, -1, m - 1, n - 1, 0)) for lv in K5_LEVELS]
+    cases += [(lv, simt, (1, -1, m - 1, n - 1, 3)) for lv in K5_LEVELS]
+    for level, tiles, inj in cases:
+        ft = FT.replace(level=level)
+        where = "SIMT" if tiles else "tensor cores"
+        clean, _ = ft_gemm.ft_gemm(a, b, ft=ft, tiles=tiles)
+        out, rep = ft_gemm.ft_gemm(a, b, ft=ft, tiles=tiles, inj=inj,
+                                   inj_mag=500.0)
+        _, rep_p = _plain_gemm(a, b, ft=ft, tiles=tiles, inj=inj,
+                               inj_mag=500.0)
+        cells = rep[rep[..., 0] > 0]
+        check(torch.equal(out, clean)
+              and float(rep[..., 0].sum()) == slices
+              and float(rep[..., 1].sum()) == slices
+              and bool((cells[:, 2] == m - 1).all())
+              and bool((cells[:, 3] == n - 1).all())
+              and bool(((cells[:, 4] - 500.0).abs() < 1e-2).all())
+              and torch.equal(rep[..., :4], rep_p[..., :4]),
+              f"K5 {label} {level} ({where}): SEU at k-step {inj[4]} in "
+              f"each of {slices} slices corrected bit for bit, located, "
+              f"reports equal to the plain version's")
+        left, rep_d = ft_gemm.ft_gemm(a, b, ft=ft.replace(action="detect"),
+                                      tiles=tiles, inj=inj, inj_mag=500.0)
+        diff = (left != clean).reshape(slices, -1).sum(-1)
+        check(bool((diff == 1).all()) and float(rep_d[..., 1].sum()) == 0.0
+              and float(rep_d[..., 0].sum()) >= slices,
+              f"K5 {label} {level} ({where}): the same SEU left in place by "
+              f"a detect-only policy")
+
+
+def _k5_kernels(gen, cfg):
+    """K5 at qwen2-7b's decode attention shapes: the tensor-core instance
+    (csrc/batched_sm90.cu) at each level against its plain version, the
+    SIMT instance pinned by its tiles at each level against its own, SEUs
+    on both, and the times: the kernel alone on
+    the device's clock (`kernel_device_ms`), the whole wrapper call
+    (CUDA events over back-to-back calls), FT off, the SIMT instance, the
+    plain versions, one torch.matmul on the same views and the bound."""
+    kvh, rep_n = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
+    b_kv, dh = BATCH * kvh, cfg.head_dim
+    simt = ft_gemm.pick_tiles(rep_n)
+
+    def k5_operands(make, s=MAX_LEN):
+        k_cache, v_cache = (make(gen, BATCH, s, kvh, dh) for _ in range(2))
+        tail = "" if s == MAX_LEN else f", cache {s}"
+        return {"dec_qk" + tail: (make(gen, BATCH, kvh, rep_n, dh),
+                                  k_cache.permute(0, 2, 3, 1)),
+                "dec_pv" + tail: (make(gen, BATCH, kvh, rep_n, s),
+                                  v_cache.transpose(1, 2))}
+
+    new = dict(max_abs_err=0.0, detail=[], headline="dec_qk")
+    old = dict(max_abs_err=0.0, detail=[], headline="dec_qk")
+    counters = (ft_gemm.FT_GEMM_BATCHED_SM90, ft_gemm.FT_GEMM_BATCHED)
+    # The serving shapes, then a long cache (PV's 64 CTAs walk 16 k-steps:
+    # whether its grid starves there).
+    cases = {**k5_operands(_rand), **k5_operands(_rand, LONG_CACHE)}
+    for label, (a, b) in cases.items():
+        m, k, n = a.shape[-2], a.shape[-1], b.shape[-1]
+        p = ft_gemm.plan_call(a, b, ft=FT)
+        check(p.instance == "sm90" and p.tiles in ft_gemm.BATCHED_SM90_TILES,
+              f"K5 {label}: planned on the tensor-core instance ({p})")
+        for level in (None,) + K5_LEVELS:
+            ft = None if level is None else FT.replace(level=level)
+            before = [c.launches for c in counters]
+            out, rep = ft_gemm.ft_gemm(a, b, ft=ft)
+            check([c.launches - x for c, x in zip(counters, before)]
+                  == [1, 0], f"K5 {label} {level or 'FT off'}: one launch "
+                  f"of the tensor-core instance, none of the SIMT one")
+            out_p, rep_p = _plain_gemm(a, b, ft=ft)
+            new["max_abs_err"] = max(new["max_abs_err"], _cmp_outputs(
+                f"K5 {label} {level or 'FT off'}", out, out_p, rep, rep_p))
+            if rep is not None:
+                check(torch.equal(rep[..., :4], rep_p[..., :4]),
+                      f"K5 {label} {level}: report det / corr / row / col "
+                      f"equal")
+        for level in K5_LEVELS:
+            ft = FT.replace(level=level)
+            before = [c.launches for c in counters]
+            out, rep = ft_gemm.ft_gemm(a, b, ft=ft, tiles=simt)
+            check([c.launches - x for c, x in zip(counters, before)]
+                  == [0, 1], f"K5 SIMT {label} {level}: one launch of the "
+                  f"SIMT instance at the pinned tiles {simt}")
+            out_p, rep_p = _plain_gemm(a, b, ft=ft, tiles=simt)
+            old["max_abs_err"] = max(old["max_abs_err"], _cmp_outputs(
+                f"K5 SIMT {label} {level}", out, out_p, rep, rep_p))
+        b_dense = b.contiguous()
+        runs = {
+            "ms": lambda: ft_gemm.ft_gemm(a, b, ft=FT),
+            "ft_off_ms": lambda: ft_gemm.ft_gemm(a, b),
+            "contiguous_b_ms": lambda: ft_gemm.ft_gemm(a, b_dense, ft=FT),
+            "simt_ms": lambda: ft_gemm.ft_gemm(a, b, ft=FT, tiles=simt),
+            "simt_contiguous_b_ms": lambda: ft_gemm.ft_gemm(
+                a, b_dense, ft=FT, tiles=simt),
+            "library_ms": lambda: torch.matmul(a, b)}
+        dev = {key: kernel_device_ms(fn, 50) for key, fn in runs.items()}
+        call = {key: time_ms(fn, 50) for key, fn in runs.items()}
+        plain_ms = time_ms(lambda: _plain_gemm(a, b, ft=FT), 2)
+        simt_plain_ms = time_ms(lambda: _plain_gemm(a, b, ft=FT, tiles=simt),
+                                2)
+        b_ms, b_by = bound(2.0 * b_kv * m * n * k,
+                           2 * b_kv * (m * k + k * n + m * n))
+        base = dict(shape=label, batch=b_kv, M=m, N=n, K=k, bound_ms=b_ms,
+                    bound_by=b_by, library_ms=dev["library_ms"],
+                    library_call_ms=call["library_ms"])
+        new["detail"].append(dict(
+            base, tiles=p.tiles, ms=dev["ms"], call_ms=call["ms"],
+            ft_off_ms=dev["ft_off_ms"], contiguous_b_ms=dev["contiguous_b_ms"],
+            simt_ms=dev["simt_ms"], simt_call_ms=call["simt_ms"],
+            plain_ms=plain_ms))
+        old["detail"].append(dict(
+            base, tiles=simt, ms=dev["simt_ms"], call_ms=call["simt_ms"],
+            contiguous_b_ms=dev["simt_contiguous_b_ms"],
+            plain_ms=simt_plain_ms))
+        print(f"  K5 {label} ({BATCH}x{kvh}x{m}x{n}x{k}, B a strided view of "
+              f"the cache), device ms: tensor cores {dev['ms']:.5f} (tiles "
+              f"{p.tiles}; FT off {dev['ft_off_ms']:.5f}, contiguous B "
+              f"{dev['contiguous_b_ms']:.5f}), SIMT {dev['simt_ms']:.5f} "
+              f"({dev['simt_ms'] / dev['ms']:.1f}x; contiguous B "
+              f"{dev['simt_contiguous_b_ms']:.5f}), torch.matmul "
+              f"{dev['library_ms']:.5f}, bound {b_ms:.5f} ({b_by}); whole "
+              f"calls (CUDA events) {call['ms']:.4f} / SIMT "
+              f"{call['simt_ms']:.4f} / torch.matmul "
+              f"{call['library_ms']:.4f} ms; plain {plain_ms:.3f} ms (SIMT "
+              f"tiles {simt_plain_ms:.3f})")
+    for label, (a, b) in k5_operands(_ints).items():
+        _k5_seus(label, a, b, simt)
+    return {"ft_gemm_batched_sm90": new, "ft_gemm_batched": old}
+
+
 def phase_kernels():
     gen = torch.Generator(device="cuda").manual_seed(0)
     cfg = qwen2_7b.CONFIG
@@ -678,49 +874,10 @@ def phase_kernels():
     # ---- K5: the batched ABFT GEMM at the decode attention operands ------
     # As `blocks.decode_attention` passes them: the grouped queries / probs
     # (B, KVH, rep, ·) against strided views of the (B, S, KVH, dh) cache.
-    kvh, rep_n = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads
-    b_kv, dh = BATCH * kvh, cfg.head_dim
-
-    def k5_operands(make):
-        k_cache, v_cache = (make(gen, BATCH, MAX_LEN, kvh, dh)
-                            for _ in range(2))
-        return {"dec_qk": (make(gen, BATCH, kvh, rep_n, dh),
-                           k_cache.permute(0, 2, 3, 1)),
-                "dec_pv": (make(gen, BATCH, kvh, rep_n, MAX_LEN),
-                           v_cache.transpose(1, 2))}
-
-    k5_err, k5_rows = 0.0, []
-    for label, (a, b) in k5_operands(_rand).items():
-        m, k, n = a.shape[-2], a.shape[-1], b.shape[-1]
-        out, rep = ft_gemm.ft_gemm(a, b, ft=FT)
-        out_p, rep_p = _plain_gemm(a, b, ft=FT)
-        k5_err = max(k5_err, _cmp_outputs(f"K5 {label}", out, out_p, rep,
-                                          rep_p))
-        ms = time_ms(lambda: ft_gemm.ft_gemm(a, b, ft=FT), 20)
-        b_dense = b.contiguous()
-        ms_dense = time_ms(lambda: ft_gemm.ft_gemm(a, b_dense, ft=FT), 20)
-        plain_ms = time_ms(lambda: _plain_gemm(a, b, ft=FT), 2)
-        lib_ms = time_ms(lambda: torch.matmul(a, b), 20)
-        b_ms, b_by = bound(2.0 * b_kv * m * n * k,
-                           2 * b_kv * (m * k + k * n + m * n))
-        k5_rows.append(dict(shape=label, batch=b_kv, M=m, N=n, K=k, ms=ms,
-                            contiguous_b_ms=ms_dense, plain_ms=plain_ms,
-                            library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by))
-        print(f"  K5 {label} ({BATCH}x{kvh}x{m}x{n}x{k}, B a strided view "
-              f"of the cache): kernel {ms:.4f} ms (contiguous B "
-              f"{ms_dense:.4f} ms), plain {plain_ms:.3f} ms, library "
-              f"{lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
-    a, b = k5_operands(_ints)["dec_pv"]
-    clean, _ = ft_gemm.ft_gemm(a, b, ft=FT)
-    out, rep = ft_gemm.ft_gemm(a, b, ft=FT, inj=(1, -1, rep_n - 1, dh - 1, 3),
-                               inj_mag=500.0)
-    cell = rep[:, :, 0, 0]
-    check(torch.equal(out, clean) and float(rep[..., 0].sum()) == b_kv
-          and bool((cell[..., 2] == rep_n - 1).all())
-          and bool((cell[..., 3] == dh - 1).all()),
-          "K5 SEU broadcast into every slice, corrected bit for bit, located")
-    rows["ft_gemm_batched"] = dict(max_abs_err=k5_err, detail=k5_rows,
-                                   headline="dec_qk")
+    # The tensor-core instance under `plan_k5` at each level and FT off
+    # against its plain version under the same plan; the SIMT instance
+    # pinned by its tiles against its own.
+    rows.update(_k5_kernels(gen, cfg))
 
     # ---- K2: flash attention at the prefill shape -------------------------
     rows.update(_flash_fwd_kernels(gen, "qwen2-7b prefill", cfg.n_heads,
@@ -793,6 +950,25 @@ def simt_grouped():
         yield
     finally:
         grouped_gemm.ft_gemm_grouped, grouped_gemm.tgmm = saved
+
+
+@contextmanager
+def simt_batched():
+    """Pin the SIMT tiles on every K5 call: the batched GEMM as it ran
+    before its tensor-core instance, for the profiles' "before" in the
+    same run."""
+    saved = ft_gemm.ft_gemm
+
+    def pinned(a, b, *, tiles=None, **kw):
+        if a.dim() > 2 and tiles is None:
+            tiles = ft_gemm.pick_tiles(a.shape[-2])
+        return saved(a, b, tiles=tiles, **kw)
+
+    ft_gemm.ft_gemm = pinned
+    try:
+        yield
+    finally:
+        ft_gemm.ft_gemm = saved
 
 
 @contextmanager
@@ -1014,13 +1190,14 @@ def _serve_run(name, params, cfg, run, prompts, new_tokens):
     per_step = cfg.n_layers * 7 + 1
     check(launches == {**k1_launches(per_step * (new_tokens + 1),
                                      run.ft.level),
-                       "ft_gemm_batched": 2 * cfg.n_layers * new_tokens,
+                       **k5_launches(2 * cfg.n_layers * new_tokens),
                        **k2_launches(cfg.n_layers), **NO_FLASH_BWD,
                        **k6_launches(0), **OFF_PATH},
           f"{name}: launch counts K1 {per_step} per prefill and per decode "
           f"step (every one on the {'tensor-core' if run.ft.level == 'block' else 'SIMT'} "
-          f"instance), K5 {2 * cfg.n_layers} per decode step, K2 "
-          f"{cfg.n_layers} per prefill (on the tensor-core instance)")
+          f"instance), K5 {2 * cfg.n_layers} per decode step (every one on "
+          f"the tensor-core instance), K2 {cfg.n_layers} per prefill (on the "
+          f"tensor-core instance)")
     check(totals["detected"] == 0, f"{name}: zero detections")
     prefill_fn, decode_fn = serve.make_serve_fns(cfg, run)
     prompts_d = torch.as_tensor(prompts).cuda()
@@ -1033,13 +1210,19 @@ def _serve_run(name, params, cfg, run, prompts, new_tokens):
         torch.cuda.synchronize()
         pre.append((time.perf_counter() - t0) * 1e3)
     tok = torch.argmax(logits, -1)[:, None]
-    dec = []
+    dec, k5_steps = [], []
+    k5 = (ft_gemm.FT_GEMM_BATCHED_SM90, ft_gemm.FT_GEMM_BATCHED)
     for _ in range(8):
+        before = [c.launches for c in k5]
         t0 = time.perf_counter()
         logits, cache = decode_fn(params, tok, cache)
         tok = torch.argmax(logits.reshape(BATCH, -1), -1)[:, None]
         torch.cuda.synchronize()
         dec.append((time.perf_counter() - t0) * 1e3)
+        k5_steps.append([c.launches - x for c, x in zip(k5, before)])
+    check(all(x == [2 * cfg.n_layers, 0] for x in k5_steps),
+          f"{name}: each of 8 decode steps launches K5's tensor-core "
+          f"instance {2 * cfg.n_layers} times, its SIMT instance never")
     prefill_ms, decode_ms = statistics.median(pre), statistics.median(dec)
     print(f"  {name}: prefill {prefill_ms:.1f} ms median of "
           f"{[round(x, 1) for x in pre]} ({BATCH}x{PROMPT} tokens), decode "
@@ -1057,6 +1240,9 @@ def _serve_run(name, params, cfg, run, prompts, new_tokens):
                 params, state["tok"], state["cache"])
 
         prof["decode"] = device_profile(one_decode)
+        with simt_batched():
+            prof["decode SIMT K5"] = device_profile(one_decode)
+        prof["decode again"] = device_profile(one_decode)
         fresh = transformer.init_cache(cfg, BATCH, MAX_LEN)
         prof["prefill"] = device_profile(
             lambda: prefill_fn(params, prompts_d, fresh))
@@ -1108,6 +1294,10 @@ def phase_level_kernels():
             k_cache = make((BATCH, MAX_LEN, kvh, dh), 1.0)
             return (make((BATCH, kvh, rep_n, dh), 1.0),
                     k_cache.permute(0, 2, 3, 1), (), {}, BATCH * kvh)
+        if label == "dec_pv":
+            v_cache = make((BATCH, MAX_LEN, kvh, dh), 1.0)
+            return (make((BATCH, kvh, rep_n, MAX_LEN), 1.0),
+                    v_cache.transpose(1, 2), (), {}, BATCH * kvh)
         m = BATCH * PROMPT if label.startswith("prefill") else BATCH
         a = make((m, d), 1.0)
         if label == "decode wk+bias":
@@ -1124,55 +1314,92 @@ def phase_level_kernels():
         return _ints(gen, *shape)
 
     rows = {"ft_gemm_2d": dict(max_abs_err=0.0, detail=[]),
-            "ft_gemm_batched": dict(max_abs_err=0.0, detail=[])}
+            "ft_gemm_batched_sm90": dict(max_abs_err=0.0, detail=[])}
     for label, name in (("prefill w_gate+silu", "ft_gemm_2d"),
                         ("decode w_gate+silu", "ft_gemm_2d"),
                         ("decode wk+bias", "ft_gemm_2d"),
                         ("decode lm_head", "ft_gemm_2d"),
-                        ("dec_qk", "ft_gemm_batched")):
+                        ("dec_qk", "ft_gemm_batched_sm90"),
+                        ("dec_pv", "ft_gemm_batched_sm90")):
         a, b, chain, kw, nb = operands(rnd, label)
         m, k, n = a.shape[-2], a.shape[-1], b.shape[-1]
+        # K1 runs the levels on its SIMT instance, K5 on the tensor cores.
+        counter = (ft_gemm.FT_GEMM_BATCHED_SM90 if a.dim() > 2
+                   else ft_gemm.FT_GEMM_2D_SIMT)
         iters = 3 if m == BATCH * PROMPT else 10
-        # FT off and block at the SIMT tiles (the like-for-like ablation of
-        # the levels) and block at the default plan (the tensor cores).
         simt = ft_gemm.pick_tiles(m)
-        off_ms = time_ms(lambda: ft_gemm.ft_gemm(a, b, chain=chain,
-                                                 tiles=simt, **kw), iters)
-        block_ms = time_ms(lambda: ft_gemm.ft_gemm(a, b, chain=chain, ft=FT,
-                                                   tiles=simt, **kw), iters)
-        block_default_ms = time_ms(lambda: ft_gemm.ft_gemm(
-            a, b, chain=chain, ft=FT, **kw), iters)
-        lib_ms = time_ms((lambda: torch.addmm(kw["bias"], a, b)) if kw
-                         else (lambda: torch.matmul(a, b)), iters)
+        lib = ((lambda: torch.addmm(kw["bias"], a, b)) if kw
+               else (lambda: torch.matmul(a, b)))
+        if a.dim() > 2:
+            # K5: its few-µs kernels on the device's own clock, FT off, block
+            # and the library call beside the level on the same instance (the
+            # tensor cores); the whole calls' CUDA-event times, the SIMT
+            # instance's included, under their own keys.
+            off_ms = kernel_device_ms(lambda: ft_gemm.ft_gemm(a, b))
+            block_ms = kernel_device_ms(lambda: ft_gemm.ft_gemm(a, b, ft=FT))
+            lib_ms = kernel_device_ms(lib)
+            calls = dict(
+                block_call_ms=time_ms(lambda: ft_gemm.ft_gemm(a, b, ft=FT),
+                                      iters),
+                simt_ft_off_call_ms=time_ms(lambda: ft_gemm.ft_gemm(
+                    a, b, tiles=simt), iters),
+                simt_block_call_ms=time_ms(lambda: ft_gemm.ft_gemm(
+                    a, b, ft=FT, tiles=simt), iters),
+                library_call_ms=time_ms(lib, iters))
+            where = "on the device, tensor cores"
+        else:
+            # K1: FT off and block at the SIMT tiles (the like-for-like
+            # ablation of the levels) and block at the default plan (the
+            # tensor cores), CUDA events over back-to-back calls.
+            off_ms = time_ms(lambda: ft_gemm.ft_gemm(a, b, chain=chain,
+                                                     tiles=simt, **kw), iters)
+            block_ms = time_ms(lambda: ft_gemm.ft_gemm(
+                a, b, chain=chain, ft=FT, tiles=simt, **kw), iters)
+            lib_ms = time_ms(lib, iters)
+            calls = dict(block_default_ms=time_ms(lambda: ft_gemm.ft_gemm(
+                a, b, chain=chain, ft=FT, **kw), iters))
+            where = f"at the SIMT tiles {simt}"
         b_ms, b_by = bound(2.0 * nb * m * n * k,
                            2 * nb * (m * k + k * n + m * n)
                            + sum(2 * x.numel() for x in kw.values()))
         for level in LEVELS:
             ft = FT.replace(level=level)
+            before = counter.launches
             out, rep = ft_gemm.ft_gemm(a, b, chain=chain, ft=ft, **kw)
+            check(counter.launches == before + 1,
+                  f"{level} {label}: one launch of "
+                  f"{'the tensor-core' if a.dim() > 2 else 'the SIMT'} "
+                  f"instance")
             out_p, rep_p = _plain_gemm(a, b, chain=chain, ft=ft, **kw)
             err = _cmp_outputs(f"{level} {label}", out, out_p, rep, rep_p)
             check(torch.equal(rep[..., :4], rep_p[..., :4]),
                   f"{level} {label}: report det / corr / row / col equal")
             ms = time_ms(lambda: ft_gemm.ft_gemm(a, b, chain=chain, ft=ft,
                                                  **kw), iters)
+            extra = dict(calls)
+            if a.dim() > 2:
+                extra["call_ms"] = ms
+                ms = kernel_device_ms(lambda: ft_gemm.ft_gemm(a, b, ft=ft))
             plain_ms = time_ms(lambda: _plain_gemm(a, b, chain=chain, ft=ft,
                                                    **kw), 1, warmup=0)
             rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
             rows[name]["detail"].append(dict(
                 shape=f"{label} ({level})", level=level, batch=nb, M=m, N=n,
                 K=k, ms=ms, ft_off_ms=off_ms, block_ms=block_ms,
-                block_default_ms=block_default_ms, plain_ms=plain_ms,
-                library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by))
-            print(f"  {level} {label} ({nb}x{m}x{n}x{k}): kernel {ms:.4f} ms, "
-                  f"at the SIMT tiles {simt} FT off {off_ms:.4f} ms and "
-                  f"block {block_ms:.4f} ms ({ms / off_ms:.3f}x FT off, "
-                  f"{ms / block_ms:.3f}x block); block at the default plan "
-                  f"{block_default_ms:.4f} ms; plain {plain_ms:.3f} ms, "
-                  f"library {lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
-        # A deterministic SEU on integer-valued operands, in every slice.
+                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                bound_by=b_by, **extra))
+            print(f"  {level} {label} ({nb}x{m}x{n}x{k}), {where}: kernel "
+                  f"{ms:.5f} ms, FT off {off_ms:.5f} ms, block "
+                  f"{block_ms:.5f} ms ({ms / off_ms:.3f}x FT off, "
+                  f"{ms / block_ms:.3f}x block), library {lib_ms:.5f} ms; "
+                  f"bound {b_ms:.5f} ms ({b_by}); plain {plain_ms:.3f} ms; "
+                  + ", ".join(f"{x} {y:.4f}" for x, y in extra.items()))
+        # A deterministic SEU on integer-valued operands, in every slice, at
+        # a k-step mid-way in the walk of the instance the plan picks.
         a, b, chain, kw, nb = operands(ints, label)
-        row, col, step = m - 1, n - 3, ft_gemm.cdiv(k, 32) // 2
+        bk = ft_gemm.plan_call(a, b, chain=chain,
+                               ft=FT.replace(level=LEVELS[0])).tiles[2]
+        row, col, step = m - 1, n - 3, ft_gemm.cdiv(k, bk) // 2
         inj = (1, -1, row, col, step)
         for level in LEVELS:
             ft = FT.replace(level=level)
@@ -1848,7 +2075,7 @@ def phase_engine(seed: int, smi: str):
           f"dispatched ({sorted(set(guard.hits))})")
     per = cfg.n_layers * 7 + 1
     expect = {**k1_launches(per * (ENGINE_REQUESTS + steps)),
-              "ft_gemm_batched": 0,
+              **k5_launches(0),
               **k2_launches(cfg.n_layers * ENGINE_REQUESTS), **NO_FLASH_BWD,
               **k6_launches(cfg.n_layers * steps),
               **OFF_PATH}
@@ -2458,7 +2685,7 @@ def phase_train(smi: str):
           "train: a finite loss at every step")
     check(all(h["detected"] == 0 for h in out["history"]),
           "train: zero detections")
-    expect = {**k1_launches(28 * cfg.n_layers + 3), "ft_gemm_batched": 0,
+    expect = {**k1_launches(28 * cfg.n_layers + 3), **k5_launches(0),
               **k2_launches(2 * cfg.n_layers),
               **flash_bwd_launches(cfg, cfg.n_layers), **k6_launches(0),
               **OFF_PATH}
@@ -3094,7 +3321,7 @@ def phase_moe_engine(seed: int, smi: str):
           f"router's f32 product ({sorted(set(guard.hits))})")
     per = 4 * cfg.n_layers + 1
     calls = ENGINE_REQUESTS + steps
-    expect = {**k1_launches(per * calls), "ft_gemm_batched": 0,
+    expect = {**k1_launches(per * calls), **k5_launches(0),
               **k2_launches(cfg.n_layers * ENGINE_REQUESTS), **NO_FLASH_BWD,
               **k6_launches(cfg.n_layers * steps),
               "ft_gemm_grouped_sm90": 3 * cfg.n_layers * calls,
@@ -3188,7 +3415,7 @@ def phase_moe_train(smi: str):
     # Per layer: K1 4 attention projections forward, again in the remat
     # recompute, and dx + dw each in the backward (16), lm_head 3; K7 3
     # expert GEMMs forward, in the recompute and as dbuf (9); K8 3 dw.
-    expect = {**k1_launches(16 * n_l + 3), "ft_gemm_batched": 0,
+    expect = {**k1_launches(16 * n_l + 3), **k5_launches(0),
               **k2_launches(2 * n_l), **flash_bwd_launches(cfg, n_l),
               **k6_launches(0), "ft_gemm_grouped_sm90": 9 * n_l,
               "ft_gemm_grouped": 0, "tgmm_sm90": 3 * n_l, "tgmm": 0,

@@ -24,8 +24,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 REPO_ROOT = Path(__file__).resolve().parents[3]
 BUILD_DIR = REPO_ROOT / "build" / "repro_torch"
 SOURCES = ("ft_gemm", "ft_gemm_sm90", "grouped_sm90", "flash_bwd_sm90",
-           "flash_fwd_sm90", "flash_decode_sm90", "flash_ft", "flash_ft_bwd",
-           "flash_decode", "tgmm", "gemm_naive")
+           "flash_fwd_sm90", "flash_decode_sm90", "batched_sm90", "flash_ft",
+           "flash_ft_bwd", "flash_decode", "tgmm", "gemm_naive")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,5 +1,6 @@
-"""ABFT GEMM — wrapper of the CUDA kernels `csrc/ft_gemm.cu` (SIMT) and
-`csrc/ft_gemm_sm90.cu` (tensor cores), and their plain PyTorch version.
+"""ABFT GEMM — wrapper of the CUDA kernels `csrc/ft_gemm.cu` (SIMT),
+`csrc/ft_gemm_sm90.cu` and `csrc/batched_sm90.cu` (tensor cores), and their
+plain PyTorch version.
 
 Replaces the TPU kernels K1 (2-D) and K5 (uniform batched) of the JAX
 package: `repro/kernels/templates/emit.py:render`, launched by
@@ -10,9 +11,13 @@ chain is an optional bias then an optional silu and whose operands
 TMA can read (a unit-stride dim, the other stride a multiple of 8
 elements, 16-byte aligned bases), runs on the tensor cores at
 `SM90_TILES`; every other call on the SIMT kernel at `TILES`, whose 2-D
-kernel is its batched kernel with batch 1. Each instance has its own launch
-counter (`FT_GEMM_SM90`, `FT_GEMM_2D_SIMT`, `FT_GEMM_BATCHED`);
-`FT_GEMM_2D` is K1's 2-D total.
+kernel is its batched kernel with batch 1. `plan_k5` does the same for a
+batched call: a bf16 call of at most 16 rows a slice with no epilogue
+chain, whose operands the 16-byte copies can read, runs at any FT level on
+the tensor cores at `BATCHED_SM90_TILES` (16 rows, 256-deep k-steps);
+every other one on the SIMT kernel. Each instance has its own launch
+counter (`FT_GEMM_SM90`, `FT_GEMM_2D_SIMT`, `FT_GEMM_BATCHED_SM90`,
+`FT_GEMM_BATCHED`); `FT_GEMM_2D` is K1's 2-D total, `FT_GEMM_K5` K5's.
 
 Three FT levels, the paper's threadblock / warp / thread granularities
 (`repro/kernels/ftgemm.py:9-21`):
@@ -47,7 +52,8 @@ balanced ranges, each verified as its own accumulator, then summed and
 verified at k = K, the reports merged by the rule of `merge_reports`.
 
 What bounds the kernels on the H100 and what their designs do about it is
-in the headers of `csrc/ft_gemm.cu` and `csrc/ft_gemm_sm90.cu`.
+in the headers of `csrc/ft_gemm.cu`, `csrc/ft_gemm_sm90.cu` and
+`csrc/batched_sm90.cu`.
 """
 from __future__ import annotations
 
@@ -63,7 +69,8 @@ from ..core.abft import F32EPS
 from ..core.policy import FTConfig
 from . import build
 from .templates import epilogues
-from .templates.spec import TILES, KernelSpec, band_of, validate
+from .templates.spec import (BATCHED_SM90_TILES, TILES, KernelSpec,
+                             band_of, validate)
 
 #: FT level → the kernel's LEVEL code.
 LEVELS = {"block": 0, "tile": 1, "inner": 2}
@@ -92,6 +99,15 @@ FT_GEMM_SM90 = build.Kernel("ft_gemm_sm90", "ft_gemm_sm90_launch",
                             _SM90_ARGTYPES)
 #: Every 2-D K1 launch, on either instance.
 FT_GEMM_2D = build.LaunchTotal(FT_GEMM_2D_SIMT, FT_GEMM_SM90)
+_B_SM90_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
+                    + [ctypes.c_longlong] * 2 + [ctypes.c_int]
+                    + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 6
+                    + [ctypes.c_float] + [ctypes.c_int] * 5
+                    + [ctypes.c_float, ctypes.c_void_p])
+FT_GEMM_BATCHED_SM90 = build.Kernel("batched_sm90", "batched_sm90_launch",
+                                    _B_SM90_ARGTYPES)
+#: Every K5 launch, on either instance.
+FT_GEMM_K5 = build.LaunchTotal(FT_GEMM_BATCHED, FT_GEMM_BATCHED_SM90)
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -114,10 +130,11 @@ SPLIT_RECORD = 272
 
 @dataclasses.dataclass(frozen=True)
 class Plan:
-    """How one call runs. ``instance``: "sm90" (csrc/ft_gemm_sm90.cu),
-    "simt" (csrc/ft_gemm.cu) or "plain" (tiles no kernel compiles: the
-    plain version only, on the CPU). ``a_kmajor`` / ``b_kmajor``: the unit-
-    stride dim of each operand on the tensor-core walk; ``reason``: why the
+    """How one call runs. ``instance``: "sm90" (csrc/ft_gemm_sm90.cu for a
+    2-D call, csrc/batched_sm90.cu for a batched one), "simt"
+    (csrc/ft_gemm.cu) or "plain" (tiles no kernel compiles: the plain
+    version only, on the CPU). ``a_kmajor`` / ``b_kmajor``: the unit-stride
+    dim of each operand on the tensor-core walk; ``reason``: why the
     tensor-core instance does not take the call ("" when it does)."""
     instance: str
     tiles: Tuple[int, int, int]
@@ -229,10 +246,80 @@ def plan(m: int, n: int, k: int, *, dtype, level: str,
     return Plan("simt" if tiles in TILES else "plain", tiles, reason=why)
 
 
+def _k5_walk(k: int, n: int, s_k: int, s_n: int) -> Optional[bool]:
+    """True if K5's (K, N) operand B has unit-stride k (staged as [n][k]
+    rows), False for unit-stride n, None if the 16-byte copies cannot read
+    it: the other stride must be a multiple of 8 elements, unless that
+    other dim is 1 (only its index 0 is read)."""
+    if s_k == 1 and (s_n % 8 == 0 or n == 1):
+        return True
+    if s_n == 1 and (s_k % 8 == 0 or k == 1):
+        return False
+    return None
+
+
+@functools.lru_cache(maxsize=4096)
+def plan_k5(m: int, n: int, k: int, *, dtype,
+            chain: Tuple[str, ...] = (), a_strides: Sequence[int],
+            b_strides: Sequence[int], aligned: bool = True,
+            tiles: Optional[Sequence[int]] = None) -> Plan:
+    """The instance and tiles of a batched (…, M, K) x (…, K, N) call.
+
+    ``a_strides`` / ``b_strides`` are the four element strides (two batch
+    dims, then row and column; zeros for absent batch dims and for a
+    shared B). The tensor-core instance takes a bf16 call of at most 16
+    rows with no epilogue chain at any FT level ("off" included), A read
+    along k and B along k or n (`_k5_walk`), every other stride a multiple
+    of 8 elements and both bases 16-byte aligned; it runs at
+    `BATCHED_SM90_TILES`. Every other call, and any call whose ``tiles``
+    pin the SIMT instance, runs on the SIMT kernel at `pick_tiles(M)`; tensor-core tiles raise
+    ValueError for a call that instance cannot take. Cached like `plan`."""
+    why = ""
+    sa0, sa1, sam, sak = a_strides
+    sb0, sb1, sbk, sbn = b_strides
+    b_k = _k5_walk(k, n, sbk, sbn)
+    if dtype != torch.bfloat16:
+        why = f"dtype {dtype}"
+    elif m > BATCHED_SM90_TILES[0][0]:
+        why = f"M = {m} rows (the instance takes at most 16)"
+    elif chain:
+        why = f"the epilogue chain {chain}"
+    elif (sak != 1 or (sam % 8 and m > 1) or b_k is None
+          or any(x % 8 for x in (sa0, sa1, sb0, sb1))):
+        why = (f"strides A {tuple(a_strides)}, B {tuple(b_strides)} (the "
+               f"16-byte copies need A along k, B along k or n, and every "
+               f"other stride a multiple of 8)")
+    elif not aligned:
+        why = "a base pointer not 16-byte aligned"
+    elif tiles is not None and tuple(tiles) not in BATCHED_SM90_TILES:
+        why = f"the pinned tiles {tuple(tiles)}"
+    if tiles is None:
+        tiles = pick_tiles(m) if why else BATCHED_SM90_TILES[0]
+    tiles = tuple(tiles)
+    if tiles in BATCHED_SM90_TILES:
+        if why:
+            raise ValueError(f"ft_gemm: the tensor-core tiles {tiles} do not "
+                             f"take {why}")
+        return Plan("sm90", tiles, b_kmajor=b_k)
+    return Plan("simt" if tiles in TILES else "plain", tiles, reason=why)
+
+
 def plan_call(a: torch.Tensor, b: torch.Tensor, *, chain=(), ft=None,
               save_act_grad: bool = False, tiles=None) -> Plan:
-    """`plan` of a call of `ft_gemm` on these operands."""
+    """`plan` of a call of `ft_gemm` on these operands, or `plan_k5` of a
+    batched one."""
     level = ft.level if (ft is not None and ft.enabled) else "off"
+    if a.dim() > 2:
+        sb = ((0, 0) + tuple(b.stride()))[-4:] if b.dim() > 2 \
+            else (0, 0) + tuple(b.stride())
+        return plan_k5(a.shape[-2], b.shape[-1], a.shape[-1],
+                       dtype=a.dtype,
+                       chain=tuple(chain),
+                       a_strides=((0, 0) + tuple(a.stride()))[-4:],
+                       b_strides=sb,
+                       aligned=a.data_ptr() % 16 == 0
+                       and b.data_ptr() % 16 == 0,
+                       tiles=None if tiles is None else tuple(tiles))
     return plan(a.shape[-2], b.shape[-1], a.shape[-1], dtype=a.dtype,
                 level=level, chain=tuple(chain), act_grad=save_act_grad,
                 a_strides=tuple(a.stride()[-2:]),
@@ -567,7 +654,8 @@ def ft_gemm(a: torch.Tensor, b: torch.Tensor, *,
     if a.device.type != "cuda":
         raise ValueError(f"ft_gemm: unsupported device {a.device}")
     if p.instance == "sm90":
-        return _launch_sm90(a, b, p, **kw)
+        return (_launch_batched_sm90 if a.dim() > 2 else _launch_sm90)(
+            a, b, p, **kw)
     return _launch(a, b, tiles=p.tiles, **kw)
 
 
@@ -630,6 +718,43 @@ def _launch_sm90(a, b, p: Plan, *, chain, bias, residual, ft, inj, inj_mag,
                  int(on), row, col, k_step, float(inj_mag) if on else 0.0,
                  torch.cuda.current_stream(a.device).cuda_stream)
     return ((out, act_grad) if save_act_grad else out), rep
+
+
+def _launch_batched_sm90(a, b, p: Plan, *, chain, bias, residual, ft, inj,
+                         inj_mag, save_act_grad):
+    ft_on, level, _ = _check_ft(ft, p.tiles, save_act_grad)
+    build.check_device(a)
+    shared = b.dim() == 2
+    if a.dim() not in (3, 4) or not (shared or b.dim() == a.dim()):
+        raise ValueError(f"ft_gemm: bad ranks {tuple(a.shape)} x "
+                         f"{tuple(b.shape)}")
+    lead = tuple(a.shape[:-2])
+    m, k = a.shape[-2:]
+    n = b.shape[-1]
+    if (b.shape[-2] != k or (not shared and tuple(b.shape[:-2]) != lead)
+            or b.device != a.device or b.dtype != a.dtype):
+        raise ValueError(f"ft_gemm: operands {tuple(a.shape)} {a.dtype} x "
+                         f"{tuple(b.shape)} {b.dtype} do not match")
+    if chain or bias is not None or residual is not None or save_act_grad:
+        raise ValueError("ft_gemm: the batched tensor-core instance takes no "
+                         "epilogue chain")
+    nb0, nb1 = ((1, 1) + lead)[-2:]
+    sa = ((0, 0) + a.stride())[-4:]
+    sb = (0, 0) + b.stride() if shared else ((0, 0) + b.stride())[-4:]
+    out = torch.empty(lead + (m, n), dtype=a.dtype, device=a.device)
+    rep = (torch.empty(lead + (1, cdiv(n, p.tiles[1]), REPORT_WIDTH),
+                       dtype=torch.float32, device=a.device)
+           if ft_on else None)
+    inj = tuple(inj) if (ft_on and inj is not None) else (0, 0, 0, 0, 0)
+    FT_GEMM_BATCHED_SM90(
+        a.data_ptr(), b.data_ptr(), out.data_ptr(),
+        None if rep is None else rep.data_ptr(), nb0, nb1, m, n, k,
+        sa[0], sa[1], sa[2], sb[0], sb[1], sb[3] if p.b_kmajor else sb[2],
+        int(p.b_kmajor), int(ft_on), LEVELS.get(level, 0),
+        int(ft_on and ft.verify == "step"), int(ft_on and ft.corrects),
+        ft.rel_tau * F32EPS if ft_on else 0.0, *inj, float(inj_mag),
+        torch.cuda.current_stream(a.device).cuda_stream)
+    return out, rep
 
 
 def _launch(a, b, *, chain, bias, residual, ft, inj, inj_mag, tiles,

@@ -110,6 +110,12 @@ TILES = ((64, 64, 32), (16, 128, 32))
 #: Rows of one "tile"-level checksum band of each compiled tile, in the
 #: order of TILES: the rows one of the CTA's 8 warps owns (bm / 8).
 BANDS = (8, 2)
+#: K5's tensor-core tiles (csrc/batched_sm90.cu): 16 rows, the rows of one
+#: m16n8k16 fragment, 32 columns, and the 256-deep k-step.
+BATCHED_SM90_TILES = ((16, 32, 256),)
+#: Their "tile"-level band: the whole 16-row block (at M <= 16 the
+#: reference's 128-row band covers the same rows).
+BATCHED_SM90_BAND = 16
 #: The reference's band (its 128-row MXU edge), taken at any other tiles:
 #: the CPU tests run the plain version at the reference's tiles.
 REFERENCE_BAND = 128
@@ -119,7 +125,11 @@ def band_of(tiles: Sequence[int]) -> int:
     """The "tile"-level band at ``tiles``: the kernel's for compiled
     tiles, the reference's otherwise."""
     tiles = tuple(tiles)
-    return BANDS[TILES.index(tiles)] if tiles in TILES else REFERENCE_BAND
+    if tiles in TILES:
+        return BANDS[TILES.index(tiles)]
+    if tiles in BATCHED_SM90_TILES:
+        return BATCHED_SM90_BAND
+    return REFERENCE_BAND
 
 
 def validate(spec: KernelSpec, tiles: Sequence[int]) -> None:

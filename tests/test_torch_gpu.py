@@ -1382,3 +1382,156 @@ def test_grouped_sm90_plan_routes_the_rest_to_simt(cuda):
             BatchedKernelSpec(ft_level="block", tgmm=True), buf, buf, lay,
             ft=FT, tiles=None if tiles is None else (16, 64, 64))
         assert kgg.TGMM_SIMT.launches == before + 1
+
+
+# ---------------------------------------------------------------------------
+# K5 on the tensor cores (csrc/batched_sm90.cu)
+# ---------------------------------------------------------------------------
+
+K5_LEVELS = ["block", "tile", "inner"]
+
+
+def _k5_operands(gen, product, nb, kvh, n_rep, s, dh, make):
+    """Decode attention's operands with two batch dims: B a permuted view
+    of the (B, S, KVH, dh) cache (qk: k-major, pv: n-major), or a
+    contiguous (nb, K, N) one, or a shared (K, N) one."""
+    if product in ("qk", "pv"):
+        cache = make(gen, nb, s, kvh, dh)
+        if product == "qk":
+            return make(gen, nb, kvh, n_rep, dh), cache.permute(0, 2, 3, 1)
+        # softmax rows at a stride of a multiple of 8, ragged S included
+        p = make(gen, nb, kvh, n_rep, ft_gemm.cdiv(s, 8) * 8)[..., :s]
+        return p, cache.transpose(1, 2)
+    if product == "contiguous":
+        return make(gen, nb, n_rep, s), make(gen, nb, s, dh)
+    return make(gen, nb, n_rep, s), make(gen, s, dh)   # shared B
+
+
+def _k5_call(a, b, **kw):
+    """One K5 call, checked to launch the tensor-core instance once and
+    the SIMT one never."""
+    p = ft_gemm.plan_call(a, b, ft=kw.get("ft"))
+    assert p.instance == "sm90" and p.tiles in ft_gemm.BATCHED_SM90_TILES
+    res, n = _launched((ft_gemm.FT_GEMM_BATCHED_SM90, ft_gemm.FT_GEMM_BATCHED,
+                        ft_gemm.FT_GEMM_K5),
+                       lambda: ft_gemm.ft_gemm(a, b, **kw))
+    assert n == [1, 0, 1]
+    return res
+
+
+@pytest.mark.parametrize("level", K5_LEVELS)
+@pytest.mark.parametrize("geom", [("qk", 4, 7, 256, 128),
+                                  ("pv", 4, 7, 256, 128),
+                                  ("qk", 2, 16, 300, 128),
+                                  ("pv", 2, 3, 777, 128),
+                                  ("qk", 8, 7, 1000, 128),
+                                  ("pv", 32, 4, 520, 128),
+                                  ("contiguous", 1, 5, 600, 72),
+                                  ("shared", 1, 16, 520, 200)])
+def test_batched_sm90_matches_plain(cuda, geom, level):
+    """The new instance against its plain version under the same plan on
+    the cache views (one to four 256-deep steps, ragged K and N, 3 to 16
+    rows), contiguous and shared B, at each level and both verify
+    settings, and FT off: outputs within one bf16 ulp, reports det / corr
+    / row / col / k equal, tau within 1e-5, no detection."""
+    product, kvh, n_rep, s, dh = geom
+    gen = torch.Generator(device="cuda").manual_seed(s + n_rep)
+    a, b = _k5_operands(gen, product, 3, kvh, n_rep, s, dh,
+                        lambda g, *sh: _bf16(g, *sh))
+    for ft in (FT.replace(level=level),
+               FT.replace(level=level, verify="final"), None):
+        out, rep = _k5_call(a, b, ft=ft)
+        out_p, rep_p = ft_gemm.planned_plain(a, b, ft=ft)
+        _bf16_close(out, out_p)
+        if ft is None:
+            assert rep is None
+            continue
+        _check_fields(rep, rep_p)
+        assert float(rep[..., 0].sum()) == 0.0
+        assert bool((rep[..., 5] < rep[..., 6]).all())
+
+
+@pytest.mark.parametrize("level", K5_LEVELS)
+@pytest.mark.parametrize("product", ["qk", "pv"])
+def test_batched_sm90_seu(cuda, product, level):
+    """A deterministic SEU on integer-valued operands, in every slice and
+    in one slice, at a k-step of the 256-deep walk: corrected bit for bit
+    and located as the plain version under the same plan; a detect-only
+    policy counts it and leaves it."""
+    gen = torch.Generator(device="cuda").manual_seed(77)
+    s = 600
+    a, b = _k5_operands(gen, product, 2, 4, 7, s, 128,
+                        lambda g, *sh: _ints(g, *sh, dtype=torch.bfloat16))
+    n, steps = b.shape[-1], ft_gemm.cdiv(a.shape[-1], 256)
+    ft = FT.replace(level=level)
+    clean = _k5_call(a, b, ft=ft)[0]
+    for inj in ((1, -1, 6, n - 1, steps - 1), (1, 5, 2, 3, 0)):
+        out, rep = _k5_call(a, b, ft=ft, inj=inj, inj_mag=300.0)
+        _, rep_p = ft_gemm.planned_plain(a, b, ft=ft, inj=inj, inj_mag=300.0)
+        _check_fields(rep, rep_p)
+        hits = 8 if inj[1] < 0 else 1
+        assert float(rep[..., 0].sum()) == float(rep[..., 1].sum()) == hits
+        cells = rep[rep[..., 0] > 0]
+        assert bool((cells[:, 2] == inj[2]).all())
+        assert bool((cells[:, 3] == inj[3]).all())
+        assert bool(((cells[:, 4] - 300.0).abs() < 1e-3).all())
+        assert torch.equal(out, clean)
+        det = ft.replace(action="detect")
+        left, rep_d = _k5_call(a, b, ft=det, inj=inj, inj_mag=300.0)
+        _, rep_dp = ft_gemm.planned_plain(a, b, ft=det, inj=inj,
+                                          inj_mag=300.0)
+        assert torch.equal(rep_d[..., :4], rep_dp[..., :4])
+        assert float(rep_d[..., 1].sum()) == 0.0
+        assert float(rep_d[..., 0].sum()) >= hits
+        assert int((left != clean).sum()) == hits
+
+
+@pytest.mark.parametrize("case", [("N 1", True), ("N 1", False),
+                                  ("K 1", True), ("K 1", False)])
+def test_batched_sm90_one_column_or_one_k(cuda, case):
+    """B of one column or one k, read along either dim: B's stride along
+    its other dim is never stepped, so it may be anything (a contiguous
+    (…, K, 1) B reads along k at ldb 1, a shared (1, N) one along n at ldb
+    N = 20). Planned on the new instance and launched there, equal to the
+    plain version at block and inner and FT off."""
+    dim, kmajor = case
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    if dim == "N 1":
+        a = _bf16(gen, 3, 7, 304)
+        b = _bf16(gen, 3, 304, 1) if kmajor else _bf16(gen, 3, 304, 8)[..., :1]
+    else:
+        a = _bf16(gen, 3, 7, 8)[..., :1]
+        b = (_bf16(gen, 3, 20, 8)[..., :1].transpose(-1, -2) if kmajor
+             else _bf16(gen, 1, 20))
+    assert ft_gemm.plan_call(a, b, ft=FT).b_kmajor == kmajor
+    for ft in (FT, FT.replace(level="inner"), None):
+        out, rep = _k5_call(a, b, ft=ft)
+        out_p, rep_p = ft_gemm.planned_plain(a, b, ft=ft)
+        _bf16_close(out, out_p)
+        if ft is not None:
+            _check_fields(rep, rep_p)
+            assert float(rep[..., 0].sum()) == 0.0
+
+
+def test_batched_sm90_plan_routes_the_rest_to_simt(cuda):
+    """f32 (the existing f32 K5 tests' rule), 17 rows and pinned SIMT tiles
+    stay on the SIMT instance; pinned tensor-core tiles raise for the first
+    two."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    a, b = _k5_operands(gen, "qk", 2, 4, 7, 256, 128,
+                        lambda g, *sh: _bf16(g, *sh))
+    a17 = _bf16(gen, 2, 4, 17, 128)
+    for x, y, tiles in ((a.float(), b.float(), None), (a17, b, None),
+                        (a, b, ft_gemm.pick_tiles(7))):
+        p = ft_gemm.plan_call(x, y, ft=FT, tiles=tiles)
+        assert p.instance == "simt" and p.reason
+        (out, rep), n = _launched(
+            (ft_gemm.FT_GEMM_BATCHED_SM90, ft_gemm.FT_GEMM_BATCHED),
+            lambda: ft_gemm.ft_gemm(x, y, ft=FT, tiles=tiles))
+        assert n == [0, 1]
+        out_p, _ = ft_gemm.ft_gemm_plain(x, y, ft=FT, tiles=p.tiles)
+        _bf16_close(out, out_p)
+        if tiles is None:
+            with pytest.raises(ValueError):
+                ft_gemm.ft_gemm(x, y, ft=FT,
+                                tiles=ft_gemm.BATCHED_SM90_TILES[0])
