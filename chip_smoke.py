@@ -7,6 +7,7 @@
     python3 chip_smoke.py --phases env,kernels,decode_kernels,engine,train_kernels
     python3 chip_smoke.py --phases env,moe_kernels,moe_check,moe_engine,moe_train
     python3 chip_smoke.py --phases env,level_kernels,level_check,level_serve,ladder
+    python3 chip_smoke.py --phases env,campaign_kernels,campaign_train,moe_campaign
 
 Phases (each prints its own lines; any failed check exits non-zero):
 
@@ -213,7 +214,34 @@ Phases (each prints its own lines; any failed check exits non-zero):
                the tensor-core instances), detections; then one guarded
                step, and one step each under torch.profiler on the
                tensor-core instances, on the SIMT K7 / K8 and on the SIMT
-               K3 / K4.
+               K3 / K4;
+  campaign_kernels  stochastic SEU campaigns on the GEMM family's eight
+               instances (K1, K5, K7, K8, tensor cores and SIMT), each at a
+               main-path shape and a shape with a tail block, on integer-
+               valued operands under a fixed triple at rates 0.5 and 1.0:
+               reports equal to the planned plain version's, one detection
+               and correction per SEU the blocks draw (`templates/seu.py`),
+               the output the clean call's, detect-only controls, rate 0
+               the clean call bit for bit; the paper's Fig. 16 analogue on
+               K1's tensor-core instance at qwen2-7b's decode and prefill
+               w_gate+silu and a 4 096 square (clean, rate 0, rate 1.0, FT
+               off, torch.matmul; errors per call and per minute at rate
+               1.0; CUDA events, three rounds in turns), and K5, K7 and K8
+               at rate 0 and 1.0 beside their clean calls (K5 at decode by
+               its kernel's profiled time);
+  campaign_train  phi4-mini-3.8b at full width and depth, 2 x 512 tokens,
+               `remat="full"`, chunked attention, 4 steps from one
+               initialisation three times: clean, a campaign at
+               CAMPAIGN_RATE every step, the same detect-only; each step's
+               detections equal the SEUs its forward blocks draw, within a
+               5-sigma binomial band of rate x blocks; losses and the
+               parameters after step 1 within 1e-3 relative of the clean
+               run, the detect-only losses at least 100x further off; step
+               times, the first step of each run under the dispatch guard,
+               the last profiled (idle share);
+  moe_campaign the same with two steps of the moe_train model (qwen3-
+               moe-235b-a22b at full width, 1 layer), at MOE_CAMPAIGN_RATE;
+               the first step guarded, the second profiled.
 
 The last two lines are {"kernels": [...]} and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -256,7 +284,7 @@ from repro_torch.kernels import gemm as base_gemm               # noqa: E402
 from repro_torch.kernels import grouped_gemm, ops               # noqa: E402
 from repro_torch.kernels import grouped as kgrouped             # noqa: E402
 from repro_torch.kernels.templates import BatchedKernelSpec     # noqa: E402
-from repro_torch.models import moe, transformer                 # noqa: E402
+from repro_torch.models import moe, model_zoo, transformer      # noqa: E402
 from repro_torch.models.blocks import Ctx                       # noqa: E402
 from repro_torch.optim import adamw                             # noqa: E402
 from repro_torch.train import engine, kv_cache, serve, train_loop  # noqa: E402
@@ -533,6 +561,15 @@ def kernel_device_ms(fn, iters: int = 50) -> float:
     total = sum(hi - lo for _, lo, hi in spans)
     check(total > 0, "the profiler saw the call's kernels on the device")
     return total / iters / 1e3
+
+
+def kernel_mean_ms(fn, iters: int = 20) -> float:
+    """The mean device duration of the kernels ``fn`` launches under
+    `device_events` (one kernel a call: its device time), robust to a
+    trace that drops some of the calls' events."""
+    spans, _ = device_events(fn, iters, warmup=3)
+    check(len(spans) > 0, "the profiler saw the call's kernel on the device")
+    return sum(hi - lo for _, lo, hi in spans) / len(spans) / 1e3
 
 
 def k1_host_us(a, b, calls: int = 200, **kw) -> float:
@@ -3465,6 +3502,528 @@ def phase_moe_train(smi: str):
     return guarded
 
 
+# ---------------------------------------------------------------------------
+# campaign_kernels / campaign_train / moe_campaign: stochastic SEU campaigns
+# ---------------------------------------------------------------------------
+
+#: A fixed campaign triple (enable, seed0, seed1) for the kernel checks.
+TRIPLE = (1, 123456789, 987654321)
+#: Training campaigns: the rate per output block, chosen so that a step's
+#: forward GEMMs draw some tens of SEUs (phi4-mini at 2 x 512 tokens runs
+#: about 1.9e5 forward blocks a step, the one-layer qwen3-moe about 5.6e4).
+CAMPAIGN_RATE, MOE_CAMPAIGN_RATE = 4e-4, 1e-3
+#: Ragged groups, empty ones, a 100-row group (two 64-row chunks on the
+#: tensor cores) and a dead tail: the grouped instances' tail shape.
+CAMPAIGN_SIZES = [13, 0, 100, 7, 70, 0, 0, 5]
+
+
+def _k1_hits(a, b, ft, rng, chain=(), act_grad=False, tiles=None):
+    """The blocks of a K1 / K5 launch that draw an SEU (bool), from its
+    plan."""
+    p = ft_gemm.plan_call(a, b, chain=chain, ft=ft, save_act_grad=act_grad,
+                          tiles=tiles)
+    m, k = a.shape[-2:]
+    bm, bn, bk = p.tiles
+    return ft_gemm.seu_draws(rng, ft, a[..., 0, 0].numel(),
+                             ft_gemm.cdiv(m, bm),
+                             ft_gemm.cdiv(b.shape[-1], bn),
+                             ft_gemm.cdiv(k, bk), p.tiles, a.dim() > 2,
+                             "cpu")[0]
+
+
+def _gemm_case(label, counter, a, b, chain=(), act_grad=False, tiles=None,
+               level="block"):
+    """A K1 or K5 instance's campaign case: (label, counter, call, plain,
+    hits), each taking (ft, rng)."""
+    kw = dict(chain=chain, save_act_grad=act_grad, tiles=tiles)
+
+    def lvl(ft):
+        return ft.replace(level=level)
+
+    def first(x):
+        return x[0] if act_grad else x
+
+    def call(ft, rng):
+        out, rep = ft_gemm.ft_gemm(a, b, ft=lvl(ft), rng=rng, **kw)
+        return first(out), rep
+
+    def plain(ft, rng):
+        out, rep = ft_gemm.planned_plain(a, b, ft=lvl(ft), rng=rng, **kw)
+        return first(out), rep
+
+    return (label, counter, call, plain,
+            lambda ft, rng: _k1_hits(a, b, lvl(ft), rng, chain, act_grad,
+                                     tiles))
+
+
+def _k7_case(label, counter, buf, w, lay, tiles=None):
+    args = (buf, w, lay.gid, lay.row_end)
+
+    def hits(ft, rng):
+        p = grouped_gemm.plan_k7_call(buf, w, lay.gid, tiles)
+        return grouped_gemm.seu_tile_draws(
+            rng, ft, lay.num_tiles, ft_gemm.cdiv(w.shape[2], p.tiles[1]),
+            ft_gemm.cdiv(w.shape[1], p.tiles[2]), p.tiles, "cpu")[0]
+
+    return (label, counter,
+            lambda ft, rng: grouped_gemm.ft_gemm_grouped(
+                *args, ft=ft, rng=rng, tiles=tiles),
+            lambda ft, rng: grouped_gemm.planned_grouped_plain(
+                *args, ft=ft, rng=rng, tiles=tiles), hits)
+
+
+def _k8_case(label, counter, x, g, lay, tiles=None):
+    def hits(ft, rng):
+        p = grouped_gemm.plan_k8_call(x, g, lay.bm, tiles)
+        live = (lay.row_end.long() - lay.base.long()).cpu()
+        return grouped_gemm.seu_dw_draws(
+            rng, ft, live, ft_gemm.cdiv(x.shape[1], p.tiles[2]),
+            ft_gemm.cdiv(g.shape[1], p.tiles[1]), p.tiles)[0]
+
+    return (label, counter,
+            lambda ft, rng: grouped_gemm.tgmm(x, g, lay.row_end, bm=lay.bm,
+                                              ft=ft, rng=rng, tiles=tiles),
+            lambda ft, rng: grouped_gemm.planned_tgmm_plain(
+                x, g, lay.row_end, bm=lay.bm, ft=ft, rng=rng, tiles=tiles),
+            hits)
+
+
+def _campaign_check(label, counter, call, plain, hits):
+    """One instance under the fixed triple at rates 0.5 and 1.0, on
+    integer-valued operands (every contribution exact on both sides):
+    reports equal the plain version's under the same plan (det / corr / row
+    / col / k exactly, magnitude and max residual to 1e-5 relative), one
+    detection per SEU the blocks draw, the output equal to the clean call's
+    (within the bf16 tolerance: bit for bit here); detect-only leaves the
+    SEUs in place; rate 0 with the triple is the clean call bit for bit.
+    Returns the SEU counts at 0.5 and 1.0."""
+    clean, rep0 = call(FT, None)
+    n_hits = []
+    for rate in (0.5, 1.0):
+        for ft in (FT.replace(inject_rate=rate),
+                   DETECT.replace(inject_rate=rate)):
+            before = counter.launches
+            out, rep = call(ft, TRIPLE)
+            torch.cuda.synchronize()
+            check(counter.launches == before + 1,
+                  f"campaign {label}: launched on its instance")
+            out_p, rep_p = plain(ft, TRIPLE)
+            n_hit = int(hits(ft, TRIPLE).sum())
+            fields = [0, 1, 2, 3, 7]
+            rel = ((rep[..., 4:6] - rep_p[..., 4:6]).abs()
+                   / rep_p[..., 4:6].abs().clamp_min(1e-30)).max().item()
+            check(torch.equal(rep[..., fields], rep_p[..., fields])
+                  and rel <= 1e-5,
+                  f"campaign {label} rate {rate} {ft.action}: report equal "
+                  f"to the plain version's (mag / max residual within "
+                  f"{rel:.2g})")
+            check(torch.equal(out, out_p), f"campaign {label} rate {rate} "
+                  f"{ft.action}: output equal to the plain version's")
+            det, corr = float(rep[..., 0].sum()), float(rep[..., 1].sum())
+            if ft.corrects:
+                n_hits.append(n_hit)
+                err = (out.float() - clean.float()).abs().max().item()
+                check(n_hit > 0 and det == corr == n_hit and err <= BF16_TOL
+                      * clean.float().abs().max().item(),
+                      f"campaign {label} rate {rate}: {n_hit} SEUs drawn, "
+                      f"each detected and corrected once, the output within "
+                      f"the bf16 tolerance of the clean call (max diff "
+                      f"{err:.3g}; bit for bit: {torch.equal(out, clean)})")
+            else:
+                # SEUs in rows or columns past the output's edge are
+                # detected but never stored
+                moved = int((out != clean).sum())
+                check(det >= n_hit and corr == 0 and moved <= n_hit,
+                      f"campaign {label} rate {rate} detect-only: {moved} "
+                      f"stored elements left moved by {n_hit} SEUs, "
+                      f"{det:.0f} detections, no correction")
+    out, rep = call(FT, TRIPLE)
+    check(torch.equal(out, clean) and torch.equal(rep, rep0),
+          f"campaign {label}: rate 0 with the triple is the clean call")
+    return n_hits
+
+
+def phase_campaign_kernels():
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    q = qwen2_7b.CONFIG
+    phi = phi4_mini_38b.CONFIG
+    d, f = MOE.d_model, MOE.moe.expert_d_ff
+    e, top_k = MOE.moe.n_experts, MOE.moe.top_k
+    toks = TRAIN_BATCH * TRAIN_SEQ
+    f32 = torch.float32
+    rep_h, n_rep = q.n_heads // q.n_kv_heads, phi.n_heads // phi.n_kv_heads
+    simt = ft_gemm.FT_GEMM_2D_SIMT
+    cases = [
+        # K1 on the tensor cores: phi4-mini's training w_gate + silu with
+        # act_grad; a ragged call that split-K cuts
+        _gemm_case(f"K1 sm90 train w_gate+silu ({toks}, {phi.d_model}) x "
+                   f"({phi.d_model}, {phi.d_ff})", ft_gemm.FT_GEMM_SM90,
+                   _ints(gen, toks, phi.d_model),
+                   _ints(gen, phi.d_model, phi.d_ff), chain=("silu",),
+                   act_grad=True),
+        _gemm_case("K1 sm90 tail (200, 1000) x (1000, 296), split-K",
+                   ft_gemm.FT_GEMM_SM90, _ints(gen, 200, 1000),
+                   _ints(gen, 1000, 296)),
+        # K1's SIMT instance: qwen2-7b's decode w_gate + silu at the tile
+        # level (level_serve's), and an f32 tail at its square tiles
+        _gemm_case(f"K1 simt tile decode w_gate+silu ({BATCH}, {q.d_model})"
+                   f" x ({q.d_model}, {q.d_ff})", simt,
+                   _ints(gen, BATCH, q.d_model), _ints(gen, q.d_model, q.d_ff),
+                   chain=("silu",), level="tile"),
+        _gemm_case("K1 simt tail f32 (130, 300) x (300, 200)", simt,
+                   _ints(gen, 130, 300).to(f32), _ints(gen, 300, 200).to(f32),
+                   tiles=(64, 64, 32)),
+        # K5 on the tensor cores: qwen2-7b's decode QK^T over a 256-position
+        # cache; a ragged call
+        _gemm_case(f"K5 sm90 decode QK^T ({BATCH}, {q.n_kv_heads}, {rep_h}, "
+                   f"{q.head_dim}) x (.., {q.head_dim}, {MAX_LEN})",
+                   ft_gemm.FT_GEMM_BATCHED_SM90,
+                   _ints(gen, BATCH, q.n_kv_heads, rep_h, q.head_dim),
+                   _ints(gen, BATCH, q.n_kv_heads, q.head_dim, MAX_LEN)),
+        _gemm_case("K5 sm90 tail (4, 2, 7, 304) x (4, 2, 304, 72)",
+                   ft_gemm.FT_GEMM_BATCHED_SM90, _ints(gen, 4, 2, 7, 304),
+                   _ints(gen, 4, 2, 304, 72)),
+        # K5's SIMT instance: phi4-mini's chunked attention QK^T of the
+        # training campaign (n_rep x 512 query rows per kv head)
+        _gemm_case(f"K5 simt train QK^T ({TRAIN_BATCH}, {phi.n_kv_heads}, "
+                   f"{n_rep * TRAIN_SEQ}, {phi.head_dim}) x (.., "
+                   f"{phi.head_dim}, {TRAIN_SEQ})", ft_gemm.FT_GEMM_BATCHED,
+                   _ints(gen, TRAIN_BATCH, phi.n_kv_heads, n_rep * TRAIN_SEQ,
+                         phi.head_dim),
+                   _ints(gen, TRAIN_BATCH, phi.n_kv_heads, phi.head_dim,
+                         TRAIN_SEQ)),
+        _gemm_case("K5 simt tail f32 (2, 3, 40, 77) x (2, 3, 77, 50)",
+                   ft_gemm.FT_GEMM_BATCHED, _ints(gen, 2, 3, 40, 77).to(f32),
+                   _ints(gen, 2, 3, 77, 50).to(f32)),
+    ]
+    # K7 and K8: qwen3-moe-235b-a22b's training gate (forward) and dw, and
+    # the small ragged layout; the SIMT instances at their pinned tiles.
+    train_rows = toks * top_k
+    lay = _moe_layout(gen, train_rows, 16)
+    buf = kgrouped.scatter_rows(_ints(gen, train_rows, d), lay)
+    w = _ints(gen, e, d, f)
+    gb = kgrouped.scatter_rows(_ints(gen, train_rows, f), lay)
+    small = _grouped_small(gen)
+    sbuf = kgrouped.scatter_rows(_ints(gen, small.n_rows, 512), small)
+    sw = _ints(gen, len(CAMPAIGN_SIZES), 512, 200)
+    sx = kgrouped.scatter_rows(_ints(gen, small.n_rows, 152), small)
+    sg = kgrouped.scatter_rows(_ints(gen, small.n_rows, 200), small)
+    dec = _moe_layout(gen, ENGINE_SLOTS * top_k, 16)
+    dbuf = kgrouped.scatter_rows(_ints(gen, ENGINE_SLOTS * top_k, d), dec)
+    cases += [
+        _k7_case(f"K7 sm90 train gate {train_rows} rows {d}->{f}",
+                 grouped_gemm.FT_GEMM_GROUPED_SM90, buf, w, lay),
+        _k7_case("K7 sm90 tail (groups " + str(CAMPAIGN_SIZES) + ")",
+                 grouped_gemm.FT_GEMM_GROUPED_SM90, sbuf, sw, small),
+        _k7_case(f"K7 simt decode gate {ENGINE_SLOTS * top_k} rows {d}->{f}",
+                 grouped_gemm.FT_GEMM_GROUPED_SIMT, dbuf, w, dec,
+                 tiles=(16, 128, 32)),
+        _k7_case("K7 simt tail f32", grouped_gemm.FT_GEMM_GROUPED_SIMT,
+                 sbuf.float(), sw.float(), small, tiles=(16, 128, 32)),
+        _k8_case(f"K8 sm90 train dw {train_rows} rows ({e}, {d}, {f})",
+                 grouped_gemm.TGMM_SM90, buf, gb, lay),
+        _k8_case("K8 sm90 tail", grouped_gemm.TGMM_SM90, sx, sg, small),
+        _k8_case(f"K8 simt train dw {train_rows} rows ({e}, {d}, {f})",
+                 grouped_gemm.TGMM_SIMT, buf, gb, lay, tiles=(16, 64, 64)),
+        _k8_case("K8 simt tail f32", grouped_gemm.TGMM_SIMT, sx.float(),
+                 sg.float(), small, tiles=(16, 64, 64)),
+    ]
+    counts = {}
+    for case in cases:
+        counts[case[0]] = _campaign_check(*case)
+        torch.cuda.empty_cache()
+    print(f"  SEUs drawn at rates 0.5 / 1.0: {counts}")
+
+    # ---- times: the paper's Fig. 16 analogue on K1 (tensor cores) and the
+    # hook's cost on K5, K7 and K8 ----------------------------------------
+    times = {}
+    k1_shapes = [(f"decode w_gate+silu ({BATCH}, {q.d_model}) x ({q.d_model},"
+                  f" {q.d_ff})", BATCH, q.d_model, q.d_ff, ("silu",)),
+                 (f"prefill w_gate+silu ({BATCH * PROMPT}, {q.d_model}) x "
+                  f"({q.d_model}, {q.d_ff})", BATCH * PROMPT, q.d_model,
+                  q.d_ff, ("silu",)),
+                 ("square 4096", 4096, 4096, 4096, ())]
+    for label, m, k, n, chain in k1_shapes:
+        a, b = _rand(gen, m, k), _rand(gen, k, n, scale=0.02)
+        p = ft_gemm.plan_call(a, b, chain=chain, ft=FT)
+        blocks = ft_gemm.cdiv(m, p.tiles[0]) * ft_gemm.cdiv(n, p.tiles[1])
+
+        def k1(ft, rng):
+            return lambda: ft_gemm.ft_gemm(a, b, chain=chain, ft=ft, rng=rng)
+        row = dict(plan=f"{p.instance} {p.tiles} x{p.splits}", blocks=blocks)
+        variants = (("clean", k1(FT, None)), ("rate 0", k1(FT, TRIPLE)),
+                    ("rate 1.0", k1(FT.replace(inject_rate=1.0), TRIPLE)),
+                    ("ft off", k1(None, None)))
+        # three rounds in turns, the median of each: noise moves a single
+        # reading by up to 5 % at decode. CUDA events over 30 back-to-back
+        # calls: the device is the bound at these shapes (a call's host
+        # time, 0.05-0.07 ms, is below its device time)
+        ev = {name: [] for name, _ in variants}
+        for _ in range(3):
+            for name, fn in variants:
+                ev[name].append(time_ms(fn, 30))
+        for name, _ in variants:
+            row[name + " ms"] = statistics.median(ev[name])
+            row[name + " ms, 3 rounds"] = ev[name]
+        lib = (lambda: torch.nn.functional.silu(a @ b)) if chain else \
+            (lambda: a @ b)
+        row["torch.matmul ms"] = time_ms(lib, 20)
+        row["errors per call at rate 1.0"] = blocks
+        row["errors per minute at rate 1.0"] = (
+            blocks * 60e3 / row["rate 1.0 ms"])
+        for v in ("rate 0", "rate 1.0"):
+            row[f"{v} / clean"] = row[f"{v} ms"] / row["clean ms"]
+        row["rate 1.0 / torch.matmul"] = (row["rate 1.0 ms"]
+                                          / row["torch.matmul ms"])
+        times[f"K1 sm90 {label}"] = row
+        print(f"  K1 sm90 {label}: {row}")
+    k1_dec = times[f"K1 sm90 {k1_shapes[0][0]}"]
+    check(k1_dec["rate 0 / clean"] <= 1.05,
+          f"K1 decode w_gate+silu: rate 0 within 5% of the clean time "
+          f"({k1_dec['rate 0 / clean']:.4f})")
+    hook = [next(c for c in cases if c[0].startswith(prefix))
+            for prefix in ("K5 sm90 decode", "K5 simt train", "K7 sm90 train",
+                           "K8 sm90 train")]
+    for label, _, call, _, _ in hook:
+        # K5 at decode runs 0.004 ms on the device against 0.04 of host time
+        # a call: its time is the profiler's mean kernel duration (one
+        # kernel a call); the others CUDA events over back-to-back calls
+        row = {}
+        t = {"clean": [], "rate 0": [], "rate 1.0": []}
+        for _ in range(3):
+            for name, ft, rng in (("clean", FT, None), ("rate 0", FT, TRIPLE),
+                                  ("rate 1.0", FT.replace(inject_rate=1.0),
+                                   TRIPLE)):
+                fn = lambda: call(ft, rng)           # noqa: E731
+                t[name].append(kernel_mean_ms(fn, 20)
+                               if label.startswith("K5 sm90")
+                               else time_ms(fn, 10))
+        for name, xs in t.items():
+            row[name + " ms"] = statistics.median(xs)
+        row["rate 0 / clean"] = row["rate 0 ms"] / row["clean ms"]
+        row["rate 1.0 / clean"] = row["rate 1.0 ms"] / row["clean ms"]
+        times[label] = row
+        print(f"  {label} (integer operands): {row}")
+    print(json.dumps({"campaign_kernels": dict(seus=counts, times=times)}))
+
+
+def _grouped_small(gen):
+    """A layout of CAMPAIGN_SIZES groups on the 16-row tile."""
+    ids = torch.cat([torch.full((n,), g, dtype=torch.long)
+                     for g, n in enumerate(CAMPAIGN_SIZES)]).cuda()
+    ids = ids[torch.randperm(len(ids), generator=gen, device="cuda")]
+    return kgrouped.make_layout(ids, len(CAMPAIGN_SIZES), 16)
+
+
+@contextmanager
+def forward_blocks():
+    """Record every K1, K5 and K7 launch of a forward under an open
+    telemetry scope with a campaign armed (the protected calls whose
+    detections the scope records: not the backward's, not the remat
+    recompute's) by its plan, and on exit count their output blocks and
+    the blocks whose SEU the triple draws (the draws run after the step,
+    on the host). Yields {"blocks", "hits"}, filled on exit."""
+    tot = {"blocks": 0, "hits": 0}
+    calls = []
+    saved = ft_gemm.ft_gemm, grouped_gemm.ft_gemm_grouped
+
+    def counted(ft, rng):
+        return (ft_gemm.seu_armed(rng, ft)
+                and telemetry.current_scope() is not None)
+
+    def gemm(a, b, **kw):
+        ft, rng = kw.get("ft"), kw.get("rng")
+        if counted(ft, rng):
+            p = ft_gemm.plan_call(a, b, chain=tuple(kw.get("chain", ())),
+                                  ft=ft,
+                                  save_act_grad=kw.get("save_act_grad",
+                                                       False),
+                                  tiles=kw.get("tiles"))
+            m, k = a.shape[-2:]
+            bm, bn, bk = p.tiles
+            # shapes only: the operands are not held past the call
+            args = (rng, ft, a[..., 0, 0].numel(), ft_gemm.cdiv(m, bm),
+                    ft_gemm.cdiv(b.shape[-1], bn), ft_gemm.cdiv(k, bk),
+                    p.tiles, a.dim() > 2, "cpu")
+            calls.append(lambda: ft_gemm.seu_draws(*args)[0])
+        return saved[0](a, b, **kw)
+
+    def grouped(buf, w, gid, row_end, **kw):
+        ft, rng = kw.get("ft"), kw.get("rng")
+        if counted(ft, rng):
+            p = grouped_gemm.plan_k7_call(buf, w, gid, kw.get("tiles"))
+            args = (rng, ft, gid.shape[0],
+                    ft_gemm.cdiv(w.shape[2], p.tiles[1]),
+                    ft_gemm.cdiv(w.shape[1], p.tiles[2]), p.tiles, "cpu")
+            calls.append(lambda: grouped_gemm.seu_tile_draws(*args)[0])
+        return saved[1](buf, w, gid, row_end, **kw)
+
+    ft_gemm.ft_gemm, grouped_gemm.ft_gemm_grouped = gemm, grouped
+    try:
+        yield tot
+    finally:
+        ft_gemm.ft_gemm, grouped_gemm.ft_gemm_grouped = saved
+        for draw in calls:
+            h = draw()
+            tot["blocks"] += h.numel()
+            tot["hits"] += int(h.sum())
+
+
+def _campaign_runs(cfg, rate, steps, smi, label, path_kernels,
+                   guard_allow=None):
+    """The model ``cfg`` at full width under `make_train_step` (bf16, f32
+    AdamW, ``remat="full"``, chunked attention), ``steps`` steps from one
+    initialisation three times: clean, a campaign at ``rate`` on every step
+    (correct), the same campaign detect-only. Checks every campaign step
+    detects and corrects SEUs, one per SEU its forward blocks draw, within
+    a 5-sigma binomial band of rate x forward blocks; the losses and the
+    parameters after step 1 (when ``steps`` > 1) within 1e-3 relative of
+    the clean run, the detect-only losses at least 100x further off. The
+    first step of each run runs under the dispatch guard and the last one
+    (when ``steps`` > 1) under the profiler (busy time, idle share); the
+    runs' step times are host times to the end of the device work. Every kernel
+    of ``path_kernels`` must launch in the campaign run; returns its launch
+    counts (all counters set to 0 just before it)."""
+    run = RunConfig(model=cfg, ft=FT, dtype="bfloat16", remat="full",
+                    attn_impl="chunked")
+    tc = train_loop.TrainConfig(inject_every=1)
+    opt_cfg = adamw.AdamWConfig(lr=run.learning_rate,
+                                weight_decay=run.weight_decay,
+                                grad_clip=run.grad_clip)
+    shape = ShapeConfig(f"chip_smoke_{label}", TRAIN_SEQ, TRAIN_BATCH,
+                        "train")
+    params = model_zoo.module_for(cfg).init(cfg, seed=run.seed,
+                                            dtype=torch.bfloat16,
+                                            device="cuda")
+    params.requires_grad_(True)
+    # the initial parameters and the clean run's after step 1 wait on the
+    # host: three copies of phi4-mini's would not fit the card beside the
+    # f32 AdamW moments
+    init = {n: p.detach().to("cpu", copy=True)
+            for n, p in params.named_parameters()}
+    pipe = data_lib.for_model(cfg, shape, seed=run.seed)
+    batches = [{k: torch.as_tensor(x, dtype=torch.long, device="cuda")
+                for k, x in pipe.batch_at(i).items()} for i in range(steps)]
+    # step 0 runs at lr 0: the parameters after step 1 are compared
+    after = min(1, steps - 1)
+    results = {}
+    for name, ft in (("clean", FT), ("campaign", FT.replace(
+            inject_rate=rate)), ("detect-only", DETECT.replace(
+            inject_rate=rate))):
+        with torch.no_grad():
+            for n, p in params.named_parameters():
+                p.copy_(init[n])
+        opt = None
+        torch.cuda.empty_cache()
+        opt = train_loop.init_opt_state(params, opt_cfg, tc)
+        step_fn = train_loop.make_train_step(
+            cfg, dataclasses.replace(run, ft=ft), opt_cfg, tc)
+        key_of = (lambda i: None) if name == "clean" else \
+            (lambda i: train_loop.inject_key(tc, i))
+        r = dict(loss=[], det=[], corr=[], blocks=[], hits=[], step_ms=[],
+                 profile=None)
+        guard = LibraryCallGuard(allow=guard_allow)
+        for k in KERNELS.values():
+            k["counter"].launches = 0
+        for i in range(steps):
+            # the first step under the dispatch guard (its Python dispatch
+            # costs host time), the last one profiled, those between timed
+            last = i == steps - 1 and steps > 1
+            with forward_blocks() as fb, (guard if i == 0 else
+                                          contextlib.nullcontext()):
+                def one():
+                    return step_fn(params, opt, batches[i], i, key_of(i))
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if last:
+                    box = {}
+                    prof = device_profile(lambda: box.update(m=one()[2]))
+                    metrics = box["m"]
+                    r["profile"] = prof
+                else:
+                    metrics = one()[2]
+                    torch.cuda.synchronize()
+                r["step_ms"].append((time.perf_counter() - t0) * 1e3)
+            r["loss"].append(float(metrics["loss"]))
+            r["det"].append(float(metrics["ft"].detected))
+            r["corr"].append(float(metrics["ft"].corrected))
+            r["blocks"].append(fb["blocks"])
+            r["hits"].append(fb["hits"])
+            if steps > 1 and i == after:
+                r["after"] = {n: p.detach().to("cpu", copy=True)
+                              for n, p in params.named_parameters()} \
+                    if name == "clean" else \
+                    max(float((p.detach().float()
+                               - results["clean"]["after"][n].to(
+                                   p.device).float()).norm()
+                              / results["clean"]["after"][n].to(
+                                  p.device).float().norm())
+                        for n, p in params.named_parameters())
+        check(not guard.hits, f"{label} {name}: no library matmul / "
+              f"attention op dispatched in the guarded step "
+              f"({sorted(set(guard.hits))})")
+        r["launches"] = {n: k["counter"].launches
+                         for n, k in KERNELS.items()}
+        results[name] = r
+        print(f"  {label} {name}: losses {r['loss']}, detected {r['det']}, "
+              f"corrected {r['corr']}, forward blocks {r['blocks']}, SEUs "
+              f"drawn in the forward {r['hits']}, step ms "
+              f"{[round(x, 1) for x in r['step_ms']]} (the first guarded, "
+              f"the last profiled), profile {r['profile']}")
+    del opt, init
+    clean, hot, left = (results[n] for n in ("clean", "campaign",
+                                             "detect-only"))
+    check(all(d == 0 for d in clean["det"]), f"{label}: clean run, zero "
+          f"detections")
+    for i in range(steps):
+        n_b, n_h = hot["blocks"][i], hot["hits"][i]
+        sd = math.sqrt(n_b * rate * (1 - rate))
+        check(hot["det"][i] == hot["corr"][i] == n_h > 0
+              and abs(n_h - rate * n_b) <= 5 * sd,
+              f"{label} step {i}: detected == corrected == {n_h:.0f} SEUs "
+              f"drawn, within 5 sigma ({5 * sd:.1f}) of {rate} x {n_b} "
+              f"forward blocks ({rate * n_b:.1f})")
+    off = [abs(h - c) / abs(c) for h, c in zip(hot["loss"], clean["loss"])]
+    off_d = [abs(h - c) / abs(c) for h, c in zip(left["loss"],
+                                                 clean["loss"])]
+    check(max(off) <= 1e-3, f"{label}: every loss within 1e-3 relative of "
+          f"the clean run's (worst {max(off):.3g})")
+    check(max(off_d) >= 100 * max(off) and max(off_d) > 0,
+          f"{label}: the detect-only losses at least 100x further off "
+          f"(worst {max(off_d):.3g})")
+    if steps > 1:
+        check(hot["after"] <= 1e-3, f"{label}: every parameter after step "
+              f"1 within 1e-3 relative (Frobenius) of the clean run's "
+              f"(worst {hot['after']:.3g}; detect-only "
+              f"{left['after']:.3g})")
+    launched = hot["launches"]
+    path = [n for n in path_kernels if launched[n] == 0]
+    check(not path, f"{label}: every kernel of the path launched in the "
+          f"campaign run ({ {n: launched[n] for n in path_kernels} })")
+    out = {n: {k: v for k, v in r.items() if k != "after"}
+           for n, r in results.items()}
+    if steps > 1:
+        out["params_after_step_1_rel"] = dict(campaign=hot["after"],
+                                              detect_only=left["after"])
+    print(json.dumps({label: dict(arch=cfg.arch_id, layers=cfg.n_layers,
+                                  rate=rate, runs=out, card=smi)}))
+    return launched
+
+
+def phase_campaign_train(smi: str):
+    return _campaign_runs(phi4_mini_38b.CONFIG, CAMPAIGN_RATE, TRAIN_STEPS,
+                          smi, "campaign_train",
+                          ("ft_gemm_sm90", "ft_gemm_batched"))
+
+
+def phase_moe_campaign(smi: str):
+    cfg = dataclasses.replace(MOE, n_layers=MOE_TRAIN_LAYERS)
+    return _campaign_runs(cfg, MOE_CAMPAIGN_RATE, 2, smi, "moe_campaign",
+                          ("ft_gemm_sm90", "ft_gemm_batched",
+                           "ft_gemm_grouped_sm90", "tgmm_sm90"),
+                          guard_allow=router_product(cfg.moe.n_experts))
+
+
 def _merge_rows(rows, more):
     """Add a phase's kernel rows: shapes append, the max error is the
     larger; the first phase's headline shape stays."""
@@ -3484,7 +4043,7 @@ def main() -> int:
                     "level_kernels,level_check,level_serve,ladder,"
                     "decode_kernels,engine_check,engine,train_kernels,"
                     "train_check,train,moe_kernels,moe_check,moe_engine,"
-                    "moe_train")
+                    "moe_train,campaign_kernels,campaign_train,moe_campaign")
     ap.add_argument("--layers", type=int, default=qwen2_7b.CONFIG.n_layers,
                     help="serve and level_serve depth (the width is always "
                          "full)")
@@ -3542,6 +4101,12 @@ def main() -> int:
                 by_path["moe_engine"] = phase_moe_engine(args.seed, smi)
             elif phase == "moe_train":
                 by_path["moe_train"] = phase_moe_train(smi)
+            elif phase == "campaign_kernels":
+                phase_campaign_kernels()
+            elif phase == "campaign_train":
+                by_path["campaign_train"] = phase_campaign_train(smi)
+            elif phase == "moe_campaign":
+                by_path["moe_campaign"] = phase_moe_campaign(smi)
             else:
                 raise SystemExit(f"unknown phase {phase!r}")
         except Exception:

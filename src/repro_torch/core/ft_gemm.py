@@ -13,6 +13,13 @@ Paths, selected by the resolved `FTConfig`:
     `core.abft` verify / locate / correct (``fused=False``: the non-fused
     baseline with materialised augmented operands).
 
+A campaign key (a `torch.Generator`, with ``ft.inject_rate > 0``) injects
+stochastic SEUs: in kernel on the pallas backend (every block draws its
+own, `kernels/templates/seu.py`), per matmul on the torch-op path
+(`fault_injection.Injector`). The backward GEMMs take keys derived from the
+forward's (`fault_injection.fold_in`, the reference's tags: dx 1, dw 2,
+batched da 3, db 4, grouped dbuf 6, dw 7), so a campaign reaches them too.
+
 Each protected call records its (detections, max residual) summary into the
 ambient `telemetry.ft_scope` under its ``site`` label, once per forward
 call, outside the autograd Function (as the reference records outside its
@@ -42,7 +49,7 @@ from typing import Optional, Tuple
 import torch
 
 from . import abft, telemetry
-from .fault_injection import check_campaign, inject_spec
+from .fault_injection import fold_in, inject
 from .policy import FTConfig, FTLike, FT_OFF, InjectionSpec, resolve_ft
 
 
@@ -57,24 +64,24 @@ def _tau(ft: FTConfig, a, b) -> torch.Tensor:
     return abft.threshold(a, b, ft.rel_tau)
 
 
-def _fused_ft_matmul(ft: FTConfig, spec, a, b):
+def _fused_ft_matmul(ft: FTConfig, spec, a, b, key=None):
     """Fused online ABFT: checksums from the operands, verify, correct."""
     acc = _matmul_f32acc(a, b)
     ck = abft.product_checksums(a, b)
-    acc = inject_spec(acc, spec)
+    acc = inject(ft, spec, key, acc)
     out, v = abft.detect_and_correct(acc, ck, _tau(ft, a, b),
                                      corrects=ft.corrects)
     return out.to(a.dtype), v
 
 
-def _nonfused_ft_matmul_2d(ft: FTConfig, spec, a, b):
+def _nonfused_ft_matmul_2d(ft: FTConfig, spec, a, b, key=None):
     """Ding-2011-style non-fused ABFT: materialised augmented operands and
     a separate verification pass."""
     m, n = a.shape[0], b.shape[1]
     a_aug = torch.cat([a.float(), abft.encode_col(a)], dim=0)   # (M+1, K)
     b_aug = torch.cat([b.float(), abft.encode_row(b)], dim=1)   # (K, N+1)
     c_f = torch.matmul(a_aug, b_aug)                            # (M+1, N+1)
-    acc = inject_spec(c_f[:m, :n], spec)
+    acc = inject(ft, spec, key, c_f[:m, :n])
     ck = abft.Checksums(col=c_f[m:m + 1, :n], row=c_f[:m, n:n + 1])
     out, v = abft.detect_and_correct(acc, ck, _tau(ft, a, b),
                                      corrects=ft.corrects)
@@ -90,10 +97,9 @@ def ft_verdict_dot(a: torch.Tensor, b: torch.Tensor, ft: FTLike,
     reference's `ft_verdict_dot`, used by the offline-ABFT recompute loop
     and by tests of detection. A leading batch of a is flattened."""
     ft = resolve_ft(ft, site)
-    check_campaign(ft, key)
     a2 = a.reshape(-1, a.shape[-1]) if a.dim() != 2 else a
     fn = _fused_ft_matmul if ft.fused else _nonfused_ft_matmul_2d
-    return fn(ft, spec, a2, b)
+    return fn(ft, spec, a2, b, key)
 
 
 def _bwd_injection(bwd_inject, target: str) -> Optional[InjectionSpec]:
@@ -132,13 +138,12 @@ def _ft_matmul_2d(ft: FTConfig, spec, a, b, key):
     if not ft.enabled:
         zero = torch.zeros((), device=a.device)
         return _matmul_f32acc(a, b).to(a.dtype), zero.int(), zero
-    check_campaign(ft, key)
     if ft.backend == "pallas":
         from ..kernels import ops as kops
-        out, rep = kops.ft_matmul_report(a, b, ft=ft, spec=spec)
+        out, rep = kops.ft_matmul_report(a, b, ft=ft, spec=spec, key=key)
         return (out, *_report_summary(rep))
     fn = _fused_ft_matmul if ft.fused else _nonfused_ft_matmul_2d
-    out, v = fn(ft, spec, a, b)
+    out, v = fn(ft, spec, a, b, key)
     return (out, *_summary(v))
 
 
@@ -155,7 +160,7 @@ class _FTDot(torch.autograd.Function):
         y2, det, maxres = _ft_matmul_2d(ft, spec, x.reshape(-1, x.shape[-1]),
                                         w, key)
         ctx.save_for_backward(x, w)
-        ctx.ft, ctx.bwd_inject = ft, bwd_inject
+        ctx.ft, ctx.bwd_inject, ctx.key = ft, bwd_inject, key
         ctx.mark_non_differentiable(det, maxres)
         return y2.reshape(*x.shape[:-1], w.shape[-1]), det, maxres
 
@@ -169,16 +174,17 @@ class _FTDot(torch.autograd.Function):
 
 def _linear_grads(ctx, x, w, dpre):
     """dx = dpre·Wᵀ and dw = Xᵀ·dpre, each a protected GEMM (only the
-    gradients autograd asks for)."""
+    gradients autograd asks for), under the keys folded from the forward's
+    (dx 1, dw 2)."""
     x2 = x.reshape(-1, x.shape[-1])
     dx = dw = None
     if ctx.needs_input_grad[0]:
         dx2, _, _ = _ft_matmul_2d(ctx.ft, _bwd_injection(ctx.bwd_inject, "dx"),
-                                  dpre, w.T, None)
+                                  dpre, w.T, fold_in(ctx.key, 1))
         dx = dx2.reshape(x.shape)
     if ctx.needs_input_grad[1]:
         dw, _, _ = _ft_matmul_2d(ctx.ft, _bwd_injection(ctx.bwd_inject, "dw"),
-                                 x2.T, dpre, None)
+                                 x2.T, dpre, fold_in(ctx.key, 2))
         dw = dw.to(w.dtype)
     return dx, dw
 
@@ -189,7 +195,8 @@ def ft_dot(x: torch.Tensor, w: torch.Tensor, ft: FTLike = FT_OFF,
     """Fault-tolerant dense projection: (…, K) @ (K, N) → (…, N).
 
     ft   — FTConfig, or FTPolicy resolved against ``site`` here;
-    key  — stochastic-campaign key (a request for a campaign raises);
+    key  — stochastic-campaign key (a `torch.Generator`; armed when
+           ``ft.inject_rate`` > 0);
     spec — optional deterministic single-SEU injection (forward GEMM);
     bwd_inject — optional ("dx" | "dw", InjectionSpec): an SEU inside the
            named backward GEMM;
@@ -221,10 +228,10 @@ def _fused_epilogue(ft: FTConfig, spec, act, x2, w, bias, key,
     accumulator) and the torch-op paths evaluate the same derivative on
     the f32 accumulator."""
     if ft.enabled and ft.backend == "pallas":
-        check_campaign(ft, key)
         from ..kernels import ops as kops
         res, rep = kops.fused_matmul(x2, w, bias=bias, act=act, ft=ft,
-                                     inject=spec, save_act_grad=want_grad)
+                                     inject=spec, save_act_grad=want_grad,
+                                     key=key)
         out, actp = res if want_grad else (res, None)
         return (out, *_report_summary(rep), actp)
     if not ft.enabled:
@@ -233,9 +240,8 @@ def _fused_epilogue(ft: FTConfig, spec, act, x2, w, bias, key,
         det = torch.zeros((), dtype=torch.int32, device=x2.device)
         maxres = torch.zeros((), device=x2.device)
     else:
-        check_campaign(ft, key)
         fn = _fused_ft_matmul if ft.fused else _nonfused_ft_matmul_2d
-        out, v = fn(ft, spec, x2, w)
+        out, v = fn(ft, spec, x2, w, key)
         acc = out.float()
         det, maxres = _summary(v)
     if bias is not None:
@@ -258,7 +264,7 @@ class _FTDotFused(torch.autograd.Function):
         y2, det, maxres, actp = _fused_epilogue(ft, spec, act, x2, w, bias,
                                                 key, want_grad=act is not None)
         ctx.save_for_backward(x, w, bias, actp)
-        ctx.ft, ctx.bwd_inject = ft, bwd_inject
+        ctx.ft, ctx.bwd_inject, ctx.key = ft, bwd_inject, key
         ctx.mark_non_differentiable(det, maxres)
         return y2.reshape(*x.shape[:-1], w.shape[-1]), det, maxres
 
@@ -315,7 +321,6 @@ def _ft_bmm_backend(ft: FTConfig, spec, a, b, key):
     kernel launch on the pallas backend with FT on, the torch-op path
     otherwise (FT off with an injection lands the SEU and leaves it, as the
     reference's `_fused_ft_bmm` does)."""
-    check_campaign(ft, key)
     if ft.enabled and ft.backend == "pallas":
         from ..kernels import ops as kops
         from ..kernels.templates import BatchedKernelSpec
@@ -328,22 +333,23 @@ def _ft_bmm_backend(ft: FTConfig, spec, a, b, key):
         # inj_batch=-1: the SEU lands in every slice, like inject_spec.
         out, rep = kops.grouped_gemm_call(
             BatchedKernelSpec(ft_level=ft.level), a, b, ft=ft, inject=spec,
-            inj_batch=-1)
+            inj_batch=-1, key=key)
         return (out.reshape(lead + tuple(out.shape[-2:])),
                 *_report_summary(rep))
-    out, v = _fused_ft_matmul(ft, spec, a, b)
+    out, v = _fused_ft_matmul(ft, spec, a, b, key)
     return (out, *_summary(v))
 
 
 class _FTBmm(torch.autograd.Function):
     """Batched (…, M, K) @ (…, K, N) with both backward products protected
-    (no injection there)."""
+    (a campaign reaches them under keys folded from the forward's: da 3,
+    db 4)."""
 
     @staticmethod
     def forward(ctx, a, b, ft, spec, key):
         y, det, maxres = _ft_bmm_backend(ft, spec, a, b, key)
         ctx.save_for_backward(a, b)
-        ctx.ft = ft
+        ctx.ft, ctx.key = ft, key
         ctx.mark_non_differentiable(det, maxres)
         return y, det, maxres
 
@@ -354,10 +360,10 @@ class _FTBmm(torch.autograd.Function):
         da = db = None
         if ctx.needs_input_grad[0]:
             da, _, _ = _ft_bmm_backend(ctx.ft, None, g, b.transpose(-1, -2),
-                                       None)
+                                       fold_in(ctx.key, 3))
         if ctx.needs_input_grad[1]:
             db, _, _ = _ft_bmm_backend(ctx.ft, None, a.transpose(-1, -2), g,
-                                       None)
+                                       fold_in(ctx.key, 4))
             db = db.to(b.dtype)
         return da, db, None, None, None
 
@@ -414,7 +420,7 @@ def _grouped_dot(buf: torch.Tensor, w: torch.Tensor, gid: torch.Tensor
     return torch.cat(parts).reshape(t_buf, n)
 
 
-def _fused_ft_grouped(ft: FTConfig, spec, buf, w, gid):
+def _fused_ft_grouped(ft: FTConfig, spec, buf, w, gid, key=None):
     """Online ABFT for the grouped product on the torch-op path: per-group
     checksums by segment reductions, per-group rounding-aware thresholds,
     one located and corrected SEU per group."""
@@ -429,7 +435,7 @@ def _fused_ft_grouped(ft: FTConfig, spec, buf, w, gid):
     xsum = torch.zeros(g, k, device=dev).index_add_(0, rg, bf)
     colck = torch.einsum("gk,gkn->gn", xsum, wf)
     rowck = (bf * wf.sum(-1)[rg]).sum(-1)
-    acc = inject_spec(acc, spec)
+    acc = inject(ft, spec, key, acc)
     d_col = torch.zeros(g, n, device=dev).index_add_(0, rg, acc) - colck
     d_row = acc.sum(-1) - rowck
     if ft.static_tau is not None:
@@ -466,21 +472,21 @@ def _ft_grouped_2d(ft: FTConfig, spec, buf, w, gid, row_end, key):
     if not ft.enabled:
         zero = torch.zeros((), device=buf.device)
         return _grouped_dot(buf, w, gid).to(buf.dtype), zero.int(), zero
-    check_campaign(ft, key)
     if ft.backend == "pallas":
         from ..kernels import grouped as kgrouped
         from ..kernels.templates import BatchedKernelSpec
         out, rep = kgrouped.grouped_buffer_call(
             BatchedKernelSpec(ft_level=ft.level, grouped=True), buf, w,
-            gid=gid, row_end=row_end, ft=ft, inject=spec)
+            gid=gid, row_end=row_end, ft=ft, inject=spec, key=key)
         return (out, *_report_summary(rep))
-    return _fused_ft_grouped(ft, spec, buf, w, gid)
+    return _fused_ft_grouped(ft, spec, buf, w, gid, key)
 
 
-def _grouped_dw(ft: FTConfig, inject, buf, g_buf, gid, row_end):
+def _grouped_dw(ft: FTConfig, inj, buf, g_buf, gid, row_end, key=None):
     """The grouped backward dw: dw[g] = X_gᵀ·G_g, (G, K, N) f32. The
     pallas backend runs the grouped transpose kernel K8 (per-group checksums
-    flushed per group, detection and correction in the kernel); otherwise
+    flushed per group, detection and correction in the kernel, a campaign
+    ``key`` drawn in kernel); otherwise
     the per-tile outer products are summed per group and verified with
     per-group checksums, col (X_g e_K)ᵀG_g and row X_gᵀ(G_g e_N)."""
     t_buf, k = buf.shape
@@ -493,7 +499,7 @@ def _grouped_dw(ft: FTConfig, inject, buf, g_buf, gid, row_end):
         from ..kernels.templates import BatchedKernelSpec
         dw, _ = kgrouped.tgmm_buffer_call(
             BatchedKernelSpec(ft_level=ft.level, tgmm=True), buf, g_buf,
-            gid=gid, row_end=row_end, ft=ft, inject=inject)
+            gid=gid, row_end=row_end, ft=ft, inject=inj, key=key)
         return dw                  # backward corrections are not counted
     dev = buf.device
     b3 = buf.reshape(nt, bm, k).float()
@@ -506,7 +512,7 @@ def _grouped_dw(ft: FTConfig, inject, buf, g_buf, gid, row_end):
                       torch.bmm(b3[i:i + step].transpose(1, 2),
                                 g3[i:i + step]))
     if ft.enabled:
-        dw = inject_spec(dw, inject)
+        dw = inject(ft, inj, None, dw)
         u, v = b3.sum(-1), g3.sum(-1)                        # (tiles, bm)
         colck = torch.zeros(ng, n, device=dev).index_add_(
             0, gl, torch.einsum("tb,tbn->tn", u, g3))
@@ -536,7 +542,7 @@ class _FTGrouped(torch.autograd.Function):
     def forward(ctx, buf, w, gid, row_end, ft, spec, bwd_inject, key):
         y, det, maxres = _ft_grouped_2d(ft, spec, buf, w, gid, row_end, key)
         ctx.save_for_backward(buf, w, gid, row_end)
-        ctx.ft, ctx.bwd_inject = ft, bwd_inject
+        ctx.ft, ctx.bwd_inject, ctx.key = ft, bwd_inject, key
         ctx.mark_non_differentiable(det, maxres)
         return y, det, maxres
 
@@ -548,10 +554,11 @@ class _FTGrouped(torch.autograd.Function):
         if ctx.needs_input_grad[0]:
             dbuf, _, _ = _ft_grouped_2d(
                 ctx.ft, _bwd_injection(ctx.bwd_inject, "dbuf"), g_buf,
-                w.transpose(-1, -2), gid, row_end, None)
+                w.transpose(-1, -2), gid, row_end, fold_in(ctx.key, 6))
         if ctx.needs_input_grad[1]:
             dw = _grouped_dw(ctx.ft, _bwd_injection(ctx.bwd_inject, "dw"),
-                             buf, g_buf, gid, row_end).to(w.dtype)
+                             buf, g_buf, gid, row_end,
+                             fold_in(ctx.key, 7)).to(w.dtype)
         return dbuf, dw, None, None, None, None, None, None
 
 

@@ -43,8 +43,9 @@ class FTConfig:
     backend: str = "xla"
     # Optional static detection threshold; None = rounding-aware dynamic tau.
     static_tau: Optional[float] = None
-    # Stochastic SEU injection rate (campaigns; 0.0 = off). Campaigns are
-    # not part of this package: a request for one raises.
+    # Stochastic SEU injection rate (campaigns; 0.0 = off): per matmul on
+    # the torch-op path, per output block in the GEMM kernels; the flash
+    # kernels take no campaign yet (a request there raises).
     inject_rate: float = 0.0
     inject_bit_shift: int = 8
 

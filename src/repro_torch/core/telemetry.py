@@ -60,6 +60,10 @@ class FTScope:
             tot["max_residual"] = max(tot["max_residual"], t["max_residual"])
         return tot
 
+    def sites(self) -> set:
+        """The site labels recorded so far."""
+        return {site for site, _, _, _ in self._items}
+
     def extend(self, other: "FTScope") -> None:
         """Append every record of ``other`` (a nested scope) to this one."""
         self._items.extend(other._items)

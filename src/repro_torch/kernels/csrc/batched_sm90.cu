@@ -63,12 +63,20 @@
 // step's checksums and then adds it to the accumulator, with no final
 // verification. Tau takes the elapsed k and the running max|A|, max|B| of
 // the block (emit.py:369-378).
+//
+// Stochastic SEU campaigns (seu_hook.cuh): under FT every CTA draws its
+// block's SEU, uid slice·gn + j (one 16-row block a slice), over 16 x 32
+// and the ceil(K / 256) k-steps; on the drawn step the lane that holds the
+// element keeps it from before the step's products (in Δ at the inner
+// level, where it is 0) and adds the magnitude of the difference after
+// them, before the step's verification.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "mma16_sm90.cuh"
+#include "seu_hook.cuh"
 
 namespace {
 
@@ -92,6 +100,7 @@ struct BArgs {
   float tau_coef;           // rel_tau * eps32
   int inj_enable, inj_batch, inj_row, inj_col, inj_k;
   float inj_mag;
+  seu::Args seu;            // the stochastic hook's campaign
 };
 
 // BK: B staged as [n][k] rows (its k dim has unit stride), else as [k][n].
@@ -262,6 +271,10 @@ __global__ void __launch_bounds__(kThr) batched_sm90_kernel(const BArgs g) {
   float amax = 0.0f, bmax = 0.0f;   // the block's running maxima
   const bool inj_here = FT && g.inj_enable &&
                         (g.inj_batch < 0 || g.inj_batch == bz);
+  const seu::Hit sh =
+      FT ? seu::draw(g.seu, (uint32_t)(bz * g.gn + bj), g.ksteps, kBq, kBn)
+         : seu::Hit{false, 0, 0, 0};
+  float seu_before = 0.0f;   // the hit element before its step
 
   for (int s = 0; s < g.ksteps; ++s) {
     const int st = s & 1, k0 = s * kStep;
@@ -330,6 +343,8 @@ __global__ void __launch_bounds__(kThr) batched_sm90_kernel(const BArgs g) {
 #pragma unroll
         for (int r = 0; r < 4; ++r) dlt[t][r] = 0.0f;
     }
+    if (sh.hit && s == sh.step)
+      seu_before = frag16_get<NT>(d, sh.row, sh.col - cw0, lane);
 
     // ---- the products, two k16 chunks at a time, and the checksums -------
     for (int p = 0; p < kfill / 32; ++p) {
@@ -377,6 +392,13 @@ __global__ void __launch_bounds__(kThr) batched_sm90_kernel(const BArgs g) {
       // Emulated SEU on this step's products (deterministic injection).
       if (inj_here && s == g.inj_k)
         frag16_add<NT>(d, g.inj_row, g.inj_col - col0 - cw0, g.inj_mag, lane);
+      if (sh.hit && s == sh.step)
+        frag16_add<NT>(
+            d, sh.row, sh.col - cw0,
+            seu::magnitude(frag16_get<NT>(d, sh.row, sh.col - cw0, lane) -
+                               seu_before,
+                           g.seu.shift),
+            lane);
       const float k_el = (float)min(k0 + kStep, g.K);
       if (INNER || (g.verify_step && s != g.ksteps - 1))
         verify_frag<NT>(d, sm, cpart, rpart,
@@ -466,7 +488,8 @@ const char* batched_sm90_error_string(int code) {
 // bases 16-byte aligned. out (nb0, nb1, M, N) bf16 and report (nb0, nb1,
 // 1, ceil(N / 32), 8) f32 contiguous. M <= 16. level: 0 block, 1 tile, 2
 // inner (with ft = 1). inj: [enable, batch (< 0: every slice), row, col,
-// k_step] in 256-deep steps. Returns the launch's cudaError_t.
+// k_step] in 256-deep steps; seu_*: the stochastic hook's campaign
+// (seu_hook.cuh). Returns the launch's cudaError_t.
 int batched_sm90_launch(const void* a, const void* b, void* out, float* rep,
                         int nb0, int nb1, int M, int N, int K,
                         long long sa0, long long sa1, int sam,
@@ -474,7 +497,8 @@ int batched_sm90_launch(const void* a, const void* b, void* out, float* rep,
                         int ft, int level, int verify_step,
                         int corrects, float tau_coef, int inj_enable,
                         int inj_batch, int inj_row, int inj_col, int inj_k,
-                        float inj_mag, void* stream) {
+                        float inj_mag, int seu_on, unsigned seu_seed,
+                        float seu_rate, int seu_shift, void* stream) {
   if (M <= 0 || M > kBq || N <= 0 || K <= 0 || nb0 <= 0 || nb1 <= 0 ||
       (ldb % 8 != 0 && (b_kmajor ? N : K) > 1) || (M > 1 && sam % 8 != 0) ||
       sa0 % 8 != 0 || sa1 % 8 != 0 || sb0 % 8 != 0 || sb1 % 8 != 0 ||
@@ -496,6 +520,7 @@ int batched_sm90_launch(const void* a, const void* b, void* out, float* rep,
   g.verify_step = verify_step; g.corrects = corrects; g.tau_coef = tau_coef;
   g.inj_enable = inj_enable; g.inj_batch = inj_batch; g.inj_row = inj_row;
   g.inj_col = inj_col; g.inj_k = inj_k; g.inj_mag = inj_mag;
+  g.seu = seu::Args{seu_on, seu_seed, seu_rate, seu_shift};
   const int mode = !ft ? kOff : level == 2 ? kInner : kBlock;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int n = (int)ctas;

@@ -72,11 +72,19 @@
 // first version runs the MACs on the CUDA cores in f32 (no tensor cores, no
 // TMA pipeline), so it is far from both bounds; PERF.md carries its times.
 //
+// Stochastic SEU campaigns (seu_hook.cuh): under FT each CTA draws its
+// block's SEU at its start, uid (slice·gm + i)·gn + j (a GROUPED row tile
+// is its i), over BM x BN and the ceil(K / BK) k-steps; on the drawn step
+// the thread that owns the element takes its contribution as the dot of
+// the staged A row and B column and adds the magnitude, to Δ at the inner
+// level. A GROUPED tile with no live row walks its steps when its SEU hits.
+//
 // Report per output block, f32[8]: [detected, corrected, row, col,
 // magnitude, max_residual, tau, k_elapsed], accumulated like the
 // reference's _record: det/corr add, row/col/mag overwrite on detection,
 // max_residual takes the max, tau and k are overwritten at every verify.
 #include "abft_block.cuh"
+#include "seu_hook.cuh"
 
 namespace {
 
@@ -146,6 +154,7 @@ struct GemmArgs {
   float tau_coef;    // rel_tau * eps32
   int inj_enable, inj_batch, inj_row, inj_col, inj_k;
   float inj_mag;
+  seu::Args seu;           // the stochastic hook's campaign
 };
 
 // Element (r, c) of a matrix with strides (sr, sc). A unit column stride
@@ -196,6 +205,10 @@ ft_gemm_kernel(const GemmArgs g) {
   // with a live row.
   int m_hi = M;
   bool b_live = true;
+  const seu::Hit sh =
+      FT ? seu::draw(g.seu, (uint32_t)((bz * g.gm + bi) * g.gn + bj),
+                     g.ksteps, BM, BN)
+         : seu::Hit{false, 0, 0, 0};
   if constexpr (GROUPED) {
     const int grp = g.gid[bi];
     m_hi = min(g.row_end[grp], M);
@@ -205,7 +218,7 @@ ft_gemm_kernel(const GemmArgs g) {
                           g.inj_k < g.ksteps &&
                           g.inj_row >= row0 && g.inj_row < row0 + BM &&
                           g.inj_col >= col0 && g.inj_col < col0 + BN;
-    if (!b_live && !seu_here) {
+    if (!b_live && !seu_here && !sh.hit) {
       T* out = static_cast<T*>(g.out);
       for (int idx = tid; idx < BM * BN; idx += kThreads) {
         const int gr = row0 + idx / BN, gc = col0 + idx % BN;
@@ -328,6 +341,16 @@ ft_gemm_kernel(const GemmArgs g) {
         if constexpr (INNER) dlt[rl % TM][cl % TN] += g.inj_mag;
         else acc[rl % TM][cl % TN] += g.inj_mag;
       }
+    }
+    // Stochastic SEU: the element's contribution of this step, from the
+    // staged tiles, by the thread that owns it.
+    if (sh.hit && s == sh.step && sh.row / TM == ty && sh.col / TN == tx) {
+      float d = 0.0f;
+      for (int kk = 0; kk < BK; ++kk)
+        d = fmaf(As[kk][sh.row], Bs[kk][sh.col], d);
+      const float mag = seu::magnitude(d, g.seu.shift);
+      if constexpr (INNER) dlt[sh.row % TM][sh.col % TN] += mag;
+      else acc[sh.row % TM][sh.col % TN] += mag;
     }
     if constexpr (INNER) {
       // Verify Δ alone, correct it, then accumulate it.
@@ -613,7 +636,8 @@ const char* ft_gemm_error_string(int code) {
 // nullptr, or (nb0, nb1, M, N) contiguous for a chain with an activation.
 // dtype: 0 f32, 1 bf16. level: the FT Level (with ft = 1). epi: the
 // Epilogue code. layout: the LAYOUT of the tile loads (1 and 2 with epi 0
-// only). Returns the launch's cudaError_t.
+// only). seu_*: the stochastic hook's campaign (seu_hook.cuh). Returns the
+// launch's cudaError_t.
 int ft_gemm_launch(const void* a, const void* b, const void* bias,
                    const void* res, void* out, float* rep, void* act_grad,
                    int nb0, int nb1,
@@ -623,7 +647,9 @@ int ft_gemm_launch(const void* a, const void* b, const void* bias,
                    int epi, int tiles, int layout, int verify_step,
                    int corrects,
                    float tau_coef, int inj_enable, int inj_batch, int inj_row,
-                   int inj_col, int inj_k, float inj_mag, void* stream) {
+                   int inj_col, int inj_k, float inj_mag, int seu_on,
+                   unsigned seu_seed, float seu_rate, int seu_shift,
+                   void* stream) {
   if (M <= 0 || N <= 0 || K <= 0 || nb0 <= 0 || nb1 <= 0)
     return cudaErrorInvalidValue;
   const int batch = nb0 * nb1;
@@ -636,6 +662,7 @@ int ft_gemm_launch(const void* a, const void* b, const void* bias,
   g.verify_step = verify_step; g.corrects = corrects; g.tau_coef = tau_coef;
   g.inj_enable = inj_enable; g.inj_batch = inj_batch; g.inj_row = inj_row;
   g.inj_col = inj_col; g.inj_k = inj_k; g.inj_mag = inj_mag;
+  g.seu = seu::Args{seu_on, seu_seed, seu_rate, seu_shift};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool ag = act_grad != nullptr;
   if (dtype == 0)
@@ -659,7 +686,8 @@ int ft_gemm_grouped_launch(const void* a, const void* w, const int* gid,
                            int ft, int bm, int layout, int verify_step,
                            int corrects, float tau_coef, int inj_enable,
                            int inj_row, int inj_col, int inj_k,
-                           float inj_mag, void* stream) {
+                           float inj_mag, int seu_on, unsigned seu_seed,
+                           float seu_rate, int seu_shift, void* stream) {
   if (T <= 0 || N <= 0 || K <= 0 || G <= 0 || bm <= 0 || T % bm != 0)
     return cudaErrorInvalidValue;
   GemmArgs g{};
@@ -670,6 +698,7 @@ int ft_gemm_grouped_launch(const void* a, const void* w, const int* gid,
   g.verify_step = verify_step; g.corrects = corrects; g.tau_coef = tau_coef;
   g.inj_enable = inj_enable; g.inj_batch = 0; g.inj_row = inj_row;
   g.inj_col = inj_col; g.inj_k = inj_k; g.inj_mag = inj_mag;
+  g.seu = seu::Args{seu_on, seu_seed, seu_rate, seu_shift};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return ft ? launch_grouped<float, true>(bm, layout, g, st)

@@ -69,6 +69,17 @@
 // this final verification). kernels/ft_gemm.py:ft_gemm_plain walks the same
 // split grid.
 //
+// Stochastic SEU campaigns (seu_hook.cuh) run their own block instances
+// (template parameter SEU; the clean ones are unchanged): every CTA of a
+// block (each split's, and the reduce kernel's) draws the block's SEU, uid
+// i·gn + j, over BM x 128 and the ceil(K / 256) k-steps. The split that
+// runs the drawn step lands it: the thread that owns the element keeps it
+// at the end of the step before (where the wgmmas are drained; 0 at the
+// split's first step), takes the difference after the step's wait as the
+// contribution, and adds the magnitude before the step's verification. A hit in rows past M makes
+// the split-K partials carry the block's padding rows, as a deterministic
+// SEU there does.
+//
 // Report per output block, f32[8]: [detected, corrected, row, col,
 // magnitude, max_residual, tau, k_elapsed].
 #include <cuda.h>
@@ -78,6 +89,7 @@
 
 #include <type_traits>
 
+#include "seu_hook.cuh"
 #include "sm90_mainloop.cuh"
 
 namespace {
@@ -101,17 +113,28 @@ struct Sm90Args {
   float tau_coef;              // rel_tau * eps32
   int inj_enable, inj_row, inj_col, inj_k;
   float inj_mag;
+  seu::Args seu;               // the stochastic hook's campaign
 };
 
-// Whether the split-K partials of the block at (row0, col0) carry its rows
-// past M: only when the injected SEU lands in one of them.
-__device__ __forceinline__ bool pad_rows(const Sm90Args& g, int row0,
-                                         int col0, int bm) {
-  return g.inj_enable && g.inj_row >= g.M && g.inj_row >= row0 &&
-         g.inj_row < row0 + bm && g.inj_col >= col0 && g.inj_col < col0 + kBN;
+// The stochastic SEU of output block (bi, bj).
+__device__ __forceinline__ seu::Hit block_seu(const Sm90Args& g, int bi,
+                                              int bj, int bm) {
+  return seu::draw(g.seu, (uint32_t)(bi * g.gn + bj), g.ksteps, bm, kBN);
 }
 
-template <bool FT, bool AK, bool BK, int BM>
+// Whether the split-K partials of the block at (row0, col0) carry its rows
+// past M: only when an injected SEU (deterministic, or the block's
+// stochastic one `sh`) lands in one of them.
+__device__ __forceinline__ bool pad_rows(const Sm90Args& g, int row0,
+                                         int col0, int bm,
+                                         const seu::Hit& sh) {
+  return (g.inj_enable && g.inj_row >= g.M && g.inj_row >= row0 &&
+          g.inj_row < row0 + bm && g.inj_col >= col0 &&
+          g.inj_col < col0 + kBN) ||
+         (sh.hit && row0 + sh.row >= g.M);
+}
+
+template <bool FT, bool AK, bool BK, int BM, bool SEU>
 __global__ void __launch_bounds__(BM * 2 + 128, 1)
 ft_gemm_sm90_kernel(const __grid_constant__ CUtensorMap tma_a,
                     const __grid_constant__ CUtensorMap tma_b,
@@ -193,6 +216,11 @@ ft_gemm_sm90_kernel(const __grid_constant__ CUtensorMap tma_a,
   const bool inj_tile = FT && g.inj_enable && g.inj_row >= row0 &&
                         g.inj_row < row0 + BM && g.inj_col >= col0 &&
                         g.inj_col < col0 + kBN;
+  const seu::Hit sh =
+      SEU ? block_seu(g, bi, bj, BM) : seu::Hit{false, 0, 0, 0};
+  // The hit element before its step: 0 at the split's first step, else
+  // kept at the end of the step before (the wgmmas drained there).
+  float seu_before = 0.0f;
 
   // ---- mainloop over this split's stages -------------------------------
   int pending = -1;   // a stage whose wgmmas may still run: released later
@@ -245,10 +273,17 @@ ft_gemm_sm90_kernel(const __grid_constant__ CUtensorMap tma_a,
         // Emulated SEU on this step's accumulator (deterministic injection).
         if (inj_tile && s == g.inj_k)
           add_at(acc, g.inj_row - row0, g.inj_col - col0, g.inj_mag, tid);
+        if (SEU && sh.hit && s == sh.step)
+          add_at(acc, sh.row, sh.col,
+                 seu::magnitude(get_at(acc, sh.row, sh.col, tid) - seu_before,
+                                g.seu.shift),
+                 tid);
         if (g.verify_step && it + 1 < nst)
           verify_acc<BM, NT>(acc, opa, opb, sc, g, tid, row0, col0,
                              (float)(min((s + 1) * kStep, g.K) - s_lo * kStep),
                              false);
+        if (SEU && sh.hit && s + 1 == sh.step)
+          seu_before = get_at(acc, sh.row, sh.col, tid);
       }
     }
   }
@@ -260,7 +295,7 @@ ft_gemm_sm90_kernel(const __grid_constant__ CUtensorMap tma_a,
     const long long Mp = (long long)g.gm * BM, Np = (long long)g.gn * kBN;
     float* part = g.ws + (long long)z * Mp * Np;
     const int rbase = row0 + wg * 64 + wl * 16 + lane / 4;
-    const bool all_rows = pad_rows(g, row0, col0, BM);
+    const bool all_rows = pad_rows(g, row0, col0, BM, sh);
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       if (rbase + 8 * i >= g.M && !all_rows) continue;
@@ -342,7 +377,10 @@ ft_gemm_sm90_reduce(const Sm90Args g) {
     biasv[n] = (g.bias != nullptr && col0 + n < g.N)
                    ? __bfloat162float(g.bias[col0 + n]) : 0.0f;
   __syncthreads();
-  const bool all_rows = pad_rows(g, row0, col0, BM);
+  const bool all_rows =
+      pad_rows(g, row0, col0, BM,
+               g.seu.on ? block_seu(g, bi, bj, BM)
+                        : seu::Hit{false, 0, 0, 0});
   for (int idx = tid; idx < BM * kBN; idx += abft::kThreads) {
     const int m = idx / kBN, n = idx % kBN;
     const float* p = g.ws + (row0 + m) * Np + col0 + n;
@@ -413,10 +451,10 @@ ft_gemm_sm90_reduce(const Sm90Args g) {
 }
 
 
-template <bool FT, bool AK, bool BK, int BM>
+template <bool FT, bool AK, bool BK, int BM, bool SEU>
 cudaError_t launch_main(const CUtensorMap& ta, const CUtensorMap& tb,
                         const Sm90Args& g, cudaStream_t st) {
-  auto kern = ft_gemm_sm90_kernel<FT, AK, BK, BM>;
+  auto kern = ft_gemm_sm90_kernel<FT, AK, BK, BM, SEU>;
   constexpr int smem = smem_bytes<BM>();
   static bool ready = false;
   if (!ready) {
@@ -444,14 +482,19 @@ cudaError_t launch_reduce(const Sm90Args& g, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-// The instances: FT off / block x the three operand walks x BM 128 / 64.
-template <bool FT, int BM>
+// The instances: FT off / block / block under a campaign (SEU: the hook is a
+// template parameter, so the clean instances carry none of its registers)
+// x the three operand walks x BM 128 / 64.
+template <bool FT, int BM, bool SEU = false>
 cudaError_t launch_walk(int a_kmajor, int b_kmajor, const CUtensorMap& ta,
                         const CUtensorMap& tb, const Sm90Args& g,
                         cudaStream_t st) {
-  if (a_kmajor && !b_kmajor) return launch_main<FT, true, false, BM>(ta, tb, g, st);
-  if (a_kmajor && b_kmajor) return launch_main<FT, true, true, BM>(ta, tb, g, st);
-  if (!a_kmajor && !b_kmajor) return launch_main<FT, false, false, BM>(ta, tb, g, st);
+  if (a_kmajor && !b_kmajor)
+    return launch_main<FT, true, false, BM, SEU>(ta, tb, g, st);
+  if (a_kmajor && b_kmajor)
+    return launch_main<FT, true, true, BM, SEU>(ta, tb, g, st);
+  if (!a_kmajor && !b_kmajor)
+    return launch_main<FT, false, false, BM, SEU>(ta, tb, g, st);
   return cudaErrorInvalidValue;
 }
 
@@ -459,8 +502,10 @@ template <int BM>
 cudaError_t launch_bm(int ft, int a_kmajor, int b_kmajor, const CUtensorMap& ta,
                       const CUtensorMap& tb, const Sm90Args& g,
                       cudaStream_t st) {
-  cudaError_t e = ft ? launch_walk<true, BM>(a_kmajor, b_kmajor, ta, tb, g, st)
-                     : launch_walk<false, BM>(a_kmajor, b_kmajor, ta, tb, g, st);
+  cudaError_t e =
+      g.seu.on ? launch_walk<true, BM, true>(a_kmajor, b_kmajor, ta, tb, g, st)
+      : ft     ? launch_walk<true, BM>(a_kmajor, b_kmajor, ta, tb, g, st)
+               : launch_walk<false, BM>(a_kmajor, b_kmajor, ta, tb, g, st);
   if (e != cudaSuccess || g.splits == 1) return e;
   return ft ? launch_reduce<true, BM>(g, st) : launch_reduce<false, BM>(g, st);
 }
@@ -481,7 +526,8 @@ const char* ft_gemm_sm90_error_string(int code) {
 // contiguous row-major; rep (gm, gn, 8) with ft; ws: with splits > 1, f32
 // of splits·(gm·bm·gn·128 + gm·gn·272) elements. bm: 128 or 64. act: 0
 // none, 1 silu. The injection (deterministic SEU) adds
-// inj_mag at global (inj_row, inj_col) after 256-deep k-step inj_k.
+// inj_mag at global (inj_row, inj_col) after 256-deep k-step inj_k;
+// seu_*: the stochastic hook's campaign (seu_hook.cuh).
 // Launches the main kernel and, with splits > 1, the reduce kernel;
 // returns the first cudaError_t.
 int ft_gemm_sm90_launch(const void* a, const void* b, const void* bias,
@@ -490,7 +536,8 @@ int ft_gemm_sm90_launch(const void* a, const void* b, const void* bias,
                         int a_kmajor, int b_kmajor, int bm, int splits, int ft,
                         int act, int verify_step, int corrects, float tau_coef,
                         int inj_enable, int inj_row, int inj_col, int inj_k,
-                        float inj_mag, void* stream) {
+                        float inj_mag, int seu_on, unsigned seu_seed,
+                        float seu_rate, int seu_shift, void* stream) {
   if (M <= 0 || N <= 0 || K <= 0 || splits <= 0 || (bm != 128 && bm != 64))
     return cudaErrorInvalidValue;
   Sm90Args g{};
@@ -509,6 +556,7 @@ int ft_gemm_sm90_launch(const void* a, const void* b, const void* bias,
   g.tau_coef = tau_coef;
   g.inj_enable = inj_enable; g.inj_row = inj_row; g.inj_col = inj_col;
   g.inj_k = inj_k; g.inj_mag = inj_mag;
+  g.seu = seu::Args{seu_on, seu_seed, seu_rate, seu_shift};
   if (splits > g.ksteps || g.gn > 65535 || (splits > 1 && ws == nullptr))
     return cudaErrorInvalidValue;
   CUtensorMap ta, tb;

@@ -56,9 +56,24 @@
 //     side (more, smaller CTAs per expert) was not built or measured;
 //   * a chunk with no live row (the buffer's dead tail) writes zeros and
 //     the clean record (tau 1e-30, k = K) at once, unless an SEU is aimed at
-//     it; the chunk's record goes in its first layout tile's report row,
-//     the clean record in the others, so the report keeps its shape
-//     (T / 16, gn, 8) and totals and located rows read as before.
+//     it or drawn for one of its tiles; the chunk's record goes in its
+//     first layout tile's report row, the clean record in the others, so
+//     the report keeps its shape (T / 16, gn, 8);
+//   * stochastic SEU campaigns (seu_hook.cuh) run their own instance (SEU):
+//     each layout tile draws its SEU as the reference's per-tile block
+//     does, uid tile·gn + j, over 16 x 128 and the ceil(K / 256) k-steps;
+//     the warp of its band keeps the element at the end of the step before
+//     the drawn one (0 before the first) and adds the magnitude of the
+//     difference after it. Four tiles' SEUs can share one interval of a
+//     chunk, so this instance verifies each 16-row band (one consumer
+//     warp's rows, one layout tile) on its own: the band's column sums of
+//     the accumulator against the band's running column checksum (e^T
+//     A_band per stage, `band_ksum`, dotted with the staged B, `dot_add`,
+//     into per-band partials in shared memory), its rows' residuals, the
+//     chunk's tau; each band locates and corrects its own SEU and records
+//     into its own tile's report row (`verify_bands`). Its four dots of
+//     the staged B a stage cost 1.4-1.6x the clean instance (PERF.md), so
+//     clean calls keep the chunk-wide verification.
 //
 // K8 (tgmm_sm90_kernel). What bounds it: the f32 write of dw (3.2 GB at
 // the training shape, 128 experts x 4 096 x 1 536). One CTA per (group,
@@ -80,15 +95,22 @@
 //     lands at the end of the stage that holds it;
 //   * the f32 block is staged in the drained ring and stored with 16-byte
 //     stores (line 538); an empty group's CTAs write a zero block and a
-//     zero report, so the front door makes no pass over dw.
+//     zero report, so the front door makes no pass over dw;
+//   * stochastic SEU campaigns (seu_hook.cuh): each CTA draws its dw
+//     block's SEU, uid (group·gk + k-block)·gn + n-block, over the group's
+//     16-row tiles that hold a live row (the reference's group-local tile
+//     step) and the 128 x 128 block; the magnitude comes from the hit
+//     tile's own product at the element (a 16-term dot of the staged X and
+//     G rows, `staged_at`) and lands at the end of the stage that holds
+//     the tile, as the deterministic SEU does.
 //
 // Registers (-Xptxas -v, the env phase of chip_smoke.py): K7's instances
-// use 105 (FT off) and 205-215 (block) registers without spills; K8's
-// 384-thread CTA is held to 168 registers a thread (the register file of
-// one SM over 384 threads; setmaxnreg then gives the consumer warpgroups
-// 232), and its block instance spills 32 bytes there, as K1's 128-row
-// LAYOUT 2 block instance spills 4: the verification's locals, once per
-// 64-row interval, against a 64 KB store of the block.
+// use 105 (FT off), 205-215 (block) and 232-239 (campaign) registers
+// without spills; K8's 384-thread CTA is held to 168 registers a thread
+// (the register file of one SM over 384 threads; setmaxnreg then gives the
+// consumer warpgroups 232), and its block instance spills 20 bytes there,
+// as K1's 128-row LAYOUT 2 block instance spills 4: the verification's
+// locals, once per 64-row interval, against a 64 KB store of the block.
 //
 // Reports, f32[8]: [detected, corrected, row, col, magnitude,
 // max_residual, tau, k_elapsed (K7) or rows_reduced (K8)]; K7's rows are
@@ -100,6 +122,7 @@
 
 #include <type_traits>
 
+#include "seu_hook.cuh"
 #include "sm90_mainloop.cuh"
 
 namespace {
@@ -117,6 +140,7 @@ struct GroupedArgs {
   float tau_coef;       // rel_tau * eps32
   int inj_enable, inj_row, inj_col, inj_k;
   float inj_mag;
+  seu::Args seu;        // the stochastic hook's campaign
 };
 
 __device__ __forceinline__ int round_up(int x, int m) {
@@ -160,11 +184,130 @@ __device__ __forceinline__ void clean_record(float* r, int K) {
   r[7] = (float)K;
 }
 
+// Element (k, x) of a staged 64-row stage tile whose x dim is contiguous
+// (K8's X and G tiles: x / 64 selects the 64 x 64 box, 128-byte swizzle).
+__device__ __forceinline__ float staged_at(const uint8_t* tile, int k, int x) {
+  const uint8_t* p = tile + (x / 64) * kBoxBytes + k * 128 +
+                     ((((x % 64) / 8) ^ (k % 8)) << 4) + (x % 8) * 2;
+  return __bfloat162float(*reinterpret_cast<const __nv_bfloat16*>(p));
+}
+
 // ---------------------------------------------------------------------------
 // K7: y_buf = buf @ w[gid], one 64-row chunk of one group per CTA
 // ---------------------------------------------------------------------------
 
-template <bool FT, bool BK>
+// K7's per-band scratch (after Scratch<64> in shared memory): e^T A_s of
+// each 16-row band, each band's running column-checksum partials (at most
+// 8 slots, the layout of the B operator's partials), column residuals,
+// verdict and report.
+struct Bands {
+  float ks[2][4][64];          // [stage parity][band][k]
+  float part[4][8][kBN];
+  float dcol[4][kBN];
+  Verdict verdict[4];
+  float rep[4][8];
+};
+
+// e^T A_s of each 16-row band of the staged 64-row A tile from the chunks
+// RowOp<64, NT> loaded (row lane + 32j lies in band 2j + lane / 16): a
+// transposing sum over the 16 lanes of each half warp.
+template <typename OpA>
+__device__ __forceinline__ void band_ksum(const OpA& opa, float (*ks)[64],
+                                          int tid) {
+  const int warp = tid / 32, lane = tid & 31;
+#pragma unroll
+  for (int i = 0; i < OpA::CI; ++i)
+#pragma unroll
+    for (int j = 0; j < OpA::RJ; ++j) {
+      float v[8];
+      unpack8(opa.ch[i * OpA::RJ + j], v);
+      const int base = xreduce<8, 16, 1>(v, lane);
+      if ((lane & 1) == 0)
+        ks[2 * j + lane / 16][(warp + OpA::W * i) * 8 + base] = v[0];
+    }
+}
+
+// Verify each 16-row band of the chunk's accumulator on its own at k_el
+// elapsed: warp w's band, its column sums against the band's column
+// checksum and its rows' sums against the row checksums, the chunk's tau,
+// the first argmax of each, abft::record into the band's report, and the
+// branchless correction by the thread that holds the element.
+template <typename OpA, typename OpB>
+__device__ __forceinline__ void verify_bands(float (&acc)[64], const OpA& opa,
+                                             const OpB& opb, Scratch<64>& sc,
+                                             Bands& bx, const GroupedArgs& g,
+                                             int tid, int row0, int col0,
+                                             float k_el) {
+  constexpr int NT = 128;
+  const int wl = tid / 32, lane = tid & 31;
+  float am, bm;
+  reduce_checks<64, NT>(opa, opb, sc, tid, false, am, bm);
+  float cs[32];
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      cs[2 * j + e] = acc[4 * j + e] + acc[4 * j + 2 + e];
+  const int base = xreduce<32, 8, 4>(cs, lane);
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int ci = base + q;
+    sc.colp[wl][8 * (ci / 2) + 2 * (lane & 3) + (ci & 1)] = cs[q];
+  }
+  float r0 = 0.0f, r1 = 0.0f;
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      r0 += acc[4 * j + e];
+      r1 += acc[4 * j + 2 + e];
+    }
+  r0 += __shfl_xor_sync(kFull, r0, 1);
+  r0 += __shfl_xor_sync(kFull, r0, 2);
+  r1 += __shfl_xor_sync(kFull, r1, 1);
+  r1 += __shfl_xor_sync(kFull, r1, 2);
+  if ((lane & 3) == 0) {
+    const int m = wl * 16 + lane / 4;
+    sc.rowsum[m] = r0;
+    sc.rowsum[m + 8] = r1;
+  }
+  consumer_sync<NT>();
+  // Band wl: column residuals (this lane's columns lane + 32c) and rows.
+  float lb = -1.0f;
+  int li = 0;
+#pragma unroll
+  for (int c = 0; c < kBN / 32; ++c) {
+    const int n = lane + 32 * c;
+    float ck = 0.0f;
+#pragma unroll
+    for (int q = 0; q < OpB::SLOTS; ++q) ck += bx.part[wl][q][n];
+    const float d = sc.colp[wl][n] - ck;
+    bx.dcol[wl][n] = d;
+    if (fabsf(d) > lb) {
+      lb = fabsf(d);
+      li = n;
+    }
+  }
+  float bc, br;
+  int ic, ir;
+  warp_argmax(lb, li, bc, ic);
+  const int m = wl * 16 + (lane & 15);
+  const float dr = lane < 16 ? sc.rowsum[m] - sc.drow[m] : 0.0f;
+  warp_argmax(dr, lane < 16 ? lane : 64 + lane, br, ir);
+  __syncwarp();
+  if (lane == 0) {
+    const float tau = fmaxf(g.tau_coef * k_el * am * bm, 1e-30f);
+    bx.verdict[wl] = abft::record(bx.dcol[wl], bc, ic, br, ir, tau, k_el,
+                                  g.corrects, row0 + 16 * wl, col0,
+                                  bx.rep[wl]);
+  }
+  __syncwarp();
+  const Verdict v = bx.verdict[wl];
+  if (g.corrects && v.det) add_at(acc, 16 * wl + v.row, v.col, -v.mag, tid);
+  __syncwarp();
+}
+
+template <bool FT, bool BK, bool SEU>
 __global__ void __launch_bounds__(256, 1)
 grouped_sm90_kernel(const __grid_constant__ CUtensorMap tma_a,
                     const __grid_constant__ CUtensorMap tma_w,
@@ -179,6 +322,8 @@ grouped_sm90_kernel(const __grid_constant__ CUtensorMap tma_a,
   uint8_t* ring = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   Scratch<BM>& sc =
       *reinterpret_cast<Scratch<BM>*>(ring + kStages * STAGE_BYTES);
+  Bands& bx = *reinterpret_cast<Bands*>(ring + kStages * STAGE_BYTES +
+                                        sizeof(Scratch<BM>));
 
   const int tid = threadIdx.x;
   const int ti = blockIdx.x, bj = blockIdx.y;
@@ -196,8 +341,15 @@ grouped_sm90_kernel(const __grid_constant__ CUtensorMap tma_a,
   __nv_bfloat16* out = static_cast<__nv_bfloat16*>(g.out);
   float* rep = FT ? g.rep + ((long long)ti * g.gn + bj) * 8 : nullptr;
   const int tiles = (m_hi - row0) / kTile;
+  // The stochastic SEU of each layout tile of the chunk (its band).
+  bool any_hit = false;
+  if (SEU)
+    for (int q = 0; q < tiles; ++q)
+      any_hit |= seu::draw(g.seu, (uint32_t)((ti + q) * g.gn + bj),
+                           g.ksteps, kTile, kBN).hit;
 
-  if (lim == 0 && !(inj_tile && g.inj_k >= 0 && g.inj_k < g.ksteps)) {
+  if (lim == 0 && !(inj_tile && g.inj_k >= 0 && g.inj_k < g.ksteps) &&
+      !any_hit) {
     // No live row and no SEU aimed here: zeros and the clean records.
     for (int c = tid; c < (m_hi - row0) * kBN; c += blockDim.x) {
       const int gr = row0 + c / kBN, gc = col0 + c % kBN;
@@ -244,7 +396,7 @@ grouped_sm90_kernel(const __grid_constant__ CUtensorMap tma_a,
   }
 
   // ---- consumer warpgroup --------------------------------------------------
-  const int lane = tid & 31;
+  const int lane = tid & 31, wl = tid / 32;
   float acc[64];
 #pragma unroll
   for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
@@ -252,6 +404,20 @@ grouped_sm90_kernel(const __grid_constant__ CUtensorMap tma_a,
   OpB opb;
   opa.init();
   opb.init();
+  if constexpr (SEU) {
+    for (int i = tid; i < 4 * 8 * kBN; i += NT) (&bx.part[0][0][0])[i] = 0.0f;
+    for (int i = tid; i < 4 * 8; i += NT) (&bx.rep[0][0])[i] = 0.0f;
+    consumer_sync<NT>();
+  }
+  // This warp's band: its tile's stochastic SEU, rows local to the chunk.
+  seu::Hit sh = SEU && wl < tiles
+                    ? seu::draw(g.seu, (uint32_t)((ti + wl) * g.gn + bj),
+                                g.ksteps, kTile, kBN)
+                    : seu::Hit{false, 0, 0, 0};
+  sh.row += 16 * wl;
+  // The hit element before its step: 0 at the first, else kept at the end
+  // of the step before (the wgmmas drained there).
+  float seu_before = 0.0f;
 
   int pending = -1;   // a stage whose wgmmas may still run: released later
   for (int it = 0; it < nst; ++it) {
@@ -275,16 +441,24 @@ grouped_sm90_kernel(const __grid_constant__ CUtensorMap tma_a,
     }
     wgmma_commit();
     if constexpr (FT) {
-      // While the tensor cores run: the stage's checksums from its tiles.
+      // While the tensor cores run: the stage's checksums from its tiles,
+      // the column checksum per 16-row band.
       float* ka = sc.ks[it & 1][0];
       float* kb = sc.ks[it & 1][1];
       opa.load(pa, tid);
       opb.load(pb, tid);
       opa.ksum(ka, tid);
+      if constexpr (SEU) band_ksum(opa, bx.ks[it & 1], tid);
       opb.ksum(kb, tid);
       consumer_sync<NT>();
       opa.dot(kb, tid);
-      opb.dot(ka, tid);
+      if constexpr (SEU) {
+#pragma unroll
+        for (int b = 0; b < 4; ++b)
+          opb.dot_add(bx.ks[it & 1][b], &bx.part[b][0][0], tid);
+      } else {
+        opb.dot(ka, tid);
+      }
     }
     const bool step_end = (it + 1) % kStagesPerStep == 0 || it + 1 == nst;
     const bool drain = it + 1 == nst || (FT && step_end);
@@ -302,13 +476,28 @@ grouped_sm90_kernel(const __grid_constant__ CUtensorMap tma_a,
         const int s = it / kStagesPerStep;   // the k-step just ended
         if (inj_tile && s == g.inj_k)
           add_at(acc, g.inj_row - row0, g.inj_col - col0, g.inj_mag, tid);
-        if (g.verify_step && it + 1 < nst)
+        if constexpr (SEU) {
+          if (sh.hit && s == sh.step)
+            add_at(acc, sh.row, sh.col,
+                   seu::magnitude(get_at(acc, sh.row, sh.col, tid) -
+                                      seu_before,
+                                  g.seu.shift),
+                   tid);
+          if (g.verify_step && it + 1 < nst)
+            verify_bands(acc, opa, opb, sc, bx, g, tid, row0, col0,
+                         (float)min((s + 1) * kStep, g.K));
+          if (sh.hit && s + 1 == sh.step)
+            seu_before = get_at(acc, sh.row, sh.col, tid);
+        } else if (g.verify_step && it + 1 < nst) {
           verify_acc<BM, NT>(acc, opa, opb, sc, g, tid, row0, col0,
                              (float)min((s + 1) * kStep, g.K), false);
+        }
       }
     }
   }
-  if constexpr (FT)
+  if constexpr (SEU)
+    verify_bands(acc, opa, opb, sc, bx, g, tid, row0, col0, (float)g.K);
+  else if constexpr (FT)
     verify_acc<BM, NT>(acc, opa, opb, sc, g, tid, row0, col0, (float)g.K,
                        false);
 
@@ -320,7 +509,10 @@ grouped_sm90_kernel(const __grid_constant__ CUtensorMap tma_a,
   stage_tile(acc, stage, PITCH, 0, false, tid);
   consumer_sync<NT>();
   store_tile<BM, NT>(stage, PITCH, out, m_hi, g.N, row0, col0, tid);
-  if (FT) {
+  if (SEU) {
+    for (int q = tid; q < tiles * 8; q += NT)
+      rep[(long long)(q / 8) * g.gn * 8 + q % 8] = bx.rep[q / 8][q % 8];
+  } else if (FT) {
     if (tid == 0)
       for (int q = 0; q < 8; ++q) rep[q] = sc.rep[q];
     for (int q = 1 + tid; q < tiles; q += NT)
@@ -394,6 +586,13 @@ tgmm_sm90_kernel(const __grid_constant__ CUtensorMap tma_x,
   const int inj_r = g.inj_k * kTile;   // the aimed layout tile's first row
   const int s_inj = inj_block && inj_r >= reg.base && inj_r < reg.end
                         ? (inj_r - reg.base) / kStageK : -1;
+  // The stochastic SEU: a step is a live 16-row tile from the group's base.
+  const seu::Hit sh =
+      FT ? seu::draw(g.seu,
+                     (uint32_t)(((long long)grp * g.gk + bi) * g.gn + bj),
+                     (reg.row_hi - reg.base + kTile - 1) / kTile, BM, kBN)
+         : seu::Hit{false, 0, 0, 0};
+  const int s_seu = sh.hit ? sh.step * kTile / kStageK : -1;
 
   if (tid == 0) {
     for (int s = 0; s < kStages; ++s) {
@@ -436,6 +635,7 @@ tgmm_sm90_kernel(const __grid_constant__ CUtensorMap tma_x,
   OpB opb;
   opa.init();
   opb.init();
+  float seu_d = 0.0f;   // the hit tile's product at the hit element
   auto rows_at = [&](int s) {   // live rows reduced after stage s
     return (float)max(min(reg.base + (s + 1) * kStageK, reg.row_hi) -
                       reg.base, 1);
@@ -473,6 +673,14 @@ tgmm_sm90_kernel(const __grid_constant__ CUtensorMap tma_x,
       consumer_sync<NT>();
       opa.dot(kb, tid);
       opb.dot(ka, tid);
+      if (it == s_seu) {
+        // The hit tile's own product at the element, from its 16 staged
+        // rows (masked past row_end above).
+        const int r0 = (sh.step * kTile) % kStageK;
+        for (int r = 0; r < kTile; ++r)
+          seu_d = fmaf(staged_at(pa, r0 + r, sh.row),
+                       staged_at(pb, r0 + r, sh.col), seu_d);
+      }
     }
     // Every stage is a verification interval under FT: drain it.
     const bool drain = it + 1 == n_live || FT;
@@ -488,6 +696,8 @@ tgmm_sm90_kernel(const __grid_constant__ CUtensorMap tma_x,
     if constexpr (FT) {
       if (it == s_inj)
         add_at(acc, g.inj_row - m0, g.inj_col - col0, g.inj_mag, tid);
+      if (it == s_seu)
+        add_at(acc, sh.row, sh.col, seu::magnitude(seu_d, g.seu.shift), tid);
       if (g.verify_step || it == n_st - 1)
         verify_acc<BM, NT>(acc, opa, opb, sc, g, tid, m0, col0, rows_at(it),
                            false);
@@ -553,11 +763,11 @@ cudaError_t set_smem(Kern kern, int smem, bool& ready) {
   return e;
 }
 
-template <bool FT, bool BK>
+template <bool FT, bool BK, bool SEU = false>
 cudaError_t launch_grouped(const CUtensorMap& ta, const CUtensorMap& tw,
                            const GroupedArgs& g, cudaStream_t st) {
-  auto kern = grouped_sm90_kernel<FT, BK>;
-  constexpr int smem = smem_bytes<64>();
+  auto kern = grouped_sm90_kernel<FT, BK, SEU>;
+  constexpr int smem = smem_bytes<64>() + (SEU ? (int)sizeof(Bands) : 0);
   static bool ready = false;
   const cudaError_t e = set_smem(kern, smem, ready);
   if (e != cudaSuccess) return e;
@@ -579,10 +789,12 @@ cudaError_t launch_tgmm(const CUtensorMap& tx, const CUtensorMap& tg,
 
 void set_common(GroupedArgs& g, int verify_step, int corrects, float tau_coef,
                 int inj_enable, int inj_row, int inj_col, int inj_k,
-                float inj_mag) {
+                float inj_mag, int seu_on, unsigned seu_seed, float seu_rate,
+                int seu_shift) {
   g.verify_step = verify_step; g.corrects = corrects; g.tau_coef = tau_coef;
   g.inj_enable = inj_enable; g.inj_row = inj_row; g.inj_col = inj_col;
   g.inj_k = inj_k; g.inj_mag = inj_mag;
+  g.seu = seu::Args{seu_on, seu_seed, seu_rate, seu_shift};
 }
 
 }  // namespace
@@ -607,7 +819,8 @@ int grouped_sm90_launch(const void* a, const void* w, const int* gid,
                         long long sw_g, int w_kmajor, int ft, int verify_step,
                         int corrects, float tau_coef, int inj_enable,
                         int inj_row, int inj_col, int inj_k, float inj_mag,
-                        void* stream) {
+                        int seu_on, unsigned seu_seed, float seu_rate,
+                        int seu_shift, void* stream) {
   if (T <= 0 || N <= 0 || K <= 0 || G <= 0 || T % kTile != 0)
     return cudaErrorInvalidValue;
   GroupedArgs g{};
@@ -617,7 +830,7 @@ int grouped_sm90_launch(const void* a, const void* w, const int* gid,
   g.nstages = (K + kStageK - 1) / kStageK;
   g.ksteps = (K + kStep - 1) / kStep;
   set_common(g, verify_step, corrects, tau_coef, inj_enable, inj_row, inj_col,
-             inj_k, inj_mag);
+             inj_k, inj_mag, seu_on, seu_seed, seu_rate, seu_shift);
   if (g.gn > 65535) return cudaErrorInvalidValue;
   CUtensorMap ta, tw;
   const bool ok = make_map(&ta, a, K, T, lda, kStageK, 64) &&
@@ -625,11 +838,14 @@ int grouped_sm90_launch(const void* a, const void* w, const int* gid,
                 : make_map3(&tw, w, N, K, G, ldw, sw_g, 64, kStageK));
   if (!ok) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // A campaign runs the per-band instance (seu_on only comes with ft).
   if (w_kmajor)
-    return ft ? launch_grouped<true, true>(ta, tw, g, st)
-              : launch_grouped<false, true>(ta, tw, g, st);
-  return ft ? launch_grouped<true, false>(ta, tw, g, st)
-            : launch_grouped<false, false>(ta, tw, g, st);
+    return g.seu.on ? launch_grouped<true, true, true>(ta, tw, g, st)
+           : ft     ? launch_grouped<true, true>(ta, tw, g, st)
+                    : launch_grouped<false, true>(ta, tw, g, st);
+  return g.seu.on ? launch_grouped<true, false, true>(ta, tw, g, st)
+         : ft     ? launch_grouped<true, false>(ta, tw, g, st)
+                  : launch_grouped<false, false>(ta, tw, g, st);
 }
 
 // K8. x (T, K) and gm (T, N) bf16 buffers of one layout, rows ldx / ldg
@@ -641,7 +857,9 @@ int tgmm_sm90_launch(const void* x, const void* gm, const int* row_end,
                      float* out, float* rep, int T, int K, int N, int G,
                      long long ldx, long long ldg, int ft, int verify_step,
                      int corrects, float tau_coef, int inj_enable, int inj_row,
-                     int inj_col, int inj_k, float inj_mag, void* stream) {
+                     int inj_col, int inj_k, float inj_mag, int seu_on,
+                     unsigned seu_seed, float seu_rate, int seu_shift,
+                     void* stream) {
   if (T <= 0 || N <= 0 || K <= 0 || G <= 0 || T % kTile != 0)
     return cudaErrorInvalidValue;
   GroupedArgs g{};
@@ -650,7 +868,7 @@ int tgmm_sm90_launch(const void* x, const void* gm, const int* row_end,
   g.gk = (K + 127) / 128;
   g.gn = (N + kBN - 1) / kBN;
   set_common(g, verify_step, corrects, tau_coef, inj_enable, inj_row, inj_col,
-             inj_k, inj_mag);
+             inj_k, inj_mag, seu_on, seu_seed, seu_rate, seu_shift);
   if (g.gk > 65535 || G > 65535) return cudaErrorInvalidValue;
   CUtensorMap tx, tg;
   if (!make_map(&tx, x, K, T, ldx, 64, kStageK) ||

@@ -77,6 +77,22 @@ __device__ __forceinline__ void frag16_add(float (&a)[NT][4], int row,
       a[t][r] += (mine && t == nt && r == idx) ? v : 0.0f;
 }
 
+// The element at (row, col) of a warp's 16 x 8·NT fragment in the lane that
+// holds it, 0 in the others and for a col outside the warp's columns.
+template <int NT>
+__device__ __forceinline__ float frag16_get(const float (&a)[NT][4], int row,
+                                            int col, int lane) {
+  if (col < 0 || col >= 8 * NT || row < 0 || row >= kBq) return 0.0f;
+  const bool mine = lane == (row & 7) * 4 + ((col & 7) >> 1);
+  const int nt = col >> 3, idx = (row >> 3) * 2 + (col & 1);
+  float v = 0.0f;
+#pragma unroll
+  for (int t = 0; t < NT; ++t)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) v = (mine && t == nt && r == idx) ? a[t][r] : v;
+  return v;
+}
+
 // The column residuals of a warp's 16 x 8·NT fragment (its columns col0 ..)
 // against ck into dcol, and its row sums into rowp[warp].
 template <int NT>

@@ -357,6 +357,31 @@ struct RowOp {
 #pragma unroll
     for (int j = 0; j < RJ; ++j) part[warp * X + lane + 32 * j] = xd[j];
   }
+  // dot()'s stage contribution alone, added into part[SLOTS][X] in place
+  // (the layout of partials): a second running checksum over the same
+  // loaded stage (K7's per-band column checksums).
+  __device__ __forceinline__ void dot_add(const float* other, float* part,
+                                          int tid) const {
+    const int warp = tid / 32, lane = tid & 31;
+    float t[RJ];
+#pragma unroll
+    for (int j = 0; j < RJ; ++j) t[j] = 0.0f;
+#pragma unroll
+    for (int i = 0; i < CI; ++i) {
+      float o[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) o[e] = other[(warp + W * i) * 8 + e];
+#pragma unroll
+      for (int j = 0; j < RJ; ++j) {
+        float f[8];
+        unpack8(ch[i * RJ + j], f);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) t[j] = fmaf(f[e], o[e], t[j]);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < RJ; ++j) part[warp * X + lane + 32 * j] += t[j];
+  }
 };
 
 // A stage tile whose X dim is contiguous (m of a transposed A, or n of a
@@ -419,6 +444,25 @@ struct ColOp {
 #pragma unroll
     for (int e = 0; e < 8; ++e) part[g * X + q * 8 + e] = xd[e];
   }
+  // dot()'s stage contribution alone, added into part[SLOTS][X] in place
+  // (the layout of partials).
+  __device__ __forceinline__ void dot_add(const float* other, float* part,
+                                          int tid) const {
+    const int q = tid % Q, g = tid / Q;
+    float t[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) t[e] = 0.0f;
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      const float o = other[g + G * j];
+      float f[8];
+      unpack8(ch[j], f);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) t[e] = fmaf(f[e], o, t[e]);
+    }
+#pragma unroll
+    for (int e = 0; e < 8; ++e) part[g * X + q * 8 + e] += t[e];
+  }
 };
 
 template <int BM>
@@ -460,6 +504,21 @@ __device__ __forceinline__ void add_at(float (&acc)[64], int row, int col,
   const int idx = (col / 8) * 4 + (rr / 8) * 2 + (col % 2);
 #pragma unroll
   for (int r = 0; r < 64; ++r) acc[r] += (mine && r == idx) ? v : 0.0f;
+}
+
+// The accumulator element at (row, col) of the CTA tile in the thread whose
+// wgmma fragment holds it, 0 in the others (add_at's selects).
+__device__ __forceinline__ float get_at(const float (&acc)[64], int row,
+                                        int col, int tid) {
+  const int wg = tid / 128, wl = (tid % 128) / 32, lane = tid & 31;
+  const int rr = row % 16;
+  const bool mine = row / 64 == wg && (row % 64) / 16 == wl &&
+                    lane == (rr % 8) * 4 + (col % 8) / 2;
+  const int idx = (col / 8) * 4 + (rr / 8) * 2 + (col % 2);
+  float v = 0.0f;
+#pragma unroll
+  for (int r = 0; r < 64; ++r) v = (mine && r == idx) ? acc[r] : v;
+  return v;
 }
 
 // The checksum entries a consumer thread finishes: columns [0, 128) go to

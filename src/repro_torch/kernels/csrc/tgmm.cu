@@ -32,10 +32,18 @@
 // second. This first version runs on the CUDA cores in f32 with a small
 // block per CTA; PERF.md carries its times.
 //
+// Stochastic SEU campaigns (seu_hook.cuh): each CTA draws its dw block's
+// SEU, uid (group·gk + k-block)·gn + n-block, over the group's row tiles
+// that hold a live row (the reference's group-local tile step) and the
+// 64 x 64 block; on the drawn tile the owning thread takes the tile's own
+// product at the element from the staged X and G rows and adds the
+// magnitude before the tile's verification.
+//
 // Report per (group, k-block, n-block), f32[8]: [detected, corrected, row,
 // col, magnitude, max_residual, tau, rows_reduced], rows and cols in dw's
 // (K, N) coordinates.
 #include "abft_block.cuh"
+#include "seu_hook.cuh"
 
 namespace {
 
@@ -56,6 +64,7 @@ struct TgmmArgs {
   float tau_coef;          // rel_tau * eps32
   int inj_enable, inj_row, inj_col, inj_k;
   float inj_mag;
+  seu::Args seu;           // the stochastic hook's campaign
 };
 
 template <typename T, bool FT, int BM>
@@ -90,6 +99,10 @@ __global__ void __launch_bounds__(kThreads) tgmm_kernel(const TgmmArgs a) {
   const int t_end = grp == a.G - 1 ? a.t_tiles : t_live;
   const T* X = static_cast<const T*>(a.x);
   const T* Gm = static_cast<const T*>(a.g);
+  const seu::Hit sh =
+      FT ? seu::draw(a.seu, (uint32_t)(((long long)grp * a.gk + ki) * a.gn + ni),
+                     t_live - t_first, kBK, kBN)
+         : seu::Hit{false, 0, 0, 0};
   const bool inj_block = FT && a.inj_enable && a.inj_row >= k0 &&
                          a.inj_row < k0 + kBK && a.inj_col >= n0 &&
                          a.inj_col < n0 + kBN;
@@ -200,6 +213,14 @@ __global__ void __launch_bounds__(kThreads) tgmm_kernel(const TgmmArgs a) {
       const int rl = a.inj_row - k0, cl = a.inj_col - n0;
       if (rl / kTM == ty && cl / kTN == tx) acc[rl % kTM][cl % kTN] += a.inj_mag;
     }
+    // Stochastic SEU: this tile's own product at the element (a hit tile
+    // holds a live row, so it was staged above).
+    if (sh.hit && t == t_first + sh.step && sh.row / kTM == ty &&
+        sh.col / kTN == tx) {
+      float d = 0.0f;
+      for (int r = 0; r < BM; ++r) d = fmaf(Xs[r][sh.row], Gs[r][sh.col], d);
+      acc[sh.row % kTM][sh.col % kTN] += seu::magnitude(d, a.seu.shift);
+    }
     if (a.verify_step || t == t_end - 1) verify(t);
   }
 
@@ -256,7 +277,9 @@ int tgmm_launch(const void* x, const void* g, const int* row_end, float* out,
                 float* rep, int T, int K, int N, int G, int sxr, int sxk,
                 int sgr, int sgn, int dtype, int ft, int bm, int verify_step,
                 int corrects, float tau_coef, int inj_enable, int inj_row,
-                int inj_col, int inj_k, float inj_mag, void* stream) {
+                int inj_col, int inj_k, float inj_mag, int seu_on,
+                unsigned seu_seed, float seu_rate, int seu_shift,
+                void* stream) {
   if (T <= 0 || K <= 0 || N <= 0 || G <= 0 || bm <= 0 || T % bm != 0)
     return cudaErrorInvalidValue;
   TgmmArgs a{};
@@ -266,6 +289,7 @@ int tgmm_launch(const void* x, const void* g, const int* row_end, float* out,
   a.verify_step = verify_step; a.corrects = corrects; a.tau_coef = tau_coef;
   a.inj_enable = inj_enable; a.inj_row = inj_row; a.inj_col = inj_col;
   a.inj_k = inj_k; a.inj_mag = inj_mag;
+  a.seu = seu::Args{seu_on, seu_seed, seu_rate, seu_shift};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return ft ? launch_bm<float, true>(bm, a, st)

@@ -61,6 +61,13 @@ from .ft_gemm import (DTYPE_CODES, REPORT_WIDTH, SPLIT_TARGET, cdiv,
                       locate_record, merge_reports)
 
 NEG_INF = -1e30
+
+#: Whether the flash kernels (K2, K3, K4, K6) honour a campaign key in
+#: kernel (the reference's switch, `repro/kernels/flashft.py:81-85`). Their
+#: stochastic hook is not ported yet, so a campaign at a flash front raises
+#: (`core.fault_injection.check_campaign`); the GEMM family's kernels take
+#: the triple of `encode_rng`.
+SUPPORTS_STOCHASTIC_INJECTION = False
 #: The kernel's compiled (bq, bkv) blocks and head dims.
 BLOCK = 64
 HEAD_DIMS = (64, 128)
@@ -124,6 +131,22 @@ SM90_DECODE_PAGES = (32, 64)
 DECODE_PARTIAL = SM90_DECODE_BQ * SM90_HEAD_DIM + 2 * SM90_DECODE_BQ + REPORT_WIDTH
 #: The injection vector's first field: the product the SEU lands in.
 INJ_DELTA, INJ_S = 1, 2
+
+
+def encode_rng(key: Optional[torch.Generator], ft: FTConfig
+               ) -> Tuple[int, int, int]:
+    """The in-kernel hook's triple (enable, seed0, seed1) of int32 for a
+    campaign key (the reference's `encode_rng`): zeros without a key or at
+    rate 0, else enable 1 and two non-negative seeds mixed by splitmix64
+    from ``key.initial_seed()`` (the key's state is not touched). A rate or
+    bit shift the hook cannot draw raises (`templates.seu.check`)."""
+    from ..core.fault_injection import splitmix64
+    from .templates import seu
+    seu.check(ft.inject_rate, ft.inject_bit_shift)
+    if key is None or ft.inject_rate <= 0.0:
+        return (0, 0, 0)
+    s = splitmix64(key.initial_seed() & 0xFFFFFFFFFFFFFFFF)
+    return (1, (s & 0xFFFFFFFF) % 0x7FFFFFFF, (s >> 32) % 0x7FFFFFFF)
 
 
 def sublane(dtype: torch.dtype) -> int:

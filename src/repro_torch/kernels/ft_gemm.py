@@ -68,7 +68,7 @@ import torch.nn.functional as F
 from ..core.abft import F32EPS
 from ..core.policy import FTConfig
 from . import build
-from .templates import epilogues
+from .templates import epilogues, seu
 from .templates.spec import (BATCHED_SM90_TILES, TILES, KernelSpec,
                              band_of, validate)
 
@@ -85,16 +85,20 @@ EPILOGUES = {(): 0, ("bias",): 1, ("silu",): 2, ("bias", "silu"): 3,
 REPORT_WIDTH = 8
 
 _BATCH_STRIDES = [ctypes.c_longlong] * 2
+#: The stochastic hook's launch arguments (`seu_args`): on, seed, rate,
+#: bit shift.
+SEU_ARGTYPES = [ctypes.c_int, ctypes.c_uint, ctypes.c_float, ctypes.c_int]
 _ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
              + _BATCH_STRIDES + [ctypes.c_int] * 2
              + _BATCH_STRIDES + [ctypes.c_int] * 10 + [ctypes.c_float]
-             + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p])
+             + [ctypes.c_int] * 5 + [ctypes.c_float] + SEU_ARGTYPES
+             + [ctypes.c_void_p])
 FT_GEMM_2D_SIMT = build.Kernel("ft_gemm", "ft_gemm_launch", _ARGTYPES)
 FT_GEMM_BATCHED = build.Kernel("ft_gemm", "ft_gemm_launch", _ARGTYPES)
 _SM90_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
                   + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 8
                   + [ctypes.c_float] + [ctypes.c_int] * 4
-                  + [ctypes.c_float, ctypes.c_void_p])
+                  + [ctypes.c_float] + SEU_ARGTYPES + [ctypes.c_void_p])
 FT_GEMM_SM90 = build.Kernel("ft_gemm_sm90", "ft_gemm_sm90_launch",
                             _SM90_ARGTYPES)
 #: Every 2-D K1 launch, on either instance.
@@ -103,7 +107,7 @@ _B_SM90_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
                     + [ctypes.c_longlong] * 2 + [ctypes.c_int]
                     + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 6
                     + [ctypes.c_float] + [ctypes.c_int] * 5
-                    + [ctypes.c_float, ctypes.c_void_p])
+                    + [ctypes.c_float] + SEU_ARGTYPES + [ctypes.c_void_p])
 FT_GEMM_BATCHED_SM90 = build.Kernel("batched_sm90", "batched_sm90_launch",
                                     _B_SM90_ARGTYPES)
 #: Every K5 launch, on either instance.
@@ -452,6 +456,45 @@ def merge_reports(reps: Sequence[torch.Tensor]) -> torch.Tensor:
     return out
 
 
+def seu_draws(rng: Optional[Sequence[int]], ft: Optional[FTConfig], nb: int,
+              gm: int, gn: int, gk: int, tiles: Sequence[int], batched: bool,
+              device="cpu"):
+    """The SEU every output block of a K1 (2-D) or K5 (``batched``) launch
+    draws under the campaign triple ``rng``: (hit, step, row, col), each
+    (nb, gm, gn), row and col local to the block, step a k-step of
+    ``tiles``; None when no campaign is armed (no triple, enable 0, rate
+    0, FT off). The uid is (slice·gm + i)·gn + j, the salt
+    `seu.SALT_BATCHED` for a batched launch, else `seu.SALT_GEMM2D`."""
+    if not seu_armed(rng, ft):
+        return None
+    bm, bn, _ = tiles
+    uid = ((torch.arange(nb, device=device)[:, None, None] * gm
+            + torch.arange(gm, device=device)[None, :, None]) * gn
+           + torch.arange(gn, device=device)[None, None, :])
+    salt = seu.SALT_BATCHED if batched else seu.SALT_GEMM2D
+    return seu.draw(rng, salt, uid, gk, bm, bn, ft.inject_rate)
+
+
+def seu_armed(rng, ft) -> bool:
+    """Whether a launch under ``ft`` with the triple ``rng`` runs the
+    stochastic hook: FT on, a triple with enable 1, a rate above 0."""
+    return (ft is not None and ft.enabled and rng is not None
+            and int(rng[0]) == 1 and ft.inject_rate > 0.0)
+
+
+def seu_args(rng: Optional[Sequence[int]], ft: Optional[FTConfig],
+             salt: int) -> Tuple[int, int, float, int]:
+    """The hook's launch arguments (on, seed, rate, bit shift): the
+    triple and the salt reduced on the host to the kernel's stream seed
+    (`seu.block_seed`), so the kernel hashes only its block uid. All zero
+    when no campaign is armed."""
+    if not seu_armed(rng, ft):
+        return (0, 0, 0.0, 0)
+    seu.check(ft.inject_rate, ft.inject_bit_shift)
+    return (1, seu.block_seed(rng, salt), float(ft.inject_rate),
+            int(ft.inject_bit_shift))
+
+
 # ---------------------------------------------------------------------------
 # plain version
 # ---------------------------------------------------------------------------
@@ -463,7 +506,7 @@ def ft_gemm_plain(a: torch.Tensor, b: torch.Tensor, *,
                   ft: Optional[FTConfig] = None,
                   inj: Optional[Sequence[int]] = None,
                   inj_mag: float = 0.0, save_act_grad: bool = False,
-                  splits: int = 1
+                  splits: int = 1, rng: Optional[Sequence[int]] = None
                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The kernel's function in plain PyTorch, on the kernel's tile grid.
 
@@ -479,7 +522,10 @@ def ft_gemm_plain(a: torch.Tensor, b: torch.Tensor, *,
     level or FT off): the split-K ranges of each block's k-steps, verified
     alone (with the split's own elapsed k and maxima in tau) after each of
     their steps but the last, then summed in split order, their reports
-    merged (`merge_reports`) and the sum verified at k = K."""
+    merged (`merge_reports`) and the sum verified at k = K. ``rng`` is a
+    campaign's triple (`flashft.encode_rng`): each block draws its SEU
+    (`seu_draws`) and the hit lands on its step's Δ before the checksums,
+    in every split and at every level."""
     ft_on, level, bh = _check_ft(ft, tiles, save_act_grad)
     _check_act_grad(chain, save_act_grad)
     if splits > 1 and level not in ("off", "block"):
@@ -525,6 +571,12 @@ def ft_gemm_plain(a: torch.Tensor, b: torch.Tensor, *,
             blocks.index_put_((bi, ii, tt, row, jj, col), -mag,
                               accumulate=True)
 
+    hook = seu_draws(rng, ft, nb, gm, gn, gk, tiles, a.dim() > 2, dev) \
+        if ft_on else None
+    if hook is not None:
+        h_hit, h_step, h_row, h_col = hook
+        h_row = h_row + torch.arange(gm, device=dev)[None, :, None] * bm
+        h_col = h_col + torch.arange(gn, device=dev)[None, None, :] * bn
     parts = []
     for s_lo, s_hi in split_ranges(k, bk, splits):
         # one split: k-steps [s_lo, s_hi) into its own accumulator,
@@ -548,6 +600,9 @@ def ft_gemm_plain(a: torch.Tensor, b: torch.Tensor, *,
                 if 0 <= ir < mp and 0 <= ic < np_:
                     sl = slice(None) if ib < 0 else slice(ib, ib + 1)
                     delta[sl, ir, ic] += inj_mag
+            if hook is not None:
+                seu.land(delta, h_hit & (h_step == s), h_row, h_col,
+                         ft.inject_bit_shift)
             asum = a_s.reshape(nb, gm * nbands, bh, bk).sum(2)  # e^T A / band
             ck_col = (torch.matmul(asum, b_s).view(nb, gm, nbands, gn, bn)
                       .permute(0, 1, 3, 2, 4))
@@ -632,10 +687,12 @@ def ft_gemm(a: torch.Tensor, b: torch.Tensor, *,
             inj: Optional[Sequence[int]] = None,
             inj_mag: float = 0.0,
             tiles: Optional[Sequence[int]] = None,
-            save_act_grad: bool = False
+            save_act_grad: bool = False,
+            rng: Optional[Sequence[int]] = None
             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """C = chain(A·B) with online ABFT at ``ft.level`` when ``ft`` is
-    enabled.
+    enabled; ``rng``, a campaign's triple, arms the stochastic SEU hook at
+    ``ft.inject_rate`` (`seu_draws`).
 
     a (M, K) runs K1 (2-D); a (*lead, M, K) with one or two leading batch
     dims runs K5 (batched) with b (*lead, K, N) or a shared b (K, N). The
@@ -648,7 +705,7 @@ def ft_gemm(a: torch.Tensor, b: torch.Tensor, *,
     p = plan_call(a, b, chain=chain, ft=ft, save_act_grad=save_act_grad,
                   tiles=tiles)
     kw = dict(chain=chain, bias=bias, residual=residual, ft=ft, inj=inj,
-              inj_mag=inj_mag, save_act_grad=save_act_grad)
+              inj_mag=inj_mag, save_act_grad=save_act_grad, rng=rng)
     if a.device.type == "cpu":
         return ft_gemm_plain(a, b, tiles=p.tiles, splits=p.splits, **kw)
     if a.device.type != "cuda":
@@ -671,7 +728,7 @@ def planned_plain(a: torch.Tensor, b: torch.Tensor, *,
 
 
 def _launch_sm90(a, b, p: Plan, *, chain, bias, residual, ft, inj, inj_mag,
-                 save_act_grad):
+                 save_act_grad, rng):
     ft_on, _, _ = _check_ft(ft, p.tiles, save_act_grad)
     _check_act_grad(chain, save_act_grad)
     build.check_device(a)
@@ -716,12 +773,13 @@ def _launch_sm90(a, b, p: Plan, *, chain, bias, residual, ft, inj, inj_mag,
                  int(ft_on and ft.corrects),
                  ft.rel_tau * F32EPS if ft_on else 0.0,
                  int(on), row, col, k_step, float(inj_mag) if on else 0.0,
+                 *seu_args(rng, ft, seu.SALT_GEMM2D),
                  torch.cuda.current_stream(a.device).cuda_stream)
     return ((out, act_grad) if save_act_grad else out), rep
 
 
 def _launch_batched_sm90(a, b, p: Plan, *, chain, bias, residual, ft, inj,
-                         inj_mag, save_act_grad):
+                         inj_mag, save_act_grad, rng):
     ft_on, level, _ = _check_ft(ft, p.tiles, save_act_grad)
     build.check_device(a)
     shared = b.dim() == 2
@@ -753,12 +811,13 @@ def _launch_batched_sm90(a, b, p: Plan, *, chain, bias, residual, ft, inj,
         int(p.b_kmajor), int(ft_on), LEVELS.get(level, 0),
         int(ft_on and ft.verify == "step"), int(ft_on and ft.corrects),
         ft.rel_tau * F32EPS if ft_on else 0.0, *inj, float(inj_mag),
+        *seu_args(rng, ft, seu.SALT_BATCHED),
         torch.cuda.current_stream(a.device).cuda_stream)
     return out, rep
 
 
 def _launch(a, b, *, chain, bias, residual, ft, inj, inj_mag, tiles,
-            save_act_grad):
+            save_act_grad, rng):
     if tiles not in TILES:
         raise ValueError(f"ft_gemm: tiles {tiles} are not compiled; "
                          f"choose one of {TILES}")
@@ -843,5 +902,7 @@ def _launch(a, b, *, chain, bias, residual, ft, inj, inj_mag, tiles,
            TILES.index(tiles), layout,
            int(ft_on and ft.verify == "step"), int(ft_on and ft.corrects),
            ft.rel_tau * F32EPS if ft_on else 0.0,
-           *inj, inj_mag, torch.cuda.current_stream(a.device).cuda_stream)
+           *inj, inj_mag,
+           *seu_args(rng, ft, seu.SALT_BATCHED if batched else seu.SALT_GEMM2D),
+           torch.cuda.current_stream(a.device).cuda_stream)
     return ((out, act_grad) if save_act_grad else out), rep

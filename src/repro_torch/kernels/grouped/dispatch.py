@@ -28,10 +28,9 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from ...core.fault_injection import check_campaign
 from ...core.policy import FTConfig, InjectionSpec
 from .. import grouped_gemm as kgg
-from ..flashft import sublane
+from ..flashft import encode_rng, sublane
 from ..ops import _resolve, encode_injection
 from ..templates import BatchedKernelSpec
 from . import layout as layout_mod
@@ -111,9 +110,10 @@ def grouped_buffer_call(spec: BatchedKernelSpec, buf: torch.Tensor,
     raw (``gid``, ``row_end``). Returns (y_buf (t_buf, N), report|None),
     the report (t_buf/bm, gn, 8) — one row per row tile, so per-group
     blocks. The injection keeps the 2-D layout, rows in buffer
-    coordinates."""
+    coordinates; ``key`` arms a stochastic campaign at ``ft.inject_rate``
+    (`flashft.encode_rng`)."""
     ft = _resolve(spec, ft)
-    check_campaign(ft, key)
+    rng = encode_rng(key, ft) if spec.ft else None
     if out_dtype is not None and out_dtype != buf.dtype:
         raise NotImplementedError("the grouped kernel writes y in the operand "
                                   "dtype")
@@ -125,7 +125,7 @@ def grouped_buffer_call(spec: BatchedKernelSpec, buf: torch.Tensor,
     inj, mag = encode_injection(inject)
     return kgg.ft_gemm_grouped(buf, w, gid, row_end,
                                ft=ft if spec.ft else None, inj=inj,
-                               inj_mag=mag, tiles=tiles)
+                               inj_mag=mag, tiles=tiles, rng=rng)
 
 
 def grouped_matmul_rows(spec: BatchedKernelSpec, x: torch.Tensor,
@@ -173,7 +173,7 @@ def tgmm_buffer_call(spec: BatchedKernelSpec, buf: torch.Tensor,
     between row_end[g] and the next group's base. The injection's row and
     col index dw and its k_step is the buffer's row tile."""
     ft = _resolve(spec, ft)
-    check_campaign(ft, key)
+    rng = encode_rng(key, ft) if spec.ft else None
     gid, row_end, bm = _metadata(lay, gid, row_end, buf.shape[0])
     ng = n_groups if n_groups is not None else row_end.shape[0]
     if gbuf.shape[0] != buf.shape[0] or ng != row_end.shape[0]:
@@ -182,7 +182,7 @@ def tgmm_buffer_call(spec: BatchedKernelSpec, buf: torch.Tensor,
     inj, mag = encode_injection(inject)
     dw, rep = kgg.tgmm(buf, gbuf, row_end, bm=bm,
                        ft=ft if spec.ft else None, inj=inj, inj_mag=mag,
-                       tiles=tiles)
+                       tiles=tiles, rng=rng)
     if out_dtype is not None:
         dw = dw.to(out_dtype)
     return dw, rep

@@ -60,7 +60,9 @@ import torch.nn.functional as F
 from ..core.abft import F32EPS
 from ..core.policy import FTConfig
 from . import build
-from .ft_gemm import DTYPE_CODES, REPORT_WIDTH, cdiv, locate_record
+from .ft_gemm import (DTYPE_CODES, REPORT_WIDTH, SEU_ARGTYPES, seu_armed,
+                      cdiv, locate_record, seu_args)
+from .templates import seu
 
 #: K7's compiled (bm, bn, bk) per operand dtype (`launch_grouped` in
 #: csrc/ft_gemm.cu). bm is the layout's row tile.
@@ -82,13 +84,14 @@ SM90_CHUNK = 64
 _GROUPED_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
                      + [ctypes.c_longlong] + [ctypes.c_int] * 8
                      + [ctypes.c_float] + [ctypes.c_int] * 4
-                     + [ctypes.c_float, ctypes.c_void_p])
+                     + [ctypes.c_float] + SEU_ARGTYPES + [ctypes.c_void_p])
 FT_GEMM_GROUPED_SIMT = build.Kernel("ft_gemm", "ft_gemm_grouped_launch",
                                     _GROUPED_ARGTYPES)
 _GROUPED_SM90_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
                           + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 4
                           + [ctypes.c_float] + [ctypes.c_int] * 4
-                          + [ctypes.c_float, ctypes.c_void_p])
+                          + [ctypes.c_float] + SEU_ARGTYPES
+                          + [ctypes.c_void_p])
 FT_GEMM_GROUPED_SM90 = build.Kernel("grouped_sm90", "grouped_sm90_launch",
                                     _GROUPED_SM90_ARGTYPES)
 #: Every K7 launch, on either instance.
@@ -96,12 +99,12 @@ FT_GEMM_GROUPED = build.LaunchTotal(FT_GEMM_GROUPED_SIMT,
                                     FT_GEMM_GROUPED_SM90)
 _TGMM_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 13
                   + [ctypes.c_float] + [ctypes.c_int] * 4
-                  + [ctypes.c_float, ctypes.c_void_p])
+                  + [ctypes.c_float] + SEU_ARGTYPES + [ctypes.c_void_p])
 TGMM_SIMT = build.Kernel("tgmm", "tgmm_launch", _TGMM_ARGTYPES)
 _TGMM_SM90_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
                        + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 3
                        + [ctypes.c_float] + [ctypes.c_int] * 4
-                       + [ctypes.c_float, ctypes.c_void_p])
+                       + [ctypes.c_float] + SEU_ARGTYPES + [ctypes.c_void_p])
 TGMM_SM90 = build.Kernel("grouped_sm90", "tgmm_sm90_launch",
                          _TGMM_SM90_ARGTYPES)
 #: Every K8 launch, on either instance.
@@ -309,7 +312,8 @@ def ft_gemm_grouped_plain(buf: torch.Tensor, w: torch.Tensor,
                           tiles: Sequence[int], chunk: Optional[int] = None,
                           ft: Optional[FTConfig] = None,
                           inj: Optional[Sequence[int]] = None,
-                          inj_mag: float = 0.0
+                          inj_mag: float = 0.0,
+                          rng: Optional[Sequence[int]] = None
                           ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """K7's function in plain PyTorch, on the kernel's grid.
 
@@ -321,7 +325,12 @@ def ft_gemm_grouped_plain(buf: torch.Tensor, w: torch.Tensor,
     the row of its first row tile, the clean record (tau 1e-30, k = K) in
     the others. ``inj`` = [enable, row, col, k_step]: ``inj_mag`` is added
     to the accumulator at global buffer row ``row`` and column ``col`` on
-    k-step ``k_step``."""
+    k-step ``k_step``. ``rng``, a campaign's triple, draws one SEU per row
+    tile (`seu_tile_draws`), landed on its step's Δ; a block under a
+    campaign verifies each of its bm-row bands on its own (the band's
+    column sums and column checksums, its rows' residuals, the block's
+    tau), so each tile's SEU is located and corrected whatever the others
+    do, and each row tile's report row holds its band's record."""
     ft_on = _check_ft(ft)
     t_buf, k = buf.shape
     _, k2, n = w.shape
@@ -343,28 +352,42 @@ def ft_gemm_grouped_plain(buf: torch.Tensor, w: torch.Tensor,
     a3 = torch.where(live[..., None],
                      buf[rows.clamp(max=t_buf - 1)].float(),
                      torch.zeros((), device=dev))
+    # bands a block: its row tiles under a campaign, else the whole block
+    band = bm if seu_armed(rng, ft) else chunk
+    nbd = chunk // band
     acc = torch.zeros(nc, chunk, np_, device=dev)
     rep = None
     if ft_on:
-        colck = torch.zeros(nc, gn, bn, device=dev)
+        colck = torch.zeros(nc, nbd, gn, bn, device=dev)
         rowck = torch.zeros(nc, gn, chunk, device=dev)
         amax = torch.zeros(nc, device=dev)
         bmax = torch.zeros(nc, gn, device=dev)
-        rep = torch.zeros(nc, gn, REPORT_WIDTH, device=dev)
+        rep = torch.zeros(nc, nbd, gn, REPORT_WIDTH, device=dev)
         coef = torch.tensor(ft.rel_tau * F32EPS, device=dev)
-        ii = torch.arange(nc, device=dev)[:, None]
-        jj = torch.arange(gn, device=dev)[None, :]
+        ii = torch.arange(nc, device=dev)[:, None, None]
+        tt = torch.arange(nbd, device=dev)[None, :, None]
+        jj = torch.arange(gn, device=dev)[None, None, :]
+    hook = seu_tile_draws(rng, ft, nt, gn, gk, tiles, dev) if ft_on else None
+    if hook is not None:
+        # each tile's block and its row within the block's accumulator
+        t_blk = torch.searchsorted(r0, torch.arange(nt, device=dev) * bm,
+                                   right=True) - 1
+        h_hit, h_step, h_row, h_col = hook
+        h_row = (h_row + (torch.arange(nt, device=dev) * bm
+                          - r0[t_blk])[:, None])
+        h_col = h_col + torch.arange(gn, device=dev)[None, :] * bn
 
     def verify(k_el):
-        blocks = acc.view(nc, chunk, gn, bn)
-        d_col = blocks.sum(1) - colck
-        d_row = blocks.sum(3).permute(0, 2, 1) - rowck
+        blocks = acc.view(nc, nbd, band, gn, bn)
+        d_col = blocks.sum(2) - colck                        # (nc, nbd, gn, bn)
+        d_row = (blocks.sum(4).permute(0, 3, 1, 2)      # (nc, gn, nbd, band)
+                 - rowck.view(nc, gn, nbd, band)).permute(0, 2, 1, 3)
         tau = torch.clamp_min(coef * k_el * amax[:, None] * bmax, 1e-30)
-        det, row, col, mag = locate_record(d_col, d_row, tau, k_el,
-                                           ft.corrects, rep, r0[:, None],
-                                           jj * bn)
+        det, row, col, mag = locate_record(
+            d_col, d_row, tau[:, None, :].expand(nc, nbd, gn), k_el,
+            ft.corrects, rep, (r0[:, None, None] + tt * band), jj * bn)
         if ft.corrects:
-            blocks.index_put_((ii, row, jj, col), -mag, accumulate=True)
+            blocks.index_put_((ii, tt, row, jj, col), -mag, accumulate=True)
 
     for s in range(gk):
         a_s = _k_slice(a3, 2, s, bk)                        # (nc, chunk, bk)
@@ -377,10 +400,19 @@ def ft_gemm_grouped_plain(buf: torch.Tensor, w: torch.Tensor,
             if len(hit) and 0 <= ic < np_:
                 c = int(hit[0])
                 delta[c, ir - int(r0[c]), ic] += inj_mag
+        if hook is not None:
+            sel = h_hit & (h_step == s)
+            ti, tj = torch.nonzero(sel, as_tuple=True)
+            if ti.numel():
+                at = (t_blk[ti], h_row[ti, tj], h_col[ti, tj])
+                delta.index_put_(at, seu.magnitude(delta[at],
+                                                   ft.inject_bit_shift),
+                                 accumulate=True)
         acc += delta
         if not ft_on:
             continue
-        colck += torch.bmm(a_s.sum(1, keepdim=True), b_s).view(nc, gn, bn)
+        colck += torch.bmm(a_s.view(nc, nbd, band, bk).sum(2), b_s
+                           ).view(nc, nbd, gn, bn)
         bsum = b_s.view(nc, bk, gn, bn).sum(3)              # (nc, bk, gn)
         rowck += torch.bmm(a_s, bsum).permute(0, 2, 1)
         amax = torch.maximum(amax, a_s.abs().amax((1, 2)))
@@ -397,7 +429,9 @@ def ft_gemm_grouped_plain(buf: torch.Tensor, w: torch.Tensor,
         full = torch.zeros(nt, gn, REPORT_WIDTH, device=dev)
         full[..., 6] = 1e-30
         full[..., 7] = float(k)
-        full[r0 // bm] = rep
+        for q in range(nbd):
+            own = q * band < length                 # the block's q-th band
+            full[(r0 // bm + q * band // bm)[own]] = rep[own, q]
         rep = full
     return out, rep
 
@@ -414,6 +448,22 @@ def planned_grouped_plain(buf: torch.Tensor, w: torch.Tensor,
                                  chunk=p.chunk, **kw)
 
 
+def seu_tile_draws(rng: Optional[Sequence[int]], ft: Optional[FTConfig],
+                   n_tiles: int, gn: int, gk: int, tiles: Sequence[int],
+                   device="cpu"):
+    """The SEU every (row tile, n-block) of a K7 launch draws under the
+    campaign triple ``rng``, as the reference's grouped body draws it per
+    row-tile block: (hit, step, row, col), each (n_tiles, gn), uid
+    tile·gn + j, salt `seu.SALT_GEMM2D`, rows over the tile's bm and steps
+    over the gk k-steps of ``tiles``; None when no campaign is armed."""
+    if not seu_armed(rng, ft):
+        return None
+    bm, bn, _ = tiles
+    uid = (torch.arange(n_tiles, device=device)[:, None] * gn
+           + torch.arange(gn, device=device)[None, :])
+    return seu.draw(rng, seu.SALT_GEMM2D, uid, gk, bm, bn, ft.inject_rate)
+
+
 # ---------------------------------------------------------------------------
 # K7: wrapper
 # ---------------------------------------------------------------------------
@@ -422,10 +472,12 @@ def ft_gemm_grouped(buf: torch.Tensor, w: torch.Tensor, gid: torch.Tensor,
                     row_end: torch.Tensor, *, ft: Optional[FTConfig] = None,
                     inj: Optional[Sequence[int]] = None,
                     inj_mag: float = 0.0,
-                    tiles: Optional[Sequence[int]] = None
+                    tiles: Optional[Sequence[int]] = None,
+                    rng: Optional[Sequence[int]] = None
                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """y_buf = buf @ w[gid] per row tile, with block-level online ABFT when
-    ``ft`` is enabled (K7). The row tile is t_buf / len(gid); `plan_k7`
+    ``ft`` is enabled (K7); ``rng``, a campaign's triple, arms the
+    stochastic SEU hook (`seu_tile_draws`). The row tile is t_buf / len(gid); `plan_k7`
     picks the instance, tiles and chunk (``tiles`` pins them). A CPU
     tensor runs `ft_gemm_grouped_plain` under that plan; a CUDA tensor
     launches the kernel or raises. Returns (y_buf, report|None) as the
@@ -435,7 +487,7 @@ def ft_gemm_grouped(buf: torch.Tensor, w: torch.Tensor, gid: torch.Tensor,
     if buf.device.type == "cpu":
         return ft_gemm_grouped_plain(buf, w, gid, row_end, tiles=p.tiles,
                                      chunk=p.chunk, ft=ft, inj=inj,
-                                     inj_mag=inj_mag)
+                                     inj_mag=inj_mag, rng=rng)
     if buf.device.type != "cuda":
         raise ValueError(f"ft_gemm_grouped: unsupported device {buf.device}")
     build.check_device(buf)
@@ -471,6 +523,7 @@ def ft_gemm_grouped(buf: torch.Tensor, w: torch.Tensor, gid: torch.Tensor,
     common = (int(ft_on), int(ft_on and ft.verify == "step"),
               int(ft_on and ft.corrects),
               ft.rel_tau * F32EPS if ft_on else 0.0, *inj, float(inj_mag),
+              *seu_args(rng, ft, seu.SALT_GEMM2D),
               torch.cuda.current_stream(buf.device).cuda_stream)
     if p.instance == "sm90":
         FT_GEMM_GROUPED_SM90(
@@ -489,6 +542,7 @@ def ft_gemm_grouped(buf: torch.Tensor, w: torch.Tensor, gid: torch.Tensor,
         DTYPE_CODES[buf.dtype], int(ft_on), bm, layout,
         int(ft_on and ft.verify == "step"), int(ft_on and ft.corrects),
         ft.rel_tau * F32EPS if ft_on else 0.0, *inj, inj_mag,
+        *seu_args(rng, ft, seu.SALT_GEMM2D),
         torch.cuda.current_stream(buf.device).cuda_stream)
     return out, rep
 
@@ -500,7 +554,8 @@ def ft_gemm_grouped(buf: torch.Tensor, w: torch.Tensor, gid: torch.Tensor,
 def tgmm_plain(x: torch.Tensor, g: torch.Tensor, row_end: torch.Tensor, *,
                tiles: Sequence[int], chunk: Optional[int] = None,
                ft: Optional[FTConfig] = None,
-               inj: Optional[Sequence[int]] = None, inj_mag: float = 0.0
+               inj: Optional[Sequence[int]] = None, inj_mag: float = 0.0,
+               rng: Optional[Sequence[int]] = None
                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """K8's function in plain PyTorch: dw[g] = X_gᵀ·G_g on the kernel's
     walk. x (t_buf, K), g (t_buf, N) group-sorted under one layout of row
@@ -508,7 +563,10 @@ def tgmm_plain(x: torch.Tensor, g: torch.Tensor, row_end: torch.Tensor, *,
     block; ``chunk`` (default bm) the rows of one verification interval,
     counted from the group's aligned base. Returns (dw (G, K, N) f32,
     report (G, gk, gn, 8) or None); empty groups come back zero. All groups
-    step through their intervals together, one each per step."""
+    step through their intervals together, one each per step. ``rng``, a
+    campaign's triple, draws one SEU per dw block over the group's live
+    row tiles (`seu_dw_draws`): its magnitude comes from the hit tile's own
+    product at the element, landed in the interval that holds the tile."""
     ft_on = _check_ft(ft)
     t_buf, k = x.shape
     n = g.shape[1]
@@ -541,6 +599,14 @@ def tgmm_plain(x: torch.Tensor, g: torch.Tensor, row_end: torch.Tensor, *,
         nj = torch.arange(gn, device=dev)[None, None, :]
     steps = int(n_steps.max()) if ng else 0
     rows = torch.arange(chunk, device=dev)
+    hook = None
+    if ft_on:
+        hook = seu_dw_draws(rng, ft, (re - base).clamp_min(0), gk, gn, tiles)
+    if hook is not None:
+        h_hit, h_step, h_row, h_col = hook                      # (G, gk, gn)
+        h_row = h_row + torch.arange(gk, device=dev)[None, :, None] * bk
+        h_col = h_col + torch.arange(gn, device=dev)[None, None, :] * bn
+        h_j = h_step * bm // chunk                              # its interval
     for j in range(steps):
         active = j < n_steps                                    # (G,)
         lo = base + j * chunk
@@ -557,6 +623,18 @@ def tgmm_plain(x: torch.Tensor, g: torch.Tensor, row_end: torch.Tensor, *,
                                 ).flatten().tolist()
             if hit and 0 <= ir < kp and 0 <= ic < np_:
                 delta[hit[0], ir, ic] += inj_mag
+        if hook is not None:
+            hg, hk, hn = torch.nonzero(h_hit & (h_j == j), as_tuple=True)
+            if hg.numel():
+                # the hit tile's own product at (row, col): its bm rows
+                tr = (base[hg] + h_step[hg, hk, hn] * bm)[:, None] + \
+                    torch.arange(bm, device=dev)[None, :]
+                ok = tr < re[hg][:, None]
+                tr = tr.clamp(max=t_buf - 1)
+                r, c = h_row[hg, hk, hn], h_col[hg, hk, hn]
+                tile_d = torch.where(ok, xf[tr, r[:, None]] * gf[tr, c[:, None]],
+                                     torch.zeros((), device=dev)).sum(1)
+                delta[hg, r, c] += seu.magnitude(tile_d, ft.inject_bit_shift)
         acc += delta
         if not ft_on:
             continue
@@ -599,6 +677,28 @@ def planned_tgmm_plain(x: torch.Tensor, g: torch.Tensor,
     return tgmm_plain(x, g, row_end, tiles=p.tiles, chunk=p.chunk, **kw)
 
 
+def seu_dw_draws(rng: Optional[Sequence[int]], ft: Optional[FTConfig],
+                 live_rows: torch.Tensor, gk: int, gn: int,
+                 tiles: Sequence[int]):
+    """The SEU every dw block (group, k-block, n-block) of a K8 launch
+    draws under the campaign triple ``rng``, as the reference's
+    `render_tgmm` draws it: (hit, step, row, col), each (G, gk, gn), uid
+    (group·gk + ki)·gn + ni, salt `seu.SALT_TGMM`, steps over the group's
+    row tiles that hold a live row (``live_rows`` (G,): its live rows),
+    rows over bk and cols over bn of ``tiles``; None when no campaign is
+    armed."""
+    if not seu_armed(rng, ft):
+        return None
+    bm, bn, bk = tiles
+    dev = live_rows.device
+    ng = live_rows.shape[0]
+    uid = ((torch.arange(ng, device=dev)[:, None, None] * gk
+            + torch.arange(gk, device=dev)[None, :, None]) * gn
+           + torch.arange(gn, device=dev)[None, None, :])
+    n_live = ((live_rows.long() + bm - 1) // bm)[:, None, None]
+    return seu.draw(rng, seu.SALT_TGMM, uid, n_live, bk, bn, ft.inject_rate)
+
+
 # ---------------------------------------------------------------------------
 # K8: wrapper
 # ---------------------------------------------------------------------------
@@ -606,7 +706,8 @@ def planned_tgmm_plain(x: torch.Tensor, g: torch.Tensor,
 def tgmm(x: torch.Tensor, g: torch.Tensor, row_end: torch.Tensor, *,
          bm: int, ft: Optional[FTConfig] = None,
          inj: Optional[Sequence[int]] = None, inj_mag: float = 0.0,
-         tiles: Optional[Sequence[int]] = None
+         tiles: Optional[Sequence[int]] = None,
+         rng: Optional[Sequence[int]] = None
          ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """dw[g] = X_gᵀ·G_g (G, K, N) f32 with block-level online ABFT when ``ft``
     is enabled (K8), over buffers of row tile ``bm``. `plan_k8` picks the
@@ -618,7 +719,7 @@ def tgmm(x: torch.Tensor, g: torch.Tensor, row_end: torch.Tensor, *,
     p = plan_k8_call(x, g, bm, tiles)
     if x.device.type == "cpu":
         return tgmm_plain(x, g, row_end, tiles=p.tiles, chunk=p.chunk, ft=ft,
-                          inj=inj, inj_mag=inj_mag)
+                          inj=inj, inj_mag=inj_mag, rng=rng)
     if x.device.type != "cuda":
         raise ValueError(f"tgmm: unsupported device {x.device}")
     build.check_device(x)
@@ -649,6 +750,7 @@ def tgmm(x: torch.Tensor, g: torch.Tensor, row_end: torch.Tensor, *,
     inj = tuple(inj) if (ft_on and inj is not None) else _NO_INJ
     tail = (int(ft_on and ft.verify == "step"), int(ft_on and ft.corrects),
             ft.rel_tau * F32EPS if ft_on else 0.0, *inj, float(inj_mag),
+            *seu_args(rng, ft, seu.SALT_TGMM),
             torch.cuda.current_stream(x.device).cuda_stream)
     if p.instance == "sm90":
         TGMM_SM90(x.data_ptr(), g.data_ptr(), row_end.data_ptr(),

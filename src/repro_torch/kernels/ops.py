@@ -19,9 +19,12 @@ reference's tiles so per-block reports compare like with like). The FT
 level of the GEMM fronts is ``ft.level`` ("block", "tile" or "inner"), with
 the "tile" level's band of rows taken from the tiles (`ft_gemm.band_of`).
 
-A stochastic injection campaign (``ft.inject_rate > 0`` with a key) raises
-`NotImplementedError`: the kernels carry no in-kernel SEU hook yet, and a
-campaign must never run clean in silence.
+A stochastic injection campaign (``ft.inject_rate > 0`` with a key, a
+`torch.Generator`): the GEMM fronts encode the key into the kernels' triple
+(`flashft.encode_rng`) and every block of the launch draws its own SEU in
+kernel (`templates/seu.py`); the flash fronts raise on one
+(`core.fault_injection.check_campaign`: their hook is not ported yet), and
+a campaign never runs clean in silence.
 """
 from __future__ import annotations
 
@@ -95,7 +98,7 @@ def gemm_call(spec: KernelSpec, a: torch.Tensor, b: torch.Tensor, *,
     (C, report) — report (gm, gn, 8) = [detected, corrected, row, col,
     magnitude, max_residual, tau, k_elapsed] per block, None with FT off."""
     ft = _resolve(spec, ft)
-    check_campaign(ft, key)
+    rng = kflash.encode_rng(key, ft) if spec.ft else None
     _check_out_dtype(a, out_dtype)
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(f"gemm_call: bad shapes {tuple(a.shape)} x "
@@ -111,7 +114,8 @@ def gemm_call(spec: KernelSpec, a: torch.Tensor, b: torch.Tensor, *,
                          ft=ft if spec.ft else None,
                          inj=(en, -1, row, col, k_step), inj_mag=mag,
                          tiles=tiles,
-                         save_act_grad="act_grad" in spec.extra_outputs)
+                         save_act_grad="act_grad" in spec.extra_outputs,
+                         rng=rng)
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor, *, tiles: Tiles = None,
@@ -197,7 +201,7 @@ def grouped_gemm_call(spec: KernelSpec, a: torch.Tensor, b: torch.Tensor, *,
                          f"group_ids={group_ids is not None}")
     bspec = BatchedKernelSpec(ft_level=spec.ft_level, epilogue=spec.epilogue)
     ft = _resolve(bspec, ft)
-    check_campaign(ft, key)
+    rng = kflash.encode_rng(key, ft) if bspec.ft else None
     _check_out_dtype(a, out_dtype)
     if bspec.epilogue:
         raise NotImplementedError("the batched kernel has no epilogue chain")
@@ -207,16 +211,16 @@ def grouped_gemm_call(spec: KernelSpec, a: torch.Tensor, b: torch.Tensor, *,
                          f"{tuple(b.shape)}")
     inj, mag = encode_batched_injection(inject, inj_batch)
     return kgemm.ft_gemm(a, b, ft=ft if bspec.ft else None, inj=inj,
-                         inj_mag=mag, tiles=tiles)
+                         inj_mag=mag, tiles=tiles, rng=rng)
 
 
 def ft_matmul(a: torch.Tensor, b: torch.Tensor, *,
               ft: FTConfig = ONLINE_BLOCK,
               spec: Optional[InjectionSpec] = None,
-              tiles: Tiles = None, out_dtype=None) -> torch.Tensor:
+              tiles: Tiles = None, out_dtype=None, key=None) -> torch.Tensor:
     """Fused fault-tolerant GEMM at ``ft.level``. Returns the corrected C."""
     out, _ = ft_matmul_report(a, b, ft=ft, spec=spec, tiles=tiles,
-                              out_dtype=out_dtype)
+                              out_dtype=out_dtype, key=key)
     return out
 
 

@@ -6,11 +6,17 @@
         --arch phi4-mini-3.8b-smoke --device cpu --dtype float32 --steps 3
     PYTHONPATH=src python -m repro_torch.launch.train \
         --arch qwen3-moe-235b-a22b-smoke --device cpu --dtype float32
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch phi4-mini-3.8b-smoke --device cpu --dtype float32 --steps 3 \
+        --inject-every 1 --inject-rate 0.5
 
 Every GEMM of the step and the attention in both directions run through
 the CUDA kernels ("--backend pallas", the default) or, on a CPU device,
 their plain versions. The arch ids are those of `configs.registry`: the
 dense family and the MoE family (qwen3-moe-235b-a22b, arctic-480b).
+``--inject-every N`` runs every N-th step under a stochastic SEU campaign
+at ``--inject-rate`` (per output block of each GEMM kernel), with the
+chunked attention core (the flash kernels take no campaign yet).
 """
 from __future__ import annotations
 
@@ -37,6 +43,8 @@ def main(argv=None) -> dict:
                     default="bfloat16")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--microbatch", type=int, default=0)
+    ap.add_argument("--inject-every", type=int, default=0)
+    ap.add_argument("--inject-rate", type=float, default=1e-3)
     args = ap.parse_args(argv)
 
     if args.arch.endswith("-smoke"):
@@ -45,11 +53,16 @@ def main(argv=None) -> dict:
         cfg = registry.get_config(args.arch)
     shape = ShapeConfig("cli", args.seq, args.batch, "train")
     ft = FT_OFF if args.no_ft else ONLINE_BLOCK.replace(backend=args.backend)
+    campaign = args.inject_every > 0
+    if campaign:
+        ft = ft.replace(inject_rate=args.inject_rate)
     run = RunConfig(model=cfg, ft=ft, dtype=args.dtype,
                     learning_rate=args.lr, microbatch=args.microbatch,
-                    attn_chunk=min(128, args.seq))
+                    attn_chunk=min(128, args.seq),
+                    **({"attn_impl": "chunked"} if campaign else {}))
     tc = train_loop.TrainConfig(
-        total_steps=args.steps, warmup_steps=max(args.steps // 10, 1))
+        total_steps=args.steps, warmup_steps=max(args.steps // 10, 1),
+        inject_every=args.inject_every)
     out = train_loop.train(cfg, run, shape, tc, device=args.device)
     print(f"finished at step {out['final_step']}; "
           f"final loss {out['history'][-1]['loss']:.4f}; "

@@ -5,7 +5,10 @@ online ABFT protects the whole model.
 Conventions:
   * parameters live in `nn.Module`s (see `models.transformer.Params`); the
     model itself is plain functions over tensors;
-  * `Ctx` carries the FT policy, the compute dtype and the injection key;
+  * `Ctx` carries the FT policy, the compute dtype and the campaign key:
+    each call site draws from its own key (`named_subkey`, crc32 of the
+    site label), each layer from its own (`Ctx.fold` of the layer index),
+    and ``inject_sites`` limits a campaign to the named sites;
   * prefill attention: on the pallas FT backend the core runs the CUDA
     flash-attention kernel (`kernels.flashft`, both in-kernel GEMMs ABFT
     protected, GQA without repeating KV); elsewhere (and under
@@ -27,25 +30,41 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import zlib
 from typing import Any, Optional, Tuple
 
 import torch
 import torch.utils.checkpoint
 
 from ..core import telemetry
+from ..core.fault_injection import fold_in
 from ..core.ft_gemm import ft_batched_dot, ft_dot, ft_dot_fused
 from ..core.policy import FTConfig, FTLike, FT_OFF, resolve_ft
 
 NEG_INF = -1e30
 
 
+def named_subkey(key: Optional[torch.Generator], name: str
+                 ) -> Optional[torch.Generator]:
+    """The campaign key of call site ``name``: ``key`` folded with the
+    crc32 of the name (None passes through). Consumes no generator state."""
+    return fold_in(key, zlib.crc32(name.encode()))
+
+
 @dataclasses.dataclass(frozen=True)
 class Ctx:
     """Per-call context: FT policy (an FTConfig or a per-site FTPolicy),
-    injection key (a `torch.Generator`; stochastic campaigns raise),
+    campaign key (a `torch.Generator`; with ``ft.inject_rate`` > 0 every
+    protected GEMM draws stochastic SEUs from its site's key, `subkey`),
     activation dtype, and the prefill attention core: "auto" (the flash
     kernel on the pallas FT backend, the chunked core elsewhere), "flash"
-    or "chunked".
+    or "chunked". The flash kernels take no campaign yet: a campaign runs
+    with "chunked".
+
+    ``inject_sites`` limits a campaign to the named sites (the labels the
+    GEMMs record their summaries under: "wq", "w_gate", "attn_qk", …):
+    `subkey` returns None for every other site. `check_inject_sites`
+    raises on a label no GEMM of the forward recorded.
 
     ``bwd_inject`` = (site, hook) lands a deterministic SEU in the backward
     of every call at ``site`` (conformance checks): for a GEMM site the
@@ -57,14 +76,43 @@ class Ctx:
     dtype: Any = torch.bfloat16
     attn_impl: str = "auto"
     bwd_inject: Optional[Tuple[str, Any]] = None
+    inject_sites: Optional[Tuple[str, ...]] = None
 
     def ft_for(self, name: Optional[str]) -> FTConfig:
         """The site's `FTConfig` under this context's policy."""
         return resolve_ft(self.ft, name)
 
+    def site_allowed(self, name: str) -> bool:
+        return self.inject_sites is None or name in self.inject_sites
+
+    def check_inject_sites(self, scope: Optional[telemetry.FTScope]
+                           ) -> None:
+        """Raise if ``inject_sites`` names a label that no protected GEMM
+        recorded in ``scope`` (the forward's): a filter that matches
+        nothing would report a clean run as the campaign's result."""
+        if self.inject_sites is None:
+            return
+        known = scope.sites() if scope is not None else set()
+        unknown = sorted(set(self.inject_sites) - known)
+        if unknown:
+            raise ValueError(
+                f"Ctx.inject_sites names unknown sites {unknown}: no GEMM of "
+                f"this forward records under them, so the campaign would "
+                f"inject nothing. Known sites: {sorted(map(str, known))}")
+
     def subkey(self, name: str) -> Optional[torch.Generator]:
-        """The injection key of call site ``name`` (None: no campaign)."""
-        return self.key
+        """The campaign key of call site ``name`` (None: no campaign there):
+        this context's key folded with the site name."""
+        if not self.site_allowed(name):
+            return None
+        return named_subkey(self.key, name)
+
+    def fold(self, tag: int) -> "Ctx":
+        """This context with its key folded with ``tag`` (the layer index):
+        each layer draws its own SEUs."""
+        if self.key is None:
+            return self
+        return dataclasses.replace(self, key=fold_in(self.key, tag))
 
     def bwd_hook(self, name: str):
         """The backward injection of call site ``name``, if any."""
@@ -175,12 +223,13 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
 # ---------------------------------------------------------------------------
 
 def _chunked_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                  causal: bool, chunk: int, ft: FTConfig, key,
+                  causal: bool, chunk: int, ft: FTConfig, subkey,
                   q_offset: int = 0) -> torch.Tensor:
     """Query-chunked attention core. q: (B, Sq, H, dh); k, v: (B, Sk, KVH,
     dh) → (B, Sq, H, dh). Per chunk, GQA runs as a grouped batched matmul
     over (B, KVH) with the rep·chunk rows folded together (KV never
-    repeated); both GEMMs ride `ft_batched_dot`."""
+    repeated); both GEMMs ride `ft_batched_dot`, each under its site's
+    campaign key, ``subkey(site)`` (`Ctx.subkey`)."""
     b, sq, h, dh = q.shape
     _, sk, kvh, _ = k.shape
     n_rep = h // kvh
@@ -198,14 +247,15 @@ def _chunked_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         qpos = q_offset + c0 + torch.arange(c, device=q.device)
         qg = qc.reshape(b, c, kvh, n_rep, dh).permute(0, 2, 3, 1, 4)
         qg = qg.reshape(b, kvh, n_rep * c, dh)
-        scores = ft_batched_dot(qg, kT, ft=ft, key=key, site="attn_qk"
-                                ).float() * scale
+        scores = ft_batched_dot(qg, kT, ft=ft, key=subkey("attn_qk"),
+                                site="attn_qk").float() * scale
         if causal:
             mask = (qpos[:, None] >= kpos[None, :]).repeat(n_rep, 1)
             scores = torch.where(mask[None, None], scores,
                                  torch.full_like(scores, NEG_INF))
         p = torch.softmax(scores, dim=-1).to(qc.dtype)
-        out = ft_batched_dot(p, vT, ft=ft, key=key, site="attn_pv")
+        out = ft_batched_dot(p, vT, ft=ft, key=subkey("attn_pv"),
+                             site="attn_pv")
         out = out.reshape(b, kvh, n_rep, c, dh).permute(0, 3, 1, 2, 4)
         outs.append(out.reshape(b, c, h, dh))
     return torch.cat(outs, dim=1)
@@ -250,7 +300,9 @@ def _flash_attention(q, k, v, *, causal: bool, ft: FTConfig, key,
     """(B, Sq, H, dh) × (B, Sk, KVH, dh) → (B, Sq, H, dh) through the flash
     kernels on head-major operands, recording one fused "attn_flash"
     summary of the forward (both in-kernel GEMMs share one report) outside
-    the autograd Function: backward corrections are applied, not counted."""
+    the autograd Function: backward corrections are applied, not counted.
+    A campaign key raises here (`kernels.flashft.
+    SUPPORTS_STOCHASTIC_INJECTION`): run it with ``attn_impl="chunked"``."""
     from ..kernels import ops as kops
     b, sq, h, dh = q.shape
     _, sk, kvh, _ = k.shape
@@ -300,7 +352,7 @@ def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     cft = ctx.ft_for("attn_qk")
     cft = cft if cft.protect_attention else FT_OFF
     return _chunked_core(q, k, v, causal=causal, chunk=chunk, ft=cft,
-                         key=ctx.key, q_offset=q_offset)
+                         subkey=ctx.subkey, q_offset=q_offset)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,

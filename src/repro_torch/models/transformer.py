@@ -168,17 +168,25 @@ def forward(params: Params, tokens: torch.Tensor, cfg: ModelConfig,
     True, "none" / False) checkpoints each layer when gradients are
     taken."""
     _check_family(cfg)
-    x = blocks.embed(tokens, params.embed.table).to(ctx.dtype)
-    positions = torch.arange(x.shape[1], device=x.device)
-    layer = blocks.make_remat(
-        functools.partial(apply_layer, cfg=cfg, ctx=ctx, positions=positions,
-                          chunk=chunk), remat)
-    aux = torch.zeros((), device=x.device)
-    for lp in params.layers.unbind_layers():
-        x, aux_l = layer(lp, x)
-        aux = aux + aux_l
-    x = blocks.rmsnorm(x, params.final_norm, cfg.norm_eps)
-    return blocks.lm_head(x, _head_table(params, cfg), ctx), aux
+    with telemetry.ft_scope() as scope:
+        x = blocks.embed(tokens, params.embed.table).to(ctx.dtype)
+        positions = torch.arange(x.shape[1], device=x.device)
+        aux = torch.zeros((), device=x.device)
+        for i, lp in enumerate(params.layers.unbind_layers()):
+            # Each layer draws its own SEUs (its index folded into the key);
+            # the remat recompute derives the same keys.
+            layer = blocks.make_remat(
+                functools.partial(apply_layer, cfg=cfg, ctx=ctx.fold(i),
+                                  positions=positions, chunk=chunk), remat)
+            x, aux_l = layer(lp, x)
+            aux = aux + aux_l
+        x = blocks.rmsnorm(x, params.final_norm, cfg.norm_eps)
+        logits = blocks.lm_head(x, _head_table(params, cfg), ctx)
+    outer = telemetry.current_scope()
+    if outer is not None:
+        outer.extend(scope)
+    ctx.check_inject_sites(scope)
+    return logits, aux
 
 
 def loss_fn(params: Params, batch: Dict[str, torch.Tensor],
@@ -237,17 +245,18 @@ def decode_step(params: Params, token: torch.Tensor, cache: Dict[str, Any],
     pos = cache["length"].long()                         # (B,)
     rows = torch.arange(x.shape[0], device=x.device)
     for i, lp in enumerate(params.layers.unbind_layers()):
+        lctx = ctx.fold(i)
         hn = blocks.rmsnorm(x, lp["attn_norm"], cfg.norm_eps)
-        q, k_new, v_new = _project_qkv(lp["attn"], hn, cfg, ctx,
+        q, k_new, v_new = _project_qkv(lp["attn"], hn, cfg, lctx,
                                        pos[:, None])
         k_c, v_c = cache["k"][i], cache["v"][i]
         k_c.index_put_((rows, pos), k_new[:, 0].to(k_c.dtype))
         v_c.index_put_((rows, pos), v_new[:, 0].to(v_c.dtype))
-        att = blocks.decode_attention(q, k_c, v_c, pos + 1, ctx)
-        x = x + ctx.dot("wo", att.reshape(x.shape[0], 1, -1),
-                        lp["attn"]["wo"])
+        att = blocks.decode_attention(q, k_c, v_c, pos + 1, lctx)
+        x = x + lctx.dot("wo", att.reshape(x.shape[0], 1, -1),
+                         lp["attn"]["wo"])
         hn = blocks.rmsnorm(x, lp["ffn_norm"], cfg.norm_eps)
-        x = x + ffn(lp, hn, cfg, ctx)[0]
+        x = x + ffn(lp, hn, cfg, lctx)[0]
     x = blocks.rmsnorm(x, params.final_norm, cfg.norm_eps)
     logits = blocks.lm_head(x, _head_table(params, cfg), ctx)
     cache["length"] = cache["length"] + 1
@@ -272,17 +281,19 @@ def paged_decode_step(params: Params, token: torch.Tensor,
     pos = cache["length"]                                # (B,) int32
     table = cache["page_table"]
     for i, lp in enumerate(params.layers.unbind_layers()):
+        lctx = ctx.fold(i)
         hn = blocks.rmsnorm(x, lp["attn_norm"], cfg.norm_eps)
-        q, k_new, v_new = _project_qkv(lp["attn"], hn, cfg, ctx,
+        q, k_new, v_new = _project_qkv(lp["attn"], hn, cfg, lctx,
                                        pos.long()[:, None])
         k_p, v_p = cache["k_pages"][i], cache["v_pages"][i]
         kv_cache.append_layer(k_p, k_new[:, 0], table, pos)
         kv_cache.append_layer(v_p, v_new[:, 0], table, pos)
-        att = blocks.paged_decode_attention(q, k_p, v_p, pos + 1, table, ctx)
-        x = x + ctx.dot("wo", att.reshape(x.shape[0], 1, -1),
-                        lp["attn"]["wo"])
+        att = blocks.paged_decode_attention(q, k_p, v_p, pos + 1, table,
+                                            lctx)
+        x = x + lctx.dot("wo", att.reshape(x.shape[0], 1, -1),
+                         lp["attn"]["wo"])
         hn = blocks.rmsnorm(x, lp["ffn_norm"], cfg.norm_eps)
-        x = x + ffn(lp, hn, cfg, ctx)[0]
+        x = x + ffn(lp, hn, cfg, lctx)[0]
     x = blocks.rmsnorm(x, params.final_norm, cfg.norm_eps)
     logits = blocks.lm_head(x, _head_table(params, cfg), ctx)
     cache["length"] = pos + 1
@@ -299,13 +310,14 @@ def prefill(params: Params, tokens: torch.Tensor, cache: Dict[str, Any],
     x = blocks.embed(tokens, params.embed.table).to(ctx.dtype)
     positions = torch.arange(s, device=x.device)
     for i, lp in enumerate(params.layers.unbind_layers()):
+        lctx = ctx.fold(i)
         hn = blocks.rmsnorm(x, lp["attn_norm"], cfg.norm_eps)
-        q, k, v = _project_qkv(lp["attn"], hn, cfg, ctx, positions)
+        q, k, v = _project_qkv(lp["attn"], hn, cfg, lctx, positions)
         att = blocks.chunked_attention(q, k, v, causal=True, chunk=chunk,
-                                       ctx=ctx)
-        x = x + ctx.dot("wo", att.reshape(b, s, -1), lp["attn"]["wo"])
+                                       ctx=lctx)
+        x = x + lctx.dot("wo", att.reshape(b, s, -1), lp["attn"]["wo"])
         hn = blocks.rmsnorm(x, lp["ffn_norm"], cfg.norm_eps)
-        x = x + ffn(lp, hn, cfg, ctx)[0]
+        x = x + ffn(lp, hn, cfg, lctx)[0]
         cache["k"][i, :, :s] = k.to(cache["k"].dtype)
         cache["v"][i, :, :s] = v.to(cache["v"].dtype)
     x = blocks.rmsnorm(x[:, -1:, :], params.final_norm, cfg.norm_eps)

@@ -9,9 +9,12 @@ accumulation microbatching. The step updates the parameters and the AdamW
 state in place (`optim.adamw.apply`) and returns the same objects.
 
 `train` is the host loop: the synthetic data pipeline, the step, the
-straggler watchdog and a SIGTERM stop at the step boundary. Checkpoints
-and resume, gradient compression, the metrics sink and the stochastic SEU
-hook (``inject_every``) are not ported: asking for them raises.
+straggler watchdog and a SIGTERM stop at the step boundary, and the
+stochastic SEU campaign: with ``inject_every`` = N, every N-th step runs
+under the key ``torch.Generator().manual_seed(step)`` (the reference's
+``PRNGKey(step)``) at ``run.ft.inject_rate``. Checkpoints and resume,
+gradient compression and the metrics sink are not ported: asking for them
+raises.
 """
 from __future__ import annotations
 
@@ -43,9 +46,14 @@ class TrainConfig:
 def _check_train_config(tc: TrainConfig) -> None:
     if tc.compress_grads:
         raise NotImplementedError("gradient compression is not ported")
-    if tc.inject_every > 0:
-        raise NotImplementedError("the stochastic SEU hook (inject_every) "
-                                  "is not ported")
+
+
+def inject_key(tc: TrainConfig, step: int) -> Optional[torch.Generator]:
+    """The campaign key of ``step``: a generator seeded with the step on
+    every ``inject_every``-th step, None on the others."""
+    if not (tc.inject_every and step % tc.inject_every == 0):
+        return None
+    return torch.Generator().manual_seed(step)
 
 
 def make_train_step(cfg: ModelConfig, run: RunConfig,
@@ -53,7 +61,8 @@ def make_train_step(cfg: ModelConfig, run: RunConfig,
     """The train step of the model family under ``run``'s FT policy, dtype,
     remat policy and microbatching. ``batch`` holds "tokens" and "labels"
     (B, S) on the parameters' device; ``step`` drives the LR schedule
-    (lr 0 at step 0)."""
+    (lr 0 at step 0); ``inject_key`` (`inject_key`) runs the step under a
+    stochastic SEU campaign at ``run.ft.inject_rate``."""
     _check_train_config(tc)
     mod = model_zoo.module_for(cfg)
     dtype = compute_dtype(run)
@@ -194,7 +203,7 @@ def train(cfg: ModelConfig, run: RunConfig, shape: ShapeConfig,
                      for k, v in next(it).items()}
             wd.start()
             params, opt_state, metrics = step_fn(params, opt_state, batch,
-                                                 step)
+                                                 step, inject_key(tc, step))
             loss = float(metrics["loss"])          # waits for the step
             slow = wd.stop(step)
             ft = metrics["ft"]

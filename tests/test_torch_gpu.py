@@ -1535,3 +1535,142 @@ def test_batched_sm90_plan_routes_the_rest_to_simt(cuda):
             with pytest.raises(ValueError):
                 ft_gemm.ft_gemm(x, y, ft=FT,
                                 tiles=ft_gemm.BATCHED_SM90_TILES[0])
+
+
+# ---------------------------------------------------------------------------
+# stochastic SEU campaigns: the in-kernel hook of K1, K5, K7 and K8
+# ---------------------------------------------------------------------------
+#
+# Integer-valued operands keep every step's contribution exact on both sides
+# (the kernels take it from the accumulator or the staged tiles, the plain
+# versions from their f32 products), so the magnitudes, the located
+# positions and the corrected outputs agree bit for bit.
+
+#: A fixed campaign triple (enable, seed0, seed1).
+TRIPLE = (1, 123456789, 987654321)
+#: Ragged groups, empty ones, a 100-row group (two 64-row chunks on the
+#: tensor cores) and a dead tail.
+CAMPAIGN_SIZES = [13, 0, 100, 7, 70, 0, 0, 5]
+
+
+def _campaign_cases():
+    """(name, kernels, call(ft, rng) -> (out, rep), plain(ft, rng), hits(ft,
+    rng) -> the blocks that draw a hit) for each of the eight instances,
+    at shapes with a tail block."""
+    from repro_torch.kernels import grouped_gemm as kgg
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    cases = []
+
+    def gemm(name, kernels, a, b, tiles=None):
+        def call(ft, rng):
+            return ft_gemm.ft_gemm(a, b, ft=ft, rng=rng, tiles=tiles)
+
+        def plain(ft, rng):
+            return ft_gemm.planned_plain(a, b, ft=ft, rng=rng, tiles=tiles)
+
+        def hits(ft, rng):
+            p = ft_gemm.plan_call(a, b, ft=ft, tiles=tiles)
+            m, k = a.shape[-2:]
+            nb = a[..., 0, 0].numel()
+            bm, bn, bk = p.tiles
+            return ft_gemm.seu_draws(
+                rng, ft, nb, ft_gemm.cdiv(m, bm), ft_gemm.cdiv(b.shape[-1], bn),
+                ft_gemm.cdiv(k, bk), p.tiles, a.dim() > 2, a.device)[0]
+        cases.append((name, kernels, call, plain, hits))
+
+    f32, bf = torch.float32, torch.bfloat16
+    gemm("K1 simt", ft_gemm.FT_GEMM_2D_SIMT, _ints(gen, 130, 300),
+         _ints(gen, 300, 200), (64, 64, 32))
+    gemm("K1 sm90 split-K", ft_gemm.FT_GEMM_SM90,
+         _ints(gen, 200, 1024, dtype=bf), _ints(gen, 1024, 296, dtype=bf))
+    gemm("K1 sm90", ft_gemm.FT_GEMM_SM90, _ints(gen, 2200, 512, dtype=bf),
+         _ints(gen, 512, 2104, dtype=bf))
+    gemm("K5 simt", ft_gemm.FT_GEMM_BATCHED, _ints(gen, 2, 3, 40, 77),
+         _ints(gen, 2, 3, 77, 50))
+    gemm("K5 sm90", ft_gemm.FT_GEMM_BATCHED_SM90,
+         _ints(gen, 4, 2, 7, 304, dtype=bf), _ints(gen, 4, 2, 304, 72, dtype=bf))
+
+    for dtype, bm, name in ((f32, 16, "simt"), (bf, 16, "sm90")):
+        lay, glay = _grouped_layout(CAMPAIGN_SIZES, bm, 3)
+        k, n, ng = 512, 200, len(CAMPAIGN_SIZES)
+        buf = glay.scatter_rows(_ints(gen, lay.n_rows, k, dtype=dtype), lay)
+        w = _ints(gen, ng, k, n, dtype=dtype)
+        tiles = (bm, 128, 32) if name == "simt" else None
+
+        def k7(ft, rng, buf=buf, w=w, lay=lay, tiles=tiles):
+            return kgg.ft_gemm_grouped(buf, w, lay.gid, lay.row_end, ft=ft,
+                                       rng=rng, tiles=tiles)
+
+        def k7p(ft, rng, buf=buf, w=w, lay=lay, tiles=tiles):
+            return kgg.planned_grouped_plain(buf, w, lay.gid, lay.row_end,
+                                             ft=ft, rng=rng, tiles=tiles)
+
+        def k7h(ft, rng, buf=buf, w=w, lay=lay, tiles=tiles):
+            p = kgg.plan_k7_call(buf, w, lay.gid, tiles)
+            return kgg.seu_tile_draws(rng, ft, lay.num_tiles,
+                                      ft_gemm.cdiv(w.shape[2], p.tiles[1]),
+                                      ft_gemm.cdiv(k, p.tiles[2]), p.tiles,
+                                      buf.device)[0]
+        cases.append((f"K7 {name}", kgg.FT_GEMM_GROUPED_SIMT if name == "simt"
+                      else kgg.FT_GEMM_GROUPED_SM90, k7, k7p, k7h))
+
+        x = glay.scatter_rows(_ints(gen, lay.n_rows, 152, dtype=dtype), lay)
+        g = glay.scatter_rows(_ints(gen, lay.n_rows, 200, dtype=dtype), lay)
+        t8 = (bm, 64, 64) if name == "simt" else None
+
+        def k8(ft, rng, x=x, g=g, lay=lay, t8=t8):
+            return kgg.tgmm(x, g, lay.row_end, bm=lay.bm, ft=ft, rng=rng,
+                            tiles=t8)
+
+        def k8p(ft, rng, x=x, g=g, lay=lay, t8=t8):
+            return kgg.planned_tgmm_plain(x, g, lay.row_end, bm=lay.bm,
+                                          ft=ft, rng=rng, tiles=t8)
+
+        def k8h(ft, rng, x=x, g=g, lay=lay, t8=t8):
+            p = kgg.plan_k8_call(x, g, lay.bm, t8)
+            live = lay.row_end.long() - lay.base.long()
+            return kgg.seu_dw_draws(rng, ft, live,
+                                    ft_gemm.cdiv(x.shape[1], p.tiles[2]),
+                                    ft_gemm.cdiv(g.shape[1], p.tiles[1]),
+                                    p.tiles)[0]
+        cases.append((f"K8 {name}", kgg.TGMM_SIMT if name == "simt"
+                      else kgg.TGMM_SM90, k8, k8p, k8h))
+    return cases
+
+
+@pytest.mark.parametrize("idx", range(9))
+def test_campaign_hook_matches_plain(cuda, idx):
+    """Each instance with a fixed triple at rate 1.0 and 0.5: reports equal
+    its planned plain version's field for field, every SEU is corrected
+    (one detection a hit under "final") and the output equals the clean
+    call's; detect-only leaves the SEUs in, as the plain version does; rate
+    0 with the triple is bit-identical to no campaign."""
+    name, kernels, call, plain, hits = _campaign_cases()[idx]
+    clean, rep0 = call(FT, None)
+    for rate in (1.0, 0.5):
+        for ft in (FT.replace(inject_rate=rate),
+                   FT.replace(inject_rate=rate, verify="final"),
+                   FT.replace(inject_rate=rate, action="detect")):
+            before = kernels.launches
+            out, rep = call(ft, TRIPLE)
+            assert kernels.launches > before, name
+            out_p, rep_p = plain(ft, TRIPLE)
+            _check_reports(rep, rep_p)
+            assert torch.equal(out, out_p), name
+            n_hit = int(hits(ft, TRIPLE).sum())
+            assert n_hit > 0, name
+            if ft.corrects:
+                assert torch.equal(out, clean), name
+                if ft.verify == "final":
+                    assert float(rep[..., 0].sum()) == n_hit, name
+                assert float(rep[..., 1].sum()) == float(rep[..., 0].sum())
+            else:
+                # SEUs in rows or columns past the output's edge are
+                # detected but never stored
+                assert int((out != clean).sum()) <= n_hit, name
+                assert float(rep[..., 1].sum()) == 0.0
+                assert float(rep[..., 0].sum()) >= n_hit, name
+    out, rep = call(FT, (0, 0, 0))
+    assert torch.equal(out, clean) and torch.equal(rep, rep0), name
+    out, rep = call(FT.replace(inject_rate=0.0), TRIPLE)
+    assert torch.equal(out, clean) and torch.equal(rep, rep0), name

@@ -164,13 +164,16 @@ def test_kernel_wrappers_take_no_other_device():
 
 
 def test_stochastic_campaign_on_kernel_backend_raises():
-    ft = tpolicy.ONLINE_BLOCK.replace(backend="pallas", inject_rate=0.5)
+    """The GEMM kernels run a campaign (every SEU corrected); the flash
+    kernels, which carry no stochastic hook yet, raise on one, and so does a
+    forward whose attention takes them."""
+    ft = tpolicy.ONLINE_BLOCK.replace(backend="pallas", inject_rate=1.0)
     key = torch.Generator().manual_seed(0)
     a, b = torch.ones(4, 8), torch.ones(8, 4)
-    with pytest.raises(NotImplementedError):
-        tops.ft_matmul_report(a, b, ft=ft, key=key)
-    with pytest.raises(NotImplementedError):
-        tcore.ft_dot(a, b, ft=ft, key=key)
+    out, rep = tops.ft_matmul_report(a, b, ft=ft, key=key)
+    assert torch.equal(out, a @ b)
+    assert float(rep[..., 0].sum()) == float(rep[..., 1].sum()) == 1.0
+    assert torch.equal(tcore.ft_dot(a, b, ft=ft, key=key), a @ b)
     q = torch.ones(2, 8, 16)
     with pytest.raises(NotImplementedError):
         tops.flash_ft(q, q, q, ft=ft, key=key)

@@ -186,8 +186,13 @@ def test_train_cli_runs_on_the_cpu(capsys):
 @pytest.mark.parametrize("what", ["ckpt_dir", "resume", "compress_grads",
                                   "sink", "inject_every", "q8"])
 def test_unported_parts_of_the_loop_raise(what):
+    """What the loop does not port raises. ``inject_every``: a campaign
+    through the flash attention kernels, whose stochastic hook is not
+    ported (the GEMM kernels' is: `test_torch_campaign.py`)."""
     cfg = treg.get_smoke("phi4-mini-3.8b")
-    run = TRun(model=cfg, ft=T_ONLINE.replace(backend="pallas"),
+    rate = 0.5 if what == "inject_every" else 0.0
+    run = TRun(model=cfg, ft=T_ONLINE.replace(backend="pallas",
+                                              inject_rate=rate),
                dtype="float32", opt_state="q8" if what == "q8" else "f32")
     tc = ttl.TrainConfig(total_steps=1,
                          compress_grads=what == "compress_grads",

@@ -1,0 +1,104 @@
+"""Device times of the GEMM family's tensor-core kernels (K1, K5, K7, K8) at
+their main-path shapes, clean (FT block, no campaign) and FT off, for one
+checkout of the port: the side of an A/B comparison of two commits on one
+card. Prints one JSON line {"src": ..., "times": {label: ms}}.
+
+    python3 tools/kernel_ab.py --src build/parent/src   # an older checkout
+    python3 tools/kernel_ab.py --src src                # this one
+
+Run the two in turns in one call on the chip (parent, change, change,
+parent) and compare within the call: each process builds its checkout's
+kernels into that checkout's build/ at first use. Device time is the summed
+duration of the call's kernels under `torch.profiler`, per call, over 20
+calls after 3 warm-up calls; operands are Gaussian bf16 from a fixed seed.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+
+
+def kernel_ms(torch, fn, iters=20, warmup=3):
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(e.time_range.end - e.time_range.start for e in prof.events()
+                if getattr(e, "device_type", None)
+                == torch.autograd.DeviceType.CUDA)
+    if total <= 0:
+        raise SystemExit("the profiler saw no device time")
+    return total / iters / 1e3
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--src", required=True,
+                    help="the src/ directory of the checkout to time")
+    args = ap.parse_args()
+    sys.path.insert(0, os.path.abspath(args.src))
+    import torch
+    if not torch.cuda.is_available():
+        print("kernel_ab: no CUDA device", file=sys.stderr)
+        return 2
+    from repro_torch.core.policy import ONLINE_BLOCK
+    from repro_torch.kernels import ft_gemm, grouped_gemm
+    from repro_torch.kernels import grouped as kgrouped
+    ft = ONLINE_BLOCK.replace(backend="pallas")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def rand(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device="cuda") * scale
+                ).to(torch.bfloat16)
+
+    times = {}
+    k1 = [("K1 decode w_gate+silu 4x3584x18944", 4, 3584, 18944, ("silu",),
+           False),
+          ("K1 prefill w_gate+silu 512x3584x18944", 512, 3584, 18944,
+           ("silu",), False),
+          ("K1 train w_gate+silu act_grad 1024x3072x8192", 1024, 3072, 8192,
+           ("silu",), True),
+          ("K1 square 4096", 4096, 4096, 4096, (), False)]
+    for label, m, k, n, chain, ag in k1:
+        a, b = rand(m, k), rand(k, n, scale=0.02)
+        for name, f in (("block", ft), ("off", None)):
+            times[f"{label} {name}"] = kernel_ms(torch, lambda: ft_gemm.ft_gemm(
+                a, b, chain=chain, ft=f, save_act_grad=ag and f is not None))
+    # K1's dw = x^T g of training (an A whose m dim has unit stride)
+    x, g = rand(1024, 3072), rand(1024, 8192, scale=0.02)
+    times["K1 train dw x^T g 3072x1024x8192 block"] = kernel_ms(
+        torch, lambda: ft_gemm.ft_gemm(x.T, g, ft=ft))
+    # K5: decode attention's products against a 256-position cache
+    q, kc = rand(4, 4, 7, 128), rand(4, 4, 256, 128)
+    times["K5 dec_qk 4x4x(7x256x128) block"] = kernel_ms(
+        torch, lambda: ft_gemm.ft_gemm(q, kc.transpose(-1, -2), ft=ft))
+    # K7 and K8: qwen3-moe-235b-a22b's expert GEMMs (128 experts, 4096 ->
+    # 1536, top-8)
+    e, d, f = 128, 4096, 1536
+    for label, rows in (("decode gate 64 rows", 64),
+                        ("train gate 8192 rows", 8192)):
+        ids = torch.randint(0, e, (rows,), generator=gen, device="cuda")
+        lay = kgrouped.make_layout(ids, e, 16)
+        buf = kgrouped.scatter_rows(rand(rows, d), lay)
+        w = rand(e, d, f, scale=0.02)
+        times[f"K7 {label} block"] = kernel_ms(
+            torch, lambda: grouped_gemm.ft_gemm_grouped(
+                buf, w, lay.gid, lay.row_end, ft=ft))
+        if rows == 8192:
+            gb = kgrouped.scatter_rows(rand(rows, f), lay)
+            times["K8 train dw 8192 rows block"] = kernel_ms(
+                torch, lambda: grouped_gemm.tgmm(buf, gb, lay.row_end,
+                                                 bm=16, ft=ft), iters=5)
+    print(json.dumps({"src": args.src, "card": torch.cuda.get_device_name(0),
+                      "times": times}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
