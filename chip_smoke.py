@@ -7,7 +7,7 @@
     python3 chip_smoke.py --phases env,kernels,decode_kernels,engine,train_kernels
     python3 chip_smoke.py --phases env,moe_kernels,moe_check,moe_engine,moe_train
     python3 chip_smoke.py --phases env,level_kernels,level_check,level_serve,ladder
-    python3 chip_smoke.py --phases env,campaign_kernels,campaign_train,moe_campaign
+    python3 chip_smoke.py --phases env,campaign_kernels,campaign_train,campaign_train_chunked,moe_campaign
 
 Phases (each prints its own lines; any failed check exits non-zero):
 
@@ -228,20 +228,39 @@ Phases (each prints its own lines; any failed check exits non-zero):
                off, torch.matmul; errors per call and per minute at rate
                1.0; CUDA events, three rounds in turns), and K5, K7 and K8
                at rate 0 and 1.0 beside their clean calls (K5 at decode by
-               its kernel's profiled time);
+               its kernel's profiled time). Then the flash family's eight
+               instances on Gaussian bf16 (f32 for the SIMT ones) under the
+               same triple at rates 0.5 and 1.0: K2 on the tensor cores at
+               the prefill shape and at phi4-mini's S 512, K3 and K4 at
+               phi4-mini's S 512 (K4 in 3 ranges), K6 at the engine's shape
+               (9 ranges), the SIMT K2, K3, K4 and K6 in f32 and K6 at pages
+               of 16: reports equal to the planned plain version's in det /
+               corr / row / col / k and tau, one detection and correction
+               per drawn SEU, the outputs within the bf16 tolerance of the
+               clean call's, detect-only leaving the SEUs in, rate 0 the
+               clean call; and the Fig. 16 table of K2 at the prefill shape,
+               K3 + K4 at S 512 and K6 at the engine's shape (the device
+               time of a call, its kernels back to back: CUDA events around
+               calls queued behind a device-side sleep, `queued_ms`; clean,
+               rate 0, rate 1.0, three rounds in turns);
   campaign_train  phi4-mini-3.8b at full width and depth, 2 x 512 tokens,
-               `remat="full"`, chunked attention, 4 steps from one
-               initialisation three times: clean, a campaign at
+               `remat="full"`, the default (flash) attention, 4 steps from
+               one initialisation three times: clean, a campaign at
                CAMPAIGN_RATE every step, the same detect-only; each step's
-               detections equal the SEUs its forward blocks draw, within a
-               5-sigma binomial band of rate x blocks; losses and the
+               detections equal the SEUs its forward's GEMM and flash blocks
+               draw, within a 5-sigma binomial band of rate x blocks; the
+               backward's K3 and K4 reports (`ops.flash_ft_bwd` wrapped)
+               detect and correct each SEU they draw; losses and the
                parameters after step 1 within 1e-3 relative of the clean
                run, the detect-only losses at least 100x further off; step
                times, the first step of each run under the dispatch guard,
-               the last profiled (idle share);
-  moe_campaign the same with two steps of the moe_train model (qwen3-
-               moe-235b-a22b at full width, 1 layer), at MOE_CAMPAIGN_RATE;
-               the first step guarded, the second profiled.
+               the last profiled (busy time, idle share);
+  campaign_train_chunked  the same on chunked attention (QKᵀ and PV
+               through K5's SIMT instance, no flash kernel);
+  moe_campaign the same as campaign_train with two steps of the moe_train
+               model (qwen3-moe-235b-a22b at full width, 1 layer, flash
+               attention), at MOE_CAMPAIGN_RATE; the first step guarded, the
+               second profiled.
 
 The last two lines are {"kernels": [...]} and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -570,6 +589,39 @@ def kernel_mean_ms(fn, iters: int = 20) -> float:
     spans, _ = device_events(fn, iters, warmup=3)
     check(len(spans) > 0, "the profiler saw the call's kernel on the device")
     return sum(hi - lo for _, lo, hi in spans) / len(spans) / 1e3
+
+
+def queued_ms(fn, iters: int = 30, warmup: int = 3) -> float:
+    """The device time of one call of ``fn``, its kernels back to back:
+    CUDA events around ``iters`` calls queued behind a device-side sleep
+    that outlasts the host's time to enqueue them, so the host's launch
+    time (tens of µs a call, as long as K2's or K6's kernel) does not
+    count, and no profiler trace is read (a long run's traces drop events
+    and carry some over from the session before). Checks that the sleep
+    was still running when the last call was queued, and retries with a
+    longer one until it was."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for attempt in range(4):
+        # spin cycles for 4x the host's enqueue time at a 2 GHz clock
+        torch.cuda._sleep(int((4 * host_s + 1e-3) * 2e9) << attempt)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        ahead = not start.query()
+        end.synchronize()
+        if ahead:
+            return start.elapsed_time(end) / iters
+    check(False, "the calls were queued before the device reached them")
 
 
 def k1_host_us(a, b, calls: int = 200, **kw) -> float:
@@ -1801,7 +1853,7 @@ def phase_decode_kernels():
             table.data_ptr(), ws.data_ptr(), p.ranges, b, kvh, bq, dh, page,
             table.shape[1], k.shape[0], 1, int(FT.corrects), dh ** -0.5,
             FT.rel_tau * flashft.F32EPS * dh, FT.rel_tau * flashft.F32EPS,
-            0, 0, 0, 0, 0, 0, 0.0, stream)
+            0, 0, 0, 0, 0, 0, 0.0, *ft_gemm.seu_args(None, FT, 0), stream)
     flashft.FLASH_DECODE_SM90(*args)
     out_c, rep_c = torch.empty_like(qg), torch.empty_like(rep)
 
@@ -2518,7 +2570,8 @@ def _flash_bwd_kernels(gen, label, cfg):
         ptrs, rest = flashft._bwd_launch_args(q, k, go, m, l, di, ft=FT,
                                               scale=dh ** -0.5, tau_dh=dh,
                                               n_rep=n_rep, causal=True,
-                                              inj=None, inj_mag=0.0)
+                                              inj=None, inj_mag=0.0,
+                                              rng=None, salt=0)
         flashft.FLASH_DKV_SM90(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                *ptrs, rk_.data_ptr(), rv_.data_ptr(),
                                rr_.data_ptr(), ws.data_ptr(), p.ranges,
@@ -3643,6 +3696,234 @@ def _campaign_check(label, counter, call, plain, hits):
     return n_hits
 
 
+def _flash_campaign_check(label, counter, call, plain, hits):
+    """One flash instance under the fixed triple at rates 0.5 and 1.0 on
+    Gaussian operands, against its planned plain version: reports equal in
+    det / corr / row / col / k and tau within 1e-5 (the magnitude and max
+    residual follow the kernel's own sums), one detection a drawn SEU,
+    corrected once, and the outputs within the bf16 tolerance of the plain
+    version's and of the clean call's; detect-only leaves the SEUs in
+    (some output off by more than four tolerances); rate 0 with the triple
+    is the clean call bit for bit. Returns the SEU counts at 0.5 and 1.0."""
+    clean, rep0 = call(FT, None)
+    top = max(x.float().abs().max().item() for x in clean)
+    n_hits = []
+    for rate in (0.5, 1.0):
+        for ft in (FT.replace(inject_rate=rate),
+                   DETECT.replace(inject_rate=rate)):
+            before = counter.launches
+            outs, rep = call(ft, TRIPLE)
+            torch.cuda.synchronize()
+            check(counter.launches == before + 1,
+                  f"campaign {label}: launched on its instance")
+            outs_p, rep_p = plain(ft, TRIPLE)
+            n_hit = int(hits(ft, TRIPLE).sum())
+            fields = [0, 1, 2, 3, 7]
+            tau = ((rep[..., 6] - rep_p[..., 6]).abs()
+                   / rep_p[..., 6].abs().clamp_min(1e-30)).max().item()
+            check(torch.equal(rep[..., fields], rep_p[..., fields])
+                  and tau <= 1e-5,
+                  f"campaign {label} rate {rate} {ft.action}: report det / "
+                  f"corr / row / col / k equal to the plain version's, tau "
+                  f"within {tau:.2g}")
+            errs = [_bf16_close(o, op) for o, op in zip(outs, outs_p)]
+            check(all(ok for _, ok in errs), f"campaign {label} rate {rate} "
+                  f"{ft.action}: outputs within the bf16 tolerance of the "
+                  f"plain version's (max diff {max(e for e, _ in errs):.3g})")
+            det, corr = float(rep[..., 0].sum()), float(rep[..., 1].sum())
+            moved = max((o.float() - c.float()).abs().max().item()
+                        for o, c in zip(outs, clean))
+            if ft.corrects:
+                n_hits.append(n_hit)
+                check(n_hit > 0 and det == corr == n_hit
+                      and moved <= BF16_TOL * top,
+                      f"campaign {label} rate {rate}: {n_hit} SEUs drawn, "
+                      f"each detected and corrected once, the outputs within "
+                      f"the bf16 tolerance of the clean call (max diff "
+                      f"{moved:.3g})")
+            else:
+                check(det == n_hit and corr == 0
+                      and moved > 4 * BF16_TOL * top,
+                      f"campaign {label} rate {rate} detect-only: {det:.0f} "
+                      f"detections of {n_hit} SEUs, no correction, outputs "
+                      f"moved by up to {moved:.3g}")
+    outs, rep = call(FT, TRIPLE)
+    check(all(torch.equal(o, c) for o, c in zip(outs, clean))
+          and torch.equal(rep, rep0),
+          f"campaign {label}: rate 0 with the triple is the clean call")
+    return n_hits
+
+
+def _flash_fwd_case(label, counter, q, k, v, n_rep, causal=True,
+                    save_stats=False):
+    kw = dict(scale=q.shape[-1] ** -0.5, tau_dh=128, n_rep=n_rep,
+              causal=causal, save_stats=save_stats)
+
+    def call(ft, rng):
+        res = flashft.flash_ft_fwd(q, k, v, ft=ft, rng=rng, **kw)
+        return (res[0],), res[-1]
+
+    def plain(ft, rng):
+        res = flashft.flash_ft_plain(q, k, v, ft=ft, rng=rng, **kw)
+        return (res[0],), res[-1]
+
+    return (label, counter, call, plain,
+            lambda ft, rng: flashft.seu_fwd_draws(
+                rng, ft, q.shape[0], q.shape[1], k.shape[1], 128,
+                causal=causal, device="cuda")[0])
+
+
+def _flash_bwd_cases(label, counters, q, k, v, g, n_rep, causal=True):
+    """K3's and K4's cases on one backward problem (the statistics of the
+    clean forward on the card)."""
+    kw = dict(scale=q.shape[-1] ** -0.5, tau_dh=128, n_rep=n_rep,
+              causal=causal)
+    o, m, l, _ = flashft.flash_ft_fwd(q, k, v, ft=FT, save_stats=True, **kw)
+    di = (g.float() * o.float()).sum(-1)
+    ops_ = (q, k, v, g, m, l, di)
+    bh, sq, skv = q.shape[0], q.shape[1], k.shape[1]
+
+    def dq(ft, rng):
+        out, rep = flashft.flash_ft_dq(*ops_, ft=ft, rng=rng, **kw)
+        return (out,), rep
+
+    def dq_p(ft, rng):
+        out, rep = flashft.flash_dq_plain(*ops_, ft=ft, rng=rng, **kw)
+        return (out,), rep
+
+    def dkv(ft, rng):
+        dk, dv, rep = flashft.flash_ft_dkv(*ops_, ft=ft, rng=rng, **kw)
+        return (dk, dv), rep
+
+    def dkv_p(ft, rng):
+        dk, dv, rep = flashft.planned_dkv_plain(*ops_, ft=ft, rng=rng, **kw)
+        return (dk, dv), rep
+
+    return [
+        (f"K3 {label}", counters[0], dq, dq_p,
+         lambda ft, rng: flashft.seu_dq_draws(
+             rng, ft, bh, sq, skv, 128, causal=causal, device="cuda")[0]),
+        (f"K4 {label}", counters[1], dkv, dkv_p,
+         lambda ft, rng: flashft.seu_dkv_draws(
+             rng, ft, bh // n_rep, n_rep, sq, skv, 128, causal=causal,
+             device="cuda")[0])]
+
+
+def _decode_case(label, counter, gen, dtype, page, simt):
+    """K6 at the engine's shape: qwen2-7b's 4 kv heads x 7 query rows
+    (padded to the sublane), 8 slots of DECODE_LENGTHS."""
+    cfg = qwen2_7b.CONFIG
+    kvh, dh = cfg.n_kv_heads, cfg.head_dim
+    n_rep = cfg.n_heads // kvh
+    k, v, table, lens = _decode_pool(gen, DECODE_LENGTHS, kvh, dh, page,
+                                     dtype)
+    bq = -(-n_rep // flashft.sublane(dtype)) * flashft.sublane(dtype)
+    q = torch.zeros(len(DECODE_LENGTHS) * kvh, bq, dh, device="cuda",
+                    dtype=dtype)
+    q[:, :n_rep] = _rand(gen, len(DECODE_LENGTHS) * kvh, n_rep, dh).to(dtype)
+    kw = dict(scale=dh ** -0.5, tau_dh=dh, simt=simt)
+    args = (q, k, v, lens, table)
+
+    def call(ft, rng):
+        out, rep = flashft.flash_ft_decode(*args, ft=ft, rng=rng, **kw)
+        return (out,), rep
+
+    def plain(ft, rng):
+        out, rep = flashft.planned_decode_plain(*args, ft=ft, rng=rng, **kw)
+        return (out,), rep
+
+    p = flashft.plan_decode(q, k, v, table, simt=simt)
+    return ((label, counter, call, plain,
+             lambda ft, rng: flashft.seu_decode_draws(
+                 rng, ft, lens, kvh, page, table.shape[1], bq, dh)[0]), p)
+
+
+def _flash_campaign_kernels(gen):
+    """The flash family's campaign cases and the Fig. 16 table of K2, K3 +
+    K4 and K6 (see the module docstring). Returns (SEU counts, times)."""
+    q2, phi = qwen2_7b.CONFIG, phi4_mini_38b.CONFIG
+    bf = torch.bfloat16
+
+    def heads(cfg, batch, s, dtype=bf):
+        bh, gk = batch * cfg.n_heads, batch * cfg.n_kv_heads
+        return (_rand(gen, bh, s, cfg.head_dim).to(dtype),
+                _rand(gen, gk, s, cfg.head_dim).to(dtype),
+                _rand(gen, gk, s, cfg.head_dim).to(dtype),
+                _rand(gen, bh, s, cfg.head_dim).to(dtype),
+                cfg.n_heads // cfg.n_kv_heads)
+
+    pq, pk, pv, _, prep = heads(q2, BATCH, PROMPT)
+    tq, tk, tv, tg, trep = heads(phi, TRAIN_BATCH, TRAIN_SEQ)
+    sq_, sk_, sv_, sg_, _ = heads(phi, 1, 200, torch.float32)
+    srep = 3
+    pb = flashft.plan_bwd(tq, tk, tv, tg, n_rep=trep)
+    check(pb.instance == "sm90" and pb.ranges == 3,
+          f"K4 at phi4-mini's S {TRAIN_SEQ}: the tensor cores in 3 ranges "
+          f"({pb})")
+    k6, p6 = _decode_case(f"K6 sm90 engine {ENGINE_SLOTS} slots, pages of "
+                          f"{kv_cache.DEFAULT_PAGE}", flashft.FLASH_DECODE_SM90,
+                          gen, bf, kv_cache.DEFAULT_PAGE, False)
+    check(p6.instance == "sm90" and p6.ranges == 9,
+          f"K6 at the engine's shape: the tensor cores in 9 ranges ({p6})")
+    cases = [
+        _flash_fwd_case(f"K2 sm90 prefill {BATCH}x{PROMPT} "
+                        f"{q2.n_heads}/{q2.n_kv_heads}",
+                        flashft.FLASH_FT_SM90, pq, pk, pv, prep),
+        _flash_fwd_case(f"K2 sm90 train {TRAIN_BATCH}x{TRAIN_SEQ} "
+                        f"{phi.n_heads}/{phi.n_kv_heads} stats",
+                        flashft.FLASH_FT_SM90, tq, tk, tv, trep,
+                        save_stats=True),
+        *_flash_bwd_cases(f"sm90 train {TRAIN_BATCH}x{TRAIN_SEQ}",
+                          (flashft.FLASH_DQ_SM90, flashft.FLASH_DKV_SM90),
+                          tq, tk, tv, tg, trep),
+        k6,
+        _flash_fwd_case("K2 simt f32 24/8 S 200", flashft.FLASH_FT, sq_, sk_,
+                        sv_, srep),
+        *_flash_bwd_cases("simt f32 24/8 S 200",
+                          (flashft.FLASH_DQ, flashft.FLASH_DKV), sq_, sk_,
+                          sv_, sg_, srep),
+        _decode_case("K6 simt f32 engine, pages of 64", flashft.FLASH_DECODE,
+                     gen, torch.float32, kv_cache.DEFAULT_PAGE, True)[0],
+        _decode_case("K6 simt bf16 engine, pages of 16", flashft.FLASH_DECODE,
+                     gen, bf, 16, True)[0],
+    ]
+    counts = {}
+    for case in cases:
+        counts[case[0]] = _flash_campaign_check(*case)
+        torch.cuda.empty_cache()
+    print(f"  flash SEUs drawn at rates 0.5 / 1.0: {counts}")
+
+    # ---- the Fig. 16 table: device times (`queued_ms`) of the whole call,
+    # clean / rate 0 / rate 1.0, three rounds in turns; the kernels a call
+    # launches: K2; K3, K4 and its reduce; K6 and its combine -------------
+    timed = [(cases[0][0], [cases[0]]),
+             (f"K3 + K4 sm90 train {TRAIN_BATCH}x{TRAIN_SEQ}",
+              [cases[2], cases[3]]),
+             (cases[4][0], [cases[4]])]
+    times = {}
+    for label, group in timed:
+        t = {"clean": [], "rate 0": [], "rate 1.0": []}
+        for _ in range(3):
+            for name, ft, rng in (("clean", FT, None), ("rate 0", FT, TRIPLE),
+                                  ("rate 1.0", FT.replace(inject_rate=1.0),
+                                   TRIPLE)):
+                def fn(ft=ft, rng=rng):
+                    for c in group:
+                        c[2](ft, rng)
+                t[name].append(queued_ms(fn))
+        row = {name + " ms": statistics.median(xs) for name, xs in t.items()}
+        row.update({name + " ms, 3 rounds": xs for name, xs in t.items()})
+        n = sum(int(c[4](FT.replace(inject_rate=1.0), TRIPLE).sum())
+                for c in group)
+        row["errors per call at rate 1.0"] = n
+        row["errors per minute at rate 1.0"] = n * 60e3 / row["rate 1.0 ms"]
+        for v in ("rate 0", "rate 1.0"):
+            row[f"{v} / clean"] = row[f"{v} ms"] / row["clean ms"]
+        times[label] = row
+        print(f"  {label}: {row}")
+    return counts, times
+
+
 def phase_campaign_kernels():
     gen = torch.Generator(device="cuda").manual_seed(23)
     q = qwen2_7b.CONFIG
@@ -3804,6 +4085,9 @@ def phase_campaign_kernels():
         row["rate 1.0 / clean"] = row["rate 1.0 ms"] / row["clean ms"]
         times[label] = row
         print(f"  {label} (integer operands): {row}")
+    f_counts, f_times = _flash_campaign_kernels(gen)
+    counts.update(f_counts)
+    times.update(f_times)
     print(json.dumps({"campaign_kernels": dict(seus=counts, times=times)}))
 
 
@@ -3817,15 +4101,20 @@ def _grouped_small(gen):
 
 @contextmanager
 def forward_blocks():
-    """Record every K1, K5 and K7 launch of a forward under an open
+    """Record every K1, K5, K7 and K2 launch of a forward under an open
     telemetry scope with a campaign armed (the protected calls whose
     detections the scope records: not the backward's, not the remat
-    recompute's) by its plan, and on exit count their output blocks and
-    the blocks whose SEU the triple draws (the draws run after the step,
-    on the host). Yields {"blocks", "hits"}, filled on exit."""
-    tot = {"blocks": 0, "hits": 0}
-    calls = []
-    saved = ft_gemm.ft_gemm, grouped_gemm.ft_gemm_grouped
+    recompute's) by its plan, and every flash backward (`ops.flash_ft_bwd`,
+    K3 and K4) with a campaign key; on exit count the forward launches'
+    output blocks and the blocks whose SEU the triple draws, and the
+    backward's draws beside its reports' detections and corrections (the
+    draws and sums run after the step, on the host). Yields {"blocks",
+    "hits", "bwd_hits", "bwd_det", "bwd_corr"}, filled on exit."""
+    tot = {"blocks": 0, "hits": 0, "bwd_hits": 0, "bwd_det": 0.0,
+           "bwd_corr": 0.0}
+    calls, bwd = [], []
+    saved = (ft_gemm.ft_gemm, grouped_gemm.ft_gemm_grouped,
+             flashft.flash_ft_fwd, ops.flash_ft_bwd)
 
     def counted(ft, rng):
         return (ft_gemm.seu_armed(rng, ft)
@@ -3858,25 +4147,59 @@ def forward_blocks():
             calls.append(lambda: grouped_gemm.seu_tile_draws(*args)[0])
         return saved[1](buf, w, gid, row_end, **kw)
 
-    ft_gemm.ft_gemm, grouped_gemm.ft_gemm_grouped = gemm, grouped
+    def flash_fwd(q, k, v, **kw):
+        ft, rng = kw.get("ft"), kw.get("rng")
+        if counted(ft, rng):
+            args = (rng, ft, q.shape[0], q.shape[1], k.shape[1], q.shape[2])
+            causal = kw.get("causal", True)
+            calls.append(lambda: flashft.seu_fwd_draws(*args,
+                                                       causal=causal)[0])
+        return saved[2](q, k, v, **kw)
+
+    def flash_bwd(q, k, v, o, m, l, g, **kw):
+        res = saved[3](q, k, v, o, m, l, g, **kw)
+        ft = kw.get("ft", FT)
+        rng = flashft.encode_rng(kw.get("key"), ft)
+        if ft_gemm.seu_armed(rng, ft):
+            n_rep, causal = kw.get("n_rep", 1), kw.get("causal", True)
+            bh, sq, skv = q.shape[0], q.shape[1], k.shape[1]
+            dp = -(-q.shape[2] // 128) * 128     # the front's width
+            bwd.append((res[3], res[4], lambda: (
+                flashft.seu_dq_draws(rng, ft, bh, sq, skv, dp,
+                                     causal=causal)[0],
+                flashft.seu_dkv_draws(rng, ft, bh // n_rep, n_rep, sq, skv,
+                                      dp, causal=causal)[0])))
+        return res
+
+    (ft_gemm.ft_gemm, grouped_gemm.ft_gemm_grouped, flashft.flash_ft_fwd,
+     ops.flash_ft_bwd) = gemm, grouped, flash_fwd, flash_bwd
     try:
         yield tot
     finally:
-        ft_gemm.ft_gemm, grouped_gemm.ft_gemm_grouped = saved
+        (ft_gemm.ft_gemm, grouped_gemm.ft_gemm_grouped, flashft.flash_ft_fwd,
+         ops.flash_ft_bwd) = saved
         for draw in calls:
             h = draw()
             tot["blocks"] += h.numel()
             tot["hits"] += int(h.sum())
+        for rep_dq, rep_dkv, draw in bwd:
+            tot["bwd_hits"] += sum(int(h.sum()) for h in draw())
+            for r in (rep_dq, rep_dkv):
+                tot["bwd_det"] += float(r[..., 0].sum())
+                tot["bwd_corr"] += float(r[..., 1].sum())
 
 
 def _campaign_runs(cfg, rate, steps, smi, label, path_kernels,
-                   guard_allow=None):
+                   guard_allow=None, attn_impl="auto", bwd_seus=True):
     """The model ``cfg`` at full width under `make_train_step` (bf16, f32
-    AdamW, ``remat="full"``, chunked attention), ``steps`` steps from one
-    initialisation three times: clean, a campaign at ``rate`` on every step
-    (correct), the same campaign detect-only. Checks every campaign step
-    detects and corrects SEUs, one per SEU its forward blocks draw, within
-    a 5-sigma binomial band of rate x forward blocks; the losses and the
+    AdamW, ``remat="full"``, ``attn_impl`` attention: "auto" takes the flash
+    kernels), ``steps`` steps from one initialisation three times: clean, a
+    campaign at ``rate`` on every step (correct), the same campaign
+    detect-only. Checks every campaign step detects and corrects SEUs, one
+    per SEU its forward blocks draw, within a 5-sigma binomial band of rate
+    x forward blocks, and that the flash backward's reports detect (and,
+    correcting, correct) each SEU its K3 and K4 blocks draw (some over the
+    run when ``bwd_seus``); the losses and the
     parameters after step 1 (when ``steps`` > 1) within 1e-3 relative of
     the clean run, the detect-only losses at least 100x further off. The
     first step of each run runs under the dispatch guard and the last one
@@ -3885,7 +4208,7 @@ def _campaign_runs(cfg, rate, steps, smi, label, path_kernels,
     of ``path_kernels`` must launch in the campaign run; returns its launch
     counts (all counters set to 0 just before it)."""
     run = RunConfig(model=cfg, ft=FT, dtype="bfloat16", remat="full",
-                    attn_impl="chunked")
+                    attn_impl=attn_impl)
     tc = train_loop.TrainConfig(inject_every=1)
     opt_cfg = adamw.AdamWConfig(lr=run.learning_rate,
                                 weight_decay=run.weight_decay,
@@ -3920,8 +4243,8 @@ def _campaign_runs(cfg, rate, steps, smi, label, path_kernels,
             cfg, dataclasses.replace(run, ft=ft), opt_cfg, tc)
         key_of = (lambda i: None) if name == "clean" else \
             (lambda i: train_loop.inject_key(tc, i))
-        r = dict(loss=[], det=[], corr=[], blocks=[], hits=[], step_ms=[],
-                 profile=None)
+        r = dict(loss=[], det=[], corr=[], blocks=[], hits=[], bwd_hits=[],
+                 bwd_det=[], bwd_corr=[], step_ms=[], profile=None)
         guard = LibraryCallGuard(allow=guard_allow)
         for k in KERNELS.values():
             k["counter"].launches = 0
@@ -3949,6 +4272,8 @@ def _campaign_runs(cfg, rate, steps, smi, label, path_kernels,
             r["corr"].append(float(metrics["ft"].corrected))
             r["blocks"].append(fb["blocks"])
             r["hits"].append(fb["hits"])
+            for f in ("bwd_hits", "bwd_det", "bwd_corr"):
+                r[f].append(fb[f])
             if steps > 1 and i == after:
                 r["after"] = {n: p.detach().to("cpu", copy=True)
                               for n, p in params.named_parameters()} \
@@ -3967,7 +4292,9 @@ def _campaign_runs(cfg, rate, steps, smi, label, path_kernels,
         results[name] = r
         print(f"  {label} {name}: losses {r['loss']}, detected {r['det']}, "
               f"corrected {r['corr']}, forward blocks {r['blocks']}, SEUs "
-              f"drawn in the forward {r['hits']}, step ms "
+              f"drawn in the forward {r['hits']}, flash backward: SEUs "
+              f"drawn {r['bwd_hits']}, detected {r['bwd_det']}, corrected "
+              f"{r['bwd_corr']}, step ms "
               f"{[round(x, 1) for x in r['step_ms']]} (the first guarded, "
               f"the last profiled), profile {r['profile']}")
     del opt, init
@@ -3983,6 +4310,20 @@ def _campaign_runs(cfg, rate, steps, smi, label, path_kernels,
               f"{label} step {i}: detected == corrected == {n_h:.0f} SEUs "
               f"drawn, within 5 sigma ({5 * sd:.1f}) of {rate} x {n_b} "
               f"forward blocks ({rate * n_b:.1f})")
+        b_h, b_d, b_c = (hot[f][i] for f in ("bwd_hits", "bwd_det",
+                                               "bwd_corr"))
+        d_h, d_d, d_c = (left[f][i] for f in ("bwd_hits", "bwd_det",
+                                                "bwd_corr"))
+        check(b_d == b_c == b_h and d_d == d_h and d_c == 0,
+              f"{label} step {i}: the flash backward's K3 and K4 detected and "
+              f"corrected each of the {b_h} SEUs they drew (detect-only: "
+              f"{d_d:.0f} of {d_h} detected, none corrected)")
+    n_bwd = sum(hot["bwd_hits"])
+    if attn_impl == "chunked":
+        check(n_bwd == 0, f"{label}: no flash backward ran")
+    elif bwd_seus:
+        check(n_bwd > 0, f"{label}: the flash backward drew {n_bwd} SEUs over "
+              f"the run")
     off = [abs(h - c) / abs(c) for h, c in zip(hot["loss"], clean["loss"])]
     off_d = [abs(h - c) / abs(c) for h, c in zip(left["loss"],
                                                  clean["loss"])]
@@ -4010,18 +4351,30 @@ def _campaign_runs(cfg, rate, steps, smi, label, path_kernels,
     return launched
 
 
+#: The flash family's kernels on a bf16 training path (tensor cores).
+FLASH_TRAIN_KERNELS = ("flash_ft_sm90", "flash_dq_sm90", "flash_dkv_sm90")
+
+
 def phase_campaign_train(smi: str):
     return _campaign_runs(phi4_mini_38b.CONFIG, CAMPAIGN_RATE, TRAIN_STEPS,
                           smi, "campaign_train",
-                          ("ft_gemm_sm90", "ft_gemm_batched"))
+                          ("ft_gemm_sm90",) + FLASH_TRAIN_KERNELS)
+
+
+def phase_campaign_train_chunked(smi: str):
+    return _campaign_runs(phi4_mini_38b.CONFIG, CAMPAIGN_RATE, TRAIN_STEPS,
+                          smi, "campaign_train_chunked",
+                          ("ft_gemm_sm90", "ft_gemm_batched"),
+                          attn_impl="chunked")
 
 
 def phase_moe_campaign(smi: str):
     cfg = dataclasses.replace(MOE, n_layers=MOE_TRAIN_LAYERS)
     return _campaign_runs(cfg, MOE_CAMPAIGN_RATE, 2, smi, "moe_campaign",
-                          ("ft_gemm_sm90", "ft_gemm_batched",
-                           "ft_gemm_grouped_sm90", "tgmm_sm90"),
-                          guard_allow=router_product(cfg.moe.n_experts))
+                          ("ft_gemm_sm90", "ft_gemm_grouped_sm90",
+                           "tgmm_sm90") + FLASH_TRAIN_KERNELS,
+                          guard_allow=router_product(cfg.moe.n_experts),
+                          bwd_seus=False)
 
 
 def _merge_rows(rows, more):
@@ -4043,7 +4396,8 @@ def main() -> int:
                     "level_kernels,level_check,level_serve,ladder,"
                     "decode_kernels,engine_check,engine,train_kernels,"
                     "train_check,train,moe_kernels,moe_check,moe_engine,"
-                    "moe_train,campaign_kernels,campaign_train,moe_campaign")
+                    "moe_train,campaign_kernels,campaign_train,"
+                    "campaign_train_chunked,moe_campaign")
     ap.add_argument("--layers", type=int, default=qwen2_7b.CONFIG.n_layers,
                     help="serve and level_serve depth (the width is always "
                          "full)")
@@ -4105,6 +4459,9 @@ def main() -> int:
                 phase_campaign_kernels()
             elif phase == "campaign_train":
                 by_path["campaign_train"] = phase_campaign_train(smi)
+            elif phase == "campaign_train_chunked":
+                by_path["campaign_train_chunked"] = \
+                    phase_campaign_train_chunked(smi)
             elif phase == "moe_campaign":
                 by_path["moe_campaign"] = phase_moe_campaign(smi)
             else:

@@ -11,9 +11,10 @@ compute-unit SDC would land.
     state: a recompute (remat) derives the same keys and draws the same
     SEUs, and the in-kernel triple (`kernels.flashft.encode_rng`) stays
     three host ints;
-  * `check_campaign` — the flash fronts' guard: their kernels carry no
-    stochastic hook yet (`kernels.flashft.SUPPORTS_STOCHASTIC_INJECTION`),
-    so a campaign there raises instead of running clean.
+  * `check_campaign` — the flash fronts' guard: a campaign raises there
+    only if the flash kernels carry no stochastic hook
+    (`kernels.flashft.SUPPORTS_STOCHASTIC_INJECTION`, True in this build),
+    instead of running clean.
 """
 from __future__ import annotations
 
@@ -109,9 +110,10 @@ def inject(ft: FTConfig, spec: Optional[InjectionSpec], key,
 
 def check_campaign(ft: FTConfig, key) -> None:
     """Raise on a stochastic campaign (``ft.inject_rate > 0`` with a key)
-    at a flash front: the flash kernels carry no stochastic hook yet, and
-    a campaign must never run clean in silence. `attn_impl="chunked"`
-    routes attention through the batched GEMM kernel, which has one."""
+    at a flash front when the flash kernels carry no stochastic hook
+    (`kernels.flashft.SUPPORTS_STOCHASTIC_INJECTION` False): a campaign
+    must never run clean in silence. `attn_impl="chunked"` routes attention
+    through the batched GEMM kernel, which has one."""
     from ..kernels import flashft
     if (key is not None and ft.inject_rate > 0.0
             and not flashft.SUPPORTS_STOCHASTIC_INJECTION):

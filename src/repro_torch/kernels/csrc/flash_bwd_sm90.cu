@@ -81,6 +81,16 @@
 //     and merges the reports with abft::merge (tau and k from the last
 //     range that verified). No atomics, so sums and "the last detection"
 //     do not depend on timing.
+// Stochastic SEU campaigns (seu_hook.cuh, salts 0x52 and 0x53 reduced on
+// the host) run in their own instances (SEU = true), so a clean call runs
+// the code it ran before the hook: K3 draws each q block's SEU by its uid
+// h·nqb + qi over its live kv steps and lands it in that step's dQ delta
+// (warpgroup 1); K4 draws each kv block's SEU by its uid b·nkvb + kvi over
+// its whole walk, every range the same draw, and the range whose steps
+// hold the drawn one lands it in that step's dV delta (warpgroup 0); both
+// after the two products of hi and lo and the deterministic SEU, before
+// the verification (the reference's flashft.py:519-521, :555-556 and
+// :609-616, :655-656).
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -116,6 +126,7 @@ struct BwdArgs {
   float tau_dh;        // round_up(dh, 128), the k field of the dP record
   int inj_enable, inj_target, inj_bh, inj_blk, inj_step, inj_row, inj_col;
   float inj_mag;
+  seu::Args seu;       // the stochastic hook's campaign
 };
 
 // The deterministic SEU, when this step and this product are its target.
@@ -227,7 +238,8 @@ constexpr int dq_smem_bytes() {
 // and P, and hands P to warpgroup 1 through shared memory; warpgroup 1
 // computes dP = g·Vᵀ, dS, the delta dS·K and keeps dQ in registers. Each
 // keeps its own report; the two are merged at the end in the reference's
-// order (S, dP, the delta a step).
+// order (S, dP, the delta a step). SEU: the instance of campaigns.
+template <bool SEU>
 __global__ void __launch_bounds__(kBwdThreads, 1)
 flash_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                      const __grid_constant__ CUtensorMap tk,
@@ -307,6 +319,9 @@ flash_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
   for (int i = 0; i < 64; ++i) dq[i] = 0.0f;
   const bool hit_blk = g.inj_enable && h == g.inj_bh && qi == g.inj_blk;
+  const seu::Hit sh =
+      SEU ? seu::draw(g.seu, (uint32_t)(h * g.nqb + qi), nsteps, kB, kDh)
+          : seu::Hit{false, 0, 0, 0};
 
   for (int it = 0; it < nsteps; ++it) {
     const int slot = it % kRing, kv_start = it * kB;
@@ -385,6 +400,8 @@ flash_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       wgmma_wait<0>();
       fence_frag(dl);
       inject<kDh>(dl, g, hit, kDQ, t);
+      if (SEU && sh.hit && it == sh.step)
+        frag_seu<kDh>(dl, sh.row, sh.col, g.seu.shift, t);
       const float eff_kv = (float)min(g.skv - kv_start, kB);
       const Verdict vd = verify_frag<kDh>(
           dl, w.ck_col, w.ck_row, g.tau_coef * eff_kv * dsm * mx.y, eff_kv,
@@ -450,6 +467,8 @@ __device__ __forceinline__ void dkv_walk(const BwdArgs& g, int kv_start,
 // warpgroup 0 through shared memory) and the dK delta dSᵀ·Q. Each keeps
 // its gradient in registers and its own report; the two are merged at the
 // end in the order the reference records them (S, dP, dV, dK a step).
+// SEU: the instance of campaigns.
+template <bool SEU>
 __global__ void __launch_bounds__(kBwdThreads, 1)
 flash_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                       const __grid_constant__ CUtensorMap tk,
@@ -546,6 +565,9 @@ flash_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   float acc[64];   // dV (wg 0) or dK (wg 1)
 #pragma unroll
   for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+  const seu::Hit sh =
+      SEU ? seu::draw(g.seu, (uint32_t)(b * g.nkvb + kvi), walk, kB, kDh)
+          : seu::Hit{false, 0, 0, 0};
 
   for (int it = 0; it < nsteps; ++it) {
     const int wk = w_lo + it, hq = b * g.n_rep + wk / nql, qi = qi_lo + wk % nql;
@@ -633,6 +655,8 @@ flash_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     wgmma_wait<0>();
     fence_frag(dl);
     inject<kDh>(dl, g, hit, wg ? kDK : kDV, t);
+    if (SEU && wg == 0 && sh.hit && wk == sh.step)
+      frag_seu<kDh>(dl, sh.row, sh.col, g.seu.shift, t);
     const float eff_q = (float)max(min(g.sq - q_start, kB), 1);
     const Verdict vd = verify_frag<kDh>(
         dl, w.ck_col, w.ck_row, g.tau_coef * eff_q * xmax * mx.y, eff_q,
@@ -744,7 +768,7 @@ bool make_maps(CUtensorMap* m, const void* q, const void* k, const void* v,
 BwdArgs make_args(const float* m, const float* l, const float* di, float* rep,
                   int bh, int sq, int skv, int n_rep, int causal, int corrects,
                   float scale, float tau_qk_coef, float tau_coef, float tau_dh,
-                  const int* inj, float inj_mag) {
+                  const int* inj, float inj_mag, const seu::Args& sa) {
   BwdArgs g{};
   g.m = m; g.l = l; g.di = di; g.rep = rep;
   g.bh = bh; g.sq = sq; g.skv = skv; g.n_rep = n_rep;
@@ -754,7 +778,33 @@ BwdArgs make_args(const float* m, const float* l, const float* di, float* rep,
   g.inj_enable = inj[0]; g.inj_target = inj[1]; g.inj_bh = inj[2];
   g.inj_blk = inj[3]; g.inj_step = inj[4]; g.inj_row = inj[5];
   g.inj_col = inj[6]; g.inj_mag = inj_mag;
+  g.seu = sa;
   return g;
+}
+
+template <bool SEU>
+cudaError_t launch_dq(const CUtensorMap* maps, const BwdArgs& g,
+                      cudaStream_t st) {
+  static bool ready = false;
+  const cudaError_t e = set_smem((const void*)flash_dq_sm90_kernel<SEU>,
+                                 dq_smem_bytes(), ready);
+  if (e != cudaSuccess) return e;
+  flash_dq_sm90_kernel<SEU><<<dim3(g.bh, g.nqb), kBwdThreads, dq_smem_bytes(),
+                              st>>>(maps[0], maps[1], maps[2], maps[3], g);
+  return cudaGetLastError();
+}
+
+template <bool SEU>
+cudaError_t launch_dkv(const CUtensorMap* maps, const BwdArgs& g,
+                       cudaStream_t st) {
+  static bool ready = false;
+  const cudaError_t e = set_smem((const void*)flash_dkv_sm90_kernel<SEU>,
+                                 dkv_smem_bytes(), ready);
+  if (e != cudaSuccess) return e;
+  flash_dkv_sm90_kernel<SEU><<<dim3(g.ranges, g.bh / g.n_rep, g.nkvb),
+                               kBwdThreads, dkv_smem_bytes(), st>>>(
+      maps[0], maps[1], maps[2], maps[3], g);
+  return cudaGetLastError();
 }
 
 bool bad_call(int bh, int sq, int skv, int dh, int n_rep, int dtype) {
@@ -774,7 +824,8 @@ const char* flash_bwd_sm90_error_string(int code) {
 // signature: q, g, dq (bh, sq, 128) and k, v (bh / n_rep, skv, 128) bf16
 // (dtype 1), 16-byte aligned; m, l, di (bh, sq) f32; report (bh,
 // ceil(sq / 64), 8); all contiguous. inj: [enable, target, bh, q block, kv
-// step, row, col]. Returns the launch's cudaError_t.
+// step, row, col]; seu_*: the stochastic hook's campaign (seu_hook.cuh; on
+// picks the campaign instance). Returns the launch's cudaError_t.
 int flash_dq_sm90_launch(const void* q, const void* k, const void* v,
                          const void* gr, const float* m, const float* l,
                          const float* di, void* dq, float* rep, int bh, int sq,
@@ -783,25 +834,21 @@ int flash_dq_sm90_launch(const void* q, const void* k, const void* v,
                          float tau_coef, float tau_dh, int inj_enable,
                          int inj_target, int inj_bh, int inj_blk, int inj_step,
                          int inj_row, int inj_col, float inj_mag,
-                         void* stream) {
+                         int seu_on, unsigned seu_seed, float seu_rate,
+                         int seu_shift, void* stream) {
   if (bad_call(bh, sq, skv, dh, n_rep, dtype)) return cudaErrorInvalidValue;
   const int inj[7] = {inj_enable, inj_target, inj_bh, inj_blk, inj_step,
                       inj_row, inj_col};
   BwdArgs g = make_args(m, l, di, rep, bh, sq, skv, n_rep, causal, corrects,
-                        scale, tau_qk_coef, tau_coef, tau_dh, inj, inj_mag);
+                        scale, tau_qk_coef, tau_coef, tau_dh, inj, inj_mag,
+                        seu::Args{seu_on, seu_seed, seu_rate, seu_shift});
   g.dq = static_cast<__nv_bfloat16*>(dq);
   if (g.nqb > 65535) return cudaErrorInvalidConfiguration;
   CUtensorMap maps[4];
   if (!make_maps(maps, q, k, v, gr, bh, sq, skv, n_rep))
     return cudaErrorInvalidValue;
-  static bool ready = false;
-  const cudaError_t e = set_smem((const void*)flash_dq_sm90_kernel,
-                                 dq_smem_bytes(), ready);
-  if (e != cudaSuccess) return e;
-  flash_dq_sm90_kernel<<<dim3(bh, g.nqb), kBwdThreads, dq_smem_bytes(),
-                         static_cast<cudaStream_t>(stream)>>>(
-      maps[0], maps[1], maps[2], maps[3], g);
-  return cudaGetLastError();
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return seu_on ? launch_dq<true>(maps, g, st) : launch_dq<false>(maps, g, st);
 }
 
 // K4 on the tensor cores: as flash_dq_sm90_launch, with dk, dv (bh /
@@ -810,7 +857,8 @@ int flash_dq_sm90_launch(const void* q, const void* k, const void* v,
 // f32 of ranges·(bh / n_rep)·ceil(skv / 64)·(2·64·128 + 8) elements; the
 // kernel writes the partials and range reports there and
 // flash_dkv_sm90_reduce_launch finishes dk, dv and the report. inj:
-// [enable, target, query head, kv block, q block, row, col].
+// [enable, target, query head, kv block, q block, row, col]; seu_* as
+// flash_dq_sm90_launch's.
 int flash_dkv_sm90_launch(const void* q, const void* k, const void* v,
                           const void* gr, const float* m, const float* l,
                           const float* di, void* dk, void* dv, float* rep,
@@ -820,14 +868,16 @@ int flash_dkv_sm90_launch(const void* q, const void* k, const void* v,
                           float tau_coef, float tau_dh, int inj_enable,
                           int inj_target, int inj_bh, int inj_blk,
                           int inj_step, int inj_row, int inj_col,
-                          float inj_mag, void* stream) {
+                          float inj_mag, int seu_on, unsigned seu_seed,
+                          float seu_rate, int seu_shift, void* stream) {
   if (bad_call(bh, sq, skv, dh, n_rep, dtype) || ranges <= 0 ||
       (ranges > 1 && ws == nullptr))
     return cudaErrorInvalidValue;
   const int inj[7] = {inj_enable, inj_target, inj_bh, inj_blk, inj_step,
                       inj_row, inj_col};
   BwdArgs g = make_args(m, l, di, rep, bh, sq, skv, n_rep, causal, corrects,
-                        scale, tau_qk_coef, tau_coef, tau_dh, inj, inj_mag);
+                        scale, tau_qk_coef, tau_coef, tau_dh, inj, inj_mag,
+                        seu::Args{seu_on, seu_seed, seu_rate, seu_shift});
   g.dk = static_cast<__nv_bfloat16*>(dk);
   g.dv = static_cast<__nv_bfloat16*>(dv);
   g.ws = ws;
@@ -836,15 +886,9 @@ int flash_dkv_sm90_launch(const void* q, const void* k, const void* v,
   CUtensorMap maps[4];
   if (!make_maps(maps, q, k, v, gr, bh, sq, skv, n_rep))
     return cudaErrorInvalidValue;
-  static bool ready = false;
-  const cudaError_t e = set_smem((const void*)flash_dkv_sm90_kernel,
-                                 dkv_smem_bytes(), ready);
-  if (e != cudaSuccess) return e;
-  flash_dkv_sm90_kernel<<<dim3(ranges, bh / n_rep, g.nkvb), kBwdThreads,
-                          dkv_smem_bytes(),
-                          static_cast<cudaStream_t>(stream)>>>(
-      maps[0], maps[1], maps[2], maps[3], g);
-  return cudaGetLastError();
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return seu_on ? launch_dkv<true>(maps, g, st)
+                : launch_dkv<false>(maps, g, st);
 }
 
 // K4's range reduce (ranges > 1): ws as flash_dkv_sm90_launch left it;

@@ -25,6 +25,12 @@
 //   * the output accumulator stays in registers, f32.
 // Flush: acc / l, rows with m degenerate or l = 0 as exact zeros; a slot of
 // length 0 runs no step and writes zeros and a zero report row.
+// Stochastic SEU campaigns (seu_hook.cuh, salt 0x54 reduced on the host):
+// each CTA draws its row's SEU by its uid slot·kvh + head over its live
+// pages and lands it in that page's Δ after the deterministic SEU (the
+// reference's flashft.py:310-315, :365-366). Campaigns run in their own
+// instances (SEU = true), so a clean call runs the code it ran before the
+// hook.
 // What bounds it on the H100: bytes -- each live page of K and V is read
 // once (2·PAGE·dh elements per step) for only 4·bq·PAGE·dh flops, far below
 // the card's operations-per-byte balance. This first version does one page
@@ -32,6 +38,7 @@
 // products on the CUDA cores in f32; split-KV across CTAs and a cp.async /
 // TMA page pipeline are the later steps. PERF.md carries its times.
 #include "abft_block.cuh"
+#include "seu_hook.cuh"
 
 namespace {
 
@@ -54,6 +61,7 @@ struct DecodeArgs {
   float tau_coef;      // rel_tau * eps32
   int inj_enable, inj_g, inj_qi, inj_s, inj_row, inj_col;
   float inj_mag;
+  seu::Args seu;       // the stochastic hook's campaign
 };
 
 template <int DH, int PAGE>
@@ -62,7 +70,7 @@ constexpr int smem_floats() {
          kMaxBq * (DH + 1) + 3 * DH + kMaxBq + 2 * PAGE + 3 * kMaxBq;
 }
 
-template <typename T, int DH, int PAGE>
+template <typename T, int DH, int PAGE, bool SEU>
 __global__ void __launch_bounds__(kThreads)
     flash_decode_kernel(const DecodeArgs g) {
   static_assert(kThreads % DH == 0 && kThreads % PAGE == 0 && PAGE <= DH, "");
@@ -116,6 +124,8 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int e = 0; e < E; ++e) acc[e] = 0.0f;
   float rep[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+  const seu::Hit sh = SEU ? seu::draw(g.seu, (uint32_t)gi, steps, bq, DH)
+                          : seu::Hit{false, 0, 0, 0};
 
   for (int s = 0; s < steps; ++s) {
     const int kv_start = s * PAGE;
@@ -218,6 +228,12 @@ __global__ void __launch_bounds__(kThreads)
       for (int e = 0; e < E; ++e)
         if (i0 + CROWS * e == g.inj_row) dr[e] += g.inj_mag;
     }
+    if (SEU && sh.hit && s == sh.step && sh.col == c0) {
+#pragma unroll
+      for (int e = 0; e < E; ++e)
+        if (i0 + CROWS * e == sh.row)
+          dr[e] += seu::magnitude(dr[e], g.seu.shift);
+    }
 #pragma unroll
     for (int e = 0; e < E; ++e) {
       const int i = i0 + CROWS * e;
@@ -267,19 +283,27 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int DH, int PAGE>
-cudaError_t launch(const DecodeArgs& g, int grid, cudaStream_t stream) {
+template <typename T, int DH, int PAGE, bool SEU>
+cudaError_t launch_instance(const DecodeArgs& g, int grid,
+                            cudaStream_t stream) {
   constexpr int bytes = smem_floats<DH, PAGE>() * (int)sizeof(float);
   static bool configured = false;
   if (!configured) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_decode_kernel<T, DH, PAGE>,
+        flash_decode_kernel<T, DH, PAGE, SEU>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (e != cudaSuccess) return e;
     configured = true;
   }
-  flash_decode_kernel<T, DH, PAGE><<<grid, kThreads, bytes, stream>>>(g);
+  flash_decode_kernel<T, DH, PAGE, SEU><<<grid, kThreads, bytes, stream>>>(g);
   return cudaGetLastError();
+}
+
+// The campaign instance when a campaign is armed, else the clean one.
+template <typename T, int DH, int PAGE>
+cudaError_t launch(const DecodeArgs& g, int grid, cudaStream_t stream) {
+  return g.seu.on ? launch_instance<T, DH, PAGE, true>(g, grid, stream)
+                  : launch_instance<T, DH, PAGE, false>(g, grid, stream);
 }
 
 template <typename T, int DH>
@@ -302,7 +326,8 @@ const char* flash_decode_error_string(int code) {
 // q (n_slots·kvh, bq, dh); k, v (n_pages, kvh, page, dh); lengths (n_slots)
 // and table (n_slots, max_pages) int32; out like q; report (n_slots·kvh, 8)
 // f32: all contiguous. dtype: 0 f32, 1 bf16; dh 128 or 256; page 16, 32 or
-// 64; 1 <= bq <= 32. Returns the launch's cudaError_t.
+// 64; 1 <= bq <= 32. seu_*: the stochastic hook's campaign
+// (seu_hook.cuh). Returns the launch's cudaError_t.
 int flash_decode_launch(const void* q, const void* k, const void* v,
                         const int* lengths, const int* table, void* out,
                         float* rep, int n_slots, int kvh, int bq, int dh,
@@ -310,7 +335,8 @@ int flash_decode_launch(const void* q, const void* k, const void* v,
                         int corrects, float scale, float tau_qk_coef,
                         float tau_coef, int inj_enable, int inj_g, int inj_qi,
                         int inj_s, int inj_row, int inj_col, float inj_mag,
-                        void* stream) {
+                        int seu_on, unsigned seu_seed, float seu_rate,
+                        int seu_shift, void* stream) {
   if (n_slots <= 0 || kvh <= 0 || bq <= 0 || bq > kMaxBq || max_pages <= 0 ||
       n_pages <= 0 || (long long)n_slots * kvh > 0x7fffffffLL)
     return cudaErrorInvalidValue;
@@ -323,6 +349,7 @@ int flash_decode_launch(const void* q, const void* k, const void* v,
   g.inj_enable = inj_enable; g.inj_g = inj_g; g.inj_qi = inj_qi;
   g.inj_s = inj_s; g.inj_row = inj_row; g.inj_col = inj_col;
   g.inj_mag = inj_mag;
+  g.seu = seu::Args{seu_on, seu_seed, seu_rate, seu_shift};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int grid = n_slots * kvh;
   if (dtype == 0 && dh == 128) return launch_page<float, 128>(g, page, grid, st);

@@ -62,6 +62,16 @@
 //     accumulator fragments with warp shuffles, warp 0 locates the first
 //     argmax and records with abft::record, and the thread holding the
 //     element corrects it in its registers.
+// Stochastic SEU campaigns (seu_hook.cuh, salt 0x54 reduced on the host)
+// run in their own instances (SEU = true), so a clean call runs the code it
+// ran before the hook: every range's CTA of a (slot, kv head) row draws the
+// row's SEU by its uid slot·kvh + head over the row's live pages, and the
+// range holding the drawn page scales the element of that page's Δ in the
+// lane that holds it, after both products (hi and lo) and the
+// deterministic SEU, before the verification (the reference's
+// flashft.py:310-315, :365-366); the combine counts it once. Its P is taken
+// against the range's running max, so under ranges the SEU's δ (and its
+// magnitude) is the range's.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -92,6 +102,7 @@ struct DecArgs {
   float tau_coef;           // rel_tau * eps32
   int inj_enable, inj_g, inj_qi, inj_s, inj_row, inj_col;
   float inj_mag;
+  seu::Args seu;            // the stochastic hook's campaign
 };
 
 template <int PAGE>
@@ -141,7 +152,8 @@ __device__ __forceinline__ void load_page(DecSmem<PAGE>& sc, int st,
   }
 }
 
-template <int PAGE>
+// SEU: the instance of campaigns.
+template <int PAGE, bool SEU>
 __global__ void __launch_bounds__(kThr)
 flash_decode_sm90_kernel(const DecArgs g) {
   constexpr int NTS = PAGE / 32;     // S n-tiles (8 kv columns) per warp
@@ -218,6 +230,8 @@ flash_decode_sm90_kernel(const DecArgs g) {
 #pragma unroll
     for (int r = 0; r < 4; ++r) acc[t][r] = 0.0f;
   const bool hit_row = g.inj_enable && gi == g.inj_g && g.inj_qi == 0;
+  const seu::Hit sh = SEU ? seu::draw(g.seu, (uint32_t)gi, live, kBq, kDh)
+                          : seu::Hit{false, 0, 0, 0};
 
   for (int it = 0; it < n; ++it) {
     const int s = s_lo + it, st = it % kPageRing, kv_start = s * PAGE;
@@ -436,6 +450,8 @@ flash_decode_sm90_kernel(const DecArgs g) {
     }
     if (hit && g.inj_enable == 1)
       frag16_add<4>(da, g.inj_row, g.inj_col - 32 * warp, g.inj_mag, lane);
+    if (SEU && sh.hit && s == sh.step)
+      frag16_seu<4>(da, sh.row, sh.col - 32 * warp, g.seu.shift, lane);
     __syncwarp();   // this warp's columns of ckd come from its own lanes
     frag16_sums<4>(da, sc.ckd, sc.dcol, sc.rowp, 32 * warp, warp, lane);
     __syncthreads();
@@ -532,19 +548,26 @@ flash_decode_combine(const float* ws, __nv_bfloat16* out, float* rep,
     out[((long long)gi * kBq + i) * kDh + tid] = __float2bfloat16(a[i] * linv[i]);
 }
 
-template <int PAGE>
+template <int PAGE, bool SEU>
 cudaError_t launch(const DecArgs& g, int rows, cudaStream_t st) {
   constexpr int bytes = (int)sizeof(DecSmem<PAGE>);
   static bool ready = false;
   if (!ready) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_decode_sm90_kernel<PAGE>,
+        flash_decode_sm90_kernel<PAGE, SEU>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (e != cudaSuccess) return e;
     ready = true;
   }
-  flash_decode_sm90_kernel<PAGE><<<dim3(rows, g.ranges), kThr, bytes, st>>>(g);
+  flash_decode_sm90_kernel<PAGE, SEU>
+      <<<dim3(rows, g.ranges), kThr, bytes, st>>>(g);
   return cudaGetLastError();
+}
+
+template <int PAGE>
+cudaError_t launch_page(const DecArgs& g, int rows, cudaStream_t st) {
+  return g.seu.on ? launch<PAGE, true>(g, rows, st)
+                  : launch<PAGE, false>(g, rows, st);
 }
 
 }  // namespace
@@ -561,8 +584,9 @@ const char* flash_decode_sm90_error_string(int code) {
 // bf16 (dtype 1), 16-byte aligned; lengths (n_slots) and table (n_slots,
 // max_pages) int32; ws f32 of n_slots·kvh·ranges·(16·128 + 40) elements;
 // all contiguous. page 32 or 64. inj: [enable (1 Δ, 2 S), g, 0, kv step,
-// row, col]. flash_decode_combine_launch then writes out and the report.
-// Returns the launch's cudaError_t.
+// row, col]; seu_*: the stochastic hook's campaign (seu_hook.cuh; on picks
+// the campaign instance). flash_decode_combine_launch then writes out and
+// the report. Returns the launch's cudaError_t.
 int flash_decode_sm90_launch(const void* q, const void* k, const void* v,
                              const int* lengths, const int* table, float* ws,
                              int ranges, int n_slots, int kvh, int bq, int dh,
@@ -570,7 +594,8 @@ int flash_decode_sm90_launch(const void* q, const void* k, const void* v,
                              int corrects, float scale, float tau_qk_coef,
                              float tau_coef, int inj_enable, int inj_g,
                              int inj_qi, int inj_s, int inj_row, int inj_col,
-                             float inj_mag, void* stream) {
+                             float inj_mag, int seu_on, unsigned seu_seed,
+                             float seu_rate, int seu_shift, void* stream) {
   if (n_slots <= 0 || kvh <= 0 || bq != kBq || dh != kDh || dtype != 1 ||
       max_pages <= 0 || n_pages <= 0 || ranges <= 0 || ranges > 65535 ||
       (long long)n_slots * kvh > 0x7fffffffLL)
@@ -586,10 +611,11 @@ int flash_decode_sm90_launch(const void* q, const void* k, const void* v,
   g.inj_enable = inj_enable; g.inj_g = inj_g; g.inj_qi = inj_qi;
   g.inj_s = inj_s; g.inj_row = inj_row; g.inj_col = inj_col;
   g.inj_mag = inj_mag;
+  g.seu = seu::Args{seu_on, seu_seed, seu_rate, seu_shift};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int rows = n_slots * kvh;
-  if (page == 32) return launch<32>(g, rows, st);
-  if (page == 64) return launch<64>(g, rows, st);
+  if (page == 32) return launch_page<32>(g, rows, st);
+  if (page == 64) return launch_page<64>(g, rows, st);
   return cudaErrorInvalidValue;
 }
 

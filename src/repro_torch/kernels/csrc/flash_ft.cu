@@ -24,11 +24,18 @@
 //     kernels (flash_ft_bwd.cu) consume.
 // Dead kv blocks (past the true Skv, or above the causal diagonal) are
 // skipped. GQA reads kv head bh / n_rep; K and V are never repeated.
+// Stochastic SEU campaigns (seu_hook.cuh, salt 0x51 reduced on the host):
+// each CTA draws its block's SEU by its uid bh·nqb + qi over its live kv
+// steps, and the hit lands in that step's Δ after the deterministic SEU
+// and before its verification (the reference's flashft.py:159-161,
+// :223-224). Campaigns run in their own instances (SEU = true), so a
+// clean call runs the code it ran before the hook.
 // What bounds it on the H100: at the prefill shapes it is bound by
 // operations (4·Sq·Skv·dh per head, halved by the causal skip); this first
 // version runs both products on the CUDA cores in f32, with one CTA per SM
 // because of the shared-memory footprint. PERF.md carries its times.
 #include "abft_block.cuh"
+#include "seu_hook.cuh"
 
 namespace {
 
@@ -51,6 +58,7 @@ struct FlashArgs {
   float tau_coef;      // rel_tau * eps32
   int inj_enable, inj_bh, inj_qb, inj_s, inj_row, inj_col;
   float inj_mag;
+  seu::Args seu;       // the stochastic hook's campaign
 };
 
 template <int DH>
@@ -59,7 +67,7 @@ constexpr int smem_floats() {
          2 * DH + DH + BQ + 2 * BKV + 3 * BQ;
 }
 
-template <typename T, int DH>
+template <typename T, int DH, bool SEU>
 __global__ void __launch_bounds__(kThreads) flash_ft_kernel(const FlashArgs g) {
   static_assert(DH >= BKV && DH % 16 == 0, "");
   constexpr int CW = DH / 16;             // output columns per thread
@@ -112,6 +120,13 @@ __global__ void __launch_bounds__(kThreads) flash_ft_kernel(const FlashArgs g) {
     for (int c = 0; c < CW; ++c) o[i][c] = 0.0f;
   float rep[8] = {0, 0, 0, 0, 0, 0, 0, 0};
   const int nkv = (skv + BKV - 1) / BKV;
+  // This block's SEU, over its live kv steps (the kv edge and the causal
+  // bound): the steps the loop below runs.
+  const int kv_hi = g.causal ? min(skv, q_start + BQ + c_off) : skv;
+  const seu::Hit sh =
+      SEU ? seu::draw(g.seu, (uint32_t)(bh * g.nqb + qi),
+                      kv_hi > 0 ? (kv_hi + BKV - 1) / BKV : 0, BQ, DH)
+          : seu::Hit{false, 0, 0, 0};
 
   for (int s = 0; s < nkv; ++s) {
     const int kv_start = s * BKV;
@@ -226,6 +241,16 @@ __global__ void __launch_bounds__(kThreads) flash_ft_kernel(const FlashArgs g) {
       if (r >= 0 && r < BQ && c >= 0 && c < DH && r / 4 == ty && c % 16 == tx)
         dr[r % 4][c / 16] += g.inj_mag;
     }
+    // The stochastic SEU of this block, at its drawn step.
+    if (SEU && sh.hit && s == sh.step && sh.row / 4 == ty &&
+        sh.col % 16 == tx) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int c = 0; c < CW; ++c)
+          if (i == sh.row % 4 && c == sh.col / 16)
+            dr[i][c] += seu::magnitude(dr[i][c], g.seu.shift);
+    }
     // ---- ABFT on the PV product, before the alpha-rescale --------------
     col_sums<BKV>(Ss, BQ, BKV + 1, vs.part, psum);
     row_sums(Vs, BKV, DH, DH, vsum);
@@ -288,21 +313,28 @@ __global__ void __launch_bounds__(kThreads) flash_ft_kernel(const FlashArgs g) {
   }
 }
 
-template <typename T, int DH>
-cudaError_t launch(const FlashArgs& g, int bh, cudaStream_t stream) {
+template <typename T, int DH, bool SEU>
+cudaError_t launch_instance(const FlashArgs& g, int bh, cudaStream_t stream) {
   constexpr int bytes = smem_floats<DH>() * (int)sizeof(float);
   static bool configured = false;
   if (!configured) {
     const cudaError_t e = cudaFuncSetAttribute(
-        flash_ft_kernel<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        bytes);
+        flash_ft_kernel<T, DH, SEU>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (e != cudaSuccess) return e;
     configured = true;
   }
   if (bh > 65535) return cudaErrorInvalidConfiguration;
   dim3 grid(g.nqb, bh);
-  flash_ft_kernel<T, DH><<<grid, kThreads, bytes, stream>>>(g);
+  flash_ft_kernel<T, DH, SEU><<<grid, kThreads, bytes, stream>>>(g);
   return cudaGetLastError();
+}
+
+// The campaign instance when a campaign is armed, else the clean one.
+template <typename T, int DH>
+cudaError_t launch(const FlashArgs& g, int bh, cudaStream_t stream) {
+  return g.seu.on ? launch_instance<T, DH, true>(g, bh, stream)
+                  : launch_instance<T, DH, false>(g, bh, stream);
 }
 
 }  // namespace
@@ -315,14 +347,17 @@ const char* flash_ft_error_string(int code) {
 
 // q (bh, sq, dh); k, v (bh / n_rep, skv, dh); out (bh, sq, dh); report
 // (bh, ceil(sq / 64), 8); m_out, l_out nullptr or (bh, sq) f32: contiguous.
-// dtype: 0 f32, 1 bf16; dh 64 or 128. Returns the launch's cudaError_t.
+// dtype: 0 f32, 1 bf16; dh 64 or 128. seu_*: the stochastic hook's
+// campaign (seu_hook.cuh). Returns the launch's cudaError_t.
 int flash_ft_launch(const void* q, const void* k, const void* v, void* out,
                     float* rep, float* m_out, float* l_out, int bh, int sq,
                     int skv, int dh, int n_rep,
                     int dtype, int causal, int corrects,
                     float scale, float tau_qk_coef, float tau_coef,
                     int inj_enable, int inj_bh, int inj_qb, int inj_s,
-                    int inj_row, int inj_col, float inj_mag, void* stream) {
+                    int inj_row, int inj_col, float inj_mag, int seu_on,
+                    unsigned seu_seed, float seu_rate, int seu_shift,
+                    void* stream) {
   if (bh <= 0 || sq <= 0 || skv <= 0 || n_rep <= 0 || bh % n_rep != 0)
     return cudaErrorInvalidValue;
   FlashArgs g{};
@@ -334,6 +369,7 @@ int flash_ft_launch(const void* q, const void* k, const void* v, void* out,
   g.inj_enable = inj_enable; g.inj_bh = inj_bh; g.inj_qb = inj_qb;
   g.inj_s = inj_s; g.inj_row = inj_row; g.inj_col = inj_col;
   g.inj_mag = inj_mag;
+  g.seu = seu::Args{seu_on, seu_seed, seu_rate, seu_shift};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0 && dh == 64) return launch<float, 64>(g, bh, st);
   if (dtype == 0 && dh == 128) return launch<float, 128>(g, bh, st);

@@ -31,11 +31,21 @@
 // query heads of the kv head times their live q blocks, so dK and dV come
 // back per kv head, summed in registers, with no atomics and K/V never
 // repeated. A block that runs no step writes zeros.
+// Stochastic SEU campaigns (seu_hook.cuh, salts 0x52 and 0x53 reduced on
+// the host): each dQ CTA draws its block's SEU by its uid bh·nqb + qi over
+// its live kv steps and lands it in that step's dQ delta; each dK/dV CTA
+// draws by its uid b·nkvb + kvi over its walk of n_rep x live q blocks and
+// lands it in the dV delta of that walk step (the reference's
+// flashft.py:519-521, :555-556 and :609-616, :655-656); after the
+// deterministic SEU, before the verification. Campaigns run in their own
+// instances (SEU = true), so a clean call runs the code it ran before the
+// hook.
 // What bounds them on the H100: at the training shapes they are bound by
 // operations (3 and 4 GEMMs of 2·64·64·dh per live block); this first
 // version runs every product on the CUDA cores in f32, with one CTA per SM
 // because of the shared-memory footprint. PERF.md carries their times.
 #include "abft_block.cuh"
+#include "seu_hook.cuh"
 
 namespace {
 
@@ -63,6 +73,7 @@ struct BwdArgs {
   float tau_dh;        // round_up(dh, 128), the k field of the dP record
   int inj_enable, inj_target, inj_bh, inj_blk, inj_step, inj_row, inj_col;
   float inj_mag;
+  seu::Args seu;       // the stochastic hook's campaign
 };
 
 enum Target { kDP = 0, kDQ = 1, kDV = 2, kDK = 3 };
@@ -230,7 +241,7 @@ __device__ void scores_and_dp(const BwdArgs& g, const float* Qs,
 // dQ = Σ_kv dS·K
 // ---------------------------------------------------------------------------
 
-template <typename T, int DH>
+template <typename T, int DH, bool SEU>
 __global__ void __launch_bounds__(kThreads) flash_dq_kernel(const BwdArgs g) {
   static_assert(DH >= BKV && DH % 16 == 0, "");
   constexpr int CW = DH / 16;
@@ -282,6 +293,11 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(const BwdArgs g) {
     for (int c = 0; c < CW; ++c) acc[i][c] = 0.0f;
   float rep[8] = {0, 0, 0, 0, 0, 0, 0, 0};
   const int nkv = (skv + BKV - 1) / BKV;
+  const int kv_hi = g.causal ? min(skv, q_start + BQ + c_off) : skv;
+  const seu::Hit sh =
+      SEU ? seu::draw(g.seu, (uint32_t)(bh * g.nqb + qi),
+                      kv_hi > 0 ? (kv_hi + BKV - 1) / BKV : 0, BQ, DH)
+          : seu::Hit{false, 0, 0, 0};
 
   for (int s = 0; s < nkv; ++s) {
     const int kv_start = s * BKV;
@@ -325,6 +341,15 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(const BwdArgs g) {
       const int r = g.inj_row, c = g.inj_col;
       if (r >= 0 && r < BQ && c >= 0 && c < DH && r / 4 == ty && c % 16 == tx)
         dr[r % 4][c / 16] += g.inj_mag;
+    }
+    if (SEU && sh.hit && s == sh.step && sh.row / 4 == ty &&
+        sh.col % 16 == tx) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int c = 0; c < CW; ++c)
+          if (i == sh.row % 4 && c == sh.col / 16)
+            dr[i][c] += seu::magnitude(dr[i][c], g.seu.shift);
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i)
@@ -373,11 +398,13 @@ __global__ void __launch_bounds__(kThreads) flash_dq_kernel(const BwdArgs g) {
 // ---------------------------------------------------------------------------
 
 // delta (BKV x DH) = aᵀ·b for a (BQ, BKV stride SP) and b (BQ, DH): rows
-// ty*4 + jj, columns tx + 16*c, written to ds_out, returned in dr.
+// ty*4 + jj, columns tx + 16*c, written to ds_out, returned in dr. The
+// deterministic SEU lands when `inj`, then the stochastic one `sh` when
+// `land`.
 template <int DH>
 __device__ void gemm_atb(const float* a, const float* b, float (*dr)[DH / 16],
                          float* ds_out, bool inj, int row, int col,
-                         float mag) {
+                         float mag, bool land, const seu::Hit& sh, int shift) {
   constexpr int CW = DH / 16;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
 #pragma unroll
@@ -398,6 +425,14 @@ __device__ void gemm_atb(const float* a, const float* b, float (*dr)[DH / 16],
   if (inj && row >= 0 && row < BKV && col >= 0 && col < DH &&
       row / 4 == ty && col % 16 == tx)
     dr[row % 4][col / 16] += mag;
+  if (land && sh.row / 4 == ty && sh.col % 16 == tx) {
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+      for (int c = 0; c < CW; ++c)
+        if (jj == sh.row % 4 && c == sh.col / 16)
+          dr[jj][c] += seu::magnitude(dr[jj][c], shift);
+  }
 #pragma unroll
   for (int jj = 0; jj < 4; ++jj)
 #pragma unroll
@@ -422,7 +457,7 @@ __device__ void checks_atb(const float* a, const float* b, const float* arow,
   }
 }
 
-template <typename T, int DH>
+template <typename T, int DH, bool SEU>
 __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(const BwdArgs g) {
   static_assert(DH >= BKV && DH % 16 == 0, "");
   constexpr int CW = DH / 16;
@@ -470,6 +505,18 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(const BwdArgs g) {
 #pragma unroll
     for (int c = 0; c < CW; ++c) acc_k[i][c] = acc_v[i][c] = 0.0f;
   float rep[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+  // The live walk of this kv block: q blocks [qi_lo, nqb) of each query
+  // head; its SEU is drawn over the n_rep x (nqb - qi_lo) steps.
+  int qi_lo = 0;
+  if (g.causal) {
+    const int x = kv_start - (BQ - 1) - c_off;
+    qi_lo = x > 0 ? min((x + BQ - 1) / BQ, g.nqb) : 0;
+  }
+  const int nql = g.nqb - qi_lo;
+  const seu::Hit sh =
+      SEU ? seu::draw(g.seu, (uint32_t)(b * g.nkvb + kvi), g.n_rep * nql,
+                      BKV, DH)
+          : seu::Hit{false, 0, 0, 0};
 
   for (int r = 0; r < g.n_rep; ++r) {
     const int h = b * g.n_rep + r;
@@ -506,7 +553,9 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(const BwdArgs g) {
 
       // ---- dV delta = Pᵀ·g --------------------------------------------
       gemm_atb<DH>(Ps, Gs, dr, Ds, hit && g.inj_target == kDV, g.inj_row,
-                   g.inj_col, g.inj_mag);
+                   g.inj_col, g.inj_mag,
+                   SEU && sh.hit && r * nql + qi - qi_lo == sh.step, sh,
+                   g.seu.shift);
       checks_atb<DH>(Ps, Gs, prow, grow, colck, rowck);
       __syncthreads();
       const Verdict vv = verify_block<BKV, DH>(
@@ -521,7 +570,7 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(const BwdArgs g) {
 
       // ---- dK delta = dSᵀ·Q -------------------------------------------
       gemm_atb<DH>(DSs, Qs, dr, Ds, hit && g.inj_target == kDK, g.inj_row,
-                   g.inj_col, g.inj_mag);
+                   g.inj_col, g.inj_mag, false, sh, 0);
       checks_atb<DH>(DSs, Qs, dsrow, qrow, colck, rowck);
       __syncthreads();
       const Verdict vk = verify_block<BKV, DH>(
@@ -554,10 +603,11 @@ __global__ void __launch_bounds__(kThreads) flash_dkv_kernel(const BwdArgs g) {
   }
 }
 
-template <typename T, int DH, bool DKV>
-cudaError_t launch(const BwdArgs& g, int bh, cudaStream_t stream) {
+template <typename T, int DH, bool DKV, bool SEU>
+cudaError_t launch_instance(const BwdArgs& g, int bh, cudaStream_t stream) {
   constexpr int bytes = smem_floats<DH>() * (int)sizeof(float);
-  auto kernel = DKV ? flash_dkv_kernel<T, DH> : flash_dq_kernel<T, DH>;
+  auto kernel =
+      DKV ? flash_dkv_kernel<T, DH, SEU> : flash_dq_kernel<T, DH, SEU>;
   static bool configured = false;
   if (!configured) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -570,6 +620,13 @@ cudaError_t launch(const BwdArgs& g, int bh, cudaStream_t stream) {
   dim3 grid(DKV ? g.nkvb : g.nqb, rows);
   kernel<<<grid, kThreads, bytes, stream>>>(g);
   return cudaGetLastError();
+}
+
+// The campaign instance when a campaign is armed, else the clean one.
+template <typename T, int DH, bool DKV>
+cudaError_t launch(const BwdArgs& g, int bh, cudaStream_t stream) {
+  return g.seu.on ? launch_instance<T, DH, DKV, true>(g, bh, stream)
+                  : launch_instance<T, DH, DKV, false>(g, bh, stream);
 }
 
 template <bool DKV>
@@ -586,7 +643,7 @@ BwdArgs make_args(const void* q, const void* k, const void* v, const void* gr,
                   const float* m, const float* l, const float* di, float* rep,
                   int sq, int skv, int n_rep, int causal, int corrects,
                   float scale, float tau_qk_coef, float tau_coef, float tau_dh,
-                  const int* inj, float inj_mag) {
+                  const int* inj, float inj_mag, const seu::Args& sa) {
   BwdArgs g{};
   g.q = q; g.k = k; g.v = v; g.g = gr; g.m = m; g.l = l; g.di = di;
   g.rep = rep;
@@ -597,6 +654,7 @@ BwdArgs make_args(const void* q, const void* k, const void* v, const void* gr,
   g.inj_enable = inj[0]; g.inj_target = inj[1]; g.inj_bh = inj[2];
   g.inj_blk = inj[3]; g.inj_step = inj[4]; g.inj_row = inj[5];
   g.inj_col = inj[6]; g.inj_mag = inj_mag;
+  g.seu = sa;
   return g;
 }
 
@@ -611,7 +669,8 @@ const char* flash_ft_bwd_error_string(int code) {
 // q, g, dq (bh, sq, dh); k, v (bh / n_rep, skv, dh); m, l, di (bh, sq) f32;
 // report (bh, ceil(sq / 64), 8) f32: all contiguous. dtype: 0 f32, 1 bf16
 // (q, k, v, g, dq); dh 64 or 128. inj: [enable, target, bh, q block, kv
-// step, row, col]. Returns the launch's cudaError_t.
+// step, row, col]; seu_*: the stochastic hook's campaign (seu_hook.cuh).
+// Returns the launch's cudaError_t.
 int flash_dq_launch(const void* q, const void* k, const void* v,
                     const void* gr, const float* m, const float* l,
                     const float* di, void* dq, float* rep, int bh, int sq,
@@ -619,14 +678,17 @@ int flash_dq_launch(const void* q, const void* k, const void* v,
                     int corrects, float scale, float tau_qk_coef,
                     float tau_coef, float tau_dh, int inj_enable,
                     int inj_target, int inj_bh, int inj_blk, int inj_step,
-                    int inj_row, int inj_col, float inj_mag, void* stream) {
+                    int inj_row, int inj_col, float inj_mag, int seu_on,
+                    unsigned seu_seed, float seu_rate, int seu_shift,
+                    void* stream) {
   if (bh <= 0 || sq <= 0 || skv <= 0 || n_rep <= 0 || bh % n_rep != 0)
     return cudaErrorInvalidValue;
   const int inj[7] = {inj_enable, inj_target, inj_bh, inj_blk, inj_step,
                       inj_row, inj_col};
   BwdArgs g = make_args(q, k, v, gr, m, l, di, rep, sq, skv, n_rep, causal,
                         corrects, scale, tau_qk_coef, tau_coef, tau_dh, inj,
-                        inj_mag);
+                        inj_mag,
+                        seu::Args{seu_on, seu_seed, seu_rate, seu_shift});
   g.dq = dq;
   return dispatch<false>(g, bh, dh, dtype, stream);
 }
@@ -641,14 +703,17 @@ int flash_dkv_launch(const void* q, const void* k, const void* v,
                      int corrects, float scale, float tau_qk_coef,
                      float tau_coef, float tau_dh, int inj_enable,
                      int inj_target, int inj_bh, int inj_blk, int inj_step,
-                     int inj_row, int inj_col, float inj_mag, void* stream) {
+                     int inj_row, int inj_col, float inj_mag, int seu_on,
+                     unsigned seu_seed, float seu_rate, int seu_shift,
+                     void* stream) {
   if (bh <= 0 || sq <= 0 || skv <= 0 || n_rep <= 0 || bh % n_rep != 0)
     return cudaErrorInvalidValue;
   const int inj[7] = {inj_enable, inj_target, inj_bh, inj_blk, inj_step,
                       inj_row, inj_col};
   BwdArgs g = make_args(q, k, v, gr, m, l, di, rep, sq, skv, n_rep, causal,
                         corrects, scale, tau_qk_coef, tau_coef, tau_dh, inj,
-                        inj_mag);
+                        inj_mag,
+                        seu::Args{seu_on, seu_seed, seu_rate, seu_shift});
   g.dk = dk;
   g.dv = dv;
   return dispatch<true>(g, bh, dh, dtype, stream);

@@ -54,6 +54,13 @@
 //     lanes of one warp);
 //   * the long causal q blocks launch first; dead kv blocks (past Skv,
 //     above the diagonal) are skipped.
+// Stochastic SEU campaigns (seu_hook.cuh, salt 0x51 reduced on the host)
+// run in their own instance (SEU = true), so a clean call runs the code it
+// ran before the hook: each consumer warpgroup draws its q block's SEU by
+// its uid h·nqb + qi over its live kv steps, and at the drawn step the
+// thread holding the element scales it in Δ after both products (hi and
+// lo) and the deterministic SEU, before the verification (the
+// reference's flashft.py:159-161, :223-224).
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -77,6 +84,7 @@ struct FwdArgs {
   float tau_coef;      // rel_tau * eps32
   int inj_enable, inj_bh, inj_qb, inj_s, inj_row, inj_col;
   float inj_mag;
+  seu::Args seu;       // the stochastic hook's campaign
 };
 
 // One consumer warpgroup's scratch.
@@ -157,7 +165,9 @@ __device__ __forceinline__ void softmax_step(float (&s)[32], const FwdArgs& g,
 }
 
 // One CTA per (kv head, pair of its query heads, 64-row q block): consumer
-// warpgroup c takes query head 2·pair + c of the group.
+// warpgroup c takes query head 2·pair + c of the group. SEU: the instance
+// of campaigns.
+template <bool SEU>
 __global__ void __launch_bounds__(kFwdThreads, 1)
 flash_ft_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                      const __grid_constant__ CUtensorMap tk,
@@ -230,6 +240,9 @@ flash_ft_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   float m_r[2] = {kNegInf, kNegInf}, l_r[2] = {0.0f, 0.0f};
   const bool hit_blk = g.inj_enable && h == g.inj_bh && qi == g.inj_qb &&
                        g.inj_row >= 0 && g.inj_row < kB && g.inj_col >= 0;
+  const seu::Hit sh =
+      SEU ? seu::draw(g.seu, (uint32_t)(h * g.nqb + qi), nsteps, kB, kDh)
+          : seu::Hit{false, 0, 0, 0};
 
   for (int it = 0; it < nsteps; ++it) {
     const int slot = it % kRing, kv_start = it * kB;
@@ -294,6 +307,8 @@ flash_ft_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     fence_frag(dl);
     if (hit && g.inj_enable == 1 && g.inj_col < kDh)
       frag_add<kDh>(dl, g.inj_row, g.inj_col, g.inj_mag, t);
+    if (SEU && sh.hit && it == sh.step)
+      frag_seu<kDh>(dl, sh.row, sh.col, g.seu.shift, t);
     const float eff_kv = (float)min(g.skv - kv_start, kB);
     verify_frag<kDh>(dl, w.ck_col, w.ck_row, g.tau_coef * eff_kv * mx.y,
                      eff_kv, g.corrects, q_start, 0, w.vf, w.rep, t, bar);
@@ -334,6 +349,23 @@ flash_ft_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       g.rep[((long long)h * g.nqb + qi) * 8 + f] = w.rep[f];
 }
 
+template <bool SEU>
+cudaError_t launch_fwd(const CUtensorMap* maps, const FwdArgs& g, int kvh,
+                       cudaStream_t stream) {
+  static bool ready = false;
+  if (!ready) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        flash_ft_sm90_kernel<SEU>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        fwd_smem_bytes());
+    if (e != cudaSuccess) return e;
+    ready = true;
+  }
+  flash_ft_sm90_kernel<SEU><<<dim3(kvh * g.pairs, g.nqb), kFwdThreads,
+                              fwd_smem_bytes(), stream>>>(maps[0], maps[1],
+                                                          maps[2], g);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -346,14 +378,17 @@ const char* flash_fwd_sm90_error_string(int code) {
 // out (bh, sq, 128) and k, v (bh / n_rep, skv, 128) bf16 (dtype 1),
 // 16-byte aligned; report (bh, ceil(sq / 64), 8); m_out, l_out nullptr or
 // (bh, sq) f32; all contiguous. inj: [enable (1 Δ, 2 S), bh, q block, kv
-// step, row, col]. Returns the launch's cudaError_t.
+// step, row, col]; seu_*: the stochastic hook's campaign (seu_hook.cuh; on
+// picks the campaign instance). Returns the launch's cudaError_t.
 int flash_ft_sm90_launch(const void* q, const void* k, const void* v,
                          void* out, float* rep, float* m_out, float* l_out,
                          int bh, int sq, int skv, int dh, int n_rep,
                          int dtype, int causal, int corrects, float scale,
                          float tau_qk_coef, float tau_coef, int inj_enable,
                          int inj_bh, int inj_qb, int inj_s, int inj_row,
-                         int inj_col, float inj_mag, void* stream) {
+                         int inj_col, float inj_mag, int seu_on,
+                         unsigned seu_seed, float seu_rate, int seu_shift,
+                         void* stream) {
   if (bh <= 0 || sq <= 0 || skv <= 0 || n_rep <= 0 || bh % n_rep != 0 ||
       dh != kDh || dtype != 1 || (m_out == nullptr) != (l_out == nullptr))
     return cudaErrorInvalidValue;
@@ -367,6 +402,7 @@ int flash_ft_sm90_launch(const void* q, const void* k, const void* v,
   g.inj_enable = inj_enable; g.inj_bh = inj_bh; g.inj_qb = inj_qb;
   g.inj_s = inj_s; g.inj_row = inj_row; g.inj_col = inj_col;
   g.inj_mag = inj_mag;
+  g.seu = seu::Args{seu_on, seu_seed, seu_rate, seu_shift};
   const int kvh = bh / n_rep;
   if (g.nqb > 65535 || (long long)kvh * g.pairs > 0x7fffffffLL)
     return cudaErrorInvalidConfiguration;
@@ -375,19 +411,9 @@ int flash_ft_sm90_launch(const void* q, const void* k, const void* v,
       !make_map3(&maps[1], k, kDh, skv, kvh, kDh, (long long)skv * kDh, 64, 64) ||
       !make_map3(&maps[2], v, kDh, skv, kvh, kDh, (long long)skv * kDh, 64, 64))
     return cudaErrorInvalidValue;
-  static bool ready = false;
-  if (!ready) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        flash_ft_sm90_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        fwd_smem_bytes());
-    if (e != cudaSuccess) return e;
-    ready = true;
-  }
-  flash_ft_sm90_kernel<<<dim3(kvh * g.pairs, g.nqb), kFwdThreads,
-                         fwd_smem_bytes(),
-                         static_cast<cudaStream_t>(stream)>>>(maps[0], maps[1],
-                                                              maps[2], g);
-  return cudaGetLastError();
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return seu_on ? launch_fwd<true>(maps, g, kvh, st)
+                : launch_fwd<false>(maps, g, kvh, st);
 }
 
 }  // extern "C"

@@ -5,8 +5,9 @@
 // (col_reduce, row_dot), the hi / lo staging of an f32 operand, the
 // wgmma products of the two block shapes (mma_abt, mma_ab), and the
 // verification of a 64 x N accumulator from its wgmma fragment
-// (verify_frag). What each kernel does with them is in the note at the
-// head of its source.
+// (verify_frag), and the stochastic SEU of seu_hook.cuh landed in a
+// fragment (frag_seu). What each kernel does with them is in the note at
+// the head of its source.
 #pragma once
 
 #include <cuda.h>
@@ -14,6 +15,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "seu_hook.cuh"
 #include "sm90_mainloop.cuh"
 
 namespace {
@@ -221,6 +223,29 @@ __device__ __forceinline__ void frag_add(float (&acc)[N / 2], int row, int col,
   const int idx = (col >> 3) * 4 + (rr >> 3) * 2 + (col & 1);
 #pragma unroll
   for (int r = 0; r < N / 2; ++r) acc[r] += (mine && r == idx) ? v : 0.0f;
+}
+
+// The element at (row, col) of the 64 x N fragment in the thread that
+// holds it, 0 in the others.
+template <int N>
+__device__ __forceinline__ float frag_get(const float (&acc)[N / 2], int row,
+                                          int col, int tid) {
+  const int wl = tid / 32, lane = tid & 31, rr = row & 15;
+  const bool mine = (row >> 4) == wl && lane == (rr & 7) * 4 + (col & 7) / 2;
+  const int idx = (col >> 3) * 4 + (rr >> 3) * 2 + (col & 1);
+  float v = 0.0f;
+#pragma unroll
+  for (int r = 0; r < N / 2; ++r) v = (mine && r == idx) ? acc[r] : v;
+  return v;
+}
+
+// The stochastic SEU at (row, col) of a step's 64 x N product: the element
+// d becomes d + seu::magnitude(d, shift), in the thread that holds it.
+template <int N>
+__device__ __forceinline__ void frag_seu(float (&acc)[N / 2], int row, int col,
+                                         int shift, int tid) {
+  frag_add<N>(acc, row, col,
+              seu::magnitude(frag_get<N>(acc, row, col, tid), shift), tid);
 }
 
 // Max over a consumer warpgroup of a and b; every thread gets both.

@@ -3,7 +3,8 @@
 // helpers, the m16n8k16 bf16 product, one contiguous row by the bulk-copy
 // engine, and the verification of a 16 x 8·NT accumulator fragment per
 // warp (frag16_add, frag16_sums) located by one warp (locate16) under the
-// report rules of abft_block.cuh. A CTA of kWarps warps holds one 16-row
+// report rules of abft_block.cuh, and the stochastic SEU of seu_hook.cuh
+// landed in a fragment (frag16_seu). A CTA of kWarps warps holds one 16-row
 // block, each warp its own columns. What each kernel does with them is in
 // the note at the head of its source.
 #pragma once
@@ -13,6 +14,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "seu_hook.cuh"
 #include "sm90_mainloop.cuh"
 
 namespace {
@@ -91,6 +93,17 @@ __device__ __forceinline__ float frag16_get(const float (&a)[NT][4], int row,
 #pragma unroll
     for (int r = 0; r < 4; ++r) v = (mine && t == nt && r == idx) ? a[t][r] : v;
   return v;
+}
+
+// The stochastic SEU (seu_hook.cuh) at (row, col) of a warp's 16 x 8·NT
+// fragment of a step's product: the element d becomes d +
+// seu::magnitude(d, shift) in the lane that holds it; nothing for a col
+// outside the warp's columns.
+template <int NT>
+__device__ __forceinline__ void frag16_seu(float (&a)[NT][4], int row, int col,
+                                           int shift, int lane) {
+  frag16_add<NT>(a, row, col,
+                 seu::magnitude(frag16_get<NT>(a, row, col, lane), shift), lane);
 }
 
 // The column residuals of a warp's 16 x 8·NT fragment (its columns col0 ..)

@@ -1,7 +1,7 @@
-// The in-kernel stochastic SEU hook of the GEMM family (K1, K5, K7, K8,
-// every instance): the device side of kernels/templates/seu.py, which is
-// the counterpart of src/repro/kernels/templates/emit.py:162-230
-// (stochastic_seu, apply_seu).
+// The in-kernel stochastic SEU hook of the GEMM family (K1, K5, K7, K8)
+// and the flash family (K2, K3, K4, K6), every instance: the device side
+// of kernels/templates/seu.py, which is the counterpart of
+// src/repro/kernels/templates/emit.py:162-230 (stochastic_seu, apply_seu).
 //
 // A campaign hands each launch four arguments (kernels/ft_gemm.py:
 // seu_args): on (a triple with enable = 1 and a rate above 0), the
@@ -13,7 +13,8 @@
 //   h0 = mix32(seed ^ uid·0x85EBCA6B), hit = (h0 >> 8)·2^-24 < rate,
 //   step / row / col = (mix32(h0 + 1 / 2 / 3) & 0x7FFFFFFF) % max(n, 1).
 // One draw per block, at its start: the hook costs one hash a CTA, and
-// with `on` = 0 a uniform branch per step. The hit lands on the step whose
+// with `on` = 0 a uniform branch per step (or nothing, in the instances
+// compiled without the hook). The hit lands on the step whose
 // live index is `step`, on the element's contribution d of that step:
 // d·(2^s − 1) is added, or 2^s where that is at most 1e-6 in magnitude.
 #pragma once

@@ -42,6 +42,18 @@ layout; their first field selects the product: 1 lands the SEU in Δ = PV
 (the reference's), 2 in S = QKᵀ before its verification (the tensor-core
 instances and the plain versions; the SIMT kernels raise on it).
 
+Stochastic SEU campaigns: every wrapper and plain version takes ``rng``, a
+campaign's triple (`encode_rng`). Each stationary output block draws one
+Bernoulli(rate) SEU over its live steps (`templates/seu.py`, the kernel's
+salt `seu.SALT_FWD` / `SALT_DQ` / `SALT_DKV` / `SALT_DECODE`), and the
+hit lands in that step's Δ before its verification: K2's and K6's PV, K3's
+dS·K, K4's Pᵀ·g (the reference's `flashft.py:159-161`, `:519-521`,
+`:609-616`, `:310-315`). `seu_fwd_draws`, `seu_dq_draws`, `seu_dkv_draws`
+and `seu_decode_draws` enumerate a launch's draws. Under K4's and K6's
+ranges every range's CTA draws its block's SEU, and only the range holding
+the drawn step lands it. Every kernel runs campaigns in its own template
+instances; a clean call runs the clean ones.
+
 What bounds the kernels on the H100 and what their design does about it is
 in the headers of the CUDA sources.
 """
@@ -57,17 +69,19 @@ import torch.nn.functional as F
 from ..core.abft import F32EPS
 from ..core.policy import FTConfig, InjectionSpec
 from . import build
-from .ft_gemm import (DTYPE_CODES, REPORT_WIDTH, SPLIT_TARGET, cdiv,
-                      locate_record, merge_reports)
+from .ft_gemm import (DTYPE_CODES, REPORT_WIDTH, SEU_ARGTYPES, SPLIT_TARGET,
+                      cdiv, locate_record, merge_reports, seu_args,
+                      seu_armed)
+from .templates import seu
 
 NEG_INF = -1e30
 
 #: Whether the flash kernels (K2, K3, K4, K6) honour a campaign key in
-#: kernel (the reference's switch, `repro/kernels/flashft.py:81-85`). Their
-#: stochastic hook is not ported yet, so a campaign at a flash front raises
-#: (`core.fault_injection.check_campaign`); the GEMM family's kernels take
-#: the triple of `encode_rng`.
-SUPPORTS_STOCHASTIC_INJECTION = False
+#: kernel (the reference's switch, `repro/kernels/flashft.py:81-85`): every
+#: instance carries the stochastic hook, so a campaign runs at the flash
+#: fronts; a build without it must set this False so that
+#: `core.fault_injection.check_campaign` raises instead.
+SUPPORTS_STOCHASTIC_INJECTION = True
 #: The kernel's compiled (bq, bkv) blocks and head dims.
 BLOCK = 64
 HEAD_DIMS = (64, 128)
@@ -81,13 +95,13 @@ DKV_TARGETS = ("dp_kv", "dv", "dk")
 
 _ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 8
              + [ctypes.c_float] * 3 + [ctypes.c_int] * 6
-             + [ctypes.c_float, ctypes.c_void_p])
+             + [ctypes.c_float] + SEU_ARGTYPES + [ctypes.c_void_p])
 FLASH_FT = build.Kernel("flash_ft", "flash_ft_launch", _ARGTYPES)
 #: K2 on the tensor cores (the SIMT entry's arguments).
 FLASH_FT_SM90 = build.Kernel("flash_fwd_sm90", "flash_ft_sm90_launch",
                              _ARGTYPES)
 _BWD_TAIL = ([ctypes.c_int] * 8 + [ctypes.c_float] * 4 + [ctypes.c_int] * 7
-             + [ctypes.c_float, ctypes.c_void_p])
+             + [ctypes.c_float] + SEU_ARGTYPES + [ctypes.c_void_p])
 FLASH_DQ = build.Kernel("flash_ft_bwd", "flash_dq_launch",
                         [ctypes.c_void_p] * 9 + _BWD_TAIL)
 FLASH_DKV = build.Kernel("flash_ft_bwd", "flash_dkv_launch",
@@ -111,7 +125,8 @@ DECODE_PAGES = (16, 32, 64)
 DECODE_HEAD_DIMS = (128, 256)
 DECODE_MAX_BQ = 32
 _DECODE_TAIL = ([ctypes.c_int] * 9 + [ctypes.c_float] * 3
-                + [ctypes.c_int] * 6 + [ctypes.c_float, ctypes.c_void_p])
+                + [ctypes.c_int] * 6 + [ctypes.c_float] + SEU_ARGTYPES
+                + [ctypes.c_void_p])
 FLASH_DECODE = build.Kernel("flash_decode", "flash_decode_launch",
                             [ctypes.c_void_p] * 7 + _DECODE_TAIL)
 #: K6 on the tensor cores: the SIMT entry's arguments with the range
@@ -156,6 +171,82 @@ def sublane(dtype: torch.dtype) -> int:
     return {1: 32, 2: 16}.get(dtype.itemsize, 8)
 
 
+def _live_kv_steps(sq: int, skv: int, nqb: int, *, causal: bool, bq: int,
+                   bkv: int, device="cpu") -> torch.Tensor:
+    """The kv steps each of the ``nqb`` q blocks runs (the reference's
+    `_live_kv_steps`): the kv edge and, causal, the bottom-right-aligned
+    bound. int64 (nqb,)."""
+    q_start = torch.arange(nqb, device=device) * bq
+    kv_hi = torch.full_like(q_start, skv)
+    if causal:
+        kv_hi = torch.minimum(kv_hi, q_start + bq + (skv - sq))
+    return torch.clamp_min((kv_hi + bkv - 1) // bkv, 0)
+
+
+def seu_fwd_draws(rng: Optional[Sequence[int]], ft: Optional[FTConfig],
+                  bh: int, sq: int, skv: int, dh: int, *, causal: bool = True,
+                  bq: int = BLOCK, bkv: int = BLOCK, salt: int = seu.SALT_FWD,
+                  device="cpu"):
+    """The SEU every (query head, q block) of a K2 launch draws under the
+    campaign triple ``rng``: (hit, step, row, col), each (bh, nqb), step a
+    live kv step, (row, col) in the block's (bq, dh) Δ = PV; uid h·nqb +
+    qi. None when no campaign is armed (no triple, enable 0, rate 0, FT
+    off)."""
+    if not seu_armed(rng, ft):
+        return None
+    nqb = cdiv(sq, bq)
+    uid = (torch.arange(bh, device=device)[:, None] * nqb
+           + torch.arange(nqb, device=device)[None, :])
+    n_live = _live_kv_steps(sq, skv, nqb, causal=causal, bq=bq, bkv=bkv,
+                            device=device)
+    return seu.draw(rng, salt, uid, n_live.expand(bh, nqb), bq, dh,
+                    ft.inject_rate)
+
+
+def seu_dq_draws(rng, ft, bh: int, sq: int, skv: int, dh: int, *,
+                 causal: bool = True, bq: int = BLOCK, bkv: int = BLOCK,
+                 device="cpu"):
+    """K3's draws: `seu_fwd_draws` on K3's salt; (row, col) in the block's
+    dQ delta dS·K."""
+    return seu_fwd_draws(rng, ft, bh, sq, skv, dh, causal=causal, bq=bq,
+                         bkv=bkv, salt=seu.SALT_DQ, device=device)
+
+
+def seu_dkv_draws(rng, ft, gk: int, n_rep: int, sq: int, skv: int, dh: int,
+                  *, causal: bool = True, bq: int = BLOCK, bkv: int = BLOCK,
+                  device="cpu"):
+    """The SEU every (kv head, kv block) of a K4 launch draws: (hit, step,
+    row, col), each (gk, nkvb), step a position of the block's walk of
+    n_rep × live q blocks (`dkv_walk`, query head first), (row, col) in the
+    block's (bkv, dh) dV delta Pᵀ·g; uid b·nkvb + kvi. None when no
+    campaign is armed."""
+    if not seu_armed(rng, ft):
+        return None
+    nkvb = cdiv(skv, bkv)
+    kv_start = torch.arange(nkvb, device=device) * bkv
+    _, span = dkv_walk(sq, skv, kv_start, causal=causal, bq=bq)
+    uid = (torch.arange(gk, device=device)[:, None] * nkvb
+           + torch.arange(nkvb, device=device)[None, :])
+    return seu.draw(rng, seu.SALT_DKV, uid, (n_rep * span).expand(gk, nkvb),
+                    bkv, dh, ft.inject_rate)
+
+
+def seu_decode_draws(rng, ft, lengths: torch.Tensor, kvh: int, page: int,
+                     max_pages: int, bq: int, dh: int):
+    """The SEU every (slot, kv head) row of a K6 launch draws: (hit, step,
+    row, col), each (B·KVH,), step one of the row's live pages
+    (ceil(length / page), at most the table's width), (row, col) in its
+    (bq, dh) Δ = PV; uid slot·KVH + head. None when no campaign is
+    armed."""
+    if not seu_armed(rng, ft):
+        return None
+    lens = lengths.long().repeat_interleave(kvh)
+    n_live = torch.clamp((lens + page - 1) // page, 0, max_pages)
+    uid = torch.arange(lens.shape[0], device=lens.device)
+    return seu.draw(rng, seu.SALT_DECODE, uid, n_live, bq, dh,
+                    ft.inject_rate)
+
+
 def encode_bwd_injection(spec: Optional[InjectionSpec], target: str = "dq",
                          bh: int = 0, blk: int = 0
                          ) -> Tuple[Tuple[int, ...], Tuple[int, ...], float]:
@@ -182,7 +273,8 @@ def flash_ft_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    n_rep: int = 1, causal: bool = True,
                    bq: int = BLOCK, bkv: int = BLOCK,
                    inj: Optional[Sequence[int]] = None, inj_mag: float = 0.0,
-                   save_stats: bool = False):
+                   save_stats: bool = False,
+                   rng: Optional[Sequence[int]] = None):
     """The kernel's function in plain PyTorch, on the kernel's block grid.
 
     q (BH, Sq, dh); k, v (BH / n_rep, Skv, dh). ``tau_dh`` is the head dim
@@ -191,8 +283,9 @@ def flash_ft_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     vector [enable, bh, q_block, kv_step, row, col]: with enable = 1,
     ``inj_mag`` is added to the PV delta of that head and q block at that
     kv step, element (row, col) of the block; with enable = 2 to S = QKᵀ
-    before its verification (col < bkv). Returns
-    (out (BH, Sq, dh) in q's dtype, report (BH, nqb, 8)), or with
+    before its verification (col < bkv). ``rng``, a campaign's triple,
+    lands each block's drawn SEU (`seu_fwd_draws`) in Δ after ``inj``.
+    Returns (out (BH, Sq, dh) in q's dtype, report (BH, nqb, 8)), or with
     ``save_stats`` (out, m, l, report): m, l (BH, Sq) f32, degenerate rows
     (NEG_INF, 0)."""
     bh, sq, dh = q.shape
@@ -218,6 +311,10 @@ def flash_ft_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     gi = torch.arange(g, device=dev)[:, None, None]
     ri = torch.arange(r, device=dev)[None, :, None]
     qi = torch.arange(nqb, device=dev)[None, None, :]
+    hook = seu_fwd_draws(rng, ft, bh, sq, skv, dh, causal=causal, bq=bq,
+                         bkv=bkv, device=dev)
+    if hook is not None:
+        hook = [x.view(g, r, nqb) for x in hook]
 
     for s in range(nkv):
         kv_start = s * bkv
@@ -261,6 +358,9 @@ def flash_ft_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             _, ih, iq, _, ir, ic = inj
             if 0 <= ir < bq and 0 <= ic < dh:
                 delta[ih // r, ih % r, iq, ir, ic] += inj_mag
+        if hook is not None:
+            seu.land(delta, hook[0] & (hook[1] == s), hook[2], hook[3],
+                     ft.inject_bit_shift)
         ck_col = torch.matmul(p.sum(-2)[..., None, :], vt)
         ck_row = torch.matmul(p, vt.sum(-1)[..., None])
         d_col = delta.sum(-2) - ck_col[..., 0, :]
@@ -338,16 +438,18 @@ def flash_ft_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                  causal: bool = True,
                  inj: Optional[Sequence[int]] = None, inj_mag: float = 0.0,
                  bq: Optional[int] = None,
-                 bkv: Optional[int] = None, save_stats: bool = False):
+                 bkv: Optional[int] = None, save_stats: bool = False,
+                 rng: Optional[Sequence[int]] = None):
     """ABFT flash attention forward: a CPU tensor runs `flash_ft_plain`
     (blocks default to the kernel's 64), a CUDA tensor launches the kernel
-    `plan_fwd` picks (tensor cores or SIMT) or raises. Returns what
-    `flash_ft_plain` returns."""
+    `plan_fwd` picks (tensor cores or SIMT) or raises. ``rng`` arms the
+    stochastic hook (`seu_fwd_draws`). Returns what `flash_ft_plain`
+    returns."""
     if q.device.type == "cpu":
         return flash_ft_plain(q, k, v, ft=ft, scale=scale, tau_dh=tau_dh,
                               n_rep=n_rep, causal=causal, bq=bq or BLOCK,
                               bkv=bkv or BLOCK, inj=inj, inj_mag=inj_mag,
-                              save_stats=save_stats)
+                              save_stats=save_stats, rng=rng)
     _check_launch("flash_ft_fwd", q, k, v, n_rep=n_rep, bq=bq or BLOCK,
                   bkv=bkv or BLOCK)
     p = plan_fwd(q, k, v, bq=bq, bkv=bkv)
@@ -371,7 +473,8 @@ def flash_ft_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
            None if l is None else l.data_ptr(), bh, sq, skv, dh, n_rep,
            DTYPE_CODES[q.dtype], int(causal), int(ft.corrects), scale,
            ft.rel_tau * F32EPS * tau_dh, ft.rel_tau * F32EPS,
-           *inj, inj_mag, torch.cuda.current_stream(q.device).cuda_stream)
+           *inj, inj_mag, *seu_args(rng, ft, seu.SALT_FWD),
+           torch.cuda.current_stream(q.device).cuda_stream)
     return (out, m, l, rep) if save_stats else (out, rep)
 
 
@@ -580,7 +683,8 @@ def _inject(x, at, inj, mag, bounds):
 def flash_dq_plain(q, k, v, g, m, l, di, *, ft: FTConfig, scale: float,
                    tau_dh: int, n_rep: int = 1, causal: bool = True,
                    bq: int = BLOCK, bkv: int = BLOCK,
-                   inj: Optional[Sequence[int]] = None, inj_mag: float = 0.0
+                   inj: Optional[Sequence[int]] = None, inj_mag: float = 0.0,
+                   rng: Optional[Sequence[int]] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K3 in plain PyTorch on the kernel's grid: dQ = Σ_kv dS·K with
     dS = P ∘ (g·Vᵀ − di) · scale and P recomputed from the saved (m, l).
@@ -589,8 +693,10 @@ def flash_dq_plain(q, k, v, g, m, l, di, *, ft: FTConfig, scale: float,
     Three verifications per live (q block, kv step) go into the report: S
     (tau over ``tau_dh``, k = 1), dP (tau over ``tau_dh``, k = tau_dh) and
     the dQ delta (tau over eff_kv, k = eff_kv). ``inj`` is
-    [enable, target, bh, q_block, kv_step, row, col] (`encode_bwd_injection`).
-    Returns (dq in q's dtype, report (BH, nqb, 8))."""
+    [enable, target, bh, q_block, kv_step, row, col] (`encode_bwd_injection`);
+    ``rng``, a campaign's triple, lands each block's drawn SEU
+    (`seu_dq_draws`) in the dQ delta after it. Returns (dq in q's dtype,
+    report (BH, nqb, 8))."""
     bh, sq, dh = q.shape
     gk, skv, _ = k.shape
     r = n_rep
@@ -614,6 +720,10 @@ def flash_dq_plain(q, k, v, g, m, l, di, *, ft: FTConfig, scale: float,
     hit_cell = None
     if inj is not None and inj[0] == 1:
         hit_cell = (inj[2] // r, inj[2] % r, inj[3])
+    hook = seu_dq_draws(rng, ft, bh, sq, skv, dh, causal=causal, bq=bq,
+                        bkv=bkv, device=dev)
+    if hook is not None:
+        hook = [x.view(gk, r, nqb) for x in hook]
     for s in range(nkv):
         kv_start = s * bkv
         run = q_start < sq
@@ -648,6 +758,9 @@ def flash_dq_plain(q, k, v, g, m, l, di, *, ft: FTConfig, scale: float,
         delta = torch.matmul(ds, kt)
         if target == BWD_TARGETS["dq"]:
             _inject(delta, hit_cell, inj, inj_mag, (bq, dh))
+        if hook is not None:
+            seu.land(delta, hook[0] & (hook[1] == s), hook[2], hook[3],
+                     ft.inject_bit_shift)
         eff_kv = float(min(skv - kv_start, bkv))
         delta = _check(delta, delta.sum(-2) - _vm(ds.sum(-2), kt),
                        delta.sum(-1) - _mv(ds, kt.sum(-1)),
@@ -664,7 +777,7 @@ def flash_dkv_plain(q, k, v, g, m, l, di, *, ft: FTConfig, scale: float,
                     tau_dh: int, n_rep: int = 1, causal: bool = True,
                     bq: int = BLOCK, bkv: int = BLOCK,
                     inj: Optional[Sequence[int]] = None, inj_mag: float = 0.0,
-                    ranges: int = 1
+                    ranges: int = 1, rng: Optional[Sequence[int]] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K4 in plain PyTorch on the kernel's grid: per (kv head, kv block) a
     walk over the n_rep query heads × live q blocks (query head first),
@@ -675,7 +788,9 @@ def flash_dkv_plain(q, k, v, g, m, l, di, *, ft: FTConfig, scale: float,
     own f32 partials and report, the partials are summed in range order
     and the reports merged by `merge_ranges`; one range is the unsplit
     walk. ``inj`` is [enable, target, query head, kv_block, q_block, row,
-    col]. Returns (dk, dv) per kv head in k's dtype and the report
+    col]. ``rng``, a campaign's triple, lands each block's drawn SEU
+    (`seu_dkv_draws`) in the dV delta of its walk step, in the range that
+    holds the step. Returns (dk, dv) per kv head in k's dtype and the report
     (BH / n_rep, nkvb, 8)."""
     bh, sq, dh = q.shape
     gk, skv, _ = k.shape
@@ -701,6 +816,8 @@ def flash_dkv_plain(q, k, v, g, m, l, di, *, ft: FTConfig, scale: float,
     k_s, k_dp = (torch.tensor(x, device=dev) for x in (1.0, float(tau_dh)))
     zero = torch.zeros((), device=dev)
     on = inj is not None and inj[0] == 1
+    hook = seu_dkv_draws(rng, ft, gk, r, sq, skv, dh, causal=causal, bq=bq,
+                         bkv=bkv, device=dev)
     for rr in range(r):
         for qi in range(nqb):
             q_start = qi * bq
@@ -745,6 +862,10 @@ def flash_dkv_plain(q, k, v, g, m, l, di, *, ft: FTConfig, scale: float,
             dvd = torch.matmul(pt, gb)
             if target == BWD_TARGETS["dv"]:
                 _inject(dvd, cell, inj, inj_mag, (bkv, dh))
+            if hook is not None:
+                at = rr * n_live + qi - qi_lo                # (nkvb,)
+                seu.land(dvd, hook[0] & (hook[1] == at) & run, hook[2],
+                         hook[3], ft.inject_bit_shift)
             dvd = _check(dvd, dvd.sum(-2) - _vm(p.sum(-1), gb),
                          dvd.sum(-1) - _mv(pt, gb.sum(-1)),
                          torch.clamp_min(coef * eff_q * p.abs().amax((-2, -1))
@@ -808,26 +929,29 @@ def planned_dkv_plain(q, k, v, g, m, l, di, *, n_rep: int = 1,
 # ---------------------------------------------------------------------------
 
 def _bwd_launch_args(q, k, g, m, l, di, *, ft, scale, tau_dh, n_rep, causal,
-                     inj, inj_mag):
+                     inj, inj_mag, rng, salt):
     bh, sq, dh = q.shape
     inj = tuple(inj) if inj is not None else (0,) * 7
     return ((g.data_ptr(), m.data_ptr(), l.data_ptr(), di.data_ptr()),
             (bh, sq, k.shape[1], dh, n_rep, DTYPE_CODES[q.dtype], int(causal),
              int(ft.corrects), scale, ft.rel_tau * F32EPS * tau_dh,
              ft.rel_tau * F32EPS, float(tau_dh), *inj, inj_mag,
+             *seu_args(rng, ft, salt),
              torch.cuda.current_stream(q.device).cuda_stream))
 
 
 def flash_ft_dq(q, k, v, g, m, l, di, *, ft: FTConfig, scale: float,
                 tau_dh: int, n_rep: int = 1, causal: bool = True,
                 inj: Optional[Sequence[int]] = None, inj_mag: float = 0.0,
-                bq: Optional[int] = None, bkv: Optional[int] = None
+                bq: Optional[int] = None, bkv: Optional[int] = None,
+                rng: Optional[Sequence[int]] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K3: a CPU tensor runs `flash_dq_plain`, a CUDA tensor launches the
-    dQ kernel `plan_bwd` picks (tensor cores or SIMT) or raises. Returns
-    (dq, report) as the plain version does."""
+    dQ kernel `plan_bwd` picks (tensor cores or SIMT) or raises. ``rng``
+    arms the stochastic hook (`seu_dq_draws`). Returns (dq, report) as the
+    plain version does."""
     kw = dict(ft=ft, scale=scale, tau_dh=tau_dh, n_rep=n_rep, causal=causal,
-              inj=inj, inj_mag=inj_mag)
+              inj=inj, inj_mag=inj_mag, rng=rng)
     if q.device.type == "cpu":
         return flash_dq_plain(q, k, v, g, m, l, di, bq=bq or BLOCK,
                               bkv=bkv or BLOCK, **kw)
@@ -837,7 +961,7 @@ def flash_ft_dq(q, k, v, g, m, l, di, *, ft: FTConfig, scale: float,
     dq = torch.empty_like(q)
     rep = torch.empty((q.shape[0], cdiv(q.shape[1], BLOCK), REPORT_WIDTH),
                       dtype=torch.float32, device=q.device)
-    ptrs, rest = _bwd_launch_args(q, k, g, m, l, di, **kw)
+    ptrs, rest = _bwd_launch_args(q, k, g, m, l, di, salt=seu.SALT_DQ, **kw)
     kernel = FLASH_DQ_SM90 if p.instance == "sm90" else FLASH_DQ
     kernel(q.data_ptr(), k.data_ptr(), v.data_ptr(), *ptrs, dq.data_ptr(),
            rep.data_ptr(), *rest)
@@ -847,14 +971,16 @@ def flash_ft_dq(q, k, v, g, m, l, di, *, ft: FTConfig, scale: float,
 def flash_ft_dkv(q, k, v, g, m, l, di, *, ft: FTConfig, scale: float,
                  tau_dh: int, n_rep: int = 1, causal: bool = True,
                  inj: Optional[Sequence[int]] = None, inj_mag: float = 0.0,
-                 bq: Optional[int] = None, bkv: Optional[int] = None
+                 bq: Optional[int] = None, bkv: Optional[int] = None,
+                 rng: Optional[Sequence[int]] = None
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """K4: a CPU tensor runs `planned_dkv_plain` (the plain version under
     the plan's ranges), a CUDA tensor launches the dK/dV kernel `plan_bwd`
     picks (on the tensor cores, then the range reduce when the walk is
-    cut) or raises. Returns (dk, dv, report) as the plain version does."""
+    cut) or raises. ``rng`` arms the stochastic hook (`seu_dkv_draws`).
+    Returns (dk, dv, report) as the plain version does."""
     kw = dict(ft=ft, scale=scale, tau_dh=tau_dh, n_rep=n_rep, causal=causal,
-              inj=inj, inj_mag=inj_mag)
+              inj=inj, inj_mag=inj_mag, rng=rng)
     if q.device.type == "cpu":
         return planned_dkv_plain(q, k, v, g, m, l, di, bq=bq, bkv=bkv, **kw)
     _check_launch("flash_ft_dkv", q, k, v, g, m, l, di, n_rep=n_rep,
@@ -864,7 +990,7 @@ def flash_ft_dkv(q, k, v, g, m, l, di, *, ft: FTConfig, scale: float,
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     rep = torch.empty((gk, cdiv(skv, BLOCK), REPORT_WIDTH),
                       dtype=torch.float32, device=q.device)
-    ptrs, rest = _bwd_launch_args(q, k, g, m, l, di, **kw)
+    ptrs, rest = _bwd_launch_args(q, k, g, m, l, di, salt=seu.SALT_DKV, **kw)
     if p.instance == "simt":
         FLASH_DKV(q.data_ptr(), k.data_ptr(), v.data_ptr(), *ptrs,
                   dk.data_ptr(), dv.data_ptr(), rep.data_ptr(), *rest)
@@ -892,7 +1018,8 @@ def flash_decode_plain(q: torch.Tensor, k_pages: torch.Tensor,
                        page_table: torch.Tensor, *, ft: FTConfig,
                        scale: float, tau_dh: int,
                        inj: Optional[Sequence[int]] = None,
-                       inj_mag: float = 0.0, ranges: int = 1
+                       inj_mag: float = 0.0, ranges: int = 1,
+                       rng: Optional[Sequence[int]] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K6 in plain PyTorch: a walk over the page-table columns, vectorised
     over the (slot, kv head) rows.
@@ -910,7 +1037,8 @@ def flash_decode_plain(q: torch.Tensor, k_pages: torch.Tensor,
     rescale (tau over eff_kv = min(length − s·page, page), k field eff_kv).
     ``inj`` = [enable, g, 0, kv_step, row, col] adds ``inj_mag`` to Δ
     (enable 1) or to S (enable 2) of row g at that step, element (row,
-    col), if the step runs.
+    col), if the step runs. ``rng``, a campaign's triple, lands each row's
+    drawn SEU (`seu_decode_draws`) in Δ of its page after ``inj``.
 
     ``ranges`` cuts each row's live pages as the tensor-core instance does
     (`dkv_range_of`'s rule): each range runs its own online softmax (acc, m,
@@ -921,13 +1049,13 @@ def flash_decode_plain(q: torch.Tensor, k_pages: torch.Tensor,
     report."""
     acc, m, l, rep = _decode_ranges_plain(
         q, k_pages, v_pages, lengths, page_table, ft=ft, scale=scale,
-        tau_dh=tau_dh, inj=inj, inj_mag=inj_mag, ranges=ranges)
+        tau_dh=tau_dh, inj=inj, inj_mag=inj_mag, ranges=ranges, rng=rng)
     out, rep = combine_plain(acc, m, l, rep)
     return out.to(q.dtype), rep
 
 
 def _decode_ranges_plain(q, k_pages, v_pages, lengths, page_table, *, ft,
-                         scale, tau_dh, inj, inj_mag, ranges):
+                         scale, tau_dh, inj, inj_mag, ranges, rng=None):
     """The ranges of `flash_decode_plain`'s walk, unmerged: f32 acc (Z, G,
     bq, dh), m, l (Z, G, bq) and the reports (Z, G, 8); an empty range
     keeps (0, NEG_INF, 0) and a zero report."""
@@ -948,6 +1076,8 @@ def _decode_ranges_plain(q, k_pages, v_pages, lengths, page_table, *, ft,
     coef_qk = ft.rel_tau * F32EPS * tau_dh
     coef = ft.rel_tau * F32EPS
     hit = inj is not None and inj[0] in (INJ_DELTA, INJ_S) and inj[2] == 0
+    hook = seu_decode_draws(rng, ft, lengths.to(dev), kvh, page,
+                            table.shape[1], bq, dh)
     for s in range(table.shape[1]):
         kv_start = s * page
         run = kv_start < lens
@@ -980,6 +1110,9 @@ def _decode_ranges_plain(q, k_pages, v_pages, lengths, page_table, *, ft,
         delta = torch.matmul(p, vt)                                # (G, bq, dh)
         if hit and inj[0] == INJ_DELTA and s == inj[3]:
             _inject_decode(delta, inj, inj_mag, dh)
+        if hook is not None:
+            seu.land(delta, hook[0] & (hook[1] == s) & run, hook[2], hook[3],
+                     ft.inject_bit_shift)
         eff_kv = torch.clamp_max(lens - kv_start, page).float()
         delta = _check(
             delta, delta.sum(1) - _vm(p.sum(1), vt),
@@ -1092,13 +1225,16 @@ def flash_ft_decode(q: torch.Tensor, k_pages: torch.Tensor,
                     v_pages: torch.Tensor, lengths: torch.Tensor,
                     page_table: torch.Tensor, *, ft: FTConfig, scale: float,
                     tau_dh: int, inj: Optional[Sequence[int]] = None,
-                    inj_mag: float = 0.0, simt: bool = False
+                    inj_mag: float = 0.0, simt: bool = False,
+                    rng: Optional[Sequence[int]] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K6: a CPU tensor runs `planned_decode_plain`, a CUDA tensor launches
     the decode kernel `plan_decode` picks (on the tensor cores, then the
-    combine of its ranges) or raises. ``simt`` pins the SIMT kernel.
-    Returns what the plain version returns."""
-    kw = dict(ft=ft, scale=scale, tau_dh=tau_dh, inj=inj, inj_mag=inj_mag)
+    combine of its ranges) or raises. ``simt`` pins the SIMT kernel;
+    ``rng`` arms the stochastic hook (`seu_decode_draws`). Returns what the
+    plain version returns."""
+    kw = dict(ft=ft, scale=scale, tau_dh=tau_dh, inj=inj, inj_mag=inj_mag,
+              rng=rng)
     if q.device.type == "cpu":
         return planned_decode_plain(q, k_pages, v_pages, lengths, page_table,
                                     simt=simt, **kw)
@@ -1117,7 +1253,8 @@ def flash_ft_decode(q: torch.Tensor, k_pages: torch.Tensor,
     stream = torch.cuda.current_stream(q.device).cuda_stream
     tail = (b, kvh, bq, dh, page, mp, n_pages, DTYPE_CODES[q.dtype],
             int(ft.corrects), scale, ft.rel_tau * F32EPS * tau_dh,
-            ft.rel_tau * F32EPS, *inj, inj_mag, stream)
+            ft.rel_tau * F32EPS, *inj, inj_mag,
+            *seu_args(rng, ft, seu.SALT_DECODE), stream)
     ptrs = (q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             lengths.data_ptr(), page_table.data_ptr())
     if p.instance == "simt":

@@ -20,11 +20,11 @@ level of the GEMM fronts is ``ft.level`` ("block", "tile" or "inner"), with
 the "tile" level's band of rows taken from the tiles (`ft_gemm.band_of`).
 
 A stochastic injection campaign (``ft.inject_rate > 0`` with a key, a
-`torch.Generator`): the GEMM fronts encode the key into the kernels' triple
+`torch.Generator`): every front encodes the key into the kernels' triple
 (`flashft.encode_rng`) and every block of the launch draws its own SEU in
-kernel (`templates/seu.py`); the flash fronts raise on one
-(`core.fault_injection.check_campaign`: their hook is not ported yet), and
-a campaign never runs clean in silence.
+kernel (`templates/seu.py`), the GEMM fronts' and the flash fronts' alike
+(`core.fault_injection.check_campaign` raises only for a flash build
+without the hook), so a campaign never runs clean in silence.
 """
 from __future__ import annotations
 
@@ -287,7 +287,11 @@ def flash_ft(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     kernel does. As the reference's front, q, k and v are zero-padded along
     dh, here to the smallest compiled head dim at or above it (64 or 128),
     and the output sliced back: zero columns add nothing to any product or
-    checksum, so a located column is always below dh. Returns (out,
+    checksum, so a located column is always below dh. ``key`` arms the
+    stochastic hook when ``ft.inject_rate > 0``: one Bernoulli(rate) SEU
+    per (head, q block) lands in Δ = PV at a hash-drawn (live step, row,
+    col); dh is then padded to round_up(dh, 128), the reference's width, so
+    that every column the hook draws exists. Returns (out,
     report (BH, ceil(Sq / bq), 8)), or with ``save_stats`` (out, m, l,
     report): the per-row softmax statistics (BH, Sq) f32 the backward
     consumes, degenerate rows (NEG_INF, 0)."""
@@ -305,12 +309,14 @@ def flash_ft(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                skv=skv, bq=bq or kflash.BLOCK,
                                bkv=bkv or kflash.BLOCK, causal=causal)
     inj, mag = encode_flash_injection(spec, inj_bh, inj_q_block)
-    dp = _pad_dh(dh)
+    rng = kflash.encode_rng(key, ft)
+    tau_dh = -(-dh // 128) * 128
+    dp = tau_dh if kgemm.seu_armed(rng, ft) else _pad_dh(dh)
     res = kflash.flash_ft_fwd(
         _zero_pad(q, dp), _zero_pad(k, dp), _zero_pad(v, dp), ft=ft,
-        scale=dh ** -0.5, tau_dh=-(-dh // 128) * 128, n_rep=n_rep,
+        scale=dh ** -0.5, tau_dh=tau_dh, n_rep=n_rep,
         causal=causal, inj=inj, inj_mag=mag, bq=bq, bkv=bkv,
-        save_stats=save_stats)
+        save_stats=save_stats, rng=rng)
     if dp == dh:
         return res
     return (res[0][..., :dh].contiguous(),) + tuple(res[1:])
@@ -332,7 +338,9 @@ def flash_ft_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     `flash_ft` pads them (di comes from the unpadded g and o), and dq, dk,
     dv sliced back. ``inject`` / ``inj_target`` land a deterministic
     SEU in one named backward GEMM ("dp_q" | "dq" | "dp_kv" | "dv" | "dk",
-    see `flashft.encode_bwd_injection`). Returns
+    see `flashft.encode_bwd_injection`); ``key`` arms the stochastic hook
+    as in `flash_ft` (K3 in the dQ delta, K4 in the dV delta, each on its
+    own salt; dh padded to round_up(dh, 128)). Returns
     (dq, dk, dv, report_dq (BH, nqb, 8), report_dkv (BH / n_rep, nkvb, 8))."""
     check_campaign(ft, key)
     bh, sq, dh = q.shape
@@ -362,11 +370,13 @@ def flash_ft_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     inj_dq, inj_dkv, mag = kflash.encode_bwd_injection(inject, inj_target,
                                                        inj_bh, inj_blk)
     di = (g.float() * o.float()).sum(-1)
-    dp = _pad_dh(dh)
+    rng = kflash.encode_rng(key, ft)
+    tau_dh = -(-dh // 128) * 128
+    dp = tau_dh if kgemm.seu_armed(rng, ft) else _pad_dh(dh)
     q, k, v, g = (_zero_pad(x, dp) for x in (q, k, v, g))
     m, l = m.float().contiguous(), l.float().contiguous()
-    kw = dict(ft=ft, scale=dh ** -0.5, tau_dh=-(-dh // 128) * 128,
-              n_rep=n_rep, causal=causal, inj_mag=mag, bq=bq, bkv=bkv)
+    kw = dict(ft=ft, scale=dh ** -0.5, tau_dh=tau_dh, n_rep=n_rep,
+              causal=causal, inj_mag=mag, bq=bq, bkv=bkv, rng=rng)
     dq, rep_dq = kflash.flash_ft_dq(q, k, v, g, m, l, di, inj=inj_dq, **kw)
     dk, dv, rep_dkv = kflash.flash_ft_dkv(q, k, v, g, m, l, di, inj=inj_dkv,
                                           **kw)
@@ -393,8 +403,10 @@ def flash_ft_decode(q: torch.Tensor, k_pages: torch.Tensor,
     dtype's sublane multiple (8 rows in f32, 16 in bf16), as in the
     reference, and sliced off again. ``spec`` / ``inj_g`` land a
     deterministic SEU in Δ = PV of grid row ``inj_g`` (= slot·KVH + head) at
-    kv step ``spec.k_step``; it lands only if that step runs. Returns
-    (out (B, H, dh), report (B·KVH, 1, 8))."""
+    kv step ``spec.k_step``; it lands only if that step runs. ``key`` arms
+    the stochastic hook: one Bernoulli(rate) SEU per (slot, kv head) row
+    in Δ of one of its live pages. Returns (out (B, H, dh), report (B·KVH,
+    1, 8))."""
     check_campaign(ft, key)
     b, h, dh = q.shape
     n_pages, kvh, page, dh_k = k_pages.shape
@@ -428,5 +440,5 @@ def flash_ft_decode(q: torch.Tensor, k_pages: torch.Tensor,
     out, rep = kflash.flash_ft_decode(
         qg, k_pages, v_pages, lengths.to(torch.int32).contiguous(),
         page_table.to(torch.int32).contiguous(), ft=ft, scale=dh ** -0.5,
-        tau_dh=dh, inj=inj, inj_mag=mag)
+        tau_dh=dh, inj=inj, inj_mag=mag, rng=kflash.encode_rng(key, ft))
     return out[:, :n_rep].reshape(b, h, dh), rep

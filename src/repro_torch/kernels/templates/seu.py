@@ -1,6 +1,7 @@
-"""The in-kernel stochastic SEU hook of the GEMM family in plain PyTorch
-(counterpart of `repro/kernels/templates/emit.py:162-230`: the salts,
-`_mix32`, `stochastic_seu` and `apply_seu`).
+"""The in-kernel stochastic SEU hook in plain PyTorch (counterpart of
+`repro/kernels/templates/emit.py:162-230`: the salts, `_mix32`,
+`stochastic_seu` and `apply_seu`; the flash family's salts are
+`repro/kernels/flashft.py:96`).
 
 A campaign hands every FT kernel launch one triple ``rng`` = (enable, seed0,
 seed1) of int32 (`kernels.flashft.encode_rng`). Each stationary output
@@ -22,7 +23,10 @@ from typing import Sequence, Tuple, Union
 
 import torch
 
-#: Per-template salts of the GEMM family (the flash family owns 0x51-0x54).
+#: Per-kernel salts of the flash family: the forward (K2), dQ (K3), dK/dV
+#: (K4) and the paged decode (K6).
+SALT_FWD, SALT_DQ, SALT_DKV, SALT_DECODE = 0x51, 0x52, 0x53, 0x54
+#: Per-template salts of the GEMM family.
 SALT_GEMM2D = 0x55
 SALT_BATCHED = 0x56
 SALT_TGMM = 0x57

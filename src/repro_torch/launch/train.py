@@ -15,8 +15,8 @@ the CUDA kernels ("--backend pallas", the default) or, on a CPU device,
 their plain versions. The arch ids are those of `configs.registry`: the
 dense family and the MoE family (qwen3-moe-235b-a22b, arctic-480b).
 ``--inject-every N`` runs every N-th step under a stochastic SEU campaign
-at ``--inject-rate`` (per output block of each GEMM kernel), with the
-chunked attention core (the flash kernels take no campaign yet).
+at ``--inject-rate`` (per output block of each GEMM and flash-attention
+kernel, both directions).
 """
 from __future__ import annotations
 
@@ -53,13 +53,11 @@ def main(argv=None) -> dict:
         cfg = registry.get_config(args.arch)
     shape = ShapeConfig("cli", args.seq, args.batch, "train")
     ft = FT_OFF if args.no_ft else ONLINE_BLOCK.replace(backend=args.backend)
-    campaign = args.inject_every > 0
-    if campaign:
+    if args.inject_every > 0:
         ft = ft.replace(inject_rate=args.inject_rate)
     run = RunConfig(model=cfg, ft=ft, dtype=args.dtype,
                     learning_rate=args.lr, microbatch=args.microbatch,
-                    attn_chunk=min(128, args.seq),
-                    **({"attn_impl": "chunked"} if campaign else {}))
+                    attn_chunk=min(128, args.seq))
     tc = train_loop.TrainConfig(
         total_steps=args.steps, warmup_steps=max(args.steps // 10, 1),
         inject_every=args.inject_every)

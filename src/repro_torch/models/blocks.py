@@ -58,8 +58,9 @@ class Ctx:
     protected GEMM draws stochastic SEUs from its site's key, `subkey`),
     activation dtype, and the prefill attention core: "auto" (the flash
     kernel on the pallas FT backend, the chunked core elsewhere), "flash"
-    or "chunked". The flash kernels take no campaign yet: a campaign runs
-    with "chunked".
+    or "chunked". A campaign runs on either: the flash kernels draw their
+    SEUs in kernel, both directions, as the batched GEMMs of "chunked"
+    do.
 
     ``inject_sites`` limits a campaign to the named sites (the labels the
     GEMMs record their summaries under: "wq", "w_gate", "attn_qk", …):
@@ -269,7 +270,9 @@ class _FlashAttn(torch.autograd.Function):
     """Flash attention over head-major operands q3 (B·H, Sq, dh), k3, v3
     (B·KVH, Sk, dh). Forward: the flash kernel (K2) with the saved (m, l);
     backward: the dQ (K3) and dK/dV (K4) kernels over them, every backward
-    GEMM verified in-kernel. Returns (out3, det, maxres)."""
+    GEMM verified in-kernel. A campaign key is kept for the backward, which
+    draws its own stream from it folded with 0x5B (the reference's
+    `blocks.py:365`). Returns (out3, det, maxres)."""
 
     @staticmethod
     def forward(ctx, q3, k3, v3, ft, causal, key, bwd_inject):
@@ -279,6 +282,7 @@ class _FlashAttn(torch.autograd.Function):
                                        key=key, save_stats=True)
         ctx.save_for_backward(q3, k3, v3, out, m, l)
         ctx.ft, ctx.causal, ctx.bwd_inject = ft, causal, bwd_inject
+        ctx.key = key
         det, maxres = _flash_summary(rep)
         ctx.mark_non_differentiable(det, maxres)
         return out, det, maxres
@@ -290,7 +294,7 @@ class _FlashAttn(torch.autograd.Function):
         dq, dk, dv, _, _ = kops.flash_ft_bwd(
             q3, k3, v3, o3, m, l, g.to(q3.dtype), ft=ctx.ft,
             causal=ctx.causal, n_rep=q3.shape[0] // k3.shape[0],
-            **(ctx.bwd_inject or {}))
+            key=fold_in(ctx.key, 0x5B), **(ctx.bwd_inject or {}))
         return (dq, dk.to(k3.dtype), dv.to(v3.dtype), None, None, None,
                 None)
 
@@ -301,8 +305,7 @@ def _flash_attention(q, k, v, *, causal: bool, ft: FTConfig, key,
     kernels on head-major operands, recording one fused "attn_flash"
     summary of the forward (both in-kernel GEMMs share one report) outside
     the autograd Function: backward corrections are applied, not counted.
-    A campaign key raises here (`kernels.flashft.
-    SUPPORTS_STOCHASTIC_INJECTION`): run it with ``attn_impl="chunked"``."""
+    A campaign key draws in kernel, forward and backward."""
     from ..kernels import ops as kops
     b, sq, h, dh = q.shape
     _, sk, kvh, _ = k.shape

@@ -20,8 +20,8 @@
     state; `check_inject_sites` raises on an unknown label;
   * (e) rate 0 with a key is bit-identical to no key;
   * (f) a smoke phi4-mini `train` with ``inject_every=1`` detects and
-    corrects every SEU with the clean run's loss; a flash-path campaign
-    raises and names ``attn_impl="chunked"``.
+    corrects every SEU with the clean run's loss, on chunked and on flash
+    attention.
 
 Tolerances: integer-valued operands keep both sides exact where reports
 are compared (outputs to 1e-5, magnitudes and residuals to 1e-5 relative);
@@ -485,7 +485,13 @@ def test_launcher_runs_a_campaign():
     assert h["detected"] == h["corrected"] > 0
 
 
-def test_flash_path_campaign_raises():
-    ft = ONLINE_BLOCK.replace(backend="pallas", inject_rate=0.5)
-    with pytest.raises(NotImplementedError, match="attn_impl='chunked'"):
-        _train(ft, 1, steps=1, attn_impl="flash")
+def test_flash_path_campaign_detects_and_corrects():
+    """A campaign step on flash attention detects and corrects SEUs with
+    the clean step's loss (the flash kernels' draws:
+    `test_torch_flash_campaign.py`)."""
+    ft = ONLINE_BLOCK.replace(backend="pallas")
+    (clean,), _ = _train(ft, 0, steps=1, attn_impl="flash")
+    (hot,), _ = _train(ft.replace(inject_rate=0.5), 1, steps=1,
+                       attn_impl="flash")
+    assert clean[1] == 0 and hot[1] == hot[2] > 0
+    assert abs(hot[0] - clean[0]) <= 1e-3 * abs(clean[0])

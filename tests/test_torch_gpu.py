@@ -830,7 +830,7 @@ def test_decode_combine_matches_its_plain_version(cuda):
         table.data_ptr(), ws.data_ptr(), p.ranges, lens.shape[0], 4, 16, 128,
         64, table.shape[1], k.shape[0], 1, 1, 128 ** -0.5,
         FT.rel_tau * flashft.F32EPS * 128, FT.rel_tau * flashft.F32EPS, *inj, 0.0,
-        torch.cuda.current_stream().cuda_stream)
+        *ft_gemm.seu_args(None, FT, 0), torch.cuda.current_stream().cuda_stream)
     out = torch.empty_like(q)
     rep = torch.empty(g, 1, 8, device="cuda")
     flashft.FLASH_DECODE_COMBINE(ws.data_ptr(), out.data_ptr(),
@@ -1674,3 +1674,136 @@ def test_campaign_hook_matches_plain(cuda, idx):
     assert torch.equal(out, clean) and torch.equal(rep, rep0), name
     out, rep = call(FT.replace(inject_rate=0.0), TRIPLE)
     assert torch.equal(out, clean) and torch.equal(rep, rep0), name
+
+
+# ---------------------------------------------------------------------------
+# stochastic SEU campaigns: the in-kernel hook of K2, K3, K4 and K6
+# ---------------------------------------------------------------------------
+
+def _flash_campaign_cases():
+    """(name, kernels, call(ft, rng) -> (outs, rep), plain(ft, rng), hits(ft,
+    rng)) for every flash instance: K2, K3 and K4 (ranged) on the tensor
+    cores and the SIMT ones in f32, K6 on the tensor cores (ranged) and the
+    SIMT one in f32 and in bf16 at pages of 16."""
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    cases = []
+    f32, bf = torch.float32, torch.bfloat16
+    for name, dtype, bh, n_rep, sq, skv, causal in (
+            ("sm90", bf, 6, 3, 300, 300, True),
+            ("simt", f32, 4, 2, 100, 130, False)):
+        q = torch.randn(bh, sq, 128, generator=gen, device="cuda").to(dtype)
+        k, v = (torch.randn(bh // n_rep, skv, 128, generator=gen,
+                            device="cuda").to(dtype) for _ in range(2))
+        g = torch.randn(bh, sq, 128, generator=gen, device="cuda").to(dtype)
+        kw = dict(scale=128 ** -0.5, tau_dh=128, n_rep=n_rep, causal=causal)
+        o, m, l, _ = flashft.flash_ft_fwd(q, k, v, ft=FT, save_stats=True,
+                                          **kw)
+        di = (g.float() * o.float()).sum(-1)
+        shp = dict(causal=causal, device="cuda")
+
+        def fwd(ft, rng, q=q, k=k, v=v, kw=kw):
+            out, rep = flashft.flash_ft_fwd(q, k, v, ft=ft, rng=rng, **kw)
+            return (out,), rep
+
+        def fwd_p(ft, rng, q=q, k=k, v=v, kw=kw):
+            out, rep = flashft.flash_ft_plain(q, k, v, ft=ft, rng=rng, **kw)
+            return (out,), rep
+
+        def fwd_h(ft, rng, a=(bh, sq, skv), shp=shp):
+            return flashft.seu_fwd_draws(rng, ft, *a, 128, **shp)[0]
+
+        ops = (q, k, v, g, m, l, di)
+
+        def dq(ft, rng, ops=ops, kw=kw):
+            out, rep = flashft.flash_ft_dq(*ops, ft=ft, rng=rng, **kw)
+            return (out,), rep
+
+        def dq_p(ft, rng, ops=ops, kw=kw):
+            out, rep = flashft.flash_dq_plain(*ops, ft=ft, rng=rng, **kw)
+            return (out,), rep
+
+        def dq_h(ft, rng, a=(bh, sq, skv), shp=shp):
+            return flashft.seu_dq_draws(rng, ft, *a, 128, **shp)[0]
+
+        def dkv(ft, rng, ops=ops, kw=kw):
+            dk, dv, rep = flashft.flash_ft_dkv(*ops, ft=ft, rng=rng, **kw)
+            return (dk, dv), rep
+
+        def dkv_p(ft, rng, ops=ops, kw=kw):
+            dk, dv, rep = flashft.planned_dkv_plain(*ops, ft=ft, rng=rng,
+                                                    **kw)
+            return (dk, dv), rep
+
+        def dkv_h(ft, rng, a=(bh // n_rep, n_rep, sq, skv), shp=shp):
+            return flashft.seu_dkv_draws(rng, ft, *a, 128, **shp)[0]
+
+        sm = name == "sm90"
+        cases += [
+            (f"K2 {name}", flashft.FLASH_FT_SM90 if sm else flashft.FLASH_FT,
+             fwd, fwd_p, fwd_h),
+            (f"K3 {name}", flashft.FLASH_DQ_SM90 if sm else flashft.FLASH_DQ,
+             dq, dq_p, dq_h),
+            (f"K4 {name}", flashft.FLASH_DKV_SM90 if sm
+             else flashft.FLASH_DKV, dkv, dkv_p, dkv_h)]
+    for name, dtype, page, simt in (("sm90", bf, 32, False),
+                                    ("simt f32", f32, 32, True),
+                                    ("simt bf16 pages of 16", bf, 16, True)):
+        kvh, n_rep = 4, 7
+        q, k, v, lens, table = _decode_inputs(128, page, kvh, n_rep,
+                                              DECODE_LENGTHS, dtype, page)
+        kw = dict(scale=128 ** -0.5, tau_dh=128)
+
+        def dec(ft, rng, a=(q, k, v, lens, table), kw=kw, simt=simt):
+            out, rep = flashft.flash_ft_decode(*a, ft=ft, rng=rng, simt=simt,
+                                               **kw)
+            return (out,), rep
+
+        def dec_p(ft, rng, a=(q, k, v, lens, table), kw=kw, simt=simt):
+            out, rep = flashft.planned_decode_plain(*a, ft=ft, rng=rng,
+                                                    simt=simt, **kw)
+            return (out,), rep
+
+        def dec_h(ft, rng, lens=lens, page=page, mp=table.shape[1],
+                  bq=q.shape[1], kvh=kvh):
+            return flashft.seu_decode_draws(rng, ft, lens, kvh, page, mp, bq,
+                                            128)[0]
+        cases.append((f"K6 {name}", flashft.FLASH_DECODE if simt
+                      else flashft.FLASH_DECODE_SM90, dec, dec_p, dec_h))
+    return cases
+
+
+@pytest.mark.parametrize("idx", range(9))
+def test_flash_campaign_hook_matches_plain(cuda, idx):
+    """Each flash instance under a fixed triple at rate 1.0: reports equal
+    its planned plain version's in det / corr / row / col / k and tau, one
+    detection and one correction a drawn SEU, the outputs within the bf16
+    tolerance of the clean call's (f32: 1e-4); detect-only leaves the SEUs
+    in; rate 0 with the triple is bit-identical to no campaign."""
+    name, kernels, call, plain, hits = _flash_campaign_cases()[idx]
+    clean, rep0 = call(FT, None)
+    n_hit = int(hits(FT.replace(inject_rate=1.0), TRIPLE).sum())
+    assert n_hit > 0, name
+    for ft in (FT.replace(inject_rate=1.0),
+               FT.replace(inject_rate=1.0, action="detect")):
+        before = kernels.launches
+        outs, rep = call(ft, TRIPLE)
+        assert kernels.launches == before + 1, name
+        outs_p, rep_p = plain(ft, TRIPLE)
+        _check_fields(rep, rep_p)
+        assert float(rep[..., 0].sum()) == n_hit, name
+        for got, want, base in zip(outs, outs_p, clean):
+            _bf16_close(got, want)
+            if ft.corrects:
+                _bf16_close(got, base)
+        if ft.corrects:
+            assert float(rep[..., 1].sum()) == n_hit, name
+        else:
+            assert float(rep[..., 1].sum()) == 0.0, name
+            _left_in_place(torch.cat([x.flatten() for x in outs]),
+                           torch.cat([x.flatten() for x in clean]))
+    outs, rep = call(FT, (0, 0, 0))
+    assert all(torch.equal(x, y) for x, y in zip(outs, clean))
+    assert torch.equal(rep, rep0), name
+    outs, rep = call(FT.replace(inject_rate=0.0), TRIPLE)
+    assert all(torch.equal(x, y) for x, y in zip(outs, clean))
+    assert torch.equal(rep, rep0), name

@@ -163,10 +163,11 @@ def test_kernel_wrappers_take_no_other_device():
                   ft=tpolicy.ONLINE_BLOCK)
 
 
-def test_stochastic_campaign_on_kernel_backend_raises():
-    """The GEMM kernels run a campaign (every SEU corrected); the flash
-    kernels, which carry no stochastic hook yet, raise on one, and so does a
-    forward whose attention takes them."""
+def test_stochastic_campaign_on_kernel_backend_raises(monkeypatch):
+    """The GEMM and flash kernels run a campaign (every SEU corrected); a
+    flash build without the stochastic hook
+    (`flashft.SUPPORTS_STOCHASTIC_INJECTION` False) raises on one, and so
+    does a forward whose attention takes it."""
     ft = tpolicy.ONLINE_BLOCK.replace(backend="pallas", inject_rate=1.0)
     key = torch.Generator().manual_seed(0)
     a, b = torch.ones(4, 8), torch.ones(8, 4)
@@ -175,6 +176,11 @@ def test_stochastic_campaign_on_kernel_backend_raises():
     assert float(rep[..., 0].sum()) == float(rep[..., 1].sum()) == 1.0
     assert torch.equal(tcore.ft_dot(a, b, ft=ft, key=key), a @ b)
     q = torch.ones(2, 8, 16)
+    out, rep = tops.flash_ft(q, q, q, ft=ft, key=key)
+    assert torch.allclose(out, q)
+    assert float(rep[..., 0].sum()) == float(rep[..., 1].sum()) == 2.0
+    from repro_torch.kernels import flashft as tflash
+    monkeypatch.setattr(tflash, "SUPPORTS_STOCHASTIC_INJECTION", False)
     with pytest.raises(NotImplementedError):
         tops.flash_ft(q, q, q, ft=ft, key=key)
     cfg = treg.get_smoke("qwen2-7b")

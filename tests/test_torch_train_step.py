@@ -185,10 +185,14 @@ def test_train_cli_runs_on_the_cpu(capsys):
 
 @pytest.mark.parametrize("what", ["ckpt_dir", "resume", "compress_grads",
                                   "sink", "inject_every", "q8"])
-def test_unported_parts_of_the_loop_raise(what):
+def test_unported_parts_of_the_loop_raise(what, monkeypatch):
     """What the loop does not port raises. ``inject_every``: a campaign
-    through the flash attention kernels, whose stochastic hook is not
-    ported (the GEMM kernels' is: `test_torch_campaign.py`)."""
+    through flash attention kernels built without the stochastic hook
+    (`flashft.SUPPORTS_STOCHASTIC_INJECTION` False; the port's carry it:
+    `test_torch_flash_campaign.py`)."""
+    if what == "inject_every":
+        from repro_torch.kernels import flashft as tflash
+        monkeypatch.setattr(tflash, "SUPPORTS_STOCHASTIC_INJECTION", False)
     cfg = treg.get_smoke("phi4-mini-3.8b")
     rate = 0.5 if what == "inject_every" else 0.0
     run = TRun(model=cfg, ft=T_ONLINE.replace(backend="pallas",

@@ -1,10 +1,15 @@
-"""Device times of the GEMM family's tensor-core kernels (K1, K5, K7, K8) at
-their main-path shapes, clean (FT block, no campaign) and FT off, for one
-checkout of the port: the side of an A/B comparison of two commits on one
-card. Prints one JSON line {"src": ..., "times": {label: ms}}.
+"""Device times of the port's tensor-core kernels at their main-path
+shapes, clean (FT block, no campaign), for one checkout of the port: the
+GEMM family (K1, K5, K7, K8; K1 also FT off) or the flash family (K2 at
+qwen2-7b's prefill and phi4-mini's training shape, K3 and K4 at
+phi4-mini's training shape, K6 at the serving engine's 8 slots; each
+also on its SIMT instance, pinned as `chip_smoke.py` pins it): the side
+of an A/B comparison of two commits on one card. Prints one JSON line
+{"src": ..., "times": {label: ms}}.
 
     python3 tools/kernel_ab.py --src build/parent/src   # an older checkout
     python3 tools/kernel_ab.py --src src                # this one
+    python3 tools/kernel_ab.py --src src --family flash # K2, K3, K4, K6
 
 Run the two in turns in one call on the chip (parent, change, change,
 parent) and compare within the call: each process builds its checkout's
@@ -41,6 +46,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", required=True,
                     help="the src/ directory of the checkout to time")
+    ap.add_argument("--family", choices=("gemm", "flash"), default="gemm")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.src))
     import torch
@@ -57,6 +63,12 @@ def main() -> int:
         return (torch.randn(*shape, generator=gen, device="cuda") * scale
                 ).to(torch.bfloat16)
 
+    if args.family == "flash":
+        times = flash_times(torch, ft, rand, gen)
+        print(json.dumps({"src": args.src, "family": args.family,
+                          "card": torch.cuda.get_device_name(0),
+                          "times": times}))
+        return 0
     times = {}
     k1 = [("K1 decode w_gate+silu 4x3584x18944", 4, 3584, 18944, ("silu",),
            False),
@@ -98,6 +110,62 @@ def main() -> int:
     print(json.dumps({"src": args.src, "card": torch.cuda.get_device_name(0),
                       "times": times}))
     return 0
+
+
+def flash_times(torch, ft, rand, gen):
+    """K2, K3, K4 and K6 clean, through their wrappers (the plans pick the
+    tensor-core instances and K4's and K6's ranges), and each again on its
+    SIMT instance (pinned blocks; K6 pinned with ``simt``)."""
+    from repro_torch.kernels import flashft
+    times = {}
+    # K2: qwen2-7b's prefill (4 x 128 tokens, 28 heads / 4 kv heads) and
+    # phi4-mini's training forward (2 x 512, 24 / 8, with the statistics)
+    for label, b, s, h, kvh, stats in (("prefill 4x128 28/4", 4, 128, 28, 4,
+                                        False),
+                                       ("train 2x512 24/8 stats", 2, 512, 24,
+                                        8, True)):
+        q, k, v = rand(b * h, s, 128), rand(b * kvh, s, 128), \
+            rand(b * kvh, s, 128)
+        kw = dict(ft=ft, scale=128 ** -0.5, tau_dh=128, n_rep=h // kvh,
+                  causal=True, save_stats=stats)
+        times[f"K2 {label}"] = kernel_ms(
+            torch, lambda: flashft.flash_ft_fwd(q, k, v, **kw))
+        times[f"K2 simt {label}"] = kernel_ms(
+            torch, lambda: flashft.flash_ft_fwd(q, k, v, bq=64, bkv=64, **kw))
+    # K3 and K4: phi4-mini's training backward
+    kw = dict(ft=ft, scale=128 ** -0.5, tau_dh=128, n_rep=3, causal=True)
+    q, k, v, g = (rand(*shape) for shape in ((48, 512, 128), (16, 512, 128),
+                                             (16, 512, 128), (48, 512, 128)))
+    o, m, l, _ = flashft.flash_ft_fwd(q, k, v, save_stats=True, **kw)
+    di = (g.float() * o.float()).sum(-1)
+    times["K3 train 2x512 24/8"] = kernel_ms(
+        torch, lambda: flashft.flash_ft_dq(q, k, v, g, m, l, di, **kw))
+    times["K4 train 2x512 24/8 (with its reduce)"] = kernel_ms(
+        torch, lambda: flashft.flash_ft_dkv(q, k, v, g, m, l, di, **kw))
+    pin = dict(kw, bq=64, bkv=64)
+    times["K3 simt train 2x512 24/8"] = kernel_ms(
+        torch, lambda: flashft.flash_ft_dq(q, k, v, g, m, l, di, **pin))
+    times["K4 simt train 2x512 24/8"] = kernel_ms(
+        torch, lambda: flashft.flash_ft_dkv(q, k, v, g, m, l, di, **pin))
+    # K6: the engine's 8 slots of qwen2-7b (4 kv heads x 7 query rows,
+    # padded to 16), pages of 64, lengths up to 1024 (with its combine)
+    lengths = (0, 1, 63, 64, 65, 300, 777, 1024)
+    page, kvh = 64, 4
+    mp = -(-max(lengths) // page)
+    n_pages = 1 + len(lengths) * mp
+    kp, vp = rand(n_pages, kvh, page, 128), rand(n_pages, kvh, page, 128)
+    table = (torch.randperm(n_pages - 1, generator=gen, device="cuda")[
+        :len(lengths) * mp] + 1).view(len(lengths), mp).to(torch.int32)
+    lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    qd = torch.zeros(len(lengths) * kvh, 16, 128, device="cuda",
+                     dtype=torch.bfloat16)
+    qd[:, :7] = rand(len(lengths) * kvh, 7, 128)
+    for label, simt in (("", False), ("simt ", True)):
+        times[f"K6 {label}engine 8 slots 4x7 page 64"] = kernel_ms(
+            torch, lambda: flashft.flash_ft_decode(
+                qd, kp, vp, lens, table, ft=ft, scale=128 ** -0.5,
+                tau_dh=128, simt=simt))
+    return times
 
 
 if __name__ == "__main__":
