@@ -7,6 +7,7 @@
     python3 chip_smoke.py --phases env,kernels,decode_kernels,engine,train_kernels
     python3 chip_smoke.py --phases env,moe_kernels,moe_check,moe_engine,moe_train
     python3 chip_smoke.py --phases env,level_kernels,level_check,level_serve,ladder
+    python3 chip_smoke.py --phases env,level_kernels,level_train,level_moe
     python3 chip_smoke.py --phases env,campaign_kernels,campaign_train,campaign_train_chunked,moe_campaign
 
 Phases (each prints its own lines; any failed check exits non-zero):
@@ -68,7 +69,21 @@ Phases (each prints its own lines; any failed check exits non-zero):
                torch.matmul on the same clock and instance, its whole
                calls' CUDA-event times (the SIMT instance's too) under
                their own keys; the bound, the plain version and the
-               library call;
+               library call. Then the tile and inner levels of training and
+               MoE on their SIMT instances (the plans' rule) in bf16: K1's
+               w_gate+silu with act_grad and its dw on the transposed-A
+               walk at phi4-mini-3.8b's training shape (2 x 512 tokens), K7
+               at qwen3-moe-235b-a22b's decode gate and its training dbuf
+               product (the wᵀ view), K8 at its training dw gate (8 192
+               rows -> (128, 4 096, 1 536) f32): max error and reports
+               against the plain version under the same plan, no detection
+               on clean data, an SEU on integer-valued operands corrected
+               bit for bit, located and left by detect-only, at tile a
+               campaign at rate 1.0 plus an SEU in another band of one
+               block in the same interval (two SEUs in two bands, both
+               corrected); CUDA-event times beside the same instance at
+               block (pinned SIMT tiles), the tensor-core block call, the
+               library call and the bound;
   level_check  qwen2-7b at full width, 2 layers: prefill and 2 decode steps
                at each level through the kernels against their plain
                versions and against block (logits within 2e-2 of
@@ -215,34 +230,55 @@ Phases (each prints its own lines; any failed check exits non-zero):
                step, and one step each under torch.profiler on the
                tensor-core instances, on the SIMT K7 / K8 and on the SIMT
                K3 / K4;
+  level_train  `train_loop.train` on phi4-mini-3.8b at full width and depth,
+               2 x 512 tokens, `remat="full"`, 3 steps at block, tile and
+               inner from one seed: each level's losses within 1e-2 of
+               block's, zero detections, launches per step (K1 on the
+               tensor cores at block, on the SIMT instance at tile and
+               inner), step times, one more step under torch.profiler (busy
+               time, idle share); then at 2 layers x 256 tokens a
+               `bwd_inject` SEU in w_down's dw (the transposed-A walk) and
+               a campaign on w_gate (its forward act_grad kernel and its
+               backward GEMMs) at each level, corrected to the clean grads
+               by train_check's rule (1e-3) and left by detect-only
+               (>= 100x);
+  level_moe    qwen3-moe-235b-a22b at tile and inner: `ServeEngine` at full
+               width, 12 layers, 8 requests on 8 slots (decode ms per step,
+               prefill ms, TTFT, tokens/s, peak memory, launches: K1 and K7
+               on the SIMT instances, zero detections, pages back, one
+               profiled decode step), `train_loop.train` at 1 layer as
+               moe_train (3 steps, launches: K1, K7 and K8 on the SIMT
+               instances, one profiled step), and `bwd_inject` SEUs in
+               moe_gate's dw (K8) and dbuf (K7 on the wᵀ walk) corrected by
+               train_check's rule and left by detect-only;
   campaign_kernels  stochastic SEU campaigns on the GEMM family's eight
                instances (K1, K5, K7, K8, tensor cores and SIMT), each at a
                main-path shape and a shape with a tail block, on integer-
                valued operands under a fixed triple at rates 0.5 and 1.0:
-               reports equal to the planned plain version's, one detection
-               and correction per SEU the blocks draw (`templates/seu.py`),
-               the output the clean call's, detect-only controls, rate 0
-               the clean call bit for bit; the paper's Fig. 16 analogue on
-               K1's tensor-core instance at qwen2-7b's decode and prefill
+               reports equal to the planned plain version's, one detection and
+               correction per SEU the blocks draw (`templates/seu.py`), the
+               output the clean call's, detect-only controls, rate 0 the clean
+               call bit for bit; the paper's Fig. 16 analogue on K1's
+               tensor-core instance at qwen2-7b's decode and prefill
                w_gate+silu and a 4 096 square (clean, rate 0, rate 1.0, FT
-               off, torch.matmul; errors per call and per minute at rate
-               1.0; CUDA events, three rounds in turns), and K5, K7 and K8
-               at rate 0 and 1.0 beside their clean calls (K5 at decode by
-               its kernel's profiled time). Then the flash family's eight
-               instances on Gaussian bf16 (f32 for the SIMT ones) under the
-               same triple at rates 0.5 and 1.0: K2 on the tensor cores at
+               off, torch.matmul; errors per call and per minute at rate 1.0;
+               CUDA events, three rounds in turns), and K5, K7 and K8 at rate
+               0 and 1.0 beside their clean calls (K5 at decode by calls
+               queued behind a device-side sleep). Then the flash family's
+               eight instances on Gaussian bf16 (f32 for the SIMT ones) under
+               the same triple at rates 0.5 and 1.0: K2 on the tensor cores at
                the prefill shape and at phi4-mini's S 512, K3 and K4 at
-               phi4-mini's S 512 (K4 in 3 ranges), K6 at the engine's shape
-               (9 ranges), the SIMT K2, K3, K4 and K6 in f32 and K6 at pages
-               of 16: reports equal to the planned plain version's in det /
-               corr / row / col / k and tau, one detection and correction
-               per drawn SEU, the outputs within the bf16 tolerance of the
-               clean call's, detect-only leaving the SEUs in, rate 0 the
-               clean call; and the Fig. 16 table of K2 at the prefill shape,
-               K3 + K4 at S 512 and K6 at the engine's shape (the device
-               time of a call, its kernels back to back: CUDA events around
-               calls queued behind a device-side sleep, `queued_ms`; clean,
-               rate 0, rate 1.0, three rounds in turns);
+               phi4-mini's S 512 (K4 in 3 ranges), K6 at the engine's shape (9
+               ranges), the SIMT K2, K3, K4 and K6 in f32 and K6 at pages of
+               16: reports equal to the planned plain version's in det / corr
+               / row / col / k and tau, one detection and correction per drawn
+               SEU, the outputs within the bf16 tolerance of the clean call's,
+               detect-only leaving the SEUs in, rate 0 the clean call; and the
+               Fig. 16 table of K2 at the prefill shape, K3 + K4 at S 512 and
+               K6 at the engine's shape (the device time of a call, its
+               kernels back to back: CUDA events around calls queued behind a
+               device-side sleep, `queued_ms`; clean, rate 0, rate 1.0, three
+               rounds in turns);
   campaign_train  phi4-mini-3.8b at full width and depth, 2 x 512 tokens,
                `remat="full"`, the default (flash) attention, 4 steps from
                one initialisation three times: clean, a campaign at
@@ -580,15 +616,6 @@ def kernel_device_ms(fn, iters: int = 50) -> float:
     total = sum(hi - lo for _, lo, hi in spans)
     check(total > 0, "the profiler saw the call's kernels on the device")
     return total / iters / 1e3
-
-
-def kernel_mean_ms(fn, iters: int = 20) -> float:
-    """The mean device duration of the kernels ``fn`` launches under
-    `device_events` (one kernel a call: its device time), robust to a
-    trace that drops some of the calls' events."""
-    spans, _ = device_events(fn, iters, warmup=3)
-    check(len(spans) > 0, "the profiler saw the call's kernel on the device")
-    return sum(hi - lo for _, lo, hi in spans) / len(spans) / 1e3
 
 
 def queued_ms(fn, iters: int = 30, warmup: int = 3) -> float:
@@ -1515,6 +1542,7 @@ def phase_level_kernels():
                   and float(rep_d[..., 1].sum()) == 0.0 and n_det >= nb,
                   f"{level} {label}: the same SEU left in place by a "
                   f"detect-only policy ({n_det:.0f} detections)")
+    _merge_rows(rows, _level_training_kernels(gen))
     return rows
 
 
@@ -3556,6 +3584,687 @@ def phase_moe_train(smi: str):
 
 
 # ---------------------------------------------------------------------------
+# level_kernels: the tile and inner levels of training and MoE (K1 with
+# act_grad and on the dw walk, K7 on both walks, K8) on their SIMT instances
+# ---------------------------------------------------------------------------
+
+#: A campaign triple for the two-band checks: at rate 1.0 every block draws
+#: one SEU, and a deterministic SEU aimed at another band of one block in
+#: the same interval makes two SEUs in two bands of that block.
+BAND_TRIPLE = (1, 20260417, 77)
+
+
+def _timed(fn):
+    """(fn(), its CUDA-event time in ms) of one call."""
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    out = fn()
+    t1.record()
+    t1.synchronize()
+    return out, t0.elapsed_time(t1)
+
+
+def _next_band(r: int, band: int, rows: int) -> int:
+    """The row at r's offset in the next band (cyclically) of a block of
+    ``rows`` rows."""
+    return ((r // band + 1) % (rows // band)) * band + r % band
+
+
+def _first(x):
+    """C of a K1 call's output (C, or (C, act_grad))."""
+    return x[0] if isinstance(x, tuple) else x
+
+
+def _same(a, b) -> bool:
+    if isinstance(a, tuple):
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+    return torch.equal(a, b)
+
+
+@dataclasses.dataclass
+class _LevelCase:
+    """One instance at one training / MoE shape. ``call(ft, simt=False,
+    **kw)`` runs the wrapper (``simt`` pins the SIMT tiles at block, the
+    like-for-like row), ``plain(ft, **kw)`` the plain version under the
+    plan; ``ints`` the same case on integer-valued operands; ``seu`` the
+    deterministic SEU (inj, magnitude, (row, col)) of the integer case;
+    ``band_seu(ft)`` the (inj, report index, rows, cols) of a deterministic
+    SEU in another band of a block that the campaign at rate 1.0 hits in
+    the same interval; ``live`` the report rows to compare (K8: live
+    groups)."""
+    label: str
+    name: str
+    counter: object
+    call: object
+    plain: object
+    lib: object
+    lib_label: str
+    flops: float
+    nbytes: float
+    iters: int
+    ints: object = None
+    seu: object = None
+    band_seu: object = None
+    live: object = None
+
+
+def _level_k1_cases(gen):
+    """K1's w_gate + silu with act_grad and its dw on the transposed-A walk
+    at phi4-mini-3.8b's training shapes (2 x 512 tokens)."""
+    cfg = phi4_mini_38b.CONFIG
+    m, d, dff = TRAIN_BATCH * TRAIN_SEQ, cfg.d_model, cfg.d_ff
+    simt = ft_gemm.pick_tiles(m)
+
+    def gate(make):
+        a, b = make((m, d), 1.0), make((d, dff), 0.02)
+
+        def call(ft, simt_=False, **kw):
+            return ft_gemm.ft_gemm(a, b, chain=("silu",), ft=ft,
+                                   save_act_grad=True,
+                                   tiles=simt if simt_ else None, **kw)
+
+        def plain(ft, **kw):
+            return ft_gemm.planned_plain(a, b, chain=("silu",), ft=ft,
+                                         save_act_grad=True, **kw)
+        return a, b, call, plain
+
+    def dw(make):
+        x, g = make((m, d), 1.0), make((m, dff), 1.0)
+        a = x.t()                      # unit stride along m: LAYOUT 2
+
+        def call(ft, simt_=False, **kw):
+            return ft_gemm.ft_gemm(a, g, ft=ft,
+                                   tiles=ft_gemm.pick_tiles(d) if simt_
+                                   else None, **kw)
+
+        def plain(ft, **kw):
+            return ft_gemm.planned_plain(a, g, ft=ft, **kw)
+        return a, g, call, plain
+
+    def rnd(shape, scale):
+        return _rand(gen, *shape, scale=scale)
+
+    def ints(shape, scale):
+        return _ints(gen, *shape)
+
+    cases = []
+    for label, build_, (mm, nn, kk), nout in (
+            (f"train w_gate+silu act_grad {m}x{dff}x{d}", gate, (m, dff, d),
+             2),
+            (f"train dw w_gate x.T {d}x{dff}x{m}", dw, (d, dff, m), 1)):
+        a, b, call, plain = build_(rnd)
+        ai, bi, call_i, plain_i = build_(ints)
+        tiles = ft_gemm.pick_tiles(mm)
+        bm, bn, bk = tiles
+        row, col, step = mm - 1, nn - 3, ft_gemm.cdiv(kk, bk) // 2
+
+        def band_seu(ft, tiles=tiles, mm=mm, nn=nn, kk=kk):
+            gm, gn, gk = (ft_gemm.cdiv(mm, tiles[0]), ft_gemm.cdiv(nn, tiles[1]),
+                          ft_gemm.cdiv(kk, tiles[2]))
+            _, st, r, c = ft_gemm.seu_draws(BAND_TRIPLE, ft, 1, gm, gn, gk,
+                                            tiles, False)
+            i, j = 1, 1
+            r2 = i * tiles[0] + _next_band(int(r[0, i, j]),
+                                           ft_gemm.band_of(tiles), tiles[0])
+            c2 = j * tiles[1] + (int(c[0, i, j]) + 1) % tiles[1]
+            return ((1, -1, r2, c2, int(st[0, i, j])), (i, j),
+                    slice(i * tiles[0], (i + 1) * tiles[0]),
+                    slice(j * tiles[1], (j + 1) * tiles[1]))
+
+        cases.append(_LevelCase(
+            label=label, name="ft_gemm_2d", counter=ft_gemm.FT_GEMM_2D_SIMT,
+            call=call, plain=plain,
+            lib=(lambda a=a, b=b: torch.matmul(a, b)), lib_label="torch.matmul",
+            flops=2.0 * mm * nn * kk,
+            nbytes=2 * (mm * kk + kk * nn + nout * mm * nn), iters=3,
+            ints=(call_i, plain_i), seu=((1, -1, row, col, step), 1000.0,
+                                         (row, col)),
+            band_seu=band_seu))
+    return cases
+
+
+def _level_moe_cases(gen):
+    """K7 at the engine's decode gate and the training dbuf product (the wᵀ
+    view, LAYOUT 1), K8 at the training dw gate, at qwen3-moe-235b-a22b's
+    shapes (128 experts, d 4 096, expert d_ff 1 536)."""
+    d, f = MOE.d_model, MOE.moe.expert_d_ff
+    e, top_k = MOE.moe.n_experts, MOE.moe.top_k
+    dec_rows = ENGINE_SLOTS * top_k
+    train_rows = TRAIN_BATCH * TRAIN_SEQ * top_k
+    bm = kgrouped.plan_grouped(dec_rows, f, d, torch.bfloat16,
+                               n_groups=e)[0]
+    cases = []
+    for label, n_rows, transpose in (
+            (f"decode gate {dec_rows} rows {d}->{f}", dec_rows, False),
+            (f"train dbuf gate {train_rows} rows {f}->{d} (w^T view)",
+             train_rows, True)):
+        lay = _moe_layout(gen, n_rows, bm)
+        k, n = (f, d) if transpose else (d, f)
+        tiles = (bm, 128, 32)
+
+        def build_(make, lay=lay, k=k, n=n, n_rows=n_rows,
+                   transpose=transpose, tiles=tiles):
+            w = make(e, d, f)
+            w = w.transpose(-1, -2) if transpose else w
+            buf = kgrouped.scatter_rows(make(n_rows, k), lay)
+            args = (buf, w, lay.gid, lay.row_end)
+
+            def call(ft, simt_=False, **kw):
+                return grouped_gemm.ft_gemm_grouped(
+                    *args, ft=ft, tiles=tiles if simt_ else None, **kw)
+
+            def plain(ft, **kw):
+                return grouped_gemm.planned_grouped_plain(*args, ft=ft, **kw)
+            return buf, w, call, plain
+
+        buf, w, call, plain = build_(lambda *s: _rand(gen, *s, scale=0.02
+                                                      if len(s) == 3
+                                                      else 1.0))
+        ints = build_(lambda *s: _ints(gen, *s))[2:]
+        live_rows, live_e = _live(lay)
+        lib, lib_label = _library_grouped(buf, w, lay)
+        grp = e - 1                                  # the ragged last group
+        row, col = int(lay.row_end[grp]) - 1, n - 5
+        step = ft_gemm.cdiv(k, 32) // 2
+
+        def band_seu(ft, lay=lay, k=k, n=n, tiles=tiles):
+            gn, gk = ft_gemm.cdiv(n, 128), ft_gemm.cdiv(k, 32)
+            _, st, r, c = grouped_gemm.seu_tile_draws(
+                BAND_TRIPLE, ft, lay.num_tiles, gn, gk, tiles, "cuda")
+            i, j = int(lay.base[0]) // bm, 1    # the first live group's tile
+            r2 = i * bm + _next_band(int(r[i, j]),
+                                     ft_gemm.band_of(tiles, "grouped"),
+                                     bm)
+            c2 = j * 128 + (int(c[i, j]) + 1) % 128
+            return ((1, r2, c2, int(st[i, j])), (i, j),
+                    slice(i * bm, (i + 1) * bm), slice(j * 128, (j + 1) * 128))
+
+        cases.append(_LevelCase(
+            label=label, name="ft_gemm_grouped",
+            counter=grouped_gemm.FT_GEMM_GROUPED_SIMT, call=call, plain=plain,
+            lib=lib, lib_label=lib_label, flops=2.0 * live_rows * n * k,
+            nbytes=2 * (live_rows * k + live_e * k * n + live_rows * n),
+            iters=10 if n_rows == dec_rows else 3, ints=ints,
+            seu=((1, row, col, step), 1000.0, (row, col)),
+            band_seu=band_seu))
+    # K8 at the training dw of the gate: dw (128, 4 096, 1 536) f32
+    lay = _moe_layout(gen, train_rows, bm)
+    tiles = (bm, 64, 64)
+
+    def build8(make, scale):
+        x = kgrouped.scatter_rows(make(train_rows, d, 1.0), lay)
+        g = kgrouped.scatter_rows(make(train_rows, f, scale), lay)
+
+        def call(ft, simt_=False, **kw):
+            return grouped_gemm.tgmm(x, g, lay.row_end, bm=bm, ft=ft,
+                                     tiles=tiles if simt_ else None, **kw)
+
+        def plain(ft, **kw):
+            return grouped_gemm.planned_tgmm_plain(x, g, lay.row_end, bm=bm,
+                                                   ft=ft, **kw)
+        return x, g, call, plain
+
+    x, g, call, plain = build8(lambda *s: _rand(gen, *s[:-1], scale=s[-1]),
+                               1e-3)
+    ints = build8(lambda *s: _ints(gen, *s[:-1]), 1.0)[2:]
+    live_rows, live_e = _live(lay)
+    lib, lib_label, _ = _library_tgmm(x, g, lay)
+    tile = (int(lay.row_end[e - 1]) - 1) // bm     # the ragged last tile
+    first, _, re = grouped_gemm._group_span(lay.row_end, bm, lay.num_tiles)
+
+    def band_seu(ft):
+        gk, gn = ft_gemm.cdiv(d, 64), ft_gemm.cdiv(f, 64)
+        _, st, r, c = grouped_gemm.seu_dw_draws(
+            BAND_TRIPLE, ft, (re - first * bm).clamp_min(0), gk, gn, tiles)
+        grp = int(torch.nonzero(lay.counts > 0)[0])
+        ki, nj = 1, 1
+        r2 = ki * 64 + _next_band(int(r[grp, ki, nj]),
+                                  ft_gemm.band_of(tiles, "tgmm"), 64)
+        c2 = nj * 64 + (int(c[grp, ki, nj]) + 1) % 64
+        return ((1, r2, c2, int(first[grp]) + int(st[grp, ki, nj])),
+                (grp, ki, nj), (grp, slice(ki * 64, (ki + 1) * 64)),
+                slice(nj * 64, (nj + 1) * 64))
+
+    cases.append(_LevelCase(
+        label=f"train dw gate {train_rows} rows -> ({e}, {d}, {f}) f32",
+        name="tgmm", counter=grouped_gemm.TGMM_SIMT, call=call, plain=plain,
+        lib=lib, lib_label=lib_label, flops=2.0 * live_rows * d * f,
+        nbytes=2 * live_rows * (d + f) + 4 * e * d * f, iters=3, ints=ints,
+        seu=((1, d - 1, min(700, f - 1), tile), 500.0,
+             (d - 1, min(700, f - 1))),
+        band_seu=band_seu, live=lay.counts > 0))
+    return cases
+
+
+def _level_case(c: _LevelCase, rows):
+    """One instance at tile and inner against its plain version under the
+    same plan: max error, reports equal, no detection on clean data;
+    CUDA-event times beside the same instance at block, the tensor-core
+    block call and the library call; on integer-valued operands an SEU
+    corrected bit for bit and located and left by detect-only, and at tile
+    two SEUs in two bands of one block in one interval, both corrected."""
+    live = c.live if c.live is not None else Ellipsis
+    block_ms = time_ms(lambda: c.call(FT, simt_=True), c.iters)
+    sm90_ms = time_ms(lambda: c.call(FT), c.iters)
+    lib_ms = time_ms(c.lib, c.iters)
+    b_ms, b_by = bound(c.flops, c.nbytes)
+    for level in LEVELS:
+        ft = FT.replace(level=level)
+        (out, rep), nl = _launched(c.counter, lambda: c.call(ft))
+        check(nl == 1, f"{level} {c.label}: one launch of the SIMT instance "
+                       f"(the plan's rule)")
+        (out_p, rep_p), plain_ms = _timed(lambda: c.plain(ft))
+        pairs = (zip(("C", "act_grad"), out, out_p)
+                 if isinstance(out, tuple) else [("out", out, out_p)])
+        err = max(_cmp_outputs(f"{level} {c.label} {what}", got, want,
+                               rep[live], rep_p[live])
+                  for what, got, want in pairs)
+        del out_p, rep_p
+        ms = time_ms(lambda: c.call(ft), c.iters)
+        rows[c.name]["max_abs_err"] = max(rows[c.name]["max_abs_err"], err)
+        rows[c.name]["detail"].append(dict(
+            shape=f"{c.label} ({level})", level=level, ms=ms,
+            block_ms=block_ms, block_sm90_ms=sm90_ms, plain_ms=plain_ms,
+            library_ms=lib_ms, library=c.lib_label, bound_ms=b_ms,
+            bound_by=b_by))
+        print(f"  {level} {c.label}: SIMT {ms:.4f} ms ({ms / block_ms:.3f}x "
+              f"the SIMT block {block_ms:.4f}; tensor-core block "
+              f"{sm90_ms:.4f}), library {lib_ms:.4f} ms ({c.lib_label}), "
+              f"bound {b_ms:.5f} ms ({b_by}), plain {plain_ms:.1f} ms")
+    call_i, plain_i = c.ints
+    inj, mag, (row, col) = c.seu
+    for level in LEVELS:
+        ft = FT.replace(level=level)
+        clean, rep0 = call_i(ft)
+        check(float(rep0[..., 0].sum()) == 0.0,
+              f"{level} {c.label}: integer operands, clean run undetected")
+        fixed, rep = call_i(ft, inj=inj, inj_mag=mag)
+        cells = rep[rep[..., 0] > 0]
+        check(_same(fixed, clean) and float(rep[..., 0].sum()) == 1.0
+              and float(rep[..., 1].sum()) == 1.0
+              and int(cells[0, 2]) == row and int(cells[0, 3]) == col
+              and abs(float(cells[0, 4]) - mag) < 1e-2,
+              f"{level} {c.label}: SEU {inj} corrected bit for bit and "
+              f"located")
+        left, rep_d = call_i(ft.replace(action="detect"), inj=inj,
+                             inj_mag=mag)
+        diff = (_first(left) != _first(clean)).nonzero()
+        check(diff.shape[0] == 1 and tuple(diff[0, -2:].tolist()) ==
+              (row, col) and float(rep_d[..., 0].sum()) >= 1.0
+              and float(rep_d[..., 1].sum()) == 0.0,
+              f"{level} {c.label}: the same SEU left in place by a "
+              f"detect-only policy ({float(rep_d[..., 0].sum()):.0f} "
+              f"detections)")
+        if level != "tile":
+            continue
+        ftc = ft.replace(inject_rate=1.0)
+        inj2, cell, rs, cs = c.band_seu(ftc)
+        kw = dict(inj=inj2, inj_mag=mag, rng=BAND_TRIPLE)
+        fixed, rep = call_i(ftc, **kw)
+        _, rep_p = plain_i(ftc, **kw)
+        ok = torch.equal(rep[live][..., :4], rep_p[live][..., :4])
+        check(_same(fixed, clean) and ok
+              and float(rep[cell][0]) == float(rep[cell][1]) == 2.0,
+              f"tile {c.label}: a campaign at rate 1.0 and an SEU in another "
+              f"band of block {cell} at the same interval ({inj2}): both "
+              f"corrected ({float(rep[cell][1]):.0f} in that block, "
+              f"{float(rep[..., 1].sum()):.0f} in all), reports as the "
+              f"plain version's")
+        left, _ = call_i(ftc.replace(action="detect"), **kw)
+        moved = int((_first(left)[rs][..., cs] != _first(clean)[rs][..., cs])
+                    .sum())
+        check(moved >= 2, f"tile {c.label}: detect-only leaves both SEUs of "
+                          f"that block ({moved} elements moved)")
+
+
+def _level_training_kernels(gen):
+    """The new instances of this slice: K1 with act_grad and on the dw walk
+    at phi4-mini's training shapes, K7 (decode gate, training dbuf) and K8
+    (training dw) at qwen3-moe's, each at tile and inner."""
+    rows = {n: dict(max_abs_err=0.0, detail=[])
+            for n in ("ft_gemm_2d", "ft_gemm_grouped", "tgmm")}
+    for c in _level_k1_cases(gen):
+        _level_case(c, rows)
+        torch.cuda.empty_cache()
+    for c in _level_moe_cases(gen):
+        _level_case(c, rows)
+        torch.cuda.empty_cache()
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# level_train / level_moe: the training and MoE paths at tile and inner
+# ---------------------------------------------------------------------------
+
+#: steps of each level_train / level_moe training run (step 0 has lr 0)
+LEVEL_TRAIN_STEPS = 3
+#: the w_gate campaign of level_train's SEU check: the rate per output
+#: block (1 024 w_gate blocks at 2 layers x 256 tokens: about 10 SEUs)
+LEVEL_GATE_RATE = 1e-2
+
+
+def _train_run(cfg, run, shape, steps, label):
+    """`train_loop.train` on the card for ``steps`` steps with the launch
+    counters zeroed first: (out, per-step launch counts, step times in ms,
+    FT sites with a detection, peak GiB)."""
+    tc = train_loop.TrainConfig(log_every=1)
+    per_step = []
+
+    def log(msg):
+        per_step.append({n: k["counter"].launches
+                         for n, k in KERNELS.items()})
+        print(f"  {label}: {msg}", flush=True)
+
+    torch.cuda.reset_peak_memory_stats()
+    for k in KERNELS.values():
+        k["counter"].launches = 0
+    with telemetry.ft_scope() as scope:
+        out = train_loop.train(cfg, run, shape, tc, log=log, device="cuda",
+                               stop_at=steps)
+    sites = {s: t for s, t in scope.site_totals().items() if t["detected"]}
+    prev = {n: 0 for n in KERNELS}
+    launches = []
+    for snap in per_step:
+        launches.append({n: snap[n] - prev[n] for n in KERNELS})
+        prev = snap
+    times = [x * 1e3 for x in out["step_times"]]
+    return (out, launches, times, sites,
+            torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def _profile_step(cfg, run, shape, out, step):
+    """One more train step of ``out``'s params under torch.profiler."""
+    tc = train_loop.TrainConfig(log_every=1)
+    opt_cfg = adamw.AdamWConfig(lr=run.learning_rate,
+                                weight_decay=run.weight_decay,
+                                grad_clip=run.grad_clip)
+    step_fn = train_loop.make_train_step(cfg, run, opt_cfg, tc)
+    pipe = data_lib.for_model(cfg, shape, seed=run.seed)
+    batch = {k: torch.as_tensor(x, dtype=torch.long, device="cuda")
+             for k, x in pipe.batch_at(step).items()}
+    return device_profile(lambda: step_fn(out["params"], out["opt_state"],
+                                          batch, step))
+
+
+def _seu_rule(label, clean, hurt, left):
+    """train_check's rule: the corrected grads within 1e-3 worst-leaf
+    relative error of the clean ones, detect-only at least 100x further."""
+    def rel_err(grads):
+        return max(((grads[n].float() - clean[n].float()).norm()
+                    / clean[n].float().norm().clamp_min(1e-30)).item()
+                   for n in clean)
+    fixed, kept = rel_err(hurt), rel_err(left)
+    check(fixed <= 1e-3 and kept >= 100 * max(fixed, 1e-6),
+          f"{label} corrected: grads as the clean run's (worst leaf "
+          f"relative error {fixed:.3g}), detect-only leaves it ({kept:.3g})")
+
+
+def phase_level_train(smi: str):
+    """phi4-mini-3.8b trained at full width and depth at tile and inner
+    (and at block from the same seed, for the losses), then SEUs in a dw
+    and in w_gate's forward at 2 layers."""
+    cfg = phi4_mini_38b.CONFIG
+    shape = ShapeConfig("chip_smoke", TRAIN_SEQ, TRAIN_BATCH, "train")
+    n_l = cfg.n_layers
+    launches = {n: 0 for n in KERNELS}
+    summary, losses = {}, {}
+    for level in ("block",) + LEVELS:
+        run = RunConfig(model=cfg, ft=FT.replace(level=level),
+                        dtype="bfloat16", remat="full")
+        out, per, times, sites, peak = _train_run(
+            cfg, run, shape, LEVEL_TRAIN_STEPS, f"level_train {level}")
+        losses[level] = [h["loss"] for h in out["history"]]
+        step_ms = statistics.median(times[1:])
+        print(f"  {level}: steps {[round(x, 1) for x in times]} ms, median "
+              f"of steps 1-{LEVEL_TRAIN_STEPS - 1} {step_ms:.1f} ms "
+              f"({TRAIN_BATCH * TRAIN_SEQ / step_ms * 1e3:.1f} tokens/s), "
+              f"peak {peak:.1f} GiB, losses {losses[level]}, FT counters "
+              f"{[(h['detected'], h['corrected']) for h in out['history']]}, "
+              f"sites with detections {sites}")
+        print(f"  {level} launches per step {per[-1]}")
+        check(all(math.isfinite(x) for x in losses[level])
+              and all(h["detected"] == 0 for h in out["history"]),
+              f"level_train {level}: finite losses, zero detections")
+        expect = {**k1_launches(28 * n_l + 3, level), **k5_launches(0),
+                  **k2_launches(2 * n_l), **flash_bwd_launches(cfg, n_l),
+                  **k6_launches(0), **OFF_PATH}
+        check(all(x == expect for x in per),
+              f"level_train {level}: launches per step {expect} at every "
+              f"step (K1 on the "
+              f"{'tensor cores' if level == 'block' else 'SIMT instance'})")
+        if level != "block":
+            for n in launches:
+                launches[n] += sum(x[n] for x in per)
+            prof = _profile_step(cfg, run, shape, out, LEVEL_TRAIN_STEPS)
+            print(f"  {level} profiled step: {prof}")
+            summary[level] = dict(step_ms=times, median_step_ms=step_ms,
+                                  tokens_per_s=TRAIN_BATCH * TRAIN_SEQ
+                                  / step_ms * 1e3, peak_gib=peak,
+                                  losses=losses[level],
+                                  launches_per_step=per[-1], profile=prof)
+        del out
+        torch.cuda.empty_cache()
+    for level in LEVELS:
+        rel = max(abs(a - b) / abs(b) for a, b in zip(losses[level],
+                                                     losses["block"]))
+        check(rel <= 1e-2, f"level_train {level}: each step's loss within "
+                           f"1e-2 relative of block's from the same seed "
+                           f"(worst {rel:.3g}; bf16 outputs of f32 sums in "
+                           f"other orders, SIMT against tensor cores)")
+    # SEUs at 2 layers x 256 tokens: a bwd_inject SEU in w_down's dw (the
+    # transposed-A walk) and a campaign on w_gate (its forward act_grad
+    # kernel and its backward GEMMs), each corrected at each level.
+    cfg2 = dataclasses.replace(cfg, n_layers=CHECK_LAYERS)
+    params = transformer.init(cfg2, seed=5, dtype=torch.bfloat16)
+    params.requires_grad_(True)
+    tok = torch.randint(0, cfg2.vocab_size, (1, CHECK_SEQ + 1),
+                        generator=torch.Generator().manual_seed(5)).cuda()
+    batch = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+    dw_hook = ("w_down", ("dw", InjectionSpec(row=700, col=1000,
+                                              magnitude=64.0, k_step=0)))
+    for level in LEVELS:
+        ft = FT.replace(level=level)
+        ctx = Ctx(ft=ft, dtype=torch.bfloat16)
+        _, clean, tot = _grads_of(params, cfg2, batch, ctx)
+        check(tot["detected"] == 0, f"level_train {level}: clean 2-layer "
+                                    f"grads, zero detections")
+        before = ft_gemm.FT_GEMM_2D_SIMT.launches, ft_gemm.FT_GEMM_SM90.launches
+        _, hurt, _ = _grads_of(params, cfg2, batch,
+                               dataclasses.replace(ctx, bwd_inject=dw_hook))
+        simt = ft_gemm.FT_GEMM_2D_SIMT.launches - before[0]
+        sm90 = ft_gemm.FT_GEMM_SM90.launches - before[1]
+        _, left, _ = _grads_of(params, cfg2, batch, dataclasses.replace(
+            ctx, ft=ft.replace(action="detect"), bwd_inject=dw_hook))
+        check(simt == 28 * CHECK_LAYERS + 3 and sm90 == 0,
+              f"level_train {level}: every K1 call of the step on the SIMT "
+              f"instance ({simt})")
+        _seu_rule(f"level_train {level}: SEU in w_down's dw (LAYOUT 2)",
+                  clean, hurt, left)
+        del hurt, left
+        camp = dataclasses.replace(
+            ctx, ft=ft.replace(inject_rate=LEVEL_GATE_RATE),
+            key=torch.Generator().manual_seed(11), inject_sites=("w_gate",))
+        _, hurt, tot = _grads_of(params, cfg2, batch, camp)
+        _, left, tot_d = _grads_of(params, cfg2, batch, dataclasses.replace(
+            camp, ft=camp.ft.replace(action="detect")))
+        check(tot["detected"] > 0 and tot["detected"] == tot["corrected"]
+              and tot_d["corrected"] == 0,
+              f"level_train {level}: w_gate campaign at {LEVEL_GATE_RATE}: "
+              f"{tot['detected']:.0f} SEUs in the forward act_grad kernel "
+              f"detected and corrected (detect-only: {tot_d['detected']:.0f}"
+              f" detected, none corrected)")
+        _seu_rule(f"level_train {level}: SEUs in w_gate (forward act_grad, "
+                  f"backward dx / dw)", clean, hurt, left)
+        del clean, hurt, left
+    params.requires_grad_(False)
+    del params
+    print(json.dumps({"level_train": dict(
+        arch=cfg.arch_id, layers=n_l, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+        steps=LEVEL_TRAIN_STEPS, block_losses=losses["block"], **summary,
+        card=smi)}))
+    return launches
+
+
+def phase_level_moe(seed: int, smi: str):
+    """qwen3-moe-235b-a22b at tile and inner: the engine's decode at 12
+    layers, a one-layer train step, and SEUs in K7 (dbuf) and K8 (dw)."""
+    cfg = dataclasses.replace(MOE, n_layers=MOE_ENGINE_LAYERS)
+    print(f"  depth cut: {cfg.n_layers} of {MOE.n_layers} layers")
+    t0 = time.perf_counter()
+    params = transformer.init(cfg, seed=0, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    print(f"  init {time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(seed)
+    prompts, budgets = _prompts(rng, ENGINE_SLOTS, 16, 512, 8, 32,
+                                cfg.vocab_size)
+    ec = engine.EngineConfig(max_len=ENGINE_MAX_LEN, n_slots=ENGINE_SLOTS)
+    launches = {n: 0 for n in KERNELS}
+    summary = {}
+    for level in LEVELS:
+        run = RunConfig(model=cfg, ft=FT.replace(level=level),
+                        dtype="bfloat16")
+        eng = ProbeEngine(params, cfg, run, ec)
+        for p_, m in zip(prompts, budgets):
+            eng.submit(p_, max_new_tokens=m)
+        for k in KERNELS.values():
+            k["counter"].launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        with telemetry.ft_scope() as scope:
+            res = eng.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+            totals = scope.totals()
+        got = {n: k["counter"].launches for n, k in KERNELS.items()}
+        for n in launches:
+            launches[n] += got[n]
+        steps = len(eng.decode_ms)
+        n_tok = sum(len(r.tokens) for r in res)
+        dec_ms, pre_ms = (statistics.median(eng.decode_ms),
+                          statistics.median(eng.prefill_ms))
+        ttft = [r.ttft_s * 1e3 for r in res]
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        print(f"  engine {level}: {len(prompts)} requests, {steps} decode "
+              f"steps, {wall:.2f} s, {n_tok / wall:.2f} generated tokens/s; "
+              f"decode {dec_ms:.1f} ms per step (median), prefill "
+              f"{pre_ms:.1f} ms per request (median), TTFT median "
+              f"{statistics.median(ttft):.0f} ms; peak {peak:.2f} GiB; FT "
+              f"totals {totals}; launches {got}")
+        check([len(r.tokens) for r in res] == budgets
+              and eng.alloc.n_free == eng.plan.n_pages - 1
+              and totals["detected"] == 0,
+              f"level_moe engine {level}: every budget met, all pages back, "
+              f"zero detections")
+        per = 4 * cfg.n_layers + 1
+        calls = len(prompts) + steps
+        expect = {**k1_launches(per * calls, level), **k5_launches(0),
+                  **k2_launches(cfg.n_layers * len(prompts)), **NO_FLASH_BWD,
+                  **k6_launches(cfg.n_layers * steps),
+                  "ft_gemm_grouped_sm90": 0,
+                  "ft_gemm_grouped": 3 * cfg.n_layers * calls,
+                  "tgmm_sm90": 0, "tgmm": 0, "naive_gemm": 0}
+        check(got == expect,
+              f"level_moe engine {level}: K1 {per} and K7 "
+              f"{3 * cfg.n_layers} per prefill and per decode step, all on "
+              f"the SIMT instances; K2, K6 and its combine as at block")
+        eng_p = ProbeEngine(params, cfg, run, ec)
+        for p_, m in zip(prompts, budgets):
+            eng_p.submit(p_, max_new_tokens=m)
+        eng_p.step()                 # the admissions and a decode step
+        prof = device_profile(eng_p.step)
+        print(f"  engine {level} profiled decode step: {prof}")
+        summary[level] = dict(engine=dict(
+            requests=len(prompts), decode_steps=steps, run_s=wall,
+            generated_tokens=n_tok, tokens_per_s=n_tok / wall,
+            decode_ms_median=dec_ms, decode_ms=eng.decode_ms,
+            prefill_ms_median=pre_ms, ttft_ms_median=statistics.median(ttft),
+            peak_gib=peak, launches=got, profile=prof))
+        del eng, eng_p
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+    # One-layer training, as moe_train, at each level.
+    cfg1 = dataclasses.replace(MOE, n_layers=MOE_TRAIN_LAYERS)
+    shape = ShapeConfig("chip_smoke_moe", TRAIN_SEQ, TRAIN_BATCH, "train")
+    n_l = cfg1.n_layers
+    for level in LEVELS:
+        run = RunConfig(model=cfg1, ft=FT.replace(level=level),
+                        dtype="bfloat16", remat="full")
+        out, per, times, sites, peak = _train_run(
+            cfg1, run, shape, LEVEL_TRAIN_STEPS, f"level_moe train {level}")
+        for n in launches:
+            launches[n] += sum(x[n] for x in per)
+        losses = [h["loss"] for h in out["history"]]
+        auxes = [h["aux"] for h in out["history"]]
+        step_ms = statistics.median(times[1:])
+        print(f"  train {level}: steps {[round(x, 1) for x in times]} ms, "
+              f"median {step_ms:.1f} ms ({TRAIN_BATCH * TRAIN_SEQ / step_ms * 1e3:.1f}"
+              f" tokens/s), peak {peak:.1f} GiB, losses {losses}, aux "
+              f"{auxes}, sites with detections {sites}; launches per step "
+              f"{per[-1]}")
+        check(all(math.isfinite(x) for x in losses)
+              and all(math.isfinite(x) and x > 0 for x in auxes)
+              and all(h["detected"] == 0 for h in out["history"]),
+              f"level_moe train {level}: finite loss and aux, zero "
+              f"detections")
+        expect = {**k1_launches(16 * n_l + 3, level), **k5_launches(0),
+                  **k2_launches(2 * n_l), **flash_bwd_launches(cfg1, n_l),
+                  **k6_launches(0), "ft_gemm_grouped_sm90": 0,
+                  "ft_gemm_grouped": 9 * n_l, "tgmm_sm90": 0, "tgmm": 3 * n_l,
+                  "naive_gemm": 0}
+        check(all(x == expect for x in per),
+              f"level_moe train {level}: launches per step {expect} (K1, K7 "
+              f"and K8 on the SIMT instances)")
+        prof = _profile_step(cfg1, run, shape, out, LEVEL_TRAIN_STEPS)
+        print(f"  train {level} profiled step: {prof}")
+        summary[level]["train"] = dict(
+            step_ms=times, median_step_ms=step_ms, peak_gib=peak,
+            losses=losses, aux=auxes, launches_per_step=per[-1],
+            profile=prof)
+        del out
+        torch.cuda.empty_cache()
+    # SEUs in K8 (moe_gate's dw) and in K7 (moe_gate's dbuf, the wᵀ walk)
+    # at one layer x 256 tokens; buffer tile 0 is the first tile of the
+    # first non-empty group.
+    params = transformer.init(cfg1, seed=7, dtype=torch.bfloat16)
+    params.requires_grad_(True)
+    tok = torch.randint(0, cfg1.vocab_size, (1, CHECK_SEQ + 1),
+                        generator=torch.Generator().manual_seed(7)).cuda()
+    batch = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
+    hooks = {
+        "K8 moe_gate dw": ("moe_gate", ("dw", InjectionSpec(
+            row=700, col=1000, magnitude=1.0, k_step=0))),
+        "K7 moe_gate dbuf": ("moe_gate", ("dbuf", InjectionSpec(
+            row=0, col=100, magnitude=1.0, k_step=0))),
+    }
+    for level in LEVELS:
+        ft = FT.replace(level=level)
+        ctx = Ctx(ft=ft, dtype=torch.bfloat16)
+        _, clean, tot = _grads_of(params, cfg1, batch, ctx)
+        check(tot["detected"] == 0, f"level_moe {level}: clean grads, zero "
+                                    f"detections")
+        for label, hook in hooks.items():
+            _, hurt, _ = _grads_of(params, cfg1, batch,
+                                   dataclasses.replace(ctx, bwd_inject=hook))
+            _, left, _ = _grads_of(params, cfg1, batch, dataclasses.replace(
+                ctx, ft=ft.replace(action="detect"), bwd_inject=hook))
+            _seu_rule(f"level_moe {level}: SEU in {label}", clean, hurt, left)
+            del hurt, left
+        del clean
+    params.requires_grad_(False)
+    del params
+    print(json.dumps({"level_moe": dict(
+        arch=MOE.arch_id, engine_layers=MOE_ENGINE_LAYERS,
+        train_layers=MOE_TRAIN_LAYERS, slots=ENGINE_SLOTS, seed=seed,
+        prompt_lens=[len(p_) for p_ in prompts], budgets=budgets, **summary,
+        card=smi)}))
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # campaign_kernels / campaign_train / moe_campaign: stochastic SEU campaigns
 # ---------------------------------------------------------------------------
 
@@ -4067,8 +4776,10 @@ def phase_campaign_kernels():
                            "K8 sm90 train")]
     for label, _, call, _, _ in hook:
         # K5 at decode runs 0.004 ms on the device against 0.04 of host time
-        # a call: its time is the profiler's mean kernel duration (one
-        # kernel a call); the others CUDA events over back-to-back calls
+        # a call: its time is that of calls queued behind a device-side
+        # sleep (`queued_ms`, as the flash table's; a long run's profiler
+        # traces drop events); the others CUDA events over back-to-back
+        # calls
         row = {}
         t = {"clean": [], "rate 0": [], "rate 1.0": []}
         for _ in range(3):
@@ -4076,8 +4787,7 @@ def phase_campaign_kernels():
                                   ("rate 1.0", FT.replace(inject_rate=1.0),
                                    TRIPLE)):
                 fn = lambda: call(ft, rng)           # noqa: E731
-                t[name].append(kernel_mean_ms(fn, 20)
-                               if label.startswith("K5 sm90")
+                t[name].append(queued_ms(fn) if label.startswith("K5 sm90")
                                else time_ms(fn, 10))
         for name, xs in t.items():
             row[name + " ms"] = statistics.median(xs)
@@ -4396,8 +5106,8 @@ def main() -> int:
                     "level_kernels,level_check,level_serve,ladder,"
                     "decode_kernels,engine_check,engine,train_kernels,"
                     "train_check,train,moe_kernels,moe_check,moe_engine,"
-                    "moe_train,campaign_kernels,campaign_train,"
-                    "campaign_train_chunked,moe_campaign")
+                    "moe_train,level_train,level_moe,campaign_kernels,"
+                    "campaign_train,campaign_train_chunked,moe_campaign")
     ap.add_argument("--layers", type=int, default=qwen2_7b.CONFIG.n_layers,
                     help="serve and level_serve depth (the width is always "
                          "full)")
@@ -4412,7 +5122,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = None
-    rows, by_path, failed = {}, {}, []
+    rows, by_path, failed, late_rows = {}, {}, [], {}
     t_start = time.perf_counter()
     for phase in phases:
         t0 = time.perf_counter()
@@ -4427,7 +5137,9 @@ def main() -> int:
             elif phase == "serve":
                 by_path["serve"] = phase_serve(args.layers)
             elif phase == "level_kernels":
-                _merge_rows(rows, phase_level_kernels())
+                # merged after the loop: the SIMT K7 / K8 rows keep the
+                # moe_kernels phase's headline shape
+                late_rows = phase_level_kernels()
             elif phase == "level_check":
                 phase_level_check()
             elif phase == "level_serve":
@@ -4455,6 +5167,10 @@ def main() -> int:
                 by_path["moe_engine"] = phase_moe_engine(args.seed, smi)
             elif phase == "moe_train":
                 by_path["moe_train"] = phase_moe_train(smi)
+            elif phase == "level_train":
+                by_path["level_train"] = phase_level_train(smi)
+            elif phase == "level_moe":
+                by_path["level_moe"] = phase_level_moe(args.seed, smi)
             elif phase == "campaign_kernels":
                 phase_campaign_kernels()
             elif phase == "campaign_train":
@@ -4477,6 +5193,7 @@ def main() -> int:
         print(f"== {phase} done in {time.perf_counter() - t0:.1f} s",
               flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s")
+    _merge_rows(rows, late_rows)
     if failed:
         print(f"chip_smoke: FAILED phases {failed}", flush=True)
         return 1

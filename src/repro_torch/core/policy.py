@@ -4,10 +4,8 @@
 defaults, so a reference config translates one to one. The design space:
 
   * level   — where checksums are maintained ("inner"/"tile"/"block"). The
-              GEMM kernels K1 and K5 implement all three; the grouped
-              kernels K7 and K8 "block" only (the other two raise
-              `NotImplementedError`); the flash kernels have no level, as
-              in the reference.
+              GEMM kernels K1, K5, K7 and K8 implement all three; the
+              flash kernels have no level, as in the reference.
   * action  — "correct" (online ABFT: detect and correct on the fly),
               "detect" (offline ABFT, detect only) or "off".
   * fused   — True: checksums fused with the GEMM; False: the Ding-2011

@@ -64,9 +64,16 @@
 //       changes nothing. Tau takes the elapsed k and the running max|A|,
 //       max|B| as at the other levels (emit.py:369-378).
 //     The tile and inner levels are compiled for the serving chains (none,
-//     bias, silu, bias+silu) on the row-major walk, and for the plain chain
-//     on LAYOUT 1 (the transposed K cache of decode attention); not for
-//     LAYOUT 2, AG or GROUPED.
+//     bias, silu, bias+silu) on the row-major walk, for the plain chain on
+//     LAYOUT 1 (the transposed K cache of decode attention, w.T in dx) and
+//     LAYOUT 2 (x.T in dw: the staged A tile is As[k][m] on every walk, so
+//     a band's e^T A sums the same rows), for the training chains with an
+//     activation (silu, bias+silu) with AG, written after the final
+//     verification (tile) or the last step (inner) from the corrected
+//     block, and for GROUPED on both B walks. A GROUPED tile's band is the
+//     rows one warp owns, 2 of the 16-row tile and 1 of the f32 8-row one;
+//     its all-zero shortcut writes the clean record at every level, the one
+//     the walk would write (tau 1e-30 from max|A| = 0, k = K).
 // What bounds it on the H100: decode-shaped calls (M <= 16) are bound by
 // the bytes of B (the weights), prefill-shaped calls by operations. This
 // first version runs the MACs on the CUDA cores in f32 (no tensor cores, no
@@ -176,8 +183,6 @@ ft_gemm_kernel(const GemmArgs g) {
   constexpr bool BLOCK = FT && LEVEL == kLevelBlock;
   constexpr bool TILE = FT && LEVEL == kLevelTile;
   constexpr bool INNER = FT && LEVEL == kLevelInner;
-  static_assert(LEVEL == kLevelBlock || (!AG && !GROUPED && LAYOUT != 2),
-                "tile / inner are compiled for the serving instances only");
   // tile: NB bands of BAND rows, band t owned by warp t.
   constexpr int NB = TILE ? kWarps : 1;
   constexpr int BAND = TILE ? BM / kWarps : 1;
@@ -520,13 +525,22 @@ cudaError_t launch_tiles(int tiles, const GemmArgs& g, int batch,
 }
 
 // The tile (1) and inner (2) levels: the serving chains on the row-major
-// walk, the plain chain on LAYOUT 1.
+// walk, the plain chain on LAYOUT 1 and 2, the training chains with AG.
 template <typename T, int LEVEL>
 cudaError_t launch_level(int epi, int layout, bool ag, int tiles,
                          const GemmArgs& g, int batch, cudaStream_t st) {
+  if (ag && layout == 0 && epi == kEpiSilu)
+    return launch_tiles<T, true, kEpiSilu, 0, true, LEVEL>(tiles, g, batch,
+                                                            st);
+  if (ag && layout == 0 && epi == kEpiBiasSilu)
+    return launch_tiles<T, true, kEpiBiasSilu, 0, true, LEVEL>(tiles, g,
+                                                                batch, st);
   if (ag) return cudaErrorInvalidValue;
   if (layout == 1 && epi == kEpiNone)
     return launch_tiles<T, true, kEpiNone, 1, false, LEVEL>(tiles, g, batch,
+                                                             st);
+  if (layout == 2 && epi == kEpiNone)
+    return launch_tiles<T, true, kEpiNone, 2, false, LEVEL>(tiles, g, batch,
                                                              st);
   if (layout != 0) return cudaErrorInvalidValue;
   switch (epi) {
@@ -605,20 +619,40 @@ cudaError_t launch_ft(int ft, int level, int epi, int layout, bool ag,
 
 // K7: the grouped instances, by row tile (BM) and the walk of B's loads.
 // kernels/grouped_gemm.py:GROUPED_TILES lists the same tiles.
-template <typename T, bool FT>
+template <typename T, bool FT, int LEVEL>
 cudaError_t launch_grouped(int bm, int layout, const GemmArgs& g,
                            cudaStream_t st) {
   if (bm == 16 && layout == 0)
-    return launch<T, FT, kEpiNone, 0, false, 16, 128, 32, 2, 4, true>(g, 1, st);
+    return launch<T, FT, kEpiNone, 0, false, 16, 128, 32, 2, 4, true, LEVEL>(
+        g, 1, st);
   if (bm == 16 && layout == 1)
-    return launch<T, FT, kEpiNone, 1, false, 16, 128, 32, 2, 4, true>(g, 1, st);
+    return launch<T, FT, kEpiNone, 1, false, 16, 128, 32, 2, 4, true, LEVEL>(
+        g, 1, st);
   if constexpr (sizeof(T) == 4) {
     if (bm == 8 && layout == 0)
-      return launch<T, FT, kEpiNone, 0, false, 8, 128, 32, 1, 4, true>(g, 1, st);
+      return launch<T, FT, kEpiNone, 0, false, 8, 128, 32, 1, 4, true, LEVEL>(
+          g, 1, st);
     if (bm == 8 && layout == 1)
-      return launch<T, FT, kEpiNone, 1, false, 8, 128, 32, 1, 4, true>(g, 1, st);
+      return launch<T, FT, kEpiNone, 1, false, 8, 128, 32, 1, 4, true, LEVEL>(
+          g, 1, st);
   }
   return cudaErrorInvalidValue;
+}
+
+// Every grouped instance of one operand type: FT off, or FT at `level`.
+template <typename T>
+cudaError_t launch_grouped_ft(int ft, int level, int bm, int layout,
+                              const GemmArgs& g, cudaStream_t st) {
+  if (!ft) return launch_grouped<T, false, kLevelBlock>(bm, layout, g, st);
+  switch (level) {
+    case kLevelBlock:
+      return launch_grouped<T, true, kLevelBlock>(bm, layout, g, st);
+    case kLevelTile:
+      return launch_grouped<T, true, kLevelTile>(bm, layout, g, st);
+    case kLevelInner:
+      return launch_grouped<T, true, kLevelInner>(bm, layout, g, st);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -677,13 +711,14 @@ int ft_gemm_launch(const void* a, const void* b, const void* bias,
 // w: (G, K, N) with strides (swg, swk, swn); gid: int32 (T / bm,) the group
 // of each row tile; row_end: int32 (G,). out (T, N) and report
 // (T / bm, gn, 8) contiguous row-major. The injection row is a buffer row.
-// dtype: 0 f32, 1 bf16. layout: 1 when w's k stride is 1. Returns the
-// launch's cudaError_t.
+// dtype: 0 f32, 1 bf16. level: the FT Level (with ft = 1). layout: 1 when
+// w's k stride is 1. Returns the launch's cudaError_t.
 int ft_gemm_grouped_launch(const void* a, const void* w, const int* gid,
                            const int* row_end, void* out, float* rep, int T,
                            int N, int K, int G, int sam, int sak,
                            long long swg, int swk, int swn, int dtype,
-                           int ft, int bm, int layout, int verify_step,
+                           int ft, int level, int bm, int layout,
+                           int verify_step,
                            int corrects, float tau_coef, int inj_enable,
                            int inj_row, int inj_col, int inj_k,
                            float inj_mag, int seu_on, unsigned seu_seed,
@@ -701,11 +736,9 @@ int ft_gemm_grouped_launch(const void* a, const void* w, const int* gid,
   g.seu = seu::Args{seu_on, seu_seed, seu_rate, seu_shift};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return ft ? launch_grouped<float, true>(bm, layout, g, st)
-              : launch_grouped<float, false>(bm, layout, g, st);
+    return launch_grouped_ft<float>(ft, level, bm, layout, g, st);
   if (dtype == 1)
-    return ft ? launch_grouped<__nv_bfloat16, true>(bm, layout, g, st)
-              : launch_grouped<__nv_bfloat16, false>(bm, layout, g, st);
+    return launch_grouped_ft<__nv_bfloat16>(ft, level, bm, layout, g, st);
   return cudaErrorInvalidValue;
 }
 

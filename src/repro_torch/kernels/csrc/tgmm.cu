@@ -27,7 +27,24 @@
 //   * once only dead tiles remain and no SEU is aimed at them, the block no
 //     longer changes unless a verification corrects it: the remaining
 //     verifications are run until one leaves the block as it is, and the
-//     rest repeat its verdict, which is added to the report at once.
+//     rest repeat its verdict, which is added to the report at once;
+//   * LEVEL, the paper's threadblock / warp / thread granularities
+//     (reference emit.py:658-711), a compile-time parameter:
+//     0 block: the scheme above;
+//     1 tile (warp level): one running column checksum per band of dw's K
+//       rows, the 8 rows one warp owns in the thread layout (the reference
+//       bands bk by its 128-row MXU edge), beside the row checksum of every
+//       dw row; each band is verified, located and corrected on its own
+//       (verify_bands), so one SEU per band per interval is corrected; the
+//       group's final verification runs band by band too;
+//     2 inner (thread level): each row tile's contribution Δ = X_tᵀ·G_t is
+//       accumulated in a second register tile, verified alone against the
+//       tile's own checksums, corrected in Δ and then added to the block;
+//       no running checksums and no final verification. A dead tile's Δ is
+//       zero and its verdict repeats the last live tile's record, so the
+//       walk stops at the last live tile unless an SEU is aimed past it.
+//     tau takes the live rows reduced so far and the running max|X|, max|G|
+//     at every level.
 // What bounds it on the H100: operations (2·T·K·N), with dw's f32 write
 // second. This first version runs on the CUDA cores in f32 with a small
 // block per CTA; PERF.md carries its times.
@@ -51,6 +68,8 @@ using namespace abft;
 
 constexpr int kBK = 64, kBN = 64, kTM = 4, kTN = 4;
 
+enum Level { kLevelBlock = 0, kLevelTile = 1, kLevelInner = 2 };
+
 struct TgmmArgs {
   const void* x;           // (T, K), strides (sxr, sxk)
   const void* g;           // (T, N), strides (sgr, sgn)
@@ -67,16 +86,26 @@ struct TgmmArgs {
   seu::Args seu;           // the stochastic hook's campaign
 };
 
-template <typename T, bool FT, int BM>
+template <typename T, bool FT, int BM, int LEVEL>
 __global__ void __launch_bounds__(kThreads) tgmm_kernel(const TgmmArgs a) {
   constexpr int TX = kBN / kTN, TY = kBK / kTM;
   static_assert(TX * TY == kThreads, "thread tile must cover the block");
+  constexpr bool TILE = FT && LEVEL == kLevelTile;
+  constexpr bool INNER = FT && LEVEL == kLevelInner;
+  // tile: NB bands of BAND dw rows, band t owned by warp t.
+  constexpr int NB = TILE ? kWarps : 1;
+  constexpr int BAND = TILE ? kBK / kWarps : 1;
+  static_assert(!TILE || (32 % TX == 0 && BAND == (32 / TX) * kTM),
+                "a tile-level band is the dw rows one warp owns");
 
   __shared__ float Xs[BM][kBK + 1];
   __shared__ float Gs[BM][kBN];
   __shared__ float Cs[kBK][kBN + 1];
   __shared__ float colck[kBN], rowck[kBK], xsum[BM], gsum[BM], red[kWarps];
   __shared__ VerifySmem<kBK, kBN> vs;
+  // tile: each band's running column checksum and X e over its K rows.
+  __shared__ float colck_t[NB][TILE ? kBN : 1], xsum_t[BM][TILE ? NB : 1];
+  __shared__ BandSmem<NB, BAND, TILE ? kBN : 1> bs;
 
   const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX;
   const int ni = blockIdx.x, ki = blockIdx.y, grp = blockIdx.z;
@@ -108,6 +137,7 @@ __global__ void __launch_bounds__(kThreads) tgmm_kernel(const TgmmArgs a) {
                          a.inj_col < n0 + kBN;
 
   float acc[kTM][kTN];
+  float dlt[kTM][kTN];   // inner: this row tile's Δ
 #pragma unroll
   for (int i = 0; i < kTM; ++i)
 #pragma unroll
@@ -118,24 +148,41 @@ __global__ void __launch_bounds__(kThreads) tgmm_kernel(const TgmmArgs a) {
     for (int i = tid; i < kBN; i += kThreads) colck[i] = 0.0f;
     for (int i = tid; i < kBK; i += kThreads) rowck[i] = 0.0f;
   }
+  if constexpr (TILE)
+    for (int i = tid; i < NB * kBN; i += kThreads)
+      colck_t[i / kBN][i % kBN] = 0.0f;
 
-  // One verification of the block (all threads); returns the verdict and
-  // applies the correction.
-  auto verify = [&](int t) -> Verdict {
+  // One verification (all threads) of the block x: the accumulator, or Δ
+  // at the inner level; applies the corrections and returns the number of
+  // detections (over the bands at the tile level).
+  auto verify = [&](int t, float (&x)[kTM][kTN]) -> int {
     const float rows = (float)max(min((t + 1) * BM, row_hi) - base, 1);
     const float am = block_max(amax, red), gm = block_max(gmax, red);
     const float tau = fmaxf(a.tau_coef * rows * am * gm, 1e-30f);
 #pragma unroll
     for (int i = 0; i < kTM; ++i)
 #pragma unroll
-      for (int j = 0; j < kTN; ++j) Cs[ty * kTM + i][tx * kTN + j] = acc[i][j];
+      for (int j = 0; j < kTN; ++j) Cs[ty * kTM + i][tx * kTN + j] = x[i][j];
     __syncthreads();
-    const Verdict v = verify_block<kBK, kBN>(&Cs[0][0], kBN + 1, colck, rowck,
-                                             tau, rows, a.corrects, k0, n0,
-                                             vs, rep);
-    if (a.corrects && v.det && v.row / kTM == ty && v.col / kTN == tx)
-      acc[v.row % kTM][v.col % kTN] -= v.mag;
-    return v;
+    if constexpr (TILE) {
+      verify_bands<NB, BAND, kBN>(&Cs[0][0], kBN + 1, &colck_t[0][0], rowck,
+                                  tau, rows, a.corrects, k0, n0, bs, rep);
+      int det = 0;
+      for (int b = 0; b < NB; ++b) {
+        const Verdict v = bs.v[b];
+        det += v.det;
+        if (a.corrects && v.det && v.row / kTM == ty && v.col / kTN == tx)
+          x[v.row % kTM][v.col % kTN] -= v.mag;
+      }
+      return det;
+    } else {
+      const Verdict v = verify_block<kBK, kBN>(&Cs[0][0], kBN + 1, colck,
+                                               rowck, tau, rows, a.corrects,
+                                               k0, n0, vs, rep);
+      if (a.corrects && v.det && v.row / kTM == ty && v.col / kTN == tx)
+        x[v.row % kTM][v.col % kTN] -= v.mag;
+      return v.det;
+    }
   };
 
   for (int t = t_first; t < t_end; ++t) {
@@ -143,14 +190,16 @@ __global__ void __launch_bounds__(kThreads) tgmm_kernel(const TgmmArgs a) {
     if (!live) {
       if (!FT) break;
       if (!(inj_block && a.inj_k >= t && a.inj_k < t_end)) {
-        // Only dead tiles remain and no SEU comes: verifications change the
-        // block only by correcting it; once one leaves it as it is, the
-        // remaining ones repeat its verdict.
+        // Only dead tiles remain and no SEU comes. Inner: their Δ is zero
+        // and each verdict repeats the last live tile's record. Block and
+        // tile: verifications change the block only by correcting it; once
+        // one leaves it as it is, the remaining ones repeat its verdict.
+        if (INNER) break;
         const int nv = a.verify_step ? t_end - t : 1;
         for (int q = 0; q < nv; ++q) {
-          const Verdict v = verify(t_end - 1);
-          if (!(v.det && a.corrects)) {
-            if (tid == 0) rep[0] += (float)(v.det * (nv - 1 - q));
+          const int det = verify(t_end - 1, acc);
+          if (!(det && a.corrects)) {
+            if (tid == 0) rep[0] += (float)(det * (nv - 1 - q));
             break;
           }
         }
@@ -158,6 +207,17 @@ __global__ void __launch_bounds__(kThreads) tgmm_kernel(const TgmmArgs a) {
       }
     }
     const int r0 = t * BM;
+    if constexpr (INNER) {
+#pragma unroll
+      for (int i = 0; i < kTM; ++i)
+#pragma unroll
+        for (int j = 0; j < kTN; ++j) dlt[i][j] = 0.0f;
+      if (!live) {   // a dead tile's own checksums are zero
+        __syncthreads();
+        for (int i = tid; i < kBN; i += kThreads) colck[i] = 0.0f;
+        for (int i = tid; i < kBK; i += kThreads) rowck[i] = 0.0f;
+      }
+    }
     if (live) {
       __syncthreads();
       for (int idx = tid; idx < BM * kBK; idx += kThreads) {
@@ -177,7 +237,16 @@ __global__ void __launch_bounds__(kThreads) tgmm_kernel(const TgmmArgs a) {
         if (FT) gmax = fmaxf(gmax, fabsf(v));
       }
       __syncthreads();
-      if (FT) {
+      if constexpr (TILE) {
+        // X e over each band's K rows
+        for (int i = tid; i < BM * NB; i += kThreads) {
+          const int r = i / NB, b = i % NB;
+          float c = 0.0f;
+          for (int q = 0; q < BAND; ++q) c += Xs[r][b * BAND + q];
+          xsum_t[r][b] = c;
+        }
+        row_sums(&Gs[0][0], BM, kBN, kBN, gsum);       // G e_N
+      } else if (FT) {
         row_sums(&Xs[0][0], BM, kBK, kBK + 1, xsum);   // X e_K
         row_sums(&Gs[0][0], BM, kBN, kBN, gsum);       // G e_N
       }
@@ -191,27 +260,47 @@ __global__ void __launch_bounds__(kThreads) tgmm_kernel(const TgmmArgs a) {
 #pragma unroll
         for (int i = 0; i < kTM; ++i)
 #pragma unroll
-          for (int j = 0; j < kTN; ++j) acc[i][j] = fmaf(xv[i], gv[j], acc[i][j]);
+          for (int j = 0; j < kTN; ++j) {
+            if constexpr (INNER) dlt[i][j] = fmaf(xv[i], gv[j], dlt[i][j]);
+            else acc[i][j] = fmaf(xv[i], gv[j], acc[i][j]);
+          }
       }
       if (FT) {
         __syncthreads();   // xsum / gsum complete
-        for (int n = tid; n < kBN; n += kThreads) {
-          float c = 0.0f;
-          for (int r = 0; r < BM; ++r) c = fmaf(xsum[r], Gs[r][n], c);
-          colck[n] += c;
+        // Column checksums: the block's (running), each band's (tile,
+        // running) or this tile's alone (inner); row checksums likewise.
+        if constexpr (TILE) {
+          for (int i = tid; i < NB * kBN; i += kThreads) {
+            const int b = i / kBN, n = i % kBN;
+            float c = 0.0f;
+            for (int r = 0; r < BM; ++r) c = fmaf(xsum_t[r][b], Gs[r][n], c);
+            colck_t[b][n] += c;
+          }
+        } else {
+          for (int n = tid; n < kBN; n += kThreads) {
+            float c = 0.0f;
+            for (int r = 0; r < BM; ++r) c = fmaf(xsum[r], Gs[r][n], c);
+            if constexpr (INNER) colck[n] = c;
+            else colck[n] += c;
+          }
         }
         for (int k = tid; k < kBK; k += kThreads) {
           float c = 0.0f;
           for (int r = 0; r < BM; ++r) c = fmaf(Xs[r][k], gsum[r], c);
-          rowck[k] += c;
+          if constexpr (INNER) rowck[k] = c;
+          else rowck[k] += c;
         }
       }
     }
     if (!FT) continue;
-    // Emulated SEU on this tile's contribution (deterministic injection).
+    // Emulated SEU on this tile's contribution (deterministic injection),
+    // in Δ at the inner level.
     if (inj_block && t == a.inj_k) {
       const int rl = a.inj_row - k0, cl = a.inj_col - n0;
-      if (rl / kTM == ty && cl / kTN == tx) acc[rl % kTM][cl % kTN] += a.inj_mag;
+      if (rl / kTM == ty && cl / kTN == tx) {
+        if constexpr (INNER) dlt[rl % kTM][cl % kTN] += a.inj_mag;
+        else acc[rl % kTM][cl % kTN] += a.inj_mag;
+      }
     }
     // Stochastic SEU: this tile's own product at the element (a hit tile
     // holds a live row, so it was staged above).
@@ -219,9 +308,20 @@ __global__ void __launch_bounds__(kThreads) tgmm_kernel(const TgmmArgs a) {
         sh.col / kTN == tx) {
       float d = 0.0f;
       for (int r = 0; r < BM; ++r) d = fmaf(Xs[r][sh.row], Gs[r][sh.col], d);
-      acc[sh.row % kTM][sh.col % kTN] += seu::magnitude(d, a.seu.shift);
+      const float mag = seu::magnitude(d, a.seu.shift);
+      if constexpr (INNER) dlt[sh.row % kTM][sh.col % kTN] += mag;
+      else acc[sh.row % kTM][sh.col % kTN] += mag;
     }
-    if (a.verify_step || t == t_end - 1) verify(t);
+    if constexpr (INNER) {
+      // Verify Δ alone, correct it, then accumulate it.
+      verify(t, dlt);
+#pragma unroll
+      for (int i = 0; i < kTM; ++i)
+#pragma unroll
+        for (int j = 0; j < kTN; ++j) acc[i][j] += dlt[i][j];
+    } else if (a.verify_step || t == t_end - 1) {
+      verify(t, acc);
+    }
   }
 
   // ---- one write of the block and its report ---------------------------
@@ -239,25 +339,38 @@ __global__ void __launch_bounds__(kThreads) tgmm_kernel(const TgmmArgs a) {
   }
 }
 
-template <typename T, bool FT, int BM>
+template <typename T, bool FT, int BM, int LEVEL>
 cudaError_t launch(TgmmArgs a, cudaStream_t stream) {
   a.gk = (a.K + kBK - 1) / kBK;
   a.gn = (a.N + kBN - 1) / kBN;
   if (a.gk > 65535 || a.G > 65535) return cudaErrorInvalidConfiguration;
   dim3 grid(a.gn, a.gk, a.G);
-  tgmm_kernel<T, FT, BM><<<grid, kThreads, 0, stream>>>(a);
+  tgmm_kernel<T, FT, BM, LEVEL><<<grid, kThreads, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
 // Row tiles (BM) per dtype; kernels/grouped_gemm.py:TGMM_TILES lists the
 // same table.
-template <typename T, bool FT>
+template <typename T, bool FT, int LEVEL>
 cudaError_t launch_bm(int bm, const TgmmArgs& a, cudaStream_t st) {
-  if (bm == 16) return launch<T, FT, 16>(a, st);
+  if (bm == 16) return launch<T, FT, 16, LEVEL>(a, st);
   if constexpr (sizeof(T) == 4) {
-    if (bm == 8) return launch<T, FT, 8>(a, st);
+    if (bm == 8) return launch<T, FT, 8, LEVEL>(a, st);
   }
   return cudaErrorInvalidValue;
+}
+
+// Every instance of one operand type: FT off, or FT at `level`.
+template <typename T>
+cudaError_t launch_ft(int ft, int level, int bm, const TgmmArgs& a,
+                      cudaStream_t st) {
+  if (!ft) return launch_bm<T, false, kLevelBlock>(bm, a, st);
+  switch (level) {
+    case kLevelBlock: return launch_bm<T, true, kLevelBlock>(bm, a, st);
+    case kLevelTile: return launch_bm<T, true, kLevelTile>(bm, a, st);
+    case kLevelInner: return launch_bm<T, true, kLevelInner>(bm, a, st);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -270,12 +383,13 @@ const char* tgmm_error_string(int code) {
 
 // x (T, K) and g (T, N) with element strides; row_end int32 (G,); out
 // (G, K, N) f32 and report (G, ceil(K/64), ceil(N/64), 8) contiguous.
-// dtype: 0 f32, 1 bf16. bm: the layout's row tile (T a multiple of it).
-// The injection's row and col index dw, inj_k is a buffer row tile.
-// Returns the launch's cudaError_t.
+// dtype: 0 f32, 1 bf16. level: the FT Level (with ft = 1). bm: the
+// layout's row tile (T a multiple of it). The injection's row and col index
+// dw, inj_k is a buffer row tile. Returns the launch's cudaError_t.
 int tgmm_launch(const void* x, const void* g, const int* row_end, float* out,
                 float* rep, int T, int K, int N, int G, int sxr, int sxk,
-                int sgr, int sgn, int dtype, int ft, int bm, int verify_step,
+                int sgr, int sgn, int dtype, int ft, int level, int bm,
+                int verify_step,
                 int corrects, float tau_coef, int inj_enable, int inj_row,
                 int inj_col, int inj_k, float inj_mag, int seu_on,
                 unsigned seu_seed, float seu_rate, int seu_shift,
@@ -291,12 +405,8 @@ int tgmm_launch(const void* x, const void* g, const int* row_end, float* out,
   a.inj_k = inj_k; a.inj_mag = inj_mag;
   a.seu = seu::Args{seu_on, seu_seed, seu_rate, seu_shift};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return ft ? launch_bm<float, true>(bm, a, st)
-              : launch_bm<float, false>(bm, a, st);
-  if (dtype == 1)
-    return ft ? launch_bm<__nv_bfloat16, true>(bm, a, st)
-              : launch_bm<__nv_bfloat16, false>(bm, a, st);
+  if (dtype == 0) return launch_ft<float>(ft, level, bm, a, st);
+  if (dtype == 1) return launch_ft<__nv_bfloat16>(ft, level, bm, a, st);
   return cudaErrorInvalidValue;
 }
 

@@ -39,9 +39,10 @@ Three FT levels, the paper's threadblock / warp / thread granularities
 `ft_gemm` takes a CPU tensor to `ft_gemm_plain` under the same plan and a
 CUDA tensor to the kernel; on a CUDA tensor it launches the kernel or
 raises. With
-``save_act_grad`` (block level) both also write the act_grad output,
-act'(pre-activation) of the chain's activation from the verified, corrected
-accumulator (the residual the training backward consumes), and return
+``save_act_grad`` both also write the act_grad output, act'(pre-activation)
+of the chain's activation from the verified, corrected accumulator (after
+the final verification at "block" and "tile", after the last step's at
+"inner": the residual the training backward consumes), and return
 ((C, act_grad), report). The plain version walks the same (bm, bn, bk) tile
 grid as the kernel — a Python loop over k-steps, vectorised over output
 blocks — and writes the same (…, gm, gn, 8) report, so the two can be held
@@ -75,7 +76,8 @@ from .templates.spec import (BATCHED_SM90_TILES, TILES, KernelSpec,
 #: FT level → the kernel's LEVEL code.
 LEVELS = {"block": 0, "tile": 1, "inner": 2}
 #: Epilogue chains compiled at the "tile" and "inner" levels (the serving
-#: projections'), row-major walk; the plain chain also on LAYOUT 1.
+#: projections'), row-major walk; the plain chain also on the transposed
+#: walks (LAYOUT 1 and 2), silu and bias+silu also with act_grad.
 LEVEL_EPILOGUES = ((), ("bias",), ("silu",), ("bias", "silu"))
 
 #: Epilogue chains the kernel is instantiated for → its `Epilogue` code.
@@ -312,7 +314,7 @@ def plan_call(a: torch.Tensor, b: torch.Tensor, *, chain=(), ft=None,
               save_act_grad: bool = False, tiles=None) -> Plan:
     """`plan` of a call of `ft_gemm` on these operands, or `plan_k5` of a
     batched one."""
-    level = ft.level if (ft is not None and ft.enabled) else "off"
+    level = ft_level(ft)
     if a.dim() > 2:
         sb = ((0, 0) + tuple(b.stride()))[-4:] if b.dim() > 2 \
             else (0, 0) + tuple(b.stride())
@@ -350,21 +352,24 @@ def _check_act_grad(chain: Tuple[str, ...], save_act_grad: bool) -> None:
                          f"chain, got {chain}")
 
 
+def ft_level(ft: Optional[FTConfig]) -> str:
+    """The FT level of a call: "off" with FT disabled."""
+    return ft.level if (ft is not None and ft.enabled) else "off"
+
+
 def _check_ft(ft: Optional[FTConfig], tiles: Sequence[int],
-              save_act_grad: bool) -> Tuple[bool, str, int]:
-    """(checksums on, level, rows per checksum band) of a call. act_grad is
-    a block-level output."""
-    if ft is None or not ft.enabled:
+              kernel: str = "gemm") -> Tuple[bool, str, int]:
+    """(checksums on, level, rows per checksum band) of a call of
+    ``kernel`` (`spec.band_of`'s "gemm", "grouped" or "tgmm") at
+    ``tiles``."""
+    level = ft_level(ft)
+    if level == "off":
         return False, "off", 0
-    level = ft.level
     if level not in LEVELS:
         raise ValueError(f"unknown FT level {level!r}")
-    validate(KernelSpec(ft_level=level), tiles)
-    if save_act_grad and level != "block":
-        raise NotImplementedError(
-            f"act_grad is written at the 'block' level only, not "
-            f"{level!r}")
-    return True, level, (band_of(tiles) if level == "tile" else tiles[0])
+    validate(KernelSpec(ft_level=level), tiles, kernel)
+    return True, level, (band_of(tiles, kernel) if level == "tile"
+                         else tiles[0])
 
 
 # ---------------------------------------------------------------------------
@@ -406,12 +411,13 @@ def locate_record(d_col: torch.Tensor, d_row: torch.Tensor,
 
 def locate_bands(d_col: torch.Tensor, d_row: torch.Tensor,
                  tau: torch.Tensor, k_el: torch.Tensor, corrects: bool,
-                 rep: torch.Tensor, row_off, col_off, band: int):
+                 rep: torch.Tensor, row_off, col_off, band: int, live=None):
     """`locate_record` over a band axis: residuals d_col (…, nb, C) and
     d_row (…, nb, band) of nb bands of one block give per-band verdicts,
     folded into rep (…, 8) as the reference's per-band `_record` calls in
     band order: det and corr add over the bands, row / col / mag are the
     last detecting band's, max_residual the max, tau and k overwritten.
+    ``live`` (bool (…)) limits the update to blocks that ran this step.
     Returns (det, row, col, mag), each (…, nb), row local to its band."""
     nbands = d_col.shape[-2]
     acol, arow = torch.abs(d_col), torch.abs(d_row)
@@ -419,6 +425,8 @@ def locate_bands(d_col: torch.Tensor, d_row: torch.Tensor,
     row = torch.argmax(arow, dim=-1)
     resid = torch.maximum(acol.amax(-1), arow.amax(-1))
     det = resid > tau[..., None]
+    if live is not None:
+        det = det & live[..., None]
     mag = torch.where(det, torch.gather(d_col, -1, col[..., None])[..., 0],
                       torch.zeros_like(resid))
     ndet = det.float().sum(-1)
@@ -436,9 +444,11 @@ def locate_bands(d_col: torch.Tensor, d_row: torch.Tensor,
                               rep[..., 2])
     rep[..., 3] = torch.where(hit, (pick(col) + col_off).float(), rep[..., 3])
     rep[..., 4] = torch.where(hit, pick(mag), rep[..., 4])
-    rep[..., 5] = torch.maximum(rep[..., 5], resid.amax(-1))
-    rep[..., 6] = tau
-    rep[..., 7] = k_el.expand_as(tau)
+    upd = torch.ones_like(hit) if live is None else live
+    rep[..., 5] = torch.where(upd, torch.maximum(rep[..., 5],
+                                                 resid.amax(-1)), rep[..., 5])
+    rep[..., 6] = torch.where(upd, tau, rep[..., 6])
+    rep[..., 7] = torch.where(upd, k_el.expand_as(tau), rep[..., 7])
     return det, row, col, mag
 
 
@@ -526,7 +536,7 @@ def ft_gemm_plain(a: torch.Tensor, b: torch.Tensor, *,
     campaign's triple (`flashft.encode_rng`): each block draws its SEU
     (`seu_draws`) and the hit lands on its step's Δ before the checksums,
     in every split and at every level."""
-    ft_on, level, bh = _check_ft(ft, tiles, save_act_grad)
+    ft_on, level, bh = _check_ft(ft, tiles)
     _check_act_grad(chain, save_act_grad)
     if splits > 1 and level not in ("off", "block"):
         raise ValueError(f"split-K is a block-level walk, not {level!r}")
@@ -729,7 +739,7 @@ def planned_plain(a: torch.Tensor, b: torch.Tensor, *,
 
 def _launch_sm90(a, b, p: Plan, *, chain, bias, residual, ft, inj, inj_mag,
                  save_act_grad, rng):
-    ft_on, _, _ = _check_ft(ft, p.tiles, save_act_grad)
+    ft_on, _, _ = _check_ft(ft, p.tiles)
     _check_act_grad(chain, save_act_grad)
     build.check_device(a)
     if a.dim() != 2 or b.dim() != 2:
@@ -780,7 +790,7 @@ def _launch_sm90(a, b, p: Plan, *, chain, bias, residual, ft, inj, inj_mag,
 
 def _launch_batched_sm90(a, b, p: Plan, *, chain, bias, residual, ft, inj,
                          inj_mag, save_act_grad, rng):
-    ft_on, level, _ = _check_ft(ft, p.tiles, save_act_grad)
+    ft_on, level, _ = _check_ft(ft, p.tiles)
     build.check_device(a)
     shared = b.dim() == 2
     if a.dim() not in (3, 4) or not (shared or b.dim() == a.dim()):
@@ -821,7 +831,7 @@ def _launch(a, b, *, chain, bias, residual, ft, inj, inj_mag, tiles,
     if tiles not in TILES:
         raise ValueError(f"ft_gemm: tiles {tiles} are not compiled; "
                          f"choose one of {TILES}")
-    ft_on, level, _ = _check_ft(ft, tiles, save_act_grad)
+    ft_on, level, _ = _check_ft(ft, tiles)
     _check_act_grad(chain, save_act_grad)
     build.check_device(a)
     batched = a.dim() > 2
@@ -874,18 +884,14 @@ def _launch(a, b, *, chain, bias, residual, ft, inj, inj_mag, tiles,
                          f"exceed int32")
     # The walk of the tile loads (LAYOUT in csrc/ft_gemm.cu): along the unit-
     # stride k dim of a transposed B (w.T, the K cache of decode attention)
-    # or m dim of a transposed A (x.T), compiled for the plain chain;
-    # row-major otherwise. The "tile" and "inner" levels compile LAYOUT 0
-    # and 1.
+    # or m dim of a transposed A (x.T), compiled for the plain chain at
+    # every level; row-major otherwise.
     layout = 0
     if not chain:
         if sb[2] == 1 and sb[3] != 1:
             layout = 1
         elif sa[2] == 1 and sa[3] != 1:
             layout = 2
-    if layout == 2 and level in ("tile", "inner"):
-        raise NotImplementedError(f"ft_gemm: a transposed A (x.T) has no "
-                                  f"instance at FT level {level!r}")
     out = torch.empty(lead + (m, n), dtype=a.dtype, device=a.device)
     act_grad = torch.empty_like(out) if save_act_grad else None
     rep = (torch.empty(lead + (gm, gn, REPORT_WIDTH), dtype=torch.float32,

@@ -22,11 +22,22 @@ layout: from its aligned base to its aligned end, and for the last group
 on to the end of the buffer (dead rows, verified again as the reference's
 grid walks them). Empty groups come back as a zero dw and a zero report.
 
+Both run the paper's three FT levels. "block" as above; "tile" keeps one
+running column checksum per band (`templates.spec.band_of`: K7's band is
+the buffer rows one warp owns in the SIMT block, K8's the dw rows one warp
+owns in the 64 x 64 dw block; at any other tiles the reference's 128) and
+verifies, locates and corrects each band on its own, the final
+verification included; "inner" verifies each k-step's (K7) or row tile's
+(K8) Δ alone against its own checksums, corrects it and then accumulates
+it, with no final verification. tau takes the elapsed k (K7) or live rows
+(K8) and the running maxima at every level.
+
 Two instances of each: the tensor-core ones of `csrc/grouped_sm90.cu`
 (bf16, FT off and "block"; `wgmma` fed by a TMA ring) and the SIMT ones of
-`csrc/ft_gemm.cu` (GROUPED) and `csrc/tgmm.cu` (f32, and the tiles of
-`GROUPED_TILES` / `TGMM_TILES` when pinned). `plan_k7` / `plan_k8` pick
-the instance, the tiles and the chunk by a written rule:
+`csrc/ft_gemm.cu` (GROUPED) and `csrc/tgmm.cu` (f32, the "tile" and
+"inner" levels, and the tiles of `GROUPED_TILES` / `TGMM_TILES` when
+pinned). `plan_k7` / `plan_k8` pick the instance, the tiles and the chunk
+by a written rule:
 
   * K7 on the tensor cores: a CTA owns a ``chunk`` of 64 rows of one group,
     from the group's aligned base in steps of 64 and never past the group's
@@ -60,8 +71,9 @@ import torch.nn.functional as F
 from ..core.abft import F32EPS
 from ..core.policy import FTConfig
 from . import build
-from .ft_gemm import (DTYPE_CODES, REPORT_WIDTH, SEU_ARGTYPES, seu_armed,
-                      cdiv, locate_record, seu_args)
+from .ft_gemm import (DTYPE_CODES, LEVELS, REPORT_WIDTH, SEU_ARGTYPES,
+                      _check_ft, cdiv, ft_level, locate_bands, locate_record,
+                      seu_armed, seu_args)
 from .templates import seu
 
 #: K7's compiled (bm, bn, bk) per operand dtype (`launch_grouped` in
@@ -82,7 +94,7 @@ SM90_TGMM_TILES = (16, 128, 128)
 SM90_CHUNK = 64
 
 _GROUPED_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
-                     + [ctypes.c_longlong] + [ctypes.c_int] * 8
+                     + [ctypes.c_longlong] + [ctypes.c_int] * 9
                      + [ctypes.c_float] + [ctypes.c_int] * 4
                      + [ctypes.c_float] + SEU_ARGTYPES + [ctypes.c_void_p])
 FT_GEMM_GROUPED_SIMT = build.Kernel("ft_gemm", "ft_gemm_grouped_launch",
@@ -97,7 +109,7 @@ FT_GEMM_GROUPED_SM90 = build.Kernel("grouped_sm90", "grouped_sm90_launch",
 #: Every K7 launch, on either instance.
 FT_GEMM_GROUPED = build.LaunchTotal(FT_GEMM_GROUPED_SIMT,
                                     FT_GEMM_GROUPED_SM90)
-_TGMM_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 13
+_TGMM_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 14
                   + [ctypes.c_float] + [ctypes.c_int] * 4
                   + [ctypes.c_float] + SEU_ARGTYPES + [ctypes.c_void_p])
 TGMM_SIMT = build.Kernel("tgmm", "tgmm_launch", _TGMM_ARGTYPES)
@@ -111,18 +123,6 @@ TGMM_SM90 = build.Kernel("grouped_sm90", "tgmm_sm90_launch",
 TGMM = build.LaunchTotal(TGMM_SIMT, TGMM_SM90)
 
 _NO_INJ = (0, 0, 0, 0)
-
-
-def _check_ft(ft: Optional[FTConfig]) -> bool:
-    """True when ``ft`` asks for checksums. K7 and K8 implement the block
-    level only: "tile" and "inner" raise."""
-    if ft is None or not ft.enabled:
-        return False
-    if ft.level != "block":
-        raise NotImplementedError(
-            f"FT level {ft.level!r} is not implemented by the grouped "
-            f"kernels K7 and K8 (only 'block')")
-    return True
 
 
 def row_tiles(dtype) -> Tuple[int, ...]:
@@ -198,23 +198,28 @@ def _pick(why: str, tiles, sm90_tiles, table, dtype, bm: int, name: str,
 
 
 @functools.lru_cache(maxsize=1024)
-def plan_k7(n: int, k: int, dtype, bm: int, *, buf_strides: Sequence[int],
-            w_strides: Sequence[int], aligned: bool = True,
+def plan_k7(n: int, k: int, dtype, bm: int, *, level: str = "off",
+            buf_strides: Sequence[int], w_strides: Sequence[int],
+            aligned: bool = True,
             tiles: Optional[Sequence[int]] = None) -> GroupedPlan:
     """K7's instance, tiles and chunk for a (t_buf, K) buffer of row tile
-    ``bm`` against w (G, K, N) with strides ``w_strides``. The tensor-core
-    instance takes a bf16 call (FT off or "block") on the 16-row layout
-    whose buffer TMA reads by rows and whose w is row-major or the wᵀ view
-    (unit stride along n or along k, the other strides multiples of 8
-    elements), with 16-byte aligned bases; every other call runs on the
-    SIMT instance at ``GROUPED_TILES``. Explicit ``tiles`` pin the SIMT
-    instance (or, at tiles it does not compile, the plain version alone).
-    A pure function of its arguments, cached."""
+    ``bm`` against w (G, K, N) with strides ``w_strides`` at FT ``level``
+    ("off" with FT disabled). The tensor-core instance takes a bf16 call
+    at "off" or "block" on the 16-row layout whose buffer TMA reads by
+    rows and whose w is row-major or the wᵀ view (unit stride along n or
+    along k, the other strides multiples of 8 elements), with 16-byte
+    aligned bases; every other call, every "tile" and "inner" call among
+    them, runs on the SIMT instance at ``GROUPED_TILES`` (by this rule,
+    never as a fallback). Explicit ``tiles`` pin the SIMT instance (or, at
+    tiles it does not compile, the plain version alone). A pure function
+    of its arguments, cached."""
     swg, swk, swn = w_strides
     w_n = swn == 1 and swk % 8 == 0 and swk >= n
     w_k = swk == 1 and swn % 8 == 0 and swn >= k
     why = ""
-    if dtype != torch.bfloat16:
+    if level not in ("off", "block"):
+        why = f"FT level {level!r}"
+    elif dtype != torch.bfloat16:
         why = f"dtype {dtype}"
     elif bm != SM90_GROUPED_TILES[0]:
         why = f"row tile {bm}"
@@ -229,16 +234,20 @@ def plan_k7(n: int, k: int, dtype, bm: int, *, buf_strides: Sequence[int],
 
 
 @functools.lru_cache(maxsize=1024)
-def plan_k8(k: int, n: int, dtype, bm: int, *, x_strides: Sequence[int],
-            g_strides: Sequence[int], aligned: bool = True,
+def plan_k8(k: int, n: int, dtype, bm: int, *, level: str = "off",
+            x_strides: Sequence[int], g_strides: Sequence[int],
+            aligned: bool = True,
             tiles: Optional[Sequence[int]] = None) -> GroupedPlan:
     """K8's instance, tiles and interval for buffers x (t_buf, K) and g
-    (t_buf, N) of row tile ``bm``: the tensor-core instance for bf16 on the
-    16-row layout with both buffers TMA-readable by rows and 16-byte
-    aligned, else the SIMT one at ``TGMM_TILES``; ``tiles`` pin it as in
-    `plan_k7`."""
+    (t_buf, N) of row tile ``bm`` at FT ``level``: the tensor-core instance
+    for bf16 at "off" or "block" on the 16-row layout with both buffers
+    TMA-readable by rows and 16-byte aligned, else (every "tile" and
+    "inner" call among them) the SIMT one at ``TGMM_TILES``; ``tiles`` pin
+    it as in `plan_k7`."""
     why = ""
-    if dtype != torch.bfloat16:
+    if level not in ("off", "block"):
+        why = f"FT level {level!r}"
+    elif dtype != torch.bfloat16:
         why = f"dtype {dtype}"
     elif bm != SM90_TGMM_TILES[0]:
         why = f"row tile {bm}"
@@ -254,20 +263,21 @@ def _aligned(*xs: torch.Tensor) -> bool:
 
 
 def plan_k7_call(buf: torch.Tensor, w: torch.Tensor, gid: torch.Tensor,
-                 tiles=None) -> GroupedPlan:
+                 tiles=None, ft: Optional[FTConfig] = None) -> GroupedPlan:
     """`plan_k7` of a call of `ft_gemm_grouped` on these operands."""
     bm = buf.shape[0] // max(gid.shape[0], 1)
     return plan_k7(w.shape[2], buf.shape[1], buf.dtype, bm,
-                   buf_strides=tuple(buf.stride()),
+                   level=ft_level(ft), buf_strides=tuple(buf.stride()),
                    w_strides=tuple(w.stride()), aligned=_aligned(buf, w),
                    tiles=None if tiles is None else tuple(tiles))
 
 
 def plan_k8_call(x: torch.Tensor, g: torch.Tensor, bm: int,
-                 tiles=None) -> GroupedPlan:
+                 tiles=None, ft: Optional[FTConfig] = None) -> GroupedPlan:
     """`plan_k8` of a call of `tgmm` on these operands."""
     return plan_k8(x.shape[1], g.shape[1], x.dtype, bm,
-                   x_strides=tuple(x.stride()), g_strides=tuple(g.stride()),
+                   level=ft_level(ft), x_strides=tuple(x.stride()),
+                   g_strides=tuple(g.stride()),
                    aligned=_aligned(x, g),
                    tiles=None if tiles is None else tuple(tiles))
 
@@ -323,18 +333,22 @@ def ft_gemm_grouped_plain(buf: torch.Tensor, w: torch.Tensor,
     of one block (`_chunks`). Returns (y_buf (t_buf, N) in buf's dtype,
     report (t_buf/bm, gn, 8) or None with FT off): each block's record in
     the row of its first row tile, the clean record (tau 1e-30, k = K) in
-    the others. ``inj`` = [enable, row, col, k_step]: ``inj_mag`` is added
-    to the accumulator at global buffer row ``row`` and column ``col`` on
-    k-step ``k_step``. ``rng``, a campaign's triple, draws one SEU per row
-    tile (`seu_tile_draws`), landed on its step's Δ; a block under a
-    campaign verifies each of its bm-row bands on its own (the band's
-    column sums and column checksums, its rows' residuals, the block's
-    tau), so each tile's SEU is located and corrected whatever the others
-    do, and each row tile's report row holds its band's record."""
-    ft_on = _check_ft(ft)
+    the others. ``ft.level`` picks the FT level: at "tile" a block is
+    verified in bands of `band_of(tiles, "grouped")` rows, each with its own
+    column checksum, its verdicts folded into the block's record in band
+    order (`locate_bands`); at "inner" each k-step's Δ is verified alone.
+    ``inj`` = [enable, row, col, k_step]: ``inj_mag`` is added to the
+    accumulator at global buffer row ``row`` and column ``col`` on k-step
+    ``k_step``. ``rng``, a campaign's triple, draws one SEU per row tile
+    (`seu_tile_draws`), landed on its step's Δ; a block under a campaign
+    at "block" or "inner" verifies each of its bm-row bands on its own (the
+    band's column sums and column checksums, its rows' residuals, the
+    block's tau), so each tile's SEU is located and corrected whatever the
+    others do, and each row tile's report row holds its band's record."""
     t_buf, k = buf.shape
     _, k2, n = w.shape
     bm, bn, bk = tiles
+    ft_on, level, tile_band = _check_ft(ft, tiles, "grouped")
     chunk = bm if chunk is None else chunk
     nt = gid.shape[0]
     if k2 != k or nt * bm != t_buf or chunk % bm != 0:
@@ -352,8 +366,13 @@ def ft_gemm_grouped_plain(buf: torch.Tensor, w: torch.Tensor,
     a3 = torch.where(live[..., None],
                      buf[rows.clamp(max=t_buf - 1)].float(),
                      torch.zeros((), device=dev))
-    # bands a block: its row tiles under a campaign, else the whole block
-    band = bm if seu_armed(rng, ft) else chunk
+    # bands of a block: the tile level's, a campaign's row tiles, or the
+    # whole block; the tile level folds its bands into one record a block
+    tiled = level == "tile"
+    if tiled:
+        band = tile_band
+    else:
+        band = bm if seu_armed(rng, ft) else chunk
     nbd = chunk // band
     acc = torch.zeros(nc, chunk, np_, device=dev)
     rep = None
@@ -362,7 +381,8 @@ def ft_gemm_grouped_plain(buf: torch.Tensor, w: torch.Tensor,
         rowck = torch.zeros(nc, gn, chunk, device=dev)
         amax = torch.zeros(nc, device=dev)
         bmax = torch.zeros(nc, gn, device=dev)
-        rep = torch.zeros(nc, nbd, gn, REPORT_WIDTH, device=dev)
+        rep = torch.zeros(*((nc, gn) if tiled else (nc, nbd, gn)),
+                          REPORT_WIDTH, device=dev)
         coef = torch.tensor(ft.rel_tau * F32EPS, device=dev)
         ii = torch.arange(nc, device=dev)[:, None, None]
         tt = torch.arange(nbd, device=dev)[None, :, None]
@@ -377,17 +397,27 @@ def ft_gemm_grouped_plain(buf: torch.Tensor, w: torch.Tensor,
                           - r0[t_blk])[:, None])
         h_col = h_col + torch.arange(gn, device=dev)[None, :] * bn
 
-    def verify(k_el):
-        blocks = acc.view(nc, nbd, band, gn, bn)
-        d_col = blocks.sum(2) - colck                        # (nc, nbd, gn, bn)
+    def verify(x, col_ck, row_ck, k_el):
+        """Verify, locate and (if the policy corrects) correct x (nc,
+        chunk, np) in place against its checksums, band by band."""
+        blocks = x.view(nc, nbd, band, gn, bn)
+        d_col = blocks.sum(2) - col_ck                       # (nc, nbd, gn, bn)
         d_row = (blocks.sum(4).permute(0, 3, 1, 2)      # (nc, gn, nbd, band)
-                 - rowck.view(nc, gn, nbd, band)).permute(0, 2, 1, 3)
+                 - row_ck.view(nc, gn, nbd, band))
         tau = torch.clamp_min(coef * k_el * amax[:, None] * bmax, 1e-30)
-        det, row, col, mag = locate_record(
-            d_col, d_row, tau[:, None, :].expand(nc, nbd, gn), k_el,
-            ft.corrects, rep, (r0[:, None, None] + tt * band), jj * bn)
+        if tiled:
+            det, row, col, mag = locate_bands(
+                d_col.permute(0, 2, 1, 3), d_row, tau, k_el, ft.corrects,
+                rep, r0[:, None], jj[0] * bn, band)          # (nc, gn, nbd)
+            at = (ii, tt.transpose(1, 2), row, jj.transpose(1, 2), col)
+        else:
+            det, row, col, mag = locate_record(
+                d_col, d_row.permute(0, 2, 1, 3),
+                tau[:, None, :].expand(nc, nbd, gn), k_el, ft.corrects, rep,
+                (r0[:, None, None] + tt * band), jj * bn)    # (nc, nbd, gn)
+            at = (ii, tt, row, jj, col)
         if ft.corrects:
-            blocks.index_put_((ii, tt, row, jj, col), -mag, accumulate=True)
+            blocks.index_put_(at, -mag, accumulate=True)
 
     for s in range(gk):
         a_s = _k_slice(a3, 2, s, bk)                        # (nc, chunk, bk)
@@ -408,20 +438,29 @@ def ft_gemm_grouped_plain(buf: torch.Tensor, w: torch.Tensor,
                 delta.index_put_(at, seu.magnitude(delta[at],
                                                    ft.inject_bit_shift),
                                  accumulate=True)
-        acc += delta
         if not ft_on:
+            acc += delta
             continue
-        colck += torch.bmm(a_s.view(nc, nbd, band, bk).sum(2), b_s
+        ck_col = torch.bmm(a_s.view(nc, nbd, band, bk).sum(2), b_s
                            ).view(nc, nbd, gn, bn)
         bsum = b_s.view(nc, bk, gn, bn).sum(3)              # (nc, bk, gn)
-        rowck += torch.bmm(a_s, bsum).permute(0, 2, 1)
+        ck_row = torch.bmm(a_s, bsum).permute(0, 2, 1)
         amax = torch.maximum(amax, a_s.abs().amax((1, 2)))
         bmax = torch.maximum(bmax, b_s.abs().view(nc, bk, gn, bn)
                              .amax((1, 3)))
+        k_el = torch.tensor(float(min((s + 1) * bk, k)), device=dev)
+        if level == "inner":
+            # Δ alone against its own checksums, corrected, accumulated
+            verify(delta, ck_col, ck_row, k_el)
+            acc += delta
+            continue
+        acc += delta
+        colck += ck_col
+        rowck += ck_row
         if ft.verify == "step" and s != gk - 1:
-            verify(torch.tensor(float(min((s + 1) * bk, k)), device=dev))
-    if ft_on:
-        verify(torch.tensor(float(k), device=dev))
+            verify(acc, colck, rowck, k_el)
+    if ft_on and level != "inner":
+        verify(acc, colck, rowck, torch.tensor(float(k), device=dev))
     out = torch.zeros(t_buf, np_, device=dev)
     out[rows[inside]] = acc[inside]
     out = out[:, :n].to(buf.dtype)
@@ -429,9 +468,12 @@ def ft_gemm_grouped_plain(buf: torch.Tensor, w: torch.Tensor,
         full = torch.zeros(nt, gn, REPORT_WIDTH, device=dev)
         full[..., 6] = 1e-30
         full[..., 7] = float(k)
-        for q in range(nbd):
-            own = q * band < length                 # the block's q-th band
-            full[(r0 // bm + q * band // bm)[own]] = rep[own, q]
+        if tiled:
+            full[r0 // bm] = rep
+        else:
+            for q in range(nbd):
+                own = q * band < length             # the block's q-th band
+                full[(r0 // bm + q * band // bm)[own]] = rep[own, q]
         rep = full
     return out, rep
 
@@ -443,7 +485,7 @@ def planned_grouped_plain(buf: torch.Tensor, w: torch.Tensor,
     """`ft_gemm_grouped_plain` under the plan `ft_gemm_grouped` follows for
     these operands (its tiles and chunk), on any device: the comparison
     side of the kernel on the card."""
-    p = plan_k7_call(buf, w, gid, tiles)
+    p = plan_k7_call(buf, w, gid, tiles, kw.get("ft"))
     return ft_gemm_grouped_plain(buf, w, gid, row_end, tiles=p.tiles,
                                  chunk=p.chunk, **kw)
 
@@ -475,15 +517,15 @@ def ft_gemm_grouped(buf: torch.Tensor, w: torch.Tensor, gid: torch.Tensor,
                     tiles: Optional[Sequence[int]] = None,
                     rng: Optional[Sequence[int]] = None
                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """y_buf = buf @ w[gid] per row tile, with block-level online ABFT when
-    ``ft`` is enabled (K7); ``rng``, a campaign's triple, arms the
-    stochastic SEU hook (`seu_tile_draws`). The row tile is t_buf / len(gid); `plan_k7`
-    picks the instance, tiles and chunk (``tiles`` pins them). A CPU
-    tensor runs `ft_gemm_grouped_plain` under that plan; a CUDA tensor
-    launches the kernel or raises. Returns (y_buf, report|None) as the
-    plain version does."""
-    ft_on = _check_ft(ft)
-    p = plan_k7_call(buf, w, gid, tiles)
+    """y_buf = buf @ w[gid] per row tile, with online ABFT at ``ft.level``
+    when ``ft`` is enabled (K7); ``rng``, a campaign's triple, arms the
+    stochastic SEU hook (`seu_tile_draws`). The row tile is t_buf /
+    len(gid); `plan_k7` picks the instance, tiles and chunk (``tiles`` pins
+    them). A CPU tensor runs `ft_gemm_grouped_plain` under that plan; a
+    CUDA tensor launches the kernel or raises. Returns (y_buf,
+    report|None) as the plain version does."""
+    p = plan_k7_call(buf, w, gid, tiles, ft)
+    ft_on, level, _ = _check_ft(ft, p.tiles, "grouped")
     if buf.device.type == "cpu":
         return ft_gemm_grouped_plain(buf, w, gid, row_end, tiles=p.tiles,
                                      chunk=p.chunk, ft=ft, inj=inj,
@@ -539,7 +581,7 @@ def ft_gemm_grouped(buf: torch.Tensor, w: torch.Tensor, gid: torch.Tensor,
         buf.data_ptr(), w.data_ptr(), gid.data_ptr(), row_end.data_ptr(),
         out.data_ptr(), None if rep is None else rep.data_ptr(),
         t_buf, n, k, w.shape[0], buf.stride(0), buf.stride(1), swg, swk, swn,
-        DTYPE_CODES[buf.dtype], int(ft_on), bm, layout,
+        DTYPE_CODES[buf.dtype], int(ft_on), LEVELS.get(level, 0), bm, layout,
         int(ft_on and ft.verify == "step"), int(ft_on and ft.corrects),
         ft.rel_tau * F32EPS if ft_on else 0.0, *inj, inj_mag,
         *seu_args(rng, ft, seu.SALT_GEMM2D),
@@ -563,14 +605,18 @@ def tgmm_plain(x: torch.Tensor, g: torch.Tensor, row_end: torch.Tensor, *,
     block; ``chunk`` (default bm) the rows of one verification interval,
     counted from the group's aligned base. Returns (dw (G, K, N) f32,
     report (G, gk, gn, 8) or None); empty groups come back zero. All groups
-    step through their intervals together, one each per step. ``rng``, a
+    step through their intervals together, one each per step.
+    ``ft.level`` picks the FT level: at "tile" each dw block is verified
+    in bands of `band_of(tiles, "tgmm")` of its bk rows, each with its own
+    column checksum (`locate_bands`); at "inner" each interval's Δ is
+    verified alone and there is no final verification. ``rng``, a
     campaign's triple, draws one SEU per dw block over the group's live
     row tiles (`seu_dw_draws`): its magnitude comes from the hit tile's own
     product at the element, landed in the interval that holds the tile."""
-    ft_on = _check_ft(ft)
     t_buf, k = x.shape
     n = g.shape[1]
     bm, bn, bk = tiles
+    ft_on, level, tile_band = _check_ft(ft, tiles, "tgmm")
     chunk = bm if chunk is None else chunk
     ng = row_end.shape[0]
     t_tiles = t_buf // bm
@@ -586,17 +632,21 @@ def tgmm_plain(x: torch.Tensor, g: torch.Tensor, row_end: torch.Tensor, *,
     acc = torch.zeros(ng, kp, np_, device=dev)
     xf = F.pad(x.float(), (0, kp - k))
     gf = F.pad(g.float(), (0, np_ - n))
+    # bands of bk rows a dw block: the tile level's, else the whole block
+    band = tile_band if level == "tile" else bk
+    nbk = bk // band
     rep = None
     if ft_on:
-        colck = torch.zeros(ng, gk, gn, bn, device=dev)
+        colck = torch.zeros(ng, gk, gn, nbk, bn, device=dev)
         rowck = torch.zeros(ng, gk, gn, bk, device=dev)
         amax = torch.zeros(ng, gk, device=dev)
         bmax = torch.zeros(ng, gn, device=dev)
         rep = torch.zeros(ng, gk, gn, REPORT_WIDTH, device=dev)
         coef = torch.tensor(ft.rel_tau * F32EPS, device=dev)
-        gg = torch.arange(ng, device=dev)[:, None, None]
-        ki = torch.arange(gk, device=dev)[None, :, None]
-        nj = torch.arange(gn, device=dev)[None, None, :]
+        gg = torch.arange(ng, device=dev)[:, None, None, None]
+        ki = torch.arange(gk, device=dev)[None, :, None, None]
+        nj = torch.arange(gn, device=dev)[None, None, :, None]
+        tt = torch.arange(nbk, device=dev)
     steps = int(n_steps.max()) if ng else 0
     rows = torch.arange(chunk, device=dev)
     hook = None
@@ -607,6 +657,25 @@ def tgmm_plain(x: torch.Tensor, g: torch.Tensor, row_end: torch.Tensor, *,
         h_row = h_row + torch.arange(gk, device=dev)[None, :, None] * bk
         h_col = h_col + torch.arange(gn, device=dev)[None, None, :] * bn
         h_j = h_step * bm // chunk                              # its interval
+
+    def verify(x, col_ck, row_ck, rows_el, now):
+        """Verify, locate and (if the policy corrects) correct x (G, kp,
+        np) in place against its checksums, band by band, in the groups
+        ``now`` (G,) marks."""
+        tau = torch.clamp_min(coef * rows_el[:, None, None]
+                              * amax[:, :, None] * bmax[:, None, :], 1e-30)
+        blocks = x.view(ng, gk, nbk, band, gn, bn)
+        d_col = blocks.sum(3).permute(0, 1, 3, 2, 4) - col_ck  # (G,gk,gn,nbk,bn)
+        d_row = (blocks.sum(5).permute(0, 1, 4, 2, 3)         # (G,gk,gn,nbk,band)
+                 - row_ck.view(ng, gk, gn, nbk, band))
+        det, row, col, mag = locate_bands(
+            d_col, d_row, tau, rows_el[:, None, None], ft.corrects, rep,
+            ki[..., 0] * bk, nj[..., 0] * bn, band,
+            live=now[:, None, None].expand(ng, gk, gn))
+        if ft.corrects:
+            blocks.index_put_((gg, ki, tt, row, nj, col), -mag,
+                              accumulate=True)
+
     for j in range(steps):
         active = j < n_steps                                    # (G,)
         lo = base + j * chunk
@@ -635,35 +704,33 @@ def tgmm_plain(x: torch.Tensor, g: torch.Tensor, row_end: torch.Tensor, *,
                 tile_d = torch.where(ok, xf[tr, r[:, None]] * gf[tr, c[:, None]],
                                      torch.zeros((), device=dev)).sum(1)
                 delta[hg, r, c] += seu.magnitude(tile_d, ft.inject_bit_shift)
-        acc += delta
         if not ft_on:
+            acc += delta
             continue
-        xsum = xs.view(ng, chunk, gk, bk).sum(3)                # (G, chunk, gk)
-        colck += torch.bmm(xsum.transpose(1, 2), gs).view(ng, gk, gn, bn)
+        xsum = xs.view(ng, chunk, gk * nbk, band).sum(3)   # (G, chunk, gk·nbk)
+        ck_col = (torch.bmm(xsum.transpose(1, 2), gs)
+                  .view(ng, gk, nbk, gn, bn).permute(0, 1, 3, 2, 4))
         gsum = gs.view(ng, chunk, gn, bn).sum(3)                # (G, chunk, gn)
-        rowck += (torch.bmm(xs.transpose(1, 2), gsum).view(ng, gk, bk, gn)
+        ck_row = (torch.bmm(xs.transpose(1, 2), gsum).view(ng, gk, bk, gn)
                   .permute(0, 1, 3, 2))
         amax = torch.maximum(amax, xs.abs().view(ng, chunk, gk, bk)
                              .amax((1, 3)))
         bmax = torch.maximum(bmax, gs.abs().view(ng, chunk, gn, bn)
                              .amax((1, 3)))
-        last = j == n_steps - 1
-        now = active & (last | (ft.verify == "step"))
-        if not bool(now.any()):
-            continue
         rows_el = torch.clamp_min(
             torch.minimum(lo + chunk, re) - base, 1).float()
-        tau = torch.clamp_min(coef * rows_el[:, None, None]
-                              * amax[:, :, None] * bmax[:, None, :], 1e-30)
-        blocks = acc.view(ng, gk, bk, gn, bn)
-        d_col = blocks.sum(2) - colck                           # (G, gk, gn, bn)
-        d_row = blocks.sum(4).permute(0, 1, 3, 2) - rowck       # (G, gk, gn, bk)
-        live = now[:, None, None].expand(ng, gk, gn)
-        det, row, col, mag = locate_record(
-            d_col, d_row, tau, rows_el[:, None, None], ft.corrects, rep,
-            ki * bk, nj * bn, live=live)
-        if ft.corrects:
-            blocks.index_put_((gg, ki, row, nj, col), -mag, accumulate=True)
+        if level == "inner":
+            # Δ alone against its own checksums, corrected, accumulated
+            verify(delta, ck_col, ck_row, rows_el, active)
+            acc += delta
+            continue
+        acc += delta
+        colck += ck_col
+        rowck += ck_row
+        last = j == n_steps - 1
+        now = active & (last | (ft.verify == "step"))
+        if bool(now.any()):
+            verify(acc, colck, rowck, rows_el, now)
     return acc[:, :k, :n].contiguous(), rep
 
 
@@ -673,7 +740,7 @@ def planned_tgmm_plain(x: torch.Tensor, g: torch.Tensor,
                        ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """`tgmm_plain` under the plan `tgmm` follows for these operands, on any
     device."""
-    p = plan_k8_call(x, g, bm, tiles)
+    p = plan_k8_call(x, g, bm, tiles, kw.get("ft"))
     return tgmm_plain(x, g, row_end, tiles=p.tiles, chunk=p.chunk, **kw)
 
 
@@ -709,14 +776,14 @@ def tgmm(x: torch.Tensor, g: torch.Tensor, row_end: torch.Tensor, *,
          tiles: Optional[Sequence[int]] = None,
          rng: Optional[Sequence[int]] = None
          ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """dw[g] = X_gᵀ·G_g (G, K, N) f32 with block-level online ABFT when ``ft``
-    is enabled (K8), over buffers of row tile ``bm``. `plan_k8` picks the
-    instance, tiles and interval (``tiles`` pins them). A CPU tensor runs
-    `tgmm_plain` under that plan; a CUDA tensor launches the kernel or
-    raises. Both instances write an empty group's dw and report as
-    zeros."""
-    ft_on = _check_ft(ft)
-    p = plan_k8_call(x, g, bm, tiles)
+    """dw[g] = X_gᵀ·G_g (G, K, N) f32 with online ABFT at ``ft.level`` when
+    ``ft`` is enabled (K8), over buffers of row tile ``bm``. `plan_k8`
+    picks the instance, tiles and interval (``tiles`` pins them). A CPU
+    tensor runs `tgmm_plain` under that plan; a CUDA tensor launches the
+    kernel or raises. Both instances write an empty group's dw and report
+    as zeros."""
+    p = plan_k8_call(x, g, bm, tiles, ft)
+    ft_on, level, _ = _check_ft(ft, p.tiles, "tgmm")
     if x.device.type == "cpu":
         return tgmm_plain(x, g, row_end, tiles=p.tiles, chunk=p.chunk, ft=ft,
                           inj=inj, inj_mag=inj_mag, rng=rng)
@@ -761,5 +828,6 @@ def tgmm(x: torch.Tensor, g: torch.Tensor, row_end: torch.Tensor, *,
     TGMM_SIMT(x.data_ptr(), g.data_ptr(), row_end.data_ptr(), out.data_ptr(),
               None if rep is None else rep.data_ptr(),
               t_buf, k, n, ng, x.stride(0), x.stride(1), g.stride(0),
-              g.stride(1), DTYPE_CODES[x.dtype], int(ft_on), bm, *tail)
+              g.stride(1), DTYPE_CODES[x.dtype], int(ft_on),
+              LEVELS.get(level, 0), bm, *tail)
     return out, rep

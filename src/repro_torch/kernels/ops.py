@@ -176,7 +176,8 @@ def grouped_gemm_call(spec: KernelSpec, a: torch.Tensor, b: torch.Tensor, *,
         transpose GEMM (K8), dw[g] = Σ_{t: group_ids[t]=g} a[t] ⊗ b[t],
         (G, K, N) f32 — the MoE backward dw.
 
-    K7 and K8 implement the block level only.
+    K7 and K8 run every FT level; the "tile" level's band is
+    `templates.spec.band_of` of their tiles (K7's rows, K8's dw rows).
 
     Returns (C, report|None)."""
     if a.dim() == 2:

@@ -116,31 +116,44 @@ BATCHED_SM90_TILES = ((16, 32, 256),)
 #: Their "tile"-level band: the whole 16-row block (at M <= 16 the
 #: reference's 128-row band covers the same rows).
 BATCHED_SM90_BAND = 16
+#: K7's compiled SIMT (bm, bn, bk) tiles (`grouped_gemm.GROUPED_TILES`)
+#: and their "tile"-level band: the rows one of the CTA's 8 warps owns, 2
+#: of the bf16 16-row tile, 1 of the f32 8-row one (K1's thread layout).
+GROUPED_BANDS = {(8, 128, 32): 1, (16, 128, 32): 2}
+#: K8's compiled SIMT (bm, bn, bk) tiles (`grouped_gemm.TGMM_TILES`) and
+#: their band of dw's K rows: the 8 of the 64-row dw block one warp owns.
+TGMM_BANDS = {(8, 64, 64): 8, (16, 64, 64): 8}
 #: The reference's band (its 128-row MXU edge), taken at any other tiles:
 #: the CPU tests run the plain version at the reference's tiles.
 REFERENCE_BAND = 128
 
 
-def band_of(tiles: Sequence[int]) -> int:
-    """The "tile"-level band at ``tiles``: the kernel's for compiled
-    tiles, the reference's otherwise."""
+def band_of(tiles: Sequence[int], kernel: str = "gemm") -> int:
+    """The "tile"-level band at ``tiles`` of a ``kernel`` ("gemm": K1 and
+    K5, rows of C; "grouped": K7, rows of the buffer; "tgmm": K8, rows of
+    dw, so of bk): the kernel's for compiled tiles, the reference's
+    otherwise."""
     tiles = tuple(tiles)
-    if tiles in TILES:
-        return BANDS[TILES.index(tiles)]
-    if tiles in BATCHED_SM90_TILES:
-        return BATCHED_SM90_BAND
-    return REFERENCE_BAND
+    if kernel == "gemm":
+        table = dict(zip(TILES + BATCHED_SM90_TILES,
+                         BANDS + (BATCHED_SM90_BAND,)))
+    else:
+        table = {"grouped": GROUPED_BANDS, "tgmm": TGMM_BANDS}[kernel]
+    return table.get(tiles, REFERENCE_BAND)
 
 
-def validate(spec: KernelSpec, tiles: Sequence[int]) -> None:
+def validate(spec: KernelSpec, tiles: Sequence[int],
+             kernel: str = "gemm") -> None:
     """Static legality of a launch (the reference's `registry.validate`).
     Ragged edges are masked by bounds, so the operands need not divide the
     tiles; the "tile" level's per-band checksums slice the block in bands
-    of `band_of(tiles)` rows, so bm must be a multiple of it."""
-    bm, band = tiles[0], band_of(tiles)
-    if spec.ft_level == "tile" and bm % band != 0:
-        raise ValueError(f"FT level 'tile' needs bm % band == 0, got "
-                         f"bm={bm}, band={band}")
+    of `band_of(tiles, kernel)` rows, so bm (bk for K8) must be a multiple
+    of it."""
+    edge = tiles[2] if kernel == "tgmm" else tiles[0]
+    band = band_of(tiles, kernel)
+    if spec.ft_level == "tile" and edge % band != 0:
+        raise ValueError(f"FT level 'tile' needs a block edge that the band "
+                         f"divides, got {edge} for band {band} ({kernel})")
 
 
 def fused(bias: bool = False, act: Optional[str] = None,

@@ -222,20 +222,67 @@ def test_ft_matmul_ref_matches_reference():
                                rtol=1e-5)
 
 
+def _grouped_report_equal(got, want):
+    got, want = got.numpy(), np.asarray(want)
+    assert got.shape == want.shape
+    np.testing.assert_array_equal(got[..., [0, 1, 2, 3, 7]],
+                                  want[..., [0, 1, 2, 3, 7]])
+    np.testing.assert_allclose(got[..., [4, 5, 6]], want[..., [4, 5, 6]],
+                               rtol=1e-5, atol=1e-4)
+
+
 @pytest.mark.parametrize("level", ["tile", "inner"])
-def test_unported_levels_raise(level):
-    """K1 and K5 run every FT level; the grouped kernels K7 and K8 implement
-    the block level only and raise at the other two."""
-    from repro_torch.kernels import grouped_gemm
-    ft = tpol.FTConfig(level=level)
-    buf, w = torch.ones(16, 16), torch.ones(2, 16, 8)
-    gid, row_end = torch.tensor([0, 1]), torch.tensor([8, 16])
-    with pytest.raises(NotImplementedError):
-        grouped_gemm.ft_gemm_grouped(buf, w, gid, row_end, ft=ft)
-    with pytest.raises(NotImplementedError):
-        grouped_gemm.tgmm(buf, torch.ones(16, 8), row_end, bm=8, ft=ft)
+def test_grouped_levels_match_reference(level):
+    """K1 and K5 run every FT level, and so do the grouped kernels K7 and
+    K8: their plain versions at the tile (warp) and inner (thread) levels
+    against the reference's grouped and tgmm kernels in interpret mode at
+    the reference's tiles (K7 128-row tiles; K8 256-row dw blocks, two
+    128-row bands), on integer operands with an empty group and a ragged
+    last one: outputs exactly, reports field for field, clean and with one
+    SEU corrected; the single-block K1 call runs clean."""
+    from repro.kernels import grouped as rgrouped
+    from repro.kernels.grouped import layout as rlay
+    from repro_torch.kernels import grouped_gemm as kgg
+    from repro_torch.kernels.grouped import layout as tlay
+    rng = np.random.default_rng(17)
+    sizes, bm, k, n = [150, 0, 90], 128, 256, 128
+    gids = rng.permutation(np.repeat(np.arange(3), sizes)).astype(np.int32)
+    rl = rlay.make_layout(jnp.asarray(gids), 3, bm)
+    tl = tlay.make_layout(torch.from_numpy(gids), 3, bm)
+    x, g = _ints(rng, len(gids), k), _ints(rng, len(gids), n)
+    w = _ints(rng, 3, k, n)
+    rx, rg = (rlay.scatter_rows(jnp.asarray(v), rl) for v in (x, g))
+    tx, tg = (tlay.scatter_rows(_t(v), tl) for v in (x, g))
+    rft, tft = FTConfig(level=level), tpol.FTConfig(level=level)
+    last = int(np.asarray(rl.row_end)[2]) - 1
+    for inj in (None, InjectionSpec(row=last, col=100, magnitude=64.0,
+                                    k_step=1)):
+        want, rrep = rgrouped.grouped_buffer_call(
+            BatchedKernelSpec(ft_level=level, grouped=True), rx,
+            jnp.asarray(w), rl, params=autotune.KernelParams(bm, 128, 128),
+            ft=rft, inject=inj, interpret=True)
+        got, trep = kgg.ft_gemm_grouped_plain(
+            tx, _t(w), tl.gid, tl.row_end, tiles=(bm, 128, 128), ft=tft,
+            inj=None if inj is None else (1, inj.row, inj.col, inj.k_step),
+            inj_mag=0.0 if inj is None else inj.magnitude)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        _grouped_report_equal(trep, rrep)
+        assert float(trep[..., 0].sum()) == (inj is not None)
+    for inj in (None, InjectionSpec(row=200, col=5, magnitude=32.0,
+                                    k_step=int(np.asarray(rl.base)[2]) // bm)):
+        want, rrep = rgrouped.tgmm_buffer_call(
+            BatchedKernelSpec(ft_level=level, tgmm=True), rx, rg, rl,
+            params=autotune.KernelParams(bm, 128, 256), ft=rft, inject=inj,
+            interpret=True)
+        got, trep = kgg.tgmm_plain(
+            tx, tg, tl.row_end, tiles=(bm, 128, 256), ft=tft,
+            inj=None if inj is None else (1, inj.row, inj.col, inj.k_step),
+            inj_mag=0.0 if inj is None else inj.magnitude)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        _grouped_report_equal(trep, rrep)
+        assert float(trep[..., 0].sum()) == (inj is not None)
     out, rep = tops.ft_matmul_report(torch.ones(8, 16), torch.ones(16, 8),
-                                     ft=ft)
+                                     ft=tft)
     assert float(rep[..., 0].sum()) == 0.0
 
 

@@ -171,14 +171,17 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     with pytest.raises(NotImplementedError):
         ft_gemm.ft_gemm(a, b, ft=FT, chain=("gelu", "residual"),
                         residual=torch.ones(8, 8, device="cuda"))
-    with pytest.raises(NotImplementedError):       # K7 is block-level only
-        from repro_torch.kernels import grouped_gemm
-        grouped_gemm.ft_gemm_grouped(
-            torch.ones(16, 16, device="cuda"),
-            torch.ones(2, 16, 8, device="cuda"),
-            torch.tensor([0, 1], device="cuda", dtype=torch.int32),
-            torch.tensor([8, 16], device="cuda", dtype=torch.int32),
-            ft=FTConfig(level="tile"))
+    from repro_torch.kernels import grouped_gemm    # K7 at tile: its SIMT
+    before = grouped_gemm.FT_GEMM_GROUPED_SIMT.launches  # instance, planned
+    out, rep = grouped_gemm.ft_gemm_grouped(
+        torch.ones(16, 16, device="cuda"),
+        torch.ones(2, 16, 8, device="cuda"),
+        torch.tensor([0, 1], device="cuda", dtype=torch.int32),
+        torch.tensor([8, 16], device="cuda", dtype=torch.int32),
+        ft=FTConfig(level="tile"))
+    assert grouped_gemm.FT_GEMM_GROUPED_SIMT.launches == before + 1
+    assert torch.equal(out, torch.full((16, 8), 16.0, device="cuda"))
+    assert float(rep[..., 0].sum()) == 0.0
     with pytest.raises(NotImplementedError):       # no gelu at the tile level
         ft_gemm.ft_gemm(a, b, ft=FT.replace(level="tile"), chain=("gelu",))
     with pytest.raises(TypeError):
@@ -1807,3 +1810,335 @@ def test_flash_campaign_hook_matches_plain(cuda, idx):
     outs, rep = call(FT.replace(inject_rate=0.0), TRIPLE)
     assert all(torch.equal(x, y) for x, y in zip(outs, clean))
     assert torch.equal(rep, rep0), name
+
+
+# ---------------------------------------------------------------------------
+# tile / inner in training and MoE: K1 with act_grad and on the dw walk
+# (LAYOUT 2), K7 on both walks, K8
+# ---------------------------------------------------------------------------
+
+#: A campaign triple: at rate 1.0 every block draws one SEU, and a
+#: deterministic SEU aimed at another band of a block in the same interval
+#: makes two SEUs in two bands of one block.
+TRIPLE = (1, 123456789, 987654321)
+
+
+def _other_band(r, band, rows):
+    """A row of the next band (cyclically) of a block of ``rows`` rows."""
+    return ((r // band + 1) % (rows // band)) * band + r % band
+
+
+def _close_as(got, want, dtype):
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        tol = 2.0 ** -7 * float(want.float().abs().max())
+        assert float((got.float() - want.float()).abs().max()) <= tol
+
+
+def _k1_two_bands(a, b, ft, kw, blk, clean):
+    """K1 at the tile level: a campaign (every block draws one SEU) and a
+    deterministic SEU in another band of block ``blk`` at the campaign
+    SEU's k-step: both corrected, reports as the plain version's, and both
+    left by detect-only."""
+    m, n = a.shape[0], b.shape[1]
+    tiles = ft_gemm.pick_tiles(m)
+    bm, bn, bk = tiles
+    ftc = ft.replace(inject_rate=1.0)
+    gm, gn, gk = (ft_gemm.cdiv(m, bm), ft_gemm.cdiv(n, bn),
+                  ft_gemm.cdiv(a.shape[1], bk))
+    hit, step, row, col = ft_gemm.seu_draws(TRIPLE, ftc, 1, gm, gn, gk,
+                                            tiles, False)
+    i, j = blk
+    assert bool(hit[0, i, j])
+    r2 = i * bm + _other_band(int(row[0, i, j]), ft_gemm.band_of(tiles), bm)
+    c2 = j * bn + (int(col[0, i, j]) + 1) % bn
+    inj = (1, -1, r2, c2, int(step[0, i, j]))
+    assert r2 < m and c2 < n
+    for pol in (ftc, ftc.replace(action="detect")):
+        got = ft_gemm.ft_gemm(a, b, ft=pol, rng=TRIPLE, inj=inj,
+                              inj_mag=99.0, **kw)
+        want = ft_gemm.ft_gemm_plain(a, b, tiles=tiles, ft=pol, rng=TRIPLE,
+                                     inj=inj, inj_mag=99.0, **kw)
+        _check_reports(got[1], want[1])
+        out = got[0][0] if kw.get("save_act_grad") else got[0]
+        if pol.corrects:
+            assert torch.equal(out, clean)
+            assert float(got[1][i, j, 0]) == float(got[1][i, j, 1]) == 2.0
+            assert float(got[1][..., 0].sum()) == float(hit.sum()) + 1
+        else:
+            assert (out != clean)[i * bm:(i + 1) * bm].sum() >= 2
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("chain", [("silu",), ("bias", "silu")])
+@pytest.mark.parametrize("level", ["tile", "inner"])
+def test_act_grad_levels_match_plain(cuda, level, chain, dtype):
+    """K1's w_gate + silu with the act_grad output at tile / inner on its
+    SIMT instance: C, act'(pre-activation) and the report as the plain
+    version's; an SEU corrected before act_grad is written (both outputs
+    the clean call's), located, and left by detect-only."""
+    m, n, k = 100, 200, 97
+    gen = torch.Generator(device="cuda").manual_seed(len(chain) + m)
+    a, b = _ints(gen, m, k, dtype=dtype), _ints(gen, k, n, dtype=dtype)
+    bias = _ints(gen, n, dtype=dtype) if "bias" in chain else None
+    ft = FT.replace(level=level)
+    base = dict(chain=chain, bias=bias, save_act_grad=True)
+    assert ft_gemm.plan_call(a, b, ft=ft, chain=chain,
+                             save_act_grad=True).instance == "simt"
+    (clean, ag0), rep = ft_gemm.ft_gemm(a, b, ft=ft, **base)
+    assert float(rep[..., 0].sum()) == 0.0
+    for pol, inj in ((ft, None), (ft, (1, -1, m - 1, n - 1, 2)),
+                     (ft.replace(verify="final"), (1, -1, 0, 5, 0)),
+                     (ft.replace(action="detect"), (1, -1, m // 2, n // 3,
+                                                    1))):
+        kw = dict(base, ft=pol, inj=inj, inj_mag=99.0)
+        before = ft_gemm.FT_GEMM_2D_SIMT.launches
+        (out, ag), rep = ft_gemm.ft_gemm(a, b, **kw)
+        assert ft_gemm.FT_GEMM_2D_SIMT.launches == before + 1
+        (out_p, ag_p), rep_p = ft_gemm.ft_gemm_plain(
+            a, b, tiles=ft_gemm.pick_tiles(m), **kw)
+        _close_as(out, out_p, dtype)
+        _close_as(ag, ag_p, dtype)
+        _check_reports(rep, rep_p)
+        if inj is not None and pol.corrects:
+            assert torch.equal(out, clean) and torch.equal(ag, ag0)
+            hit = rep[..., 0] > 0
+            assert float(rep[..., 0].sum()) == float(rep[..., 1].sum()) == 1
+            assert (int(rep[hit][0, 2]), int(rep[hit][0, 3])) == inj[2:4]
+        elif inj is not None:
+            assert not torch.equal(out, clean)
+            assert float(rep[..., 1].sum()) == 0.0
+    if level == "tile":
+        _k1_two_bands(a, b, ft, base, (0, 2), clean)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("level", ["tile", "inner"])
+def test_dw_walk_levels_match_plain(cuda, level, dtype):
+    """K1's dw = Xᵀ·g on the transposed-A walk (LAYOUT 2) at tile / inner:
+    SEUs in the first, a middle and the last band of a block and in the
+    ragged last block, each corrected bit for bit and located, as the plain
+    version; a detect-only control."""
+    t, kd, n = 150, 130, 200
+    gen = torch.Generator(device="cuda").manual_seed(kd + len(level))
+    x, g = _ints(gen, t, kd, dtype=dtype), _ints(gen, t, n, dtype=dtype)
+    a = x.T
+    assert a.stride() == (1, kd)
+    ft = FT.replace(level=level)
+    tiles = ft_gemm.pick_tiles(kd)
+    clean, rep = ft_gemm.ft_gemm(a, g, ft=ft)
+    assert float(rep[..., 0].sum()) == 0.0
+    _close_as(clean, (x.double().T @ g.double()).to(dtype), dtype)
+    band = ft_gemm.band_of(tiles)
+    for pol, row in ((ft, 64), (ft, 64 + 3 * band + 5), (ft, 127), (ft, 129),
+                     (ft.replace(action="detect"), 64 + band)):
+        inj = (1, -1, row, 77, 2)
+        before = ft_gemm.FT_GEMM_2D_SIMT.launches
+        out, rep = ft_gemm.ft_gemm(a, g, ft=pol, inj=inj, inj_mag=99.0)
+        assert ft_gemm.FT_GEMM_2D_SIMT.launches == before + 1
+        out_p, rep_p = ft_gemm.ft_gemm_plain(a, g, tiles=tiles, ft=pol,
+                                             inj=inj, inj_mag=99.0)
+        assert torch.equal(out, out_p)
+        _check_reports(rep, rep_p)
+        hit = rep[..., 0] > 0
+        assert (int(rep[hit][0, 2]), int(rep[hit][0, 3])) == (row, 77)
+        if pol.corrects:
+            assert torch.equal(out, clean)
+        else:
+            assert (out != clean).sum() == 1
+    if level == "tile":
+        _k1_two_bands(a, g, ft, {}, (1, 1), clean)
+
+
+@pytest.mark.parametrize("dtype,bm", [(torch.float32, 8),
+                                      (torch.float32, 16),
+                                      (torch.bfloat16, 16)])
+@pytest.mark.parametrize("level", ["tile", "inner"])
+def test_grouped_levels_match_plain(cuda, level, dtype, bm):
+    """K7 at tile / inner on its SIMT instance (the plan's rule, no pinned
+    tiles), on the row-major w and the wᵀ view of the dbuf product: reports
+    as the plain version's, SEUs in a live tile, in the ragged last group
+    and in a dead tile corrected bit for bit, detect-only leaving one; at
+    tile, two SEUs in two bands of one block in one k-step."""
+    from repro_torch.kernels import grouped_gemm as kgg
+    lay, glay = _grouped_layout(GROUP_SIZES, bm, 1)
+    gen = torch.Generator(device="cuda").manual_seed(bm + len(level))
+    k, n, ng = 200, 300, len(GROUP_SIZES)
+    buf = glay.scatter_rows(_ints(gen, lay.n_rows, k, dtype=dtype), lay)
+    w = _ints(gen, ng, k, n, dtype=dtype)
+    wt = _ints(gen, ng, n, k, dtype=dtype).transpose(-1, -2)
+    ft = FT.replace(level=level)
+    base = lay.base.tolist()
+    tiles = (bm, 128, 32)
+    for ww in (w, wt):
+        p = kgg.plan_k7_call(buf, ww, lay.gid, ft=ft)
+        assert (p.instance, p.tiles, p.chunk) == ("simt", tiles, bm)
+        clean, rep = kgg.ft_gemm_grouped(buf, ww, lay.gid, lay.row_end, ft=ft)
+        assert float(rep[..., 0].sum()) == 0.0
+        for pol, inj in ((ft, (1, base[2] + 28, n - 1, 3)),
+                         (ft.replace(action="detect"), (1, base[2] + 28,
+                                                        n - 1, 3)),
+                         (ft.replace(verify="final"), (1, base[0], 5, 0)),
+                         (ft, (1, base[5] + 15, 130, 6)),
+                         (ft, (1, lay.t_buf - 1, 7, 1))):
+            kw = dict(ft=pol, inj=inj, inj_mag=99.0)
+            before = kgg.FT_GEMM_GROUPED_SIMT.launches
+            out, rep = kgg.ft_gemm_grouped(buf, ww, lay.gid, lay.row_end,
+                                           **kw)
+            assert kgg.FT_GEMM_GROUPED_SIMT.launches == before + 1
+            out_p, rep_p = kgg.ft_gemm_grouped_plain(
+                buf, ww, lay.gid, lay.row_end, tiles=tiles, **kw)
+            assert torch.equal(out, out_p)
+            _check_reports(rep, rep_p)
+            n_det, n_corr = float(rep[..., 0].sum()), float(rep[..., 1].sum())
+            if pol.corrects:
+                assert n_det == n_corr == 1.0 and torch.equal(out, clean)
+                hit = rep[..., 0] > 0
+                assert (int(rep[hit][0, 2]), int(rep[hit][0, 3])) == inj[1:3]
+            else:
+                assert n_det >= 1.0 and n_corr == 0.0
+        if level == "tile":
+            ftc = ft.replace(inject_rate=1.0)
+            gn, gk = kgg.cdiv(n, 128), kgg.cdiv(k, 32)
+            hit, step, row, col = kgg.seu_tile_draws(
+                TRIPLE, ftc, lay.num_tiles, gn, gk, tiles, "cuda")
+            i = base[2] // bm                # a live tile of group 2
+            r2 = i * bm + _other_band(int(row[i, 1]),
+                                      ft_gemm.band_of(tiles, "grouped"), bm)
+            inj = (1, r2, 128 + (int(col[i, 1]) + 1) % 128, int(step[i, 1]))
+            for pol in (ftc, ftc.replace(action="detect")):
+                kw = dict(ft=pol, inj=inj, inj_mag=99.0, rng=TRIPLE)
+                out, rep = kgg.ft_gemm_grouped(buf, ww, lay.gid,
+                                               lay.row_end, **kw)
+                out_p, rep_p = kgg.ft_gemm_grouped_plain(
+                    buf, ww, lay.gid, lay.row_end, tiles=tiles, **kw)
+                assert torch.equal(out, out_p)
+                _check_reports(rep, rep_p)
+                if pol.corrects:
+                    assert torch.equal(out, clean)
+                    assert float(rep[i, 1, 0]) == float(rep[i, 1, 1]) == 2.0
+                else:
+                    assert (out != clean)[i * bm:(i + 1) * bm].sum() >= 2
+
+
+@pytest.mark.parametrize("dtype,bm", [(torch.float32, 8),
+                                      (torch.float32, 16),
+                                      (torch.bfloat16, 16)])
+@pytest.mark.parametrize("level", ["tile", "inner"])
+def test_tgmm_levels_match_plain(cuda, level, dtype, bm):
+    """K8 at tile / inner on its SIMT instance (the plan's rule): dw and
+    reports as the plain version's, SEUs in a live tile and in the last
+    group's dead tiles corrected, detect-only leaving one, empty groups
+    zero; at tile, two SEUs in two bands of dw rows of one block in one
+    interval."""
+    from repro_torch.kernels import grouped_gemm as kgg
+    lay, glay = _grouped_layout(GROUP_SIZES, bm, 2)
+    gen = torch.Generator(device="cuda").manual_seed(10 + bm + len(level))
+    k, n = 150, 200
+    x = glay.scatter_rows(_ints(gen, lay.n_rows, k, dtype=dtype), lay)
+    g = glay.scatter_rows(_ints(gen, lay.n_rows, n, dtype=dtype), lay)
+    ft = FT.replace(level=level)
+    tiles = (bm, 64, 64)
+    p = kgg.plan_k8_call(x, g, bm, ft=ft)
+    assert (p.instance, p.tiles, p.chunk) == ("simt", tiles, bm)
+    base, counts = lay.base.tolist(), lay.counts.tolist()
+    last_tile = (base[-1] + counts[-1] - 1) // bm
+    clean, rep = kgg.tgmm(x, g, lay.row_end, bm=bm, ft=ft)
+    assert float(rep[..., 0].sum()) == 0.0
+    for pol, inj in ((ft, (1, k - 1, 70, base[2] // bm + 1)),
+                     (ft, (1, 3, n - 1, last_tile)),
+                     (ft.replace(verify="final"), (1, 64, 64, base[0] // bm)),
+                     (ft.replace(action="detect"), (1, 9, 17, base[3] // bm)),
+                     (ft, (1, 5, 5, lay.num_tiles - 1))):
+        kw = dict(ft=pol, inj=inj, inj_mag=50.0)
+        before = kgg.TGMM_SIMT.launches
+        dw, rep = kgg.tgmm(x, g, lay.row_end, bm=bm, **kw)
+        assert kgg.TGMM_SIMT.launches == before + 1
+        dw_p, rep_p = kgg.tgmm_plain(x, g, lay.row_end, tiles=tiles, **kw)
+        assert torch.equal(dw, dw_p)
+        _check_reports(rep, rep_p)
+        for e in range(len(GROUP_SIZES)):
+            if counts[e] == 0:
+                assert not dw[e].any() and not rep[e].any()
+        if pol.corrects:
+            assert torch.equal(dw, clean)
+            assert float(rep[..., 0].sum()) == float(rep[..., 1].sum()) >= 1
+        else:
+            assert (dw != clean).sum() == 1
+            assert float(rep[..., 1].sum()) == 0.0
+    if level == "tile":
+        ftc = ft.replace(inject_rate=1.0)
+        first, _, re = kgg._group_span(lay.row_end, bm, lay.num_tiles)
+        live_rows = (re - first * bm).clamp_min(0)
+        gk, gn = kgg.cdiv(k, 64), kgg.cdiv(n, 64)
+        hit, step, row, col = kgg.seu_dw_draws(TRIPLE, ftc, live_rows, gk, gn,
+                                               tiles)
+        e = 2                                   # a group of 29 rows
+        r2 = 64 + _other_band(int(row[e, 1, 0]), ft_gemm.band_of(tiles, "tgmm"),
+                              64)
+        inj = (1, r2, (int(col[e, 1, 0]) + 1) % 64,
+               int(first[e]) + int(step[e, 1, 0]))
+        for pol in (ftc, ftc.replace(action="detect")):
+            kw = dict(ft=pol, inj=inj, inj_mag=50.0, rng=TRIPLE)
+            dw, rep = kgg.tgmm(x, g, lay.row_end, bm=bm, **kw)
+            dw_p, rep_p = kgg.tgmm_plain(x, g, lay.row_end, tiles=tiles, **kw)
+            assert torch.equal(dw, dw_p)
+            _check_reports(rep, rep_p)
+            if pol.corrects:
+                assert torch.equal(dw, clean)
+                assert float(rep[e, 1, 0, 0]) == float(rep[e, 1, 0, 1]) == 2
+            else:
+                assert (dw[e, 64:128, :64] != clean[e, 64:128, :64]).sum() >= 2
+
+
+def test_levels_plan_the_simt_instances(cuda):
+    """`ft_gemm.plan`, `plan_k7` and `plan_k8` send every tile / inner call
+    of training and MoE to the SIMT instance by their written rule, and
+    block to the tensor cores: bf16 w_gate + silu with act_grad, the dw
+    walk, K7 on both walks, K8; each wrapper launches the planned one."""
+    from repro_torch.kernels import grouped_gemm as kgg
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    bf = torch.bfloat16
+    x, w = _ints(gen, 64, 256, dtype=bf), _ints(gen, 256, 128, dtype=bf)
+    g = _ints(gen, 64, 128, dtype=bf)
+    lay, glay = _grouped_layout([20, 0, 30, 14], 16, 3)
+    buf = glay.scatter_rows(_ints(gen, lay.n_rows, 256, dtype=bf), lay)
+    we = _ints(gen, 4, 256, 128, dtype=bf)
+    cases = [
+        (lambda ft: ft_gemm.plan_call(x, w, chain=("silu",), ft=ft,
+                                      save_act_grad=True),
+         lambda ft: ft_gemm.ft_gemm(x, w, chain=("silu",), ft=ft,
+                                    save_act_grad=True),
+         ft_gemm.FT_GEMM_2D_SIMT, ft_gemm.FT_GEMM_SM90),
+        (lambda ft: ft_gemm.plan_call(x.T, g, ft=ft),
+         lambda ft: ft_gemm.ft_gemm(x.T, g, ft=ft),
+         ft_gemm.FT_GEMM_2D_SIMT, ft_gemm.FT_GEMM_SM90),
+        (lambda ft: kgg.plan_k7_call(buf, we, lay.gid, ft=ft),
+         lambda ft: kgg.ft_gemm_grouped(buf, we, lay.gid, lay.row_end, ft=ft),
+         kgg.FT_GEMM_GROUPED_SIMT, kgg.FT_GEMM_GROUPED_SM90),
+        (lambda ft: kgg.plan_k7_call(buf[:, :128], we.transpose(-1, -2),
+                                     lay.gid, ft=ft),
+         lambda ft: kgg.ft_gemm_grouped(buf[:, :128].contiguous(),
+                                        we.transpose(-1, -2), lay.gid,
+                                        lay.row_end, ft=ft),
+         kgg.FT_GEMM_GROUPED_SIMT, kgg.FT_GEMM_GROUPED_SM90),
+        (lambda ft: kgg.plan_k8_call(buf, buf[:, :128].contiguous(), 16,
+                                     ft=ft),
+         lambda ft: kgg.tgmm(buf, buf[:, :128].contiguous(), lay.row_end,
+                             bm=16, ft=ft),
+         kgg.TGMM_SIMT, kgg.TGMM_SM90),
+    ]
+    for plan, call, simt, sm90 in cases:
+        for level in ("block", "tile", "inner"):
+            ft = FT.replace(level=level)
+            p = plan(ft)
+            want = "sm90" if level == "block" else "simt"
+            assert p.instance == want, (level, p)
+            if level != "block":
+                assert level in p.reason
+            before = (simt.launches, sm90.launches)
+            call(ft)
+            torch.cuda.synchronize()
+            got = (simt.launches - before[0], sm90.launches - before[1])
+            assert got == ((0, 1) if level == "block" else (1, 0))

@@ -182,9 +182,15 @@ def test_cpu_wrappers_follow_the_plan():
         got = kgg.ft_gemm_grouped(buf, w, tl.gid, tl.row_end, ft=ft,
                                   tiles=tiles)
         assert all(torch.equal(a, b) for a, b in zip(got, want))
-    with pytest.raises(NotImplementedError):
-        kgg.ft_gemm_grouped(buf, w, tl.gid, tl.row_end,
-                            ft=TFT(level="tile"))
+    # tile and inner run on the SIMT instance by the plan's rule
+    for level in ("tile", "inner"):
+        ft = TFT(level=level)
+        p = kgg.plan_k7_call(buf, w, tl.gid, ft=ft)
+        assert (p.instance, p.tiles, p.chunk) == ("simt", (16, 128, 32), 16)
+        want = kgg.ft_gemm_grouped_plain(buf, w, tl.gid, tl.row_end,
+                                         tiles=p.tiles, chunk=p.chunk, ft=ft)
+        got = kgg.ft_gemm_grouped(buf, w, tl.gid, tl.row_end, ft=ft)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 # ---------------------------------------------------------------------------

@@ -237,7 +237,8 @@ def test_batched_levels_match_reference(level, inj_batch):
 def test_kernel_band_and_grouped_kernels(level):
     """At the kernel's own tiles the plain version takes the kernel's band
     (BANDS); the totals and the located global (row, col) agree with the
-    reference's at its tiles. The grouped fronts (K7, K8) raise."""
+    reference's at its tiles. The grouped fronts (K7, K8) run the level on
+    the SIMT instances their plans pick."""
     m, n, k = 100, 300, 200
     rng = np.random.default_rng(61)
     a, b = _ints(rng, m, k), _ints(rng, k, n)
@@ -257,16 +258,26 @@ def test_kernel_band_and_grouped_kernels(level):
     with pytest.raises(ValueError):                     # bm % 128 != 0
         tgemm.ft_gemm_plain(_t(a), _t(b), ft=tpol.FTConfig(level="tile"),
                             tiles=(96, 128, 128))
-    with pytest.raises(NotImplementedError):            # K7
-        tops.grouped_gemm_call(TKernelSpec(ft_level=level),
-                               torch.ones(16, 8), torch.ones(2, 8, 4),
-                               group_ids=torch.tensor([0] * 8 + [1] * 8),
-                               ft=tpol.FTConfig(level=level))
-    with pytest.raises(NotImplementedError):            # K8
-        tops.grouped_gemm_call(TKernelSpec(ft_level=level),
-                               torch.ones(16, 8), torch.ones(16, 4),
-                               group_ids=torch.tensor([0] * 8 + [1] * 8),
-                               n_groups=2, ft=tpol.FTConfig(level=level))
+    from repro_torch.kernels import grouped_gemm as kgg
+    gids = torch.tensor([0] * 8 + [1] * 8)
+    y, rep = tops.grouped_gemm_call(TKernelSpec(ft_level=level),   # K7
+                                    torch.ones(16, 8), torch.ones(2, 8, 4),
+                                    group_ids=gids, ft=tft)
+    assert torch.equal(y, torch.full((16, 4), 8.0))
+    assert float(rep[..., 0].sum()) == 0.0 and float(rep[..., 6].min()) > 0
+    dw, rep = tops.grouped_gemm_call(TKernelSpec(ft_level=level),  # K8
+                                     torch.ones(16, 8), torch.ones(16, 4),
+                                     group_ids=gids, n_groups=2, ft=tft)
+    assert torch.equal(dw, torch.full((2, 8, 4), 8.0))
+    assert float(rep[..., 0].sum()) == 0.0 and float(rep[..., 6].min()) > 0
+    bf = torch.bfloat16
+    p7 = kgg.plan_k7(128, 256, bf, 16, level=level, buf_strides=(256, 1),
+                     w_strides=(256 * 128, 128, 1))
+    p8 = kgg.plan_k8(256, 128, bf, 16, level=level, x_strides=(256, 1),
+                     g_strides=(128, 1))
+    assert (p7.instance, p7.tiles) == ("simt", (16, 128, 32))
+    assert (p8.instance, p8.tiles) == ("simt", (16, 64, 64))
+    assert level in p7.reason and level in p8.reason
 
 
 @pytest.fixture(scope="module")
