@@ -58,19 +58,27 @@ Phases (each prints its own lines; any failed check exits non-zero):
   level_kernels  K1 and K5 at the tile (warp) and inner (thread) FT levels
                against their plain versions on the card in bf16 at
                qwen2-7b's prefill and decode w_gate+silu, decode wk+bias,
-               decode lm_head, decode QKᵀ and PV shapes (K1 on its SIMT
-               instance, K5 on its tensor-core one): max error, reports
-               equal, no detection on clean data, an SEU on integer-valued
-               operands corrected bit for bit and located and left in
-               place by a detect-only policy; K1's CUDA-event times beside
-               FT off and block at the SIMT tiles (the like-for-like
-               ablation) and block at the default plan (the tensor cores);
+               decode lm_head, decode QKᵀ and PV shapes (K1 on its
+               tensor-core level instance, K5 on its tensor-core one): max
+               error, reports equal, no detection on clean data, an SEU on
+               integer-valued operands corrected bit for bit and located
+               and left in place by a detect-only policy (at inner counted
+               once); at the decode w_gate+silu (split-K) an SEU in every
+               16-row band of a block, and at tile a campaign at rate 1.0
+               with an SEU in another band; K1's CUDA-event times beside FT
+               off and block on the tensor cores (the like-for-like
+               ablation) and the SIMT instance pinned at the level (held
+               against its plain version at the decode shapes); the bf16
+               level ablation on a 4 096 square (off, block, tile, inner,
+               torch.matmul);
                K5's device times (torch.profiler) beside FT off, block and
                torch.matmul on the same clock and instance, its whole
                calls' CUDA-event times (the SIMT instance's too) under
                their own keys; the bound, the plain version and the
                library call. Then the tile and inner levels of training and
-               MoE on their SIMT instances (the plans' rule) in bf16: K1's
+               MoE on the instances the plans pick in bf16 (K1 and K7 on the
+               tensor cores, K8 on its SIMT instance), each timed beside the
+               SIMT instance pinned at the level: K1's
                w_gate+silu with act_grad and its dw on the transposed-A
                walk at phi4-mini-3.8b's training shape (2 x 512 tokens), K7
                at qwen3-moe-235b-a22b's decode gate and its training dbuf
@@ -234,25 +242,29 @@ Phases (each prints its own lines; any failed check exits non-zero):
                2 x 512 tokens, `remat="full"`, 3 steps at block, tile and
                inner from one seed: each level's losses within 1e-2 of
                block's, zero detections, launches per step (K1 on the
-               tensor cores at block, on the SIMT instance at tile and
-               inner), step times, one more step under torch.profiler (busy
+               tensor cores at every level), step times, one more step under torch.profiler (busy
                time, idle share); then at 2 layers x 256 tokens a
-               `bwd_inject` SEU in w_down's dw (the transposed-A walk) and
-               a campaign on w_gate (its forward act_grad kernel and its
-               backward GEMMs) at each level, corrected to the clean grads
-               by train_check's rule (1e-3) and left by detect-only
-               (>= 100x);
+               `bwd_inject` SEU in w_down's dw (the transposed-A walk),
+               corrected to the clean grads by train_check's rule (1e-3)
+               and left by detect-only (>= 100x), and a campaign on w_gate
+               (its forward act_grad kernel and its backward GEMMs) at each
+               level: each act_grad call with the clean run's operands
+               gives its outputs bit for bit but at the corrected cells
+               (there within one bf16 ulp), and the grads match the plain
+               versions' correction of the same draws within 2e-2
+               (detect-only >= 10x further);
   level_moe    qwen3-moe-235b-a22b at tile and inner: `ServeEngine` at full
                width, 12 layers, 8 requests on 8 slots (decode ms per step,
                prefill ms, TTFT, tokens/s, peak memory, launches: K1 and K7
-               on the SIMT instances, zero detections, pages back, one
-               profiled decode step), `train_loop.train` at 1 layer as
-               moe_train (3 steps, launches: K1, K7 and K8 on the SIMT
-               instances, one profiled step), and `bwd_inject` SEUs in
+               on the tensor-core level instances, zero detections, pages
+               back, one profiled decode step), `train_loop.train` at 1
+               layer as moe_train (3 steps, launches: K1 and K7 on the
+               tensor cores, K8 on its SIMT instance, one profiled step), and `bwd_inject` SEUs in
                moe_gate's dw (K8) and dbuf (K7 on the wᵀ walk) corrected by
                train_check's rule and left by detect-only;
-  campaign_kernels  stochastic SEU campaigns on the GEMM family's eight
-               instances (K1, K5, K7, K8, tensor cores and SIMT), each at a
+  campaign_kernels  stochastic SEU campaigns on the GEMM family's nine
+               instances (K1, K5, K7, K8, tensor cores and SIMT, and K1's
+               tensor-core level instance at tile), each at a
                main-path shape and a shape with a tail block, on integer-
                valued operands under a fixed triple at rates 0.5 and 1.0:
                reports equal to the planned plain version's, one detection and
@@ -377,7 +389,15 @@ KERNELS = {
                                 "ft_gemm_sm90.cu",
                          replaces="src/repro/kernels/templates/registry.py:48",
                          counter=ft_gemm.FT_GEMM_SM90),
-    # K1's SIMT instance: f32, the tile and inner levels, other walks
+    # ... and at the tile and inner levels (the same kernels, built from
+    # their own source)
+    "ft_gemm_level_sm90": dict(route="cuda",
+                               source="src/repro_torch/kernels/csrc/"
+                                      "ft_gemm_level_sm90.cu",
+                               replaces="src/repro/kernels/templates/"
+                                        "registry.py:48",
+                               counter=ft_gemm.FT_GEMM_LEVEL_SM90),
+    # K1's SIMT instance: f32, pinned tiles, other chains and walks
     "ft_gemm_2d": dict(route="cuda",
                        source="src/repro_torch/kernels/csrc/ft_gemm.cu",
                        replaces="src/repro/kernels/templates/registry.py:48",
@@ -452,8 +472,8 @@ KERNELS = {
                          replaces="src/repro/kernels/flashft.py:270",
                          counter=flashft.FLASH_DECODE),
     # K7: batched_kernel_call with grouped=True (the grouped body of
-    # emit.py:233 render), on the tensor cores: every bf16 call at FT off
-    # and block
+    # emit.py:233 render), on the tensor cores: every bf16 call at every
+    # level
     "ft_gemm_grouped_sm90": dict(route="cuda",
                                  source="src/repro_torch/kernels/csrc/"
                                         "grouped_sm90.cu",
@@ -493,11 +513,11 @@ DECODE_LENGTHS = (0, 1, 63, 64, 65, 300, 777, 1024)
 
 def k1_launches(count: int, level: str = "block"):
     """The expected K1 2-D counts of a bf16 path at FT ``level``: every
-    launch on the tensor-core instance at off and block, on the SIMT one at
-    tile and inner."""
-    sm90 = level in ("off", "block")
-    return {"ft_gemm_sm90": count if sm90 else 0,
-            "ft_gemm_2d": 0 if sm90 else count}
+    launch on the tensor cores, on ft_gemm_sm90 at off and block, on
+    ft_gemm_level_sm90 at tile and inner; the SIMT instance never."""
+    lv = level in ("tile", "inner")
+    return {"ft_gemm_sm90": 0 if lv else count,
+            "ft_gemm_level_sm90": count if lv else 0, "ft_gemm_2d": 0}
 
 
 def k5_launches(count: int):
@@ -696,6 +716,9 @@ def phase_env() -> str:
                            .endswith("kernel")), fn)
             elif "Used" in line or "spill" in line:
                 print(f"    {fn[:100]}: {line.strip()}")
+            elif "wgmma" in line:
+                # ptxas's note when it serialises an instance's wgmmas
+                print(f"    {line.strip()[:220]}")
     return smi
 
 
@@ -1310,8 +1333,7 @@ def _serve_run(name, params, cfg, run, prompts, new_tokens):
                        **k2_launches(cfg.n_layers), **NO_FLASH_BWD,
                        **k6_launches(0), **OFF_PATH},
           f"{name}: launch counts K1 {per_step} per prefill and per decode "
-          f"step (every one on the {'tensor-core' if run.ft.level == 'block' else 'SIMT'} "
-          f"instance), K5 {2 * cfg.n_layers} per decode step (every one on "
+          f"step (every one on the tensor-core {run.ft.level} instance), K5 {2 * cfg.n_layers} per decode step (every one on "
           f"the tensor-core instance), K2 {cfg.n_layers} per prefill (on the "
           f"tensor-core instance)")
     check(totals["detected"] == 0, f"{name}: zero detections")
@@ -1397,7 +1419,9 @@ def phase_serve(layers: int):
 
 def phase_level_kernels():
     """K1 and K5 at the tile and inner levels against their plain versions
-    at serving shapes of qwen2-7b (bf16), beside FT off and block."""
+    at serving shapes of qwen2-7b (bf16), beside FT off and block; K1's
+    SEUs in every band of a split-K block; the bf16 level ablation; then
+    the training and MoE shapes (`_level_training_kernels`)."""
     gen = torch.Generator(device="cuda").manual_seed(7)
     cfg = qwen2_7b.CONFIG
     d, dff = cfg.d_model, cfg.d_ff
@@ -1429,19 +1453,20 @@ def phase_level_kernels():
     def ints(shape, scale):
         return _ints(gen, *shape)
 
-    rows = {"ft_gemm_2d": dict(max_abs_err=0.0, detail=[]),
+    rows = {"ft_gemm_level_sm90": dict(max_abs_err=0.0, detail=[]),
+            "ft_gemm_2d": dict(max_abs_err=0.0, detail=[]),
             "ft_gemm_batched_sm90": dict(max_abs_err=0.0, detail=[])}
-    for label, name in (("prefill w_gate+silu", "ft_gemm_2d"),
-                        ("decode w_gate+silu", "ft_gemm_2d"),
-                        ("decode wk+bias", "ft_gemm_2d"),
-                        ("decode lm_head", "ft_gemm_2d"),
+    for label, name in (("prefill w_gate+silu", "ft_gemm_level_sm90"),
+                        ("decode w_gate+silu", "ft_gemm_level_sm90"),
+                        ("decode wk+bias", "ft_gemm_level_sm90"),
+                        ("decode lm_head", "ft_gemm_level_sm90"),
                         ("dec_qk", "ft_gemm_batched_sm90"),
                         ("dec_pv", "ft_gemm_batched_sm90")):
         a, b, chain, kw, nb = operands(rnd, label)
         m, k, n = a.shape[-2], a.shape[-1], b.shape[-1]
-        # K1 runs the levels on its SIMT instance, K5 on the tensor cores.
+        # K1 and K5 run the levels on the tensor cores.
         counter = (ft_gemm.FT_GEMM_BATCHED_SM90 if a.dim() > 2
-                   else ft_gemm.FT_GEMM_2D_SIMT)
+                   else ft_gemm.FT_GEMM_LEVEL_SM90)
         iters = 3 if m == BATCH * PROMPT else 10
         simt = ft_gemm.pick_tiles(m)
         lib = ((lambda: torch.addmm(kw["bias"], a, b)) if kw
@@ -1464,17 +1489,16 @@ def phase_level_kernels():
                 library_call_ms=time_ms(lib, iters))
             where = "on the device, tensor cores"
         else:
-            # K1: FT off and block at the SIMT tiles (the like-for-like
-            # ablation of the levels) and block at the default plan (the
-            # tensor cores), CUDA events over back-to-back calls.
+            # K1: FT off and block on the tensor cores (the like-for-like
+            # ablation of the levels), CUDA events over back-to-back calls;
+            # the SIMT instance pinned at each level beside it below.
             off_ms = time_ms(lambda: ft_gemm.ft_gemm(a, b, chain=chain,
-                                                     tiles=simt, **kw), iters)
+                                                     **kw), iters)
             block_ms = time_ms(lambda: ft_gemm.ft_gemm(
-                a, b, chain=chain, ft=FT, tiles=simt, **kw), iters)
+                a, b, chain=chain, ft=FT, **kw), iters)
             lib_ms = time_ms(lib, iters)
-            calls = dict(block_default_ms=time_ms(lambda: ft_gemm.ft_gemm(
-                a, b, chain=chain, ft=FT, **kw), iters))
-            where = f"at the SIMT tiles {simt}"
+            calls = {}
+            where = "on the tensor cores"
         b_ms, b_by = bound(2.0 * nb * m * n * k,
                            2 * nb * (m * k + k * n + m * n)
                            + sum(2 * x.numel() for x in kw.values()))
@@ -1483,9 +1507,8 @@ def phase_level_kernels():
             before = counter.launches
             out, rep = ft_gemm.ft_gemm(a, b, chain=chain, ft=ft, **kw)
             check(counter.launches == before + 1,
-                  f"{level} {label}: one launch of "
-                  f"{'the tensor-core' if a.dim() > 2 else 'the SIMT'} "
-                  f"instance")
+                  f"{level} {label}: one launch of the tensor-core "
+                  f"{'' if a.dim() > 2 else 'level '}instance")
             out_p, rep_p = _plain_gemm(a, b, chain=chain, ft=ft, **kw)
             err = _cmp_outputs(f"{level} {label}", out, out_p, rep, rep_p)
             check(torch.equal(rep[..., :4], rep_p[..., :4]),
@@ -1496,6 +1519,26 @@ def phase_level_kernels():
             if a.dim() > 2:
                 extra["call_ms"] = ms
                 ms = kernel_device_ms(lambda: ft_gemm.ft_gemm(a, b, ft=ft))
+            else:
+                extra["simt_ms"] = time_ms(lambda: ft_gemm.ft_gemm(
+                    a, b, chain=chain, ft=ft, tiles=simt, **kw),
+                    max(iters // 3, 1))
+                if m == BATCH:
+                    # the SIMT instance pinned at the level, against its
+                    # plain version at its tiles (the ft_gemm_2d row)
+                    o_s, r_s = ft_gemm.ft_gemm(a, b, chain=chain, ft=ft,
+                                               tiles=simt, **kw)
+                    (o_p, r_p), p_ms = _timed(lambda: _plain_gemm(
+                        a, b, chain=chain, ft=ft, tiles=simt, **kw))
+                    e_s = _cmp_outputs(f"{level} {label} SIMT pinned", o_s,
+                                       o_p, r_s, r_p)
+                    rows["ft_gemm_2d"]["max_abs_err"] = max(
+                        rows["ft_gemm_2d"]["max_abs_err"], e_s)
+                    rows["ft_gemm_2d"]["detail"].append(dict(
+                        shape=f"{label} ({level}, SIMT tiles {simt})",
+                        level=level, M=m, N=n, K=k, ms=extra["simt_ms"],
+                        plain_ms=p_ms, library_ms=lib_ms, bound_ms=b_ms,
+                        bound_by=b_by))
             plain_ms = time_ms(lambda: _plain_gemm(a, b, chain=chain, ft=ft,
                                                    **kw), 1, warmup=0)
             rows[name]["max_abs_err"] = max(rows[name]["max_abs_err"], err)
@@ -1539,11 +1582,93 @@ def phase_level_kernels():
             n_det = float(rep_d[..., 0].sum())
             check(diff.shape[0] == nb and bool((diff[:, 1] == row).all())
                   and bool((diff[:, 2] == col).all())
-                  and float(rep_d[..., 1].sum()) == 0.0 and n_det >= nb,
+                  and float(rep_d[..., 1].sum()) == 0.0 and n_det >= nb
+                  and (level == "tile" or n_det == nb),
                   f"{level} {label}: the same SEU left in place by a "
-                  f"detect-only policy ({n_det:.0f} detections)")
+                  f"detect-only policy ({n_det:.0f} detections"
+                  f"{'' if level == 'tile' else ', once'})")
+        if label == "decode w_gate+silu":
+            _split_band_seus(label, a, b, chain, kw)
+    _level_ablation(gen, rows)
     _merge_rows(rows, _level_training_kernels(gen))
     return rows
+
+
+def _split_band_seus(label, a, b, chain, kw):
+    """K1 at decode on split-K (qwen2-7b's w_gate + silu): an SEU in each
+    16-row band of block (0, 1) at each level, at k-steps in different
+    ranges, corrected bit for bit and located (the rows past M are the
+    block's padding rows, carried by the partials when an SEU lands
+    there); at tile a campaign at rate 1.0 and an SEU in another band of
+    that block at the drawn step, both corrected."""
+    m, k, n = a.shape[0], a.shape[1], b.shape[1]
+    p = ft_gemm.plan_call(a, b, chain=chain, ft=FT.replace(level="tile"))
+    bm, bn, bk = p.tiles
+    check(p.splits > 1, f"{label}: split-K at the level ({p.splits} ranges)")
+    gk = ft_gemm.cdiv(k, bk)
+    for level in LEVELS:
+        ft = FT.replace(level=level)
+        clean, _ = ft_gemm.ft_gemm(a, b, chain=chain, ft=ft, **kw)
+        for band in range(bm // 16):
+            row, col = band * 16 + (3 * band + 1) % 16, bn + 7 * band
+            step = (band * gk) // (bm // 16)
+            out, rep = ft_gemm.ft_gemm(a, b, chain=chain, ft=ft,
+                                       inj=(1, -1, row, col, step),
+                                       inj_mag=1000.0, **kw)
+            cells = rep[rep[..., 0] > 0]
+            check(torch.equal(out, clean) and float(rep[..., 0].sum()) == 1.0
+                  and float(rep[..., 1].sum()) == 1.0
+                  and (int(cells[0, 2]), int(cells[0, 3])) == (row, col),
+                  f"{level} {label}: SEU in band {band} (row {row}, col "
+                  f"{col}, k-step {step} of {gk} in {p.splits} ranges) "
+                  f"corrected bit for bit and located")
+    ftc = FT.replace(level="tile", inject_rate=1.0)
+    clean, _ = ft_gemm.ft_gemm(a, b, chain=chain, ft=ftc, **kw)
+    gm, gn = ft_gemm.cdiv(m, bm), ft_gemm.cdiv(n, bn)
+    _, st, r, c = ft_gemm.seu_draws(BAND_TRIPLE, ftc, 1, gm, gn, gk, p.tiles,
+                                    False)
+    r2 = _next_band(int(r[0, 0, 1]), 16, bm)
+    inj = (1, -1, r2, bn + (int(c[0, 0, 1]) + 1) % bn, int(st[0, 0, 1]))
+    out, rep = ft_gemm.ft_gemm(a, b, chain=chain, ft=ftc, rng=BAND_TRIPLE,
+                               inj=inj, inj_mag=1000.0, **kw)
+    _, rep_p = _plain_gemm(a, b, chain=chain, ft=ftc, rng=BAND_TRIPLE,
+                           inj=inj, inj_mag=1000.0, **kw)
+    check(torch.equal(out, clean) and torch.equal(rep[..., :4], rep_p[..., :4])
+          and float(rep[0, 1, 0]) == float(rep[0, 1, 1]) == 2.0,
+          f"tile {label}: a campaign at rate 1.0 and an SEU in another band "
+          f"of block (0, 1) at the drawn k-step ({inj}), under split-K: both "
+          f"corrected, reports as the plain version's")
+
+
+def _level_ablation(gen, rows):
+    """The paper's level ablation like for like on the tensor cores: K1 on
+    a bf16 4 096 square at FT off, block, tile and inner, each level's
+    overhead over FT off and over torch.matmul (CUDA events)."""
+    n = 4096
+    a, b = _rand(gen, n, n), _rand(gen, n, n, scale=0.02)
+    lib_ms = time_ms(lambda: torch.matmul(a, b), 20)
+    off_ms = time_ms(lambda: ft_gemm.ft_gemm(a, b), 20)
+    b_ms, b_by = bound(2.0 * n ** 3, 2 * 3 * n * n)
+    out = {}
+    for level in ("block",) + LEVELS:
+        ft = FT.replace(level=level)
+        got, rep = ft_gemm.ft_gemm(a, b, ft=ft)
+        check(float(rep[..., 0].sum()) == 0.0,
+              f"ablation {level}: no detection on the {n} square")
+        out[level] = time_ms(lambda: ft_gemm.ft_gemm(a, b, ft=ft), 20)
+    for level, ms in out.items():
+        print(f"  ablation bf16 {n}^3 {level}: {ms:.4f} ms, "
+              f"{(ms / off_ms - 1) * 100:.1f} % over FT off {off_ms:.4f} ms, "
+              f"{(ms / lib_ms - 1) * 100:.1f} % over torch.matmul "
+              f"{lib_ms:.4f} ms; bound {b_ms:.4f} ms ({b_by})")
+    print(json.dumps({"level_ablation": dict(
+        n=n, dtype="bfloat16", ft_off_ms=off_ms, library_ms=lib_ms,
+        bound_ms=b_ms, **{f"{lv}_ms": ms for lv, ms in out.items()})}))
+    for level in LEVELS:
+        rows["ft_gemm_level_sm90"]["detail"].append(dict(
+            shape=f"ablation {n}x{n}x{n} ({level})", level=level, M=n, N=n,
+            K=n, ms=out[level], ft_off_ms=off_ms, block_ms=out["block"],
+            plain_ms=None, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by))
 
 
 def phase_level_check():
@@ -3632,8 +3757,12 @@ class _LevelCase:
     deterministic SEU (inj, magnitude, (row, col)) of the integer case;
     ``band_seu(ft)`` the (inj, report index, rows, cols) of a deterministic
     SEU in another band of a block that the campaign at rate 1.0 hits in
-    the same interval; ``live`` the report rows to compare (K8: live
-    groups)."""
+    the same interval (None: no block of the case has two bands); ``bands``
+    the (inj, (row, col)) of an SEU in each 16-row band of one block of the
+    integer case (tensor-core level instances); ``live`` the report rows to
+    compare (K8: live groups); ``sm90``: the plan runs the level on the
+    tensor cores, and ``call(ft, simt_=True)`` pins the SIMT instance at
+    the level too (the SIMT kernel at the level, timed beside it)."""
     label: str
     name: str
     counter: object
@@ -3647,7 +3776,9 @@ class _LevelCase:
     ints: object = None
     seu: object = None
     band_seu: object = None
+    bands: object = None
     live: object = None
+    sm90: bool = False
 
 
 def _level_k1_cases(gen):
@@ -3656,6 +3787,7 @@ def _level_k1_cases(gen):
     cfg = phi4_mini_38b.CONFIG
     m, d, dff = TRAIN_BATCH * TRAIN_SEQ, cfg.d_model, cfg.d_ff
     simt = ft_gemm.pick_tiles(m)
+    tiles = ft_gemm.SM90_TILES[0]          # the plan's, both cases
 
     def gate(make):
         a, b = make((m, d), 1.0), make((d, dff), 0.02)
@@ -3696,9 +3828,18 @@ def _level_k1_cases(gen):
             (f"train dw w_gate x.T {d}x{dff}x{m}", dw, (d, dff, m), 1)):
         a, b, call, plain = build_(rnd)
         ai, bi, call_i, plain_i = build_(ints)
-        tiles = ft_gemm.pick_tiles(mm)
+        check(ft_gemm.plan_call(a, b, ft=FT.replace(level="tile")).tiles
+              == tiles, f"{label}: the tensor-core plan at the levels")
         bm, bn, bk = tiles
         row, col, step = mm - 1, nn - 3, ft_gemm.cdiv(kk, bk) // 2
+
+        def bands(bm=bm, bn=bn, kk=kk):
+            gk = ft_gemm.cdiv(kk, 256)
+            out = []
+            for q in range(bm // 16):   # block (1, 1)
+                r, c = bm + 16 * q + (3 * q + 1) % 16, bn + 5 * q
+                out.append(((1, -1, r, c, (q * gk) // (bm // 16)), (r, c)))
+            return out
 
         def band_seu(ft, tiles=tiles, mm=mm, nn=nn, kk=kk):
             gm, gn, gk = (ft_gemm.cdiv(mm, tiles[0]), ft_gemm.cdiv(nn, tiles[1]),
@@ -3714,14 +3855,14 @@ def _level_k1_cases(gen):
                     slice(j * tiles[1], (j + 1) * tiles[1]))
 
         cases.append(_LevelCase(
-            label=label, name="ft_gemm_2d", counter=ft_gemm.FT_GEMM_2D_SIMT,
-            call=call, plain=plain,
+            label=label, name="ft_gemm_level_sm90",
+            counter=ft_gemm.FT_GEMM_LEVEL_SM90, call=call, plain=plain,
             lib=(lambda a=a, b=b: torch.matmul(a, b)), lib_label="torch.matmul",
             flops=2.0 * mm * nn * kk,
             nbytes=2 * (mm * kk + kk * nn + nout * mm * nn), iters=3,
             ints=(call_i, plain_i), seu=((1, -1, row, col, step), 1000.0,
                                          (row, col)),
-            band_seu=band_seu))
+            band_seu=band_seu, bands=bands, sm90=True))
     return cases
 
 
@@ -3742,7 +3883,8 @@ def _level_moe_cases(gen):
              train_rows, True)):
         lay = _moe_layout(gen, n_rows, bm)
         k, n = (f, d) if transpose else (d, f)
-        tiles = (bm, 128, 32)
+        tiles = (bm, 128, 32)                  # the SIMT instance's
+        k7 = grouped_gemm.SM90_GROUPED_TILES   # the plan's
 
         def build_(make, lay=lay, k=k, n=n, n_rows=n_rows,
                    transpose=transpose, tiles=tiles):
@@ -3765,30 +3907,47 @@ def _level_moe_cases(gen):
         ints = build_(lambda *s: _ints(gen, *s))[2:]
         live_rows, live_e = _live(lay)
         lib, lib_label = _library_grouped(buf, w, lay)
+        check(grouped_gemm.plan_k7_call(buf, w, lay.gid,
+                                        ft=FT.replace(level="tile")).tiles
+              == k7, f"{label}: the tensor-core plan at the levels")
         grp = e - 1                                  # the ragged last group
         row, col = int(lay.row_end[grp]) - 1, n - 5
-        step = ft_gemm.cdiv(k, 32) // 2
+        step = ft_gemm.cdiv(k, 256) // 2
+        # the first 64-row chunk of the largest group: its four bands
+        big = int(torch.argmax(lay.counts))
+        i0 = int(lay.base[big]) // bm
+        four = int(lay.counts[big]) >= 64
 
-        def band_seu(ft, lay=lay, k=k, n=n, tiles=tiles):
-            gn, gk = ft_gemm.cdiv(n, 128), ft_gemm.cdiv(k, 32)
+        def band_seu(ft, lay=lay, k=k, n=n, i=i0):
+            """Tile i's campaign SEU and one in another tile (band) of its
+            chunk whose own SEU falls in another k-step."""
+            gn, gk = ft_gemm.cdiv(n, 128), ft_gemm.cdiv(k, 256)
             _, st, r, c = grouped_gemm.seu_tile_draws(
-                BAND_TRIPLE, ft, lay.num_tiles, gn, gk, tiles, "cuda")
-            i, j = int(lay.base[0]) // bm, 1    # the first live group's tile
-            r2 = i * bm + _next_band(int(r[i, j]),
-                                     ft_gemm.band_of(tiles, "grouped"),
-                                     bm)
+                BAND_TRIPLE, ft, lay.num_tiles, gn, gk, k7, "cuda")
+            t, j = next((q, j) for j in (1, 0) for q in (i + 1, i + 2, i + 3)
+                        if int(st[q, j]) != int(st[i, j]))
+            r2 = t * bm + int(r[i, j])
             c2 = j * 128 + (int(c[i, j]) + 1) % 128
-            return ((1, r2, c2, int(st[i, j])), (i, j),
-                    slice(i * bm, (i + 1) * bm), slice(j * 128, (j + 1) * 128))
+            return ((1, r2, c2, int(st[i, j])), (t, j),
+                    slice(t * bm, (t + 1) * bm), slice(j * 128, (j + 1) * 128))
+
+        def bands(k=k, i=i0):
+            gk = ft_gemm.cdiv(k, 256)
+            out = []
+            for q in range(4):
+                r, c = (i + q) * bm + (3 * q + 1) % bm, 128 + 5 * q
+                out.append(((1, r, c, q * gk // 4), (r, c)))
+            return out
 
         cases.append(_LevelCase(
-            label=label, name="ft_gemm_grouped",
-            counter=grouped_gemm.FT_GEMM_GROUPED_SIMT, call=call, plain=plain,
+            label=label, name="ft_gemm_grouped_sm90",
+            counter=grouped_gemm.FT_GEMM_GROUPED_SM90, call=call, plain=plain,
             lib=lib, lib_label=lib_label, flops=2.0 * live_rows * n * k,
             nbytes=2 * (live_rows * k + live_e * k * n + live_rows * n),
             iters=10 if n_rows == dec_rows else 3, ints=ints,
             seu=((1, row, col, step), 1000.0, (row, col)),
-            band_seu=band_seu))
+            band_seu=band_seu if four else None, bands=bands if four else None,
+            sm90=True))
     # K8 at the training dw of the gate: dw (128, 4 096, 1 536) f32
     lay = _moe_layout(gen, train_rows, bm)
     tiles = (bm, 64, 64)
@@ -3841,11 +4000,15 @@ def _level_moe_cases(gen):
 def _level_case(c: _LevelCase, rows):
     """One instance at tile and inner against its plain version under the
     same plan: max error, reports equal, no detection on clean data;
-    CUDA-event times beside the same instance at block, the tensor-core
-    block call and the library call; on integer-valued operands an SEU
-    corrected bit for bit and located and left by detect-only, and at tile
-    two SEUs in two bands of one block in one interval, both corrected."""
+    CUDA-event times beside the SIMT instance at block (and, where the
+    plan takes the level to the tensor cores, pinned at the same level),
+    the tensor-core block call and the library call; on integer-valued
+    operands an SEU corrected bit for bit and located and left by
+    detect-only (at inner counted once), one in each band of a block, and
+    at tile two SEUs in two bands of one block in one interval, both
+    corrected."""
     live = c.live if c.live is not None else Ellipsis
+    where = "tensor-core level" if c.sm90 else "SIMT"
     block_ms = time_ms(lambda: c.call(FT, simt_=True), c.iters)
     sm90_ms = time_ms(lambda: c.call(FT), c.iters)
     lib_ms = time_ms(c.lib, c.iters)
@@ -3853,8 +4016,8 @@ def _level_case(c: _LevelCase, rows):
     for level in LEVELS:
         ft = FT.replace(level=level)
         (out, rep), nl = _launched(c.counter, lambda: c.call(ft))
-        check(nl == 1, f"{level} {c.label}: one launch of the SIMT instance "
-                       f"(the plan's rule)")
+        check(nl == 1, f"{level} {c.label}: one launch of the {where} "
+                       f"instance (the plan's rule)")
         (out_p, rep_p), plain_ms = _timed(lambda: c.plain(ft))
         pairs = (zip(("C", "act_grad"), out, out_p)
                  if isinstance(out, tuple) else [("out", out, out_p)])
@@ -3863,15 +4026,21 @@ def _level_case(c: _LevelCase, rows):
                   for what, got, want in pairs)
         del out_p, rep_p
         ms = time_ms(lambda: c.call(ft), c.iters)
+        simt = {}
+        if c.sm90:
+            simt["simt_ms"] = time_ms(lambda: c.call(ft, simt_=True),
+                                      max(c.iters // 3, 1), warmup=1)
         rows[c.name]["max_abs_err"] = max(rows[c.name]["max_abs_err"], err)
         rows[c.name]["detail"].append(dict(
             shape=f"{c.label} ({level})", level=level, ms=ms,
             block_ms=block_ms, block_sm90_ms=sm90_ms, plain_ms=plain_ms,
             library_ms=lib_ms, library=c.lib_label, bound_ms=b_ms,
-            bound_by=b_by))
-        print(f"  {level} {c.label}: SIMT {ms:.4f} ms ({ms / block_ms:.3f}x "
-              f"the SIMT block {block_ms:.4f}; tensor-core block "
-              f"{sm90_ms:.4f}), library {lib_ms:.4f} ms ({c.lib_label}), "
+            bound_by=b_by, **simt))
+        print(f"  {level} {c.label}: {where} {ms:.4f} ms "
+              f"({ms / sm90_ms:.3f}x the tensor-core block {sm90_ms:.4f}; "
+              f"SIMT block {block_ms:.4f}"
+              + (f"; SIMT {level} {simt['simt_ms']:.4f}" if simt else "")
+              + f"), library {lib_ms:.4f} ms ({c.lib_label}), "
               f"bound {b_ms:.5f} ms ({b_by}), plain {plain_ms:.1f} ms")
     call_i, plain_i = c.ints
     inj, mag, (row, col) = c.seu
@@ -3891,13 +4060,22 @@ def _level_case(c: _LevelCase, rows):
         left, rep_d = call_i(ft.replace(action="detect"), inj=inj,
                              inj_mag=mag)
         diff = (_first(left) != _first(clean)).nonzero()
+        n_det = float(rep_d[..., 0].sum())
         check(diff.shape[0] == 1 and tuple(diff[0, -2:].tolist()) ==
-              (row, col) and float(rep_d[..., 0].sum()) >= 1.0
-              and float(rep_d[..., 1].sum()) == 0.0,
+              (row, col) and n_det >= 1.0
+              and float(rep_d[..., 1].sum()) == 0.0
+              and (level == "tile" or not c.sm90 or n_det == 1.0),
               f"{level} {c.label}: the same SEU left in place by a "
-              f"detect-only policy ({float(rep_d[..., 0].sum()):.0f} "
-              f"detections)")
-        if level != "tile":
+              f"detect-only policy ({n_det:.0f} detections)")
+        for inj_b, (rb, cb) in (c.bands() if c.bands else ()):
+            fixed, rep = call_i(ft, inj=inj_b, inj_mag=mag)
+            cells = rep[rep[..., 0] > 0]
+            check(_same(fixed, clean) and float(rep[..., 0].sum()) == 1.0
+                  and float(rep[..., 1].sum()) == 1.0
+                  and (int(cells[0, 2]), int(cells[0, 3])) == (rb, cb),
+                  f"{level} {c.label}: SEU {inj_b} in its band corrected "
+                  f"bit for bit and located")
+        if level != "tile" or c.band_seu is None:
             continue
         ftc = ft.replace(inject_rate=1.0)
         inj2, cell, rs, cs = c.band_seu(ftc)
@@ -3924,7 +4102,7 @@ def _level_training_kernels(gen):
     at phi4-mini's training shapes, K7 (decode gate, training dbuf) and K8
     (training dw) at qwen3-moe's, each at tile and inner."""
     rows = {n: dict(max_abs_err=0.0, detail=[])
-            for n in ("ft_gemm_2d", "ft_gemm_grouped", "tgmm")}
+            for n in ("ft_gemm_level_sm90", "ft_gemm_grouped_sm90", "tgmm")}
     for c in _level_k1_cases(gen):
         _level_case(c, rows)
         torch.cuda.empty_cache()
@@ -3941,7 +4119,8 @@ def _level_training_kernels(gen):
 #: steps of each level_train / level_moe training run (step 0 has lr 0)
 LEVEL_TRAIN_STEPS = 3
 #: the w_gate campaign of level_train's SEU check: the rate per output
-#: block (1 024 w_gate blocks at 2 layers x 256 tokens: about 10 SEUs)
+#: block (256 forward w_gate blocks on the tensor cores at 2 layers x 256
+#: tokens, and the backward's)
 LEVEL_GATE_RATE = 1e-2
 
 
@@ -3988,17 +4167,107 @@ def _profile_step(cfg, run, shape, out, step):
                                           batch, step))
 
 
+def _rel_err(grads, ref):
+    """The worst leaf's relative Frobenius distance of grads from ref."""
+    return max(((grads[n].float() - ref[n].float()).norm()
+                / ref[n].float().norm().clamp_min(1e-30)).item()
+               for n in ref)
+
+
 def _seu_rule(label, clean, hurt, left):
     """train_check's rule: the corrected grads within 1e-3 worst-leaf
     relative error of the clean ones, detect-only at least 100x further."""
-    def rel_err(grads):
-        return max(((grads[n].float() - clean[n].float()).norm()
-                    / clean[n].float().norm().clamp_min(1e-30)).item()
-                   for n in clean)
-    fixed, kept = rel_err(hurt), rel_err(left)
+    fixed, kept = _rel_err(hurt, clean), _rel_err(left, clean)
     check(fixed <= 1e-3 and kept >= 100 * max(fixed, 1e-6),
           f"{label} corrected: grads as the clean run's (worst leaf "
           f"relative error {fixed:.3g}), detect-only leaves it ({kept:.3g})")
+
+
+@contextmanager
+def act_grad_calls(into: list):
+    """Record every K1 call that saves act_grad (the MLP gate's forward,
+    and its recomputation under remat) into ``into``: its operands, its
+    output and act_grad, and its report."""
+    inner = ft_gemm.ft_gemm
+
+    def gemm(a, b, **kw):
+        res, rep = inner(a, b, **kw)
+        if kw.get("save_act_grad"):
+            into.append(tuple(None if t is None else t.detach().clone()
+                              for t in (a, b, res[0], res[1], rep)))
+        return res, rep
+
+    ft_gemm.ft_gemm = gemm
+    try:
+        yield
+    finally:
+        ft_gemm.ft_gemm = inner
+
+
+def _bf16_ulps(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """|x - y| of two bf16 tensors in bf16 ulps: the distance of their
+    bit patterns in sign-magnitude order (across zero too)."""
+    def ordered(t):
+        i = t.view(torch.int16).int()
+        return torch.where(i < 0, -(i & 0x7FFF), i)
+    return (ordered(x) - ordered(y)).abs()
+
+
+def _call_rule(label, clean_calls, hurt_calls):
+    """Each act_grad K1 call of the campaign run whose operands equal the
+    clean run's: its output and act_grad equal the clean call's bit for
+    bit, but at the cells its report says it corrected, where they may
+    be one bf16 ulp off (or within the block's tau): the f32 correction
+    restores the element to within f32 rounding at the SEU's size, and
+    the bf16 store then rounds to the clean value or to its neighbour.
+    Returns the number of corrected cells whose output moved."""
+    check(len(clean_calls) == len(hurt_calls) > 0,
+          f"{label}: the same act_grad K1 calls in both runs "
+          f"({len(clean_calls)}, {len(hurt_calls)})")
+    same = fixed = moved = worst = 0
+    ok = True
+    for (a0, b0, y0, g0, _), (a1, b1, y1, g1, rep) in zip(clean_calls,
+                                                          hurt_calls):
+        if not (torch.equal(a0, a1) and torch.equal(b0, b1)):
+            continue
+        same += 1
+        bm = ft_gemm.cdiv(y0.shape[0], rep.shape[0])
+        bn = ft_gemm.cdiv(y0.shape[1], rep.shape[1])
+        hit = rep[..., 1] > 0
+        fixed += int(hit.sum())
+        cells = torch.zeros_like(y0, dtype=torch.bool)
+        cells[rep[..., 2][hit].long(), rep[..., 3][hit].long()] = True
+        tau = rep[..., 6].repeat_interleave(bm, 0)[:y0.shape[0]]
+        tau = tau.repeat_interleave(bn, 1)[:, :y0.shape[1]]
+        for x0, x1 in ((y0, y1), (g0, g1)):
+            off = x0 != x1
+            ulps = _bf16_ulps(x0, x1)
+            near = (ulps <= 1) | ((x0.float() - x1.float()).abs() <= tau)
+            ok &= bool((cells | ~off).all()) and bool((near | ~off).all())
+            worst = max(worst, int(ulps.max()))
+        moved += int(((y0 != y1) | (g0 != g1))[cells].sum())
+    check(same > 0 and ok,
+          f"{label}: {same} act_grad K1 calls with the clean run's operands "
+          f"give its output and act_grad bit for bit but at the {fixed} "
+          f"corrected cells, {moved} of which moved (largest move "
+          f"{worst} bf16 ulps)")
+    return moved
+
+
+def _campaign_rule(label, hurt, left, plain_fixed, clean):
+    """A campaign's grads on real-valued operands: the corrected grads
+    against the plain versions' correction of the same draws within 2e-2
+    worst-leaf relative error (train_check's limit for the kernels
+    against the plain versions on this model and batch), detect-only at
+    least 10x further. (A corrected element may come out one bf16 ulp
+    from the clean run's, `_call_rule`, and bf16 backprop spreads that
+    to every leaf; the distance to the clean grads is printed.)"""
+    fixed, kept = _rel_err(hurt, plain_fixed), _rel_err(left, plain_fixed)
+    check(fixed <= 2e-2 and kept >= 10 * fixed,
+          f"{label} corrected: grads as the plain versions' correction of "
+          f"the same draws (worst leaf relative error {fixed:.3g}; "
+          f"{_rel_err(hurt, clean):.3g} from the clean grads), detect-only "
+          f"leaves it ({kept:.3g})")
 
 
 def phase_level_train(smi: str):
@@ -4032,8 +4301,7 @@ def phase_level_train(smi: str):
                   **k6_launches(0), **OFF_PATH}
         check(all(x == expect for x in per),
               f"level_train {level}: launches per step {expect} at every "
-              f"step (K1 on the "
-              f"{'tensor cores' if level == 'block' else 'SIMT instance'})")
+              f"step (K1 on the tensor cores)")
         if level != "block":
             for n in launches:
                 launches[n] += sum(x[n] for x in per)
@@ -4052,7 +4320,7 @@ def phase_level_train(smi: str):
         check(rel <= 1e-2, f"level_train {level}: each step's loss within "
                            f"1e-2 relative of block's from the same seed "
                            f"(worst {rel:.3g}; bf16 outputs of f32 sums in "
-                           f"other orders, SIMT against tensor cores)")
+                           f"other orders)")
     # SEUs at 2 layers x 256 tokens: a bwd_inject SEU in w_down's dw (the
     # transposed-A walk) and a campaign on w_gate (its forward act_grad
     # kernel and its backward GEMMs), each corrected at each level.
@@ -4064,40 +4332,60 @@ def phase_level_train(smi: str):
     batch = {"tokens": tok[:, :-1], "labels": tok[:, 1:]}
     dw_hook = ("w_down", ("dw", InjectionSpec(row=700, col=1000,
                                               magnitude=64.0, k_step=0)))
+
+    def gate_campaign(ctx):
+        return dataclasses.replace(
+            ctx, ft=ctx.ft.replace(inject_rate=LEVEL_GATE_RATE),
+            key=torch.Generator().manual_seed(11), inject_sites=("w_gate",))
+
     for level in LEVELS:
         ft = FT.replace(level=level)
         ctx = Ctx(ft=ft, dtype=torch.bfloat16)
-        _, clean, tot = _grads_of(params, cfg2, batch, ctx)
+        clean_calls, hurt_calls = [], []
+        with act_grad_calls(clean_calls):
+            _, clean, tot = _grads_of(params, cfg2, batch, ctx)
         check(tot["detected"] == 0, f"level_train {level}: clean 2-layer "
                                     f"grads, zero detections")
-        before = ft_gemm.FT_GEMM_2D_SIMT.launches, ft_gemm.FT_GEMM_SM90.launches
+        before = (ft_gemm.FT_GEMM_LEVEL_SM90.launches,
+                  ft_gemm.FT_GEMM_2D_SIMT.launches)
         _, hurt, _ = _grads_of(params, cfg2, batch,
                                dataclasses.replace(ctx, bwd_inject=dw_hook))
-        simt = ft_gemm.FT_GEMM_2D_SIMT.launches - before[0]
-        sm90 = ft_gemm.FT_GEMM_SM90.launches - before[1]
+        lv = ft_gemm.FT_GEMM_LEVEL_SM90.launches - before[0]
+        simt = ft_gemm.FT_GEMM_2D_SIMT.launches - before[1]
         _, left, _ = _grads_of(params, cfg2, batch, dataclasses.replace(
             ctx, ft=ft.replace(action="detect"), bwd_inject=dw_hook))
-        check(simt == 28 * CHECK_LAYERS + 3 and sm90 == 0,
-              f"level_train {level}: every K1 call of the step on the SIMT "
-              f"instance ({simt})")
+        check(lv == 28 * CHECK_LAYERS + 3 and simt == 0,
+              f"level_train {level}: every K1 call of the step on the "
+              f"tensor-core level instance ({lv})")
         _seu_rule(f"level_train {level}: SEU in w_down's dw (LAYOUT 2)",
                   clean, hurt, left)
         del hurt, left
-        camp = dataclasses.replace(
-            ctx, ft=ft.replace(inject_rate=LEVEL_GATE_RATE),
-            key=torch.Generator().manual_seed(11), inject_sites=("w_gate",))
-        _, hurt, tot = _grads_of(params, cfg2, batch, camp)
+        camp = gate_campaign(ctx)
+        with act_grad_calls(hurt_calls):
+            _, hurt, tot = _grads_of(params, cfg2, batch, camp)
         _, left, tot_d = _grads_of(params, cfg2, batch, dataclasses.replace(
             camp, ft=camp.ft.replace(action="detect")))
+        with plain_kernels():
+            _, plain_clean, _ = _grads_of(params, cfg2, batch, ctx)
+            _, plain_fixed, tot_p = _grads_of(params, cfg2, batch, camp)
         check(tot["detected"] > 0 and tot["detected"] == tot["corrected"]
-              and tot_d["corrected"] == 0,
+              and tot_d["corrected"] == 0
+              and tot_p["detected"] == tot["detected"],
               f"level_train {level}: w_gate campaign at {LEVEL_GATE_RATE}: "
-              f"{tot['detected']:.0f} SEUs in the forward act_grad kernel "
-              f"detected and corrected (detect-only: {tot_d['detected']:.0f}"
-              f" detected, none corrected)")
-        _seu_rule(f"level_train {level}: SEUs in w_gate (forward act_grad, "
-                  f"backward dx / dw)", clean, hurt, left)
-        del clean, hurt, left
+              f"{tot['detected']:.0f} SEUs detected and corrected, as many "
+              f"as the plain versions find in the same draws "
+              f"({tot_p['detected']:.0f}; detect-only: "
+              f"{tot_d['detected']:.0f} detected, none corrected)")
+        _call_rule(f"level_train {level}: w_gate campaign", clean_calls,
+                   hurt_calls)
+        print(f"  level_train {level}: clean grads, kernels against the "
+              f"plain versions: worst leaf relative error "
+              f"{_rel_err(clean, plain_clean):.3g}")
+        _campaign_rule(f"level_train {level}: SEUs in w_gate (forward "
+                       f"act_grad, backward dx / dw)", hurt, left,
+                       plain_fixed, clean)
+        del clean, hurt, left, plain_clean, plain_fixed
+        del clean_calls, hurt_calls
     params.requires_grad_(False)
     del params
     print(json.dumps({"level_train": dict(
@@ -4163,13 +4451,14 @@ def phase_level_moe(seed: int, smi: str):
         expect = {**k1_launches(per * calls, level), **k5_launches(0),
                   **k2_launches(cfg.n_layers * len(prompts)), **NO_FLASH_BWD,
                   **k6_launches(cfg.n_layers * steps),
-                  "ft_gemm_grouped_sm90": 0,
-                  "ft_gemm_grouped": 3 * cfg.n_layers * calls,
+                  "ft_gemm_grouped_sm90": 3 * cfg.n_layers * calls,
+                  "ft_gemm_grouped": 0,
                   "tgmm_sm90": 0, "tgmm": 0, "naive_gemm": 0}
         check(got == expect,
               f"level_moe engine {level}: K1 {per} and K7 "
               f"{3 * cfg.n_layers} per prefill and per decode step, all on "
-              f"the SIMT instances; K2, K6 and its combine as at block")
+              f"the tensor-core level instances; K2, K6 and its combine as "
+              f"at block")
         eng_p = ProbeEngine(params, cfg, run, ec)
         for p_, m in zip(prompts, budgets):
             eng_p.submit(p_, max_new_tokens=m)
@@ -4212,12 +4501,12 @@ def phase_level_moe(seed: int, smi: str):
               f"detections")
         expect = {**k1_launches(16 * n_l + 3, level), **k5_launches(0),
                   **k2_launches(2 * n_l), **flash_bwd_launches(cfg1, n_l),
-                  **k6_launches(0), "ft_gemm_grouped_sm90": 0,
-                  "ft_gemm_grouped": 9 * n_l, "tgmm_sm90": 0, "tgmm": 3 * n_l,
+                  **k6_launches(0), "ft_gemm_grouped_sm90": 9 * n_l,
+                  "ft_gemm_grouped": 0, "tgmm_sm90": 0, "tgmm": 3 * n_l,
                   "naive_gemm": 0}
         check(all(x == expect for x in per),
-              f"level_moe train {level}: launches per step {expect} (K1, K7 "
-              f"and K8 on the SIMT instances)")
+              f"level_moe train {level}: launches per step {expect} (K1 and "
+              f"K7 on the tensor-core level instances, K8 on the SIMT one)")
         prof = _profile_step(cfg1, run, shape, out, LEVEL_TRAIN_STEPS)
         print(f"  train {level} profiled step: {prof}")
         summary[level]["train"] = dict(
@@ -4654,12 +4943,19 @@ def phase_campaign_kernels():
         _gemm_case("K1 sm90 tail (200, 1000) x (1000, 296), split-K",
                    ft_gemm.FT_GEMM_SM90, _ints(gen, 200, 1000),
                    _ints(gen, 1000, 296)),
-        # K1's SIMT instance: qwen2-7b's decode w_gate + silu at the tile
-        # level (level_serve's), and an f32 tail at its square tiles
+        # qwen2-7b's decode w_gate + silu at the tile level (level_serve's):
+        # the tensor-core level instance (split-K, 16-row bands), and K1's
+        # SIMT instance pinned by its tiles; an f32 tail at its square tiles
+        _gemm_case(f"K1 sm90 tile decode w_gate+silu ({BATCH}, {q.d_model})"
+                   f" x ({q.d_model}, {q.d_ff}), split-K",
+                   ft_gemm.FT_GEMM_LEVEL_SM90, _ints(gen, BATCH, q.d_model),
+                   _ints(gen, q.d_model, q.d_ff), chain=("silu",),
+                   level="tile"),
         _gemm_case(f"K1 simt tile decode w_gate+silu ({BATCH}, {q.d_model})"
                    f" x ({q.d_model}, {q.d_ff})", simt,
                    _ints(gen, BATCH, q.d_model), _ints(gen, q.d_model, q.d_ff),
-                   chain=("silu",), level="tile"),
+                   chain=("silu",), level="tile",
+                   tiles=ft_gemm.pick_tiles(BATCH)),
         _gemm_case("K1 simt tail f32 (130, 300) x (300, 200)", simt,
                    _ints(gen, 130, 300).to(f32), _ints(gen, 300, 200).to(f32),
                    tiles=(64, 64, 32)),

@@ -1,19 +1,23 @@
 // Grouped ABFT GEMMs of the MoE layer for Hopper on the tensor cores
-// (sm_90a): K7's and K8's bf16 instances at FT off and at the threadblock
-// ("block") level, on the mainloop of csrc/ft_gemm_sm90.cu, whose pieces
-// they share through csrc/sm90_mainloop.cuh (so this source builds beside
-// it in parallel and K1's instances carry no branch of the groups).
+// (sm_90a): K7's bf16 instances at every FT level and K8's at FT off and
+// at the threadblock ("block") level, on the mainloop of
+// csrc/ft_gemm_sm90.cuh, whose pieces they share through
+// csrc/sm90_mainloop.cuh (so this source builds beside K1's in parallel
+// and K1's instances carry no branch of the groups).
 //
 // Replaces the TPU kernels of the JAX package:
 //   K7  src/repro/kernels/templates/emit.py:233 render (grouped body),
 //       launched by templates/registry.py:520 batched_kernel_call with
-//       grouped=True: y_buf = buf @ w[gid] over a group-sorted buffer;
+//       grouped=True: y_buf = buf @ w[gid] over a group-sorted buffer; at
+//       "inner" its Δ verification (emit.py:432-442), at "tile" its
+//       per-band column checksums and _verify_raw (emit.py:443-481);
 //   K8  src/repro/kernels/templates/emit.py:527 render_tgmm, launched by
 //       templates/registry.py:411 tgmm_kernel_call: dw[g] = X_g^T · G_g in
 //       f32 over two buffers of one layout.
 // The SIMT kernels keep f32 and their pinned tiles (csrc/ft_gemm.cu
-// GROUPED, csrc/tgmm.cu); kernels/grouped_gemm.py:plan_k7 / plan_k8 pick
-// the instance by a written rule.
+// GROUPED, csrc/tgmm.cu) and K8's tile and inner levels;
+// kernels/grouped_gemm.py:plan_k7 / plan_k8 pick the instance by a
+// written rule.
 //
 // The layout (kernels/grouped/layout.py) is unchanged: each group's
 // region starts at row_end[g-1] rounded up to the 16-row layout tile and
@@ -59,21 +63,30 @@
 //     it or drawn for one of its tiles; the chunk's record goes in its
 //     first layout tile's report row, the clean record in the others, so
 //     the report keeps its shape (T / 16, gn, 8);
-//   * stochastic SEU campaigns (seu_hook.cuh) run their own instance (SEU):
-//     each layout tile draws its SEU as the reference's per-tile block
-//     does, uid tile·gn + j, over 16 x 128 and the ceil(K / 256) k-steps;
-//     the warp of its band keeps the element at the end of the step before
-//     the drawn one (0 before the first) and adds the magnitude of the
-//     difference after it. Four tiles' SEUs can share one interval of a
-//     chunk, so this instance verifies each 16-row band (one consumer
-//     warp's rows, one layout tile) on its own: the band's column sums of
-//     the accumulator against the band's running column checksum (e^T
-//     A_band per stage, `band_ksum`, dotted with the staged B, `dot_add`,
-//     into per-band partials in shared memory), its rows' residuals, the
-//     chunk's tau; each band locates and corrects its own SEU and records
-//     into its own tile's report row (`verify_bands`). Its four dots of
-//     the staged B a stage cost 1.4-1.6x the clean instance (PERF.md), so
-//     clean calls keep the chunk-wide verification.
+//   * the tile level's band is one consumer warp's 16 rows, one layout
+//     tile: the band column checksums (e_b^T A_s)·B_s run on the tensor
+//     cores beside the wgmmas (BandOp, sm90_mainloop.cuh: the band sums
+//     from the staged A tile's chunks, three bf16 parts of them against
+//     the staged B tile by m16n8k16 `mma.sync`), and each band is
+//     verified, located and corrected on its own at every interval and at
+//     k = K (verify_bands), recording into its own tile's report row;
+//   * the inner level verifies each k-step's Δ band by band: the band's
+//     column and row sums of the accumulator less those at the step before
+//     (kept in shared memory, no second register tile: K7 runs at over 200
+//     registers a thread) against the step's own band checksums, which
+//     restart each step; one SEU per layout tile per step is corrected, as
+//     in the reference's per-tile grid, and an SEU left by detect-only
+//     cancels out of the next step's Δ (counted once). No final
+//     verification;
+//   * stochastic SEU campaigns (seu_hook.cuh) run their own instances
+//     (SEU): each layout tile draws its SEU as the reference's per-tile
+//     block does, uid tile·gn + j, over 16 x 128 and the ceil(K / 256)
+//     k-steps; the warp of its band keeps the element at the end of the
+//     step before the drawn one (0 before the first) and adds the magnitude
+//     of the difference after it. Four tiles' SEUs can share one interval
+//     of a chunk, so a campaign at "block" runs the tile level's per-band
+//     instance (the same function for K7, whose chain is empty: no fold),
+//     and at "inner" the inner one with the hook.
 //
 // K8 (tgmm_sm90_kernel). What bounds it: the f32 write of dw (3.2 GB at
 // the training shape, 128 experts x 4 096 x 1 536). One CTA per (group,
@@ -104,9 +117,9 @@
 //     G rows, `staged_at`) and lands at the end of the stage that holds
 //     the tile, as the deterministic SEU does.
 //
-// Registers (-Xptxas -v, the env phase of chip_smoke.py): K7's instances
-// use 105 (FT off), 205-215 (block) and 232-239 (campaign) registers
-// without spills; K8's 384-thread CTA is held to 168 registers a thread
+// Registers (-Xptxas -v, the env phase of chip_smoke.py): K7's FT-off and
+// block instances use 105 and 205-215 registers without spills (the
+// band instances: PERF.md); K8's 384-thread CTA is held to 168 registers a thread
 // (the register file of one SM over 384 threads; setmaxnreg then gives the
 // consumer warpgroups 232), and its block instance spills 20 bytes there,
 // as K1's 128-row LAYOUT 2 block instance spills 4: the verification's
@@ -196,122 +209,14 @@ __device__ __forceinline__ float staged_at(const uint8_t* tile, int k, int x) {
 // K7: y_buf = buf @ w[gid], one 64-row chunk of one group per CTA
 // ---------------------------------------------------------------------------
 
-// K7's per-band scratch (after Scratch<64> in shared memory): e^T A_s of
-// each 16-row band, each band's running column-checksum partials (at most
-// 8 slots, the layout of the B operator's partials), column residuals,
-// verdict and report.
-struct Bands {
-  float ks[2][4][64];          // [stage parity][band][k]
-  float part[4][8][kBN];
-  float dcol[4][kBN];
-  Verdict verdict[4];
-  float rep[4][8];
-};
-
-// e^T A_s of each 16-row band of the staged 64-row A tile from the chunks
-// RowOp<64, NT> loaded (row lane + 32j lies in band 2j + lane / 16): a
-// transposing sum over the 16 lanes of each half warp.
-template <typename OpA>
-__device__ __forceinline__ void band_ksum(const OpA& opa, float (*ks)[64],
-                                          int tid) {
-  const int warp = tid / 32, lane = tid & 31;
-#pragma unroll
-  for (int i = 0; i < OpA::CI; ++i)
-#pragma unroll
-    for (int j = 0; j < OpA::RJ; ++j) {
-      float v[8];
-      unpack8(opa.ch[i * OpA::RJ + j], v);
-      const int base = xreduce<8, 16, 1>(v, lane);
-      if ((lane & 1) == 0)
-        ks[2 * j + lane / 16][(warp + OpA::W * i) * 8 + base] = v[0];
-    }
-}
-
-// Verify each 16-row band of the chunk's accumulator on its own at k_el
-// elapsed: warp w's band, its column sums against the band's column
-// checksum and its rows' sums against the row checksums, the chunk's tau,
-// the first argmax of each, abft::record into the band's report, and the
-// branchless correction by the thread that holds the element.
-template <typename OpA, typename OpB>
-__device__ __forceinline__ void verify_bands(float (&acc)[64], const OpA& opa,
-                                             const OpB& opb, Scratch<64>& sc,
-                                             Bands& bx, const GroupedArgs& g,
-                                             int tid, int row0, int col0,
-                                             float k_el) {
-  constexpr int NT = 128;
-  const int wl = tid / 32, lane = tid & 31;
-  float am, bm;
-  reduce_checks<64, NT>(opa, opb, sc, tid, false, am, bm);
-  float cs[32];
-#pragma unroll
-  for (int j = 0; j < 16; ++j)
-#pragma unroll
-    for (int e = 0; e < 2; ++e)
-      cs[2 * j + e] = acc[4 * j + e] + acc[4 * j + 2 + e];
-  const int base = xreduce<32, 8, 4>(cs, lane);
-#pragma unroll
-  for (int q = 0; q < 4; ++q) {
-    const int ci = base + q;
-    sc.colp[wl][8 * (ci / 2) + 2 * (lane & 3) + (ci & 1)] = cs[q];
-  }
-  float r0 = 0.0f, r1 = 0.0f;
-#pragma unroll
-  for (int j = 0; j < 16; ++j)
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      r0 += acc[4 * j + e];
-      r1 += acc[4 * j + 2 + e];
-    }
-  r0 += __shfl_xor_sync(kFull, r0, 1);
-  r0 += __shfl_xor_sync(kFull, r0, 2);
-  r1 += __shfl_xor_sync(kFull, r1, 1);
-  r1 += __shfl_xor_sync(kFull, r1, 2);
-  if ((lane & 3) == 0) {
-    const int m = wl * 16 + lane / 4;
-    sc.rowsum[m] = r0;
-    sc.rowsum[m + 8] = r1;
-  }
-  consumer_sync<NT>();
-  // Band wl: column residuals (this lane's columns lane + 32c) and rows.
-  float lb = -1.0f;
-  int li = 0;
-#pragma unroll
-  for (int c = 0; c < kBN / 32; ++c) {
-    const int n = lane + 32 * c;
-    float ck = 0.0f;
-#pragma unroll
-    for (int q = 0; q < OpB::SLOTS; ++q) ck += bx.part[wl][q][n];
-    const float d = sc.colp[wl][n] - ck;
-    bx.dcol[wl][n] = d;
-    if (fabsf(d) > lb) {
-      lb = fabsf(d);
-      li = n;
-    }
-  }
-  float bc, br;
-  int ic, ir;
-  warp_argmax(lb, li, bc, ic);
-  const int m = wl * 16 + (lane & 15);
-  const float dr = lane < 16 ? sc.rowsum[m] - sc.drow[m] : 0.0f;
-  warp_argmax(dr, lane < 16 ? lane : 64 + lane, br, ir);
-  __syncwarp();
-  if (lane == 0) {
-    const float tau = fmaxf(g.tau_coef * k_el * am * bm, 1e-30f);
-    bx.verdict[wl] = abft::record(bx.dcol[wl], bc, ic, br, ir, tau, k_el,
-                                  g.corrects, row0 + 16 * wl, col0,
-                                  bx.rep[wl]);
-  }
-  __syncwarp();
-  const Verdict v = bx.verdict[wl];
-  if (g.corrects && v.det) add_at(acc, 16 * wl + v.row, v.col, -v.mag, tid);
-  __syncwarp();
-}
-
-template <bool FT, bool BK, bool SEU>
+template <int LV, bool BK, bool SEU>
 __global__ void __launch_bounds__(256, 1)
 grouped_sm90_kernel(const __grid_constant__ CUtensorMap tma_a,
                     const __grid_constant__ CUtensorMap tma_w,
                     const GroupedArgs g) {
+  constexpr bool FT = LV != kLvOff;
+  // BANDS: each 16-row band verified on its own (tile; a block campaign)
+  constexpr bool BANDS = LV == kLvTile, INNER = LV == kLvInner;
   constexpr int BM = 64, NT = 128;
   constexpr int A_BYTES = BM * kStageK * 2, B_BYTES = kBN * kStageK * 2;
   constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
@@ -322,8 +227,8 @@ grouped_sm90_kernel(const __grid_constant__ CUtensorMap tma_a,
   uint8_t* ring = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   Scratch<BM>& sc =
       *reinterpret_cast<Scratch<BM>*>(ring + kStages * STAGE_BYTES);
-  Bands& bx = *reinterpret_cast<Bands*>(ring + kStages * STAGE_BYTES +
-                                        sizeof(Scratch<BM>));
+  BandScratch& bx = *reinterpret_cast<BandScratch*>(
+      ring + kStages * STAGE_BYTES + sizeof(Scratch<BM>));
 
   const int tid = threadIdx.x;
   const int ti = blockIdx.x, bj = blockIdx.y;
@@ -369,6 +274,12 @@ grouped_sm90_kernel(const __grid_constant__ CUtensorMap tma_a,
     for (int q = 0; q < 8; ++q) sc.rep[q] = 0.0f;
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  if constexpr (BANDS || INNER) {
+    for (int i = tid; i < 2 * 8 * 64; i += blockDim.x) (&bx.ks[0][0][0])[i] = 0.0f;
+    for (int i = tid; i < 8 * kBN; i += blockDim.x) (&bx.prevc[0][0])[i] = 0.0f;
+    for (int i = tid; i < 128; i += blockDim.x) bx.prevr[i] = 0.0f;
+    for (int i = tid; i < 8 * 8; i += blockDim.x) (&bx.rep[0][0])[i] = 0.0f;
+  }
   __syncthreads();
 
   const int nst = g.nstages;
@@ -402,13 +313,10 @@ grouped_sm90_kernel(const __grid_constant__ CUtensorMap tma_a,
   for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
   OpA opa;
   OpB opb;
+  BandOp<NT, BK> opc;   // tile, inner: the band column checksums
   opa.init();
   opb.init();
-  if constexpr (SEU) {
-    for (int i = tid; i < 4 * 8 * kBN; i += NT) (&bx.part[0][0][0])[i] = 0.0f;
-    for (int i = tid; i < 4 * 8; i += NT) (&bx.rep[0][0])[i] = 0.0f;
-    consumer_sync<NT>();
-  }
+  opc.init();
   // This warp's band: its tile's stochastic SEU, rows local to the chunk.
   seu::Hit sh = SEU && wl < tiles
                     ? seu::draw(g.seu, (uint32_t)((ti + wl) * g.gn + bj),
@@ -441,24 +349,19 @@ grouped_sm90_kernel(const __grid_constant__ CUtensorMap tma_a,
     }
     wgmma_commit();
     if constexpr (FT) {
-      // While the tensor cores run: the stage's checksums from its tiles,
-      // the column checksum per 16-row band.
+      // While the tensor cores run: the stage's checksums from its tiles
+      // (tile, inner: the column checksum per 16-row band).
       float* ka = sc.ks[it & 1][0];
       float* kb = sc.ks[it & 1][1];
       opa.load(pa, tid);
       opb.load(pb, tid);
       opa.ksum(ka, tid);
-      if constexpr (SEU) band_ksum(opa, bx.ks[it & 1], tid);
+      if constexpr (BANDS || INNER) opa.band_ksum(&bx.ks[it & 1][0][0], tid);
       opb.ksum(kb, tid);
       consumer_sync<NT>();
       opa.dot(kb, tid);
-      if constexpr (SEU) {
-#pragma unroll
-        for (int b = 0; b < 4; ++b)
-          opb.dot_add(bx.ks[it & 1][b], &bx.part[b][0][0], tid);
-      } else {
-        opb.dot(ka, tid);
-      }
+      if constexpr (BANDS || INNER) opc.dot(pb, &bx.ks[it & 1][0][0], tid);
+      else opb.dot(ka, tid);
     }
     const bool step_end = (it + 1) % kStagesPerStep == 0 || it + 1 == nst;
     const bool drain = it + 1 == nst || (FT && step_end);
@@ -474,30 +377,37 @@ grouped_sm90_kernel(const __grid_constant__ CUtensorMap tma_a,
     if constexpr (FT) {
       if (step_end) {
         const int s = it / kStagesPerStep;   // the k-step just ended
+        const float k_el = (float)min((s + 1) * kStep, g.K);
         if (inj_tile && s == g.inj_k)
           add_at(acc, g.inj_row - row0, g.inj_col - col0, g.inj_mag, tid);
-        if constexpr (SEU) {
-          if (sh.hit && s == sh.step)
-            add_at(acc, sh.row, sh.col,
-                   seu::magnitude(get_at(acc, sh.row, sh.col, tid) -
-                                      seu_before,
-                                  g.seu.shift),
-                   tid);
-          if (g.verify_step && it + 1 < nst)
-            verify_bands(acc, opa, opb, sc, bx, g, tid, row0, col0,
-                         (float)min((s + 1) * kStep, g.K));
-          if (sh.hit && s + 1 == sh.step)
-            seu_before = get_at(acc, sh.row, sh.col, tid);
+        if (SEU && sh.hit && s == sh.step)
+          add_at(acc, sh.row, sh.col,
+                 seu::magnitude(get_at(acc, sh.row, sh.col, tid) - seu_before,
+                                g.seu.shift),
+                 tid);
+        if constexpr (INNER) {
+          // each band's Δ of this step alone, then the checksums restart
+          verify_bands<BM, NT, true, true>(acc, opa, opb, opc, sc, bx, g,
+                                           tid, row0, col0, k_el);
+          opa.reset();
+          opc.init();
         } else if (g.verify_step && it + 1 < nst) {
-          verify_acc<BM, NT>(acc, opa, opb, sc, g, tid, row0, col0,
-                             (float)min((s + 1) * kStep, g.K), false);
+          if constexpr (BANDS)
+            verify_bands<BM, NT, true, false>(acc, opa, opb, opc, sc, bx, g,
+                                              tid, row0, col0, k_el);
+          else
+            verify_acc<BM, NT>(acc, opa, opb, sc, g, tid, row0, col0, k_el,
+                               false);
         }
+        if (SEU && sh.hit && s + 1 == sh.step)
+          seu_before = get_at(acc, sh.row, sh.col, tid);
       }
     }
   }
-  if constexpr (SEU)
-    verify_bands(acc, opa, opb, sc, bx, g, tid, row0, col0, (float)g.K);
-  else if constexpr (FT)
+  if constexpr (BANDS)
+    verify_bands<BM, NT, true, false>(acc, opa, opb, opc, sc, bx, g, tid,
+                                      row0, col0, (float)g.K);
+  else if constexpr (LV == kLvBlock)
     verify_acc<BM, NT>(acc, opa, opb, sc, g, tid, row0, col0, (float)g.K,
                        false);
 
@@ -509,7 +419,7 @@ grouped_sm90_kernel(const __grid_constant__ CUtensorMap tma_a,
   stage_tile(acc, stage, PITCH, 0, false, tid);
   consumer_sync<NT>();
   store_tile<BM, NT>(stage, PITCH, out, m_hi, g.N, row0, col0, tid);
-  if (SEU) {
+  if (BANDS || INNER) {
     for (int q = tid; q < tiles * 8; q += NT)
       rep[(long long)(q / 8) * g.gn * 8 + q % 8] = bx.rep[q / 8][q % 8];
   } else if (FT) {
@@ -763,11 +673,12 @@ cudaError_t set_smem(Kern kern, int smem, bool& ready) {
   return e;
 }
 
-template <bool FT, bool BK, bool SEU = false>
+template <int LV, bool BK, bool SEU = false>
 cudaError_t launch_grouped(const CUtensorMap& ta, const CUtensorMap& tw,
                            const GroupedArgs& g, cudaStream_t st) {
-  auto kern = grouped_sm90_kernel<FT, BK, SEU>;
-  constexpr int smem = smem_bytes<64>() + (SEU ? (int)sizeof(Bands) : 0);
+  auto kern = grouped_sm90_kernel<LV, BK, SEU>;
+  constexpr int smem =
+      smem_bytes<64>() + (LV >= kLvTile ? (int)sizeof(BandScratch) : 0);
   static bool ready = false;
   const cudaError_t e = set_smem(kern, smem, ready);
   if (e != cudaSuccess) return e;
@@ -785,6 +696,28 @@ cudaError_t launch_tgmm(const CUtensorMap& tx, const CUtensorMap& tg,
   if (e != cudaSuccess) return e;
   kern<<<dim3(g.gn, g.gk, g.G), 384, smem, st>>>(tx, tg, g);
   return cudaGetLastError();
+}
+
+// K7's instance of a level: a campaign ("block", "tile": the per-band
+// instance with the hook; "inner": the inner one with it; seu_on only
+// comes with FT on) or a clean one.
+template <bool BK>
+cudaError_t launch_k7(int level, const CUtensorMap& ta, const CUtensorMap& tw,
+                      const GroupedArgs& g, cudaStream_t st) {
+  switch (level) {
+    case kLvOff:
+      return launch_grouped<kLvOff, BK>(ta, tw, g, st);
+    case kLvBlock:
+      return g.seu.on ? launch_grouped<kLvTile, BK, true>(ta, tw, g, st)
+                      : launch_grouped<kLvBlock, BK>(ta, tw, g, st);
+    case kLvTile:
+      return g.seu.on ? launch_grouped<kLvTile, BK, true>(ta, tw, g, st)
+                      : launch_grouped<kLvTile, BK>(ta, tw, g, st);
+    case kLvInner:
+      return g.seu.on ? launch_grouped<kLvInner, BK, true>(ta, tw, g, st)
+                      : launch_grouped<kLvInner, BK>(ta, tw, g, st);
+  }
+  return cudaErrorInvalidValue;
 }
 
 void set_common(GroupedArgs& g, int verify_step, int corrects, float tau_coef,
@@ -810,13 +743,15 @@ const char* grouped_sm90_error_string(int code) {
 // w_kmajor = 0, k rows ldw apart (n unit stride), with w_kmajor = 1 (the
 // w^T view of the dbuf product) n columns ldw apart (k unit stride); gid
 // int32 (T / 16,), row_end int32 (G,); out (T, N) bf16 and, with ft, rep
-// (T / 16, ceil(N / 128), 8) contiguous. The injection adds inj_mag at
-// global buffer row inj_row, column inj_col after 256-deep k-step inj_k.
-// Returns the launch's cudaError_t.
+// (T / 16, ceil(N / 128), 8) contiguous. level: 0 FT off, 1 block, 2
+// tile, 3 inner (kLv*; kernels/ft_gemm.py:SM90_LEVELS). The injection adds
+// inj_mag at global buffer row inj_row, column inj_col after 256-deep
+// k-step inj_k. Returns the launch's cudaError_t.
 int grouped_sm90_launch(const void* a, const void* w, const int* gid,
                         const int* row_end, void* out, float* rep, int T,
                         int N, int K, int G, long long lda, long long ldw,
-                        long long sw_g, int w_kmajor, int ft, int verify_step,
+                        long long sw_g, int w_kmajor, int level,
+                        int verify_step,
                         int corrects, float tau_coef, int inj_enable,
                         int inj_row, int inj_col, int inj_k, float inj_mag,
                         int seu_on, unsigned seu_seed, float seu_rate,
@@ -838,14 +773,8 @@ int grouped_sm90_launch(const void* a, const void* w, const int* gid,
                 : make_map3(&tw, w, N, K, G, ldw, sw_g, 64, kStageK));
   if (!ok) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  // A campaign runs the per-band instance (seu_on only comes with ft).
-  if (w_kmajor)
-    return g.seu.on ? launch_grouped<true, true, true>(ta, tw, g, st)
-           : ft     ? launch_grouped<true, true>(ta, tw, g, st)
-                    : launch_grouped<false, true>(ta, tw, g, st);
-  return g.seu.on ? launch_grouped<true, false, true>(ta, tw, g, st)
-         : ft     ? launch_grouped<true, false>(ta, tw, g, st)
-                  : launch_grouped<false, false>(ta, tw, g, st);
+  return w_kmajor ? launch_k7<true>(level, ta, tw, g, st)
+                  : launch_k7<false>(level, ta, tw, g, st);
 }
 
 // K8. x (T, K) and gm (T, N) bf16 buffers of one layout, rows ldx / ldg

@@ -1,7 +1,7 @@
 // The 16-row `mma.sync` pieces shared by csrc/flash_decode_sm90.cu (K6)
-// and csrc/batched_sm90.cu (K5) on the tensor cores: the small bf16
-// helpers, the m16n8k16 bf16 product, one contiguous row by the bulk-copy
-// engine, and the verification of a 16 x 8·NT accumulator fragment per
+// and csrc/batched_sm90.cu (K5) on the tensor cores (the m16n8k16 product
+// itself is in sm90_mainloop.cuh): the small bf16 helpers, one contiguous
+// row by the bulk-copy engine, and the verification of a 16 x 8·NT accumulator fragment per
 // warp (frag16_add, frag16_sums) located by one warp (locate16) under the
 // report rules of abft_block.cuh, and the stochastic SEU of seu_hook.cuh
 // landed in a fragment (frag16_seu). A CTA of kWarps warps holds one 16-row
@@ -41,16 +41,6 @@ __device__ __forceinline__ float warp_max(float v) {
   for (int off = 16; off > 0; off >>= 1)
     v = fmaxf(v, __shfl_xor_sync(kFull, v, off));
   return v;
-}
-
-// D(16 x 8, f32) += A(16 x 16, bf16, row-major) · B(16 x 8, bf16).
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // One contiguous global row into shared memory by the bulk-copy engine,

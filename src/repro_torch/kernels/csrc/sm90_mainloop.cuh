@@ -1,9 +1,11 @@
-// The pieces of the Hopper ABFT mainloop shared by csrc/ft_gemm_sm90.cu
+// The pieces of the Hopper ABFT mainloop shared by csrc/ft_gemm_sm90.cuh
 // (K1) and csrc/grouped_sm90.cu (K7, K8): the PTX wrappers (mbarrier, TMA,
 // wgmma), the checksum operators that read the 128-byte-swizzled staged
 // tiles (RowOp for a tile whose k dim is contiguous, ColOp for one whose
-// m or n dim is), the verification of the wgmma accumulator against the
-// running checksums (verify_acc), the bf16 epilogue through shared memory,
+// m or n dim is), the tile level's per-band column checksums on the tensor
+// cores (BandOp), the verification of the wgmma accumulator against the
+// running checksums (verify_acc, and verify_bands band by band), the bf16
+// epilogue through shared memory,
 // and the host's tensor-map encoding through cudaGetDriverEntryPoint (no
 // -lcuda). What each kernel does with them is in the note at the head of
 // its source.
@@ -28,6 +30,10 @@ constexpr int kStagesPerStep = kStep / kStageK;
 constexpr int kStages = 4;               // ring depth
 constexpr int kBoxBytes = 64 * 128;      // one 64 x 64 bf16 box, 8 KB
 constexpr int kSlots = 16;               // partial slots of a checksum
+
+// The FT level of a tensor-core instance (template parameter LV): FT off,
+// the threadblock ("block"), warp ("tile") and thread ("inner") levels.
+constexpr int kLvOff = 0, kLvBlock = 1, kLvTile = 2, kLvInner = 3;
 
 // ---------------------------------------------------------------------------
 // PTX wrappers: mbarrier, TMA, wgmma, named barrier
@@ -211,6 +217,33 @@ __device__ __forceinline__ void consumer_sync() {
   asm volatile("bar.sync 1, %0;\n" ::"n"(NT) : "memory");
 }
 
+// D(16 x 8, f32) += A(16 x 16, bf16, row-major) · B(16 x 8, bf16).
+__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four 8 x 8 bf16 matrices from shared memory (lane l gives the address of
+// row l % 8 of matrix l / 8), transposed with TRANS.
+template <bool TRANS>
+__device__ __forceinline__ void ldsm4(uint32_t (&r)[4], uint32_t addr) {
+  if constexpr (TRANS)
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+        "[%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(addr));
+  else
+    asm volatile(
+        "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+        : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+        : "r"(addr));
+}
+
 // ---------------------------------------------------------------------------
 // epilogue ops (the formulas of csrc/ft_gemm.cu and templates/epilogues.py)
 // ---------------------------------------------------------------------------
@@ -357,30 +390,27 @@ struct RowOp {
 #pragma unroll
     for (int j = 0; j < RJ; ++j) part[warp * X + lane + 32 * j] = xd[j];
   }
-  // dot()'s stage contribution alone, added into part[SLOTS][X] in place
-  // (the layout of partials): a second running checksum over the same
-  // loaded stage (K7's per-band column checksums).
-  __device__ __forceinline__ void dot_add(const float* other, float* part,
-                                          int tid) const {
+  // The stage's sums over each 16-row band of the X rows, band-major in
+  // bks[X / 16][64] (the tile level's e_b^T A_s): row lane + 32j lies in
+  // band 2j + lane / 16, so a transposing sum over each half warp.
+  __device__ __forceinline__ void band_ksum(float* bks, int tid) const {
     const int warp = tid / 32, lane = tid & 31;
-    float t[RJ];
 #pragma unroll
-    for (int j = 0; j < RJ; ++j) t[j] = 0.0f;
-#pragma unroll
-    for (int i = 0; i < CI; ++i) {
-      float o[8];
-#pragma unroll
-      for (int e = 0; e < 8; ++e) o[e] = other[(warp + W * i) * 8 + e];
+    for (int i = 0; i < CI; ++i)
 #pragma unroll
       for (int j = 0; j < RJ; ++j) {
-        float f[8];
-        unpack8(ch[i * RJ + j], f);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) t[j] = fmaf(f[e], o[e], t[j]);
+        float v[8];
+        unpack8(ch[i * RJ + j], v);
+        const int base = xreduce<8, 16, 1>(v, lane);
+        if ((lane & 1) == 0)
+          bks[(2 * j + lane / 16) * 64 + (warp + W * i) * 8 + base] = v[0];
       }
-    }
+  }
+  // Zero the running partials, keep the maxima (the inner level's per-step
+  // checksums).
+  __device__ __forceinline__ void reset() {
 #pragma unroll
-    for (int j = 0; j < RJ; ++j) part[warp * X + lane + 32 * j] += t[j];
+    for (int j = 0; j < RJ; ++j) xd[j] = 0.0f;
   }
 };
 
@@ -444,24 +474,104 @@ struct ColOp {
 #pragma unroll
     for (int e = 0; e < 8; ++e) part[g * X + q * 8 + e] = xd[e];
   }
-  // dot()'s stage contribution alone, added into part[SLOTS][X] in place
-  // (the layout of partials).
-  __device__ __forceinline__ void dot_add(const float* other, float* part,
-                                          int tid) const {
+  // The stage's sums over each 16-row band (two 8-row chunks q) of the X
+  // rows, band-major in bks[X / 16][64].
+  __device__ __forceinline__ void band_ksum(float* bks, int tid) const {
     const int q = tid % Q, g = tid / Q;
-    float t[8];
-#pragma unroll
-    for (int e = 0; e < 8; ++e) t[e] = 0.0f;
 #pragma unroll
     for (int j = 0; j < P; ++j) {
-      const float o = other[g + G * j];
       float f[8];
       unpack8(ch[j], f);
+      float s = 0.0f;
 #pragma unroll
-      for (int e = 0; e < 8; ++e) t[e] = fmaf(f[e], o, t[e]);
+      for (int e = 0; e < 8; ++e) s += f[e];
+      s += __shfl_xor_sync(kFull, s, 1);   // chunks 2b, 2b + 1: lanes l, l ^ 1
+      if ((q & 1) == 0) bks[(q / 2) * 64 + g + G * j] = s;
     }
+  }
+  __device__ __forceinline__ void reset() {
 #pragma unroll
-    for (int e = 0; e < 8; ++e) part[g * X + q * 8 + e] += t[e];
+    for (int e = 0; e < 8; ++e) xd[e] = 0.0f;
+  }
+};
+
+// The tile level's per-band running column checksums, (e_b^T A_s)·B_s of
+// each 16-row band b, as a small product on the tensor cores beside the
+// stage's wgmmas: ckᵀ (128 n x 8 band slots) += B_sᵀ (the staged 64 x 128
+// B tile, read by ldmatrix through its 128-byte swizzle: transposed for a
+// row-major B, as it is for the k-major one) · Sᵀ (the stage's band sums
+// bks[8][64]), m16n8k16 `mma.sync` in f32. S enters the tensor cores as
+// three bf16 parts (hi, mid, lo: 24 bits of its f32 mantissa), so the
+// checksum keeps f32's precision for tau; the B tile is bf16 already. Warp
+// w takes the 16-column n-tiles w, w + W, ...; the product costs 3 x 2 048
+// MACs per warp and k16 (a fifth of the stage's wgmma work at BM 128) and
+// no CUDA-core FMA.
+template <int NT, bool BK>
+struct BandOp {
+  static constexpr int W = NT / 32, TILES = 8 / W;
+  static_assert(TILES >= 1 && TILES * W == 8, "band-op geometry");
+  float c[TILES][4];
+
+  __device__ __forceinline__ void init() {
+#pragma unroll
+    for (int t = 0; t < TILES; ++t)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) c[t][r] = 0.0f;
+  }
+  __device__ __forceinline__ void dot(const uint8_t* pb, const float* bks,
+                                      int tid) {
+    const int warp = tid / 32, lane = tid & 31;
+    const int j = lane & 7, mtx = lane >> 3;
+    const uint32_t base = smem_u32(pb);
+#pragma unroll
+    for (int kk = 0; kk < kStageK / 16; ++kk) {
+      // B fragment: S[band = lane / 4][k0, k0 + 1, k0 + 8, k0 + 9], split.
+      const int k0 = kk * 16 + (lane & 3) * 2;
+      const float* sb = bks + (lane >> 2) * 64 + k0;
+      float r[4] = {sb[0], sb[1], sb[8], sb[9]};
+      uint32_t b[3][2];
+#pragma unroll
+      for (int p = 0; p < 3; ++p) {
+        __nv_bfloat16 h[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          h[e] = __float2bfloat16_rn(r[e]);
+          r[e] -= __bfloat162float(h[e]);
+        }
+        b[p][0] = (uint32_t)__bfloat16_as_ushort(h[0]) |
+                  ((uint32_t)__bfloat16_as_ushort(h[1]) << 16);
+        b[p][1] = (uint32_t)__bfloat16_as_ushort(h[2]) |
+                  ((uint32_t)__bfloat16_as_ushort(h[3]) << 16);
+      }
+#pragma unroll
+      for (int t = 0; t < TILES; ++t) {
+        const int n0 = (warp + W * t) * 16;
+        uint32_t a[4];
+        if constexpr (BK) {   // [n][k] rows of 128 bytes
+          const int n = n0 + j + 8 * (mtx & 1), kc = kk * 2 + (mtx >> 1);
+          ldsm4<false>(a, base + n * 128 + ((kc ^ (n & 7)) << 4));
+        } else {              // [k][n] in boxes of 64 n
+          const int k = kk * 16 + j + 8 * (mtx >> 1), n = n0 + 8 * (mtx & 1);
+          ldsm4<true>(a, base + (n / 64) * kBoxBytes + k * 128 +
+                             ((((n % 64) / 8) ^ (k & 7)) << 4));
+        }
+#pragma unroll
+        for (int p = 0; p < 3; ++p) mma16816(c[t], a, b[p][0], b[p][1]);
+      }
+    }
+  }
+  // ck[8][kBN]: this thread's entries of the band checksums.
+  __device__ __forceinline__ void store(float* ck, int tid) const {
+    const int warp = tid / 32, lane = tid & 31;
+    const int bd = (lane & 3) * 2;
+#pragma unroll
+    for (int t = 0; t < TILES; ++t) {
+      const int n = (warp + W * t) * 16 + lane / 4;
+      ck[bd * kBN + n] = c[t][0];
+      ck[(bd + 1) * kBN + n] = c[t][1];
+      ck[bd * kBN + n + 8] = c[t][2];
+      ck[(bd + 1) * kBN + n + 8] = c[t][3];
+    }
   }
 };
 
@@ -480,6 +590,23 @@ struct Scratch {
   int widx[(kBN + BM) / 32];
   Verdict verdict;
   float rep[8];
+};
+
+// The band-wise verification's scratch (after Scratch<BM> in shared
+// memory): the stages' band sums, the band checksums and residuals, the
+// inner level's sums of the accumulator at the step before, the bands'
+// located residuals, verdicts and (K7) reports. 8 band slots: BM / 16
+// live, the rest zero.
+struct BandScratch {
+  float ks[2][8][64];          // [stage parity][band][k]: e_b^T A_s
+  float ck[8][kBN];            // band column checksums
+  float dcol[8][kBN];          // band column residuals
+  float prevc[8][kBN];         // inner: band column sums at the step before
+  float prevr[128];            // inner: row sums at the step before
+  float best[8][2];
+  int idx[8][2];
+  Verdict verdict[8];
+  float rep[8][8];             // K7: each band's report
 };
 
 template <int BM>
@@ -599,20 +726,13 @@ __device__ __forceinline__ void warp_argmax(float v, int i, float& best,
   }
 }
 
-// Verify the accumulator against the running checksums at k_el elapsed:
-// residuals from the fragment's column and row sums, first-argmax locate
-// (per warp by shuffles, then across warps in index order), abft::record
-// into sc.rep, and the branchless correction.
-template <int BM, int NT, typename OpA, typename OpB, typename Args>
-__device__ __forceinline__ void verify_acc(float (&acc)[64], const OpA& opa,
-                                           const OpB& opb, Scratch<BM>& sc,
-                                           const Args& g, int tid,
-                                           int row0, int col0, float k_el,
-                                           bool fold) {
-  const int wg = tid / 128, wl = (tid % 128) / 32, lane = tid & 31;
-  const int warp = tid / 32;
-  float am, bm;
-  reduce_checks<BM, NT>(opa, opb, sc, tid, fold, am, bm);
+// The accumulator's column sums over each warp's 16 rows (sc.colp[warp])
+// and its row sums (sc.rowsum), from the wgmma fragment with warp
+// shuffles; the caller synchronises before reading another warp's.
+template <int BM>
+__device__ __forceinline__ void frag_sums(const float (&acc)[64],
+                                          Scratch<BM>& sc, int tid) {
+  const int warp = tid / 32, lane = tid & 31;
   float cs[32];
 #pragma unroll
   for (int j = 0; j < 16; ++j)
@@ -638,10 +758,32 @@ __device__ __forceinline__ void verify_acc(float (&acc)[64], const OpA& opa,
   r1 += __shfl_xor_sync(kFull, r1, 1);
   r1 += __shfl_xor_sync(kFull, r1, 2);
   if ((lane & 3) == 0) {
-    const int m = wg * 64 + wl * 16 + lane / 4;
+    const int m = warp * 16 + lane / 4;
     sc.rowsum[m] = r0;
     sc.rowsum[m + 8] = r1;
   }
+}
+
+// Verify the accumulator against the running checksums at k_el elapsed:
+// residuals from the fragment's column and row sums, first-argmax locate
+// (per warp by shuffles, then across warps in index order), abft::record
+// into sc.rep, and the branchless correction. With DELTA (the inner
+// level) the accumulator's column and row sums at the step before (prevc,
+// prevr) are taken off first, so what is verified is the step's Δ against
+// the step's own checksums; they are then set to the sums after the
+// correction, so an SEU left in place cancels out of the next step's Δ.
+template <int BM, int NT, bool DELTA = false, typename OpA, typename OpB,
+          typename Args>
+__device__ __forceinline__ void verify_acc(float (&acc)[64], const OpA& opa,
+                                           const OpB& opb, Scratch<BM>& sc,
+                                           const Args& g, int tid,
+                                           int row0, int col0, float k_el,
+                                           bool fold, float* prevc = nullptr,
+                                           float* prevr = nullptr) {
+  const int warp = tid / 32, lane = tid & 31;
+  float am, bm;
+  reduce_checks<BM, NT>(opa, opb, sc, tid, fold, am, bm);
+  frag_sums<BM>(acc, sc, tid);
   consumer_sync<NT>();
   // Residuals, each by the thread that owns its checksum entry, and each
   // warp's first argmax of them. Warps [0, 4) own the columns; the row
@@ -650,11 +792,11 @@ __device__ __forceinline__ void verify_acc(float (&acc)[64], const OpA& opa,
   const int n = Owner<BM, NT>::col(tid), m = Owner<BM, NT>::row(tid);
   float best;
   int idx;
+  float s = 0.0f;
   if (warp < kBN / 32) {
-    float s = 0.0f;
 #pragma unroll
     for (int w = 0; w < NT / 32; ++w) s += sc.colp[w][n];
-    const float d = s - sc.dcol[n];
+    const float d = s - (DELTA ? prevc[n] : 0.0f) - sc.dcol[n];
     sc.dcol[n] = d;
     warp_argmax(d, n, best, idx);
     if (lane == 0) {
@@ -664,7 +806,7 @@ __device__ __forceinline__ void verify_acc(float (&acc)[64], const OpA& opa,
   }
   if (Owner<BM, NT>::SPLIT ? (warp >= kBN / 32 && warp < (kBN + BM) / 32)
                            : warp < BM / 32) {
-    const float d = sc.rowsum[m] - sc.drow[m];
+    const float d = sc.rowsum[m] - (DELTA ? prevr[m] : 0.0f) - sc.drow[m];
     sc.drow[m] = d;
     warp_argmax(d, m, best, idx);
     if (lane == 0) {
@@ -689,7 +831,119 @@ __device__ __forceinline__ void verify_acc(float (&acc)[64], const OpA& opa,
   }
   consumer_sync<NT>();
   const Verdict v = sc.verdict;
-  if (g.corrects && v.det) add_at(acc, v.row, v.col, -v.mag, tid);
+  const bool fix = g.corrects && v.det;
+  if (fix) add_at(acc, v.row, v.col, -v.mag, tid);
+  if constexpr (DELTA) {
+    // The sums the next step's Δ is taken against: after a correction,
+    // those of the corrected accumulator itself (the sums before it less
+    // the magnitude round otherwise, and a later step would see that as a
+    // residual).
+    if (fix) {
+      frag_sums<BM>(acc, sc, tid);
+      consumer_sync<NT>();
+      s = 0.0f;
+#pragma unroll
+      for (int w = 0; w < NT / 32; ++w) s += sc.colp[w][n < 0 ? 0 : n];
+    }
+    if (warp < kBN / 32) prevc[n] = s;
+    if (Owner<BM, NT>::SPLIT ? (warp >= kBN / 32 && warp < (kBN + BM) / 32)
+                             : warp < BM / 32)
+      prevr[m] = sc.rowsum[m];
+  }
+  __syncwarp();
+}
+
+// Verify each 16-row band of the accumulator on its own at k_el elapsed
+// (the tile level; K7 under a campaign): warp w's band (rows 16w ..), its
+// column sums against the band's column checksum (bx.ck, from BandOp) and
+// its rows' sums against the row checksums, the block's tau, the first
+// argmax of each. With DELTA (K7's inner level) the band's sums at the
+// step before are taken off first and reset after the correction, as in
+// verify_acc. OWN_REP: each band records into its own report bx.rep[w]
+// (K7's report row per layout tile); else thread 0 records the bands in
+// band order into sc.rep (K1's one report per block: det and corr add,
+// row / col / mag are the last detecting band's, the rule of
+// kernels/ft_gemm.py:locate_bands). The thread that holds the located
+// element subtracts the magnitude: one correction per band.
+template <int BM, int NT, bool OWN_REP, bool DELTA, typename OpA,
+          typename OpB, typename OpC, typename Args>
+__device__ __forceinline__ void verify_bands(float (&acc)[64], const OpA& opa,
+                                             const OpB& opb, const OpC& opc,
+                                             Scratch<BM>& sc, BandScratch& bx,
+                                             const Args& g, int tid, int row0,
+                                             int col0, float k_el) {
+  static_assert(NT / 32 == BM / 16, "one warp per band");
+  const int warp = tid / 32, lane = tid & 31;
+  opc.store(&bx.ck[0][0], tid);   // ordered by reduce_checks' barrier
+  float am, bm;
+  reduce_checks<BM, NT>(opa, opb, sc, tid, false, am, bm);
+  frag_sums<BM>(acc, sc, tid);
+  consumer_sync<NT>();
+  // Band `warp`: column residuals (this lane's columns lane + 32c), rows.
+  float lb = -1.0f, sc_col[kBN / 32];
+  int li = 0;
+#pragma unroll
+  for (int c = 0; c < kBN / 32; ++c) {
+    const int n = lane + 32 * c;
+    sc_col[c] = sc.colp[warp][n];
+    const float d = sc_col[c] - (DELTA ? bx.prevc[warp][n] : 0.0f) -
+                    bx.ck[warp][n];
+    bx.dcol[warp][n] = d;
+    if (fabsf(d) > lb) {
+      lb = fabsf(d);
+      li = n;
+    }
+  }
+  float bc, br;
+  int ic, ir;
+  warp_argmax(lb, li, bc, ic);
+  const int m = warp * 16 + (lane & 15);
+  const float sr = sc.rowsum[m];
+  const float dr =
+      lane < 16 ? sr - (DELTA ? bx.prevr[m] : 0.0f) - sc.drow[m] : 0.0f;
+  warp_argmax(dr, lane < 16 ? lane : 64 + lane, br, ir);
+  const float tau = fmaxf(g.tau_coef * k_el * am * bm, 1e-30f);
+  if constexpr (OWN_REP) {
+    __syncwarp();
+    if (lane == 0)
+      bx.verdict[warp] = abft::record(bx.dcol[warp], bc, ic, br, ir, tau, k_el,
+                                      g.corrects, row0 + 16 * warp, col0,
+                                      bx.rep[warp]);
+    __syncwarp();
+  } else {
+    if (lane == 0) {
+      bx.best[warp][0] = bc;
+      bx.idx[warp][0] = ic;
+      bx.best[warp][1] = br;
+      bx.idx[warp][1] = ir;
+    }
+    consumer_sync<NT>();
+    if (tid == 0)
+      for (int b = 0; b < BM / 16; ++b)
+        bx.verdict[b] = abft::record(bx.dcol[b], bx.best[b][0], bx.idx[b][0],
+                                     bx.best[b][1], bx.idx[b][1], tau, k_el,
+                                     g.corrects, row0 + 16 * b, col0, sc.rep);
+    consumer_sync<NT>();
+  }
+  const Verdict v = bx.verdict[warp];
+  const bool fix = g.corrects && v.det;
+  if (fix) add_at(acc, 16 * warp + v.row, v.col, -v.mag, tid);
+  if constexpr (DELTA) {
+    // As in verify_acc: after a correction, the corrected band's own sums
+    // (the band's column and row sums are this warp's alone).
+    float pr = sr;
+    if (fix) {
+      __syncwarp();
+      frag_sums<BM>(acc, sc, tid);
+      __syncwarp();
+#pragma unroll
+      for (int c = 0; c < kBN / 32; ++c) sc_col[c] = sc.colp[warp][lane + 32 * c];
+      pr = sc.rowsum[m];
+    }
+#pragma unroll
+    for (int c = 0; c < kBN / 32; ++c) bx.prevc[warp][lane + 32 * c] = sc_col[c];
+    if (lane < 16) bx.prevr[m] = pr;
+  }
   __syncwarp();
 }
 

@@ -1,23 +1,25 @@
 """ABFT GEMM — wrapper of the CUDA kernels `csrc/ft_gemm.cu` (SIMT),
-`csrc/ft_gemm_sm90.cu` and `csrc/batched_sm90.cu` (tensor cores), and their
-plain PyTorch version.
+`csrc/ft_gemm_sm90.cu`, `csrc/ft_gemm_level_sm90.cu` and
+`csrc/batched_sm90.cu` (tensor cores), and their plain PyTorch version.
 
 Replaces the TPU kernels K1 (2-D) and K5 (uniform batched) of the JAX
 package: `repro/kernels/templates/emit.py:render`, launched by
 `templates/registry.py:kernel_call` and `:batched_kernel_call`. `plan`
 decides which instance runs a call, at which tiles and with how many
-split-K ranges: a bf16 2-D call at FT off or at the "block" level, whose
-chain is an optional bias then an optional silu and whose operands
-TMA can read (a unit-stride dim, the other stride a multiple of 8
-elements, 16-byte aligned bases), runs on the tensor cores at
-`SM90_TILES`; every other call on the SIMT kernel at `TILES`, whose 2-D
-kernel is its batched kernel with batch 1. `plan_k5` does the same for a
-batched call: a bf16 call of at most 16 rows a slice with no epilogue
+split-K ranges: a bf16 2-D call at any FT level, whose chain is an
+optional bias then an optional silu and whose operands TMA can read (a
+unit-stride dim, the other stride a multiple of 8 elements, 16-byte
+aligned bases), runs on the tensor cores at `SM90_TILES`
+(`csrc/ft_gemm_sm90.cu` at FT off and "block",
+`csrc/ft_gemm_level_sm90.cu` at "tile" and "inner"); every other call on
+the SIMT kernel at `TILES`, whose 2-D kernel is its batched kernel with
+batch 1. `plan_k5` does the same for a batched call: a bf16 call of at most 16 rows a slice with no epilogue
 chain, whose operands the 16-byte copies can read, runs at any FT level on
 the tensor cores at `BATCHED_SM90_TILES` (16 rows, 256-deep k-steps);
 every other one on the SIMT kernel. Each instance has its own launch
-counter (`FT_GEMM_SM90`, `FT_GEMM_2D_SIMT`, `FT_GEMM_BATCHED_SM90`,
-`FT_GEMM_BATCHED`); `FT_GEMM_2D` is K1's 2-D total, `FT_GEMM_K5` K5's.
+counter (`FT_GEMM_SM90`, `FT_GEMM_LEVEL_SM90`, `FT_GEMM_2D_SIMT`,
+`FT_GEMM_BATCHED_SM90`, `FT_GEMM_BATCHED`); `FT_GEMM_2D` is K1's 2-D
+total, `FT_GEMM_K5` K5's.
 
 Three FT levels, the paper's threadblock / warp / thread granularities
 (`repro/kernels/ftgemm.py:9-21`):
@@ -30,8 +32,8 @@ Three FT levels, the paper's threadblock / warp / thread granularities
     own (one SEU per band per interval). The final verification runs on
     the raw accumulator, before the whole epilogue chain. The band comes
     from the tiles (`band_of`): at the kernel's compiled tiles the rows one
-    warp owns (`spec.BANDS`), at any other the reference's 128-row MXU
-    edge;
+    warp owns (`spec.BANDS`; 16 at `SM90_TILES`, a warp's rows of the
+    wgmma fragment), at any other the reference's 128-row MXU edge;
   * "inner" — every k-step's Δ = A_s·B_s is verified alone against its own
     checksums, located and corrected in Δ, then accumulated: no running
     checksums and no final verification, so ``verify`` changes nothing.
@@ -50,10 +52,11 @@ against each other on the card and the plain version against the reference
 on the CPU. With ``splits`` > 1 the plain version walks the tensor-core
 instance's split-K grid: each block's k-steps in that many contiguous,
 balanced ranges, each verified as its own accumulator, then summed and
-verified at k = K, the reports merged by the rule of `merge_reports`.
+(at "block" and "tile") verified at k = K, the reports merged by the
+rule of `merge_reports`.
 
 What bounds the kernels on the H100 and what their designs do about it is
-in the headers of `csrc/ft_gemm.cu`, `csrc/ft_gemm_sm90.cu` and
+in the headers of `csrc/ft_gemm.cu`, `csrc/ft_gemm_sm90.cuh` and
 `csrc/batched_sm90.cu`.
 """
 from __future__ import annotations
@@ -70,11 +73,14 @@ from ..core.abft import F32EPS
 from ..core.policy import FTConfig
 from . import build
 from .templates import epilogues, seu
-from .templates.spec import (BATCHED_SM90_TILES, TILES, KernelSpec,
-                             band_of, validate)
+from .templates.spec import (BATCHED_SM90_TILES, SM90_TILES, TILES,
+                             KernelSpec, band_of, validate)
 
-#: FT level → the kernel's LEVEL code.
+#: FT level → the SIMT kernels' LEVEL code.
 LEVELS = {"block": 0, "tile": 1, "inner": 2}
+#: FT level → the tensor-core kernels' level code (kLv* in
+#: csrc/sm90_mainloop.cuh).
+SM90_LEVELS = {"off": 0, "block": 1, "tile": 2, "inner": 3}
 #: Epilogue chains compiled at the "tile" and "inner" levels (the serving
 #: projections'), row-major walk; the plain chain also on the transposed
 #: walks (LAYOUT 1 and 2), silu and bias+silu also with act_grad.
@@ -103,8 +109,14 @@ _SM90_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
                   + [ctypes.c_float] + SEU_ARGTYPES + [ctypes.c_void_p])
 FT_GEMM_SM90 = build.Kernel("ft_gemm_sm90", "ft_gemm_sm90_launch",
                             _SM90_ARGTYPES)
-#: Every 2-D K1 launch, on either instance.
-FT_GEMM_2D = build.LaunchTotal(FT_GEMM_2D_SIMT, FT_GEMM_SM90)
+#: The tensor-core instances at "tile" and "inner" (the same arguments;
+#: each entry takes the `SM90_LEVELS` codes of its own levels).
+FT_GEMM_LEVEL_SM90 = build.Kernel("ft_gemm_level_sm90",
+                                  "ft_gemm_level_sm90_launch",
+                                  _SM90_ARGTYPES)
+#: Every 2-D K1 launch, on any instance.
+FT_GEMM_2D = build.LaunchTotal(FT_GEMM_2D_SIMT, FT_GEMM_SM90,
+                               FT_GEMM_LEVEL_SM90)
 _B_SM90_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
                     + [ctypes.c_longlong] * 2 + [ctypes.c_int]
                     + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 6
@@ -117,11 +129,11 @@ FT_GEMM_K5 = build.LaunchTotal(FT_GEMM_BATCHED, FT_GEMM_BATCHED_SM90)
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-#: The tensor-core instance's (bm, bn, bk) tiles: 128 rows (two consumer
-#: warpgroups) for M > 64, else 64; bk is the 256-deep k-step, the
-#: verification interval, the reference's small-class bk
-#: (`repro/kernels/autotune.py:66`).
-SM90_TILES = ((128, 128, 256), (64, 128, 256))
+# The tensor-core instance's (bm, bn, bk) tiles are `spec.SM90_TILES`: 128
+# rows (two consumer warpgroups) for M > 64, else 64; bk is the 256-deep
+# k-step, the verification interval, the reference's small-class bk
+# (`repro/kernels/autotune.py:66`).
+
 #: The activations the tensor-core instance applies after an optional bias
 #: (the main paths' chains) → its `act` code.
 SM90_ACTS = {None: 0, "silu": 1}
@@ -129,14 +141,17 @@ SM90_ACTS = {None: 0, "silu": 1}
 #: than about two waves of CTAs.
 SMS = 132
 SPLIT_TARGET = 2 * SMS
-#: f32 words of one split's record in the split-K workspace: column and row
-#: checksums (128 each), max|A|, max|B|, the split's report (8), padding.
-SPLIT_RECORD = 272
+#: f32 words of one split's record in the split-K workspace: the column
+#: checksums (one 128-wide row per band at "tile", at most 8), the row
+#: checksums (128), max|A|, max|B|, the split's report (8), padding
+#: (kRec in csrc/ft_gemm_sm90.cuh).
+SPLIT_RECORD = 1168
 
 
 @dataclasses.dataclass(frozen=True)
 class Plan:
-    """How one call runs. ``instance``: "sm90" (csrc/ft_gemm_sm90.cu for a
+    """How one call runs. ``instance``: "sm90" (csrc/ft_gemm_sm90.cu, at
+    "tile" / "inner" csrc/ft_gemm_level_sm90.cu, for a
     2-D call, csrc/batched_sm90.cu for a batched one), "simt"
     (csrc/ft_gemm.cu) or "plain" (tiles no kernel compiles: the plain
     version only, on the CPU). ``a_kmajor`` / ``b_kmajor``: the unit-stride
@@ -214,7 +229,7 @@ def plan(m: int, n: int, k: int, *, dtype, level: str,
     ``level`` is the FT level, "off" with FT disabled; ``a_strides`` /
     ``b_strides`` the (row, column) element strides of A and B; ``aligned``
     whether both base pointers are 16-byte aligned. The tensor-core
-    instance takes a bf16 2-D call at "off" or "block" whose chain
+    instance takes a bf16 2-D call at any level whose chain
     `sm90_chain` accepts, with A read along k or m and B along n or k (not
     both transposed) as `_tma_walk` allows; it runs at `SM90_TILES` (128
     rows for M > 64) with `split_count` ranges. Every other call runs on
@@ -230,8 +245,6 @@ def plan(m: int, n: int, k: int, *, dtype, level: str,
         why = "a batched call (K5)"
     elif dtype != torch.bfloat16:
         why = f"dtype {dtype}"
-    elif level not in ("off", "block"):
-        why = f"FT level {level!r}"
     elif sm90_chain(chain) is None:
         why = f"the epilogue chain {chain}"
     elif a_k is None or b_k is None or (a_k is False and b_k is True):
@@ -455,14 +468,16 @@ def locate_bands(d_col: torch.Tensor, d_row: torch.Tensor,
 def merge_reports(reps: Sequence[torch.Tensor]) -> torch.Tensor:
     """The split-K report rule: the splits' reports (…, 8) merged in split
     order — det and corr add, row / col / mag from the last detection,
-    max_residual the max. tau and k come from the final verification that
-    follows."""
+    max_residual the max, tau and k from the last split that verified (k
+    above 0; the final verification that follows at "block" and "tile"
+    overwrites them)."""
     out = torch.zeros_like(reps[0])
     for r in reps:
         hit = r[..., :1] > 0
         out[..., :2] += r[..., :2]
         out[..., 2:5] = torch.where(hit, r[..., 2:5], out[..., 2:5])
         out[..., 5] = torch.maximum(out[..., 5], r[..., 5])
+        out[..., 6:] = torch.where(r[..., 7:] > 0, r[..., 6:], out[..., 6:])
     return out
 
 
@@ -528,18 +543,18 @@ def ft_gemm_plain(a: torch.Tensor, b: torch.Tensor, *,
     to the accumulator at global (row, col) on k-step k_step, in batch slice
     ``batch`` of the flattened leading dims (< 0: every slice). ``ft.level``
     picks the FT level, the "tile" level's band height is `band_of(tiles)`.
-    With ``save_act_grad`` C is the pair (C, act_grad). ``splits`` (block
-    level or FT off): the split-K ranges of each block's k-steps, verified
-    alone (with the split's own elapsed k and maxima in tau) after each of
-    their steps but the last, then summed in split order, their reports
-    merged (`merge_reports`) and the sum verified at k = K. ``rng`` is a
+    With ``save_act_grad`` C is the pair (C, act_grad). ``splits``: the
+    split-K ranges of each block's k-steps, verified alone (with the
+    split's own elapsed k and maxima in tau) after each of their steps but
+    the last ("inner": every step's Δ), then summed in split order, their
+    reports merged (`merge_reports`) and, at "block" and "tile", the sum
+    verified at k = K ("tile": each band against the sum of the splits'
+    band checksums). ``rng`` is a
     campaign's triple (`flashft.encode_rng`): each block draws its SEU
     (`seu_draws`) and the hit lands on its step's Δ before the checksums,
     in every split and at every level."""
     ft_on, level, bh = _check_ft(ft, tiles)
     _check_act_grad(chain, save_act_grad)
-    if splits > 1 and level not in ("off", "block"):
-        raise ValueError(f"split-K is a block-level walk, not {level!r}")
     lead = tuple(a.shape[:-2])
     a3 = a.reshape((-1,) + tuple(a.shape[-2:]))
     b3 = b.reshape((-1,) + tuple(b.shape[-2:]))
@@ -739,7 +754,7 @@ def planned_plain(a: torch.Tensor, b: torch.Tensor, *,
 
 def _launch_sm90(a, b, p: Plan, *, chain, bias, residual, ft, inj, inj_mag,
                  save_act_grad, rng):
-    ft_on, _, _ = _check_ft(ft, p.tiles)
+    ft_on, level, _ = _check_ft(ft, p.tiles)
     _check_act_grad(chain, save_act_grad)
     build.check_device(a)
     if a.dim() != 2 or b.dim() != 2:
@@ -771,20 +786,25 @@ def _launch_sm90(a, b, p: Plan, *, chain, bias, residual, ft, inj, inj_mag,
     # A 2-D call is batch slice 0: batch -1 (every slice) or 0 lands.
     on = ft_on and inj is not None and inj[0] == 1 and inj[1] in (-1, 0)
     _, _, row, col, k_step = inj if on else (0, 0, 0, 0, 0)
-    FT_GEMM_SM90(a.data_ptr(), b.data_ptr(),
-                 None if bias is None else bias.data_ptr(), out.data_ptr(),
-                 None if act_grad is None else act_grad.data_ptr(),
-                 None if rep is None else rep.data_ptr(),
-                 None if ws is None else ws.data_ptr(),
-                 m, n, k, a.stride(0) if p.a_kmajor else a.stride(1),
-                 b.stride(1) if p.b_kmajor else b.stride(0),
-                 int(p.a_kmajor), int(p.b_kmajor), bm, p.splits, int(ft_on),
-                 act, int(ft_on and ft.verify == "step"),
-                 int(ft_on and ft.corrects),
-                 ft.rel_tau * F32EPS if ft_on else 0.0,
-                 int(on), row, col, k_step, float(inj_mag) if on else 0.0,
-                 *seu_args(rng, ft, seu.SALT_GEMM2D),
-                 torch.cuda.current_stream(a.device).cuda_stream)
+    # FT off and "block": ft_gemm_sm90.cu; "tile" and "inner":
+    # ft_gemm_level_sm90.cu
+    code = SM90_LEVELS[level if ft_on else "off"]
+    kernel = FT_GEMM_LEVEL_SM90 if code >= SM90_LEVELS["tile"] else FT_GEMM_SM90
+    kernel(a.data_ptr(), b.data_ptr(),
+           None if bias is None else bias.data_ptr(), out.data_ptr(),
+           None if act_grad is None else act_grad.data_ptr(),
+           None if rep is None else rep.data_ptr(),
+           None if ws is None else ws.data_ptr(),
+           m, n, k, a.stride(0) if p.a_kmajor else a.stride(1),
+           b.stride(1) if p.b_kmajor else b.stride(0),
+           int(p.a_kmajor), int(p.b_kmajor), bm, p.splits,
+           code,
+           act, int(ft_on and ft.verify == "step"),
+           int(ft_on and ft.corrects),
+           ft.rel_tau * F32EPS if ft_on else 0.0,
+           int(on), row, col, k_step, float(inj_mag) if on else 0.0,
+           *seu_args(rng, ft, seu.SALT_GEMM2D),
+           torch.cuda.current_stream(a.device).cuda_stream)
     return ((out, act_grad) if save_act_grad else out), rep
 
 

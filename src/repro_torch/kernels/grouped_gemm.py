@@ -24,8 +24,9 @@ grid walks them). Empty groups come back as a zero dw and a zero report.
 
 Both run the paper's three FT levels. "block" as above; "tile" keeps one
 running column checksum per band (`templates.spec.band_of`: K7's band is
-the buffer rows one warp owns in the SIMT block, K8's the dw rows one warp
-owns in the 64 x 64 dw block; at any other tiles the reference's 128) and
+the buffer rows one warp owns, in the SIMT block or (16, one layout tile)
+in the tensor-core chunk, K8's the dw rows one warp owns in the 64 x 64
+dw block; at any other tiles the reference's 128) and
 verifies, locates and corrects each band on its own, the final
 verification included; "inner" verifies each k-step's (K7) or row tile's
 (K8) Δ alone against its own checksums, corrects it and then accumulates
@@ -33,17 +34,19 @@ it, with no final verification. tau takes the elapsed k (K7) or live rows
 (K8) and the running maxima at every level.
 
 Two instances of each: the tensor-core ones of `csrc/grouped_sm90.cu`
-(bf16, FT off and "block"; `wgmma` fed by a TMA ring) and the SIMT ones of
-`csrc/ft_gemm.cu` (GROUPED) and `csrc/tgmm.cu` (f32, the "tile" and
-"inner" levels, and the tiles of `GROUPED_TILES` / `TGMM_TILES` when
-pinned). `plan_k7` / `plan_k8` pick the instance, the tiles and the chunk
-by a written rule:
+(bf16; K7 at every level, K8 at FT off and "block"; `wgmma` fed by a TMA
+ring) and the SIMT ones of `csrc/ft_gemm.cu` (GROUPED) and `csrc/tgmm.cu`
+(f32, K8's "tile" and "inner" levels, and the tiles of `GROUPED_TILES` /
+`TGMM_TILES` when pinned). `plan_k7` / `plan_k8` pick the instance, the
+tiles and the chunk by a written rule:
 
   * K7 on the tensor cores: a CTA owns a ``chunk`` of 64 rows of one group,
     from the group's aligned base in steps of 64 and never past the group's
     region; its record goes in the report row of the chunk's first layout
     tile, the clean record (tau 1e-30, k = K) in the others; 256-deep
-    k-steps (the verification interval and the injection's k_step);
+    k-steps (the verification interval and the injection's k_step). At
+    "tile" and "inner", and under a campaign, each 16-row band (layout
+    tile) is verified on its own and records into its own tile's row;
   * K8 on the tensor cores: (bk, bn) = (128, 128) dw blocks; the reduction
     in 64-row intervals (``chunk``) from the group's base;
   * on the SIMT instances, chunk = bm: every row tile its own block (K7)
@@ -72,9 +75,11 @@ from ..core.abft import F32EPS
 from ..core.policy import FTConfig
 from . import build
 from .ft_gemm import (DTYPE_CODES, LEVELS, REPORT_WIDTH, SEU_ARGTYPES,
+                      SM90_LEVELS,
                       _check_ft, cdiv, ft_level, locate_bands, locate_record,
                       seu_armed, seu_args)
 from .templates import seu
+from .templates.spec import SM90_GROUPED_TILES
 
 #: K7's compiled (bm, bn, bk) per operand dtype (`launch_grouped` in
 #: csrc/ft_gemm.cu). bm is the layout's row tile.
@@ -85,11 +90,10 @@ GROUPED_TILES = {torch.float32: ((8, 128, 32), (16, 128, 32)),
 TGMM_TILES = {torch.float32: ((8, 64, 64), (16, 64, 64)),
               torch.bfloat16: ((16, 64, 64),)}
 
-#: The tensor-core instances (csrc/grouped_sm90.cu): K7's (bm, bn, bk) with
-#: bk the 256-deep k-step, K8's with (bk, bn) the dw block; bm the layout's
-#: row tile. `SM90_CHUNK`: the rows one K7 CTA owns and one K8
-#: verification interval reduces.
-SM90_GROUPED_TILES = (16, 128, 256)
+#: The tensor-core instances (csrc/grouped_sm90.cu): K7's (bm, bn, bk)
+#: (`spec.SM90_GROUPED_TILES`) with bk the 256-deep k-step, K8's with (bk,
+#: bn) the dw block; bm the layout's row tile. `SM90_CHUNK`: the rows one
+#: K7 CTA owns and one K8 verification interval reduces.
 SM90_TGMM_TILES = (16, 128, 128)
 SM90_CHUNK = 64
 
@@ -205,21 +209,18 @@ def plan_k7(n: int, k: int, dtype, bm: int, *, level: str = "off",
     """K7's instance, tiles and chunk for a (t_buf, K) buffer of row tile
     ``bm`` against w (G, K, N) with strides ``w_strides`` at FT ``level``
     ("off" with FT disabled). The tensor-core instance takes a bf16 call
-    at "off" or "block" on the 16-row layout whose buffer TMA reads by
-    rows and whose w is row-major or the wᵀ view (unit stride along n or
-    along k, the other strides multiples of 8 elements), with 16-byte
-    aligned bases; every other call, every "tile" and "inner" call among
-    them, runs on the SIMT instance at ``GROUPED_TILES`` (by this rule,
-    never as a fallback). Explicit ``tiles`` pin the SIMT instance (or, at
-    tiles it does not compile, the plain version alone). A pure function
-    of its arguments, cached."""
+    at any level on the 16-row layout whose buffer TMA reads by rows and
+    whose w is row-major or the wᵀ view (unit stride along n or along k,
+    the other strides multiples of 8 elements), with 16-byte aligned
+    bases; every other call runs on the SIMT instance at
+    ``GROUPED_TILES`` (by this rule, never as a fallback). Explicit
+    ``tiles`` pin the SIMT instance (or, at tiles it does not compile, the
+    plain version alone). A pure function of its arguments, cached."""
     swg, swk, swn = w_strides
     w_n = swn == 1 and swk % 8 == 0 and swk >= n
     w_k = swk == 1 and swn % 8 == 0 and swn >= k
     why = ""
-    if level not in ("off", "block"):
-        why = f"FT level {level!r}"
-    elif dtype != torch.bfloat16:
+    if dtype != torch.bfloat16:
         why = f"dtype {dtype}"
     elif bm != SM90_GROUPED_TILES[0]:
         why = f"row tile {bm}"
@@ -336,7 +337,9 @@ def ft_gemm_grouped_plain(buf: torch.Tensor, w: torch.Tensor,
     the others. ``ft.level`` picks the FT level: at "tile" a block is
     verified in bands of `band_of(tiles, "grouped")` rows, each with its own
     column checksum, its verdicts folded into the block's record in band
-    order (`locate_bands`); at "inner" each k-step's Δ is verified alone.
+    order (`locate_bands`) where a band is narrower than the row tile, else
+    each band recorded in its own first row tile's row; at "inner" each
+    k-step's Δ is verified alone, in bands of bm rows.
     ``inj`` = [enable, row, col, k_step]: ``inj_mag`` is added to the
     accumulator at global buffer row ``row`` and column ``col`` on k-step
     ``k_step``. ``rng``, a campaign's triple, draws one SEU per row tile
@@ -366,13 +369,14 @@ def ft_gemm_grouped_plain(buf: torch.Tensor, w: torch.Tensor,
     a3 = torch.where(live[..., None],
                      buf[rows.clamp(max=t_buf - 1)].float(),
                      torch.zeros((), device=dev))
-    # bands of a block: the tile level's, a campaign's row tiles, or the
-    # whole block; the tile level folds its bands into one record a block
-    tiled = level == "tile"
-    if tiled:
+    # bands of a block: the tile level's, else the row tiles (inner, a
+    # campaign) or the whole block; bands narrower than the row tile fold
+    # into one record a block, the others record into their own rows
+    if level == "tile":
         band = tile_band
     else:
-        band = bm if seu_armed(rng, ft) else chunk
+        band = bm if (level == "inner" or seu_armed(rng, ft)) else chunk
+    tiled = band < bm
     nbd = chunk // band
     acc = torch.zeros(nc, chunk, np_, device=dev)
     rep = None
@@ -562,17 +566,17 @@ def ft_gemm_grouped(buf: torch.Tensor, w: torch.Tensor, gid: torch.Tensor,
                        device=buf.device) if ft_on else None)
     inj = tuple(inj) if (ft_on and inj is not None) else _NO_INJ
     swg, swk, swn = w.stride()
-    common = (int(ft_on), int(ft_on and ft.verify == "step"),
-              int(ft_on and ft.corrects),
-              ft.rel_tau * F32EPS if ft_on else 0.0, *inj, float(inj_mag),
-              *seu_args(rng, ft, seu.SALT_GEMM2D),
-              torch.cuda.current_stream(buf.device).cuda_stream)
     if p.instance == "sm90":
         FT_GEMM_GROUPED_SM90(
             buf.data_ptr(), w.data_ptr(), gid.data_ptr(), row_end.data_ptr(),
             out.data_ptr(), None if rep is None else rep.data_ptr(),
             t_buf, n, k, w.shape[0], buf.stride(0),
-            swn if p.w_kmajor else swk, swg, int(p.w_kmajor), *common)
+            swn if p.w_kmajor else swk, swg, int(p.w_kmajor),
+            SM90_LEVELS[level], int(ft_on and ft.verify == "step"),
+            int(ft_on and ft.corrects),
+            ft.rel_tau * F32EPS if ft_on else 0.0, *inj, float(inj_mag),
+            *seu_args(rng, ft, seu.SALT_GEMM2D),
+            torch.cuda.current_stream(buf.device).cuda_stream)
         return out, rep
     # LAYOUT 1 walks B's tile loads along a unit-stride k (w.transpose in
     # the dbuf product); row-major otherwise.

@@ -123,6 +123,14 @@ GROUPED_BANDS = {(8, 128, 32): 1, (16, 128, 32): 2}
 #: K8's compiled SIMT (bm, bn, bk) tiles (`grouped_gemm.TGMM_TILES`) and
 #: their band of dw's K rows: the 8 of the 64-row dw block one warp owns.
 TGMM_BANDS = {(8, 64, 64): 8, (16, 64, 64): 8}
+#: K1's tensor-core (bm, bn, bk) tiles (csrc/ft_gemm_sm90.cuh) and K7's
+#: (bm the layout's row tile, bk the k-step; csrc/grouped_sm90.cu), and
+#: their "tile"-level band: the 16 rows one warp owns in the wgmma
+#: fragment (8 bands at bm 128, 4 at 64; K7's a layout tile of its 64-row
+#: chunk).
+SM90_TILES = ((128, 128, 256), (64, 128, 256))
+SM90_GROUPED_TILES = (16, 128, 256)
+SM90_BAND = 16
 #: The reference's band (its 128-row MXU edge), taken at any other tiles:
 #: the CPU tests run the plain version at the reference's tiles.
 REFERENCE_BAND = 128
@@ -131,14 +139,17 @@ REFERENCE_BAND = 128
 def band_of(tiles: Sequence[int], kernel: str = "gemm") -> int:
     """The "tile"-level band at ``tiles`` of a ``kernel`` ("gemm": K1 and
     K5, rows of C; "grouped": K7, rows of the buffer; "tgmm": K8, rows of
-    dw, so of bk): the kernel's for compiled tiles, the reference's
-    otherwise."""
+    dw, so of bk): the kernel's for compiled tiles (SIMT and tensor-core),
+    the reference's otherwise."""
     tiles = tuple(tiles)
     if kernel == "gemm":
-        table = dict(zip(TILES + BATCHED_SM90_TILES,
-                         BANDS + (BATCHED_SM90_BAND,)))
+        table = dict(zip(TILES + BATCHED_SM90_TILES + SM90_TILES,
+                         BANDS + (BATCHED_SM90_BAND,)
+                         + (SM90_BAND,) * len(SM90_TILES)))
+    elif kernel == "grouped":
+        table = {**GROUPED_BANDS, SM90_GROUPED_TILES: SM90_BAND}
     else:
-        table = {"grouped": GROUPED_BANDS, "tgmm": TGMM_BANDS}[kernel]
+        table = TGMM_BANDS
     return table.get(tiles, REFERENCE_BAND)
 
 

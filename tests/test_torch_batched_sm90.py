@@ -126,8 +126,8 @@ def test_plan_call_on_the_cache_views(level):
     """The front door plans decode attention's operands as they reach it,
     at every FT level: the K cache permuted (k-major) and the V cache
     transposed (n-major) with two batch dims, in bf16; the same call in
-    f32 stays on SIMT; a 2-D call keeps K1's plan (the tensor cores at off
-    and block only), and K1's plan keeps refusing a batched one."""
+    f32 stays on SIMT; a 2-D call keeps K1's plan (the tensor cores at
+    every level), and K1's plan keeps refusing a batched one."""
     cache = torch.zeros(B_, S, KVH, DH, dtype=BF16)
     q = torch.zeros(B_, KVH, REP, DH, dtype=BF16)
     p = torch.zeros(B_, KVH, REP, S, dtype=BF16)
@@ -139,7 +139,7 @@ def test_plan_call_on_the_cache_views(level):
     f32 = tg.plan_call(q.float(), cache.float().permute(0, 2, 3, 1), ft=ft)
     assert f32.instance == "simt" and "dtype" in f32.reason
     k1 = tg.plan_call(q[0, 0], cache[0, :, 0].t(), ft=ft)
-    assert k1.instance == ("sm90" if level in ("off", "block") else "simt")
+    assert k1.instance == "sm90"
     assert "K5" in tg.plan(7, 256, 128, dtype=BF16, level="block",
                            a_strides=(128, 1), b_strides=(1, 512),
                            batched=True).reason

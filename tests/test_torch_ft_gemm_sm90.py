@@ -50,9 +50,10 @@ PLAN_CASES = [
     ("train dw lm_head (LAYOUT 2)", 3072, 200192, 1024,
      dict(a_strides=(1, 3072)), "sm90", BIG, 1),
     ("f32", 512, 3584, 3584, dict(dtype=torch.float32), "simt", SIMT_SQ, 1),
-    ("tile level", 4, 3584, 3584, dict(level="tile"), "simt", SIMT_WIDE, 1),
-    ("inner level", 512, 3584, 3584, dict(level="inner"), "simt", SIMT_SQ,
-     1),
+    ("tile level", 4, 3584, 3584, dict(level="tile"), "sm90", SMALL, 4),
+    ("inner level", 512, 3584, 3584, dict(level="inner"), "sm90", BIG, 1),
+    ("tile level f32", 4, 3584, 3584,
+     dict(level="tile", dtype=torch.float32), "simt", SIMT_WIDE, 1),
     ("residual chain", 512, 3584, 3584, dict(chain=("residual",)), "simt",
      SIMT_SQ, 1),
     ("gelu chain", 512, 3584, 3584, dict(chain=("gelu",)), "simt", SIMT_SQ,
@@ -98,6 +99,17 @@ def test_pinned_tiles_pin_the_instance():
     assert _plan(512, 512, 512, tiles=SIMT_SQ).instance == "simt"
     assert _plan(512, 512, 512, tiles=REF_TILES[:2] + (128,)).instance \
         == "plain"
+
+
+@pytest.mark.parametrize("level", ["tile", "inner"])
+def test_pinned_simt_tiles_keep_the_level_on_the_simt_instance(level):
+    """The tensor-core rule at "tile" and "inner" leaves pinned SIMT tiles
+    (and the reference's, plain only) where they are."""
+    for m, tiles in ((512, SIMT_SQ), (4, SIMT_WIDE)):
+        p = _plan(m, 3584, 3584, level=level, tiles=tiles)
+        assert (p.instance, p.tiles, p.splits) == ("simt", tiles, 1)
+    assert _plan(512, 512, 512, level=level,
+                 tiles=REF_TILES[:2] + (128,)).instance == "plain"
 
 
 def test_split_ranges_are_contiguous_and_balanced():

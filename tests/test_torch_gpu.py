@@ -1169,15 +1169,16 @@ def test_sm90_seu_in_every_split(cuda, walk):
 
 
 def test_sm90_plan_routes_the_rest_to_simt(cuda):
-    """A stride TMA cannot take, an unaligned base, f32 and the tile level
-    run on the SIMT instance; pinned tensor-core tiles raise for them."""
+    """A stride TMA cannot take, an unaligned base and f32 (at block and
+    at the tile level) run on the SIMT instance; pinned tensor-core tiles
+    raise for them."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     a, b = _bf16(gen, 16, 300), _bf16(gen, 300, 256)
     base = _bf16(gen, 16 * 264 + 1)
     cases = [(a, b, FT),                                  # lda 300
              (base[1:].view(16, 264), _bf16(gen, 264, 256), FT),  # unaligned
              (a.float(), b.float(), FT),
-             (_bf16(gen, 16, 256), _bf16(gen, 256, 256),
+             (_bf16(gen, 16, 256).float(), _bf16(gen, 256, 256).float(),
               FT.replace(level="tile"))]
     for x, y, ft in cases:
         p = ft_gemm.plan_call(x, y, ft=ft)
@@ -1956,11 +1957,12 @@ def test_dw_walk_levels_match_plain(cuda, level, dtype):
                                       (torch.bfloat16, 16)])
 @pytest.mark.parametrize("level", ["tile", "inner"])
 def test_grouped_levels_match_plain(cuda, level, dtype, bm):
-    """K7 at tile / inner on its SIMT instance (the plan's rule, no pinned
-    tiles), on the row-major w and the wᵀ view of the dbuf product: reports
-    as the plain version's, SEUs in a live tile, in the ragged last group
-    and in a dead tile corrected bit for bit, detect-only leaving one; at
-    tile, two SEUs in two bands of one block in one k-step."""
+    """K7 at tile / inner on its SIMT instance (the plan's rule for f32,
+    the SIMT tiles pinned for bf16, whose wᵀ walk the tensor cores take),
+    on the row-major w and the wᵀ view of the dbuf product: reports as the
+    plain version's, SEUs in a live tile, in the ragged last group and in
+    a dead tile corrected bit for bit, detect-only leaving one; at tile,
+    two SEUs in two bands of one block in one k-step."""
     from repro_torch.kernels import grouped_gemm as kgg
     lay, glay = _grouped_layout(GROUP_SIZES, bm, 1)
     gen = torch.Generator(device="cuda").manual_seed(bm + len(level))
@@ -1971,10 +1973,12 @@ def test_grouped_levels_match_plain(cuda, level, dtype, bm):
     ft = FT.replace(level=level)
     base = lay.base.tolist()
     tiles = (bm, 128, 32)
+    pin = tiles if dtype == torch.bfloat16 else None
     for ww in (w, wt):
-        p = kgg.plan_k7_call(buf, ww, lay.gid, ft=ft)
+        p = kgg.plan_k7_call(buf, ww, lay.gid, ft=ft, tiles=pin)
         assert (p.instance, p.tiles, p.chunk) == ("simt", tiles, bm)
-        clean, rep = kgg.ft_gemm_grouped(buf, ww, lay.gid, lay.row_end, ft=ft)
+        clean, rep = kgg.ft_gemm_grouped(buf, ww, lay.gid, lay.row_end, ft=ft,
+                                         tiles=pin)
         assert float(rep[..., 0].sum()) == 0.0
         for pol, inj in ((ft, (1, base[2] + 28, n - 1, 3)),
                          (ft.replace(action="detect"), (1, base[2] + 28,
@@ -1985,7 +1989,7 @@ def test_grouped_levels_match_plain(cuda, level, dtype, bm):
             kw = dict(ft=pol, inj=inj, inj_mag=99.0)
             before = kgg.FT_GEMM_GROUPED_SIMT.launches
             out, rep = kgg.ft_gemm_grouped(buf, ww, lay.gid, lay.row_end,
-                                           **kw)
+                                           tiles=pin, **kw)
             assert kgg.FT_GEMM_GROUPED_SIMT.launches == before + 1
             out_p, rep_p = kgg.ft_gemm_grouped_plain(
                 buf, ww, lay.gid, lay.row_end, tiles=tiles, **kw)
@@ -2010,7 +2014,7 @@ def test_grouped_levels_match_plain(cuda, level, dtype, bm):
             for pol in (ftc, ftc.replace(action="detect")):
                 kw = dict(ft=pol, inj=inj, inj_mag=99.0, rng=TRIPLE)
                 out, rep = kgg.ft_gemm_grouped(buf, ww, lay.gid,
-                                               lay.row_end, **kw)
+                                               lay.row_end, tiles=pin, **kw)
                 out_p, rep_p = kgg.ft_gemm_grouped_plain(
                     buf, ww, lay.gid, lay.row_end, tiles=tiles, **kw)
                 assert torch.equal(out, out_p)
@@ -2093,10 +2097,11 @@ def test_tgmm_levels_match_plain(cuda, level, dtype, bm):
 
 
 def test_levels_plan_the_simt_instances(cuda):
-    """`ft_gemm.plan`, `plan_k7` and `plan_k8` send every tile / inner call
-    of training and MoE to the SIMT instance by their written rule, and
-    block to the tensor cores: bf16 w_gate + silu with act_grad, the dw
-    walk, K7 on both walks, K8; each wrapper launches the planned one."""
+    """`ft_gemm.plan` and `plan_k7` send every bf16 tile / inner call of
+    training and MoE that they send to the tensor cores at block to the
+    tensor-core level instances, `plan_k8` sends K8's to the SIMT instance,
+    by their written rules: bf16 w_gate + silu with act_grad, the dw walk,
+    K7 on both walks, K8; each wrapper launches the planned one."""
     from repro_torch.kernels import grouped_gemm as kgg
     gen = torch.Generator(device="cuda").manual_seed(0)
     bf = torch.bfloat16
@@ -2110,35 +2115,241 @@ def test_levels_plan_the_simt_instances(cuda):
                                       save_act_grad=True),
          lambda ft: ft_gemm.ft_gemm(x, w, chain=("silu",), ft=ft,
                                     save_act_grad=True),
-         ft_gemm.FT_GEMM_2D_SIMT, ft_gemm.FT_GEMM_SM90),
+         ft_gemm.FT_GEMM_2D_SIMT, ft_gemm.FT_GEMM_SM90, True),
         (lambda ft: ft_gemm.plan_call(x.T, g, ft=ft),
          lambda ft: ft_gemm.ft_gemm(x.T, g, ft=ft),
-         ft_gemm.FT_GEMM_2D_SIMT, ft_gemm.FT_GEMM_SM90),
+         ft_gemm.FT_GEMM_2D_SIMT, ft_gemm.FT_GEMM_SM90, True),
         (lambda ft: kgg.plan_k7_call(buf, we, lay.gid, ft=ft),
          lambda ft: kgg.ft_gemm_grouped(buf, we, lay.gid, lay.row_end, ft=ft),
-         kgg.FT_GEMM_GROUPED_SIMT, kgg.FT_GEMM_GROUPED_SM90),
+         kgg.FT_GEMM_GROUPED_SIMT, kgg.FT_GEMM_GROUPED_SM90, True),
         (lambda ft: kgg.plan_k7_call(buf[:, :128], we.transpose(-1, -2),
                                      lay.gid, ft=ft),
          lambda ft: kgg.ft_gemm_grouped(buf[:, :128].contiguous(),
                                         we.transpose(-1, -2), lay.gid,
                                         lay.row_end, ft=ft),
-         kgg.FT_GEMM_GROUPED_SIMT, kgg.FT_GEMM_GROUPED_SM90),
+         kgg.FT_GEMM_GROUPED_SIMT, kgg.FT_GEMM_GROUPED_SM90, True),
         (lambda ft: kgg.plan_k8_call(buf, buf[:, :128].contiguous(), 16,
                                      ft=ft),
          lambda ft: kgg.tgmm(buf, buf[:, :128].contiguous(), lay.row_end,
                              bm=16, ft=ft),
-         kgg.TGMM_SIMT, kgg.TGMM_SM90),
+         kgg.TGMM_SIMT, kgg.TGMM_SM90, False),
     ]
-    for plan, call, simt, sm90 in cases:
+    for plan, call, simt, sm90, levels_on_sm90 in cases:
+        # K1's tile / inner instances are a library of their own
+        tc = (ft_gemm.FT_GEMM_SM90, ft_gemm.FT_GEMM_LEVEL_SM90) \
+            if sm90 is ft_gemm.FT_GEMM_SM90 else (sm90, sm90)
         for level in ("block", "tile", "inner"):
             ft = FT.replace(level=level)
             p = plan(ft)
-            want = "sm90" if level == "block" else "simt"
-            assert p.instance == want, (level, p)
-            if level != "block":
+            on_tc = level == "block" or levels_on_sm90
+            assert p.instance == ("sm90" if on_tc else "simt"), (level, p)
+            if not on_tc:
                 assert level in p.reason
-            before = (simt.launches, sm90.launches)
+            counter = tc[0] if level == "block" else tc[1]
+            before = (simt.launches, counter.launches)
             call(ft)
             torch.cuda.synchronize()
-            got = (simt.launches - before[0], sm90.launches - before[1])
-            assert got == ((0, 1) if level == "block" else (1, 0))
+            got = (simt.launches - before[0], counter.launches - before[1])
+            assert got == ((0, 1) if on_tc else (1, 0))
+
+
+# ---------------------------------------------------------------------------
+# K1 and K7 at "tile" and "inner" on the tensor cores
+# (csrc/ft_gemm_level_sm90.cu, csrc/grouped_sm90.cu)
+# ---------------------------------------------------------------------------
+
+#: BM 128 without split-K (264 blocks) and with it, BM 64 with split-K, and
+#: BM 64 without it (264 n-blocks).
+LEVEL_SHAPES = [(512, 8448, 512), (200, 384, 1024), (56, 200, 768),
+                (64, 33792, 512)]
+
+
+def _ints_bf16(gen, *shape):
+    return _ints(gen, *shape, dtype=torch.bfloat16)
+
+
+def _k1_level_call(a, b, kw):
+    before = (ft_gemm.FT_GEMM_LEVEL_SM90.launches,
+              ft_gemm.FT_GEMM_SM90.launches,
+              ft_gemm.FT_GEMM_2D_SIMT.launches)
+    got = ft_gemm.ft_gemm(a, b, **kw)
+    assert (ft_gemm.FT_GEMM_LEVEL_SM90.launches,
+            ft_gemm.FT_GEMM_SM90.launches,
+            ft_gemm.FT_GEMM_2D_SIMT.launches) == (before[0] + 1, before[1],
+                                                   before[2])
+    return got, ft_gemm.planned_plain(a, b, **kw)
+
+
+@pytest.mark.parametrize("walk", [0, 1, 2])
+@pytest.mark.parametrize("shape", LEVEL_SHAPES)
+@pytest.mark.parametrize("level", ["tile", "inner"])
+def test_level_sm90_matches_plain(cuda, level, shape, walk):
+    """K1's tile / inner instances against the plain version under the same
+    plan, integer bf16 operands (exact): clean (no detection), an SEU in a
+    middle k-step corrected bit for bit and located, detect-only leaving it
+    (at inner counted once), verify="final"; the row-major walk with bias +
+    silu and act_grad (one bf16 ulp: the two sides' silu)."""
+    m, n, k = shape
+    gen = torch.Generator(device="cuda").manual_seed(m + n + walk)
+    a, b = _walk_operands(gen, m, n, k, walk, _ints_bf16)
+    chain = ("bias", "silu") if walk == 0 else ()
+    bias = _ints_bf16(gen, n) if chain else None
+    ft = FT.replace(level=level)
+    base = dict(chain=chain, bias=bias, save_act_grad=bool(chain))
+    p = ft_gemm.plan_call(a, b, chain=chain, ft=ft,
+                          save_act_grad=bool(chain))
+    assert p.instance == "sm90" and p.tiles[0] == (128 if m > 64 else 64)
+    (clean, rep0), (want0, rep0_p) = _k1_level_call(a, b, dict(base, ft=ft))
+    outs = lambda o: o if chain else (o,)          # noqa: E731
+    for got, want in zip(outs(clean), outs(want0)):
+        _close_as(got, want, torch.bfloat16)
+    _check_reports(rep0, rep0_p)
+    assert float(rep0[..., 0].sum()) == 0.0
+    step = ft_gemm.cdiv(k, 256) // 2
+    inj = (1, -1, m - 1, n - 5, step)
+    for pol in (ft, ft.replace(action="detect"), ft.replace(verify="final")):
+        kw = dict(base, ft=pol, inj=inj, inj_mag=99.0)
+        (out, rep), (out_p, rep_p) = _k1_level_call(a, b, kw)
+        for got, want in zip(outs(out), outs(out_p)):
+            _close_as(got, want, torch.bfloat16)
+        _check_reports(rep, rep_p)
+        cell = rep[rep[..., 0] > 0]
+        assert (int(cell[-1, 2]), int(cell[-1, 3])) == (m - 1, n - 5)
+        if pol.corrects:
+            assert all(torch.equal(x, y) for x, y in zip(outs(out),
+                                                          outs(clean)))
+            assert float(rep[..., 0].sum()) == float(rep[..., 1].sum()) == 1
+        else:
+            assert float(rep[..., 1].sum()) == 0.0
+            if level == "inner":
+                assert float(rep[..., 0].sum()) == 1.0
+            if not chain:
+                moved = (out.float() - clean.float()).abs()
+                assert moved.nonzero().tolist() == [[m - 1, n - 5]]
+
+
+@pytest.mark.parametrize("bm", [128, 64])
+@pytest.mark.parametrize("level", ["tile", "inner"])
+def test_level_sm90_seu_in_every_band(cuda, level, bm):
+    """An SEU in each 16-row band of one block, corrected bit for bit and
+    located at its global (row, col), on the unsplit walk and under split-K;
+    at tile a campaign at rate 1.0 (one SEU every block) and a deterministic
+    SEU in another band of one block at the drawn k-step: both corrected in
+    that interval, both left by detect-only."""
+    gen = torch.Generator(device="cuda").manual_seed(bm + len(level))
+    ft = FT.replace(level=level)
+    m = 256 if bm == 128 else 64              # the last row block: its bands
+    for n, k in ((264 * 128 * bm // m, 512), (384, 1024)):
+        a, b = _ints_bf16(gen, m, k), _ints_bf16(gen, k, n)
+        p = ft_gemm.plan_call(a, b, ft=ft)
+        assert p.tiles[0] == bm and (p.splits == 1) == (n > 384)
+        clean, _ = ft_gemm.ft_gemm(a, b, ft=ft)
+        for band in range(bm // 16):
+            row = m - bm + band * 16 + (band * 5) % 16
+            inj = (1, -1, row, 130 + band, band % ft_gemm.cdiv(k, 256))
+            (out, rep), (_, rep_p) = _k1_level_call(
+                a, b, dict(ft=ft, inj=inj, inj_mag=77.0))
+            assert torch.equal(out, clean)
+            _check_reports(rep, rep_p)
+            cell = rep[rep[..., 0] > 0]
+            assert cell.shape[0] == 1
+            assert (int(cell[0, 2]), int(cell[0, 3])) == (row, 130 + band)
+        if level == "tile":
+            _k1_two_bands_sm90(a, b, ft, p, clean)
+
+
+def _k1_two_bands_sm90(a, b, ft, p, clean):
+    m, n = a.shape[0], b.shape[1]
+    bm, bn, bk = p.tiles
+    ftc = ft.replace(inject_rate=1.0)
+    gm, gn, gk = (ft_gemm.cdiv(m, bm), ft_gemm.cdiv(n, bn),
+                  ft_gemm.cdiv(a.shape[1], bk))
+    hit, step, row, col = ft_gemm.seu_draws(TRIPLE, ftc, 1, gm, gn, gk,
+                                            p.tiles, False)
+    i, j = gm - 1, 1
+    r2 = i * bm + _other_band(int(row[0, i, j]), 16, bm)
+    c2 = j * bn + (int(col[0, i, j]) + 1) % bn
+    inj = (1, -1, r2, c2, int(step[0, i, j]))
+    for pol in (ftc, ftc.replace(action="detect")):
+        (out, rep), (_, rep_p) = _k1_level_call(
+            a, b, dict(ft=pol, rng=TRIPLE, inj=inj, inj_mag=99.0))
+        _check_reports(rep, rep_p)
+        if pol.corrects:
+            assert torch.equal(out, clean)
+            assert float(rep[i, j, 0]) == float(rep[i, j, 1]) == 2.0
+            assert float(rep[..., 0].sum()) == float(hit.sum()) + 1
+        else:
+            assert (out != clean)[i * bm:(i + 1) * bm].sum() >= 1
+
+
+@pytest.mark.parametrize("walk", ["w", "wT"])
+@pytest.mark.parametrize("level", ["tile", "inner"])
+def test_grouped_level_sm90_matches_plain(cuda, level, walk):
+    """K7's tile / inner instances against the plain version under the
+    same plan (64-row chunks, 16-row bands, each recording into its own
+    layout tile's row), integer bf16 operands (exact): clean, an SEU in a
+    chunk that spans past its group's row_end and one in the dead chunk
+    corrected bit for bit and located, detect-only leaving one (at inner
+    counted once), verify="final"; two SEUs in two bands of one chunk in
+    one k-step (a campaign at rate 1.0 and a deterministic SEU) both
+    corrected."""
+    from repro_torch.kernels import grouped_gemm as kgg
+    lay, glay = _sm90_layout(9)
+    gen = torch.Generator(device="cuda").manual_seed(31 + len(level))
+    k, n, ng = 768, 200, len(SM90_SIZES)
+    buf = glay.scatter_rows(_ints_bf16(gen, lay.n_rows, k), lay)
+    w = (_ints_bf16(gen, ng, k, n) if walk == "w" else
+         _ints_bf16(gen, ng, n, k).transpose(-1, -2))
+    ft = FT.replace(level=level)
+    p = kgg.plan_k7_call(buf, w, lay.gid, ft=ft)
+    assert (p.instance, p.chunk, p.w_kmajor) == ("sm90", 64, walk == "wT")
+    re = lay.row_end.tolist()
+    base = lay.base.tolist()
+
+    def call(pol, inj=None, rng=None):
+        kw = dict(ft=pol, inj=inj, inj_mag=99.0, rng=rng)
+        before = kgg.FT_GEMM_GROUPED_SM90.launches
+        got = kgg.ft_gemm_grouped(buf, w, lay.gid, lay.row_end, **kw)
+        assert kgg.FT_GEMM_GROUPED_SM90.launches == before + 1
+        return got, kgg.planned_grouped_plain(buf, w, lay.gid, lay.row_end,
+                                              **kw)
+
+    (clean, rep0), (clean_p, rep0_p) = call(ft)
+    assert torch.equal(clean, clean_p) and float(rep0[..., 0].sum()) == 0.0
+    _check_reports(rep0, rep0_p)
+    past = (1, re[2] - 1, n - 1, 1)
+    for pol, inj in ((ft, past), (ft.replace(action="detect"), past),
+                     (ft.replace(verify="final"), (1, base[0], 5, 0)),
+                     (ft, (1, lay.t_buf - 1, 7, 2))):
+        (out, rep), (out_p, rep_p) = call(pol, inj)
+        assert torch.equal(out, out_p)
+        _check_reports(rep, rep_p)
+        cell = rep[rep[..., 0] > 0]
+        assert (int(cell[-1, 2]), int(cell[-1, 3])) == inj[1:3]
+        if pol.corrects:
+            assert torch.equal(out, clean)
+            assert float(rep[..., 0].sum()) == float(rep[..., 1].sum()) == 1
+        else:
+            assert float(rep[..., 1].sum()) == 0.0
+            if level == "inner":
+                assert float(rep[..., 0].sum()) == 1.0
+    ftc = ft.replace(inject_rate=1.0)
+    hit, step, row, col = kgg.seu_tile_draws(TRIPLE, ftc, lay.num_tiles,
+                                             kgg.cdiv(n, 128),
+                                             kgg.cdiv(k, 256), p.tiles, "cuda")
+    i = base[2] // 16                           # group 2's first chunk
+    # a band of the chunk whose own SEU falls in another k-step than tile
+    # i's, so the step holds one SEU in each of the two bands
+    t = next(q for q in (i + 1, i + 2, i + 3)
+             if int(step[q, 1]) != int(step[i, 1]))
+    r2 = t * 16 + int(row[i, 1])
+    inj = (1, r2, 128 + (int(col[i, 1]) + 1) % 72, int(step[i, 1]))
+    for pol in (ftc, ftc.replace(action="detect")):
+        (out, rep), (out_p, rep_p) = call(pol, inj, TRIPLE)
+        assert torch.equal(out, out_p)
+        _check_reports(rep, rep_p)
+        if pol.corrects:
+            assert torch.equal(out, clean)
+            assert float(rep[i, 1, 1]) == 1.0 and float(rep[t, 1, 1]) == 2.0
+        else:
+            assert float(rep[..., 1].sum()) == 0.0

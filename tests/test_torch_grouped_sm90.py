@@ -168,7 +168,8 @@ def test_plan_keeps_f32_pinned_tiles_and_odd_strides_off_the_tensor_cores(
 
 def test_cpu_wrappers_follow_the_plan():
     """On the CPU the wrappers run the plain version under the plan: bf16
-    takes the tensor-core grid, pinned SIMT tiles the SIMT grid."""
+    takes the tensor-core grid at every level, pinned SIMT tiles the SIMT
+    grid."""
     rl, tl, gids = _layouts()
     rng = np.random.default_rng(1)
     x = _t(rng.integers(-2, 3, (len(gids), 256)).astype(bfloat16))
@@ -182,11 +183,11 @@ def test_cpu_wrappers_follow_the_plan():
         got = kgg.ft_gemm_grouped(buf, w, tl.gid, tl.row_end, ft=ft,
                                   tiles=tiles)
         assert all(torch.equal(a, b) for a, b in zip(got, want))
-    # tile and inner run on the SIMT instance by the plan's rule
+    # tile and inner run on the tensor-core instance by the plan's rule
     for level in ("tile", "inner"):
         ft = TFT(level=level)
         p = kgg.plan_k7_call(buf, w, tl.gid, ft=ft)
-        assert (p.instance, p.tiles, p.chunk) == ("simt", (16, 128, 32), 16)
+        assert (p.instance, p.tiles, p.chunk) == ("sm90", K7_TILES, CHUNK)
         want = kgg.ft_gemm_grouped_plain(buf, w, tl.gid, tl.row_end,
                                          tiles=p.tiles, chunk=p.chunk, ft=ft)
         got = kgg.ft_gemm_grouped(buf, w, tl.gid, tl.row_end, ft=ft)

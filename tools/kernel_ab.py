@@ -10,6 +10,12 @@ of an A/B comparison of two commits on one card. Prints one JSON line
     python3 tools/kernel_ab.py --src build/parent/src   # an older checkout
     python3 tools/kernel_ab.py --src src                # this one
     python3 tools/kernel_ab.py --src src --family flash # K2, K3, K4, K6
+    python3 tools/kernel_ab.py --src src --family levels  # K1, K7 by level
+
+The levels family times K1 and K7 at FT off and at each level (block,
+tile, inner), each FT level with a verification after every k-step
+(verify "step", the default) and at the end only ("final"), so the cost
+of the per-step verifications stands apart from the checksums'.
 
 Run the two in turns in one call on the chip (parent, change, change,
 parent) and compare within the call: each process builds its checkout's
@@ -46,7 +52,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--src", required=True,
                     help="the src/ directory of the checkout to time")
-    ap.add_argument("--family", choices=("gemm", "flash"), default="gemm")
+    ap.add_argument("--family", choices=("gemm", "flash", "levels"),
+                    default="gemm")
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.src))
     import torch
@@ -63,8 +70,9 @@ def main() -> int:
         return (torch.randn(*shape, generator=gen, device="cuda") * scale
                 ).to(torch.bfloat16)
 
-    if args.family == "flash":
-        times = flash_times(torch, ft, rand, gen)
+    if args.family in ("flash", "levels"):
+        times = (flash_times if args.family == "flash" else level_times)(
+            torch, ft, rand, gen)
         print(json.dumps({"src": args.src, "family": args.family,
                           "card": torch.cuda.get_device_name(0),
                           "times": times}))
@@ -110,6 +118,49 @@ def main() -> int:
     print(json.dumps({"src": args.src, "card": torch.cuda.get_device_name(0),
                       "times": times}))
     return 0
+
+
+def level_times(torch, ft, rand, gen):
+    """K1 (training's w_gate+silu with act_grad, its dw on x.T, the 4 096
+    square, qwen2-7b's decode w_gate+silu) and K7 (qwen3-moe's decode gate
+    and training dbuf) at FT off and at block / tile / inner, verifying
+    every k-step and at the end only."""
+    from repro_torch.kernels import ft_gemm, grouped_gemm
+    from repro_torch.kernels import grouped as kgrouped
+    cases = [(None, "off")] + [
+        (ft.replace(level=lv, verify=vf), f"{lv} {vf}")
+        for lv in ("block", "tile", "inner") for vf in ("step", "final")]
+    times = {}
+    x, g = rand(1024, 3072), rand(1024, 8192, scale=0.02)
+    w = rand(3072, 8192, scale=0.02)
+    sq_a, sq_b = rand(4096, 4096), rand(4096, 4096, scale=0.02)
+    dec_a, dec_b = rand(4, 3584), rand(3584, 18944, scale=0.02)
+    e, d, f, rows = 128, 4096, 1536, 64
+    ids = torch.randint(0, e, (rows,), generator=gen, device="cuda")
+    lay = kgrouped.make_layout(ids, e, 16)
+    buf = kgrouped.scatter_rows(rand(rows, d), lay)
+    wg = rand(e, d, f, scale=0.02)
+    ids8 = torch.randint(0, e, (8192,), generator=gen, device="cuda")
+    lay8 = kgrouped.make_layout(ids8, e, 16)
+    gbuf = kgrouped.scatter_rows(rand(8192, f), lay8)
+    wd = rand(e, d, f, scale=0.02).transpose(-1, -2)   # dbuf = g · wᵀ
+    for fc, name in cases:
+        calls = {
+            "K1 act_grad 1024x3072x8192": lambda: ft_gemm.ft_gemm(
+                x, w, chain=("silu",), ft=fc, save_act_grad=fc is not None),
+            "K1 dw x^T g 3072x1024x8192": lambda: ft_gemm.ft_gemm(
+                x.T, g, ft=fc),
+            "K1 square 4096": lambda: ft_gemm.ft_gemm(sq_a, sq_b, ft=fc),
+            "K1 decode w_gate+silu 4x3584x18944": lambda: ft_gemm.ft_gemm(
+                dec_a, dec_b, chain=("silu",), ft=fc),
+            "K7 decode gate 64 rows": lambda: grouped_gemm.ft_gemm_grouped(
+                buf, wg, lay.gid, lay.row_end, ft=fc),
+            "K7 train dbuf 8192 rows": lambda: grouped_gemm.ft_gemm_grouped(
+                gbuf, wd, lay8.gid, lay8.row_end, ft=fc),
+        }
+        for label, fn in calls.items():
+            times[f"{label} {name}"] = kernel_ms(torch, fn)
+    return times
 
 
 def flash_times(torch, ft, rand, gen):
