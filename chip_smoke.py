@@ -76,9 +76,9 @@ Phases (each prints its own lines; any failed check exits non-zero):
                calls' CUDA-event times (the SIMT instance's too) under
                their own keys; the bound, the plain version and the
                library call. Then the tile and inner levels of training and
-               MoE on the instances the plans pick in bf16 (K1 and K7 on the
-               tensor cores, K8 on its SIMT instance), each timed beside the
-               SIMT instance pinned at the level: K1's
+               MoE on the instances the plans pick in bf16 (K1, K7 and K8 on
+               the tensor cores), each timed beside the SIMT instance pinned
+               at the level (K8's also held against its plain version): K1's
                w_gate+silu with act_grad and its dw on the transposed-A
                walk at phi4-mini-3.8b's training shape (2 x 512 tokens), K7
                at qwen3-moe-235b-a22b's decode gate and its training dbuf
@@ -86,12 +86,13 @@ Phases (each prints its own lines; any failed check exits non-zero):
                rows -> (128, 4 096, 1 536) f32): max error and reports
                against the plain version under the same plan, no detection
                on clean data, an SEU on integer-valued operands corrected
-               bit for bit, located and left by detect-only, at tile a
-               campaign at rate 1.0 plus an SEU in another band of one
-               block in the same interval (two SEUs in two bands, both
-               corrected); CUDA-event times beside the same instance at
-               block (pinned SIMT tiles), the tensor-core block call, the
-               library call and the bound;
+               bit for bit, located and left by detect-only, an SEU in each
+               16-row band of one block (K8: and one in the last group's
+               dead tail), at tile a campaign at rate 1.0 plus an SEU in
+               another band of one block in the same interval (two SEUs in
+               two bands, both corrected); CUDA-event times beside the same
+               instance at block (pinned SIMT tiles), the tensor-core block
+               call, FT off, the library call and the bound;
   level_check  qwen2-7b at full width, 2 layers: prefill and 2 decode steps
                at each level through the kernels against their plain
                versions and against block (logits within 2e-2 of
@@ -258,13 +259,15 @@ Phases (each prints its own lines; any failed check exits non-zero):
                prefill ms, TTFT, tokens/s, peak memory, launches: K1 and K7
                on the tensor-core level instances, zero detections, pages
                back, one profiled decode step), `train_loop.train` at 1
-               layer as moe_train (3 steps, launches: K1 and K7 on the
-               tensor cores, K8 on its SIMT instance, one profiled step), and `bwd_inject` SEUs in
+               layer as moe_train (3 steps, launches: K1, K7 and K8 on the
+               tensor-core level instances, one profiled step), and
+               `bwd_inject` SEUs in
                moe_gate's dw (K8) and dbuf (K7 on the wᵀ walk) corrected by
                train_check's rule and left by detect-only;
-  campaign_kernels  stochastic SEU campaigns on the GEMM family's nine
-               instances (K1, K5, K7, K8, tensor cores and SIMT, and K1's
-               tensor-core level instance at tile), each at a
+  campaign_kernels  stochastic SEU campaigns on the GEMM family's
+               instances (K1, K5, K7, K8, tensor cores and SIMT, K1's
+               tensor-core level instance at tile, K8's at tile and inner),
+               each at a
                main-path shape and a shape with a tail block, on integer-
                valued operands under a fixed triple at rates 0.5 and 1.0:
                reports equal to the planned plain version's, one detection and
@@ -274,8 +277,9 @@ Phases (each prints its own lines; any failed check exits non-zero):
                tensor-core instance at qwen2-7b's decode and prefill
                w_gate+silu and a 4 096 square (clean, rate 0, rate 1.0, FT
                off, torch.matmul; errors per call and per minute at rate 1.0;
-               CUDA events, three rounds in turns), and K5, K7 and K8 at rate
-               0 and 1.0 beside their clean calls (K5 at decode by calls
+               CUDA events, three rounds in turns), and K5, K7 and K8 (K8 at
+               block, tile and inner) at rate 0 and 1.0 beside their clean
+               calls (K5 at decode by calls
                queued behind a device-side sleep). Then the flash family's
                eight instances on Gaussian bf16 (f32 for the SIMT ones) under
                the same triple at rates 0.5 and 1.0: K2 on the tensor cores at
@@ -3710,7 +3714,8 @@ def phase_moe_train(smi: str):
 
 # ---------------------------------------------------------------------------
 # level_kernels: the tile and inner levels of training and MoE (K1 with
-# act_grad and on the dw walk, K7 on both walks, K8) on their SIMT instances
+# act_grad and on the dw walk, K7 on both walks, K8) on their tensor-core
+# instances, the SIMT ones pinned beside them
 # ---------------------------------------------------------------------------
 
 #: A campaign triple for the two-band checks: at rate 1.0 every block draws
@@ -3762,7 +3767,9 @@ class _LevelCase:
     integer case (tensor-core level instances); ``live`` the report rows to
     compare (K8: live groups); ``sm90``: the plan runs the level on the
     tensor cores, and ``call(ft, simt_=True)`` pins the SIMT instance at
-    the level too (the SIMT kernel at the level, timed beside it)."""
+    the level too (the SIMT kernel at the level, timed beside it);
+    ``pinned(ft)``: the plain version under the pinned SIMT tiles, against
+    which that SIMT call is held too, its row ``simt_name``."""
     label: str
     name: str
     counter: object
@@ -3779,6 +3786,8 @@ class _LevelCase:
     bands: object = None
     live: object = None
     sm90: bool = False
+    pinned: object = None
+    simt_name: str = ""
 
 
 def _level_k1_cases(gen):
@@ -3950,7 +3959,9 @@ def _level_moe_cases(gen):
             sm90=True))
     # K8 at the training dw of the gate: dw (128, 4 096, 1 536) f32
     lay = _moe_layout(gen, train_rows, bm)
-    tiles = (bm, 64, 64)
+    tiles = (bm, 64, 64)                       # the SIMT instance's
+    k8 = grouped_gemm.SM90_TGMM_TILES          # the plan's
+    _, bn, bk = k8
 
     def build8(make, scale):
         x = kgrouped.scatter_rows(make(train_rows, d, 1.0), lay)
@@ -3970,30 +3981,46 @@ def _level_moe_cases(gen):
     ints = build8(lambda *s: _ints(gen, *s[:-1]), 1.0)[2:]
     live_rows, live_e = _live(lay)
     lib, lib_label, _ = _library_tgmm(x, g, lay)
+    check(grouped_gemm.plan_k8_call(x, g, bm, ft=FT.replace(level="tile"))
+          .tiles == k8, "K8 train dw: the tensor-core plan at the levels")
     tile = (int(lay.row_end[e - 1]) - 1) // bm     # the ragged last tile
     first, _, re = grouped_gemm._group_span(lay.row_end, bm, lay.num_tiles)
+    grp0 = int(torch.nonzero(lay.counts > 0)[0])   # the first live group
+    n0 = (int(lay.counts[grp0]) + bm - 1) // bm
 
     def band_seu(ft):
-        gk, gn = ft_gemm.cdiv(d, 64), ft_gemm.cdiv(f, 64)
+        gk, gn = ft_gemm.cdiv(d, bk), ft_gemm.cdiv(f, bn)
         _, st, r, c = grouped_gemm.seu_dw_draws(
-            BAND_TRIPLE, ft, (re - first * bm).clamp_min(0), gk, gn, tiles)
-        grp = int(torch.nonzero(lay.counts > 0)[0])
+            BAND_TRIPLE, ft, (re - first * bm).clamp_min(0), gk, gn, k8)
         ki, nj = 1, 1
-        r2 = ki * 64 + _next_band(int(r[grp, ki, nj]),
-                                  ft_gemm.band_of(tiles, "tgmm"), 64)
-        c2 = nj * 64 + (int(c[grp, ki, nj]) + 1) % 64
-        return ((1, r2, c2, int(first[grp]) + int(st[grp, ki, nj])),
-                (grp, ki, nj), (grp, slice(ki * 64, (ki + 1) * 64)),
-                slice(nj * 64, (nj + 1) * 64))
+        r2 = ki * bk + _next_band(int(r[grp0, ki, nj]),
+                                  ft_gemm.band_of(k8, "tgmm"), bk)
+        c2 = nj * bn + (int(c[grp0, ki, nj]) + 1) % bn
+        return ((1, r2, c2, int(first[grp0]) + int(st[grp0, ki, nj])),
+                (grp0, ki, nj), (grp0, slice(ki * bk, (ki + 1) * bk)),
+                slice(nj * bn, (nj + 1) * bn))
+
+    def bands():
+        """An SEU in each 16-row band of dw block (1, 1) of the first live
+        group, over its stages, and one in the last group's dead tail."""
+        out = []
+        for q in range(bk // 16):
+            r, c = bk + 16 * q + (3 * q + 1) % 16, bn + 5 * q
+            out.append(((1, r, c, int(first[grp0]) + q * n0 // 8), (r, c)))
+        return out + [((1, 5, 9, lay.num_tiles - 1), (5, 9))]
 
     cases.append(_LevelCase(
         label=f"train dw gate {train_rows} rows -> ({e}, {d}, {f}) f32",
-        name="tgmm", counter=grouped_gemm.TGMM_SIMT, call=call, plain=plain,
-        lib=lib, lib_label=lib_label, flops=2.0 * live_rows * d * f,
+        name="tgmm_sm90", counter=grouped_gemm.TGMM_SM90, call=call,
+        plain=plain, lib=lib, lib_label=lib_label,
+        flops=2.0 * live_rows * d * f,
         nbytes=2 * live_rows * (d + f) + 4 * e * d * f, iters=3, ints=ints,
         seu=((1, d - 1, min(700, f - 1), tile), 500.0,
              (d - 1, min(700, f - 1))),
-        band_seu=band_seu, live=lay.counts > 0))
+        band_seu=band_seu, bands=bands, live=lay.counts > 0, sm90=True,
+        pinned=lambda ft: grouped_gemm.tgmm_plain(x, g, lay.row_end,
+                                                  tiles=tiles, ft=ft),
+        simt_name="tgmm"))
     return cases
 
 
@@ -4011,6 +4038,7 @@ def _level_case(c: _LevelCase, rows):
     where = "tensor-core level" if c.sm90 else "SIMT"
     block_ms = time_ms(lambda: c.call(FT, simt_=True), c.iters)
     sm90_ms = time_ms(lambda: c.call(FT), c.iters)
+    off_ms = time_ms(lambda: c.call(None), c.iters)
     lib_ms = time_ms(c.lib, c.iters)
     b_ms, b_by = bound(c.flops, c.nbytes)
     for level in LEVELS:
@@ -4030,15 +4058,30 @@ def _level_case(c: _LevelCase, rows):
         if c.sm90:
             simt["simt_ms"] = time_ms(lambda: c.call(ft, simt_=True),
                                       max(c.iters // 3, 1), warmup=1)
+        if c.pinned is not None:
+            # the SIMT instance at the level against its own plain version
+            out_s, rep_s = c.call(ft, simt_=True)
+            (out_sp, rep_sp), pinned_ms = _timed(lambda: c.pinned(ft))
+            err_s = _cmp_outputs(f"{level} {c.label} SIMT", out_s, out_sp,
+                                 rep_s[live], rep_sp[live])
+            del out_s, out_sp
+            r = rows[c.simt_name]
+            r["max_abs_err"] = max(r["max_abs_err"], err_s)
+            r["detail"].append(dict(
+                shape=f"{c.label} ({level})", level=level,
+                ms=simt["simt_ms"], plain_ms=pinned_ms,
+                library_ms=lib_ms, library=c.lib_label, bound_ms=b_ms,
+                bound_by=b_by))
         rows[c.name]["max_abs_err"] = max(rows[c.name]["max_abs_err"], err)
         rows[c.name]["detail"].append(dict(
             shape=f"{c.label} ({level})", level=level, ms=ms,
-            block_ms=block_ms, block_sm90_ms=sm90_ms, plain_ms=plain_ms,
+            block_ms=block_ms, block_sm90_ms=sm90_ms, ft_off_ms=off_ms,
+            plain_ms=plain_ms,
             library_ms=lib_ms, library=c.lib_label, bound_ms=b_ms,
             bound_by=b_by, **simt))
         print(f"  {level} {c.label}: {where} {ms:.4f} ms "
               f"({ms / sm90_ms:.3f}x the tensor-core block {sm90_ms:.4f}; "
-              f"SIMT block {block_ms:.4f}"
+              f"FT off {off_ms:.4f}; SIMT block {block_ms:.4f}"
               + (f"; SIMT {level} {simt['simt_ms']:.4f}" if simt else "")
               + f"), library {lib_ms:.4f} ms ({c.lib_label}), "
               f"bound {b_ms:.5f} ms ({b_by}), plain {plain_ms:.1f} ms")
@@ -4102,7 +4145,8 @@ def _level_training_kernels(gen):
     at phi4-mini's training shapes, K7 (decode gate, training dbuf) and K8
     (training dw) at qwen3-moe's, each at tile and inner."""
     rows = {n: dict(max_abs_err=0.0, detail=[])
-            for n in ("ft_gemm_level_sm90", "ft_gemm_grouped_sm90", "tgmm")}
+            for n in ("ft_gemm_level_sm90", "ft_gemm_grouped_sm90",
+                      "tgmm_sm90", "tgmm")}
     for c in _level_k1_cases(gen):
         _level_case(c, rows)
         torch.cuda.empty_cache()
@@ -4502,11 +4546,11 @@ def phase_level_moe(seed: int, smi: str):
         expect = {**k1_launches(16 * n_l + 3, level), **k5_launches(0),
                   **k2_launches(2 * n_l), **flash_bwd_launches(cfg1, n_l),
                   **k6_launches(0), "ft_gemm_grouped_sm90": 9 * n_l,
-                  "ft_gemm_grouped": 0, "tgmm_sm90": 0, "tgmm": 3 * n_l,
+                  "ft_gemm_grouped": 0, "tgmm_sm90": 3 * n_l, "tgmm": 0,
                   "naive_gemm": 0}
         check(all(x == expect for x in per),
-              f"level_moe train {level}: launches per step {expect} (K1 and "
-              f"K7 on the tensor-core level instances, K8 on the SIMT one)")
+              f"level_moe train {level}: launches per step {expect} (K1, K7 "
+              f"and K8 on the tensor-core level instances)")
         prof = _profile_step(cfg1, run, shape, out, LEVEL_TRAIN_STEPS)
         print(f"  train {level} profiled step: {prof}")
         summary[level]["train"] = dict(
@@ -4623,7 +4667,10 @@ def _k7_case(label, counter, buf, w, lay, tiles=None):
                 *args, ft=ft, rng=rng, tiles=tiles), hits)
 
 
-def _k8_case(label, counter, x, g, lay, tiles=None):
+def _k8_case(label, counter, x, g, lay, tiles=None, level="block"):
+    def lvl(ft):
+        return ft.replace(level=level)
+
     def hits(ft, rng):
         p = grouped_gemm.plan_k8_call(x, g, lay.bm, tiles)
         live = (lay.row_end.long() - lay.base.long()).cpu()
@@ -4633,9 +4680,11 @@ def _k8_case(label, counter, x, g, lay, tiles=None):
 
     return (label, counter,
             lambda ft, rng: grouped_gemm.tgmm(x, g, lay.row_end, bm=lay.bm,
-                                              ft=ft, rng=rng, tiles=tiles),
+                                              ft=lvl(ft), rng=rng,
+                                              tiles=tiles),
             lambda ft, rng: grouped_gemm.planned_tgmm_plain(
-                x, g, lay.row_end, bm=lay.bm, ft=ft, rng=rng, tiles=tiles),
+                x, g, lay.row_end, bm=lay.bm, ft=lvl(ft), rng=rng,
+                tiles=tiles),
             hits)
 
 
@@ -5009,6 +5058,13 @@ def phase_campaign_kernels():
         _k8_case(f"K8 sm90 train dw {train_rows} rows ({e}, {d}, {f})",
                  grouped_gemm.TGMM_SM90, buf, gb, lay),
         _k8_case("K8 sm90 tail", grouped_gemm.TGMM_SM90, sx, sg, small),
+        # K8's tensor-core level instances (16-row bands of dw at tile, a
+        # 64-row stage's Δ at inner), the same shapes
+        *[_k8_case(f"K8 sm90 {lv} train dw {train_rows} rows ({e}, {d}, "
+                   f"{f})", grouped_gemm.TGMM_SM90, buf, gb, lay, level=lv)
+          for lv in LEVELS],
+        *[_k8_case(f"K8 sm90 {lv} tail", grouped_gemm.TGMM_SM90, sx, sg,
+                   small, level=lv) for lv in LEVELS],
         _k8_case(f"K8 simt train dw {train_rows} rows ({e}, {d}, {f})",
                  grouped_gemm.TGMM_SIMT, buf, gb, lay, tiles=(16, 64, 64)),
         _k8_case("K8 simt tail f32", grouped_gemm.TGMM_SIMT, sx.float(),
@@ -5069,7 +5125,8 @@ def phase_campaign_kernels():
           f"({k1_dec['rate 0 / clean']:.4f})")
     hook = [next(c for c in cases if c[0].startswith(prefix))
             for prefix in ("K5 sm90 decode", "K5 simt train", "K7 sm90 train",
-                           "K8 sm90 train")]
+                           "K8 sm90 train", "K8 sm90 tile train",
+                           "K8 sm90 inner train")]
     for label, _, call, _, _ in hook:
         # K5 at decode runs 0.004 ms on the device against 0.04 of host time
         # a call: its time is that of calls queued behind a device-side

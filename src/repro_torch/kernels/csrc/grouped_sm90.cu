@@ -1,7 +1,6 @@
 // Grouped ABFT GEMMs of the MoE layer for Hopper on the tensor cores
-// (sm_90a): K7's bf16 instances at every FT level and K8's at FT off and
-// at the threadblock ("block") level, on the mainloop of
-// csrc/ft_gemm_sm90.cuh, whose pieces they share through
+// (sm_90a): K7's and K8's bf16 instances at every FT level, on the
+// mainloop of csrc/ft_gemm_sm90.cuh, whose pieces they share through
 // csrc/sm90_mainloop.cuh (so this source builds beside K1's in parallel
 // and K1's instances carry no branch of the groups).
 //
@@ -13,11 +12,11 @@
 //       per-band column checksums and _verify_raw (emit.py:443-481);
 //   K8  src/repro/kernels/templates/emit.py:527 render_tgmm, launched by
 //       templates/registry.py:411 tgmm_kernel_call: dw[g] = X_g^T · G_g in
-//       f32 over two buffers of one layout.
+//       f32 over two buffers of one layout; at "tile" its per-band column
+//       checksums of dw, at "inner" its Δ verification (emit.py:658-711).
 // The SIMT kernels keep f32 and their pinned tiles (csrc/ft_gemm.cu
-// GROUPED, csrc/tgmm.cu) and K8's tile and inner levels;
-// kernels/grouped_gemm.py:plan_k7 / plan_k8 pick the instance by a
-// written rule.
+// GROUPED, csrc/tgmm.cu); kernels/grouped_gemm.py:plan_k7 / plan_k8 pick
+// the instance by a written rule.
 //
 // The layout (kernels/grouped/layout.py) is unchanged: each group's
 // region starts at row_end[g-1] rounded up to the 16-row layout tile and
@@ -92,7 +91,8 @@
 // the training shape, 128 experts x 4 096 x 1 536). One CTA per (group,
 // 128-row block of K, 128-column block of N) on K1's LAYOUT 2 walk: A =
 // X_g^T with unit stride in m, B = G_g row-major, two consumer warpgroups
-// (`wgmma` at line 463, the four TMA loads of a stage at lines 420-423):
+// (`wgmma_m64n128k16<1, 1>` and the four TMA loads of a stage in
+// tgmm_sm90_kernel), one kernel templated on the level as K1's is:
 //   * the reduction runs over the group's rows from its aligned base to its
 //     region end (the last group's on to the end of the buffer) in 64-row
 //     ring stages; the rows at or past row_end are zeroed in both staged
@@ -106,8 +106,28 @@
 //     tau = rel_tau·eps32·rows·max|X|·max|G| with rows the live rows reduced
 //     so far; the injection's k_step is the global layout row tile and
 //     lands at the end of the stage that holds it;
+//   * "tile": the band is the 16 dw rows one consumer warp owns in the
+//     wgmma fragment (8 bands a 128-row block, spec.SM90_BAND). A band's
+//     running column checksum is (X_g e_b)^T·G_g: the stage's band sums of
+//     the staged X tile after its masking (ColOp::band_ksum) times the
+//     staged G tile on the tensor cores (BandOp, `mma.sync`), in place of
+//     the block's CUDA-core column dot; the row checksum stays the block's.
+//     Each band is verified, located and corrected on its own
+//     (verify_bands: one SEU per band per interval) after each stage under
+//     verify="step" and after the last, and thread 0 records the bands in
+//     band order into the block's one report (kernels/ft_gemm.py:
+//     locate_bands). In the dead stages a band left by detect-only counts
+//     at each later verification, as in the plain version's walk;
+//   * "inner": each stage's Δ is verified alone against the stage's own
+//     checksums, which restart every stage: Δ's column and row sums are the
+//     accumulator's less those at the stage before, kept in shared memory
+//     (verify_acc with DELTA, K1's form; no second register tile at 232
+//     registers a thread); one SEU per block per stage is corrected, one
+//     left by detect-only cancels out of the next Δ (counted once); no final
+//     verification, and a dead stage's Δ, zero, is verified only when the
+//     deterministic SEU is aimed at it;
 //   * the f32 block is staged in the drained ring and stored with 16-byte
-//     stores (line 538); an empty group's CTAs write a zero block and a
+//     stores; an empty group's CTAs write a zero block and a
 //     zero report, so the front door makes no pass over dw;
 //   * stochastic SEU campaigns (seu_hook.cuh): each CTA draws its dw
 //     block's SEU, uid (group·gk + k-block)·gn + n-block, over the group's
@@ -115,7 +135,9 @@
 //     step) and the 128 x 128 block; the magnitude comes from the hit
 //     tile's own product at the element (a 16-term dot of the staged X and
 //     G rows, `staged_at`) and lands at the end of the stage that holds
-//     the tile, as the deterministic SEU does.
+//     the tile, as the deterministic SEU does (at "tile" in the band that
+//     holds its row, at "inner" in its stage's Δ). The hook is in every FT
+//     instance: one hash a CTA and a 16-term dot in one stage.
 //
 // Registers (-Xptxas -v, the env phase of chip_smoke.py): K7's FT-off and
 // block instances use 105 and 205-215 registers without spills (the
@@ -123,7 +145,8 @@
 // (the register file of one SM over 384 threads; setmaxnreg then gives the
 // consumer warpgroups 232), and its block instance spills 20 bytes there,
 // as K1's 128-row LAYOUT 2 block instance spills 4: the verification's
-// locals, once per 64-row interval, against a 64 KB store of the block.
+// locals, once per 64-row interval, against a 64 KB store of the block
+// (the level instances: PERF.md, from tools/ptxas_probe.py).
 //
 // Reports, f32[8]: [detected, corrected, row, col, magnitude,
 // max_residual, tau, k_elapsed (K7) or rows_reduced (K8)]; K7's rows are
@@ -459,11 +482,42 @@ __device__ __forceinline__ void store_block_f32(const float* stage, int pitch,
   }
 }
 
-template <bool FT>
+// K8's verification of its dw block at `rows` reduced, by level: the
+// block's running checksums (block), each 16-row band's (tile), or the
+// stage's Δ, after which the stage checksums restart (inner). Returns the
+// detections (the bands' at tile; 0 at inner).
+template <int LV, typename OpA, typename OpB, typename OpC>
+__device__ __forceinline__ int verify_dw(float (&acc)[64], OpA& opa,
+                                         OpB& opb, const OpC& opc,
+                                         Scratch<128>& sc, BandScratch& bx,
+                                         const GroupedArgs& g, int tid,
+                                         int m0, int col0, float rows) {
+  if constexpr (LV == kLvInner) {
+    verify_acc<128, 256, true>(acc, opa, opb, sc, g, tid, m0, col0, rows,
+                               false, bx.prevc[0], bx.prevr);
+    opa.reset();
+    opb.reset();
+    return 0;
+  } else if constexpr (LV == kLvTile) {
+    verify_bands<128, 256, false, false>(acc, opa, opb, opc, sc, bx, g, tid,
+                                         m0, col0, rows);
+    int det = 0;
+#pragma unroll
+    for (int b = 0; b < 8; ++b) det += bx.verdict[b].det;
+    return det;
+  } else {
+    verify_acc<128, 256>(acc, opa, opb, sc, g, tid, m0, col0, rows, false);
+    return sc.verdict.det;
+  }
+}
+
+template <int LV>
 __global__ void __launch_bounds__(384, 1)
 tgmm_sm90_kernel(const __grid_constant__ CUtensorMap tma_x,
                  const __grid_constant__ CUtensorMap tma_g,
                  const GroupedArgs g) {
+  constexpr bool FT = LV != kLvOff;
+  constexpr bool TILE = LV == kLvTile, INNER = LV == kLvInner;
   constexpr int BM = 128, NT = 256;
   constexpr int A_BYTES = BM * kStageK * 2, B_BYTES = kBN * kStageK * 2;
   constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
@@ -474,6 +528,9 @@ tgmm_sm90_kernel(const __grid_constant__ CUtensorMap tma_x,
   uint8_t* ring = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   Scratch<BM>& sc =
       *reinterpret_cast<Scratch<BM>*>(ring + kStages * STAGE_BYTES);
+  // tile / inner only: the band scratch after Scratch<BM>
+  BandScratch& bx = *reinterpret_cast<BandScratch*>(
+      ring + kStages * STAGE_BYTES + sizeof(Scratch<BM>));
 
   const int tid = threadIdx.x;
   const int bj = blockIdx.x, bi = blockIdx.y, grp = blockIdx.z;
@@ -512,6 +569,11 @@ tgmm_sm90_kernel(const __grid_constant__ CUtensorMap tma_x,
     for (int q = 0; q < 8; ++q) sc.rep[q] = 0.0f;
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
+  if constexpr (INNER) {
+    // the accumulator's sums before the first stage are 0
+    for (int i = tid; i < kBN; i += blockDim.x) bx.prevc[0][i] = 0.0f;
+    for (int i = tid; i < BM; i += blockDim.x) bx.prevr[i] = 0.0f;
+  }
   __syncthreads();
 
   if (tid >= NT) {
@@ -543,8 +605,10 @@ tgmm_sm90_kernel(const __grid_constant__ CUtensorMap tma_x,
   for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
   OpA opa;
   OpB opb;
+  BandOp<NT, false> opc;   // tile: the band column checksums
   opa.init();
   opb.init();
+  opc.init();
   float seu_d = 0.0f;   // the hit tile's product at the hit element
   auto rows_at = [&](int s) {   // live rows reduced after stage s
     return (float)max(min(reg.base + (s + 1) * kStageK, reg.row_hi) -
@@ -574,15 +638,19 @@ tgmm_sm90_kernel(const __grid_constant__ CUtensorMap tma_x,
     }
     wgmma_commit();
     if constexpr (FT) {
+      // While the tensor cores run: the stage's checksums from its masked
+      // tiles (tile: each band's column checksum in place of the block's).
       float* ka = sc.ks[it & 1][0];
       float* kb = sc.ks[it & 1][1];
       opa.load(pa, tid);
       opb.load(pb, tid);
       opa.ksum(ka, tid);
+      if constexpr (TILE) opa.band_ksum(&bx.ks[it & 1][0][0], tid);
       opb.ksum(kb, tid);
       consumer_sync<NT>();
       opa.dot(kb, tid);
-      opb.dot(ka, tid);
+      if constexpr (TILE) opc.dot(pb, &bx.ks[it & 1][0][0], tid);
+      else opb.dot(ka, tid);
       if (it == s_seu) {
         // The hit tile's own product at the element, from its 16 staged
         // rows (masked past row_end above).
@@ -608,9 +676,9 @@ tgmm_sm90_kernel(const __grid_constant__ CUtensorMap tma_x,
         add_at(acc, g.inj_row - m0, g.inj_col - col0, g.inj_mag, tid);
       if (it == s_seu)
         add_at(acc, sh.row, sh.col, seu::magnitude(seu_d, g.seu.shift), tid);
-      if (g.verify_step || it == n_st - 1)
-        verify_acc<BM, NT>(acc, opa, opb, sc, g, tid, m0, col0, rows_at(it),
-                           false);
+      if (INNER || g.verify_step || it == n_st - 1)
+        verify_dw<LV>(acc, opa, opb, opc, sc, bx, g, tid, m0, col0,
+                      rows_at(it));
     }
   }
   if constexpr (FT) {
@@ -621,20 +689,20 @@ tgmm_sm90_kernel(const __grid_constant__ CUtensorMap tma_x,
         for (int s = n_live; s < n_st; ++s) {
           if (s == s_inj)
             add_at(acc, g.inj_row - m0, g.inj_col - col0, g.inj_mag, tid);
-          if (g.verify_step || s == n_st - 1)
-            verify_acc<BM, NT>(acc, opa, opb, sc, g, tid, m0, col0, rows,
-                               false);
+          // inner: a dead stage's Δ is zero but the aimed one's
+          if (INNER ? s == s_inj : (g.verify_step || s == n_st - 1))
+            verify_dw<LV>(acc, opa, opb, opc, sc, bx, g, tid, m0, col0, rows);
         }
-      } else {
+      } else if constexpr (!INNER) {
         // Each verification repeats the last verdict until one corrects:
-        // run them until one leaves the block as it is, add the rest.
+        // run them until one leaves the block as it is, add the rest (a
+        // band left by detect-only counts at each of them).
         const int nv = g.verify_step ? n_st - n_live : 1;
         for (int q = 0; q < nv; ++q) {
-          verify_acc<BM, NT>(acc, opa, opb, sc, g, tid, m0, col0, rows,
-                             false);
-          const Verdict v = sc.verdict;
-          if (!(v.det && g.corrects)) {
-            if (tid == 0) sc.rep[0] += (float)(v.det * (nv - 1 - q));
+          const int det = verify_dw<LV>(acc, opa, opb, opc, sc, bx, g, tid,
+                                        m0, col0, rows);
+          if (!(det && g.corrects)) {
+            if (tid == 0) sc.rep[0] += (float)(det * (nv - 1 - q));
             break;
           }
         }
@@ -686,16 +754,29 @@ cudaError_t launch_grouped(const CUtensorMap& ta, const CUtensorMap& tw,
   return cudaGetLastError();
 }
 
-template <bool FT>
+template <int LV>
 cudaError_t launch_tgmm(const CUtensorMap& tx, const CUtensorMap& tg,
                         const GroupedArgs& g, cudaStream_t st) {
-  auto kern = tgmm_sm90_kernel<FT>;
-  constexpr int smem = smem_bytes<128>();
+  auto kern = tgmm_sm90_kernel<LV>;
+  constexpr int smem =
+      smem_bytes<128>() + (LV >= kLvTile ? (int)sizeof(BandScratch) : 0);
   static bool ready = false;
   const cudaError_t e = set_smem(kern, smem, ready);
   if (e != cudaSuccess) return e;
   kern<<<dim3(g.gn, g.gk, g.G), 384, smem, st>>>(tx, tg, g);
   return cudaGetLastError();
+}
+
+// K8's instance of a level (the stochastic hook is in every FT instance).
+cudaError_t launch_k8(int level, const CUtensorMap& tx, const CUtensorMap& tg,
+                      const GroupedArgs& g, cudaStream_t st) {
+  switch (level) {
+    case kLvOff: return launch_tgmm<kLvOff>(tx, tg, g, st);
+    case kLvBlock: return launch_tgmm<kLvBlock>(tx, tg, g, st);
+    case kLvTile: return launch_tgmm<kLvTile>(tx, tg, g, st);
+    case kLvInner: return launch_tgmm<kLvInner>(tx, tg, g, st);
+  }
+  return cudaErrorInvalidValue;
 }
 
 // K7's instance of a level: a campaign ("block", "tile": the per-band
@@ -779,12 +860,13 @@ int grouped_sm90_launch(const void* a, const void* w, const int* gid,
 
 // K8. x (T, K) and gm (T, N) bf16 buffers of one layout, rows ldx / ldg
 // elements apart (unit stride along K / N); row_end int32 (G,); out (G, K,
-// N) f32 and, with ft, rep (G, ceil(K / 128), ceil(N / 128), 8)
-// contiguous. The injection's row and col index dw, inj_k is a 16-row
-// layout tile. Returns the launch's cudaError_t.
+// N) f32 and, with FT on, rep (G, ceil(K / 128), ceil(N / 128), 8)
+// contiguous. level: 0 FT off, 1 block, 2 tile, 3 inner (kLv*;
+// kernels/ft_gemm.py:SM90_LEVELS). The injection's row and col index dw,
+// inj_k is a 16-row layout tile. Returns the launch's cudaError_t.
 int tgmm_sm90_launch(const void* x, const void* gm, const int* row_end,
                      float* out, float* rep, int T, int K, int N, int G,
-                     long long ldx, long long ldg, int ft, int verify_step,
+                     long long ldx, long long ldg, int level, int verify_step,
                      int corrects, float tau_coef, int inj_enable, int inj_row,
                      int inj_col, int inj_k, float inj_mag, int seu_on,
                      unsigned seu_seed, float seu_rate, int seu_shift,
@@ -804,7 +886,7 @@ int tgmm_sm90_launch(const void* x, const void* gm, const int* row_end,
       !make_map(&tg, gm, N, T, ldg, 64, kStageK))
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return ft ? launch_tgmm<true>(tx, tg, g, st) : launch_tgmm<false>(tx, tg, g, st);
+  return launch_k8(level, tx, tg, g, st);
 }
 
 }  // extern "C"

@@ -25,20 +25,21 @@ grid walks them). Empty groups come back as a zero dw and a zero report.
 Both run the paper's three FT levels. "block" as above; "tile" keeps one
 running column checksum per band (`templates.spec.band_of`: K7's band is
 the buffer rows one warp owns, in the SIMT block or (16, one layout tile)
-in the tensor-core chunk, K8's the dw rows one warp owns in the 64 x 64
-dw block; at any other tiles the reference's 128) and
+in the tensor-core chunk, K8's the dw rows one warp owns, 8 of the SIMT 64
+x 64 dw block or 16 of the tensor-core 128 x 128 one; at any other tiles
+the reference's 128) and
 verifies, locates and corrects each band on its own, the final
-verification included; "inner" verifies each k-step's (K7) or row tile's
-(K8) Δ alone against its own checksums, corrects it and then accumulates
-it, with no final verification. tau takes the elapsed k (K7) or live rows
+verification included; "inner" verifies each k-step's (K7) or interval's
+(K8: a row tile on the SIMT instance, a 64-row stage on the tensor cores)
+Δ alone against its own checksums, corrects it and then accumulates it,
+with no final verification. tau takes the elapsed k (K7) or live rows
 (K8) and the running maxima at every level.
 
 Two instances of each: the tensor-core ones of `csrc/grouped_sm90.cu`
-(bf16; K7 at every level, K8 at FT off and "block"; `wgmma` fed by a TMA
-ring) and the SIMT ones of `csrc/ft_gemm.cu` (GROUPED) and `csrc/tgmm.cu`
-(f32, K8's "tile" and "inner" levels, and the tiles of `GROUPED_TILES` /
-`TGMM_TILES` when pinned). `plan_k7` / `plan_k8` pick the instance, the
-tiles and the chunk by a written rule:
+(bf16, every level; `wgmma` fed by a TMA ring) and the SIMT ones of
+`csrc/ft_gemm.cu` (GROUPED) and `csrc/tgmm.cu` (f32, and the tiles of
+`GROUPED_TILES` / `TGMM_TILES` when pinned). `plan_k7` / `plan_k8` pick
+the instance, the tiles and the chunk by a written rule:
 
   * K7 on the tensor cores: a CTA owns a ``chunk`` of 64 rows of one group,
     from the group's aligned base in steps of 64 and never past the group's
@@ -48,7 +49,8 @@ tiles and the chunk by a written rule:
     "tile" and "inner", and under a campaign, each 16-row band (layout
     tile) is verified on its own and records into its own tile's row;
   * K8 on the tensor cores: (bk, bn) = (128, 128) dw blocks; the reduction
-    in 64-row intervals (``chunk``) from the group's base;
+    in 64-row intervals (``chunk``) from the group's base, each a "step"
+    verification and at "inner" one Δ; at "tile" 16-row bands of dw;
   * on the SIMT instances, chunk = bm: every row tile its own block (K7)
     and interval (K8).
 
@@ -79,7 +81,7 @@ from .ft_gemm import (DTYPE_CODES, LEVELS, REPORT_WIDTH, SEU_ARGTYPES,
                       _check_ft, cdiv, ft_level, locate_bands, locate_record,
                       seu_armed, seu_args)
 from .templates import seu
-from .templates.spec import SM90_GROUPED_TILES
+from .templates.spec import SM90_GROUPED_TILES, SM90_TGMM_TILES
 
 #: K7's compiled (bm, bn, bk) per operand dtype (`launch_grouped` in
 #: csrc/ft_gemm.cu). bm is the layout's row tile.
@@ -91,10 +93,10 @@ TGMM_TILES = {torch.float32: ((8, 64, 64), (16, 64, 64)),
               torch.bfloat16: ((16, 64, 64),)}
 
 #: The tensor-core instances (csrc/grouped_sm90.cu): K7's (bm, bn, bk)
-#: (`spec.SM90_GROUPED_TILES`) with bk the 256-deep k-step, K8's with (bk,
-#: bn) the dw block; bm the layout's row tile. `SM90_CHUNK`: the rows one
-#: K7 CTA owns and one K8 verification interval reduces.
-SM90_TGMM_TILES = (16, 128, 128)
+#: (`spec.SM90_GROUPED_TILES`) with bk the 256-deep k-step, K8's
+#: (`spec.SM90_TGMM_TILES`) with (bk, bn) the dw block; bm the layout's row
+#: tile. `SM90_CHUNK`: the rows one K7 CTA owns and one K8 verification
+#: interval reduces.
 SM90_CHUNK = 64
 
 _GROUPED_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
@@ -240,15 +242,13 @@ def plan_k8(k: int, n: int, dtype, bm: int, *, level: str = "off",
             aligned: bool = True,
             tiles: Optional[Sequence[int]] = None) -> GroupedPlan:
     """K8's instance, tiles and interval for buffers x (t_buf, K) and g
-    (t_buf, N) of row tile ``bm`` at FT ``level``: the tensor-core instance
-    for bf16 at "off" or "block" on the 16-row layout with both buffers
-    TMA-readable by rows and 16-byte aligned, else (every "tile" and
-    "inner" call among them) the SIMT one at ``TGMM_TILES``; ``tiles`` pin
-    it as in `plan_k7`."""
+    (t_buf, N) of row tile ``bm`` at FT ``level`` ("off" with FT
+    disabled): the tensor-core instance for bf16 at any level on the
+    16-row layout with both buffers TMA-readable by rows and 16-byte
+    aligned, else the SIMT one at ``TGMM_TILES`` (by this rule, never as a
+    fallback); ``tiles`` pin it as in `plan_k7`."""
     why = ""
-    if level not in ("off", "block"):
-        why = f"FT level {level!r}"
-    elif dtype != torch.bfloat16:
+    if dtype != torch.bfloat16:
         why = f"dtype {dtype}"
     elif bm != SM90_TGMM_TILES[0]:
         why = f"row tile {bm}"
@@ -826,8 +826,8 @@ def tgmm(x: torch.Tensor, g: torch.Tensor, row_end: torch.Tensor, *,
     if p.instance == "sm90":
         TGMM_SM90(x.data_ptr(), g.data_ptr(), row_end.data_ptr(),
                   out.data_ptr(), None if rep is None else rep.data_ptr(),
-                  t_buf, k, n, ng, x.stride(0), g.stride(0), int(ft_on),
-                  *tail)
+                  t_buf, k, n, ng, x.stride(0), g.stride(0),
+                  SM90_LEVELS[level], *tail)
         return out, rep
     TGMM_SIMT(x.data_ptr(), g.data_ptr(), row_end.data_ptr(), out.data_ptr(),
               None if rep is None else rep.data_ptr(),

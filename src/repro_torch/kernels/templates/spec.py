@@ -123,13 +123,15 @@ GROUPED_BANDS = {(8, 128, 32): 1, (16, 128, 32): 2}
 #: K8's compiled SIMT (bm, bn, bk) tiles (`grouped_gemm.TGMM_TILES`) and
 #: their band of dw's K rows: the 8 of the 64-row dw block one warp owns.
 TGMM_BANDS = {(8, 64, 64): 8, (16, 64, 64): 8}
-#: K1's tensor-core (bm, bn, bk) tiles (csrc/ft_gemm_sm90.cuh) and K7's
-#: (bm the layout's row tile, bk the k-step; csrc/grouped_sm90.cu), and
-#: their "tile"-level band: the 16 rows one warp owns in the wgmma
-#: fragment (8 bands at bm 128, 4 at 64; K7's a layout tile of its 64-row
-#: chunk).
+#: K1's tensor-core (bm, bn, bk) tiles (csrc/ft_gemm_sm90.cuh), K7's (bm
+#: the layout's row tile, bk the k-step; csrc/grouped_sm90.cu) and K8's
+#: (bm the layout's row tile, (bk, bn) the dw block), and their
+#: "tile"-level band: the 16 rows one warp owns in the wgmma fragment (8
+#: bands at bm 128, 4 at 64; K7's a layout tile of its 64-row chunk; K8's
+#: 16 dw rows, 8 bands of its 128-row block).
 SM90_TILES = ((128, 128, 256), (64, 128, 256))
 SM90_GROUPED_TILES = (16, 128, 256)
+SM90_TGMM_TILES = (16, 128, 128)
 SM90_BAND = 16
 #: The reference's band (its 128-row MXU edge), taken at any other tiles:
 #: the CPU tests run the plain version at the reference's tiles.
@@ -149,7 +151,7 @@ def band_of(tiles: Sequence[int], kernel: str = "gemm") -> int:
     elif kernel == "grouped":
         table = {**GROUPED_BANDS, SM90_GROUPED_TILES: SM90_BAND}
     else:
-        table = TGMM_BANDS
+        table = {**TGMM_BANDS, SM90_TGMM_TILES: SM90_BAND}
     return table.get(tiles, REFERENCE_BAND)
 
 

@@ -2026,82 +2026,105 @@ def test_grouped_levels_match_plain(cuda, level, dtype, bm):
                     assert (out != clean)[i * bm:(i + 1) * bm].sum() >= 2
 
 
-@pytest.mark.parametrize("dtype,bm", [(torch.float32, 8),
-                                      (torch.float32, 16),
-                                      (torch.bfloat16, 16)])
+@pytest.mark.parametrize("dtype,bm,pin", [(torch.float32, 8, None),
+                                          (torch.float32, 16, None),
+                                          (torch.bfloat16, 16, None),
+                                          (torch.bfloat16, 16, (16, 64, 64))],
+                         ids=["f32 bm8", "f32 bm16", "bf16 sm90",
+                              "bf16 pinned simt"])
 @pytest.mark.parametrize("level", ["tile", "inner"])
-def test_tgmm_levels_match_plain(cuda, level, dtype, bm):
-    """K8 at tile / inner on its SIMT instance (the plan's rule): dw and
-    reports as the plain version's, SEUs in a live tile and in the last
-    group's dead tiles corrected, detect-only leaving one, empty groups
-    zero; at tile, two SEUs in two bands of dw rows of one block in one
-    interval."""
+def test_tgmm_levels_match_plain(cuda, level, dtype, bm, pin):
+    """K8 at tile / inner on the instance the plan's rule picks (bf16 on the
+    tensor cores: 128 x 128 dw blocks, 16-row bands, 64-row stages; f32 and
+    pinned tiles on the SIMT one): dw and reports as the plain version's
+    under the same plan, SEUs in a live tile and in the last group's dead
+    tail (a stage with no live row on the tensor cores) corrected,
+    detect-only leaving one (at inner counted once), empty groups zero in
+    dw and report; at tile, two SEUs in two bands of dw rows of one block in
+    one interval."""
     from repro_torch.kernels import grouped_gemm as kgg
     lay, glay = _grouped_layout(GROUP_SIZES, bm, 2)
     gen = torch.Generator(device="cuda").manual_seed(10 + bm + len(level))
-    k, n = 150, 200
+    sm90 = dtype == torch.bfloat16 and pin is None
+    k, n = (152 if sm90 else 150), 200      # TMA reads rows of 16 bytes
     x = glay.scatter_rows(_ints(gen, lay.n_rows, k, dtype=dtype), lay)
     g = glay.scatter_rows(_ints(gen, lay.n_rows, n, dtype=dtype), lay)
     ft = FT.replace(level=level)
-    tiles = (bm, 64, 64)
-    p = kgg.plan_k8_call(x, g, bm, ft=ft)
-    assert (p.instance, p.tiles, p.chunk) == ("simt", tiles, bm)
+    p = kgg.plan_k8_call(x, g, bm, tiles=pin, ft=ft)
+    if sm90:
+        assert (p.instance, p.tiles, p.chunk, p.reason) == \
+            ("sm90", kgg.SM90_TGMM_TILES, kgg.SM90_CHUNK, "")
+        counter = kgg.TGMM_SM90
+    else:
+        assert (p.instance, p.tiles, p.chunk) == ("simt", (bm, 64, 64), bm)
+        counter = kgg.TGMM_SIMT
+    tiles = p.tiles
     base, counts = lay.base.tolist(), lay.counts.tolist()
     last_tile = (base[-1] + counts[-1] - 1) // bm
-    clean, rep = kgg.tgmm(x, g, lay.row_end, bm=bm, ft=ft)
+    dead = lay.num_tiles - 1                 # the last group's dead tail
+    assert dead * bm - base[-1] >= p.chunk
+    clean, rep = kgg.tgmm(x, g, lay.row_end, bm=bm, ft=ft, tiles=pin)
     assert float(rep[..., 0].sum()) == 0.0
     for pol, inj in ((ft, (1, k - 1, 70, base[2] // bm + 1)),
                      (ft, (1, 3, n - 1, last_tile)),
                      (ft.replace(verify="final"), (1, 64, 64, base[0] // bm)),
                      (ft.replace(action="detect"), (1, 9, 17, base[3] // bm)),
-                     (ft, (1, 5, 5, lay.num_tiles - 1))):
+                     (ft, (1, 5, 5, dead)),
+                     (ft.replace(action="detect"), (1, 130, 150, dead))):
         kw = dict(ft=pol, inj=inj, inj_mag=50.0)
-        before = kgg.TGMM_SIMT.launches
-        dw, rep = kgg.tgmm(x, g, lay.row_end, bm=bm, **kw)
-        assert kgg.TGMM_SIMT.launches == before + 1
-        dw_p, rep_p = kgg.tgmm_plain(x, g, lay.row_end, tiles=tiles, **kw)
+        before = counter.launches
+        dw, rep = kgg.tgmm(x, g, lay.row_end, bm=bm, tiles=pin, **kw)
+        assert counter.launches == before + 1
+        dw_p, rep_p = kgg.tgmm_plain(x, g, lay.row_end, tiles=tiles,
+                                     chunk=p.chunk, **kw)
         assert torch.equal(dw, dw_p)
         _check_reports(rep, rep_p)
         for e in range(len(GROUP_SIZES)):
             if counts[e] == 0:
                 assert not dw[e].any() and not rep[e].any()
+        hit = rep[rep[..., 0] > 0]
+        assert (int(hit[-1, 2]), int(hit[-1, 3])) == inj[1:3]
         if pol.corrects:
             assert torch.equal(dw, clean)
             assert float(rep[..., 0].sum()) == float(rep[..., 1].sum()) >= 1
         else:
             assert (dw != clean).sum() == 1
             assert float(rep[..., 1].sum()) == 0.0
+            if level == "inner":
+                assert float(rep[..., 0].sum()) == 1.0
     if level == "tile":
         ftc = ft.replace(inject_rate=1.0)
         first, _, re = kgg._group_span(lay.row_end, bm, lay.num_tiles)
         live_rows = (re - first * bm).clamp_min(0)
-        gk, gn = kgg.cdiv(k, 64), kgg.cdiv(n, 64)
+        _, bn, bk = tiles
+        gk, gn = kgg.cdiv(k, bk), kgg.cdiv(n, bn)
         hit, step, row, col = kgg.seu_dw_draws(TRIPLE, ftc, live_rows, gk, gn,
                                                tiles)
         e = 2                                   # a group of 29 rows
-        r2 = 64 + _other_band(int(row[e, 1, 0]), ft_gemm.band_of(tiles, "tgmm"),
-                              64)
-        inj = (1, r2, (int(col[e, 1, 0]) + 1) % 64,
-               int(first[e]) + int(step[e, 1, 0]))
+        r2 = _other_band(int(row[e, 0, 0]), ft_gemm.band_of(tiles, "tgmm"),
+                         bk)
+        inj = (1, r2, (int(col[e, 0, 0]) + 1) % bn,
+               int(first[e]) + int(step[e, 0, 0]))
         for pol in (ftc, ftc.replace(action="detect")):
             kw = dict(ft=pol, inj=inj, inj_mag=50.0, rng=TRIPLE)
-            dw, rep = kgg.tgmm(x, g, lay.row_end, bm=bm, **kw)
-            dw_p, rep_p = kgg.tgmm_plain(x, g, lay.row_end, tiles=tiles, **kw)
+            dw, rep = kgg.tgmm(x, g, lay.row_end, bm=bm, tiles=pin, **kw)
+            dw_p, rep_p = kgg.tgmm_plain(x, g, lay.row_end, tiles=tiles,
+                                         chunk=p.chunk, **kw)
             assert torch.equal(dw, dw_p)
             _check_reports(rep, rep_p)
             if pol.corrects:
                 assert torch.equal(dw, clean)
-                assert float(rep[e, 1, 0, 0]) == float(rep[e, 1, 0, 1]) == 2
+                assert float(rep[e, 0, 0, 0]) == float(rep[e, 0, 0, 1]) == 2
             else:
-                assert (dw[e, 64:128, :64] != clean[e, 64:128, :64]).sum() >= 2
+                assert (dw[e, :bk, :bn] != clean[e, :bk, :bn]).sum() >= 2
 
 
 def test_levels_plan_the_simt_instances(cuda):
-    """`ft_gemm.plan` and `plan_k7` send every bf16 tile / inner call of
-    training and MoE that they send to the tensor cores at block to the
-    tensor-core level instances, `plan_k8` sends K8's to the SIMT instance,
-    by their written rules: bf16 w_gate + silu with act_grad, the dw walk,
-    K7 on both walks, K8; each wrapper launches the planned one."""
+    """`ft_gemm.plan`, `plan_k7` and `plan_k8` send every bf16 tile / inner
+    call of training and MoE that they send to the tensor cores at block to
+    the tensor-core level instances, by their written rules: bf16 w_gate +
+    silu with act_grad, the dw walk, K7 on both walks, K8; each wrapper
+    launches the planned one."""
     from repro_torch.kernels import grouped_gemm as kgg
     gen = torch.Generator(device="cuda").manual_seed(0)
     bf = torch.bfloat16
@@ -2115,42 +2138,39 @@ def test_levels_plan_the_simt_instances(cuda):
                                       save_act_grad=True),
          lambda ft: ft_gemm.ft_gemm(x, w, chain=("silu",), ft=ft,
                                     save_act_grad=True),
-         ft_gemm.FT_GEMM_2D_SIMT, ft_gemm.FT_GEMM_SM90, True),
+         ft_gemm.FT_GEMM_2D_SIMT, ft_gemm.FT_GEMM_SM90),
         (lambda ft: ft_gemm.plan_call(x.T, g, ft=ft),
          lambda ft: ft_gemm.ft_gemm(x.T, g, ft=ft),
-         ft_gemm.FT_GEMM_2D_SIMT, ft_gemm.FT_GEMM_SM90, True),
+         ft_gemm.FT_GEMM_2D_SIMT, ft_gemm.FT_GEMM_SM90),
         (lambda ft: kgg.plan_k7_call(buf, we, lay.gid, ft=ft),
          lambda ft: kgg.ft_gemm_grouped(buf, we, lay.gid, lay.row_end, ft=ft),
-         kgg.FT_GEMM_GROUPED_SIMT, kgg.FT_GEMM_GROUPED_SM90, True),
+         kgg.FT_GEMM_GROUPED_SIMT, kgg.FT_GEMM_GROUPED_SM90),
         (lambda ft: kgg.plan_k7_call(buf[:, :128], we.transpose(-1, -2),
                                      lay.gid, ft=ft),
          lambda ft: kgg.ft_gemm_grouped(buf[:, :128].contiguous(),
                                         we.transpose(-1, -2), lay.gid,
                                         lay.row_end, ft=ft),
-         kgg.FT_GEMM_GROUPED_SIMT, kgg.FT_GEMM_GROUPED_SM90, True),
+         kgg.FT_GEMM_GROUPED_SIMT, kgg.FT_GEMM_GROUPED_SM90),
         (lambda ft: kgg.plan_k8_call(buf, buf[:, :128].contiguous(), 16,
                                      ft=ft),
          lambda ft: kgg.tgmm(buf, buf[:, :128].contiguous(), lay.row_end,
                              bm=16, ft=ft),
-         kgg.TGMM_SIMT, kgg.TGMM_SM90, False),
+         kgg.TGMM_SIMT, kgg.TGMM_SM90),
     ]
-    for plan, call, simt, sm90, levels_on_sm90 in cases:
+    for plan, call, simt, sm90 in cases:
         # K1's tile / inner instances are a library of their own
         tc = (ft_gemm.FT_GEMM_SM90, ft_gemm.FT_GEMM_LEVEL_SM90) \
             if sm90 is ft_gemm.FT_GEMM_SM90 else (sm90, sm90)
         for level in ("block", "tile", "inner"):
             ft = FT.replace(level=level)
             p = plan(ft)
-            on_tc = level == "block" or levels_on_sm90
-            assert p.instance == ("sm90" if on_tc else "simt"), (level, p)
-            if not on_tc:
-                assert level in p.reason
+            assert (p.instance, p.reason) == ("sm90", ""), (level, p)
             counter = tc[0] if level == "block" else tc[1]
             before = (simt.launches, counter.launches)
             call(ft)
             torch.cuda.synchronize()
             got = (simt.launches - before[0], counter.launches - before[1])
-            assert got == ((0, 1) if on_tc else (1, 0))
+            assert got == (0, 1)
 
 
 # ---------------------------------------------------------------------------

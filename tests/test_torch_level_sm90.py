@@ -1,11 +1,12 @@
 """The tile (warp) and inner (thread) FT levels on the tensor-core plans of
-K1 (`csrc/ft_gemm_level_sm90.cu`) and K7 (`csrc/grouped_sm90.cu`): the
-plans that route bf16 calls there, the 16-row band of the wgmma fragment,
-and the plain versions under those plans (K1: 128- or 64-row blocks of
-16-row bands, 256-deep k-steps, split-K ranges; K7: 64-row chunks of
-16-row bands, each band recording into its own layout tile's row) against
-the reference's Pallas kernels in interpret mode, on the same numpy
-inputs.
+K1 (`csrc/ft_gemm_level_sm90.cu`), K7 and K8 (`csrc/grouped_sm90.cu`):
+the plans that route bf16 calls there, the 16-row band of the wgmma
+fragment, and the plain versions under those plans (K1: 128- or 64-row
+blocks of 16-row bands, 256-deep k-steps, split-K ranges; K7: 64-row
+chunks of 16-row bands, each band recording into its own layout tile's
+row; K8: 128 x 128 dw blocks of 16-row bands, the reduction in 64-row
+stages, each a Δ at "inner") against the reference's Pallas kernels in
+interpret mode, on the same numpy inputs.
 
 At the reference's own tiles (its 128-row band) the plain versions give
 its reports field for field. At the port's tiles the blocks, bands and
@@ -39,7 +40,8 @@ from repro_torch.kernels.templates import spec as tspec  # noqa: E402
 LEVELS = ["tile", "inner"]
 BF16 = torch.bfloat16
 BIG, SMALL = tg.SM90_TILES
-K7_TILES, CHUNK = kgg.SM90_GROUPED_TILES, kgg.SM90_CHUNK
+K7_TILES, K8_TILES, CHUNK = (kgg.SM90_GROUPED_TILES, kgg.SM90_TGMM_TILES,
+                              kgg.SM90_CHUNK)
 REF_TILES = (128, 128, 128)
 TRIPLE = (1, 123456789, 987654321)
 
@@ -82,10 +84,12 @@ def _k1_plan(m, n, k, level, **kw):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("tiles,kernel", [(BIG, "gemm"), (SMALL, "gemm"),
-                                          (K7_TILES, "grouped")])
+                                          (K7_TILES, "grouped"),
+                                          (K8_TILES, "tgmm")])
 def test_band_of_the_tensor_core_tiles_is_16(tiles, kernel):
     """The band is the 16 rows one warp owns in the wgmma fragment: 8
-    bands at BM 128, 4 at BM 64, one layout tile of K7's chunk."""
+    bands at BM 128, 4 at BM 64, one layout tile of K7's chunk, 16 dw rows
+    of K8's 128-row block."""
     assert tspec.band_of(tiles, kernel) == tspec.SM90_BAND == 16
     tspec.validate(tspec.KernelSpec(ft_level="tile"), tiles, kernel)
     assert tg._check_ft(TFT(level="tile"), tiles, kernel)[2] == 16
@@ -133,6 +137,27 @@ def test_k7_plan_takes_the_moe_shapes_at_the_level(level):
         p = kgg.plan_k7(f, d, dtype, 16, level=level, buf_strides=(d, 1),
                         w_strides=(d * f, f, 1), tiles=tiles)
         assert (p.instance, p.tiles, p.chunk) == ("simt", (16, 128, 32), 16)
+
+
+@pytest.mark.parametrize("level", LEVELS)
+def test_k8_plan_takes_the_moe_dw_at_the_level(level):
+    """K8's dw of the gate (x: d 4 096 wide, g: d_ff 1 536) and of the down
+    projection (the other way round) at the level: the tensor-core
+    instance, (16, 128, 128), 64-row stages; f32 and pinned SIMT tiles stay
+    on the SIMT instance."""
+    f, d = 1536, 4096
+    for k, n in ((d, f), (f, d)):
+        p = kgg.plan_k8(k, n, BF16, 16, level=level, x_strides=(k, 1),
+                        g_strides=(n, 1))
+        assert (p.instance, p.tiles, p.chunk, p.reason) == \
+            ("sm90", K8_TILES, CHUNK, "")
+    for dtype, bm, tiles in ((torch.float32, 16, None),
+                             (torch.float32, 8, None),
+                             (BF16, 16, (16, 64, 64))):
+        p = kgg.plan_k8(d, f, dtype, bm, level=level, x_strides=(d, 1),
+                        g_strides=(f, 1), tiles=tiles)
+        assert (p.instance, p.tiles, p.chunk) == ("simt", (bm, 64, 64), bm)
+        assert p.reason
 
 
 # ---------------------------------------------------------------------------
@@ -367,3 +392,102 @@ def test_k7_two_seus_in_two_bands_of_one_chunk(level):
             assert float(rep[i, 1, 1]) == 1.0 and float(rep[t, 1, 1]) == 2.0
         else:
             assert int((out != clean)[t * 16:(t + 1) * 16, 128:].sum()) == 2
+
+
+# ---------------------------------------------------------------------------
+# K8: 128 x 128 dw blocks of 16-row bands, 64-row stages, against the reference
+# ---------------------------------------------------------------------------
+
+#: a 70-row group (two 64-row stages, the second past its row_end), empty
+#: groups, and a last group whose dead tail holds a stage with no live row
+K8_SIZES = [70, 0, 0, 40, 0, 0, 9]
+KX, NX = 256, 200        # dw (256, 200): two 128-row blocks, a ragged column
+
+
+def _k8_layouts():
+    gids = np.random.default_rng(4).permutation(
+        np.repeat(np.arange(len(K8_SIZES)), K8_SIZES)).astype(np.int32)
+    return (rlay.make_layout(jnp.asarray(gids), len(K8_SIZES), 16),
+            tlay.make_layout(torch.from_numpy(gids), len(K8_SIZES), 16), gids)
+
+
+def _k8_port(tl, tx, tg, ft, inj=None, rng=None, mag=48.0):
+    return kgg.tgmm_plain(tx, tg, tl.row_end, tiles=K8_TILES, chunk=CHUNK,
+                          ft=ft, inj=inj, inj_mag=mag, rng=rng)
+
+
+@pytest.mark.parametrize("level", LEVELS)
+def test_k8_port_blocks_match_reference(level):
+    """K8's plain version on the tensor-core plan (128 x 128 dw blocks,
+    16-row bands, 64-row stages) against the reference's tgmm kernel at
+    its (16, 128, 256) tiles (two 128-row bands): the same dw, and an SEU
+    in the first, a middle and the last 16-row band of a port block (a
+    group's second stage, a group's first, the last group's dead tail)
+    corrected once and located at the same global (row, col); detect-only
+    leaves it (at inner counted once on both sides)."""
+    rng = np.random.default_rng(2)
+    x = _ints(rng, sum(K8_SIZES), KX)
+    g = _ints(rng, sum(K8_SIZES), NX)
+    rl, tl, gids = _k8_layouts()
+    assert rl.t_buf == tl.t_buf
+    np.testing.assert_array_equal(np.asarray(rl.base), tl.base.numpy())
+    rx, rg = (rlay.scatter_rows(jnp.asarray(v), rl) for v in (x, g))
+    tx, tg_ = (tlay.scatter_rows(torch.from_numpy(v), tl) for v in (x, g))
+    want_dw = np.stack([x[gids == e].T @ g[gids == e]
+                        for e in range(len(K8_SIZES))])
+    base, last = tl.base.tolist(), len(K8_SIZES) - 1
+    dead = tl.num_tiles - 1                       # the buffer's last tile
+    assert dead * 16 - base[last] >= CHUNK        # in a stage with no live row
+    # (dw row, dw col, layout tile): band 0 of block 1 in group 0's second
+    # stage, band 3 of block 0 in group 3, band 7 of block 1 in the dead tail
+    seus = [(128 + 5, 130, base[0] // 16 + 4), (3 * 16 + 2, 7, base[3] // 16 + 1),
+            (KX - 1, NX - 1, dead)]
+    for r, c, t in seus:
+        for action in ("correct", "detect"):
+            want, rrep = rgrouped.tgmm_buffer_call(
+                RSpec(ft_level=level, tgmm=True), rx, rg, rl,
+                params=autotune.KernelParams(16, 128, 256),
+                ft=RFT(level=level, action=action),
+                inject=RInj(row=r, col=c, magnitude=48.0, k_step=t),
+                interpret=True)
+            got, trep = _k8_port(tl, tx, tg_, TFT(level=level, action=action),
+                                 inj=(1, r, c, t))
+            what = (r, c, t, action)
+            np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+            assert _located(trep) == _located(rrep) == [(r, c)], what
+            if action == "correct":
+                np.testing.assert_array_equal(got.numpy(), want_dw)
+                assert _totals(trep) == _totals(rrep) == (1.0, 1.0), what
+            elif level == "inner":
+                assert _totals(trep) == _totals(rrep) == (1.0, 0.0), what
+            else:
+                assert _totals(trep)[1] == 0.0 and _totals(trep)[0] >= 1
+
+
+def test_k8_two_seus_in_two_bands_corrected_at_tile():
+    """A campaign at rate 1.0 (one SEU every dw block, in the stage of its
+    drawn tile) and a deterministic SEU in the next 16-row band of one
+    block, aimed at the same tile: both corrected in that stage, the
+    block's report counting two; detect-only leaves both."""
+    rng = np.random.default_rng(3)
+    _, tl, _ = _k8_layouts()
+    x = tlay.scatter_rows(torch.from_numpy(_ints(rng, sum(K8_SIZES), KX)), tl)
+    g = tlay.scatter_rows(torch.from_numpy(_ints(rng, sum(K8_SIZES), NX)), tl)
+    ft = TFT(level="tile", inject_rate=1.0)
+    clean, _ = _k8_port(tl, x, g, TFT(level="tile"))
+    first, _, re = kgg._group_span(tl.row_end, 16, tl.num_tiles)
+    hit, step, row, col = kgg.seu_dw_draws(
+        TRIPLE, ft, (re - first * 16).clamp_min(0), 2, 2, K8_TILES)
+    e, ki, nj = 0, 1, 0
+    r = int(row[e, ki, nj])
+    r2 = ki * 128 + ((r // 16 + 1) % 8) * 16 + r % 16
+    inj = (1, r2, (int(col[e, ki, nj]) + 1) % 128,
+           int(first[e]) + int(step[e, ki, nj]))
+    for f in (ft, ft.replace(action="detect")):
+        dw, rep = _k8_port(tl, x, g, f, inj=inj, rng=TRIPLE)
+        if f.corrects:
+            assert torch.equal(dw, clean)
+            assert float(rep[e, ki, nj, 0]) == float(rep[e, ki, nj, 1]) == 2.0
+            assert _totals(rep) == (float(hit.sum()) + 1,) * 2
+        else:
+            assert int((dw != clean)[e, 128:, :128].sum()) == 2

@@ -238,7 +238,7 @@ def test_kernel_band_and_grouped_kernels(level):
     """At the kernel's own tiles the plain version takes the kernel's band
     (BANDS); the totals and the located global (row, col) agree with the
     reference's at its tiles. The grouped fronts (K7, K8) run the level on
-    the instances their plans pick: K7's tensor-core one, K8's SIMT one."""
+    the instances their plans pick: the tensor-core ones for bf16."""
     m, n, k = 100, 300, 200
     rng = np.random.default_rng(61)
     a, b = _ints(rng, m, k), _ints(rng, k, n)
@@ -276,8 +276,8 @@ def test_kernel_band_and_grouped_kernels(level):
     p8 = kgg.plan_k8(256, 128, bf, 16, level=level, x_strides=(256, 1),
                      g_strides=(128, 1))
     assert (p7.instance, p7.tiles, p7.chunk) == ("sm90", (16, 128, 256), 64)
-    assert (p8.instance, p8.tiles) == ("simt", (16, 64, 64))
-    assert not p7.reason and level in p8.reason
+    assert (p8.instance, p8.tiles, p8.chunk) == ("sm90", (16, 128, 128), 64)
+    assert not p7.reason and not p8.reason
 
 
 @pytest.fixture(scope="module")

@@ -10,9 +10,9 @@ of an A/B comparison of two commits on one card. Prints one JSON line
     python3 tools/kernel_ab.py --src build/parent/src   # an older checkout
     python3 tools/kernel_ab.py --src src                # this one
     python3 tools/kernel_ab.py --src src --family flash # K2, K3, K4, K6
-    python3 tools/kernel_ab.py --src src --family levels  # K1, K7 by level
+    python3 tools/kernel_ab.py --src src --family levels  # K1, K7, K8 by level
 
-The levels family times K1 and K7 at FT off and at each level (block,
+The levels family times K1, K7 and K8 at FT off and at each level (block,
 tile, inner), each FT level with a verification after every k-step
 (verify "step", the default) and at the end only ("final"), so the cost
 of the per-step verifications stands apart from the checksums'.
@@ -122,9 +122,10 @@ def main() -> int:
 
 def level_times(torch, ft, rand, gen):
     """K1 (training's w_gate+silu with act_grad, its dw on x.T, the 4 096
-    square, qwen2-7b's decode w_gate+silu) and K7 (qwen3-moe's decode gate
-    and training dbuf) at FT off and at block / tile / inner, verifying
-    every k-step and at the end only."""
+    square, qwen2-7b's decode w_gate+silu), K7 (qwen3-moe's decode gate
+    and training dbuf) and K8 (qwen3-moe's training dw of the gate, f32
+    out) at FT off and at block / tile / inner, verifying every k-step (K8:
+    every 64-row stage) and at the end only."""
     from repro_torch.kernels import ft_gemm, grouped_gemm
     from repro_torch.kernels import grouped as kgrouped
     cases = [(None, "off")] + [
@@ -144,6 +145,7 @@ def level_times(torch, ft, rand, gen):
     lay8 = kgrouped.make_layout(ids8, e, 16)
     gbuf = kgrouped.scatter_rows(rand(8192, f), lay8)
     wd = rand(e, d, f, scale=0.02).transpose(-1, -2)   # dbuf = g · wᵀ
+    xbuf = kgrouped.scatter_rows(rand(8192, d), lay8)  # dw = xᵀ g per expert
     for fc, name in cases:
         calls = {
             "K1 act_grad 1024x3072x8192": lambda: ft_gemm.ft_gemm(
@@ -157,9 +159,12 @@ def level_times(torch, ft, rand, gen):
                 buf, wg, lay.gid, lay.row_end, ft=fc),
             "K7 train dbuf 8192 rows": lambda: grouped_gemm.ft_gemm_grouped(
                 gbuf, wd, lay8.gid, lay8.row_end, ft=fc),
+            "K8 train dw 8192 rows": lambda: grouped_gemm.tgmm(
+                xbuf, gbuf, lay8.row_end, bm=16, ft=fc),
         }
         for label, fn in calls.items():
-            times[f"{label} {name}"] = kernel_ms(torch, fn)
+            times[f"{label} {name}"] = kernel_ms(
+                torch, fn, iters=5 if label.startswith("K8") else 20)
     return times
 
 

@@ -2,7 +2,7 @@
 kernels, per instance, from ptxas and the SASS: compile only, on a machine
 with the CUDA toolkit (no device is used).
 
-    python3 tools/ptxas_probe.py                         # K1 and K7 sources
+    python3 tools/ptxas_probe.py                         # K1, K7 and K8 sources
     python3 tools/ptxas_probe.py --csrc build/parent/src/repro_torch/kernels/csrc
     python3 tools/ptxas_probe.py --ablations             # + the C7518 cut-downs
 
