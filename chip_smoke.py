@@ -9,6 +9,7 @@
     python3 chip_smoke.py --phases env,level_kernels,level_check,level_serve,ladder
     python3 chip_smoke.py --phases env,level_kernels,level_train,level_moe
     python3 chip_smoke.py --phases env,campaign_kernels,campaign_train,campaign_train_chunked,moe_campaign
+    python3 chip_smoke.py --phases env,chain_kernels,whisper_check,whisper_serve
 
 Phases (each prints its own lines; any failed check exits non-zero):
 
@@ -312,7 +313,39 @@ Phases (each prints its own lines; any failed check exits non-zero):
   moe_campaign the same as campaign_train with two steps of the moe_train
                model (qwen3-moe-235b-a22b at full width, 1 layer, flash
                attention), at MOE_CAMPAIGN_RATE; the first step guarded, the
-               second profiled.
+               second profiled;
+  chain_kernels  K1's epilogue chains: bias? + gelu / relu on the tensor-
+               core instances at FT off, block, tile and inner, with and
+               without act_grad, at whisper-medium's w1 shape (6 000 x 1 024
+               -> 4 096, bf16) against the plain version under the same
+               plan; an SEU on integer operands at each level corrected bit
+               for bit and located, and left by detect-only; CUDA-event
+               times beside torch.matmul + F.gelu(approximate="tanh") and
+               the bound; the SIMT chain instance (csrc/ft_gemm_chain.cu) on
+               every chain it takes in bf16 and f32 at every level, with
+               act_grad, against its plain version, an SEU per level on a
+               residual chain, and its time at w1's width on gelu+residual;
+  whisper_check  whisper-medium at full width, 2 + 2 layers: prefill and 2
+               decode steps (the same tokens fed to both) through the
+               kernels and through their plain versions at FT off, block,
+               tile and inner (logits within 2e-2 of max|logit|, no
+               detection, launch counts); K2 (SIMT, dh 64) at the encoder's
+               1 500-frame self-attention and the prefill's cross-attention
+               and K5 at the cross cache's xdec_qk / xdec_pv (K 64 / 1 500;
+               tau's k 1 500; an SEU in the ragged last k-step corrected)
+               against their plain versions, times beside SDPA /
+               torch.matmul and the bound;
+  whisper_serve  `generate` on whisper-medium at full width and depth (24 +
+               24 layers, random bf16 weights from a seed): 4 requests of 16
+               prompt tokens over 1 500 frames drawn from the seed, 8 greedy
+               tokens, at FT off, block, tile and inner: launch counts (K1
+               by instance, K2, K5; none at FT off, whose products take the
+               plain-matmul fast path, as in the reference), the dispatch
+               guard, prefill and decode times, tokens/s, peak memory, one
+               decode step and one prefill under torch.profiler (busy time,
+               idle share); an SEU in encoder layer 0's w1 at block, tile
+               and inner corrected (the clean run's tokens, its prefill
+               logits to bf16 rounding) and left by detect-only.
 
 The last two lines are {"kernels": [...]} and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -343,10 +376,10 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
 from repro_torch.configs import (phi4_mini_38b, qwen2_7b,       # noqa: E402
-                                 qwen3_moe_235b)
+                                 qwen3_moe_235b, whisper_medium)
 from repro_torch.configs.base import RunConfig, ShapeConfig     # noqa: E402
 from repro_torch.core import ft_verdict_dot, telemetry          # noqa: E402
-from repro_torch.core.policy import (InjectionSpec,             # noqa: E402
+from repro_torch.core.policy import (FT_OFF, InjectionSpec,     # noqa: E402
                                      NONFUSED_BASELINE, OFFLINE_DETECT,
                                      ONLINE_BLOCK)
 from repro_torch.data import pipeline as data_lib               # noqa: E402
@@ -355,7 +388,9 @@ from repro_torch.kernels import gemm as base_gemm               # noqa: E402
 from repro_torch.kernels import grouped_gemm, ops               # noqa: E402
 from repro_torch.kernels import grouped as kgrouped             # noqa: E402
 from repro_torch.kernels.templates import BatchedKernelSpec     # noqa: E402
-from repro_torch.models import moe, model_zoo, transformer      # noqa: E402
+from repro_torch.kernels.templates import epilogues             # noqa: E402
+from repro_torch.models import (moe, model_zoo,               # noqa: E402
+                                transformer, whisper)
 from repro_torch.models.blocks import Ctx                       # noqa: E402
 from repro_torch.optim import adamw                             # noqa: E402
 from repro_torch.train import engine, kv_cache, serve, train_loop  # noqa: E402
@@ -406,6 +441,14 @@ KERNELS = {
                        source="src/repro_torch/kernels/csrc/ft_gemm.cu",
                        replaces="src/repro/kernels/templates/registry.py:48",
                        counter=ft_gemm.FT_GEMM_2D_SIMT),
+    # ... and its chain instance: every chain ft_gemm.cu does not compile,
+    # as a runtime op list
+    "ft_gemm_chain": dict(route="cuda",
+                          source="src/repro_torch/kernels/csrc/"
+                                 "ft_gemm_chain.cu",
+                          replaces="src/repro/kernels/templates/"
+                                   "registry.py:48",
+                          counter=ft_gemm.FT_GEMM_CHAIN),
     # K5 on the tensor cores: every bf16 call of at most 16 rows a slice
     "ft_gemm_batched_sm90": dict(route="cuda",
                                  source="src/repro_torch/kernels/csrc/"
@@ -518,10 +561,11 @@ DECODE_LENGTHS = (0, 1, 63, 64, 65, 300, 777, 1024)
 def k1_launches(count: int, level: str = "block"):
     """The expected K1 2-D counts of a bf16 path at FT ``level``: every
     launch on the tensor cores, on ft_gemm_sm90 at off and block, on
-    ft_gemm_level_sm90 at tile and inner; the SIMT instance never."""
+    ft_gemm_level_sm90 at tile and inner; the SIMT instances never."""
     lv = level in ("tile", "inner")
     return {"ft_gemm_sm90": 0 if lv else count,
-            "ft_gemm_level_sm90": count if lv else 0, "ft_gemm_2d": 0}
+            "ft_gemm_level_sm90": count if lv else 0, "ft_gemm_2d": 0,
+            "ft_gemm_chain": 0}
 
 
 def k5_launches(count: int):
@@ -5440,6 +5484,572 @@ def phase_moe_campaign(smi: str):
                           bwd_seus=False)
 
 
+# ---------------------------------------------------------------------------
+# chain_kernels / whisper_check / whisper_serve: K1's last epilogue chains
+# and whisper-medium served on the card
+# ---------------------------------------------------------------------------
+
+#: whisper-medium serving: 4 requests of 16 prompt tokens over 1 500 frames
+#: each, 8 greedy tokens, a self cache of 32 positions
+W_BATCH, W_PROMPT, W_NEW_TOKENS, W_MAX_LEN = 4, 16, 8, 32
+#: FT off and the three levels
+W_LEVELS = ("off", "block", "tile", "inner")
+#: The chains the SIMT chain instance is held to in chain_kernels (it
+#: takes every chain csrc/ft_gemm.cu does not compile at the call's level)
+SIMT_CHAINS = [("bias", "relu"), ("bias", "gelu"), ("gelu",), ("relu",),
+               ("residual",), ("gelu", "residual"), ("bias", "residual"),
+               ("residual", "bias", "silu"), ("bias", "gelu", "residual"),
+               ("relu", "bias"), ("silu", "residual", "bias")]
+
+
+def _w_ft(level):
+    return None if level == "off" else FT.replace(level=level)
+
+
+def _outs(res, ag):
+    """The outputs of a K1 call: (C,) or (C, act_grad)."""
+    return tuple(res) if ag else (res,)
+
+
+def _cmp_k1(label, got, want, kw, a, b, tol=BF16_TOL):
+    """A K1 call with its chain against its plain version: C and the
+    report by `_cmp_outputs`, act_grad likewise but for relu, whose
+    derivative jumps at 0: the two sum in different orders, so they may
+    disagree where the pre-activation is within rounding of 0, and only
+    there (within 1e-3 of its largest magnitude)."""
+    ag, chain = kw.get("save_act_grad", False), kw["chain"]
+    err = _cmp_outputs(label, _outs(got[0], ag)[0], _outs(want[0], ag)[0],
+                       got[1], want[1], tol=tol)
+    if not ag:
+        return err
+    g_, w_ = got[0][1], want[0][1]
+    if "relu" not in chain:
+        return max(err, _cmp_outputs(f"{label} act_grad", g_, w_, tol=tol))
+    pre = epilogues.reference_apply(
+        chain[:chain.index("relu")], a.float() @ b.float(),
+        bias=kw.get("bias"), residual=kw.get("residual"))
+    flip = g_ != w_
+    near = pre.abs() <= 1e-3 * pre.abs().max()
+    check(bool((near | ~flip).all()), f"{label} act_grad: equal but at "
+          f"{int(flip.sum())} cells, each a pre-activation within 1e-3 of "
+          f"max|pre| of 0")
+    return err
+
+
+def _chain_seu(label, counter, a, b, kw, row, step):
+    """One deterministic SEU on integer-valued operands in ``row``, at the
+    last column whose pre-activation (with the bias) is positive, so that
+    the activation cannot hide it: corrected (the clean output bit for bit,
+    one detection and correction, located), and under a detect-only policy
+    left in place with no correction."""
+    pre = a[row].float() @ b.float()
+    if kw.get("bias") is not None:
+        pre = pre + kw["bias"].float()
+    col = int((pre > 0).nonzero()[-1])
+    clean, _ = ft_gemm.ft_gemm(a, b, **kw)
+    inj = (1, -1, row, col, step)
+    before = counter.launches
+    fixed, rep = ft_gemm.ft_gemm(a, b, inj=inj, inj_mag=64.0, **kw)
+    check(counter.launches == before + 1, f"{label}: one launch")
+    cell = rep[rep[..., 0] > 0]
+    check(torch.equal(fixed, clean) and float(rep[..., 0].sum()) == 1.0
+          and float(rep[..., 1].sum()) == 1.0 and int(cell[-1, 2]) == row
+          and int(cell[-1, 3]) == col and abs(float(cell[-1, 4]) - 64.0)
+          < 1e-3, f"{label}: SEU at (row {row}, col {col}, k-step {step}) "
+          f"corrected bit for bit and located")
+    left, rep_d = ft_gemm.ft_gemm(
+        a, b, inj=inj, inj_mag=64.0,
+        **dict(kw, ft=kw["ft"].replace(action="detect")))
+    diff = (left != clean).nonzero().tolist()
+    check(diff == [[row, col]] and float(rep_d[..., 0].sum()) >= 1.0
+          and float(rep_d[..., 1].sum()) == 0.0,
+          f"{label}: detect-only leaves the SEU at ({row}, {col}) and "
+          f"corrects nothing")
+
+
+def phase_chain_kernels():
+    """K1's gelu / relu chains on the tensor cores at whisper's w1 shape,
+    and the SIMT chain instance on every chain it takes."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    cfg = whisper_medium.CONFIG
+    m, n, k = W_BATCH * cfg.n_audio_frames, cfg.d_ff, cfg.d_model
+    rows = {"ft_gemm_sm90": dict(max_abs_err=0.0, detail=[],
+                                 headline="w1+gelu block"),
+            "ft_gemm_level_sm90": dict(max_abs_err=0.0, detail=[],
+                                       headline="w1+gelu tile"),
+            "ft_gemm_chain": dict(max_abs_err=0.0, detail=[],
+                                  headline="w1 gelu+residual")}
+    a = _rand(gen, m, k)
+    b = _rand(gen, k, n, scale=0.02)
+    bias = _rand(gen, n, scale=0.02)
+    res = _rand(gen, m, n)
+    nbytes = 2 * (m * k + k * n + m * n)
+    b_ms, b_by = bound(2.0 * m * n * k, nbytes)
+    # ---- the tensor cores: bias? + gelu / relu, act_grad, every level ----
+    for level in W_LEVELS:
+        ft = _w_ft(level)
+        name = ("ft_gemm_level_sm90" if level in ("tile", "inner")
+                else "ft_gemm_sm90")
+        counter = KERNELS[name]["counter"]
+        for act in ("gelu", "relu"):
+            for chain in ((act,), ("bias", act)):
+                for ag in (False, True):
+                    label = f"K1 w1 {'+'.join(chain)}{' act_grad' if ag else ''} {level}"
+                    kw = dict(chain=chain, ft=ft, save_act_grad=ag,
+                              bias=bias if "bias" in chain else None)
+                    p = ft_gemm.plan_call(a, b, chain=chain, ft=ft,
+                                          save_act_grad=ag)
+                    check(p.instance == "sm90", f"{label}: planned on the "
+                          f"tensor cores ({p})")
+                    before = counter.launches
+                    got = ft_gemm.ft_gemm(a, b, **kw)
+                    check(counter.launches == before + 1,
+                          f"{label}: one launch of {name}")
+                    want = _plain_gemm(a, b, **kw)
+                    rows[name]["max_abs_err"] = max(
+                        rows[name]["max_abs_err"],
+                        _cmp_k1(label, got, want, kw, a, b))
+        # times at whisper's w1: gelu, no bias, no act_grad
+        kw = dict(chain=("gelu",), ft=ft)
+        ms = time_ms(lambda: ft_gemm.ft_gemm(a, b, **kw), 10)
+        plain_ms = time_ms(lambda: _plain_gemm(a, b, **kw), 1, warmup=0)
+        lib_ms = time_ms(lambda: torch.nn.functional.gelu(
+            torch.matmul(a, b), approximate="tanh"), 10)
+        rows[name]["detail"].append(dict(
+            shape=f"w1+gelu {level}", M=m, N=n, K=k, level=level, ms=ms,
+            plain_ms=plain_ms, library_ms=lib_ms,
+            library="torch.matmul then F.gelu(approximate='tanh')",
+            bound_ms=b_ms, bound_by=b_by))
+        print(f"  K1 w1+gelu {level} ({m}x{n}x{k}) on {name}: {ms:.4f} ms, "
+              f"plain {plain_ms:.2f} ms, library {lib_ms:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by})")
+    # SEUs on integer operands at w1's shape, one per level, with act_grad
+    ai, bi = _ints(gen, m, k), _ints(gen, k, n)
+    for level in W_LEVELS[1:]:
+        name = ("ft_gemm_level_sm90" if level in ("tile", "inner")
+                else "ft_gemm_sm90")
+        _chain_seu(f"K1 w1+gelu {level}", KERNELS[name]["counter"], ai, bi,
+                   dict(chain=("gelu",), ft=_w_ft(level)), m - 1, 2)
+    # ---- the SIMT chain instance ----------------------------------------
+    counter = ft_gemm.FT_GEMM_CHAIN
+    err = 0.0
+    launched = 0
+    for dtype, (sm, sn, sk) in ((torch.bfloat16, (4, 1000, 640)),
+                                (torch.float32, (300, 520, 700))):
+        g2 = torch.Generator(device="cuda").manual_seed(sm + sn)
+        mk = lambda *s: (torch.randn(*s, generator=g2, device="cuda")
+                         ).to(dtype)
+        a2, b2 = mk(sm, sk), mk(sk, sn) * 0.05
+        bias2, res2 = mk(sn) * 0.1, mk(sm, sn)
+        for chain in SIMT_CHAINS:
+            act = any(x in ("silu", "gelu", "relu") for x in chain)
+            for level in W_LEVELS:
+                ft = _w_ft(level)
+                for ag in ((False, True) if act else (False,)):
+                    kw = dict(chain=chain, ft=ft, save_act_grad=ag,
+                              bias=bias2 if "bias" in chain else None,
+                              residual=res2 if "residual" in chain
+                              else None)
+                    p = ft_gemm.plan_call(a2, b2, chain=chain, ft=ft,
+                                          save_act_grad=ag)
+                    if p.instance != "simt_chain":
+                        continue
+                    before = counter.launches
+                    got = ft_gemm.ft_gemm(a2, b2, **kw)
+                    check(counter.launches == before + 1,
+                          f"SIMT chain {chain} {level}: one launch")
+                    launched += 1
+                    want = _plain_gemm(a2, b2, **kw)
+                    err = max(err, _cmp_k1(
+                        f"SIMT chain {'+'.join(chain)}{' act_grad' * ag} "
+                        f"{level} {str(dtype)[6:]} {sm}x{sn}x{sk}", got,
+                        want, kw, a2, b2,
+                        tol=BF16_TOL if dtype == torch.bfloat16
+                        else F32_TOL))
+    check(launched >= 60, f"the chain instance ran {launched} calls")
+    # SEUs on the chain instance at each level (integer f32 operands, a
+    # residual chain; exact)
+    a2, b2 = _ints(gen, 300, 700).float(), _ints(gen, 700, 520).float()
+    bias2, res2 = _ints(gen, 520).float(), _ints(gen, 300, 520).float()
+    for level in W_LEVELS[1:]:
+        _chain_seu(f"SIMT chain bias+gelu+residual {level}", counter, a2, b2,
+                   dict(chain=("bias", "gelu", "residual"), ft=_w_ft(level),
+                        bias=bias2, residual=res2), 299, 3)
+    # its time at whisper's w1 width, on a residual-after-gelu chain
+    kw = dict(chain=("gelu", "residual"), residual=res, ft=FT)
+    ms = time_ms(lambda: ft_gemm.ft_gemm(a, b, **kw), 3, warmup=1)
+    plain_ms = time_ms(lambda: _plain_gemm(a, b, **kw), 1, warmup=0)
+    lib_ms = time_ms(lambda: torch.nn.functional.gelu(
+        torch.matmul(a, b), approximate="tanh") + res, 10)
+    cb_ms, cb_by = bound(2.0 * m * n * k, nbytes + 2 * m * n)
+    rows["ft_gemm_chain"]["max_abs_err"] = err
+    rows["ft_gemm_chain"]["detail"].append(dict(
+        shape="w1 gelu+residual", M=m, N=n, K=k, ms=ms, plain_ms=plain_ms,
+        library_ms=lib_ms,
+        library="torch.matmul, F.gelu(approximate='tanh'), add",
+        bound_ms=cb_ms, bound_by=cb_by))
+    print(f"  SIMT chain instance, w1 gelu+residual block ({m}x{n}x{k}): "
+          f"{ms:.3f} ms, plain {plain_ms:.2f} ms, library {lib_ms:.4f} ms, "
+          f"bound {cb_ms:.4f} ms ({cb_by}); {launched} chain calls held to "
+          f"their plain versions")
+    return rows
+
+
+def _whisper_model(layers=None, seed=0):
+    """whisper-medium at full width (``layers`` encoder and decoder layers,
+    all of them by default), random bf16 weights from ``seed``."""
+    cfg = whisper_medium.CONFIG
+    if layers is not None:
+        print(f"  depth cut: {layers} + {layers} of {cfg.enc_layers} + "
+              f"{cfg.n_layers} layers")
+        cfg = dataclasses.replace(cfg, n_layers=layers, enc_layers=layers)
+    t0 = time.perf_counter()
+    params = whisper.init(cfg, seed=seed, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    print(f"  init: {n_params / 1e9:.3f} B parameters in "
+          f"{time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    prompts = torch.randint(0, cfg.vocab_size, (W_BATCH, W_PROMPT),
+                            generator=gen, device="cuda")
+    frames = torch.randn(W_BATCH, cfg.n_audio_frames, cfg.d_model,
+                         generator=gen, device="cuda")
+    steps = torch.randint(0, cfg.vocab_size, (2, W_BATCH, 1), generator=gen,
+                          device="cuda")
+    return cfg, params, prompts, frames, steps
+
+
+def _w_run(cfg, level):
+    return RunConfig(model=cfg, ft=FT_OFF if level == "off" else
+                     FT.replace(level=level), dtype="bfloat16")
+
+
+def _whisper_logits(params, cfg, run, prompts, frames, feed):
+    """Logits of a prefill and 2 decode steps fed ``feed``, and the FT
+    totals."""
+    prefill_fn, decode_fn = serve.make_serve_fns(cfg, run)
+    with telemetry.ft_scope() as scope:
+        cache = whisper.init_cache(cfg, W_BATCH, W_MAX_LEN)
+        logits, cache = prefill_fn(params, prompts, cache, frames)
+        out = [logits.float().reshape(W_BATCH, -1)]
+        for i in range(2):
+            logits, cache = decode_fn(params, feed[i], cache)
+            out.append(logits.float().reshape(W_BATCH, -1))
+        return out, scope.totals()
+
+
+def whisper_launches(cfg, level, prefills, decodes):
+    """whisper's expected launch counts: K1 6 per encoder layer, 10 per
+    decoder layer and the head per prefill, 8 per decoder layer and the
+    head per decode step, all on the level's tensor-core instance (w1's
+    gelu too); K2 once per encoder layer and twice per decoder layer per
+    prefill, on the SIMT instance (head dim 64); K5 4 per decoder layer
+    per decode step on the tensor cores. FT off runs none: its products
+    are the plain-matmul fast path, as in the reference."""
+    if level == "off":
+        return {n: 0 for n in KERNELS}
+    k1 = (prefills * (6 * cfg.enc_layers + 10 * cfg.n_layers + 1)
+          + decodes * (8 * cfg.n_layers + 1))
+    return {**k1_launches(k1, level),
+            **k5_launches(4 * cfg.n_layers * decodes),
+            "flash_ft_sm90": 0,
+            "flash_ft": prefills * (cfg.enc_layers + 2 * cfg.n_layers),
+            **NO_FLASH_BWD, **k6_launches(0), **OFF_PATH}
+
+
+def _whisper_attention_kernels(gen, cfg):
+    """K2 (SIMT, dh 64) at the encoder's self-attention (4 x 16 heads over
+    1 500 frames, non-causal) and the prefill's cross-attention (16 queries
+    over 1 500 frames), and K5 at the decode step's cross-cache products
+    (xdec_qk, K = 64; xdec_pv, K = 1 500, P's rows padded to 1 504): each
+    against its plain version (bf16), an SEU in K5's ragged last k-step
+    corrected, the times beside the library call and the bound."""
+    dh, h, ta = cfg.head_dim, cfg.n_heads, cfg.n_audio_frames
+    bh = W_BATCH * h
+    out = {"flash_ft": dict(max_abs_err=0.0, detail=[]),
+           "ft_gemm_batched_sm90": dict(max_abs_err=0.0, detail=[])}
+    for label, sq in (("encoder self-attention", ta),
+                      ("cross-attention prefill", W_PROMPT)):
+        q, kk, vv = _rand(gen, bh, sq, dh), _rand(gen, bh, ta, dh), \
+            _rand(gen, bh, ta, dh)
+        p = flashft.plan_fwd(q, kk, vv)
+        check(p.instance == "simt", f"K2 whisper {label}: the SIMT "
+              f"instance at head dim {dh} ({p})")
+        fkw = dict(ft=FT, scale=dh ** -0.5, tau_dh=128, causal=False)
+        before = flashft.FLASH_FT.launches
+        got = flashft.flash_ft_fwd(q, kk, vv, **fkw)
+        check(flashft.FLASH_FT.launches == before + 1,
+              f"K2 whisper {label}: one SIMT launch")
+        want = flashft.flash_ft_plain(q, kk, vv, bq=flashft.BLOCK,
+                                      bkv=flashft.BLOCK, **fkw)
+        out["flash_ft"]["max_abs_err"] = max(
+            out["flash_ft"]["max_abs_err"],
+            _cmp_outputs(f"K2 whisper {label}", got[0], want[0], got[-1],
+                         want[-1]))
+        ms = time_ms(lambda: flashft.flash_ft_fwd(q, kk, vv, **fkw), 5,
+                     warmup=1)
+        plain_ms = time_ms(lambda: flashft.flash_ft_plain(
+            q, kk, vv, bq=flashft.BLOCK, bkv=flashft.BLOCK, **fkw), 1,
+            warmup=0)
+        q4, k4, v4 = (x.view(W_BATCH, h, -1, dh) for x in (q, kk, vv))
+        lib_ms = time_ms(lambda: torch.nn.functional
+                         .scaled_dot_product_attention(q4, k4, v4), 10)
+        b_ms, b_by = bound(4.0 * dh * sq * ta * bh,
+                           2 * dh * bh * (2 * sq + 2 * ta))
+        out["flash_ft"]["detail"].append(dict(
+            shape=f"whisper {label}, {bh} heads, Sq {sq}, Skv {ta}, dh {dh}",
+            ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+            library="SDPA forward", bound_ms=b_ms, bound_by=b_by))
+        print(f"  K2 SIMT whisper {label} ({bh} heads, Sq {sq}, Skv {ta}, dh "
+              f"{dh}): {ms:.4f} ms, plain {plain_ms:.2f} ms, SDPA "
+              f"{lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
+    # K5 over the cross cache, as decode_attention passes it
+    xk = _rand(gen, W_BATCH, ta, h, dh)
+    xv = _rand(gen, W_BATCH, ta, h, dh)
+    qg = _rand(gen, W_BATCH, h, 1, dh)
+    pad = -ta % 8          # P's rows padded as decode_attention pads them
+    pp = torch.softmax(torch.randn(W_BATCH, h, 1, ta + pad, device="cuda"),
+                       -1).to(torch.bfloat16)[..., :ta]
+    cases = {"xdec_qk": (qg, xk.permute(0, 2, 3, 1)),
+             "xdec_pv": (pp, xv.transpose(1, 2))}
+    counters = (ft_gemm.FT_GEMM_BATCHED_SM90, ft_gemm.FT_GEMM_BATCHED)
+    for label, (a, b) in cases.items():
+        mm, kd, nn = a.shape[-2], a.shape[-1], b.shape[-1]
+        p = ft_gemm.plan_call(a, b, ft=FT)
+        check(p.instance == "sm90", f"K5 whisper {label}: the tensor-core "
+              f"instance ({p})")
+        for level in W_LEVELS:
+            ft = _w_ft(level)
+            before = [c.launches for c in counters]
+            got, rep = ft_gemm.ft_gemm(a, b, ft=ft)
+            check([c.launches - x for c, x in zip(counters, before)]
+                  == [1, 0], f"K5 whisper {label} {level}: one tensor-core "
+                  f"launch")
+            want, rep_p = _plain_gemm(a, b, ft=ft)
+            out["ft_gemm_batched_sm90"]["max_abs_err"] = max(
+                out["ft_gemm_batched_sm90"]["max_abs_err"],
+                _cmp_outputs(f"K5 whisper {label} {level}", got, want, rep,
+                             rep_p))
+            if rep is not None:
+                check(float(rep[..., 7].max()) == kd,
+                      f"K5 whisper {label} {level}: tau's k counts {kd}, "
+                      f"not the padded depth")
+        ms = queued_ms(lambda: ft_gemm.ft_gemm(a, b, ft=FT))
+        call_ms = time_ms(lambda: ft_gemm.ft_gemm(a, b, ft=FT), 30)
+        lib_ms = queued_ms(lambda: torch.matmul(a, b))
+        plain_ms = time_ms(lambda: _plain_gemm(a, b, ft=FT), 2)
+        nb = W_BATCH * h
+        b_ms, b_by = bound(2.0 * nb * mm * nn * kd,
+                           2 * nb * (mm * kd + kd * nn + mm * nn))
+        out["ft_gemm_batched_sm90"]["detail"].append(dict(
+            shape=f"whisper {label}", batch=nb, M=mm, N=nn, K=kd, ms=ms,
+            call_ms=call_ms, plain_ms=plain_ms, library_ms=lib_ms,
+            bound_ms=b_ms, bound_by=b_by))
+        print(f"  K5 whisper {label} ({nb}x{mm}x{nn}x{kd}): {ms:.5f} ms "
+              f"device (queued), call {call_ms:.4f} ms, plain "
+              f"{plain_ms:.3f} ms, torch.matmul {lib_ms:.5f} ms, bound "
+              f"{b_ms:.5f} ms ({b_by})")
+    # an SEU in xdec_pv's ragged last k-step (positions 1 280-1 499),
+    # integer operands: corrected bit for bit, located
+    a = _ints(gen, W_BATCH, h, 1, ta + pad)[..., :ta]
+    b = _ints(gen, W_BATCH, ta, h, dh).transpose(1, 2)
+    clean, _ = ft_gemm.ft_gemm(a, b, ft=FT)
+    last, col = (ta - 1) // 256, dh // 2 + 1
+    for level in W_LEVELS[1:]:
+        fixed, rep = ft_gemm.ft_gemm(a, b, ft=FT.replace(level=level),
+                                     inj=(1, 5, 0, col, last), inj_mag=64.0)
+        cell = rep[rep[..., 0] > 0]
+        check(torch.equal(fixed, clean) and float(rep[..., 1].sum()) == 1.0
+              and (int(cell[0, 2]), int(cell[0, 3])) == (0, col),
+              f"K5 whisper xdec_pv {level}: an SEU in the ragged last "
+              f"k-step {last} corrected bit for bit and located")
+    return out
+
+
+def phase_whisper_check():
+    """whisper-medium at full width, 2 + 2 layers: prefill and 2 decode
+    steps through the kernels against their plain versions at FT off,
+    block, tile and inner; whisper's attention kernels at their shapes."""
+    cfg, params, prompts, frames, steps = _whisper_model(layers=2, seed=1)
+    for level in W_LEVELS:
+        run = _w_run(cfg, level)
+        before = {n: k["counter"].launches for n, k in KERNELS.items()}
+        got, tot_k = _whisper_logits(params, cfg, run, prompts, frames,
+                                     steps)
+        launched = {n: k["counter"].launches - before[n]
+                    for n, k in KERNELS.items()}
+        with plain_kernels():
+            want, tot_p = _whisper_logits(params, cfg, run, prompts, frames,
+                                          steps)
+        _check_logits(f"whisper_check {level} kernel vs plain", got, want)
+        check(tot_k["detected"] == 0 and tot_p["detected"] == 0,
+              f"whisper_check {level}: zero detections (kernels {tot_k}, "
+              f"plain {tot_p})")
+        check(launched == whisper_launches(cfg, level, 1, 2),
+              f"whisper_check {level}: launch counts "
+              f"{ {n: c for n, c in launched.items() if c} }")
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    return _whisper_attention_kernels(gen, whisper_medium.CONFIG)
+
+
+@contextmanager
+def w1_seu(mag=64.0, step=1):
+    """A deterministic SEU in the first w1 product (encoder layer 0's gelu
+    chain) under the context: `ops.fused_matmul`, which the FT front calls
+    for every fused projection, with an injection on its first gelu call,
+    at (5/7 of the rows, 3/5 of the columns). Yields the list of (report,
+    row, col) of the injected call."""
+    saved = ops.fused_matmul
+    reps = []
+
+    def injected(a, b, **kw):
+        if kw.get("act") != "gelu" or reps:
+            return saved(a, b, **kw)
+        row, col = a.shape[0] * 5 // 7, b.shape[1] * 3 // 5
+        out, rep = saved(a, b, **dict(kw, inject=InjectionSpec(
+            row=row, col=col, magnitude=mag, k_step=step)))
+        reps.append((rep, row, col))
+        return out, rep
+
+    ops.fused_matmul = injected
+    try:
+        yield reps
+    finally:
+        ops.fused_matmul = saved
+
+
+def phase_whisper_serve(smi: str):
+    """`generate` on whisper-medium at full width and depth at FT off,
+    block, tile and inner; an SEU in w1 at each level corrected."""
+    cfg, params, prompts, frames, _ = _whisper_model()
+    prompts_np = prompts.cpu().numpy()
+    sc = serve.ServeConfig(max_len=W_MAX_LEN)
+    launches = {n: 0 for n in KERNELS}
+    summary, tokens_at = {}, {}
+    for level in W_LEVELS:
+        run = _w_run(cfg, level)
+        name = f"whisper_serve {level}"
+        for k_ in KERNELS.values():
+            k_["counter"].launches = 0
+        guard = LibraryCallGuard()
+        torch.cuda.reset_peak_memory_stats()
+        with telemetry.ft_scope() as scope, guard:
+            toks = serve.generate(params, prompts_np, cfg, run, sc,
+                                  max_new_tokens=W_NEW_TOKENS, extra=frames,
+                                  device="cuda")
+            torch.cuda.synchronize()
+        got = {n: k_["counter"].launches for n, k_ in KERNELS.items()}
+        for n in launches:
+            launches[n] += got[n]
+        totals = scope.totals()
+        tokens_at[level] = toks
+        print(f"  {name}: launches {({n: c for n, c in got.items() if c})}, "
+              f"FT totals {totals}, library matmul / attention ops "
+              f"{len(guard.hits)}")
+        check(toks.shape == (W_BATCH, W_NEW_TOKENS) and int(toks.min()) >= 0
+              and int(toks.max()) < cfg.vocab_size,
+              f"{name}: in-vocabulary tokens of the expected shape")
+        check(got == whisper_launches(cfg, level, 1, W_NEW_TOKENS),
+              f"{name}: launch counts as whisper_launches")
+        check(totals["detected"] == 0, f"{name}: zero detections")
+        if level != "off":
+            check(not guard.hits, f"{name}: no library matmul / attention "
+                  f"op dispatched")
+        t0 = time.perf_counter()
+        again = serve.generate(params, prompts_np, cfg, run, sc,
+                               max_new_tokens=W_NEW_TOKENS, extra=frames,
+                               device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        check((again == toks).all(), f"{name}: the timed run repeats the "
+              f"greedy tokens")
+        prefill_fn, decode_fn = serve.make_serve_fns(cfg, run)
+        pre = []
+        for _ in range(3):
+            cache = whisper.init_cache(cfg, W_BATCH, W_MAX_LEN)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = prefill_fn(params, prompts, cache, frames)
+            torch.cuda.synchronize()
+            pre.append((time.perf_counter() - t0) * 1e3)
+        state = {"tok": torch.argmax(logits, -1)[:, None], "cache": cache}
+        dec = []
+
+        def one_decode():
+            lg, state["cache"] = decode_fn(params, state["tok"],
+                                           state["cache"])
+            state["tok"] = torch.argmax(lg.reshape(W_BATCH, -1), -1)[:, None]
+
+        for _ in range(6):
+            t0 = time.perf_counter()
+            one_decode()
+            torch.cuda.synchronize()
+            dec.append((time.perf_counter() - t0) * 1e3)
+        prof = {"decode": device_profile(one_decode)}
+        fresh = whisper.init_cache(cfg, W_BATCH, W_MAX_LEN)
+        prof["prefill"] = device_profile(
+            lambda: prefill_fn(params, prompts, fresh, frames))
+        summary[level] = dict(
+            generate_s=wall, new_tokens_per_s=toks.size / wall,
+            prefill_ms=statistics.median(pre), prefill_runs=pre,
+            decode_ms_per_step=statistics.median(dec), decode_runs=dec,
+            peak_gib=peak, launches={n: c for n, c in got.items() if c},
+            profile=prof)
+        print(f"  {name}: generate {wall:.3f} s ({toks.size / wall:.2f} new "
+              f"tokens/s), prefill {statistics.median(pre):.1f} ms median "
+              f"of {[round(x, 1) for x in pre]}, decode "
+              f"{statistics.median(dec):.2f} ms a step median of "
+              f"{[round(x, 2) for x in dec]}, peak {peak:.2f} GiB")
+        for k_, v_ in prof.items():
+            print(f"  {name} {k_} profile: {v_}")
+    # An SEU in encoder layer 0's w1 at each level: corrected, the prefill
+    # logits those of the clean run to bf16 rounding, the tokens the clean
+    # run's; detect-only leaves it (logits off, no correction).
+    for level in W_LEVELS[1:]:
+        run = _w_run(cfg, level)
+        prefill_fn, _ = serve.make_serve_fns(cfg, run)
+        clean, _ = prefill_fn(params, prompts, whisper.init_cache(
+            cfg, W_BATCH, W_MAX_LEN), frames)
+        with w1_seu() as reps, telemetry.ft_scope() as scope:
+            toks = serve.generate(params, prompts_np, cfg, run, sc,
+                                  max_new_tokens=W_NEW_TOKENS, extra=frames,
+                                  device="cuda")
+        tot = scope.totals()
+        rep, row, col = reps[0]
+        cell = rep[rep[..., 0] > 0]
+        check(len(reps) == 1 and tot["detected"] == tot["corrected"] == 1.0
+              and (int(cell[0, 2]), int(cell[0, 3])) == (row, col),
+              f"whisper_serve {level}: the w1 SEU detected, corrected and "
+              f"located once ({tot})")
+        check((toks == tokens_at[level]).all(), f"whisper_serve {level}: "
+              f"the tokens with the corrected SEU are the clean run's")
+        for action in ("correct", "detect"):
+            fn, _ = serve.make_serve_fns(cfg, RunConfig(
+                model=cfg, ft=run.ft.replace(action=action),
+                dtype="bfloat16"))
+            with w1_seu(), telemetry.ft_scope() as scope:
+                lg, _ = fn(params, prompts, whisper.init_cache(
+                    cfg, W_BATCH, W_MAX_LEN), frames)
+            err = (lg.float() - clean.float()).abs().max().item()
+            scale = clean.float().abs().max().item()
+            tot = scope.totals()
+            if action == "correct":
+                check(err <= BF16_TOL * scale, f"whisper_serve {level}: "
+                      f"corrected prefill logits within {err:.3g} of the "
+                      f"clean run's")
+            else:
+                check(err > BF16_TOL * scale and tot["corrected"] == 0.0
+                      and tot["detected"] >= 1.0,
+                      f"whisper_serve {level} detect-only: the SEU left "
+                      f"(logits off by {err:.3g}), {tot}")
+    print(json.dumps({"whisper_serve": dict(
+        arch=cfg.arch_id, layers=[cfg.enc_layers, cfg.n_layers],
+        batch=W_BATCH, prompt=W_PROMPT, frames=cfg.n_audio_frames,
+        new_tokens=W_NEW_TOKENS, card=smi, levels=summary)}))
+    return launches
+
+
 def _merge_rows(rows, more):
     """Add a phase's kernel rows: shapes append, the max error is the
     larger; the first phase's headline shape stays."""
@@ -5460,7 +6070,8 @@ def main() -> int:
                     "decode_kernels,engine_check,engine,train_kernels,"
                     "train_check,train,moe_kernels,moe_check,moe_engine,"
                     "moe_train,level_train,level_moe,campaign_kernels,"
-                    "campaign_train,campaign_train_chunked,moe_campaign")
+                    "campaign_train,campaign_train_chunked,moe_campaign,"
+                    "chain_kernels,whisper_check,whisper_serve")
     ap.add_argument("--layers", type=int, default=qwen2_7b.CONFIG.n_layers,
                     help="serve and level_serve depth (the width is always "
                          "full)")
@@ -5475,7 +6086,7 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = None
-    rows, by_path, failed, late_rows = {}, {}, [], {}
+    rows, by_path, failed, late_rows, chain_rows = {}, {}, [], {}, {}
     t_start = time.perf_counter()
     for phase in phases:
         t0 = time.perf_counter()
@@ -5533,6 +6144,14 @@ def main() -> int:
                     phase_campaign_train_chunked(smi)
             elif phase == "moe_campaign":
                 by_path["moe_campaign"] = phase_moe_campaign(smi)
+            elif phase == "chain_kernels":
+                # merged after the loop, as level_kernels: the earlier
+                # phases' headline shapes stay
+                chain_rows = phase_chain_kernels()
+            elif phase == "whisper_check":
+                _merge_rows(rows, phase_whisper_check())
+            elif phase == "whisper_serve":
+                by_path["whisper_serve"] = phase_whisper_serve(smi)
             else:
                 raise SystemExit(f"unknown phase {phase!r}")
         except Exception:
@@ -5547,6 +6166,7 @@ def main() -> int:
               flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s")
     _merge_rows(rows, late_rows)
+    _merge_rows(rows, chain_rows)
     if failed:
         print(f"chip_smoke: FAILED phases {failed}", flush=True)
         return 1

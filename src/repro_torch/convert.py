@@ -7,7 +7,11 @@ reference AdamW states → the port's optimizer state.
 The MoE family's layer params convert the same way: "layers.moe.router"
 (L, d, E) stays f32, the experts stay stacked as "layers.moe.w_gate" /
 "w_up" (L, E, d, f) and "w_down" (L, E, f, d) in the weight dtype, and
-arctic's parallel dense MLP is "layers.mlp".
+arctic's parallel dense MLP is "layers.mlp". The encoder-decoder family's
+tree (`repro.models.whisper.init`) converts the same way: "enc_layers.*" and
+"dec_layers.*" stacked on their own layer axes (a decoder layer's "cross"
+attention beside its "attn"), "dec_pos", "enc_norm", "final_norm" and
+"head.table".
 The input is the nested dict with numpy leaves (``np.asarray`` of each JAX
 array); bfloat16 leaves (numpy's ml_dtypes bfloat16) keep their bits.
 """

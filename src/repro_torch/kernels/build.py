@@ -23,8 +23,8 @@ from typing import Dict, Optional, Sequence
 CSRC = Path(__file__).resolve().parent / "csrc"
 REPO_ROOT = Path(__file__).resolve().parents[3]
 BUILD_DIR = REPO_ROOT / "build" / "repro_torch"
-SOURCES = ("ft_gemm", "ft_gemm_sm90", "ft_gemm_level_sm90", "grouped_sm90",
-           "flash_bwd_sm90",
+SOURCES = ("ft_gemm", "ft_gemm_chain", "ft_gemm_sm90", "ft_gemm_level_sm90",
+           "grouped_sm90", "flash_bwd_sm90",
            "flash_fwd_sm90", "flash_decode_sm90", "batched_sm90", "flash_ft",
            "flash_ft_bwd", "flash_decode", "tgmm", "gemm_naive")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -22,10 +22,10 @@ const char* ft_gemm_sm90_error_string(int code) {
 // contiguous row-major; rep (gm, gn, 8) with ft; ws: with splits > 1, f32
 // of splits·(gm·bm·gn·128 + gm·gn·1168) elements. bm: 128 or 64. level:
 // the FT level code, 0 off, 1 block (kLvOff, kLvBlock;
-// kernels/ft_gemm.py:SM90_LEVELS). act: 0 none, 1 silu. The injection
-// (deterministic SEU) adds inj_mag at global (inj_row, inj_col) after
-// 256-deep k-step inj_k; seu_*: the stochastic hook's campaign
-// (seu_hook.cuh).
+// kernels/ft_gemm.py:SM90_LEVELS). act: 0 none, 1 silu, 2 gelu, 3 relu.
+// The injection (deterministic SEU) adds inj_mag at global (inj_row,
+// inj_col) after 256-deep k-step inj_k; seu_*: the stochastic hook's
+// campaign (seu_hook.cuh).
 // Launches the main kernel and, with splits > 1, the reduce kernel;
 // returns the first cudaError_t.
 int ft_gemm_sm90_launch(const void* a, const void* b, const void* bias,

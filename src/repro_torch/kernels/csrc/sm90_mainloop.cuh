@@ -248,15 +248,32 @@ __device__ __forceinline__ void ldsm4(uint32_t (&r)[4], uint32_t addr) {
 // epilogue ops (the formulas of csrc/ft_gemm.cu and templates/epilogues.py)
 // ---------------------------------------------------------------------------
 
-// act: 0 none, 1 silu (kernels/ft_gemm.py:SM90_ACTS).
+// act: 0 none, 1 silu, 2 gelu (the tanh approximation), 3 relu
+// (kernels/ft_gemm.py:SM90_ACTS).
 __device__ __forceinline__ float activate(int act, float y) {
-  return act == 1 ? y * (1.0f / (1.0f + expf(-y))) : y;
+  if (act == 1) return y * (1.0f / (1.0f + expf(-y)));
+  if (act == 2) {
+    const float c = 0.7978845608028654f;  // sqrt(2/pi)
+    return 0.5f * y * (1.0f + tanhf(c * (y + 0.044715f * y * y * y)));
+  }
+  if (act == 3) return fmaxf(y, 0.0f);
+  return y;
 }
 
+// The activation's derivative: relu's is 1 where y > 0, else 0.
 __device__ __forceinline__ float activate_grad(int act, float y) {
-  if (act != 1) return 1.0f;
-  const float s = 1.0f / (1.0f + expf(-y));
-  return s * (1.0f + y * (1.0f - s));
+  if (act == 1) {
+    const float s = 1.0f / (1.0f + expf(-y));
+    return s * (1.0f + y * (1.0f - s));
+  }
+  if (act == 2) {
+    const float c = 0.7978845608028654f;
+    const float t = tanhf(c * (y + 0.044715f * y * y * y));
+    const float du = c * (1.0f + 3.0f * 0.044715f * y * y);
+    return 0.5f * (1.0f + t) + 0.5f * y * (1.0f - t * t) * du;
+  }
+  if (act == 3) return y > 0.0f ? 1.0f : 0.0f;
+  return 1.0f;
 }
 
 // ---------------------------------------------------------------------------

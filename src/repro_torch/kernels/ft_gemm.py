@@ -1,25 +1,32 @@
-"""ABFT GEMM — wrapper of the CUDA kernels `csrc/ft_gemm.cu` (SIMT),
-`csrc/ft_gemm_sm90.cu`, `csrc/ft_gemm_level_sm90.cu` and
-`csrc/batched_sm90.cu` (tensor cores), and their plain PyTorch version.
+"""ABFT GEMM — wrapper of the CUDA kernels `csrc/ft_gemm.cu` and
+`csrc/ft_gemm_chain.cu` (SIMT), `csrc/ft_gemm_sm90.cu`,
+`csrc/ft_gemm_level_sm90.cu` and `csrc/batched_sm90.cu` (tensor cores), and
+their plain PyTorch version.
 
 Replaces the TPU kernels K1 (2-D) and K5 (uniform batched) of the JAX
 package: `repro/kernels/templates/emit.py:render`, launched by
 `templates/registry.py:kernel_call` and `:batched_kernel_call`. `plan`
 decides which instance runs a call, at which tiles and with how many
 split-K ranges: a bf16 2-D call at any FT level, whose chain is an
-optional bias then an optional silu and whose operands TMA can read (a
-unit-stride dim, the other stride a multiple of 8 elements, 16-byte
-aligned bases), runs on the tensor cores at `SM90_TILES`
+optional bias then at most one activation (silu, gelu or relu) and whose
+operands TMA can read (a unit-stride dim, the other stride a multiple of 8
+elements, 16-byte aligned bases), runs on the tensor cores at `SM90_TILES`
 (`csrc/ft_gemm_sm90.cu` at FT off and "block",
 `csrc/ft_gemm_level_sm90.cu` at "tile" and "inner"); every other call on
 the SIMT kernel at `TILES`, whose 2-D kernel is its batched kernel with
-batch 1. `plan_k5` does the same for a batched call: a bf16 call of at most 16 rows a slice with no epilogue
-chain, whose operands the 16-byte copies can read, runs at any FT level on
-the tensor cores at `BATCHED_SM90_TILES` (16 rows, 256-deep k-steps);
-every other one on the SIMT kernel. Each instance has its own launch
+batch 1: `csrc/ft_gemm.cu` where it compiles the call's (chain, level,
+act_grad) (`simt_compiled`), else the chain instance `csrc/ft_gemm_chain.cu`,
+which takes any chain of at most one bias, one residual and one activation
+in any order as a runtime op list (a 2-D call; a chain with two
+activations, or a batched call with an uncompiled chain, raises
+NotImplementedError). `plan_k5` does the same for a batched call: a bf16
+call of at most 16 rows a slice with no epilogue chain, whose operands the
+16-byte copies can read, runs at any FT level on the tensor cores at
+`BATCHED_SM90_TILES` (16 rows, 256-deep k-steps); every other one on the
+SIMT kernel. Each instance has its own launch
 counter (`FT_GEMM_SM90`, `FT_GEMM_LEVEL_SM90`, `FT_GEMM_2D_SIMT`,
-`FT_GEMM_BATCHED_SM90`, `FT_GEMM_BATCHED`); `FT_GEMM_2D` is K1's 2-D
-total, `FT_GEMM_K5` K5's.
+`FT_GEMM_CHAIN`, `FT_GEMM_BATCHED_SM90`, `FT_GEMM_BATCHED`); `FT_GEMM_2D`
+is K1's 2-D total, `FT_GEMM_K5` K5's.
 
 Three FT levels, the paper's threadblock / warp / thread granularities
 (`repro/kernels/ftgemm.py:9-21`):
@@ -89,6 +96,12 @@ LEVEL_EPILOGUES = ((), ("bias",), ("silu",), ("bias", "silu"))
 #: Epilogue chains the kernel is instantiated for → its `Epilogue` code.
 EPILOGUES = {(): 0, ("bias",): 1, ("silu",): 2, ("bias", "silu"): 3,
              ("gelu",): 4, ("relu",): 5, ("residual",): 6}
+#: The chains csrc/ft_gemm.cu compiles with the act_grad output, at FT off
+#: and "block" and at "tile" and "inner".
+AG_EPILOGUES = {"block": (("silu",), ("bias", "silu"), ("gelu",), ("relu",)),
+                "level": (("silu",), ("bias", "silu"))}
+#: The chain instance's op codes (ChainOp in csrc/ft_gemm_simt.cuh).
+CHAIN_OPS = {"bias": 1, "residual": 2, "silu": 3, "gelu": 4, "relu": 5}
 
 REPORT_WIDTH = 8
 
@@ -103,6 +116,16 @@ _ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
              + [ctypes.c_void_p])
 FT_GEMM_2D_SIMT = build.Kernel("ft_gemm", "ft_gemm_launch", _ARGTYPES)
 FT_GEMM_BATCHED = build.Kernel("ft_gemm", "ft_gemm_launch", _ARGTYPES)
+#: The SIMT chain instance (csrc/ft_gemm_chain.cu): ft_gemm_launch's
+#: arguments with (chain_ops, chain_len, chain_fold) for (epi, tiles,
+#: layout) → (chain_ops, chain_len, chain_fold, tiles).
+_CHAIN_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
+                   + _BATCH_STRIDES + [ctypes.c_int] * 2
+                   + _BATCH_STRIDES + [ctypes.c_int] * 11 + [ctypes.c_float]
+                   + [ctypes.c_int] * 5 + [ctypes.c_float] + SEU_ARGTYPES
+                   + [ctypes.c_void_p])
+FT_GEMM_CHAIN = build.Kernel("ft_gemm_chain", "ft_gemm_chain_launch",
+                             _CHAIN_ARGTYPES)
 _SM90_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
                   + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 8
                   + [ctypes.c_float] + [ctypes.c_int] * 4
@@ -115,7 +138,7 @@ FT_GEMM_LEVEL_SM90 = build.Kernel("ft_gemm_level_sm90",
                                   "ft_gemm_level_sm90_launch",
                                   _SM90_ARGTYPES)
 #: Every 2-D K1 launch, on any instance.
-FT_GEMM_2D = build.LaunchTotal(FT_GEMM_2D_SIMT, FT_GEMM_SM90,
+FT_GEMM_2D = build.LaunchTotal(FT_GEMM_2D_SIMT, FT_GEMM_CHAIN, FT_GEMM_SM90,
                                FT_GEMM_LEVEL_SM90)
 _B_SM90_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
                     + [ctypes.c_longlong] * 2 + [ctypes.c_int]
@@ -135,8 +158,8 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # (`repro/kernels/autotune.py:66`).
 
 #: The activations the tensor-core instance applies after an optional bias
-#: (the main paths' chains) → its `act` code.
-SM90_ACTS = {None: 0, "silu": 1}
+#: → its `act` code (`activate` in csrc/sm90_mainloop.cuh).
+SM90_ACTS = {None: 0, "silu": 1, "gelu": 2, "relu": 3}
 #: The H100's SMs; split-K cuts a call whose output blocks number fewer
 #: than about two waves of CTAs.
 SMS = 132
@@ -153,10 +176,12 @@ class Plan:
     """How one call runs. ``instance``: "sm90" (csrc/ft_gemm_sm90.cu, at
     "tile" / "inner" csrc/ft_gemm_level_sm90.cu, for a
     2-D call, csrc/batched_sm90.cu for a batched one), "simt"
-    (csrc/ft_gemm.cu) or "plain" (tiles no kernel compiles: the plain
-    version only, on the CPU). ``a_kmajor`` / ``b_kmajor``: the unit-stride
-    dim of each operand on the tensor-core walk; ``reason``: why the
-    tensor-core instance does not take the call ("" when it does)."""
+    (csrc/ft_gemm.cu), "simt_chain" (csrc/ft_gemm_chain.cu: a 2-D call
+    whose (chain, level, act_grad) ft_gemm.cu does not compile) or "plain"
+    (tiles no kernel compiles: the plain version only, on the CPU).
+    ``a_kmajor`` / ``b_kmajor``: the unit-stride dim of each operand on the
+    tensor-core walk; ``reason``: why the tensor-core instance does not
+    take the call ("" when it does)."""
     instance: str
     tiles: Tuple[int, int, int]
     splits: int = 1
@@ -167,13 +192,29 @@ class Plan:
 
 def sm90_chain(chain: Tuple[str, ...]) -> Optional[Tuple[bool, int]]:
     """(bias, act code) of a chain the tensor-core instance applies — an
-    optional bias, then at most one activation of `SM90_ACTS` — or None."""
+    optional bias, then at most one activation of `SM90_ACTS` — or None:
+    a chain with a residual, or with the bias after the activation, runs on
+    the SIMT kernels (their epilogue reads the (M, N) residual tile; the
+    tensor-core one stages only a bias row)."""
     rest = tuple(chain)
     bias = rest[:1] == ("bias",)
     rest = rest[1:] if bias else rest
     if len(rest) > 1 or (rest and rest[0] not in SM90_ACTS):
         return None
     return bias, SM90_ACTS[rest[0] if rest else None]
+
+
+def simt_compiled(chain: Tuple[str, ...], level: str,
+                  act_grad: bool) -> bool:
+    """Whether csrc/ft_gemm.cu compiles (chain, level, act_grad) on its
+    row-major walk: `EPILOGUES` at FT off and "block" (`AG_EPILOGUES`
+    with act_grad), `LEVEL_EPILOGUES` at "tile" and "inner" (with act_grad
+    silu and bias+silu). Every other chain runs on the chain instance."""
+    chain = tuple(chain)
+    lv = "level" if level in ("tile", "inner") else "block"
+    if act_grad:
+        return chain in AG_EPILOGUES[lv]
+    return chain in (LEVEL_EPILOGUES if lv == "level" else EPILOGUES)
 
 
 def split_ranges(k: int, bk: int, splits: int):
@@ -233,7 +274,9 @@ def plan(m: int, n: int, k: int, *, dtype, level: str,
     `sm90_chain` accepts, with A read along k or m and B along n or k (not
     both transposed) as `_tma_walk` allows; it runs at `SM90_TILES` (128
     rows for M > 64) with `split_count` ranges. Every other call runs on
-    the SIMT kernel at `pick_tiles(M)`. Explicit ``tiles`` pin the
+    the SIMT kernel at `pick_tiles(M)`: `csrc/ft_gemm.cu` when
+    `simt_compiled` (chain, level, act_grad) or the call is batched, else
+    the chain instance ("simt_chain"). Explicit ``tiles`` pin the
     instance: tensor-core tiles raise ValueError for a call that instance
     cannot take. A pure function of its arguments, cached (a decode step
     plans the same few shapes hundreds of times)."""
@@ -246,7 +289,9 @@ def plan(m: int, n: int, k: int, *, dtype, level: str,
     elif dtype != torch.bfloat16:
         why = f"dtype {dtype}"
     elif sm90_chain(chain) is None:
-        why = f"the epilogue chain {chain}"
+        why = (f"the epilogue chain {chain} (the tensor cores take an "
+               f"optional bias then at most one activation; a residual or "
+               f"another order runs on the SIMT kernels)")
     elif a_k is None or b_k is None or (a_k is False and b_k is True):
         why = (f"strides A {tuple(a_strides)}, B {tuple(b_strides)} (TMA "
                f"needs a unit-stride dim, the other stride a multiple of 8, "
@@ -262,7 +307,10 @@ def plan(m: int, n: int, k: int, *, dtype, level: str,
             raise ValueError(f"ft_gemm: the tensor-core tiles {tiles} do not "
                              f"take {why}")
         return Plan("sm90", tiles, split_count(m, n, k, tiles), a_k, b_k)
-    return Plan("simt" if tiles in TILES else "plain", tiles, reason=why)
+    if tiles not in TILES:
+        return Plan("plain", tiles, reason=why)
+    simt = batched or simt_compiled(chain, level, act_grad)
+    return Plan("simt" if simt else "simt_chain", tiles, reason=why)
 
 
 def _k5_walk(k: int, n: int, s_k: int, s_n: int) -> Optional[bool]:
@@ -738,7 +786,8 @@ def ft_gemm(a: torch.Tensor, b: torch.Tensor, *,
     if p.instance == "sm90":
         return (_launch_batched_sm90 if a.dim() > 2 else _launch_sm90)(
             a, b, p, **kw)
-    return _launch(a, b, tiles=p.tiles, **kw)
+    return _launch(a, b, tiles=p.tiles,
+                   chain_instance=p.instance == "simt_chain", **kw)
 
 
 def planned_plain(a: torch.Tensor, b: torch.Tensor, *,
@@ -847,7 +896,7 @@ def _launch_batched_sm90(a, b, p: Plan, *, chain, bias, residual, ft, inj,
 
 
 def _launch(a, b, *, chain, bias, residual, ft, inj, inj_mag, tiles,
-            save_act_grad, rng):
+            save_act_grad, rng, chain_instance=False):
     if tiles not in TILES:
         raise ValueError(f"ft_gemm: tiles {tiles} are not compiled; "
                          f"choose one of {TILES}")
@@ -868,9 +917,13 @@ def _launch(a, b, *, chain, bias, residual, ft, inj, inj_mag, tiles,
     if a.dtype not in DTYPE_CODES or b.dtype != a.dtype:
         raise TypeError(f"ft_gemm: the kernel takes float32 or bfloat16 "
                         f"operands of one dtype, got {a.dtype}, {b.dtype}")
-    epi = EPILOGUES.get(chain)
-    if epi is None or (level in ("tile", "inner")
-                       and chain not in LEVEL_EPILOGUES):
+    if chain_instance:
+        if batched or sum(not epilogues.get(x).linear for x in chain) > 1:
+            raise NotImplementedError(
+                f"ft_gemm: the chain instance takes a 2-D call with at most "
+                f"one activation, got the chain {chain} "
+                f"({'batched' if batched else '2-D'})")
+    elif not simt_compiled(chain, level, save_act_grad):
         raise NotImplementedError(f"ft_gemm: the kernel has no instance for "
                                   f"the epilogue chain {chain} at FT level "
                                   f"{level!r}")
@@ -917,15 +970,21 @@ def _launch(a, b, *, chain, bias, residual, ft, inj, inj_mag, tiles,
     rep = (torch.empty(lead + (gm, gn, REPORT_WIDTH), dtype=torch.float32,
                        device=a.device) if ft_on else None)
     inj = tuple(inj) if (ft_on and inj is not None) else (0, 0, 0, 0, 0)
-    kernel = FT_GEMM_BATCHED if batched else FT_GEMM_2D_SIMT
+    if chain_instance:
+        # the runtime op list and its linear prefix (the reference's fold)
+        kernel = FT_GEMM_CHAIN
+        codes = (sum(CHAIN_OPS[x] << (3 * i) for i, x in enumerate(chain)),
+                 len(chain), epilogues.fold_split(chain), TILES.index(tiles))
+    else:
+        kernel = FT_GEMM_BATCHED if batched else FT_GEMM_2D_SIMT
+        codes = (EPILOGUES[chain], TILES.index(tiles), layout)
     kernel(a.data_ptr(), b.data_ptr(),
            None if bias is None else bias.data_ptr(),
            None if residual is None else residual.data_ptr(),
            out.data_ptr(), None if rep is None else rep.data_ptr(),
            None if act_grad is None else act_grad.data_ptr(),
            nb0, nb1, m, n, k, *sa, *sb,
-           DTYPE_CODES[a.dtype], int(ft_on), LEVELS.get(level, 0), epi,
-           TILES.index(tiles), layout,
+           DTYPE_CODES[a.dtype], int(ft_on), LEVELS.get(level, 0), *codes,
            int(ft_on and ft.verify == "step"), int(ft_on and ft.corrects),
            ft.rel_tau * F32EPS if ft_on else 0.0,
            *inj, inj_mag,

@@ -7,9 +7,12 @@
         --device cpu --dtype float32
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch arctic-480b-smoke --device cpu --dtype float32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-medium \
+        --batch 4 --prompt-len 16 --new-tokens 8
 
-The arch ids are those of `configs.registry`: the dense family and the MoE
-family (qwen3-moe-235b-a22b, arctic-480b).
+The arch ids are those of `configs.registry`: the dense family, the MoE
+family (qwen3-moe-235b-a22b, arctic-480b) and whisper-medium, whose
+frame embeddings (the frontend stub) are drawn from the seed.
 """
 from __future__ import annotations
 
@@ -56,13 +59,17 @@ def main() -> None:
                       device=dev)
     rng = np.random.default_rng(args.seed)
     prompts = rng.integers(0, cfg.vocab_size, (args.batch, args.prompt_len))
+    frames = None
+    if cfg.family == "encdec":
+        frames = rng.normal(size=(args.batch, cfg.n_audio_frames,
+                                  cfg.d_model)).astype(np.float32)
     sc = serve_lib.ServeConfig(max_len=args.max_len,
                                temperature=args.temperature)
     t0 = time.perf_counter()
     with telemetry.ft_scope() as scope:
         out = serve_lib.generate(params, prompts, cfg, run, sc,
                                  max_new_tokens=args.new_tokens,
-                                 seed=args.seed, device=dev)
+                                 extra=frames, seed=args.seed, device=dev)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
         dt = time.perf_counter() - t0

@@ -375,7 +375,13 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     mask = torch.arange(s, device=q.device)[None, :] < length[:, None]
     scores = torch.where(mask[:, None, None, :], scores,
                          torch.full_like(scores, NEG_INF))
-    p = torch.softmax(scores, dim=-1).to(q.dtype)
+    if s % 8:
+        # P's rows padded to a multiple of 8 positions (masked, so exactly
+        # zero after the softmax) and sliced back: the PV product then
+        # reads 16-byte aligned rows, as K5's tensor-core instance needs
+        # (a cross cache of 1 500 encoder frames).
+        scores = torch.nn.functional.pad(scores, (0, -s % 8), value=NEG_INF)
+    p = torch.softmax(scores, dim=-1).to(q.dtype)[..., :s]
     out = ctx.bdot(f"{site_prefix}_pv", p, v_cache.transpose(1, 2))
     return out.reshape(b, 1, h, dh)
 
@@ -427,20 +433,25 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor,
 
 def attention(p, x: torch.Tensor, cfg, ctx: Ctx, *, causal: bool = True,
               positions: Optional[torch.Tensor] = None,
+              kv: Optional[torch.Tensor] = None,
               chunk: int = 512) -> torch.Tensor:
-    """Full self-attention block. x: (B, S, d); ``p`` holds wq/wk/wv/wo
-    (and bq/bk/bv with qkv bias)."""
+    """Full attention block, self- or (with ``kv`` (B, S_kv, d), the
+    encoder's output) cross-attention. x: (B, S, d); ``p`` holds
+    wq/wk/wv/wo (and bq/bk/bv with qkv bias); k and v are projected from
+    ``kv`` when given, and RoPE applies to self-attention only."""
     b, s, _ = x.shape
+    src = x if kv is None else kv
     q = ctx.dot_fused("wq", x, p["wq"], bias=p.get("bq"))
-    k = ctx.dot_fused("wk", x, p["wk"], bias=p.get("bk"))
-    v = ctx.dot_fused("wv", x, p["wv"], bias=p.get("bv"))
+    k = ctx.dot_fused("wk", src, p["wk"], bias=p.get("bk"))
+    v = ctx.dot_fused("wv", src, p["wv"], bias=p.get("bv"))
     q = q.reshape(b, s, cfg.n_heads, cfg.head_dim)
-    k = k.reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
-    v = v.reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    k = k.reshape(b, src.shape[1], cfg.n_kv_heads, cfg.head_dim)
+    v = v.reshape(b, src.shape[1], cfg.n_kv_heads, cfg.head_dim)
     if positions is None:
         positions = torch.arange(s, device=x.device)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if kv is None:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
     out = chunked_attention(q, k, v, causal=causal, chunk=chunk, ctx=ctx)
     return ctx.dot("wo", out.reshape(b, s, -1), p["wo"])
 

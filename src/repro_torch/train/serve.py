@@ -45,15 +45,20 @@ def check_device(device) -> torch.device:
 def make_serve_fns(cfg: ModelConfig, run: RunConfig
                    ) -> Tuple[Callable, Callable]:
     """The (prefill_fn, decode_fn) pair of the model family, bound to the
-    run's FT policy and dtype; both run under `torch.inference_mode()`."""
+    run's FT policy and dtype; both run under `torch.inference_mode()`.
+    ``prefill_fn(params, tokens, cache, extra=None)``: ``extra`` is the
+    encoder-decoder family's frames (B, T_a, d), as the reference's."""
     mod = model_zoo.module_for(cfg)
     ctx = Ctx(ft=run.ft, key=None, dtype=compute_dtype(run),
               attn_impl=run.attn_impl)
 
-    def prefill_fn(params, tokens, cache):
+    def prefill_fn(params, tokens, cache, extra=None):
+        kw = {}
+        if cfg.family == "encdec" and extra is not None:
+            kw["frames"] = extra
         with torch.inference_mode():
             return mod.prefill(params, tokens, cache, cfg, ctx,
-                               chunk=run.attn_chunk)
+                               chunk=run.attn_chunk, **kw)
 
     def decode_fn(params, token, cache):
         with torch.inference_mode():
@@ -71,11 +76,13 @@ def _sample(logits: torch.Tensor, temperature: float,
 
 
 def generate(params, prompts: np.ndarray, cfg: ModelConfig, run: RunConfig,
-             sc: ServeConfig, *, max_new_tokens: int = 32, seed: int = 0,
-             device="cuda") -> np.ndarray:
+             sc: ServeConfig, *, max_new_tokens: int = 32, extra=None,
+             seed: int = 0, device="cuda") -> np.ndarray:
     """Batch-generate continuations. prompts: (B, S_prompt) int. Returns
     (B, max_new_tokens) int32 tokens (fewer when every row hit eos_id).
-    ``params`` must already live on ``device``."""
+    ``params`` must already live on ``device``. ``extra``: the
+    encoder-decoder family's frames (B, T_a, d), a tensor or an array,
+    moved to ``device``."""
     dev = check_device(device)
     mod = model_zoo.module_for(cfg)
     prefill_fn, decode_fn = make_serve_fns(cfg, run)
@@ -84,7 +91,11 @@ def generate(params, prompts: np.ndarray, cfg: ModelConfig, run: RunConfig,
     gen = torch.Generator(device=dev).manual_seed(seed)
     tokens_in = torch.as_tensor(np.asarray(prompts), dtype=torch.long,
                                 device=dev)
-    logits, cache = prefill_fn(params, tokens_in, cache)
+    if extra is not None and not isinstance(extra, torch.Tensor):
+        extra = torch.from_numpy(np.asarray(extra, dtype=np.float32))
+    if extra is not None:
+        extra = extra.to(dev)
+    logits, cache = prefill_fn(params, tokens_in, cache, extra)
     out: List[torch.Tensor] = []
     tok = _sample(logits.reshape(b, -1), sc.temperature, gen)[:, None]
     done = torch.zeros(b, dtype=torch.bool, device=dev)

@@ -168,9 +168,8 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
         ft_gemm.ft_gemm(a[None, None, None], b, ft=FT)        # 3 batch dims
     with pytest.raises(ValueError):
         ft_gemm.ft_gemm(a, b, ft=FT, tiles=(32, 32, 32))
-    with pytest.raises(NotImplementedError):
-        ft_gemm.ft_gemm(a, b, ft=FT, chain=("gelu", "residual"),
-                        residual=torch.ones(8, 8, device="cuda"))
+    with pytest.raises(NotImplementedError):    # two activations
+        ft_gemm.ft_gemm(a, b, ft=FT, chain=("gelu", "relu"))
     from repro_torch.kernels import grouped_gemm    # K7 at tile: its SIMT
     before = grouped_gemm.FT_GEMM_GROUPED_SIMT.launches  # instance, planned
     out, rep = grouped_gemm.ft_gemm_grouped(
@@ -182,8 +181,10 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     assert grouped_gemm.FT_GEMM_GROUPED_SIMT.launches == before + 1
     assert torch.equal(out, torch.full((16, 8), 16.0, device="cuda"))
     assert float(rep[..., 0].sum()) == 0.0
-    with pytest.raises(NotImplementedError):       # no gelu at the tile level
-        ft_gemm.ft_gemm(a, b, ft=FT.replace(level="tile"), chain=("gelu",))
+    with pytest.raises(NotImplementedError):       # two activations at tile
+        ft_gemm.ft_gemm(a, b, ft=FT.replace(level="tile"),
+                        chain=("gelu", "residual", "silu"),
+                        residual=torch.ones(8, 8, device="cuda"))
     with pytest.raises(TypeError):
         ft_gemm.ft_gemm(a.half(), b.half(), ft=FT)
     q = torch.ones(2, 8, 96, device="cuda")
@@ -2373,3 +2374,148 @@ def test_grouped_level_sm90_matches_plain(cuda, level, walk):
             assert float(rep[i, 1, 1]) == 1.0 and float(rep[t, 1, 1]) == 2.0
         else:
             assert float(rep[..., 1].sum()) == 0.0
+
+
+# ---------------------------------------------------------------------------
+# K1's last epilogue chains: gelu / relu on the tensor cores, the SIMT
+# chain instance (csrc/ft_gemm_chain.cu), whisper on the card
+# ---------------------------------------------------------------------------
+
+CHAIN_CASES = [("bias", "relu"), ("bias", "gelu"), ("gelu",), ("relu",),
+               ("residual",), ("gelu", "residual"), ("bias", "residual"),
+               ("residual", "bias", "silu"), ("bias", "gelu", "residual"),
+               ("relu", "bias")]
+
+
+@pytest.mark.parametrize("level", ["off", "block", "tile", "inner"])
+@pytest.mark.parametrize("chain", CHAIN_CASES, ids="+".join)
+def test_chain_instance_matches_plain_f32(cuda, chain, level):
+    """Every chain `plan` sends to the chain instance, f32 integer operands
+    at both SIMT tiles and a ragged shape: outputs (and act_grad) equal to
+    the plain version's, reports equal, an SEU corrected (FT on)."""
+    act = any(x in ("silu", "gelu", "relu") for x in chain)
+    for m, n, k in ((7, 130, 200), (100, 200, 97)):
+        gen = torch.Generator(device="cuda").manual_seed(m + len(chain))
+        a, b = _ints(gen, m, k), _ints(gen, k, n)
+        bias = _ints(gen, n) if "bias" in chain else None
+        res = _ints(gen, m, n) if "residual" in chain else None
+        ft = None if level == "off" else FT.replace(level=level)
+        for ag in ((False, True) if act else (False,)):
+            p = ft_gemm.plan_call(a, b, chain=chain, ft=ft, save_act_grad=ag)
+            if ft_gemm.simt_compiled(chain, level, ag):
+                assert p.instance == "simt"
+                continue
+            assert p.instance == "simt_chain"
+            for inj in ((None,) if ft is None else (None, (1, -1, m - 1, 3,
+                                                           1))):
+                kw = dict(chain=chain, bias=bias, residual=res, ft=ft,
+                          inj=inj, inj_mag=99.0, save_act_grad=ag)
+                before = ft_gemm.FT_GEMM_CHAIN.launches
+                got, rep = ft_gemm.ft_gemm(a, b, **kw)
+                assert ft_gemm.FT_GEMM_CHAIN.launches == before + 1
+                want, rep_p = ft_gemm.planned_plain(a, b, **kw)
+                for g_, w_ in zip(got if ag else (got,),
+                                  want if ag else (want,)):
+                    torch.testing.assert_close(g_, w_, rtol=1e-5, atol=1e-5)
+                if ft is not None:
+                    _check_reports(rep, rep_p)
+                    assert float(rep[..., 0].sum()) == \
+                        float(rep[..., 1].sum()) == (inj is not None)
+
+
+def test_chain_instance_bf16_matches_plain(cuda):
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    m, n, k = 300, 520, 700
+    a = (torch.randn(m, k, generator=gen, device="cuda")).bfloat16()
+    b = (torch.randn(k, n, generator=gen, device="cuda") * 0.05).bfloat16()
+    bias = (torch.randn(n, generator=gen, device="cuda") * 0.1).bfloat16()
+    res = torch.randn(m, n, generator=gen, device="cuda").bfloat16()
+    for chain in (("gelu", "residual"), ("bias", "residual", "relu"),
+                  ("silu", "bias")):
+        for level in ("block", "tile", "inner"):
+            kw = dict(chain=chain, ft=FT.replace(level=level),
+                      bias=bias if "bias" in chain else None,
+                      residual=res if "residual" in chain else None)
+            assert ft_gemm.plan_call(a, b, chain=chain, ft=kw["ft"]
+                                     ).instance == "simt_chain"
+            out, rep = ft_gemm.ft_gemm(a, b, **kw)
+            want, rep_p = ft_gemm.planned_plain(a, b, **kw)
+            tol = 2.0 ** -7 * float(want.float().abs().max())
+            assert float((out.float() - want.float()).abs().max()) <= tol
+            assert float(rep[..., 0].sum()) == 0.0
+
+
+@pytest.mark.parametrize("level", ["off", "block", "tile", "inner"])
+@pytest.mark.parametrize("act", ["gelu", "relu"])
+def test_gelu_relu_on_the_tensor_cores_match_plain(cuda, act, level):
+    """bias? + gelu / relu with and without act_grad on K1's tensor-core
+    instances (split-K at 4 rows), bf16 against the plain version under
+    the same plan; integer operands with an SEU (FT on) corrected bit for
+    bit."""
+    counter = (ft_gemm.FT_GEMM_LEVEL_SM90 if level in ("tile", "inner")
+               else ft_gemm.FT_GEMM_SM90)
+    ft = None if level == "off" else FT.replace(level=level)
+    for m, n, k in ((4, 1024, 1024), (300, 520, 704)):
+        gen = torch.Generator(device="cuda").manual_seed(m + n)
+        a = _ints(gen, m, k, dtype=torch.bfloat16)
+        b = _ints(gen, k, n, dtype=torch.bfloat16)
+        bias = _ints(gen, n, dtype=torch.bfloat16)
+        for chain in ((act,), ("bias", act)):
+            for ag in (False, True):
+                kw = dict(chain=chain, ft=ft, save_act_grad=ag,
+                          bias=bias if "bias" in chain else None)
+                p = ft_gemm.plan_call(a, b, chain=chain, ft=ft,
+                                      save_act_grad=ag)
+                assert p.instance == "sm90"
+                for inj in ((None,) if ft is None else
+                            (None, (1, -1, m - 1, n - 2, 1))):
+                    before = counter.launches
+                    got, rep = ft_gemm.ft_gemm(a, b, inj=inj, inj_mag=64.0,
+                                               **kw)
+                    assert counter.launches == before + 1
+                    want, rep_p = ft_gemm.planned_plain(a, b, inj=inj,
+                                                        inj_mag=64.0, **kw)
+                    for g_, w_ in zip(got if ag else (got,),
+                                      want if ag else (want,)):
+                        tol = 2.0 ** -7 * float(w_.float().abs().max())
+                        assert float((g_.float() - w_.float()).abs().max()
+                                     ) <= tol
+                    if ft is not None:
+                        _check_fields(rep, rep_p)
+                        assert float(rep[..., 1].sum()) == (inj is not None)
+
+
+def test_whisper_smoke_generate_on_card_matches_cpu(cuda):
+    """whisper SMOKE through `generate` on the card (K1 SIMT and chain
+    instances in f32, K2 SIMT at dh 64, K5) against the CPU plain run:
+    greedy tokens equal in f32; the bf16 prefill logits (tensor-core K1)
+    within 2e-2 of the CPU bf16 run's max |logit|."""
+    import numpy as np
+    from repro_torch.configs import registry
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.models import whisper
+    from repro_torch.train import serve
+    cfg = registry.get_smoke("whisper-medium")
+    rng = np.random.default_rng(0)
+    prompts = rng.integers(0, cfg.vocab_size, (2, 8))
+    frames = rng.normal(size=(2, cfg.n_audio_frames, cfg.d_model)
+                        ).astype(np.float32)
+    sc = serve.ServeConfig(max_len=32)
+    params = whisper.init(cfg, seed=0, dtype=torch.float32, device="cpu")
+    run = RunConfig(model=cfg, ft=FT, dtype="float32", attn_chunk=16)
+    want = serve.generate(params, prompts, cfg, run, sc, max_new_tokens=4,
+                          extra=frames, device="cpu")
+    got = serve.generate(params.to("cuda"), prompts, cfg, run, sc,
+                         max_new_tokens=4, extra=frames, device="cuda")
+    np.testing.assert_array_equal(got, want)
+    run16 = RunConfig(model=cfg, ft=FT, dtype="bfloat16", attn_chunk=16)
+    p16 = whisper.init(cfg, seed=0, dtype=torch.bfloat16, device="cpu")
+    logits = []
+    for dev in ("cpu", "cuda"):
+        pre, _ = serve.make_serve_fns(cfg, run16)
+        cache = whisper.init_cache(cfg, 2, 32, torch.bfloat16, dev)
+        lg, _ = pre(p16.to(dev), torch.as_tensor(prompts, device=dev), cache,
+                    torch.as_tensor(frames, device=dev))
+        logits.append(lg.float().cpu())
+    err = float((logits[1] - logits[0]).abs().max())
+    assert err <= 2e-2 * float(logits[0].abs().max())
