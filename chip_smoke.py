@@ -282,9 +282,10 @@ Phases (each prints its own lines; any failed check exits non-zero):
                block, tile and inner) at rate 0 and 1.0 beside their clean
                calls (K5 at decode by calls
                queued behind a device-side sleep). Then the flash family's
-               eight instances on Gaussian bf16 (f32 for the SIMT ones) under
+               nine instances on Gaussian bf16 (f32 for the SIMT ones) under
                the same triple at rates 0.5 and 1.0: K2 on the tensor cores at
-               the prefill shape and at phi4-mini's S 512, K3 and K4 at
+               the prefill shape and at phi4-mini's S 512 (dh 128) and at
+               whisper's dh 64 (16 heads over 300 frames), K3 and K4 at
                phi4-mini's S 512 (K4 in 3 ranges), K6 at the engine's shape (9
                ranges), the SIMT K2, K3, K4 and K6 in f32 and K6 at pages of
                16: reports equal to the planned plain version's in det / corr
@@ -329,12 +330,18 @@ Phases (each prints its own lines; any failed check exits non-zero):
                decode steps (the same tokens fed to both) through the
                kernels and through their plain versions at FT off, block,
                tile and inner (logits within 2e-2 of max|logit|, no
-               detection, launch counts); K2 (SIMT, dh 64) at the encoder's
-               1 500-frame self-attention and the prefill's cross-attention
-               and K5 at the cross cache's xdec_qk / xdec_pv (K 64 / 1 500;
-               tau's k 1 500; an SEU in the ragged last k-step corrected)
-               against their plain versions, times beside SDPA /
-               torch.matmul and the bound;
+               detection, launch counts); K2 on the tensor cores at dh 64
+               (csrc/flash_fwd_sm90.cu) at the encoder's 1 500-frame
+               self-attention (with and without the statistics), the
+               prefill's cross-attention and the decoder's causal 16-token
+               self-attention, each as the train_kernels phase checks K2
+               (plan, launches, the plain version, an SEU in S and in Δ
+               corrected, located and left by detect-only), timed beside the
+               SIMT instance (pinned blocks), the same call zero-padded to dh
+               128, SDPA and the bound; and K5 at the cross cache's xdec_qk /
+               xdec_pv (K 64 / 1 500; tau's k 1 500; an SEU in the ragged
+               last k-step corrected) against their plain versions, times
+               beside torch.matmul and the bound;
   whisper_serve  `generate` on whisper-medium at full width and depth (24 +
                24 layers, random bf16 weights from a seed): 4 requests of 16
                prompt tokens over 1 500 frames drawn from the seed, 8 greedy
@@ -343,9 +350,13 @@ Phases (each prints its own lines; any failed check exits non-zero):
                plain-matmul fast path, as in the reference), the dispatch
                guard, prefill and decode times, tokens/s, peak memory, one
                decode step and one prefill under torch.profiler (busy time,
-               idle share); an SEU in encoder layer 0's w1 at block, tile
-               and inner corrected (the clean run's tokens, its prefill
-               logits to bf16 rounding) and left by detect-only.
+               idle share); at block the prefill and `generate` again with
+               K2 pinned to its SIMT instance (`simt_flash_fwd`): logits
+               within 2e-2 of max|logit| of the tensor cores', its profile,
+               the greedy tokens compared (printed); an SEU in encoder
+               layer 0's w1 at block, tile and inner corrected (the clean
+               run's tokens, its prefill logits to bf16 rounding) and left
+               by detect-only.
 
 The last two lines are {"kernels": [...]} and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -462,13 +473,13 @@ KERNELS = {
                             replaces="src/repro/kernels/templates/"
                                      "registry.py:520",
                             counter=ft_gemm.FT_GEMM_BATCHED),
-    # K2 on the tensor cores: every bf16 call at head dim 128
+    # K2 on the tensor cores: every bf16 call at head dim 64 or 128
     "flash_ft_sm90": dict(route="cuda",
                           source="src/repro_torch/kernels/csrc/"
                                  "flash_fwd_sm90.cu",
                           replaces="src/repro/kernels/flashft.py:114",
                           counter=flashft.FLASH_FT_SM90),
-    # its SIMT instance: f32, head dim 64, pinned blocks
+    # its SIMT instance: f32, pinned blocks
     "flash_ft": dict(route="cuda",
                      source="src/repro_torch/kernels/csrc/flash_ft.cu",
                      replaces="src/repro/kernels/flashft.py:114",
@@ -575,8 +586,8 @@ def k5_launches(count: int):
 
 
 def k2_launches(count: int):
-    """K2's expected counts on a bf16 path at head dim 128: every launch on
-    the tensor-core instance."""
+    """K2's expected counts on a bf16 path at head dim 64 or 128: every
+    launch on the tensor-core instance."""
     return {"flash_ft_sm90": count, "flash_ft": 0}
 
 
@@ -2437,25 +2448,32 @@ def _flash_bwd_bounds(bh, g, s, dh, causal):
     return dq, dkv
 
 
-def _flash_fwd_kernels(gen, label, n_heads, n_kv, batch, s, save_stats):
-    """K2 at one attention shape (batch x s tokens, n_heads / n_kv heads,
-    dh 128, causal, bf16): the plan (the tensor-core instance, one launch
-    and none of the SIMT one); the kernel against its plain version
-    (outputs within BF16_TOL; with ``save_stats`` m and l within 1e-3;
-    reports det / corr / row / col / k equal, tau within 1e-5, no
-    detection); the SIMT instance (pinned blocks) against the same plain
-    version; on integer operands an SEU in S and one in Δ, each corrected,
-    located and left by a detect-only policy; CUDA-event times of both
-    instances, the plain version and one SDPA forward, and the bound.
-    Returns the rows of flash_ft_sm90 and flash_ft."""
-    dh, blk = 128, flashft.BLOCK
+def _flash_fwd_kernels(gen, label, n_heads, n_kv, batch, s, save_stats,
+                       dh=128, causal=True, skv=None):
+    """K2 at one attention shape (batch x s query tokens over ``skv`` keys,
+    s by default, n_heads / n_kv heads, head dim ``dh``, causal or not,
+    bf16): the plan (the tensor-core instance, one launch and none of the
+    SIMT one); the kernel against its plain version (outputs within
+    BF16_TOL; with ``save_stats`` m and l within 1e-3; reports det / corr /
+    row / col / k equal, tau within 1e-5, no detection); the SIMT instance
+    (pinned blocks) against the same plain version; on integer operands an
+    SEU in S and one in Δ, each corrected, located and left by a detect-
+    only policy; CUDA-event times of both instances, the plain version,
+    one SDPA forward and, at dh 64, the same call zero-padded to dh 128
+    (the reference's width) on the dh-128 instance, each also as a device
+    time (`queued_ms`: a short call's CUDA-event time is the host's launch
+    time); the bound. Returns the rows of flash_ft_sm90 and flash_ft."""
+    skv = s if skv is None else skv
+    blk = flashft.BLOCK
     bh, gk = batch * n_heads, batch * n_kv
     n_rep, nqb = bh // gk, -(-s // blk)
-    shape = f"{label}, {bh} heads / {gk} kv heads, S {s}, dh {dh}, causal"
-    fkw = dict(ft=FT, scale=dh ** -0.5, tau_dh=dh, n_rep=n_rep, causal=True,
-               save_stats=save_stats)
-    q, k, v = _rand(gen, bh, s, dh), _rand(gen, gk, s, dh), \
-        _rand(gen, gk, s, dh)
+    shape = (f"{label}, {bh} heads / {gk} kv heads, "
+             f"{f'S {s}' if skv == s else f'Sq {s}, Skv {skv}'}, dh {dh}, "
+             f"{'causal' if causal else 'non-causal'}")
+    fkw = dict(ft=FT, scale=dh ** -0.5, tau_dh=128, n_rep=n_rep,
+               causal=causal, save_stats=save_stats)
+    q, k, v = _rand(gen, bh, s, dh), _rand(gen, gk, skv, dh), \
+        _rand(gen, gk, skv, dh)
     p = flashft.plan_fwd(q, k, v)
     check(p.instance == "sm90", f"K2 {label}: the tensor-core instance ({p})")
     names = ("flash_ft_sm90", "flash_ft")
@@ -2479,19 +2497,24 @@ def _flash_fwd_kernels(gen, label, n_heads, n_kv, batch, s, save_stats):
     simt_err = _cmp_outputs(f"K2 SIMT {label} out", res_s[0], res_p[0],
                             res_s[-1], res_p[-1])
     # SEUs on integer-valued q, k, v: in S and in Δ of the last query
-    # head's last q block at kv step 1, at a live (row, col).
-    ints = (_ints(gen, bh, s, dh), _ints(gen, gk, s, dh),
-            _ints(gen, gk, s, dh))
+    # head's last q block at kv step 1 (0 when that block has one), at a
+    # live (row, col).
+    ints = (_ints(gen, bh, s, dh), _ints(gen, gk, skv, dh),
+            _ints(gen, gk, skv, dh))
     clean = flashft.flash_ft_fwd(*ints, **fkw)
     qb, row = nqb - 1, min(63, s - 1 - (nqb - 1) * blk)
-    for target, col in ((flashft.INJ_S, 40), (flashft.INJ_DELTA, 99)):
-        inj = (target, bh - 1, qb, 1, row, col)
+    last = qb * blk + row + skv - s if causal else skv - 1  # its last key
+    step = min(1, last // blk)
+    s_col = min(40, last - step * blk)
+    for target, col in ((flashft.INJ_S, s_col),
+                        (flashft.INJ_DELTA, min(99, dh - 5))):
+        inj = (target, bh - 1, qb, step, row, col)
         what = "S" if target == flashft.INJ_S else "Δ"
         fixed = flashft.flash_ft_fwd(*ints, inj=inj, inj_mag=300.0, **fkw)
         left = flashft.flash_ft_fwd(*ints, inj=inj, inj_mag=300.0,
                                     **dict(fkw, ft=DETECT))
         rep, rep_d, cell = fixed[-1], left[-1], fixed[-1][bh - 1, qb]
-        at = (qb * blk + row, blk + col if what == "S" else col)
+        at = (qb * blk + row, step * blk + col if what == "S" else col)
         check(float(rep[..., 0].sum()) == 1.0 and float(rep[..., 1].sum())
               == 1.0 and (int(cell[2]), int(cell[3])) == at
               and abs(float(cell[4]) - 300.0) < 1.0,
@@ -2515,24 +2538,41 @@ def _flash_fwd_kernels(gen, label, n_heads, n_kv, batch, s, save_stats):
                       warmup=1)
     plain_ms = time_ms(lambda: flashft.flash_ft_plain(q, k, v, **fkw), 1,
                        warmup=0)
+    calls = {"kernel": lambda: flashft.flash_ft_fwd(q, k, v, **fkw),
+             "SIMT": lambda: flashft.flash_ft_fwd(q, k, v, **pin)}
+    pad_ms = None
+    if dh < 128:
+        padded = [torch.nn.functional.pad(x, (0, 128 - dh)).contiguous()
+                  for x in (q, k, v)]
+        calls["padded"] = lambda: flashft.flash_ft_fwd(*padded, **fkw)
+        pad_ms = time_ms(calls["padded"], 20)
     q4 = q.view(batch, n_heads, s, dh)
-    k4, v4 = (x.view(batch, n_kv, s, dh).repeat_interleave(n_rep, dim=1)
+    k4, v4 = (x.view(batch, n_kv, skv, dh).repeat_interleave(n_rep, dim=1)
               for x in (k, v))
-    lib_ms = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
-        q4, k4, v4, is_causal=True), 20)
-    pairs = s * (s + 1) // 2
+    calls["SDPA"] = lambda: torch.nn.functional.scaled_dot_product_attention(
+        q4, k4, v4, is_causal=causal)
+    lib_ms = time_ms(calls["SDPA"], 20)
+    device = {n: queued_ms(fn, iters=5 if n == "SIMT" else 30)
+              for n, fn in calls.items()}
+    # live (query, key) pairs: bottom-right-aligned causal, else all
+    pairs = (s * (skv - s) + s * (s + 1) // 2) if causal else s * skv
     b_ms, b_by = bound(4.0 * dh * pairs * bh,
-                       2 * dh * s * (2 * bh + 2 * gk)
+                       2 * dh * (2 * s * bh + 2 * skv * gk)
                        + (2 * 4 * bh * s if save_stats else 0))
     print(f"  K2 {shape}{' with stats' if save_stats else ''}: kernel "
-          f"{ms:.4f} ms, SIMT {simt_ms:.4f} ms ({simt_ms / ms:.1f}x), plain "
-          f"{plain_ms:.2f} ms, SDPA forward {lib_ms:.4f} ms, bound "
-          f"{b_ms:.5f} ms ({b_by})")
-    lib = "SDPA forward, KV repeated"
+          f"{ms:.4f} ms, SIMT {simt_ms:.4f} ms ({simt_ms / ms:.1f}x), "
+          + (f"padded to dh 128 {pad_ms:.4f} ms, " if pad_ms else "")
+          + f"plain {plain_ms:.2f} ms, SDPA forward {lib_ms:.4f} ms, bound "
+          f"{b_ms:.5f} ms ({b_by}); device ms (queued): "
+          + ", ".join(f"{n} {x:.4f}" for n, x in device.items()))
+    lib = "SDPA forward" + (", KV repeated" if n_rep > 1 else "")
+    row = dict(shape=shape, ms=ms, simt_ms=simt_ms, plain_ms=plain_ms,
+               library_ms=lib_ms, library=lib, bound_ms=b_ms, bound_by=b_by,
+               device_ms=device)
+    if pad_ms is not None:
+        row["padded_dh128_ms"] = pad_ms
     return {
-        "flash_ft_sm90": dict(max_abs_err=err, detail=[dict(
-            shape=shape, ms=ms, simt_ms=simt_ms, plain_ms=plain_ms,
-            library_ms=lib_ms, library=lib, bound_ms=b_ms, bound_by=b_by)]),
+        "flash_ft_sm90": dict(max_abs_err=err, detail=[row]),
         "flash_ft": dict(max_abs_err=simt_err, detail=[dict(
             shape=shape, ms=simt_ms, plain_ms=plain_ms, library_ms=lib_ms,
             library=lib, bound_ms=b_ms, bound_by=b_by)]),
@@ -4860,7 +4900,7 @@ def _flash_fwd_case(label, counter, q, k, v, n_rep, causal=True,
 
     return (label, counter, call, plain,
             lambda ft, rng: flashft.seu_fwd_draws(
-                rng, ft, q.shape[0], q.shape[1], k.shape[1], 128,
+                rng, ft, q.shape[0], q.shape[1], k.shape[1], q.shape[-1],
                 causal=causal, device="cuda")[0])
 
 
@@ -4977,6 +5017,12 @@ def _flash_campaign_kernels(gen):
                      gen, torch.float32, kv_cache.DEFAULT_PAGE, True)[0],
         _decode_case("K6 simt bf16 engine, pages of 16", flashft.FLASH_DECODE,
                      gen, bf, 16, True)[0],
+        # the dh-64 instance (a direct call: the front pads dh to 128 under
+        # a campaign), whisper's 16 heads over 300 frames, MHA
+        _flash_fwd_case("K2 sm90 dh 64 16 heads S 300 non-causal",
+                        flashft.FLASH_FT_SM90, *(_rand(gen, 16, 300, 64)
+                                                 for _ in range(3)), 1,
+                        causal=False),
     ]
     counts = {}
     for case in cases:
@@ -5743,7 +5789,7 @@ def whisper_launches(cfg, level, prefills, decodes):
     decoder layer and the head per prefill, 8 per decoder layer and the
     head per decode step, all on the level's tensor-core instance (w1's
     gelu too); K2 once per encoder layer and twice per decoder layer per
-    prefill, on the SIMT instance (head dim 64); K5 4 per decoder layer
+    prefill, on the tensor cores at head dim 64; K5 4 per decoder layer
     per decode step on the tensor cores. FT off runs none: its products
     are the plain-matmul fast path, as in the reference."""
     if level == "off":
@@ -5752,57 +5798,31 @@ def whisper_launches(cfg, level, prefills, decodes):
           + decodes * (8 * cfg.n_layers + 1))
     return {**k1_launches(k1, level),
             **k5_launches(4 * cfg.n_layers * decodes),
-            "flash_ft_sm90": 0,
-            "flash_ft": prefills * (cfg.enc_layers + 2 * cfg.n_layers),
+            **k2_launches(prefills * (cfg.enc_layers + 2 * cfg.n_layers)),
             **NO_FLASH_BWD, **k6_launches(0), **OFF_PATH}
 
 
 def _whisper_attention_kernels(gen, cfg):
-    """K2 (SIMT, dh 64) at the encoder's self-attention (4 x 16 heads over
-    1 500 frames, non-causal) and the prefill's cross-attention (16 queries
-    over 1 500 frames), and K5 at the decode step's cross-cache products
-    (xdec_qk, K = 64; xdec_pv, K = 1 500, P's rows padded to 1 504): each
-    against its plain version (bf16), an SEU in K5's ragged last k-step
-    corrected, the times beside the library call and the bound."""
+    """K2 on the tensor cores at head dim 64 (`_flash_fwd_kernels`) at the
+    prefill's three attention shapes: the encoder's self-attention (4 x 16
+    heads over 1 500 frames, non-causal; with and without the statistics),
+    the cross-attention (16 queries over 1 500 frames) and the decoder's
+    causal self-attention (16 tokens); and K5 at the decode step's
+    cross-cache products (xdec_qk, K = 64; xdec_pv, K = 1 500, P's rows
+    padded to 1 504): each against its plain version (bf16), an SEU in
+    K5's ragged last k-step corrected, the times beside the library call
+    and the bound."""
     dh, h, ta = cfg.head_dim, cfg.n_heads, cfg.n_audio_frames
-    bh = W_BATCH * h
-    out = {"flash_ft": dict(max_abs_err=0.0, detail=[]),
-           "ft_gemm_batched_sm90": dict(max_abs_err=0.0, detail=[])}
-    for label, sq in (("encoder self-attention", ta),
-                      ("cross-attention prefill", W_PROMPT)):
-        q, kk, vv = _rand(gen, bh, sq, dh), _rand(gen, bh, ta, dh), \
-            _rand(gen, bh, ta, dh)
-        p = flashft.plan_fwd(q, kk, vv)
-        check(p.instance == "simt", f"K2 whisper {label}: the SIMT "
-              f"instance at head dim {dh} ({p})")
-        fkw = dict(ft=FT, scale=dh ** -0.5, tau_dh=128, causal=False)
-        before = flashft.FLASH_FT.launches
-        got = flashft.flash_ft_fwd(q, kk, vv, **fkw)
-        check(flashft.FLASH_FT.launches == before + 1,
-              f"K2 whisper {label}: one SIMT launch")
-        want = flashft.flash_ft_plain(q, kk, vv, bq=flashft.BLOCK,
-                                      bkv=flashft.BLOCK, **fkw)
-        out["flash_ft"]["max_abs_err"] = max(
-            out["flash_ft"]["max_abs_err"],
-            _cmp_outputs(f"K2 whisper {label}", got[0], want[0], got[-1],
-                         want[-1]))
-        ms = time_ms(lambda: flashft.flash_ft_fwd(q, kk, vv, **fkw), 5,
-                     warmup=1)
-        plain_ms = time_ms(lambda: flashft.flash_ft_plain(
-            q, kk, vv, bq=flashft.BLOCK, bkv=flashft.BLOCK, **fkw), 1,
-            warmup=0)
-        q4, k4, v4 = (x.view(W_BATCH, h, -1, dh) for x in (q, kk, vv))
-        lib_ms = time_ms(lambda: torch.nn.functional
-                         .scaled_dot_product_attention(q4, k4, v4), 10)
-        b_ms, b_by = bound(4.0 * dh * sq * ta * bh,
-                           2 * dh * bh * (2 * sq + 2 * ta))
-        out["flash_ft"]["detail"].append(dict(
-            shape=f"whisper {label}, {bh} heads, Sq {sq}, Skv {ta}, dh {dh}",
-            ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-            library="SDPA forward", bound_ms=b_ms, bound_by=b_by))
-        print(f"  K2 SIMT whisper {label} ({bh} heads, Sq {sq}, Skv {ta}, dh "
-              f"{dh}): {ms:.4f} ms, plain {plain_ms:.2f} ms, SDPA "
-              f"{lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by})")
+    out = {"ft_gemm_batched_sm90": dict(max_abs_err=0.0, detail=[])}
+    for label, sq, skv, causal, stats in (
+            ("whisper encoder self-attention", ta, ta, False, False),
+            ("whisper encoder self-attention", ta, ta, False, True),
+            ("whisper cross-attention prefill", W_PROMPT, ta, False, False),
+            ("whisper decoder self-attention prefill", W_PROMPT, W_PROMPT,
+             True, False)):
+        _merge_rows(out, _flash_fwd_kernels(gen, label, h, h, W_BATCH, sq,
+                                            stats, dh=dh, causal=causal,
+                                            skv=skv))
     # K5 over the cross cache, as decode_attention passes it
     xk = _rand(gen, W_BATCH, ta, h, dh)
     xv = _rand(gen, W_BATCH, ta, h, dh)
@@ -5920,7 +5940,8 @@ def w1_seu(mag=64.0, step=1):
 
 def phase_whisper_serve(smi: str):
     """`generate` on whisper-medium at full width and depth at FT off,
-    block, tile and inner; an SEU in w1 at each level corrected."""
+    block, tile and inner; at block again with K2 pinned to its SIMT
+    instance; an SEU in w1 at each level corrected."""
     cfg, params, prompts, frames, _ = _whisper_model()
     prompts_np = prompts.cpu().numpy()
     sc = serve.ServeConfig(max_len=W_MAX_LEN)
@@ -6003,6 +6024,30 @@ def phase_whisper_serve(smi: str):
               f"{[round(x, 2) for x in dec]}, peak {peak:.2f} GiB")
         for k_, v_ in prof.items():
             print(f"  {name} {k_} profile: {v_}")
+    # K2 pinned to its SIMT instance (head dim 64 as it ran before the
+    # tensor cores took it) at block: the prefill's logits against the
+    # tensor cores' (the whisper_check rule), its busy time, and whether
+    # the greedy tokens are the same (printed: a near-tie may flip one).
+    run = _w_run(cfg, "block")
+    prefill_fn, _ = serve.make_serve_fns(cfg, run)
+    tc_logits, _ = prefill_fn(params, prompts, whisper.init_cache(
+        cfg, W_BATCH, W_MAX_LEN), frames)
+    with simt_flash_fwd():
+        simt_logits, _ = prefill_fn(params, prompts, whisper.init_cache(
+            cfg, W_BATCH, W_MAX_LEN), frames)
+        simt_toks = serve.generate(params, prompts_np, cfg, run, sc,
+                                   max_new_tokens=W_NEW_TOKENS, extra=frames,
+                                   device="cuda")
+        fresh = whisper.init_cache(cfg, W_BATCH, W_MAX_LEN)
+        summary["block"]["profile"]["prefill SIMT K2"] = device_profile(
+            lambda: prefill_fn(params, prompts, fresh, frames))
+    _check_logits("whisper_serve block, K2 on the tensor cores vs SIMT",
+                  [tc_logits.float()], [simt_logits.float()])
+    same = int((simt_toks == tokens_at["block"]).sum())
+    summary["block"]["simt_k2_same_tokens"] = same
+    print(f"  whisper_serve block, K2 SIMT: {same} of {simt_toks.size} "
+          f"greedy tokens as on the tensor cores; prefill profile "
+          f"{summary['block']['profile']['prefill SIMT K2']}")
     # An SEU in encoder layer 0's w1 at each level: corrected, the prefill
     # logits those of the clean run to bf16 rounding, the tokens the clean
     # run's; detect-only leaves it (logits off, no correction).

@@ -1,13 +1,14 @@
 // The flash-attention pieces shared by csrc/flash_bwd_sm90.cu (K3, K4)
-// and csrc/flash_fwd_sm90.cu (K2) on the tensor cores, bf16 at head dim
-// 128 over 64-row blocks: named barriers of a consumer warpgroup, the
-// 128-byte-swizzled tiles TMA stages and the checksums read from them
-// (col_reduce, row_dot), the hi / lo staging of an f32 operand, the
-// wgmma products of the two block shapes (mma_abt, mma_ab), and the
-// verification of a 64 x N accumulator from its wgmma fragment
-// (verify_frag), and the stochastic SEU of seu_hook.cuh landed in a
-// fragment (frag_seu). What each kernel does with them is in the note at
-// the head of its source.
+// and csrc/flash_fwd_sm90.cu (K2) on the tensor cores, bf16 over 64-row
+// blocks at head dim 128 (K2 also at 64: the pieces that depend on the
+// head dim take it as the template parameter DH, 128 by default): named
+// barriers of a consumer warpgroup, the 128-byte-swizzled tiles TMA
+// stages and the checksums read from them (col_reduce, row_dot), the hi /
+// lo staging of an f32 operand, the wgmma products of the two block
+// shapes (mma_abt, mma_ab), and the verification of a 64 x N accumulator
+// from its wgmma fragment (verify_frag), and the stochastic SEU of
+// seu_hook.cuh landed in a fragment (frag_seu). What each kernel does
+// with them is in the note at the head of its source.
 #pragma once
 
 #include <cuda.h>
@@ -22,7 +23,10 @@ namespace {
 
 constexpr int kDh = 128;                 // head dim of the instances
 constexpr int kB = 64;                   // q and kv block rows
-constexpr int kTile = kB * kDh * 2;      // a 64 x 128 bf16 tile: two boxes
+// A 64 x DH bf16 tile: DH / 64 boxes.
+template <int DH>
+constexpr int kTileBytes = kB * DH * 2;
+constexpr int kTile = kTileBytes<kDh>;   // a 64 x 128 bf16 tile: two boxes
 constexpr int kHalf = kB * kB * 2;       // a 64 x 64 bf16 tile: one box
 constexpr int kNT = 128;                 // threads of a consumer warpgroup
 constexpr float kNegInf = -1e30f;
@@ -53,12 +57,13 @@ struct FragVerify {
 // staged tiles
 // ---------------------------------------------------------------------------
 
-// A 64 x 128 tile (rows row0 .. row0 + 63 of head h) as its two 64 x 64
-// boxes (dh 0..63, 64..127), 128-byte swizzled.
+// A 64 x DH tile (rows row0 .. row0 + 63 of head h) as its 64 x 64 boxes
+// (dh 0..63, 64..127), 128-byte swizzled.
+template <int DH = kDh>
 __device__ __forceinline__ void load_tile(uint8_t* dst, const CUtensorMap* map,
                                           int row0, int h, uint64_t* bar) {
   tma_load_3d(dst, map, 0, row0, h, bar);
-  tma_load_3d(dst + kBoxBytes, map, 64, row0, h, bar);
+  if constexpr (DH == 128) tma_load_3d(dst + kBoxBytes, map, 64, row0, h, bar);
 }
 
 // The 8 bf16 of a 16-byte chunk widened exactly to f32 (plain shifts, so
@@ -158,16 +163,23 @@ __device__ __forceinline__ void col_reduce(const uint8_t* t, const uint8_t* t2,
 }
 
 // x0, x1 at (row i, columns 8j + 2(lane % 4) + {0, 1}) of two swizzled
-// 64 x 64 tiles: hi = bf16(x), lo = bf16(x - hi).
-__device__ __forceinline__ void store_hilo(uint8_t* hi, uint8_t* lo, int i,
-                                           int j, int lane, float x0,
-                                           float x1) {
+// 64 x 64 tiles: hi = bf16(x), lo = bf16(x - hi). With KEEP returns hi +
+// lo, the values as staged.
+template <bool KEEP = false>
+__device__ __forceinline__ float2 store_hilo(uint8_t* hi, uint8_t* lo, int i,
+                                             int j, int lane, float x0,
+                                             float x1) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
   const float2 hf = __bfloat1622float2(h);
   const __nv_bfloat162 l = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
   const int off = i * 128 + ((j ^ (i & 7)) << 4) + 4 * (lane & 3);
   *reinterpret_cast<__nv_bfloat162*>(hi + off) = h;
   *reinterpret_cast<__nv_bfloat162*>(lo + off) = l;
+  if constexpr (KEEP) {
+    const float2 lf = __bfloat1622float2(l);
+    return make_float2(hf.x + lf.x, hf.y + lf.y);
+  }
+  return make_float2(0.0f, 0.0f);
 }
 
 // ---------------------------------------------------------------------------
@@ -180,30 +192,35 @@ __device__ __forceinline__ void fence_frag(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// D(64 x 64) += A·Bᵀ over dh: A and B staged 64 x 128 tiles, both read
+// D(64 x 64) += A·Bᵀ over dh: A and B staged 64 x DH tiles, both read
 // K-major (S = Q·Kᵀ, dP = g·Vᵀ).
+template <int DH = kDh>
 __device__ __forceinline__ void mma_abt(float (&d)[32], const uint8_t* a,
                                         const uint8_t* b) {
   const uint32_t sa = smem_u32(a), sb = smem_u32(b);
 #pragma unroll
-  for (int kk = 0; kk < kDh / 16; ++kk) {
+  for (int kk = 0; kk < DH / 16; ++kk) {
     const uint32_t off = (kk >> 2) * kBoxBytes + (kk & 3) * 32;
     wgmma_m64n64k16<0, 0>(d, make_desc(sa + off, 16), make_desc(sb + off, 16));
   }
 }
 
-// D(64 x 128) += A·B over 64: A a staged 64 x 64 tile read K-major (TA 0:
-// dS in dS·K) or M-major (TA 1: Pᵀ, dSᵀ), B a staged 64 x 128 tile whose
-// rows are the k dim, read N-major.
-template <int TA>
-__device__ __forceinline__ void mma_ab(float (&d)[64], const uint8_t* a,
+// D(64 x DH) += A·B over 64: A a staged 64 x 64 tile read K-major (TA 0:
+// dS in dS·K) or M-major (TA 1: Pᵀ, dSᵀ), B a staged 64 x DH tile whose
+// rows are the k dim, read N-major (at DH 64 one 64-column swizzle atom,
+// so the descriptor's atom stride is not read).
+template <int TA, int DH = kDh>
+__device__ __forceinline__ void mma_ab(float (&d)[DH / 2], const uint8_t* a,
                                        const uint8_t* b) {
   const uint32_t sa = smem_u32(a), sb = smem_u32(b);
 #pragma unroll
   for (int kk = 0; kk < kB / 16; ++kk) {
     const uint64_t da = TA ? make_desc(sa + kk * 2048, kBoxBytes)
                            : make_desc(sa + kk * 32, 16);
-    wgmma_m64n128k16<TA, 1>(d, da, make_desc(sb + kk * 2048, kBoxBytes));
+    if constexpr (DH == 128)
+      wgmma_m64n128k16<TA, 1>(d, da, make_desc(sb + kk * 2048, kBoxBytes));
+    else
+      wgmma_m64n64k16<TA, 1>(d, da, make_desc(sb + kk * 2048, kBoxBytes));
   }
 }
 
@@ -315,7 +332,7 @@ __device__ __forceinline__ Verdict verify_frag(float (&acc)[N / 2],
   }
   wg_sync(bar);
   // Columns: thread c; rows: threads [0, 64) at N 128, [64, 128) at N 64.
-  const int c = tid, r = N == kDh ? tid : tid - kB;
+  const int c = tid, r = N == 128 ? tid : tid - kB;
   float best;
   int idx;
   if (c < N) {
@@ -357,17 +374,25 @@ __device__ __forceinline__ Verdict verify_frag(float (&acc)[N / 2],
   return v;
 }
 
-// A 64 x 64 fragment into two swizzled tiles as its hi / lo halves.
-__device__ __forceinline__ void store_frag_hilo(const float (&x)[32],
-                                                uint8_t* hi, uint8_t* lo,
-                                                int tid) {
+// A 64 x 64 fragment into two swizzled tiles as its hi / lo halves; with
+// KEEP each element of x becomes hi + lo, the operand the tensor cores
+// consume.
+template <bool KEEP = false>
+__device__ __forceinline__ void store_frag_hilo(float (&x)[32], uint8_t* hi,
+                                                uint8_t* lo, int tid) {
   const int lane = tid & 31, i0 = (tid / 32) * 16 + lane / 4;
 #pragma unroll
   for (int j = 0; j < 8; ++j)
 #pragma unroll
-    for (int hf = 0; hf < 2; ++hf)
-      store_hilo(hi, lo, i0 + 8 * hf, j, lane, x[4 * j + 2 * hf],
-                 x[4 * j + 2 * hf + 1]);
+    for (int hf = 0; hf < 2; ++hf) {
+      const int idx = 4 * j + 2 * hf;
+      const float2 st = store_hilo<KEEP>(hi, lo, i0 + 8 * hf, j, lane,
+                                         x[idx], x[idx + 1]);
+      if constexpr (KEEP) {
+        x[idx] = st.x;
+        x[idx + 1] = st.y;
+      }
+    }
 }
 
 }  // namespace

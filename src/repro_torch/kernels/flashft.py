@@ -16,10 +16,11 @@ Replaces the TPU kernels of the JAX package
     `templates/registry.py:239 flash_decode_call`).
 
 Written plans decide which instance runs a call. `plan_fwd` and
-`plan_bwd`: bf16 operands at head dim 128 that TMA can read (contiguous,
-16-byte aligned) with the default blocks run on the tensor cores, K4's walk
-cut into `dkv_ranges` ranges; every other call (f32, head dim 64, pinned
-blocks) on the SIMT kernels. `plan_decode`: bf16 q of 16 rows per kv head
+`plan_bwd`: bf16 operands that TMA can read (contiguous, 16-byte aligned)
+with the default blocks run on the tensor cores, the forward at head dim
+64 or 128 (`SM90_HEAD_DIMS`), the backward at 128 with K4's walk cut into
+`dkv_ranges` ranges; every other call (f32, the backward at head dim 64,
+pinned blocks) on the SIMT kernels. `plan_decode`: bf16 q of 16 rows per kv head
 and pools at head dim 128 in pages of 32 or 64 run on the tensor cores,
 each (slot, kv head) row's live pages cut into `decode_ranges` ranges that
 a combine kernel merges; every other call on the SIMT decode kernel.
@@ -116,8 +117,10 @@ FLASH_DKV_SM90 = build.Kernel("flash_bwd_sm90", "flash_dkv_sm90_launch",
 FLASH_DKV_REDUCE = build.Kernel(
     "flash_bwd_sm90", "flash_dkv_sm90_reduce_launch",
     [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p])
-#: The tensor-core instance's head dim.
+#: The head dim of the tensor-core backward and decode instances, and
+#: those of the tensor-core forward.
 SM90_HEAD_DIM = 128
+SM90_HEAD_DIMS = (64, 128)
 
 #: K6's compiled page edges and head dims, and its most query rows per
 #: (slot, kv head) block.
@@ -401,17 +404,18 @@ class FwdPlan:
     reason: str = ""
 
 
-def _sm90_reason(xs: Sequence[torch.Tensor], bq, bkv) -> str:
+def _sm90_reason(xs: Sequence[torch.Tensor], bq, bkv,
+                 head_dims: Sequence[int] = (SM90_HEAD_DIM,)) -> str:
     """Why the flash tensor-core instances do not take operands ``xs``
-    (q first) at blocks (bq, bkv), "" when they do: bf16 at head dim
-    `SM90_HEAD_DIM`, the default blocks (None), contiguous operands with
+    (q first) at blocks (bq, bkv), "" when they do: bf16 at a head dim of
+    ``head_dims``, the default blocks (None), contiguous operands with
     16-byte aligned bases (what TMA reads)."""
     q = xs[0]
     if bq is not None or bkv is not None:
         return f"pinned blocks ({bq}, {bkv})"
     if q.dtype != torch.bfloat16:
         return f"dtype {q.dtype}"
-    if q.shape[-1] != SM90_HEAD_DIM:
+    if q.shape[-1] not in head_dims:
         return f"head dim {q.shape[-1]}"
     if not all(x.is_contiguous() for x in xs):
         return "a non-contiguous operand"
@@ -423,13 +427,13 @@ def _sm90_reason(xs: Sequence[torch.Tensor], bq, bkv) -> str:
 def plan_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
              bq: Optional[int] = None, bkv: Optional[int] = None) -> FwdPlan:
     """The instance of a forward call on q (BH, Sq, dh), k, v (BH / n_rep,
-    Skv, dh): the tensor-core instance for bf16 at head dim
-    `SM90_HEAD_DIM` with the default blocks and operands TMA can read;
-    every other call (f32, head dim 64, pinned ``bq`` / ``bkv``) goes to
-    the SIMT kernel, which raises on what it does not take either. The
-    rule does not depend on the device; it never falls back after a
-    failure."""
-    why = _sm90_reason((q, k, v), bq, bkv)
+    Skv, dh): the tensor-core instance for bf16 at a head dim of
+    `SM90_HEAD_DIMS` with the default blocks and operands TMA can read
+    (campaigns too: both head dims compile the hook); every other call
+    (f32, pinned ``bq`` / ``bkv``, another head dim) goes to the SIMT
+    kernel, which raises on what it does not take either. The rule does
+    not depend on the device; it never falls back after a failure."""
+    why = _sm90_reason((q, k, v), bq, bkv, SM90_HEAD_DIMS)
     return FwdPlan("simt", why) if why else FwdPlan("sm90")
 
 

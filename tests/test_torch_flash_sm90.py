@@ -20,7 +20,7 @@ import pytest
 torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
-from repro.core.policy import ONLINE_BLOCK  # noqa: E402
+from repro.core.policy import InjectionSpec, ONLINE_BLOCK  # noqa: E402
 from repro.kernels import ops as rops  # noqa: E402
 from repro.train import kv_cache as rkv  # noqa: E402
 
@@ -49,25 +49,32 @@ def _fwd_ops(dh=128, dtype=torch.bfloat16):
 @pytest.mark.parametrize("case,instance,reason", [
     ("bf16 dh 128", "sm90", ""),
     ("f32", "simt", "dtype"),
-    ("dh 64", "simt", "head dim"),
+    ("dh 64", "sm90", ""),
+    ("f32 dh 64", "simt", "dtype"),
+    ("dh 96", "simt", "head dim"),
     ("non-contiguous", "simt", "non-contiguous"),
+    ("non-contiguous dh 64", "simt", "non-contiguous"),
     ("pinned blocks", "simt", "pinned"),
+    ("pinned blocks dh 64", "simt", "pinned"),
     ("misaligned", "simt", "aligned"),
+    ("misaligned dh 64", "simt", "aligned"),
 ])
 def test_plan_fwd_rule(case, instance, reason):
-    q, k, v = _fwd_ops()
+    """bf16 at head dim 64 or 128 with the default blocks and operands TMA
+    reads takes the tensor cores; each other call keeps its SIMT reason
+    at either head dim."""
+    dh = 64 if case.endswith("dh 64") else 96 if case == "dh 96" else 128
+    q, k, v = _fwd_ops(dh=dh)
     kw = {}
-    if case == "f32":
-        q, k, v = _fwd_ops(dtype=torch.float32)
-    elif case == "dh 64":
-        q, k, v = _fwd_ops(dh=64)
-    elif case == "non-contiguous":
-        v = torch.zeros(100, 2, 128, dtype=torch.bfloat16).transpose(0, 1)
-    elif case == "pinned blocks":
+    if case.startswith("f32"):
+        q, k, v = _fwd_ops(dh=dh, dtype=torch.float32)
+    elif case.startswith("non-contiguous"):
+        v = torch.zeros(100, 2, dh, dtype=torch.bfloat16).transpose(0, 1)
+    elif case.startswith("pinned blocks"):
         kw = dict(bq=64, bkv=64)
-    elif case == "misaligned":
-        q = torch.zeros(6 * 100 * 128 + 1, dtype=torch.bfloat16)[1:].view(
-            6, 100, 128)
+    elif case.startswith("misaligned"):
+        q = torch.zeros(6 * 100 * dh + 1, dtype=torch.bfloat16)[1:].view(
+            6, 100, dh)
     p = tflash.plan_fwd(q, k, v, **kw)
     assert p.instance == instance
     assert reason in p.reason and (reason == "") == (p.reason == "")
@@ -271,6 +278,88 @@ def test_combine_merges_two_seus_in_range_order():
     torch.testing.assert_close(out_w[:, :bq].float(), out, rtol=2 ** -7,
                                atol=2 ** -7 * float(out.abs().max()))
     assert torch.equal(rep_w, rep)
+
+
+# ---------------------------------------------------------------------------
+# the plain K2 at head dim 64 (the tensor-core instance's function there)
+# ---------------------------------------------------------------------------
+
+#: whisper's three K2 geometries cut to size, MHA (n_rep 1): the encoder's
+#: self-attention (Sq = Skv, a ragged last kv block of 36), the prefill's
+#: cross-attention (16 queries) and the decoder's causal self-attention;
+#: each with the (q block, kv step, row, S column, Δ column) of its SEUs.
+DH64_GEOMS = {"encoder": (100, 100, False, (1, 1, 20, 30, 50)),
+              "cross": (16, 100, False, (0, 1, 5, 10, 63)),
+              "causal 16": (16, 16, True, (0, 0, 10, 3, 7))}
+
+
+def _ref_k2(q, k, v, causal, spec=None, head=0, blk=0):
+    """The reference's K2 (`repro/kernels/flashft.py:flash_ft_attention`,
+    interpret mode) at the 64 x 64 block grid on operands zero-padded to
+    its 128-lane head dim, as its front pads them (the front would refit
+    the blocks to the ragged lengths). Returns out, m, l at the true sizes
+    and the report."""
+    from repro.kernels import flashft as rflash
+    bh, sq, dh = q.shape
+    skv = k.shape[1]
+
+    def pad(x, rows):
+        return jnp.asarray(np.pad(x, ((0, 0), (0, rows - x.shape[1]),
+                                      (0, 128 - dh))))
+
+    inj, mag = rflash.encode_injection(spec, head, blk)
+    out, m, l, rep = rflash.flash_ft_attention(
+        pad(q, -(-sq // 64) * 64), pad(k, -(-skv // 64) * 64),
+        pad(v, -(-skv // 64) * 64), inj, mag,
+        jnp.array([sq, skv], jnp.int32), jnp.zeros((3,), jnp.int32), bq=64,
+        bkv=64, causal=causal, ft=ONLINE_BLOCK, interpret=True,
+        scale=dh ** -0.5, n_rep=1, save_stats=True)
+    return (np.asarray(out)[:, :sq, :dh], np.asarray(m)[:, :sq, 0],
+            np.asarray(l)[:, :sq, 0], np.asarray(rep))
+
+
+@pytest.mark.parametrize("seu", [None, "delta", "s"])
+@pytest.mark.parametrize("geom", list(DH64_GEOMS))
+def test_plain_k2_at_dh64_matches_reference(geom, seu):
+    """`flash_ft_plain` at head dim 64 (tau over the 128-padded width, the
+    64 x 64 grid) against the reference's K2 at whisper's geometries:
+    outputs, m and l to 1e-5 (f32 sums in another order), reports det /
+    corr / row / col / k equal and tau to 1e-5 relative. An SEU in Δ lands
+    in both (same report); one in S, which the reference cannot inject,
+    is corrected to the reference's clean output and located at (q row,
+    kv column) with its magnitude, every other report cell the
+    reference's. Magnitude 20: a corrected element keeps one ulp of it,
+    under 1e-5."""
+    sq, skv, causal, (blk, step, row, scol, dcol) = DH64_GEOMS[geom]
+    bh, dh = 2, 64
+    rng = np.random.default_rng(sq * skv + causal)
+    q, k, v = (rng.normal(size=(bh, n, dh)).astype(np.float32)
+               for n in (sq, skv, skv))
+    spec = None if seu != "delta" else InjectionSpec(
+        row=row, col=dcol, magnitude=20.0, k_step=step)
+    ro, rm, rl, rrep = _ref_k2(q, k, v, causal, spec, bh - 1, blk)
+    inj = None
+    if seu is not None:
+        inj = (tflash.INJ_DELTA if seu == "delta" else tflash.INJ_S, bh - 1,
+               blk, step, row, dcol if seu == "delta" else scol)
+    to, tm, tl, trep = tflash.flash_ft_plain(
+        *(torch.from_numpy(x) for x in (q, k, v)), ft=T_ONLINE,
+        scale=dh ** -0.5, tau_dh=128, causal=causal, inj=inj, inj_mag=20.0,
+        save_stats=True)
+    for got, want in ((to, ro), (tm, rm), (tl, rl)):
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    assert to.shape == (bh, sq, dh)
+    if seu == "s":
+        cell = trep[bh - 1, blk].clone()
+        assert (float(trep[..., 0].sum()), float(trep[..., 1].sum())) == \
+            (1.0, 1.0)
+        assert (int(cell[2]), int(cell[3])) == (blk * 64 + row,
+                                                step * 64 + scol)
+        assert abs(float(cell[4]) - 20.0) < 1e-4
+        trep[bh - 1, blk] = torch.tensor(rrep[bh - 1, blk])
+    else:
+        assert float(trep[..., 1].sum()) == (seu == "delta")
+    _check_report(trep, rrep)
 
 
 # ---------------------------------------------------------------------------

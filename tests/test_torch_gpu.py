@@ -702,18 +702,26 @@ def _launched(kernels, fn):
 
 FWD_SM90_GEOMS = [(6, 3, 1, 1, True), (14, 7, 63, 63, True),
                   (14, 7, 65, 65, False), (4, 1, 300, 300, True),
-                  (6, 3, 300, 317, True), (2, 1, 65, 130, False)]
+                  (6, 3, 300, 317, True), (2, 1, 65, 130, False),
+                  (4, 1, 16, 300, False), (3, 1, 200, 200, False),
+                  (4, 2, 130, 130, True)]
 
 
+@pytest.mark.parametrize("dh", [64, 128])
 @pytest.mark.parametrize("save_stats", [False, True])
 @pytest.mark.parametrize("geom", FWD_SM90_GEOMS)
-def test_flash_fwd_sm90_matches_plain(cuda, geom, save_stats):
+def test_flash_fwd_sm90_matches_plain(cuda, geom, save_stats, dh):
+    """The tensor-core K2 at both head dims: MHA (whose work units are
+    neighbouring q blocks of one head, three a CTA at dh 64, so some CTAs
+    hold fewer units than warpgroups and, causal, walks shorter than the
+    ring's) and GQA (query heads of one group a CTA) against the plain
+    version."""
     bh, n_rep, sq, skv, causal = geom
-    gen = torch.Generator(device="cuda").manual_seed(bh + sq + skv)
-    q = torch.randn(bh, sq, 128, generator=gen, device="cuda").bfloat16()
-    k, v = (torch.randn(bh // n_rep, skv, 128, generator=gen,
+    gen = torch.Generator(device="cuda").manual_seed(bh + sq + skv + dh)
+    q = torch.randn(bh, sq, dh, generator=gen, device="cuda").bfloat16()
+    k, v = (torch.randn(bh // n_rep, skv, dh, generator=gen,
                         device="cuda").bfloat16() for _ in range(2))
-    kw = dict(ft=FT, scale=128 ** -0.5, tau_dh=128, n_rep=n_rep,
+    kw = dict(ft=FT, scale=dh ** -0.5, tau_dh=128, n_rep=n_rep,
               causal=causal, save_stats=save_stats)
     assert flashft.plan_fwd(q, k, v).instance == "sm90"
     res, n = _launched((flashft.FLASH_FT_SM90, flashft.FLASH_FT),
@@ -728,19 +736,20 @@ def test_flash_fwd_sm90_matches_plain(cuda, geom, save_stats):
         torch.testing.assert_close(res[2], res_p[2], rtol=1e-3, atol=1e-5)
 
 
+@pytest.mark.parametrize("dh,n_rep", [(128, 3), (64, 3), (64, 1)])
 @pytest.mark.parametrize("target", [flashft.INJ_DELTA, flashft.INJ_S])
-def test_flash_fwd_sm90_seu(cuda, target):
+def test_flash_fwd_sm90_seu(cuda, target, dh, n_rep):
     """An SEU in Δ or in S of (query head 4, q block 2, kv step 1) on
     integer-valued operands: corrected and located as the plain version
     locates it; a detect-only policy counts it and leaves it."""
     gen = torch.Generator(device="cuda").manual_seed(41)
-    bh, n_rep, s = 6, 3, 200
-    q = _ints(gen, bh, s, 128, dtype=torch.bfloat16)
-    k, v = (_ints(gen, bh // n_rep, s, 128, dtype=torch.bfloat16)
+    bh, s = 6, 200
+    q = _ints(gen, bh, s, dh, dtype=torch.bfloat16)
+    k, v = (_ints(gen, bh // n_rep, s, dh, dtype=torch.bfloat16)
             for _ in range(2))
-    col = 99 if target == flashft.INJ_DELTA else 40
+    col = dh - 29 if target == flashft.INJ_DELTA else 40
     inj = (target, 4, 2, 1, 17, col)
-    kw = dict(scale=128 ** -0.5, tau_dh=128, n_rep=n_rep, causal=True)
+    kw = dict(scale=dh ** -0.5, tau_dh=128, n_rep=n_rep, causal=True)
     clean, rep0 = flashft.flash_ft_fwd(q, k, v, ft=FT, **kw)
     assert float(rep0[..., 0].sum()) == 0.0
     out, rep = flashft.flash_ft_fwd(q, k, v, ft=FT, inj=inj, inj_mag=300.0,
@@ -851,7 +860,8 @@ def test_flash_sm90_plans_route_the_rest_to_simt(cuda):
     gen = torch.Generator(device="cuda").manual_seed(46)
     fkw = dict(ft=FT, scale=0.1, tau_dh=128, n_rep=2, causal=True)
     for dtype, dh, pin in ((torch.float32, 128, None),
-                           (torch.bfloat16, 64, None),
+                           (torch.float32, 64, None),
+                           (torch.bfloat16, 64, 64),
                            (torch.bfloat16, 128, 64)):
         q = torch.randn(4, 70, dh, generator=gen, device="cuda").to(dtype)
         kv = torch.randn(2, 70, dh, generator=gen, device="cuda").to(dtype)
@@ -890,9 +900,9 @@ def test_flash_sm90_plans_route_the_rest_to_simt(cuda):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_fronts_pad_the_head_dim(cuda, dh, dtype):
     """ops.flash_ft / flash_ft_bwd at head dims the kernels do not compile:
-    padded to 64 or 128, run on the kernels (the tensor cores for bf16 at
-    dh 80), sliced back, and equal to the same fronts on the CPU (the
-    plain versions) within one bf16 ulp or 1e-5 (f32)."""
+    padded to 64 or 128, run on the kernels (the forward on the tensor
+    cores for bf16 at both), sliced back, and equal to the same fronts on
+    the CPU (the plain versions) within one bf16 ulp or 1e-5 (f32)."""
     from repro_torch.kernels import ops
     gen = torch.Generator(device="cuda").manual_seed(dh)
     bh, n_rep, sq = 6, 3, 100
@@ -904,8 +914,7 @@ def test_flash_fronts_pad_the_head_dim(cuda, dh, dtype):
     fwd = (flashft.FLASH_FT_SM90, flashft.FLASH_FT)
     (o, m, l, rep), n = _launched(fwd, lambda: ops.flash_ft(
         q, k, v, save_stats=True, **kw))
-    sm90 = dtype == torch.bfloat16 and dh == 80
-    assert n == ([1, 0] if sm90 else [0, 1])
+    assert n == ([1, 0] if dtype == torch.bfloat16 else [0, 1])
     cpu = [x.cpu() for x in (q, k, v, g)]
     o_p, m_p, l_p, rep_p = ops.flash_ft(*cpu[:3], save_stats=True, **kw)
     grads = ops.flash_ft_bwd(q, k, v, o, m, l, g, **kw)
@@ -1689,7 +1698,8 @@ def _flash_campaign_cases():
     """(name, kernels, call(ft, rng) -> (outs, rep), plain(ft, rng), hits(ft,
     rng)) for every flash instance: K2, K3 and K4 (ranged) on the tensor
     cores and the SIMT ones in f32, K6 on the tensor cores (ranged) and the
-    SIMT one in f32 and in bf16 at pages of 16."""
+    SIMT one in f32 and in bf16 at pages of 16, and K2 on the tensor cores
+    at dh 64."""
     gen = torch.Generator(device="cuda").manual_seed(29)
     cases = []
     f32, bf = torch.float32, torch.bfloat16
@@ -1774,10 +1784,28 @@ def _flash_campaign_cases():
                                             128)[0]
         cases.append((f"K6 {name}", flashft.FLASH_DECODE if simt
                       else flashft.FLASH_DECODE_SM90, dec, dec_p, dec_h))
+    # K2's dh-64 instance (MHA, three q blocks of one head a CTA), reached by
+    # a direct call: the front pads dh to 128 under a campaign
+    q, k, v = (torch.randn(4, 300, 64, generator=gen, device="cuda").to(bf)
+               for _ in range(3))
+    kw = dict(scale=64 ** -0.5, tau_dh=128, causal=True)
+
+    def fwd64(ft, rng, a=(q, k, v), kw=kw):
+        out, rep = flashft.flash_ft_fwd(*a, ft=ft, rng=rng, **kw)
+        return (out,), rep
+
+    def fwd64_p(ft, rng, a=(q, k, v), kw=kw):
+        out, rep = flashft.flash_ft_plain(*a, ft=ft, rng=rng, **kw)
+        return (out,), rep
+
+    cases.append(("K2 sm90 dh 64", flashft.FLASH_FT_SM90, fwd64, fwd64_p,
+                  lambda ft, rng: flashft.seu_fwd_draws(
+                      rng, ft, 4, 300, 300, 64, causal=True,
+                      device="cuda")[0]))
     return cases
 
 
-@pytest.mark.parametrize("idx", range(9))
+@pytest.mark.parametrize("idx", range(10))
 def test_flash_campaign_hook_matches_plain(cuda, idx):
     """Each flash instance under a fixed triple at rate 1.0: reports equal
     its planned plain version's in det / corr / row / col / k and tau, one
@@ -2487,9 +2515,10 @@ def test_gelu_relu_on_the_tensor_cores_match_plain(cuda, act, level):
 
 def test_whisper_smoke_generate_on_card_matches_cpu(cuda):
     """whisper SMOKE through `generate` on the card (K1 SIMT and chain
-    instances in f32, K2 SIMT at dh 64, K5) against the CPU plain run:
-    greedy tokens equal in f32; the bf16 prefill logits (tensor-core K1)
-    within 2e-2 of the CPU bf16 run's max |logit|."""
+    instances and the SIMT K2 in f32, K5) against the CPU plain run:
+    greedy tokens equal in f32; the bf16 prefill logits (tensor-core K1,
+    K2 on the tensor cores at the SMOKE head dim padded to 64) within
+    2e-2 of the CPU bf16 run's max |logit|."""
     import numpy as np
     from repro_torch.configs import registry
     from repro_torch.configs.base import RunConfig

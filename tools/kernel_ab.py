@@ -1,9 +1,10 @@
 """Device times of the port's tensor-core kernels at their main-path
 shapes, clean (FT block, no campaign), for one checkout of the port: the
 GEMM family (K1, K5, K7, K8; K1 also FT off) or the flash family (K2 at
-qwen2-7b's prefill and phi4-mini's training shape, K3 and K4 at
-phi4-mini's training shape, K6 at the serving engine's 8 slots; each
-also on its SIMT instance, pinned as `chip_smoke.py` pins it): the side
+qwen2-7b's prefill and phi4-mini's training shape and at head dim 64 at
+whisper-medium's encoder self-attention and cross-attention prefill, K3
+and K4 at phi4-mini's training shape, K6 at the serving engine's 8 slots;
+each also on its SIMT instance, pinned as `chip_smoke.py` pins it): the side
 of an A/B comparison of two commits on one card. Prints one JSON line
 {"src": ..., "times": {label: ms}}.
 
@@ -188,6 +189,17 @@ def flash_times(torch, ft, rand, gen):
             torch, lambda: flashft.flash_ft_fwd(q, k, v, **kw))
         times[f"K2 simt {label}"] = kernel_ms(
             torch, lambda: flashft.flash_ft_fwd(q, k, v, bq=64, bkv=64, **kw))
+    # K2 at head dim 64: whisper-medium's prefill (4 x 16 heads, MHA) over
+    # 1 500 frames, the encoder's self-attention and the cross-attention
+    for label, sq in (("whisper encoder 64x1500x1500 dh 64", 1500),
+                      ("whisper cross 64x16x1500 dh 64", 16)):
+        q, k, v = rand(64, sq, 64), rand(64, 1500, 64), rand(64, 1500, 64)
+        kw = dict(ft=ft, scale=64 ** -0.5, tau_dh=128, causal=False)
+        times[f"K2 {label}"] = kernel_ms(
+            torch, lambda: flashft.flash_ft_fwd(q, k, v, **kw))
+        times[f"K2 simt {label}"] = kernel_ms(
+            torch, lambda: flashft.flash_ft_fwd(q, k, v, bq=64, bkv=64, **kw),
+            iters=5)
     # K3 and K4: phi4-mini's training backward
     kw = dict(ft=ft, scale=128 ** -0.5, tau_dh=128, n_rep=3, causal=True)
     q, k, v, g = (rand(*shape) for shape in ((48, 512, 128), (16, 512, 128),
