@@ -10,6 +10,7 @@
     python3 chip_smoke.py --phases env,level_kernels,level_train,level_moe
     python3 chip_smoke.py --phases env,campaign_kernels,campaign_train,campaign_train_chunked,moe_campaign
     python3 chip_smoke.py --phases env,chain_kernels,whisper_check,whisper_serve
+    python3 chip_smoke.py --phases env,ssm_check,ssm_serve
 
 Phases (each prints its own lines; any failed check exits non-zero):
 
@@ -356,7 +357,33 @@ Phases (each prints its own lines; any failed check exits non-zero):
                the greedy tokens compared (printed); an SEU in encoder
                layer 0's w1 at block, tile and inner corrected (the clean
                run's tokens, its prefill logits to bf16 rounding) and left
-               by detect-only.
+               by detect-only;
+  ssm_check    mamba2-780m (the SSM family) at full width, 2 layers: a
+               prefill of 4 x 512 tokens (two SSD chunks of 256) and 2
+               decode steps (the same tokens fed to both) through the
+               kernels and through their plain versions at FT off, block,
+               tile and inner (logits within 2e-2 of max|logit|, no
+               detection, launch counts: K1 2 a layer and the head per
+               prefill and per decode step on the level's tensor-core
+               instance, K5 4 a layer per prefill on its SIMT instance,
+               none at FT off); then K5's SIMT instance at the four SSD
+               products of that prefill (ssd_cb, ssd_lx, ssd_state, ssd_ch;
+               384 slices of 128-256 rows) against its plain version at FT
+               off and each level, an SEU on integer operands in one slice
+               corrected bit for bit and located at its global row and
+               column, and left by detect-only; times of the kernel (queued
+               device time), FT off, the plain version, torch.matmul and the
+               bound;
+  ssm_serve    `generate` on mamba2-780m at full width and depth (48
+               layers, random bf16 weights from a seed): 4 requests x 512
+               prompt tokens, 32 greedy tokens, at FT off, block, tile and
+               inner: launch counts, the dispatch guard (the decode
+               readout's f32 einsum its one allowance), prefill and decode
+               times, tokens/s, peak memory, one prefill and one decode step
+               under torch.profiler (busy time, idle share, K5's share of
+               the prefill); at block an SEU in layer 0's first ssd_cb
+               product corrected (the clean run's tokens, its prefill
+               logits to bf16 rounding) and left by detect-only.
 
 The last two lines are {"kernels": [...]} and
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -386,8 +413,9 @@ import torch.utils._python_dispatch
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "src"))
 
-from repro_torch.configs import (phi4_mini_38b, qwen2_7b,       # noqa: E402
-                                 qwen3_moe_235b, whisper_medium)
+from repro_torch.configs import (mamba2_780m, phi4_mini_38b,  # noqa: E402
+                                 qwen2_7b, qwen3_moe_235b,
+                                 whisper_medium)
 from repro_torch.configs.base import RunConfig, ShapeConfig     # noqa: E402
 from repro_torch.core import ft_verdict_dot, telemetry          # noqa: E402
 from repro_torch.core.policy import (FT_OFF, InjectionSpec,     # noqa: E402
@@ -400,7 +428,7 @@ from repro_torch.kernels import grouped_gemm, ops               # noqa: E402
 from repro_torch.kernels import grouped as kgrouped             # noqa: E402
 from repro_torch.kernels.templates import BatchedKernelSpec     # noqa: E402
 from repro_torch.kernels.templates import epilogues             # noqa: E402
-from repro_torch.models import (moe, model_zoo,               # noqa: E402
+from repro_torch.models import (mamba2, moe, model_zoo,       # noqa: E402
                                 transformer, whisper)
 from repro_torch.models.blocks import Ctx                       # noqa: E402
 from repro_torch.optim import adamw                             # noqa: E402
@@ -663,26 +691,35 @@ def device_events(fn, iters: int = 1, warmup: int = 0):
     return spans, wall_us
 
 
-def device_profile(fn):
+def device_profile(fn, groups=None):
     """One call of ``fn`` (`device_events`): the host wall time to the end
     of the device work, the device's busy time (the union of its kernel
     intervals), the idle share 1 - busy / wall, and the kernels by total
     time. idle_share is None ("not measured") when the trace holds no
-    device event."""
+    device event. ``groups`` {label: predicate on a kernel's name} adds
+    each group's summed kernel time, ``group_ms``."""
     spans, wall_us = device_events(fn)
     by_name = collections.Counter()
+    group_us = collections.Counter()
     for name, lo, hi in spans:
         by_name[name[:60]] += hi - lo
+        for label, pred in (groups or {}).items():
+            if pred(name):
+                group_us[label] += hi - lo
     busy, end = 0.0, -math.inf
     for _, lo, hi in sorted(spans, key=lambda x: x[1:]):
         lo = max(lo, end)
         if hi > lo:
             busy += hi - lo
         end = max(end, hi)
-    return dict(wall_ms=wall_us / 1e3, busy_ms=busy / 1e3,
-                idle_share=(1.0 - busy / wall_us) if spans else None,
-                kernels=len(spans),
-                top=[(n, round(t / 1e3, 3)) for n, t in by_name.most_common(6)])
+    out = dict(wall_ms=wall_us / 1e3, busy_ms=busy / 1e3,
+               idle_share=(1.0 - busy / wall_us) if spans else None,
+               kernels=len(spans),
+               top=[(n, round(t / 1e3, 3))
+                    for n, t in by_name.most_common(6)])
+    if groups:
+        out["group_ms"] = {k: group_us[k] / 1e3 for k in groups}
+    return out
 
 
 def kernel_device_ms(fn, iters: int = 50) -> float:
@@ -1287,11 +1324,13 @@ def phase_serve_check():
 
 
 class LibraryCallGuard(torch.utils._python_dispatch.TorchDispatchMode):
-    """Records every dispatched library matmul / attention op. ``allow``
-    (name, args) → bool admits the ones a path runs outside any kernel by
-    design (the MoE router's f32 product), counted in ``allowed``."""
+    """Records every dispatched library matmul / attention op (`einsum`
+    too: under `torch.inference_mode` it reaches the guard whole, not as
+    the `bmm` it runs). ``allow`` (name, args) → bool admits the ones a
+    path runs outside any kernel by design (the MoE router's f32 product,
+    mamba2's decode readout), counted in ``allowed``."""
     BANNED = ("mm", "bmm", "addmm", "baddbmm", "matmul", "dot", "mv",
-              "linear", "scaled_dot_product_attention",
+              "linear", "einsum", "scaled_dot_product_attention",
               "_scaled_dot_product_flash_attention",
               "_scaled_dot_product_efficient_attention",
               "_scaled_dot_product_cudnn_attention")
@@ -1324,6 +1363,26 @@ def router_product(n_experts: int):
         return (name in ("mm", "matmul")
                 and all(t.dtype == torch.float32 for t in ts)
                 and any(n_experts in t.shape for t in ts))
+    return allow
+
+
+def ssm_readout(cfg):
+    """The guard's allowance for mamba2's decode readout y = C·h, which the
+    reference leaves to a plain f32 einsum too: the einsum
+    "bhn,bhnp->bhp" (or the `bmm` it runs) on f32 operands, one of them
+    the state's (…, N, P)."""
+    n, p = cfg.ssm.state, cfg.ssm.head_dim
+
+    def allow(name, args):
+        if name == "einsum":
+            eq, args = args[0], args[1]
+            if eq.replace(" ", "") != "bhn,bhnp->bhp":
+                return False
+        elif name != "bmm":
+            return False
+        ts = [a for a in args if isinstance(a, torch.Tensor)]
+        return (len(ts) == 2 and all(t.dtype == torch.float32 for t in ts)
+                and any(tuple(t.shape[-2:]) == (n, p) for t in ts))
     return allow
 
 
@@ -5770,18 +5829,20 @@ def _w_run(cfg, level):
                      FT.replace(level=level), dtype="bfloat16")
 
 
-def _whisper_logits(params, cfg, run, prompts, frames, feed):
-    """Logits of a prefill and 2 decode steps fed ``feed``, and the FT
-    totals."""
+def _family_logits(params, cfg, run, prompts, feed, max_len, extra=None):
+    """Logits of a prefill (``extra`` whisper's frames) and 2 decode steps
+    fed ``feed`` through the family's serving functions, and the FT totals
+    and sites."""
+    batch = prompts.shape[0]
     prefill_fn, decode_fn = serve.make_serve_fns(cfg, run)
     with telemetry.ft_scope() as scope:
-        cache = whisper.init_cache(cfg, W_BATCH, W_MAX_LEN)
-        logits, cache = prefill_fn(params, prompts, cache, frames)
-        out = [logits.float().reshape(W_BATCH, -1)]
+        cache = model_zoo.module_for(cfg).init_cache(cfg, batch, max_len)
+        logits, cache = prefill_fn(params, prompts, cache, extra)
+        out = [logits.float().reshape(batch, -1)]
         for i in range(2):
             logits, cache = decode_fn(params, feed[i], cache)
-            out.append(logits.float().reshape(W_BATCH, -1))
-        return out, scope.totals()
+            out.append(logits.float().reshape(batch, -1))
+        return out, scope.totals(), scope.sites()
 
 
 def whisper_launches(cfg, level, prefills, decodes):
@@ -5894,13 +5955,13 @@ def phase_whisper_check():
     for level in W_LEVELS:
         run = _w_run(cfg, level)
         before = {n: k["counter"].launches for n, k in KERNELS.items()}
-        got, tot_k = _whisper_logits(params, cfg, run, prompts, frames,
-                                     steps)
+        got, tot_k, _ = _family_logits(params, cfg, run, prompts, steps,
+                                       W_MAX_LEN, frames)
         launched = {n: k["counter"].launches - before[n]
                     for n, k in KERNELS.items()}
         with plain_kernels():
-            want, tot_p = _whisper_logits(params, cfg, run, prompts, frames,
-                                          steps)
+            want, tot_p, _ = _family_logits(params, cfg, run, prompts,
+                                            steps, W_MAX_LEN, frames)
         _check_logits(f"whisper_check {level} kernel vs plain", got, want)
         check(tot_k["detected"] == 0 and tot_p["detected"] == 0,
               f"whisper_check {level}: zero detections (kernels {tot_k}, "
@@ -5938,6 +5999,75 @@ def w1_seu(mag=64.0, step=1):
         ops.fused_matmul = saved
 
 
+def _serve_level(name, generate_fn, expected, prefill, new_cache, decode_fn,
+                 params, batch, allow=None, groups=None):
+    """One FT setting of a serving phase: ``generate_fn()`` (a `generate`
+    call) once under the dispatch guard (``allow`` its allowance) with
+    every launch counter at 0, checked against the ``expected`` counts and
+    for zero detections, and once timed, which must repeat its tokens;
+    then medians of 3 prefills (``prefill(cache)`` on ``new_cache()``) and
+    of 6 decode steps, each timed alone, and one of each under
+    torch.profiler (``groups`` as `device_profile` takes them). Returns
+    (tokens, the launch counts, the guard, the setting's summary)."""
+    for k_ in KERNELS.values():
+        k_["counter"].launches = 0
+    guard = LibraryCallGuard(allow=allow)
+    torch.cuda.reset_peak_memory_stats()
+    with telemetry.ft_scope() as scope, guard:
+        toks = generate_fn()
+        torch.cuda.synchronize()
+    got = {n: k_["counter"].launches for n, k_ in KERNELS.items()}
+    totals = scope.totals()
+    print(f"  {name}: launches {({n: c for n, c in got.items() if c})}, "
+          f"FT totals {totals}, library matmul / attention ops "
+          f"{len(guard.hits)}, allowed {guard.allowed}")
+    check(got == expected, f"{name}: the expected launch counts")
+    check(totals["detected"] == 0, f"{name}: zero detections")
+    t0 = time.perf_counter()
+    again = generate_fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check((again == toks).all(), f"{name}: the timed run repeats the "
+          f"greedy tokens")
+    pre = []
+    for _ in range(3):
+        cache = new_cache()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = prefill(cache)
+        torch.cuda.synchronize()
+        pre.append((time.perf_counter() - t0) * 1e3)
+    state = {"tok": torch.argmax(logits, -1)[:, None], "cache": cache}
+    dec = []
+
+    def one_decode():
+        lg, state["cache"] = decode_fn(params, state["tok"], state["cache"])
+        state["tok"] = torch.argmax(lg.reshape(batch, -1), -1)[:, None]
+
+    for _ in range(6):
+        t0 = time.perf_counter()
+        one_decode()
+        torch.cuda.synchronize()
+        dec.append((time.perf_counter() - t0) * 1e3)
+    prof = {"decode": device_profile(one_decode)}
+    fresh = new_cache()
+    prof["prefill"] = device_profile(lambda: prefill(fresh), groups=groups)
+    print(f"  {name}: generate {wall:.3f} s ({toks.size / wall:.2f} new "
+          f"tokens/s), prefill {statistics.median(pre):.1f} ms median "
+          f"of {[round(x, 1) for x in pre]}, decode "
+          f"{statistics.median(dec):.2f} ms a step median of "
+          f"{[round(x, 2) for x in dec]}, peak {peak:.2f} GiB")
+    for k_, v_ in prof.items():
+        print(f"  {name} {k_} profile: {v_}")
+    return toks, got, guard, dict(
+        generate_s=wall, new_tokens_per_s=toks.size / wall,
+        prefill_ms=statistics.median(pre), prefill_runs=pre,
+        decode_ms_per_step=statistics.median(dec), decode_runs=dec,
+        peak_gib=peak, launches={n: c for n, c in got.items() if c},
+        profile=prof)
+
+
 def phase_whisper_serve(smi: str):
     """`generate` on whisper-medium at full width and depth at FT off,
     block, tile and inner; at block again with K2 pinned to its SIMT
@@ -5950,80 +6080,24 @@ def phase_whisper_serve(smi: str):
     for level in W_LEVELS:
         run = _w_run(cfg, level)
         name = f"whisper_serve {level}"
-        for k_ in KERNELS.values():
-            k_["counter"].launches = 0
-        guard = LibraryCallGuard()
-        torch.cuda.reset_peak_memory_stats()
-        with telemetry.ft_scope() as scope, guard:
-            toks = serve.generate(params, prompts_np, cfg, run, sc,
-                                  max_new_tokens=W_NEW_TOKENS, extra=frames,
-                                  device="cuda")
-            torch.cuda.synchronize()
-        got = {n: k_["counter"].launches for n, k_ in KERNELS.items()}
+        prefill_fn, decode_fn = serve.make_serve_fns(cfg, run)
+        toks, got, guard, summary[level] = _serve_level(
+            name, lambda: serve.generate(
+                params, prompts_np, cfg, run, sc,
+                max_new_tokens=W_NEW_TOKENS, extra=frames, device="cuda"),
+            whisper_launches(cfg, level, 1, W_NEW_TOKENS),
+            lambda cache: prefill_fn(params, prompts, cache, frames),
+            lambda: whisper.init_cache(cfg, W_BATCH, W_MAX_LEN), decode_fn,
+            params, W_BATCH)
         for n in launches:
             launches[n] += got[n]
-        totals = scope.totals()
         tokens_at[level] = toks
-        print(f"  {name}: launches {({n: c for n, c in got.items() if c})}, "
-              f"FT totals {totals}, library matmul / attention ops "
-              f"{len(guard.hits)}")
         check(toks.shape == (W_BATCH, W_NEW_TOKENS) and int(toks.min()) >= 0
               and int(toks.max()) < cfg.vocab_size,
               f"{name}: in-vocabulary tokens of the expected shape")
-        check(got == whisper_launches(cfg, level, 1, W_NEW_TOKENS),
-              f"{name}: launch counts as whisper_launches")
-        check(totals["detected"] == 0, f"{name}: zero detections")
         if level != "off":
             check(not guard.hits, f"{name}: no library matmul / attention "
                   f"op dispatched")
-        t0 = time.perf_counter()
-        again = serve.generate(params, prompts_np, cfg, run, sc,
-                               max_new_tokens=W_NEW_TOKENS, extra=frames,
-                               device="cuda")
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        check((again == toks).all(), f"{name}: the timed run repeats the "
-              f"greedy tokens")
-        prefill_fn, decode_fn = serve.make_serve_fns(cfg, run)
-        pre = []
-        for _ in range(3):
-            cache = whisper.init_cache(cfg, W_BATCH, W_MAX_LEN)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            logits, cache = prefill_fn(params, prompts, cache, frames)
-            torch.cuda.synchronize()
-            pre.append((time.perf_counter() - t0) * 1e3)
-        state = {"tok": torch.argmax(logits, -1)[:, None], "cache": cache}
-        dec = []
-
-        def one_decode():
-            lg, state["cache"] = decode_fn(params, state["tok"],
-                                           state["cache"])
-            state["tok"] = torch.argmax(lg.reshape(W_BATCH, -1), -1)[:, None]
-
-        for _ in range(6):
-            t0 = time.perf_counter()
-            one_decode()
-            torch.cuda.synchronize()
-            dec.append((time.perf_counter() - t0) * 1e3)
-        prof = {"decode": device_profile(one_decode)}
-        fresh = whisper.init_cache(cfg, W_BATCH, W_MAX_LEN)
-        prof["prefill"] = device_profile(
-            lambda: prefill_fn(params, prompts, fresh, frames))
-        summary[level] = dict(
-            generate_s=wall, new_tokens_per_s=toks.size / wall,
-            prefill_ms=statistics.median(pre), prefill_runs=pre,
-            decode_ms_per_step=statistics.median(dec), decode_runs=dec,
-            peak_gib=peak, launches={n: c for n, c in got.items() if c},
-            profile=prof)
-        print(f"  {name}: generate {wall:.3f} s ({toks.size / wall:.2f} new "
-              f"tokens/s), prefill {statistics.median(pre):.1f} ms median "
-              f"of {[round(x, 1) for x in pre]}, decode "
-              f"{statistics.median(dec):.2f} ms a step median of "
-              f"{[round(x, 2) for x in dec]}, peak {peak:.2f} GiB")
-        for k_, v_ in prof.items():
-            print(f"  {name} {k_} profile: {v_}")
     # K2 pinned to its SIMT instance (head dim 64 as it ran before the
     # tensor cores took it) at block: the prefill's logits against the
     # tensor cores' (the whisper_check rule), its busy time, and whether
@@ -6095,6 +6169,288 @@ def phase_whisper_serve(smi: str):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# ssm_check / ssm_serve: mamba2-780m, the SSM family
+# ---------------------------------------------------------------------------
+
+#: mamba2-780m serving: 4 requests x 512 prompt tokens (two SSD chunks of
+#: 256), 32 greedy tokens; ssm_check at 2 of the 48 layers
+M_BATCH, M_PROMPT, M_NEW_TOKENS, M_MAX_LEN = 4, 512, 32, 1024
+M_CHECK_LAYERS = 2
+SSD_SITES = ("ssd_cb", "ssd_lx", "ssd_state", "ssd_ch")
+
+
+def _mamba2_model(layers=None, seed=0):
+    """mamba2-780m at full width (``layers`` deep, all 48 by default),
+    random bf16 weights from ``seed``, the prompts and two decode tokens."""
+    cfg = mamba2_780m.CONFIG
+    if layers is not None:
+        print(f"  depth cut: {layers} of {cfg.n_layers} layers")
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    t0 = time.perf_counter()
+    params = mamba2.init(cfg, seed=seed, dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    print(f"  init: {n_params / 1e9:.3f} B parameters in "
+          f"{time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    prompts = torch.randint(0, cfg.vocab_size, (M_BATCH, M_PROMPT),
+                            generator=gen, device="cuda")
+    steps = torch.randint(0, cfg.vocab_size, (2, M_BATCH, 1), generator=gen,
+                          device="cuda")
+    return cfg, params, prompts, steps
+
+
+def mamba2_launches(cfg, level, prefills, decodes):
+    """mamba2's expected launch counts: K1 2 a layer (in_proj, out_proj)
+    and the head per prefill and per decode step, on the level's tensor-
+    core instance; K5 4 a layer per prefill (the SSD products, more than
+    16 rows a slice), all on its SIMT instance by `plan_k5`'s rule; no
+    other kernel. FT off runs none: its products take the plain-matmul
+    fast path, as in the reference."""
+    if level == "off":
+        return {n: 0 for n in KERNELS}
+    return {**k1_launches((2 * cfg.n_layers + 1) * (prefills + decodes),
+                          level),
+            "ft_gemm_batched_sm90": 0,
+            "ft_gemm_batched": 4 * cfg.n_layers * prefills,
+            **k2_launches(0), **NO_FLASH_BWD, **k6_launches(0), **OFF_PATH}
+
+
+def _ssd_operands(cfg, make, gen):
+    """The four SSD products of a 4 x 512-token prefill as `ssd_chunked`
+    passes them: B·nc·H slices, Q = the chunk, N = the state, P = the
+    head dim."""
+    q, n, p = cfg.ssm.chunk, cfg.ssm.state, cfg.ssm.head_dim
+    nb = M_BATCH * (M_PROMPT // q) * mamba2.dims(cfg)[1]
+    return {"ssd_cb": (make(gen, nb, q, n), make(gen, nb, n, q)),
+            "ssd_lx": (make(gen, nb, q, q), make(gen, nb, q, p)),
+            "ssd_state": (make(gen, nb, n, q), make(gen, nb, q, p)),
+            "ssd_ch": (make(gen, nb, q, n), make(gen, nb, n, p))}
+
+
+def _ssd_kernels(gen, cfg):
+    """K5's SIMT instance at the four SSD products: the plan, one launch
+    each at FT off and each level against the plain version under the same
+    plan (reports equal), an SEU of 64 on integer operands in one slice at
+    its second k-step corrected bit for bit and located at its global row and
+    column at each level, and left by detect-only; the times: the kernel
+    at block and FT off (queued device time), the plain version, one
+    torch.matmul on the same operands and the bound."""
+    rows = dict(max_abs_err=0.0, detail=[])
+    counters = (ft_gemm.FT_GEMM_BATCHED_SM90, ft_gemm.FT_GEMM_BATCHED)
+    for label, (a, b) in _ssd_operands(cfg, _rand, gen).items():
+        nb, m, k = a.shape
+        n = b.shape[-1]
+        p = ft_gemm.plan_call(a, b, ft=FT)
+        check(p.instance == "simt" and p.tiles == ft_gemm.pick_tiles(m),
+              f"K5 {label} ({nb}x{m}x{n}x{k}): the SIMT instance at "
+              f"{p.tiles} by plan_k5's rule ({p.reason})")
+        for level in W_LEVELS:
+            ft = _w_ft(level)
+            before = [c.launches for c in counters]
+            got, rep = ft_gemm.ft_gemm(a, b, ft=ft)
+            check([c.launches - x for c, x in zip(counters, before)]
+                  == [0, 1], f"K5 {label} {level}: one SIMT launch")
+            want, rep_p = _plain_gemm(a, b, ft=ft)
+            rows["max_abs_err"] = max(rows["max_abs_err"], _cmp_outputs(
+                f"K5 {label} {level}", got, want, rep, rep_p))
+        ms = queued_ms(lambda: ft_gemm.ft_gemm(a, b, ft=FT))
+        off_ms = queued_ms(lambda: ft_gemm.ft_gemm(a, b))
+        lib_ms = queued_ms(lambda: torch.matmul(a, b))
+        plain_ms = time_ms(lambda: _plain_gemm(a, b, ft=FT), 2)
+        b_ms, b_by = bound(2.0 * nb * m * n * k,
+                           2 * nb * (m * k + k * n + m * n))
+        rows["detail"].append(dict(
+            shape=f"mamba2 {label}", batch=nb, M=m, N=n, K=k, tiles=p.tiles,
+            ms=ms, ft_off_ms=off_ms, plain_ms=plain_ms, library_ms=lib_ms,
+            bound_ms=b_ms, bound_by=b_by))
+        print(f"  K5 {label} ({nb}x{m}x{n}x{k}, SIMT {p.tiles}): {ms:.4f} ms "
+              f"device (queued; FT off {off_ms:.4f}, {2.0 * nb * m * n * k / ms / 1e9:.1f} "
+              f"TFLOP/s), plain {plain_ms:.2f} ms, torch.matmul "
+              f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    for label, (a, b) in _ssd_operands(cfg, _ints, gen).items():
+        nb, m, k = a.shape
+        n = b.shape[-1]
+        s_, row, col = nb // 3, m * 5 // 7, n * 3 // 5
+        step = min(1, ft_gemm.cdiv(k, ft_gemm.plan_call(a, b).tiles[2]) - 1)
+        inj = (1, s_, row, col, step)
+        for level in W_LEVELS[1:]:
+            ft = FT.replace(level=level)
+            clean, _ = ft_gemm.ft_gemm(a, b, ft=ft)
+            fixed, rep = ft_gemm.ft_gemm(a, b, ft=ft, inj=inj, inj_mag=64.0)
+            hit = (rep[..., 0] > 0).nonzero()
+            cell = rep[rep[..., 0] > 0]
+            check(torch.equal(fixed, clean) and hit.shape[0] == 1
+                  and int(hit[0, 0]) == s_
+                  and float(rep[..., 1].sum()) == 1.0
+                  and (int(cell[0, 2]), int(cell[0, 3])) == (row, col)
+                  and abs(float(cell[0, 4]) - 64.0) < 1e-2,
+                  f"K5 {label} {level}: an SEU in slice {s_} at (row {row}, "
+                  f"col {col}, k-step {step}) corrected bit for bit and "
+                  f"located")
+            left, rep_d = ft_gemm.ft_gemm(a, b, ft=ft.replace(
+                action="detect"), inj=inj, inj_mag=64.0)
+            diff = (left != clean).nonzero()
+            check(diff.shape[0] == 1
+                  and tuple(int(x) for x in diff[0]) == (s_, row, col)
+                  and float(rep_d[..., 1].sum()) == 0.0
+                  and float(rep_d[..., 0].sum()) >= 1.0,
+                  f"K5 {label} {level}: the same SEU left in place by "
+                  f"detect-only")
+    return {"ft_gemm_batched": rows}
+
+
+def phase_ssm_check():
+    """mamba2-780m at full width, 2 layers: prefill and 2 decode steps
+    through the kernels against their plain versions at FT off, block,
+    tile and inner; K5's SIMT instance at the SSD products."""
+    cfg, params, prompts, steps = _mamba2_model(layers=M_CHECK_LAYERS,
+                                                seed=1)
+    for level in W_LEVELS:
+        run = _w_run(cfg, level)
+        before = {n: k["counter"].launches for n, k in KERNELS.items()}
+        got, tot_k, sites = _family_logits(params, cfg, run, prompts, steps,
+                                           M_MAX_LEN)
+        launched = {n: k["counter"].launches - before[n]
+                    for n, k in KERNELS.items()}
+        with plain_kernels():
+            want, tot_p, _ = _family_logits(params, cfg, run, prompts, steps,
+                                            M_MAX_LEN)
+        _check_logits(f"ssm_check {level} kernel vs plain", got, want)
+        check(tot_k["detected"] == 0 and tot_p["detected"] == 0,
+              f"ssm_check {level}: zero detections (kernels {tot_k}, plain "
+              f"{tot_p})")
+        check(launched == mamba2_launches(cfg, level, 1, 2),
+              f"ssm_check {level}: launch counts "
+              f"{ {n: c for n, c in launched.items() if c} }")
+        if level != "off":
+            check(set(SSD_SITES) <= sites, f"ssm_check {level}: the four "
+                  f"SSD products record their FT summaries")
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    return _ssd_kernels(gen, cfg)
+
+
+@contextmanager
+def ssd_cb_seu(mag=64.0, step=0):
+    """A deterministic SEU in the first batched product under the context
+    (layer 0's ssd_cb in a mamba2 prefill): `ops.grouped_gemm_call`, which
+    the batched FT front calls, with an injection on its first call in
+    slice 5 at (5/7 of the rows, 3/5 of the columns). Yields the list of
+    (report, slice, row, col) of the injected call."""
+    saved = ops.grouped_gemm_call
+    reps = []
+
+    def injected(spec, a, b, **kw):
+        if reps:
+            return saved(spec, a, b, **kw)
+        row, col = a.shape[-2] * 5 // 7, b.shape[-1] * 3 // 5
+        out, rep = saved(spec, a, b, **dict(kw, inject=InjectionSpec(
+            row=row, col=col, magnitude=mag, k_step=step), inj_batch=5))
+        reps.append((rep, 5, row, col))
+        return out, rep
+
+    ops.grouped_gemm_call = injected
+    try:
+        yield reps
+    finally:
+        ops.grouped_gemm_call = saved
+
+
+def phase_ssm_serve(smi: str):
+    """`generate` on mamba2-780m at full width and depth at FT off, block,
+    tile and inner; an SEU in layer 0's first ssd_cb at block corrected."""
+    t_phase = time.perf_counter()
+    cfg, params, prompts, _ = _mamba2_model()
+    prompts_np = prompts.cpu().numpy()
+    sc = serve.ServeConfig(max_len=M_MAX_LEN)
+    launches = {n: 0 for n in KERNELS}
+    summary, tokens_at = {}, {}
+    for level in W_LEVELS:
+        run = _w_run(cfg, level)
+        name = f"ssm_serve {level}"
+        prefill_fn, decode_fn = serve.make_serve_fns(cfg, run)
+        toks, got, guard, summary[level] = _serve_level(
+            name, lambda: serve.generate(
+                params, prompts_np, cfg, run, sc,
+                max_new_tokens=M_NEW_TOKENS, device="cuda"),
+            mamba2_launches(cfg, level, 1, M_NEW_TOKENS),
+            lambda cache: prefill_fn(params, prompts, cache),
+            lambda: mamba2.init_cache(cfg, M_BATCH, M_MAX_LEN), decode_fn,
+            params, M_BATCH, allow=ssm_readout(cfg),
+            groups={"K5 SIMT": lambda k: "ft_gemm_kernel" in k})
+        for n in launches:
+            launches[n] += got[n]
+        tokens_at[level] = toks
+        prof = summary[level]["profile"]["prefill"]
+        prof["k5_share"] = (prof["group_ms"]["K5 SIMT"] / prof["busy_ms"]
+                            if prof["busy_ms"] else None)
+        print(f"  {name}: K5's share of the prefill's device busy time "
+              f"{prof['k5_share']}")
+        # greedy over the padded head, as the reference's (random weights
+        # may pick a padding row)
+        check(toks.shape == (M_BATCH, M_NEW_TOKENS) and int(toks.min()) >= 0
+              and int(toks.max()) < cfg.padded_vocab(),
+              f"{name}: tokens of the expected shape inside the padded "
+              f"vocabulary ({cfg.padded_vocab()})")
+        if level != "off":
+            check(not guard.hits and guard.allowed
+                  == cfg.n_layers * M_NEW_TOKENS,
+                  f"{name}: no library matmul / attention op dispatched but "
+                  f"the decode readout, once a layer a step")
+    # An SEU in layer 0's first ssd_cb at block: corrected, the clean run's
+    # tokens, the prefill logits those of the clean run to bf16 rounding;
+    # detect-only leaves it (detected, not corrected). Every detection is
+    # the injected block's: at k-step 0 on real-valued scores the
+    # correction leaves the f32 rounding of 64 (7.6e-6), which the next
+    # step's tau (k = 64) may flag and correct again, as the plain version
+    # does.
+    run = _w_run(cfg, "block")
+    prefill_fn, _ = serve.make_serve_fns(cfg, run)
+    clean, _ = prefill_fn(params, prompts, mamba2.init_cache(
+        cfg, M_BATCH, M_MAX_LEN))
+    with ssd_cb_seu() as reps, telemetry.ft_scope() as scope:
+        toks = serve.generate(params, prompts_np, cfg, run, sc,
+                              max_new_tokens=M_NEW_TOKENS, device="cuda")
+    tot, site_tot = scope.totals(), scope.site_totals()
+    rep, s_, row, col = reps[0]
+    hit = (rep[..., 0] > 0).nonzero()
+    cell = rep[rep[..., 0] > 0]
+    print(f"  ssm_serve block, ssd_cb SEU: FT totals {tot}, the injected "
+          f"block's record {cell.tolist()}")
+    check(len(reps) == 1 and tot["detected"] == tot["corrected"] >= 1.0
+          and site_tot["ssd_cb"]["corrected"] == tot["corrected"]
+          and float(rep[..., 1].sum()) == tot["corrected"]
+          and hit.shape[0] == 1 and int(hit[0, 0]) == s_
+          and (int(cell[0, 2]), int(cell[0, 3])) == (row, col),
+          f"ssm_serve block: the ssd_cb SEU (slice {s_}, row {row}, col "
+          f"{col}) detected, corrected and located in its one block, no "
+          f"detection elsewhere ({tot})")
+    check((toks == tokens_at["block"]).all(), "ssm_serve block: the tokens "
+          "with the corrected SEU are the clean run's")
+    for action in ("correct", "detect"):
+        fn, _ = serve.make_serve_fns(cfg, RunConfig(
+            model=cfg, ft=run.ft.replace(action=action), dtype="bfloat16"))
+        with ssd_cb_seu(), telemetry.ft_scope() as scope:
+            lg, _ = fn(params, prompts, mamba2.init_cache(
+                cfg, M_BATCH, M_MAX_LEN))
+        err = (lg.float() - clean.float()).abs().max().item()
+        scale = clean.float().abs().max().item()
+        tot = scope.totals()
+        if action == "correct":
+            check(err <= BF16_TOL * scale, f"ssm_serve block: corrected "
+                  f"prefill logits within {err:.3g} of the clean run's")
+        else:
+            check(tot["corrected"] == 0.0 and tot["detected"] >= 1.0,
+                  f"ssm_serve block detect-only: the SEU detected and left "
+                  f"(logits off by {err:.3g}), {tot}")
+    print(json.dumps({"ssm_serve": dict(
+        arch=cfg.arch_id, layers=cfg.n_layers, batch=M_BATCH,
+        prompt=M_PROMPT, new_tokens=M_NEW_TOKENS, card=smi,
+        phase_s=time.perf_counter() - t_phase, levels=summary)}))
+    return launches
+
+
 def _merge_rows(rows, more):
     """Add a phase's kernel rows: shapes append, the max error is the
     larger; the first phase's headline shape stays."""
@@ -6116,7 +6472,8 @@ def main() -> int:
                     "train_check,train,moe_kernels,moe_check,moe_engine,"
                     "moe_train,level_train,level_moe,campaign_kernels,"
                     "campaign_train,campaign_train_chunked,moe_campaign,"
-                    "chain_kernels,whisper_check,whisper_serve")
+                    "chain_kernels,whisper_check,whisper_serve,ssm_check,"
+                    "ssm_serve")
     ap.add_argument("--layers", type=int, default=qwen2_7b.CONFIG.n_layers,
                     help="serve and level_serve depth (the width is always "
                          "full)")
@@ -6197,6 +6554,10 @@ def main() -> int:
                 _merge_rows(rows, phase_whisper_check())
             elif phase == "whisper_serve":
                 by_path["whisper_serve"] = phase_whisper_serve(smi)
+            elif phase == "ssm_check":
+                _merge_rows(rows, phase_ssm_check())
+            elif phase == "ssm_serve":
+                by_path["ssm_serve"] = phase_ssm_serve(smi)
             else:
                 raise SystemExit(f"unknown phase {phase!r}")
         except Exception:

@@ -1,10 +1,10 @@
-"""Architecture registry, the dense, MoE and encoder-decoder entries
+"""Architecture registry, the dense, MoE, SSM and encoder-decoder entries
 (counterpart of `repro.configs.registry`): ``--arch <id>`` resolution."""
 from __future__ import annotations
 
 from .base import ModelConfig
-from . import (arctic_480b, codeqwen15_7b, minitron_4b, phi4_mini_38b,
-               qwen2_7b, qwen3_moe_235b, whisper_medium)
+from . import (arctic_480b, codeqwen15_7b, mamba2_780m, minitron_4b,
+               phi4_mini_38b, qwen2_7b, qwen3_moe_235b, whisper_medium)
 
 _MODULES = {
     "arctic-480b": arctic_480b,
@@ -13,6 +13,7 @@ _MODULES = {
     "codeqwen1.5-7b": codeqwen15_7b,
     "phi4-mini-3.8b": phi4_mini_38b,
     "minitron-4b": minitron_4b,
+    "mamba2-780m": mamba2_780m,
     "whisper-medium": whisper_medium,
 }
 

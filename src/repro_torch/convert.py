@@ -11,7 +11,10 @@ arctic's parallel dense MLP is "layers.mlp". The encoder-decoder family's
 tree (`repro.models.whisper.init`) converts the same way: "enc_layers.*" and
 "dec_layers.*" stacked on their own layer axes (a decoder layer's "cross"
 attention beside its "attn"), "dec_pos", "enc_norm", "final_norm" and
-"head.table".
+"head.table". The SSM family's (`repro.models.mamba2.init`) too:
+"layers.ssm.*" (in_proj, conv_w, conv_b, A_log, D, dt_bias, norm_w,
+out_proj) and "layers.pre_norm" stacked on the layer axis, A_log, D,
+dt_bias and norm_w f32.
 The input is the nested dict with numpy leaves (``np.asarray`` of each JAX
 array); bfloat16 leaves (numpy's ml_dtypes bfloat16) keep their bits.
 """

@@ -9,10 +9,13 @@
         --arch arctic-480b-smoke --device cpu --dtype float32
     PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-medium \
         --batch 4 --prompt-len 16 --new-tokens 8
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch mamba2-780m-smoke --device cpu --dtype float32
 
 The arch ids are those of `configs.registry`: the dense family, the MoE
-family (qwen3-moe-235b-a22b, arctic-480b) and whisper-medium, whose
-frame embeddings (the frontend stub) are drawn from the seed.
+family (qwen3-moe-235b-a22b, arctic-480b), mamba2-780m (the SSM family)
+and whisper-medium, whose frame embeddings (the frontend stub) are drawn
+from the seed.
 """
 from __future__ import annotations
 

@@ -1,5 +1,5 @@
 """Architecture dispatch (counterpart of `repro.models.model_zoo`, dense,
-MoE and encoder-decoder branches): `module_for(cfg)` returns the family
+MoE, SSM and encoder-decoder branches): `module_for(cfg)` returns the family
 module exposing
 
     init(cfg, seed, dtype, device)                 → params
@@ -9,7 +9,8 @@ module exposing
     decode_step(params, token, cache, cfg, ctx)    → (logits, cache)
 
 The encoder-decoder family (whisper) also takes ``frames=`` (B, T_a, d) in
-``forward`` and ``prefill``; `input_specs` names each family's inputs.
+``forward`` and ``prefill``; `input_specs` names each family's inputs (the
+SSM family (mamba2) needs none beyond the tokens).
 """
 from __future__ import annotations
 
@@ -19,17 +20,19 @@ from typing import Dict, Tuple
 import torch
 
 from ..configs.base import ModelConfig
-from . import transformer, whisper
+from . import mamba2, transformer, whisper
 
 
-_FAMILIES = {"dense": transformer, "moe": transformer, "encdec": whisper}
+_FAMILIES = {"dense": transformer, "moe": transformer, "ssm": mamba2,
+             "encdec": whisper}
 
 
 def module_for(cfg: ModelConfig) -> ModuleType:
     mod = _FAMILIES.get(cfg.family)
     if mod is None:
         raise NotImplementedError(f"{cfg.arch_id}: family {cfg.family!r} is "
-                                  f"not ported (dense, moe and encdec only)")
+                                  f"not ported (dense, moe, ssm and encdec "
+                                  f"only)")
     return mod
 
 

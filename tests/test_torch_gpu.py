@@ -2548,3 +2548,120 @@ def test_whisper_smoke_generate_on_card_matches_cpu(cuda):
         logits.append(lg.float().cpu())
     err = float((logits[1] - logits[0]).abs().max())
     assert err <= 2e-2 * float(logits[0].abs().max())
+
+
+# ---------------------------------------------------------------------------
+# mamba2 (the SSM family): K5's SIMT instance at the SSD products, the
+# model at full width
+# ---------------------------------------------------------------------------
+
+#: (M, N, K) of mamba2-780m's four SSD products (chunk 256, state 128,
+#: head dim 64)
+SSD_SHAPES = {"ssd_cb": (256, 256, 128), "ssd_lx": (256, 64, 256),
+              "ssd_state": (128, 64, 256), "ssd_ch": (256, 64, 128)}
+
+
+@pytest.mark.parametrize("level", ["off", "block", "tile", "inner"])
+@pytest.mark.parametrize("product", list(SSD_SHAPES))
+def test_k5_simt_at_ssd_shapes_matches_plain(cuda, product, level):
+    """K5 at the four SSD products, cut to 3 slices: the SIMT instance by
+    `plan_k5`'s rule, bf16 against the plain version under the same plan
+    (one bf16 ulp of the output's range; det / corr / row / col / k equal,
+    tau within 1e-5); integer operands with an SEU of 64 in slice 1
+    corrected bit for bit and located at its global row and column, and
+    left by detect-only."""
+    m, n, k = SSD_SHAPES[product]
+    gen = torch.Generator(device="cuda").manual_seed(m + n + k)
+    ft = None if level == "off" else FT.replace(level=level)
+    a = torch.randn(3, m, k, generator=gen, device="cuda").bfloat16()
+    b = torch.randn(3, k, n, generator=gen, device="cuda").bfloat16()
+    assert ft_gemm.plan_call(a, b, ft=ft).instance == "simt"
+    before = ft_gemm.FT_GEMM_BATCHED.launches
+    got, rep = ft_gemm.ft_gemm(a, b, ft=ft)
+    assert ft_gemm.FT_GEMM_BATCHED.launches == before + 1
+    want, rep_p = ft_gemm.planned_plain(a, b, ft=ft)
+    tol = 2.0 ** -7 * float(want.float().abs().max())
+    assert float((got.float() - want.float()).abs().max()) <= tol
+    if ft is None:
+        return
+    _check_fields(rep, rep_p)
+    assert float(rep[..., 0].sum()) == 0.0
+    a = _ints(gen, 3, m, k, dtype=torch.bfloat16)
+    b = _ints(gen, 3, k, n, dtype=torch.bfloat16)
+    row, col = m * 5 // 7, n * 3 // 5
+    kw = dict(inj=(1, 1, row, col, 1), inj_mag=64.0)
+    clean, _ = ft_gemm.ft_gemm(a, b, ft=ft)
+    fixed, rep = ft_gemm.ft_gemm(a, b, ft=ft, **kw)
+    _, rep_p = ft_gemm.planned_plain(a, b, ft=ft, **kw)
+    _check_fields(rep, rep_p)
+    assert torch.equal(fixed, clean)
+    hit = (rep[..., 0] > 0).nonzero()
+    cell = rep[rep[..., 0] > 0]
+    assert hit.shape[0] == 1 and int(hit[0, 0]) == 1
+    assert (int(cell[0, 2]), int(cell[0, 3])) == (row, col)
+    assert float(rep[..., 1].sum()) == 1.0
+    left, rep_d = ft_gemm.ft_gemm(a, b, ft=ft.replace(action="detect"), **kw)
+    assert [tuple(x) for x in (left != clean).nonzero().tolist()] == \
+        [(1, row, col)]
+    assert float(rep_d[..., 1].sum()) == 0.0
+
+
+def test_k5_simt_raises_above_its_grid(cuda):
+    """The SIMT K5 puts the batch on gridDim.z (at most 65 535): a larger
+    batch raises, with no silent split."""
+    a = torch.ones(65_536, 17, 8, dtype=torch.bfloat16, device="cuda")
+    b = torch.ones(65_536, 8, 8, dtype=torch.bfloat16, device="cuda")
+    assert ft_gemm.plan_call(a, b, ft=FT).instance == "simt"
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        ft_gemm.ft_gemm(a, b, ft=FT)
+
+
+def test_mamba2_full_width_kernels_match_plain(cuda, monkeypatch):
+    """mamba2-780m at full width, 2 layers, bf16: a prefill of 2 x 512
+    tokens (two SSD chunks of 256) and a decode step through the kernels
+    and through their plain versions (`ft_gemm.planned_plain` in place of
+    `ft_gemm.ft_gemm`) at block, tile and inner: logits within 2e-2 of
+    max |logit|, no detection, K1 2 a layer and the head per step on the
+    tensor cores, K5 4 a layer per prefill on its SIMT instance."""
+    import dataclasses
+    from repro_torch.configs import mamba2_780m
+    from repro_torch.configs.base import RunConfig
+    from repro_torch.core import telemetry
+    from repro_torch.models import mamba2
+    from repro_torch.train import serve
+    cfg = dataclasses.replace(mamba2_780m.CONFIG, n_layers=2)
+    params = mamba2.init(cfg, seed=0, dtype=torch.bfloat16, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    prompts = torch.randint(0, cfg.vocab_size, (2, 512), generator=gen,
+                            device="cuda")
+    tok = torch.randint(0, cfg.vocab_size, (2, 1), generator=gen,
+                        device="cuda")
+    kernel = ft_gemm.ft_gemm
+
+    def run(level):
+        pre, dec = serve.make_serve_fns(cfg, RunConfig(
+            model=cfg, ft=FT.replace(level=level), dtype="bfloat16"))
+        with telemetry.ft_scope() as scope:
+            cache = mamba2.init_cache(cfg, 2, 1024)
+            lg0, cache = pre(params, prompts, cache)
+            lg1, cache = dec(params, tok, cache)
+        assert scope.totals()["detected"] == 0.0
+        return [lg0.float(), lg1.float().reshape(2, -1)]
+
+    for level in ("block", "tile", "inner"):
+        k1 = (ft_gemm.FT_GEMM_LEVEL_SM90 if level != "block"
+              else ft_gemm.FT_GEMM_SM90)
+        counters = (k1, ft_gemm.FT_GEMM_BATCHED, ft_gemm.FT_GEMM_BATCHED_SM90)
+        before = [c.launches for c in counters]
+        got = run(level)
+        assert [c.launches - x for c, x in zip(counters, before)] == \
+            [2 * (2 * cfg.n_layers + 1), 4 * cfg.n_layers, 0]
+        monkeypatch.setattr(ft_gemm, "ft_gemm",
+                            lambda a, b, *, tiles=None, **kw:
+                            ft_gemm.planned_plain(a, b, tiles=tiles, **kw))
+        want = run(level)
+        monkeypatch.setattr(ft_gemm, "ft_gemm", kernel)
+        for g_, w_ in zip(got, want):
+            err = float((g_ - w_).abs().max())
+            assert bool(torch.isfinite(g_).all())
+            assert err <= 2e-2 * float(w_.abs().max())
