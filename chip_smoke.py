@@ -10,6 +10,7 @@
     python3 chip_smoke.py --phases env,level_kernels,level_train,level_moe
     python3 chip_smoke.py --phases env,campaign_kernels,campaign_train,campaign_train_chunked,moe_campaign
     python3 chip_smoke.py --phases env,chain_kernels,whisper_check,whisper_serve
+    python3 chip_smoke.py --phases env,act_chains
     python3 chip_smoke.py --phases env,ssm_check,ssm_serve
 
 Phases (each prints its own lines; any failed check exits non-zero):
@@ -327,6 +328,30 @@ Phases (each prints its own lines; any failed check exits non-zero):
                every chain it takes in bf16 and f32 at every level, with
                act_grad, against its plain version, an SEU per level on a
                residual chain, and its time at w1's width on gelu+residual;
+  act_chains   the last parts of the TPU kernels: K5 with the chains relu
+               and gelu+relu on its tensor-core instance at qwen2-7b's
+               dec_qk (4 x 4 x 7 x 256 x 128 on the permuted K cache) and
+               on the SIMT chain instance (csrc/ft_gemm_chain.cu) at
+               mamba2's ssd_cb (384 x 256 x 128 x 256); K7 with silu and
+               gelu+relu at qwen3-moe's decode gate (64 rows over 128
+               experts, 4 096 -> 1 536) on its tensor-core instance (bf16)
+               and its SIMT chain instance (f32); K1's chains of several
+               activations (gelu+relu, bias+silu+relu+residual) on the
+               chain instance at whisper's w1 (6 000 x 1 024 -> 4 096):
+               each at FT off, block, tile and inner against its plain
+               version under the same plan (one launch of the instance,
+               outputs to one bf16 ulp, reports equal), an SEU on integer
+               operands at each level corrected bit for bit and located,
+               and left by detect-only, the queued device time at block
+               beside the plain version, the library (the product, then the
+               chain) and the bound; the SIMT K5 at 70 000 slices of 17 x 8
+               · 8 x 8 (above gridDim.z's 65 535) against its plain version,
+               an SEU in the last slice; then the front doors once each
+               (`ops.grouped_gemm_call` with a chain for K5, K7 and K8, which
+               drops it, and `ops.gemm_call`; the rows front door pins K7's
+               and K8's SIMT tiles), every launch count set to 0 before and
+               read after, under the dispatch guard, each output held to its
+               plain version;
   whisper_check  whisper-medium at full width, 2 + 2 layers: prefill and 2
                decode steps (the same tokens fed to both) through the
                kernels and through their plain versions at FT off, block,
@@ -501,6 +526,13 @@ KERNELS = {
                             replaces="src/repro/kernels/templates/"
                                      "registry.py:520",
                             counter=ft_gemm.FT_GEMM_BATCHED),
+    # ... and with an activation chain, on the chain instance
+    "ft_gemm_batched_chain": dict(route="cuda",
+                                  source="src/repro_torch/kernels/csrc/"
+                                         "ft_gemm_chain.cu",
+                                  replaces="src/repro/kernels/templates/"
+                                           "registry.py:518",
+                                  counter=ft_gemm.FT_GEMM_BATCHED_CHAIN),
     # K2 on the tensor cores: every bf16 call at head dim 64 or 128
     "flash_ft_sm90": dict(route="cuda",
                           source="src/repro_torch/kernels/csrc/"
@@ -572,6 +604,13 @@ KERNELS = {
                             replaces="src/repro/kernels/templates/"
                                      "registry.py:520",
                             counter=grouped_gemm.FT_GEMM_GROUPED_SIMT),
+    # ... and with an activation chain, its chain instance
+    "ft_gemm_grouped_chain": dict(route="cuda",
+                                  source="src/repro_torch/kernels/csrc/"
+                                         "ft_gemm_chain.cu",
+                                  replaces="src/repro/kernels/templates/"
+                                           "registry.py:520",
+                                  counter=grouped_gemm.FT_GEMM_GROUPED_CHAIN),
     # K8 on the tensor cores, and its SIMT instance
     "tgmm_sm90": dict(route="cuda",
                       source="src/repro_torch/kernels/csrc/grouped_sm90.cu",
@@ -600,11 +639,14 @@ DECODE_LENGTHS = (0, 1, 63, 64, 65, 300, 777, 1024)
 def k1_launches(count: int, level: str = "block"):
     """The expected K1 2-D counts of a bf16 path at FT ``level``: every
     launch on the tensor cores, on ft_gemm_sm90 at off and block, on
-    ft_gemm_level_sm90 at tile and inner; the SIMT instances never."""
+    ft_gemm_level_sm90 at tile and inner; the SIMT instances never, nor
+    the chain instances of csrc/ft_gemm_chain.cu (K1's, K5's and K7's: no
+    model path has a chain they take)."""
     lv = level in ("tile", "inner")
     return {"ft_gemm_sm90": 0 if lv else count,
             "ft_gemm_level_sm90": count if lv else 0, "ft_gemm_2d": 0,
-            "ft_gemm_chain": 0}
+            "ft_gemm_chain": 0, "ft_gemm_batched_chain": 0,
+            "ft_gemm_grouped_chain": 0}
 
 
 def k5_launches(count: int):
@@ -5800,6 +5842,409 @@ def phase_chain_kernels():
     return rows
 
 
+# ---------------------------------------------------------------------------
+# act_chains: the last parts of the TPU kernels
+# ---------------------------------------------------------------------------
+
+#: act_chains: the chains of each case (K5 and K7 aux-free, K1 two or more
+#: activations) and the SIMT K5's grid case (70 000 slices of 17 x 8 · 8 x 8)
+K5_CHAINS = [("relu",), ("gelu", "relu")]
+K7_CHAINS = [("silu",), ("gelu", "relu")]
+K1_CHAINS = [("gelu", "relu"), ("bias", "silu", "relu", "residual")]
+GRID_SLICES = 70_000
+
+
+def _lib_chain(y, chain, bias=None, residual=None):
+    """The library side of a chain: torch's own ops after the product."""
+    for name in chain:
+        if name == "bias":
+            y = y + bias
+        elif name == "residual":
+            y = y + residual
+        elif name == "gelu":
+            y = torch.nn.functional.gelu(y, approximate="tanh")
+        else:
+            y = getattr(torch.nn.functional, name)(y)
+    return y
+
+
+def _hold_plain(label, name, call, plain, level, tol=BF16_TOL):
+    """One call of instance ``name`` at ``level`` against its plain version
+    under the same plan: one launch of that instance, outputs within
+    ``tol`` of the top of the range, reports equal, no detection."""
+    ft = _w_ft(level)
+    (out, rep), n = _launched(KERNELS[name]["counter"], lambda: call(ft=ft))
+    check(n == 1, f"{label} {level}: one launch of {name}")
+    out_p, rep_p = plain(ft=ft)
+    return _cmp_outputs(f"{label} {level}", out, out_p, rep, rep_p, tol=tol)
+
+
+def _seu_hold(label, name, call, plain, level, inj, cell):
+    """An SEU of 64 on integer operands at ``inj``, where the pre-activation
+    is positive (no activation hides it): corrected to the clean output bit
+    for bit, one detection and correction located at ``cell`` (row, col),
+    the report's det / corr / row / col the plain version's; under
+    detect-only the output moves at one cell and nothing is corrected."""
+    ft = FT.replace(level=level)
+    counter = KERNELS[name]["counter"]
+    clean, _ = call(ft=ft)
+    (fixed, rep), n = _launched(counter, lambda: call(ft=ft, inj=inj,
+                                                      inj_mag=64.0))
+    _, rep_p = plain(ft=ft, inj=inj, inj_mag=64.0)
+    hit = rep[rep[..., 0] > 0]
+    check(n == 1, f"{label} {level}: one launch of {name}")
+    check(torch.equal(fixed, clean)
+          and float(rep[..., 0].sum()) == float(rep[..., 1].sum()) == 1.0
+          and (int(hit[-1, 2]), int(hit[-1, 3])) == cell
+          and torch.equal(rep[..., :4], rep_p[..., :4]),
+          f"{label} {level}: SEU at {cell} (inj {inj}) on {name} corrected "
+          f"bit for bit and located, report as the plain version's")
+    left, rep_d = call(ft=ft.replace(action="detect"), inj=inj, inj_mag=64.0)
+    check(int((left != clean).sum()) == 1
+          and float(rep_d[..., 0].sum()) >= 1.0
+          and float(rep_d[..., 1].sum()) == 0.0,
+          f"{label} {level}: detect-only leaves the SEU in one cell and "
+          f"corrects nothing")
+
+
+def _last_positive(pre):
+    """The last index of a 1-D pre-activation that is positive."""
+    return int((pre > 0).nonzero()[-1])
+
+
+def _time_row(shape, call, plain, library, flops, nbytes, base, base_label,
+              lib_queued=True, **extra):
+    """A kernel row: the call's queued device ms at block beside ``base``,
+    the same product without the chain (``base_label``: on which
+    instance), in the same run; its plain version's ms, the library's (the
+    product and then the chain: queued device time, or with ``lib_queued``
+    false CUDA events over back-to-back calls, for a library call that
+    waits on the host) and the bound."""
+    ms = queued_ms(lambda: call(ft=FT), iters=10)
+    base_ms = queued_ms(lambda: base(ft=FT), iters=10)
+    plain_ms = time_ms(lambda: plain(ft=FT), 1, warmup=0)
+    lib_ms = (queued_ms(library, iters=10) if lib_queued
+              else time_ms(library, 10))
+    b_ms, b_by = bound(flops, nbytes)
+    print(f"  {shape}: {ms:.4f} ms (queued device time, block; without the "
+          f"chain {base_ms:.4f} on {base_label}), plain {plain_ms:.2f} ms, "
+          f"library {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    return dict(shape=shape, ms=ms, no_chain_ms=base_ms, no_chain=base_label,
+                plain_ms=plain_ms, library_ms=lib_ms,
+                library="torch.matmul (or torch._grouped_mm) then the "
+                        "activations", bound_ms=b_ms, bound_by=b_by, **extra)
+
+
+def _k5_chain_cases(gen, rows):
+    """K5 with a chain on both instances: the tensor cores at dec_qk
+    (qwen2-7b's decode QKᵀ on the permuted K cache), the SIMT chain
+    instance at mamba2's ssd_cb (384 slices of 256 x 128 · 128 x 256)."""
+    cfg, mcfg = qwen2_7b.CONFIG, mamba2_780m.CONFIG
+    kvh, rep_n, dh = (cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads,
+                      cfg.head_dim)
+    q, sn = mcfg.ssm.chunk, mcfg.ssm.state
+    nb = M_BATCH * (M_PROMPT // q) * mamba2.dims(mcfg)[1]
+
+    def dec_qk(make):
+        cache = make(gen, BATCH, MAX_LEN, kvh, dh)
+        return make(gen, BATCH, kvh, rep_n, dh), cache.permute(0, 2, 3, 1)
+
+    def ssd_cb(make):
+        return make(gen, nb, q, sn), make(gen, nb, sn, q)
+
+    for name, label, operands in (
+            ("ft_gemm_batched_sm90", "K5 dec_qk", dec_qk),
+            ("ft_gemm_batched_chain", "K5 ssd_cb", ssd_cb)):
+        for chain in K5_CHAINS:
+            tag = f"{label} {'+'.join(chain)}"
+            a, b = operands(_rand)
+            p = ft_gemm.plan_call(a, b, chain=chain, ft=FT)
+            want = "sm90" if name.endswith("sm90") else "simt_chain"
+            check(p.instance == want, f"{tag}: planned on {name} ({p})")
+
+            def call(a=a, b=b, chain=chain, **kw):
+                return ft_gemm.ft_gemm(a, b, chain=chain, **kw)
+
+            def plain(a=a, b=b, chain=chain, **kw):
+                return _plain_gemm(a, b, chain=chain, **kw)
+
+            for level in W_LEVELS:
+                rows[name]["max_abs_err"] = max(
+                    rows[name]["max_abs_err"],
+                    _hold_plain(tag, name, call, plain, level))
+            m, k, n = a.shape[-2], a.shape[-1], b.shape[-1]
+            slices = a.shape[:-2].numel()
+            rows[name]["detail"].append(_time_row(
+                tag, call, plain,
+                lambda a=a, b=b, chain=chain: _lib_chain(torch.matmul(a, b),
+                                                         chain),
+                2.0 * slices * m * n * k,
+                2 * slices * (m * k + k * n + m * n),
+                lambda a=a, b=b, **kw: ft_gemm.ft_gemm(a, b, **kw),
+                "the same instance" if want == "sm90" else "ft_gemm.cu",
+                batch=slices, M=m, N=n, K=k, chain=chain))
+            ai, bi = operands(_ints)
+            step = min(1, ft_gemm.cdiv(k, p.tiles[2]) - 1)
+            s_ = slices - 1
+            row = m - 1
+            col = _last_positive(ai.reshape(-1, m, k)[s_, row].float()
+                                 @ bi.reshape(-1, k, n)[s_].float())
+
+            def call_i(ai=ai, bi=bi, chain=chain, **kw):
+                return ft_gemm.ft_gemm(ai, bi, chain=chain, **kw)
+
+            def plain_i(ai=ai, bi=bi, chain=chain, **kw):
+                return _plain_gemm(ai, bi, chain=chain, **kw)
+
+            for level in W_LEVELS[1:]:
+                _seu_hold(tag, name, call_i, plain_i, level,
+                          (1, s_, row, col, step), (row, col))
+
+
+def _k5_grid_case():
+    """The SIMT K5 at GRID_SLICES slices of (17 x 8)·(8 x 8), more than a
+    gridDim.z of 65 535 could hold: one launch, outputs and every report
+    row equal to the plain version's, an SEU in the last slice corrected
+    and located there."""
+    gen = torch.Generator(device="cuda").manual_seed(70)
+    a, b = _ints(gen, GRID_SLICES, 17, 8), _ints(gen, GRID_SLICES, 8, 8)
+    check(ft_gemm.plan_call(a, b, ft=FT).instance == "simt",
+          "K5 grid: the SIMT instance")
+    for inj in (None, (1, GRID_SLICES - 1, 16, 7, 0)):
+        kw = dict(ft=FT, inj=inj, inj_mag=64.0)
+        (out, rep), n = _launched(ft_gemm.FT_GEMM_BATCHED,
+                                  lambda: ft_gemm.ft_gemm(a, b, **kw))
+        out_p, rep_p = _plain_gemm(a, b, **kw)
+        hit = (rep[..., 0] > 0).nonzero().tolist()
+        check(n == 1 and torch.equal(out, out_p)
+              and torch.equal(rep[..., [0, 1, 2, 3, 7]],
+                              rep_p[..., [0, 1, 2, 3, 7]])
+              and hit == ([] if inj is None else [[GRID_SLICES - 1, 0, 0]]),
+              f"K5 SIMT at {GRID_SLICES} slices of 17x8·8x8, one launch"
+              f"{'' if inj is None else ', an SEU in the last slice'}: "
+              f"outputs and every report row equal to the plain version's")
+
+
+def _k7_chain_cases(gen, rows):
+    """K7 with a chain on both instances at qwen3-moe's decode gate (64
+    rows over 128 experts, 4 096 -> 1 536): the tensor cores in bf16, the
+    SIMT chain instance in f32."""
+    d, f = MOE.d_model, MOE.moe.expert_d_ff
+    e, dec_rows = MOE.moe.n_experts, ENGINE_SLOTS * MOE.moe.top_k
+    for name, dtype in (("ft_gemm_grouped_sm90", torch.bfloat16),
+                        ("ft_gemm_grouped_chain", torch.float32)):
+        bm = kgrouped.plan_grouped(dec_rows, f, d, dtype, n_groups=e)[0]
+        lay = _moe_layout(gen, dec_rows, bm)
+        live_rows, live_e = _live(lay)
+        for chain in K7_CHAINS:
+            tag = f"K7 decode gate {'+'.join(chain)} {str(dtype)[6:]}"
+            w = _rand(gen, e, d, f, scale=0.02).to(dtype)
+            buf = kgrouped.scatter_rows(_rand(gen, dec_rows, d).to(dtype),
+                                        lay)
+            args = (buf, w, lay.gid, lay.row_end)
+            p = grouped_gemm.plan_k7_call(buf, w, lay.gid, ft=FT,
+                                          chain=chain)
+            want = "sm90" if name.endswith("sm90") else "simt_chain"
+            check(p.instance == want, f"{tag}: planned on {name} ({p})")
+
+            def call(args=args, chain=chain, **kw):
+                return grouped_gemm.ft_gemm_grouped(*args, chain=chain, **kw)
+
+            def plain(args=args, chain=chain, **kw):
+                return grouped_gemm.planned_grouped_plain(*args, chain=chain,
+                                                          **kw)
+
+            tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
+            for level in W_LEVELS:
+                rows[name]["max_abs_err"] = max(
+                    rows[name]["max_abs_err"],
+                    _hold_plain(tag, name, call, plain, level, tol=tol))
+            lib, lib_label = _library_grouped(buf, w, lay)
+
+            def library(lib=lib, chain=chain):
+                y = lib()
+                return ([_lib_chain(t, chain) for t in y]
+                        if isinstance(y, list) else _lib_chain(y, chain))
+
+            rows[name]["detail"].append(_time_row(
+                tag, call, plain, library, 2.0 * live_rows * f * d,
+                buf.element_size() * (live_rows * d + live_e * d * f
+                                      + live_rows * f),
+                lambda args=args, **kw: grouped_gemm.ft_gemm_grouped(*args,
+                                                                     **kw),
+                "the same instance" if want == "sm90"
+                else "ft_gemm.cu GROUPED", lib_queued=False,
+                rows=dec_rows, live_experts=live_e, K=d, N=f, chain=chain,
+                library_call=lib_label))
+            bi = kgrouped.scatter_rows(_ints(gen, dec_rows, d).to(dtype), lay)
+            wi = _ints(gen, e, d, f).to(dtype)
+            grp = e - 1                               # the ragged last group
+            row = int(lay.row_end[grp]) - 1
+            col = _last_positive(bi[row].float() @ wi[grp].float())
+            args_i = (bi, wi, lay.gid, lay.row_end)
+
+            def call_i(args=args_i, chain=chain, **kw):
+                return grouped_gemm.ft_gemm_grouped(*args, chain=chain, **kw)
+
+            def plain_i(args=args_i, chain=chain, **kw):
+                return grouped_gemm.planned_grouped_plain(*args, chain=chain,
+                                                          **kw)
+
+            step = min(1, ft_gemm.cdiv(d, p.tiles[2]) - 1)
+            for level in W_LEVELS[1:]:
+                _seu_hold(tag, name, call_i, plain_i, level,
+                          (1, row, col, step), (row, col))
+
+
+def _k1_chain_cases(gen, rows):
+    """K1's chains of two or more activations on the chain instance at
+    whisper-medium's w1 (6 000 x 1 024 -> 4 096, bf16)."""
+    cfg = whisper_medium.CONFIG
+    m, n, k = W_BATCH * cfg.n_audio_frames, cfg.d_ff, cfg.d_model
+    name = "ft_gemm_chain"
+    a, b = _rand(gen, m, k), _rand(gen, k, n, scale=0.02)
+    bias, res = _rand(gen, n, scale=0.02), _rand(gen, m, n)
+    ai, bi = _ints(gen, m, k), _ints(gen, k, n)
+    bias_i, res_i = _ints(gen, n), _ints(gen, m, n)
+    for chain in K1_CHAINS:
+        tag = f"K1 w1 {'+'.join(chain)}"
+        aux = dict(bias=bias if "bias" in chain else None,
+                   residual=res if "residual" in chain else None)
+        p = ft_gemm.plan_call(a, b, chain=chain, ft=FT)
+        check(p.instance == "simt_chain" and "two or more" in p.reason,
+              f"{tag}: planned on the chain instance ({p.reason})")
+
+        def call(chain=chain, aux=aux, **kw):
+            return ft_gemm.ft_gemm(a, b, chain=chain, **aux, **kw)
+
+        def plain(chain=chain, aux=aux, **kw):
+            return _plain_gemm(a, b, chain=chain, **aux, **kw)
+
+        for level in W_LEVELS:
+            rows[name]["max_abs_err"] = max(
+                rows[name]["max_abs_err"],
+                _hold_plain(tag, name, call, plain, level))
+        rows[name]["detail"].append(_time_row(
+            tag, call, plain,
+            lambda chain=chain, aux=aux: _lib_chain(torch.matmul(a, b), chain,
+                                                    **aux),
+            2.0 * m * n * k,
+            2 * (m * k + k * n + m * n * (2 if "residual" in chain else 1)),
+            lambda **kw: ft_gemm.ft_gemm(a, b, chain=("gelu",),
+                                         tiles=p.tiles, **kw),
+            f"ft_gemm.cu at {p.tiles}, gelu alone", M=m, N=n, K=k,
+            chain=chain))
+        kw = dict(chain=chain, ft=FT,
+                  bias=bias_i if "bias" in chain else None,
+                  residual=res_i if "residual" in chain else None)
+        for level in W_LEVELS[1:]:
+            _chain_seu(f"{tag} {level}", KERNELS[name]["counter"], ai, bi,
+                       dict(kw, ft=FT.replace(level=level)), m - 1, 2)
+
+
+def _front_door_path(gen):
+    """The slice's entry points, once each at block, with every launch
+    count set to 0 just before and read just after, under the dispatch
+    guard: `ops.grouped_gemm_call` with a chain for K5 (tensor cores and
+    SIMT), K7 (tensor cores and SIMT) and K8 (which drops the chain), and
+    `ops.gemm_call` for K1's chain of several activations. Each output is
+    held to the plain version under the same plan. Returns the counts."""
+    from repro_torch.kernels.templates import KernelSpec
+    cfg, mcfg = qwen2_7b.CONFIG, mamba2_780m.CONFIG
+    kvh, rep_n, dh = (cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads,
+                      cfg.head_dim)
+    nb = M_BATCH * (M_PROMPT // mcfg.ssm.chunk) * mamba2.dims(mcfg)[1]
+    d, f, e = MOE.d_model, MOE.moe.expert_d_ff, MOE.moe.n_experts
+    rows = ENGINE_SLOTS * MOE.moe.top_k
+    wm = whisper_medium.CONFIG
+    chain = ("gelu", "relu")
+    spec = KernelSpec(ft_level="block", epilogue=chain)
+    k5 = [(_rand(gen, BATCH, kvh, rep_n, dh),
+           _rand(gen, BATCH, MAX_LEN, kvh, dh).permute(0, 2, 3, 1)),
+          (_rand(gen, nb, mcfg.ssm.chunk, mcfg.ssm.state),
+           _rand(gen, nb, mcfg.ssm.state, mcfg.ssm.chunk))]
+    ids = torch.randint(0, e, (rows,), generator=gen, device="cuda")
+    k7 = [(_rand(gen, rows, d).to(dt), _rand(gen, e, d, f, scale=0.02).to(dt))
+          for dt in (torch.bfloat16, torch.float32)]
+    xg, gg = _rand(gen, 8 * rows, d), _rand(gen, 8 * rows, f)
+    ids8 = torch.randint(0, e, (8 * rows,), generator=gen, device="cuda")
+    k1 = (_rand(gen, 1000, wm.d_model), _rand(gen, wm.d_model, wm.d_ff,
+                                              scale=0.02),
+          _rand(gen, wm.d_ff, scale=0.02), _rand(gen, 1000, wm.d_ff))
+    k1_chain = ("bias", "silu", "relu", "residual")
+    torch.cuda.synchronize()
+    for kern in KERNELS.values():
+        kern["counter"].launches = 0
+    guard = LibraryCallGuard()
+    with guard:
+        outs = [ops.grouped_gemm_call(spec, a, b, ft=FT) for a, b in k5]
+        outs += [ops.grouped_gemm_call(spec, x, w, group_ids=ids, ft=FT)
+                 for x, w in k7]
+        dw, _ = ops.grouped_gemm_call(spec, xg, gg, group_ids=ids8,
+                                      n_groups=e, ft=FT)
+        outs.append(ops.gemm_call(
+            KernelSpec(ft_level="block", epilogue=k1_chain), k1[0], k1[1],
+            bias=k1[2], residual=k1[3], ft=FT))
+        torch.cuda.synchronize()
+    launches = {n_: k["counter"].launches for n_, k in KERNELS.items()}
+    # The rows front door of K7 and K8 (`grouped_matmul_rows`,
+    # `tgmm_matmul_rows`) passes on the row tile it plans as SIMT tiles, so
+    # both run on their SIMT instances there, K7 with a chain on its chain
+    # instance; the model paths call the buffer fronts without tiles.
+    expect = {n_: 0 for n_ in KERNELS}
+    expect.update(ft_gemm_batched_sm90=1, ft_gemm_batched_chain=1,
+                  ft_gemm_grouped_chain=2, tgmm=1, ft_gemm_chain=1)
+    print(f"  launches (the front doors' run): "
+          f"{ {n_: c for n_, c in launches.items() if c} }")
+    check(launches == expect, "the front doors launched K5's two instances, "
+          "K7's SIMT chain instance (bf16 and f32), K8's SIMT instance and "
+          "K1's chain instance once each, nothing else")
+    check(not guard.hits, f"the dispatch guard saw no library call inside "
+          f"the kernel calls ({guard.hits[:3]})")
+    for (a, b), (out, rep) in zip(k5, outs[:2]):
+        want, rep_p = _plain_gemm(a, b, chain=chain, ft=FT)
+        _cmp_outputs(f"front door K5 {tuple(a.shape)}", out, want, rep, rep_p)
+    for (x, w), (out, rep), dt in zip(k7, outs[2:4],
+                                      (torch.bfloat16, torch.float32)):
+        bm = kgrouped.plan_grouped(rows, f, d, dt, n_groups=e)[0]
+        lay = kgrouped.make_layout(ids, e, bm)
+        want, _ = grouped_gemm.planned_grouped_plain(
+            kgrouped.scatter_rows(x, lay), w, lay.gid, lay.row_end,
+            chain=chain, ft=FT)
+        _cmp_outputs(f"front door K7 {dt}", out,
+                     kgrouped.gather_rows(want, lay),
+                     tol=BF16_TOL if dt == torch.bfloat16 else F32_TOL)
+    dw0, _ = ops.grouped_gemm_call(KernelSpec(ft_level="block"), xg, gg,
+                                   group_ids=ids8, n_groups=e, ft=FT)
+    check(torch.equal(dw, dw0) and float(dw.min()) < 0.0,
+          "front door K8: the chain dropped (the chain-free call's dw, "
+          "negative entries kept), as the reference's front door drops it")
+    want, rep_p = _plain_gemm(k1[0], k1[1], chain=k1_chain, bias=k1[2],
+                              residual=k1[3], ft=FT)
+    _cmp_outputs("front door K1 bias+silu+relu+residual", outs[4][0], want,
+                 outs[4][1], rep_p)
+    return launches
+
+
+def phase_act_chains():
+    """The last parts of the TPU kernels on the card: K5's and K7's
+    activation chains on both instances of each, K1's chains of several
+    activations on the chain instance, the SIMT K5 above 65 535 slices,
+    and the slice's front doors."""
+    gen = torch.Generator(device="cuda").manual_seed(32)
+    names = ("ft_gemm_batched_sm90", "ft_gemm_batched_chain",
+             "ft_gemm_grouped_sm90", "ft_gemm_grouped_chain",
+             "ft_gemm_chain")
+    rows = {n_: dict(max_abs_err=0.0, detail=[]) for n_ in names}
+    _k5_chain_cases(gen, rows)
+    _k5_grid_case()
+    _k7_chain_cases(gen, rows)
+    _k1_chain_cases(gen, rows)
+    for r in rows.values():
+        r["headline"] = r["detail"][0]["shape"]
+    return _front_door_path(gen), rows
+
+
 def _whisper_model(layers=None, seed=0):
     """whisper-medium at full width (``layers`` encoder and decoder layers,
     all of them by default), random bf16 weights from ``seed``."""
@@ -6472,8 +6917,8 @@ def main() -> int:
                     "train_check,train,moe_kernels,moe_check,moe_engine,"
                     "moe_train,level_train,level_moe,campaign_kernels,"
                     "campaign_train,campaign_train_chunked,moe_campaign,"
-                    "chain_kernels,whisper_check,whisper_serve,ssm_check,"
-                    "ssm_serve")
+                    "chain_kernels,act_chains,whisper_check,whisper_serve,"
+                    "ssm_check,ssm_serve")
     ap.add_argument("--layers", type=int, default=qwen2_7b.CONFIG.n_layers,
                     help="serve and level_serve depth (the width is always "
                          "full)")
@@ -6488,7 +6933,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = None
-    rows, by_path, failed, late_rows, chain_rows = {}, {}, [], {}, {}
+    rows, by_path, failed, late_rows, chain_rows, act_rows = \
+        {}, {}, [], {}, {}, {}
     t_start = time.perf_counter()
     for phase in phases:
         t0 = time.perf_counter()
@@ -6550,6 +6996,9 @@ def main() -> int:
                 # merged after the loop, as level_kernels: the earlier
                 # phases' headline shapes stay
                 chain_rows = phase_chain_kernels()
+            elif phase == "act_chains":
+                # merged after the loop too
+                by_path["act_chains"], act_rows = phase_act_chains()
             elif phase == "whisper_check":
                 _merge_rows(rows, phase_whisper_check())
             elif phase == "whisper_serve":
@@ -6573,6 +7022,7 @@ def main() -> int:
     print(f"total {time.perf_counter() - t_start:.1f} s")
     _merge_rows(rows, late_rows)
     _merge_rows(rows, chain_rows)
+    _merge_rows(rows, act_rows)
     if failed:
         print(f"chip_smoke: FAILED phases {failed}", flush=True)
         return 1

@@ -8,10 +8,12 @@
 //   leading batch grid axis.
 // It computes what the batched instance of csrc/ft_gemm.cu computes, with
 // the same thresholds and 8-float report per output block; that source
-// keeps f32, more than 16 rows, epilogue chains and operands the 16-byte
-// copies cannot read, and kernels/ft_gemm.py:plan_k5 picks between the
-// two. C[z] = A[z]·B[z] for every slice z of one or two batch dims (B may
-// be shared), each operand read in place through its strides: A along k,
+// (and csrc/ft_gemm_chain.cu for a call with a chain) keeps f32, more than
+// 16 rows and operands the 16-byte copies cannot read, and
+// kernels/ft_gemm.py:plan_k5 picks between them. C[z] = chain(A[z]·B[z])
+// for every slice z of one or two batch dims (B may be shared; the chain
+// an aux-free runtime list of activations, empty on the serving path),
+// each operand read in place through its strides: A along k,
 // B along k (decode attention's K cache permuted to (B, KVH, dh, S)) or
 // along n (its V cache transposed to (B, KVH, S, dh)).
 //
@@ -57,12 +59,17 @@
 // The levels (reference emit.py:432-512): block keeps one running pair of
 // checksums a block, verified after every non-last step (verify_step) and
 // at k = K; tile keeps one column checksum a band of 16 rows, the whole
-// block here, and there is no epilogue chain to apply after its final
-// verification, so it runs the block level's code; inner keeps each
+// block here, and an aux-free chain has no linear prefix to fold, so the
+// chain follows the final verification at both levels and tile runs the
+// block level's code; inner keeps each
 // step's Δ in a second fragment, verifies and corrects it against that
 // step's checksums and then adds it to the accumulator, with no final
 // verification. Tau takes the elapsed k and the running max|A|, max|B| of
-// the block (emit.py:369-378).
+// the block (emit.py:369-378). The chain (chain_ops, 3 bits an op,
+// activate_chain in sm90_mainloop.cuh) is applied in f32 in the one write
+// of C, after the final verification (after the last step's at inner, the
+// chain alone with FT off), as the reference's render applies it
+// (emit.py:487-512).
 //
 // Stochastic SEU campaigns (seu_hook.cuh): under FT every CTA draws its
 // block's SEU, uid slice·gn + j (one 16-row block a slice), over 16 x 32
@@ -101,6 +108,7 @@ struct BArgs {
   int inj_enable, inj_batch, inj_row, inj_col, inj_k;
   float inj_mag;
   seu::Args seu;            // the stochastic hook's campaign
+  int chain_ops, chain_len; // the activations applied in the write of C
 };
 
 // BK: B staged as [n][k] rows (its k dim has unit stride), else as [k][n].
@@ -424,7 +432,7 @@ __global__ void __launch_bounds__(kThr) batched_sm90_kernel(const BArgs g) {
                     k_el, g.corrects, col0, cw0, warp, lane);
   }
 
-  // ---- one write of C (rows < M, columns < N) and of the report ----------
+  // ---- the chain, one write of C (rows < M, columns < N), the report -----
   __nv_bfloat16* out = g.out + (long long)bz * g.M * g.N;
 #pragma unroll
   for (int t = 0; t < NT; ++t) {
@@ -434,8 +442,12 @@ __global__ void __launch_bounds__(kThr) batched_sm90_kernel(const BArgs g) {
       const int r = gr + 8 * hf;
       if (r >= g.M) continue;
       __nv_bfloat16* o = out + (long long)r * g.N + c;
-      if (c < g.N) o[0] = __float2bfloat16(acc[t][2 * hf]);
-      if (c + 1 < g.N) o[1] = __float2bfloat16(acc[t][2 * hf + 1]);
+      if (c < g.N)
+        o[0] = __float2bfloat16(
+            activate_chain(g.chain_ops, g.chain_len, acc[t][2 * hf]));
+      if (c + 1 < g.N)
+        o[1] = __float2bfloat16(
+            activate_chain(g.chain_ops, g.chain_len, acc[t][2 * hf + 1]));
     }
   }
   if (FT && tid < 8)
@@ -487,15 +499,18 @@ const char* batched_sm90_error_string(int code) {
 // when M is 1, ldb when that other dim is 1: only index 0 is read), both
 // bases 16-byte aligned. out (nb0, nb1, M, N) bf16 and report (nb0, nb1,
 // 1, ceil(N / 32), 8) f32 contiguous. M <= 16. level: 0 block, 1 tile, 2
-// inner (with ft = 1). inj: [enable, batch (< 0: every slice), row, col,
+// inner (with ft = 1). chain_ops: chain_len (at most 10) activations, op i
+// in bits 3i..3i+2 (kernels/ft_gemm.py:CHAIN_OPS: 3 silu, 4 gelu, 5 relu),
+// applied to C in order. inj: [enable, batch (< 0: every slice), row, col,
 // k_step] in 256-deep steps; seu_*: the stochastic hook's campaign
 // (seu_hook.cuh). Returns the launch's cudaError_t.
 int batched_sm90_launch(const void* a, const void* b, void* out, float* rep,
                         int nb0, int nb1, int M, int N, int K,
                         long long sa0, long long sa1, int sam,
                         long long sb0, long long sb1, int ldb, int b_kmajor,
-                        int ft, int level, int verify_step,
-                        int corrects, float tau_coef, int inj_enable,
+                        int ft, int level, int chain_ops, int chain_len,
+                        int verify_step, int corrects, float tau_coef,
+                        int inj_enable,
                         int inj_batch, int inj_row, int inj_col, int inj_k,
                         float inj_mag, int seu_on, unsigned seu_seed,
                         float seu_rate, int seu_shift, void* stream) {
@@ -503,7 +518,7 @@ int batched_sm90_launch(const void* a, const void* b, void* out, float* rep,
       (ldb % 8 != 0 && (b_kmajor ? N : K) > 1) || (M > 1 && sam % 8 != 0) ||
       sa0 % 8 != 0 || sa1 % 8 != 0 || sb0 % 8 != 0 || sb1 % 8 != 0 ||
       !aligned16(a) || !aligned16(b) || (ft && rep == nullptr) ||
-      level < 0 || level > 2)
+      level < 0 || level > 2 || !activation_chain_ok(chain_ops, chain_len))
     return cudaErrorInvalidValue;
   const long long gn = (N + kBn - 1) / kBn;
   const long long ctas = (long long)nb0 * nb1 * gn;
@@ -521,6 +536,7 @@ int batched_sm90_launch(const void* a, const void* b, void* out, float* rep,
   g.inj_enable = inj_enable; g.inj_batch = inj_batch; g.inj_row = inj_row;
   g.inj_col = inj_col; g.inj_k = inj_k; g.inj_mag = inj_mag;
   g.seu = seu::Args{seu_on, seu_seed, seu_rate, seu_shift};
+  g.chain_ops = chain_ops; g.chain_len = chain_len;
   const int mode = !ft ? kOff : level == 2 ? kInner : kBlock;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int n = (int)ctas;

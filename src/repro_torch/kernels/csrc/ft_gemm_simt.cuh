@@ -9,8 +9,11 @@
 //   src/repro/kernels/templates/emit.py:render (2-D, uniform-batched and
 //   grouped bodies), launched by templates/registry.py:kernel_call and
 //   templates/registry.py:batched_kernel_call (grouped=True for K7).
-// The 2-D kernel is the batched kernel with batch 1. blockIdx.z walks up
-// to two batch dims (b0, b1); every operand dim has its own element stride
+// The 2-D kernel is the batched kernel with batch 1. A 1-D grid walks
+// (slice, row block, column block), in that order of majority, over every
+// slice of up to two batch dims (b0, b1), so a batch is bounded by
+// gridDim.x's 2^31 - 1 CTAs and not by gridDim.z's 65 535 (the order of a
+// (gn, gm, batch) grid, kept); every operand dim has its own element stride
 // (0 on the batch dims of a shared B), so a permuted view such as the
 // transposed KV cache of decode attention is read in place, not copied.
 //
@@ -46,7 +49,9 @@
 //     row_end, so the checksums and max|A| are the group's. A tile with no
 //     live row reads no B: without an SEU aimed at it, it writes zeros and
 //     the report of a clean all-zero block (tau 1e-30, k = K) at once.
-//     Compiled for the plain chain, BM 16 (bf16) and 8 or 16 (f32). The
+//     Compiled for the plain chain, BM 16 (bf16) and 8 or 16 (f32), and in
+//     csrc/ft_gemm_chain.cu at kEpiChain for K7's aux-free chains (the
+//     all-zero shortcut writes 0, which every activation keeps). The
 //     parameter is a compile-time one, so K1's and K5's instances carry no
 //     branch of it;
 //   * LEVEL, the paper's threadblock / warp / thread granularities
@@ -78,10 +83,12 @@
 //     its all-zero shortcut writes the clean record at every level, the one
 //     the walk would write (tau 1e-30 from max|A| = 0, k = K);
 //   * EPI = kEpiChain (csrc/ft_gemm_chain.cu): the chain is a runtime list
-//     of at most three ops (chain_ops, 3 bits an op: kOpBias, kOpResidual,
-//     kOpSilu, kOpGelu, kOpRelu), so one instance per (type, level, tiles,
-//     AG) takes every chain of at most one bias, one residual and one
-//     activation in any order. Its leading run of linear ops (chain_fold:
+//     of at most ten ops (chain_ops, 3 bits an op in an int32: kOpBias,
+//     kOpResidual, kOpSilu, kOpGelu, kOpRelu), so one instance per (type,
+//     level, tiles, AG) takes every chain of at most one bias, one residual
+//     and any number of activations in any order (K1's, K5's with a batch,
+//     and the GROUPED instances' of K7 without aux). Its leading run of
+//     linear ops (chain_fold:
 //     the reference's fold_split) is applied to the block after the
 //     tile level's raw verification and, at the block level, folded into
 //     the checksums before the final verification, as the compiled chains'
@@ -234,7 +241,9 @@ ft_gemm_kernel(const GemmArgs g) {
   __shared__ BandSmem<NB, BAND, TILE ? BN : 1> bs;
 
   const int tid = threadIdx.x, tx = tid % TX, ty = tid / TX;
-  const int bj = blockIdx.x, bi = blockIdx.y, bz = blockIdx.z;
+  // blockIdx.x: (slice, row block, column block), slice major
+  const int bj = blockIdx.x % g.gn, bi = (blockIdx.x / g.gn) % g.gm;
+  const int bz = blockIdx.x / (g.gn * g.gm);
   const int row0 = bi * BM, col0 = bj * BN;
   const int M = g.M, N = g.N, K = g.K;
   const int z0 = bz / g.nb1, z1 = bz % g.nb1;
@@ -572,8 +581,9 @@ cudaError_t launch(GemmArgs g, int batch, cudaStream_t stream) {
   g.gm = (g.M + BM - 1) / BM;
   g.gn = (g.N + BN - 1) / BN;
   g.ksteps = (g.K + BK - 1) / BK;
-  if (g.gm > 65535 || batch > 65535) return cudaErrorInvalidConfiguration;
-  dim3 grid(g.gn, g.gm, batch);
+  if (g.gm > 65535 || (long long)g.gn * g.gm * batch > 0x7fffffffLL)
+    return cudaErrorInvalidConfiguration;
+  const dim3 grid(g.gn * g.gm * batch);
   ft_gemm_kernel<T, FT, EPI, LAYOUT, AG, BM, BN, BK, TM, TN, GROUPED, LEVEL>
       <<<grid, kThreads, 0, stream>>>(g);
   return cudaGetLastError();

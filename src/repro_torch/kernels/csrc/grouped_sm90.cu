@@ -7,7 +7,8 @@
 // Replaces the TPU kernels of the JAX package:
 //   K7  src/repro/kernels/templates/emit.py:233 render (grouped body),
 //       launched by templates/registry.py:520 batched_kernel_call with
-//       grouped=True: y_buf = buf @ w[gid] over a group-sorted buffer; at
+//       grouped=True: y_buf = chain(buf @ w[gid]) over a group-sorted
+//       buffer, the chain an aux-free runtime list of activations; at
 //       "inner" its Δ verification (emit.py:432-442), at "tile" its
 //       per-band column checksums and _verify_raw (emit.py:443-481);
 //   K8  src/repro/kernels/templates/emit.py:527 render_tgmm, launched by
@@ -84,8 +85,17 @@
 //     step before the drawn one (0 before the first) and adds the magnitude
 //     of the difference after it. Four tiles' SEUs can share one interval
 //     of a chunk, so a campaign at "block" runs the tile level's per-band
-//     instance (the same function for K7, whose chain is empty: no fold),
-//     and at "inner" the inner one with the hook.
+//     instance (the same function for K7, whose chain is aux-free: no
+//     fold), and at "inner" the inner one with the hook;
+//   * the chain (chain_ops, 3 bits an op, activate_chain in
+//     sm90_mainloop.cuh) is applied to the f32 accumulator after the final
+//     verification (after the last step's at "inner"; alone with FT off),
+//     at every level and in the campaign instances, then the tile is
+//     rounded to bf16 and stored, as the reference's render applies it
+//     (emit.py:487-512). Rows past the group's row_end hold what the
+//     reference's do: chain(0) = 0 for silu, gelu and relu, or the chain
+//     of an SEU left there by detect-only; a chunk with no live row
+//     writes zeros, chain(0).
 //
 // K8 (tgmm_sm90_kernel). What bounds it: the f32 write of dw (3.2 GB at
 // the training shape, 128 experts x 4 096 x 1 536). One CTA per (group,
@@ -177,6 +187,7 @@ struct GroupedArgs {
   int inj_enable, inj_row, inj_col, inj_k;
   float inj_mag;
   seu::Args seu;        // the stochastic hook's campaign
+  int chain_ops, chain_len;   // K7: the activations applied to y
 };
 
 __device__ __forceinline__ int round_up(int x, int m) {
@@ -434,8 +445,13 @@ grouped_sm90_kernel(const __grid_constant__ CUtensorMap tma_a,
     verify_acc<BM, NT>(acc, opa, opb, sc, g, tid, row0, col0, (float)g.K,
                        false);
 
-  // Stage the bf16 tile in the (drained) ring, then 16-byte stores of the
-  // chunk's rows.
+  // The chain on the verified accumulator; stage the bf16 tile in the
+  // (drained) ring, then 16-byte stores of the chunk's rows.
+  if (g.chain_len > 0) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i)
+      acc[i] = activate_chain(g.chain_ops, g.chain_len, acc[i]);
+  }
   constexpr int PITCH = kBN + 8;
   __nv_bfloat16* stage = reinterpret_cast<__nv_bfloat16*>(ring);
   consumer_sync<NT>();
@@ -825,22 +841,26 @@ const char* grouped_sm90_error_string(int code) {
 // w^T view of the dbuf product) n columns ldw apart (k unit stride); gid
 // int32 (T / 16,), row_end int32 (G,); out (T, N) bf16 and, with ft, rep
 // (T / 16, ceil(N / 128), 8) contiguous. level: 0 FT off, 1 block, 2
-// tile, 3 inner (kLv*; kernels/ft_gemm.py:SM90_LEVELS). The injection adds
-// inj_mag at global buffer row inj_row, column inj_col after 256-deep
-// k-step inj_k. Returns the launch's cudaError_t.
+// tile, 3 inner (kLv*; kernels/ft_gemm.py:SM90_LEVELS). chain_ops:
+// chain_len (at most 10) activations applied to y in order, op i in bits
+// 3i..3i+2 (kernels/ft_gemm.py:CHAIN_OPS: 3 silu, 4 gelu, 5 relu). The
+// injection adds inj_mag at global buffer row inj_row, column inj_col
+// after 256-deep k-step inj_k. Returns the launch's cudaError_t.
 int grouped_sm90_launch(const void* a, const void* w, const int* gid,
                         const int* row_end, void* out, float* rep, int T,
                         int N, int K, int G, long long lda, long long ldw,
                         long long sw_g, int w_kmajor, int level,
-                        int verify_step,
+                        int chain_ops, int chain_len, int verify_step,
                         int corrects, float tau_coef, int inj_enable,
                         int inj_row, int inj_col, int inj_k, float inj_mag,
                         int seu_on, unsigned seu_seed, float seu_rate,
                         int seu_shift, void* stream) {
-  if (T <= 0 || N <= 0 || K <= 0 || G <= 0 || T % kTile != 0)
+  if (T <= 0 || N <= 0 || K <= 0 || G <= 0 || T % kTile != 0 ||
+      !activation_chain_ok(chain_ops, chain_len))
     return cudaErrorInvalidValue;
   GroupedArgs g{};
   g.gid = gid; g.row_end = row_end; g.out = out; g.rep = rep;
+  g.chain_ops = chain_ops; g.chain_len = chain_len;
   g.T = T; g.N = N; g.K = K; g.G = G;
   g.gn = (N + kBN - 1) / kBN;
   g.nstages = (K + kStageK - 1) / kStageK;

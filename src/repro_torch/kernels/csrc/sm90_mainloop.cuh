@@ -276,6 +276,25 @@ __device__ __forceinline__ float activate_grad(int act, float y) {
   return 1.0f;
 }
 
+// A runtime chain of len activations (K5's and K7's aux-free chains), op i
+// in bits 3i..3i+2 of ops as kernels/ft_gemm.py:CHAIN_OPS codes them (3
+// silu, 4 gelu, 5 relu: the act codes above plus 2), applied in order.
+__device__ __forceinline__ float activate_chain(int ops, int len, float y) {
+  for (int i = 0; i < len; ++i) y = activate(((ops >> (3 * i)) & 7) - 2, y);
+  return y;
+}
+
+// Whether (ops, len) is such a chain: at most 10 ops (3 bits an op in an
+// int32), each an activation.
+inline bool activation_chain_ok(int ops, int len) {
+  if (len < 0 || len > 10) return false;
+  for (int i = 0; i < len; ++i) {
+    const int op = (ops >> (3 * i)) & 7;
+    if (op < 3 || op > 5) return false;
+  }
+  return true;
+}
+
 // ---------------------------------------------------------------------------
 // checksums from the staged tiles
 // ---------------------------------------------------------------------------

@@ -16,17 +16,17 @@ elements, 16-byte aligned bases), runs on the tensor cores at `SM90_TILES`
 the SIMT kernel at `TILES`, whose 2-D kernel is its batched kernel with
 batch 1: `csrc/ft_gemm.cu` where it compiles the call's (chain, level,
 act_grad) (`simt_compiled`), else the chain instance `csrc/ft_gemm_chain.cu`,
-which takes any chain of at most one bias, one residual and one activation
-in any order as a runtime op list (a 2-D call; a chain with two
-activations, or a batched call with an uncompiled chain, raises
-NotImplementedError). `plan_k5` does the same for a batched call: a bf16
-call of at most 16 rows a slice with no epilogue chain, whose operands the
-16-byte copies can read, runs at any FT level on the tensor cores at
-`BATCHED_SM90_TILES` (16 rows, 256-deep k-steps); every other one on the
-SIMT kernel. Each instance has its own launch
-counter (`FT_GEMM_SM90`, `FT_GEMM_LEVEL_SM90`, `FT_GEMM_2D_SIMT`,
-`FT_GEMM_CHAIN`, `FT_GEMM_BATCHED_SM90`, `FT_GEMM_BATCHED`); `FT_GEMM_2D`
-is K1's 2-D total, `FT_GEMM_K5` K5's.
+which takes any chain of at most one bias, one residual and any number of
+activations in any order, at most `CHAIN_CAP` ops, as a runtime op list
+(`chain_code`; a longer chain raises NotImplementedError in every plan).
+`plan_k5` does the same for a batched call: a bf16 call of at most 16 rows
+a slice, whose operands the 16-byte copies can read, runs at any FT level
+with any aux-free chain on the tensor cores at `BATCHED_SM90_TILES` (16
+rows, 256-deep k-steps); every other one on the SIMT kernel, a chained one
+on the chain instance. Each instance has its own launch counter
+(`FT_GEMM_SM90`, `FT_GEMM_LEVEL_SM90`, `FT_GEMM_2D_SIMT`, `FT_GEMM_CHAIN`,
+`FT_GEMM_BATCHED_SM90`, `FT_GEMM_BATCHED`, `FT_GEMM_BATCHED_CHAIN`);
+`FT_GEMM_2D` is K1's 2-D total, `FT_GEMM_K5` K5's.
 
 Three FT levels, the paper's threadblock / warp / thread granularities
 (`repro/kernels/ftgemm.py:9-21`):
@@ -100,8 +100,14 @@ EPILOGUES = {(): 0, ("bias",): 1, ("silu",): 2, ("bias", "silu"): 3,
 #: and "block" and at "tile" and "inner".
 AG_EPILOGUES = {"block": (("silu",), ("bias", "silu"), ("gelu",), ("relu",)),
                 "level": (("silu",), ("bias", "silu"))}
-#: The chain instance's op codes (ChainOp in csrc/ft_gemm_simt.cuh).
+#: The chain instances' op codes (ChainOp in csrc/ft_gemm_simt.cuh; the
+#: tensor-core K5 and K7 take the same codes, activations only:
+#: `activate_chain` in csrc/sm90_mainloop.cuh).
 CHAIN_OPS = {"bias": 1, "residual": 2, "silu": 3, "gelu": 4, "relu": 5}
+#: The most ops a runtime chain holds: 3 bits an op in an int32, a bias, a
+#: residual and 8 activations. The reference takes any number of
+#: activations; a longer chain raises NotImplementedError.
+CHAIN_CAP = 10
 
 REPORT_WIDTH = 8
 
@@ -126,6 +132,9 @@ _CHAIN_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
                    + [ctypes.c_void_p])
 FT_GEMM_CHAIN = build.Kernel("ft_gemm_chain", "ft_gemm_chain_launch",
                              _CHAIN_ARGTYPES)
+#: The same entry for a batched call (K5 with a chain on the SIMT kernel).
+FT_GEMM_BATCHED_CHAIN = build.Kernel("ft_gemm_chain", "ft_gemm_chain_launch",
+                                     _CHAIN_ARGTYPES)
 _SM90_ARGTYPES = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
                   + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 8
                   + [ctypes.c_float] + [ctypes.c_int] * 4
@@ -142,13 +151,14 @@ FT_GEMM_2D = build.LaunchTotal(FT_GEMM_2D_SIMT, FT_GEMM_CHAIN, FT_GEMM_SM90,
                                FT_GEMM_LEVEL_SM90)
 _B_SM90_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5
                     + [ctypes.c_longlong] * 2 + [ctypes.c_int]
-                    + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 6
+                    + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 8
                     + [ctypes.c_float] + [ctypes.c_int] * 5
                     + [ctypes.c_float] + SEU_ARGTYPES + [ctypes.c_void_p])
 FT_GEMM_BATCHED_SM90 = build.Kernel("batched_sm90", "batched_sm90_launch",
                                     _B_SM90_ARGTYPES)
-#: Every K5 launch, on either instance.
-FT_GEMM_K5 = build.LaunchTotal(FT_GEMM_BATCHED, FT_GEMM_BATCHED_SM90)
+#: Every K5 launch, on any instance.
+FT_GEMM_K5 = build.LaunchTotal(FT_GEMM_BATCHED, FT_GEMM_BATCHED_SM90,
+                               FT_GEMM_BATCHED_CHAIN)
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -177,7 +187,8 @@ class Plan:
     "tile" / "inner" csrc/ft_gemm_level_sm90.cu, for a
     2-D call, csrc/batched_sm90.cu for a batched one), "simt"
     (csrc/ft_gemm.cu), "simt_chain" (csrc/ft_gemm_chain.cu: a 2-D call
-    whose (chain, level, act_grad) ft_gemm.cu does not compile) or "plain"
+    whose (chain, level, act_grad) ft_gemm.cu does not compile, a batched
+    call with a chain) or "plain"
     (tiles no kernel compiles: the plain version only, on the CPU).
     ``a_kmajor`` / ``b_kmajor``: the unit-stride dim of each operand on the
     tensor-core walk; ``reason``: why the tensor-core instance does not
@@ -188,6 +199,19 @@ class Plan:
     a_kmajor: bool = True
     b_kmajor: bool = False
     reason: str = ""
+
+
+def chain_code(chain: Tuple[str, ...]) -> int:
+    """A chain as the kernels' runtime op list: op i's `CHAIN_OPS` code in
+    bits 3i..3i+2."""
+    return sum(CHAIN_OPS[x] << (3 * i) for i, x in enumerate(chain))
+
+
+def _check_chain_cap(chain: Tuple[str, ...]) -> None:
+    if len(chain) > CHAIN_CAP:
+        raise NotImplementedError(
+            f"ft_gemm: the kernels take a chain of at most {CHAIN_CAP} ops "
+            f"(3 bits an op in an int32), got {len(chain)}: {chain}")
 
 
 def sm90_chain(chain: Tuple[str, ...]) -> Optional[Tuple[bool, int]]:
@@ -279,7 +303,9 @@ def plan(m: int, n: int, k: int, *, dtype, level: str,
     the chain instance ("simt_chain"). Explicit ``tiles`` pin the
     instance: tensor-core tiles raise ValueError for a call that instance
     cannot take. A pure function of its arguments, cached (a decode step
-    plans the same few shapes hundreds of times)."""
+    plans the same few shapes hundreds of times). A chain longer than
+    `CHAIN_CAP` raises NotImplementedError."""
+    _check_chain_cap(chain)
     why = ""
     a_k = _tma_walk(m, k, *a_strides)
     b_n = _tma_walk(k, n, *b_strides)
@@ -290,8 +316,9 @@ def plan(m: int, n: int, k: int, *, dtype, level: str,
         why = f"dtype {dtype}"
     elif sm90_chain(chain) is None:
         why = (f"the epilogue chain {chain} (the tensor cores take an "
-               f"optional bias then at most one activation; a residual or "
-               f"another order runs on the SIMT kernels)")
+               f"optional bias then at most one activation; a residual, "
+               f"another order or two or more activations run on the SIMT "
+               f"kernels)")
     elif a_k is None or b_k is None or (a_k is False and b_k is True):
         why = (f"strides A {tuple(a_strides)}, B {tuple(b_strides)} (TMA "
                f"needs a unit-stride dim, the other stride a multiple of 8, "
@@ -335,12 +362,16 @@ def plan_k5(m: int, n: int, k: int, *, dtype,
     ``a_strides`` / ``b_strides`` are the four element strides (two batch
     dims, then row and column; zeros for absent batch dims and for a
     shared B). The tensor-core instance takes a bf16 call of at most 16
-    rows with no epilogue chain at any FT level ("off" included), A read
-    along k and B along k or n (`_k5_walk`), every other stride a multiple
-    of 8 elements and both bases 16-byte aligned; it runs at
-    `BATCHED_SM90_TILES`. Every other call, and any call whose ``tiles``
-    pin the SIMT instance, runs on the SIMT kernel at `pick_tiles(M)`; tensor-core tiles raise
-    ValueError for a call that instance cannot take. Cached like `plan`."""
+    rows with any aux-free chain (`BatchedKernelSpec`) at any FT level
+    ("off" included), A read along k and B along k or n (`_k5_walk`), every
+    other stride a multiple of 8 elements and both bases 16-byte aligned;
+    it runs at `BATCHED_SM90_TILES`. Every other call, and any call whose
+    ``tiles`` pin the SIMT instance, runs on the SIMT kernel at
+    `pick_tiles(M)`: `csrc/ft_gemm.cu` without a chain, the chain instance
+    ("simt_chain") with one; tensor-core tiles raise ValueError for a call
+    that instance cannot take. A chain longer than `CHAIN_CAP` raises
+    NotImplementedError. Cached like `plan`."""
+    _check_chain_cap(chain)
     why = ""
     sa0, sa1, sam, sak = a_strides
     sb0, sb1, sbk, sbn = b_strides
@@ -349,8 +380,6 @@ def plan_k5(m: int, n: int, k: int, *, dtype,
         why = f"dtype {dtype}"
     elif m > BATCHED_SM90_TILES[0][0]:
         why = f"M = {m} rows (the instance takes at most 16)"
-    elif chain:
-        why = f"the epilogue chain {chain}"
     elif (sak != 1 or (sam % 8 and m > 1) or b_k is None
           or any(x % 8 for x in (sa0, sa1, sb0, sb1))):
         why = (f"strides A {tuple(a_strides)}, B {tuple(b_strides)} (the "
@@ -368,7 +397,9 @@ def plan_k5(m: int, n: int, k: int, *, dtype,
             raise ValueError(f"ft_gemm: the tensor-core tiles {tiles} do not "
                              f"take {why}")
         return Plan("sm90", tiles, b_kmajor=b_k)
-    return Plan("simt" if tiles in TILES else "plain", tiles, reason=why)
+    if tiles not in TILES:
+        return Plan("plain", tiles, reason=why)
+    return Plan("simt_chain" if chain else "simt", tiles, reason=why)
 
 
 def plan_call(a: torch.Tensor, b: torch.Tensor, *, chain=(), ft=None,
@@ -872,9 +903,10 @@ def _launch_batched_sm90(a, b, p: Plan, *, chain, bias, residual, ft, inj,
             or b.device != a.device or b.dtype != a.dtype):
         raise ValueError(f"ft_gemm: operands {tuple(a.shape)} {a.dtype} x "
                          f"{tuple(b.shape)} {b.dtype} do not match")
-    if chain or bias is not None or residual is not None or save_act_grad:
-        raise ValueError("ft_gemm: the batched tensor-core instance takes no "
-                         "epilogue chain")
+    if (bias is not None or residual is not None or save_act_grad
+            or any(x not in SM90_ACTS for x in chain)):
+        raise ValueError(f"ft_gemm: the batched tensor-core instance takes "
+                         f"an aux-free chain of activations, got {chain}")
     nb0, nb1 = ((1, 1) + lead)[-2:]
     sa = ((0, 0) + a.stride())[-4:]
     sb = (0, 0) + b.stride() if shared else ((0, 0) + b.stride())[-4:]
@@ -887,8 +919,9 @@ def _launch_batched_sm90(a, b, p: Plan, *, chain, bias, residual, ft, inj,
         a.data_ptr(), b.data_ptr(), out.data_ptr(),
         None if rep is None else rep.data_ptr(), nb0, nb1, m, n, k,
         sa[0], sa[1], sa[2], sb[0], sb[1], sb[3] if p.b_kmajor else sb[2],
-        int(p.b_kmajor), int(ft_on), LEVELS.get(level, 0),
-        int(ft_on and ft.verify == "step"), int(ft_on and ft.corrects),
+        int(p.b_kmajor), int(ft_on), LEVELS.get(level, 0), chain_code(chain),
+        len(chain), int(ft_on and ft.verify == "step"),
+        int(ft_on and ft.corrects),
         ft.rel_tau * F32EPS if ft_on else 0.0, *inj, float(inj_mag),
         *seu_args(rng, ft, seu.SALT_BATCHED),
         torch.cuda.current_stream(a.device).cuda_stream)
@@ -917,13 +950,7 @@ def _launch(a, b, *, chain, bias, residual, ft, inj, inj_mag, tiles,
     if a.dtype not in DTYPE_CODES or b.dtype != a.dtype:
         raise TypeError(f"ft_gemm: the kernel takes float32 or bfloat16 "
                         f"operands of one dtype, got {a.dtype}, {b.dtype}")
-    if chain_instance:
-        if batched or sum(not epilogues.get(x).linear for x in chain) > 1:
-            raise NotImplementedError(
-                f"ft_gemm: the chain instance takes a 2-D call with at most "
-                f"one activation, got the chain {chain} "
-                f"({'batched' if batched else '2-D'})")
-    elif not simt_compiled(chain, level, save_act_grad):
+    if not chain_instance and not simt_compiled(chain, level, save_act_grad):
         raise NotImplementedError(f"ft_gemm: the kernel has no instance for "
                                   f"the epilogue chain {chain} at FT level "
                                   f"{level!r}")
@@ -972,9 +999,9 @@ def _launch(a, b, *, chain, bias, residual, ft, inj, inj_mag, tiles,
     inj = tuple(inj) if (ft_on and inj is not None) else (0, 0, 0, 0, 0)
     if chain_instance:
         # the runtime op list and its linear prefix (the reference's fold)
-        kernel = FT_GEMM_CHAIN
-        codes = (sum(CHAIN_OPS[x] << (3 * i) for i, x in enumerate(chain)),
-                 len(chain), epilogues.fold_split(chain), TILES.index(tiles))
+        kernel = FT_GEMM_BATCHED_CHAIN if batched else FT_GEMM_CHAIN
+        codes = (chain_code(chain), len(chain), epilogues.fold_split(chain),
+                 TILES.index(tiles))
     else:
         kernel = FT_GEMM_BATCHED if batched else FT_GEMM_2D_SIMT
         codes = (EPILOGUES[chain], TILES.index(tiles), layout)

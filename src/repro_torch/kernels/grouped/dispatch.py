@@ -106,7 +106,8 @@ def grouped_buffer_call(spec: BatchedKernelSpec, buf: torch.Tensor,
                         ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Grouped GEMM over a prepared buffer: buf (t_buf, K) group-sorted
     (`layout.scatter_rows`), w (G, K, N) (any strides: a transposed view is
-    read in place). The group metadata comes from a `GroupLayout` or the
+    read in place); ``spec.epilogue``, an aux-free chain, is applied to
+    y_buf in the kernel. The group metadata comes from a `GroupLayout` or the
     raw (``gid``, ``row_end``). Returns (y_buf (t_buf, N), report|None),
     the report (t_buf/bm, gn, 8) — one row per row tile, so per-group
     blocks. The injection keeps the 2-D layout, rows in buffer
@@ -123,7 +124,7 @@ def grouped_buffer_call(spec: BatchedKernelSpec, buf: torch.Tensor,
         raise ValueError(f"grouped_buffer_call: buf {tuple(buf.shape)}, w "
                          f"{tuple(w.shape)}, {row_end.shape[0]} groups")
     inj, mag = encode_injection(inject)
-    return kgg.ft_gemm_grouped(buf, w, gid, row_end,
+    return kgg.ft_gemm_grouped(buf, w, gid, row_end, chain=spec.epilogue,
                                ft=ft if spec.ft else None, inj=inj,
                                inj_mag=mag, tiles=tiles, rng=rng)
 

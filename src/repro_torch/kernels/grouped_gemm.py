@@ -3,8 +3,10 @@ and K8 and their plain PyTorch versions.
 
 K7 replaces the TPU kernel `repro/kernels/templates/emit.py:233 render`
 (grouped body), launched by `templates/registry.py:520
-batched_kernel_call` with ``grouped=True``: ``y_buf[r] = buf[r] @
-w[gid[r // bm]]`` over a group-sorted buffer (`kernels.grouped.layout`)
+batched_kernel_call` with ``grouped=True``: ``y_buf[r] = chain(buf[r] @
+w[gid[r // bm]])`` over a group-sorted buffer (`kernels.grouped.layout`),
+the chain an aux-free list of activations (silu, gelu, relu) applied after
+the final verification (after the last step's at "inner"),
 whose row tiles never span two groups. Rows at or past their group's
 ``row_end`` are masked in A, in the checksums and in max|A|, so every
 block keeps per-group checksums. The report is one (det, corr, row, col,
@@ -36,10 +38,12 @@ with no final verification. tau takes the elapsed k (K7) or live rows
 (K8) and the running maxima at every level.
 
 Two instances of each: the tensor-core ones of `csrc/grouped_sm90.cu`
-(bf16, every level; `wgmma` fed by a TMA ring) and the SIMT ones of
-`csrc/ft_gemm.cu` (GROUPED) and `csrc/tgmm.cu` (f32, and the tiles of
-`GROUPED_TILES` / `TGMM_TILES` when pinned). `plan_k7` / `plan_k8` pick
-the instance, the tiles and the chunk by a written rule:
+(bf16, every level, K7's with any aux-free chain; `wgmma` fed by a TMA
+ring) and the SIMT ones of `csrc/ft_gemm.cu` (GROUPED; K7 with a chain on
+its GROUPED chain instance in `csrc/ft_gemm_chain.cu`) and `csrc/tgmm.cu`
+(f32, and the tiles of `GROUPED_TILES` / `TGMM_TILES` when pinned).
+`plan_k7` / `plan_k8` pick the instance, the tiles and the chunk by a
+written rule:
 
   * K7 on the tensor cores: a CTA owns a ``chunk`` of 64 rows of one group,
     from the group's aligned base in steps of 64 and never past the group's
@@ -77,10 +81,10 @@ from ..core.abft import F32EPS
 from ..core.policy import FTConfig
 from . import build
 from .ft_gemm import (DTYPE_CODES, LEVELS, REPORT_WIDTH, SEU_ARGTYPES,
-                      SM90_LEVELS,
-                      _check_ft, cdiv, ft_level, locate_bands, locate_record,
-                      seu_armed, seu_args)
-from .templates import seu
+                      SM90_LEVELS, _check_chain_cap,
+                      _check_ft, cdiv, chain_code, ft_level, locate_bands,
+                      locate_record, seu_armed, seu_args)
+from .templates import epilogues, seu
 from .templates.spec import SM90_GROUPED_TILES, SM90_TGMM_TILES
 
 #: K7's compiled (bm, bn, bk) per operand dtype (`launch_grouped` in
@@ -105,16 +109,24 @@ _GROUPED_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
                      + [ctypes.c_float] + SEU_ARGTYPES + [ctypes.c_void_p])
 FT_GEMM_GROUPED_SIMT = build.Kernel("ft_gemm", "ft_gemm_grouped_launch",
                                     _GROUPED_ARGTYPES)
+#: K7's SIMT chain instance (csrc/ft_gemm_chain.cu): the arguments of
+#: ft_gemm_grouped_launch with (chain_ops, chain_len) after the layout.
+_GROUPED_CHAIN_ARGTYPES = (_GROUPED_ARGTYPES[:20] + [ctypes.c_int] * 2
+                           + _GROUPED_ARGTYPES[20:])
+FT_GEMM_GROUPED_CHAIN = build.Kernel("ft_gemm_chain",
+                                     "ft_gemm_grouped_chain_launch",
+                                     _GROUPED_CHAIN_ARGTYPES)
 _GROUPED_SM90_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
-                          + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 4
+                          + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 6
                           + [ctypes.c_float] + [ctypes.c_int] * 4
                           + [ctypes.c_float] + SEU_ARGTYPES
                           + [ctypes.c_void_p])
 FT_GEMM_GROUPED_SM90 = build.Kernel("grouped_sm90", "grouped_sm90_launch",
                                     _GROUPED_SM90_ARGTYPES)
-#: Every K7 launch, on either instance.
+#: Every K7 launch, on any instance.
 FT_GEMM_GROUPED = build.LaunchTotal(FT_GEMM_GROUPED_SIMT,
-                                    FT_GEMM_GROUPED_SM90)
+                                    FT_GEMM_GROUPED_SM90,
+                                    FT_GEMM_GROUPED_CHAIN)
 _TGMM_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 14
                   + [ctypes.c_float] + [ctypes.c_int] * 4
                   + [ctypes.c_float] + SEU_ARGTYPES + [ctypes.c_void_p])
@@ -168,12 +180,15 @@ def _group_span(row_end: torch.Tensor, bm: int, t_tiles: int):
 class GroupedPlan:
     """How one K7 or K8 call runs. ``instance``: "sm90"
     (csrc/grouped_sm90.cu), "simt" (csrc/ft_gemm.cu GROUPED for K7,
-    csrc/tgmm.cu for K8) or "plain" (tiles no kernel compiles: the plain
-    version only, on the CPU); ``tiles`` (bm, bn, bk); ``chunk``: the rows
+    csrc/tgmm.cu for K8), "simt_chain" (K7 with a chain on the SIMT
+    kernel: csrc/ft_gemm_chain.cu's GROUPED instance) or "plain" (tiles no
+    kernel compiles: the plain version only, on the CPU); ``tiles`` (bm,
+    bn, bk); ``chunk``: the rows
     of one K7 block or one K8 verification interval (bm on the SIMT
     instances); ``w_kmajor``: K7's w read along a unit-stride k (the wᵀ
     view of the dbuf product); ``reason``: why the tensor-core instance
-    does not take the call ("" when it does)."""
+    does not take the call ("" when it does), and for "simt_chain" that the
+    chain runs on the chain instance."""
     instance: str
     tiles: Tuple[int, int, int]
     chunk: int
@@ -189,24 +204,30 @@ def _rows_tma(strides: Sequence[int], width: int) -> bool:
 
 
 def _pick(why: str, tiles, sm90_tiles, table, dtype, bm: int, name: str,
-          **extra) -> GroupedPlan:
+          chain=(), **extra) -> GroupedPlan:
     """The tensor-core instance unless ``why`` says otherwise or ``tiles``
-    are pinned: pinned tiles run the SIMT instance where it compiles them,
-    else the plain version alone (CPU), each row tile its own block or
-    interval, as the reference's grid walks them."""
+    are pinned: pinned tiles run the SIMT instance where it compiles them
+    (K7 with a ``chain``: its chain instance), else the plain version alone
+    (CPU), each row tile its own block or interval, as the reference's grid
+    walks them."""
     if tiles is None and not why:
         return GroupedPlan("sm90", sm90_tiles, SM90_CHUNK, **extra)
     if tiles is None:
         tiles = _tiles_for(table, dtype, bm, name)
     tiles = tuple(tiles)
-    inst = "simt" if tiles in table.get(dtype, ()) else "plain"
-    return GroupedPlan(inst, tiles, tiles[0], reason=why or "pinned tiles")
+    why = why or "pinned tiles"
+    if tiles not in table.get(dtype, ()):
+        return GroupedPlan("plain", tiles, tiles[0], reason=why)
+    if chain:
+        return GroupedPlan("simt_chain", tiles, tiles[0], reason=(
+            f"{why}; the chain {tuple(chain)} on the SIMT chain instance"))
+    return GroupedPlan("simt", tiles, tiles[0], reason=why)
 
 
 @functools.lru_cache(maxsize=1024)
 def plan_k7(n: int, k: int, dtype, bm: int, *, level: str = "off",
             buf_strides: Sequence[int], w_strides: Sequence[int],
-            aligned: bool = True,
+            aligned: bool = True, chain: Tuple[str, ...] = (),
             tiles: Optional[Sequence[int]] = None) -> GroupedPlan:
     """K7's instance, tiles and chunk for a (t_buf, K) buffer of row tile
     ``bm`` against w (G, K, N) with strides ``w_strides`` at FT ``level``
@@ -215,9 +236,15 @@ def plan_k7(n: int, k: int, dtype, bm: int, *, level: str = "off",
     whose w is row-major or the wᵀ view (unit stride along n or along k,
     the other strides multiples of 8 elements), with 16-byte aligned
     bases; every other call runs on the SIMT instance at
-    ``GROUPED_TILES`` (by this rule, never as a fallback). Explicit
-    ``tiles`` pin the SIMT instance (or, at tiles it does not compile, the
-    plain version alone). A pure function of its arguments, cached."""
+    ``GROUPED_TILES`` (by this rule, never as a fallback). A ``chain`` (an
+    aux-free list of activations) changes nothing on the tensor cores,
+    which apply it in their store; on the SIMT kernel it sends the call to
+    the chain instance ("simt_chain", `GroupedPlan.reason` naming it). A
+    chain longer than `ft_gemm.CHAIN_CAP` raises NotImplementedError.
+    Explicit ``tiles`` pin the SIMT instances (or, at tiles they do not
+    compile, the plain version alone). A pure function of its arguments,
+    cached."""
+    _check_chain_cap(chain)
     swg, swk, swn = w_strides
     w_n = swn == 1 and swk % 8 == 0 and swk >= n
     w_k = swk == 1 and swn % 8 == 0 and swn >= k
@@ -233,7 +260,7 @@ def plan_k7(n: int, k: int, dtype, bm: int, *, level: str = "off",
     elif not aligned:
         why = "a base pointer not 16-byte aligned"
     return _pick(why, tiles, SM90_GROUPED_TILES, GROUPED_TILES, dtype, bm,
-                 "ft_gemm_grouped", w_kmajor=w_k and not w_n)
+                 "ft_gemm_grouped", chain, w_kmajor=w_k and not w_n)
 
 
 @functools.lru_cache(maxsize=1024)
@@ -264,12 +291,14 @@ def _aligned(*xs: torch.Tensor) -> bool:
 
 
 def plan_k7_call(buf: torch.Tensor, w: torch.Tensor, gid: torch.Tensor,
-                 tiles=None, ft: Optional[FTConfig] = None) -> GroupedPlan:
+                 tiles=None, ft: Optional[FTConfig] = None,
+                 chain=()) -> GroupedPlan:
     """`plan_k7` of a call of `ft_gemm_grouped` on these operands."""
     bm = buf.shape[0] // max(gid.shape[0], 1)
     return plan_k7(w.shape[2], buf.shape[1], buf.dtype, bm,
                    level=ft_level(ft), buf_strides=tuple(buf.stride()),
                    w_strides=tuple(w.stride()), aligned=_aligned(buf, w),
+                   chain=tuple(chain),
                    tiles=None if tiles is None else tuple(tiles))
 
 
@@ -321,6 +350,7 @@ def _chunks(gid: torch.Tensor, row_end: torch.Tensor, bm: int, chunk: int,
 def ft_gemm_grouped_plain(buf: torch.Tensor, w: torch.Tensor,
                           gid: torch.Tensor, row_end: torch.Tensor, *,
                           tiles: Sequence[int], chunk: Optional[int] = None,
+                          chain: Tuple[str, ...] = (),
                           ft: Optional[FTConfig] = None,
                           inj: Optional[Sequence[int]] = None,
                           inj_mag: float = 0.0,
@@ -347,7 +377,10 @@ def ft_gemm_grouped_plain(buf: torch.Tensor, w: torch.Tensor,
     at "block" or "inner" verifies each of its bm-row bands on its own (the
     band's column sums and column checksums, its rows' residuals, the
     block's tau), so each tile's SEU is located and corrected whatever the
-    others do, and each row tile's report row holds its band's record."""
+    others do, and each row tile's report row holds its band's record.
+    ``chain``, an aux-free list of activations, is applied to the f32
+    accumulator after the final verification (after the last step's at
+    "inner"; alone with FT off), every row of a block, then rounded."""
     t_buf, k = buf.shape
     _, k2, n = w.shape
     bm, bn, bk = tiles
@@ -465,6 +498,8 @@ def ft_gemm_grouped_plain(buf: torch.Tensor, w: torch.Tensor,
             verify(acc, colck, rowck, k_el)
     if ft_on and level != "inner":
         verify(acc, colck, rowck, torch.tensor(float(k), device=dev))
+    for name in chain:
+        acc = epilogues.activation(name)(acc)
     out = torch.zeros(t_buf, np_, device=dev)
     out[rows[inside]] = acc[inside]
     out = out[:, :n].to(buf.dtype)
@@ -489,7 +524,7 @@ def planned_grouped_plain(buf: torch.Tensor, w: torch.Tensor,
     """`ft_gemm_grouped_plain` under the plan `ft_gemm_grouped` follows for
     these operands (its tiles and chunk), on any device: the comparison
     side of the kernel on the card."""
-    p = plan_k7_call(buf, w, gid, tiles, kw.get("ft"))
+    p = plan_k7_call(buf, w, gid, tiles, kw.get("ft"), kw.get("chain", ()))
     return ft_gemm_grouped_plain(buf, w, gid, row_end, tiles=p.tiles,
                                  chunk=p.chunk, **kw)
 
@@ -515,25 +550,31 @@ def seu_tile_draws(rng: Optional[Sequence[int]], ft: Optional[FTConfig],
 # ---------------------------------------------------------------------------
 
 def ft_gemm_grouped(buf: torch.Tensor, w: torch.Tensor, gid: torch.Tensor,
-                    row_end: torch.Tensor, *, ft: Optional[FTConfig] = None,
+                    row_end: torch.Tensor, *, chain: Tuple[str, ...] = (),
+                    ft: Optional[FTConfig] = None,
                     inj: Optional[Sequence[int]] = None,
                     inj_mag: float = 0.0,
                     tiles: Optional[Sequence[int]] = None,
                     rng: Optional[Sequence[int]] = None
                     ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """y_buf = buf @ w[gid] per row tile, with online ABFT at ``ft.level``
-    when ``ft`` is enabled (K7); ``rng``, a campaign's triple, arms the
-    stochastic SEU hook (`seu_tile_draws`). The row tile is t_buf /
-    len(gid); `plan_k7` picks the instance, tiles and chunk (``tiles`` pins
-    them). A CPU tensor runs `ft_gemm_grouped_plain` under that plan; a
+    """y_buf = chain(buf @ w[gid]) per row tile, with online ABFT at
+    ``ft.level`` when ``ft`` is enabled (K7); ``chain`` is an aux-free list
+    of activations; ``rng``, a campaign's triple, arms the stochastic SEU
+    hook (`seu_tile_draws`). The row tile is t_buf / len(gid); `plan_k7`
+    picks the instance, tiles and chunk (``tiles`` pins them). A CPU
+    tensor runs `ft_gemm_grouped_plain` under that plan; a
     CUDA tensor launches the kernel or raises. Returns (y_buf,
     report|None) as the plain version does."""
-    p = plan_k7_call(buf, w, gid, tiles, ft)
+    chain = tuple(chain)
+    if any(epilogues.get(x).aux is not None for x in chain):
+        raise ValueError(f"ft_gemm_grouped: the grouped kernel takes an "
+                         f"aux-free chain, got {chain}")
+    p = plan_k7_call(buf, w, gid, tiles, ft, chain)
     ft_on, level, _ = _check_ft(ft, p.tiles, "grouped")
     if buf.device.type == "cpu":
         return ft_gemm_grouped_plain(buf, w, gid, row_end, tiles=p.tiles,
-                                     chunk=p.chunk, ft=ft, inj=inj,
-                                     inj_mag=inj_mag, rng=rng)
+                                     chunk=p.chunk, chain=chain, ft=ft,
+                                     inj=inj, inj_mag=inj_mag, rng=rng)
     if buf.device.type != "cuda":
         raise ValueError(f"ft_gemm_grouped: unsupported device {buf.device}")
     build.check_device(buf)
@@ -572,7 +613,8 @@ def ft_gemm_grouped(buf: torch.Tensor, w: torch.Tensor, gid: torch.Tensor,
             out.data_ptr(), None if rep is None else rep.data_ptr(),
             t_buf, n, k, w.shape[0], buf.stride(0),
             swn if p.w_kmajor else swk, swg, int(p.w_kmajor),
-            SM90_LEVELS[level], int(ft_on and ft.verify == "step"),
+            SM90_LEVELS[level], chain_code(chain), len(chain),
+            int(ft_on and ft.verify == "step"),
             int(ft_on and ft.corrects),
             ft.rel_tau * F32EPS if ft_on else 0.0, *inj, float(inj_mag),
             *seu_args(rng, ft, seu.SALT_GEMM2D),
@@ -581,12 +623,17 @@ def ft_gemm_grouped(buf: torch.Tensor, w: torch.Tensor, gid: torch.Tensor,
     # LAYOUT 1 walks B's tile loads along a unit-stride k (w.transpose in
     # the dbuf product); row-major otherwise.
     layout = 1 if (swk == 1 and swn != 1) else 0
-    FT_GEMM_GROUPED_SIMT(
+    # the chain instance takes the op list after the layout
+    kernel, codes = ((FT_GEMM_GROUPED_CHAIN, (chain_code(chain), len(chain)))
+                     if p.instance == "simt_chain"
+                     else (FT_GEMM_GROUPED_SIMT, ()))
+    kernel(
         buf.data_ptr(), w.data_ptr(), gid.data_ptr(), row_end.data_ptr(),
         out.data_ptr(), None if rep is None else rep.data_ptr(),
         t_buf, n, k, w.shape[0], buf.stride(0), buf.stride(1), swg, swk, swn,
         DTYPE_CODES[buf.dtype], int(ft_on), LEVELS.get(level, 0), bm, layout,
-        int(ft_on and ft.verify == "step"), int(ft_on and ft.corrects),
+        *codes, int(ft_on and ft.verify == "step"),
+        int(ft_on and ft.corrects),
         ft.rel_tau * F32EPS if ft_on else 0.0, *inj, inj_mag,
         *seu_args(rng, ft, seu.SALT_GEMM2D),
         torch.cuda.current_stream(buf.device).cuda_stream)

@@ -176,8 +176,12 @@ def grouped_gemm_call(spec: KernelSpec, a: torch.Tensor, b: torch.Tensor, *,
         transpose GEMM (K8), dw[g] = Σ_{t: group_ids[t]=g} a[t] ⊗ b[t],
         (G, K, N) f32 — the MoE backward dw.
 
-    K7 and K8 run every FT level; the "tile" level's band is
-    `templates.spec.band_of` of their tiles (K7's rows, K8's dw rows).
+    K5 and K7 apply ``spec.epilogue``, an aux-free chain (silu, gelu and
+    relu in any order, at most `ft_gemm.CHAIN_CAP` ops), after the final
+    verification (after the last step's at "inner"); K8 drops it, as the
+    reference's front does (it produces a gradient). All three run every
+    FT level; the "tile" level's band is `templates.spec.band_of` of their
+    tiles (K5's and K7's rows, K8's dw rows).
 
     Returns (C, report|None)."""
     if a.dim() == 2:
@@ -191,7 +195,8 @@ def grouped_gemm_call(spec: KernelSpec, a: torch.Tensor, b: torch.Tensor, *,
                 raise ValueError("grouped_gemm_call: the tgmm branch needs "
                                  "n_groups")
             return kgrouped.tgmm_matmul_rows(
-                dataclasses.replace(gspec, tgmm=True), a, b, group_ids,
+                dataclasses.replace(gspec, epilogue=(), tgmm=True), a, b,
+                group_ids,
                 n_groups=n_groups, ft=ft, inject=inject, tiles=tiles,
                 out_dtype=out_dtype, key=key)
         return kgrouped.grouped_matmul_rows(
@@ -204,15 +209,14 @@ def grouped_gemm_call(spec: KernelSpec, a: torch.Tensor, b: torch.Tensor, *,
     ft = _resolve(bspec, ft)
     rng = kflash.encode_rng(key, ft) if bspec.ft else None
     _check_out_dtype(a, out_dtype)
-    if bspec.epilogue:
-        raise NotImplementedError("the batched kernel has no epilogue chain")
     if b.dim() not in (2, a.dim()) or b.shape[-2] != a.shape[-1] or (
             b.dim() > 2 and b.shape[:-2] != a.shape[:-2]):
         raise ValueError(f"grouped_gemm_call: bad shapes {tuple(a.shape)} x "
                          f"{tuple(b.shape)}")
     inj, mag = encode_batched_injection(inject, inj_batch)
-    return kgemm.ft_gemm(a, b, ft=ft if bspec.ft else None, inj=inj,
-                         inj_mag=mag, tiles=tiles, rng=rng)
+    return kgemm.ft_gemm(a, b, chain=bspec.epilogue,
+                         ft=ft if bspec.ft else None, inj=inj, inj_mag=mag,
+                         tiles=tiles, rng=rng)
 
 
 def ft_matmul(a: torch.Tensor, b: torch.Tensor, *,

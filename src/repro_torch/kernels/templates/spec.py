@@ -81,12 +81,13 @@ class KernelSpec:
 class BatchedKernelSpec(KernelSpec):
     """Uniform batched variant: A (B, M, K) × B (B, K, N), or a shared
     (K, N) right operand. Every output block keeps its own checksums and
-    report row; aux-operand epilogues are not supported.
+    report row; aux-operand epilogues are not supported, aux-free chains
+    (activations) are.
 
     ``grouped``: A is a (t_buf, K) group-sorted buffer and B (G, K, N) one
-    matrix per group, each row tile multiplied by its group's B (K7).
-    ``tgmm``: dw[g] = X_gᵀ·G_g over two buffers of one layout (K8). Both
-    are epilogue-free."""
+    matrix per group, each row tile multiplied by its group's B (K7), with
+    the same aux-free chains. ``tgmm``: dw[g] = X_gᵀ·G_g over two buffers
+    of one layout (K8), epilogue-free (it produces a gradient)."""
     grouped: bool = False
     tgmm: bool = False
 
@@ -99,9 +100,9 @@ class BatchedKernelSpec(KernelSpec):
                              f"chains only, got {self.epilogue}")
         if self.grouped and self.tgmm:
             raise ValueError("tgmm is its own body, not grouped=True")
-        if (self.grouped or self.tgmm) and self.epilogue:
-            raise ValueError(f"the grouped and tgmm variants are "
-                             f"epilogue-free, got {self.epilogue}")
+        if self.tgmm and self.epilogue:
+            raise ValueError(f"the tgmm variant is epilogue-free, got "
+                             f"{self.epilogue}")
 
 
 #: Compiled K1/K5 (bm, bn, bk) tile configurations, in the order of

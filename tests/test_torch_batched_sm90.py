@@ -95,7 +95,7 @@ PLAN_CASES = [
     ("an epilogue chain", REP, S, DH, dict(chain=("silu",),
                                            a_strides=Q_STRIDES,
                                            b_strides=KT_STRIDES),
-     "simt", SIMT_WIDE, None, "chain"),
+     "sm90", NARROW, True, ""),
 ]
 
 

@@ -168,8 +168,8 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
         ft_gemm.ft_gemm(a[None, None, None], b, ft=FT)        # 3 batch dims
     with pytest.raises(ValueError):
         ft_gemm.ft_gemm(a, b, ft=FT, tiles=(32, 32, 32))
-    with pytest.raises(NotImplementedError):    # two activations
-        ft_gemm.ft_gemm(a, b, ft=FT, chain=("gelu", "relu"))
+    with pytest.raises(NotImplementedError):    # 11 ops: past the cap
+        ft_gemm.ft_gemm(a, b, ft=FT, chain=("gelu", "relu") * 5 + ("silu",))
     from repro_torch.kernels import grouped_gemm    # K7 at tile: its SIMT
     before = grouped_gemm.FT_GEMM_GROUPED_SIMT.launches  # instance, planned
     out, rep = grouped_gemm.ft_gemm_grouped(
@@ -181,9 +181,9 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(cuda):
     assert grouped_gemm.FT_GEMM_GROUPED_SIMT.launches == before + 1
     assert torch.equal(out, torch.full((16, 8), 16.0, device="cuda"))
     assert float(rep[..., 0].sum()) == 0.0
-    with pytest.raises(NotImplementedError):       # two activations at tile
+    with pytest.raises(NotImplementedError):       # past the cap at tile
         ft_gemm.ft_gemm(a, b, ft=FT.replace(level="tile"),
-                        chain=("gelu", "residual", "silu"),
+                        chain=("gelu", "residual") + ("silu",) * 9,
                         residual=torch.ones(8, 8, device="cuda"))
     with pytest.raises(TypeError):
         ft_gemm.ft_gemm(a.half(), b.half(), ft=FT)
@@ -2606,14 +2606,27 @@ def test_k5_simt_at_ssd_shapes_matches_plain(cuda, product, level):
     assert float(rep_d[..., 1].sum()) == 0.0
 
 
-def test_k5_simt_raises_above_its_grid(cuda):
-    """The SIMT K5 puts the batch on gridDim.z (at most 65 535): a larger
-    batch raises, with no silent split."""
-    a = torch.ones(65_536, 17, 8, dtype=torch.bfloat16, device="cuda")
-    b = torch.ones(65_536, 8, 8, dtype=torch.bfloat16, device="cuda")
+def test_k5_simt_takes_more_than_65535_slices(cuda):
+    """The SIMT K5 walks (slice, row block, column block) on a 1-D grid, so
+    70 000 slices of (17 x 8)·(8 x 8) run in one launch: outputs and every
+    report row equal to the plain version's, an SEU in slice 69 999
+    corrected and located there."""
+    gen = torch.Generator(device="cuda").manual_seed(70)
+    a = _ints(gen, 70_000, 17, 8, dtype=torch.bfloat16)
+    b = _ints(gen, 70_000, 8, 8, dtype=torch.bfloat16)
     assert ft_gemm.plan_call(a, b, ft=FT).instance == "simt"
-    with pytest.raises(RuntimeError, match="CUDA error"):
-        ft_gemm.ft_gemm(a, b, ft=FT)
+    for inj in (None, (1, 69_999, 16, 7, 0)):
+        kw = dict(ft=FT, inj=inj, inj_mag=64.0)
+        (got, rep), n = _launched((ft_gemm.FT_GEMM_BATCHED,),
+                                  lambda: ft_gemm.ft_gemm(a, b, **kw))
+        assert n == [1]
+        want, rep_p = ft_gemm.planned_plain(a, b, **kw)
+        assert torch.equal(got, want) and rep.shape == (70_000, 1, 1, 8)
+        _check_fields(rep, rep_p)
+        hit = (rep[..., 0] > 0).nonzero().tolist()
+        assert hit == ([] if inj is None else [[69_999, 0, 0]])
+        if inj is not None:
+            assert rep[69_999, 0, 0, :4].tolist() == [1.0, 1.0, 16.0, 7.0]
 
 
 def test_mamba2_full_width_kernels_match_plain(cuda, monkeypatch):
@@ -2665,3 +2678,258 @@ def test_mamba2_full_width_kernels_match_plain(cuda, monkeypatch):
             err = float((g_ - w_).abs().max())
             assert bool(torch.isfinite(g_).all())
             assert err <= 2e-2 * float(w_.abs().max())
+
+
+# ---------------------------------------------------------------------------
+# The last parts of the TPU kernels: K5's and K7's activation chains on
+# both instances of each, K1's chains of several activations on the chain
+# instance
+# ---------------------------------------------------------------------------
+
+ACT_CHAINS = [("relu",), ("gelu", "relu"), ("silu", "gelu", "relu")]
+ALL_LEVELS = ["off", "block", "tile", "inner"]
+
+
+def _ft_at(level):
+    return None if level == "off" else FT.replace(level=level)
+
+
+def _chain_seus(call, plain, ft, inj, hits):
+    """An SEU of 64 under ``ft``: corrected to the clean output bit for bit
+    with ``hits`` detections and corrections and the plain version's
+    report, then left by detect-only (no correction)."""
+    clean, _ = call(ft=ft)
+    fixed, rep = call(ft=ft, inj=inj, inj_mag=64.0)
+    _, rep_p = plain(ft=ft, inj=inj, inj_mag=64.0)
+    _check_fields(rep, rep_p)
+    assert torch.equal(fixed, clean)
+    assert float(rep[..., 0].sum()) == float(rep[..., 1].sum()) == hits
+    _, rep_d = call(ft=ft.replace(action="detect"), inj=inj, inj_mag=64.0)
+    assert float(rep_d[..., 1].sum()) == 0.0
+    assert float(rep_d[..., 0].sum()) >= hits
+
+
+@pytest.mark.parametrize("level", ALL_LEVELS)
+@pytest.mark.parametrize("chain", ACT_CHAINS, ids="+".join)
+def test_k5_sm90_chains_match_plain(cuda, chain, level):
+    """K5 with a chain on its tensor-core instance (csrc/batched_sm90.cu),
+    on decode attention's K-cache view (two batch dims, a ragged last
+    column block) and a shared B: outputs within one bf16 ulp of the plain version under the
+    same plan, reports equal, an SEU in every slice corrected bit for bit
+    (FT on)."""
+    gen = torch.Generator(device="cuda").manual_seed(len(chain) + 5)
+    for product in ("qk", "shared"):
+        a, b = _k5_operands(gen, product, 3, 2, 7, 520, 128,
+                            lambda g, *sh: _ints_bf16(g, *sh))
+        ft = _ft_at(level)
+        p = ft_gemm.plan_call(a, b, chain=chain, ft=ft)
+        assert p.instance == "sm90" and not p.reason
+
+        def call(**kw):
+            res, n = _launched((ft_gemm.FT_GEMM_BATCHED_SM90, ft_gemm.FT_GEMM_K5),
+                               lambda: ft_gemm.ft_gemm(a, b, chain=chain, **kw))
+            assert n == [1, 1]
+            return res
+
+        def plain(**kw):
+            return ft_gemm.planned_plain(a, b, chain=chain, **kw)
+
+        out, rep = call(ft=ft)
+        out_p, rep_p = plain(ft=ft)
+        _bf16_close(out, out_p)
+        assert float(out.float().min()) >= 0.0
+        if ft is None:
+            assert rep is None
+            continue
+        _check_fields(rep, rep_p)
+        assert float(rep[..., 0].sum()) == 0.0
+        slices = a.shape[:-2].numel()
+        _chain_seus(call, plain, ft, (1, -1, 6, 100, 0), slices)
+
+
+@pytest.mark.parametrize("level", ALL_LEVELS)
+@pytest.mark.parametrize("chain", ACT_CHAINS, ids="+".join)
+def test_k5_simt_chains_match_plain(cuda, chain, level):
+    """K5 with a chain on the SIMT chain instance: f32 (both SIMT tiles)
+    and bf16 above 16 rows (mamba2's SSD kind), integer operands: outputs
+    and reports equal to the plain version's, an SEU in slice 1 corrected
+    and located (FT on)."""
+    gen = torch.Generator(device="cuda").manual_seed(len(chain) + 50)
+    ft = _ft_at(level)
+    for dtype, (nb, m, k, n) in ((torch.float32, (5, 7, 200, 130)),
+                                 (torch.float32, (3, 100, 97, 200)),
+                                 (torch.bfloat16, (6, 40, 64, 96))):
+        a = _ints(gen, nb, m, k, dtype=dtype)
+        b = _ints(gen, nb, k, n, dtype=dtype)
+        p = ft_gemm.plan_call(a, b, chain=chain, ft=ft)
+        assert p.instance == "simt_chain" and p.tiles == ft_gemm.pick_tiles(m)
+
+        def call(**kw):
+            res, c = _launched((ft_gemm.FT_GEMM_BATCHED_CHAIN,
+                                ft_gemm.FT_GEMM_CHAIN, ft_gemm.FT_GEMM_K5),
+                               lambda: ft_gemm.ft_gemm(a, b, chain=chain, **kw))
+            assert c == [1, 0, 1]
+            return res
+
+        def plain(**kw):
+            return ft_gemm.planned_plain(a, b, chain=chain, **kw)
+
+        out, rep = call(ft=ft)
+        out_p, rep_p = plain(ft=ft)
+        if dtype == torch.float32:
+            torch.testing.assert_close(out, out_p, rtol=1e-5, atol=1e-5)
+        else:
+            _bf16_close(out, out_p)
+        if ft is None:
+            assert rep is None
+            continue
+        (_check_reports if dtype == torch.float32 else _check_fields)(
+            rep, rep_p)
+        assert float(rep[..., 0].sum()) == 0.0
+        _chain_seus(call, plain, ft, (1, 1, m - 1, n - 2, 1), 1)
+
+
+@pytest.mark.parametrize("level", ALL_LEVELS)
+@pytest.mark.parametrize("chain", ACT_CHAINS[:2], ids="+".join)
+def test_k7_sm90_chains_match_plain(cuda, chain, level):
+    """K7 with a chain on its tensor-core instance, both walks of w: a
+    group of two 64-row chunks (the second past row_end), empty groups and
+    a dead tail (its rows stay 0 = chain(0)); outputs equal to the plain
+    version's, reports equal, an SEU past a chunk's start corrected bit
+    for bit (FT on)."""
+    from repro_torch.kernels import grouped_gemm as kgg
+    lay, glay = _sm90_layout(len(chain))
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    k, n, ng = 320, 200, len(SM90_SIZES)
+    buf = glay.scatter_rows(_ints(gen, lay.n_rows, k, dtype=torch.bfloat16),
+                            lay)
+    ft = _ft_at(level)
+    for w in (_ints(gen, ng, k, n, dtype=torch.bfloat16),
+              _ints(gen, ng, n, k, dtype=torch.bfloat16).transpose(-1, -2)):
+        p = kgg.plan_k7_call(buf, w, lay.gid, ft=ft, chain=chain)
+        assert p.instance == "sm90" and not p.reason
+
+        def call(**kw):
+            res, c = _launched((kgg.FT_GEMM_GROUPED_SM90, kgg.FT_GEMM_GROUPED),
+                               lambda: kgg.ft_gemm_grouped(
+                                   buf, w, lay.gid, lay.row_end, chain=chain,
+                                   **kw))
+            assert c == [1, 1]
+            return res
+
+        def plain(**kw):
+            return kgg.planned_grouped_plain(buf, w, lay.gid, lay.row_end,
+                                             chain=chain, **kw)
+
+        out, rep = call(ft=ft)
+        out_p, rep_p = plain(ft=ft)
+        _bf16_close(out, out_p)
+        assert float(out.float().min()) >= 0.0
+        assert not bool(out[_dead_rows(lay)].any())
+        if ft is None:
+            continue
+        _check_fields(rep, rep_p)
+        assert float(rep[..., 0].sum()) == 0.0
+        re = lay.row_end.tolist()
+        _chain_seus(call, plain, ft, (1, re[2] - 1, n - 1, 1), 1)
+
+
+@pytest.mark.parametrize("level", ALL_LEVELS)
+@pytest.mark.parametrize("chain", ACT_CHAINS[:2], ids="+".join)
+def test_k7_simt_chains_match_plain(cuda, chain, level):
+    """K7 with a chain on its SIMT chain instance (csrc/ft_gemm_chain.cu):
+    f32 at row tiles 8 and 16 (the plan) and bf16 at pinned SIMT tiles, on
+    both walks of w; integer operands, outputs and reports equal to the
+    plain version's, an SEU in a ragged group corrected and located (FT
+    on)."""
+    from repro_torch.kernels import grouped_gemm as kgg
+    ft = _ft_at(level)
+    k, n, ng = 200, 300, len(GROUP_SIZES)
+    for dtype, bm, tiles in ((torch.float32, 8, None),
+                             (torch.float32, 16, None),
+                             (torch.bfloat16, 16, (16, 128, 32))):
+        lay, glay = _grouped_layout(GROUP_SIZES, bm, 2)
+        gen = torch.Generator(device="cuda").manual_seed(bm + len(chain))
+        buf = glay.scatter_rows(_ints(gen, lay.n_rows, k, dtype=dtype), lay)
+        for w in (_ints(gen, ng, k, n, dtype=dtype),
+                  _ints(gen, ng, n, k, dtype=dtype).transpose(-1, -2)):
+            p = kgg.plan_k7_call(buf, w, lay.gid, tiles, ft, chain)
+            assert p.instance == "simt_chain" and str(chain) in p.reason
+
+            def call(**kw):
+                res, c = _launched(
+                    (kgg.FT_GEMM_GROUPED_CHAIN, kgg.FT_GEMM_GROUPED_SIMT,
+                     kgg.FT_GEMM_GROUPED),
+                    lambda: kgg.ft_gemm_grouped(buf, w, lay.gid, lay.row_end,
+                                                chain=chain, tiles=tiles,
+                                                **kw))
+                assert c == [1, 0, 1]
+                return res
+
+            def plain(**kw):
+                return kgg.planned_grouped_plain(
+                    buf, w, lay.gid, lay.row_end, chain=chain, tiles=tiles,
+                    **kw)
+
+            out, rep = call(ft=ft)
+            out_p, rep_p = plain(ft=ft)
+            if dtype == torch.float32:
+                torch.testing.assert_close(out, out_p, rtol=1e-5, atol=1e-5)
+            else:
+                _bf16_close(out, out_p)
+            if ft is None:
+                continue
+            _check_fields(rep, rep_p)
+            assert float(rep[..., 0].sum()) == 0.0
+            row = int(lay.row_end[2]) - 1
+            _chain_seus(call, plain, ft, (1, row, n - 3, 2), 1)
+
+
+K1_ACT_CHAINS = [("gelu", "relu"), ("bias", "silu", "relu", "residual"),
+                 ("relu", "gelu", "silu"),
+                 ("bias",) + ("silu", "gelu", "relu", "gelu") * 2
+                 + ("residual",)]
+
+
+@pytest.mark.parametrize("level", ALL_LEVELS)
+@pytest.mark.parametrize("chain", K1_ACT_CHAINS,
+                         ids=lambda c: f"{len(c)}ops-{c[0]}-{c[-1]}")
+def test_k1_chains_of_several_activations_match_plain(cuda, chain, level):
+    """K1's chains of two or more activations (up to the cap, 10 ops) on the
+    chain instance: f32 integer operands at both SIMT tiles and bf16 at
+    whisper's kind of shape, against the plain version under the same plan;
+    an SEU corrected bit for bit (FT on)."""
+    ft = _ft_at(level)
+    for dtype, (m, n, k) in ((torch.float32, (7, 130, 200)),
+                             (torch.float32, (100, 200, 97)),
+                             (torch.bfloat16, (300, 520, 704))):
+        gen = torch.Generator(device="cuda").manual_seed(m + len(chain))
+        a, b = _ints(gen, m, k, dtype=dtype), _ints(gen, k, n, dtype=dtype)
+        bias = _ints(gen, n, dtype=dtype) if "bias" in chain else None
+        res = _ints(gen, m, n, dtype=dtype) if "residual" in chain else None
+        kw0 = dict(chain=chain, bias=bias, residual=res)
+        p = ft_gemm.plan_call(a, b, chain=chain, ft=ft)
+        assert p.instance == "simt_chain"
+        assert dtype != torch.bfloat16 or "two or more" in p.reason
+
+        def call(**kw):
+            res_, c = _launched((ft_gemm.FT_GEMM_CHAIN, ft_gemm.FT_GEMM_2D),
+                                lambda: ft_gemm.ft_gemm(a, b, **kw0, **kw))
+            assert c == [1, 1]
+            return res_
+
+        def plain(**kw):
+            return ft_gemm.planned_plain(a, b, **kw0, **kw)
+
+        out, rep = call(ft=ft)
+        out_p, rep_p = plain(ft=ft)
+        if dtype == torch.float32:
+            torch.testing.assert_close(out, out_p, rtol=1e-5, atol=1e-5)
+        else:
+            _bf16_close(out, out_p)
+        if ft is None:
+            continue
+        (_check_reports if dtype == torch.float32 else _check_fields)(
+            rep, rep_p)
+        assert float(rep[..., 0].sum()) == 0.0
+        _chain_seus(call, plain, ft, (1, -1, m - 1, 3, 1), 1)

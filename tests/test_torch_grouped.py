@@ -324,7 +324,9 @@ def test_rows_fronts_and_ops_branches():
     with pytest.raises(ValueError):
         TSpec(grouped=True, tgmm=True)
     with pytest.raises(ValueError):
-        TSpec(grouped=True, epilogue=("silu",))
+        TSpec(tgmm=True, epilogue=("silu",))
+    with pytest.raises(ValueError):
+        TSpec(grouped=True, epilogue=("bias", "silu"))
 
 
 # ---------------------------------------------------------------------------
